@@ -16,7 +16,7 @@ from torch.profiler import record_function
 from ascii_renderer_tpu_torch.core import quantize
 from ascii_renderer_tpu_torch.core.config import Config
 from ascii_renderer_tpu_torch.core.frame import Frame
-from ascii_renderer_tpu_torch.ascii.modal import modal_filter
+from ascii_renderer_tpu_torch.ops import ascii_kernel
 
 
 def glyph_decide(frame: Frame, *, ramp: str, mode_on: bool, mode_radius: int,
@@ -36,12 +36,14 @@ def glyph_from_index(base_idx: torch.Tensor, a_plane: torch.Tensor,
                      mode_radius: int, mode_thresh: int, grayscale: bool):
     """Image-space tail of the glyph decision, starting from a
     pre-quantized ramp-index plane (i32 [H, W]) — what
-    ``render_soup_diag(emit="idx")`` assembles."""
+    ``render_soup_diag(emit="idx")`` assembles. The modal vote is the
+    CUDA kernel B4 for a CUDA plane (``ops/ascii_kernel``)."""
     codes = torch.as_tensor(quantize.ramp_codes(ramp), device=base_idx.device)
     override = quantize.is_override(a_plane)
     idx = base_idx
     if mode_on:
-        idx = modal_filter(base_idx, override, mode_radius, mode_thresh)
+        idx = ascii_kernel.modal_filter_kernel(base_idx, override,
+                                               mode_radius, mode_thresh)
     ramp_chars = codes[idx.long()]
     chars = torch.where(override, a_plane.to(torch.uint8), ramp_chars)
 

@@ -1,0 +1,466 @@
+"""Monte-Carlo path tracer (torch port of
+``ascii_renderer_tpu/backends/pathtrace.py``; ref: pathtrace.js +
+pathtrace_shader.js + shader_utils.js) — the reference's default backend.
+
+The port traces every ray through the megakernel (``ops/pt_kernel``: the
+CUDA kernel for CUDA tensors, its plain-torch version for CPU tensors), as
+the JAX package does on its accelerator (``render_pt(use_kernel=True)``).
+RNG: the kernel's lowbias32 hash of (ray uid, seed, draw index), and the
+anti-aliasing jitter from the same hash with counters 0x40000001 and
+0x40000002; the frame seed of frame ``i`` is ``i`` (the last word of
+``jax.random.key_data(jax.random.key(i))``).
+
+Semantics preserved (per the shader): spp x bounces with NEE toward the
+(optionally animated) spherical area light and Russian roulette after
+bounce 2; the glass/mirror Fresnel branch; the sky/ground environment on a
+miss; ASCII-texture sampling, where a PRIMARY ray hitting a glyph texel
+short-circuits (colour passes through, the glyph code rides the alpha
+byte) and later hits take the glyph as a solid texel; the centre-ray /
+fetched-texel anti-aliasing rule; alpha 255 for pixels without override.
+
+Not ported (each raises ``NotImplementedError``): the XLA core
+``trace_eye_paths`` and atlases above ``MAX_ATLAS_TEXELS`` (ROADMAP A7),
+``pixel_active`` compaction (A8), row bands ``row_lo``/``n_rows`` (A12).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ascii_renderer_tpu_torch.backends.pt_core import TriPack
+from ascii_renderer_tpu_torch.core.camera import (Camera, camera_basis,
+                                                  ndc_grid, ray_dirs)
+from ascii_renderer_tpu_torch.core.frame import Frame
+from ascii_renderer_tpu_torch.ops import pt_kernel as PK
+from ascii_renderer_tpu_torch.scene.builder import SceneData
+
+EPS = 1e-3  # shader_utils.js:5
+_GOLDEN = -1640531527  # int32 golden-ratio stride between batch seeds
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to ascii_renderer_tpu_torch yet "
+        f"(ROADMAP {item})")
+
+
+def light_sphere_host(scene: SceneData):
+    """The scene's fixed light-sphere values, read to the host once per
+    scene: (animated, centre f32 [3], radius f32 0-d)."""
+    return (bool(scene.area_auto),
+            scene.area_center.detach().cpu().to(torch.float32),
+            scene.area_radius.detach().cpu().to(torch.float32))
+
+
+def get_light_sphere(scene: SceneData, time, host=None):
+    """Animated-or-fixed light sphere (shader_utils.js:83-91), computed on
+    the host in float32: (center f32 [3], radius f32 0-d), CPU tensors.
+    ``host``: a precomputed light_sphere_host(scene)."""
+    auto, center, radius = light_sphere_host(scene) if host is None else host
+    if auto:
+        t = torch.tensor(float(time), dtype=torch.float32)
+        center = torch.stack([3.0 + 2.0 * torch.sin(t),
+                              2.8 + 2.0 * torch.sin(t * 0.9),
+                              3.0 + 4.0 * torch.cos(t * 0.7)])
+    return center, radius
+
+
+def _mat_flags(scene: SceneData):
+    """Generalized LUT semantics: is_light <- emissive, is_specular <-
+    reflective; shading albedo = reflective ? 1 : albedo * 0.7."""
+    is_light = scene.mat_emissive
+    is_spec = scene.mat_reflective
+    shade = torch.where(is_spec[:, None], 1.0, scene.mat_albedo * 0.7)
+    return is_light, is_spec, shade
+
+
+class _ScenePack:
+    """Per-scene precomputation: all triangles (scene tris, quad tri1
+    (a, b, c), quad tri2 (a, c, d)) with materials, UVs and flags."""
+
+    def __init__(self, scene: SceneData):
+        self.scene = scene
+        self.sph_valid = scene.sph_valid()
+        self.n_sph = scene.sph_pos.shape[0]
+        va = torch.cat([scene.tri_a, scene.quad_a, scene.quad_a])
+        vb = torch.cat([scene.tri_b, scene.quad_b, scene.quad_c])
+        vc = torch.cat([scene.tri_c, scene.quad_c, scene.quad_d])
+        tvalid = torch.cat([scene.tri_valid(), scene.quad_valid(),
+                            scene.quad_valid()])
+        self.tri = TriPack.build(va, vb, vc, tvalid)
+        self.n_tris = va.shape[0]
+        self.tri_mat = torch.cat([scene.tri_mat, scene.quad_mat,
+                                  scene.quad_mat])
+        self.uva = torch.cat([scene.tri_uva, scene.quad_uv0, scene.quad_uv0])
+        self.uvb = torch.cat([scene.tri_uvb, scene.quad_uv1, scene.quad_uv2])
+        self.uvc = torch.cat([scene.tri_uvc, scene.quad_uv2, scene.quad_uv3])
+        nq = scene.quad_a.shape[0]
+        nt = scene.tri_a.shape[0]
+        is_quad_row = torch.cat([
+            torch.zeros(nt, dtype=torch.bool, device=va.device),
+            torch.ones(2 * nq, dtype=torch.bool, device=va.device)])
+        quad_zero = ((self.uva == 0).all(-1) & (self.uvb == 0).all(-1)
+                     & (self.uvc == 0).all(-1))
+        # texturable: tris always; quads only when some UV is nonzero
+        self.texturable = ~(is_quad_row & quad_zero)
+        self.is_light_m, self.is_spec_m, self.shade_m = _mat_flags(scene)
+
+
+def _cross(a, b):
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=-1)
+
+
+def _dot(a, b):
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def pack_scene_entries(scene: SceneData):
+    """SceneData -> (prim_packed f32 [rows, 128], atlas int32 [texels]
+    packed rgba, atlas_w, atlas_h, sph_rows), on the scene's device.
+
+    Entry layout: ops/pt_kernel.py channels; spheres first (padded to a
+    multiple of 4 entries), then all tris (scene tris + quad tri1 + quad
+    tri2), padded likewise — the JAX packer's layout and candidate order.
+    Padding entries carry C_BADS = 3e38, so the kernel's guarded
+    1 / (n . d) never meets a zero (an all-zero pad would compute 0 * inf).
+    Atlases above MAX_ATLAS_TEXELS raise (ROADMAP A7)."""
+    pk = _ScenePack(scene)
+    dev = scene.sph_pos.device
+    S, Tn = pk.n_sph, pk.n_tris
+    S_pad = -(-S // PK.PACK) * PK.PACK
+    n_pad = S_pad + (-(-Tn // PK.PACK) * PK.PACK)
+    ent = torch.zeros((n_pad, PK.N_CHAN), dtype=torch.float32, device=dev)
+    ent[:, PK.C_BADS] = 3e38
+
+    m = torch.clamp(scene.sph_mat, min=0).long()
+    sph = torch.zeros((S, PK.N_CHAN), dtype=torch.float32, device=dev)
+    sph[:, PK.C_KIND] = pk.sph_valid.to(torch.float32)
+    sph[:, PK.C_AX:PK.C_AZ + 1] = scene.sph_pos
+    sph[:, PK.C_E1X] = scene.sph_rad
+    sph[:, PK.C_SHR:PK.C_SHB + 1] = pk.shade_m[m]
+    sph[:, PK.C_ISLIGHT] = pk.is_light_m[m].to(torch.float32)
+    sph[:, PK.C_ISSPEC] = pk.is_spec_m[m].to(torch.float32)
+
+    # world -> barycentric transform per tri: unit normal n = (e1 x e2) /
+    # |e1 x e2|, plane offset d0 = n.a, rows r1 = (e2 x n) / |e1 x e2|
+    # (u = r1.(p - a)) and r2 = (n x e1) / |e1 x e2|; bad_scale = 1e-6 /
+    # |e1 x e2| reproduces Moller-Trumbore's |det| < 1e-6 cutoff;
+    # degenerate / inert tris get 3e38.
+    tm = torch.clamp(pk.tri_mat, min=0).long()
+    a_, e1_, e2_ = pk.tri.a, pk.tri.e1, pk.tri.e2
+    cn = _cross(e1_, e2_)
+    area2 = torch.sqrt(_dot(cn, cn))
+    ok = area2 > 1e-30
+    inv_area = torch.where(ok, torch.reciprocal(torch.where(ok, area2, 1.0)),
+                           0.0)
+    n_ = cn * inv_area[:, None]
+    r1 = _cross(e2_, n_) * inv_area[:, None]
+    r2 = _cross(n_, e1_) * inv_area[:, None]
+    tri = torch.zeros((Tn, PK.N_CHAN), dtype=torch.float32, device=dev)
+    tri[:, PK.C_KIND] = torch.where(pk.tri.valid, 2.0, 0.0)
+    tri[:, PK.C_NX:PK.C_NZ + 1] = n_
+    tri[:, PK.C_D0] = _dot(n_, a_)
+    tri[:, PK.C_R1X:PK.C_R1Z + 1] = r1
+    tri[:, PK.C_C1] = -_dot(r1, a_)
+    tri[:, PK.C_R2X] = r2[:, 0]
+    tri[:, PK.C_R2Y] = r2[:, 1]
+    tri[:, PK.C_R2Z] = r2[:, 2]
+    tri[:, PK.C_C2] = -_dot(r2, a_)
+    tri[:, PK.C_BADS] = torch.where(ok, 1e-6 * inv_area, 3e38)
+    tri[:, PK.C_SHR:PK.C_SHB + 1] = pk.shade_m[tm]
+    tri[:, PK.C_ISLIGHT] = pk.is_light_m[tm].to(torch.float32)
+    tri[:, PK.C_ISSPEC] = pk.is_spec_m[tm].to(torch.float32)
+    tri[:, PK.C_TEXTURABLE] = pk.texturable.to(torch.float32)
+    tri[:, PK.C_UVAX:PK.C_UVAY + 1] = pk.uva
+    tri[:, PK.C_UVBX:PK.C_UVBY + 1] = pk.uvb
+    tri[:, PK.C_UVCX:PK.C_UVCY + 1] = pk.uvc
+
+    ent[:S] = sph
+    ent[S_pad:S_pad + Tn] = tri
+    prim_packed = ent.reshape(n_pad // PK.PACK, PK.PACK * PK.N_CHAN)
+    sph_rows = S_pad // PK.PACK
+
+    ah, aw = scene.atlas_a.shape
+    if not (ah > 1 and aw > 1):
+        return (prim_packed, torch.zeros(1, dtype=torch.int32, device=dev),
+                0, 0, sph_rows)
+    if ah * aw > PK.MAX_ATLAS_TEXELS:
+        raise _not_ported(f"an atlas of {aw}x{ah} texels (above "
+                          f"MAX_ATLAS_TEXELS = {PK.MAX_ATLAS_TEXELS})", "A7")
+    rgb = scene.atlas_rgb.reshape(-1, 3).to(torch.int64)
+    al = scene.atlas_a.reshape(-1).to(torch.int64)
+    rgba = (rgb[:, 0] << 24) | (rgb[:, 1] << 16) | (rgb[:, 2] << 8) | al
+    atlas = torch.where(rgba >= 2 ** 31, rgba - 2 ** 32, rgba).to(torch.int32)
+    return prim_packed, atlas.contiguous(), aw, ah, sph_rows
+
+
+def _blockify(a: torch.Tensor, n: int, nblk: int) -> torch.Tensor:
+    flat = a.reshape(n, 3)
+    pad = nblk * PK.BLOCK - n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, 3))])
+    return flat.reshape(nblk, PK.BH, PK.BW, 3).contiguous()
+
+
+def _params(light_center, light_radius, light_color, device):
+    lc = torch.as_tensor(light_color, dtype=torch.float32).cpu()
+    return torch.cat([light_center.reshape(3), light_radius.reshape(1), lc,
+                      torch.tensor([EPS], dtype=torch.float32)]).to(device)
+
+
+def trace_eye_paths_kernel_packed(scene: SceneData, ro, rd, seed_base,
+                                  light_center, light_radius, *,
+                                  bounces: int, light_color, nee: bool,
+                                  ray_uid=None, packed=None):
+    """Trace ro/rd f32 [..., 3] through the megakernel: (lor, log, lob, ov,
+    fet), each f32 FLAT [R] in ray order. ray_uid: optional flat [R] int32
+    RNG ids (default: stream position). packed: a precomputed
+    pack_scene_entries(scene). Block gating by ray_active (adaptive
+    compaction) is ROADMAP A8."""
+    shp = rd.shape[:-1]
+    n = int(np.prod(shp))
+    nblk = -(-n // PK.BLOCK)
+    if packed is None:
+        packed = pack_scene_entries(scene)
+    prim, atlas, aw, ah, sph_rows = packed
+    params = _params(light_center, light_radius, light_color, rd.device)
+    uid = None
+    if ray_uid is not None:
+        uid = ray_uid.reshape(-1).to(torch.int32)
+        pad = nblk * PK.BLOCK - n
+        if pad:  # pad-ray uids are arbitrary (outputs discarded)
+            uid = torch.cat([uid, uid.new_zeros(pad)])
+        uid = uid.reshape(nblk, PK.BH, PK.BW)
+    outs = PK.trace_blocks_raw(
+        params, prim, _blockify(ro, n, nblk), _blockify(rd, n, nblk),
+        int(seed_base), atlas, bounces=bounces, nee=nee, atlas_w=aw,
+        atlas_h=ah, sph_rows=sph_rows, uid=uid)
+    return tuple(o.reshape(-1)[:n] for o in outs)
+
+
+def trace_eye_paths_kernel(scene: SceneData, ro, rd, seed_base, light_center,
+                           light_radius, *, bounces: int, light_color,
+                           nee: bool):
+    """Megakernel trace in image form: (Lo f32 [..., 3], override int32
+    [...], fetched bool [...])."""
+    shp = rd.shape[:-1]
+    lor, log, lob, ov, fet = trace_eye_paths_kernel_packed(
+        scene, ro, rd, seed_base, light_center, light_radius,
+        bounces=bounces, light_color=light_color, nee=nee)
+    lo = torch.stack([lor, log, lob], dim=-1).reshape(*shp, 3)
+    return (lo, torch.round(ov).to(torch.int32).reshape(shp),
+            (fet > 0.5).reshape(shp))
+
+
+def _centre_rays(cam: Camera, rows: int, cols: int, pixel_aspect, device):
+    """(basis, px, py, aspect, rd0): the host camera basis, the NDC cell
+    centres and the centre-ray directions f32 [rows, cols, 3] on
+    ``device``."""
+    basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+    px, py, aspect = ndc_grid(rows, cols, pixel_aspect, device)
+    return basis, px, py, aspect, ray_dirs(px, py, basis)
+
+
+def primary_ray_grid(cam: Camera, rows: int, cols: int, pixel_aspect,
+                     row_lo=0, n_rows: int | None = None, device="cuda"):
+    """Centre-ray grid (ro, rd, px, py) for the PT camera mapping
+    (pathtrace_shader.js:195-201): ro/rd f32 [rows, cols, 3], px/py f32
+    [rows, cols] on ``device``; the basis comes from the host camera."""
+    if row_lo != 0 or n_rows is not None:
+        raise _not_ported("row_lo / n_rows (row-band rendering)", "A12")
+    _basis, px, py, _aspect, rd0 = _centre_rays(cam, rows, cols,
+                                                pixel_aspect, device)
+    ro0 = cam.pos.to(device=device, dtype=torch.float32).expand(rows, cols, 3)
+    return ro0, rd0, px, py
+
+
+def frame_seed_of(frame_idx: int) -> int:
+    """The kernel seed of frame ``frame_idx``: the int32 view of the last
+    word of JAX's key data for ``jax.random.key(frame_idx)``, which is
+    the index itself."""
+    return PK.int32_wrap(frame_idx)
+
+
+def batch_seed_of(frame_seed: int, b: int) -> int:
+    """Seed of sample batch ``b``: a golden-ratio int32 stride from the
+    frame seed (wraps like the reference's int32 arithmetic)."""
+    return PK.int32_wrap(frame_seed + (b + 1) * _GOLDEN)
+
+
+def batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs: int, s_idx):
+    """Directions f32 [B, rows, cols, 3] of one sample batch: sample s > 0
+    of a pixel that fetched no texel is jittered inside its cell by
+    (2 (u - 0.5) / rows) * (aspect, 1), u the hash draws of the (sample,
+    pixel) uid at counters 0x40000001 / 0x40000002; the rest trace the
+    cell centre."""
+    B = uid_sp.shape[0]
+    rows, cols = px.shape
+    rows_t = torch.tensor(float(rows), device=px.device)
+    jxu = PK.hash_unit(uid_sp, bs, 0x40000001)
+    jyu = PK.hash_unit(uid_sp, bs, 0x40000002)
+    jx = (2.0 * (jxu - 0.5)) / rows_t * aspect
+    jy = (2.0 * (jyu - 0.5)) / rows_t
+    use_jit = (s_idx > 0)[:, None] & ~fetched.reshape(1, rows * cols)
+    jx = torch.where(use_jit, jx, 0.0).reshape(B, rows, cols)
+    jy = torch.where(use_jit, jy, 0.0).reshape(B, rows, cols)
+    return ray_dirs(px[None] + jx, py[None] + jy, basis)
+
+
+def render_pt(scene: SceneData, cam: Camera, time, frame_seed: int, *,
+              rows: int, cols: int, pixel_aspect: float, spp: int,
+              bounces: int, light_color, nee: bool = True,
+              sample_batch: int = 32, row_lo=0, n_rows: int | None = None,
+              pixel_active=None, packed=None, light_host=None, device=None):
+    """Full mainImage (pathtrace_shader.js:187-263) on the kernel path: a
+    centre-ray probe decides each pixel's fetched flag and primary glyph
+    override; then ceil(spp / B) batches of B = min(sample_batch, spp)
+    samples, where sample 0 re-traces the centre ray and samples > 0
+    jitter unless the pixel fetched a texel; the first overriding sample
+    replaces the total. Returns (rgb f32 [rows, cols, 3] in [0, 1], alpha
+    u8 [rows, cols]) on ``device`` (default: the scene's device).
+
+    ``frame_seed`` is the int32 kernel seed (``frame_seed_of``); pass
+    the JAX frame's ``key_data(key)[-1]``. ``packed`` and ``light_host``:
+    the scene's pack_scene_entries and light_sphere_host, if precomputed."""
+    if pixel_active is not None:
+        raise _not_ported("pixel_active (adaptive compaction)", "A8")
+    if row_lo != 0 or n_rows is not None:
+        raise _not_ported("row_lo / n_rows (row-band rendering)", "A12")
+    dev = torch.device(device) if device is not None else \
+        scene.sph_pos.device
+    if packed is None:
+        packed = pack_scene_entries(scene)
+    frame_seed = PK.int32_wrap(frame_seed)
+    with record_function("pt.rays"):
+        basis, px, py, aspect, rd0 = _centre_rays(cam, rows, cols,
+                                                  pixel_aspect, dev)
+        pos = cam.pos.to(device=dev, dtype=torch.float32)
+        light_center, light_radius = get_light_sphere(scene, time,
+                                                      light_host)
+        lcol = torch.as_tensor(light_color, dtype=torch.float32) * 1.3
+        pc = rows * cols
+        pix_uid = torch.arange(pc, dtype=torch.int32, device=dev)
+
+    def trace(ro, rd, seed, uid):
+        return trace_eye_paths_kernel_packed(
+            scene, ro, rd, seed, light_center, light_radius,
+            bounces=bounces, light_color=lcol, nee=nee, ray_uid=uid,
+            packed=packed)
+
+    # ---- phase 1: centre-ray probe (fetched flag + primary glyph hits) ----
+    with record_function("pt.trace"):
+        lor0, log0, lob0, ov0f, fet0 = trace(pos.expand(rows, cols, 3), rd0,
+                                             frame_seed, pix_uid)
+    with record_function("pt.reduce"):
+        ov0 = torch.round(ov0f).to(torch.int32)        # [pc]
+        fetched = (fet0 > 0.5).reshape(rows, cols)     # jitter mask
+
+    # ---- phase 2: batched samples ----
+    B = max(1, min(sample_batch, spp))
+    n_batches = -(-spp // B)
+    uid_sp = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * pc
+              + pix_uid[None, :])                      # [B, pc]
+    zc = torch.zeros(pc, dtype=torch.float32, device=dev)
+    tr, tg, tb, ocr, ocg, ocb = zc, zc, zc, zc, zc, zc
+    override = torch.zeros(pc, dtype=torch.int32, device=dev)
+    bsel = torch.arange(B, device=dev)[:, None]
+    for b in range(n_batches):
+        with record_function("pt.rays"):
+            bs = batch_seed_of(frame_seed, b)
+            s_idx = b * B + torch.arange(B, device=dev)
+            rd = batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs,
+                                s_idx)
+        with record_function("pt.trace"):
+            cr, cg, cb, ovf, _fet = trace(pos.expand(B, rows, cols, 3), rd,
+                                          bs, uid_sp)
+        with record_function("pt.reduce"):
+            cr, cg, cb = (c.reshape(B, pc) for c in (cr, cg, cb))
+            ov = torch.round(ovf).to(torch.int32).reshape(B, pc)
+            valid_s = (s_idx < spp)[:, None]
+            tr = tr + torch.where(valid_s, cr, 0.0).sum(0)
+            tg = tg + torch.where(valid_s, cg, 0.0).sum(0)
+            tb = tb + torch.where(valid_s, cb, 0.0).sum(0)
+            has_s = (ov > 0) & valid_s
+            first = torch.argmax(has_s.to(torch.int32), dim=0)  # first true
+            has = has_s.any(0)
+            onehot = bsel == first[None]
+
+            def sel(arr):
+                return torch.where(onehot, arr, 0).sum(0, dtype=arr.dtype)
+
+            new = has & (override == 0)
+            override = torch.where(new, sel(ov), override)
+            ocr = torch.where(new, sel(cr), ocr)
+            ocg = torch.where(new, sel(cg), ocg)
+            ocb = torch.where(new, sel(cb), ocb)
+
+    with record_function("pt.reduce"):
+        # phase-1 overrides (centre ray) take precedence — sample 0
+        has0 = ov0 > 0
+        override = torch.where(has0, ov0, override)
+        ocr = torch.where(has0, lor0, ocr)
+        ocg = torch.where(has0, log0, ocg)
+        ocb = torch.where(has0, lob0, ocb)
+        has_ov = override > 0
+        inv_spp = float(np.float32(1.0) / np.float32(spp))
+        chans = [torch.where(has_ov, torch.clamp(oc, 0.0, 1.0),
+                             torch.clamp(t * inv_spp, 0.0, 1.0))
+                 for oc, t in ((ocr, tr), (ocg, tg), (ocb, tb))]
+        a = torch.where(has_ov, override, 255).to(torch.uint8)
+        rgb = torch.stack(chans, dim=-1).reshape(rows, cols, 3)
+    return rgb, a.reshape(rows, cols)
+
+
+class PathtraceBackend:
+    """Backend-protocol wrapper (contract 5): frame ``i`` of a backend
+    draws with seed ``i``, as the JAX backend's ``jax.random.key(i)``."""
+
+    name = "pathtrace"
+
+    def __init__(self, cfg=None, device="cuda"):
+        from ascii_renderer_tpu_torch.core.config import Config
+        self.cfg = cfg or Config()
+        self.device = torch.device(device)
+        self._scene: SceneData | None = None
+        self._packed = None
+        self._light = None
+        self._frame_idx = 0
+
+    def set_scene(self, scene: SceneData):
+        """Pack the entry stream and atlas once per scene, on the
+        backend's device, and read the light sphere's fixed values. A
+        device named without an index ("cuda") takes the scene's."""
+        dev = scene.sph_pos.device
+        if dev.type != self.device.type or self.device.index not in (
+                None, dev.index):
+            raise ValueError(f"PathtraceBackend on {self.device} got a scene "
+                             f"on {dev}")
+        self.device = dev
+        self._scene = scene
+        self._packed = pack_scene_entries(scene)
+        self._light = light_sphere_host(scene)
+
+    def render(self, time_sec, camera: Camera, rows: int, cols: int,
+               pixel_aspect: float = 1.0) -> Frame:
+        if self._scene is None:
+            return Frame.blank(rows, cols, device=self.device)
+        pt = self.cfg.path_tracer
+        seed = frame_seed_of(self._frame_idx)
+        self._frame_idx += 1
+        rgb, a = render_pt(
+            self._scene, camera, time_sec, seed, rows=rows, cols=cols,
+            pixel_aspect=pixel_aspect, spp=pt.samples_per_batch,
+            bounces=pt.max_bounces, light_color=pt.light_color,
+            nee=pt.direct_light_sampling, packed=self._packed,
+            light_host=self._light, device=self.device)
+        with record_function("frame.from_float"):
+            return Frame.from_float(rgb, a)
+
+    def dispose(self):
+        self._scene = None
+        self._packed = None
+        self._light = None

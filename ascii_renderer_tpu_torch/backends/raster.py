@@ -371,7 +371,7 @@ class RasterBackend:
 
     name = "raster"
 
-    def __init__(self, cfg=None, device="cpu"):
+    def __init__(self, cfg=None, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self._scene: SceneData | None = None

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 _PITCH_LIMIT = math.pi * 0.5 - 0.1  # just shy of +/-90 deg (js/camera.js:34)
@@ -111,3 +112,91 @@ def update_camera(cam: Camera, inputs: CameraInputs, dt) -> Camera:
     pos = pos + torch.stack([zero, move * (inputs.up - inputs.down), zero])
 
     return cam.replace(pos=pos, yaw=yaw, pitch=pitch)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def _norm3(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(a[0] * a[0] + a[1] * a[1] + a[2] * a[2])
+
+
+def camera_basis(yaw, pitch, fov_y):
+    """Orthonormal camera frame used by every backend (contract 4), on the
+    host like the rest of the camera: float32 tensors on ``yaw``'s device.
+
+    Returns (uu, vv, ww, focal): ww = look dir, uu = right, vv = up,
+    focal = 1/tan(fovY/2) (ref: pathtrace_shader.js:195-201)."""
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    ww = torch.stack([cp * cy, sp, cp * sy])
+    ww = ww / _norm3(ww)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=ww.device)
+    uu = _cross(ww, up)
+    nu = _norm3(uu)
+    # Degenerate straight-up/down guard (ref: `if (length(uu) < 1e-3)`).
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
+                          device=ww.device)
+    uu = torch.where(nu < 1e-3, x_axis, uu / torch.clamp(nu, min=1e-20))
+    vv = _cross(uu, ww)
+    vv = vv / _norm3(vv)
+    one = torch.ones((), dtype=torch.float32, device=ww.device)
+    focal = one / torch.clamp(torch.tan(0.5 * fov_y), min=1e-6)
+    return uu, vv, ww, focal
+
+
+def ndc_grid(rows: int, cols: int, pixel_aspect: float, device):
+    """NDC centres (px, py) f32 [rows, cols] of the rows x cols cell grid,
+    row 0 = top (GL fragCoord has y = 0 at the bottom; the readback is
+    Y-flipped, so top row r maps to gl y = rows-1-r):
+
+      p = -1 + 2 * (pix + 0.5) / res;   p.x *= (cols/rows) * pixel_aspect
+
+    Returns (px, py, aspect), aspect the float32 (cols/rows) * pixel_aspect
+    as a Python float."""
+    aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
+    x = torch.arange(cols, dtype=torch.float32, device=device) + 0.5
+    x = x / torch.tensor(float(cols), device=device)
+    y_gl = torch.arange(rows, dtype=torch.float32, device=device).flip(0)
+    y_gl = (y_gl + 0.5) / torch.tensor(float(rows), device=device)
+    px = ((-1.0 + 2.0 * x) * aspect).expand(rows, cols)
+    py = (-1.0 + 2.0 * y_gl)[:, None].expand(rows, cols)
+    return px, py, aspect
+
+
+def ray_dirs(px, py, basis) -> torch.Tensor:
+    """normalize(px*uu + py*vv + focal*ww) -> f32 [*px.shape, 3], each
+    component in the reference's order with IEEE float32 ops, so the CPU
+    and CUDA grids agree bit for bit. ``basis`` is camera_basis's tuple
+    (host tensors)."""
+    uu, vv, ww, focal = basis
+    fw = focal * ww
+    comps = [px * uu[i].item() + py * vv[i].item() + fw[i].item()
+             for i in range(3)]
+    n = torch.sqrt(comps[0] * comps[0] + comps[1] * comps[1]
+                   + comps[2] * comps[2])
+    return torch.stack([c / n for c in comps], dim=-1)
+
+
+def primary_ray_dirs(cam: Camera, rows: int, cols: int, pixel_aspect: float,
+                     jitter: torch.Tensor | None = None, row_lo: int = 0,
+                     n_rows: int | None = None, device="cuda"):
+    """Per-cell primary ray directions, f32 [rows, cols, 3] on ``device``,
+    row 0 = top (pathtrace_shader.js:187-201, raytrace_shader.js:198-210).
+    The basis is computed on the host; the grid is built on the device.
+    ``jitter`` (optional, [rows, cols, 2]) is added to p (anti-aliasing
+    offsets, already scaled by the caller). Row bands ``row_lo``/``n_rows``
+    are ROADMAP A12 and raise."""
+    if row_lo != 0 or n_rows is not None:
+        raise NotImplementedError(
+            "row_lo / n_rows (row-band rendering) is not ported to "
+            "ascii_renderer_tpu_torch yet (ROADMAP A12)")
+    basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+    px, py, _aspect = ndc_grid(rows, cols, pixel_aspect, device)
+    if jitter is not None:
+        px = px + jitter[..., 0]
+        py = py + jitter[..., 1]
+    return ray_dirs(px, py, basis)

@@ -29,7 +29,7 @@ class Frame:
         return self.rgb.shape[1]
 
     @staticmethod
-    def blank(rows: int, cols: int, device="cpu") -> "Frame":
+    def blank(rows: int, cols: int, device="cuda") -> "Frame":
         return Frame(
             rgb=torch.zeros((rows, cols, 3), dtype=torch.uint8, device=device),
             a=torch.ones((rows, cols), dtype=torch.uint8, device=device),

@@ -18,6 +18,12 @@ import torch
 OVERRIDE_MIN = 2
 OVERRIDE_MAX = 254
 
+# Atlas alpha protocol (ref: atlas_paint.py:18-23).
+ATLAS_CLEAR = 0
+ATLAS_SOLID = 1
+ATLAS_GLYPH_MIN = 32
+ATLAS_GLYPH_MAX = 126
+
 DEFAULT_RAMP = "@%#*+=-:. "
 
 

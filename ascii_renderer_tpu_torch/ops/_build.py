@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``ops/csrc``.
 
-On first use every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared
-library with a plain C interface, which is loaded with ``ctypes``. No
-PyTorch headers are included, so the build takes seconds, and it needs no
+On first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process,
+all started together, and the objects are linked into ONE shared library
+with a plain C interface, which is loaded with ``ctypes``. No PyTorch
+headers are included, so the build takes seconds, and it needs no
 ``ninja``. The library's name carries a hash of the sources and flags, so
 an edited source never loads a stale build. The build directory is
 ``ops/build`` (listed in ``.gitignore``).
@@ -32,7 +33,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,13 @@ SIGNATURES = {
     "pack_span_launch": (_P, _P, _I, _I, _I, _I, _P),
     # (rows128, rowptr, gdepth, gskip, xl, yl, z, e, r_cap, grp_cap, stream)
     "walk_grouped_skip_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (params, prim, n_entries, n_sph, ro, rd, uid, block_active, seed,
+    #  atlas, atlas_w, atlas_h, lor, log, lob, ov, fet, n_rays, bounces,
+    #  nee, stream)
+    "pt_trace_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
+                        _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # (idx, ovr, out, H, W, radius, thresh, stream)
+    "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -91,18 +99,25 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, srcs)]
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(p)]
+                for p, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        so = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(so, out)
     return out
 
 

@@ -1,0 +1,483 @@
+// The path-trace megakernel: each thread traces one ray's whole path and
+// writes its radiance (lor, log, lob), its primary glyph override byte (ov)
+// and its primary texel-fetch flag (fet). The semantics and the arithmetic
+// are those of the plain-torch version, ops/pt_kernel.py:trace_blocks_raw_ref
+// (spheres, then triangles, then the analytic light sphere; environment on
+// a miss; light hits on specular or primary paths; the primary glyph
+// short-circuit; cosine-hemisphere or Fresnel reflect/refract sampling; NEE
+// toward the light sphere; Russian roulette from bounce 2).
+//
+// Replaces: ascii_renderer_tpu/ops/pt_kernel.py:_kernel + _kernel_body
+// (Pallas, TPU), called through trace_blocks_raw. The TPU kernel kept an
+// (8, 128) ray block in vector registers and streamed lane-replicated entry
+// rows through VMEM; its atlas fetch was a lane gather (or a one-hot MXU
+// dot). None of that carries over: here a ray is a thread, an entry is a
+// broadcast read from shared memory and a texel is one 32-bit load.
+//
+// What bounds it on the H100: FP32 and SFU issue, not memory. Per ray and
+// bounce the primary search costs ~20 flops per sphere entry and ~35 per
+// triangle entry (the demo room: 4 sphere slots + 24 triangle slots, ~920
+// flops), the NEE shadow search the same again, and the shading, BRDF and
+// NEE arithmetic ~250 flops plus ~12 SFU ops (sqrt, 1/x, sin, cos, pow).
+// Against 67 TFLOP/s FP32 that is ~30 ns per 1,000 rays and bounce; the
+// 24 + 32 bytes a ray reads and 20 it writes are noise at 3.35 TB/s.
+// Design: one thread per ray, the bounce loop and the whole path state in
+// registers; the entry stream is staged in shared memory in chunks of
+// kChunk entries (every thread reads the same entry: a broadcast, no bank
+// conflict); a ray that dies leaves the loop (its outputs can no longer
+// change, and its draws are a pure function of (uid, seed, draw index), so
+// no other ray is affected). When the whole stream fits one chunk it is
+// loaded once and a thread leaves on its own; otherwise a block leaves
+// only when all its rays are dead, because the chunk loads need every
+// thread at the barriers.
+//
+// Exactness: built with -fmad=false, so every product and sum rounds on its
+// own as in the plain version; division and sqrt are IEEE; max/clamp
+// propagate NaN as torch.clamp and jnp.maximum do; x**5 is the
+// multiply chain x * ((x*x) * (x*x)) of JAX's integer_pow; x**1.2 is powf;
+// rsqrt is 1 / sqrtf. The RNG is integer arithmetic on uint32.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlockRays = 1024;  // the TPU block: block_active granularity
+constexpr int kChan = 32;
+constexpr int kChunk = 64;        // entries per shared-memory chunk (8 KB)
+static_assert(kBlockRays % kThreads == 0, "a CUDA block in one gate group");
+
+constexpr float kBig = 3e38f;
+constexpr float kTwoPi = 6.2831853f;
+constexpr float kInv255 = (float)(1.0 / 255.0);
+
+// entry channels (ops/pt_kernel.py)
+constexpr int C_KIND = 0, C_AX = 1, C_AY = 2, C_AZ = 3, C_E1X = 4;
+constexpr int C_NX = 1, C_NY = 2, C_NZ = 3, C_D0 = 4;
+constexpr int C_R1X = 5, C_R1Y = 6, C_R1Z = 7, C_C1 = 8;
+constexpr int C_R2X = 9, C_R2Y = 22, C_R2Z = 23, C_C2 = 24, C_BADS = 25;
+constexpr int C_SHR = 10, C_SHG = 11, C_SHB = 12;
+constexpr int C_ISLIGHT = 13, C_ISSPEC = 14, C_TEXTURABLE = 15;
+constexpr int C_UVAX = 16, C_UVAY = 17, C_UVBX = 18, C_UVBY = 19;
+constexpr int C_UVCX = 20, C_UVCY = 21;
+
+// NaN-propagating max / clamp (torch.clamp, jnp.maximum, jnp.clip)
+__device__ __forceinline__ float maxn(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float clampn(float x, float lo, float hi) {
+  if (x != x) return x;
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+__device__ __forceinline__ float rsqrt_ieee(float x) {
+  return 1.0f / sqrtf(x);
+}
+
+// Draw k of a ray: lowbias32(uid ^ (seed * 0x9E3779B1 + k * 0x85EBCA6B)),
+// top 23 bits as a float in [1, 2), minus 1.
+__device__ __forceinline__ float draw(uint32_t uid, uint32_t seed_mix,
+                                      uint32_t k) {
+  uint32_t x = uid ^ (seed_mix + k * 0x85EBCA6Bu);
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return __uint_as_float((x >> 9) | 0x3F800000u) - 1.0f;
+}
+
+struct Hit {
+  float t, nx, ny, nz, shr, shg, shb, is_light, is_spec, texturable, uvx, uvy;
+};
+
+// One entry against one ray; keeps the running strict minimum (and, with
+// kAttrs, the winner's attributes).
+template <bool kAttrs>
+__device__ __forceinline__ void test_entry(const float* e, bool sphere,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float eps, Hit& h) {
+  const bool live = e[C_KIND] > 0.0f;
+  if (sphere) {
+    const float ax = e[C_AX], ay = e[C_AY], az = e[C_AZ], rad = e[C_E1X];
+    const float ocx = ox - ax, ocy = oy - ay, ocz = oz - az;
+    const float b = ocx * dx + ocy * dy + ocz * dz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+    const float hh = b * b - c;
+    const float sq = sqrtf(maxn(hh, 0.0f));
+    const float t1 = -b - sq;
+    const float t2 = -b + sq;
+    float t = t1 > eps ? t1 : (t2 > eps ? t2 : kBig);
+    if (!(hh >= 0.0f && live)) t = kBig;
+    if (t < h.t) {
+      h.t = t;
+      if (kAttrs) {
+        const float inv_r = 1.0f / maxn(rad, 1e-6f);
+        h.nx = (ox + t * dx - ax) * inv_r;
+        h.ny = (oy + t * dy - ay) * inv_r;
+        h.nz = (oz + t * dz - az) * inv_r;
+        h.shr = e[C_SHR];
+        h.shg = e[C_SHG];
+        h.shb = e[C_SHB];
+        h.is_light = e[C_ISLIGHT];
+        h.is_spec = e[C_ISSPEC];
+        h.texturable = 0.0f;
+        h.uvx = 0.0f;
+        h.uvy = 0.0f;
+      }
+    }
+  } else {
+    const float nx_ = e[C_NX], ny_ = e[C_NY], nz_ = e[C_NZ];
+    const float ndotd = nx_ * dx + ny_ * dy + nz_ * dz;
+    const bool bad = fabsf(ndotd) < e[C_BADS];
+    const float inv = 1.0f / (bad ? 1.0f : ndotd);
+    const float ndoto = nx_ * ox + ny_ * oy + nz_ * oz;
+    float t = (e[C_D0] - ndoto) * inv;
+    const float hpx = ox + t * dx, hpy = oy + t * dy, hpz = oz + t * dz;
+    const float u = e[C_R1X] * hpx + e[C_R1Y] * hpy + e[C_R1Z] * hpz + e[C_C1];
+    const float v = e[C_R2X] * hpx + e[C_R2Y] * hpy + e[C_R2Z] * hpz + e[C_C2];
+    const bool miss = bad || u < 0.0f || u > 1.0f || v < 0.0f ||
+                      u + v > 1.0f || t <= eps || !live;
+    if (miss) t = kBig;
+    if (t < h.t) {
+      h.t = t;
+      if (kAttrs) {
+        const bool flip = ndotd > 0.0f;
+        h.nx = flip ? -nx_ : nx_;
+        h.ny = flip ? -ny_ : ny_;
+        h.nz = flip ? -nz_ : nz_;
+        const float w0 = 1.0f - u - v;
+        h.uvx = w0 * e[C_UVAX] + u * e[C_UVBX] + v * e[C_UVCX];
+        h.uvy = w0 * e[C_UVAY] + u * e[C_UVBY] + v * e[C_UVCY];
+        h.shr = e[C_SHR];
+        h.shg = e[C_SHG];
+        h.shb = e[C_SHB];
+        h.is_light = e[C_ISLIGHT];
+        h.is_spec = e[C_ISSPEC];
+        h.texturable = e[C_TEXTURABLE];
+      }
+    }
+  }
+}
+
+// Nearest hit over the whole entry stream. `active` threads compute; in the
+// chunked mode every thread of the block must call this the same number of
+// times (the chunk loads are behind block barriers).
+template <bool kAttrs>
+__device__ __forceinline__ Hit stream(float* ent, const float* __restrict__ prim,
+                                      int n_entries, int n_sph, bool resident,
+                                      bool active, float ox, float oy,
+                                      float oz, float dx, float dy, float dz,
+                                      float eps) {
+  Hit h;
+  h.t = kBig;
+  h.nx = h.ny = h.nz = h.shr = h.shg = h.shb = 0.0f;
+  h.is_light = h.is_spec = h.texturable = h.uvx = h.uvy = 0.0f;
+  for (int base = 0; base < n_entries; base += kChunk) {
+    const int cnt = min(kChunk, n_entries - base);
+    if (!resident) {
+      __syncthreads();
+      for (int k = threadIdx.x; k < cnt * kChan; k += kThreads)
+        ent[k] = prim[(size_t)base * kChan + k];
+      __syncthreads();
+    }
+    if (active) {
+      for (int e = 0; e < cnt; ++e)
+        test_entry<kAttrs>(ent + e * kChan, base + e < n_sph, ox, oy, oz, dx,
+                           dy, dz, eps, h);
+    }
+  }
+  return h;
+}
+
+__global__ void __launch_bounds__(kThreads)
+pt_trace_kernel(const float* __restrict__ params,
+                const float* __restrict__ prim, int n_entries, int n_sph,
+                const float* __restrict__ ro, const float* __restrict__ rd,
+                const int* __restrict__ uid_in,
+                const int* __restrict__ block_active, int seed,
+                const uint32_t* __restrict__ atlas, int atlas_w, int atlas_h,
+                float* __restrict__ lor, float* __restrict__ log_,
+                float* __restrict__ lob, float* __restrict__ ov,
+                float* __restrict__ fet, int n_rays, int bounces, int nee) {
+  __shared__ float ent[kChunk * kChan];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  // a CUDA block lies inside one gate group: the whole block leaves
+  if (block_active != nullptr && block_active[(blockIdx.x * kThreads) /
+                                              kBlockRays] == 0) {
+    if (i < n_rays) lor[i] = log_[i] = lob[i] = ov[i] = fet[i] = 0.0f;
+    return;
+  }
+  const bool resident = n_entries <= kChunk;
+  if (resident) {
+    for (int k = threadIdx.x; k < n_entries * kChan; k += kThreads)
+      ent[k] = prim[k];
+    __syncthreads();
+  }
+
+  const float lcx = params[0], lcy = params[1], lcz = params[2];
+  const float lrad = params[3];
+  const float lcr = params[4], lcg = params[5], lcb = params[6];
+  const float eps = params[7];
+  const int texels = atlas_w > 0 ? atlas_w * atlas_h : 0;
+
+  const bool in_range = i < n_rays;
+  const int ii = in_range ? i : 0;
+  const uint32_t uid = (uint32_t)(uid_in != nullptr ? uid_in[ii] : ii);
+  const uint32_t seed_mix = (uint32_t)seed * 0x9E3779B1u;
+
+  float rox = ro[3 * ii], roy = ro[3 * ii + 1], roz = ro[3 * ii + 2];
+  float rdx = rd[3 * ii], rdy = rd[3 * ii + 1], rdz = rd[3 * ii + 2];
+  float Lr = 0.0f, Lg = 0.0f, Lb = 0.0f;
+  float Tr = 1.0f, Tg = 1.0f, Tb = 1.0f;
+  bool alive = in_range;
+  bool spec = true;
+  float override_ = 0.0f;
+  bool fetched = false;
+  uint32_t k = 0;  // draws before this bounce (a static count)
+
+  for (int j = 0; j < bounces; ++j) {
+    const bool has_nee = nee && j < bounces - 1;
+    if (resident) {
+      if (!alive) break;
+    } else if (!__syncthreads_or(alive)) {
+      break;
+    }
+    Hit h = stream<true>(ent, prim, n_entries, n_sph, resident, alive, rox,
+                         roy, roz, rdx, rdy, rdz, eps);
+    float t = h.t;
+    float nx = h.nx, ny = h.ny, nz = h.nz;
+    float shr = h.shr, shg = h.shg, shb = h.shb;
+    const bool is_spec = h.is_spec > 0.5f;
+    // light sphere (analytic, not in the entry list)
+    {
+      const float ocx = rox - lcx, ocy = roy - lcy, ocz = roz - lcz;
+      const float b = ocx * rdx + ocy * rdy + ocz * rdz;
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - lrad * lrad;
+      const float hh = b * b - c;
+      const float sq = sqrtf(maxn(hh, 0.0f));
+      const float t1 = -b - sq;
+      const float t2 = -b + sq;
+      float t_l = t1 > eps ? t1 : (t2 > eps ? t2 : kBig);
+      if (!(hh >= 0.0f)) t_l = kBig;
+      const bool lwin = t_l < t;
+      if (lwin) t = t_l;
+      h.is_light = (h.is_light > 0.5f || lwin) ? 1.0f : 0.0f;
+    }
+    const bool is_light = h.is_light > 0.5f;
+
+    const bool hit = t < 1e30f;
+    if (alive && !hit) {  // env on miss (shader_utils.js:20-25)
+      const float tt = powf(clampn(rdy * 0.5f + 0.5f, 0.0f, 1.0f), 1.2f);
+      float s = clampn((rdy + 0.05f) / 0.1f, 0.0f, 1.0f);
+      s = s * s * (3.0f - 2.0f * s);
+      const float er =
+          0.063f * (1.0f - s) + (0.90f * (1.0f - tt) + 0.45f * tt) * s;
+      const float eg =
+          0.0525f * (1.0f - s) + (0.95f * (1.0f - tt) + 0.65f * tt) * s;
+      const float eb =
+          0.042f * (1.0f - s) + (1.00f * (1.0f - tt) + 0.95f * tt) * s;
+      Lr = Lr + Tr * er;
+      Lg = Lg + Tg * eg;
+      Lb = Lb + Tb * eb;
+    }
+    alive = alive && hit;
+    if (alive && is_light && spec) {
+      Lr = Lr + Tr * lcr;
+      Lg = Lg + Tg * lcg;
+      Lb = Lb + Tb * lcb;
+    }
+    alive = alive && !is_light;
+
+    const float hx = rox + t * rdx, hy = roy + t * rdy, hz = roz + t * rdz;
+
+    if (texels > 0) {
+      const float tx = floorf(h.uvx + 0.5f), ty = floorf(h.uvy + 0.5f);
+      const bool inb = tx >= 0.0f && tx < (float)atlas_w && ty >= 0.0f &&
+                       ty < (float)atlas_h;
+      const int lin = inb ? (int)(ty * (float)atlas_w + tx) : 0;
+      const uint32_t x = atlas[lin];
+      const float txr = (float)((x >> 24) & 255u) * kInv255;
+      const float txg = (float)((x >> 16) & 255u) * kInv255;
+      const float txb = (float)((x >> 8) & 255u) * kInv255;
+      const float ab = (float)(x & 255u);
+      const bool sampled = alive && h.texturable > 0.5f && inb && ab >= 0.5f;
+      const bool glyph = sampled && ab >= 31.5f && ab <= 126.5f;
+      bool solid;
+      if (j == 0) {
+        fetched = sampled;
+        if (glyph) {
+          Lr = txr;
+          Lg = txg;
+          Lb = txb;
+          override_ = ab;
+        }
+        alive = alive && !glyph;
+        solid = sampled && ab < 1.5f;
+      } else {
+        solid = sampled;  // solid OR glyph-truncated-to-solid
+      }
+      if (solid) {
+        shr = txr;
+        shg = txg;
+        shb = txb;
+      }
+    }
+
+    // ---- next direction (BRDF) ----
+    const float u1 = draw(uid, seed_mix, k + 1);
+    const float u2 = draw(uid, seed_mix, k + 2);
+    const float phi = kTwoPi * u1;
+    const float s2 = sqrtf(1.0f - u2);
+    const bool ny_ok = fabsf(ny) < 0.999f;
+    const float axx = ny_ok ? 0.0f : 1.0f;
+    const float axy = ny_ok ? 1.0f : 0.0f;
+    float ux_ = ny * 0.0f - nz * axy;
+    float uy_ = nz * axx - nx * 0.0f;
+    float uz_ = nx * axy - ny * axx;
+    const float uinv = rsqrt_ieee(maxn(ux_ * ux_ + uy_ * uy_ + uz_ * uz_,
+                                       1e-24f));
+    ux_ = ux_ * uinv;
+    uy_ = uy_ * uinv;
+    uz_ = uz_ * uinv;
+    const float vx_ = uy_ * nz - uz_ * ny;
+    const float vy_ = uz_ * nx - ux_ * nz;
+    const float vz_ = ux_ * ny - uy_ * nx;
+    const float cp_ = s2 * cosf(phi);
+    const float sp_ = s2 * sinf(phi);
+    const float sr2 = sqrtf(u2);
+    float ddx = cp_ * ux_ + sp_ * vx_ + sr2 * nx;
+    float ddy = cp_ * uy_ + sp_ * vy_ + sr2 * ny;
+    float ddz = cp_ * uz_ + sp_ * vz_ + sr2 * nz;
+    const float dinv = rsqrt_ieee(maxn(ddx * ddx + ddy * ddy + ddz * ddz,
+                                       1e-24f));
+    ddx = ddx * dinv;
+    ddy = ddy * dinv;
+    ddz = ddz * dinv;
+
+    // specular branch (shader_utils.js:216-229)
+    const float ndotr = rdx * nx + rdy * ny + rdz * nz;
+    const bool flip = ndotr > 0.0f;
+    const float eta = flip ? 1.5f : (float)(1.0 / 1.5);
+    const float nnx = flip ? -nx : nx;
+    const float nny = flip ? -ny : ny;
+    const float nnz = flip ? -nz : nz;
+    const float om = 1.0f - fabsf(ndotr);
+    const float om2 = om * om;
+    const float fres = 0.04f + 0.96f * (om * (om2 * om2));
+    const float cosi = nnx * rdx + nny * rdy + nnz * rdz;
+    const float kk = 1.0f - eta * eta * (1.0f - cosi * cosi);
+    const bool tir = kk < 0.0f;
+    const float f = eta * cosi + sqrtf(maxn(kk, 0.0f));
+    const float rfx = eta * rdx - f * nnx;
+    const float rfy = eta * rdy - f * nny;
+    const float rfz = eta * rdz - f * nnz;
+    const float u3 = draw(uid, seed_mix, k + 3);
+    const bool use_reflect = tir || u3 < fres;
+    const float d2 = rdx * nnx + rdy * nny + rdz * nnz;
+    float sx_ = use_reflect ? rdx - 2.0f * d2 * nnx : rfx;
+    float sy_ = use_reflect ? rdy - 2.0f * d2 * nny : rfy;
+    float sz_ = use_reflect ? rdz - 2.0f * d2 * nnz : rfz;
+    const float sinv = rsqrt_ieee(maxn(sx_ * sx_ + sy_ * sy_ + sz_ * sz_,
+                                       1e-24f));
+    sx_ = sx_ * sinv;
+    sy_ = sy_ * sinv;
+    sz_ = sz_ * sinv;
+
+    const float ndx = is_spec ? sx_ : ddx;
+    const float ndy = is_spec ? sy_ : ddy;
+    const float ndz = is_spec ? sz_ : ddz;
+
+    const float ndn = ndx * nx + ndy * ny + ndz * nz;
+    if (alive && (!is_spec || ndn < 0.0f)) {
+      Tr = Tr * shr;
+      Tg = Tg * shg;
+      Tb = Tb * shb;
+    }
+
+    // ---- NEE (pathtrace_shader.js:159-169) ----
+    if (has_nee) {
+      const bool want = alive && !is_spec;
+      if (!resident || want) {
+        const float h1 = draw(uid, seed_mix, k + 4) * 2.0f - 1.0f;
+        const float h2 = draw(uid, seed_mix, k + 5) * kTwoPi;
+        const float sl = sqrtf(maxn(1.0f - h1 * h1, 0.0f));
+        const float lpx = lcx + lrad * sl * sinf(h2);
+        const float lpy = lcy + lrad * sl * cosf(h2);
+        const float lpz = lcz + lrad * h1;
+        float ldx = lpx - hx, ldy = lpy - hy, ldz = lpz - hz;
+        const float dist =
+            sqrtf(maxn(ldx * ldx + ldy * ldy + ldz * ldz, 1e-24f));
+        ldx = ldx / dist;
+        ldy = ldy / dist;
+        ldz = ldz / dist;
+        const Hit sh = stream<false>(ent, prim, n_entries, n_sph, resident,
+                                     want, hx + nx * eps, hy + ny * eps,
+                                     hz + nz * eps, ldx, ldy, ldz, eps);
+        const bool shadowed = sh.t < dist;
+        const float dlx = lcx - hx, dly = lcy - hy, dlz = lcz - hz;
+        const float dd2 = maxn(dlx * dlx + dly * dly + dlz * dlz, 1e-12f);
+        const float cam = sqrtf(1.0f - clampn(lrad * lrad / dd2, 0.0f, 1.0f));
+        const float wgt = 2.0f * (1.0f - cam);
+        const float ndl = maxn(ldx * nx + ldy * ny + ldz * nz, 0.0f);
+        if (want && !shadowed) {
+          const float wnd = wgt * ndl;
+          Lr = Lr + Tr * lcr * wnd;
+          Lg = Lg + Tg * lcg * wnd;
+          Lb = Lb + Tb * lcb * wnd;
+        }
+      }
+    }
+
+    if (alive) {
+      const float side = ndn > 0.0f ? eps : -eps;
+      rox = hx + nx * side;
+      roy = hy + ny * side;
+      roz = hz + nz * side;
+      rdx = ndx;
+      rdy = ndy;
+      rdz = ndz;
+      spec = is_spec;
+    }
+
+    if (j >= 2) {  // Russian roulette
+      const float pmax = clampn(maxn(Tr, maxn(Tg, Tb)), 0.05f, 0.95f);
+      const float u4 = draw(uid, seed_mix, k + (has_nee ? 6 : 4));
+      alive = alive && !(u4 > pmax);
+      if (alive) {
+        const float ipm = 1.0f / pmax;
+        Tr = Tr * ipm;
+        Tg = Tg * ipm;
+        Tb = Tb * ipm;
+      }
+    }
+    k += 3 + (has_nee ? 2 : 0) + (j >= 2 ? 1 : 0);
+  }
+
+  if (in_range) {
+    lor[i] = Lr;
+    log_[i] = Lg;
+    lob[i] = Lb;
+    ov[i] = override_;
+    fet[i] = fetched ? 1.0f : 0.0f;
+  }
+}
+
+}  // namespace
+
+extern "C" int pt_trace_launch(const float* params, const float* prim,
+                               int n_entries, int n_sph, const float* ro,
+                               const float* rd, const int* uid,
+                               const int* block_active, int seed,
+                               const int* atlas, int atlas_w, int atlas_h,
+                               float* lor, float* log_, float* lob, float* ov,
+                               float* fet, int n_rays, int bounces, int nee,
+                               void* stream) {
+  const int blocks = (n_rays + kThreads - 1) / kThreads;
+  pt_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      params, prim, n_entries, n_sph, ro, rd, uid, block_active, seed,
+      reinterpret_cast<const uint32_t*>(atlas), atlas_w, atlas_h, lor, log_,
+      lob, ov, fet, n_rays, bounces, nee);
+  return (int)cudaGetLastError();
+}

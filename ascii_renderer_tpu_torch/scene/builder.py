@@ -1,17 +1,19 @@
 """Scene authoring API + packed device scene (torch port of the parts of
-``ascii_renderer_tpu/scene/builder.py`` the raster main path calls).
+``ascii_renderer_tpu/scene/builder.py`` the raster and path-tracer main
+paths call).
 
 ``SceneData`` keeps every field of the JAX pytree, as tensors, so
-``tessellate_scene``, the raster shading and ``utils.from_jax`` see one
-schema. The builder covers lights, camera pose and the material table;
-spheres, quads, the atlas and the JSON schema are ROADMAP A2.
+``tessellate_scene``, the raster shading, the path tracer's packer and
+``utils.from_jax`` see one schema. The builder covers materials, lights,
+camera pose, spheres, triangles, quads, planes and the atlas; meshes and
+the JSON schema are ROADMAP A2.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +40,11 @@ def _u32(x) -> int:
     if not math.isfinite(n) or n < 0:
         return 0
     return int(n) & 0xFFFFFFFF
+
+
+def _u16(x) -> int:
+    n = int(x)
+    return 0 if n < 0 else (0xFFFF if n > 0xFFFF else n)
 
 
 def _v3(v) -> List[float]:
@@ -124,14 +131,45 @@ class SceneData:
     atlas_rgb: torch.Tensor  # u8 [AH, AW, 3]
     atlas_a: torch.Tensor  # u8 [AH, AW]
 
+    @property
+    def atlas_enabled(self) -> bool:
+        return self.atlas_rgb.shape[0] > 1 and self.atlas_rgb.shape[1] > 1
+
+    def _live(self, arr, n):
+        return torch.arange(arr.shape[0], device=arr.device) < n
+
+    def sph_valid(self):
+        return self._live(self.sph_pos, self.n_sph)
+
+    def tri_valid(self):
+        return self._live(self.tri_a, self.n_tri)
+
+    def quad_valid(self):
+        return self._live(self.quad_a, self.n_quad)
+
+    def pln_valid(self):
+        return self._live(self.pln_n, self.n_pln)
+
 
 class SceneBuilder:
-    """Fluent scene authoring (scene_api.js:52-258), raster-path subset."""
+    """Fluent scene authoring (scene_api.js:52-258)."""
 
-    def __init__(self):
+    def __init__(self, max_spheres: int = 64, max_tris: int = 4096,
+                 max_quads: int = 4096, max_planes: int = 64):
+        self._max_s = int(max_spheres)
+        self._max_t = int(max_tris)
+        self._max_q = int(max_quads)
+        self._max_p = int(max_planes)
+
         self._materials: Dict[int, Material] = {}
+        self._spheres: List[dict] = []
+        self._tris: List[dict] = []
+        self._quads: List[dict] = []
+        self._planes: List[dict] = []
         self._point_lights: List[dict] = []
         self._dir_lights: List[dict] = []
+        self._atlas_pixels: Optional[np.ndarray] = None  # u8 [H, W, 4]
+        self._atlas_size = (0, 0)
         self._env = {"color": [0.0, 0.0, 0.0], "intensity": 0.0}
         self._area = {"center": [3.0, 2.8, 3.0], "radius": 0.5, "auto": True}
         self._camera = {"pos": [2.78, 2.73, -8.00], "yaw": 0.0, "pitch": 0.0,
@@ -156,6 +194,13 @@ class SceneBuilder:
         self._materials[mid] = mat.clamped()
         return mid
 
+    def _resolve_mat(self, mat_id) -> int:
+        """Unknown/None ids coerce through _u32 exactly like the JS
+        (`undefined` -> 0 -> LIGHT exists -> used!), else fall back to WHITE
+        (scene_api.js:133)."""
+        mid = _u32(mat_id)
+        return mid if mid in self._materials else MaterialIds.WHITE
+
     def set_camera_pose(self, pos=(2.78, 2.73, -8.00), *, yaw=0.0, pitch=0.0,
                         fovy_deg=80.0) -> "SceneBuilder":
         pos = _v3(pos)
@@ -169,6 +214,12 @@ class SceneBuilder:
         self._env = {"color": _v3(color), "intensity": float(intensity)}
         return self
 
+    def set_area_light(self, center=(3, 2.8, 3), radius=0.5, *,
+                       auto=True) -> "SceneBuilder":
+        self._area = {"center": _v3(center), "radius": float(radius),
+                      "auto": bool(auto)}
+        return self
+
     def add_point_light(self, pos, color=(1, 1, 1), intensity=1.0) -> "SceneBuilder":
         self._point_lights.append({"p": _v3(pos), "color": _v3(color),
                                    "intensity": float(intensity)})
@@ -179,11 +230,129 @@ class SceneBuilder:
                                  "intensity": float(intensity)})
         return self
 
-    def build(self, *, min_pad: int = 8, device="cpu") -> SceneData:
-        """Pack into the padded struct-of-arrays scene on ``device``. Geometry
-        capacities are ``min_pad`` empty slots (this builder adds none)."""
+    def set_texture_atlas_size(self, width: int,
+                               height: int) -> "SceneBuilder":
+        self._atlas_size = (max(0, int(width)), max(0, int(height)))
+        return self
+
+    def set_atlas(self, pixels: np.ndarray) -> "SceneBuilder":
+        """Attach ASCII-texture atlas pixels, u8 [H, W, 4], (0,0) = top-left
+        (the atlas_paint.py file format; loaded via atlas.io)."""
+        pixels = np.asarray(pixels, dtype=np.uint8)
+        assert pixels.ndim == 3 and pixels.shape[2] == 4
+        self._atlas_pixels = pixels
+        self._atlas_size = (pixels.shape[1], pixels.shape[0])
+        return self
+
+    def add_sphere(self, center=(0, 0, 0), radius=1.0,
+                   material_id=MaterialIds.WHITE) -> "SceneBuilder":
+        center = _v3(center)
+        if not all(math.isfinite(v) for v in center + [radius]):
+            raise ValueError("add_sphere: bad args")
+        if len(self._spheres) >= self._max_s:
+            return self
+        self._spheres.append({"p": center, "r": float(radius),
+                              "matId": self._resolve_mat(material_id)})
+        return self
+
+    def add_triangle(self, a=(0, 0, 0), b=(1, 0, 0), c=(0, 1, 0),
+                     material_id=MaterialIds.WHITE,
+                     uv_a=(0, 0), uv_b=(0, 0), uv_c=(0, 0)) -> "SceneBuilder":
+        a, b, c = _v3(a), _v3(b), _v3(c)
+        if not all(math.isfinite(v) for v in a + b + c):
+            raise ValueError("add_triangle: bad args")
+        if len(self._tris) >= self._max_t:
+            return self
+        u = lambda uv: [_u16(uv[0] or 0), _u16(uv[1] or 0)]  # noqa: E731
+        self._tris.append({"a": a, "b": b, "c": c,
+                           "matId": self._resolve_mat(material_id),
+                           "uvA": u(uv_a), "uvB": u(uv_b), "uvC": u(uv_c)})
+        return self
+
+    def add_quad(self, a=(0, 0, 0), b=(1, 0, 0), c=(1, 1, 0), d=(0, 1, 0),
+                 material_id=MaterialIds.WHITE, uv0=(0, 0), uv1=(0, 0),
+                 uv2=(0, 0), uv3=(0, 0)) -> "SceneBuilder":
+        a, b, c, d = _v3(a), _v3(b), _v3(c), _v3(d)
+        if not all(math.isfinite(v) for v in a + b + c + d):
+            raise ValueError("add_quad: bad args")
+        if len(self._quads) >= self._max_q:
+            return self
+        u = lambda uv: [_u16(uv[0] or 0), _u16(uv[1] or 0)]  # noqa: E731
+        self._quads.append({"a": a, "b": b, "c": c, "d": d,
+                            "matId": self._resolve_mat(material_id),
+                            "uv0": u(uv0), "uv1": u(uv1), "uv2": u(uv2),
+                            "uv3": u(uv3)})
+        return self
+
+    def add_rect(self, p00, p10, p11, p01, material_id=MaterialIds.WHITE,
+                 uv00=(0, 0), uv10=(0, 0), uv11=(0, 0),
+                 uv01=(0, 0)) -> "SceneBuilder":
+        return self.add_quad(p00, p10, p11, p01, material_id, uv00, uv10,
+                             uv11, uv01)
+
+    def add_plane(self, normal=(0, 1, 0), d=0.0,
+                  material_id=MaterialIds.WHITE) -> "SceneBuilder":
+        n = np.asarray(_v3(normal), dtype=np.float64)
+        ln = float(np.linalg.norm(n)) or 1.0
+        if len(self._planes) >= self._max_p:
+            return self
+        self._planes.append({"n": (n / ln).tolist(), "d": float(d),
+                             "matId": self._resolve_mat(material_id)})
+        return self
+
+    def build(self, *, min_pad: int = 8, device="cuda") -> SceneData:
+        """Pack into the padded struct-of-arrays scene on ``device``, every
+        field as the JAX ``build()`` fills it. Capacities round up to a
+        multiple of ``min_pad``. The camera stays on the host."""
         f32, i32 = np.float32, np.int32
-        S = T = Q = P = _round_up(0, min_pad)
+
+        def rows(items, key, w=3):
+            return np.asarray([it[key] for it in items],
+                              dtype=f32).reshape(-1, w)
+
+        S = _round_up(len(self._spheres), min_pad)
+        sp = np.zeros((S, 3), f32)
+        sr = np.zeros((S,), f32)
+        sm = np.zeros((S,), i32)
+        if self._spheres:
+            n = len(self._spheres)
+            sp[:n] = rows(self._spheres, "p")
+            sr[:n] = [s["r"] for s in self._spheres]
+            sm[:n] = [s["matId"] for s in self._spheres]
+
+        T = _round_up(len(self._tris), min_pad)
+        ta, tb, tc = (np.zeros((T, 3), f32) for _ in range(3))
+        tm = np.zeros((T,), i32)
+        tuva, tuvb, tuvc = (np.zeros((T, 2), f32) for _ in range(3))
+        if self._tris:
+            n = len(self._tris)
+            ta[:n], tb[:n], tc[:n] = (rows(self._tris, k) for k in "abc")
+            tm[:n] = [t["matId"] for t in self._tris]
+            tuva[:n] = rows(self._tris, "uvA", 2)
+            tuvb[:n] = rows(self._tris, "uvB", 2)
+            tuvc[:n] = rows(self._tris, "uvC", 2)
+
+        Q = _round_up(len(self._quads), min_pad)
+        qa, qb, qc, qd = (np.zeros((Q, 3), f32) for _ in range(4))
+        qm = np.zeros((Q,), i32)
+        quv = [np.zeros((Q, 2), f32) for _ in range(4)]
+        if self._quads:
+            n = len(self._quads)
+            qa[:n], qb[:n], qc[:n], qd[:n] = (rows(self._quads, k)
+                                              for k in "abcd")
+            qm[:n] = [q["matId"] for q in self._quads]
+            for i, k in enumerate(["uv0", "uv1", "uv2", "uv3"]):
+                quv[i][:n] = rows(self._quads, k, 2)
+
+        P = _round_up(len(self._planes), min_pad)
+        pn = np.zeros((P, 3), f32)
+        pd = np.zeros((P,), f32)
+        pm = np.zeros((P,), i32)
+        if self._planes:
+            n = len(self._planes)
+            pn[:n] = rows(self._planes, "n")
+            pd[:n] = [p["d"] for p in self._planes]
+            pm[:n] = [p["matId"] for p in self._planes]
 
         max_id = max(self._materials) if self._materials else 0
         M = _round_up(max_id + 1, 8)
@@ -216,6 +385,13 @@ class SceneBuilder:
             dld[i] = L["dir"]
             dlc[i] = np.asarray(L["color"], f32) * f32(L["intensity"])
 
+        if self._atlas_pixels is not None:
+            at_rgb = self._atlas_pixels[..., :3]
+            at_a = self._atlas_pixels[..., 3]
+        else:
+            at_rgb = np.zeros((1, 1, 3), np.uint8)
+            at_a = np.zeros((1, 1), np.uint8)
+
         cam = Camera.create(pos=self._camera["pos"], yaw=self._camera["yaw"],
                             pitch=self._camera["pitch"],
                             fov_y_deg=self._camera["fovY"] * 180.0 / math.pi)
@@ -223,20 +399,18 @@ class SceneBuilder:
         def j(x):
             return torch.as_tensor(np.asarray(x), device=device)
 
-        z3 = lambda n: np.zeros((n, 3), f32)  # noqa: E731
-        z2 = lambda n: np.zeros((n, 2), f32)  # noqa: E731
-        zi = lambda n: np.zeros((n,), i32)  # noqa: E731
         return SceneData(
-            sph_pos=j(z3(S)), sph_rad=j(np.zeros((S,), f32)), sph_mat=j(zi(S)),
-            n_sph=j(i32(0)),
-            tri_a=j(z3(T)), tri_b=j(z3(T)), tri_c=j(z3(T)), tri_mat=j(zi(T)),
-            tri_uva=j(z2(T)), tri_uvb=j(z2(T)), tri_uvc=j(z2(T)),
-            n_tri=j(i32(0)),
-            quad_a=j(z3(Q)), quad_b=j(z3(Q)), quad_c=j(z3(Q)), quad_d=j(z3(Q)),
-            quad_mat=j(zi(Q)), quad_uv0=j(z2(Q)), quad_uv1=j(z2(Q)),
-            quad_uv2=j(z2(Q)), quad_uv3=j(z2(Q)), n_quad=j(i32(0)),
-            pln_n=j(z3(P)), pln_d=j(np.zeros((P,), f32)), pln_mat=j(zi(P)),
-            n_pln=j(i32(0)),
+            sph_pos=j(sp), sph_rad=j(sr), sph_mat=j(sm),
+            n_sph=j(i32(len(self._spheres))),
+            tri_a=j(ta), tri_b=j(tb), tri_c=j(tc), tri_mat=j(tm),
+            tri_uva=j(tuva), tri_uvb=j(tuvb), tri_uvc=j(tuvc),
+            n_tri=j(i32(len(self._tris))),
+            quad_a=j(qa), quad_b=j(qb), quad_c=j(qc), quad_d=j(qd),
+            quad_mat=j(qm), quad_uv0=j(quv[0]), quad_uv1=j(quv[1]),
+            quad_uv2=j(quv[2]), quad_uv3=j(quv[3]),
+            n_quad=j(i32(len(self._quads))),
+            pln_n=j(pn), pln_d=j(pd), pln_mat=j(pm),
+            n_pln=j(i32(len(self._planes))),
             mat_albedo=j(alb), mat_emissive=j(emi), mat_emission=j(ems),
             mat_reflective=j(rfl), mat_roughness=j(rgh),
             env_color=j(np.asarray(self._env["color"], f32)),
@@ -248,6 +422,5 @@ class SceneBuilder:
             n_pt=j(i32(len(self._point_lights))),
             dl_dir=j(dld), dl_col=j(dlc), n_dl=j(i32(len(self._dir_lights))),
             camera=cam,
-            atlas_rgb=j(np.zeros((1, 1, 3), np.uint8)),
-            atlas_a=j(np.zeros((1, 1), np.uint8)),
+            atlas_rgb=j(at_rgb), atlas_a=j(at_a),
         )

@@ -9,6 +9,9 @@ dataclass, ``camera`` nested as its own dict) and gets the port's tensors:
     d["camera"] = {f.name: np.asarray(getattr(scene.camera, f.name))
                    for f in dataclasses.fields(scene.camera)}
     scene_t = scene_from_numpy(d, device)
+
+``device`` is required: the caller says where the scene lives. The camera
+stays a host object (its basis and MVP are computed on the host).
 """
 
 from __future__ import annotations
@@ -26,19 +29,21 @@ def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, copy=True), device=device)
 
 
-def camera_from_numpy(d: dict, device="cpu") -> Camera:
+def camera_from_numpy(d: dict, device) -> Camera:
     """Camera leaves (pos, yaw, pitch, fov_y, speed, sensitivity) -> Camera."""
     return Camera(**{f.name: _t(d[f.name], device).to(torch.float32)
                      for f in dataclasses.fields(Camera)})
 
 
-def scene_from_numpy(d: dict, device="cpu") -> SceneData:
+def scene_from_numpy(d: dict, device) -> SceneData:
     """Every SceneData leaf as a numpy array (``camera`` as a dict of its
-    leaves) -> the port's SceneData on ``device``."""
+    leaves) -> the port's SceneData on ``device`` (spheres, triangles,
+    quads, planes, materials, lights and the atlas alike); the camera
+    stays on the host."""
     kw = {}
     for f in dataclasses.fields(SceneData):
         if f.name == "camera":
-            kw[f.name] = camera_from_numpy(d["camera"])
+            kw[f.name] = camera_from_numpy(d["camera"], "cpu")
         else:
             kw[f.name] = _t(d[f.name], device)
     return SceneData(**kw)

@@ -6,23 +6,43 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), torch and CUDA.
-2. Builds the CUDA kernels of ascii_renderer_tpu_torch/ops/csrc with nvcc.
-3. Runs each kernel of the raster main path at the headline shapes
-   (bunny-class mesh, 68,644 triangles, 960x540) on the card against its
-   plain-torch version on the same CUDA inputs: setup (B2) valid flags
-   equal, planes within rtol 5e-4 / atol 1e-5 and in fact bit-exact;
-   pack (B3) bit-exact; grouped walk (B1) winner ids and depths exactly
-   equal. Median ms over
-   20 runs of each, timed with CUDA events.
-4. Drives the main path as a user would: RasterBackend.set_soup(bunny),
-   render at 960x540, glyph_decide; frame 0 at the golden camera must
-   give the reference frame (checksum + the ds20 golden), then 3 more
-   frames with update_camera. Every kernel of the path must have been
-   launched in that run.
-5. Times 20 steady-state frames at the golden pose (median, p90), then
-   profiles 5 more (stage and kernel times, the device's busy share;
-   the full table goes to smoke_out/profile.txt).
-6. Prints {"kernels": [...]} and, as the last line,
+2. Builds the CUDA kernels of ascii_renderer_tpu_torch/ops/csrc with nvcc
+   (one process per source, all at once).
+3. Holds each kernel against its plain-torch version on the same CUDA
+   inputs, at the shapes its main path gives it:
+   - raster headline (bunny-class mesh, 68,644 triangles, 960x540):
+     setup (B2) valid flags equal and planes bit-exact; pack (B3)
+     bit-exact; grouped walk (B1) winner ids and depths exactly equal;
+   - modal vote (B4) at 540x960 and 36x96, radius 1..3, random override
+     masks: exactly equal;
+   - path-trace megakernel (B5) at every launch shape of the PT runs: the
+     reference run's batch (110,592 rays, seed 1) and probe (3,456), the HD
+     arm's probe (518,400) and batch (4,147,200): ov / fet exactly equal,
+     radiance with >= 99.9% of rays within 1e-4 and the image mean within
+     1e-4 relative (bit-identity is reported); then a random block gate
+     and a permuted ray order with canonical uids: every live ray
+     bit-identical to the plain run, gated blocks zero.
+   Kernel ms is device time (profiler kernel rows over 50 back-to-back
+   launches); plain ms is CUDA events around whole calls; bound ms is the
+   larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM), from
+   this run's inputs.
+4. Drives each main path as a user would, every launch count set to 0
+   just before the path and read just after:
+   - raster: RasterBackend.set_soup(bunny), render 960x540, glyph_decide
+     (B4 in the glyph stage); frame 0 at the golden camera must give the
+     reference frame (checksum + the ds20 golden), then 3 moves, then 20
+     timed frames;
+   - path tracer, reference run: Renderer(cfg, "pathtrace") on the demo
+     scene with its atlas, 96x36, spp 64, 5 bounces, NEE; a fresh
+     spp-2 / 2-bounce frame 0 at the poster pose must equal the port's
+     CPU render's alpha plane and carry 117 overrides; then 4 checked
+     frames (the pose, then 3 moves) and 20 timed ones;
+   - path tracer, HD arm: 960x540, spp 8 (one batch): 2 checked frames,
+     10 timed.
+   Each path's kernels must have launched. 5 raster and 3 frames of each
+   PT run are profiled (stage host ms and device span, device busy share;
+   tables in smoke_out/, git-ignored).
+5. Prints {"kernels": [...]} and, as the last line,
    {"ok": true, "device": {...}}.
 
 Exits non-zero (and prints no result) without CUDA or without the
@@ -32,6 +52,7 @@ package beside it. Every check is an assert or an explicit raise.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -44,23 +65,73 @@ ROWS, COLS, PIXEL_ASPECT = 540, 960, 0.5
 # all 518,400 glyph codes and a 27 x 48 downsample of the grid.
 BUNNY_CHECKSUM = 32392648
 GOLDEN_DS20 = os.path.join(ROOT, "tests", "goldens", "bunny_960x540_ds20.txt")
+# The path tracer's poster pose (tests/test_headline_goldens.py) and the
+# override count of its 36x96 spp-2 frame (JAX kernel path, key 0)
+PT_POSE = dict(pos=(0.0, 2.5, 6.0), yaw=-math.pi / 2)
+PT_OVERRIDES = 117
+# NVIDIA H100 SXM peaks (data sheet, dense): FP32 outside the tensor cores
+# and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# B5 operations per ray, counted from csrc/pt_trace.cu (sqrt, division,
+# sin, cos and pow counted as one operation each): one sphere entry and
+# one triangle entry of a nearest-hit search, the rest of a bounce, and
+# the NEE arithmetic around a shadow search
+B5_OPS_SPHERE, B5_OPS_TRI, B5_OPS_BOUNCE, B5_OPS_NEE = 25, 43, 250, 60
+OUT = os.path.join(ROOT, "smoke_out")
 
 
-def _cuda_ms(fn, n=20):
-    """Median ms of fn() over n runs, each bracketed by CUDA events."""
+def _event_ms(fn, n):
+    """Mean ms of fn() over n calls, CUDA events around all n (a warm-up
+    call first)."""
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _device_ms(fn, kernel, n=50):
+    """Device ms per call of fn: the profiler's CUDA rows whose name holds
+    ``kernel`` (every CUDA row if None), summed over n back-to-back calls,
+    over n."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and (kernel is None or kernel in e.key)]
+    assert rows, f"no device rows for {kernel}"
+    return sum(e.self_device_time_total for e in rows) / n / 1e3
+
+
+def _bound(n_bytes, n_ops):
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _rec(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+    return dict(name=name, route="cuda",
+                source=f"ascii_renderer_tpu_torch/ops/csrc/{source}",
+                replaces=f"ascii_renderer_tpu/ops/{replaces}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms)
 
 
 def _bunny():
@@ -84,8 +155,8 @@ def _golden_camera():
 
 
 def check_kernels(dev, soup, scene):
-    """Each kernel against its plain version at the main path's shapes
-    (the shapes of frame 0's first render). Returns per-kernel records."""
+    """B1-B3 against their plain versions at the main path's shapes (the
+    shapes of frame 0's first render). Returns per-kernel records."""
     import torch
     from ascii_renderer_tpu_torch.backends import raster as R
     from ascii_renderer_tpu_torch.ops import pack as PK
@@ -115,15 +186,14 @@ def check_kernels(dev, soup, scene):
     err = float((a - b).abs().max())
     n_bits = int((cm_k.view(torch.int32) != cm_r.view(torch.int32)).sum())
     assert n_bits == 0, f"B2: {n_bits} values not bit-identical"
-    recs.append(dict(
-        name="setup2dh", route="cuda",
-        source="ascii_renderer_tpu_torch/ops/csrc/setup2dh.cu",
-        replaces="ascii_renderer_tpu/ops/setup2dh.py:43",
-        max_abs_err=err,
-        ms=_cuda_ms(lambda: S.setup_2dh_fused(pos9, attrs_t, mvp, ROWS,
-                                              COLS)),
-        plain_ms=_cuda_ms(lambda: S.setup_2dh_fused_ref(pos9, attrs_t, mvp,
-                                                        ROWS, COLS))))
+    T = pos9.shape[1]
+    bound = _bound(_nbytes(pos9, attrs_t, cm_k, *bb_k.values()), 300 * T)
+    recs.append(_rec(
+        "setup2dh", "setup2dh.cu", "setup2dh.py:43", err,
+        _device_ms(lambda: S.setup_2dh_fused(pos9, attrs_t, mvp, ROWS, COLS),
+                   "setup2dh_kernel"),
+        _event_ms(lambda: S.setup_2dh_fused_ref(pos9, attrs_t, mvp, ROWS,
+                                                COLS), 5), bound))
     print(f"B2 setup: valid={int(valid.sum())} max_abs_err={err} "
           f"values_not_bit_identical={n_bits}", flush=True)
 
@@ -137,18 +207,24 @@ def check_kernels(dev, soup, scene):
         assert o_k.shape == o_r.shape
         assert torch.equal(o_k.view(torch.int32), o_r.view(torch.int32)), \
             "B3 pack not bit-exact"
-    recs.append(dict(
-        name="pack", route="cuda",
-        source="ascii_renderer_tpu_torch/ops/csrc/pack.cu",
-        replaces="ascii_renderer_tpu/ops/pack.py:170",
-        max_abs_err=0.0,
-        ms=_cuda_ms(lambda: PK.pack_channels_split_blocked(cm_k, spans)),
-        plain_ms=_cuda_ms(lambda: PK.pack_channels_split_blocked_ref(
-            cm_k, spans))))
+    n_pix = cm_k.shape[1] * cm_k.shape[2]
+    cm2 = cm_k.reshape(cm_k.shape[0], n_pix)
+
+    def library():  # one torch call per span, as the kernel is per span
+        return [cm2[a_:min(b_, cm2.shape[0])].t().contiguous()
+                for a_, b_ in spans]
+
+    bound = _bound(4 * n_pix * sum(min(b_, cm2.shape[0]) - a_ + (b_ - a_)
+                                   for a_, b_ in spans), 0)
+    recs.append(_rec(
+        "pack", "pack.cu", "pack.py:170", 0.0,
+        _device_ms(lambda: PK.pack_channels_split_blocked(cm_k, spans),
+                   "pack_span_kernel"),
+        _event_ms(lambda: PK.pack_channels_split_blocked_ref(cm_k, spans),
+                  20), bound, library_ms=_device_ms(library, None)))
     print("B3 pack: bit-exact", flush=True)
 
     # B1 grouped walk, on the layout frame 0's first render builds
-    T = p.shape[0] // 3
     n2t = 2 * T
     tiles_x = -(-COLS // 128)
     n_tiles = (-(-ROWS // 8)) * tiles_x
@@ -163,57 +239,246 @@ def check_kernels(dev, soup, scene):
     assert torch.equal(z_k, z_r), "B1 depths differ"
     hits = int((e_k >= 0).sum())
     assert hits > 20000, hits
-    recs.append(dict(
-        name="raster_group_walk", route="cuda",
-        source="ascii_renderer_tpu_torch/ops/csrc/raster_group.cu",
-        replaces="ascii_renderer_tpu/ops/raster_group.py:256",
-        max_abs_err=0.0,
-        ms=_cuda_ms(lambda: RG.tile_eval_grouped_skip(*lay[:6], grp_cap)),
-        plain_ms=_cuda_ms(lambda: RG.tile_eval_grouped_skip_ref(
-            *lay[:6], grp_cap))))
-    print(f"B1 walk: exact, {hits} lit pixels, n_rows={int(lay[7])}",
-          flush=True)
+    n_rows = int(lay[7])
+    # every walked row: 512 bytes read once, tested by 1,024 pixels at
+    # ~20 operations each; plus the pixel coordinates in and (z, id) out
+    bound = _bound(512 * n_rows + _nbytes(lay[4], lay[5], z_k, e_k),
+                   20 * 1024 * n_rows)
+    recs.append(_rec(
+        "raster_group_walk", "raster_group.cu", "raster_group.py:256", 0.0,
+        _device_ms(lambda: RG.tile_eval_grouped_skip(*lay[:6], grp_cap),
+                   "walk_grouped_skip_kernel"),
+        _event_ms(lambda: RG.tile_eval_grouped_skip_ref(*lay[:6], grp_cap),
+                  1), bound))
+    print(f"B1 walk: exact, {hits} lit pixels, n_rows={n_rows}", flush=True)
     return recs
 
 
-def _frame(backend, cfg, cam):
-    """One user frame: RasterBackend.render, then the glyph pass."""
+def check_modal(dev):
+    """B4 against its plain version: 540x960 and 36x96, radius 1..3,
+    random indices and override masks; exactly equal. Timed at the raster
+    frame's shape and the config's radius 2 / thresh 12."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    g = torch.Generator().manual_seed(0)
+    for h, w in ((540, 960), (36, 96)):
+        for radius, thresh in ((1, 5), (2, 12), (3, 24)):
+            idx = torch.randint(0, 10, (h, w), generator=g,
+                                dtype=torch.int32).to(dev)
+            ovr = (torch.rand((h, w), generator=g) < 0.1).to(dev)
+            got = AK.modal_filter_kernel(idx, ovr, radius, thresh)
+            ref = AK.modal_filter(idx, ovr, radius, thresh)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), f"B4 differs at {h}x{w} r{radius}"
+    h, w = ROWS, COLS
+    idx = torch.randint(0, 10, (h, w), generator=g, dtype=torch.int32).to(dev)
+    ovr = (torch.rand((h, w), generator=g) < 0.1).to(dev)
+    print("B4 modal: exact at 540x960 and 36x96, radius 1-3", flush=True)
+    return _rec(
+        "modal_vote", "modal.cu", "ascii_kernel.py:41", 0.0,
+        _device_ms(lambda: AK.modal_filter_kernel(idx, ovr, 2, 12),
+                   "modal_kernel"),
+        _event_ms(lambda: AK.modal_filter(idx, ovr, 2, 12), 20),
+        _bound(h * w * (4 + 1 + 4), 0))
+
+
+def _pt_scene(**build_kw):
+    from ascii_renderer_tpu_torch.atlas.io import demo_atlas
+    from ascii_renderer_tpu_torch.scene.demo import create_demo_scene
+    sb = create_demo_scene()
+    sb.set_atlas(demo_atlas())
+    return sb.build(min_pad=1, **build_kw)
+
+
+def _pt_camera():
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    return Camera.create(**PT_POSE)
+
+
+def _pt_batch(dev, scene, rows, cols, B, seed):
+    """Kernel inputs of sample batch 0 of a rows x cols frame at the poster
+    pose, as render_pt builds them (no pixel fetched, so every sample
+    s > 0 is jittered)."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    from ascii_renderer_tpu_torch.core.camera import camera_basis, ndc_grid
+    from ascii_renderer_tpu_torch.core.config import PathTracerConfig
+    cam = _pt_camera()
+    basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+    px, py, aspect = ndc_grid(rows, cols, PIXEL_ASPECT, dev)
+    pc = rows * cols
+    uid = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * pc
+           + torch.arange(pc, dtype=torch.int32, device=dev)[None])
+    fetched = torch.zeros(pc, dtype=torch.bool, device=dev)
+    rd = PT.batch_ray_dirs(basis, px, py, aspect, fetched, uid, seed,
+                           torch.arange(B, device=dev))
+    n = B * pc
+    nblk = -(-n // 1024)
+    ro = cam.pos.to(dev).expand(B, rows, cols, 3)
+    lc, lr = PT.get_light_sphere(scene, 0.0)
+    lcol = torch.tensor(PathTracerConfig().light_color) * 1.3
+    prim, atlas, aw, ah, sph_rows = PT.pack_scene_entries(scene)
+    args = (PT._params(lc, lr, lcol, dev), prim, PT._blockify(ro, n, nblk),
+            PT._blockify(rd, n, nblk), seed, atlas)
+    kw = dict(bounces=5, nee=True, atlas_w=aw, atlas_h=ah, sph_rows=sph_rows)
+    uid = torch.cat([uid.reshape(-1), uid.new_zeros(nblk * 1024 - n)])
+    return args, kw, uid.reshape(nblk, 8, 128), n
+
+
+def _compare_b5(k, p, n, label):
+    import torch
+    assert torch.equal(k[3], p[3]), f"B5 {label}: ov differs"
+    assert torch.equal(k[4], p[4]), f"B5 {label}: fet differs"
+    kr = torch.stack([o.reshape(-1)[:n] for o in k[:3]], -1)
+    pr = torch.stack([o.reshape(-1)[:n] for o in p[:3]], -1)
+    err = float((kr - pr).abs().max())
+    ray_err = (kr - pr).abs().amax(-1)
+    within = float((ray_err <= 1e-4).double().mean())
+    not_bit = float((kr.view(torch.int32) != pr.view(torch.int32)).any(-1)
+                    .double().mean())
+    mk, mp = float(kr.double().mean()), float(pr.double().mean())
+    rel = abs(mk - mp) / max(abs(mp), 1e-30)
+    print(f"B5 {label}: ov/fet exact; radiance max_abs_err {err}, rays not "
+          f"bit-identical {not_bit:.6f}"
+          f"{' (bit-identical)' if not_bit == 0 else ''}, within 1e-4 "
+          f"{within:.6f}, mean {mk:.7f} vs {mp:.7f} (rel {rel:.3g}), "
+          f"overrides {int((k[3].reshape(-1)[:n] > 0).sum())}", flush=True)
+    assert within >= 0.999, f"B5 {label}: only {within} of rays within 1e-4"
+    assert rel <= 1e-4, f"B5 {label}: image mean off by {rel}"
+    return err
+
+
+def _b5_ops(stats, prim_rows, sph_rows):
+    e_s = 4 * sph_rows
+    e_t = 4 * (prim_rows - sph_rows)
+    search = e_s * B5_OPS_SPHERE + e_t * B5_OPS_TRI
+    return (stats["segments"] * (search + B5_OPS_BOUNCE)
+            + stats["shadow_rays"] * (search + B5_OPS_NEE))
+
+
+def check_pt_kernel(dev):
+    """B5 against its plain version at every launch shape of the PT runs:
+    the reference run's batch (32 x 96x36 rays, seed 1) and probe (1 x
+    96x36), the HD arm's probe (1 x 960x540) and batch (8 x 960x540), then
+    the placement check at the reference batch. Returns the record (timed
+    at the reference batch)."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PK
+    scene = _pt_scene(device=dev)
+    rec = None
+    for rows, cols, B, label in ((36, 96, 32, "reference batch"),
+                                 (36, 96, 1, "reference probe"),
+                                 (540, 960, 1, "HD probe"),
+                                 (540, 960, 8, "HD arm batch")):
+        args, kw, uid, n = _pt_batch(dev, scene, rows, cols, B, 1)
+        k = PK.trace_blocks_raw(*args, **kw)
+        stats = {}
+        p = PK.trace_blocks_raw_ref(*args, **kw, stats=stats)
+        torch.cuda.synchronize()
+        err = _compare_b5(k, p, n, f"{label} ({n} rays)")
+        prim = args[1]
+        ops = _b5_ops(stats, prim.shape[0], kw["sph_rows"])
+        bound = _bound(_nbytes(*args[:4], args[5]) + 4 * n + 20 * n, ops)
+        ms = _device_ms(lambda: PK.trace_blocks_raw(*args, **kw),
+                        "pt_trace_kernel")
+        plain = _event_ms(lambda: PK.trace_blocks_raw_ref(*args, **kw), 3)
+        print(f"B5 {label}: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}; {stats['segments']} segments, "
+              f"{stats['shadow_rays']} shadow searches, {ops:.4g} ops)",
+              flush=True)
+        if rec is None:
+            rec = _rec("pt_megakernel", "pt_trace.cu", "pt_kernel.py:153",
+                       err, ms, plain, bound)
+            # placement: a random block gate and a permuted ray order with
+            # canonical uids leave every live ray's output bit-identical
+            g = torch.Generator().manual_seed(1)
+            nblk = uid.shape[0]
+            act = (torch.rand(nblk, generator=g) < 0.6).to(torch.int32)
+            act[0] = 1
+            perm = torch.randperm(nblk * 1024, generator=g).to(dev)
+            ro = args[2].reshape(-1, 3)[perm].reshape(args[2].shape)
+            rd = args[3].reshape(-1, 3)[perm].reshape(args[3].shape)
+            uid_p = uid.reshape(-1)[perm].reshape(uid.shape)
+            kq = PK.trace_blocks_raw(args[0], args[1], ro.contiguous(),
+                                     rd.contiguous(), args[4], args[5], **kw,
+                                     block_active=act.to(dev), uid=uid_p)
+            live = act.to(dev).repeat_interleave(1024).bool()
+            for a_, b_ in zip(kq, k):
+                a_, b_ = a_.reshape(-1), b_.reshape(-1)[perm]
+                assert torch.equal(a_[live].view(torch.int32),
+                                   b_[live].view(torch.int32)), \
+                    "B5: a live ray changed under the permutation"
+                assert not a_[~live].any(), "B5: a gated block is not zero"
+            print(f"B5 placement: {int(act.sum())}/{nblk} blocks live, "
+                  f"every live ray bit-identical under a permuted order, "
+                  f"gated blocks zero", flush=True)
+    return rec
+
+
+def _glyph(frame, cfg):
     from ascii_renderer_tpu_torch.ascii.ascii_pass import glyph_decide
-    frame = backend.render(0.0, cam, ROWS, COLS, PIXEL_ASPECT)
     chars, _tint = glyph_decide(
         frame, ramp=cfg.ascii_ramp, mode_on=cfg.ascii_mode_filter,
         mode_radius=cfg.mode_radius, mode_thresh=cfg.ascii_mode_thresh,
         grayscale=cfg.use_grayscale)
-    return frame, chars
+    return chars
+
+
+def _frame(backend, cfg, cam):
+    """One user frame: RasterBackend.render, then the glyph pass."""
+    frame = backend.render(0.0, cam, ROWS, COLS, PIXEL_ASPECT)
+    return frame, _glyph(frame, cfg)
+
+
+def _moves():
+    from ascii_renderer_tpu_torch.core.camera import CameraInputs
+    return [CameraInputs.from_keys(("w", "arrowleft")),
+            CameraInputs.from_keys(("a",), mouse_dx=25.0),
+            CameraInputs.from_keys(("s", "arrowup"), mouse_dy=-10.0)]
+
+
+def _timed(fn, n):
+    import torch
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _summary(label, steady):
+    q = statistics.quantiles(steady, n=10)
+    print(f"{label}: {len(steady)} timed frames, median "
+          f"{statistics.median(steady):.3f} ms, p90 {q[-1]:.3f} ms, min "
+          f"{min(steady):.3f} ms; each: "
+          f"{', '.join(f'{x:.3f}' for x in steady)}", flush=True)
 
 
 def run_main_path(dev, soup, scene):
     """RasterBackend + glyph pass: 4 checked frames (the golden pose, then
     3 camera moves), then 20 timed steady-state frames at the golden pose.
-    Returns (per-frame ms of the 4, steady ms list, backend, cfg)."""
+    Returns (backend, cfg)."""
     import numpy as np
     import torch
     from ascii_renderer_tpu_torch.backends.raster import RasterBackend
-    from ascii_renderer_tpu_torch.core.camera import (CameraInputs,
-                                                      update_camera)
+    from ascii_renderer_tpu_torch.core.camera import update_camera
     from ascii_renderer_tpu_torch.core.config import Config
 
     cfg = Config(pixel_aspect=PIXEL_ASPECT)
     backend = RasterBackend(cfg, device=dev)
     backend.set_soup(*soup, scene)
     cam = _golden_camera()
-    moves = [CameraInputs.from_keys(("w", "arrowleft")),
-             CameraInputs.from_keys(("a",), mouse_dx=25.0),
-             CameraInputs.from_keys(("s", "arrowup"), mouse_dy=-10.0)]
-    frame_ms = []
+    moves = _moves()
     for f in range(4):
         if f:
             cam = update_camera(cam, moves[f - 1], 1.0 / 30.0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame, chars = _frame(backend, cfg, cam)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        box = {}
+        (ms,) = _timed(lambda: box.update(
+            zip(("frame", "chars"), _frame(backend, cfg, cam))), 1)
+        frame, chars = box["frame"], box["chars"]
         assert chars.device.type == "cuda" and chars.dtype == torch.uint8
         assert tuple(chars.shape) == (ROWS, COLS)
         assert tuple(frame.rgb.shape) == (ROWS, COLS, 3)
@@ -228,66 +493,135 @@ def run_main_path(dev, soup, scene):
                 golden = fh.read().rstrip("\n").split("\n")
             bad = [r for r, (a, b) in enumerate(zip(ds, golden)) if a != b]
             assert ds == golden, f"ds20 rows {bad} differ from the golden"
-            print(f"frame 0: checksum {total} and the ds20 golden, exact",
-                  flush=True)
-        print(f"frame {f}: {frame_ms[-1]:.3f} ms, {lit} lit cells, "
+            print(f"raster frame 0: checksum {total} and the ds20 golden, "
+                  f"exact", flush=True)
+        print(f"raster frame {f}: {ms:.3f} ms, {lit} lit cells, "
               f"caps {backend._caps}", flush=True)
-    steady = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        _frame(backend, cfg, _golden_camera())
+    _summary("raster steady (golden pose)",
+             _timed(lambda: _frame(backend, cfg, _golden_camera()), 20))
+    return backend, cfg
+
+
+def pt_frame0_check(dev):
+    """A fresh spp-2 / 2-bounce Renderer's frame 0 at the poster pose:
+    its alpha plane must equal the port's CPU render (plain versions) of
+    the same frame, with PT_OVERRIDES override cells."""
+    import torch
+    from ascii_renderer_tpu_torch.backends.registry import Renderer
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    from ascii_renderer_tpu_torch.core import quantize as Q
+    cfg = Config(path_tracer=PathTracerConfig(samples_per_batch=2,
+                                              max_bounces=2))
+    alphas = []
+    for device in (dev, "cpu"):
+        r = Renderer(cfg, "pathtrace", device=device)
+        r.set_scene(_pt_scene(device=device))
+        frame = r.render(0.0, _pt_camera())
+        chars = _glyph(frame, cfg)
+        assert tuple(chars.shape) == (36, 96)
+        alphas.append(frame.a.cpu())
+    n_ov = int(Q.is_override(alphas[0]).sum())
+    assert torch.equal(alphas[0], alphas[1]), \
+        f"{int((alphas[0] != alphas[1]).sum())} alpha cells differ from CPU"
+    assert n_ov == PT_OVERRIDES, n_ov
+    print(f"PT frame 0 (spp 2, 2 bounces): alpha plane equals the CPU "
+          f"render, {n_ov} overrides", flush=True)
+
+
+def run_pt_path(cfg, rows, cols, n_checked, n_timed, label):
+    """Renderer(cfg, "pathtrace") on the demo scene + glyph pass: n_checked
+    frames (the poster pose, then camera moves), then n_timed frames at the
+    pose. Returns a function that renders one frame at the pose."""
+    import torch
+    from ascii_renderer_tpu_torch.backends.registry import Renderer
+    from ascii_renderer_tpu_torch.core import quantize as Q
+    from ascii_renderer_tpu_torch.core.camera import update_camera
+
+    # as a user calls it: the renderer and the scene on their default
+    # device, the card
+    r = Renderer(cfg, "pathtrace")
+    r.set_scene(_pt_scene())
+    cam = _pt_camera()
+    moves = _moves()
+    for f in range(n_checked):
+        if f:
+            cam = update_camera(cam, moves[f - 1], 1.0 / 30.0)
+        box = {}
+        (ms,) = _timed(lambda: box.update(frame=r.render(0.0, cam, rows,
+                                                          cols)), 1)
+        frame = box["frame"]
+        chars = _glyph(frame, cfg)
         torch.cuda.synchronize()
-        steady.append((time.perf_counter() - t0) * 1e3)
-    return frame_ms, steady, backend, cfg
+        assert chars.device.type == "cuda" and chars.dtype == torch.uint8
+        assert tuple(chars.shape) == (rows, cols)
+        n_ov = int(Q.is_override(frame.a).sum())
+        kinds = int(torch.unique(chars).numel())
+        mean = float(frame.rgb.double().mean())
+        assert kinds >= 4 and 5.0 < mean < 250.0, (kinds, mean)
+        if f == 0:
+            assert n_ov > (rows * cols) // 40, f"{label}: {n_ov} overrides"
+        print(f"{label} frame {f}: {ms:.3f} ms, {n_ov} overrides, {kinds} "
+              f"distinct glyphs, mean byte {mean:.2f}", flush=True)
+    pose = _pt_camera()
+
+    def one():
+        _glyph(r.render(0.0, pose, rows, cols), cfg)
+
+    _summary(f"{label} steady (poster pose)", _timed(one, n_timed))
+    return lambda: one()
 
 
-def profile_frames(backend, cfg, n=5):
-    """torch.profiler over n steady frames: per-stage host and device ms
-    per frame (the named ranges of backends/raster and ascii_pass), the
-    device's busy share of the wall time, and the top kernels. The full
-    table goes to smoke_out/profile.txt (git-ignored)."""
+def profile_frames(frame_fn, n, prefixes, label):
+    """torch.profiler over n frames: per-stage host and device ms per frame
+    (the record_function ranges), the device's busy share of the wall time,
+    and the top kernels. The full table goes to smoke_out/."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cam = _golden_camera()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            _frame(backend, cfg, cam)
+            frame_fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     avgs = prof.key_averages()
-    stage_prefixes = ("raster.", "frame.", "glyph")
     # a stage appears twice: its host range (CPU) and its span on the
     # device stream (a CUDA annotation, gaps included); kernels are the
     # other CUDA rows
     spans = {e.key: e.device_time_total / n / 1e3 for e in avgs
              if e.device_type == DeviceType.CUDA
-             and e.key.startswith(stage_prefixes)}
+             and e.key.startswith(prefixes)}
     kern = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith(stage_prefixes)),
+                   and not e.key.startswith(prefixes)),
                   key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kern) / n / 1e3
-    print(f"profile: {wall:.3f} ms/frame under the profiler, device busy "
-          f"{busy:.3f} ms/frame ({100 * busy / wall:.1f}%), "
+    print(f"{label} profile: {wall:.3f} ms/frame under the profiler, device "
+          f"busy {busy:.3f} ms/frame ({100 * busy / wall:.1f}%), "
           f"{sum(e.count for e in kern) // n} kernel launches/frame",
           flush=True)
     for e in sorted(avgs, key=lambda e: -e.cpu_time_total):
-        if e.device_type == DeviceType.CPU and e.key.startswith(
-                stage_prefixes):
+        if e.device_type == DeviceType.CPU and e.key.startswith(prefixes):
             print(f"  stage {e.key}: host {e.cpu_time_total / n / 1e3:.3f} "
                   f"ms, device span {spans.get(e.key, 0.0):.3f} ms",
                   flush=True)
-    for e in kern[:10]:
+    for e in kern[:8]:
         print(f"  kernel {e.key[:60]}: {e.self_device_time_total / n / 1e3:.3f}"
               f" ms/frame, {e.count // n} launches/frame", flush=True)
-    out = os.path.join(ROOT, "smoke_out")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile.txt"), "w") as fh:
+    os.makedirs(OUT, exist_ok=True)
+    name = label.replace(" ", "_").replace(",", "")
+    with open(os.path.join(OUT, f"profile_{name}.txt"), "w") as fh:
         fh.write(avgs.table(sort_by="self_device_time_total", row_limit=200))
+
+
+def _path_counts(mods, run):
+    """Zero every launch count, run the path, return the counts."""
+    for m in mods.values():
+        m.launches = 0
+    out = run()
+    return {k: m.launches for k, m in mods.items()}, out
 
 
 def main() -> int:
@@ -297,11 +631,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import ascii_renderer_tpu_torch  # noqa: F401  (fails outside the repo)
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
     from ascii_renderer_tpu_torch.ops import _build
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
     from ascii_renderer_tpu_torch.ops import pack as PK
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
     from ascii_renderer_tpu_torch.ops import raster_group as RG
     from ascii_renderer_tpu_torch.ops import setup2dh as S
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -316,24 +654,46 @@ def main() -> int:
     print(f"build: {so.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     dev = torch.device("cuda:0")
+    mods = {"setup2dh": S, "pack": PK, "raster_group_walk": RG,
+            "modal_vote": AK, "pt_megakernel": PTK}
     soup = _bunny()
     scene = _scene(dev)
     recs = check_kernels(dev, soup, scene)
+    recs.append(check_modal(dev))
+    recs.append(check_pt_kernel(dev))
+    by_name = {r["name"]: r for r in recs}
 
-    mods = {"setup2dh": S, "pack": PK, "raster_group_walk": RG}
-    for m in mods.values():
-        m.launches = 0
-    frame_ms, steady, backend, cfg = run_main_path(dev, soup, scene)
-    counts = {k: m.launches for k, m in mods.items()}
-    for r in recs:
-        r["launches"] = counts[r["name"]]
-        assert r["launches"] > 0, f"{r['name']} never launched on the path"
-    print(f"frame ms: {frame_ms}", flush=True)
-    q = statistics.quantiles(steady, n=10)
-    print(f"steady frames (20, golden pose): median "
-          f"{statistics.median(steady):.3f} ms, p90 {q[-1]:.3f} ms, "
-          f"min {min(steady):.3f} ms", flush=True)
-    profile_frames(backend, cfg)
+    # raster headline path: B1-B3, and B4 in the glyph stage
+    c_raster, (backend, cfg) = _path_counts(
+        mods, lambda: run_main_path(dev, soup, scene))
+    print(f"launches on the raster path: {c_raster}", flush=True)
+    for k in ("setup2dh", "pack", "raster_group_walk", "modal_vote"):
+        assert c_raster[k] > 0, f"{k} never launched on the raster path"
+        by_name[k]["launches"] = c_raster[k]
+    profile_frames(lambda: _frame(backend, cfg, _golden_camera()), 5,
+                   ("raster.", "frame.", "glyph"), "raster")
+    del backend
+
+    # path tracer: frame 0 against the CPU render, then the reference run
+    # (96x36, spp 64, 5 bounces) and the HD arm (960x540, spp 8)
+    pt_frame0_check(dev)
+    cfg_ref = Config()
+    c_ref, ref_fn = _path_counts(mods, lambda: run_pt_path(
+        cfg_ref, 36, 96, 4, 20, "PT reference run 96x36 spp64"))
+    print(f"launches on the PT reference run: {c_ref}", flush=True)
+    for k in ("pt_megakernel", "modal_vote"):
+        assert c_ref[k] > 0, f"{k} never launched on the PT reference run"
+    by_name["pt_megakernel"]["launches"] = c_ref["pt_megakernel"]
+    profile_frames(ref_fn, 3, ("pt.", "frame.", "glyph"), "PT reference run")
+    cfg_hd = Config(path_tracer=PathTracerConfig(samples_per_batch=8))
+    c_hd, hd_fn = _path_counts(mods, lambda: run_pt_path(
+        cfg_hd, ROWS, COLS, 2, 10, "PT HD arm 960x540 spp8"))
+    print(f"launches on the PT HD arm: {c_hd}", flush=True)
+    for k in ("pt_megakernel", "modal_vote"):
+        assert c_hd[k] > 0, f"{k} never launched on the PT HD arm"
+    profile_frames(hd_fn, 3, ("pt.", "frame.", "glyph"), "PT HD arm")
+
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,3 +92,54 @@ def test_ascii_pass_and_text_equal_jax():
     assert chars_to_strings(tc) == j_strings(np.asarray(jc))
     odd = torch.tensor([[31, 32, 126, 127, 200]], dtype=torch.uint8)
     assert chars_to_strings(odd) == ["? ~??"]
+
+
+# ---- the modal vote kernel's wrapper (B4, ops/ascii_kernel) ----
+
+@pytest.mark.parametrize("radius,thresh", [(1, 5), (2, 12), (3, 24)])
+@pytest.mark.parametrize("h,w", [(24, 48), (16, 32)])
+def test_modal_kernel_wrapper_equals_jax_pallas(radius, thresh, h, w):
+    """On the CPU the wrapper runs the plain vote; it equals the Pallas
+    kernel in interpret mode, overrides and clamped edges included."""
+    from ascii_renderer_tpu.ops.ascii_kernel import modal_filter_pallas
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    rng = np.random.default_rng(radius * 100 + h)
+    idx = rng.integers(0, 4, (h, w)).astype(np.int32)
+    idx[2:9, 3:15] = 2
+    ovr = rng.random((h, w)) < 0.1
+    want = modal_filter_pallas(jnp.asarray(idx), jnp.asarray(ovr), radius,
+                               thresh, interpret=True)
+    launches = AK.launches
+    got = AK.modal_filter_kernel(torch.from_numpy(idx),
+                                 torch.from_numpy(ovr), radius, thresh)
+    assert AK.launches == launches  # the CPU never launches
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_modal_kernel_wrapper_edge_clamping():
+    from ascii_renderer_tpu.ops.ascii_kernel import modal_filter_pallas
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    idx = np.zeros((12, 40), np.int32)
+    idx[0, 0] = 3
+    ovr = np.zeros((12, 40), bool)
+    got = AK.modal_filter_kernel(torch.from_numpy(idx),
+                                 torch.from_numpy(ovr), 1, 5).numpy()
+    assert got[0, 0] == 0
+    np.testing.assert_array_equal(got, np.asarray(modal_filter_pallas(
+        jnp.asarray(idx), jnp.asarray(ovr), 1, 5, interpret=True)))
+
+
+def test_modal_kernel_wrapper_never_falls_back():
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    meta = torch.device("meta")
+    launches = AK.launches
+    with pytest.raises(ValueError):
+        AK.modal_filter_kernel(torch.empty((8, 8), dtype=torch.int32,
+                                           device=meta),
+                               torch.empty((8, 8), dtype=torch.bool,
+                                           device=meta), 2, 12)
+    with pytest.raises(ValueError, match="radius"):
+        AK.modal_filter_kernel(torch.zeros((8, 8), dtype=torch.int32),
+                               torch.zeros((8, 8), dtype=torch.bool), 4, 12)
+    assert AK.launches == launches
+

@@ -119,7 +119,8 @@ def test_c_entry_points_match_the_ctypes_signatures():
                                      if a.strip()])
     assert {k: len(v) for k, v in _build.SIGNATURES.items()} == found
     assert {p.name for p in _build.sources()} == {
-        "setup2dh.cu", "pack.cu", "raster_group.cu"}
+        "setup2dh.cu", "pack.cu", "raster_group.cu", "pt_trace.cu",
+        "modal.cu"}
     for flag in ("-fmad=false", "arch=compute_90a,code=sm_90a"):
         assert flag in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
@@ -151,3 +152,76 @@ def test_kernels_equal_plain_versions_on_cuda(cuda_device, n_attrs,
     torch.cuda.synchronize()
     assert torch.equal(e, e_r) and torch.equal(z, z_r)
     assert [m.launches for m in KERNEL_MODULES] == [1, 2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,thresh", [(1, 5), (2, 12), (3, 24)])
+def test_modal_kernel_equals_plain_on_cuda(cuda_device, radius, thresh):
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    g = torch.Generator().manual_seed(radius)
+    for h, w in ((540, 960), (36, 96), (13, 45)):
+        idx = torch.randint(0, 6, (h, w), generator=g, dtype=torch.int32)
+        ovr = torch.rand((h, w), generator=g) < 0.1
+        launches = AK.launches
+        got = AK.modal_filter_kernel(idx.to(cuda_device),
+                                     ovr.to(cuda_device), radius, thresh)
+        torch.cuda.synchronize()
+        assert AK.launches == launches + 1
+        assert torch.equal(got.cpu(), AK.modal_filter(idx, ovr, radius,
+                                                      thresh))
+
+
+def _pt_inputs(device, n_tris, n_blocks=3, seed=0):
+    """A random scene of spheres and n_tris triangles (2 + n_tris entries
+    past 64 take the kernel's chunked entry stream) with the demo atlas,
+    and n_blocks x 1,024 random rays into it."""
+    from ascii_renderer_tpu_torch.atlas.io import demo_atlas
+    from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    from ascii_renderer_tpu_torch.scene.builder import MaterialIds
+    from ascii_renderer_tpu_torch.scene.builder import SceneBuilder
+    rng = np.random.default_rng(seed)
+    sb = SceneBuilder()
+    mats = (MaterialIds.WHITE, MaterialIds.RED, MaterialIds.GLASS,
+            MaterialIds.MIRROR, MaterialIds.LIGHT)
+    for i in range(3):
+        sb.add_sphere(rng.uniform(-3, 3, 3), 0.7, mats[i])
+    for i in range(n_tris):
+        a = rng.uniform(-4, 4, 3)
+        sb.add_triangle(a, a + rng.uniform(-2, 2, 3), a + rng.uniform(-2, 2, 3),
+                        mats[i % 5], (0, 0), (31, 0), (0, 31))
+    sb.set_atlas(demo_atlas())
+    scene = sb.build(min_pad=1, device=device)
+    prim, atlas, aw, ah, sph_rows = PT.pack_scene_entries(scene)
+    n = n_blocks * 1024
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    rd = torch.nn.functional.normalize(d, dim=1).reshape(n_blocks, 8, 128, 3)
+    ro = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(
+        np.float32)).reshape(n_blocks, 8, 128, 3)
+    lc, lr = PT.get_light_sphere(scene, 0.5)
+    params = PT._params(lc, lr, torch.tensor((16.86, 10.76, 8.2)) * 1.3,
+                        device)
+    return ((params, prim, ro.to(device), rd.to(device), 17, atlas),
+            dict(bounces=5, nee=True, atlas_w=aw, atlas_h=ah,
+                 sph_rows=sph_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", [20, 150])
+def test_pt_kernel_equals_plain_on_cuda(cuda_device, n_tris):
+    """Resident (<= 64 entries) and chunked entry streams, with a block
+    gate and custom uids: ov / fet exactly, radiance bit for bit (the
+    kernel and the plain version round every operation alike)."""
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    args, kw = _pt_inputs(cuda_device, n_tris)
+    assert (args[1].shape[0] * 4 > 64) == (n_tris > 64)
+    act = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda_device)
+    uid = torch.randperm(3 * 1024, generator=torch.Generator().manual_seed(
+        1)).to(torch.int32).reshape(3, 8, 128).to(cuda_device)
+    launches = PTK.launches
+    got = PTK.trace_blocks_raw(*args, **kw, block_active=act, uid=uid)
+    want = PTK.trace_blocks_raw_ref(*args, **kw, block_active=act, uid=uid)
+    torch.cuda.synchronize()
+    assert PTK.launches == launches + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert not got[0][1].any() and got[0][0].any()

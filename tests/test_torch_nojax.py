@@ -1,6 +1,7 @@
 """The port never imports jax: in a fresh interpreter where importing jax
-fails, every module of ascii_renderer_tpu_torch imports and one 48x96 frame
-renders (plain-torch kernel versions on the CPU) through the glyph pass."""
+fails, every module of ascii_renderer_tpu_torch imports, and one 48x96
+raster frame and one 12x32 path-traced frame of the demo scene render
+(plain-torch kernel versions on the CPU) through the glyph pass."""
 
 import os
 import subprocess
@@ -30,7 +31,7 @@ p = torch.from_numpy(rng.uniform(-1, 1, (3 * T, 3)).astype(np.float32))
 n = torch.nn.functional.normalize(torch.from_numpy(
     rng.normal(size=(3 * T, 3)).astype(np.float32)), dim=1)
 c = torch.full((3 * T, 3), 0.8)
-scene = SceneBuilder().set_env_light([0.2, 0.2, 0.2], 1.0).build()
+scene = SceneBuilder().set_env_light([0.2, 0.2, 0.2], 1.0).build(device="cpu")
 cam = Camera.create(pos=(0.0, 0.5, 3.0), yaw=-1.57, pitch=-0.1)
 rgb, diag = R.render_soup_diag(p, n, c, scene, cam, 48, 96, 0.5, v_cap=4096,
                                kernel="subtile8", big_cap=512)
@@ -38,6 +39,22 @@ chars, _ = AsciiPass()(Frame.from_float(rgb))
 lines = chars_to_strings(chars)
 assert len(lines) == 48 and len(lines[0]) == 96
 assert (rgb.amax(-1) > 0).sum() > 300, int((rgb.amax(-1) > 0).sum())
+from ascii_renderer_tpu_torch.atlas import io as atlas_io
+from ascii_renderer_tpu_torch.backends import pathtrace, registry
+from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+from ascii_renderer_tpu_torch.ops import pt_kernel
+from ascii_renderer_tpu_torch.scene import demo
+sb = demo.create_demo_scene()
+sb.set_atlas(atlas_io.demo_atlas())
+cfg = Config(path_tracer=PathTracerConfig(samples_per_batch=2, max_bounces=2),
+             grid_width=32, grid_height=12)
+r = registry.Renderer(cfg, "pathtrace", device="cpu")
+r.set_scene(sb.build(min_pad=1, device="cpu"))
+f = r.render(0.0, Camera.create(pos=(0, 2.5, 6), yaw=-1.5707963))
+pchars, _ = AsciiPass(cfg)(f)
+assert tuple(pchars.shape) == (12, 32)
+assert int(((f.a >= 2) & (f.a <= 254)).sum()) > 5
+assert pt_kernel.launches == 0 and pathtrace.PathtraceBackend
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax"))
        or m.startswith("ascii_renderer_tpu.")]
 assert not [m for m in bad if sys.modules[m] is not None], bad

@@ -89,7 +89,7 @@ def test_frame_from_float_blank_overrides():
         for j, t in ((jf, tf), (jo, to)):
             np.testing.assert_array_equal(t.rgb.numpy(), np.asarray(j.rgb))
             np.testing.assert_array_equal(t.a.numpy(), np.asarray(j.a))
-    jb, tb = JFrame.blank(4, 6), TFrame.blank(4, 6)
+    jb, tb = JFrame.blank(4, 6), TFrame.blank(4, 6, device="cpu")
     np.testing.assert_array_equal(tb.rgb.numpy(), np.asarray(jb.rgb))
     np.testing.assert_array_equal(tb.a.numpy(), np.asarray(jb.a))
     assert (tb.rows, tb.cols) == (4, 6)

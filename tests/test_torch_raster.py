@@ -83,7 +83,8 @@ def build_scene(builder_cls, calls):
     sb = builder_cls()
     for name, *args in calls:
         getattr(sb, name)(*args)
-    return sb.build()
+    return sb.build(device="cpu") if builder_cls is SceneBuilder else \
+        sb.build()
 
 
 def caps(T, big_cap):
@@ -152,7 +153,7 @@ def test_backend_overflow_retry_equals_generous_caps():
     p, n, c = _big_soup()
     scene = build_scene(SceneBuilder, DIR_SCENE)
     cam = Camera.create(**CAM)
-    be = R.RasterBackend()
+    be = R.RasterBackend(device="cpu")
     be.set_soup(p, n, c, scene)
     be._caps = (4096, 16, 256, 4096, 8)  # far too small everywhere
     frame = be.render(0.0, cam, ROWS, COLS, 0.5)
@@ -174,7 +175,7 @@ def test_backend_rejects_unported_paths():
     p, n, c = CASES["random3000"][0]
     scene = build_scene(SceneBuilder, DIR_SCENE)
     cam = Camera.create(**CAM)
-    be = R.RasterBackend()
+    be = R.RasterBackend(device="cpu")
     assert torch.equal(be.render(0.0, cam, 8, 16).a,
                        torch.ones((8, 16), dtype=torch.uint8))  # no scene
     be.set_soup(p, n, c, scene)
@@ -202,7 +203,7 @@ def test_scene_from_jax_tessellates_and_preps_like_jax():
          for f in dataclasses.fields(jscene) if f.name != "camera"}
     d["camera"] = {f.name: np.asarray(getattr(jscene.camera, f.name))
                    for f in dataclasses.fields(jscene.camera)}
-    scene = scene_from_numpy(d)
+    scene = scene_from_numpy(d, "cpu")
     for f in dataclasses.fields(jscene):
         if f.name != "camera":
             np.testing.assert_array_equal(getattr(scene, f.name).numpy(),
@@ -217,7 +218,7 @@ def test_scene_from_jax_tessellates_and_preps_like_jax():
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     # the port's own builder gives the same light/material tables
     own = SceneBuilder().set_env_light([0.2, 0.3, 0.4], 0.5).add_point_light(
-        [1, 2, 3], [1, 1, 1], 2.0).build()
+        [1, 2, 3], [1, 1, 1], 2.0).build(device="cpu")
     for k in ("env_color", "env_intensity", "pt_pos", "pt_col", "n_pt",
               "dl_dir", "dl_col", "n_dl", "mat_albedo", "mat_emissive"):
         np.testing.assert_array_equal(getattr(own, k).numpy(), d[k],
