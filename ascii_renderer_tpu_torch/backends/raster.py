@@ -1,20 +1,29 @@
-"""Forward rasterizer backend, headline path (torch port of
-``ascii_renderer_tpu/backends/raster.py``, kernel ``subtile8``).
+"""Forward rasterizer backend (torch port of
+``ascii_renderer_tpu/backends/raster.py``).
 
-Per frame: the camera MVP (host), 2-D homogeneous triangle setup (CUDA
-kernel, ops/setup2dh), the channel pack (CUDA kernel, ops/pack), pair keys
-per 8 x 16 px bin and one key sort, the depth-grouped K-gather layout
-(ops/raster_group), the grouped walk (CUDA kernel), deferred shading on the
-group layout, and one bin-gather image assembly.
+Three generations run, chosen by scene size as the reference chooses
+(``RasterBackend.render``):
+- below 2,048 triangle slots: ``render_soup`` uncapped, the chunked scan
+  (``raster_channels.visibility_scan``) up to 512 slots and the binned
+  scatter walk (B6, ops/raster_bins) above;
+- 2,048 to 32,767 slots: the compacted clip-expansion pipeline
+  ``render_soup_diag(kernel="mm")`` (B6 walk, plane table packed by B7)
+  with (v_cap, big_cap) overflow retries;
+- from 32,768 slots: the headline ``subtile8`` pipeline. Per frame: the
+  camera MVP (host), 2-D homogeneous triangle setup (CUDA kernel,
+  ops/setup2dh), the channel pack (CUDA kernel, ops/pack), pair keys per
+  8 x 16 px bin and one key sort, the depth-grouped K-gather layout
+  (ops/raster_group), the grouped walk (CUDA kernel), deferred shading on
+  the group layout, and one bin-gather image assembly.
 
 Reference behaviours preserved (raster.js): camera mapping identical to the
 tracers, near 0.05 / far 100, back-face culling, a default directional
 light when the scene has none, ambient = env color * intensity, point-light
 attenuation 1/(1 + d^2*0.05), no shadows.
 
-Only the headline generation is ported: other kernel names, and scenes
-below 32,768 triangle slots (the scan and scatter paths), raise
-NotImplementedError (ROADMAP A5).
+Not ported (each raises NotImplementedError naming its ROADMAP item): the
+fused-shading walk (method "fused", B8) and the older walk generations
+(methods / kernels "subtile".."subtile7", B9).
 """
 
 from __future__ import annotations
@@ -35,18 +44,27 @@ from ascii_renderer_tpu_torch.ops.pack import pack_channels_split_blocked
 from ascii_renderer_tpu_torch.ops.setup2dh import setup_2dh_fused, setup_channels
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 from ascii_renderer_tpu_torch.backends.raster_common import (  # noqa: F401
-    FAR, NEAR, TILE_H, TILE_W, _round_up, _shade_rows)
+    FAR, MAX_V_CAP, NEAR, TILE_H, TILE_W, _DEFAULT_AMBIENT, _DEFAULT_DIR,
+    _DEFAULT_DIR_COL, _cumsum_i32, _round_up, _shade_rows, shade_from_table)
+from ascii_renderer_tpu_torch.backends.raster_channels import (  # noqa: F401
+    _COMPACT_KEYS, _clip_channels_core, _edge, build_plane_table,
+    clip_attrs_channel_lists, clip_attrs_compact_lists, compact_valid_ch,
+    count_big_small, render_channels_diag, setup_screen,
+    setup_screen_channels, shade_planes_ch, shade_visibility, transform_clip,
+    transform_clip_channels, transform_clip_channels9, visibility_binned_ch,
+    visibility_scan)
 
 HEADLINE_KERNEL = "subtile8"  # K8 slot gather relaid to the base walk layout
+_ADAPTIVE_MIN_TRIS = 2048   # RasterBackend: compacted mid-scale path from here
 _GROUPED_MIN_TRIS = 32768   # RasterBackend: headline path from here up
+_OLDER_WALKS = ("subtile", "subtile2", "subtile3", "subtile4", "subtile5",
+                "subtile6", "subtile7")
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported to ascii_renderer_tpu_torch yet (ROADMAP A5: "
-        f"raster small and mid scale); only render_soup_diag(kernel="
-        f"'{HEADLINE_KERNEL}') and scenes of >= {_GROUPED_MIN_TRIS} triangle "
-        f"slots are")
+        f"{what} is not ported to ascii_renderer_tpu_torch yet (ROADMAP "
+        f"{item})")
 
 
 # --------------------------------------------------------------------------
@@ -294,22 +312,38 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
                      r_cap: int = 16384, pair_cap: int = 65536,
                      tile_cap: int | None = None, pos9=None,
                      attrs_t=None, emit: str = "rgb", ramp_len: int = 10):
-    """Compacted raster pipeline with capacity diagnostics (kernel
-    ``subtile8`` only). The soup lives on the device that renders.
+    """Compacted raster pipeline with capacity diagnostics. The soup lives
+    on the device that renders.
 
-    Returns (rgb f32 [rows, cols, 3], diag) with 0-d i32 counts n_valid,
-    n_big, n_rows, n_pairs, n_tiles_nz. The frame is exact iff n_big <=
-    big_cap, n_rows <= r_cap, n_pairs <= pair_cap and n_tiles_nz <=
-    tile_cap (the BIN capacity; grp_cap = tile_cap // 8); otherwise work was
-    dropped and the caller re-renders with ``suggest_caps_grouped`` caps.
+    kernel 'mm' / 'loop': the clip-expansion channel pipeline
+    (raster_channels.render_channels_diag: valid compaction to v_cap, the
+    bin walk B6 / B6', plane-table shading); exact iff n_valid <= v_cap and
+    n_big <= big_cap (grow them with ``suggest_caps``). pos9 selects the
+    pre-transposed vertex stage.
 
-    emit='idx' quantizes to ramp indices in group layout and assembles
-    (idx i32 [rows, cols], rgb8 u8 [rows, cols, 3]) instead — bit-identical
-    to quantizing the assembled image (assembly is a permutation)."""
-    if kernel != HEADLINE_KERNEL:
-        raise _not_ported(f"render_soup_diag(kernel={kernel!r})")
+    kernel 'subtile8' (the headline): returns (rgb f32 [rows, cols, 3],
+    diag) with 0-d i32 counts n_valid, n_big, n_rows, n_pairs, n_tiles_nz.
+    The frame is exact iff n_big <= big_cap, n_rows <= r_cap, n_pairs <=
+    pair_cap and n_tiles_nz <= tile_cap (the BIN capacity; grp_cap =
+    tile_cap // 8); otherwise work was dropped and the caller re-renders
+    with ``suggest_caps_grouped`` caps. emit='idx' quantizes to ramp
+    indices in group layout and assembles (idx i32 [rows, cols], rgb8 u8
+    [rows, cols, 3]) instead — bit-identical to quantizing the assembled
+    image (assembly is a permutation)."""
     with stage("raster.mvp"):
         mvp = camera_mvp(cam, rows, cols, pixel_aspect)
+    if kernel in ("mm", "loop"):
+        # world-position planes feed only the point lights
+        parts = [normals, colors]
+        if scene.pt_pos.shape[0]:
+            parts.append(positions)
+        return render_channels_diag(
+            positions, torch.cat(parts, dim=1), scene, mvp, rows, cols,
+            v_cap=v_cap, big_cap=big_cap, kernel=kernel, r_cap=r_cap,
+            pair_cap=pair_cap, tile_cap=tile_cap, pos9=pos9)
+    if kernel != HEADLINE_KERNEL:
+        raise _not_ported(f"render_soup_diag(kernel={kernel!r}), an older "
+                          f"walk generation", "B9")
     if pos9 is None or attrs_t is None:
         pos9, attrs_t = soup_static_prep(positions, normals, colors, scene)
     A = attrs_t.shape[0] // 3
@@ -358,15 +392,80 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     return rgb, diag
 
 
+def suggest_caps(n_valid: int, n_big: int):
+    """Adaptive (v_cap, big_cap) for the mid-scale pipeline, with growth
+    margin: ~30% / 50% above the last counts, rounded to coarse quanta."""
+    v_cap = min(MAX_V_CAP, _round_up(int(n_valid * 1.3) + 512, 8192))
+    big_cap = max(64, _round_up(int(n_big * 1.5) + 8, 64))
+    return v_cap, big_cap
+
+
+def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
+                rows: int, cols: int, pixel_aspect: float,
+                chunk: int = 64, method: str = "auto",
+                v_cap: int | None = None, big_cap: int = 64,
+                r_cap: int = 16384, pair_cap: int = 65536,
+                tile_cap: int | None = None, pos9=None,
+                attrs_t=None) -> torch.Tensor:
+    """Triangle soup -> shaded RGB f32 [rows, cols, 3].
+
+    method: 'scatter' / 'scatter_mm' (the binned bin walk B6),
+    'scatter_loop' (its scalar-loop twin B6'), 'scan' (the chunked dense
+    scan, the reference path), or 'auto' (scatter above 512 triangle
+    slots). v_cap routes the scatter methods, and 'subtile8', into the
+    compacted render_soup_diag; None keeps the exact uncapped path.
+    'fused' (B8) and 'subtile'..'subtile7' (B9) are not ported and raise;
+    any other name takes the scan, as in the reference."""
+    if method == "fused":
+        raise _not_ported("render_soup(method='fused'), the fused-shading "
+                          "walk", "B8")
+    if method in _OLDER_WALKS:
+        raise _not_ported(f"render_soup(method={method!r}), an older walk "
+                          f"generation", "B9")
+    attrs = torch.cat([normals, colors, positions], dim=1)  # [V, 9]
+    if method == "auto":
+        method = "scatter" if positions.shape[0] // 3 * 2 > 512 else "scan"
+    scatter = ("scatter", "scatter_mm", "scatter_loop")
+    if method in scatter + (HEADLINE_KERNEL,) and v_cap is not None:
+        kern = {"scatter_loop": "loop",
+                HEADLINE_KERNEL: HEADLINE_KERNEL}.get(method, "mm")
+        rgb, _diag = render_soup_diag(
+            positions, normals, colors, scene, cam, rows, cols, pixel_aspect,
+            v_cap=v_cap, big_cap=big_cap, kernel=kern, r_cap=r_cap,
+            pair_cap=pair_cap, tile_cap=tile_cap, pos9=pos9,
+            attrs_t=attrs_t)
+        return rgb
+    with stage("raster.mvp"):
+        mvp = camera_mvp(cam, rows, cols, pixel_aspect)
+    if method in scatter:
+        with stage("raster.clip"):
+            ch = transform_clip_channels(positions, mvp)
+            ch = setup_screen_channels(ch, rows, cols)
+        with stage("raster.walk"):
+            kern = "loop" if method == "scatter_loop" else "mm"
+            _zbuf, tid = visibility_binned_ch(ch, rows, cols, kernel=kern)
+        with stage("raster.shade"):
+            attr_slots = clip_attrs_channel_lists(attrs, ch)
+            return shade_planes_ch(tid, ch, attr_slots, scene, rows, cols)
+    with stage("raster.clip"):
+        clip, tattr, valid = transform_clip(positions, attrs, mvp)
+        setup = setup_screen(clip, valid, rows, cols)
+    with stage("raster.walk"):
+        _zbuf, tid = visibility_scan(setup, rows, cols, chunk)
+    with stage("raster.shade"):
+        return shade_visibility(tid, clip, tattr, scene, rows, cols)
+
+
 _DIAG_KEYS = ("n_valid", "n_big", "n_rows", "n_pairs", "n_tiles_nz")
 
 
 class RasterBackend:
     """Backend-protocol wrapper. Tessellation happens on scene push.
 
-    Capacity management: every frame's diagnostics are read on the host;
-    on overflow the caps grow with margin and the frame re-renders (up to
-    4 tries), so no triangle is silently dropped. After the first frame the
+    Small scenes (< 2,048 triangle slots) render uncapped. Mid-scale and
+    headline scenes: every frame's diagnostics are read on the host; on
+    overflow the caps grow with margin and the frame re-renders (up to 4
+    tries), so no triangle is silently dropped. After the first frame the
     backend adopts lean caps and holds them while they fit."""
 
     name = "raster"
@@ -399,8 +498,28 @@ class RasterBackend:
         if self._scene is None or self._soup[0].shape[0] == 0:
             return Frame.blank(rows, cols, device=self.device)
         n2t = self._soup[0].shape[0] // 3 * 2
-        if n2t < _GROUPED_MIN_TRIS or n2t > RS.MAX_TRI - 4096:
-            raise _not_ported(f"RasterBackend.render at {n2t} triangle slots")
+        if n2t < _ADAPTIVE_MIN_TRIS or n2t > RS.MAX_TRI - 4096:
+            rgb = render_soup(*self._soup, self._scene, camera, rows, cols,
+                              pixel_aspect)
+            with stage("frame.from_float"):
+                return Frame.from_float(rgb)
+        if n2t < _GROUPED_MIN_TRIS:  # mid scale: the compacted mm walk
+            caps = self._caps or (n2t, 64)
+            for _ in range(4):
+                rgb, diag = render_soup_diag(
+                    *self._soup, self._scene, camera, rows, cols,
+                    pixel_aspect, v_cap=caps[0], big_cap=caps[1],
+                    pos9=self._pos9)
+                with stage("raster.diag_readback"):  # the frame's host sync
+                    counts = tuple(torch.stack(
+                        [diag["n_valid"], diag["n_big"]]).tolist())
+                if all(c <= cap for c, cap in zip(counts, caps)):
+                    break
+                caps = suggest_caps(*counts)
+            # adopt lean caps after the first (safe-cap) frame, then hold
+            self._caps = caps if self._caps else suggest_caps(*counts)
+            with stage("frame.from_float"):
+                return Frame.from_float(rgb)
         n_tiles = (-(-rows // TILE_H)) * (-(-cols // TILE_W))
         caps = self._caps or (n2t, 64, _round_up(n2t, 2048), 4 * n2t,
                               n_tiles * 8)

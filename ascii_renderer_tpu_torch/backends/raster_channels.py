@@ -1,0 +1,696 @@
+"""Clip-expansion channel raster generation, live at small and mid scale
+(torch port of ``ascii_renderer_tpu/backends/raster_channels.py``).
+
+The [2T]-domain pipeline: branchless near-clip expansion into
+channel-major screen triangles, order-preserving valid compaction, exact
+per-tile binning, the bin walks B6 / B6' (ops/raster_bins) and deferred
+plane-table shading (its table through the pack kernel B7 when its length
+is a multiple of 512). The chunked ``visibility_scan`` path is the
+reference rasterizer the faster paths are compared with, and the one
+``render_soup`` takes below 512 triangle slots.
+
+Rounding: the reference is compiled by XLA, whose CPU code generator fuses
+a product into the add or subtract it feeds (core/fp.py). Every such chain
+below is written with ``fma32`` where the reference's compiled program
+fuses it (each one carries a comment), so the clip channels, screen
+setup, plane table and winners equal the compiled reference bit for bit.
+A division by a Python float on a CUDA tensor is not IEEE, so constants
+divide through 0-d tensors (``quantize.fdiv``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function as stage
+
+from ascii_renderer_tpu_torch.backends.raster_common import (
+    _DEFAULT_DIR, _DEFAULT_DIR_COL, MAX_V_CAP, TILE_H, TILE_W, _dot3,
+    shade_from_table)
+from ascii_renderer_tpu_torch.core.fp import fma32
+from ascii_renderer_tpu_torch.core.quantize import fdiv
+from ascii_renderer_tpu_torch.ops import raster_bins as RB
+from ascii_renderer_tpu_torch.scene.builder import SceneData
+
+
+def _floor_i32(x: torch.Tensor) -> torch.Tensor:
+    # saturate like XLA's f32 -> s32 conversion (huge near-plane bboxes)
+    return torch.clamp(torch.floor(x), -2147483648.0, 2147483520.0).to(
+        torch.int32)
+
+
+def _recip_guard(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """1 / where(|x| < eps, eps, x)."""
+    return torch.reciprocal(torch.where(x.abs() < eps, eps, x))
+
+
+def _lerp(c0, c1, t):
+    # c0 + t * (c1 - c0): the product fuses into the add
+    return fma32(t, c1 - c0, c0)
+
+
+def transform_clip_channels(positions: torch.Tensor, mvp: torch.Tensor):
+    """Channel-major vertex stage: positions f32 [V=3T, 3] -> dict of
+    [2T]-shaped per-component tensors for the near-clipped triangles (see
+    ``_clip_channels_core``). The reference's vertex transform is a K = 4
+    dot, which its compiler sums pairwise without fusing: (x m0 + y m1) +
+    (z m2 + m3)."""
+    V = positions.shape[0]
+    T = V // 3
+    m = mvp.tolist()  # host floats: the matrix is the host's
+    x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
+    clip = [(x * m[j][0] + y * m[j][1]) + (z * m[j][2] + m[j][3])
+            for j in range(4)]
+    cv = torch.stack(clip, dim=-1).reshape(T, 12).t()
+    ch = {f"{c}{s}": cv[4 * i + j]
+          for i, s in enumerate("abc")
+          for j, c in enumerate("xyzw")}
+    return _clip_channels_core(ch)
+
+
+def transform_clip_channels9(pos9: torch.Tensor, mvp: torch.Tensor):
+    """transform_clip_channels on pre-transposed geometry pos9 f32 [9, T]
+    (rows xa ya za xb yb zb xc yc zc): four-term chains per channel."""
+    m = mvp.tolist()
+    ch = {}
+    for i, s in enumerate("abc"):
+        px, py, pz = pos9[3 * i], pos9[3 * i + 1], pos9[3 * i + 2]
+        for j, c in enumerate("xyzw"):
+            # (m0 px + m1 py) + m2 pz fuse (core/fp.py), then + m3
+            ch[f"{c}{s}"] = fma32(m[j][2], pz,
+                                  fma32(m[j][0], px, m[j][1] * py)) + m[j][3]
+    return _clip_channels_core(ch)
+
+
+def _clip_channels_core(ch):
+    """Shared near-clip channel math: per-slot clip channels x/y/z/w{a,b,c}
+    [T] -> the [2T] clipped-triangle channel dict: x/y/z/w per output vertex
+    slot ('xa' .. 'wc'), 'valid' bool, and the lerp records 'rot', 't_ab',
+    't_ac', 't_bc', 'n_in' [T] for the attributes."""
+    d = {s: ch[f"z{s}"] + ch[f"w{s}"] for s in "abc"}
+    ins = {s: d[s] >= 0.0 for s in "abc"}
+    n_in = (ins["a"].to(torch.int32) + ins["b"].to(torch.int32)
+            + ins["c"].to(torch.int32))
+
+    # rotation r in {0,1,2}: 1-in -> first inside vertex first;
+    # 2-in -> outside vertex last (as transform_clip)
+    first_in = torch.where(ins["a"], 0, torch.where(ins["b"], 1, 2))
+    first_out = torch.where(~ins["a"], 0, torch.where(~ins["b"], 1, 2))
+    rot = torch.where(n_in == 1, first_in,
+                      torch.where(n_in == 2, (first_out + 1) % 3, 0)).to(
+        torch.int32)
+
+    def rot_sel(ca, cb, cc):
+        return torch.where(rot == 0, ca, torch.where(rot == 1, cb, cc))
+
+    names = "abc"
+    rch, rd = {}, {}
+    for k, s in enumerate("abc"):
+        # rotated slot s takes original slot (rot + k) % 3
+        srcs = [names[(i + k) % 3] for i in range(3)]
+        for c in "xyzw":
+            rch[f"{c}{s}"] = rot_sel(*(ch[f"{c}{q}"] for q in srcs))
+        rd[s] = rot_sel(*(d[q] for q in srcs))
+
+    def ratio(p, q):
+        return p / torch.where(p == q, 1.0, p - q)
+
+    ta = ratio(rd["a"], rd["b"])  # a->b
+    tc = ratio(rd["a"], rd["c"])  # a->c
+    tb = ratio(rd["b"], rd["c"])  # b->c
+
+    one_in = n_in == 1
+    two_in = n_in == 2
+    out = {}
+    for c in "xyzw":
+        a0, b0, c0 = rch[f"{c}a"], rch[f"{c}b"], rch[f"{c}c"]
+        ab = _lerp(a0, b0, ta)
+        ac = _lerp(a0, c0, tc)
+        bc = _lerp(b0, c0, tb)
+        # tri1: 3-in (a,b,c); 1-in (a, ab, ac); 2-in (a, b, bc)
+        t1b = torch.where(one_in, ab, b0)
+        t1c = torch.where(one_in, ac, torch.where(two_in, bc, c0))
+        # tri2 (only 2-in): (a, bc, ac)
+        out[f"{c}a"] = torch.cat([a0, a0])
+        out[f"{c}b"] = torch.cat([t1b, bc])
+        out[f"{c}c"] = torch.cat([t1c, ac])
+    out["valid"] = torch.cat([n_in >= 1, two_in])
+    out["rot"] = rot
+    out["t_ab"], out["t_ac"], out["t_bc"] = ta, tc, tb
+    out["n_in"] = n_in
+    return out
+
+
+def setup_screen_channels(ch, rows: int, cols: int):
+    """Channel-major screen setup: adds screen-space sx/sy/sz and iw per
+    slot, 'area2' and the facing/degenerate cull to ``ch`` (in place) and
+    returns it. Front faces have NEGATIVE y-down area (raster.js:100-102)."""
+    # the compiler folds "* 0.5 * cols" into one product by 0.5 * cols
+    hx, hy = 0.5 * cols, 0.5 * rows
+    ux, uy = {}, {}
+    for s in "abc":
+        inv_w = _recip_guard(ch[f"w{s}"], 1e-9)
+        # (x*inv_w + 1) * 0.5 * cols: the product fuses into the add
+        ux[s] = fma32(ch[f"x{s}"], inv_w, 1.0)
+        ch[f"sx{s}"] = ux[s] * hx
+        # (1 - y*inv_w): the product fuses into the subtract
+        uy[s] = fma32(-ch[f"y{s}"], inv_w, 1.0)
+        ch[f"sy{s}"] = uy[s] * hy
+        ch[f"sz{s}"] = fma32(ch[f"z{s}"], inv_w, 1.0) * 0.5
+        ch[f"iw{s}"] = inv_w
+    # edges, with each vertex's scale product inlined: the single-use
+    # product of the minuend fuses into the subtract (vertex a's is shared)
+    e0x = fma32(ux["b"], hx, -ch["sxa"])
+    e0y = fma32(uy["b"], hy, -ch["sya"])
+    e1x = fma32(ux["c"], hx, -ch["sxa"])
+    e1y = fma32(uy["c"], hy, -ch["sya"])
+    area2 = fma32(e0x, e1y, -(e0y * e1x))  # a*b - c*d: the left fuses
+    ch["valid"] = ch["valid"] & (area2 < 0.0) & (area2.abs() > 1e-12)
+    ch["area2"] = area2
+    return ch
+
+
+def transform_clip(positions: torch.Tensor, attrs: torch.Tensor,
+                   mvp: torch.Tensor):
+    """positions f32 [V=3T, 3], attrs f32 [V, A] -> near-clipped triangles
+    (clip [2T, 3, 4], tattr [2T, 3, A], valid [2T]): each input triangle
+    emits up to two output triangles (the two-in / one-out case needs both).
+    The scan path's bundle form of transform_clip_channels."""
+    V = positions.shape[0]
+    T = V // 3
+    m = mvp.tolist()
+    x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
+    # the K = 4 dot, summed pairwise (see transform_clip_channels)
+    clip = torch.stack([(x * m[j][0] + y * m[j][1]) + (z * m[j][2] + m[j][3])
+                        for j in range(4)], dim=1)
+    A = attrs.shape[1]
+    bundle = torch.cat([clip, attrs], dim=1).reshape(T, 3, 4 + A)
+
+    d = bundle[..., 2] + bundle[..., 3]  # z + w >= 0 is inside (near plane)
+    inside = d >= 0.0
+    n_in = inside.sum(dim=1)
+    # rotate each triangle so the pattern is canonical:
+    #   1-in -> the inside vertex first; 2-in -> the OUTSIDE vertex last
+    idx_first_in = torch.argmax(inside.to(torch.int8), dim=1)
+    idx_out = torch.argmax((~inside).to(torch.int8), dim=1)
+    rot = torch.where(n_in == 1, idx_first_in,
+                      torch.where(n_in == 2, (idx_out + 1) % 3, 0))
+    r = rot[:, None]
+    vb = torch.where(r[..., None] == 0, bundle,
+                     torch.where(r[..., None] == 1,
+                                 torch.roll(bundle, -1, dims=1),
+                                 torch.roll(bundle, -2, dims=1)))
+    db = torch.where(r == 0, d, torch.where(r == 1, torch.roll(d, -1, dims=1),
+                                            torch.roll(d, -2, dims=1)))
+    a, b, c = vb[:, 0], vb[:, 1], vb[:, 2]
+    da, db_, dc = db[:, 0], db[:, 1], db[:, 2]
+
+    def lerp(p, q, dp, dq):
+        t = dp / (dp - dq)
+        return fma32(t[:, None], q - p, p)  # p + t*(q - p): fused
+
+    ab = lerp(a, b, da, db_)
+    ac = lerp(a, c, da, dc)
+    bc = lerp(b, c, db_, dc)
+    one_in = (n_in == 1)[:, None, None]
+    two_in = (n_in == 2)[:, None, None]
+    tri1 = torch.where(one_in, torch.stack([a, ab, ac], dim=1),
+                       torch.where(two_in, torch.stack([a, b, bc], dim=1),
+                                   torch.stack([a, b, c], dim=1)))
+    tri2 = torch.stack([a, bc, ac], dim=1)  # only in the 2-in case
+    tris = torch.cat([tri1, tri2], dim=0)
+    valid = torch.cat([n_in >= 1, n_in == 2])
+    return tris[..., :4], tris[..., 4:], valid
+
+
+def setup_screen(clip: torch.Tensor, valid: torch.Tensor, rows: int,
+                 cols: int):
+    """clip [T, 3, 4] -> screen-space setup dict: xy [T, 3, 2] (x right, y
+    DOWN from the top row), z01 [T, 3], inv_w [T, 3], area2 [T] and valid
+    after the degenerate + back-face cull (front faces have negative
+    y-down area, raster.js:100-102). Rounds as the reference's compiled
+    program: x and y fuse their products; z fuses only for the third
+    vertex (its compiler pairs the first two vertices' products apart);
+    the edges come from the stored xy."""
+    hx, hy = 0.5 * cols, 0.5 * rows
+    inv_w = _recip_guard(clip[..., 3], 1e-9)
+    x = fma32(clip[..., 0], inv_w, 1.0) * hx
+    y = fma32(-clip[..., 1], inv_w, 1.0) * hy
+    zw = clip[..., 2] * inv_w
+    z01 = torch.cat([zw[:, :2] + 1.0,
+                     fma32(clip[:, 2:, 2], inv_w[:, 2:], 1.0)], dim=1) * 0.5
+    xy = torch.stack([x, y], dim=-1)
+    e0x, e0y = x[:, 1] - x[:, 0], y[:, 1] - y[:, 0]
+    e1x, e1y = x[:, 2] - x[:, 0], y[:, 2] - y[:, 0]
+    area2 = fma32(e0x, e1y, -(e0y * e1x))  # a*b - c*d: the left fuses
+    valid = valid & (area2 < 0.0) & (area2.abs() > 1e-12)
+    return {"xy": xy, "z01": z01, "inv_w": inv_w, "area2": area2,
+            "valid": valid}
+
+
+def _edge(ax, ay, bx, by, px, py):
+    """Edge function cross(b - a, p - a): the left product fuses."""
+    return fma32(bx - ax, py - ay, -((by - ay) * (px - ax)))
+
+
+def visibility_scan(setup, rows: int, cols: int, chunk: int = 64):
+    """Chunked z-buffer pass producing the visibility buffer: (zbuf f32
+    [H, W], tid i32 [H, W], -1 = background). Each step rasterizes
+    ``chunk`` triangles as a dense [C, H, W] program and min-merges
+    (strict less-than across steps, the first least depth inside one)."""
+    xy, z01, valid = setup["xy"], setup["z01"], setup["valid"]
+    dev = xy.device
+    T = xy.shape[0]
+    C = min(chunk, max(T, 1))
+    pad = (-T) % C
+    if pad:
+        xy = torch.cat([xy, xy.new_zeros((pad,) + xy.shape[1:])])
+        z01 = torch.cat([z01, z01.new_zeros((pad,) + z01.shape[1:])])
+        valid = torch.cat([valid, valid.new_zeros((pad,))])
+    pxg = (torch.arange(cols, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    pyg = (torch.arange(rows, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    zbuf = torch.full((rows, cols), float("inf"), device=dev)
+    tbuf = torch.full((rows, cols), -1, dtype=torch.int32, device=dev)
+    for s in range(0, T + pad, C):
+        x = xy[s:s + C, :, 0, None, None]
+        y = xy[s:s + C, :, 1, None, None]
+        z = z01[s:s + C, :, None, None]
+        w0 = _edge(x[:, 1], y[:, 1], x[:, 2], y[:, 2], pxg, pyg)
+        w1 = _edge(x[:, 2], y[:, 2], x[:, 0], y[:, 0], pxg, pyg)
+        w2 = _edge(x[:, 0], y[:, 0], x[:, 1], y[:, 1], pxg, pyg)
+        # front faces have negative orientation: inside = all edges <= 0
+        inside = ((w0 <= 0) & (w1 <= 0) & (w2 <= 0)
+                  & valid[s:s + C, None, None])
+        area = (w0 + w1) + w2
+        b0, b1, b2 = w0 / area, w1 / area, w2 / area
+        # b0 z0 + b1 z1 + b2 z2 (core/fp.py)
+        zpix = fma32(b2, z[:, 2], fma32(b0, z[:, 0], b1 * z[:, 1]))
+        ok = inside & (zpix >= 0.0) & (zpix <= 1.0)
+        zpix = torch.where(ok, zpix, float("inf"))
+        zmin, kmin = torch.min(zpix, dim=0)  # the first least depth
+        better = zmin < zbuf
+        zbuf = torch.where(better, zmin, zbuf)
+        tbuf = torch.where(better, (kmin + s).to(torch.int32), tbuf)
+    return zbuf, tbuf
+
+
+_COMPACT_KEYS = ("sxa", "sxb", "sxc", "sya", "syb", "syc",
+                 "sza", "szb", "szc", "iwa", "iwb", "iwc", "area2")
+
+
+def compact_valid_ch(ch, v_cap: int):
+    """Order-preserving compaction of the valid clipped triangles to a
+    static [v_cap]. Returns (cch, cidx, n_valid): cch is a channel dict like
+    ``ch`` but [v_cap]-shaped (slots past n_valid are inert zeros with
+    valid False), cidx [v_cap] i32 maps a compacted slot to its original
+    [2T] index (fill = 2T), n_valid the 0-d i32 count. **If n_valid > v_cap
+    the overflow triangles are dropped**: callers check the count
+    (render_soup_diag / suggest_caps) and re-render with a larger cap."""
+    valid = ch["valid"]
+    dev = valid.device
+    n2t = valid.shape[0]
+    assert v_cap <= MAX_V_CAP, f"v_cap {v_cap} exceeds {MAX_V_CAP}"
+    n_valid = valid.sum(dtype=torch.int32)
+    ids = torch.arange(n2t, dtype=torch.int32, device=dev)
+    skey = torch.sort(torch.where(valid, ids, n2t + ids)).values
+    if v_cap > n2t:  # [T]-domain callers may pass caps sized for [2T]
+        skey = torch.cat([skey, skey.new_full((v_cap - n2t,), n2t)])
+    cidx = torch.where(skey[:v_cap] < n2t, skey[:v_cap], n2t)
+    packed = torch.stack([ch[k] for k in _COMPACT_KEYS], dim=-1)
+    packed = torch.cat([packed, packed.new_zeros((1, len(_COMPACT_KEYS)))])
+    g = packed[cidx.long()].t()  # one wide row gather, then unpack
+    cch = {k: g[i] for i, k in enumerate(_COMPACT_KEYS)}
+    cch["valid"] = cidx < n2t
+    return cch, cidx, n_valid
+
+
+def _attr_slots(ai, A: int, rot, ta, tc, tb, one_in, two_in, second):
+    """Rotation + clip lerps of per-vertex attribute channels ai [3A, N]
+    (vertex-major). ``second``: the slot holds the second clip output
+    (None: emit both outputs, [2N] channels)."""
+    out_slots = [[], [], []]
+    for j in range(A):
+        base = [ai[0 * A + j], ai[1 * A + j], ai[2 * A + j]]
+        r = [torch.where(rot == 0, base[k % 3],
+                         torch.where(rot == 1, base[(1 + k) % 3],
+                                     base[(2 + k) % 3])) for k in range(3)]
+        ab = _lerp(r[0], r[1], ta)
+        ac = _lerp(r[0], r[2], tc)
+        bc = _lerp(r[1], r[2], tb)
+        t1b = torch.where(one_in, ab, r[1])
+        t1c = torch.where(one_in, ac, torch.where(two_in, bc, r[2]))
+        if second is None:
+            out_slots[0].append(torch.cat([r[0], r[0]]))
+            out_slots[1].append(torch.cat([t1b, bc]))
+            out_slots[2].append(torch.cat([t1c, ac]))
+        else:  # tri1 and tri2 share vertex a
+            out_slots[0].append(r[0])
+            out_slots[1].append(torch.where(second, bc, t1b))
+            out_slots[2].append(torch.where(second, ac, t1c))
+    return out_slots
+
+
+def clip_attrs_channel_lists(attrs: torch.Tensor, ch):
+    """Apply the clip rotation + lerp recorded by transform_clip_channels to
+    per-vertex attributes: attrs f32 [V=3T, A] -> 3 lists (one per output
+    vertex slot) of A channels, each [2T]."""
+    V, A = attrs.shape
+    ai = attrs.reshape(V // 3, 3 * A).t()
+    n_in = ch["n_in"]
+    return _attr_slots(ai, A, ch["rot"], ch["t_ab"], ch["t_ac"], ch["t_bc"],
+                       n_in == 1, n_in == 2, None)
+
+
+def clip_attrs_compact_lists(attrs: torch.Tensor, ch, cidx: torch.Tensor):
+    """clip_attrs_channel_lists evaluated only at the compacted slots:
+    cidx [v_cap] holds original [2T] ids (o < T: first clip output of
+    triangle o; o >= T: the second). Returns 3 slot lists of A channels,
+    each [v_cap]."""
+    V, A = attrs.shape
+    T = V // 3
+    src = torch.where(cidx < 2 * T, cidx % T, 0).long()
+    ai = attrs.reshape(T, 3 * A)[src].t()  # [3A, v_cap]
+    n_in = ch["n_in"][src]
+    return _attr_slots(ai, A, ch["rot"][src], ch["t_ab"][src],
+                       ch["t_ac"][src], ch["t_bc"][src], n_in == 1,
+                       n_in == 2, cidx >= T)
+
+
+def _tile_span(ch, rows: int, cols: int, tile_window: int):
+    """Per-triangle bbox tile span and the small / big classification of
+    the bin pass: (tx0, tx1, ty0, ty1, small, big)."""
+    xa, xb, xc = ch["sxa"], ch["sxb"], ch["sxc"]
+    ya, yb, yc = ch["sya"], ch["syb"], ch["syc"]
+    xmin = torch.minimum(torch.minimum(xa, xb), xc)
+    xmax = torch.maximum(torch.maximum(xa, xb), xc)
+    ymin = torch.minimum(torch.minimum(ya, yb), yc)
+    ymax = torch.maximum(torch.maximum(ya, yb), yc)
+    tx0 = _floor_i32(fdiv(xmin, float(TILE_W)))
+    ty0 = _floor_i32(fdiv(ymin, float(TILE_H)))
+    tx1 = _floor_i32(fdiv(xmax, float(TILE_W)))
+    ty1 = _floor_i32(fdiv(ymax, float(TILE_H)))
+    onscreen = (xmax > 0) & (xmin < cols) & (ymax > 0) & (ymin < rows)
+    fits = ((tx1 - tx0) < tile_window) & ((ty1 - ty0) < tile_window)
+    small = ch["valid"] & onscreen & fits
+    big = ch["valid"] & onscreen & ~fits
+    return tx0, tx1, ty0, ty1, small, big
+
+
+def count_big_small(ch, rows: int, cols: int, tile_window: int = 2):
+    """(n_small, n_big) 0-d i32 counts under the bin pass's rules."""
+    *_, small, big = _tile_span(ch, rows, cols, tile_window)
+    return small.sum(dtype=torch.int32), big.sum(dtype=torch.int32)
+
+
+def _edge_coeffs(sx, sy):
+    """Edge-plane coefficients w_k = alpha_k px + beta_k py + gamma_k."""
+    alpha, beta, gamma = [], [], []
+    for k in range(3):
+        x1, y1 = sx[(k + 1) % 3], sy[(k + 1) % 3]
+        x2, y2 = sx[(k + 2) % 3], sy[(k + 2) % 3]
+        alpha.append(-(y2 - y1))
+        beta.append(x2 - x1)
+        # (y2 - y1) x1 - (x2 - x1) y1: the left product fuses
+        gamma.append(fma32(y2 - y1, x1, -((x2 - x1) * y1)))
+    return alpha, beta, gamma
+
+
+def _sum3(p, q):
+    """p0 q0 + p1 q1 + p2 q2 as the reference fuses it (core/fp.py)."""
+    return _dot3(p[0], q[0], p[1], q[1], p[2], q[2])
+
+
+def plane_channels(ch, attr_slots):
+    """The shading planes as 3*(A+1) channels, each [N]: A attribute
+    planes (numerators) + the perspective denominator, 3 coeffs each.
+    A = 9 (nx ny nz cr cg cb wx wy wz), or 6 without point lights."""
+    A = len(attr_slots[0])
+    sx = [ch[f"sx{s}"] for s in "abc"]
+    sy = [ch[f"sy{s}"] for s in "abc"]
+    iw = [ch[f"iw{s}"] for s in "abc"]
+    alpha, beta, gamma = _edge_coeffs(sx, sy)
+    inv_area = _recip_guard(ch["area2"], 1e-12)
+    ai = [alpha[k] * iw[k] for k in range(3)]
+    bi = [beta[k] * iw[k] for k in range(3)]
+    gi = [gamma[k] * iw[k] for k in range(3)]
+    chans = []
+    for j in range(A):
+        av = [attr_slots[k][j] for k in range(3)]
+        chans += [_sum3(ai, av) * inv_area, _sum3(bi, av) * inv_area,
+                  _sum3(gi, av) * inv_area]
+    # the denominator plane: sum_k coef_k iw_k, fused as the reference's
+    # compiled table fuses it (for alpha the second product fuses first)
+    chans += [fma32(alpha[2], iw[2], fma32(alpha[1], iw[1], ai[0])) * inv_area,
+              fma32(beta[2], iw[2], fma32(beta[0], iw[0], bi[1])) * inv_area,
+              fma32(gamma[2], iw[2], fma32(gamma[0], iw[0], gi[1])) * inv_area]
+    return chans
+
+
+def build_plane_table(ch, attr_slots) -> torch.Tensor:
+    """Per-triangle shading-plane table [N, 3*(A+1) padded to 8] of
+    plane_channels. At a length that is a multiple of 512 it is packed by
+    ops/pack (kernel B7 on CUDA), as the reference does."""
+    chans = plane_channels(ch, attr_slots)
+    n = chans[0].shape[0]
+    if n % 512 == 0:
+        from ascii_renderer_tpu_torch.ops.pack import pack_channels
+        return pack_channels(chans)
+    table = torch.stack(chans, dim=-1)
+    pad = (-table.shape[1]) % 8
+    if pad:
+        table = torch.cat([table, table.new_zeros((n, pad))], dim=-1)
+    return table
+
+
+def shade_planes_ch(tid, ch, attr_slots, scene: SceneData, rows: int,
+                    cols: int):
+    """Deferred shading via per-triangle screen-space plane coefficients:
+    the plane table, one trailing all-zero background row, then
+    shade_from_table."""
+    table = build_plane_table(ch, attr_slots)
+    table = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+    return shade_from_table(tid, table, scene, rows, cols,
+                            n_attrs=len(attr_slots[0]))
+
+
+def binned_entries(ch, rows: int, cols: int, *, kernel: str = "mm",
+                   big_cap: int = 64, tile_window: int = 2):
+    """The bin walk's input: small triangles (bbox within a 2 x 2 tile
+    window) emit up to 4 (tile, tri) pairs, big ones (the first
+    ``big_cap``, in id order) one pair per overlapped tile; one (tile << 19
+    | tri) int32 sort and a left-side searchsorted give the bins; the
+    plane-form entries are gathered into pair order, in the layout of
+    kernel 'mm' (B6: [P/128, 16, 128]) or 'loop' (B6': [P/8, 128]), with
+    an inert zero tail. Returns (data, offsets i32 [n_tiles + 1], tiles_x,
+    n_tiles)."""
+    xa, xb, xc = ch["sxa"], ch["sxb"], ch["sxc"]
+    ya, yb, yc = ch["sya"], ch["syb"], ch["syc"]
+    za, zb, zc = ch["sza"], ch["szb"], ch["szc"]
+    dev = xa.device
+    T = xa.shape[0]
+    assert T < (1 << 19), "packed sort key supports < 524288 clipped tris"
+    tiles_y = -(-rows // TILE_H)
+    tiles_x = -(-cols // TILE_W)
+    n_tiles = tiles_y * tiles_x
+    assert n_tiles < (1 << 12), "tile << 19 must fit int32"
+    tx0, tx1, ty0, ty1, small, big = _tile_span(ch, rows, cols, tile_window)
+
+    # small pairs: a static 2 x 2 window, as flat [T] channels
+    tri_ids = torch.arange(T, dtype=torch.int32, device=dev)
+    tile_parts = []
+    for k in range(tile_window * tile_window):
+        ty = ty0 + (k // tile_window)
+        tx = tx0 + (k % tile_window)
+        ok = (small & (ty >= 0) & (ty < tiles_y) & (tx >= 0) & (tx < tiles_x)
+              & (ty <= ty1) & (tx <= tx1))
+        tile_parts.append(torch.where(ok, ty * tiles_x + tx, n_tiles))
+    pair_tri = [tri_ids.repeat(tile_window * tile_window)]
+
+    # big pairs: the first big_cap big triangles in id order (the
+    # reference's stable top_k on a 0/1 score), one pair per tile overlap
+    rank = torch.cumsum(big.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot = torch.where(big & (rank < big_cap), rank, big_cap)
+    big_idx = torch.full((big_cap + 1,), T, dtype=torch.int32, device=dev)
+    big_idx.scatter_(0, slot.long(), tri_ids)
+    big_idx = big_idx[:big_cap]
+
+    def padi(c, fill):
+        return torch.cat([c, c.new_full((1,), fill)])[big_idx.long()]
+
+    btx0, btx1 = padi(tx0, 1), padi(tx1, 0)  # fill slots: an empty range
+    bty0, bty1 = padi(ty0, 1), padi(ty1, 0)
+    tids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    g_ty, g_tx = tids // tiles_x, tids % tiles_x
+    overlap = ((g_tx[None, :] >= btx0[:, None]) & (g_tx[None, :] <= btx1[:, None])
+               & (g_ty[None, :] >= bty0[:, None])
+               & (g_ty[None, :] <= bty1[:, None]) & (big_idx < T)[:, None])
+    tile_parts.append(torch.where(overlap, tids[None, :], n_tiles).reshape(-1))
+    pair_tri.append(torch.clamp(big_idx, max=T - 1)[:, None].expand(
+        big_cap, n_tiles).reshape(-1))
+
+    packed = torch.sort((torch.cat(tile_parts) << 19)
+                        | torch.cat(pair_tri)).values
+    tile_s = packed >> 19
+    tri_s = packed & ((1 << 19) - 1)
+    offsets = torch.searchsorted(
+        tile_s, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
+        side="left").to(torch.int32)
+
+    # plane-form entries (ops/raster_bins.py), computed per source triangle
+    acs, bcs, gcs = _edge_coeffs((xa, xb, xc), (ya, yb, yc))
+    # (xb - xa)(yc - ya) - (yb - ya)(xc - xa) == w0 + w1 + w2
+    area = fma32(xb - xa, yc - ya, -((yb - ya) * (xc - xa)))
+    inv_area = _recip_guard(area, 1e-12)
+    zs = (za, zb, zc)
+    src = torch.stack([
+        acs[0], bcs[0], gcs[0], acs[1], bcs[1], gcs[1],
+        acs[2], bcs[2], gcs[2],
+        # sum_k coef_k z_k: for alpha the second product fuses first, as
+        # in build_plane_table's denominator
+        fma32(acs[2], zc, fma32(acs[1], zb, acs[0] * za)) * inv_area,
+        _sum3(bcs, zs) * inv_area,
+        _sum3(gcs, zs) * inv_area,
+        torch.ones_like(xa), tri_ids.to(torch.float32),
+    ], dim=-1)
+    src = torch.cat([src, src.new_zeros((T, RB.N_CHAN - 14))], dim=-1)
+    # inert tail so an aligned chunk read past the last bin stays in
+    # bounds, rounded so the layout divides evenly: row T of src is zero
+    # and the padded tail of tri_s points at it
+    P = tri_s.shape[0]
+    if kernel == "mm":
+        tail, quantum = 2 * RB.MM_CHUNK, RB.MM_CHUNK
+    else:
+        tail, quantum = RB.CHUNK + 8 * RB.PACK, RB.PACK
+    pad_rows = (-(P + tail)) % quantum + tail
+    src = torch.cat([src, src.new_zeros((1, RB.N_CHAN))])
+    tri_sp = torch.cat([tri_s, tri_s.new_full((pad_rows,), T)])
+    data = src[tri_sp.long()]
+    if kernel == "mm":
+        data = data.reshape(-1, RB.MM_CHUNK, RB.N_CHAN).transpose(1, 2)
+        return data.contiguous(), offsets, tiles_x, n_tiles
+    return RB.pack_entries(data), offsets, tiles_x, n_tiles
+
+
+def visibility_binned_ch(ch, rows: int, cols: int, *, kernel: str = "mm",
+                         big_cap: int = 64, tile_window: int = 2):
+    """Channel-major tile-binned visibility with EXACT per-tile bins
+    (binned_entries), walked by B6 (kernel 'mm') or B6' ('loop'). Only
+    big triangles past ``big_cap`` are dropped (count_big_small reports
+    them). Returns (zbuf f32 [rows, cols], tid i32 [rows, cols], -1 =
+    none)."""
+    data, offsets, tiles_x, n_tiles = binned_entries(
+        ch, rows, cols, kernel=kernel, big_cap=big_cap,
+        tile_window=tile_window)
+    walk = RB.tile_eval_bins_mm if kernel == "mm" else RB.tile_eval_bins
+    ztile, tidf = walk(data, offsets, tiles_x, n_tiles)
+    tiles_y = n_tiles // tiles_x
+    zimg = (ztile.reshape(tiles_y, tiles_x, TILE_H, TILE_W)
+            .permute(0, 2, 1, 3).reshape(tiles_y * TILE_H, tiles_x * TILE_W))
+    timg = (tidf.to(torch.int32).reshape(tiles_y, tiles_x, TILE_H, TILE_W)
+            .permute(0, 2, 1, 3).reshape(tiles_y * TILE_H, tiles_x * TILE_W))
+    tid = timg[:rows, :cols]
+    return zimg[:rows, :cols], torch.where(tid < 0, -1, tid)
+
+
+def _reduce3(p, q):
+    """sum_k p_k q_k over the last axis (size 3) as the reference's
+    compiled reduce runs it: in order, each product fused into the sum."""
+    return fma32(p[..., 2], q[..., 2], fma32(p[..., 1], q[..., 1],
+                                             p[..., 0] * q[..., 0]))
+
+
+def shade_visibility(tid, clip, attrs, scene: SceneData, rows: int,
+                     cols: int):
+    """The scan path's deferred pass: gather the winner triangle's clip
+    vertices and attributes per pixel, re-derive perspective-correct
+    barycentrics, run the reference fragment lighting. tid i32 [H, W];
+    clip [T, 3, 4]; attrs [T, 3, A] (A = 9). Returns rgb f32 [H, W, 3].
+    Rounds as the reference's compiled pass: the projected vertices and
+    the interpolation weights are formed apart from the sums they feed;
+    the edge functions, the 3-term reductions and the lighting sums fuse."""
+    dev = clip.device
+    hit = tid >= 0
+    safe = torch.clamp(tid, min=0).long()
+    tri_clip = clip[safe]  # [H, W, 3, 4]
+    tri_attr = attrs[safe]  # [H, W, 3, A]
+    inv_w = _recip_guard(tri_clip[..., 3], 1e-9)
+    x = (tri_clip[..., 0] * inv_w + 1.0) * (0.5 * cols)
+    y = (1.0 - tri_clip[..., 1] * inv_w) * (0.5 * rows)
+    px = (torch.arange(cols, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    py = (torch.arange(rows, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    w0 = _edge(x[..., 1], y[..., 1], x[..., 2], y[..., 2], px, py)
+    w1 = _edge(x[..., 2], y[..., 2], x[..., 0], y[..., 0], px, py)
+    w2 = _edge(x[..., 0], y[..., 0], x[..., 1], y[..., 1], px, py)
+    area = (w0 + w1) + w2
+    area = torch.where(area.abs() < 1e-12, 1e-12, area)
+    b = torch.stack([w0, w1, w2], dim=-1) / area[..., None]  # [H, W, 3]
+
+    # perspective-correct interpolation (GL default for varyings)
+    denom = _reduce3(b, inv_w)
+    bpc = (b * inv_w) / torch.where(denom.abs() < 1e-12, 1e-12,
+                                    denom)[..., None]
+    interp = _reduce3(bpc[..., None, :], tri_attr.transpose(-1, -2))
+    nrm = interp[..., 0:3]
+    col = interp[..., 3:6]
+    pos = interp[..., 6:9]
+    n = nrm / torch.clamp(torch.sqrt(_reduce3(nrm, nrm)), min=1e-12)[
+        ..., None]
+
+    ambient = scene.env_color * scene.env_intensity
+    have_dl = scene.n_dl > 0
+    ddir = torch.where(have_dl, scene.dl_dir[0],
+                       torch.tensor(_DEFAULT_DIR, dtype=torch.float32,
+                                    device=dev))
+    dcol = torch.where(have_dl, scene.dl_col[0],
+                       torch.tensor(_DEFAULT_DIR_COL, dtype=torch.float32,
+                                    device=dev))
+    ndl = torch.clamp(_reduce3(n, -ddir), min=0.0)
+    # col*ambient + (col*dcol)*ndl: the left product fuses
+    out = fma32(col, ambient, (col * dcol) * ndl[..., None])
+    n_pl = scene.pt_pos.shape[0]
+    pl_valid = torch.arange(n_pl, device=dev) < scene.n_pt
+    for i in range(n_pl):
+        lvec = scene.pt_pos[i] - pos
+        d2 = torch.clamp(_reduce3(lvec, lvec), min=1e-4)
+        L = lvec / torch.sqrt(d2)[..., None]
+        ndlp = torch.clamp(_reduce3(n, L), min=0.0)
+        att = torch.reciprocal(fma32(d2, 0.05, 1.0))
+        w_i = torch.where(pl_valid[i], ndlp * att, 0.0)
+        out = fma32(col * scene.pt_col[i], w_i[..., None], out)
+    out = torch.clamp(out, 0.0, 1.0)
+    return torch.where(hit[..., None], out, 0.0)  # clear color black
+
+
+def render_channels_diag(positions, attrs, scene: SceneData, mvp,
+                         rows: int, cols: int, *, v_cap: int,
+                         big_cap: int = 64, kernel: str = "mm",
+                         r_cap: int = 16384, pair_cap: int = 65536,
+                         tile_cap: int | None = None, pos9=None):
+    """Clip-expansion generations of render_soup_diag (kernels 'mm' and
+    'loop'): compacted channel pipeline + binned bin walk + plane-table
+    shading. Returns (rgb f32 [rows, cols, 3], diag) with 0-d i32 counts
+    n_valid and n_big (n_rows, n_pairs, n_tiles_nz are 0 here); the frame
+    is exact iff n_valid <= v_cap and n_big <= big_cap. r_cap, pair_cap and
+    tile_cap belong to the 'subtile' generation, which is not ported."""
+    if kernel == "subtile":
+        raise NotImplementedError(
+            "render_channels_diag(kernel='subtile') (the subtile walk and "
+            "raster_oracles) is not ported to ascii_renderer_tpu_torch yet "
+            "(ROADMAP B9)")
+    if kernel not in ("mm", "loop"):
+        raise ValueError(f"render_channels_diag: unknown kernel {kernel!r}")
+    with stage("raster.clip"):
+        ch = (transform_clip_channels9(pos9, mvp) if pos9 is not None
+              else transform_clip_channels(positions, mvp))
+        ch = setup_screen_channels(ch, rows, cols)
+    with stage("raster.compact"):
+        cch, cidx, n_valid = compact_valid_ch(ch, v_cap)
+        attr_slots = clip_attrs_compact_lists(attrs, ch, cidx)
+    with stage("raster.walk"):
+        _zbuf, tid = visibility_binned_ch(cch, rows, cols, kernel=kernel,
+                                          big_cap=big_cap)
+    with stage("raster.shade"):
+        rgb = shade_planes_ch(tid, cch, attr_slots, scene, rows, cols)
+        _n_small, n_big = count_big_small(cch, rows, cols)
+    zero = torch.zeros((), dtype=torch.int32, device=rgb.device)
+    return rgb, {"n_valid": n_valid, "n_big": n_big, "n_rows": zero,
+                 "n_pairs": zero, "n_tiles_nz": zero}

@@ -1,5 +1,6 @@
-"""Shared raster infrastructure: tile geometry and deferred row shading
-(torch port of ``ascii_renderer_tpu/backends/raster_common.py``)."""
+"""Shared raster infrastructure: tile geometry, deferred row shading and
+the int32 cumsum (torch port of
+``ascii_renderer_tpu/backends/raster_common.py``)."""
 
 from __future__ import annotations
 
@@ -9,14 +10,24 @@ from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
 NEAR, FAR = 0.05, 100.0
+_DEFAULT_AMBIENT = (0.15, 0.18, 0.22)  # raster.js:66-69
 _DEFAULT_DIR = (0.25, -1.0, 0.15)
 _DEFAULT_DIR_COL = (1.2, 1.15, 1.1)
 
 TILE_H, TILE_W = 8, 128
 
+MAX_V_CAP = (1 << 19) - 4096  # packed sort key leaves 19 bits for tri ids
+
 
 def _round_up(x, q):
     return -(-x // q) * q
+
+
+def _cumsum_i32(mask: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum of a bool / 0-1 [N] tensor as int32 (the
+    reference blocks it onto the TPU's matrix unit; the counts are
+    exact either way)."""
+    return torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
 
 
 def _rsqrt(x: torch.Tensor) -> torch.Tensor:
@@ -31,6 +42,22 @@ def _rsqrt(x: torch.Tensor) -> torch.Tensor:
 def _dot3(a0, b0, a1, b1, a2, b2):
     """a0*b0 + a1*b1 + a2*b2 as the reference fuses it (core/fp.py)."""
     return fma32(a2, b2, fma32(a0, b0, a1 * b1))
+
+
+def shade_from_table(tid, table, scene: SceneData, rows: int, cols: int,
+                     n_attrs: int = 9):
+    """Per-pixel plane evaluation + reference fragment lighting. tid i32
+    [rows, cols] indexes rows of ``table`` [N+1, W] (plane-table rows + one
+    trailing all-zero background row); -1 = background. n_attrs = 6 when
+    the table was built without world-position planes."""
+    dev = table.device
+    tidf = tid.reshape(rows * cols).long()
+    g = table[torch.where(tidf >= 0, tidf, table.shape[0] - 1)]  # [R, W]
+    px = (torch.arange(cols, dtype=torch.float32, device=dev) + 0.5)[
+        None].expand(rows, cols)
+    py = (torch.arange(rows, dtype=torch.float32, device=dev) + 0.5)[
+        :, None].expand(rows, cols)
+    return _shade_rows(g, tid >= 0, px, py, scene, n_attrs)
 
 
 def _shade_rows(g, hit, px, py, scene: SceneData, n_attrs: int):

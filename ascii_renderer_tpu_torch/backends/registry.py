@@ -4,8 +4,11 @@
 Named backend factories with friendly aliases, runtime hot-swap with scene
 re-push, and a stable render facade. ``Renderer`` renders on ``device``
 (CUDA unless the caller asks for the CPU); each factory is called as
-``factory(cfg, device=device)``. "raytrace" is listed but not ported
-(ROADMAP A9): choosing it raises ``NotImplementedError``.
+``factory(cfg, device=device)``. "raster" renders scenes of every size
+(the scan / binned walk below 2,048 triangle slots, the compacted
+mid-scale walk below 32,768, the headline pipeline above) and "pathtrace"
+the path tracer. "raytrace" is listed but not ported (ROADMAP A9):
+choosing it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

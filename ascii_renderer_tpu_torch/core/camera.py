@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from ascii_renderer_tpu_torch.core.fp import fma32
+
 _PITCH_LIMIT = math.pi * 0.5 - 0.1  # just shy of +/-90 deg (js/camera.js:34)
 
 
@@ -87,15 +89,18 @@ class CameraInputs:
 
 def update_camera(cam: Camera, inputs: CameraInputs, dt) -> Camera:
     """Pure integrator, semantics of js/camera.js:23-53 plus the pointer-look
-    path of js/main.js:108-118 (same op order as the JAX twin)."""
+    path of js/main.js:108-118 (same op order as the JAX twin). Rounds as
+    the reference's compiled (jitted) integrator, which every frame step
+    runs: each product fused into the add it feeds (core/fp.py), cos / sin
+    of the float32 yaw correctly rounded through Python's libm."""
     dt = _f32(float(dt), cam.yaw.device)
     look_step = cam.sensitivity * dt
     mouse_sens = cam.sensitivity * 0.002
 
-    pitch = cam.pitch + look_step * (inputs.look_up - inputs.look_down)
-    yaw = cam.yaw + look_step * (inputs.look_right - inputs.look_left)
-    yaw = yaw + inputs.mouse_dx * mouse_sens
-    pitch = pitch - inputs.mouse_dy * mouse_sens
+    pitch = fma32(look_step, inputs.look_up - inputs.look_down, cam.pitch)
+    yaw = fma32(look_step, inputs.look_right - inputs.look_left, cam.yaw)
+    yaw = fma32(inputs.mouse_dx, mouse_sens, yaw)
+    pitch = fma32(-inputs.mouse_dy, mouse_sens, pitch)
 
     pitch = torch.clamp(pitch, -_PITCH_LIMIT, _PITCH_LIMIT)
     pi = _f32(math.pi, yaw.device)
@@ -104,11 +109,12 @@ def update_camera(cam: Camera, inputs: CameraInputs, dt) -> Camera:
 
     move = cam.speed * dt
     zero = torch.zeros_like(yaw)
-    fwd = torch.stack([torch.cos(yaw), zero, torch.sin(yaw)])
-    right = torch.stack([torch.sin(yaw), zero, -torch.cos(yaw)])
-    pos = cam.pos
-    pos = pos + fwd * (move * (inputs.forward - inputs.back))
-    pos = pos + right * (move * (inputs.left - inputs.right))
+    cy = _f32(math.cos(float(yaw)), yaw.device)
+    sy = _f32(math.sin(float(yaw)), yaw.device)
+    fwd = torch.stack([cy, zero, sy])
+    right = torch.stack([sy, zero, -cy])
+    pos = fma32(fwd, move * (inputs.forward - inputs.back), cam.pos)
+    pos = fma32(right, move * (inputs.left - inputs.right), pos)
     pos = pos + torch.stack([zero, move * (inputs.up - inputs.down), zero])
 
     return cam.replace(pos=pos, yaw=yaw, pitch=pitch)

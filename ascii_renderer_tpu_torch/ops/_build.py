@@ -53,6 +53,8 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # (idx, ovr, out, H, W, radius, thresh, stream)
     "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (data, offsets, z, tid, n_tiles, tiles_x, n_entries, mm, stream)
+    "bins_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,6 @@
+"""The frame step and its UI layer (torch port of
+``ascii_renderer_tpu/sim``)."""
+
+from ascii_renderer_tpu_torch.sim.ui import ui_char_plane  # noqa: F401
+from ascii_renderer_tpu_torch.sim.framestep import (  # noqa: F401
+    FrameState, make_frame_step)

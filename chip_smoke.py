@@ -26,6 +26,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    launches); plain ms is CUDA events around whole calls; bound ms is the
    larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM), from
    this run's inputs.
+   - bin walks B6 (channel-major chunks) and B6' (row-major entries, the
+     valid flag tested) on the inputs the binned paths build
+     (raster_channels.binned_entries): the demo room 96x36, the cube
+     80x24, the teapot 240x135 and the mid-scale HD arm (bunny-class
+     14,884 triangles, 960x540) at their steady caps, and random entries
+     with empty bins, bins across the 128 / 256-entry chunks and depth
+     ties: z and winner ids exactly equal;
+   - the plane-table packs B7 (pack_channels) and B7' (pack_channels_split)
+     at the teapot's and the HD arm's table widths and lengths, and B7' at
+     the reference's exactness shape [40, 69632]: bit-exact.
 4. Drives each main path as a user would, every launch count set to 0
    just before the path and read just after:
    - raster: RasterBackend.set_soup(bunny), render 960x540, glyph_decide
@@ -38,10 +48,25 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      CPU render's alpha plane and carry 117 overrides; then 4 checked
      frames (the pose, then 3 moves) and 20 timed ones;
    - path tracer, HD arm: 960x540, spp 8 (one batch): 2 checked frames,
-     10 timed.
-   Each path's kernels must have launched. 5 raster and 3 frames of each
-   PT run are profiled (stage host ms and device span, device busy share;
-   tables in smoke_out/, git-ignored).
+     10 timed;
+   - the frame step of entry() (the demo room through render_soup, the
+     binned walk B6, then the UI composite and the glyph pass) at 96x36:
+     frame 0's chars and tint must equal the port's CPU step, then 3
+     steps with "w" held, then 20 timed steps;
+   - bench config 1, the cube at 80x24 with the mode filter off, through
+     RasterBackend (24 slots: the scan path) and through render_soup's
+     binned walks B6 and B6': each must give tests/goldens/raster_cube.txt;
+   - bench config 2, the teapot at 240x135 through RasterBackend (the
+     compacted mid-scale path: B6 and, from the second frame's caps on,
+     B7): frames 0 and 1 must equal the CPU render's chars, then 20 timed;
+   - the mid-scale HD arm (14,884 triangles, 960x540) through
+     RasterBackend: 2 checked frames, 10 timed;
+   - the "pathtrace" frame step (demo_setup) at 96x36: frame 0's alpha
+     plane (spp 2, 2 bounces) must equal the port's CPU step; then 10
+     timed steps at the default spp 64.
+   Each path's kernels must have launched. Frames of every path are
+   profiled (stage host ms and device span, device busy share; tables in
+   smoke_out/, git-ignored).
 5. Prints {"kernels": [...]} and, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -129,7 +154,7 @@ def _nbytes(*ts):
 def _rec(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
     return dict(name=name, route="cuda",
                 source=f"ascii_renderer_tpu_torch/ops/csrc/{source}",
-                replaces=f"ascii_renderer_tpu/ops/{replaces}",
+                replaces=f"ascii_renderer_tpu/ops/{replaces}", launches=0,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1], library_ms=library_ms)
 
@@ -616,12 +641,398 @@ def profile_frames(frame_fn, n, prefixes, label):
         fh.write(avgs.table(sort_by="self_device_time_total", row_limit=200))
 
 
-def _path_counts(mods, run):
+# --------------------------------------------------------------------------
+# Small- and mid-scale raster: the bin walks B6 / B6', the packs B7 / B7'
+# --------------------------------------------------------------------------
+TEAPOT_GRID, MID_GRID, CUBE_GRID, ENTRY_GRID = (135, 240), (540, 960), \
+    (24, 80), (36, 96)
+GOLDEN_CUBE = os.path.join(ROOT, "tests", "goldens", "raster_cube.txt")
+# B6 operations per (entry, pixel): four planes at a product, a fused
+# multiply-add (2) and an add each, five inside / depth tests, one compare
+B6_OPS = 4 * 4 + 5 + 1
+
+
+def _room(dev):
+    """The demo room of entry(): scene (atlas, env light) and its soup."""
+    import torch
+    from ascii_renderer_tpu_torch.atlas.io import demo_atlas
+    from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
+    from ascii_renderer_tpu_torch.scene.demo import create_demo_scene
+    sb = create_demo_scene()
+    sb.set_atlas(demo_atlas())
+    sb.set_env_light([0.25, 0.27, 0.3], 1.0)
+    scene = sb.build(device=dev)
+    return scene, tuple(torch.from_numpy(x).to(dev)
+                        for x in tessellate_scene(scene))
+
+
+def _mesh(name):
+    """Soup of bench config 1 (cube), config 2 (teapot) or the mid-scale HD
+    arm (bunny-class, 14,884 triangles), and its camera."""
+    import numpy as np
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.geom import meshes
+    if name == "cube":
+        v, i = meshes.cube(2.0)
+        soup = meshes.mesh_to_soup(v, i, color=(0.85, 0.85, 0.85),
+                                   smooth=False)
+        return soup, Camera.create(pos=(2.2, 1.8, 3.2), yaw=float(
+            np.arctan2(-3.2, -2.2)), pitch=-0.42)
+    if name == "teapot":
+        v, i = meshes.teapot_like(1024)
+        soup = meshes.mesh_to_soup(v, i, color=(0.9, 0.9, 0.9))
+        return soup, Camera.create(pos=(1.9, 1.3, 2.7), yaw=float(
+            np.arctan2(-2.7, -1.9)), pitch=-0.4)
+    v, i = meshes.bunny_like(15000)
+    return meshes.mesh_to_soup(v, i, color=(0.8, 0.78, 0.75)), \
+        _golden_camera()
+
+
+def _cube_scene(dev):
+    from ascii_renderer_tpu_torch.scene.builder import SceneBuilder
+    sb = SceneBuilder().set_env_light([0.2, 0.22, 0.25], 1.0)
+    sb.add_dir_light([-0.5, -0.7, -0.6], [1, 1, 1], 0.9)
+    return sb.build(device=dev)
+
+
+def _scatter_ch(positions, cam, rows, cols):
+    """The clip channels render_soup's binned walks take."""
+    from ascii_renderer_tpu_torch.backends import raster as R
+    mvp = R.camera_mvp(cam, rows, cols, PIXEL_ASPECT)
+    return R.setup_screen_channels(R.transform_clip_channels(positions, mvp),
+                                   rows, cols)
+
+
+def _mid_prep(soup, scene, cam, rows, cols):
+    """The compacted channels and plane channels of the mid-scale path at
+    the caps RasterBackend settles on after frame 0 (suggest_caps of its
+    counts). Returns (cch, plane channels, caps)."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.backends import raster_channels as RC
+    p, n, c = soup
+    mvp = R.camera_mvp(cam, rows, cols, PIXEL_ASPECT)
+    ch = R.setup_screen_channels(R.transform_clip_channels9(
+        R.positions_to_pos9(p), mvp), rows, cols)
+    n2t = p.shape[0] // 3 * 2
+    cch, _cidx, n_valid = R.compact_valid_ch(dict(ch), n2t)
+    _small, n_big = R.count_big_small(cch, rows, cols)
+    caps = R.suggest_caps(int(n_valid), int(n_big))
+    cch, cidx, _n = R.compact_valid_ch(dict(ch), caps[0])
+    parts = [n, c] + ([p] if scene.pt_pos.shape[0] else [])
+    slots = R.clip_attrs_compact_lists(torch.cat(parts, dim=1), ch, cidx)
+    return cch, RC.plane_channels(cch, slots), caps
+
+
+def _random_bins(dev):
+    """Random plane entries over a 3 x 2 tile grid (row-major [P, 16]) and
+    offsets: an empty bin, bins across the 128- and 256-entry chunks,
+    near-clip coefficients up to 1e10, depth ties inside a chunk and
+    across a chunk boundary, 20% invalid entries (tested by B6' only)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(7)
+    sizes = (0, 300, 129, 1, 256, 57)
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    P = int(offs[-1])
+    tile = np.repeat(np.arange(6), sizes)
+    cx = (tile % 3) * 128 + rng.uniform(-20, 148, P)
+    cy = (tile // 3) * 8 + rng.uniform(-2, 10, P)
+    ent = np.zeros((P, 16), np.float32)
+    for k in range(3):
+        ang = rng.uniform(0, 2 * np.pi, P)
+        a = np.cos(ang) * rng.uniform(0.05, 40, P)
+        b = np.sin(ang) * rng.uniform(0.05, 40, P)
+        huge = rng.random(P) < 0.15
+        a, b = np.where(huge, a * 3e8, a), np.where(huge, b * 3e8, b)
+        g = -(a * (cx + rng.uniform(-40, 40, P))
+              + b * (cy + rng.uniform(-6, 6, P)))
+        ent[:, 3 * k:3 * k + 3] = np.stack([a, b, g], -1)
+    zx, zy = rng.normal(size=P) * 2e-3, rng.normal(size=P) * 2e-2
+    ent[:, 9:12] = np.stack([zx, zy, rng.uniform(-0.1, 1.1, P) - zx * cx
+                             - zy * cy], -1)
+    ent[:, 12] = (rng.random(P) >= 0.2).astype(np.float32)
+    ent[:, 13] = np.concatenate([np.sort(rng.choice(100000, s, replace=False))
+                                 for s in sizes]).astype(np.float32)
+    tie = np.nonzero(rng.random(P) < 0.3)[0]
+    tie = tie[(tie > 0) & (tile[tie] == tile[np.maximum(tie - 1, 0)])]
+    ent[tie, 9:12] = ent[tie - 1, 9:12]
+    ent[offs[1] + 128, 9:12] = ent[offs[1] + 127, 9:12]
+    pad = (-(P + 256)) % 128 + 256
+    ent = np.concatenate([ent, np.zeros((pad, 16), np.float32)])
+    data = torch.from_numpy(ent).to(dev)
+    mm = data.reshape(-1, 128, 16).transpose(1, 2).contiguous()
+    loop = data.reshape(-1, 128)
+    return {"mm": mm, "loop": loop}, torch.from_numpy(offs).to(dev), 3, 6
+
+
+def _walk_inputs(dev, room, cube, mid_preps):
+    """(label, {"mm": data, "loop": data}, offsets, tiles_x, n_tiles) for
+    every shape the binned paths give the walks."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster_channels as RC
+    scene, soup = room
+    cube_p = torch.from_numpy(cube[0][0]).to(dev)
+    chans = [("demo room 96x36", ENTRY_GRID,
+              _scatter_ch(soup[0], scene.camera, *ENTRY_GRID)),
+             ("cube 80x24", CUBE_GRID,
+              _scatter_ch(cube_p, cube[1], *CUBE_GRID))]
+    chans += [(label, grid, cch) for label, grid, (cch, _pc, _caps)
+              in mid_preps]
+    out = []
+    for label, grid, ch in chans:
+        data = {}
+        for kern in ("mm", "loop"):
+            data[kern], offs, tiles_x, n_tiles = RC.binned_entries(
+                dict(ch), *grid, kernel=kern)
+        out.append((label, data, offs, tiles_x, n_tiles))
+    out.append(("random entries", *_random_bins(dev)))
+    return out
+
+
+def check_bins_kernels(dev, room, cube, mid_preps):
+    """B6 and B6' against their plain versions at every shape the binned
+    paths give them: z and winner ids exactly equal. Returns the two
+    records, timed at the mid-scale HD arm's shape."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import raster_bins as RB
+    recs = {}
+    for label, data, offs, tiles_x, n_tiles in _walk_inputs(
+            dev, room, cube, mid_preps):
+        walked = int((offs[1:] - offs[:-1]).sum())
+        for kern, fn, ref in (("mm", RB.tile_eval_bins_mm,
+                               RB.tile_eval_bins_mm_ref),
+                              ("loop", RB.tile_eval_bins,
+                               RB.tile_eval_bins_ref)):
+            d = data[kern]
+            z_k, t_k = fn(d, offs, tiles_x, n_tiles)
+            z_r, t_r = ref(d, offs, tiles_x, n_tiles)
+            torch.cuda.synchronize()
+            assert torch.equal(t_k, t_r), f"B6 {kern} {label}: ids differ"
+            assert torch.equal(z_k.view(torch.int32), z_r.view(torch.int32)), \
+                f"B6 {kern} {label}: depths differ"
+            hits = int((t_k >= 0).sum())
+            assert hits > 0, f"B6 {kern} {label}: nothing hit"
+            print(f"B6 {kern} {label}: exact, {n_tiles} tiles, {walked} "
+                  f"entries walked, {hits} lit pixels", flush=True)
+            if label.startswith("mid-scale"):
+                ms = _device_ms(lambda: fn(d, offs, tiles_x, n_tiles),
+                                "bins_walk_kernel")
+                plain = _event_ms(lambda: ref(d, offs, tiles_x, n_tiles), 3)
+                bound = _bound(64 * walked + _nbytes(offs, z_k, t_k),
+                               B6_OPS * 1024 * walked)
+                name = ("raster_bins_walk" if kern == "mm"
+                        else "raster_bins_walk_loop")
+                recs[kern] = _rec(name, "raster_bins.cu",
+                                  "raster_bins.py:158" if kern == "mm"
+                                  else "raster_bins.py:54", 0.0, ms, plain,
+                                  bound)
+                print(f"B6 {kern} {label}: kernel {ms:.4f} ms, plain "
+                      f"{plain:.3f} ms, bound {bound[0]:.5f} ms "
+                      f"({bound[1]})", flush=True)
+    return [recs["mm"], recs["loop"]]
+
+
+def check_pack_channels(dev, mid_preps):
+    """B7 and B7' against their plain versions, bit-exact, at the plane
+    tables of the teapot and the HD arm (and B7' at the reference's
+    exactness shape). Returns the two records, timed at the HD arm's."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import pack as PK
+    recs = []
+    g = torch.Generator().manual_seed(3)
+    exact40 = torch.randn((40, 544 * 128), generator=g).to(dev)
+    cases = [(label, torch.stack(chans)) for label, _g, (_c, chans, _caps)
+             in mid_preps] + [("exactness [40, 69632]", exact40)]
+    for label, cm in cases:
+        C, N = cm.shape
+        W = -(-C // 8) * 8
+        spans = [(0, 16), (16, W)]
+        if not label.startswith("exactness"):
+            got = PK.pack_channels(list(cm))
+            want = PK.pack_channels_ref(list(cm))
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (N, W)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+                f"B7 {label}: not bit-exact"
+        for o_k, o_r in zip(PK.pack_channels_split(cm, spans),
+                            PK.pack_channels_split_ref(cm, spans)):
+            torch.cuda.synchronize()
+            assert torch.equal(o_k.view(torch.int32), o_r.view(torch.int32)), \
+                f"B7' {label}: not bit-exact"
+        print(f"B7 / B7' {label}: [{C}, {N}] -> [{N}, {W}], bit-exact",
+              flush=True)
+        if label.startswith("mid-scale"):
+            chans = list(cm)
+            padded = torch.cat([cm, cm.new_zeros((W - C, N))])
+            bound = _bound(4 * N * (C + W), 0)
+            recs.append(_rec(
+                "pack_channels", "pack.cu", "pack.py:95", 0.0,
+                _device_ms(lambda: PK.pack_channels(chans),
+                           "pack_span_kernel"),
+                _event_ms(lambda: PK.pack_channels_ref(chans), 20), bound,
+                library_ms=_device_ms(lambda: padded.t().contiguous(),
+                                      None)))
+            bound = _bound(4 * N * sum(min(b, C) - a + (b - a)
+                                       for a, b in spans), 0)
+            recs.append(_rec(
+                "pack_channels_split", "pack.cu", "pack.py:130", 0.0,
+                _device_ms(lambda: PK.pack_channels_split(cm, spans),
+                           "pack_span_kernel"),
+                _event_ms(lambda: PK.pack_channels_split_ref(cm, spans), 20),
+                bound, library_ms=_device_ms(
+                    lambda: [padded[a:b].t().contiguous() for a, b in spans],
+                    None)))
+    return recs
+
+
+def _step_frames(fn, state, args, n):
+    for _ in range(n):
+        state, chars, tint = fn(args[0], state, *args[2:])
+    return state, chars, tint
+
+
+def run_entry_path():
+    """entry()'s frame step on the card: frame 0 against the port's CPU
+    step (chars and tint equal), 3 steps with "w" held, 20 timed steps.
+    Returns a function that runs one step."""
+    import torch
+    from ascii_renderer_tpu_torch.entry import entry
+    fn, args = entry()
+    fn_c, args_c = entry(device="cpu")
+    state, chars, tint = fn(*args)
+    _s, chars_c, tint_c = fn_c(*args_c)
+    assert chars.device.type == "cuda" and tuple(chars.shape) == ENTRY_GRID
+    assert torch.equal(chars.cpu(), chars_c), \
+        f"entry frame 0: {int((chars.cpu() != chars_c).sum())} chars differ"
+    assert torch.equal(tint.cpu(), tint_c), "entry frame 0: tint differs"
+    kinds = int(torch.unique(chars).numel())
+    assert kinds >= 6, kinds
+    print(f"entry step frame 0: chars and tint equal the CPU step, {kinds} "
+          f"distinct glyphs", flush=True)
+    state, chars, _t = _step_frames(fn, state, args, 3)
+    print(f"entry step frames 1-3 (w held): camera at "
+          f"{[round(float(x), 4) for x in state.camera.pos]}, frame index "
+          f"{int(state.frame_idx)}", flush=True)
+    box = {"state": state}
+
+    def one():
+        box["state"], _c, _t = fn(args[0], box["state"], *args[2:])
+
+    _summary("entry step 96x36 (w held)", _timed(one, 20))
+    return one
+
+
+def run_cube_path(dev):
+    """bench config 1: the cube at 80x24, mode filter off, through
+    RasterBackend (the scan path) and render_soup's binned walks B6 and
+    B6' on the card: each gives the golden."""
+    import torch
+    from ascii_renderer_tpu_torch.ascii import AsciiPass, chars_to_strings
+    from ascii_renderer_tpu_torch.backends.raster import (RasterBackend,
+                                                          render_soup)
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.core.frame import Frame
+    cfg = Config(pixel_aspect=PIXEL_ASPECT, grid_width=80, grid_height=24,
+                 ascii_mode_filter=False)
+    (p, n, c), cam = _mesh("cube")
+    scene = _cube_scene(dev)
+    with open(GOLDEN_CUBE) as fh:
+        golden = fh.read().splitlines()
+    be = RasterBackend(cfg, device=dev)
+    be.set_soup(p, n, c, scene)
+    frames = {"RasterBackend (scan)": be.render(0.0, cam, *CUBE_GRID,
+                                                PIXEL_ASPECT)}
+    soup = tuple(torch.from_numpy(x).to(dev) for x in (p, n, c))
+    for method in ("scatter", "scatter_loop"):
+        frames[f"render_soup {method}"] = Frame.from_float(render_soup(
+            *soup, scene, cam, *CUBE_GRID, PIXEL_ASPECT, method=method))
+    for label, frame in frames.items():
+        rows = chars_to_strings(AsciiPass(cfg)(frame)[0])
+        assert rows == golden, f"cube via {label}: differs from the golden"
+        print(f"cube 80x24 via {label}: equals raster_cube.txt", flush=True)
+
+
+def run_raster_mesh_path(dev, name, grid, n_checked, n_cpu, n_timed, label):
+    """RasterBackend + glyph pass on a mesh: n_checked frames (the first
+    n_cpu against the CPU render's chars), then n_timed frames. Returns
+    a function that renders one frame."""
+    import torch
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.core.config import Config
+    cfg = Config(pixel_aspect=PIXEL_ASPECT)
+    soup, cam = _mesh(name)
+    rows, cols = grid
+    backends = [RasterBackend(cfg, device=d) for d in (dev, "cpu")[
+        :1 + (n_cpu > 0)]]
+    for be, d in zip(backends, (dev, "cpu")):
+        be.set_soup(*soup, _scene(d))
+    for f in range(n_checked):
+        box = {}
+        (ms,) = _timed(lambda: box.update(chars=_glyph(
+            backends[0].render(0.0, cam, rows, cols, PIXEL_ASPECT), cfg)), 1)
+        chars = box["chars"]
+        assert chars.device.type == "cuda" and tuple(chars.shape) == grid
+        lit = int((chars != ord("@")).sum())
+        assert lit > rows * cols // 40, f"{label} frame {f}: {lit} lit cells"
+        if f < n_cpu:
+            want = _glyph(backends[1].render(0.0, cam, rows, cols,
+                                             PIXEL_ASPECT), cfg)
+            assert torch.equal(chars.cpu(), want), \
+                f"{label} frame {f}: {int((chars.cpu() != want).sum())} " \
+                f"chars differ from the CPU render"
+        print(f"{label} frame {f}: {ms:.3f} ms, {lit} lit cells, caps "
+              f"{backends[0]._caps}"
+              f"{', equals the CPU render' if f < n_cpu else ''}",
+              flush=True)
+
+    def one():
+        _glyph(backends[0].render(0.0, cam, rows, cols, PIXEL_ASPECT), cfg)
+
+    _summary(f"{label} steady", _timed(one, n_timed))
+    return one
+
+
+def run_pt_step_path(dev):
+    """The "pathtrace" frame step (demo_setup) at 96x36: a spp-2 / 2-bounce
+    step's frame 0 alpha plane against the port's CPU step, then 10 timed
+    steps at the default spp 64. Returns a function that runs one step."""
+    import torch
+    from ascii_renderer_tpu_torch.core.camera import CameraInputs
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    from ascii_renderer_tpu_torch.sim.framestep import demo_setup
+    ins = CameraInputs.from_keys({"w"})
+    small = Config(path_tracer=PathTracerConfig(samples_per_batch=2,
+                                                max_bounces=2))
+    alphas = []
+    for d in (dev, "cpu"):
+        _cfg, scene, state, step = demo_setup(small, "pathtrace", device=d)
+        _s, chars, _t, frame = step(scene, state, ins, 1.0 / 60, 60.0)
+        assert tuple(chars.shape) == ENTRY_GRID
+        alphas.append(frame.a.cpu())
+    assert torch.equal(alphas[0], alphas[1]), \
+        f"PT step frame 0: {int((alphas[0] != alphas[1]).sum())} alpha " \
+        f"cells differ from the CPU step"
+    n_ov = int(((alphas[0] >= 2) & (alphas[0] <= 254)).sum())
+    print(f"PT step frame 0 (spp 2, 2 bounces): alpha plane equals the CPU "
+          f"step, {n_ov} override cells (UI included)", flush=True)
+    _cfg, scene, state, step = demo_setup(Config(), "pathtrace", device=dev)
+    box = {"state": state}
+
+    def one():
+        box["state"], _c, _t, _f = step(scene, box["state"], ins, 1.0 / 60,
+                                        60.0)
+
+    _summary("PT step 96x36 spp64 (w held)", _timed(one, 10))
+    return one
+
+
+def _path_counts(counters, run):
     """Zero every launch count, run the path, return the counts."""
-    for m in mods.values():
-        m.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     out = run()
-    return {k: m.launches for k, m in mods.items()}, out
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}, out
 
 
 def main() -> int:
@@ -636,6 +1047,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
     from ascii_renderer_tpu_torch.ops import pack as PK
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    from ascii_renderer_tpu_torch.ops import raster_bins as RB
     from ascii_renderer_tpu_torch.ops import raster_group as RG
     from ascii_renderer_tpu_torch.ops import setup2dh as S
 
@@ -654,8 +1066,15 @@ def main() -> int:
     print(f"build: {so.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     dev = torch.device("cuda:0")
-    mods = {"setup2dh": S, "pack": PK, "raster_group_walk": RG,
-            "modal_vote": AK, "pt_megakernel": PTK}
+    # each kernel's wrapper module and launch counter
+    counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
+                "raster_group_walk": (RG, "launches"),
+                "modal_vote": (AK, "launches"),
+                "pt_megakernel": (PTK, "launches"),
+                "raster_bins_walk": (RB, "launches"),
+                "raster_bins_walk_loop": (RB, "launches_loop"),
+                "pack_channels": (PK, "launches_channels"),
+                "pack_channels_split": (PK, "launches_split")}
     soup = _bunny()
     scene = _scene(dev)
     recs = check_kernels(dev, soup, scene)
@@ -665,7 +1084,7 @@ def main() -> int:
 
     # raster headline path: B1-B3, and B4 in the glyph stage
     c_raster, (backend, cfg) = _path_counts(
-        mods, lambda: run_main_path(dev, soup, scene))
+        counters, lambda: run_main_path(dev, soup, scene))
     print(f"launches on the raster path: {c_raster}", flush=True)
     for k in ("setup2dh", "pack", "raster_group_walk", "modal_vote"):
         assert c_raster[k] > 0, f"{k} never launched on the raster path"
@@ -678,7 +1097,7 @@ def main() -> int:
     # (96x36, spp 64, 5 bounces) and the HD arm (960x540, spp 8)
     pt_frame0_check(dev)
     cfg_ref = Config()
-    c_ref, ref_fn = _path_counts(mods, lambda: run_pt_path(
+    c_ref, ref_fn = _path_counts(counters, lambda: run_pt_path(
         cfg_ref, 36, 96, 4, 20, "PT reference run 96x36 spp64"))
     print(f"launches on the PT reference run: {c_ref}", flush=True)
     for k in ("pt_megakernel", "modal_vote"):
@@ -686,12 +1105,63 @@ def main() -> int:
     by_name["pt_megakernel"]["launches"] = c_ref["pt_megakernel"]
     profile_frames(ref_fn, 3, ("pt.", "frame.", "glyph"), "PT reference run")
     cfg_hd = Config(path_tracer=PathTracerConfig(samples_per_batch=8))
-    c_hd, hd_fn = _path_counts(mods, lambda: run_pt_path(
+    c_hd, hd_fn = _path_counts(counters, lambda: run_pt_path(
         cfg_hd, ROWS, COLS, 2, 10, "PT HD arm 960x540 spp8"))
     print(f"launches on the PT HD arm: {c_hd}", flush=True)
     for k in ("pt_megakernel", "modal_vote"):
         assert c_hd[k] > 0, f"{k} never launched on the PT HD arm"
     profile_frames(hd_fn, 3, ("pt.", "frame.", "glyph"), "PT HD arm")
+
+    # small- and mid-scale raster: B6 / B6' and B7 / B7' against their
+    # plain versions, then the entry step, config 1, config 2, the
+    # mid-scale HD arm and the path-traced frame step
+    room = _room(dev)
+    cube = _mesh("cube")
+    mid_preps = []
+    for label, name, grid in (("teapot 240x135", "teapot", TEAPOT_GRID),
+                              ("mid-scale HD 960x540", "mid", MID_GRID)):
+        msoup, mcam = _mesh(name)
+        mid_preps.append((label, grid, _mid_prep(
+            tuple(torch.from_numpy(x).to(dev) for x in msoup), scene, mcam,
+            *grid)))
+        print(f"{label}: {msoup[0].shape[0] // 3} triangles, steady caps "
+              f"{mid_preps[-1][2][2]}", flush=True)
+    recs += check_bins_kernels(dev, room, cube, mid_preps)
+    recs += check_pack_channels(dev, mid_preps)
+    by_name = {r["name"]: r for r in recs}
+
+    raster_prefixes = ("raster.", "frame.", "glyph")
+    c_entry, entry_fn = _path_counts(counters, run_entry_path)
+    print(f"launches on the entry step: {c_entry}", flush=True)
+    for k in ("raster_bins_walk", "modal_vote"):
+        assert c_entry[k] > 0, f"{k} never launched on the entry step"
+    profile_frames(entry_fn, 5, raster_prefixes, "entry step")
+    c_cube, _ = _path_counts(counters, lambda: run_cube_path(dev))
+    print(f"launches on the cube path: {c_cube}", flush=True)
+    for k in ("raster_bins_walk", "raster_bins_walk_loop"):
+        assert c_cube[k] > 0, f"{k} never launched on the cube path"
+    c_tea, tea_fn = _path_counts(counters, lambda: run_raster_mesh_path(
+        dev, "teapot", TEAPOT_GRID, 3, 2, 20, "teapot 240x135"))
+    print(f"launches on the teapot path: {c_tea}", flush=True)
+    c_mid, mid_fn = _path_counts(counters, lambda: run_raster_mesh_path(
+        dev, "mid", MID_GRID, 2, 0, 10, "mid-scale HD 960x540"))
+    print(f"launches on the mid-scale HD arm: {c_mid}", flush=True)
+    for c, what in ((c_tea, "teapot path"), (c_mid, "mid-scale HD arm")):
+        for k in ("raster_bins_walk", "pack_channels", "modal_vote"):
+            assert c[k] > 0, f"{k} never launched on the {what}"
+    profile_frames(tea_fn, 5, raster_prefixes, "teapot 240x135")
+    profile_frames(mid_fn, 3, raster_prefixes, "mid-scale HD arm")
+    c_pts, pts_fn = _path_counts(counters, lambda: run_pt_step_path(dev))
+    print(f"launches on the PT frame step: {c_pts}", flush=True)
+    for k in ("pt_megakernel", "modal_vote"):
+        assert c_pts[k] > 0, f"{k} never launched on the PT frame step"
+    profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"), "PT frame step")
+    for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels",
+              "pack_channels_split"):
+        by_name[k]["launches"] = sum(
+            c[k] for c in (c_entry, c_cube, c_tea, c_mid, c_pts))
+    # pack_channels_split has no caller on a driven path (the reference
+    # calls it only from its exactness probe): its launches stay 0
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

@@ -17,6 +17,7 @@ from ascii_renderer_tpu_torch.backends import raster as R
 from ascii_renderer_tpu_torch.core.camera import Camera
 from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import pack as PK
+from ascii_renderer_tpu_torch.ops import raster_bins as RB
 from ascii_renderer_tpu_torch.ops import raster_group as RG
 from ascii_renderer_tpu_torch.ops import setup2dh as S
 
@@ -48,14 +49,20 @@ def _layout(cm, bbox, grp_cap=6):
         src16, keys, 1, 6, 32 * 512, 1 << 16, grp_cap, 8)
 
 
+# every launch counter of the wrappers, as (module, attribute)
+COUNTERS = ((S, "launches"), (PK, "launches"), (RG, "launches"),
+            (PK, "launches_channels"), (PK, "launches_split"),
+            (RB, "launches"), (RB, "launches_loop"))
+
+
 @pytest.fixture
 def zero_counts():
-    saved = [m.launches for m in KERNEL_MODULES]
-    for m in KERNEL_MODULES:
-        m.launches = 0
+    saved = [getattr(m, a) for m, a in COUNTERS]
+    for m, a in COUNTERS:
+        setattr(m, a, 0)
     yield
-    for m, v in zip(KERNEL_MODULES, saved):
-        m.launches = v
+    for (m, a), v in zip(COUNTERS, saved):
+        setattr(m, a, v)
 
 
 def test_cpu_tensors_run_the_plain_versions(zero_counts):
@@ -94,7 +101,20 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_versions(zero_counts):
             torch.zeros(16, dtype=torch.int32, device=meta),
             torch.empty((2, 128), device=meta),
             torch.empty((2, 128), device=meta), 2)
+    with pytest.raises(ValueError):
+        PK.pack_channels(torch.empty((21, 512), device=meta))
+    with pytest.raises(ValueError):
+        PK.pack_channels_split(torch.empty((21, 512), device=meta),
+                               [(0, 16), (16, 24)])
+    offs = torch.zeros(3, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError):
+        RB.tile_eval_bins_mm(torch.empty((2, 16, 128), device=meta), offs,
+                             1, 2)
+    with pytest.raises(ValueError):
+        RB.tile_eval_bins(torch.empty((32, 128), device=meta), offs, 1, 2)
     assert [m.launches for m in KERNEL_MODULES] == [0, 0, 0]
+    assert (PK.launches_channels, PK.launches_split, RB.launches,
+            RB.launches_loop) == (0, 0, 0, 0)
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -120,7 +140,7 @@ def test_c_entry_points_match_the_ctypes_signatures():
     assert {k: len(v) for k, v in _build.SIGNATURES.items()} == found
     assert {p.name for p in _build.sources()} == {
         "setup2dh.cu", "pack.cu", "raster_group.cu", "pt_trace.cu",
-        "modal.cu"}
+        "modal.cu", "raster_bins.cu"}
     for flag in ("-fmad=false", "arch=compute_90a,code=sm_90a"):
         assert flag in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
@@ -225,3 +245,78 @@ def test_pt_kernel_equals_plain_on_cuda(cuda_device, n_tris):
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     assert not got[0][1].any() and got[0][0].any()
+
+
+def _bins_entries(seed, sizes=(0, 300, 129, 1, 256, 57), tiles_x=3):
+    """Random plane entries (row-major [P, 16] with the inert tail) binned
+    over a 3 x 2 tile grid, and the offsets: an empty bin, bins across
+    the 128- and 256-entry chunks, coefficients up to 1e10, depth ties
+    with the previous entry, 20% invalid entries."""
+    rng = np.random.default_rng(seed)
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    P = int(offs[-1])
+    tile = np.repeat(np.arange(len(sizes)), sizes)
+    cx = (tile % tiles_x) * 128 + rng.uniform(-20, 148, P)
+    cy = (tile // tiles_x) * 8 + rng.uniform(-2, 10, P)
+    ent = np.zeros((P + (-(P + 256)) % 128 + 256, 16), np.float32)
+    for k in range(3):
+        ang = rng.uniform(0, 2 * np.pi, P)
+        scale = np.where(rng.random(P) < 0.15, 3e8, 1.0)
+        a = np.cos(ang) * rng.uniform(0.05, 40, P) * scale
+        b = np.sin(ang) * rng.uniform(0.05, 40, P) * scale
+        g = -(a * (cx + rng.uniform(-40, 40, P))
+              + b * (cy + rng.uniform(-6, 6, P)))
+        ent[:P, 3 * k:3 * k + 3] = np.stack([a, b, g], -1)
+    zx, zy = rng.normal(size=P) * 2e-3, rng.normal(size=P) * 2e-2
+    ent[:P, 9:12] = np.stack(
+        [zx, zy, rng.uniform(-0.1, 1.1, P) - zx * cx - zy * cy], -1)
+    ent[:P, 12] = rng.random(P) >= 0.2
+    ent[:P, 13] = np.concatenate(
+        [np.sort(rng.choice(100000, n, replace=False)) for n in sizes])
+    tie = np.nonzero(rng.random(P) < 0.3)[0]
+    tie = tie[(tie > 0) & (tile[tie] == tile[tie - 1])]
+    ent[tie, 9:12] = ent[tie - 1, 9:12]
+    return ent, offs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm", [True, False])
+def test_bins_kernel_equals_plain_on_cuda(cuda_device, mm, zero_counts):
+    """B6 (mm: channel-major chunks) and B6' (row-major entries, the valid
+    flag tested): z and winner ids exactly equal to the plain versions."""
+    ent, offs = _bins_entries(6)
+    o = torch.from_numpy(offs).to(cuda_device)
+    data = torch.from_numpy(ent).to(cuda_device)
+    if mm:
+        data = data.reshape(-1, 128, 16).transpose(1, 2).contiguous()
+        fn, ref = RB.tile_eval_bins_mm, RB.tile_eval_bins_mm_ref
+    else:
+        data = RB.pack_entries(data)
+        fn, ref = RB.tile_eval_bins, RB.tile_eval_bins_ref
+    z, t = fn(data, o, 3, 6)
+    z_r, t_r = ref(data, o, 3, 6)
+    torch.cuda.synchronize()
+    assert (RB.launches, RB.launches_loop) == ((1, 0) if mm else (0, 1))
+    assert torch.equal(t, t_r) and int((t >= 0).sum()) > 1000
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+    assert (t[0] == -1).all()  # the empty bin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n", [(21, 8192), (30, 700), (40, 69632)])
+def test_pack_channels_kernels_equal_plain_on_cuda(cuda_device, c, n,
+                                                   zero_counts):
+    """B7 and B7' bit-exact: W = C rounded up to 8, zero columns past C."""
+    g = torch.Generator().manual_seed(c)
+    cm = torch.randn((c, n), generator=g).to(cuda_device)
+    w = -(-c // 8) * 8
+    got = PK.pack_channels(list(cm))
+    assert tuple(got.shape) == (n, w)
+    assert torch.equal(got.view(torch.int32),
+                       PK.pack_channels_ref(list(cm)).view(torch.int32))
+    spans = [(0, 16), (16, w), (8, 24)]
+    for o, r in zip(PK.pack_channels_split(cm, spans),
+                    PK.pack_channels_split_ref(cm, spans)):
+        assert torch.equal(o.view(torch.int32), r.view(torch.int32))
+    torch.cuda.synchronize()
+    assert (PK.launches_channels, PK.launches_split) == (1, 3)

@@ -1,6 +1,8 @@
 """The port never imports jax: in a fresh interpreter where importing jax
-fails, every module of ascii_renderer_tpu_torch imports, and one 48x96
-raster frame and one 12x32 path-traced frame of the demo scene render
+fails, every module of ascii_renderer_tpu_torch imports (the small- and
+mid-scale raster modules, the frame step and ``entry`` among them), and a
+48x96 headline raster frame, a 48x96 binned-walk frame, one ``entry()``
+frame step (96x36) and one 12x32 path-traced frame of the demo scene render
 (plain-torch kernel versions on the CPU) through the glyph pass."""
 
 import os
@@ -20,6 +22,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
+for new in ("backends.raster_channels", "ops.raster_bins", "sim.ui",
+            "sim.framestep", "entry"):
+    assert "ascii_renderer_tpu_torch." + new in names, new
 from ascii_renderer_tpu_torch.backends import raster as R
 from ascii_renderer_tpu_torch.core.camera import Camera
 from ascii_renderer_tpu_torch.core.frame import Frame
@@ -39,6 +44,12 @@ chars, _ = AsciiPass()(Frame.from_float(rgb))
 lines = chars_to_strings(chars)
 assert len(lines) == 48 and len(lines[0]) == 96
 assert (rgb.amax(-1) > 0).sum() > 300, int((rgb.amax(-1) > 0).sum())
+rgb2 = R.render_soup(p, n, c, scene, cam, 48, 96, 0.5, method="scatter")
+assert (rgb2.amax(-1) > 0).sum() > 300
+from ascii_renderer_tpu_torch.entry import entry
+fn, args = entry(device="cpu")
+st, echars, _tint = fn(*args)
+assert tuple(echars.shape) == (36, 96) and int(st.frame_idx) == 1
 from ascii_renderer_tpu_torch.atlas import io as atlas_io
 from ascii_renderer_tpu_torch.backends import pathtrace, registry
 from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig

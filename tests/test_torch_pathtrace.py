@@ -186,8 +186,12 @@ def test_renderer_routes_to_the_pathtracer():
     np.testing.assert_array_equal(px[..., 3], frame.a.numpy())
     assert r.set_backend("pt") == "pathtrace"
     assert r.set_backend("rasterizer") == "raster"  # re-pushes the scene
-    with pytest.raises(NotImplementedError, match="A5"):
-        r.render(0.0, TC.Camera.create(**POSE))  # a small scene
+    rframe = r.render(0.0, TC.Camera.create(**POSE))  # a small scene
+    rb = RasterBackend(cfg, device="cpu")
+    rb.set_scene(ts)
+    rdirect = rb.render(0.0, TC.Camera.create(**POSE), 8, 24, 0.5)
+    assert tuple(rframe.a.shape) == (8, 24)
+    assert torch.equal(rframe.rgb, rdirect.rgb) and rframe.rgb.any()
     with pytest.raises(NotImplementedError, match="A9"):
         r.set_backend("rt")
     with pytest.raises(ValueError, match="Unknown backend"):

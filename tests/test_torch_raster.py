@@ -179,10 +179,11 @@ def test_backend_rejects_unported_paths():
     assert torch.equal(be.render(0.0, cam, 8, 16).a,
                        torch.ones((8, 16), dtype=torch.uint8))  # no scene
     be.set_soup(p, n, c, scene)
-    with pytest.raises(NotImplementedError, match="A5"):
-        be.render(0.0, cam, ROWS, COLS, 0.5)  # 6000 slots: mid scale
-    for kernel in ("mm", "subtile3"):
-        with pytest.raises(NotImplementedError, match="A5"):
+    frame = be.render(0.0, cam, ROWS, COLS, 0.5)  # 6000 slots: mid scale
+    assert tuple(frame.rgb.shape) == (ROWS, COLS, 3)
+    assert be._caps[0] % 8192 == 0  # mid-scale (v_cap, big_cap) caps
+    for kernel in ("subtile", "subtile3"):  # older walks: ROADMAP B9
+        with pytest.raises(NotImplementedError, match="B9"):
             R.render_soup_diag(torch.from_numpy(p), torch.from_numpy(n),
                                torch.from_numpy(c), scene, cam, ROWS, COLS,
                                0.5, v_cap=4096, kernel=kernel)
