@@ -16,14 +16,23 @@ Three generations run, chosen by scene size as the reference chooses
   (ops/raster_group), the grouped walk (CUDA kernel), deferred shading on
   the group layout, and one bin-gather image assembly.
 
+Every grouped generation ``render_soup_diag(kernel=...)`` /
+``render_soup(method=...)`` takes renders the same frame bit for bit; they
+differ in layout and walk kernel (ops/raster_group): ``subtile3`` (single-
+entry rows, B9d), ``subtile4`` (direct per-bin reads, B9e), ``subtile5`` /
+``subtile6`` (two-entry rows from a K2 / K4 gather, B9f), ``subtile7`` /
+``subtile8`` (K4 / K8 gather relaid to single-entry rows, B1). With
+``SETUP_PACKED`` the setup and the pack are one kernel (B10) for every
+generation but ``subtile4``.
+
 Reference behaviours preserved (raster.js): camera mapping identical to the
 tracers, near 0.05 / far 100, back-face culling, a default directional
 light when the scene has none, ambient = env color * intensity, point-light
 attenuation 1/(1 + d^2*0.05), no shadows.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item): the
-fused-shading walk (method "fused", B8) and the older walk generations
-(methods / kernels "subtile".."subtile7", B9).
+fused-shading walk (method "fused", B8) and the channel-era walk
+generations (methods / kernels "subtile" and "subtile2", B9a-c).
 """
 
 from __future__ import annotations
@@ -40,8 +49,10 @@ from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
 from ascii_renderer_tpu_torch.ops import raster_group as RG
 from ascii_renderer_tpu_torch.ops import raster_subtile as RS
-from ascii_renderer_tpu_torch.ops.pack import pack_channels_split_blocked
-from ascii_renderer_tpu_torch.ops.setup2dh import setup_2dh_fused, setup_channels
+from ascii_renderer_tpu_torch.ops.pack import (pack_channels,
+                                               pack_channels_split_blocked)
+from ascii_renderer_tpu_torch.ops.setup2dh import (
+    setup_2dh_fused, setup_2dh_fused_packed, setup_channels)
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 from ascii_renderer_tpu_torch.backends.raster_common import (  # noqa: F401
     FAR, MAX_V_CAP, NEAR, TILE_H, TILE_W, _DEFAULT_AMBIENT, _DEFAULT_DIR,
@@ -55,10 +66,14 @@ from ascii_renderer_tpu_torch.backends.raster_channels import (  # noqa: F401
     visibility_scan)
 
 HEADLINE_KERNEL = "subtile8"  # K8 slot gather relaid to the base walk layout
+GROUPED_KERNELS = tuple(RG.GENERATIONS)  # subtile3 .. subtile8
+SETUP_PACKED = False  # True: one kernel (B10) emits the bbox and both
+# row-major tables; False: the setup (B2), then the pack (B3 / B7). The
+# same frame either way; subtile4 always takes the two-kernel path (its
+# direct walk reads 32-wide rows).
 _ADAPTIVE_MIN_TRIS = 2048   # RasterBackend: compacted mid-scale path from here
 _GROUPED_MIN_TRIS = 32768   # RasterBackend: headline path from here up
-_OLDER_WALKS = ("subtile", "subtile2", "subtile3", "subtile4", "subtile5",
-                "subtile6", "subtile7")
+_UNPORTED_WALKS = ("subtile", "subtile2")  # channel-era generations, B9a-c
 
 
 def _not_ported(what: str, item: str):
@@ -321,15 +336,17 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     n_big <= big_cap (grow them with ``suggest_caps``). pos9 selects the
     pre-transposed vertex stage.
 
-    kernel 'subtile8' (the headline): returns (rgb f32 [rows, cols, 3],
-    diag) with 0-d i32 counts n_valid, n_big, n_rows, n_pairs, n_tiles_nz.
-    The frame is exact iff n_big <= big_cap, n_rows <= r_cap, n_pairs <=
-    pair_cap and n_tiles_nz <= tile_cap (the BIN capacity; grp_cap =
-    tile_cap // 8); otherwise work was dropped and the caller re-renders
-    with ``suggest_caps_grouped`` caps. emit='idx' quantizes to ramp
-    indices in group layout and assembles (idx i32 [rows, cols], rgb8 u8
-    [rows, cols, 3]) instead — bit-identical to quantizing the assembled
-    image (assembly is a permutation)."""
+    kernel 'subtile3'..'subtile8' (the grouped generations, GROUPED_KERNELS;
+    'subtile8' is the headline): returns (rgb f32 [rows, cols, 3], diag)
+    with 0-d i32 counts n_valid, n_big, n_rows, n_pairs, n_tiles_nz. The
+    frame is exact iff n_big <= big_cap, n_rows <= r_cap (not for
+    'subtile4', which has no row layout), n_pairs <= pair_cap and
+    n_tiles_nz <= tile_cap (the BIN capacity; grp_cap = tile_cap // 8);
+    otherwise work was dropped and the caller re-renders with
+    ``suggest_caps_grouped`` caps. emit='idx' quantizes to ramp indices in
+    group layout and assembles (idx i32 [rows, cols], rgb8 u8 [rows, cols,
+    3]) instead — bit-identical to quantizing the assembled image
+    (assembly is a permutation)."""
     with stage("raster.mvp"):
         mvp = camera_mvp(cam, rows, cols, pixel_aspect)
     if kernel in ("mm", "loop"):
@@ -341,9 +358,9 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
             positions, torch.cat(parts, dim=1), scene, mvp, rows, cols,
             v_cap=v_cap, big_cap=big_cap, kernel=kernel, r_cap=r_cap,
             pair_cap=pair_cap, tile_cap=tile_cap, pos9=pos9)
-    if kernel != HEADLINE_KERNEL:
-        raise _not_ported(f"render_soup_diag(kernel={kernel!r}), an older "
-                          f"walk generation", "B9")
+    if kernel not in GROUPED_KERNELS:
+        raise _not_ported(f"render_soup_diag(kernel={kernel!r}), a "
+                          f"channel-era walk generation", "B9")
     if pos9 is None or attrs_t is None:
         pos9, attrs_t = soup_static_prep(positions, normals, colors, scene)
     A = attrs_t.shape[0] // 3
@@ -356,20 +373,28 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     tw = _round_up(3 * A + 3, 8)
 
     # each stage is a named range for torch.profiler (chip_smoke --profile)
-    with stage("raster.setup"):
-        cm, bbox = setup_2dh_fused(pos9, attrs_t, mvp, rows, cols)
-    with stage("raster.pack"):
-        src16, table = pack_channels_split_blocked(cm,
-                                                   [(0, 16), (16, 16 + tw)])
+    if SETUP_PACKED and kernel != "subtile4":
+        with stage("raster.setup"):  # setup and pack in one kernel (B10)
+            bbox, src, table = setup_2dh_fused_packed(pos9, attrs_t, mvp,
+                                                      rows, cols, tw)
+    else:
+        with stage("raster.setup"):
+            cm, bbox = setup_2dh_fused(pos9, attrs_t, mvp, rows, cols)
+        with stage("raster.pack"):
+            if kernel in ("subtile3", "subtile4"):
+                # one wide pack (B7), walk rows and shade table as lane
+                # slices of it; columns past 3A+3 are zero, never read
+                cm2 = cm.view(cm.shape[0], -1)
+                g = pack_channels(cm2, width=max(_round_up(cm2.shape[0], 8),
+                                                 15))
+                src, table = g[:, :32], g[:, 16:16 + tw]
+            else:  # two contiguous spans (B3)
+                src, table = pack_channels_split_blocked(
+                    cm, [(0, 16), (16, 16 + tw)])
     with stage("raster.keys"):
         keys = _subtile_pair_keys_bbox(bbox, rows, cols, big_cap=big_cap)
-    with stage("raster.build"):
-        (rows128, rowptr, gdepth, gskip, xl, yl, gbins, n_rows, n_pairs,
-         n_used) = RG.build_packed_rows_grouped_kgather(
-            src16, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap, 8)
-    with stage("raster.walk"):
-        _z, e = RG.tile_eval_grouped_skip(rows128, rowptr, gdepth, gskip,
-                                          xl, yl, grp_cap)
+    e, xl, yl, gbins, n_rows, n_pairs, n_used = _grouped_walk(
+        kernel, src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap)
     with stage("raster.shade"):
         rgbg = shade_groups(e, xl, yl, table, scene, A)
     with stage("raster.assemble"):
@@ -392,6 +417,18 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     return rgb, diag
 
 
+def _grouped_walk(kernel: str, src, keys, tiles_x: int, n_tiles: int,
+                  r_cap: int, pair_cap: int, grp_cap: int):
+    """Layout build and walk of grouped generation ``kernel`` -> (winner
+    ids e f32 [grp_cap, 8, 128], xl, yl, gbins, n_rows, n_pairs, n_used)."""
+    gen = RG.GENERATIONS[kernel]
+    with stage("raster.build"):
+        lay = gen.build(src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap)
+    with stage("raster.walk"):
+        _z, e = gen.walk(*lay[:-4], grp_cap)
+    return (e, *lay[-6:])
+
+
 def suggest_caps(n_valid: int, n_big: int):
     """Adaptive (v_cap, big_cap) for the mid-scale pipeline, with growth
     margin: ~30% / 50% above the last counts, rounded to coarse quanta."""
@@ -412,23 +449,25 @@ def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
     method: 'scatter' / 'scatter_mm' (the binned bin walk B6),
     'scatter_loop' (its scalar-loop twin B6'), 'scan' (the chunked dense
     scan, the reference path), or 'auto' (scatter above 512 triangle
-    slots). v_cap routes the scatter methods, and 'subtile8', into the
-    compacted render_soup_diag; None keeps the exact uncapped path.
-    'fused' (B8) and 'subtile'..'subtile7' (B9) are not ported and raise;
-    any other name takes the scan, as in the reference."""
+    slots). v_cap routes the scatter methods, and the grouped generations
+    'subtile3'..'subtile8', into the compacted render_soup_diag; None
+    keeps the exact uncapped path (the grouped names then take the scan,
+    as in the reference). 'fused' (B8), 'subtile' and 'subtile2' (B9a-c)
+    are not ported and raise; any other name takes the scan, as in the
+    reference."""
     if method == "fused":
         raise _not_ported("render_soup(method='fused'), the fused-shading "
                           "walk", "B8")
-    if method in _OLDER_WALKS:
-        raise _not_ported(f"render_soup(method={method!r}), an older walk "
-                          f"generation", "B9")
+    if method in _UNPORTED_WALKS:
+        raise _not_ported(f"render_soup(method={method!r}), a channel-era "
+                          f"walk generation", "B9")
     attrs = torch.cat([normals, colors, positions], dim=1)  # [V, 9]
     if method == "auto":
         method = "scatter" if positions.shape[0] // 3 * 2 > 512 else "scan"
     scatter = ("scatter", "scatter_mm", "scatter_loop")
-    if method in scatter + (HEADLINE_KERNEL,) and v_cap is not None:
-        kern = {"scatter_loop": "loop",
-                HEADLINE_KERNEL: HEADLINE_KERNEL}.get(method, "mm")
+    if method in scatter + GROUPED_KERNELS and v_cap is not None:
+        kern = method if method in GROUPED_KERNELS else {
+            "scatter_loop": "loop"}.get(method, "mm")
         rgb, _diag = render_soup_diag(
             positions, normals, colors, scene, cam, rows, cols, pixel_aspect,
             v_cap=v_cap, big_cap=big_cap, kernel=kern, r_cap=r_cap,

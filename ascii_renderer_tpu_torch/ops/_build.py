@@ -42,10 +42,20 @@ _FP = ctypes.POINTER(ctypes.c_float)
 SIGNATURES = {
     # (pos9, attrs_t, mvp16_host, out, T, Tp, A, rows, cols, stream)
     "setup2dh_launch": (_P, _P, _FP, _P, _I, _I, _I, _I, _I, _P),
+    # (pos9, attrs_t, mvp16_host, bbox, src16, table, T, Tp, A, tw, rows,
+    #  cols, stream)
+    "setup2dh_packed_launch": (_P, _P, _FP, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _P),
     # (cm, out, C, N, a, b, stream)
     "pack_span_launch": (_P, _P, _I, _I, _I, _I, _P),
     # (rows128, rowptr, gdepth, gskip, xl, yl, z, e, r_cap, grp_cap, stream)
     "walk_grouped_skip_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (rows128, rowptr, gdepth, xl, yl, z, e, r_cap, grp_cap, stream)
+    "walk_grouped_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (rows256, rowptr, gdepth, gskip, xl, yl, z, e, r_cap2, grp_cap, stream)
+    "walk_grouped_k2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (src_pair, goff, gdepth, gchunks, xl, yl, z, e, p_max, grp_cap, stream)
+    "walk_direct_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (params, prim, n_entries, n_sph, ro, rd, uid, block_active, seed,
     #  atlas, atlas_w, atlas_h, lor, log, lob, ov, fet, n_rays, bounces,
     #  nee, stream)

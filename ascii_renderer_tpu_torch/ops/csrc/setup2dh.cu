@@ -2,18 +2,29 @@
 // viewport fold of its three vertices, then from the adjugate of the folded
 // clip matrix the 3 edge planes, the screen-z plane, 3A attribute planes and
 // the perspective denominator plane; plus the id, the binning bbox (with the
-// EPS_W near guard) and the valid flag.
+// EPS_W near guard) and the valid flag. Two kernels share that math
+// (setup_triangle), so they cannot drift apart:
 //
-// Replaces: ascii_renderer_tpu/ops/setup2dh.py:_setup_kernel (Pallas, TPU),
-// called through setup_2dh_fused.
+//   setup2dh_kernel         channel-major [C, Tp] output.  Replaces
+//                           ascii_renderer_tpu/ops/setup2dh.py:_setup_kernel
+//                           (B2), called through setup_2dh_fused.
+//   setup2dh_packed_kernel  the bbox channel-major [5, Tp], the walk entry
+//                           rows [Tp, 16] and the shade rows [Tp, tw]
+//                           row-major: B2 with B3's transpose fused.
+//                           Replaces :_setup_kernel_packed (B10), called
+//                           through setup_2dh_fused_packed.
 //
-// What bounds it on the H100: device memory traffic. Each triangle reads
+// What bounds them on the H100: device memory traffic. Each triangle reads
 // 9 + 3A floats and writes 16 + 3A + 3 + 5 floats (about 0.25 KB at A = 6)
 // for roughly 300 flops, far below the card's flop-to-byte ratio.
-// Design: one thread per triangle, channel-major [C, Tp] input and output,
-// so neighbouring threads touch neighbouring addresses on every load and
-// store (fully coalesced); all intermediates stay in registers. The MVP is
-// a by-value kernel argument (constant bank), so no extra load.
+// Design: one thread per triangle, all intermediates in registers, the MVP
+// a by-value kernel argument (constant bank). Channel-major loads and
+// stores put neighbouring threads on neighbouring addresses (coalesced).
+// The packed kernel stages its block's rows in shared memory and writes
+// them out with consecutive float4 stores: a thread storing its own rows
+// (64 and 96-128 bytes apart across a warp) made B10 no faster than B2 +
+// B3 (PERF.md). The TPU kernel transposed through an MXU identity dot,
+// which turns -0.0 into +0.0; these copies keep every bit.
 //
 // Exactness: every chain below keeps the JAX op order (setup2dh.py:55-155)
 // and fuses a product into the add it feeds exactly where the reference's
@@ -27,9 +38,37 @@ namespace {
 
 constexpr float kEpsW = 1e-4f;
 constexpr float kInvEps = 10000.0f;  // float32(1 / 1e-4)
+constexpr int kMaxA = 9;             // attributes: normal, color, world pos
+constexpr int kMaxTw = 32;           // shade row width >= 3 * kMaxA + 3
 
 struct Mat4 {
   float m[16];
+};
+
+// Where setup_triangle puts one triangle's outputs: the 16 walk-entry
+// channels (e0a..e2c, zx, zy, zc, id, three zeros), the attribute planes
+// p{j}{a,b,c} (j < 3A), the denominator plane and the bbox + valid flag.
+// B2 stores each value the moment it is computed, straight to its
+// channel-major row, so no value waits in a register.
+struct ChannelMajorOut {
+  float* col;  // out + t: channel c of this triangle at col[c * Tp]
+  int Tp, A;
+  __device__ void walk(int c, float v) { col[(size_t)c * Tp] = v; }
+  __device__ void attr(int j, float v) { col[(size_t)(16 + j) * Tp] = v; }
+  __device__ void dn(int c, float v) {
+    col[(size_t)(16 + 3 * A + c) * Tp] = v;
+  }
+  __device__ void bbox(int c, float v) {
+    col[(size_t)(19 + 3 * A + c) * Tp] = v;
+  }
+};
+// B10 keeps the triangle's rows in registers for its float4 stores.
+struct RowsOut {
+  float walk_[16], attr_[3 * kMaxA], dn_[3], bbox_[5];
+  __device__ void walk(int c, float v) { walk_[c] = v; }
+  __device__ void attr(int j, float v) { attr_[j] = v; }
+  __device__ void dn(int c, float v) { dn_[c] = v; }
+  __device__ void bbox(int c, float v) { bbox_[c] = v; }
 };
 
 // torch.minimum / torch.maximum semantics: a NaN operand propagates.
@@ -50,12 +89,11 @@ __device__ __forceinline__ float dot3(float a0, float b0, float a1, float b1,
   return fmaf(a2, b2, fmaf(a0, b0, a1 * b1));
 }
 
-__global__ void setup2dh_kernel(const float* __restrict__ pos9,
-                                const float* __restrict__ attrs, Mat4 M,
-                                float* __restrict__ out, int T, int Tp,
-                                int A, float half_cols, float half_rows) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Tp) return;
+template <class Out>
+__device__ __forceinline__ void setup_triangle(
+    const float* __restrict__ pos9, const float* __restrict__ attrs,
+    const Mat4& M, int t, int T, int A, float half_cols, float half_rows,
+    Out& o) {
   const bool live = t < T;  // pad slots are all-zero triangles
   const float* m = M.m;
 
@@ -90,31 +128,34 @@ __global__ void setup2dh_kernel(const float* __restrict__ pos9,
   const float ninv = 1.0f / det_safe;  // negative for front faces
   const float inv = -ninv;             // positive scale: inside <=> <= 0
 
-  size_t ch = 0;
-  auto put = [&](float v) { out[ch * (size_t)Tp + t] = v; ++ch; };
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    put(e[k][0] * inv);
-    put(e[k][1] * inv);
-    put(e[k][2] * inv);
+    o.walk(3 * k, e[k][0] * inv);
+    o.walk(3 * k + 1, e[k][1] * inv);
+    o.walk(3 * k + 2, e[k][2] * inv);
   }
 #pragma unroll
   for (int j = 0; j < 3; ++j)
-    put(dot3(vz[0], e[0][j], vz[1], e[1][j], vz[2], e[2][j]) * ninv);
-  put((float)t);
-  put(0.0f);
-  put(0.0f);
-  put(0.0f);
-  for (int jj = 0; jj < A; ++jj) {
-    const float aa = live ? attrs[(size_t)jj * T + t] : 0.0f;
-    const float ab = live ? attrs[(size_t)(A + jj) * T + t] : 0.0f;
-    const float ac = live ? attrs[(size_t)(2 * A + jj) * T + t] : 0.0f;
+    o.walk(9 + j,
+           dot3(vz[0], e[0][j], vz[1], e[1][j], vz[2], e[2][j]) * ninv);
+  o.walk(12, (float)t);
+  o.walk(13, 0.0f);
+  o.walk(14, 0.0f);
+  o.walk(15, 0.0f);
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      put(dot3(aa, e[0][c], ab, e[1][c], ac, e[2][c]) * ninv);
+  for (int jj = 0; jj < kMaxA; ++jj) {
+    if (jj < A) {
+      const float aa = live ? attrs[(size_t)jj * T + t] : 0.0f;
+      const float ab = live ? attrs[(size_t)(A + jj) * T + t] : 0.0f;
+      const float ac = live ? attrs[(size_t)(2 * A + jj) * T + t] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        o.attr(3 * jj + c,
+               dot3(aa, e[0][c], ab, e[1][c], ac, e[2][c]) * ninv);
+    }
   }
 #pragma unroll
-  for (int c = 0; c < 3; ++c) put((e[0][c] + e[1][c] + e[2][c]) * ninv);
+  for (int c = 0; c < 3; ++c) o.dn(c, (e[0][c] + e[1][c] + e[2][c]) * ninv);
 
   // ---- binning bbox over projectable candidates ----
   float x0 = 1e9f, x1 = -1e9f, y0 = 1e9f, y1 = -1e9f;
@@ -146,10 +187,10 @@ __global__ void setup2dh_kernel(const float* __restrict__ pos9,
       y1 = max_nan(y1, yq);
     }
   }
-  put(x0);
-  put(x1);
-  put(y0);
-  put(y1);
+  o.bbox(0, x0);
+  o.bbox(1, x1);
+  o.bbox(2, y0);
+  o.bbox(3, y1);
 
   // ---- validity ----
   const bool all_front = front[0] && front[1] && front[2];
@@ -160,19 +201,101 @@ __global__ void setup2dh_kernel(const float* __restrict__ pos9,
   const bool valid_front = (a2h < 0.0f) && (fabsf(a2h) > 1e-12f) &&
                            (szmax >= 0.0f) && (szmin <= 1.0f);
   const bool valid_cross = det < -1e-20f;
-  put((all_front ? valid_front : valid_cross) ? 1.0f : 0.0f);
+  o.bbox(4, (all_front ? valid_front : valid_cross) ? 1.0f : 0.0f);
 }
+
+// out [16 + 3A + 3 + 5, Tp]: walk channels, attribute planes, denominator,
+// bbox + valid
+__global__ void setup2dh_kernel(const float* __restrict__ pos9,
+                                const float* __restrict__ attrs, Mat4 M,
+                                float* __restrict__ out, int T, int Tp,
+                                int A, float half_cols, float half_rows) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Tp) return;
+  ChannelMajorOut o{out + t, Tp, A};
+  setup_triangle(pos9, attrs, M, t, T, A, half_cols, half_rows, o);
+}
+
+constexpr int kPackedThreads = 128;  // triangles per block of B10
+
+// bbox [5, Tp] channel-major; src16 [Tp, 16] and table [Tp, tw] row-major
+// (shade planes, then the denominator, then zeros up to tw)
+__global__ void __launch_bounds__(kPackedThreads)
+setup2dh_packed_kernel(const float* __restrict__ pos9,
+                       const float* __restrict__ attrs, Mat4 M,
+                       float* __restrict__ bbox, float* __restrict__ src16,
+                       float* __restrict__ table, int T, int Tp, int A,
+                       int tw, float half_cols, float half_rows) {
+  // the block's rows, laid out as in device memory (8 KB + up to 16 KB)
+  __shared__ float4 s_src[kPackedThreads * 4];
+  __shared__ float4 s_tbl[kPackedThreads * kMaxTw / 4];
+  const int t0 = blockIdx.x * kPackedThreads;
+  const int t = t0 + threadIdx.x;
+  const int q4 = tw / 4;  // float4s per shade row
+  if (t < Tp) {
+    RowsOut o;
+    setup_triangle(pos9, attrs, M, t, T, A, half_cols, half_rows, o);
+#pragma unroll
+    for (int c = 0; c < 5; ++c) bbox[(size_t)c * Tp + t] = o.bbox_[c];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      s_src[threadIdx.x * 4 + q] =
+          make_float4(o.walk_[4 * q], o.walk_[4 * q + 1], o.walk_[4 * q + 2],
+                      o.walk_[4 * q + 3]);
+    float row[kMaxTw];
+#pragma unroll
+    for (int j = 0; j < kMaxTw; ++j) {
+      const int d = j - 3 * A;  // index into the denominator plane
+      row[j] = j < 3 * A ? o.attr_[j < 3 * kMaxA ? j : 0]
+               : d == 0  ? o.dn_[0]
+               : d == 1  ? o.dn_[1]
+               : d == 2  ? o.dn_[2]
+                         : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxTw / 4; ++q)
+      if (q < q4)
+        s_tbl[threadIdx.x * q4 + q] = make_float4(
+            row[4 * q], row[4 * q + 1], row[4 * q + 2], row[4 * q + 3]);
+  }
+  __syncthreads();
+  // the block's rows are contiguous in src16 and in table
+  const int n = min(kPackedThreads, Tp - t0);
+  float4* gsrc = reinterpret_cast<float4*>(src16 + (size_t)t0 * 16);
+  for (int i = threadIdx.x; i < n * 4; i += kPackedThreads) gsrc[i] = s_src[i];
+  float4* gtbl = reinterpret_cast<float4*>(table + (size_t)t0 * tw);
+  for (int i = threadIdx.x; i < n * q4; i += kPackedThreads)
+    gtbl[i] = s_tbl[i];
+}
+
+Mat4 to_mat4(const float* mvp16) {
+  Mat4 M;
+  for (int i = 0; i < 16; ++i) M.m[i] = mvp16[i];
+  return M;
+}
+
+constexpr int kThreads = 256;
 
 }  // namespace
 
 extern "C" int setup2dh_launch(const float* pos9, const float* attrs,
                                const float* mvp16, float* out, int T, int Tp,
                                int A, int rows, int cols, void* stream) {
-  Mat4 M;
-  for (int i = 0; i < 16; ++i) M.m[i] = mvp16[i];
-  const int threads = 256;
-  const int blocks = (Tp + threads - 1) / threads;
-  setup2dh_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      pos9, attrs, M, out, T, Tp, A, 0.5f * (float)cols, 0.5f * (float)rows);
+  setup2dh_kernel<<<(Tp + kThreads - 1) / kThreads, kThreads, 0,
+                    (cudaStream_t)stream>>>(
+      pos9, attrs, to_mat4(mvp16), out, T, Tp, A, 0.5f * (float)cols,
+      0.5f * (float)rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int setup2dh_packed_launch(const float* pos9, const float* attrs,
+                                      const float* mvp16, float* bbox,
+                                      float* src16, float* table, int T,
+                                      int Tp, int A, int tw, int rows,
+                                      int cols, void* stream) {
+  setup2dh_packed_kernel<<<(Tp + kPackedThreads - 1) / kPackedThreads,
+                           kPackedThreads, 0, (cudaStream_t)stream>>>(
+      pos9, attrs, to_mat4(mvp16), bbox, src16, table, T, Tp, A, tw,
+      0.5f * (float)cols, 0.5f * (float)rows);
   return (int)cudaGetLastError();
 }

@@ -1,32 +1,53 @@
-"""Depth-sorted bin-group walk: the CUDA kernel ``csrc/raster_group.cu``
-(replaces the Pallas ``ascii_renderer_tpu/ops/raster_group.py:
-_kernel_grouped_skip``), its plain-torch version, and the torch layout
-code around it (torch port of the same JAX module's K-gather build,
-depth-group order, CSR offsets and image assembly).
+"""Depth-sorted bin-group walks: the CUDA kernels of ``csrc/raster_group.cu``
+(replacing the Pallas walks of ``ascii_renderer_tpu/ops/raster_group.py``),
+their plain-torch versions, and the torch layout code around them (torch
+port of the same JAX module's layout builds, depth-group order, CSR offsets
+and image assembly).
 
 All n_tiles*8 bins (8 x 16 px) are sorted by depth (descending, stable by
 bin id) and grouped 8 at a time, so one 8 x 128 pixel block walks 8 bins of
-similar depth side by side. Layout (built by
-``build_packed_rows_grouped_kgather``, walked by ``tile_eval_grouped_skip``):
+similar depth side by side. Every walk keeps, per pixel, the nearest
+covering entry of its bin; they differ only in how the entries are laid
+out (one kernel template, one entry-source policy per walk):
 
-  rows128 f32 [r_cap, 128]: row r, lanes 16g..16g+15 hold the 16 walk
-  channels (ops/raster_subtile) of one entry of GROUP-slot g's bin.
-  rowptr i32 [grp_cap+1] CHUNK_RG-multiple group row ranges.
-  gdepth/gskip i32 [grp_cap*8]: entry idx = row - rowptr[t] of slot g is
-  live iff gskip <= idx < gskip + gdepth (the K-gather fetches K entries
-  from K-aligned starts, so a bin's first `skip` slots belong to the
-  preceding bin in pair order).
+  B1  ``tile_eval_grouped_skip`` (``_kernel_grouped_skip``): rows128 f32
+      [r_cap, 128], row r holding in lanes 16g..16g+15 the 16 walk channels
+      (ops/raster_subtile) of one entry of GROUP-slot g's bin; entry idx =
+      row - rowptr[t] of slot g is live iff gskip <= idx < gskip + gdepth.
+      Built by ``build_packed_rows_grouped_kgather`` (subtile7 / subtile8:
+      the slot gather fetches K entries per row from K-aligned starts, so a
+      bin's first `skip` slots belong to the preceding bin in pair order).
+  B9d ``tile_eval_grouped`` (``_kernel_grouped``): the same rows128 layout
+      without the skip window, built by ``build_packed_rows_grouped``
+      (subtile3).
+  B9e ``tile_eval_direct`` (``_kernel_direct``): no materialised layout;
+      each bin's entries are read straight from the pair-ordered table
+      src_pair f32 [P + CHUNK_RG, 32] at goff, built by
+      ``build_groups_direct`` (subtile4).
+  B9f ``tile_eval_grouped_k2`` (``_kernel_grouped_k2``): rows256 f32
+      [r_cap/2, 256], two entries per row (lane g*32 + j*16 + c holds
+      channel c of sub-entry j), rowptr in row units, sub-entry idx =
+      2*row + j live inside the skip window; built by
+      ``build_packed_rows_grouped_k2`` (subtile5) and ``_k4`` (subtile6,
+      four-entry rows relaid to this format).
+
+  rowptr i32 [grp_cap+1]: CHUNK_RG-multiple group row ranges (in row units
+  of the layout). gdepth/gskip i32 [grp_cap*8] per-bin depth and skip.
   xl/yl f32 [grp_cap, 128]: lane l of group t covers pixel column
-  xl[t, l] - 0.5 and rows yl[t, l] + s, s = 0..7 (pixel centres at
-  xl and yl + s + 0.5).
+  xl[t, l] - 0.5 and rows yl[t, l] + s, s = 0..7 (pixel centres at xl and
+  yl + s + 0.5).
 
 Tie-breaking: bins are sorted by triangle id and the depth merge is strict
 less-than, so the smallest id wins depth ties. The plane evaluation
 (C + A*x) + B*y fuses both products, as the reference's compiler does
-(core/fp.py), in the kernel and in its plain version alike.
+(core/fp.py), in the kernels and in their plain versions alike. All
+generations give bit-identical winners on the same pair keys.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -36,9 +57,12 @@ from ascii_renderer_tpu_torch.ops.raster_subtile import (
     CH_A, CH_B, CH_G, CH_PAIR, CH_ZC, CH_ZX, CH_ZY, MAX_TRI, N_CHAN, N_SUB,
     SUB_SHIFT, SUB_W, TILE_H, TILE_W)
 
-CHUNK_RG = 32      # rows per walk slab (16 KB of shared memory in the kernel)
+CHUNK_RG = 32      # entries per bin slot per walk slab (16 KB of shared memory)
 
-launches = 0       # kernel launches by tile_eval_grouped_skip
+launches = 0          # kernel launches by tile_eval_grouped_skip (B1)
+launches_grouped = 0  # kernel launches by tile_eval_grouped (B9d)
+launches_direct = 0   # kernel launches by tile_eval_direct (B9e)
+launches_k2 = 0       # kernel launches by tile_eval_grouped_k2 (B9f)
 
 
 def _round_up_i(x, q: int):
@@ -76,63 +100,66 @@ def _pixel_origins(gbins, tiles_x: int, n_bins: int, grp_cap: int):
     return xl, yl
 
 
-def build_packed_rows_grouped_kgather(src32: torch.Tensor,
-                                      pair_key: torch.Tensor,
-                                      tiles_x: int, n_tiles: int,
-                                      r_cap: int, pair_cap: int,
-                                      grp_cap: int, k: int):
-    """Sorted pair keys -> depth-grouped walk layout, with the slot gather
-    fetching K consecutive bin entries per row from K-aligned starts and
-    relaid to the single-entry rows128 layout (bins whose CSR offset is not
-    K-aligned start mid-row; the walk masks those leading slots by gskip).
-
-    src32 f32 [Tp, >=16] walk-entry rows (channel CH_PAIR = triangle id);
-    pair_key i32 [P] sorted ``bin << SUB_SHIFT | tri``. Returns (rows128
-    [r_cap, 128], rowptr [grp_cap+1] (CHUNK_RG multiples, clamped to
-    r_cap), gdepth, gskip [grp_cap*8], xl, yl [grp_cap, 128], gbins
-    [grp_cap*8], n_rows, n_pairs, n_used) with the counts as 0-d i32
-    tensors: n_rows = true row total (vs r_cap), n_pairs = true pair count
-    (vs pair_cap), n_used = nonempty bins (vs grp_cap*8). A count over its
-    cap means work was dropped and the caller must re-render."""
-    assert k in (2, 4, 8) and CHUNK_RG % k == 0 and r_cap % CHUNK_RG == 0
-    dev = pair_key.device
-    r_capk = r_cap // k
+def _group_bins(pair_key: torch.Tensor, n_tiles: int, pair_cap: int,
+                grp_cap: int):
+    """Sorted pair keys ``bin << SUB_SHIFT | tri`` -> (tri_s, p_eff,
+    offsets [n_bins+1], gbins, gdepth [grp_cap*8], n_pairs, n_used): the
+    CSR offsets of the first p_eff = min(pair_cap, P) pairs and the bins
+    in depth-group order, sentinel-padded (bin n_bins, depth 0) when there
+    are more group slots than bins. Bins past grp_cap*8 (the shallowest)
+    are dropped; n_used > grp_cap*8 reports it."""
     n_bins = n_tiles * N_SUB
     assert n_bins < (1 << 13)  # sentinel key (n_bins << 18) must fit int32
     bin_s = pair_key >> SUB_SHIFT
     tri_s = pair_key & (MAX_TRI - 1)
-    P = pair_key.shape[0]
-    p_eff = min(pair_cap, P)
+    p_eff = min(pair_cap, pair_key.shape[0])
     offsets = _bin_offsets(bin_s, p_eff, n_bins)
     n_pairs = (bin_s < n_bins).sum(dtype=torch.int32)
     depth_bins = offsets[1:] - offsets[:-1]
     n_used = (depth_bins > 0).sum(dtype=torch.int32)
-
     binperm, dsorted = depth_group_order(depth_bins, n_bins)
     nsel = grp_cap * N_SUB
     if nsel > n_bins:  # more group slots than bins: sentinel-pad
         pad = nsel - n_bins
         binperm = torch.cat([binperm, binperm.new_full((pad,), n_bins)])
         dsorted = torch.cat([dsorted, dsorted.new_zeros((pad,))])
-    gbins = binperm[:nsel]
-    gdepth = dsorted[:nsel]
-    off_g = offsets[torch.clamp(gbins, max=n_bins).long()]
+    return (tri_s, p_eff, offsets, binperm[:nsel], dsorted[:nsel], n_pairs,
+            n_used)
+
+
+def _slot_gather(src32, pair_key, tiles_x: int, n_tiles: int, r_cap: int,
+                 pair_cap: int, grp_cap: int, k: int):
+    """The slot gather every materialised layout shares: K consecutive bin
+    entries per gathered row, from K-aligned starts in the pair-ordered
+    16-channel source. Returns (g f32 [r_cap/k*8, k*16] (gathered row q of
+    group slot s at q*8 + s), rowptr [grp_cap+1] in entries (CHUNK_RG
+    multiples, clamped to r_cap), gdepth, gskip, xl, yl, gbins, n_rows,
+    n_pairs, n_used) with n_rows the true entry-row total (vs r_cap)."""
+    assert k in (1, 2, 4, 8) and CHUNK_RG % k == 0 and r_cap % CHUNK_RG == 0
+    dev = pair_key.device
+    n_bins = n_tiles * N_SUB
+    tri_s, p_eff, offsets, gbins, gdepth, n_pairs, n_used = _group_bins(
+        pair_key, n_tiles, pair_cap, grp_cap)
+    # a sentinel slot (depth 0, never live) reads bin n_bins's offset; the
+    # single-entry layout's reference gathers from offsets[:n_bins], which
+    # clamps it to the last bin
+    last = n_bins - 1 if k == 1 else n_bins
+    off_g = offsets[torch.clamp(gbins, max=last).long()]
     gskip = torch.where(gdepth > 0, off_g % k, torch.zeros_like(off_g))
     offk = (off_g - gskip) // k          # K-aligned K-row start per bin
     rbk = (gdepth + gskip + k - 1) // k  # K-rows needed per bin
-    gmaxk = rbk.view(grp_cap, N_SUB).amax(dim=1)
-    d_pad = _round_up_i(gmaxk * k, CHUNK_RG)
+    d_pad = _round_up_i(rbk.view(grp_cap, N_SUB).amax(dim=1) * k, CHUNK_RG)
     rowptr = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
                         torch.cumsum(d_pad, 0).to(torch.int32)])
     n_rows = rowptr[-1]
 
     # group of each K-row, and its offset inside the group
     rowptrk = rowptr // k
-    rk_ids = torch.arange(r_capk, dtype=torch.int32, device=dev)
+    rk_ids = torch.arange(r_cap // k, dtype=torch.int32, device=dev)
     t_r = torch.clamp(torch.searchsorted(rowptrk[1:].contiguous(), rk_ids,
                                          right=True), max=grp_cap - 1)
     d_rk = rk_ids - rowptrk[:-1][t_r]
-    off_rows = offk.view(grp_cap, N_SUB)[t_r]          # [r_capk, 8]
+    off_rows = offk.view(grp_cap, N_SUB)[t_r]          # [r_cap/k, 8]
 
     # pair-ordered 16-channel source, K entries per k*16-lane row
     src_pair = src32[tri_s[:p_eff].long(), :N_CHAN]
@@ -142,103 +169,406 @@ def build_packed_rows_grouped_kgather(src32: torch.Tensor,
                                                             N_CHAN))])
     srckk = src_pair.view(pek // k, k * N_CHAN)
     pidx = torch.clamp(off_rows + d_rk[:, None], 0, pek // k - 1).reshape(-1)
-    g = srckk[pidx.long()]                              # [r_capk*8, k*16]
-    # K-row q, sub-entry p, slot s -> row q*k+p, slot s
-    rows128 = (g.view(r_capk, N_SUB, k, N_CHAN).transpose(1, 2)
-               .reshape(r_cap, N_SUB * N_CHAN))
-
+    g = srckk[pidx.long()]                              # [r_cap/k*8, k*16]
     xl, yl = _pixel_origins(gbins, tiles_x, n_bins, grp_cap)
-    rowptr_k = torch.clamp(rowptr, max=r_cap)
-    return (rows128, rowptr_k, gdepth, gskip, xl, yl, gbins,
+    return (g, torch.clamp(rowptr, max=r_cap), gdepth, gskip, xl, yl, gbins,
             n_rows, n_pairs, n_used)
+
+
+def build_packed_rows_grouped(src32: torch.Tensor, pair_key: torch.Tensor,
+                              tiles_x: int, n_tiles: int, r_cap: int,
+                              pair_cap: int, grp_cap: int):
+    """Sorted pair keys -> the single-entry grouped layout (subtile3).
+
+    src32 f32 [Tp, >=16] walk-entry rows (only channels :16 are read, so
+    the 16-wide rows of ``setup_2dh_fused_packed`` serve too); pair_key
+    i32 [P] sorted ``bin << SUB_SHIFT | tri``. Returns (rows128 [r_cap,
+    128], rowptr [grp_cap+1], gdepth [grp_cap*8], xl, yl [grp_cap, 128],
+    gbins [grp_cap*8], n_rows, n_pairs, n_used), the counts as 0-d i32
+    tensors: n_rows = true row total (vs r_cap), n_pairs = true pair count
+    (vs pair_cap), n_used = nonempty bins (vs grp_cap*8). A count over its
+    cap means work was dropped and the caller must re-render."""
+    g, rowptr, gdepth, _gskip, xl, yl, gbins, n_rows, n_pairs, n_used = \
+        _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
+                     grp_cap, 1)
+    return (g.view(r_cap, N_SUB * N_CHAN), rowptr, gdepth, xl, yl, gbins,
+            n_rows, n_pairs, n_used)
+
+
+def build_packed_rows_grouped_kgather(src32: torch.Tensor,
+                                      pair_key: torch.Tensor,
+                                      tiles_x: int, n_tiles: int,
+                                      r_cap: int, pair_cap: int,
+                                      grp_cap: int, k: int):
+    """The K-entry slot gather (subtile7: K = 4, subtile8: K = 8) relaid to
+    the single-entry rows128 layout (bins whose CSR offset is not K-aligned
+    start mid-row; the walk masks those leading slots by gskip).
+
+    Returns (rows128 [r_cap, 128], rowptr [grp_cap+1] (CHUNK_RG multiples,
+    clamped to r_cap), gdepth, gskip [grp_cap*8], xl, yl [grp_cap, 128],
+    gbins [grp_cap*8], n_rows, n_pairs, n_used), as
+    ``build_packed_rows_grouped`` plus gskip."""
+    assert k in (2, 4, 8)
+    g, *rest = _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap,
+                            pair_cap, grp_cap, k)
+    # K-row q, sub-entry p, slot s -> row q*k+p, slot s
+    rows128 = (g.view(r_cap // k, N_SUB, k, N_CHAN).transpose(1, 2)
+               .reshape(r_cap, N_SUB * N_CHAN))
+    return (rows128, *rest)
+
+
+def _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
+                   grp_cap, k):
+    g, rowptr, *rest = _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap,
+                                    pair_cap, grp_cap, k)
+    # K4 row q, half p, slot s -> K2 row 2q+p, slot s (K2: the identity)
+    rows256 = (g.view(r_cap // k, N_SUB, k // 2, 2 * N_CHAN).transpose(1, 2)
+               .reshape(r_cap // 2, N_SUB * 2 * N_CHAN))
+    return (rows256, rowptr // 2, *rest)
+
+
+def build_packed_rows_grouped_k2(src32: torch.Tensor, pair_key: torch.Tensor,
+                                 tiles_x: int, n_tiles: int, r_cap: int,
+                                 pair_cap: int, grp_cap: int):
+    """The two-entry-row layout of the K2 walk (subtile5): the slot gather
+    fetches two consecutive bin entries per row; a bin whose CSR offset is
+    odd starts mid-row (gskip = 1).
+
+    Returns (rows256 [r_cap/2, 256], rowptr [grp_cap+1] in row units
+    (CHUNK_RG/2 multiples), gdepth, gskip [grp_cap*8], xl, yl, gbins,
+    n_rows, n_pairs, n_used) with n_rows in ENTRY units, compared against
+    the same r_cap as the single-entry walk."""
+    return _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
+                          grp_cap, 2)
+
+
+def build_packed_rows_grouped_k4(src32: torch.Tensor, pair_key: torch.Tensor,
+                                 tiles_x: int, n_tiles: int, r_cap: int,
+                                 pair_cap: int, grp_cap: int):
+    """Four entries per gathered row relaid to the K2 row format by one
+    permutation (subtile6): gskip in [0, 3]. Same tuple as
+    ``build_packed_rows_grouped_k2``."""
+    return _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
+                          grp_cap, 4)
+
+
+def build_groups_direct(src32: torch.Tensor, pair_key: torch.Tensor,
+                        tiles_x: int, n_tiles: int, pair_cap: int,
+                        grp_cap: int):
+    """Grouping for the direct walk (subtile4): no layout is materialised,
+    only the pair-ordered source and per-bin (offset, depth) in depth-group
+    order.
+
+    src32 f32 [Tp, 32]. Returns (src_pair [p_eff + CHUNK_RG, 32] (zero
+    rows past p_eff, the walk's clamped reads land there), goff, gdepth
+    [grp_cap*8], gchunks [grp_cap] (ceil(group max depth / CHUNK_RG)), xl,
+    yl [grp_cap, 128], gbins [grp_cap*8], n_rows, n_pairs, n_used) with
+    n_rows = gchunks.sum() * CHUNK_RG, the walk's slot count (there is no
+    r_cap to overflow)."""
+    n_bins = n_tiles * N_SUB
+    tri_s, p_eff, offsets, gbins, gdepth, n_pairs, n_used = _group_bins(
+        pair_key, n_tiles, pair_cap, grp_cap)
+    gchunks = (gdepth[0::N_SUB] + CHUNK_RG - 1) // CHUNK_RG
+    n_rows = (gchunks * CHUNK_RG).sum(dtype=torch.int32)
+    goff = offsets[torch.clamp(gbins, max=n_bins - 1).long()]
+    src_pair = torch.cat([src32[tri_s[:p_eff].long()],
+                          src32.new_zeros((CHUNK_RG, src32.shape[1]))])
+    xl, yl = _pixel_origins(gbins, tiles_x, n_bins, grp_cap)
+    return (src_pair, goff, gdepth, gchunks, xl, yl, gbins, n_rows, n_pairs,
+            n_used)
+
+
+# --------------------------------------------------------------------------
+# Plain-torch versions of the walks
+# --------------------------------------------------------------------------
+_REF_BATCH = 32   # groups per step of the plain walks (bounds their memory)
+
+
+def _walk_ref(fetch, nsteps: torch.Tensor, gdepth, gskip, xl, yl,
+              grp_cap: int):
+    """The walks' shared body. Group t takes nsteps[t] steps (a CHUNK_RG
+    multiple); step i tests entry idx = i of each slot, chunk c of groups
+    gi being ``fetch(gi, c)`` -> [len(gi), CHUNK_RG, 8, 16] entry channels.
+    A pixel keeps the first live covering entry of least z: inside a chunk
+    the least index attaining the chunk's minimum, across chunks a strict
+    less-than, which is the kernels' entry-by-entry strict merge. Groups
+    run in batches ordered by step count, so the live ones are a prefix."""
+    dev = xl.device
+    inf = float("inf")
+    order = torch.sort(nsteps, descending=True, stable=True).indices
+    counts = (nsteps[order] // CHUNK_RG).tolist()
+    zb = torch.full((grp_cap, TILE_H, N_SUB, SUB_W), inf, device=dev)
+    eb = torch.full((grp_cap, TILE_H, N_SUB, SUB_W), -1.0, device=dev)
+    r_iota = torch.arange(CHUNK_RG, device=dev).view(1, CHUNK_RG, 1, 1, 1)
+    # [group, 1, row, slot, lane] pixel centres
+    xs_all = xl.view(grp_cap, 1, 1, N_SUB, SUB_W)
+    ys_all = ((torch.arange(TILE_H, dtype=torch.float32, device=dev) + 0.5)
+              [None, None, :, None, None]
+              + yl.view(grp_cap, 1, 1, N_SUB, SUB_W))
+    dep_all = gdepth.view(grp_cap, 1, 1, N_SUB, 1)
+    skp_all = gskip.view(grp_cap, 1, 1, N_SUB, 1)
+    n_live = len(counts)
+    for c in range(counts[0] if counts else 0):
+        while n_live and counts[n_live - 1] <= c:
+            n_live -= 1
+        for b in range(0, n_live, _REF_BATCH):
+            gi = order[b:min(b + _REF_BATCH, n_live)]
+            # [group, entry, 1, slot, channel]
+            ent = fetch(gi, c)[:, :, None]
+            xs, ys = xs_all[gi], ys_all[gi]
+
+            def plane(ca, cb, cc):  # (C + A*x) + B*y, both products fused
+                return fma32(ent[..., cb:cb + 1], ys,
+                             fma32(ent[..., ca:ca + 1], xs,
+                                   ent[..., cc:cc + 1]))
+
+            ok = (plane(CH_A[0], CH_B[0], CH_G[0]) <= 0.0)
+            ok &= plane(CH_A[1], CH_B[1], CH_G[1]) <= 0.0
+            ok &= plane(CH_A[2], CH_B[2], CH_G[2]) <= 0.0
+            z = plane(CH_ZX, CH_ZY, CH_ZC)
+            ok &= (z >= 0.0) & (z <= 1.0)
+            idx = c * CHUNK_RG + r_iota
+            skp = skp_all[gi]
+            ok &= (idx >= skp) & (idx < skp + dep_all[gi])
+            zm = torch.where(ok, z, inf)           # [g, entry, row, slot, lane]
+            first = torch.where(zm == zm.amin(dim=1, keepdim=True), r_iota,
+                                CHUNK_RG).amin(dim=1, keepdim=True)
+            first = torch.clamp(first, max=CHUNK_RG - 1)  # all-inf: entry 0
+            zc = zm.gather(1, first)[:, 0]
+            ec = ent[..., CH_PAIR:CH_PAIR + 1].expand(zm.shape).gather(
+                1, first)[:, 0]
+            zg = zb[gi]
+            better = zc < zg  # strict: earlier (smaller tri id) wins ties
+            zb[gi] = torch.where(better, zc, zg)
+            eb[gi] = torch.where(better, ec, eb[gi])
+    return (zb.view(grp_cap, TILE_H, TILE_W), eb.view(grp_cap, TILE_H, TILE_W))
 
 
 def tile_eval_grouped_skip_ref(rows128: torch.Tensor, rowptr: torch.Tensor,
                                gdepth: torch.Tensor, gskip: torch.Tensor,
                                xl: torch.Tensor, yl: torch.Tensor,
                                grp_cap: int):
-    """Plain-torch version of ``tile_eval_grouped_skip``: one step per
-    group row index, vectorised over the groups that still have rows
-    (groups ordered by row count, so the live ones are a prefix)."""
-    dev = rows128.device
+    """Plain-torch version of ``tile_eval_grouped_skip``: chunk c of group
+    t reads rows min(rowptr[t] + c*CHUNK_RG, r_cap - CHUNK_RG) + r."""
     r_cap = rows128.shape[0]
-    inf = float("inf")
     rp = torch.clamp(rowptr.long(), 0, r_cap)
     r0 = rp[:-1]
-    nrows = ((rp[1:] - r0) // CHUNK_RG) * CHUNK_RG
-    order = torch.sort(nrows, descending=True, stable=True).indices
-    counts = nrows[order].tolist()
-    zb = torch.full((grp_cap, TILE_H, N_SUB, SUB_W), inf, device=dev)
-    eb = torch.full((grp_cap, TILE_H, N_SUB, SUB_W), -1.0, device=dev)
-    xs_all = xl.view(grp_cap, 1, N_SUB, SUB_W)
-    ys_all = ((torch.arange(TILE_H, dtype=torch.float32, device=dev) + 0.5)
-              [None, :, None, None] + yl.view(grp_cap, 1, N_SUB, SUB_W))
-    dep_all = gdepth.view(grp_cap, 1, N_SUB, 1)
-    skp_all = gskip.view(grp_cap, 1, N_SUB, 1)
-    n_live = len(counts)
-    for i in range(counts[0] if counts else 0):
-        while n_live and counts[n_live - 1] <= i:
-            n_live -= 1
-        gi = order[:n_live]
-        c, r = divmod(i, CHUNK_RG)
-        row = torch.clamp(r0[gi] + c * CHUNK_RG, max=r_cap - CHUNK_RG) + r
-        ent = rows128[row].view(n_live, 1, N_SUB, N_CHAN)
-        xs, ys = xs_all[gi], ys_all[gi]
+    r_off = torch.arange(CHUNK_RG, device=rows128.device)
 
-        def plane(ca, cb, cc):  # (C + A*x) + B*y, both products fused
-            return fma32(ent[..., cb:cb + 1], ys,
-                         fma32(ent[..., ca:ca + 1], xs, ent[..., cc:cc + 1]))
+    def fetch(gi, c):
+        start = torch.clamp(r0[gi] + c * CHUNK_RG, max=r_cap - CHUNK_RG)
+        return rows128[start[:, None] + r_off].view(-1, CHUNK_RG, N_SUB,
+                                                    N_CHAN)
 
-        ok = (plane(CH_A[0], CH_B[0], CH_G[0]) <= 0.0)
-        ok &= plane(CH_A[1], CH_B[1], CH_G[1]) <= 0.0
-        ok &= plane(CH_A[2], CH_B[2], CH_G[2]) <= 0.0
-        z = plane(CH_ZX, CH_ZY, CH_ZC)
-        ok &= (z >= 0.0) & (z <= 1.0)
-        skp = skp_all[gi]
-        ok &= (i >= skp) & (i < skp + dep_all[gi])
-        zm = torch.where(ok, z, inf)
-        zg = zb[gi]
-        better = zm < zg  # strict: earlier (smaller tri id) wins ties
-        zb[gi] = torch.where(better, zm, zg)
-        eb[gi] = torch.where(better, ent[..., CH_PAIR:CH_PAIR + 1], eb[gi])
-    return (zb.view(grp_cap, TILE_H, TILE_W), eb.view(grp_cap, TILE_H, TILE_W))
+    return _walk_ref(fetch, ((rp[1:] - r0) // CHUNK_RG) * CHUNK_RG, gdepth,
+                     gskip, xl, yl, grp_cap)
+
+
+def tile_eval_grouped_ref(rows128: torch.Tensor, rowptr: torch.Tensor,
+                          gdepth: torch.Tensor, xl: torch.Tensor,
+                          yl: torch.Tensor, grp_cap: int):
+    """Plain-torch version of ``tile_eval_grouped``: the skip walk with
+    every skip 0 (idx >= 0 always holds)."""
+    return tile_eval_grouped_skip_ref(rows128, rowptr, gdepth,
+                                      torch.zeros_like(gdepth), xl, yl,
+                                      grp_cap)
+
+
+def tile_eval_grouped_k2_ref(rows256: torch.Tensor, rowptr: torch.Tensor,
+                             gdepth: torch.Tensor, gskip: torch.Tensor,
+                             xl: torch.Tensor, yl: torch.Tensor,
+                             grp_cap: int):
+    """Plain-torch version of ``tile_eval_grouped_k2``: row q, sub-entry j
+    relaid to single-entry row 2q + j, and the skip walk over it (the
+    K2 slab start min(r0 + c*16, r_cap/2 - 16) is half of the relaid one,
+    and the visit order 2r + j is the relaid row order)."""
+    r_cap2 = rows256.shape[0]
+    rows128 = (rows256.view(r_cap2, N_SUB, 2, N_CHAN).transpose(1, 2)
+               .reshape(2 * r_cap2, N_SUB * N_CHAN))
+    return tile_eval_grouped_skip_ref(rows128, torch.clamp(rowptr, 0, r_cap2)
+                                      * 2, gdepth, gskip, xl, yl, grp_cap)
+
+
+def tile_eval_direct_ref(src_pair: torch.Tensor, goff: torch.Tensor,
+                         gdepth: torch.Tensor, gchunks: torch.Tensor,
+                         xl: torch.Tensor, yl: torch.Tensor, grp_cap: int):
+    """Plain-torch version of ``tile_eval_direct``: chunk c of slot g reads
+    src_pair rows min(goff + c*CHUNK_RG, p_max) + r, p_max = rows -
+    CHUNK_RG; entry idx live iff idx < gdepth."""
+    p_max = src_pair.shape[0] - CHUNK_RG
+    goff2 = torch.clamp(goff.long(), min=0).view(grp_cap, N_SUB)
+    r_off = torch.arange(CHUNK_RG, device=src_pair.device)[None, :, None]
+
+    def fetch(gi, c):
+        start = torch.clamp(goff2[gi] + c * CHUNK_RG, max=p_max)
+        return src_pair[start[:, None, :] + r_off, :N_CHAN]
+
+    return _walk_ref(fetch, gchunks.long() * CHUNK_RG, gdepth,
+                     torch.zeros_like(gdepth), xl, yl, grp_cap)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers: CPU tensors run the plain version, CUDA tensors launch
+# --------------------------------------------------------------------------
+def _check(what: str, grp_cap: int, data, data_shape, ints: dict, xl, yl):
+    if (tuple(data.shape) != data_shape or xl.shape != (grp_cap, TILE_W)
+            or yl.shape != (grp_cap, TILE_W)
+            or any(t.shape != (n,) for n, t in ints.values())):
+        raise ValueError(f"{what}: bad shapes")
+    if (data.dtype != torch.float32 or xl.dtype != torch.float32
+            or yl.dtype != torch.float32
+            or any(t.dtype != torch.int32 for _n, t in ints.values())):
+        raise ValueError(f"{what}: bad dtypes")
+
+
+def _launch(name: str, tensors, n: int, grp_cap: int):
+    """Launch walk ``name`` (C entry ``walk_{name}_launch``) over grp_cap
+    groups, one block of 1,024 threads each: (z, entry id) f32
+    [grp_cap, 8, 128]."""
+    _build.require_cuda(*tensors, what=f"walk {name}")
+    z = torch.empty((grp_cap, TILE_H, TILE_W), dtype=torch.float32,
+                    device=tensors[0].device)
+    e = torch.empty_like(z)
+    err = getattr(_build.lib(), f"walk_{name}_launch")(
+        *[t.data_ptr() for t in tensors], z.data_ptr(), e.data_ptr(), n,
+        grp_cap, _build.stream_ptr(z.device))
+    _build.check(err, f"walk_{name}_launch")
+    return z, e
 
 
 def tile_eval_grouped_skip(rows128: torch.Tensor, rowptr: torch.Tensor,
                            gdepth: torch.Tensor, gskip: torch.Tensor,
                            xl: torch.Tensor, yl: torch.Tensor, grp_cap: int):
-    """rows128 f32 [r_cap, 128] grouped layout -> (z, entry id) f32
-    [grp_cap, 8, 128] per group (lane group g = bin gbins[t*8+g]); id -1 =
-    background. CPU tensors run the plain version; CUDA tensors launch the
-    kernel (one block of 1024 threads per group)."""
+    """B1: rows128 f32 [r_cap, 128] grouped layout with skip window ->
+    (z, entry id) f32 [grp_cap, 8, 128] per group (lane group g = bin
+    gbins[t*8+g]); id -1 = background."""
     if rows128.device.type == "cpu":
         return tile_eval_grouped_skip_ref(rows128, rowptr, gdepth, gskip,
                                           xl, yl, grp_cap)
     global launches
     r_cap = rows128.shape[0]
-    if (rows128.shape[1:] != (TILE_W,) or r_cap % CHUNK_RG or r_cap == 0
-            or rowptr.shape != (grp_cap + 1,)
-            or gdepth.shape != (grp_cap * N_SUB,)
-            or gskip.shape != (grp_cap * N_SUB,)
-            or xl.shape != (grp_cap, TILE_W) or yl.shape != (grp_cap, TILE_W)):
-        raise ValueError("tile_eval_grouped_skip: bad shapes")
-    if (rows128.dtype != torch.float32 or xl.dtype != torch.float32
-            or yl.dtype != torch.float32 or rowptr.dtype != torch.int32
-            or gdepth.dtype != torch.int32 or gskip.dtype != torch.int32):
-        raise ValueError("tile_eval_grouped_skip: bad dtypes")
+    if r_cap % CHUNK_RG or r_cap == 0:
+        raise ValueError("tile_eval_grouped_skip: r_cap must be a positive "
+                         "CHUNK_RG multiple")
+    _check("tile_eval_grouped_skip", grp_cap, rows128, (r_cap, TILE_W),
+           {"rowptr": (grp_cap + 1, rowptr),
+            "gdepth": (grp_cap * N_SUB, gdepth),
+            "gskip": (grp_cap * N_SUB, gskip)}, xl, yl)
     rowptr = torch.clamp(rowptr, 0, r_cap)  # the walk never reads past r_cap
-    _build.require_cuda(rows128, rowptr, gdepth, gskip, xl, yl,
-                        what="tile_eval_grouped_skip")
-    z = torch.empty((grp_cap, TILE_H, TILE_W), dtype=torch.float32,
-                    device=rows128.device)
-    e = torch.empty_like(z)
-    err = _build.lib().walk_grouped_skip_launch(
-        rows128.data_ptr(), rowptr.data_ptr(), gdepth.data_ptr(),
-        gskip.data_ptr(), xl.data_ptr(), yl.data_ptr(), z.data_ptr(),
-        e.data_ptr(), r_cap, grp_cap, _build.stream_ptr(rows128.device))
+    out = _launch("grouped_skip", (rows128, rowptr, gdepth, gskip, xl, yl),
+                  r_cap, grp_cap)
     launches += 1
-    _build.check(err, "walk_grouped_skip_launch")
-    return z, e
+    return out
+
+
+def tile_eval_grouped(rows128: torch.Tensor, rowptr: torch.Tensor,
+                      gdepth: torch.Tensor, xl: torch.Tensor,
+                      yl: torch.Tensor, grp_cap: int):
+    """B9d: the single-entry grouped walk (no skip window) over
+    ``build_packed_rows_grouped``'s layout -> (z, entry id) f32
+    [grp_cap, 8, 128]."""
+    if rows128.device.type == "cpu":
+        return tile_eval_grouped_ref(rows128, rowptr, gdepth, xl, yl,
+                                     grp_cap)
+    global launches_grouped
+    r_cap = rows128.shape[0]
+    if r_cap % CHUNK_RG or r_cap == 0:
+        raise ValueError("tile_eval_grouped: r_cap must be a positive "
+                         "CHUNK_RG multiple")
+    _check("tile_eval_grouped", grp_cap, rows128, (r_cap, TILE_W),
+           {"rowptr": (grp_cap + 1, rowptr),
+            "gdepth": (grp_cap * N_SUB, gdepth)}, xl, yl)
+    rowptr = torch.clamp(rowptr, 0, r_cap)
+    out = _launch("grouped", (rows128, rowptr, gdepth, xl, yl), r_cap,
+                  grp_cap)
+    launches_grouped += 1
+    return out
+
+
+def tile_eval_grouped_k2(rows256: torch.Tensor, rowptr: torch.Tensor,
+                         gdepth: torch.Tensor, gskip: torch.Tensor,
+                         xl: torch.Tensor, yl: torch.Tensor, grp_cap: int):
+    """B9f: the two-entry-row walk over rows256 f32 [r_cap/2, 256] (rowptr
+    in row units, CHUNK_RG/2 multiples) -> (z, entry id) f32
+    [grp_cap, 8, 128]."""
+    if rows256.device.type == "cpu":
+        return tile_eval_grouped_k2_ref(rows256, rowptr, gdepth, gskip, xl,
+                                        yl, grp_cap)
+    global launches_k2
+    r_cap2 = rows256.shape[0]
+    if r_cap2 % (CHUNK_RG // 2) or r_cap2 == 0:
+        raise ValueError("tile_eval_grouped_k2: rows must be a positive "
+                         "CHUNK_RG/2 multiple")
+    _check("tile_eval_grouped_k2", grp_cap, rows256, (r_cap2, 2 * TILE_W),
+           {"rowptr": (grp_cap + 1, rowptr),
+            "gdepth": (grp_cap * N_SUB, gdepth),
+            "gskip": (grp_cap * N_SUB, gskip)}, xl, yl)
+    rowptr = torch.clamp(rowptr, 0, r_cap2)
+    out = _launch("grouped_k2", (rows256, rowptr, gdepth, gskip, xl, yl),
+                  r_cap2, grp_cap)
+    launches_k2 += 1
+    return out
+
+
+def tile_eval_direct(src_pair: torch.Tensor, goff: torch.Tensor,
+                     gdepth: torch.Tensor, gchunks: torch.Tensor,
+                     xl: torch.Tensor, yl: torch.Tensor, grp_cap: int):
+    """B9e: the direct walk, each bin read straight from the pair-ordered
+    table src_pair f32 [P_pad, 32] (reads clamped to start <= P_pad -
+    CHUNK_RG) -> (z, entry id) f32 [grp_cap, 8, 128]; equal to
+    ``tile_eval_grouped`` on the same grouping."""
+    if src_pair.device.type == "cpu":
+        return tile_eval_direct_ref(src_pair, goff, gdepth, gchunks, xl, yl,
+                                    grp_cap)
+    global launches_direct
+    p_pad = src_pair.shape[0]
+    if p_pad < CHUNK_RG:
+        raise ValueError("tile_eval_direct: src_pair needs >= CHUNK_RG rows")
+    _check("tile_eval_direct", grp_cap, src_pair, (p_pad, 32),
+           {"goff": (grp_cap * N_SUB, goff),
+            "gdepth": (grp_cap * N_SUB, gdepth),
+            "gchunks": (grp_cap, gchunks)}, xl, yl)
+    goff = torch.clamp(goff, min=0)  # the walk never reads before row 0
+    out = _launch("direct", (src_pair, goff, gdepth, gchunks, xl, yl),
+                  p_pad - CHUNK_RG, grp_cap)
+    launches_direct += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# The grouped generations: the layout each builds and the walk that reads it
+# --------------------------------------------------------------------------
+class Generation(NamedTuple):
+    """A grouped generation's layout builder, called as ``build(src, pair_key,
+    tiles_x, n_tiles, r_cap, pair_cap, grp_cap)``, its walk's kernel wrapper
+    and that walk's plain version. Every layout tuple ends (xl, yl, gbins,
+    n_rows, n_pairs, n_used) and the walk takes all of it but the last four
+    items: ``walk(*lay[:-4], grp_cap)``."""
+    build: Callable
+    walk: Callable
+    walk_ref: Callable
+
+
+def _build_direct(src32, pair_key, tiles_x, n_tiles, _r_cap, pair_cap,
+                  grp_cap):
+    return build_groups_direct(src32, pair_key, tiles_x, n_tiles, pair_cap,
+                               grp_cap)
+
+
+_KGATHER_WALK = (tile_eval_grouped_skip, tile_eval_grouped_skip_ref)
+_K2_WALK = (tile_eval_grouped_k2, tile_eval_grouped_k2_ref)
+GENERATIONS = {
+    "subtile3": Generation(build_packed_rows_grouped, tile_eval_grouped,
+                           tile_eval_grouped_ref),                    # B9d
+    "subtile4": Generation(_build_direct, tile_eval_direct,
+                           tile_eval_direct_ref),                     # B9e
+    "subtile5": Generation(build_packed_rows_grouped_k2, *_K2_WALK),  # B9f
+    "subtile6": Generation(build_packed_rows_grouped_k4, *_K2_WALK),  # B9f
+    "subtile7": Generation(functools.partial(
+        build_packed_rows_grouped_kgather, k=4), *_KGATHER_WALK),    # B1
+    "subtile8": Generation(functools.partial(
+        build_packed_rows_grouped_kgather, k=8), *_KGATHER_WALK),    # B1
+}
 
 
 def assemble_group_image(vals: torch.Tensor, gbins: torch.Tensor,

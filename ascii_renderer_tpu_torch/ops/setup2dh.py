@@ -1,6 +1,8 @@
-"""2-D homogeneous triangle setup: the CUDA kernel ``csrc/setup2dh.cu``
-(replaces the Pallas ``ascii_renderer_tpu/ops/setup2dh.py:_setup_kernel``)
-and its plain-torch version.
+"""2-D homogeneous triangle setup: the CUDA kernels of ``csrc/setup2dh.cu``
+and their plain-torch versions. ``setup_2dh_fused`` replaces the Pallas
+``ascii_renderer_tpu/ops/setup2dh.py:_setup_kernel`` (B2);
+``setup_2dh_fused_packed`` replaces ``_setup_kernel_packed`` (B10), the
+same setup with the pack transpose (ops/pack, B3) fused into its stores.
 
   in : pos9 f32 [9, T], attrs_t f32 [3A, T], mvp f32 [4, 4]
   out: cm f32 [16+3A+3, Tp/128, 128] channel-major, rows =
@@ -9,14 +11,18 @@ and its plain-torch version.
        13..15  zeros (entry-row padding)
        16..    shade planes p{j}{a,b,c} + dna, dnb, dnc
        bbox    dict of [Tp] channels bx0/bx1/by0/by1 + bool valid
+  or (B10): bbox, src16 f32 [Tp, 16] = cm rows 0..15 and table f32
+       [Tp, tw] = cm rows 16.. with zero columns up to tw, row-major.
 Tp is T padded to a multiple of 1024; pad slots are all-zero triangles,
 which never validate, and carry ids >= T.
 
 Every plane is one float32 chain in the JAX order
 (``ascii_renderer_tpu/backends/raster.py:setup_2dh``), with the products
 fused where the reference's compiler fuses them (core/fp.py) and IEEE
-division: the kernel (explicit ``fmaf``, built with ``-fmad=false``) equals
-the plain version bit for bit, and both equal the JAX setup.
+division: the kernels (explicit ``fmaf``, built with ``-fmad=false``, one
+shared per-triangle function) equal the plain version bit for bit, and
+both equal the JAX setup. B10's row-major stores keep the sign of a zero,
+which the reference's MXU transpose folds into +0.0.
 """
 
 from __future__ import annotations
@@ -27,11 +33,15 @@ import torch
 
 from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.ops import _build
+from ascii_renderer_tpu_torch.ops.pack import pack_channels_split_blocked_ref
 
 BT = 1024           # triangles per padding quantum
 EPS_W = 1e-4        # near-guard for projections used only by binning bboxes
+MAX_ATTRS = 9       # attributes the kernels take: normal, color, world pos
+MAX_TW = 32         # widest shade row of setup_2dh_fused_packed's kernel
 
-launches = 0        # kernel launches by setup_2dh_fused (not by the ref)
+launches = 0         # kernel launches by setup_2dh_fused (B2)
+launches_packed = 0  # kernel launches by setup_2dh_fused_packed (B10)
 
 
 def n_channels(n_attrs: int) -> int:
@@ -146,11 +156,15 @@ def _plane_keys(n_attrs: int):
             + ["dna", "dnb", "dnc"])
 
 
+def _bbox(rows5: torch.Tensor) -> dict:
+    """[5, Tp] bx0/bx1/by0/by1/valid rows -> the bbox dict."""
+    return {"bx0": rows5[0], "bx1": rows5[1], "by0": rows5[2],
+            "by1": rows5[3], "valid": rows5[4] > 0.5}
+
+
 def _split(out: torch.Tensor, n_g: int):
     tp = out.shape[1]
-    bbox = {"bx0": out[n_g], "bx1": out[n_g + 1], "by0": out[n_g + 2],
-            "by1": out[n_g + 3], "valid": out[n_g + 4] > 0.5}
-    return out[:n_g].view(n_g, tp // 128, 128), bbox
+    return out[:n_g].view(n_g, tp // 128, 128), _bbox(out[n_g:])
 
 
 def setup_2dh_fused_ref(pos9: torch.Tensor, attrs_t: torch.Tensor,
@@ -174,33 +188,83 @@ def setup_2dh_fused_ref(pos9: torch.Tensor, attrs_t: torch.Tensor,
     return _split(out, n_channels(A))
 
 
+def setup_2dh_fused_packed_ref(pos9: torch.Tensor, attrs_t: torch.Tensor,
+                               mvp: torch.Tensor, rows: int, cols: int,
+                               tw: int):
+    """Plain-torch version of ``setup_2dh_fused_packed``: the setup, then
+    the exact transpose of its two row spans."""
+    cm, bbox = setup_2dh_fused_ref(pos9, attrs_t, mvp, rows, cols)
+    src16, table = pack_channels_split_blocked_ref(cm, [(0, 16),
+                                                        (16, 16 + tw)])
+    return bbox, src16, table
+
+
+def _checked(pos9, attrs_t, mvp, what: str):
+    """Validate the kernels' inputs; returns (T, A, Tp, mvp as 16 host
+    floats)."""
+    _build.require_cuda(pos9, attrs_t, what=what)
+    if pos9.dtype != torch.float32 or attrs_t.dtype != torch.float32:
+        raise ValueError(f"{what}: expected float32 inputs")
+    A3, T = attrs_t.shape
+    if (pos9.shape != (9, T) or A3 % 3 != 0 or A3 > 3 * MAX_ATTRS
+            or tuple(mvp.shape) != (4, 4)):
+        raise ValueError(f"{what}: bad shapes {tuple(pos9.shape)} "
+                         f"{tuple(attrs_t.shape)} {tuple(mvp.shape)}")
+    m16 = (ctypes.c_float * 16)(*mvp.detach().cpu().to(torch.float32)
+                                .reshape(-1).tolist())
+    return T, A3 // 3, -(-T // BT) * BT, m16
+
+
 def setup_2dh_fused(pos9: torch.Tensor, attrs_t: torch.Tensor,
                     mvp: torch.Tensor, rows: int, cols: int):
-    """(pos9 [9, T], attrs_t [3A, T], mvp [4,4]) -> (cm f32 [16+3A+3,
+    """B2: (pos9 [9, T], attrs_t [3A, T], mvp [4,4]) -> (cm f32 [16+3A+3,
     Tp/128, 128], bbox dict of [Tp] channels bx0/bx1/by0/by1/valid).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (one thread per triangle). The mvp is read on the host and passed to
-    the kernel by value."""
+    (one thread per triangle, A <= 9). The mvp is read on the host and
+    passed to the kernel by value."""
     if pos9.device.type == "cpu":
         return setup_2dh_fused_ref(pos9, attrs_t, mvp, rows, cols)
     global launches
-    _build.require_cuda(pos9, attrs_t, what="setup_2dh_fused")
-    if pos9.dtype != torch.float32 or attrs_t.dtype != torch.float32:
-        raise ValueError("setup_2dh_fused: expected float32 inputs")
-    A3, T = attrs_t.shape
-    if pos9.shape != (9, T) or A3 % 3 != 0 or tuple(mvp.shape) != (4, 4):
-        raise ValueError(f"setup_2dh_fused: bad shapes {tuple(pos9.shape)} "
-                         f"{tuple(attrs_t.shape)} {tuple(mvp.shape)}")
-    A = A3 // 3
-    tp = -(-T // BT) * BT
+    T, A, tp, m16 = _checked(pos9, attrs_t, mvp, "setup_2dh_fused")
     n_g = n_channels(A)
     out = torch.empty((n_g + 5, tp), dtype=torch.float32, device=pos9.device)
-    m16 = (ctypes.c_float * 16)(*mvp.detach().cpu().to(torch.float32)
-                                .reshape(-1).tolist())
     err = _build.lib().setup2dh_launch(
         pos9.data_ptr(), attrs_t.data_ptr(), m16, out.data_ptr(), T, tp, A,
         rows, cols, _build.stream_ptr(pos9.device))
     launches += 1
     _build.check(err, "setup2dh_launch")
     return _split(out, n_g)
+
+
+def setup_2dh_fused_packed(pos9: torch.Tensor, attrs_t: torch.Tensor,
+                           mvp: torch.Tensor, rows: int, cols: int, tw: int):
+    """B10: fused setup + pack -> (bbox dict of [Tp] channels, src16 f32
+    [Tp, 16] walk entry rows, table f32 [Tp, tw] shade rows, zero past
+    3A+3); the channel-major block never exists. Equal bit for bit to
+    ``setup_2dh_fused`` followed by ``pack_channels_split_blocked`` over
+    spans (0, 16), (16, 16 + tw).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (one thread per triangle; tw a multiple of 4, 3A+3 <= tw <= 32)."""
+    A = attrs_t.shape[0] // 3
+    if tw < 3 * A + 3:
+        raise ValueError(f"setup_2dh_fused_packed: tw {tw} < 3A+3")
+    if pos9.device.type == "cpu":
+        return setup_2dh_fused_packed_ref(pos9, attrs_t, mvp, rows, cols, tw)
+    global launches_packed
+    T, A, tp, m16 = _checked(pos9, attrs_t, mvp, "setup_2dh_fused_packed")
+    if tw % 4 or tw > MAX_TW:
+        raise ValueError(f"setup_2dh_fused_packed: tw {tw} must be a "
+                         f"multiple of 4 up to {MAX_TW}")
+    dev = pos9.device
+    bb = torch.empty((5, tp), dtype=torch.float32, device=dev)
+    src16 = torch.empty((tp, 16), dtype=torch.float32, device=dev)
+    table = torch.empty((tp, tw), dtype=torch.float32, device=dev)
+    err = _build.lib().setup2dh_packed_launch(
+        pos9.data_ptr(), attrs_t.data_ptr(), m16, bb.data_ptr(),
+        src16.data_ptr(), table.data_ptr(), T, tp, A, tw, rows, cols,
+        _build.stream_ptr(dev))
+    launches_packed += 1
+    _build.check(err, "setup2dh_packed_launch")
+    return _bbox(bb), src16, table

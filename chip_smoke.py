@@ -35,13 +35,26 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      ties: z and winner ids exactly equal;
    - the plane-table packs B7 (pack_channels) and B7' (pack_channels_split)
      at the teapot's and the HD arm's table widths and lengths, and B7' at
-     the reference's exactness shape [40, 69632]: bit-exact.
+     the reference's exactness shape [40, 69632]: bit-exact;
+   - the grouped generations' kernels on the inputs of the golden call's
+     bunny frame (render_soup(method=g) at the caps of
+     tests/test_headline_goldens.py:49-52) and on a random 48x96 soup at
+     generous and overflowing caps (odd CSR offsets, clamped slab starts):
+     the walks B9d (subtile3), B9e (subtile4) and B9f (subtile5's K2 and
+     subtile6's K4 layouts) z and ids bit for bit; the fused setup+pack
+     B10 bit for bit against its plain version and against B2 then B3
+     (sign of zero included), and timed beside B2 + B3; B7 at the wide
+     pack of subtile3 / subtile4.
 4. Drives each main path as a user would, every launch count set to 0
    just before the path and read just after:
    - raster: RasterBackend.set_soup(bunny), render 960x540, glyph_decide
      (B4 in the glyph stage); frame 0 at the golden camera must give the
      reference frame (checksum + the ds20 golden), then 3 moves, then 20
      timed frames;
+   - every grouped generation through the golden call render_soup(
+     method=g) and the glyph pass: subtile8, subtile3 .. subtile7, and
+     subtile8 under SETUP_PACKED; each frame 0 must give the checksum and
+     an rgb frame bit-identical to subtile8's; then 10 timed frames each;
    - path tracer, reference run: Renderer(cfg, "pathtrace") on the demo
      scene with its atlas, 96x36, spp 64, 5 bounces, NEE; a fresh
      spp-2 / 2-bounce frame 0 at the poster pose must equal the port's
@@ -131,15 +144,30 @@ def _device_ms(fn, kernel, n=50):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and (kernel is None or kernel in e.key)]
-    assert rows, f"no device rows for {kernel}"
-    return sum(e.self_device_time_total for e in rows) / n / 1e3
+    for _attempt in range(3):  # the profiler now and then returns no rows
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and (kernel is None or kernel in e.key)]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / n / 1e3
+    raise AssertionError(f"no device rows for {kernel} in 3 profiles")
+
+
+def _event_once(fn):
+    """(fn(), ms of that one call by CUDA events)."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def _bound(n_bytes, n_ops):
@@ -149,6 +177,17 @@ def _bound(n_bytes, n_ops):
 
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _walk_bound(lay, z, e):
+    """The least work of a grouped walk on layout ``lay`` (ops/raster_group
+    GENERATIONS): the 16 walk channels of each live (bin, triangle) pair
+    read once, 64 bytes, and tested by the bin's 128 pixels at ~20
+    operations each; plus the pixel origins in and (z, id) out. Slab
+    padding and the dead slots of bins shallower than their group's
+    deepest are not work the function needs."""
+    live = int(lay[2].sum())  # gdepth of the walked bin slots
+    return _bound(64 * live + _nbytes(*lay[-6:-4], z, e), 20 * 128 * live)
 
 
 def _rec(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
@@ -265,10 +304,7 @@ def check_kernels(dev, soup, scene):
     hits = int((e_k >= 0).sum())
     assert hits > 20000, hits
     n_rows = int(lay[7])
-    # every walked row: 512 bytes read once, tested by 1,024 pixels at
-    # ~20 operations each; plus the pixel coordinates in and (z, id) out
-    bound = _bound(512 * n_rows + _nbytes(lay[4], lay[5], z_k, e_k),
-                   20 * 1024 * n_rows)
+    bound = _walk_bound(lay, z_k, e_k)
     recs.append(_rec(
         "raster_group_walk", "raster_group.cu", "raster_group.py:256", 0.0,
         _device_ms(lambda: RG.tile_eval_grouped_skip(*lay[:6], grp_cap),
@@ -277,6 +313,254 @@ def check_kernels(dev, soup, scene):
                   1), bound))
     print(f"B1 walk: exact, {hits} lit pixels, n_rows={n_rows}", flush=True)
     return recs
+
+
+# --------------------------------------------------------------------------
+# The grouped walk generations (B9d, B9e, B9f) and the fused setup+pack B10
+# --------------------------------------------------------------------------
+# render_soup(method=g) of every grouped generation, subtile8 first (the
+# frame the others must equal bit for bit), subtile8 under SETUP_PACKED last
+FRAME_RUNS = (("subtile8", False), ("subtile3", False), ("subtile4", False),
+              ("subtile5", False), ("subtile6", False), ("subtile7", False),
+              ("subtile8", True))
+
+
+def _golden_caps(T):
+    """The golden call's caps (tests/test_headline_goldens.py:49-52)."""
+    def up(x, q):
+        return -(-x // q) * q
+    return dict(v_cap=up(T, 4096), big_cap=0, r_cap=up(2 * T, 2048),
+                pair_cap=8 * T, tile_cap=1024)
+
+
+def _check_b10(pos9, attrs_t, mvp, rows, cols, label):
+    """B10 against its plain version and against B2 then B3, bit for bit
+    (sign of zero included). Returns (outputs, tw)."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import pack as PK
+    from ascii_renderer_tpu_torch.ops import setup2dh as S
+    A = attrs_t.shape[0] // 3
+    tw = -(-(3 * A + 3) // 8) * 8
+    got = S.setup_2dh_fused_packed(pos9, attrs_t, mvp, rows, cols, tw)
+    want = S.setup_2dh_fused_packed_ref(pos9, attrs_t, mvp, rows, cols, tw)
+    cm, bb = S.setup_2dh_fused(pos9, attrs_t, mvp, rows, cols)
+    two = (bb, *PK.pack_channels_split_blocked(cm, [(0, 16), (16, 16 + tw)]))
+    torch.cuda.synchronize()
+    for what, other in (("its plain version", want), ("B2 then B3", two)):
+        for a, b in [(got[0][k], other[0][k]) for k in got[0]] + list(zip(
+                got[1:], other[1:])):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), f"B10 {label}: differs from {what}"
+    n_valid = int(got[0]["valid"].sum())
+    assert n_valid > 100, n_valid
+    print(f"B10 {label}: A={A}, tw={tw}, {n_valid} valid; bit-identical to "
+          f"its plain version and to B2 then B3", flush=True)
+    return got, tw
+
+
+# the grouped generations' own walks, by the generation whose layout each
+# walks (B9f twice: on the K2 layout and on the K4 one)
+GEN_WALKS = {"B9d": "subtile3", "B9e": "subtile4", "B9f K2": "subtile5",
+             "B9f K4": "subtile6"}
+
+
+def _generation_layouts(src32, keys, *caps):
+    """{walk: (layout, kernel wrapper, plain version)} of the grouped
+    generations' own walks; caps (tiles_x, n_tiles, r_cap, pair_cap,
+    grp_cap)."""
+    from ascii_renderer_tpu_torch.ops import raster_group as RG
+    return {walk: (RG.GENERATIONS[g].build(src32, keys, *caps),
+                   RG.GENERATIONS[g].walk, RG.GENERATIONS[g].walk_ref)
+            for walk, g in GEN_WALKS.items()}
+
+
+def _setup_and_keys(pos9, attrs_t, mvp, rows, cols, big_cap):
+    """B2, the pair keys and subtile3/4's wide pack (B7): (keys, src32).
+    Every layout builder reads only the first 16 channels but the direct
+    walk's, which takes all 32, so the 32-wide rows serve all of them."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import pack as PK
+    from ascii_renderer_tpu_torch.ops import setup2dh as S
+    cm, bbox = S.setup_2dh_fused(pos9, attrs_t, mvp, rows, cols)
+    keys = R._subtile_pair_keys_bbox(bbox, rows, cols, big_cap=big_cap)
+    cm2 = cm.view(cm.shape[0], -1)
+    width = max(R._round_up(cm2.shape[0], 8), 15)
+    g = PK.pack_channels(cm2, width=width)
+    g_r = PK.pack_channels_ref(cm2, width=width)
+    torch.cuda.synchronize()
+    assert torch.equal(g.view(torch.int32), g_r.view(torch.int32)), \
+        "B7 wide pack not bit-exact"
+    return keys, g[:, :32]
+
+
+def check_generation_kernels(dev, soup, scene):
+    """B9d, B9e, B9f (K2 and K4 layouts) and B10 against their plain
+    versions: on the golden call's bunny frame (timed there) and on a
+    random 48x96 soup at generous and overflowing caps. Returns the four
+    records."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.ops import pack as PK
+    from ascii_renderer_tpu_torch.ops import setup2dh as S
+
+    p, n, c = (torch.as_tensor(x).to(dev) for x in soup)
+    pos9, attrs_t = R.soup_static_prep(p, n, c, scene)
+    mvp = R.camera_mvp(_golden_camera(), ROWS, COLS, PIXEL_ASPECT)
+    T = pos9.shape[1]
+    caps = _golden_caps(T)
+    recs = {}
+
+    # B10 on the golden frame, timed beside B2 + B3 on the same inputs
+    got, tw = _check_b10(pos9, attrs_t, mvp, ROWS, COLS, "golden frame")
+    spans = [(0, 16), (16, 16 + tw)]
+
+    def b2_b3():
+        cm_, _bb = S.setup_2dh_fused(pos9, attrs_t, mvp, ROWS, COLS)
+        return PK.pack_channels_split_blocked(cm_, spans)
+
+    ms = _device_ms(lambda: S.setup_2dh_fused_packed(pos9, attrs_t, mvp, ROWS,
+                                                     COLS, tw),
+                    "setup2dh_packed_kernel")
+    ms_b2 = _device_ms(b2_b3, "setup2dh_kernel")
+    ms_b3 = _device_ms(b2_b3, "pack_span_kernel")
+    print(f"B10 vs B2 + B3 (device ms, same inputs): {ms:.5f} vs "
+          f"{ms_b2:.5f} + {ms_b3:.5f} = {ms_b2 + ms_b3:.5f}", flush=True)
+    recs["B10"] = _rec(
+        "setup2dh_packed", "setup2dh.cu", "setup2dh.py:212", 0.0, ms,
+        _event_ms(lambda: S.setup_2dh_fused_packed_ref(pos9, attrs_t, mvp,
+                                                       ROWS, COLS, tw), 5),
+        _bound(_nbytes(pos9, attrs_t, *got[1:]) + 5 * 4 * got[1].shape[0],
+               300 * T))
+
+    # the walks on the golden frame's layouts
+    tiles_x = -(-COLS // 128)
+    n_tiles = (-(-ROWS // 8)) * tiles_x
+    grp_cap = caps["tile_cap"] // 8
+    keys, src32 = _setup_and_keys(pos9, attrs_t, mvp, ROWS, COLS,
+                                  caps["big_cap"])
+    lays = _generation_layouts(src32, keys, tiles_x, n_tiles, caps["r_cap"],
+                               caps["pair_cap"], grp_cap)
+    for walk, (lay, fn, ref) in lays.items():
+        n_rows, n_pairs, n_used = (int(x) for x in lay[-3:])
+        assert n_pairs <= caps["pair_cap"] and n_used <= 8 * grp_cap and (
+            walk == "B9e" or n_rows <= caps["r_cap"]), (walk, lay[-3:])
+        z_k, e_k = fn(*lay[:-4], grp_cap)
+        (z_r, e_r), plain = _event_once(lambda: ref(*lay[:-4], grp_cap))
+        torch.cuda.synchronize()
+        assert torch.equal(e_k, e_r), f"{walk} golden frame: ids differ"
+        assert torch.equal(z_k.view(torch.int32), z_r.view(torch.int32)), \
+            f"{walk} golden frame: depths differ"
+        hits = int((e_k >= 0).sum())
+        assert hits > 20000, (walk, hits)
+        print(f"{walk} golden frame: exact, {hits} lit pixels, "
+              f"n_rows={n_rows}, plain {plain:.1f} ms", flush=True)
+        if walk in ("B9d", "B9e", "B9f K2"):
+            kname = {"B9d": "walk_grouped_kernel",
+                     "B9e": "walk_direct_kernel",
+                     "B9f K2": "walk_grouped_k2_kernel"}[walk]
+            recs[walk] = _rec(
+                {"B9d": "raster_group_walk_grouped",
+                 "B9e": "raster_group_walk_direct",
+                 "B9f K2": "raster_group_walk_k2"}[walk],
+                "raster_group.cu",
+                {"B9d": "raster_group.py:135", "B9e": "raster_group.py:586",
+                 "B9f K2": "raster_group.py:735"}[walk], 0.0,
+                _device_ms(lambda: fn(*lay[:-4], grp_cap), kname), plain,
+                _walk_bound(lay, z_k, e_k))
+    del lays
+
+    # a random 48x96 soup: odd CSR offsets (gskip 0..3), and caps that
+    # overflow (clamped slab starts, dropped bins); B10 at A = 6 and 9
+    rng = np.random.default_rng(5)
+    Tr = 3000
+    pos = torch.from_numpy(rng.uniform(-2, 2, (Tr, 9)).astype(np.float32))
+    rpos9 = pos.view(Tr, 3, 3).permute(1, 2, 0).reshape(9, Tr).contiguous()
+    rmvp = R.camera_mvp(Camera.create(pos=(2.5, 1.5, 3.0), yaw=-2.3,
+                                      pitch=-0.3), 48, 96, 0.5)
+    rpos9 = rpos9.to(dev)
+    rattrs = {A: torch.from_numpy(rng.uniform(-1, 1, (3 * A, Tr)).astype(
+        np.float32)).to(dev) for A in (6, 9)}
+    for A in (6, 9):
+        _check_b10(rpos9, rattrs[A], rmvp, 48, 96, f"random {Tr} tris")
+    keys, src32 = _setup_and_keys(rpos9, rattrs[6], rmvp, 48, 96, 1024)
+    for label, (r_cap, pair_cap, gcap) in (("generous", (32 * 512, 1 << 16,
+                                                         6)),
+                                           ("overflow", (64, 4096, 1))):
+        for walk, (lay, fn, ref) in _generation_layouts(
+                src32, keys, 1, 6, r_cap, pair_cap, gcap).items():
+            z_k, e_k = fn(*lay[:-4], gcap)
+            z_r, e_r = ref(*lay[:-4], gcap)
+            torch.cuda.synchronize()
+            assert torch.equal(e_k, e_r), f"{walk} random {label}: ids differ"
+            assert torch.equal(z_k.view(torch.int32), z_r.view(torch.int32)), \
+                f"{walk} random {label}: depths differ"
+            skips = (sorted(set(lay[3].tolist())) if walk.startswith("B9f")
+                     else "-")
+            print(f"{walk} random 48x96 {label} caps: exact, "
+                  f"{int((e_k >= 0).sum())} lit pixels, gskip values {skips}",
+                  flush=True)
+    return [recs["B9d"], recs["B9e"], recs["B9f K2"], recs["B10"]]
+
+
+def _generation_frame(dev, soup, scene):
+    """A function (method, packed) -> (rgb, chars) of the golden call: the
+    user's render_soup(method=g) at the golden caps, then the glyph pass."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.core.frame import Frame
+    cfg = Config(pixel_aspect=PIXEL_ASPECT)
+    p, n, c = (torch.as_tensor(x).to(dev) for x in soup)
+    caps = _golden_caps(p.shape[0] // 3)
+    cam = _golden_camera()
+
+    def frame(method, packed):
+        R.SETUP_PACKED = packed
+        try:
+            rgb = R.render_soup(p, n, c, scene, cam, ROWS, COLS,
+                                PIXEL_ASPECT, method=method, **caps)
+        finally:
+            R.SETUP_PACKED = False
+        return rgb, _glyph(Frame.from_float(rgb), cfg)
+
+    return frame
+
+
+def run_generations_path(dev, soup, scene):
+    """Every grouped generation through the golden call and the glyph pass:
+    frame 0 must give the checksum and equal subtile8's rgb bit for bit;
+    then 10 timed frames each. Returns a function rendering one subtile3
+    frame."""
+    import numpy as np
+    import torch
+    frame = _generation_frame(dev, soup, scene)
+    ref = None
+    for method, packed in FRAME_RUNS:
+        label = method + (" SETUP_PACKED" if packed else "")
+        box = {}
+        (ms,) = _timed(lambda: box.update(zip(("rgb", "chars"),
+                                              frame(method, packed))), 1)
+        rgb, chars = box["rgb"], box["chars"]
+        assert chars.device.type == "cuda" and tuple(chars.shape) == (ROWS,
+                                                                      COLS)
+        total = int(chars.cpu().numpy().astype(np.uint64).sum())
+        assert total == BUNNY_CHECKSUM, (label, total)
+        same = ref is not None
+        if same:
+            assert torch.equal(rgb.view(torch.int32), ref.view(torch.int32)), \
+                f"{label}: rgb frame differs from subtile8's"
+        else:
+            ref = rgb
+        print(f"{label} golden call frame 0: {ms:.3f} ms, checksum {total}"
+              f"{', rgb bit-identical to subtile8' if same else ''}",
+              flush=True)
+        _summary(f"{label} steady (golden call)",
+                 _timed(lambda: frame(method, packed), 10))
+    return lambda: frame("subtile3", False)
 
 
 def check_modal(dev):
@@ -1074,7 +1358,11 @@ def main() -> int:
                 "raster_bins_walk": (RB, "launches"),
                 "raster_bins_walk_loop": (RB, "launches_loop"),
                 "pack_channels": (PK, "launches_channels"),
-                "pack_channels_split": (PK, "launches_split")}
+                "pack_channels_split": (PK, "launches_split"),
+                "raster_group_walk_grouped": (RG, "launches_grouped"),
+                "raster_group_walk_direct": (RG, "launches_direct"),
+                "raster_group_walk_k2": (RG, "launches_k2"),
+                "setup2dh_packed": (S, "launches_packed")}
     soup = _bunny()
     scene = _scene(dev)
     recs = check_kernels(dev, soup, scene)
@@ -1092,6 +1380,21 @@ def main() -> int:
     profile_frames(lambda: _frame(backend, cfg, _golden_camera()), 5,
                    ("raster.", "frame.", "glyph"), "raster")
     del backend
+
+    # the grouped generations: B9d, B9e, B9f and B10 against their plain
+    # versions, then every generation's golden call
+    gen_recs = check_generation_kernels(dev, soup, scene)
+    recs += gen_recs
+    c_gen, gen_fn = _path_counts(counters, lambda: run_generations_path(
+        dev, soup, scene))
+    print(f"launches on the grouped generations: {c_gen}", flush=True)
+    for k in ("setup2dh", "pack", "pack_channels", "raster_group_walk",
+              "modal_vote") + tuple(r["name"] for r in gen_recs):
+        assert c_gen[k] > 0, f"{k} never launched on the grouped generations"
+    for r in gen_recs:
+        r["launches"] = c_gen[r["name"]]
+    profile_frames(gen_fn, 5, ("raster.", "frame.", "glyph"),
+                   "subtile3 golden call")
 
     # path tracer: frame 0 against the CPU render, then the reference run
     # (96x36, spp 64, 5 bounces) and the HD arm (960x540, spp 8)
@@ -1159,7 +1462,7 @@ def main() -> int:
     for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels",
               "pack_channels_split"):
         by_name[k]["launches"] = sum(
-            c[k] for c in (c_entry, c_cube, c_tea, c_mid, c_pts))
+            c[k] for c in (c_gen, c_entry, c_cube, c_tea, c_mid, c_pts))
     # pack_channels_split has no caller on a driven path (the reference
     # calls it only from its exactness probe): its launches stay 0
 

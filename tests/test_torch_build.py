@@ -49,10 +49,27 @@ def _layout(cm, bbox, grp_cap=6):
         src16, keys, 1, 6, 32 * 512, 1 << 16, grp_cap, 8)
 
 
+# walk -> the grouped generation whose layout it walks (ops/raster_group)
+GEN_WALKS = {"B9d": "subtile3", "B9e": "subtile4", "B9f_k2": "subtile5",
+             "B9f_k4": "subtile6"}
+
+
+def _gen_layout(walk, cm, bbox, caps):
+    """(layout, kernel wrapper, plain version) of a grouped generation's
+    walk on a setup block: the 32-wide rows of subtile3/4's wide pack,
+    caps (r_cap, pair_cap, grp_cap)."""
+    gen = RG.GENERATIONS[GEN_WALKS[walk]]
+    src32 = PK.pack_channels_ref(cm.reshape(cm.shape[0], -1), width=40)[:, :32]
+    keys = R._subtile_pair_keys_bbox(bbox, 48, 96, big_cap=1024)
+    return gen.build(src32, keys, 1, 6, *caps), gen.walk, gen.walk_ref
+
+
 # every launch counter of the wrappers, as (module, attribute)
 COUNTERS = ((S, "launches"), (PK, "launches"), (RG, "launches"),
             (PK, "launches_channels"), (PK, "launches_split"),
-            (RB, "launches"), (RB, "launches_loop"))
+            (RB, "launches"), (RB, "launches_loop"), (S, "launches_packed"),
+            (RG, "launches_grouped"), (RG, "launches_direct"),
+            (RG, "launches_k2"))
 
 
 @pytest.fixture
@@ -80,6 +97,23 @@ def test_cpu_tensors_run_the_plain_versions(zero_counts):
     assert torch.equal(e, e_r) and torch.equal(z, z_r)
     assert (e >= 0).sum() > 100
     assert [m.launches for m in KERNEL_MODULES] == [0, 0, 0]
+
+
+def test_cpu_tensors_run_the_generations_plain_versions(zero_counts):
+    """B9d, B9e, B9f and B10's wrappers on CPU tensors: their plain
+    versions, nothing launched."""
+    pos9, attrs_t, mvp = _walk_inputs("cpu")
+    got = S.setup_2dh_fused_packed(pos9, attrs_t, mvp, 48, 96, 24)
+    want = S.setup_2dh_fused_packed_ref(pos9, attrs_t, mvp, 48, 96, 24)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    cm, bbox = S.setup_2dh_fused_ref(pos9, attrs_t, mvp, 48, 96)
+    for walk in GEN_WALKS:
+        lay, fn, ref = _gen_layout(walk, cm, bbox, (32 * 512, 1 << 16, 6))
+        (z, e), (z_r, e_r) = fn(*lay[:-4], 6), ref(*lay[:-4], 6)
+        assert torch.equal(e, e_r) and torch.equal(z, z_r), walk
+        assert (e >= 0).sum() > 100
+    assert (S.launches_packed, RG.launches_grouped, RG.launches_direct,
+            RG.launches_k2) == (0, 0, 0, 0)
 
 
 def test_non_cpu_tensors_never_fall_back_to_the_plain_versions(zero_counts):
@@ -112,9 +146,30 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_versions(zero_counts):
                              1, 2)
     with pytest.raises(ValueError):
         RB.tile_eval_bins(torch.empty((32, 128), device=meta), offs, 1, 2)
+    with pytest.raises(ValueError):
+        S.setup_2dh_fused_packed(torch.empty((9, 64), device=meta),
+                                 torch.empty((18, 64), device=meta),
+                                 torch.eye(4), 48, 96, 24)
+    i32 = dict(dtype=torch.int32, device=meta)
+    xy = (torch.empty((2, 128), device=meta), torch.empty((2, 128),
+                                                          device=meta))
+    with pytest.raises(ValueError):
+        RG.tile_eval_grouped(torch.empty((64, 128), device=meta),
+                             torch.zeros(3, **i32), torch.zeros(16, **i32),
+                             *xy, 2)
+    with pytest.raises(ValueError):
+        RG.tile_eval_grouped_k2(torch.empty((32, 256), device=meta),
+                                torch.zeros(3, **i32), torch.zeros(16, **i32),
+                                torch.zeros(16, **i32), *xy, 2)
+    with pytest.raises(ValueError):
+        RG.tile_eval_direct(torch.empty((64, 32), device=meta),
+                            torch.zeros(16, **i32), torch.zeros(16, **i32),
+                            torch.zeros(2, **i32), *xy, 2)
     assert [m.launches for m in KERNEL_MODULES] == [0, 0, 0]
     assert (PK.launches_channels, PK.launches_split, RB.launches,
             RB.launches_loop) == (0, 0, 0, 0)
+    assert (S.launches_packed, RG.launches_grouped, RG.launches_direct,
+            RG.launches_k2) == (0, 0, 0, 0)
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -320,3 +375,46 @@ def test_pack_channels_kernels_equal_plain_on_cuda(cuda_device, c, n,
         assert torch.equal(o.view(torch.int32), r.view(torch.int32))
     torch.cuda.synchronize()
     assert (PK.launches_channels, PK.launches_split) == (1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(32 * 512, 1 << 16, 6), (64, 4096, 1)],
+                         ids=["generous", "overflow"])
+@pytest.mark.parametrize("walk", sorted(GEN_WALKS))
+def test_generation_walks_equal_plain_on_cuda(cuda_device, walk, caps,
+                                              zero_counts):
+    """B9d, B9e and B9f (on the K2 and the K4 layout, gskip in [0, 3]) at
+    generous caps and at caps that overflow (clamped slab starts): winner
+    ids and depth bits equal to the plain versions."""
+    pos9, attrs_t, mvp = _walk_inputs(cuda_device, T=3000, seed=5)
+    cm, bbox = S.setup_2dh_fused(pos9, attrs_t, mvp, 48, 96)
+    lay, fn, ref = _gen_layout(walk, cm, bbox, caps)
+    z, e = fn(*lay[:-4], caps[2])
+    z_r, e_r = ref(*lay[:-4], caps[2])
+    torch.cuda.synchronize()
+    assert (RG.launches_grouped, RG.launches_direct, RG.launches_k2) == {
+        "B9d": (1, 0, 0), "B9e": (0, 1, 0)}.get(walk, (0, 0, 1))
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 500
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_attrs", [6, 9])
+def test_setup_packed_equals_plain_and_b2_b3_on_cuda(cuda_device, n_attrs,
+                                                    zero_counts):
+    """B10 against its plain version and against B2 then B3 on the card:
+    bbox, walk rows and shade rows bit for bit, sign of zero included."""
+    pos9, attrs_t, mvp = _walk_inputs(cuda_device, T=1500, n_attrs=n_attrs)
+    tw = -(-(3 * n_attrs + 3) // 8) * 8
+    got = S.setup_2dh_fused_packed(pos9, attrs_t, mvp, 48, 96, tw)
+    want = S.setup_2dh_fused_packed_ref(pos9, attrs_t, mvp, 48, 96, tw)
+    cm, bb = S.setup_2dh_fused(pos9, attrs_t, mvp, 48, 96)
+    two = PK.pack_channels_split_blocked(cm, [(0, 16), (16, 16 + tw)])
+    torch.cuda.synchronize()
+    assert S.launches_packed == 1
+    for other in (want, (bb, *two)):
+        for k in ("bx0", "bx1", "by0", "by1", "valid"):
+            assert torch.equal(got[0][k], other[0][k]), k
+        for a, b in zip(got[1:], other[1:]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(got[0]["valid"].sum()) > 100

@@ -1,7 +1,9 @@
 """The port never imports jax: in a fresh interpreter where importing jax
 fails, every module of ascii_renderer_tpu_torch imports (the small- and
 mid-scale raster modules, the frame step and ``entry`` among them), and a
-48x96 headline raster frame, a 48x96 binned-walk frame, one ``entry()``
+48x96 headline raster frame (and the same frame through the subtile3,
+subtile4 and subtile5 walks and the fused setup+pack), a 48x96 binned-walk
+frame, one ``entry()``
 frame step (96x36) and one 12x32 path-traced frame of the demo scene render
 (plain-torch kernel versions on the CPU) through the glyph pass."""
 
@@ -44,6 +46,13 @@ chars, _ = AsciiPass()(Frame.from_float(rgb))
 lines = chars_to_strings(chars)
 assert len(lines) == 48 and len(lines[0]) == 96
 assert (rgb.amax(-1) > 0).sum() > 300, int((rgb.amax(-1) > 0).sum())
+for kernel in ("subtile3", "subtile4", "subtile5", "packed"):
+    R.SETUP_PACKED = kernel == "packed"
+    g_rgb, _d = R.render_soup_diag(
+        p, n, c, scene, cam, 48, 96, 0.5, v_cap=4096, big_cap=512,
+        kernel="subtile8" if kernel == "packed" else kernel)
+    R.SETUP_PACKED = False
+    assert torch.equal(g_rgb, rgb), kernel
 rgb2 = R.render_soup(p, n, c, scene, cam, 48, 96, 0.5, method="scatter")
 assert (rgb2.amax(-1) > 0).sum() > 300
 from ascii_renderer_tpu_torch.entry import entry

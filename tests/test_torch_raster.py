@@ -182,11 +182,17 @@ def test_backend_rejects_unported_paths():
     frame = be.render(0.0, cam, ROWS, COLS, 0.5)  # 6000 slots: mid scale
     assert tuple(frame.rgb.shape) == (ROWS, COLS, 3)
     assert be._caps[0] % 8192 == 0  # mid-scale (v_cap, big_cap) caps
-    for kernel in ("subtile", "subtile3"):  # older walks: ROADMAP B9
+    args = (torch.from_numpy(p), torch.from_numpy(n), torch.from_numpy(c),
+            scene, cam, ROWS, COLS, 0.5)
+    for kernel in ("subtile", "subtile2"):  # channel-era walks: ROADMAP B9
         with pytest.raises(NotImplementedError, match="B9"):
-            R.render_soup_diag(torch.from_numpy(p), torch.from_numpy(n),
-                               torch.from_numpy(c), scene, cam, ROWS, COLS,
-                               0.5, v_cap=4096, kernel=kernel)
+            R.render_soup_diag(*args, v_cap=4096, kernel=kernel)
+    # the grouped generations render the headline's frame bit for bit
+    want, _d = _port("random3000")
+    for kernel in ("subtile3", "subtile7"):
+        rgb, diag = R.render_soup_diag(*args, kernel=kernel,
+                                       **caps(p.shape[0] // 3, 2048))
+        assert torch.equal(rgb.view(torch.int32), want.view(torch.int32))
     be.dispose()
     assert be._soup is None
 

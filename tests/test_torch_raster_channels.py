@@ -291,17 +291,25 @@ def test_teapot_mid_scale_backend_equals_jax():
 
 
 def test_unported_methods_raise_naming_their_roadmap_items():
-    """What is still not ported raises, naming its ROADMAP item."""
+    """What is still not ported raises, naming its ROADMAP item; the
+    grouped generations render, and without v_cap they take the scan, as
+    the reference's dispatch does (raster.py:716-755)."""
     p, attrs = near_plane_soup(50)
     scene = SceneBuilder().set_env_light([0.2, 0.2, 0.2], 1.0).build(
         device="cpu")
     args = (torch.from_numpy(p), torch.from_numpy(attrs[:, :3]),
-            torch.from_numpy(attrs[:, 3:6]), scene, Camera.create(), 8, 16,
-            0.5)
+            torch.from_numpy(attrs[:, 3:6]), scene, Camera.create(**NEAR_CAM),
+            8, 16, 0.5)
     with pytest.raises(NotImplementedError, match="B8"):
         R.render_soup(*args, method="fused")
-    for method in ("subtile", "subtile3", "subtile7"):
+    for method in ("subtile", "subtile2"):
         with pytest.raises(NotImplementedError, match="B9"):
             R.render_soup(*args, method=method, v_cap=4096)
     with pytest.raises(NotImplementedError, match="B9"):
         R.render_soup_diag(*args, v_cap=4096, kernel="subtile")
+    scan = R.render_soup(*args, method="scan")
+    assert (scan.amax(-1) > 0).any()
+    for method in ("subtile3", "subtile7"):
+        rgb = R.render_soup(*args, method=method, v_cap=4096)
+        assert tuple(rgb.shape) == (8, 16, 3) and torch.isfinite(rgb).all()
+        assert torch.equal(R.render_soup(*args, method=method), scan)
