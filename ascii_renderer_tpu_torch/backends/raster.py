@@ -25,14 +25,16 @@ entry rows, B9d), ``subtile4`` (direct per-bin reads, B9e), ``subtile5`` /
 ``SETUP_PACKED`` the setup and the pack are one kernel (B10) for every
 generation but ``subtile4``.
 
+The reference's retired generations render too (backends/raster_oracles):
+``render_soup(method="fused")`` (binning and the fused-shading walk B8, no
+visibility buffer), and with v_cap ``subtile`` (the clip-expansion
+channels, the packed subtile walk B9b, the tile-compacted shade) and
+``subtile2`` (the 2-D homogeneous setup, the depth-masked walk B9c).
+
 Reference behaviours preserved (raster.js): camera mapping identical to the
 tracers, near 0.05 / far 100, back-face culling, a default directional
 light when the scene has none, ambient = env color * intensity, point-light
 attenuation 1/(1 + d^2*0.05), no shadows.
-
-Not ported (each raises NotImplementedError naming its ROADMAP item): the
-fused-shading walk (method "fused", B8) and the channel-era walk
-generations (methods / kernels "subtile" and "subtile2", B9a-c).
 """
 
 from __future__ import annotations
@@ -64,6 +66,10 @@ from ascii_renderer_tpu_torch.backends.raster_channels import (  # noqa: F401
     setup_screen_channels, shade_planes_ch, shade_visibility, transform_clip,
     transform_clip_channels, transform_clip_channels9, visibility_binned_ch,
     visibility_scan)
+from ascii_renderer_tpu_torch.backends.raster_oracles import (  # noqa: F401
+    _build_bins, _entry_planes_src, _subtile_pair_keys, render_fused_ch,
+    render_subtile2_diag, shade_tiles_compact, suggest_caps_subtile,
+    visibility_subtile, visibility_subtile_tiles)
 
 HEADLINE_KERNEL = "subtile8"  # K8 slot gather relaid to the base walk layout
 GROUPED_KERNELS = tuple(RG.GENERATIONS)  # subtile3 .. subtile8
@@ -73,13 +79,6 @@ SETUP_PACKED = False  # True: one kernel (B10) emits the bbox and both
 # direct walk reads 32-wide rows).
 _ADAPTIVE_MIN_TRIS = 2048   # RasterBackend: compacted mid-scale path from here
 _GROUPED_MIN_TRIS = 32768   # RasterBackend: headline path from here up
-_UNPORTED_WALKS = ("subtile", "subtile2")  # channel-era generations, B9a-c
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to ascii_renderer_tpu_torch yet (ROADMAP "
-        f"{item})")
 
 
 # --------------------------------------------------------------------------
@@ -334,7 +333,12 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     (raster_channels.render_channels_diag: valid compaction to v_cap, the
     bin walk B6 / B6', plane-table shading); exact iff n_valid <= v_cap and
     n_big <= big_cap (grow them with ``suggest_caps``). pos9 selects the
-    pre-transposed vertex stage.
+    pre-transposed vertex stage. kernel 'subtile' runs the same compaction,
+    then the packed subtile walk B9b and the tile-compacted shade; kernel
+    'subtile2' the 2-D homogeneous setup and the depth-masked walk B9c
+    (raster_oracles); both also count n_rows, n_pairs and n_tiles_nz
+    (tile_cap = TILE capacity here) and grow their caps with
+    ``suggest_caps_subtile``.
 
     kernel 'subtile3'..'subtile8' (the grouped generations, GROUPED_KERNELS;
     'subtile8' is the headline): returns (rgb f32 [rows, cols, 3], diag)
@@ -349,18 +353,21 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     (assembly is a permutation)."""
     with stage("raster.mvp"):
         mvp = camera_mvp(cam, rows, cols, pixel_aspect)
-    if kernel in ("mm", "loop"):
+    if kernel not in GROUPED_KERNELS:
         # world-position planes feed only the point lights
         parts = [normals, colors]
         if scene.pt_pos.shape[0]:
             parts.append(positions)
+        attrs = torch.cat(parts, dim=1)
+        if kernel == "subtile2":
+            return render_subtile2_diag(
+                attrs, scene, mvp, rows, cols, big_cap=big_cap, r_cap=r_cap,
+                pair_cap=pair_cap, tile_cap=tile_cap, positions=positions,
+                pos9=pos9, attrs_t=attrs_t)
         return render_channels_diag(
-            positions, torch.cat(parts, dim=1), scene, mvp, rows, cols,
-            v_cap=v_cap, big_cap=big_cap, kernel=kernel, r_cap=r_cap,
-            pair_cap=pair_cap, tile_cap=tile_cap, pos9=pos9)
-    if kernel not in GROUPED_KERNELS:
-        raise _not_ported(f"render_soup_diag(kernel={kernel!r}), a "
-                          f"channel-era walk generation", "B9")
+            positions, attrs, scene, mvp, rows, cols, v_cap=v_cap,
+            big_cap=big_cap, kernel=kernel, r_cap=r_cap, pair_cap=pair_cap,
+            tile_cap=tile_cap, pos9=pos9)
     if pos9 is None or attrs_t is None:
         pos9, attrs_t = soup_static_prep(positions, normals, colors, scene)
     A = attrs_t.shape[0] // 3
@@ -447,26 +454,21 @@ def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
     """Triangle soup -> shaded RGB f32 [rows, cols, 3].
 
     method: 'scatter' / 'scatter_mm' (the binned bin walk B6),
-    'scatter_loop' (its scalar-loop twin B6'), 'scan' (the chunked dense
-    scan, the reference path), or 'auto' (scatter above 512 triangle
-    slots). v_cap routes the scatter methods, and the grouped generations
-    'subtile3'..'subtile8', into the compacted render_soup_diag; None
-    keeps the exact uncapped path (the grouped names then take the scan,
-    as in the reference). 'fused' (B8), 'subtile' and 'subtile2' (B9a-c)
-    are not ported and raise; any other name takes the scan, as in the
-    reference."""
-    if method == "fused":
-        raise _not_ported("render_soup(method='fused'), the fused-shading "
-                          "walk", "B8")
-    if method in _UNPORTED_WALKS:
-        raise _not_ported(f"render_soup(method={method!r}), a channel-era "
-                          f"walk generation", "B9")
+    'scatter_loop' (its scalar-loop twin B6'), 'fused' (binning and the
+    fused-shading walk B8), 'scan' (the chunked dense scan, the reference
+    path), or 'auto' (scatter above 512 triangle slots). v_cap routes the
+    scatter methods, the channel-era generations 'subtile' / 'subtile2'
+    and the grouped generations 'subtile3'..'subtile8' into the compacted
+    render_soup_diag; None keeps the exact uncapped path (the subtile
+    names then take the scan, as in the reference). Any other name takes
+    the scan, as in the reference."""
     attrs = torch.cat([normals, colors, positions], dim=1)  # [V, 9]
     if method == "auto":
         method = "scatter" if positions.shape[0] // 3 * 2 > 512 else "scan"
     scatter = ("scatter", "scatter_mm", "scatter_loop")
-    if method in scatter + GROUPED_KERNELS and v_cap is not None:
-        kern = method if method in GROUPED_KERNELS else {
+    diag_kernels = ("subtile", "subtile2") + GROUPED_KERNELS
+    if method in scatter + diag_kernels and v_cap is not None:
+        kern = method if method in diag_kernels else {
             "scatter_loop": "loop"}.get(method, "mm")
         rgb, _diag = render_soup_diag(
             positions, normals, colors, scene, cam, rows, cols, pixel_aspect,
@@ -476,6 +478,12 @@ def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
         return rgb
     with stage("raster.mvp"):
         mvp = camera_mvp(cam, rows, cols, pixel_aspect)
+    if method == "fused":
+        with stage("raster.clip"):
+            ch = transform_clip_channels(positions, mvp)
+            ch = setup_screen_channels(ch, rows, cols)
+            attr_slots = clip_attrs_channel_lists(attrs, ch)
+        return render_fused_ch(ch, attr_slots, scene, rows, cols)
     if method in scatter:
         with stage("raster.clip"):
             ch = transform_clip_channels(positions, mvp)

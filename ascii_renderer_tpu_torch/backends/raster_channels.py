@@ -5,9 +5,10 @@ The [2T]-domain pipeline: branchless near-clip expansion into
 channel-major screen triangles, order-preserving valid compaction, exact
 per-tile binning, the bin walks B6 / B6' (ops/raster_bins) and deferred
 plane-table shading (its table through the pack kernel B7 when its length
-is a multiple of 512). The chunked ``visibility_scan`` path is the
-reference rasterizer the faster paths are compared with, and the one
-``render_soup`` takes below 512 triangle slots.
+is a multiple of 512); and the compacted channels of generation 1
+(``render_channels_diag(kernel="subtile")``, raster_oracles). The chunked
+``visibility_scan`` path is the reference rasterizer the faster paths are
+compared with, and the one ``render_soup`` takes below 512 triangle slots.
 
 Rounding: the reference is compiled by XLA, whose CPU code generator fuses
 a product into the add or subtract it feeds (core/fp.py). Every such chain
@@ -472,19 +473,15 @@ def shade_planes_ch(tid, ch, attr_slots, scene: SceneData, rows: int,
                             n_attrs=len(attr_slots[0]))
 
 
-def binned_entries(ch, rows: int, cols: int, *, kernel: str = "mm",
-                   big_cap: int = 64, tile_window: int = 2):
-    """The bin walk's input: small triangles (bbox within a 2 x 2 tile
-    window) emit up to 4 (tile, tri) pairs, big ones (the first
-    ``big_cap``, in id order) one pair per overlapped tile; one (tile << 19
-    | tri) int32 sort and a left-side searchsorted give the bins; the
-    plane-form entries are gathered into pair order, in the layout of
-    kernel 'mm' (B6: [P/128, 16, 128]) or 'loop' (B6': [P/8, 128]), with
-    an inert zero tail. Returns (data, offsets i32 [n_tiles + 1], tiles_x,
-    n_tiles)."""
-    xa, xb, xc = ch["sxa"], ch["sxb"], ch["sxc"]
-    ya, yb, yc = ch["sya"], ch["syb"], ch["syc"]
-    za, zb, zc = ch["sza"], ch["szb"], ch["szc"]
+def tile_pairs(ch, rows: int, cols: int, big_cap: int = 64,
+               tile_window: int = 2):
+    """Exact per-tile bins of the clipped triangles: small triangles (bbox
+    within a 2 x 2 tile window) emit up to 4 (tile, tri) pairs, big ones
+    (the first ``big_cap``, in id order) one pair per overlapped tile; one
+    (tile << 19 | tri) int32 sort and a left-side searchsorted give the
+    bins. Returns (tri_s i32 [P] the sorted pairs' triangles, all < T,
+    offsets i32 [n_tiles + 1], tiles_y, tiles_x)."""
+    xa = ch["sxa"]
     dev = xa.device
     T = xa.shape[0]
     assert T < (1 << 19), "packed sort key supports < 524288 clipped tris"
@@ -534,23 +531,45 @@ def binned_entries(ch, rows: int, cols: int, *, kernel: str = "mm",
     offsets = torch.searchsorted(
         tile_s, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
         side="left").to(torch.int32)
+    return tri_s, offsets, tiles_y, tiles_x
 
-    # plane-form entries (ops/raster_bins.py), computed per source triangle
+
+def plane_entries(ch):
+    """The 12 plane-form walk channels of each clipped triangle (ops/
+    raster_bins.py CH_A0 .. CH_ZC): three edge planes w_k = A_k px + B_k py
+    + G_k and the screen-depth plane, each a [T] tensor."""
+    xa, xb, xc = ch["sxa"], ch["sxb"], ch["sxc"]
+    ya, yb, yc = ch["sya"], ch["syb"], ch["syc"]
+    za, zb, zc = ch["sza"], ch["szb"], ch["szc"]
     acs, bcs, gcs = _edge_coeffs((xa, xb, xc), (ya, yb, yc))
     # (xb - xa)(yc - ya) - (yb - ya)(xc - xa) == w0 + w1 + w2
     area = fma32(xb - xa, yc - ya, -((yb - ya) * (xc - xa)))
     inv_area = _recip_guard(area, 1e-12)
     zs = (za, zb, zc)
-    src = torch.stack([
-        acs[0], bcs[0], gcs[0], acs[1], bcs[1], gcs[1],
-        acs[2], bcs[2], gcs[2],
-        # sum_k coef_k z_k: for alpha the second product fuses first, as
-        # in build_plane_table's denominator
-        fma32(acs[2], zc, fma32(acs[1], zb, acs[0] * za)) * inv_area,
-        _sum3(bcs, zs) * inv_area,
-        _sum3(gcs, zs) * inv_area,
-        torch.ones_like(xa), tri_ids.to(torch.float32),
-    ], dim=-1)
+    return [acs[0], bcs[0], gcs[0], acs[1], bcs[1], gcs[1],
+            acs[2], bcs[2], gcs[2],
+            # sum_k coef_k z_k: for alpha the second product fuses first,
+            # as in build_plane_table's denominator
+            fma32(acs[2], zc, fma32(acs[1], zb, acs[0] * za)) * inv_area,
+            _sum3(bcs, zs) * inv_area,
+            _sum3(gcs, zs) * inv_area]
+
+
+def binned_entries(ch, rows: int, cols: int, *, kernel: str = "mm",
+                   big_cap: int = 64, tile_window: int = 2):
+    """The bin walk's input: the exact bins of ``tile_pairs`` and the
+    plane-form entries gathered into pair order, in the layout of kernel
+    'mm' (B6: [P/128, 16, 128]) or 'loop' (B6': [P/8, 128]), with an inert
+    zero tail. Returns (data, offsets i32 [n_tiles + 1], tiles_x,
+    n_tiles)."""
+    tri_s, offsets, tiles_y, tiles_x = tile_pairs(
+        ch, rows, cols, big_cap=big_cap, tile_window=tile_window)
+    n_tiles = tiles_y * tiles_x
+    xa = ch["sxa"]
+    T = xa.shape[0]
+    src = torch.stack(plane_entries(ch) + [
+        torch.ones_like(xa),
+        torch.arange(T, dtype=torch.float32, device=xa.device)], dim=-1)
     src = torch.cat([src, src.new_zeros((T, RB.N_CHAN - 14))], dim=-1)
     # inert tail so an aligned chunk read past the last bin stays in
     # bounds, rounded so the layout divides evenly: row T of src is zero
@@ -665,18 +684,16 @@ def render_channels_diag(positions, attrs, scene: SceneData, mvp,
                          big_cap: int = 64, kernel: str = "mm",
                          r_cap: int = 16384, pair_cap: int = 65536,
                          tile_cap: int | None = None, pos9=None):
-    """Clip-expansion generations of render_soup_diag (kernels 'mm' and
-    'loop'): compacted channel pipeline + binned bin walk + plane-table
-    shading. Returns (rgb f32 [rows, cols, 3], diag) with 0-d i32 counts
-    n_valid and n_big (n_rows, n_pairs, n_tiles_nz are 0 here); the frame
-    is exact iff n_valid <= v_cap and n_big <= big_cap. r_cap, pair_cap and
-    tile_cap belong to the 'subtile' generation, which is not ported."""
-    if kernel == "subtile":
-        raise NotImplementedError(
-            "render_channels_diag(kernel='subtile') (the subtile walk and "
-            "raster_oracles) is not ported to ascii_renderer_tpu_torch yet "
-            "(ROADMAP B9)")
-    if kernel not in ("mm", "loop"):
+    """Clip-expansion generations of render_soup_diag: compacted channel
+    pipeline, then kernel 'mm' / 'loop' (the bin walk B6 / B6' and
+    plane-table shading) or 'subtile' (generation 1: the packed subtile
+    walk B9b, raster_oracles.visibility_subtile_tiles, and the
+    tile-compacted shade). Returns (rgb f32 [rows, cols, 3], diag) with
+    0-d i32 counts n_valid, n_big, and for 'subtile' n_rows, n_pairs,
+    n_tiles_nz (0 otherwise); the frame is exact iff n_valid <= v_cap,
+    n_big <= big_cap and, for 'subtile', n_rows <= r_cap, n_pairs <=
+    pair_cap and n_tiles_nz <= tile_cap."""
+    if kernel not in ("mm", "loop", "subtile"):
         raise ValueError(f"render_channels_diag: unknown kernel {kernel!r}")
     with stage("raster.clip"):
         ch = (transform_clip_channels9(pos9, mvp) if pos9 is not None
@@ -685,6 +702,24 @@ def render_channels_diag(positions, attrs, scene: SceneData, mvp,
     with stage("raster.compact"):
         cch, cidx, n_valid = compact_valid_ch(ch, v_cap)
         attr_slots = clip_attrs_compact_lists(attrs, ch, cidx)
+    if kernel == "subtile":
+        from ascii_renderer_tpu_torch.backends import raster_oracles as RO
+        if tile_cap is None:
+            tile_cap = (-(-rows // TILE_H)) * (-(-cols // TILE_W))
+        etile, nonempty, n_rows, n_pairs = RO.visibility_subtile_tiles(
+            cch, rows, cols, big_cap=big_cap, r_cap=r_cap, pair_cap=pair_cap)
+        with stage("raster.shade"):
+            # the walk emits triangle ids: the shade indexes the plane
+            # table directly (one trailing all-zero background row)
+            table = build_plane_table(cch, attr_slots)
+            table = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+            rgb = RO.shade_tiles_compact(etile, nonempty, table, scene, rows,
+                                         cols, tile_cap=tile_cap,
+                                         n_attrs=len(attr_slots[0]))
+            _n_small, n_big = count_big_small(cch, rows, cols)
+        return rgb, {"n_valid": n_valid, "n_big": n_big, "n_rows": n_rows,
+                     "n_pairs": n_pairs,
+                     "n_tiles_nz": nonempty.sum(dtype=torch.int32)}
     with stage("raster.walk"):
         _zbuf, tid = visibility_binned_ch(cch, rows, cols, kernel=kernel,
                                           big_cap=big_cap)

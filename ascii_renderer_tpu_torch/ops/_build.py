@@ -65,6 +65,10 @@ SIGNATURES = {
     "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (data, offsets, z, tid, n_tiles, tiles_x, n_entries, mm, stream)
     "bins_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (data, offsets, light, rgb, n_tiles, tiles_x, n_entries, stream)
+    "shaded_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # (rows, rowptr, depth, z, e, n_tiles, tiles_x, r_cap, source, stream)
+    "subtile_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

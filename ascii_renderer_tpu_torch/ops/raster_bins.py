@@ -1,7 +1,8 @@
-"""Binned rasterization with exact per-tile bins: the CUDA kernel
+"""Binned rasterization with exact per-tile bins: the CUDA kernels
 ``csrc/raster_bins.cu`` (replaces the Pallas
 ``ascii_renderer_tpu/ops/raster_bins.py:_kernel_mm``, B6, and ``:_kernel``,
-B6') and its plain-torch version.
+B6') and ``csrc/raster_shaded.cu`` (replaces ``:_shaded_kernel``, B8), and
+their plain-torch versions.
 
 Each 8 x 128 pixel tile walks its EXACT bin of (tile, tri) pairs, entries
 [offsets[t], offsets[t + 1]) of the pair-sorted entry table, and keeps the
@@ -22,6 +23,12 @@ Two entry layouts, one kernel:
     kernel does: fma(A, px, B*py) + G.
 Bins are sorted by triangle id, so both rules let the smallest id win a
 depth tie. Outputs: z and tid f32 [n_tiles, 8, 128], tid -1 = none.
+
+  tile_eval_bins_shaded (B8): the fused-shading walk over 64-channel
+    vertex-form entries (S_*: screen vertices, 1/w and 9 attributes per
+    vertex), two per row, that keeps the winner's perspective-correct
+    attributes and lights them (ambient, one directional, up to L_MAX_PL
+    point lights): rgb f32 [n_tiles, 3, 8, 128], black where nothing hit.
 """
 
 from __future__ import annotations
@@ -195,9 +202,171 @@ def tile_eval_bins(data_packed: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
-def tile_eval_bins_shaded(*args, **kwargs):
-    """The fused visibility + shading walk (``_shaded_kernel``, method
-    'fused') is not ported yet."""
-    raise NotImplementedError(
-        "tile_eval_bins_shaded (the fused-shading walk, method 'fused') is "
-        "not ported to ascii_renderer_tpu_torch yet (ROADMAP B8)")
+# --------------------------------------------------------------------------
+# B8: the fused-shading walk (csrc/raster_shaded.cu)
+# --------------------------------------------------------------------------
+NS_CHAN = 64       # channels per fused-shading entry
+NS_PACK = 2        # entries per 128-lane row
+S_VALID = 0
+S_X0, S_X1, S_X2 = 1, 2, 3
+S_Y0, S_Y1, S_Y2 = 4, 5, 6
+S_Z0, S_Z1, S_Z2 = 7, 8, 9
+S_IW0, S_IW1, S_IW2 = 10, 11, 12
+S_ATTR = 13  # 9 attrs (nx ny nz cr cg cb wx wy wz) x 3 vertices = 27 ch
+S_CHUNK_ROWS = 32
+S_CHUNK = NS_PACK * S_CHUNK_ROWS  # entries per walk chunk
+# light params f32 [64]: 0..2 ambient rgb, 3..5 directional light direction,
+# 6..8 its colour, 9 the point-light count (a float), then point light i at
+# 10 + 6*i: position xyz, colour rgb, up to L_MAX_PL
+L_MAX_PL = 8
+_SHADED_BATCH = 32  # tiles per step of the plain version (bounds its memory)
+
+launches_shaded = 0  # kernel launches by tile_eval_bins_shaded (B8)
+
+
+def _shaded_planes(e, px, py):
+    """Edge functions in vertex form (w_k <= 0 inside, each a*b - c*d with
+    the left product fused) and z = sum_k w_k z_k / area for entries e
+    [..., NS_CHAN] at pixel centres px, py."""
+    x0, x1, x2 = e[..., S_X0], e[..., S_X1], e[..., S_X2]
+    y0, y1, y2 = e[..., S_Y0], e[..., S_Y1], e[..., S_Y2]
+    w0 = fma32(x2 - x1, py - y1, -((y2 - y1) * (px - x1)))
+    w1 = fma32(x0 - x2, py - y2, -((y0 - y2) * (px - x2)))
+    w2 = fma32(x1 - x0, py - y0, -((y1 - y0) * (px - x0)))
+    inv_area = torch.reciprocal((w0 + w1) + w2)
+    # (w0 z0 + w1 z1) + w2 z2: the first two products fuse, then the third
+    z = fma32(w2, e[..., S_Z2], fma32(w0, e[..., S_Z0],
+                                      w1 * e[..., S_Z1])) * inv_area
+    return w0, w1, w2, z
+
+
+def _rsqrt(x):
+    """1 / sqrt(x), both operations IEEE: the kernel's rounding."""
+    return torch.reciprocal(torch.sqrt(x))
+
+
+def tile_eval_bins_shaded_ref(data_packed: torch.Tensor,
+                              offsets: torch.Tensor,
+                              light_params: torch.Tensor, tiles_x: int,
+                              n_tiles: int):
+    """Plain-torch version of ``tile_eval_bins_shaded``. The walk finds
+    each pixel's winner (the first live entry of least z, which is the
+    reference's strict merge in bin order), then the winner's attributes
+    are interpolated and lit once: the reference keeps the interpolation
+    of every better entry, whose last value is the winner's, bit for
+    bit."""
+    dev = data_packed.device
+    inf = float("inf")
+    ent = data_packed.reshape(-1, NS_CHAN)
+    P = ent.shape[0]
+    off = offsets.long()
+    off0, off1 = off[:-1], off[1:]
+    start = (off0 // (8 * NS_PACK)) * (8 * NS_PACK)
+    n_chunks = torch.where(off1 > off0,
+                           (off1 - start + S_CHUNK - 1) // S_CHUNK, 0)
+    t_ids = torch.arange(n_tiles, device=dev)
+    pix = torch.arange(PIX, device=dev)
+    px = ((pix % TILE_W)[None, :] + (t_ids % tiles_x)[:, None] * TILE_W
+          ).to(torch.float32) + 0.5                      # [n_tiles, 1024]
+    py = ((pix // TILE_W)[None, :] + (t_ids // tiles_x)[:, None] * TILE_H
+          ).to(torch.float32) + 0.5
+    zb = torch.full((n_tiles, PIX), inf, device=dev)
+    wb = torch.zeros((n_tiles, PIX), dtype=torch.long, device=dev)
+    e_in = torch.arange(S_CHUNK, device=dev)
+    order = torch.sort(n_chunks, descending=True, stable=True).indices
+    steps = n_chunks[order].tolist()
+    for b in range(0, n_tiles, _SHADED_BATCH):
+        gi = order[b:b + _SHADED_BATCH]
+        for i in range(steps[b]):
+            eidx = (start[gi] + i * S_CHUNK)[:, None] + e_in[None, :]
+            ch = ent[torch.clamp(eidx, max=P - 1)]          # [n, 64, 64]
+            live = ((eidx >= off0[gi, None]) & (eidx < off1[gi, None])
+                    & (ch[..., S_VALID] > 0.0))
+            w0, w1, w2, z = _shaded_planes(ch[:, :, None, :],
+                                           px[gi][:, None, :],
+                                           py[gi][:, None, :])
+            ok = (live[..., None] & (w0 <= 0.0) & (w1 <= 0.0) & (w2 <= 0.0)
+                  & (z >= 0.0) & (z <= 1.0))
+            zm = torch.where(ok, z, inf)                    # [n, 64, 1024]
+            kc = zm.argmin(dim=1, keepdim=True)  # the first of least z
+            zc = zm.gather(1, kc)[:, 0]
+            better = zc < zb[gi]
+            zb[gi] = torch.where(better, zc, zb[gi])
+            wb[gi] = torch.where(better, eidx.gather(1, kc[:, 0]), wb[gi])
+    hit = zb < inf
+    e = ent[torch.where(hit, wb, 0)]                        # [n_tiles, 1024, 64]
+    w0, w1, w2, _z = _shaded_planes(e, px, py)
+    # perspective-correct barycentrics
+    bw0, bw1, bw2 = (w * e[..., c] for w, c in ((w0, S_IW0), (w1, S_IW1),
+                                                 (w2, S_IW2)))
+    dnm = (bw0 + bw1) + bw2
+    inv_dnm = torch.reciprocal(torch.where(dnm.abs() < 1e-30, 1e-30, dnm))
+    p0, p1, p2 = bw0 * inv_dnm, bw1 * inv_dnm, bw2 * inv_dnm
+    nx, ny, nz, cr, cg, cb, wx, wy, wz = (
+        fma32(p2, e[..., S_ATTR + 18 + a],
+              fma32(p0, e[..., S_ATTR + a], p1 * e[..., S_ATTR + 9 + a]))
+        for a in range(9))
+    # lighting: ambient + one directional + up to L_MAX_PL point lights;
+    # torch.clamp keeps NaN, as the reference's max and clip do
+    lp = light_params
+    inv_nl = _rsqrt(torch.clamp(fma32(nz, nz, fma32(nx, nx, ny * ny)),
+                                min=1e-24))
+    nx, ny, nz = nx * inv_nl, ny * inv_nl, nz * inv_nl
+    ndl = torch.clamp(-fma32(nz, lp[5], fma32(nx, lp[3], ny * lp[4])),
+                      min=0.0)
+    lit = [fma32(lp[6 + k], ndl, lp[k]) for k in range(3)]
+    out = [c * lit[k] for k, c in enumerate((cr, cg, cb))]
+    for i in range(L_MAX_PL):
+        base = 10 + 6 * i
+        lx, ly, lz = lp[base] - wx, lp[base + 1] - wy, lp[base + 2] - wz
+        d2 = torch.clamp(fma32(lz, lz, fma32(lx, lx, ly * ly)), min=1e-4)
+        ndlp = torch.clamp(fma32(nz, lz, fma32(nx, lx, ny * ly))
+                           * _rsqrt(d2), min=0.0)
+        att = torch.reciprocal(fma32(d2, 0.05, 1.0))
+        on = torch.where(lp[9] > i + 0.5, ndlp * att, 0.0)
+        for k, c in enumerate((cr, cg, cb)):
+            # out + (c * col) * on: the first light's add sees two products
+            # and fuses the left one, c * lit
+            if i == 0:
+                out[k] = fma32(c, lit[k], (c * lp[base + 3 + k]) * on)
+            else:
+                out[k] = fma32(c * lp[base + 3 + k], on, out[k])
+    rgb = torch.stack([torch.where(hit, torch.clamp(o, 0.0, 1.0), 0.0)
+                       for o in out], dim=1)
+    return rgb.view(n_tiles, 3, TILE_H, TILE_W)
+
+
+def tile_eval_bins_shaded(data_packed: torch.Tensor, offsets: torch.Tensor,
+                          light_params: torch.Tensor, tiles_x: int,
+                          n_tiles: int):
+    """B8: the fused walk + perspective-correct interpolation + fragment
+    lighting. data_packed f32 [P/2, 128] (NS_CHAN-channel entries, two per
+    row, with >= S_CHUNK + 16 inert trailing entries), offsets i32
+    [n_tiles+1] in entry units, light_params f32 [64] (layout above) ->
+    rgb f32 [n_tiles, 3, 8, 128]. CPU tensors run the plain version; CUDA
+    tensors launch the kernel once (one block per tile)."""
+    if data_packed.dim() != 2 or data_packed.shape[1] != NS_PACK * NS_CHAN:
+        raise ValueError(f"tile_eval_bins_shaded: expected [P/2, 128], got "
+                         f"{tuple(data_packed.shape)}")
+    _check(data_packed, offsets, n_tiles, "tile_eval_bins_shaded")
+    if light_params.shape != (64,) or light_params.dtype != torch.float32:
+        raise ValueError("tile_eval_bins_shaded: light_params must be f32 [64]")
+    if data_packed.device.type == "cpu":
+        return tile_eval_bins_shaded_ref(data_packed, offsets, light_params,
+                                         tiles_x, n_tiles)
+    global launches_shaded
+    _build.require_cuda(data_packed, offsets, light_params,
+                        what="tile_eval_bins_shaded")
+    if data_packed.data_ptr() % 16:
+        raise ValueError("tile_eval_bins_shaded: data must be 16-byte aligned")
+    rgb = torch.empty((n_tiles, 3, TILE_H, TILE_W), dtype=torch.float32,
+                      device=data_packed.device)
+    if n_tiles:
+        err = _build.lib().shaded_walk_launch(
+            data_packed.data_ptr(), offsets.data_ptr(),
+            light_params.data_ptr(), rgb.data_ptr(), n_tiles, tiles_x,
+            data_packed.numel() // NS_CHAN,
+            _build.stream_ptr(data_packed.device))
+        _build.check(err, "shaded_walk_launch")
+    launches_shaded += 1
+    return rgb

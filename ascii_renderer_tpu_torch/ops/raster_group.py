@@ -284,11 +284,17 @@ def build_groups_direct(src32: torch.Tensor, pair_key: torch.Tensor,
 _REF_BATCH = 32   # groups per step of the plain walks (bounds their memory)
 
 
+def _plane_fused(a, b, c, x, y):
+    """(C + A*x) + B*y, both products fused."""
+    return fma32(b, y, fma32(a, x, c))
+
+
 def _walk_ref(fetch, nsteps: torch.Tensor, gdepth, gskip, xl, yl,
-              grp_cap: int):
-    """The walks' shared body. Group t takes nsteps[t] steps (a CHUNK_RG
+              grp_cap: int, *, chunk: int = CHUNK_RG, plane=_plane_fused):
+    """The walks' shared body. Group t takes nsteps[t] steps (a ``chunk``
     multiple); step i tests entry idx = i of each slot, chunk c of groups
-    gi being ``fetch(gi, c)`` -> [len(gi), CHUNK_RG, 8, 16] entry channels.
+    gi being ``fetch(gi, c)`` -> [len(gi), chunk, 8, 16] entry channels,
+    each plane evaluated as ``plane(A, B, C, x, y)``.
     A pixel keeps the first live covering entry of least z: inside a chunk
     the least index attaining the chunk's minimum, across chunks a strict
     less-than, which is the kernels' entry-by-entry strict merge. Groups
@@ -296,10 +302,10 @@ def _walk_ref(fetch, nsteps: torch.Tensor, gdepth, gskip, xl, yl,
     dev = xl.device
     inf = float("inf")
     order = torch.sort(nsteps, descending=True, stable=True).indices
-    counts = (nsteps[order] // CHUNK_RG).tolist()
+    counts = (nsteps[order] // chunk).tolist()
     zb = torch.full((grp_cap, TILE_H, N_SUB, SUB_W), inf, device=dev)
     eb = torch.full((grp_cap, TILE_H, N_SUB, SUB_W), -1.0, device=dev)
-    r_iota = torch.arange(CHUNK_RG, device=dev).view(1, CHUNK_RG, 1, 1, 1)
+    r_iota = torch.arange(chunk, device=dev).view(1, chunk, 1, 1, 1)
     # [group, 1, row, slot, lane] pixel centres
     xs_all = xl.view(grp_cap, 1, 1, N_SUB, SUB_W)
     ys_all = ((torch.arange(TILE_H, dtype=torch.float32, device=dev) + 0.5)
@@ -317,23 +323,22 @@ def _walk_ref(fetch, nsteps: torch.Tensor, gdepth, gskip, xl, yl,
             ent = fetch(gi, c)[:, :, None]
             xs, ys = xs_all[gi], ys_all[gi]
 
-            def plane(ca, cb, cc):  # (C + A*x) + B*y, both products fused
-                return fma32(ent[..., cb:cb + 1], ys,
-                             fma32(ent[..., ca:ca + 1], xs,
-                                   ent[..., cc:cc + 1]))
+            def planes(ca, cb, cc):
+                return plane(ent[..., ca:ca + 1], ent[..., cb:cb + 1],
+                             ent[..., cc:cc + 1], xs, ys)
 
-            ok = (plane(CH_A[0], CH_B[0], CH_G[0]) <= 0.0)
-            ok &= plane(CH_A[1], CH_B[1], CH_G[1]) <= 0.0
-            ok &= plane(CH_A[2], CH_B[2], CH_G[2]) <= 0.0
-            z = plane(CH_ZX, CH_ZY, CH_ZC)
+            ok = (planes(CH_A[0], CH_B[0], CH_G[0]) <= 0.0)
+            ok &= planes(CH_A[1], CH_B[1], CH_G[1]) <= 0.0
+            ok &= planes(CH_A[2], CH_B[2], CH_G[2]) <= 0.0
+            z = planes(CH_ZX, CH_ZY, CH_ZC)
             ok &= (z >= 0.0) & (z <= 1.0)
-            idx = c * CHUNK_RG + r_iota
+            idx = c * chunk + r_iota
             skp = skp_all[gi]
             ok &= (idx >= skp) & (idx < skp + dep_all[gi])
             zm = torch.where(ok, z, inf)           # [g, entry, row, slot, lane]
             first = torch.where(zm == zm.amin(dim=1, keepdim=True), r_iota,
-                                CHUNK_RG).amin(dim=1, keepdim=True)
-            first = torch.clamp(first, max=CHUNK_RG - 1)  # all-inf: entry 0
+                                chunk).amin(dim=1, keepdim=True)
+            first = torch.clamp(first, max=chunk - 1)  # all-inf: entry 0
             zc = zm.gather(1, first)[:, 0]
             ec = ent[..., CH_PAIR:CH_PAIR + 1].expand(zm.shape).gather(
                 1, first)[:, 0]

@@ -44,7 +44,18 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      subtile6's K4 layouts) z and ids bit for bit; the fused setup+pack
      B10 bit for bit against its plain version and against B2 then B3
      (sign of zero included), and timed beside B2 + B3; B7 at the wide
-     pack of subtile3 / subtile4.
+     pack of subtile3 / subtile4;
+   - the retired generations' kernels on the inputs their paths give them
+     (captured from one call of each path on the bunny at the golden pose:
+     fused, subtile and subtile2 at the caps a diagnostic pass and
+     suggest_caps_subtile settle on, visibility_subtile at subtile's):
+     the fused-shading walk B8 rgb bit for bit (also on the demo room with
+     its point light), the subtile walks B9a (expanded rows), B9b (packed
+     rows) and B9c (packed rows, depth mask) z and ids bit for bit (also
+     on a random 64x512 soup, 4 tiles across, at generous and overflowing
+      caps), and B9a against B9b on the same bunny bins: z within 1e-5
+     where the ids agree, ids differing (edges through pixel centres,
+     rounded apart) at most at 6 pixels.
 4. Drives each main path as a user would, every launch count set to 0
    just before the path and read just after:
    - raster: RasterBackend.set_soup(bunny), render 960x540, glyph_decide
@@ -55,6 +66,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      method=g) and the glyph pass: subtile8, subtile3 .. subtile7, and
      subtile8 under SETUP_PACKED; each frame 0 must give the checksum and
      an rgb frame bit-identical to subtile8's; then 10 timed frames each;
+   - the retired generations at 960x540 on the bunny: render_soup(method=
+     "fused"), "subtile" and "subtile2" (at their settled caps) through
+     the glyph pass, frame 0's checksum printed and its count of pixels
+     over 2e-3 from subtile8's frame within 6 of the reference's own
+     count (ORACLE_REF_DIFF), then 10 timed frames each; and
+     visibility_subtile (B9a), 10 timed calls;
    - path tracer, reference run: Renderer(cfg, "pathtrace") on the demo
      scene with its atlas, 96x36, spp 64, 5 bounces, NEE; a fresh
      spp-2 / 2-bounce frame 0 at the poster pose must equal the port's
@@ -563,6 +580,337 @@ def run_generations_path(dev, soup, scene):
     return lambda: frame("subtile3", False)
 
 
+# --------------------------------------------------------------------------
+# The retired generations: fused shading (B8), subtile (B9b), subtile2
+# (B9c) and visibility_subtile (B9a)
+# --------------------------------------------------------------------------
+# B8 operations per (entry, pixel): three vertex-form edges (2 subtracts, a
+# product and a fused multiply-add each), the area, its reciprocal, z, six
+# tests and the merge; per pixel the interpolation of a win and the
+# lighting of up to 8 point lights
+B8_OPS, B8_OPS_PIXEL = 30, 400
+# Pixels over 2e-3 between the reference's own frame of each retired
+# generation and its subtile8 frame, the bunny at the golden pose, 960x540
+# (JAX on the CPU; tests/test_torch_raster_oracles.py pins them): fused and
+# subtile take their edges from the clip-expansion screen setup, subtile2
+# from the same 2-D homogeneous planes as subtile8. The port's counts must
+# stay within ORACLE_SLACK of them, JAX's own frame-to-frame bound (6
+# pixels, tests/test_raster_channels.py), which also bounds B9a's winners
+# against B9b's.
+ORACLE_REF_DIFF = {"fused": 1892, "subtile": 1891, "subtile2": 0}
+ORACLE_SLACK = 6
+
+
+def _capture(mod, name, run):
+    """Run ``run()`` with ``mod.name`` recording the arguments of its first
+    call: the inputs a path gives a kernel wrapper. Returns (args,
+    kwargs)."""
+    orig = getattr(mod, name)
+    seen = []
+
+    def rec(*a, **k):
+        seen.append((a, k))
+        return orig(*a, **k)
+
+    setattr(mod, name, rec)
+    try:
+        run()
+    finally:
+        setattr(mod, name, orig)
+    assert seen, f"{name} was not called"
+    return seen[0]
+
+
+def _oracle_caps(dev, soup, scene, kernel):
+    """A user's caps for render_soup(method=kernel): a diagnostic pass at
+    lean caps (which the bunny overflows), then suggest_caps_subtile
+    retries until nothing is dropped. Returns (caps dict, tries)."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import raster_subtile as RS
+    p, n, c = (torch.as_tensor(x).to(dev) for x in soup)
+    n2t = p.shape[0] // 3 * 2
+    caps = dict(v_cap=min(n2t, RS.MAX_TRI - 4096), big_cap=64,
+                r_cap=1024, pair_cap=4096, tile_cap=None)
+    for tries in range(1, 5):
+        _rgb, diag = R.render_soup_diag(p, n, c, scene, _golden_camera(),
+                                        ROWS, COLS, PIXEL_ASPECT,
+                                        kernel=kernel, **caps)
+        counts = [int(diag[k]) for k in ("n_valid", "n_big", "n_rows",
+                                         "n_pairs", "n_tiles_nz")]
+        print(f"{kernel} caps {caps}: counts {counts}", flush=True)
+        if all(x <= (cap if cap is not None else x) for x, cap in zip(
+                counts[1:], (caps["big_cap"], caps["r_cap"],
+                             caps["pair_cap"], caps["tile_cap"]))) and (
+                kernel == "subtile2" or counts[0] <= caps["v_cap"]):
+            return caps, tries
+        caps = dict(zip(("v_cap", "big_cap", "r_cap", "pair_cap",
+                         "tile_cap"), R.suggest_caps_subtile(*counts)))
+    raise AssertionError(f"{kernel}: caps did not settle: {caps}")
+
+
+def _oracle_frame(dev, soup, scene, method, caps):
+    """render_soup(method=...) of the bunny at the golden pose."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    p, n, c = (torch.as_tensor(x).to(dev) for x in soup)
+    return lambda: R.render_soup(p, n, c, scene, _golden_camera(), ROWS,
+                                 COLS, PIXEL_ASPECT, method=method, **caps)
+
+
+def _visibility_subtile_call(dev, soup, caps):
+    """visibility_subtile (B9a) as tools call it: on the bunny's compacted
+    clip channels at the subtile path's caps."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    p = torch.as_tensor(soup[0]).to(dev)
+    mvp = R.camera_mvp(_golden_camera(), ROWS, COLS, PIXEL_ASPECT)
+    ch = R.setup_screen_channels(R.transform_clip_channels(p, mvp), ROWS,
+                                 COLS)
+    cch = R.compact_valid_ch(ch, caps["v_cap"])[0]
+    return lambda: R.visibility_subtile(
+        cch, ROWS, COLS, big_cap=caps["big_cap"], r_cap=caps["r_cap"],
+        pair_cap=caps["pair_cap"])
+
+
+def _check_walk(label, fn, ref, args, kw=None):
+    """A subtile walk against its plain version: ids and depth bits equal.
+    Returns (z, e, plain ms)."""
+    import torch
+    kw = kw or {}
+    z_k, e_k = fn(*args, **kw)
+    (z_r, e_r), plain = _event_once(lambda: ref(*args, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(e_k, e_r), f"{label}: ids differ"
+    assert torch.equal(z_k.view(torch.int32), z_r.view(torch.int32)), \
+        f"{label}: depths differ"
+    print(f"{label}: exact, {int((e_k >= 0).sum())} lit pixels, plain "
+          f"{plain:.1f} ms", flush=True)
+    return z_k, e_k, plain
+
+
+def _check_b8(label, args):
+    """B8 against its plain version: rgb bit for bit (-0.0 folded).
+    Returns (rgb, plain ms)."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import raster_bins as RB
+    rgb = RB.tile_eval_bins_shaded(*args)
+    want, plain = _event_once(lambda: RB.tile_eval_bins_shaded_ref(*args))
+    torch.cuda.synchronize()
+    assert torch.equal((rgb + 0.0).view(torch.int32),
+                       (want + 0.0).view(torch.int32)), f"B8 {label}: differs"
+    lit = int((rgb.amax(1) > 0).sum())
+    assert lit > 1000, (label, lit)
+    print(f"B8 {label}: bit-identical, {lit} lit pixels, "
+          f"{int(args[1][-1])} bin entries, plain {plain:.1f} ms", flush=True)
+    return rgb, plain
+
+
+def _random_subtile_layouts(dev, caps):
+    """A random 64x512 soup (4 tiles across: tile x offsets up to 384) as
+    the three walks' layouts: {walk: (args, kernel wrapper, plain)}."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.ops import raster_subtile as RS
+    from ascii_renderer_tpu_torch.ops import setup2dh as S
+    rows, cols, T = 64, 512, 3000
+    rng = np.random.default_rng(5)
+    pos = torch.from_numpy(rng.uniform(-2, 2, (T, 9)).astype(np.float32))
+    pos9 = pos.view(T, 3, 3).permute(1, 2, 0).reshape(9, T).contiguous()
+    attrs_t = torch.from_numpy(rng.uniform(-1, 1, (18, T)).astype(
+        np.float32))
+    mvp = R.camera_mvp(Camera.create(pos=(2.5, 1.5, 3.0), yaw=-2.3,
+                                     pitch=-0.3), rows, cols, PIXEL_ASPECT)
+    cm, bbox = S.setup_2dh_fused(pos9.to(dev), attrs_t.to(dev), mvp, rows,
+                                 cols)
+    src16 = cm.view(cm.shape[0], -1)[:16].t().contiguous()
+    keys = R._subtile_pair_keys_bbox(bbox, rows, cols, big_cap=1024)
+    out = {}
+    for walk, build, name in (("B9a", "build_subtile_rows",
+                               "tile_eval_subtile"),
+                              ("B9b", "build_packed_rows",
+                               "tile_eval_packed"),
+                              ("B9c", "build_packed_rows_pre_id",
+                               "tile_eval_packed_d")):
+        lay = getattr(RS, build)(src16, keys, 4, 32, *caps)
+        args = (*lay[:3 if walk == "B9c" else 2], 4, 32)
+        out[walk] = (args, getattr(RS, name), getattr(RS, name + "_ref"))
+    return out
+
+
+def check_oracle_kernels(dev, soup, scene, caps):
+    """B8, B9a, B9b and B9c against their plain versions: at the inputs
+    their paths give them on the bunny at the golden pose (captured from
+    one call of each path), B8 also on the demo room with a point light,
+    the subtile walks also on a random 4-tile-wide soup at generous and
+    overflowing caps; then B9a against B9b on the same bunny bins. Returns
+    the four records, timed at the bunny's shapes."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import raster_bins as RB
+    from ascii_renderer_tpu_torch.ops import raster_subtile as RS
+    recs = {}
+
+    # B8: the bunny's fused frame, and the demo room with a point light
+    args, _kw = _capture(RB, "tile_eval_bins_shaded", _oracle_frame(
+        dev, soup, scene, "fused", {}))
+    rgb, plain = _check_b8("bunny golden pose", args)
+    entries = int(args[1][-1])
+    bound = _bound(160 * entries + _nbytes(args[1], args[2], rgb),
+                   B8_OPS * 1024 * entries + B8_OPS_PIXEL * rgb.numel() // 3)
+    ms = _device_ms(lambda: RB.tile_eval_bins_shaded(*args),
+                    "shaded_walk_kernel")
+    recs["B8"] = _rec("raster_bins_walk_shaded", "raster_shaded.cu",
+                      "raster_bins.py:292", 0.0, ms, plain, bound)
+    print(f"B8 bunny: kernel {ms:.4f} ms, bound {bound[0]:.5f} ms "
+          f"({bound[1]})", flush=True)
+    del args, rgb
+    rscene, rsoup = _room(dev, point_light=True)
+    assert int(rscene.n_pt) == 1
+    rargs, _kw = _capture(RB, "tile_eval_bins_shaded", lambda: R.render_soup(
+        *rsoup, rscene, rscene.camera, 36, 96, PIXEL_ASPECT, method="fused"))
+    _check_b8("demo room 96x36, point light", rargs)
+
+    # B9b and B9c on the bunny's subtile / subtile2 paths, B9a on
+    # visibility_subtile's
+    for walk, mod_name, run, method in (
+            ("B9b", "tile_eval_packed", _oracle_frame(
+                dev, soup, scene, "subtile", caps["subtile"]), "subtile"),
+            ("B9c", "tile_eval_packed_d", _oracle_frame(
+                dev, soup, scene, "subtile2", caps["subtile2"]), "subtile2"),
+            ("B9a", "tile_eval_subtile", _visibility_subtile_call(
+                dev, soup, caps["subtile"]), "visibility_subtile")):
+        wargs, _kw = _capture(RS, mod_name, run)
+        fn, ref = getattr(RS, mod_name), getattr(RS, mod_name + "_ref")
+        z, e, plain = _check_walk(f"{walk} bunny ({method})", fn, ref, wargs)
+        depth = (wargs[2] if walk == "B9c" else None)
+        live = _live_pairs(wargs[0], wargs[1], depth, walk)
+        bound = _bound(64 * live + _nbytes(wargs[1], z, e),
+                       20 * 128 * live)
+        kname = "subtile_walk_kernel"
+        ms = _device_ms(lambda: fn(*wargs), kname)
+        recs[walk] = _rec(
+            {"B9a": "raster_subtile_walk", "B9b": "raster_subtile_walk_packed",
+             "B9c": "raster_subtile_walk_packed_d"}[walk],
+            "raster_subtile.cu",
+            {"B9a": "raster_subtile.py:60", "B9b": "raster_subtile.py:274",
+             "B9c": "raster_subtile.py:433"}[walk], 0.0, ms, plain, bound)
+        print(f"{walk} bunny: kernel {ms:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]}), {live} live pairs, r_cap {wargs[0].shape[0]}",
+              flush=True)
+
+    # B9a against B9b on the same bunny bins, both reporting triangle ids
+    bargs, bkw = _capture(RS, "build_packed_rows", _oracle_frame(
+        dev, soup, scene, "subtile", caps["subtile"]))
+    lay_p = RS.build_packed_rows(*bargs, **bkw)
+    lay_e = RS.build_subtile_rows(*bargs, **bkw)
+    z_p, e_p = RS.tile_eval_packed(*lay_p[:2], *bargs[2:4])
+    z_e, e_e = RS.tile_eval_subtile(*lay_e[:2], *bargs[2:4])
+    torch.cuda.synchronize()
+    # the two round their planes differently (ops/raster_subtile.py), so
+    # where an edge passes through a pixel centre one may cover it and the
+    # other not, and the pixel takes another winner
+    same = e_e == e_p
+    hit = same & (e_p >= 0)
+    err = float((z_e[hit] - z_p[hit]).abs().max())
+    both = ~same & (e_e >= 0) & (e_p >= 0)
+    n_diff = int((~same).sum())
+    gap = float((z_e[both] - z_p[both]).abs().max()) if bool(
+        both.any()) else 0.0
+    print(f"B9a vs B9b on the bunny's bins: {int(hit.sum())} lit pixels "
+          f"with equal ids, z max diff {err}, z words differ "
+          f"{int((z_e[hit] != z_p[hit]).sum())}; ids differ at {n_diff} "
+          f"pixels ({int(both.sum())} lit by both, depth gap up to {gap}; "
+          f"{n_diff - int(both.sum())} lit by one)", flush=True)
+    assert err <= 1e-5, f"B9a and B9b: z differs by {err}"
+    assert n_diff <= ORACLE_SLACK, f"B9a and B9b: {n_diff} ids differ"
+    del lay_p, lay_e
+
+    # the random 4-tile-wide soup at generous and overflowing caps
+    for label, wcaps in (("generous", (8192, 1 << 16)),
+                         ("overflow", (256, 2048))):
+        for walk, (wargs, fn, ref) in _random_subtile_layouts(
+                dev, wcaps).items():
+            _check_walk(f"{walk} random 64x512 {label} caps", fn, ref, wargs)
+    return [recs["B8"], recs["B9a"], recs["B9b"], recs["B9c"]]
+
+
+def _live_pairs(rows, rowptr, depth, walk):
+    """Live (bin, triangle) pairs a subtile walk tests: B9c's from its
+    depth mask, B9a's and B9b's the layout rows' slots whose entry is not
+    the inert row (G0 = +1 with A0 = B0 = 0)."""
+    import torch
+    if depth is not None:
+        return int(depth.sum())
+    n = int(rowptr[-1])
+    if walk == "B9a":  # lane 16 g of each channel
+        ent = rows[:n, :, ::16].transpose(1, 2)
+    else:
+        ent = rows[:n].view(n, 8, 16)
+    inert = (ent[..., 2] == 1.0) & (ent[..., 0] == 0.0) & (ent[..., 1] == 0.0)
+    return int((~inert).sum())
+
+
+def run_oracle_paths(dev, soup, scene, caps, counters):
+    """The retired generations at 960x540 as a user calls them, each with
+    every launch count set to 0 just before and read just after: frame 0
+    through the glyph pass (checksum printed; its pixels over 2e-3 from
+    subtile8's frame within ORACLE_SLACK of ORACLE_REF_DIFF), then 10 timed
+    frames; and visibility_subtile. Returns {path: counts} and a function
+    rendering one fused frame through the glyph pass."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.core.frame import Frame
+    cfg = Config(pixel_aspect=PIXEL_ASPECT)
+    p = soup[0]
+    ref = _oracle_frame(dev, soup, scene, "subtile8",
+                        _golden_caps(p.shape[0] // 3))()
+    out = {}
+    fused_fn = None
+    for method in ("fused", "subtile", "subtile2"):
+        frame = _oracle_frame(dev, soup, scene, method, caps.get(method, {}))
+
+        def run(frame=frame, method=method):
+            box = {}
+            (ms,) = _timed(lambda: box.update(rgb=frame()), 1)
+            rgb = box["rgb"]
+            chars = _glyph(Frame.from_float(rgb), cfg)
+            assert tuple(chars.shape) == (ROWS, COLS) and torch.isfinite(
+                rgb).all()
+            total = int(chars.cpu().numpy().astype(np.uint64).sum())
+            bad = int(((rgb - ref).abs().amax(-1) > 2e-3).sum())
+            want = ORACLE_REF_DIFF[method]
+            print(f"{method} frame 0: {ms:.3f} ms, checksum {total} "
+                  f"({'equals' if total == BUNNY_CHECKSUM else 'differs from'}"
+                  f" {BUNNY_CHECKSUM}), {bad} pixels over 2e-3 from "
+                  f"subtile8's frame (the reference's own: {want})",
+                  flush=True)
+            assert abs(bad - want) <= ORACLE_SLACK, (method, bad, want)
+            _summary(f"{method} steady (golden pose)", _timed(
+                lambda: _glyph(Frame.from_float(frame()), cfg), 10))
+
+        out[method], _ = _path_counts(counters, run)
+        print(f"launches on the {method} path: {out[method]}", flush=True)
+        if method == "fused":
+            fused_fn = frame
+    vis = _visibility_subtile_call(dev, soup, caps["subtile"])
+
+    def run_vis():
+        zbuf, eidx, _tri, n_rows, _n_pairs = vis()
+        assert int(n_rows) <= caps["subtile"]["r_cap"]
+        print(f"visibility_subtile: {int((eidx >= 0).sum())} lit pixels",
+              flush=True)
+        _summary("visibility_subtile (B9a) steady", _timed(vis, 10))
+
+    out["visibility_subtile"], _ = _path_counts(counters, run_vis)
+    print(f"launches on visibility_subtile: {out['visibility_subtile']}",
+          flush=True)
+    return out, lambda: _glyph(Frame.from_float(fused_fn()), cfg)
+
+
 def check_modal(dev):
     """B4 against its plain version: 540x960 and 36x96, radius 1..3,
     random indices and override masks; exactly equal. Timed at the raster
@@ -936,8 +1284,9 @@ GOLDEN_CUBE = os.path.join(ROOT, "tests", "goldens", "raster_cube.txt")
 B6_OPS = 4 * 4 + 5 + 1
 
 
-def _room(dev):
-    """The demo room of entry(): scene (atlas, env light) and its soup."""
+def _room(dev, point_light=False):
+    """The demo room of entry(): scene (atlas, env light; a point light
+    added if asked) and its soup."""
     import torch
     from ascii_renderer_tpu_torch.atlas.io import demo_atlas
     from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
@@ -945,6 +1294,8 @@ def _room(dev):
     sb = create_demo_scene()
     sb.set_atlas(demo_atlas())
     sb.set_env_light([0.25, 0.27, 0.3], 1.0)
+    if point_light:
+        sb.add_point_light([1.0, 2.0, 1.0], [1.0, 0.9, 0.8], 1.0)
     scene = sb.build(device=dev)
     return scene, tuple(torch.from_numpy(x).to(dev)
                         for x in tessellate_scene(scene))
@@ -1333,6 +1684,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
     from ascii_renderer_tpu_torch.ops import raster_group as RG
+    from ascii_renderer_tpu_torch.ops import raster_subtile as RS
     from ascii_renderer_tpu_torch.ops import setup2dh as S
 
     t_start = time.perf_counter()
@@ -1362,7 +1714,11 @@ def main() -> int:
                 "raster_group_walk_grouped": (RG, "launches_grouped"),
                 "raster_group_walk_direct": (RG, "launches_direct"),
                 "raster_group_walk_k2": (RG, "launches_k2"),
-                "setup2dh_packed": (S, "launches_packed")}
+                "setup2dh_packed": (S, "launches_packed"),
+                "raster_bins_walk_shaded": (RB, "launches_shaded"),
+                "raster_subtile_walk": (RS, "launches"),
+                "raster_subtile_walk_packed": (RS, "launches_packed"),
+                "raster_subtile_walk_packed_d": (RS, "launches_packed_d")}
     soup = _bunny()
     scene = _scene(dev)
     recs = check_kernels(dev, soup, scene)
@@ -1395,6 +1751,27 @@ def main() -> int:
         r["launches"] = c_gen[r["name"]]
     profile_frames(gen_fn, 5, ("raster.", "frame.", "glyph"),
                    "subtile3 golden call")
+
+    # the retired generations: B8, B9a, B9b and B9c against their plain
+    # versions, then fused, subtile, subtile2 and visibility_subtile
+    caps = {}
+    for kernel in ("subtile", "subtile2"):
+        caps[kernel], tries = _oracle_caps(dev, soup, scene, kernel)
+        print(f"{kernel}: caps {caps[kernel]} after {tries} diagnostic "
+              f"passes", flush=True)
+    oracle_recs = check_oracle_kernels(dev, soup, scene, caps)
+    recs += oracle_recs
+    c_or, fused_fn = run_oracle_paths(dev, soup, scene, caps, counters)
+    for rec, path in zip(oracle_recs, ("fused", "visibility_subtile",
+                                       "subtile", "subtile2")):
+        assert c_or[path][rec["name"]] > 0, \
+            f"{rec['name']} never launched on the {path} path"
+        rec["launches"] = c_or[path][rec["name"]]
+    for path in ("fused", "subtile", "subtile2"):
+        assert c_or[path]["modal_vote"] > 0, f"B4 not launched on {path}"
+    assert c_or["subtile2"]["pack_channels"] > 0, "B7 not launched: subtile2"
+    profile_frames(fused_fn, 3, ("raster.", "frame.", "glyph"),
+                   "fused golden pose")
 
     # path tracer: frame 0 against the CPU render, then the reference run
     # (96x36, spp 64, 5 bounces) and the HD arm (960x540, spp 8)
@@ -1462,7 +1839,8 @@ def main() -> int:
     for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels",
               "pack_channels_split"):
         by_name[k]["launches"] = sum(
-            c[k] for c in (c_gen, c_entry, c_cube, c_tea, c_mid, c_pts))
+            c[k] for c in (c_gen, c_entry, c_cube, c_tea, c_mid, c_pts,
+                           *c_or.values()))
     # pack_channels_split has no caller on a driven path (the reference
     # calls it only from its exactness probe): its launches stay 0
 

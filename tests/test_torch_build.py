@@ -19,6 +19,7 @@ from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import pack as PK
 from ascii_renderer_tpu_torch.ops import raster_bins as RB
 from ascii_renderer_tpu_torch.ops import raster_group as RG
+from ascii_renderer_tpu_torch.ops import raster_subtile as RS
 from ascii_renderer_tpu_torch.ops import setup2dh as S
 
 torch.set_num_threads(2)
@@ -26,8 +27,8 @@ torch.set_num_threads(2)
 KERNEL_MODULES = (S, PK, RG)
 
 
-def _walk_inputs(device, T=1500, n_attrs=6, seed=0):
-    """Setup inputs and the grouped-walk layout of a random 48x96 frame."""
+def _walk_inputs(device, T=1500, n_attrs=6, seed=0, rows=48, cols=96):
+    """Setup inputs of a random rows x cols frame."""
     rng = np.random.default_rng(seed)
     pos = rng.uniform(-2, 2, (3 * T, 3)).astype(np.float32)
     attrs = rng.uniform(-1, 1, (3 * T, n_attrs)).astype(np.float32)
@@ -36,7 +37,7 @@ def _walk_inputs(device, T=1500, n_attrs=6, seed=0):
     attrs_t = torch.from_numpy(attrs).reshape(T, 3 * n_attrs).t().contiguous(
         ).to(device)
     mvp = R.camera_mvp(Camera.create(pos=(2.5, 1.5, 3.0), yaw=-2.3,
-                                     pitch=-0.3), 48, 96, 0.5)
+                                     pitch=-0.3), rows, cols, 0.5)
     return pos9, attrs_t, mvp
 
 
@@ -69,7 +70,8 @@ COUNTERS = ((S, "launches"), (PK, "launches"), (RG, "launches"),
             (PK, "launches_channels"), (PK, "launches_split"),
             (RB, "launches"), (RB, "launches_loop"), (S, "launches_packed"),
             (RG, "launches_grouped"), (RG, "launches_direct"),
-            (RG, "launches_k2"))
+            (RG, "launches_k2"), (RB, "launches_shaded"), (RS, "launches"),
+            (RS, "launches_packed"), (RS, "launches_packed_d"))
 
 
 @pytest.fixture
@@ -114,6 +116,78 @@ def test_cpu_tensors_run_the_generations_plain_versions(zero_counts):
         assert (e >= 0).sum() > 100
     assert (S.launches_packed, RG.launches_grouped, RG.launches_direct,
             RG.launches_k2) == (0, 0, 0, 0)
+
+
+# channel-era subtile walk -> (layout builder, kernel wrapper, plain version)
+SUBTILE_WALKS = {
+    "B9a": ("build_subtile_rows", "tile_eval_subtile"),
+    "B9b": ("build_packed_rows", "tile_eval_packed"),
+    "B9c": ("build_packed_rows_pre_id", "tile_eval_packed_d"),
+}
+SUBTILE_GRID = (64, 512)  # 4 x 8 tiles: tile x offsets 0 .. 384
+SUBTILE_CAPS = {"generous": (8192, 1 << 16), "overflow": (256, 2048)}
+
+
+def _subtile_layout(device, walk, caps):
+    """(layout args, kernel wrapper, plain version) of a channel-era walk
+    on a random 64x512 frame's 2-D homogeneous walk entries (channel 12
+    the triangle id); caps (r_cap, pair_cap)."""
+    rows, cols = SUBTILE_GRID
+    pos9, attrs_t, mvp = _walk_inputs(device, T=3000, seed=5, rows=rows,
+                                      cols=cols)
+    cm, bbox = S.setup_2dh_fused_ref(pos9, attrs_t, mvp, rows, cols)
+    src16 = cm.view(cm.shape[0], -1)[:16].t().contiguous()
+    keys = R._subtile_pair_keys_bbox(bbox, rows, cols, big_cap=1024)
+    build, name = SUBTILE_WALKS[walk]
+    lay = getattr(RS, build)(src16, keys, 4, 32, *caps)
+    args = lay[:3] if walk == "B9c" else lay[:2]
+    return (*args, 4, 32), getattr(RS, name), getattr(RS, name + "_ref")
+
+
+def _fused_inputs(device, scene_name):
+    """B8's entries and light vector: the demo room at 96x36, or a random
+    soup with a point light at 384x48 (tiles_x = 3)."""
+    from ascii_renderer_tpu_torch.backends import raster_oracles as RO
+    from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
+    from ascii_renderer_tpu_torch.scene.builder import SceneBuilder
+    from ascii_renderer_tpu_torch.scene.demo import create_demo_scene
+    if scene_name == "room":
+        scene = create_demo_scene().build(device=device)
+        p, n, c = (torch.from_numpy(x).to(device)
+                   for x in tessellate_scene(scene))
+        cam, rows, cols = scene.camera, 36, 96
+    else:
+        rng = np.random.default_rng(9)
+        T = 2000
+        p, n, c = (torch.from_numpy(rng.uniform(lo, 2, (3 * T, 3)).astype(
+            np.float32)).to(device) for lo in (-2, -1, 0.2))
+        scene = (SceneBuilder().set_env_light([0.15, 0.15, 0.2], 1.0)
+                 .add_point_light([1.0, 2.0, 1.0], [1.0, 0.9, 0.8], 1.0)
+                 .build(device=device))
+        cam = Camera.create(pos=(2.5, 1.5, 3.0), yaw=-2.3, pitch=-0.3)
+        rows, cols = 48, 384
+    mvp = R.camera_mvp(cam, rows, cols, 0.5)
+    ch = R.setup_screen_channels(R.transform_clip_channels(p, mvp), rows,
+                                 cols)
+    slots = R.clip_attrs_channel_lists(torch.cat([n, c, p], dim=1), ch)
+    data, offsets, tiles_y, tiles_x = RO.fused_entries(ch, slots, rows, cols)
+    return data, offsets, RO.light_params(scene), tiles_x, tiles_y * tiles_x
+
+
+def test_cpu_tensors_run_the_channel_era_plain_versions(zero_counts):
+    """B8, B9a, B9b and B9c's wrappers on CPU tensors: their plain
+    versions, nothing launched."""
+    for walk in SUBTILE_WALKS:
+        args, fn, ref = _subtile_layout("cpu", walk, SUBTILE_CAPS["generous"])
+        (z, e), (z_r, e_r) = fn(*args), ref(*args)
+        assert torch.equal(e, e_r) and torch.equal(z, z_r), walk
+        assert (e >= 0).sum() > 2000, walk
+    args = _fused_inputs("cpu", "room")
+    rgb = RB.tile_eval_bins_shaded(*args)
+    assert torch.equal(rgb, RB.tile_eval_bins_shaded_ref(*args))
+    assert tuple(rgb.shape) == (5, 3, 8, 128) and (rgb > 0).any()
+    assert (RB.launches_shaded, RS.launches, RS.launches_packed,
+            RS.launches_packed_d) == (0, 0, 0, 0)
 
 
 def test_non_cpu_tensors_never_fall_back_to_the_plain_versions(zero_counts):
@@ -165,11 +239,27 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_versions(zero_counts):
         RG.tile_eval_direct(torch.empty((64, 32), device=meta),
                             torch.zeros(16, **i32), torch.zeros(16, **i32),
                             torch.zeros(2, **i32), *xy, 2)
+    with pytest.raises(ValueError):
+        RB.tile_eval_bins_shaded(torch.empty((64, 128), device=meta),
+                                 torch.zeros(3, **i32),
+                                 torch.empty(64, device=meta), 1, 2)
+    with pytest.raises(ValueError):
+        RS.tile_eval_subtile(torch.empty((64, 16, 128), device=meta),
+                             torch.zeros(3, **i32), 1, 2)
+    with pytest.raises(ValueError):
+        RS.tile_eval_packed(torch.empty((64, 128), device=meta),
+                            torch.zeros(3, **i32), 1, 2)
+    with pytest.raises(ValueError):
+        RS.tile_eval_packed_d(torch.empty((64, 128), device=meta),
+                              torch.zeros(3, **i32), torch.zeros(16, **i32),
+                              1, 2)
     assert [m.launches for m in KERNEL_MODULES] == [0, 0, 0]
     assert (PK.launches_channels, PK.launches_split, RB.launches,
             RB.launches_loop) == (0, 0, 0, 0)
     assert (S.launches_packed, RG.launches_grouped, RG.launches_direct,
             RG.launches_k2) == (0, 0, 0, 0)
+    assert (RB.launches_shaded, RS.launches, RS.launches_packed,
+            RS.launches_packed_d) == (0, 0, 0, 0)
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -195,7 +285,7 @@ def test_c_entry_points_match_the_ctypes_signatures():
     assert {k: len(v) for k, v in _build.SIGNATURES.items()} == found
     assert {p.name for p in _build.sources()} == {
         "setup2dh.cu", "pack.cu", "raster_group.cu", "pt_trace.cu",
-        "modal.cu", "raster_bins.cu"}
+        "modal.cu", "raster_bins.cu", "raster_shaded.cu", "raster_subtile.cu"}
     for flag in ("-fmad=false", "arch=compute_90a,code=sm_90a"):
         assert flag in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
@@ -418,3 +508,38 @@ def test_setup_packed_equals_plain_and_b2_b3_on_cuda(cuda_device, n_attrs,
         for a, b in zip(got[1:], other[1:]):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert int(got[0]["valid"].sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", sorted(SUBTILE_CAPS))
+@pytest.mark.parametrize("walk", sorted(SUBTILE_WALKS))
+def test_subtile_walks_equal_plain_on_cuda(cuda_device, walk, caps,
+                                           zero_counts):
+    """B9a (expanded rows), B9b (packed rows) and B9c (packed rows, depth
+    mask) on a 4-tile-wide grid, at generous caps and at caps that
+    overflow (clamped chunk starts, dropped pairs): winner ids and depth
+    bits equal to the plain versions."""
+    args, fn, ref = _subtile_layout(cuda_device, walk, SUBTILE_CAPS[caps])
+    z, e = fn(*args)
+    z_r, e_r = ref(*args)
+    torch.cuda.synchronize()
+    assert (RS.launches, RS.launches_packed, RS.launches_packed_d) == {
+        "B9a": (1, 0, 0), "B9b": (0, 1, 0), "B9c": (0, 0, 1)}[walk]
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["room", "point_light"])
+def test_shaded_walk_equals_plain_on_cuda(cuda_device, scene_name,
+                                          zero_counts):
+    """B8 on the demo room and on a random soup lit by a point light: rgb
+    bit for bit equal to the plain version (-0.0 folded into +0.0)."""
+    args = _fused_inputs(cuda_device, scene_name)
+    rgb = RB.tile_eval_bins_shaded(*args)
+    want = RB.tile_eval_bins_shaded_ref(*args)
+    torch.cuda.synchronize()
+    assert RB.launches_shaded == 1
+    assert torch.equal((rgb + 0.0).view(torch.int32),
+                       (want + 0.0).view(torch.int32))
+    assert int((rgb.amax(1) > 0).sum()) > 1000

@@ -3,7 +3,8 @@ fails, every module of ascii_renderer_tpu_torch imports (the small- and
 mid-scale raster modules, the frame step and ``entry`` among them), and a
 48x96 headline raster frame (and the same frame through the subtile3,
 subtile4 and subtile5 walks and the fused setup+pack), a 48x96 binned-walk
-frame, one ``entry()``
+frame, the same scene through the fused-shading walk, the channel-era
+subtile and subtile2 walks and visibility_subtile, one ``entry()``
 frame step (96x36) and one 12x32 path-traced frame of the demo scene render
 (plain-torch kernel versions on the CPU) through the glyph pass."""
 
@@ -24,7 +25,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
-for new in ("backends.raster_channels", "ops.raster_bins", "sim.ui",
+for new in ("backends.raster_channels", "backends.raster_oracles",
+            "ops.raster_bins", "ops.raster_subtile", "sim.ui",
             "sim.framestep", "entry"):
     assert "ascii_renderer_tpu_torch." + new in names, new
 from ascii_renderer_tpu_torch.backends import raster as R
@@ -55,6 +57,22 @@ for kernel in ("subtile3", "subtile4", "subtile5", "packed"):
     assert torch.equal(g_rgb, rgb), kernel
 rgb2 = R.render_soup(p, n, c, scene, cam, 48, 96, 0.5, method="scatter")
 assert (rgb2.amax(-1) > 0).sum() > 300
+# the retired generations: fused (B8, its big_cap fixed at 64 as in the
+# reference), subtile (B9b), subtile2 (B9c), and visibility_subtile (B9a)
+for method in ("fused", "subtile", "subtile2"):
+    o_rgb = R.render_soup(p, n, c, scene, cam, 48, 96, 0.5, method=method,
+                          v_cap=4096, big_cap=512)
+    assert (o_rgb.amax(-1) > 0).sum() > 300, method
+    if method != "fused":
+        assert (o_rgb - rgb).abs().amax(-1).gt(2e-3).sum() <= 6, method
+    o_chars, _ = AsciiPass()(Frame.from_float(o_rgb))
+    assert tuple(o_chars.shape) == (48, 96)
+mvp = R.camera_mvp(cam, 48, 96, 0.5)
+cch = R.compact_valid_ch(R.setup_screen_channels(
+    R.transform_clip_channels(p, mvp), 48, 96), 4096)[0]
+zbuf, eidx, tri_s, n_rows, n_pairs = R.visibility_subtile(cch, 48, 96,
+                                                          big_cap=512)
+assert (eidx >= 0).sum() > 300 and int(n_rows) <= 16384
 from ascii_renderer_tpu_torch.entry import entry
 fn, args = entry(device="cpu")
 st, echars, _tint = fn(*args)

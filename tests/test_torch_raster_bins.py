@@ -149,9 +149,12 @@ def test_walk_wrappers_reject_bad_inputs():
                              TILES_X, N_TILES)
     with pytest.raises(ValueError):
         RB.pack_entries(torch.zeros((12, 16)))
-    with pytest.raises(NotImplementedError, match="B8"):
-        RB.tile_eval_bins_shaded(mm, torch.from_numpy(offs), None, TILES_X,
-                                 N_TILES)
+    with pytest.raises(ValueError):  # B8 takes [P/2, 128] rows
+        RB.tile_eval_bins_shaded(mm, torch.from_numpy(offs),
+                                 torch.zeros(64), TILES_X, N_TILES)
+    with pytest.raises(ValueError):  # and a light vector of 64 floats
+        RB.tile_eval_bins_shaded(mm.reshape(-1, 128), torch.from_numpy(offs),
+                                 torch.zeros(10), TILES_X, N_TILES)
     meta = torch.device("meta")
     with pytest.raises(ValueError):  # not a CUDA tensor: no fallback
         RB.tile_eval_bins_mm(torch.empty((4, 16, 128), device=meta),

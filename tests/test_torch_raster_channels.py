@@ -291,25 +291,31 @@ def test_teapot_mid_scale_backend_equals_jax():
 
 
 def test_unported_methods_raise_naming_their_roadmap_items():
-    """What is still not ported raises, naming its ROADMAP item; the
-    grouped generations render, and without v_cap they take the scan, as
-    the reference's dispatch does (raster.py:716-755)."""
+    """Every method of the reference's render_soup renders in the port
+    (nothing raises NotImplementedError any more): 'fused' (B8) within
+    JAX's bound of the scan (tests/test_raster_channels.py:212-226), with
+    or without v_cap; the channel-era 'subtile' / 'subtile2' (B9b / B9c)
+    and the grouped generations through render_soup_diag with v_cap, and
+    without v_cap the scan, as the reference's dispatch does
+    (raster.py:716-755). An unknown render_soup_diag kernel raises
+    ValueError."""
     p, attrs = near_plane_soup(50)
     scene = SceneBuilder().set_env_light([0.2, 0.2, 0.2], 1.0).build(
         device="cpu")
     args = (torch.from_numpy(p), torch.from_numpy(attrs[:, :3]),
             torch.from_numpy(attrs[:, 3:6]), scene, Camera.create(**NEAR_CAM),
             8, 16, 0.5)
-    with pytest.raises(NotImplementedError, match="B8"):
-        R.render_soup(*args, method="fused")
-    for method in ("subtile", "subtile2"):
-        with pytest.raises(NotImplementedError, match="B9"):
-            R.render_soup(*args, method=method, v_cap=4096)
-    with pytest.raises(NotImplementedError, match="B9"):
-        R.render_soup_diag(*args, v_cap=4096, kernel="subtile")
     scan = R.render_soup(*args, method="scan")
     assert (scan.amax(-1) > 0).any()
-    for method in ("subtile3", "subtile7"):
-        rgb = R.render_soup(*args, method=method, v_cap=4096)
+    for v_cap in (None, 4096):
+        fused = R.render_soup(*args, method="fused", v_cap=v_cap)
+        assert (np.abs(fused - scan).amax(-1) > 1e-4).sum() == 0
+    for method in ("subtile", "subtile2", "subtile3", "subtile7"):
+        rgb = R.render_soup(*args, method=method, v_cap=4096, tile_cap=8)
         assert tuple(rgb.shape) == (8, 16, 3) and torch.isfinite(rgb).all()
+        assert (np.abs(rgb - scan).amax(-1) > 2e-3).sum() <= 6, method
         assert torch.equal(R.render_soup(*args, method=method), scan)
+    rgb, diag = R.render_soup_diag(*args, v_cap=4096, kernel="subtile")
+    assert int(diag["n_valid"]) > 0 and int(diag["n_tiles_nz"]) == 1
+    with pytest.raises(ValueError):
+        R.render_soup_diag(*args, v_cap=4096, kernel="fused")
