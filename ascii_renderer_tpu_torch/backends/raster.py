@@ -325,9 +325,11 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
                      v_cap: int, big_cap: int = 64, kernel: str = "mm",
                      r_cap: int = 16384, pair_cap: int = 65536,
                      tile_cap: int | None = None, pos9=None,
-                     attrs_t=None, emit: str = "rgb", ramp_len: int = 10):
+                     attrs_t=None, emit: str = "rgb", ramp_len: int = 10,
+                     row_lo=None, band_rows: int | None = None):
     """Compacted raster pipeline with capacity diagnostics. The soup lives
-    on the device that renders.
+    on the device that renders. Row bands (``row_lo`` / ``band_rows``) are
+    ROADMAP A12 and raise.
 
     kernel 'mm' / 'loop': the clip-expansion channel pipeline
     (raster_channels.render_channels_diag: valid compaction to v_cap, the
@@ -351,6 +353,10 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     group layout and assembles (idx i32 [rows, cols], rgb8 u8 [rows, cols,
     3]) instead — bit-identical to quantizing the assembled image
     (assembly is a permutation)."""
+    if row_lo is not None or band_rows is not None:
+        raise NotImplementedError(
+            "row_lo / band_rows (row-band rendering) is not ported to "
+            "ascii_renderer_tpu_torch yet (ROADMAP A12)")
     with stage("raster.mvp"):
         mvp = camera_mvp(cam, rows, cols, pixel_aspect)
     if kernel not in GROUPED_KERNELS:

@@ -16,7 +16,9 @@ NO ``--use_fast_math``: division and sqrt stay IEEE (``-prec-div=true``,
 ``-prec-sqrt=true`` are nvcc's defaults).
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
-``check`` turns a non-zero code into an exception.
+``check`` turns a non-zero code into an exception. ``-Xptxas -v`` makes
+each compile report its kernels' registers, spills and shared memory; the
+build keeps that report beside the library (``ptxas_report``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,7 +36,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,13 +61,14 @@ SIGNATURES = {
     "walk_direct_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (params, prim, n_entries, n_sph, ro, rd, uid, block_active, seed,
     #  atlas, atlas_w, atlas_h, lor, log, lob, ov, fet, n_rays, bounces,
-    #  nee, stream)
+    #  nee, next_ray, stream)
     "pt_trace_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
-                        _P, _P, _P, _P, _P, _I, _I, _I, _P),
+                        _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # (idx, ovr, out, H, W, radius, thresh, stream)
     "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # (data, offsets, z, tid, n_tiles, tiles_x, n_entries, mm, stream)
-    "bins_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (data, offsets, z, tid, part, n_slots, n_tiles, tiles_x, n_entries,
+    #  mm, stream)
+    "bins_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (data, offsets, light, rgb, n_tiles, tiles_x, n_entries, stream)
     "shaded_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
     # (rows, rowptr, depth, z, e, n_tiles, tiles_x, r_cap, source, stream)
@@ -127,14 +131,53 @@ def build() -> Path:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{log}")
+        with open(os.path.join(tmp, "ptxas.txt"), "w") as f:
+            f.write("".join(logs))
         so = os.path.join(tmp, out.name)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(os.path.join(tmp, "ptxas.txt"),
+                   out.with_suffix(".ptxas.txt"))
         os.replace(so, out)
     return out
+
+
+def ptxas_report() -> list[str]:
+    """One line per kernel of the current build, from nvcc's ``-Xptxas
+    -v`` output: its name, registers, spill stores / loads, shared
+    memory."""
+    log = build().with_suffix(".ptxas.txt").read_text()
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{_demangle(name)}: {m.group(1)} registers, "
+                       f"{spill}, {smem.group(1) if smem else 0} B static "
+                       f"smem")
+            name, spill = None, ""
+    return out
+
+
+def _demangle(name: str) -> str:
+    """The kernel's name and template arguments, from its mangled symbol
+    (``c++filt`` where there is one; else the mangled symbol)."""
+    c = shutil.which("c++filt")
+    if c is None:
+        return name
+    res = subprocess.run([c, name], capture_output=True, text=True)
+    m = re.search(r"(\w+(?:<[^>]*>)?)\(", res.stdout)
+    return m.group(1) if m else name
 
 
 def lib() -> ctypes.CDLL:

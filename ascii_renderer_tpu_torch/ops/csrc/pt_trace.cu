@@ -15,21 +15,38 @@
 // broadcast read from shared memory and a texel is one 32-bit load.
 //
 // What bounds it on the H100: FP32 and SFU issue, not memory. Per ray and
-// bounce the primary search costs ~20 flops per sphere entry and ~35 per
-// triangle entry (the demo room: 4 sphere slots + 24 triangle slots, ~920
-// flops), the NEE shadow search the same again, and the shading, BRDF and
-// NEE arithmetic ~250 flops plus ~12 SFU ops (sqrt, 1/x, sin, cos, pow).
-// Against 67 TFLOP/s FP32 that is ~30 ns per 1,000 rays and bounce; the
-// 24 + 32 bytes a ray reads and 20 it writes are noise at 3.35 TB/s.
-// Design: one thread per ray, the bounce loop and the whole path state in
-// registers; the entry stream is staged in shared memory in chunks of
-// kChunk entries (every thread reads the same entry: a broadcast, no bank
-// conflict); a ray that dies leaves the loop (its outputs can no longer
-// change, and its draws are a pure function of (uid, seed, draw index), so
-// no other ray is affected). When the whole stream fits one chunk it is
-// loaded once and a thread leaves on its own; otherwise a block leaves
-// only when all its rays are dead, because the chunk loads need every
-// thread at the barriers.
+// bounce the primary search costs ~20 operations per sphere entry and ~35
+// per triangle entry (the demo room: 4 sphere slots + 24 triangle slots),
+// the NEE shadow search the same again, and the shading, BRDF and NEE
+// arithmetic ~250 operations plus ~12 SFU ops (sqrt, 1/x, sin, cos, pow).
+// Built with -fmad=false, each is one FP32 instruction: 33.5 T/s on the
+// card, not the 67 TFLOP/s that counts an FMA as two. The 24 + 32 bytes a
+// ray reads and 20 it writes are noise at 3.35 TB/s.
+// Design:
+// - Persistent warps with path regeneration. The grid is as many blocks
+//   as the SMs hold at once; a lane takes a ray from a global counter (one
+//   warp-aggregated atomicAdd for the lanes that need one), traces it one
+//   bounce per loop iteration with its own bounce index j and static draw
+//   count k, writes the ray's outputs at the ray's index when its path
+//   ends, and takes the next ray. Russian roulette kills most rays from
+//   bounce 2 on; one thread per ray left those lanes idle until the
+//   warp's last ray died. A ray's outputs are a pure function of its
+//   inputs, its uid, the seed and its draw numbers, so the order of
+//   service changes no bit. A ray of a gated 1,024-ray block is never
+//   traced; its outputs are 0.
+// - Compact test records: the entry stream is staged in shared memory as
+//   one 16-float record per entry (four float4s: a triangle's normal and
+//   d0, r1 and c1, r2 and c2, kind and the degenerate threshold; a
+//   sphere's centre and radius, kind), read with 128-bit broadcast loads.
+//   The search keeps only t and the winner's index (strict t < best: the
+//   first entry in stream order wins a tie); the winner's attributes are
+//   read once from the packed stream afterwards, its u, v and normal
+//   recomputed by the same expressions, so they carry the same bits as a
+//   running copy would. The shadow search needs only t.
+// - When the stream fits one chunk (kChunk entries) it is staged once and
+//   each warp leaves on its own; otherwise chunks are staged behind block
+//   barriers, which every thread reaches the same number of times, and
+//   the block leaves when the counter is spent and no lane holds a ray.
 //
 // Exactness: built with -fmad=false, so every product and sum rounds on its
 // own as in the plain version; division and sqrt are IEEE; max/clamp
@@ -45,8 +62,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlockRays = 1024;  // the TPU block: block_active granularity
 constexpr int kChan = 32;
-constexpr int kChunk = 64;        // entries per shared-memory chunk (8 KB)
-static_assert(kBlockRays % kThreads == 0, "a CUDA block in one gate group");
+constexpr int kChunk = 64;        // entries per staged chunk (4 KB)
+constexpr unsigned kFull = 0xffffffffu;
 
 constexpr float kBig = 3e38f;
 constexpr float kTwoPi = 6.2831853f;
@@ -87,107 +104,124 @@ __device__ __forceinline__ float draw(uint32_t uid, uint32_t seed_mix,
   return __uint_as_float((x >> 9) | 0x3F800000u) - 1.0f;
 }
 
-struct Hit {
-  float t, nx, ny, nz, shr, shg, shb, is_light, is_spec, texturable, uvx, uvy;
-};
-
-// One entry against one ray; keeps the running strict minimum (and, with
-// kAttrs, the winner's attributes).
-template <bool kAttrs>
-__device__ __forceinline__ void test_entry(const float* e, bool sphere,
-                                           float ox, float oy, float oz,
-                                           float dx, float dy, float dz,
-                                           float eps, Hit& h) {
-  const bool live = e[C_KIND] > 0.0f;
-  if (sphere) {
-    const float ax = e[C_AX], ay = e[C_AY], az = e[C_AZ], rad = e[C_E1X];
-    const float ocx = ox - ax, ocy = oy - ay, ocz = oz - az;
-    const float b = ocx * dx + ocy * dy + ocz * dz;
-    const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-    const float hh = b * b - c;
-    const float sq = sqrtf(maxn(hh, 0.0f));
-    const float t1 = -b - sq;
-    const float t2 = -b + sq;
-    float t = t1 > eps ? t1 : (t2 > eps ? t2 : kBig);
-    if (!(hh >= 0.0f && live)) t = kBig;
-    if (t < h.t) {
-      h.t = t;
-      if (kAttrs) {
-        const float inv_r = 1.0f / maxn(rad, 1e-6f);
-        h.nx = (ox + t * dx - ax) * inv_r;
-        h.ny = (oy + t * dy - ay) * inv_r;
-        h.nz = (oz + t * dz - az) * inv_r;
-        h.shr = e[C_SHR];
-        h.shg = e[C_SHG];
-        h.shb = e[C_SHB];
-        h.is_light = e[C_ISLIGHT];
-        h.is_spec = e[C_ISSPEC];
-        h.texturable = 0.0f;
-        h.uvx = 0.0f;
-        h.uvy = 0.0f;
-      }
-    }
-  } else {
-    const float nx_ = e[C_NX], ny_ = e[C_NY], nz_ = e[C_NZ];
-    const float ndotd = nx_ * dx + ny_ * dy + nz_ * dz;
-    const bool bad = fabsf(ndotd) < e[C_BADS];
-    const float inv = 1.0f / (bad ? 1.0f : ndotd);
-    const float ndoto = nx_ * ox + ny_ * oy + nz_ * oz;
-    float t = (e[C_D0] - ndoto) * inv;
-    const float hpx = ox + t * dx, hpy = oy + t * dy, hpz = oz + t * dz;
-    const float u = e[C_R1X] * hpx + e[C_R1Y] * hpy + e[C_R1Z] * hpz + e[C_C1];
-    const float v = e[C_R2X] * hpx + e[C_R2Y] * hpy + e[C_R2Z] * hpz + e[C_C2];
-    const bool miss = bad || u < 0.0f || u > 1.0f || v < 0.0f ||
-                      u + v > 1.0f || t <= eps || !live;
-    if (miss) t = kBig;
-    if (t < h.t) {
-      h.t = t;
-      if (kAttrs) {
-        const bool flip = ndotd > 0.0f;
-        h.nx = flip ? -nx_ : nx_;
-        h.ny = flip ? -ny_ : ny_;
-        h.nz = flip ? -nz_ : nz_;
-        const float w0 = 1.0f - u - v;
-        h.uvx = w0 * e[C_UVAX] + u * e[C_UVBX] + v * e[C_UVCX];
-        h.uvy = w0 * e[C_UVAY] + u * e[C_UVBY] + v * e[C_UVCY];
-        h.shr = e[C_SHR];
-        h.shg = e[C_SHG];
-        h.shb = e[C_SHB];
-        h.is_light = e[C_ISLIGHT];
-        h.is_spec = e[C_ISSPEC];
-        h.texturable = e[C_TEXTURABLE];
-      }
-    }
+// Stages entries [base, base + cnt) as test records: (n | centre, d0 |
+// radius), (r1, c1), (r2, c2), (kind, bads, 0, 0).
+__device__ __forceinline__ void stage(float4* rec,
+                                      const float* __restrict__ prim,
+                                      int base, int cnt) {
+  for (int i = threadIdx.x; i < cnt; i += kThreads) {
+    const float* e = prim + (size_t)(base + i) * kChan;
+    rec[4 * i] = make_float4(e[C_NX], e[C_NY], e[C_NZ], e[C_D0]);
+    rec[4 * i + 1] = make_float4(e[C_R1X], e[C_R1Y], e[C_R1Z], e[C_C1]);
+    rec[4 * i + 2] = make_float4(e[C_R2X], e[C_R2Y], e[C_R2Z], e[C_C2]);
+    rec[4 * i + 3] = make_float4(e[C_KIND], e[C_BADS], 0.0f, 0.0f);
   }
 }
 
-// Nearest hit over the whole entry stream. `active` threads compute; in the
-// chunked mode every thread of the block must call this the same number of
-// times (the chunk loads are behind block barriers).
-template <bool kAttrs>
-__device__ __forceinline__ Hit stream(float* ent, const float* __restrict__ prim,
-                                      int n_entries, int n_sph, bool resident,
-                                      bool active, float ox, float oy,
-                                      float oz, float dx, float dy, float dz,
-                                      float eps) {
-  Hit h;
-  h.t = kBig;
-  h.nx = h.ny = h.nz = h.shr = h.shg = h.shb = 0.0f;
-  h.is_light = h.is_spec = h.texturable = h.uvx = h.uvy = 0.0f;
+// Nearest entry hit over the whole stream: t (kBig on a miss) and the
+// winner's entry index in *win (-1 on a miss). `active` threads search; in
+// the chunked mode every thread of the block must call this the same
+// number of times (the chunk loads are behind block barriers).
+__device__ __forceinline__ float search(float4* rec,
+                                        const float* __restrict__ prim,
+                                        int n_entries, int n_sph,
+                                        bool resident, bool active, float ox,
+                                        float oy, float oz, float dx,
+                                        float dy, float dz, float eps,
+                                        int* win) {
+  float best = kBig;
+  int bi = -1;
   for (int base = 0; base < n_entries; base += kChunk) {
     const int cnt = min(kChunk, n_entries - base);
     if (!resident) {
       __syncthreads();
-      for (int k = threadIdx.x; k < cnt * kChan; k += kThreads)
-        ent[k] = prim[(size_t)base * kChan + k];
+      stage(rec, prim, base, cnt);
       __syncthreads();
     }
-    if (active) {
-      for (int e = 0; e < cnt; ++e)
-        test_entry<kAttrs>(ent + e * kChan, base + e < n_sph, ox, oy, oz, dx,
-                           dy, dz, eps, h);
+    if (!active) continue;
+    const int ns = min(max(n_sph - base, 0), cnt);
+    for (int e = 0; e < ns; ++e) {
+      const float4 q0 = rec[4 * e], q3 = rec[4 * e + 3];
+      const float ocx = ox - q0.x, ocy = oy - q0.y, ocz = oz - q0.z;
+      const float b = ocx * dx + ocy * dy + ocz * dz;
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - q0.w * q0.w;
+      const float hh = b * b - c;
+      const float sq = sqrtf(maxn(hh, 0.0f));
+      const float t1 = -b - sq;
+      const float t2 = -b + sq;
+      float t = t1 > eps ? t1 : (t2 > eps ? t2 : kBig);
+      if (!(hh >= 0.0f && q3.x > 0.0f)) t = kBig;
+      if (t < best) {
+        best = t;
+        bi = base + e;
+      }
+    }
+    for (int e = ns; e < cnt; ++e) {
+      const float4 q0 = rec[4 * e], q1 = rec[4 * e + 1];
+      const float4 q2 = rec[4 * e + 2], q3 = rec[4 * e + 3];
+      const float ndotd = q0.x * dx + q0.y * dy + q0.z * dz;
+      const bool bad = fabsf(ndotd) < q3.y;
+      const float inv = 1.0f / (bad ? 1.0f : ndotd);
+      const float ndoto = q0.x * ox + q0.y * oy + q0.z * oz;
+      float t = (q0.w - ndoto) * inv;
+      const float hpx = ox + t * dx, hpy = oy + t * dy, hpz = oz + t * dz;
+      const float u = q1.x * hpx + q1.y * hpy + q1.z * hpz + q1.w;
+      const float v = q2.x * hpx + q2.y * hpy + q2.z * hpz + q2.w;
+      const bool miss = bad || u < 0.0f || u > 1.0f || v < 0.0f ||
+                        u + v > 1.0f || t <= eps || !(q3.x > 0.0f);
+      if (miss) t = kBig;
+      if (t < best) {
+        best = t;
+        bi = base + e;
+      }
     }
   }
+  *win = bi;
+  return best;
+}
+
+struct Hit {
+  float nx, ny, nz, shr, shg, shb, is_light, is_spec, texturable, uvx, uvy;
+};
+
+// The winner's attributes, read once from the packed stream: a sphere's
+// normal from the hit point, a triangle's (flipped to face the ray) normal
+// and uv from u, v recomputed by the search's expressions at its t.
+__device__ __forceinline__ Hit attrs(const float* __restrict__ prim,
+                                     int win, int n_sph, float t, float ox,
+                                     float oy, float oz, float dx, float dy,
+                                     float dz) {
+  Hit h;
+  h.nx = h.ny = h.nz = h.shr = h.shg = h.shb = 0.0f;
+  h.is_light = h.is_spec = h.texturable = h.uvx = h.uvy = 0.0f;
+  if (win < 0) return h;
+  const float* e = prim + (size_t)win * kChan;
+  if (win < n_sph) {
+    const float ax = e[C_AX], ay = e[C_AY], az = e[C_AZ];
+    const float inv_r = 1.0f / maxn(e[C_E1X], 1e-6f);
+    h.nx = (ox + t * dx - ax) * inv_r;
+    h.ny = (oy + t * dy - ay) * inv_r;
+    h.nz = (oz + t * dz - az) * inv_r;
+  } else {
+    const float nx_ = e[C_NX], ny_ = e[C_NY], nz_ = e[C_NZ];
+    const float ndotd = nx_ * dx + ny_ * dy + nz_ * dz;
+    const float hpx = ox + t * dx, hpy = oy + t * dy, hpz = oz + t * dz;
+    const float u = e[C_R1X] * hpx + e[C_R1Y] * hpy + e[C_R1Z] * hpz + e[C_C1];
+    const float v = e[C_R2X] * hpx + e[C_R2Y] * hpy + e[C_R2Z] * hpz + e[C_C2];
+    const bool flip = ndotd > 0.0f;
+    h.nx = flip ? -nx_ : nx_;
+    h.ny = flip ? -ny_ : ny_;
+    h.nz = flip ? -nz_ : nz_;
+    const float w0 = 1.0f - u - v;
+    h.uvx = w0 * e[C_UVAX] + u * e[C_UVBX] + v * e[C_UVCX];
+    h.uvy = w0 * e[C_UVAY] + u * e[C_UVBY] + v * e[C_UVCY];
+    h.texturable = e[C_TEXTURABLE];
+  }
+  h.shr = e[C_SHR];
+  h.shg = e[C_SHG];
+  h.shb = e[C_SHB];
+  h.is_light = e[C_ISLIGHT];
+  h.is_spec = e[C_ISSPEC];
   return h;
 }
 
@@ -200,19 +234,12 @@ pt_trace_kernel(const float* __restrict__ params,
                 const uint32_t* __restrict__ atlas, int atlas_w, int atlas_h,
                 float* __restrict__ lor, float* __restrict__ log_,
                 float* __restrict__ lob, float* __restrict__ ov,
-                float* __restrict__ fet, int n_rays, int bounces, int nee) {
-  __shared__ float ent[kChunk * kChan];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  // a CUDA block lies inside one gate group: the whole block leaves
-  if (block_active != nullptr && block_active[(blockIdx.x * kThreads) /
-                                              kBlockRays] == 0) {
-    if (i < n_rays) lor[i] = log_[i] = lob[i] = ov[i] = fet[i] = 0.0f;
-    return;
-  }
+                float* __restrict__ fet, int n_rays, int bounces, int nee,
+                int* __restrict__ next_ray) {
+  __shared__ float4 rec[kChunk * 4];
   const bool resident = n_entries <= kChunk;
   if (resident) {
-    for (int k = threadIdx.x; k < n_entries * kChan; k += kThreads)
-      ent[k] = prim[k];
+    stage(rec, prim, 0, n_entries);
     __syncthreads();
   }
 
@@ -221,32 +248,74 @@ pt_trace_kernel(const float* __restrict__ params,
   const float lcr = params[4], lcg = params[5], lcb = params[6];
   const float eps = params[7];
   const int texels = atlas_w > 0 ? atlas_w * atlas_h : 0;
-
-  const bool in_range = i < n_rays;
-  const int ii = in_range ? i : 0;
-  const uint32_t uid = (uint32_t)(uid_in != nullptr ? uid_in[ii] : ii);
   const uint32_t seed_mix = (uint32_t)seed * 0x9E3779B1u;
+  const int lane = threadIdx.x & 31;
 
-  float rox = ro[3 * ii], roy = ro[3 * ii + 1], roz = ro[3 * ii + 2];
-  float rdx = rd[3 * ii], rdy = rd[3 * ii + 1], rdz = rd[3 * ii + 2];
+  // the lane's ray and its path state
+  bool busy = false;
+  int ray = 0;
+  uint32_t uid = 0;
+  float rox = 0.0f, roy = 0.0f, roz = 0.0f;
+  float rdx = 0.0f, rdy = 0.0f, rdz = 0.0f;
   float Lr = 0.0f, Lg = 0.0f, Lb = 0.0f;
   float Tr = 1.0f, Tg = 1.0f, Tb = 1.0f;
-  bool alive = in_range;
   bool spec = true;
   float override_ = 0.0f;
   bool fetched = false;
+  int j = 0;       // the ray's bounce
   uint32_t k = 0;  // draws before this bounce (a static count)
+  bool spent = false;  // warp-uniform: the counter has no ray left
 
-  for (int j = 0; j < bounces; ++j) {
-    const bool has_nee = nee && j < bounces - 1;
+  for (;;) {
+    // lanes without a ray take the next ones, one atomic per warp
+    unsigned need = __ballot_sync(kFull, !busy);
+    while (need != 0u && !spent) {
+      const int cnt = __popc(need);
+      int first = 0;
+      if (lane == 0) first = atomicAdd(next_ray, cnt);
+      first = __shfl_sync(kFull, first, 0);
+      spent = first + cnt >= n_rays;
+      if (!busy) {
+        const int r = first + __popc(need & ((1u << lane) - 1u));
+        if (r < n_rays) {
+          if (block_active != nullptr && block_active[r / kBlockRays] == 0) {
+            lor[r] = log_[r] = lob[r] = ov[r] = fet[r] = 0.0f;
+          } else {
+            busy = true;
+            ray = r;
+            uid = (uint32_t)(uid_in != nullptr ? uid_in[r] : r);
+            rox = ro[3 * r];
+            roy = ro[3 * r + 1];
+            roz = ro[3 * r + 2];
+            rdx = rd[3 * r];
+            rdy = rd[3 * r + 1];
+            rdz = rd[3 * r + 2];
+            Lr = Lg = Lb = 0.0f;
+            Tr = Tg = Tb = 1.0f;
+            spec = true;
+            override_ = 0.0f;
+            fetched = false;
+            j = 0;
+            k = 0;
+          }
+        }
+      }
+      need = __ballot_sync(kFull, !busy);
+    }
     if (resident) {
-      if (!alive) break;
-    } else if (!__syncthreads_or(alive)) {
+      if (!__any_sync(kFull, busy)) break;
+    } else if (!__syncthreads_or(busy)) {
       break;
     }
-    Hit h = stream<true>(ent, prim, n_entries, n_sph, resident, alive, rox,
-                         roy, roz, rdx, rdy, rdz, eps);
-    float t = h.t;
+
+    // ---- one bounce of the lane's path (a lane without a ray computes
+    // nothing that it keeps) ----
+    bool alive = busy;
+    const bool has_nee = nee && j < bounces - 1;
+    int win;
+    float t = search(rec, prim, n_entries, n_sph, resident, alive, rox, roy,
+                     roz, rdx, rdy, rdz, eps, &win);
+    Hit h = attrs(prim, win, n_sph, t, rox, roy, roz, rdx, rdy, rdz);
     float nx = h.nx, ny = h.ny, nz = h.nz;
     float shr = h.shr, shg = h.shg, shb = h.shb;
     const bool is_spec = h.is_spec > 0.5f;
@@ -305,7 +374,7 @@ pt_trace_kernel(const float* __restrict__ params,
       const bool sampled = alive && h.texturable > 0.5f && inb && ab >= 0.5f;
       const bool glyph = sampled && ab >= 31.5f && ab <= 126.5f;
       bool solid;
-      if (j == 0) {
+      if (j == 0) {  // the primary glyph short-circuit
         fetched = sampled;
         if (glyph) {
           Lr = txr;
@@ -397,36 +466,37 @@ pt_trace_kernel(const float* __restrict__ params,
     }
 
     // ---- NEE (pathtrace_shader.js:159-169) ----
-    if (has_nee) {
-      const bool want = alive && !is_spec;
-      if (!resident || want) {
-        const float h1 = draw(uid, seed_mix, k + 4) * 2.0f - 1.0f;
-        const float h2 = draw(uid, seed_mix, k + 5) * kTwoPi;
-        const float sl = sqrtf(maxn(1.0f - h1 * h1, 0.0f));
-        const float lpx = lcx + lrad * sl * sinf(h2);
-        const float lpy = lcy + lrad * sl * cosf(h2);
-        const float lpz = lcz + lrad * h1;
-        float ldx = lpx - hx, ldy = lpy - hy, ldz = lpz - hz;
-        const float dist =
-            sqrtf(maxn(ldx * ldx + ldy * ldy + ldz * ldz, 1e-24f));
-        ldx = ldx / dist;
-        ldy = ldy / dist;
-        ldz = ldz / dist;
-        const Hit sh = stream<false>(ent, prim, n_entries, n_sph, resident,
-                                     want, hx + nx * eps, hy + ny * eps,
-                                     hz + nz * eps, ldx, ldy, ldz, eps);
-        const bool shadowed = sh.t < dist;
-        const float dlx = lcx - hx, dly = lcy - hy, dlz = lcz - hz;
-        const float dd2 = maxn(dlx * dlx + dly * dly + dlz * dlz, 1e-12f);
-        const float cam = sqrtf(1.0f - clampn(lrad * lrad / dd2, 0.0f, 1.0f));
-        const float wgt = 2.0f * (1.0f - cam);
-        const float ndl = maxn(ldx * nx + ldy * ny + ldz * nz, 0.0f);
-        if (want && !shadowed) {
-          const float wnd = wgt * ndl;
-          Lr = Lr + Tr * lcr * wnd;
-          Lg = Lg + Tg * lcg * wnd;
-          Lb = Lb + Tb * lcb * wnd;
-        }
+    // chunked: every thread searches whenever NEE is on (the barriers);
+    // resident: only the lanes that want the shadow ray
+    const bool want = has_nee && alive && !is_spec;
+    if (resident ? want : nee != 0) {
+      const float h1 = draw(uid, seed_mix, k + 4) * 2.0f - 1.0f;
+      const float h2 = draw(uid, seed_mix, k + 5) * kTwoPi;
+      const float sl = sqrtf(maxn(1.0f - h1 * h1, 0.0f));
+      const float lpx = lcx + lrad * sl * sinf(h2);
+      const float lpy = lcy + lrad * sl * cosf(h2);
+      const float lpz = lcz + lrad * h1;
+      float ldx = lpx - hx, ldy = lpy - hy, ldz = lpz - hz;
+      const float dist =
+          sqrtf(maxn(ldx * ldx + ldy * ldy + ldz * ldz, 1e-24f));
+      ldx = ldx / dist;
+      ldy = ldy / dist;
+      ldz = ldz / dist;
+      int sh_win;
+      const float sh_t = search(rec, prim, n_entries, n_sph, resident, want,
+                                hx + nx * eps, hy + ny * eps, hz + nz * eps,
+                                ldx, ldy, ldz, eps, &sh_win);
+      const bool shadowed = sh_t < dist;
+      const float dlx = lcx - hx, dly = lcy - hy, dlz = lcz - hz;
+      const float dd2 = maxn(dlx * dlx + dly * dly + dlz * dlz, 1e-12f);
+      const float cam = sqrtf(1.0f - clampn(lrad * lrad / dd2, 0.0f, 1.0f));
+      const float wgt = 2.0f * (1.0f - cam);
+      const float ndl = maxn(ldx * nx + ldy * ny + ldz * nz, 0.0f);
+      if (want && !shadowed) {
+        const float wnd = wgt * ndl;
+        Lr = Lr + Tr * lcr * wnd;
+        Lg = Lg + Tg * lcg * wnd;
+        Lb = Lb + Tb * lcb * wnd;
       }
     }
 
@@ -453,15 +523,33 @@ pt_trace_kernel(const float* __restrict__ params,
       }
     }
     k += 3 + (has_nee ? 2 : 0) + (j >= 2 ? 1 : 0);
-  }
+    ++j;
 
-  if (in_range) {
-    lor[i] = Lr;
-    log_[i] = Lg;
-    lob[i] = Lb;
-    ov[i] = override_;
-    fet[i] = fetched ? 1.0f : 0.0f;
+    // the path ends: write the ray's outputs, take another next round
+    if (busy && (!alive || j == bounces)) {
+      lor[ray] = Lr;
+      log_[ray] = Lg;
+      lob[ray] = Lb;
+      ov[ray] = override_;
+      fet[ray] = fetched ? 1.0f : 0.0f;
+      busy = false;
+    }
   }
+}
+
+// Blocks of the persistent grid: as many as the SMs hold at once, no more
+// than the rays need.
+int grid_blocks(int n_rays) {
+  static int resident_blocks = 0;
+  if (resident_blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pt_trace_kernel,
+                                                  kThreads, 0);
+    resident_blocks = max(sms * per_sm, 1);
+  }
+  return min(resident_blocks, (n_rays + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -473,11 +561,11 @@ extern "C" int pt_trace_launch(const float* params, const float* prim,
                                const int* atlas, int atlas_w, int atlas_h,
                                float* lor, float* log_, float* lob, float* ov,
                                float* fet, int n_rays, int bounces, int nee,
-                               void* stream) {
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  pt_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+                               int* next_ray, void* stream) {
+  if (n_rays <= 0) return 0;
+  pt_trace_kernel<<<grid_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
       params, prim, n_entries, n_sph, ro, rd, uid, block_active, seed,
       reinterpret_cast<const uint32_t*>(atlas), atlas_w, atlas_h, lor, log_,
-      lob, ov, fet, n_rays, bounces, nee);
+      lob, ov, fet, n_rays, bounces, nee, next_ray);
   return (int)cudaGetLastError();
 }

@@ -232,7 +232,8 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
     arithmetic, vectorised over the rays and, inside each nearest-hit
     search, over the entries. ``stats``, if given, receives the work the
     kernel does on these inputs: ``segments`` (rays alive at a bounce's
-    nearest-hit search) and ``shadow_rays`` (NEE shadow searches)."""
+    nearest-hit search), ``alive`` (the same per bounce) and
+    ``shadow_rays`` (NEE shadow searches)."""
     nblk = ro.shape[0]
     n = nblk * BLOCK
     dev = ro.device
@@ -263,10 +264,11 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
     live_rays = torch.ones_like(alive)
     if block_active is not None:
         live_rays = (block_active.reshape(nblk) != 0).repeat_interleave(BLOCK)
-    segments = shadow_rays = 0
+    per_bounce = []
+    shadow_rays = 0
     for j in range(bounces):
         if stats is not None:
-            segments += int((alive & live_rays).sum())
+            per_bounce.append(int((alive & live_rays).sum()))
         t, a = _stream(ent, n_sph, (rox, roy, roz), (rdx, rdy, rdz), eps,
                        True)
         nx, ny, nz, shr, shg, shb, isl_f, iss_f, tex_f, uvx, uvy = a
@@ -438,7 +440,8 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
             Tb = torch.where(alive, Tb * ipm, Tb)
 
     if stats is not None:
-        stats.update(segments=segments, shadow_rays=shadow_rays)
+        stats.update(segments=sum(per_bounce), alive=per_bounce,
+                     shadow_rays=shadow_rays)
     outs = [Lr, Lg, Lb, override, fetched.to(torch.float32)]
     if block_active is not None:
         outs = [torch.where(live_rays, o, 0.0) for o in outs]
@@ -488,7 +491,8 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
     [B, 8, 128] RNG ids (default: the ray's stream position).
 
     Returns (lor, log, lob, ov, fet), each f32 [B, 8, 128]. CPU tensors run
-    the plain version; CUDA tensors launch the kernel once."""
+    the plain version; CUDA tensors launch the kernel once (persistent
+    warps that take rays from a counter the wrapper zeroes)."""
     nblk, texels = _check(params, prim, ro, rd, atlas, atlas_w, atlas_h,
                           sph_rows, block_active, uid)
     if ro.device.type == "cpu":
@@ -512,6 +516,7 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
     n = nblk * BLOCK
     outs = [torch.empty((nblk, BH, BW), dtype=torch.float32, device=ro.device)
             for _ in range(5)]
+    next_ray = torch.zeros(1, dtype=torch.int32, device=ro.device)
     err = _build.lib().pt_trace_launch(
         params.data_ptr(), prim.data_ptr(), prim.shape[0] * PACK,
         sph_rows * PACK, ro.data_ptr(), rd.data_ptr(),
@@ -520,7 +525,7 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
         int32_wrap(seed), atlas.data_ptr() if texels else None,
         atlas_w if texels else 0, atlas_h if texels else 0,
         *(o.data_ptr() for o in outs), n, int(bounces), int(bool(nee)),
-        _build.stream_ptr(ro.device))
+        next_ray.data_ptr(), _build.stream_ptr(ro.device))
     launches += 1
     _build.check(err, "pt_trace_launch")
     return tuple(outs)

@@ -150,16 +150,55 @@ def tile_eval_bins_ref(data_packed: torch.Tensor, offsets: torch.Tensor,
                           n_tiles, mm=False)
 
 
+def bin_slots(offsets: torch.Tensor):
+    """The walk's work list, per tile: the first slot and the number of
+    128-entry chunks of its bin. Chunk c of tile t is the global chunk
+    off0 // 128 + c and takes slot off0 // 128 + t + c: slots increase with
+    (t, c), so each tile's chunks are consecutive and slots merge in bin
+    order."""
+    off = offsets.long()
+    off0, off1 = off[:-1], off[1:]
+    first = off0 // MM_CHUNK + torch.arange(off0.shape[0], device=off.device)
+    n = torch.where(off1 > off0, (off1 - 1) // MM_CHUNK - off0 // MM_CHUNK
+                    + 1, 0)
+    return first, n
+
+
+def n_slots(n_entries: int, n_tiles: int) -> int:
+    """Slots of the work list for any offsets into n_entries entries: the
+    host sizes the grid and the partial results from this bound."""
+    return n_entries // MM_CHUNK + n_tiles
+
+
+def work_items(offsets: torch.Tensor, n_entries: int):
+    """(slot, tile, chunk) of every work item the kernel walks. A slot's
+    tile is the last tile whose first slot is not above it (the kernel's
+    binary search over the offsets); slots past that tile's chunks are
+    unused."""
+    first, n = bin_slots(offsets)
+    q = torch.arange(n_slots(n_entries, first.shape[0]), device=first.device)
+    t = torch.clamp(torch.searchsorted(first, q, right=True) - 1, min=0)
+    c = q - first[t]
+    used = (c >= 0) & (c < n[t])
+    return q[used], t[used], c[used]
+
+
 def _launch(data, offsets, tiles_x: int, n_tiles: int, mm: bool, what: str):
     _build.require_cuda(data, offsets, what=what)
+    if data.data_ptr() % 16:
+        raise ValueError(f"{what}: data must be 16-byte aligned")
     z = torch.empty((n_tiles, TILE_H, TILE_W), dtype=torch.float32,
                     device=data.device)
     t = torch.empty_like(z)
     if n_tiles == 0:
         return z, t
+    n_entries = data.numel() // N_CHAN
+    slots = n_slots(n_entries, n_tiles)
+    part = torch.empty((slots, 2, PIX), dtype=torch.float32,
+                       device=data.device)
     err = _build.lib().bins_walk_launch(
         data.data_ptr(), offsets.data_ptr(), z.data_ptr(), t.data_ptr(),
-        n_tiles, tiles_x, data.numel() // N_CHAN, int(mm),
+        part.data_ptr(), slots, n_tiles, tiles_x, n_entries, int(mm),
         _build.stream_ptr(data.device))
     _build.check(err, "bins_walk_launch")
     return z, t
@@ -170,7 +209,9 @@ def tile_eval_bins_mm(data_mm: torch.Tensor, offsets: torch.Tensor,
     """data_mm f32 [P/128, N_CHAN, 128] (channel-major 128-entry chunks);
     offsets i32 [n_tiles+1] in ENTRY units -> (z, tid) f32
     [n_tiles, 8, 128], tid -1 = none. CPU tensors run the plain version;
-    CUDA tensors launch the kernel once (one block per tile)."""
+    CUDA tensors launch the kernel once: a walk over the work list
+    (``work_items``: a block per chunk of a bin and quarter of a tile),
+    then a merge of the partial results in bin order."""
     if data_mm.dim() != 3 or data_mm.shape[1:] != (N_CHAN, MM_CHUNK):
         raise ValueError(f"tile_eval_bins_mm: expected [P/128, 16, 128], got "
                          f"{tuple(data_mm.shape)}")
@@ -188,7 +229,8 @@ def tile_eval_bins(data_packed: torch.Tensor, offsets: torch.Tensor,
                    tiles_x: int, n_tiles: int):
     """data_packed f32 [P/8, 128] (see pack_entries); offsets i32
     [n_tiles + 1] in ENTRY units -> (z, tid) as tile_eval_bins_mm. CPU
-    tensors run the plain version; CUDA tensors launch the kernel once."""
+    tensors run the plain version; CUDA tensors launch the kernel once
+    (walk and merge, as tile_eval_bins_mm)."""
     if data_packed.dim() != 2 or data_packed.shape[1] != PACK * N_CHAN:
         raise ValueError(f"tile_eval_bins: expected [P/8, 128], got "
                          f"{tuple(data_packed.shape)}")

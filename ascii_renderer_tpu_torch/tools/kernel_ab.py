@@ -1,0 +1,148 @@
+"""A/B of the path-trace megakernel B5 and the bin walks B6 / B6' between
+two checkouts of the repo on one card.
+
+Each side runs in its own process with its own checkout's
+``ascii_renderer_tpu_torch`` (kernels built from that checkout's
+``ops/csrc``), in turns: other, this, this, other. A side times, by the
+profiler's kernel rows over 50 back-to-back calls (``chip_smoke
+._device_ms``, whose row count check takes the side's launches per call):
+
+- B5 at every launch shape of the PT runs (``chip_smoke._pt_batch``): the
+  reference run's batch (110,592 rays) and probe (3,456), the HD arm's
+  probe (518,400) and batch (4,147,200);
+- B6 and B6' at the shapes the binned paths give them
+  (``chip_smoke.B6_TIMED``): the entry() room 96x36, the teapot 240x135 and
+  the mid-scale HD arm 960x540.
+
+Both sides' outputs must be bit-identical (a digest per kernel and shape);
+the inputs are built by the side's own package from this checkout's
+``chip_smoke.py``. Run from the repo root on a machine with one NVIDIA GPU,
+with the other checkout unpacked in a git-ignored directory:
+
+    python3 -m ascii_renderer_tpu_torch.tools.kernel_ab --other DIR
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]  # this checkout's root
+DEVICE = "cuda:0"
+PT_SHAPES = ((36, 96, 32, "reference batch"), (36, 96, 1, "reference probe"),
+             (540, 960, 1, "HD probe"), (540, 960, 8, "HD arm batch"))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _digest(outs) -> str:
+    import torch
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def worker(root: str) -> dict:
+    """Times B5 and B6 / B6' with the package of checkout ``root``."""
+    sys.path.insert(0, root)
+    import torch
+
+    import ascii_renderer_tpu_torch as pkg
+    if not Path(pkg.__file__).resolve().is_relative_to(Path(root).resolve()):
+        raise RuntimeError(f"imported {pkg.__file__}, not {root}'s package")
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PK
+    from ascii_renderer_tpu_torch.ops import raster_bins as RB
+    cs = _chip_smoke()
+    dev = torch.device(DEVICE)
+    out = {"root": root, "b5_ms": {}, "b6_ms": {}, "digest": {}}
+    scene = cs._pt_scene(device=dev)
+    for rows, cols, B, label in PT_SHAPES:
+        args, kw, _uid, n = cs._pt_batch(dev, scene, rows, cols, B, 1)
+        out["digest"][f"B5 {label}"] = _digest(PK.trace_blocks_raw(*args,
+                                                                   **kw))
+        out["b5_ms"][f"{label} ({n} rays)"] = cs._device_ms(
+            lambda: PK.trace_blocks_raw(*args, **kw), "pt_trace_kernel", 1)
+    # a bin walk split over work items merges in a second launch
+    per_call = 2 if hasattr(RB, "work_items") else 1
+    mid_preps = []
+    for label, name, grid in (("teapot 240x135", "teapot", cs.TEAPOT_GRID),
+                              ("mid-scale HD 960x540", "mid", cs.MID_GRID)):
+        msoup, mcam = cs._mesh(name)
+        mid_preps.append((label, grid, cs._mid_prep(
+            tuple(torch.from_numpy(x).to(dev) for x in msoup),
+            cs._scene(dev), mcam, *grid)))
+    for label, data, offs, tiles_x, n_tiles in cs._walk_inputs(
+            dev, cs._room(dev), cs._mesh("cube"), mid_preps):
+        if label not in cs.B6_TIMED:
+            continue
+        for kern, fn in (("mm", RB.tile_eval_bins_mm),
+                         ("loop", RB.tile_eval_bins)):
+            d = data[kern]
+            out["digest"][f"B6 {kern} {label}"] = _digest(
+                fn(d, offs, tiles_x, n_tiles))
+            out["b6_ms"][f"{kern} {label}"] = cs._device_ms(
+                lambda: fn(d, offs, tiles_x, n_tiles), "bins_walk_kernel",
+                per_call)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", help="the other checkout's root")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.worker:
+        print(json.dumps(worker(a.worker)), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: CUDA is not available")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    other = str(Path(a.other).resolve())
+    runs = []
+    for side, root in (("other", other), ("this", str(HERE)),
+                       ("this", str(HERE)), ("other", other)):
+        res = subprocess.run([sys.executable, __file__, "--worker", root],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"{side} side ({root}) failed:\n"
+                               f"{res.stderr[-4000:]}")
+        runs.append((side, json.loads(res.stdout.strip().splitlines()[-1])))
+        print(f"{side}: {json.dumps(runs[-1][1])}", flush=True)
+    digests = {json.dumps(r["digest"], sort_keys=True) for _s, r in runs}
+    if len(digests) != 1:
+        raise AssertionError("the two checkouts' outputs differ")
+    summary = {}
+    for key in ("b5_ms", "b6_ms"):
+        for shape in runs[0][1][key]:
+            summary[f"{key[:2].upper()} {shape}"] = {
+                side: statistics.median(r[key][shape] for s, r in runs
+                                        if s == side)
+                for side in ("other", "this")}
+    for shape, ms in summary.items():
+        print(f"{shape}: other {ms['other']:.5f} ms, this {ms['this']:.5f} "
+              f"ms, other / this {ms['other'] / ms['this']:.2f}", flush=True)
+    print("outputs bit-identical in both checkouts", flush=True)
+    print(json.dumps({"runs": [dict(side=s, **r) for s, r in runs],
+                      "median_ms": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

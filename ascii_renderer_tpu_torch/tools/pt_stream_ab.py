@@ -1,9 +1,10 @@
 """A/B of the path-trace megakernel's two entry-stream modes on one card.
 
 ``ops/csrc/pt_trace.cu`` keeps the entry stream resident in shared memory
-when it fits one chunk (<= 64 entries: loaded once, a dead ray leaves at
-once) and streams it in chunks behind block barriers otherwise (a block
-leaves only when all its rays are dead). This script builds a second copy
+when it fits one chunk (<= 64 entries: staged once, each warp takes rays
+and leaves on its own) and streams it in chunks behind block barriers
+otherwise (every thread at every barrier; a block leaves when the ray
+counter is spent and no lane holds a ray). This script builds a second copy
 of the kernel library whose ``pt_trace.cu`` always takes the chunked mode,
 and drives the path tracer's two runs of bench config 0 (the demo room with
 its atlas, 28 entries, poster pose) through both builds, interleaved

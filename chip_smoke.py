@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 1. Prints the card (nvidia-smi name and power limit), torch and CUDA.
 2. Builds the CUDA kernels of ascii_renderer_tpu_torch/ops/csrc with nvcc
-   (one process per source, all at once).
+   (one process per source, all at once) and prints each kernel's
+   registers, spills and shared memory (-Xptxas -v).
 3. Holds each kernel against its plain-torch version on the same CUDA
    inputs, at the shapes its main path gives it:
    - raster headline (bunny-class mesh, 68,644 triangles, 960x540):
@@ -17,22 +18,24 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      masks: exactly equal;
    - path-trace megakernel (B5) at every launch shape of the PT runs: the
      reference run's batch (110,592 rays, seed 1) and probe (3,456), the HD
-     arm's probe (518,400) and batch (4,147,200): ov / fet exactly equal,
-     radiance with >= 99.9% of rays within 1e-4 and the image mean within
-     1e-4 relative (bit-identity is reported); then a random block gate
-     and a permuted ray order with canonical uids: every live ray
-     bit-identical to the plain run, gated blocks zero.
+     arm's probe (518,400) and batch (4,147,200): ov / fet and radiance
+     bit-identical; then a random block gate and a permuted ray order
+     with canonical uids: every live ray bit-identical to the plain run,
+     gated blocks zero.
    Kernel ms is device time (profiler kernel rows over 50 back-to-back
-   launches); plain ms is CUDA events around whole calls; bound ms is the
-   larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM), from
-   this run's inputs.
+   calls, their count checked against the kernel's launches per call);
+   plain ms is CUDA events around whole calls; bound ms is the larger of
+   bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM; B5's unfused
+   operations / 33.5 T FP32 instructions/s), from this run's inputs.
    - bin walks B6 (channel-major chunks) and B6' (row-major entries, the
      valid flag tested) on the inputs the binned paths build
      (raster_channels.binned_entries): the demo room 96x36, the cube
      80x24, the teapot 240x135 and the mid-scale HD arm (bunny-class
      14,884 triangles, 960x540) at their steady caps, and random entries
      with empty bins, bins across the 128 / 256-entry chunks and depth
-     ties: z and winner ids exactly equal;
+     ties: z and winner ids exactly equal; each timed (walk and merge)
+     at the entry() room's, the teapot's and the mid-scale HD arm's
+     shapes;
    - the plane-table packs B7 (pack_channels) and B7' (pack_channels_split)
      at the teapot's and the HD arm's table widths and lengths, and B7' at
      the reference's exactness shape [40, 69632]: bit-exact;
@@ -115,6 +118,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# Keep CUPTI up between profiler sessions: torch tears it down after each
+# by default, and the next session then now and then loses kernel rows
+# (whole names, or half of a two-kernel call), which _device_ms refuses
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
 ROWS, COLS, PIXEL_ASPECT = 540, 960, 0.5
 # The headline frame's golden (tests/test_headline_goldens.py): the sum of
 # all 518,400 glyph codes and a 27 x 48 downsample of the grid.
@@ -128,6 +135,10 @@ PT_OVERRIDES = 117
 # and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# FP32 instructions: 132 SMs x 128 lanes x 1.98 GHz. B5 is built with
+# -fmad=false, so each of its operations is one instruction, an FMA never
+# two operations: its bound divides by this rate
+PEAK_FP32_INSTR = 33.5e12
 # B5 operations per ray, counted from csrc/pt_trace.cu (sqrt, division,
 # sin, cos and pow counted as one operation each): one sphere entry and
 # one triangle entry of a nearest-hit search, the rest of a bounce, and
@@ -152,16 +163,19 @@ def _event_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
-def _device_ms(fn, kernel, n=50):
+def _device_ms(fn, kernel, per_call, n=50):
     """Device ms per call of fn: the profiler's CUDA rows whose name holds
     ``kernel`` (every CUDA row if None), summed over n back-to-back calls,
-    over n."""
+    over n. fn launches ``per_call`` such kernels; a profile whose matched
+    rows count another number of launches than n * per_call is taken
+    again, and the third such profile fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _attempt in range(3):  # the profiler now and then returns no rows
+    counts = []
+    for _attempt in range(3):  # the profiler now and then drops rows
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -169,9 +183,13 @@ def _device_ms(fn, kernel, n=50):
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and (kernel is None or kernel in e.key)]
-        if rows:
+        counts.append(sum(e.count for e in rows))
+        if counts[-1] == n * per_call:
             return sum(e.self_device_time_total for e in rows) / n / 1e3
-    raise AssertionError(f"no device rows for {kernel} in 3 profiles")
+        print(f"{kernel}: {counts[-1]} device rows in a profile of {n} "
+              f"calls, not {n * per_call}: profiling again", flush=True)
+    raise AssertionError(f"{kernel}: {counts} device rows in 3 profiles of "
+                         f"{n} calls, not {n * per_call}")
 
 
 def _event_once(fn):
@@ -187,8 +205,8 @@ def _event_once(fn):
     return out, a.elapsed_time(b)
 
 
-def _bound(n_bytes, n_ops):
-    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+def _bound(n_bytes, n_ops, ops_rate=PEAK_FP32):
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / ops_rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -272,7 +290,7 @@ def check_kernels(dev, soup, scene):
     recs.append(_rec(
         "setup2dh", "setup2dh.cu", "setup2dh.py:43", err,
         _device_ms(lambda: S.setup_2dh_fused(pos9, attrs_t, mvp, ROWS, COLS),
-                   "setup2dh_kernel"),
+                   "setup2dh_kernel", 1),
         _event_ms(lambda: S.setup_2dh_fused_ref(pos9, attrs_t, mvp, ROWS,
                                                 COLS), 5), bound))
     print(f"B2 setup: valid={int(valid.sum())} max_abs_err={err} "
@@ -300,9 +318,10 @@ def check_kernels(dev, soup, scene):
     recs.append(_rec(
         "pack", "pack.cu", "pack.py:170", 0.0,
         _device_ms(lambda: PK.pack_channels_split_blocked(cm_k, spans),
-                   "pack_span_kernel"),
+                   "pack_span_kernel", len(spans)),
         _event_ms(lambda: PK.pack_channels_split_blocked_ref(cm_k, spans),
-                  20), bound, library_ms=_device_ms(library, None)))
+                  20), bound, library_ms=_device_ms(library, None,
+                                                    len(spans))))
     print("B3 pack: bit-exact", flush=True)
 
     # B1 grouped walk, on the layout frame 0's first render builds
@@ -325,7 +344,7 @@ def check_kernels(dev, soup, scene):
     recs.append(_rec(
         "raster_group_walk", "raster_group.cu", "raster_group.py:256", 0.0,
         _device_ms(lambda: RG.tile_eval_grouped_skip(*lay[:6], grp_cap),
-                   "walk_grouped_skip_kernel"),
+                   "walk_grouped_skip_kernel", 1),
         _event_ms(lambda: RG.tile_eval_grouped_skip_ref(*lay[:6], grp_cap),
                   1), bound))
     print(f"B1 walk: exact, {hits} lit pixels, n_rows={n_rows}", flush=True)
@@ -441,9 +460,9 @@ def check_generation_kernels(dev, soup, scene):
 
     ms = _device_ms(lambda: S.setup_2dh_fused_packed(pos9, attrs_t, mvp, ROWS,
                                                      COLS, tw),
-                    "setup2dh_packed_kernel")
-    ms_b2 = _device_ms(b2_b3, "setup2dh_kernel")
-    ms_b3 = _device_ms(b2_b3, "pack_span_kernel")
+                    "setup2dh_packed_kernel", 1)
+    ms_b2 = _device_ms(b2_b3, "setup2dh_kernel", 1)
+    ms_b3 = _device_ms(b2_b3, "pack_span_kernel", 2)
     print(f"B10 vs B2 + B3 (device ms, same inputs): {ms:.5f} vs "
           f"{ms_b2:.5f} + {ms_b3:.5f} = {ms_b2 + ms_b3:.5f}", flush=True)
     recs["B10"] = _rec(
@@ -486,7 +505,7 @@ def check_generation_kernels(dev, soup, scene):
                 "raster_group.cu",
                 {"B9d": "raster_group.py:135", "B9e": "raster_group.py:586",
                  "B9f K2": "raster_group.py:735"}[walk], 0.0,
-                _device_ms(lambda: fn(*lay[:-4], grp_cap), kname), plain,
+                _device_ms(lambda: fn(*lay[:-4], grp_cap), kname, 1), plain,
                 _walk_bound(lay, z_k, e_k))
     del lays
 
@@ -761,7 +780,7 @@ def check_oracle_kernels(dev, soup, scene, caps):
     bound = _bound(160 * entries + _nbytes(args[1], args[2], rgb),
                    B8_OPS * 1024 * entries + B8_OPS_PIXEL * rgb.numel() // 3)
     ms = _device_ms(lambda: RB.tile_eval_bins_shaded(*args),
-                    "shaded_walk_kernel")
+                    "shaded_walk_kernel", 1)
     recs["B8"] = _rec("raster_bins_walk_shaded", "raster_shaded.cu",
                       "raster_bins.py:292", 0.0, ms, plain, bound)
     print(f"B8 bunny: kernel {ms:.4f} ms, bound {bound[0]:.5f} ms "
@@ -790,7 +809,7 @@ def check_oracle_kernels(dev, soup, scene, caps):
         bound = _bound(64 * live + _nbytes(wargs[1], z, e),
                        20 * 128 * live)
         kname = "subtile_walk_kernel"
-        ms = _device_ms(lambda: fn(*wargs), kname)
+        ms = _device_ms(lambda: fn(*wargs), kname, 1)
         recs[walk] = _rec(
             {"B9a": "raster_subtile_walk", "B9b": "raster_subtile_walk_packed",
              "B9c": "raster_subtile_walk_packed_d"}[walk],
@@ -934,7 +953,7 @@ def check_modal(dev):
     return _rec(
         "modal_vote", "modal.cu", "ascii_kernel.py:41", 0.0,
         _device_ms(lambda: AK.modal_filter_kernel(idx, ovr, 2, 12),
-                   "modal_kernel"),
+                   "modal_kernel", 1),
         _event_ms(lambda: AK.modal_filter(idx, ovr, 2, 12), 20),
         _bound(h * w * (4 + 1 + 4), 0))
 
@@ -1000,8 +1019,7 @@ def _compare_b5(k, p, n, label):
           f"{' (bit-identical)' if not_bit == 0 else ''}, within 1e-4 "
           f"{within:.6f}, mean {mk:.7f} vs {mp:.7f} (rel {rel:.3g}), "
           f"overrides {int((k[3].reshape(-1)[:n] > 0).sum())}", flush=True)
-    assert within >= 0.999, f"B5 {label}: only {within} of rays within 1e-4"
-    assert rel <= 1e-4, f"B5 {label}: image mean off by {rel}"
+    assert not_bit == 0, f"B5 {label}: {not_bit} of rays not bit-identical"
     return err
 
 
@@ -1035,17 +1053,20 @@ def check_pt_kernel(dev):
         err = _compare_b5(k, p, n, f"{label} ({n} rays)")
         prim = args[1]
         ops = _b5_ops(stats, prim.shape[0], kw["sph_rows"])
-        bound = _bound(_nbytes(*args[:4], args[5]) + 4 * n + 20 * n, ops)
+        bound = _bound(_nbytes(*args[:4], args[5]) + 4 * n + 20 * n, ops,
+                       PEAK_FP32_INSTR)
         ms = _device_ms(lambda: PK.trace_blocks_raw(*args, **kw),
-                        "pt_trace_kernel")
+                        "pt_trace_kernel", 1)
         plain = _event_ms(lambda: PK.trace_blocks_raw_ref(*args, **kw), 3)
         print(f"B5 {label}: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]}; {stats['segments']} segments, "
-              f"{stats['shadow_rays']} shadow searches, {ops:.4g} ops)",
-              flush=True)
+              f"{bound[0]:.4f} ms ({bound[1]} at the FP32 instruction rate; "
+              f"{stats['segments']} segments, alive per bounce "
+              f"{stats['alive']}, {stats['shadow_rays']} shadow searches, "
+              f"{ops:.4g} ops)", flush=True)
         if rec is None:
             rec = _rec("pt_megakernel", "pt_trace.cu", "pt_kernel.py:153",
                        err, ms, plain, bound)
+            rec["ops_rate"] = PEAK_FP32_INSTR
             # placement: a random block gate and a permuted ray order with
             # canonical uids leave every live ray's output bit-identical
             g = torch.Generator().manual_seed(1)
@@ -1425,16 +1446,34 @@ def _walk_inputs(dev, room, cube, mid_preps):
     return out
 
 
+# the shapes B6 / B6' are timed at: the driven paths' own; the records
+# carry the mid-scale HD arm's
+B6_TIMED = ("demo room 96x36", "teapot 240x135", "mid-scale HD 960x540")
+
+
 def check_bins_kernels(dev, room, cube, mid_preps):
     """B6 and B6' against their plain versions at every shape the binned
-    paths give them: z and winner ids exactly equal. Returns the two
-    records, timed at the mid-scale HD arm's shape."""
+    paths give them: z and winner ids exactly equal; each timed at the
+    entry() room's, the teapot's and the mid-scale HD arm's shapes, with
+    its work list (work items of one 128-entry chunk and a quarter of a
+    tile's rows, blocks launched). Returns the two records, at the mid-scale HD
+    arm's shape."""
     import torch
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
     recs = {}
     for label, data, offs, tiles_x, n_tiles in _walk_inputs(
             dev, room, cube, mid_preps):
         walked = int((offs[1:] - offs[:-1]).sum())
+        _first, n_chunks = RB.bin_slots(offs)
+        items = int(n_chunks.sum())
+        print(f"B6 {label}: {n_tiles} tiles, {int((n_chunks > 0).sum())} "
+              f"non-empty, {walked} entries walked, deepest bin "
+              f"{int(n_chunks.max())} chunks; {items} work items of one "
+              f"chunk, {4 * items} blocks with work of "
+              f"{4 * RB.n_slots(data['mm'].numel() // 16, n_tiles)} "
+              f"launched", flush=True)
+        if label == "demo room 96x36":  # entry()'s step: more blocks
+            assert 4 * items > n_tiles, (items, n_tiles)
         for kern, fn, ref in (("mm", RB.tile_eval_bins_mm,
                                RB.tile_eval_bins_mm_ref),
                               ("loop", RB.tile_eval_bins,
@@ -1450,21 +1489,22 @@ def check_bins_kernels(dev, room, cube, mid_preps):
             assert hits > 0, f"B6 {kern} {label}: nothing hit"
             print(f"B6 {kern} {label}: exact, {n_tiles} tiles, {walked} "
                   f"entries walked, {hits} lit pixels", flush=True)
-            if label.startswith("mid-scale"):
+            if label in B6_TIMED:  # walk, then merge: two launches
                 ms = _device_ms(lambda: fn(d, offs, tiles_x, n_tiles),
-                                "bins_walk_kernel")
+                                "bins_walk_kernel", 2)
                 plain = _event_ms(lambda: ref(d, offs, tiles_x, n_tiles), 3)
                 bound = _bound(64 * walked + _nbytes(offs, z_k, t_k),
                                B6_OPS * 1024 * walked)
+                print(f"B6 {kern} {label}: kernel {ms:.5f} ms, plain "
+                      f"{plain:.3f} ms, bound {bound[0]:.5f} ms "
+                      f"({bound[1]})", flush=True)
+            if label.startswith("mid-scale"):
                 name = ("raster_bins_walk" if kern == "mm"
                         else "raster_bins_walk_loop")
                 recs[kern] = _rec(name, "raster_bins.cu",
                                   "raster_bins.py:158" if kern == "mm"
                                   else "raster_bins.py:54", 0.0, ms, plain,
                                   bound)
-                print(f"B6 {kern} {label}: kernel {ms:.4f} ms, plain "
-                      f"{plain:.3f} ms, bound {bound[0]:.5f} ms "
-                      f"({bound[1]})", flush=True)
     return [recs["mm"], recs["loop"]]
 
 
@@ -1504,20 +1544,20 @@ def check_pack_channels(dev, mid_preps):
             recs.append(_rec(
                 "pack_channels", "pack.cu", "pack.py:95", 0.0,
                 _device_ms(lambda: PK.pack_channels(chans),
-                           "pack_span_kernel"),
+                           "pack_span_kernel", 1),
                 _event_ms(lambda: PK.pack_channels_ref(chans), 20), bound,
                 library_ms=_device_ms(lambda: padded.t().contiguous(),
-                                      None)))
+                                      None, 1)))
             bound = _bound(4 * N * sum(min(b, C) - a + (b - a)
                                        for a, b in spans), 0)
             recs.append(_rec(
                 "pack_channels_split", "pack.cu", "pack.py:130", 0.0,
                 _device_ms(lambda: PK.pack_channels_split(cm, spans),
-                           "pack_span_kernel"),
+                           "pack_span_kernel", len(spans)),
                 _event_ms(lambda: PK.pack_channels_split_ref(cm, spans), 20),
                 bound, library_ms=_device_ms(
                     lambda: [padded[a:b].t().contiguous() for a, b in spans],
-                    None)))
+                    None, len(spans))))
     return recs
 
 
@@ -1700,6 +1740,8 @@ def main() -> int:
     so = _build.build()
     _build.lib()
     print(f"build: {so.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    for line in _build.ptxas_report():
+        print(f"ptxas: {line}", flush=True)
 
     dev = torch.device("cuda:0")
     # each kernel's wrapper module and launch counter

@@ -26,6 +26,7 @@ from ascii_renderer_tpu.backends import pathtrace as JPT
 from ascii_renderer_tpu.core import camera as JC
 from ascii_renderer_tpu.core.frame import Frame as JFrame
 from ascii_renderer_tpu.scene import demo as JD
+from ascii_renderer_tpu.scene.builder import SceneBuilder as JSB
 from ascii_renderer_tpu_torch.ascii.ascii_pass import glyph_decide
 from ascii_renderer_tpu_torch.atlas import io as TIO
 from ascii_renderer_tpu_torch.backends import pathtrace as TPT
@@ -34,7 +35,7 @@ from ascii_renderer_tpu_torch.backends.raster import RasterBackend
 from ascii_renderer_tpu_torch.core import camera as TC
 from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
 from ascii_renderer_tpu_torch.core.frame import Frame
-from ascii_renderer_tpu_torch.scene.builder import SceneBuilder
+from ascii_renderer_tpu_torch.scene.builder import MaterialIds, SceneBuilder
 from ascii_renderer_tpu_torch.scene import demo as TD
 from ascii_renderer_tpu_torch.utils import from_jax
 
@@ -283,3 +284,42 @@ def test_kernel_path_differs_from_the_xla_core_golden():
               for c, ch in enumerate(row) if ch != "."}
     # every override of the centre-ray frame is in the golden, unchanged
     assert centre and all(golden[r][c] == got1[r][c] for r, c in centre)
+
+
+def test_kernel_path_differs_from_the_wide_atlas_golden():
+    """``pt_wide_atlas_overrides.txt`` (tests/test_atlas_wide.py) was
+    rendered by JAX's XLA core too: a full-atlas quad 1 texel to 1 cell,
+    27 overrides. The kernel path (the port's, byte for byte JAX's
+    ``render_pt(use_kernel=True)`` alpha plane) gives 29, and 13 of the
+    512 cells differ: the override map does depend on the jittered
+    samples. ROADMAP A7 (the XLA core) must turn this round."""
+    import os
+    asset = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                         "assets", "atlas_wide_32x16.bin")
+    golden = open(os.path.join(os.path.dirname(__file__), "goldens",
+                               "pt_wide_atlas_overrides.txt")).read()
+    golden = golden.rstrip("\n").split("\n")
+    kw = dict(rows=16, cols=32, pixel_aspect=1.0, spp=2, bounces=2,
+              light_color=LIGHT)
+    pose = dict(pos=(0, 0, 2.385), yaw=-np.pi / 2)
+    planes = []
+    for io, sb, cam in ((TIO, SceneBuilder(), TC.Camera.create(**pose)),
+                        (JIO, JSB(), JC.Camera.create(**pose))):
+        sb.add_quad([-4, -2, 0], [4, -2, 0], [4, 2, 0], [-4, 2, 0],
+                    MaterialIds.WHITE, (0, 16), (32, 16), (32, 0), (0, 0))
+        sb.set_area_light([50, 50, 50], 0.1, auto=False)
+        sb.set_atlas(io.load_atlas(asset, 32, 16, strict=True))
+        if io is TIO:
+            _rgb, a = TPT.render_pt(sb.build(device="cpu"), cam, 0.0, 0,
+                                    **kw)
+        else:
+            _rgb, a = JPT.render_pt(sb.build(), cam, jnp.float32(0),
+                                    jax.random.key(0), use_kernel=True, **kw)
+        planes.append(np.asarray(a))
+    np.testing.assert_array_equal(planes[0], planes[1])
+    a = planes[0]
+    ov = (a >= 2) & (a <= 254)
+    lines = ["".join(chr(c) if (32 <= c <= 126 and o) else "."
+                     for c, o in zip(row, orow)) for row, orow in zip(a, ov)]
+    n_diff = sum(x != y for g, w in zip(lines, golden) for x, y in zip(g, w))
+    assert int(ov.sum()) == 29 and n_diff == 13

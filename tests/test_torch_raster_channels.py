@@ -319,3 +319,20 @@ def test_unported_methods_raise_naming_their_roadmap_items():
     assert int(diag["n_valid"]) > 0 and int(diag["n_tiles_nz"]) == 1
     with pytest.raises(ValueError):
         R.render_soup_diag(*args, v_cap=4096, kernel="fused")
+
+
+@pytest.mark.parametrize("band", [dict(row_lo=0, band_rows=8),
+                                  dict(row_lo=0), dict(band_rows=8)])
+def test_render_soup_diag_row_bands_raise_naming_a12(band):
+    """JAX's render_soup_diag takes row_lo / band_rows (the row-band hook
+    of ROADMAP A12); the port takes them too and raises
+    NotImplementedError naming A12, as every unported argument does."""
+    p, attrs = near_plane_soup(50)
+    scene = SceneBuilder().set_env_light([0.2, 0.2, 0.2], 1.0).build(
+        device="cpu")
+    args = (torch.from_numpy(p), torch.from_numpy(attrs[:, :3]),
+            torch.from_numpy(attrs[:, 3:6]), scene, Camera.create(**NEAR_CAM),
+            8, 16, 0.5)
+    for kernel in ("mm", "subtile8"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            R.render_soup_diag(*args, v_cap=4096, kernel=kernel, **band)
