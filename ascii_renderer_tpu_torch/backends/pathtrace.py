@@ -2,13 +2,21 @@
 ``ascii_renderer_tpu/backends/pathtrace.py``; ref: pathtrace.js +
 pathtrace_shader.js + shader_utils.js) — the reference's default backend.
 
-The port traces every ray through the megakernel (``ops/pt_kernel``: the
-CUDA kernel for CUDA tensors, its plain-torch version for CPU tensors), as
-the JAX package does on its accelerator (``render_pt(use_kernel=True)``).
-RNG: the kernel's lowbias32 hash of (ray uid, seed, draw index), and the
-anti-aliasing jitter from the same hash with counters 0x40000001 and
-0x40000002; the frame seed of frame ``i`` is ``i`` (the last word of
-``jax.random.key_data(jax.random.key(i))``).
+Two paths trace the rays, as in the reference:
+- the kernel path (``render_pt(use_kernel=True)``, the default here, the
+  reference's choice on its accelerator): every ray through the megakernel
+  (``ops/pt_kernel``: the CUDA kernel for CUDA tensors, its plain-torch
+  version for CPU tensors). RNG: the kernel's lowbias32 hash of (ray uid,
+  seed, draw index), the anti-aliasing jitter from the same hash with
+  counters 0x40000001 and 0x40000002; the frame seed is the int32 view of
+  the last word of the frame's key (frame ``i`` of a backend: ``i``);
+- the XLA core (``trace_eye_paths``, ``render_pt(use_kernel=False)``, the
+  reference's default): vectorised torch over [primitives, rays]
+  candidate matrices (``backends/pt_core``), drawing from ``jax.random``'s
+  threefry stream (``core/threefry``) under the frame's key. It takes
+  atlases above the kernel's ``MAX_ATLAS_TEXELS`` texels, on every device.
+``PathtraceBackend`` and the frame step route as the reference does: the
+core for such an atlas, the kernel path otherwise.
 
 Semantics preserved (per the shader): spp x bounces with NEE toward the
 (optionally animated) spherical area light and Russian roulette after
@@ -18,25 +26,30 @@ short-circuits (colour passes through, the glyph code rides the alpha
 byte) and later hits take the glyph as a solid texel; the centre-ray /
 fetched-texel anti-aliasing rule; alpha 255 for pixels without override.
 
-Not ported (each raises ``NotImplementedError``): the XLA core
-``trace_eye_paths`` and atlases above ``MAX_ATLAS_TEXELS`` (ROADMAP A7),
-``pixel_active`` compaction (A8), row bands ``row_lo``/``n_rows`` (A12).
+Not ported (each raises ``NotImplementedError``): ``pixel_active``
+compaction (ROADMAP A8) and row bands ``row_lo``/``n_rows`` (A12).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ascii_renderer_tpu_torch.backends.pt_core import TriPack
+from ascii_renderer_tpu_torch.backends import pt_core as PC
+from ascii_renderer_tpu_torch.backends.pt_core import (
+    EPS, KIND_LIGHT, V3, _ScenePack, dot, normalize)
+from ascii_renderer_tpu_torch.core import quantize
+from ascii_renderer_tpu_torch.core import threefry as TF
 from ascii_renderer_tpu_torch.core.camera import (Camera, camera_basis,
                                                   ndc_grid, ray_dirs)
+from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.ops import pt_kernel as PK
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
-EPS = 1e-3  # shader_utils.js:5
 _GOLDEN = -1640531527  # int32 golden-ratio stride between batch seeds
 
 
@@ -67,47 +80,6 @@ def get_light_sphere(scene: SceneData, time, host=None):
     return center, radius
 
 
-def _mat_flags(scene: SceneData):
-    """Generalized LUT semantics: is_light <- emissive, is_specular <-
-    reflective; shading albedo = reflective ? 1 : albedo * 0.7."""
-    is_light = scene.mat_emissive
-    is_spec = scene.mat_reflective
-    shade = torch.where(is_spec[:, None], 1.0, scene.mat_albedo * 0.7)
-    return is_light, is_spec, shade
-
-
-class _ScenePack:
-    """Per-scene precomputation: all triangles (scene tris, quad tri1
-    (a, b, c), quad tri2 (a, c, d)) with materials, UVs and flags."""
-
-    def __init__(self, scene: SceneData):
-        self.scene = scene
-        self.sph_valid = scene.sph_valid()
-        self.n_sph = scene.sph_pos.shape[0]
-        va = torch.cat([scene.tri_a, scene.quad_a, scene.quad_a])
-        vb = torch.cat([scene.tri_b, scene.quad_b, scene.quad_c])
-        vc = torch.cat([scene.tri_c, scene.quad_c, scene.quad_d])
-        tvalid = torch.cat([scene.tri_valid(), scene.quad_valid(),
-                            scene.quad_valid()])
-        self.tri = TriPack.build(va, vb, vc, tvalid)
-        self.n_tris = va.shape[0]
-        self.tri_mat = torch.cat([scene.tri_mat, scene.quad_mat,
-                                  scene.quad_mat])
-        self.uva = torch.cat([scene.tri_uva, scene.quad_uv0, scene.quad_uv0])
-        self.uvb = torch.cat([scene.tri_uvb, scene.quad_uv1, scene.quad_uv2])
-        self.uvc = torch.cat([scene.tri_uvc, scene.quad_uv2, scene.quad_uv3])
-        nq = scene.quad_a.shape[0]
-        nt = scene.tri_a.shape[0]
-        is_quad_row = torch.cat([
-            torch.zeros(nt, dtype=torch.bool, device=va.device),
-            torch.ones(2 * nq, dtype=torch.bool, device=va.device)])
-        quad_zero = ((self.uva == 0).all(-1) & (self.uvb == 0).all(-1)
-                     & (self.uvc == 0).all(-1))
-        # texturable: tris always; quads only when some UV is nonzero
-        self.texturable = ~(is_quad_row & quad_zero)
-        self.is_light_m, self.is_spec_m, self.shade_m = _mat_flags(scene)
-
-
 def _cross(a, b):
     return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
                         a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
@@ -127,7 +99,8 @@ def pack_scene_entries(scene: SceneData):
     tri2), padded likewise — the JAX packer's layout and candidate order.
     Padding entries carry C_BADS = 3e38, so the kernel's guarded
     1 / (n . d) never meets a zero (an all-zero pad would compute 0 * inf).
-    Atlases above MAX_ATLAS_TEXELS raise (ROADMAP A7)."""
+    An atlas above MAX_ATLAS_TEXELS is left out (atlas_w = atlas_h = 0), as
+    the reference packs it: such a scene renders through the XLA core."""
     pk = _ScenePack(scene)
     dev = scene.sph_pos.device
     S, Tn = pk.n_sph, pk.n_tris
@@ -185,12 +158,11 @@ def pack_scene_entries(scene: SceneData):
     sph_rows = S_pad // PK.PACK
 
     ah, aw = scene.atlas_a.shape
-    if not (ah > 1 and aw > 1):
+    if not (ah > 1 and aw > 1) or ah * aw > PK.MAX_ATLAS_TEXELS:
+        # no atlas, or one above the kernel's budget (which the XLA core
+        # takes): the prims alone, as the reference packs them
         return (prim_packed, torch.zeros(1, dtype=torch.int32, device=dev),
                 0, 0, sph_rows)
-    if ah * aw > PK.MAX_ATLAS_TEXELS:
-        raise _not_ported(f"an atlas of {aw}x{ah} texels (above "
-                          f"MAX_ATLAS_TEXELS = {PK.MAX_ATLAS_TEXELS})", "A7")
     rgb = scene.atlas_rgb.reshape(-1, 3).to(torch.int64)
     al = scene.atlas_a.reshape(-1).to(torch.int64)
     rgba = (rgb[:, 0] << 24) | (rgb[:, 1] << 16) | (rgb[:, 2] << 8) | al
@@ -256,6 +228,265 @@ def trace_eye_paths_kernel(scene: SceneData, ro, rd, seed_base, light_center,
             (fet > 0.5).reshape(shp))
 
 
+# --------------------------------------------------------------------------
+# The XLA core (the reference's default path): vectorised torch, threefry
+# --------------------------------------------------------------------------
+def _cos_hemisphere(n: V3, key):
+    """Cosine-weighted hemisphere sample (shader_utils.js:135-143)."""
+    r = TF.uniform(key, tuple(n.x.shape) + (2,), n.x.device)
+    phi = 2.0 * math.pi * r[..., 0]
+    r2 = r[..., 1]
+    s2 = PC.sqrt32(1.0 - r2)
+    ny_ok = n.y.abs() < 0.999
+    axis = V3(torch.where(ny_ok, 0.0, 1.0), torch.where(ny_ok, 1.0, 0.0),
+              torch.zeros_like(n.x))
+    uu = normalize(PC.cross(n, axis))
+    vv = PC.cross(uu, n)
+    cphi = s2 * PC.f64_fn(torch.cos, phi)
+    sphi = s2 * PC.f64_fn(torch.sin, phi)
+    sr2 = PC.sqrt32(r2)
+    return normalize(V3(cphi * uu.x + sphi * vv.x + sr2 * n.x,
+                        cphi * uu.y + sphi * vv.y + sr2 * n.y,
+                        cphi * uu.z + sphi * vv.z + sr2 * n.z))
+
+
+def _sample_light_point(key, center, radius, shape, device):
+    """Uniform point on the light sphere (shader_utils.js:144-149)."""
+    h = TF.uniform(key, tuple(shape) + (2,), device)
+    hx = h[..., 0] * 2.0 - 1.0
+    phi = h[..., 1] * 2.0 * math.pi
+    s = PC.sqrt32(torch.clamp(1.0 - hx * hx, min=0.0))
+    return V3(center[0] + radius * s * PC.f64_fn(torch.sin, phi),
+              center[1] + radius * s * PC.f64_fn(torch.cos, phi),
+              center[2] + radius * hx)
+
+
+def _pow5(x):
+    """x ** 5 as the reference's integer power rounds it."""
+    return x * ((x * x) * (x * x))
+
+
+def _next_direction(n: V3, rd: V3, is_spec, key):
+    """BRDF sampling (shader_utils.js:216-229): (direction, is_spec)."""
+    kd, kf = TF.split(key)
+    diff = _cos_hemisphere(n, kd)
+    ndotr = dot(rd, n)
+    flip = ndotr > 0.0
+    eta = torch.where(flip, 1.5, 1.0 / 1.5)
+    nn = V3(torch.where(flip, -n.x, n.x), torch.where(flip, -n.y, n.y),
+            torch.where(flip, -n.z, n.z))
+    r0 = ((1.0 - 1.5) / (1.0 + 1.5)) ** 2
+    fres = r0 + (1.0 - r0) * _pow5(1.0 - ndotr.abs())
+    ref, _tir = PC.refract(rd, nn, eta)
+    use_reflect = (PC.norm(ref) < 1e-5) | (
+        TF.uniform(kf, tuple(fres.shape), fres.device) < fres)
+    refl = PC.reflect(rd, nn)
+    spec = normalize(refl.where(use_reflect, ref))
+    return spec.where(is_spec, diff), is_spec
+
+
+def trace_eye_paths(scene: SceneData, ro, rd, key, light_center,
+                    light_radius, *, bounces: int, light_color, nee: bool,
+                    with_stats: bool = False):
+    """traceEyePath (pathtrace_shader.js:107-183), vectorised over rays.
+
+    ro/rd f32 [..., 3]; key: two uint32 words (core/threefry); light
+    centre f32 [3] and radius f32 0-d. Returns (Lo f32 [..., 3], override
+    int32 [...], primary_fetched bool [...]); with_stats=True appends
+    {"segments", "shadow_rays"}: the rays alive at each bounce's search
+    and the diffuse lanes alive at each NEE test, as floats."""
+    shp = rd.shape[:-1]
+    R = int(np.prod(shp))
+    dev = rd.device
+    ro = V3.of(ro.reshape(R, 3))
+    rd = V3.of(rd.reshape(R, 3))
+    pk = _ScenePack(scene)
+    light_center = light_center.to(device=dev, dtype=torch.float32)
+    light_radius = light_radius.to(device=dev, dtype=torch.float32)
+    lcol = [float(c) for c in np.asarray(
+        torch.as_tensor(light_color, dtype=torch.float32).cpu())]
+    shade = pk.shade_m
+
+    zero = torch.zeros(R, dtype=torch.float32, device=dev)
+    one = torch.ones(R, dtype=torch.float32, device=dev)
+    Lo = V3(zero, zero, zero)
+    T = V3(one, one, one)
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    specular_bounce = torch.ones(R, dtype=torch.bool, device=dev)
+    override = torch.zeros(R, dtype=torch.int32, device=dev)
+    primary_fetched = torch.zeros(R, dtype=torch.bool, device=dev)
+    seg_count = shadow_count = 0.0
+
+    def add(mask, L, a, b=None):
+        """Lo + T * a (* b) where mask, per channel."""
+        out = []
+        for Lc, Tc, ac in zip(L, T, a):
+            term = Tc * ac if b is None else Tc * ac * b
+            out.append(torch.where(mask, Lc + term, Lc))
+        return V3(*out)
+
+    for j in range(bounces):
+        kj = TF.fold_in(key, j)
+        k_bounce, k_nee, k_rr = TF.split(kj, 3)
+        if with_stats:
+            seg_count += float(alive.sum())
+        h = PC._intersect(ro, rd, pk, light_center, light_radius)
+        miss = alive & ~h["hit"]
+        Lo = add(miss, Lo, PC.environment_ch(rd))
+        alive = alive & h["hit"]
+
+        n = h["n"]
+        m = torch.clamp(h["mat"], min=0).long()
+        is_light = pk.is_light_m[m] | (h["kind"] == KIND_LIGHT)
+        lt = alive & is_light & specular_bounce
+        Lo = add(lt, Lo, lcol)
+        alive = alive & ~is_light
+
+        tex, abyte, sampled = PC._sample_atlas(pk, h)
+        sampled = sampled & alive
+        if j == 0:
+            primary_fetched = sampled
+        glyph = (sampled & (abyte >= quantize.ATLAS_GLYPH_MIN)
+                 & (abyte <= quantize.ATLAS_GLYPH_MAX))
+        if j == 0:
+            # primary glyph hit: colour passes through, alpha override, stop
+            Lo = tex.where(glyph, Lo)
+            override = torch.where(glyph, abyte, override)
+            alive = alive & ~glyph
+            solid = sampled & (abyte == quantize.ATLAS_SOLID)
+        else:
+            solid = sampled & ((abyte == quantize.ATLAS_SOLID) | glyph)
+
+        is_spec = pk.is_spec_m[m]
+        albedo = tex.where(solid, V3(shade[m, 0], shade[m, 1], shade[m, 2]))
+        ndir, spec_now = _next_direction(n, rd, is_spec, k_bounce)
+        absorb = alive & (~spec_now | (dot(ndir, n) < 0.0))
+        T = (T * albedo).where(absorb, T)
+
+        hitpos = h["pos"]
+        if with_stats and nee and j < bounces - 1:
+            shadow_count += float((alive & ~is_spec).sum())
+        if nee and j < bounces - 1:
+            lpos = _sample_light_point(k_nee, light_center, light_radius,
+                                       (R,), dev)
+            ldir = lpos - hitpos
+            dist = PC.norm(ldir)
+            ldir = ldir * torch.reciprocal(torch.clamp(dist, min=1e-12))
+            sro = V3(hitpos.x + n.x * EPS, hitpos.y + n.y * EPS,
+                     hitpos.z + n.z * EPS)
+            shadowed = PC._shadow(sro, ldir, dist, pk)
+            dl = V3(light_center[0] - hitpos.x, light_center[1] - hitpos.y,
+                    light_center[2] - hitpos.z)
+            d2 = torch.clamp(dot(dl, dl), min=1e-12)
+            cos_a_max = PC.sqrt32(1.0 - torch.clamp(
+                light_radius * light_radius / d2, 0.0, 1.0))
+            weight = 2.0 * (1.0 - cos_a_max)
+            ndl = torch.clamp(dot(ldir, n), min=0.0)
+            contrib = alive & ~spec_now & ~shadowed
+            Lo = add(contrib, Lo, lcol, weight * ndl)
+
+        side = torch.where(dot(ndir, n) > 0.0, EPS, -EPS)
+        new_ro = V3(hitpos.x + n.x * side, hitpos.y + n.y * side,
+                    hitpos.z + n.z * side)
+        ro = new_ro.where(alive, ro)
+        rd = ndir.where(alive, rd)
+        specular_bounce = torch.where(alive, spec_now, specular_bounce)
+
+        if j >= 2:  # Russian roulette (pathtrace_shader.js:176-180)
+            p = torch.clamp(torch.maximum(T.x, torch.maximum(T.y, T.z)),
+                            0.05, 0.95)
+            u = TF.uniform(k_rr, (R,), dev)
+            alive = alive & ~(u > p)
+            T = (T * torch.reciprocal(p)).where(alive, T)
+
+    out = (Lo.stack().reshape(*shp, 3), override.reshape(shp),
+           primary_fetched.reshape(shp))
+    if with_stats:
+        return out + ({"segments": seg_count, "shadow_rays": shadow_count},)
+    return out
+
+
+def atlas_ok(scene: SceneData) -> bool:
+    """Whether the kernel path can take the scene's atlas (none, or at
+    most MAX_ATLAS_TEXELS texels); the XLA core takes any."""
+    ah, aw = scene.atlas_a.shape
+    return not (ah > 1 and aw > 1) or ah * aw <= PK.MAX_ATLAS_TEXELS
+
+
+def _core_ray_dirs(px, py, basis):
+    """normalize(px*uu + py*vv + focal*ww) as the reference's eager ray
+    grid rounds it: the components in its order, each operation on its
+    own, over the fused norm of ``jnp.linalg.norm`` (pt_core.ray_unit)."""
+    uu, vv, ww, focal = basis
+    fw = focal * ww
+    return PC.ray_unit(torch.stack(
+        [px * uu[i].item() + py * vv[i].item() + fw[i].item()
+         for i in range(3)], dim=-1))
+
+
+def _render_core(scene, cam, rows, cols, pixel_aspect, spp, bounces, lcol,
+                 nee, sample_batch, key, light_center, light_radius, dev):
+    """render_pt's XLA-core branch (pathtrace.py:558-722 of the
+    reference): the centre-ray probe under fold_in(key, 0xC0FFEE), then
+    batch b under the split of fold_in(key, b) into (jitter, path) keys,
+    the first overriding sample of a batch kept and the valid samples
+    summed; the probe's overrides take precedence."""
+    basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+    px, py, aspect = ndc_grid(rows, cols, pixel_aspect, dev)
+    pos = cam.pos.to(device=dev, dtype=torch.float32)
+
+    def trace(ro, rd, k):
+        return trace_eye_paths(scene, ro, rd, k, light_center, light_radius,
+                               bounces=bounces, light_color=lcol, nee=nee)
+
+    with record_function("pt.rays"):
+        rd0 = _core_ray_dirs(px, py, basis)
+    with record_function("pt.core"):
+        col0, ov0, fetched = trace(pos.expand(rows, cols, 3), rd0,
+                                   TF.fold_in(key, 0xC0FFEE))
+
+    B = max(1, min(sample_batch, spp))
+    n_batches = -(-spp // B)
+    tot = torch.zeros((rows, cols, 3), dtype=torch.float32, device=dev)
+    override = torch.zeros((rows, cols), dtype=torch.int32, device=dev)
+    ovcol = torch.zeros((rows, cols, 3), dtype=torch.float32, device=dev)
+    for b in range(n_batches):
+        with record_function("pt.rays"):
+            k_jit, k_path = TF.split(TF.fold_in(key, b))
+            s_idx = b * B + torch.arange(B, device=dev)
+            r2 = TF.uniform(k_jit, (B, rows, cols, 2), dev)
+            rpof = fdiv(2.0 * (r2 - 0.5), float(rows))
+            use_jit = (s_idx > 0)[:, None, None] & ~fetched[None]
+            jx = torch.where(use_jit, rpof[..., 0] * aspect, 0.0)
+            jy = torch.where(use_jit, rpof[..., 1], 0.0)
+            rd = _core_ray_dirs(px[None] + jx, py[None] + jy, basis)
+        with record_function("pt.core"):
+            col, ov, _pf = trace(pos.expand(B, rows, cols, 3), rd, k_path)
+        with record_function("pt.reduce"):
+            valid_s = (s_idx < spp)[:, None, None]
+            tot = tot + torch.where(valid_s[..., None], col, 0.0).sum(0)
+            has_s = (ov > 0) & valid_s
+            first = torch.argmax(has_s.to(torch.int32), dim=0)  # first true
+            has = has_s.any(0)
+            new = has & (override == 0)
+            override = torch.where(new, ov.gather(0, first[None])[0],
+                                   override)
+            sel = col.gather(0, first[None, ..., None].expand(1, rows, cols,
+                                                              3))[0]
+            ovcol = torch.where(new[..., None], sel, ovcol)
+
+    with record_function("pt.reduce"):
+        # phase-1 overrides (centre ray) take precedence — sample 0
+        has0 = ov0 > 0
+        override = torch.where(has0, ov0, override)
+        ovcol = torch.where(has0[..., None], col0, ovcol)
+        has_ov = override > 0
+        rgb = torch.where(has_ov[..., None], torch.clamp(ovcol, 0.0, 1.0),
+                          torch.clamp(fdiv(tot, float(spp)), 0.0, 1.0))
+        a = torch.where(has_ov, override, 255).to(torch.uint8)
+    return rgb, a
+
+
 def _centre_rays(cam: Camera, rows: int, cols: int, pixel_aspect, device):
     """(basis, px, py, aspect, rd0): the host camera basis, the NDC cell
     centres and the centre-ray directions f32 [rows, cols, 3] on
@@ -310,28 +541,48 @@ def batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs: int, s_idx):
     return ray_dirs(px[None] + jx, py[None] + jy, basis)
 
 
-def render_pt(scene: SceneData, cam: Camera, time, frame_seed: int, *,
+def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
               rows: int, cols: int, pixel_aspect: float, spp: int,
               bounces: int, light_color, nee: bool = True,
-              sample_batch: int = 32, row_lo=0, n_rows: int | None = None,
-              pixel_active=None, packed=None, light_host=None, device=None):
-    """Full mainImage (pathtrace_shader.js:187-263) on the kernel path: a
-    centre-ray probe decides each pixel's fetched flag and primary glyph
-    override; then ceil(spp / B) batches of B = min(sample_batch, spp)
-    samples, where sample 0 re-traces the centre ray and samples > 0
-    jitter unless the pixel fetched a texel; the first overriding sample
-    replaces the total. Returns (rgb f32 [rows, cols, 3] in [0, 1], alpha
-    u8 [rows, cols]) on ``device`` (default: the scene's device).
+              sample_batch: int = 32, use_kernel: bool = True, key=None,
+              row_lo=0, n_rows: int | None = None, pixel_active=None,
+              packed=None, light_host=None, device=None):
+    """Full mainImage (pathtrace_shader.js:187-263): a centre-ray probe
+    decides each pixel's fetched flag and primary glyph override; then
+    ceil(spp / B) batches of B = min(sample_batch, spp) samples, where
+    sample 0 re-traces the centre ray and samples > 0 jitter unless the
+    pixel fetched a texel; the first overriding sample replaces the total.
+    Returns (rgb f32 [rows, cols, 3] in [0, 1], alpha u8 [rows, cols]) on
+    ``device`` (default: the scene's device).
 
-    ``frame_seed`` is the int32 kernel seed (``frame_seed_of``); pass
-    the JAX frame's ``key_data(key)[-1]``. ``packed`` and ``light_host``:
-    the scene's pack_scene_entries and light_sphere_host, if precomputed."""
+    ``use_kernel``: the megakernel path (True) or the XLA core (False,
+    the reference's default; it takes atlases of any size). ``key``: the
+    frame's key, two uint32 words (``jax.random.key_data`` of the
+    reference's key, as numpy or a tensor); with it given, ``frame_seed``
+    is the int32 view of its last word, as in the reference. Without it,
+    ``frame_seed`` (``frame_seed_of``) is the kernel seed, and the core
+    draws under ``key_data(frame_seed)``. ``packed`` and ``light_host``:
+    the scene's pack_scene_entries and light_sphere_host, if precomputed
+    (the core takes no pack)."""
     if pixel_active is not None:
         raise _not_ported("pixel_active (adaptive compaction)", "A8")
     if row_lo != 0 or n_rows is not None:
         raise _not_ported("row_lo / n_rows (row-band rendering)", "A12")
+    if key is not None:
+        key = TF.as_key(key)
+        frame_seed = key[-1]
+    elif frame_seed is None:
+        raise ValueError("render_pt: pass key or frame_seed")
     dev = torch.device(device) if device is not None else \
         scene.sph_pos.device
+    if not use_kernel:
+        light_center, light_radius = get_light_sphere(scene, time,
+                                                      light_host)
+        return _render_core(
+            scene, cam, rows, cols, pixel_aspect, spp, bounces,
+            torch.as_tensor(light_color, dtype=torch.float32) * 1.3, nee,
+            sample_batch, key or TF.key_data(int(frame_seed) & TF.M32),
+            light_center, light_radius, dev)
     if packed is None:
         packed = pack_scene_entries(scene)
     frame_seed = PK.int32_wrap(frame_seed)
@@ -417,7 +668,9 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed: int, *,
 
 class PathtraceBackend:
     """Backend-protocol wrapper (contract 5): frame ``i`` of a backend
-    draws with seed ``i``, as the JAX backend's ``jax.random.key(i)``."""
+    draws under ``jax.random.key(i)``'s data (0, i), as the JAX backend's
+    frames do; a scene whose atlas is above MAX_ATLAS_TEXELS renders
+    through the XLA core, any other through the megakernel."""
 
     name = "pathtrace"
 
@@ -449,14 +702,16 @@ class PathtraceBackend:
         if self._scene is None:
             return Frame.blank(rows, cols, device=self.device)
         pt = self.cfg.path_tracer
-        seed = frame_seed_of(self._frame_idx)
+        key = TF.key_data(self._frame_idx)
         self._frame_idx += 1
+        # the megakernel unless the atlas is above its budget (the XLA
+        # core then, on every device), as the reference routes
         rgb, a = render_pt(
-            self._scene, camera, time_sec, seed, rows=rows, cols=cols,
+            self._scene, camera, time_sec, key=key, rows=rows, cols=cols,
             pixel_aspect=pixel_aspect, spp=pt.samples_per_batch,
             bounces=pt.max_bounces, light_color=pt.light_color,
-            nee=pt.direct_light_sampling, packed=self._packed,
-            light_host=self._light, device=self.device)
+            nee=pt.direct_light_sampling, use_kernel=atlas_ok(self._scene),
+            packed=self._packed, light_host=self._light, device=self.device)
         with record_function("frame.from_float"):
             return Frame.from_float(rgb, a)
 

@@ -51,8 +51,10 @@ SIGNATURES = {
                                _I, _P),
     # (cm, out, C, N, a, b, stream)
     "pack_span_launch": (_P, _P, _I, _I, _I, _I, _P),
-    # (rows128, rowptr, gdepth, gskip, xl, yl, z, e, r_cap, grp_cap, stream)
-    "walk_grouped_skip_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (rows128, rowptr, gdepth, gskip, xl, yl, z, e, part, n_slots, r_cap,
+    #  grp_cap, stream)
+    "walk_grouped_skip_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _P),
     # (rows128, rowptr, gdepth, xl, yl, z, e, r_cap, grp_cap, stream)
     "walk_grouped_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (rows256, rowptr, gdepth, gskip, xl, yl, z, e, r_cap2, grp_cap, stream)
@@ -69,8 +71,9 @@ SIGNATURES = {
     # (data, offsets, z, tid, part, n_slots, n_tiles, tiles_x, n_entries,
     #  mm, stream)
     "bins_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # (data, offsets, light, rgb, n_tiles, tiles_x, n_entries, stream)
-    "shaded_walk_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # (data, offsets, light, rgb, part, n_slots, n_tiles, tiles_x,
+    #  n_entries, stream)
+    "shaded_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (rows, rowptr, depth, z, e, n_tiles, tiles_x, r_cap, source, stream)
     "subtile_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

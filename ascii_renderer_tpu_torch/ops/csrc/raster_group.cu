@@ -5,30 +5,49 @@
 // bin's live window, and a strict z < best merge, so the smallest triangle
 // id wins depth ties.
 //
-// One template, four entry sources (ops/raster_group.py describes the
-// layouts); each has its own __global__ kernel and extern "C" launcher:
-//   kSkip    walk_grouped_skip_kernel  rows128 [r_cap, 128], live iff
-//            skip <= idx < skip + depth.  Replaces
-//            ascii_renderer_tpu/ops/raster_group.py:_kernel_grouped_skip (B1)
-//   kNoSkip  walk_grouped_kernel       rows128, live iff idx < depth.
-//            Replaces :_kernel_grouped (B9d)
-//   kTwo     walk_grouped_k2_kernel    rows256 [r_cap/2, 256], two entries
-//            per row (lane g*32 + j*16 + c), idx = 2*row + j, skip window.
-//            Replaces :_kernel_grouped_k2 (B9f)
-//   kDirect  walk_direct_kernel        src_pair [p_max + 32, 32]: each slot
-//            reads its bin's 32-entry strip at min(goff + c*32, p_max),
-//            live iff idx < depth.  Replaces :_kernel_direct (B9e)
+// Four entry sources (ops/raster_group.py describes the layouts), each with
+// its own __global__ kernel and extern "C" launcher:
+//   B1   walk_grouped_skip_kernel + walk_grouped_skip_kernel_merge: rows128
+//        [r_cap, 128], live iff skip <= idx < skip + depth.  Replaces
+//        ascii_renderer_tpu/ops/raster_group.py:_kernel_grouped_skip
+//   B9d  walk_grouped_kernel       rows128, live iff idx < depth.
+//        Replaces :_kernel_grouped (template walk<kNoSkip>)
+//   B9f  walk_grouped_k2_kernel    rows256 [r_cap/2, 256], two entries per
+//        row (lane g*32 + j*16 + c), idx = 2*row + j, skip window.
+//        Replaces :_kernel_grouped_k2 (template walk<kTwo>)
+//   B9e  walk_direct_kernel        src_pair [p_max + 32, 32]: each slot
+//        reads its bin's 32-entry strip at min(goff + c*32, p_max),
+//        live iff idx < depth.  Replaces :_kernel_direct (walk<kDirect>)
 // The TPU kernels expanded each slab through an MXU selection dot to
 // broadcast channels to lanes; here each thread reads its slot's channels
 // from shared memory (a 16-way broadcast), so no expand matrix exists.
 //
 // What bounds them on the H100: issue rate of the per-pixel test, not
 // memory: every 64-byte entry is used by 128 pixels (about 20 flops each).
-// Design: one block per group (grid = grp_cap), one thread per pixel (1024
-// threads), the group's entries staged through shared memory in slabs of
-// 32 entries per slot (16 KB, one float4 load per thread), the running
-// (z, id) in registers. The slab start is clamped exactly where the
-// reference clamps it, so an overflowing cap re-reads the same rows.
+//
+// B1 (the headline's walk) takes B6's design (ops/csrc/raster_bins.cu):
+// - Work items of one 32-row slab of one group and a quarter of its pixel
+//   block. Slab c of group t reads rows min(r0 + c*32, r_cap - 32) + r as
+//   entries idx = c*32 + r (the clamp re-reads the same rows under shifted
+//   indices where a cap overflows) and takes slot r0 / 32 + t + c: slots
+//   increase with (t, c) and number fewer than rowptr[grp_cap] / 32 +
+//   grp_cap, which the kernel reads: its blocks (at most 2,048, so a cap far
+//   above the rows in use launches no idle blocks) stride over the items
+//   below that bound, and find each item's (group, slab) by a binary search
+//   over rowptr.
+// - Each thread takes one lane and two pixel rows: the slot's entry is
+//   read as four float4s, the lane's products C + A*x (fused) serve both
+//   rows, and only the entries inside its slot's skip window are walked.
+// - A group with one slab writes its (z, id) directly; the others write
+//   partial results per slot, folded by walk_grouped_skip_kernel_merge in
+//   slot order with a strict z < best (the leftmost minimum, the
+//   reference's merge), which also writes groups without slabs.
+// B9d, B9e and B9f keep the template walk below: one block per group (grid
+// = grp_cap), one thread per pixel (1024 threads), the group's entries
+// staged through shared memory in slabs of 32 entries per slot (16 KB, one
+// float4 load per thread), the running (z, id) in registers. The slab
+// start is clamped exactly where the reference clamps it, so an
+// overflowing cap re-reads the same rows.
 //
 // Exactness: w = (C + A*x) + B*y in the op order of raster_group.py:341-364,
 // both products fused as the reference's compiler fuses them (explicit
@@ -51,19 +70,19 @@ constexpr int kThreads = kTileH * kTileW;
 // constant coefficients at 3k, 3k + 1 and 3k + 2
 constexpr int kZX = 9, kZY = 10, kZC = 11, kPair = 12;
 
-enum Source { kSkip, kNoSkip, kTwo, kDirect };
+enum Source { kNoSkip, kTwo, kDirect };
 
 struct WalkArgs {
   const float* data;   // rows128, rows256 or src_pair
   const int* start;    // rowptr [grp_cap + 1] (row units) or goff [grp_cap*8]
   const int* gdepth;   // [grp_cap * 8]
-  const int* aux;      // gskip [grp_cap * 8] (kSkip, kTwo), gchunks
+  const int* aux;      // gskip [grp_cap * 8] (kTwo), gchunks
                        // [grp_cap] (kDirect), unused (kNoSkip)
   const float* xl;
   const float* yl;
   float* z_out;
   float* e_out;
-  int n;               // rows of data (kSkip, kNoSkip, kTwo) or p_max
+  int n;               // rows of data (kNoSkip, kTwo) or p_max
 };
 
 template <Source S>
@@ -91,7 +110,7 @@ __device__ __forceinline__ void walk(const WalkArgs& a) {
   const float x = a.xl[t * kTileW + l];
   const float y = ((float)s + 0.5f) + a.yl[t * kTileW + l];
   const int depth = a.gdepth[t * 8 + g];
-  const int skip = (S == kSkip || S == kTwo) ? a.aux[t * 8 + g] : 0;
+  const int skip = S == kTwo ? a.aux[t * 8 + g] : 0;
 
   float zb = INFINITY;
   float eb = -1.0f;
@@ -136,8 +155,6 @@ __device__ __forceinline__ void walk(const WalkArgs& a) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-walk_grouped_skip_kernel(WalkArgs a) { walk<kSkip>(a); }
-__global__ void __launch_bounds__(kThreads)
 walk_grouped_kernel(WalkArgs a) { walk<kNoSkip>(a); }
 __global__ void __launch_bounds__(kThreads)
 walk_grouped_k2_kernel(WalkArgs a) { walk<kTwo>(a); }
@@ -150,16 +167,168 @@ int launch(void (*kernel)(WalkArgs), const WalkArgs& a, int grp_cap,
   return (int)cudaGetLastError();
 }
 
+
+// ---- B1: slab work items and their merge --------------------------------
+constexpr int kRowsPT = 2;                 // pixel rows per B1 walk thread
+constexpr int kSplit = kTileH / kRowsPT;   // work items per slab
+constexpr int kItemThreads = kTileW;
+constexpr int kMaxItemBlocks = 2048;       // ~16 blocks of 128 threads an SM
+constexpr int kMergeThreads = 256;
+constexpr int kFold = 8;                   // partials a merge thread loads at once
+
+// The slab count of group t and its first slot (rowptr clamped to r_cap).
+__device__ __forceinline__ void group_slots(const int* __restrict__ rowptr,
+                                            int t, int* n, int* s) {
+  const int r0 = rowptr[t];
+  *s = r0 / kChunk + t;
+  *n = max((rowptr[t + 1] - r0) / kChunk, 0);
+}
+
+__global__ void __launch_bounds__(kItemThreads)
+walk_grouped_skip_kernel(const float* __restrict__ rows128,
+                         const int* __restrict__ rowptr,
+                         const int* __restrict__ gdepth,
+                         const int* __restrict__ gskip,
+                         const float* __restrict__ xl,
+                         const float* __restrict__ yl,
+                         float* __restrict__ z_out, float* __restrict__ e_out,
+                         float* __restrict__ part,
+                         int r_cap, int grp_cap) {
+  __shared__ float4 slab[kChunk * kTileW / 4];  // [32 rows][8 slots][16]
+  const int l = threadIdx.x;                     // lane
+  const int g = l / kSubW;                       // bin slot
+  // items in use lie below this bound; the grid strides over them
+  const int limit = (rowptr[grp_cap] / kChunk + grp_cap) * kSplit;
+  for (int item = blockIdx.x; item < limit; item += gridDim.x) {
+    const int slot = item / kSplit;
+    const int quarter = item % kSplit;  // its pixel rows
+    // the group: the largest t with rowptr[t] / 32 + t <= slot
+    int lo = 0, hi = grp_cap - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (rowptr[mid] / kChunk + mid <= slot) lo = mid;
+      else hi = mid - 1;
+    }
+    const int t = lo;
+    int n, s;
+    group_slots(rowptr, t, &n, &s);
+    const int c = slot - s;
+    if (c < 0 || c >= n) continue;  // a slot no group uses (block-uniform)
+    const int start = min(rowptr[t] + c * kChunk, r_cap - kChunk);
+    const float4* src = reinterpret_cast<const float4*>(
+        rows128 + (size_t)start * kTileW);
+    __syncthreads();  // the previous item's slab fully consumed
+#pragma unroll
+    for (int i = 0; i < kChunk * kTileW / 4 / kItemThreads; ++i)
+      slab[i * kItemThreads + l] = src[i * kItemThreads + l];
+    __syncthreads();
+
+    const float x = xl[t * kTileW + l];
+    const int row0 = quarter * kRowsPT;
+    float y[kRowsPT], zb[kRowsPT], eb[kRowsPT];
+#pragma unroll
+    for (int i = 0; i < kRowsPT; ++i) {
+      y[i] = ((float)(row0 + i) + 0.5f) + yl[t * kTileW + l];
+      zb[i] = INFINITY;
+      eb[i] = -1.0f;
+    }
+    // entries idx = c*32 + r of the slot's window skip <= idx < skip + depth
+    const int skip = gskip[t * 8 + g];
+    const int r_lo = max(skip - c * kChunk, 0);
+    const int r_hi = min(skip + gdepth[t * 8 + g] - c * kChunk, kChunk);
+    for (int r = r_lo; r < r_hi; ++r) {
+      const float4* ent = slab + r * (kTileW / 4) + g * (kSubW / 4);
+      // channels: q0 = (A0 B0 G0 A1), q1 = (B1 G1 A2 B2),
+      // q2 = (G2 ZX ZY ZC), q3 = (PAIR . . .)
+      const float4 q0 = ent[0], q1 = ent[1], q2 = ent[2], q3 = ent[3];
+      const float c0 = fmaf(q0.x, x, q0.z), c1 = fmaf(q0.w, x, q1.y);
+      const float c2 = fmaf(q1.z, x, q2.x), cz = fmaf(q2.y, x, q2.w);
+#pragma unroll
+      for (int i = 0; i < kRowsPT; ++i) {
+        const float z = fmaf(q2.z, y[i], cz);
+        const bool ok = fmaf(q0.y, y[i], c0) <= 0.0f &&
+                        fmaf(q1.x, y[i], c1) <= 0.0f &&
+                        fmaf(q1.w, y[i], c2) <= 0.0f && z >= 0.0f &&
+                        z <= 1.0f;
+        if (ok && z < zb[i]) {  // strict: the earlier entry wins ties
+          zb[i] = z;
+          eb[i] = q3.x;
+        }
+      }
+    }
+    float* zo;
+    float* eo;
+    if (n == 1) {
+      zo = z_out + (size_t)t * kThreads;
+      eo = e_out + (size_t)t * kThreads;
+    } else {
+      zo = part + (size_t)slot * 2 * kThreads;
+      eo = zo + kThreads;
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPT; ++i) {
+      zo[(row0 + i) * kTileW + l] = zb[i];
+      eo[(row0 + i) * kTileW + l] = eb[i];
+    }
+  }
+}
+
+// Folds each group's per-slot (z, id) in slot order (strict z < best);
+// writes (inf, -1) for a group without slabs. One-slab groups were
+// written by the walk.
+__global__ void __launch_bounds__(kMergeThreads)
+walk_grouped_skip_kernel_merge(const int* __restrict__ rowptr,
+                               const float* __restrict__ part,
+                               float* __restrict__ z_out,
+                               float* __restrict__ e_out, int n_slots) {
+  const int t = blockIdx.x;
+  int n, s;
+  group_slots(rowptr, t, &n, &s);
+  if (n == 1) return;
+  const int m = min(n, n_slots - s);
+  for (int p = threadIdx.x; p < kThreads; p += kMergeThreads) {
+    // kFold partial depths loaded together, then folded in slot order: the
+    // loads of a deep group's slabs overlap instead of queueing one by one
+    float zb = INFINITY;
+    int win = -1;
+    for (int c0 = 0; c0 < m; c0 += kFold) {
+      float z[kFold];
+#pragma unroll
+      for (int j = 0; j < kFold; ++j)
+        z[j] = c0 + j < m ? part[(size_t)(s + c0 + j) * 2 * kThreads + p]
+                          : INFINITY;
+#pragma unroll
+      for (int j = 0; j < kFold; ++j)
+        if (z[j] < zb) {
+          zb = z[j];
+          win = c0 + j;
+        }
+    }
+    z_out[(size_t)t * kThreads + p] = zb;
+    e_out[(size_t)t * kThreads + p] =
+        win < 0 ? -1.0f
+                : part[(size_t)(s + win) * 2 * kThreads + kThreads + p];
+  }
+}
+
 }  // namespace
 
 extern "C" int walk_grouped_skip_launch(const float* rows128,
                                         const int* rowptr, const int* gdepth,
                                         const int* gskip, const float* xl,
                                         const float* yl, float* z, float* e,
-                                        int r_cap, int grp_cap, void* stream) {
-  return launch(walk_grouped_skip_kernel,
-                {rows128, rowptr, gdepth, gskip, xl, yl, z, e, r_cap},
-                grp_cap, stream);
+                                        float* part, int n_slots, int r_cap,
+                                        int grp_cap, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = n_slots * kSplit < kMaxItemBlocks ? n_slots * kSplit
+                                                      : kMaxItemBlocks;
+  walk_grouped_skip_kernel<<<blocks, kItemThreads, 0, st>>>(
+      rows128, rowptr, gdepth, gskip, xl, yl, z, e, part, r_cap, grp_cap);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  walk_grouped_skip_kernel_merge<<<grp_cap, kMergeThreads, 0, st>>>(
+      rowptr, part, z, e, n_slots);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int walk_grouped_launch(const float* rows128, const int* rowptr,

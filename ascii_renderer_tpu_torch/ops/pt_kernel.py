@@ -466,10 +466,11 @@ def _check(params, prim, ro, rd, atlas, atlas_w, atlas_h, sph_rows,
         raise ValueError("trace_blocks_raw: params must be f32 [8]")
     texels = atlas_w * atlas_h if atlas_w > 0 else 0
     if texels > MAX_ATLAS_TEXELS:
-        raise NotImplementedError(
-            f"trace_blocks_raw: a {atlas_w}x{atlas_h} atlas is above "
-            f"MAX_ATLAS_TEXELS = {MAX_ATLAS_TEXELS} (the XLA core that "
-            f"takes it is ROADMAP A7)")
+        raise ValueError(
+            f"trace_blocks_raw: a {atlas_w}x{atlas_h} atlas is above the "
+            f"kernel's budget, MAX_ATLAS_TEXELS = {MAX_ATLAS_TEXELS}; the "
+            f"XLA core takes it (backends/pathtrace.trace_eye_paths, "
+            f"render_pt(use_kernel=False))")
     if texels and (atlas.dtype != torch.int32 or atlas.numel() < texels):
         raise ValueError("trace_blocks_raw: atlas must be int32 rgba with "
                          f"at least {texels} texels")

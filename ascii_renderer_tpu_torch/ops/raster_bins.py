@@ -90,12 +90,7 @@ def _bins_walk_ref(ent: torch.Tensor, offsets: torch.Tensor, tiles_x: int,
     P = ent.shape[0]
     p_pad = -(-(P + MM_CHUNK) // MM_CHUNK) * MM_CHUNK
     ent = torch.cat([ent, ent.new_zeros((p_pad - P, N_CHAN))])
-    t_ids = torch.arange(n_tiles, device=dev)
-    pix = torch.arange(PIX, device=dev)
-    px = ((pix % TILE_W)[None, :] + (t_ids % tiles_x)[:, None] * TILE_W
-          ).to(torch.float32) + 0.5                      # [n_tiles, 1024]
-    py = ((pix // TILE_W)[None, :] + (t_ids // tiles_x)[:, None] * TILE_H
-          ).to(torch.float32) + 0.5
+    px, py = tile_pixel_centres(tiles_x, n_tiles, dev)  # [n_tiles, 1024]
     zb = torch.full((n_tiles, PIX), inf, device=dev)
     tb = torch.full((n_tiles, PIX), -1.0, device=dev)
     n_max = int(n_chunks.max()) if n_tiles else 0
@@ -170,17 +165,22 @@ def n_slots(n_entries: int, n_tiles: int) -> int:
     return n_entries // MM_CHUNK + n_tiles
 
 
-def work_items(offsets: torch.Tensor, n_entries: int):
-    """(slot, tile, chunk) of every work item the kernel walks. A slot's
-    tile is the last tile whose first slot is not above it (the kernel's
-    binary search over the offsets); slots past that tile's chunks are
-    unused."""
-    first, n = bin_slots(offsets)
-    q = torch.arange(n_slots(n_entries, first.shape[0]), device=first.device)
+def work_list(first: torch.Tensor, n: torch.Tensor, slots: int):
+    """(slot, bin, chunk) of every work item of a work list whose bin i
+    takes the n[i] consecutive slots from first[i] (first increasing). A
+    slot's bin is the last whose first slot is not above it (the kernels'
+    binary search); slots past that bin's chunks are unused."""
+    q = torch.arange(slots, device=first.device)
     t = torch.clamp(torch.searchsorted(first, q, right=True) - 1, min=0)
     c = q - first[t]
     used = (c >= 0) & (c < n[t])
     return q[used], t[used], c[used]
+
+
+def work_items(offsets: torch.Tensor, n_entries: int):
+    """(slot, tile, chunk) of every work item the B6 / B6' kernel walks."""
+    first, n = bin_slots(offsets)
+    return work_list(first, n, n_slots(n_entries, first.shape[0]))
 
 
 def _launch(data, offsets, tiles_x: int, n_tiles: int, mm: bool, what: str):
@@ -283,8 +283,12 @@ def _shaded_planes(e, px, py):
 
 
 def _rsqrt(x):
-    """1 / sqrt(x), both operations IEEE: the kernel's rounding."""
-    return torch.reciprocal(torch.sqrt(x))
+    """1 / sqrt(x), both operations IEEE: the kernel's rounding. The square
+    root is taken in float64 and rounded once, which is sqrtf's correctly
+    rounded value: torch's CPU float32 sqrt is not correctly rounded, and
+    under pytest-xdist it once returned values ~5e-5 off. On CUDA the bits
+    are those of torch.sqrt in float32."""
+    return torch.reciprocal(torch.sqrt(x.double()).float())
 
 
 def tile_eval_bins_shaded_ref(data_packed: torch.Tensor,
@@ -306,12 +310,7 @@ def tile_eval_bins_shaded_ref(data_packed: torch.Tensor,
     start = (off0 // (8 * NS_PACK)) * (8 * NS_PACK)
     n_chunks = torch.where(off1 > off0,
                            (off1 - start + S_CHUNK - 1) // S_CHUNK, 0)
-    t_ids = torch.arange(n_tiles, device=dev)
-    pix = torch.arange(PIX, device=dev)
-    px = ((pix % TILE_W)[None, :] + (t_ids % tiles_x)[:, None] * TILE_W
-          ).to(torch.float32) + 0.5                      # [n_tiles, 1024]
-    py = ((pix // TILE_W)[None, :] + (t_ids // tiles_x)[:, None] * TILE_H
-          ).to(torch.float32) + 0.5
+    px, py = tile_pixel_centres(tiles_x, n_tiles, dev)  # [n_tiles, 1024]
     zb = torch.full((n_tiles, PIX), inf, device=dev)
     wb = torch.zeros((n_tiles, PIX), dtype=torch.long, device=dev)
     e_in = torch.arange(S_CHUNK, device=dev)
@@ -335,7 +334,24 @@ def tile_eval_bins_shaded_ref(data_packed: torch.Tensor,
             better = zc < zb[gi]
             zb[gi] = torch.where(better, zc, zb[gi])
             wb[gi] = torch.where(better, eidx.gather(1, kc[:, 0]), wb[gi])
-    hit = zb < inf
+    return _shade_winners(ent, wb, zb < inf, px, py, light_params, n_tiles)
+
+
+def tile_pixel_centres(tiles_x: int, n_tiles: int, device):
+    """Pixel centres (px, py) f32 [n_tiles, 1024] of the tiles."""
+    t_ids = torch.arange(n_tiles, device=device)
+    pix = torch.arange(PIX, device=device)
+    px = ((pix % TILE_W)[None, :] + (t_ids % tiles_x)[:, None] * TILE_W
+          ).to(torch.float32) + 0.5
+    py = ((pix // TILE_W)[None, :] + (t_ids // tiles_x)[:, None] * TILE_H
+          ).to(torch.float32) + 0.5
+    return px, py
+
+
+def _shade_winners(ent, wb, hit, px, py, light_params, n_tiles: int):
+    """The winners' perspective-correct attributes, lit: entry wb [n_tiles,
+    1024] of ent [P, NS_CHAN] at pixel centres px, py where ``hit`` ->
+    rgb f32 [n_tiles, 3, 8, 128], black elsewhere."""
     e = ent[torch.where(hit, wb, 0)]                        # [n_tiles, 1024, 64]
     w0, w1, w2, _z = _shaded_planes(e, px, py)
     # perspective-correct barycentrics
@@ -378,6 +394,31 @@ def tile_eval_bins_shaded_ref(data_packed: torch.Tensor,
     return rgb.view(n_tiles, 3, TILE_H, TILE_W)
 
 
+def shaded_bin_slots(offsets: torch.Tensor):
+    """B8's work list, per tile: the first slot and the number of S_CHUNK
+    (64-entry) chunks of its bin, the first starting at off0 rounded down
+    to 16 entries (the reference's DMA alignment). Chunk c of tile t takes
+    slot off0 // 64 + t + c: slots increase with (t, c), so a tile's chunks
+    are consecutive and merge in bin order."""
+    off = offsets.long()
+    off0, off1 = off[:-1], off[1:]
+    start = (off0 // (8 * NS_PACK)) * (8 * NS_PACK)
+    first = off0 // S_CHUNK + torch.arange(off0.shape[0], device=off.device)
+    n = torch.where(off1 > off0, (off1 - start + S_CHUNK - 1) // S_CHUNK, 0)
+    return first, n
+
+
+def shaded_n_slots(n_entries: int, n_tiles: int) -> int:
+    """Slots of B8's work list for any offsets into n_entries entries."""
+    return n_entries // S_CHUNK + n_tiles
+
+
+def shaded_work_items(offsets: torch.Tensor, n_entries: int):
+    """(slot, tile, chunk) of every work item the B8 kernel walks."""
+    first, n = shaded_bin_slots(offsets)
+    return work_list(first, n, shaded_n_slots(n_entries, first.shape[0]))
+
+
 def tile_eval_bins_shaded(data_packed: torch.Tensor, offsets: torch.Tensor,
                           light_params: torch.Tensor, tiles_x: int,
                           n_tiles: int):
@@ -386,7 +427,10 @@ def tile_eval_bins_shaded(data_packed: torch.Tensor, offsets: torch.Tensor,
     row, with >= S_CHUNK + 16 inert trailing entries), offsets i32
     [n_tiles+1] in entry units, light_params f32 [64] (layout above) ->
     rgb f32 [n_tiles, 3, 8, 128]. CPU tensors run the plain version; CUDA
-    tensors launch the kernel once (one block per tile)."""
+    tensors launch the kernel once: a walk over the work list
+    (``shaded_work_items``: one item per 64-entry chunk of a bin and
+    quarter of a tile, keeping (z, entry) per pixel), then a merge in bin
+    order that shades each pixel from its winning entry."""
     if data_packed.dim() != 2 or data_packed.shape[1] != NS_PACK * NS_CHAN:
         raise ValueError(f"tile_eval_bins_shaded: expected [P/2, 128], got "
                          f"{tuple(data_packed.shape)}")
@@ -404,10 +448,14 @@ def tile_eval_bins_shaded(data_packed: torch.Tensor, offsets: torch.Tensor,
     rgb = torch.empty((n_tiles, 3, TILE_H, TILE_W), dtype=torch.float32,
                       device=data_packed.device)
     if n_tiles:
+        n_entries = data_packed.numel() // NS_CHAN
+        slots = shaded_n_slots(n_entries, n_tiles)
+        part = torch.empty((slots, 2, PIX), dtype=torch.float32,
+                           device=data_packed.device)
         err = _build.lib().shaded_walk_launch(
             data_packed.data_ptr(), offsets.data_ptr(),
-            light_params.data_ptr(), rgb.data_ptr(), n_tiles, tiles_x,
-            data_packed.numel() // NS_CHAN,
+            light_params.data_ptr(), rgb.data_ptr(), part.data_ptr(), slots,
+            n_tiles, tiles_x, n_entries,
             _build.stream_ptr(data_packed.device))
         _build.check(err, "shaded_walk_launch")
     launches_shaded += 1

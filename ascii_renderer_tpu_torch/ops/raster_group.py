@@ -53,6 +53,7 @@ import torch
 
 from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.ops import _build
+from ascii_renderer_tpu_torch.ops.raster_bins import work_list
 from ascii_renderer_tpu_torch.ops.raster_subtile import (
     CH_A, CH_B, CH_G, CH_PAIR, CH_ZC, CH_ZX, CH_ZY, MAX_TRI, N_CHAN, N_SUB,
     SUB_SHIFT, SUB_W, TILE_H, TILE_W)
@@ -441,12 +442,39 @@ def _launch(name: str, tensors, n: int, grp_cap: int):
     return z, e
 
 
+def group_slots(rowptr: torch.Tensor):
+    """B1's work list, per group: the first slot and the number of
+    CHUNK_RG-row slabs (rowptr clamped to [0, r_cap], as the wrapper
+    clamps it). Slab c of group t takes slot rowptr[t] // CHUNK_RG + t + c:
+    slots increase with (t, c), so a group's slabs are consecutive and
+    merge in slab order."""
+    rp = rowptr.long()
+    r0 = rp[:-1]
+    first = r0 // CHUNK_RG + torch.arange(r0.shape[0], device=rp.device)
+    return first, torch.clamp((rp[1:] - r0) // CHUNK_RG, min=0)
+
+
+def group_n_slots(r_cap: int, grp_cap: int) -> int:
+    """Slots of B1's work list for any rowptr into r_cap rows."""
+    return r_cap // CHUNK_RG + grp_cap
+
+
+def group_work_items(rowptr: torch.Tensor, r_cap: int):
+    """(slot, group, slab) of every work item the B1 kernel walks."""
+    first, n = group_slots(torch.clamp(rowptr, 0, r_cap))
+    return work_list(first, n, group_n_slots(r_cap, first.shape[0]))
+
+
 def tile_eval_grouped_skip(rows128: torch.Tensor, rowptr: torch.Tensor,
                            gdepth: torch.Tensor, gskip: torch.Tensor,
                            xl: torch.Tensor, yl: torch.Tensor, grp_cap: int):
     """B1: rows128 f32 [r_cap, 128] grouped layout with skip window ->
     (z, entry id) f32 [grp_cap, 8, 128] per group (lane group g = bin
-    gbins[t*8+g]); id -1 = background."""
+    gbins[t*8+g]); id -1 = background. CPU tensors run the plain version;
+    CUDA tensors launch the kernel once: a walk over the work list
+    (``group_work_items``: one item per 32-row slab of a group and
+    quarter of its pixel block), then a merge of the partial results in
+    slab order."""
     if rows128.device.type == "cpu":
         return tile_eval_grouped_skip_ref(rows128, rowptr, gdepth, gskip,
                                           xl, yl, grp_cap)
@@ -460,10 +488,20 @@ def tile_eval_grouped_skip(rows128: torch.Tensor, rowptr: torch.Tensor,
             "gdepth": (grp_cap * N_SUB, gdepth),
             "gskip": (grp_cap * N_SUB, gskip)}, xl, yl)
     rowptr = torch.clamp(rowptr, 0, r_cap)  # the walk never reads past r_cap
-    out = _launch("grouped_skip", (rows128, rowptr, gdepth, gskip, xl, yl),
-                  r_cap, grp_cap)
+    tensors = (rows128, rowptr, gdepth, gskip, xl, yl)
+    _build.require_cuda(*tensors, what="walk grouped_skip")
+    z = torch.empty((grp_cap, TILE_H, TILE_W), dtype=torch.float32,
+                    device=rows128.device)
+    e = torch.empty_like(z)
+    slots = group_n_slots(r_cap, grp_cap)
+    part = torch.empty((slots, 2, TILE_H * TILE_W), dtype=torch.float32,
+                       device=rows128.device)
+    err = _build.lib().walk_grouped_skip_launch(
+        *[t.data_ptr() for t in tensors], z.data_ptr(), e.data_ptr(),
+        part.data_ptr(), slots, r_cap, grp_cap, _build.stream_ptr(z.device))
+    _build.check(err, "walk_grouped_skip_launch")
     launches += 1
-    return out
+    return z, e
 
 
 def tile_eval_grouped(rows128: torch.Tensor, rowptr: torch.Tensor,

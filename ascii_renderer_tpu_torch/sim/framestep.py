@@ -10,8 +10,9 @@ FrameState is the functional analog of the `state` singleton
 (js/main.js:18-63). Its RNG is the key data of ``jax.random.key(seed)``
 (two uint32 words), and each path-traced frame draws with
 ``fold_in(rng, frame_idx)`` exactly as the reference's step does
-(``threefry2x32``, computed on the host: one scalar per frame). The
-path-trace kernel's seed is the last word of that key.
+(``core/threefry``, computed on the host: one scalar per frame). The
+path-trace kernel's seed is the last word of that key; the XLA core,
+which takes atlases above the kernel's budget, draws under the key.
 
 Rounding follows the compiled reference: the camera integrator and the
 clock ``time_ms + dt_s * 1000`` fuse their products into the adds
@@ -31,6 +32,7 @@ from torch.profiler import record_function
 from ascii_renderer_tpu_torch.ascii.ascii_pass import glyph_decide
 from ascii_renderer_tpu_torch.core.camera import (Camera, CameraInputs,
                                                   update_camera)
+from ascii_renderer_tpu_torch.core import threefry
 from ascii_renderer_tpu_torch.core.config import Config
 from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.core.frame import Frame
@@ -38,44 +40,16 @@ from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 from ascii_renderer_tpu_torch.sim import ui as ui_mod
 
-_M32 = 0xFFFFFFFF
-_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
 def key_data(seed: int) -> np.ndarray:
     """The key data of ``jax.random.key(seed)`` (threefry2x32) for a
     32-bit seed: uint32 [2] = (0, seed)."""
-    seed = int(seed)
-    if not 0 <= seed <= _M32:
-        raise ValueError(f"key_data: seed {seed} outside [0, 2**32)")
-    return np.array([0, seed], np.uint32)
-
-
-def _threefry2x32(k0: int, k1: int, x0: int, x1: int):
-    """Threefry-2x32 with 20 rounds (Salmon et al. 2011) on one pair of
-    words, as ``jax.random``'s default generator computes it."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
-            x1 ^= x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0, x1
+    return np.array(threefry.key_data(seed), np.uint32)
 
 
 def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     """``jax.random.key_data(jax.random.fold_in(key, data))`` for a
-    threefry key's data ``key`` (uint32 [2]): the hash of the key with
-    ``data`` taken as a uint32 seed (high word 0)."""
-    k0, k1 = (int(w) for w in np.asarray(key, np.uint32))
-    return np.array(_threefry2x32(k0, k1, 0, int(data) & _M32), np.uint32)
-
-
-def _i32(word: int) -> int:
-    return word - (1 << 32) if word >= 1 << 31 else word
+    threefry key's data ``key`` (uint32 [2]) (core/threefry.py)."""
+    return np.array(threefry.fold_in(key, data), np.uint32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,13 +134,17 @@ def _render_rgb_a(backend: str, scene: SceneData, cam: Camera, time_s,
                     + (diag["n_big"] > c[1]).to(torch.int32))
         return rgb, None, over
     if backend == "pathtrace":
-        from ascii_renderer_tpu_torch.backends.pathtrace import render_pt
+        from ascii_renderer_tpu_torch.backends.pathtrace import (atlas_ok,
+                                                                 render_pt)
         pt = cfg.path_tracer
-        rgb, a = render_pt(scene, cam, time_s, _i32(int(key[-1])), rows=rows,
-                           cols=cols, pixel_aspect=cfg.pixel_aspect,
+        # the megakernel unless the atlas is above its budget, then the
+        # XLA core under the frame's key (the reference's routing)
+        rgb, a = render_pt(scene, cam, time_s, key=key, rows=rows, cols=cols,
+                           pixel_aspect=cfg.pixel_aspect,
                            spp=pt.samples_per_batch, bounces=pt.max_bounces,
                            light_color=pt.light_color,
-                           nee=pt.direct_light_sampling, packed=pt_packed,
+                           nee=pt.direct_light_sampling,
+                           use_kernel=atlas_ok(scene), packed=pt_packed,
                            light_host=prep(scene))
         return rgb, a, _i32_zero(rgb.device)
     raise ValueError(f"unknown backend {backend!r}")

@@ -1,5 +1,6 @@
-"""A/B of the path-trace megakernel B5 and the bin walks B6 / B6' between
-two checkouts of the repo on one card.
+"""A/B of the path-trace megakernel B5, the bin walks B6 / B6', the
+fused-shading walk B8 and the headline's grouped walk B1 between two
+checkouts of the repo on one card.
 
 Each side runs in its own process with its own checkout's
 ``ascii_renderer_tpu_torch`` (kernels built from that checkout's
@@ -12,7 +13,11 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
   probe (518,400) and batch (4,147,200);
 - B6 and B6' at the shapes the binned paths give them
   (``chip_smoke.B6_TIMED``): the entry() room 96x36, the teapot 240x135 and
-  the mid-scale HD arm 960x540.
+  the mid-scale HD arm 960x540;
+- B8 at the bunny's fused call (``chip_smoke.b8_bunny_inputs``: 544 tiles,
+  50,811 bin entries) and B1 at the headline's frame 0
+  (``chip_smoke.b1_headline_inputs``), each with its side's launches per
+  call (two where the walk is followed by a merge launch).
 
 Both sides' outputs must be bit-identical (a digest per kernel and shape);
 the inputs are built by the side's own package from this checkout's
@@ -56,7 +61,8 @@ def _digest(outs) -> str:
 
 
 def worker(root: str) -> dict:
-    """Times B5 and B6 / B6' with the package of checkout ``root``."""
+    """Times B5, B6 / B6', B8 and B1 with the package of checkout
+    ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -65,9 +71,11 @@ def worker(root: str) -> dict:
         raise RuntimeError(f"imported {pkg.__file__}, not {root}'s package")
     from ascii_renderer_tpu_torch.ops import pt_kernel as PK
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
+    from ascii_renderer_tpu_torch.ops import raster_group as RG
     cs = _chip_smoke()
     dev = torch.device(DEVICE)
-    out = {"root": root, "b5_ms": {}, "b6_ms": {}, "digest": {}}
+    out = {"root": root, "b5_ms": {}, "b6_ms": {}, "b8_ms": {}, "b1_ms": {},
+           "digest": {}}
     scene = cs._pt_scene(device=dev)
     for rows, cols, B, label in PT_SHAPES:
         args, kw, _uid, n = cs._pt_batch(dev, scene, rows, cols, B, 1)
@@ -96,6 +104,19 @@ def worker(root: str) -> dict:
             out["b6_ms"][f"{kern} {label}"] = cs._device_ms(
                 lambda: fn(d, offs, tiles_x, n_tiles), "bins_walk_kernel",
                 per_call)
+    b8 = cs.b8_bunny_inputs(dev)
+    out["digest"]["B8 bunny"] = _digest([RB.tile_eval_bins_shaded(*b8) + 0.0])
+    out["b8_ms"]["bunny fused call"] = cs._device_ms(
+        lambda: RB.tile_eval_bins_shaded(*b8), "shaded_walk_kernel",
+        2 if hasattr(RB, "shaded_work_items") else 1)
+    del b8
+    lay, grp_cap = cs.b1_headline_inputs(dev)
+    out["digest"]["B1 headline"] = _digest(RG.tile_eval_grouped_skip(
+        *lay, grp_cap))
+    out["b1_ms"]["headline frame 0"] = cs._device_ms(
+        lambda: RG.tile_eval_grouped_skip(*lay, grp_cap),
+        "walk_grouped_skip_kernel",
+        2 if hasattr(RG, "group_work_items") else 1)
     return out
 
 
@@ -129,7 +150,7 @@ def main() -> int:
     if len(digests) != 1:
         raise AssertionError("the two checkouts' outputs differ")
     summary = {}
-    for key in ("b5_ms", "b6_ms"):
+    for key in ("b5_ms", "b6_ms", "b8_ms", "b1_ms"):
         for shape in runs[0][1][key]:
             summary[f"{key[:2].upper()} {shape}"] = {
                 side: statistics.median(r[key][shape] for s, r in runs

@@ -13,7 +13,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    inputs, at the shapes its main path gives it:
    - raster headline (bunny-class mesh, 68,644 triangles, 960x540):
      setup (B2) valid flags equal and planes bit-exact; pack (B3)
-     bit-exact; grouped walk (B1) winner ids and depths exactly equal;
+     bit-exact; grouped walk (B1: slab work items, then a merge launch;
+     its work list printed) winner ids and depths exactly equal;
    - modal vote (B4) at 540x960 and 36x96, radius 1..3, random override
      masks: exactly equal;
    - path-trace megakernel (B5) at every launch shape of the PT runs: the
@@ -42,9 +43,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    - the grouped generations' kernels on the inputs of the golden call's
      bunny frame (render_soup(method=g) at the caps of
      tests/test_headline_goldens.py:49-52) and on a random 48x96 soup at
-     generous and overflowing caps (odd CSR offsets, clamped slab starts):
-     the walks B9d (subtile3), B9e (subtile4) and B9f (subtile5's K2 and
-     subtile6's K4 layouts) z and ids bit for bit; the fused setup+pack
+     generous and overflowing caps (odd CSR offsets, clamped slab starts)
+     and with one group far deeper than the rest: the walks B9d
+     (subtile3), B9e (subtile4), B9f (subtile5's K2 and subtile6's K4
+     layouts) and B1 (subtile7's K4 and subtile8's K8 gathers) z and ids
+     bit for bit; the fused setup+pack
      B10 bit for bit against its plain version and against B2 then B3
      (sign of zero included), and timed beside B2 + B3; B7 at the wide
      pack of subtile3 / subtile4;
@@ -52,8 +55,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      (captured from one call of each path on the bunny at the golden pose:
      fused, subtile and subtile2 at the caps a diagnostic pass and
      suggest_caps_subtile settle on, visibility_subtile at subtile's):
-     the fused-shading walk B8 rgb bit for bit (also on the demo room with
-     its point light), the subtile walks B9a (expanded rows), B9b (packed
+     the fused-shading walk B8 (chunk work items, then a merge launch that
+     shades; its work list printed) rgb bit for bit (also on the demo room
+     with its point light and on random deep bins of 1,000 entries and
+     more), the subtile walks B9a (expanded rows), B9b (packed
      rows) and B9c (packed rows, depth mask) z and ids bit for bit (also
      on a random 64x512 soup, 4 tiles across, at generous and overflowing
       caps), and B9a against B9b on the same bunny bins: z within 1e-5
@@ -96,7 +101,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      RasterBackend: 2 checked frames, 10 timed;
    - the "pathtrace" frame step (demo_setup) at 96x36: frame 0's alpha
      plane (spp 2, 2 bounces) must equal the port's CPU step; then 10
-     timed steps at the default spp 64.
+     timed steps at the default spp 64;
+   - the path tracer's XLA core (render_pt(use_kernel=False)): both
+     path-tracer goldens (tests/goldens/pt_demo_override_plane.txt, 117
+     overrides; pt_wide_atlas_overrides.txt, 27) exactly; the core against
+     B5 at one bounce without NEE (overrides and fetched flags exact,
+     radiance within 1e-5); then the demo room with a 512x256 atlas, above
+     the kernel's budget, through Renderer(cfg, "pathtrace") at 96x36,
+     spp 64, 5 bounces, NEE: frame 0's alpha plane must equal the port's
+     CPU render, then 10 timed frames.
    Each path's kernels must have launched. Frames of every path are
    profiled (stage host ms and device span, device busy share; tables in
    smoke_out/, git-ignored).
@@ -163,33 +176,53 @@ def _event_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
+def _spin(n=16):
+    """n short spin kernels ("spin_kernel", which _device_ms leaves out),
+    then a synchronise."""
+    import torch
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+# profiles _device_ms takes before it fails: now and then a whole session
+# comes back without kernel rows (twice in a row, once, for B4)
+_PROFILES = 5
+
+
 def _device_ms(fn, kernel, per_call, n=50):
     """Device ms per call of fn: the profiler's CUDA rows whose name holds
     ``kernel`` (every CUDA row if None), summed over n back-to-back calls,
     over n. fn launches ``per_call`` such kernels; a profile whose matched
     rows count another number of launches than n * per_call is taken
-    again, and the third such profile fails."""
+    again, and the fifth such profile fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     counts = []
-    for _attempt in range(3):  # the profiler now and then drops rows
+    for _attempt in range(_PROFILES):  # the profiler now and then drops rows
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # records at a session's edge are now and then lost (a session
+            # of 100 B6 launches came back with 98, then 99): spin kernels
+            # on both sides of the timed calls are what gets lost there
+            _spin()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            _spin()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
+                and "spin_kernel" not in e.key
                 and (kernel is None or kernel in e.key)]
         counts.append(sum(e.count for e in rows))
         if counts[-1] == n * per_call:
             return sum(e.self_device_time_total for e in rows) / n / 1e3
         print(f"{kernel}: {counts[-1]} device rows in a profile of {n} "
               f"calls, not {n * per_call}: profiling again", flush=True)
-    raise AssertionError(f"{kernel}: {counts} device rows in 3 profiles of "
-                         f"{n} calls, not {n * per_call}")
+    raise AssertionError(f"{kernel}: {counts} device rows in {_PROFILES} "
+                         f"profiles of {n} calls, not {n * per_call}")
 
 
 def _event_once(fn):
@@ -251,6 +284,51 @@ def _golden_camera():
     from ascii_renderer_tpu_torch.core.camera import Camera
     return Camera.create(pos=(2.4, 1.4, 2.8),
                          yaw=float(np.arctan2(-2.8, -2.4)), pitch=-0.3)
+
+
+def _b1_layout(src16, bbox, T):
+    """B1's layout as the headline's first render builds it (subtile8's
+    K = 8 slot gather at the first caps RasterBackend tries): (layout,
+    grp_cap)."""
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import raster_group as RG
+    n2t = 2 * T
+    tiles_x = -(-COLS // 128)
+    n_tiles = (-(-ROWS // 8)) * tiles_x
+    r_cap, pair_cap, grp_cap = R._round_up(n2t, 2048), 4 * n2t, n_tiles
+    keys = R._subtile_pair_keys_bbox(bbox, ROWS, COLS, big_cap=64)
+    return RG.build_packed_rows_grouped_kgather(
+        src16, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap, 8), grp_cap
+
+
+def b1_headline_inputs(dev):
+    """(layout args, grp_cap) of B1 at the headline's frame 0, built by the
+    calling package's own setup and pack (tools/kernel_ab.py)."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import pack as PK
+    from ascii_renderer_tpu_torch.ops import setup2dh as S
+    p, n, c = (torch.as_tensor(x).to(dev) for x in _bunny())
+    pos9, attrs_t = R.soup_static_prep(p, n, c, _scene(dev))
+    mvp = R.camera_mvp(_golden_camera(), ROWS, COLS, PIXEL_ASPECT)
+    cm, bb = S.setup_2dh_fused(pos9, attrs_t, mvp, ROWS, COLS)
+    tw = R._round_up(3 * (attrs_t.shape[0] // 3) + 3, 8)
+    src16 = PK.pack_channels_split_blocked(cm, [(0, 16), (16, 16 + tw)])[0]
+    lay, grp_cap = _b1_layout(src16, bb, pos9.shape[1])
+    return lay[:6], grp_cap
+
+
+def _print_b1_work(lay, grp_cap, label):
+    """B1's work list on a layout: slabs per group, items, blocks."""
+    from ascii_renderer_tpu_torch.ops import raster_group as RG
+    r_cap = lay[0].shape[0]
+    _first, n = RG.group_slots(lay[1].clamp(0, r_cap))
+    items = int(n.sum())
+    print(f"B1 {label}: {grp_cap} groups, {int((n > 0).sum())} with slabs, "
+          f"deepest {int(n.max())} slabs of 32 rows; {items} work items of "
+          f"one slab, 4 a slab for {4 * items} block-items, walked by "
+          f"{min(4 * RG.group_n_slots(r_cap, grp_cap), 2048)} blocks",
+          flush=True)
 
 
 def check_kernels(dev, soup, scene):
@@ -325,13 +403,8 @@ def check_kernels(dev, soup, scene):
     print("B3 pack: bit-exact", flush=True)
 
     # B1 grouped walk, on the layout frame 0's first render builds
-    n2t = 2 * T
-    tiles_x = -(-COLS // 128)
-    n_tiles = (-(-ROWS // 8)) * tiles_x
-    r_cap, pair_cap, grp_cap = R._round_up(n2t, 2048), 4 * n2t, n_tiles
-    keys = R._subtile_pair_keys_bbox(bb_k, ROWS, COLS, big_cap=64)
-    lay = RG.build_packed_rows_grouped_kgather(
-        outs_k[0], keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap, 8)
+    lay, grp_cap = _b1_layout(outs_k[0], bb_k, T)
+    _print_b1_work(lay, grp_cap, "headline")
     z_k, e_k = RG.tile_eval_grouped_skip(*lay[:6], grp_cap)
     z_r, e_r = RG.tile_eval_grouped_skip_ref(*lay[:6], grp_cap)
     torch.cuda.synchronize()
@@ -344,10 +417,14 @@ def check_kernels(dev, soup, scene):
     recs.append(_rec(
         "raster_group_walk", "raster_group.cu", "raster_group.py:256", 0.0,
         _device_ms(lambda: RG.tile_eval_grouped_skip(*lay[:6], grp_cap),
-                   "walk_grouped_skip_kernel", 1),
+                   "walk_grouped_skip_kernel", 2),
         _event_ms(lambda: RG.tile_eval_grouped_skip_ref(*lay[:6], grp_cap),
                   1), bound))
-    print(f"B1 walk: exact, {hits} lit pixels, n_rows={n_rows}", flush=True)
+    merge = _device_ms(lambda: RG.tile_eval_grouped_skip(*lay[:6], grp_cap),
+                       "walk_grouped_skip_kernel_merge", 1)
+    print(f"B1 walk: exact, {hits} lit pixels, n_rows={n_rows}; kernel "
+          f"{recs[-1]['ms']:.5f} ms (walk {recs[-1]['ms'] - merge:.5f}, merge "
+          f"{merge:.5f}), bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
     return recs
 
 
@@ -398,7 +475,7 @@ def _check_b10(pos9, attrs_t, mvp, rows, cols, label):
 # the grouped generations' own walks, by the generation whose layout each
 # walks (B9f twice: on the K2 layout and on the K4 one)
 GEN_WALKS = {"B9d": "subtile3", "B9e": "subtile4", "B9f K2": "subtile5",
-             "B9f K4": "subtile6"}
+             "B9f K4": "subtile6", "B1 K4": "subtile7", "B1 K8": "subtile8"}
 
 
 def _generation_layouts(src32, keys, *caps):
@@ -523,19 +600,31 @@ def check_generation_kernels(dev, soup, scene):
     for A in (6, 9):
         _check_b10(rpos9, rattrs[A], rmvp, 48, 96, f"random {Tr} tris")
     keys, src32 = _setup_and_keys(rpos9, rattrs[6], rmvp, 48, 96, 1024)
-    for label, (r_cap, pair_cap, gcap) in (("generous", (32 * 512, 1 << 16,
-                                                         6)),
-                                           ("overflow", (64, 4096, 1))):
+    # the same soup with 1,500 small triangles stacked in front of one spot:
+    # one group far deeper than the rest
+    stack = (np.repeat(rng.normal(0, 0.1, (1500, 3)), 3, 0)
+             + rng.normal(0, 0.05, (4500, 3))).astype(np.float32)
+    dpos9 = torch.cat([rpos9, torch.from_numpy(stack).view(1500, 3, 3)
+                       .permute(1, 2, 0).reshape(9, 1500).to(dev)], dim=1)
+    dkeys, dsrc32 = _setup_and_keys(
+        dpos9, torch.cat([rattrs[6], rattrs[6][:, :1500]], dim=1), rmvp, 48,
+        96, 1024)
+    for label, (r_cap, pair_cap, gcap), (wkeys, wsrc) in (
+            ("generous", (32 * 512, 1 << 16, 6), (keys, src32)),
+            ("overflow", (64, 4096, 1), (keys, src32)),
+            ("deep group", (32 * 512, 1 << 16, 6), (dkeys, dsrc32))):
         for walk, (lay, fn, ref) in _generation_layouts(
-                src32, keys, 1, 6, r_cap, pair_cap, gcap).items():
+                wsrc, wkeys, 1, 6, r_cap, pair_cap, gcap).items():
+            if walk == "B1 K8":
+                _print_b1_work(lay, gcap, f"random 48x96 {label} caps")
             z_k, e_k = fn(*lay[:-4], gcap)
             z_r, e_r = ref(*lay[:-4], gcap)
             torch.cuda.synchronize()
             assert torch.equal(e_k, e_r), f"{walk} random {label}: ids differ"
             assert torch.equal(z_k.view(torch.int32), z_r.view(torch.int32)), \
                 f"{walk} random {label}: depths differ"
-            skips = (sorted(set(lay[3].tolist())) if walk.startswith("B9f")
-                     else "-")
+            skips = (sorted(set(lay[3].tolist()))
+                     if walk.startswith(("B9f", "B1")) else "-")
             print(f"{walk} random 48x96 {label} caps: exact, "
                   f"{int((e_k >= 0).sum())} lit pixels, gskip values {skips}",
                   flush=True)
@@ -759,6 +848,64 @@ def _random_subtile_layouts(dev, caps):
     return out
 
 
+def b8_bunny_inputs(dev, soup=None, scene=None):
+    """B8's arguments at the bunny's fused call (golden pose), captured
+    from one render_soup(method="fused") (tools/kernel_ab.py too)."""
+    from ascii_renderer_tpu_torch.ops import raster_bins as RB
+    args, _kw = _capture(RB, "tile_eval_bins_shaded", _oracle_frame(
+        dev, soup or _bunny(), scene or _scene(dev), "fused", {}))
+    return args
+
+
+def _deep_fused_args(dev):
+    """B8's arguments on a random soup of 2,000 triangles plus 3,000 small
+    ones stacked in front of one spot, lit by a point light, at 48x384
+    (6 x 3 tiles): a few bins of a thousand entries and more."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.backends import raster_oracles as RO
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.scene.builder import SceneBuilder
+    rng = np.random.default_rng(9)
+    spread = rng.uniform(-2, 2, (3 * 2000, 3))
+    stack = (np.repeat(rng.normal(0, 0.15, (3000, 3)), 3, 0)
+             + rng.normal(0, 0.08, (3 * 3000, 3)))
+    p = torch.from_numpy(np.concatenate([spread, stack]).astype(
+        np.float32)).to(dev)
+    n, c = (torch.from_numpy(rng.uniform(lo, 2, tuple(p.shape)).astype(
+        np.float32)).to(dev) for lo in (-1, 0.2))
+    scene = (SceneBuilder().set_env_light([0.15, 0.15, 0.2], 1.0)
+             .add_point_light([1.0, 2.0, 1.0], [1.0, 0.9, 0.8], 1.0)
+             .build(device=dev))
+    cam = Camera.create(pos=(2.5, 1.5, 3.0), yaw=-2.3, pitch=-0.3)
+    rows, cols = 48, 384
+    mvp = R.camera_mvp(cam, rows, cols, PIXEL_ASPECT)
+    ch = R.setup_screen_channels(R.transform_clip_channels(p, mvp), rows,
+                                 cols)
+    slots = R.clip_attrs_channel_lists(torch.cat([n, c, p], dim=1), ch)
+    data, offsets, tiles_y, tiles_x = RO.fused_entries(ch, slots, rows, cols)
+    deepest = int((offsets[1:] - offsets[:-1]).max())
+    assert deepest >= 1000, deepest
+    return data, offsets, RO.light_params(scene), tiles_x, tiles_y * tiles_x
+
+
+def _print_b8_work(args, label):
+    """B8's work list on its arguments: chunks per tile, items, blocks."""
+    from ascii_renderer_tpu_torch.ops import raster_bins as RB
+    data, offs, _lp, _tiles_x, n_tiles = args
+    _first, n = RB.shaded_bin_slots(offs)
+    items = int(n.sum())
+    grid = min(4 * RB.shaded_n_slots(data.numel() // RB.NS_CHAN, n_tiles),
+               2048)
+    print(f"B8 {label}: {n_tiles} tiles, {int((n > 0).sum())} non-empty, "
+          f"{int(offs[-1])} bin entries, deepest bin "
+          f"{int((offs[1:] - offs[:-1]).max())} entries in {int(n.max())} "
+          f"chunks; {items} work items of one 64-entry chunk, 4 a chunk "
+          f"for {4 * items} block-items, walked by {grid} blocks",
+          flush=True)
+
+
 def check_oracle_kernels(dev, soup, scene, caps):
     """B8, B9a, B9b and B9c against their plain versions: at the inputs
     their paths give them on the bunny at the golden pose (captured from
@@ -772,25 +919,32 @@ def check_oracle_kernels(dev, soup, scene, caps):
     from ascii_renderer_tpu_torch.ops import raster_subtile as RS
     recs = {}
 
-    # B8: the bunny's fused frame, and the demo room with a point light
-    args, _kw = _capture(RB, "tile_eval_bins_shaded", _oracle_frame(
-        dev, soup, scene, "fused", {}))
+    # B8: the bunny's fused frame, the demo room with a point light, and
+    # random deep bins
+    args = b8_bunny_inputs(dev, soup, scene)
+    _print_b8_work(args, "bunny golden pose")
     rgb, plain = _check_b8("bunny golden pose", args)
     entries = int(args[1][-1])
     bound = _bound(160 * entries + _nbytes(args[1], args[2], rgb),
                    B8_OPS * 1024 * entries + B8_OPS_PIXEL * rgb.numel() // 3)
     ms = _device_ms(lambda: RB.tile_eval_bins_shaded(*args),
-                    "shaded_walk_kernel", 1)
+                    "shaded_walk_kernel", 2)
     recs["B8"] = _rec("raster_bins_walk_shaded", "raster_shaded.cu",
                       "raster_bins.py:292", 0.0, ms, plain, bound)
-    print(f"B8 bunny: kernel {ms:.4f} ms, bound {bound[0]:.5f} ms "
-          f"({bound[1]})", flush=True)
+    merge = _device_ms(lambda: RB.tile_eval_bins_shaded(*args),
+                       "shaded_walk_kernel_merge", 1)
+    print(f"B8 bunny: kernel {ms:.4f} ms (walk {ms - merge:.4f}, merge "
+          f"{merge:.4f}), bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
     del args, rgb
     rscene, rsoup = _room(dev, point_light=True)
     assert int(rscene.n_pt) == 1
     rargs, _kw = _capture(RB, "tile_eval_bins_shaded", lambda: R.render_soup(
         *rsoup, rscene, rscene.camera, 36, 96, PIXEL_ASPECT, method="fused"))
+    _print_b8_work(rargs, "demo room 96x36, point light")
     _check_b8("demo room 96x36, point light", rargs)
+    dargs = _deep_fused_args(dev)
+    _print_b8_work(dargs, "random deep bins 48x384")
+    _check_b8("random deep bins 48x384", dargs)
 
     # B9b and B9c on the bunny's subtile / subtile2 paths, B9a on
     # visibility_subtile's
@@ -958,11 +1112,11 @@ def check_modal(dev):
         _bound(h * w * (4 + 1 + 4), 0))
 
 
-def _pt_scene(**build_kw):
+def _pt_scene(atlas=(32, 32), **build_kw):
     from ascii_renderer_tpu_torch.atlas.io import demo_atlas
     from ascii_renderer_tpu_torch.scene.demo import create_demo_scene
     sb = create_demo_scene()
-    sb.set_atlas(demo_atlas())
+    sb.set_atlas(demo_atlas(*atlas))
     return sb.build(min_pad=1, **build_kw)
 
 
@@ -1091,6 +1245,130 @@ def check_pt_kernel(dev):
                   f"every live ray bit-identical under a permuted order, "
                   f"gated blocks zero", flush=True)
     return rec
+
+
+# --------------------------------------------------------------------------
+# The path tracer's XLA core: render_pt(use_kernel=False), wide atlases
+# --------------------------------------------------------------------------
+PT_LIGHT = (16.86, 10.76, 8.2)
+WIDE_ATLAS = (512, 256)  # 131,072 texels, above the kernel's 65,536
+WIDE_ASSET = os.path.join(ROOT, "assets", "atlas_wide_32x16.bin")
+
+
+def _override_lines(a):
+    """An alpha plane (numpy u8) as the goldens' text: glyph codes of the
+    override cells, '.' elsewhere; and the override count."""
+    ov = (a >= 2) & (a <= 254)
+    return (["".join(chr(c) if (32 <= c <= 126 and o) else "."
+                     for c, o in zip(row, orow))
+             for row, orow in zip(a, ov)], int(ov.sum()))
+
+
+def _golden_lines(name):
+    with open(os.path.join(ROOT, "tests", "goldens", name)) as fh:
+        return fh.read().rstrip("\n").split("\n")
+
+
+def check_pt_core(dev):
+    """The XLA core on the card: both path-tracer goldens through
+    render_pt(use_kernel=False) (the demo room with its atlas, 96x36, spp
+    2, 2 bounces, key 0: 117 overrides; the wide-atlas quad, 32x16: 27),
+    alpha planes exactly; then the core against the megakernel B5 at one
+    bounce without NEE on the poster pose's 96x36 rays, 128x64 atlas:
+    overrides and fetched flags exactly, radiance within 1e-5."""
+    import torch
+    from ascii_renderer_tpu_torch.atlas.io import load_atlas
+    from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    from ascii_renderer_tpu_torch.core.camera import Camera, primary_ray_dirs
+    from ascii_renderer_tpu_torch.scene.builder import (MaterialIds,
+                                                        SceneBuilder)
+
+    quad = SceneBuilder()
+    quad.add_quad([-4, -2, 0], [4, -2, 0], [4, 2, 0], [-4, 2, 0],
+                  MaterialIds.WHITE, (0, 16), (32, 16), (32, 0), (0, 0))
+    quad.set_area_light([50, 50, 50], 0.1, auto=False)
+    quad.set_atlas(load_atlas(WIDE_ASSET, 32, 16, strict=True))
+    for label, scene, cam, grid, aspect, golden, want in (
+            ("demo room", _pt_scene(device=dev), _pt_camera(), (36, 96), 0.5,
+             "pt_demo_override_plane.txt", PT_OVERRIDES),
+            ("wide-atlas quad", quad.build(device=dev),
+             Camera.create(pos=(0, 0, 2.385), yaw=-math.pi / 2), (16, 32),
+             1.0, "pt_wide_atlas_overrides.txt", 27)):
+        box = {}
+        (ms,) = _timed(lambda: box.update(out=PT.render_pt(
+            scene, cam, 0.0, key=(0, 0), rows=grid[0], cols=grid[1],
+            pixel_aspect=aspect, spp=2, bounces=2, light_color=PT_LIGHT,
+            use_kernel=False)), 1)
+        rgb, a = box["out"]
+        assert a.device.type == "cuda" and torch.isfinite(rgb).all()
+        lines, n_ov = _override_lines(a.cpu().numpy())
+        gold = _golden_lines(golden)
+        n_diff = sum(x != y for g, w in zip(lines, gold) for x, y in zip(g, w))
+        print(f"PT core golden {golden} ({label}): {n_ov} overrides, "
+              f"{n_diff} cells differ from the golden, {ms:.1f} ms",
+              flush=True)
+        assert lines == gold and n_ov == want, (golden, n_ov, n_diff)
+
+    scene = _pt_scene(atlas=(128, 64), device=dev)
+    cam = _pt_camera()
+    rd = primary_ray_dirs(cam, 36, 96, PIXEL_ASPECT, device=dev)
+    ro = cam.pos.to(dev).expand(rd.shape)
+    lc, lr = PT.get_light_sphere(scene, 0.0)
+    lcol = torch.tensor(PT_LIGHT) * 1.3
+    kw = dict(bounces=1, light_color=lcol, nee=False)
+    c_lo, c_ov, c_f = PT.trace_eye_paths(scene, ro, rd, (0, 0), lc, lr, **kw)
+    k_lo, k_ov, k_f = PT.trace_eye_paths_kernel(scene, ro, rd, 0, lc, lr,
+                                                **kw)
+    torch.cuda.synchronize()
+    err = float((c_lo - k_lo).abs().max())
+    print(f"PT core vs B5 at one bounce (96x36, 128x64 atlas): overrides "
+          f"{'equal' if torch.equal(c_ov, k_ov) else 'DIFFER'}, fetched "
+          f"{'equal' if torch.equal(c_f, k_f) else 'DIFFER'} "
+          f"({int(c_f.sum())} fetched), radiance max abs diff {err}",
+          flush=True)
+    assert torch.equal(c_ov, k_ov) and torch.equal(c_f, k_f)
+    assert err <= 1e-5 and int(c_f.sum()) > 0
+
+
+def run_pt_core_path(dev):
+    """The reference app's frame with a wide atlas: the demo room with
+    demo_atlas(512, 256) through Renderer(cfg, "pathtrace") (the XLA core:
+    the atlas is above the kernel's budget) at 96x36, spp 64, 5 bounces,
+    NEE, then the glyph pass. Frame 0's alpha plane must equal the port's
+    CPU render; then 10 timed frames. Returns a function rendering one
+    frame at the pose."""
+    import torch
+    from ascii_renderer_tpu_torch.backends.registry import Renderer
+    from ascii_renderer_tpu_torch.core import quantize as Q
+    from ascii_renderer_tpu_torch.core.config import Config
+    cfg = Config()
+    alphas = []
+    for device in ("cuda", "cpu"):
+        r = Renderer(cfg, "pathtrace", device=device)
+        r.set_scene(_pt_scene(atlas=WIDE_ATLAS, device=device))
+        box = {}
+        (ms,) = _timed(lambda: box.update(frame=r.render(0.0, _pt_camera())),
+                       1)
+        chars = _glyph(box["frame"], cfg)
+        assert tuple(chars.shape) == (36, 96)
+        alphas.append(box["frame"].a.cpu())
+        print(f"PT core wide atlas frame 0 on {device}: {ms:.1f} ms",
+              flush=True)
+        if device == "cuda":
+            gpu = r
+    n_ov = int(Q.is_override(alphas[0]).sum())
+    assert torch.equal(alphas[0], alphas[1]), \
+        f"{int((alphas[0] != alphas[1]).sum())} alpha cells differ from CPU"
+    assert n_ov > 100, n_ov
+    print(f"PT core wide atlas frame 0: alpha plane equals the CPU render, "
+          f"{n_ov} overrides", flush=True)
+
+    def one():
+        _glyph(gpu.render(0.0, _pt_camera()), cfg)
+
+    _summary("PT core wide atlas 96x36 spp64 steady (poster pose)",
+             _timed(one, 10))
+    return one
 
 
 def _glyph(frame, cfg):
@@ -1878,6 +2156,16 @@ def main() -> int:
     for k in ("pt_megakernel", "modal_vote"):
         assert c_pts[k] > 0, f"{k} never launched on the PT frame step"
     profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"), "PT frame step")
+
+    # the path tracer's XLA core: the goldens and the core against B5,
+    # then the wide-atlas frame. Last: its profile holds ~20,000 launches a
+    # frame, after which the profiler's sessions lost rows
+    check_pt_core(dev)
+    c_core, core_fn = _path_counts(counters, lambda: run_pt_core_path(dev))
+    print(f"launches on the PT core path: {c_core}", flush=True)
+    assert c_core["modal_vote"] > 0 and c_core["pt_megakernel"] == 0
+    profile_frames(core_fn, 2, ("pt.", "frame.", "glyph"),
+                   "PT core wide atlas")
     for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels",
               "pack_channels_split"):
         by_name[k]["launches"] = sum(

@@ -672,3 +672,296 @@ def test_shaded_walk_equals_plain_on_cuda(cuda_device, scene_name,
     assert torch.equal((rgb + 0.0).view(torch.int32),
                        (want + 0.0).view(torch.int32))
     assert int((rgb.amax(1) > 0).sum()) > 1000
+
+
+# --------------------------------------------------------------------------
+# B8 and B1: the work-item walks, sliced as the kernels slice them
+# --------------------------------------------------------------------------
+def _light_vector():
+    """B8's light parameters: ambient, a directional light and two point
+    lights (raster_bins L_* layout)."""
+    lp = torch.zeros(64)
+    lp[0:3] = torch.tensor([0.12, 0.1, 0.08])
+    lp[3:6] = torch.tensor([-0.48, -0.64, -0.6])
+    lp[6:9] = torch.tensor([0.9, 0.85, 0.8])
+    lp[9] = 2.0
+    lp[10:16] = torch.tensor([100.0, 10.0, 5.0, 1.0, 0.9, 0.7])
+    lp[16:22] = torch.tensor([300.0, 40.0, -2.0, 0.3, 0.4, 1.0])
+    return lp
+
+
+def _shaded_entries(seed, sizes=BINS["grid"][0], tiles_x=3):
+    """Random 64-channel vertex-form entries (two per row, with the inert
+    tail) binned over a grid tiles_x tiles wide, and the offsets: bins of
+    ``sizes``, triangles of both windings up to ~60 px across, depth ties
+    with the previous entry, 20% invalid entries. In a bin of 1,100
+    entries or more, each pair of entries across a 64-entry chunk
+    boundary (chunks start at the bin's offset rounded down to 16) is a
+    depth tie of the nearest kind, the earlier at z = +0.0 and the later
+    at -0.0 on the same vertices with another colour: the walk keeps the
+    earlier, as the merge in bin order must."""
+    rng = np.random.default_rng(seed)
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    P = int(offs[-1])
+    tile = np.repeat(np.arange(len(sizes)), sizes)
+    cx = (tile % tiles_x) * 128 + rng.uniform(-20, 148, P)
+    cy = (tile // tiles_x) * 8 + rng.uniform(-4, 12, P)
+    ent = np.zeros((P + RB.S_CHUNK + 16 + P % 2, RB.NS_CHAN), np.float32)
+    ent[:P, RB.S_VALID] = rng.random(P) >= 0.2
+    r = rng.uniform(2, 30, (P, 1))
+    ang = rng.uniform(0, 2 * np.pi, (P, 3))
+    ent[:P, RB.S_X0:RB.S_X2 + 1] = cx[:, None] + r * np.cos(ang)
+    ent[:P, RB.S_Y0:RB.S_Y2 + 1] = cy[:, None] + r * np.sin(ang) * 0.5
+    ent[:P, RB.S_Z0:RB.S_Z2 + 1] = rng.uniform(-0.1, 1.1, (P, 3))
+    ent[:P, RB.S_IW0:RB.S_IW2 + 1] = rng.uniform(0.3, 3.0, (P, 3))
+    attrs = rng.uniform(-1, 1, (P, 3, 9))
+    attrs[:, :, 3:6] = rng.uniform(0, 1, (P, 3, 3))            # colours
+    attrs[:, :, 6:9] = rng.uniform(-5, 5, (P, 3, 3))           # positions
+    ent[:P, RB.S_ATTR:RB.S_ATTR + 27] = attrs.reshape(P, 27)
+    tie = np.nonzero(rng.random(P) < 0.3)[0]
+    tie = tie[(tie > 0) & (tile[tie] == tile[np.maximum(tie - 1, 0)])]
+    ent[tie, RB.S_X0:RB.S_Z2 + 1] = ent[tie - 1, RB.S_X0:RB.S_Z2 + 1]
+    for lo, hi in zip(offs[:-1], offs[1:]):
+        if hi - lo < 1100:
+            continue
+        start = (lo // 16) * 16
+        for b in range(start + RB.S_CHUNK, hi, RB.S_CHUNK):
+            ent[b - 1, RB.S_VALID] = ent[b, RB.S_VALID] = 1.0
+            ent[b - 1, RB.S_Z0:RB.S_Z2 + 1] = 0.0
+            ent[b, RB.S_X0:RB.S_Y2 + 1] = ent[b - 1, RB.S_X0:RB.S_Y2 + 1]
+            ent[b, RB.S_Z0:RB.S_Z2 + 1] = -0.0
+            ent[b, RB.S_ATTR + 3:RB.S_ATTR + 27:9] = 0.0  # red -> black
+    return ent.reshape(-1, RB.NS_PACK * RB.NS_CHAN), offs
+
+
+def _sliced_shaded(data, offsets, light, tiles_x, n_tiles):
+    """B8 as its kernel walks it: every work item of ``shaded_work_items``
+    (one 64-entry chunk of one bin, from the bin's offset rounded down to
+    16) walked on its own for the first live entry of least z, the items
+    of a tile folded in slot order with a strict z < best, then each
+    pixel shaded from its winning entry. Returns (rgb, z, winner)."""
+    inf = float("inf")
+    ent = data.reshape(-1, RB.NS_CHAN)
+    ent_z = torch.cat([ent, ent.new_zeros((RB.S_CHUNK, RB.NS_CHAN))])
+    off = offsets.long()
+    px, py = RB.tile_pixel_centres(tiles_x, n_tiles, "cpu")
+    zb = torch.full((n_tiles, RB.PIX), inf)
+    wb = torch.zeros((n_tiles, RB.PIX), dtype=torch.long)
+    for _q, t, c in zip(*(x.tolist() for x in RB.shaded_work_items(
+            offsets, ent.shape[0]))):
+        base = (int(off[t]) // 16) * 16 + c * RB.S_CHUNK
+        p = torch.arange(base, base + RB.S_CHUNK)
+        ch = ent_z[p]
+        live = (p >= off[t]) & (p < off[t + 1]) & (ch[:, RB.S_VALID] > 0.0)
+        w0, w1, w2, z = RB._shaded_planes(ch[:, None, :], px[t][None],
+                                          py[t][None])
+        ok = (live[:, None] & (w0 <= 0.0) & (w1 <= 0.0) & (w2 <= 0.0)
+              & (z >= 0.0) & (z <= 1.0))
+        zm = torch.where(ok, z, inf)                    # [64, 1024]
+        k = zm.argmin(dim=0)                            # the first of least z
+        zc = zm.gather(0, k[None])[0]
+        better = zc < zb[t]
+        zb[t] = torch.where(better, zc, zb[t])
+        wb[t] = torch.where(better, p[k], wb[t])
+    rgb = RB._shade_winners(ent, wb, zb < inf, px, py, light, n_tiles)
+    return rgb, zb, torch.where(zb < inf, wb, -1)
+
+
+@pytest.mark.parametrize("bins", sorted(BINS))
+def test_sliced_shaded_walk_equals_the_plain_version(bins):
+    """B8 as its kernel walks it, chunk by chunk from the work list and
+    merged in slot order, equals the plain version bit for bit (rgb as
+    int32, -0.0 folded), ties across chunk boundaries included; a tile's
+    items are consecutive slots below the host's bound."""
+    sizes, tiles_x = BINS[bins]
+    data, offs = _shaded_entries(8, sizes, tiles_x)
+    data, offs = torch.from_numpy(data), torch.from_numpy(offs)
+    n_tiles, light = len(sizes), _light_vector()
+    n_ent = data.numel() // RB.NS_CHAN
+    slots, tiles, chunks = RB.shaded_work_items(offs, n_ent)
+    first, n = RB.shaded_bin_slots(offs)
+    assert int(n.sum()) == slots.numel()
+    assert torch.equal(slots, first[tiles] + chunks)
+    assert int(slots.max()) < RB.shaded_n_slots(n_ent, n_tiles)
+    rgb, z, win = _sliced_shaded(data, offs, light, tiles_x, n_tiles)
+    want = RB.tile_eval_bins_shaded_ref(data, offs, light, tiles_x, n_tiles)
+    assert torch.equal((rgb + 0.0).view(torch.int32),
+                       (want + 0.0).view(torch.int32))
+    assert int((win >= 0).sum()) > 500 and (want.amax(1) > 0).any()
+    if bins != "grid":  # the boundary ties: the earlier entry's +0.0
+        tied = z[-1] == 0.0
+        assert int(tied.sum()) > 50
+        assert not torch.signbit(z[-1][tied]).any()
+        assert not torch.signbit(
+            data.view(-1, RB.NS_CHAN)[win[-1][tied], RB.S_Z0]).any()
+
+
+# group slab layouts: (rows of each group's deepest slot, r_cap): a
+# generous cap; one group of 1,170 rows far deeper than the others (37
+# slabs), whose slab boundaries carry +0.0 / -0.0 depth ties; the same
+# with r_cap short of the layout (clamped rowptr); one group
+GROUPED = {"generous": ((40, 70, 5, 0, 130, 33), 1024),
+           "deep": ((40, 70, 5, 0, 130, 33, 1170), 1664),
+           "overflow": ((40, 70, 5, 0, 130, 33, 1170), 1280),
+           "one group": ((300,), 320)}
+
+
+def _grouped_entries(seed, depths, r_cap):
+    """A random rows128 layout of len(depths) groups: slot g of group t
+    holds min(depth, ...) entries after a skip of 0..3 rows (the K-gather's
+    misaligned starts), rows in CHUNK_RG multiples per group; plane
+    coefficients up to 1e10, depth ties with the previous row, ids
+    increasing in each slot. In the deepest group each pair of rows across
+    a slab boundary of slot 0 is a depth tie of the nearest kind, the
+    earlier at z = +0.0, the later at -0.0. Returns (rows128, rowptr,
+    gdepth, gskip, xl, yl)."""
+    rng = np.random.default_rng(seed)
+    G = len(depths)
+    gskip = rng.integers(0, 4, (G, 8))
+    gdepth = np.stack([rng.integers(0, d + 1, 8) for d in depths])
+    gdepth[:, 0] = depths
+    need = (gdepth + gskip).max(1)
+    rowptr = np.concatenate([[0], np.cumsum(-(-need // 32) * 32)])
+    rows = np.zeros((max(int(rowptr[-1]), r_cap), 8, 16), np.float32)
+    bx = rng.integers(0, 6, (G, 8))
+    by = rng.integers(0, 6, (G, 8))
+    n = rows.shape[0]
+    cx = bx[:, :, None] * 16 + rng.uniform(-6, 22, (G, 8, n))
+    cy = by[:, :, None] * 8 + rng.uniform(-3, 11, (G, 8, n))
+    for t in range(G):
+        lo, hi = int(rowptr[t]), int(rowptr[t + 1])
+        for k in range(3):
+            ang = rng.uniform(0, 2 * np.pi, (hi - lo, 8))
+            scale = np.where(rng.random((hi - lo, 8)) < 0.15, 3e8, 1.0)
+            a = np.cos(ang) * rng.uniform(0.05, 40, (hi - lo, 8)) * scale
+            b = np.sin(ang) * rng.uniform(0.05, 40, (hi - lo, 8)) * scale
+            g = -(a * (cx[t, :, :hi - lo].T + rng.uniform(-20, 20, a.shape))
+                  + b * (cy[t, :, :hi - lo].T + rng.uniform(-5, 5, a.shape)))
+            rows[lo:hi, :, 3 * k:3 * k + 3] = np.stack([a, b, g], -1)
+        zx = rng.normal(size=(hi - lo, 8)) * 2e-3
+        zy = rng.normal(size=(hi - lo, 8)) * 2e-2
+        rows[lo:hi, :, 9:12] = np.stack(
+            [zx, zy, rng.uniform(-0.1, 1.1, zx.shape)
+             - zx * cx[t, :, :hi - lo].T - zy * cy[t, :, :hi - lo].T], -1)
+        rows[lo:hi, :, 12] = np.sort(rng.choice(100000, (hi - lo) * 8,
+                                                replace=False)
+                                     ).reshape(8, hi - lo).T
+        tie = np.nonzero(rng.random(hi - lo) < 0.3)[0]
+        tie = tie[tie > 0] + lo
+        rows[tie, :, 9:12] = rows[tie - 1, :, 9:12]
+        if hi - lo >= 1100:
+            for r in range(lo + 32, hi, 32):
+                rows[r - 1, 0, 9:12] = 0.0
+                rows[r, 0, :9] = rows[r - 1, 0, :9]
+                rows[r, 0, 9:12] = -0.0
+    lane = np.arange(128)
+    xl = (bx.repeat(16, 1) * 16 + lane % 16 + 0.5).astype(np.float32)
+    yl = (by.repeat(16, 1) * 8).astype(np.float32)
+    return (torch.from_numpy(rows[:r_cap].reshape(r_cap, 128)),
+            torch.from_numpy(rowptr.astype(np.int32)),
+            torch.from_numpy(gdepth.reshape(-1).astype(np.int32)),
+            torch.from_numpy(gskip.reshape(-1).astype(np.int32)),
+            torch.from_numpy(xl), torch.from_numpy(yl))
+
+
+def _sliced_grouped(rows128, rowptr, gdepth, gskip, xl, yl, grp_cap):
+    """B1 as its kernel walks it: every work item of ``group_work_items``
+    (one 32-row slab of one group, rows min(r0 + c*32, r_cap - 32) + r
+    taken as entries idx = c*32 + r) walked on its own for the first live
+    covering entry of least z, then each group's items folded in slot
+    order with a strict z < best."""
+    inf = float("inf")
+    r_cap = rows128.shape[0]
+    rp = torch.clamp(rowptr.long(), 0, r_cap)
+    zb = torch.full((grp_cap, 8, 8, 16), inf)
+    eb = torch.full((grp_cap, 8, 8, 16), -1.0)
+    r_iota = torch.arange(RG.CHUNK_RG).view(-1, 1, 1, 1)
+    ys = (torch.arange(8.0) + 0.5).view(1, 8, 1, 1)
+    for _q, t, c in zip(*(x.tolist() for x in RG.group_work_items(rowptr,
+                                                                  r_cap))):
+        start = min(int(rp[t]) + c * RG.CHUNK_RG, r_cap - RG.CHUNK_RG)
+        ent = rows128[start:start + RG.CHUNK_RG].view(-1, 1, 8, 16)
+        x = xl[t].view(1, 1, 8, 16)
+        y = ys + yl[t].view(1, 1, 8, 16)
+
+        def plane(k):  # entry channels k..k+2 -> [32, 8 rows, 8 slots, 16]
+            a, b, g = (ent[..., k + i:k + i + 1] for i in range(3))
+            return fma32(b, y, fma32(a, x, g))
+
+        z = plane(9)
+        idx = c * RG.CHUNK_RG + r_iota
+        skip = gskip[t * 8:t * 8 + 8].view(1, 1, 8, 1)
+        depth = gdepth[t * 8:t * 8 + 8].view(1, 1, 8, 1)
+        ok = ((plane(0) <= 0.0) & (plane(3) <= 0.0) & (plane(6) <= 0.0)
+              & (z >= 0.0) & (z <= 1.0) & (idx >= skip)
+              & (idx < skip + depth))
+        zm = torch.where(ok, z, inf)
+        k = zm.argmin(dim=0)                 # the first of least z
+        zc = zm.gather(0, k[None])[0]
+        ec = ent[..., 12:13].expand(zm.shape).gather(0, k[None])[0]
+        better = zc < zb[t]
+        zb[t] = torch.where(better, zc, zb[t])
+        eb[t] = torch.where(better, ec, eb[t])
+    return zb.view(grp_cap, 8, 128), eb.view(grp_cap, 8, 128)
+
+
+@pytest.mark.parametrize("case", sorted(GROUPED))
+def test_sliced_grouped_walk_equals_the_plain_walk(case):
+    """B1 as its kernel walks it, slab by slab from the work list and
+    merged in slot order, equals the plain walk bit for bit (z as int32,
+    ids), skip windows, clamped rowptr and the +0.0 / -0.0 ties across
+    slab boundaries included."""
+    depths, r_cap = GROUPED[case]
+    lay = _grouped_entries(11, depths, r_cap)
+    G = len(depths)
+    slots, groups, slabs = RG.group_work_items(lay[1], r_cap)
+    first, n = RG.group_slots(torch.clamp(lay[1], 0, r_cap))
+    assert int(n.sum()) == slots.numel()
+    assert torch.equal(slots, first[groups] + slabs)
+    assert int(slots.max()) < RG.group_n_slots(r_cap, G)
+    z, e = _sliced_grouped(*lay, G)
+    z_r, e_r = RG.tile_eval_grouped_skip_ref(*lay, G)
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+    if case in ("deep", "overflow"):  # the boundary ties: the earlier +0.0
+        zt = z[-1][:, :16]
+        assert int((zt == 0.0).sum()) > 20
+        assert not torch.signbit(zt[zt == 0.0]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins", sorted(BINS))
+def test_shaded_kernel_on_the_work_list_equals_plain_on_cuda(
+        cuda_device, bins, zero_counts):
+    """B8's work-item walk and merge on the random bins (a 1,150-entry bin
+    over 19 items with boundary ties, one deep tile): rgb bit for bit
+    equal to the plain version; one call counts one launch."""
+    sizes, tiles_x = BINS[bins]
+    data, offs = _shaded_entries(8, sizes, tiles_x)
+    args = (torch.from_numpy(data).to(cuda_device),
+            torch.from_numpy(offs).to(cuda_device),
+            _light_vector().to(cuda_device), tiles_x, len(sizes))
+    rgb = RB.tile_eval_bins_shaded(*args)
+    want = RB.tile_eval_bins_shaded_ref(*args)
+    torch.cuda.synchronize()
+    assert RB.launches_shaded == 1
+    assert torch.equal((rgb + 0.0).view(torch.int32),
+                       (want + 0.0).view(torch.int32))
+    assert int((rgb.amax(1) > 0).sum()) > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPED))
+def test_grouped_skip_kernel_on_the_work_list_equals_plain_on_cuda(
+        cuda_device, case, zero_counts):
+    """B1's slab work items and merge on the random layouts (a group far
+    deeper than the rest, clamped rowptr, one group): z and ids bit for
+    bit equal to the plain walk; one call counts one launch."""
+    depths, r_cap = GROUPED[case]
+    lay = [x.to(cuda_device) for x in _grouped_entries(11, depths, r_cap)]
+    z, e = RG.tile_eval_grouped_skip(*lay, len(depths))
+    z_r, e_r = RG.tile_eval_grouped_skip_ref(*lay, len(depths))
+    torch.cuda.synchronize()
+    assert RG.launches == 1
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))

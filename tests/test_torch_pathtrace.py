@@ -292,7 +292,8 @@ def test_kernel_path_differs_from_the_wide_atlas_golden():
     27 overrides. The kernel path (the port's, byte for byte JAX's
     ``render_pt(use_kernel=True)`` alpha plane) gives 29, and 13 of the
     512 cells differ: the override map does depend on the jittered
-    samples. ROADMAP A7 (the XLA core) must turn this round."""
+    samples. The port's XLA core reproduces the golden
+    (tests/test_torch_pt_core.py)."""
     import os
     asset = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          "assets", "atlas_wide_32x16.bin")

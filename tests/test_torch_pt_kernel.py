@@ -216,7 +216,7 @@ def test_wrapper_checks_and_never_falls_back():
         TPK.trace_blocks_raw(params, tp[0], torch.from_numpy(ro)[..., :64, :],
                              torch.from_numpy(rd)[..., :64, :], 0, tp[1],
                              **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="budget.*XLA core"):
         TPK.trace_blocks_raw(params, tp[0], torch.from_numpy(ro),
                              torch.from_numpy(rd), 0, tp[1],
                              **dict(kw, atlas_w=512, atlas_h=256))

@@ -124,15 +124,10 @@ def _unpack_jax_atlas(flat, texels):
     return ((packed << 8) | alpha).astype(np.uint32)
 
 
-@pytest.mark.parametrize("name,atlas", [
-    ("demo", (32, 32)), ("demo", (26, 24)), ("demo", (128, 64)),
-    ("wide_atlas_quad", None), ("rt_demo", None)])
-def test_pack_scene_entries_equals_jax(name, atlas):
-    jsb, tsb = _builders(name)
-    if atlas is not None:
-        jsb.set_atlas(JIO.demo_atlas(*atlas))
-        tsb.set_atlas(TIO.demo_atlas(*atlas))
-    js, ts = jsb.build(min_pad=1), tsb.build(min_pad=1, device="cpu")
+def _packs_equal(js, ts):
+    """Both packers' entry streams: flags, shading and UVs exactly, the
+    float channels within 1 ulp (the JAX packer's sums may fuse); atlas
+    w, h and sph_rows equal. Returns (JAX pack, port pack)."""
     jp = JPT.pack_scene_entries(js)
     tp = TPT.pack_scene_entries(ts)
     assert tp[2:] == jp[2:]  # atlas w, h, sph_rows
@@ -143,9 +138,21 @@ def test_pack_scene_entries_equals_jax(name, atlas):
              TPK.C_SHR, TPK.C_SHG, TPK.C_SHB] + list(
                  range(TPK.C_UVAX, TPK.C_UVCY + 1))
     np.testing.assert_array_equal(got[:, exact], want[:, exact])
-    # float channels: within 1 ulp (the JAX packer's sums may fuse)
     ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)).astype(np.float32))
     assert (np.abs(got - want) <= ulp).all(), np.abs(got - want).max()
+    return jp, tp
+
+
+@pytest.mark.parametrize("name,atlas", [
+    ("demo", (32, 32)), ("demo", (26, 24)), ("demo", (128, 64)),
+    ("wide_atlas_quad", None), ("rt_demo", None)])
+def test_pack_scene_entries_equals_jax(name, atlas):
+    jsb, tsb = _builders(name)
+    if atlas is not None:
+        jsb.set_atlas(JIO.demo_atlas(*atlas))
+        tsb.set_atlas(TIO.demo_atlas(*atlas))
+    js, ts = jsb.build(min_pad=1), tsb.build(min_pad=1, device="cpu")
+    jp, tp = _packs_equal(js, ts)
     texels = jp[2] * jp[3]
     if texels:
         np.testing.assert_array_equal(tp[1].numpy().view(np.uint32),
@@ -155,10 +162,16 @@ def test_pack_scene_entries_equals_jax(name, atlas):
 
 
 def test_pack_rejects_atlases_above_the_kernel_budget():
-    tsb = TD.create_demo_scene()
+    """An atlas above MAX_ATLAS_TEXELS stays out of the kernel's pack, as
+    JAX's packer leaves it out: the prims alone, atlas w = h = 0 (such a
+    scene renders through the XLA core)."""
+    jsb, tsb = _builders("demo")
+    jsb.set_atlas(JIO.demo_atlas(512, 256))
     tsb.set_atlas(TIO.demo_atlas(512, 256))
-    with pytest.raises(NotImplementedError, match="A7"):
-        TPT.pack_scene_entries(tsb.build(min_pad=1, device="cpu"))
+    js, ts = jsb.build(min_pad=1), tsb.build(min_pad=1, device="cpu")
+    jp, tp = _packs_equal(js, ts)
+    assert tp[2:4] == (0, 0) and ts.atlas_enabled
+    assert not TPT.atlas_ok(ts)
 
 
 def test_scene_from_jax_carries_spheres_quads_and_atlas():
