@@ -45,6 +45,7 @@ from ascii_renderer_tpu_torch.core import quantize
 from ascii_renderer_tpu_torch.core import threefry as TF
 from ascii_renderer_tpu_torch.core.camera import (Camera, camera_basis,
                                                   ndc_grid, ray_dirs)
+from ascii_renderer_tpu_torch.core.fp import sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.ops import pt_kernel as PK
@@ -126,7 +127,7 @@ def pack_scene_entries(scene: SceneData):
     tm = torch.clamp(pk.tri_mat, min=0).long()
     a_, e1_, e2_ = pk.tri.a, pk.tri.e1, pk.tri.e2
     cn = _cross(e1_, e2_)
-    area2 = torch.sqrt(_dot(cn, cn))
+    area2 = sqrt32(_dot(cn, cn))
     ok = area2 > 1e-30
     inv_area = torch.where(ok, torch.reciprocal(torch.where(ok, area2, 1.0)),
                            0.0)
@@ -236,7 +237,7 @@ def _cos_hemisphere(n: V3, key):
     r = TF.uniform(key, tuple(n.x.shape) + (2,), n.x.device)
     phi = 2.0 * math.pi * r[..., 0]
     r2 = r[..., 1]
-    s2 = PC.sqrt32(1.0 - r2)
+    s2 = sqrt32(1.0 - r2)
     ny_ok = n.y.abs() < 0.999
     axis = V3(torch.where(ny_ok, 0.0, 1.0), torch.where(ny_ok, 1.0, 0.0),
               torch.zeros_like(n.x))
@@ -244,7 +245,7 @@ def _cos_hemisphere(n: V3, key):
     vv = PC.cross(uu, n)
     cphi = s2 * PC.f64_fn(torch.cos, phi)
     sphi = s2 * PC.f64_fn(torch.sin, phi)
-    sr2 = PC.sqrt32(r2)
+    sr2 = sqrt32(r2)
     return normalize(V3(cphi * uu.x + sphi * vv.x + sr2 * n.x,
                         cphi * uu.y + sphi * vv.y + sr2 * n.y,
                         cphi * uu.z + sphi * vv.z + sr2 * n.z))
@@ -255,7 +256,7 @@ def _sample_light_point(key, center, radius, shape, device):
     h = TF.uniform(key, tuple(shape) + (2,), device)
     hx = h[..., 0] * 2.0 - 1.0
     phi = h[..., 1] * 2.0 * math.pi
-    s = PC.sqrt32(torch.clamp(1.0 - hx * hx, min=0.0))
+    s = sqrt32(torch.clamp(1.0 - hx * hx, min=0.0))
     return V3(center[0] + radius * s * PC.f64_fn(torch.sin, phi),
               center[1] + radius * s * PC.f64_fn(torch.cos, phi),
               center[2] + radius * hx)
@@ -378,7 +379,7 @@ def trace_eye_paths(scene: SceneData, ro, rd, key, light_center,
             dl = V3(light_center[0] - hitpos.x, light_center[1] - hitpos.y,
                     light_center[2] - hitpos.z)
             d2 = torch.clamp(dot(dl, dl), min=1e-12)
-            cos_a_max = PC.sqrt32(1.0 - torch.clamp(
+            cos_a_max = sqrt32(1.0 - torch.clamp(
                 light_radius * light_radius / d2, 0.0, 1.0))
             weight = 2.0 * (1.0 - cos_a_max)
             ndl = torch.clamp(dot(ldir, n), min=0.0)

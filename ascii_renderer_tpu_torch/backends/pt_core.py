@@ -11,11 +11,10 @@ Rounding follows the reference called eagerly (``render_pt`` without
 own, in the reference's order, except inside JAX's own jitted helpers,
 where its compiler fuses products into adds (``ray_unit``:
 ``jnp.linalg.norm``). ``sqrt`` and ``1/sqrt`` are taken in float64 and
-rounded once (torch's CPU float32 ``sqrt`` is not correctly rounded, and
-XLA's float32 ``sqrt`` is), and so are ``sin``, ``cos`` and ``pow``, so
-the CPU and CUDA tensors of the port agree. Divisions are tensor by
-tensor (``quantize.fdiv``: a CUDA tensor divided by a Python float is not
-IEEE).
+rounded once (``core/fp.sqrt32``, ``rsqrt32``), and so are ``sin``,
+``cos`` and ``pow``, so the CPU and CUDA tensors of the port agree.
+Divisions are tensor by tensor (``quantize.fdiv``: a CUDA tensor divided
+by a Python float is not IEEE).
 """
 
 from __future__ import annotations
@@ -25,22 +24,12 @@ from typing import NamedTuple
 import torch
 
 from ascii_renderer_tpu_torch.core import quantize
-from ascii_renderer_tpu_torch.core.fp import fma32
+from ascii_renderer_tpu_torch.core.fp import fma32, rsqrt32, sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 
 BIG = 1e30
 EPS = 1e-3  # shader_utils.js:5
 KIND_NONE, KIND_SPHERE, KIND_TRI, KIND_LIGHT = 0, 1, 3, 5
-
-
-def sqrt32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root."""
-    return torch.sqrt(x.double()).float()
-
-
-def rsqrt32(x: torch.Tensor) -> torch.Tensor:
-    """1 / sqrt(x) in float64, rounded once to float32."""
-    return torch.reciprocal(torch.sqrt(x.double())).float()
 
 
 def f64_fn(fn, x: torch.Tensor) -> torch.Tensor:

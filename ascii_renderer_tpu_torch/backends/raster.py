@@ -46,7 +46,7 @@ from torch.profiler import record_function as stage
 
 from ascii_renderer_tpu_torch.core import quantize as Q
 from ascii_renderer_tpu_torch.core.camera import Camera
-from ascii_renderer_tpu_torch.core.fp import fma32
+from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
 from ascii_renderer_tpu_torch.ops import raster_group as RG
@@ -125,7 +125,7 @@ def _matmul(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.sqrt(_matmul(v[None, :], v[:, None])[0, 0])
+    return v / sqrt32(_matmul(v[None, :], v[:, None])[0, 0])
 
 
 def look_at(eye: torch.Tensor, center: torch.Tensor,

@@ -27,7 +27,7 @@ from torch.profiler import record_function as stage
 from ascii_renderer_tpu_torch.backends.raster_common import (
     _DEFAULT_DIR, _DEFAULT_DIR_COL, MAX_V_CAP, TILE_H, TILE_W, _dot3,
     shade_from_table)
-from ascii_renderer_tpu_torch.core.fp import fma32
+from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.ops import raster_bins as RB
 from ascii_renderer_tpu_torch.scene.builder import SceneData
@@ -651,7 +651,7 @@ def shade_visibility(tid, clip, attrs, scene: SceneData, rows: int,
     nrm = interp[..., 0:3]
     col = interp[..., 3:6]
     pos = interp[..., 6:9]
-    n = nrm / torch.clamp(torch.sqrt(_reduce3(nrm, nrm)), min=1e-12)[
+    n = nrm / torch.clamp(sqrt32(_reduce3(nrm, nrm)), min=1e-12)[
         ..., None]
 
     ambient = scene.env_color * scene.env_intensity
@@ -670,7 +670,7 @@ def shade_visibility(tid, clip, attrs, scene: SceneData, rows: int,
     for i in range(n_pl):
         lvec = scene.pt_pos[i] - pos
         d2 = torch.clamp(_reduce3(lvec, lvec), min=1e-4)
-        L = lvec / torch.sqrt(d2)[..., None]
+        L = lvec / sqrt32(d2)[..., None]
         ndlp = torch.clamp(_reduce3(n, L), min=0.0)
         att = torch.reciprocal(fma32(d2, 0.05, 1.0))
         w_i = torch.where(pl_valid[i], ndlp * att, 0.0)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from ascii_renderer_tpu_torch.core.fp import fma32
+from ascii_renderer_tpu_torch.core.fp import fma32, rsqrt32
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
 NEAR, FAR = 0.05, 100.0
@@ -28,15 +28,6 @@ def _cumsum_i32(mask: torch.Tensor) -> torch.Tensor:
     reference blocks it onto the TPU's matrix unit; the counts are
     exact either way)."""
     return torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
-
-
-def _rsqrt(x: torch.Tensor) -> torch.Tensor:
-    """1 / sqrt(x), rounded once from float64: the same bits on the CPU and
-    on CUDA (torch's CUDA rsqrt is an approximation). The reference's
-    rsqrt is a CPU-specific estimate refined by one Newton step, which
-    agrees with this to 1 ulp; shading is compared at the reference's own
-    tolerance, and the headline frame's bytes are unchanged by it."""
-    return torch.reciprocal(torch.sqrt(x.double())).float()
 
 
 def _dot3(a0, b0, a1, b1, a2, b2):
@@ -87,7 +78,9 @@ def _shade_rows(g, hit, px, py, scene: SceneData, n_attrs: int):
         assert scene.pt_pos.shape[0] == 0, (
             "point lights require world-pos planes (n_attrs=9)")
         wx = wy_ = wz = torch.zeros_like(nx)
-    inv_nl = _rsqrt(torch.clamp(_dot3(nx, nx, ny, ny, nz, nz), min=1e-24))
+    # the reference's rsqrt is a CPU estimate refined by one Newton step,
+    # within 1 ulp of this; shading is compared at its own tolerance
+    inv_nl = rsqrt32(torch.clamp(_dot3(nx, nx, ny, ny, nz, nz), min=1e-24))
     nx, ny, nz = nx * inv_nl, ny * inv_nl, nz * inv_nl
 
     dev = g.device
@@ -111,7 +104,7 @@ def _shade_rows(g, hit, px, py, scene: SceneData, n_attrs: int):
         ly = scene.pt_pos[i, 1] - wy_
         lz = scene.pt_pos[i, 2] - wz
         d2 = torch.clamp(_dot3(lx, lx, ly, ly, lz, lz), min=1e-4)
-        inv_dd = _rsqrt(d2)
+        inv_dd = rsqrt32(d2)
         ndlp = torch.clamp(_dot3(nx, lx, ny, ly, nz, lz) * inv_dd, min=0.0)
         att = torch.reciprocal(fma32(d2, 0.05, 1.0))
         w_i = torch.where(pl_valid[i], ndlp * att, 0.0)

@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from ascii_renderer_tpu_torch.core.fp import fma32
+from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 
 _PITCH_LIMIT = math.pi * 0.5 - 0.1  # just shy of +/-90 deg (js/camera.js:34)
 
@@ -127,7 +127,7 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _norm3(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(a[0] * a[0] + a[1] * a[1] + a[2] * a[2])
+    return sqrt32(a[0] * a[0] + a[1] * a[1] + a[2] * a[2])
 
 
 def camera_basis(yaw, pitch, fov_y):
@@ -182,8 +182,8 @@ def ray_dirs(px, py, basis) -> torch.Tensor:
     fw = focal * ww
     comps = [px * uu[i].item() + py * vv[i].item() + fw[i].item()
              for i in range(3)]
-    n = torch.sqrt(comps[0] * comps[0] + comps[1] * comps[1]
-                   + comps[2] * comps[2])
+    n = sqrt32(comps[0] * comps[0] + comps[1] * comps[1]
+               + comps[2] * comps[2])
     return torch.stack([c / n for c in comps], dim=-1)
 
 

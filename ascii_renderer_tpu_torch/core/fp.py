@@ -16,6 +16,12 @@ chains with an explicit fused multiply-add: ``fma32`` for tensors (plain
 versions, shading, the camera) and ``fmaf`` in the CUDA kernels, which are
 built with ``-fmad=false`` so that nothing else fuses. Every chain that
 fuses carries a comment naming the rule it follows.
+
+Square roots are taken in float64 and rounded once (``sqrt32``,
+``rsqrt32``): torch's CPU float32 ``sqrt`` is not correctly rounded (about
+0.6% of uniform inputs in [0, 100) come out an ulp off), while XLA's and
+CUDA's ``sqrtf`` are, and a float64 root rounded once is the correctly
+rounded float32 root. The CPU and CUDA tensors of the port then agree.
 """
 
 from __future__ import annotations
@@ -49,3 +55,14 @@ def fma32(a, b, c) -> torch.Tensor:
     up = torch.maximum(r64, o)
     down = torch.minimum(r64, o)
     return torch.where(tie, torch.where(err > 0, up, down).float(), r)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (CUDA's ``sqrtf``). Where a
+    caller needs ``1 / sqrtf(x)``, it takes ``torch.reciprocal`` of this."""
+    return torch.sqrt(x.double()).float()
+
+
+def rsqrt32(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x) in float64, rounded once to float32."""
+    return torch.reciprocal(torch.sqrt(x.double())).float()

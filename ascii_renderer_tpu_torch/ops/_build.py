@@ -57,8 +57,10 @@ SIGNATURES = {
                                  _I, _P),
     # (rows128, rowptr, gdepth, xl, yl, z, e, r_cap, grp_cap, stream)
     "walk_grouped_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # (rows256, rowptr, gdepth, gskip, xl, yl, z, e, r_cap2, grp_cap, stream)
-    "walk_grouped_k2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (rows256, rowptr, gdepth, gskip, xl, yl, z, e, part, n_slots, r_cap2,
+    #  grp_cap, stream)
+    "walk_grouped_k2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _P),
     # (src_pair, goff, gdepth, gchunks, xl, yl, z, e, p_max, grp_cap, stream)
     "walk_direct_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # (params, prim, n_entries, n_sph, ro, rd, uid, block_active, seed,
@@ -76,6 +78,8 @@ SIGNATURES = {
     "shaded_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (rows, rowptr, depth, z, e, n_tiles, tiles_x, r_cap, source, stream)
     "subtile_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (rows, rowptr, z, e, part, n_slots, n_tiles, tiles_x, r_cap, stream)
+    "subtile_walk_expanded_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

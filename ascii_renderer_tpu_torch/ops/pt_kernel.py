@@ -25,7 +25,8 @@ packer writes them. The atlas is one packed rgba texel per int32
 Arithmetic follows the reference term by term, every product and sum
 rounded on its own (the kernel is built with ``-fmad=false``), IEEE
 division (``torch.reciprocal``, ``fdiv``: never ``tensor / float``) and
-sqrt, ``x ** 5`` as JAX's ``integer_pow`` multiply chain
+sqrt (``core/fp.sqrt32``: torch's CPU float32 sqrt is not correctly
+rounded), ``x ** 5`` as JAX's ``integer_pow`` multiply chain
 ``x * ((x * x) * (x * x))``, ``x ** 1.2`` as ``pow`` and ``rsqrt`` as
 ``1 / sqrt``.
 """
@@ -34,10 +35,12 @@ from __future__ import annotations
 
 import torch
 
+from ascii_renderer_tpu_torch.core.fp import sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.ops import _build
 
 launches = 0        # kernel launches by trace_blocks_raw
+LAUNCHES_PER_CALL = {"trace_blocks_raw": 1}  # kernels a call launches
 
 BH, BW = 8, 128     # the TPU's ray block; block_active gates 1,024 rays
 BLOCK = BH * BW
@@ -145,7 +148,7 @@ def _stream(ent: torch.Tensor, n_sph: int, o, d, eps, want_attrs: bool):
         b = ocx * dx + ocy * dy + ocz * dz
         c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
         h = b * b - c
-        sq = torch.sqrt(torch.clamp(h, min=0.0))
+        sq = sqrt32(torch.clamp(h, min=0.0))
         t1 = -b - sq
         t2 = -b + sq
         t = torch.where(t1 > eps, t1, torch.where(t2 > eps, t2, BIG))
@@ -278,7 +281,7 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
         b = ocx * rdx + ocy * rdy + ocz * rdz
         c = ocx * ocx + ocy * ocy + ocz * ocz - lrad * lrad
         h = b * b - c
-        sq = torch.sqrt(torch.clamp(h, min=0.0))
+        sq = sqrt32(torch.clamp(h, min=0.0))
         t1 = -b - sq
         t2 = -b + sq
         t_l = torch.where(t1 > eps, t1, torch.where(t2 > eps, t2, BIG))
@@ -332,14 +335,14 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
         u1 = uniform(j, "u1")
         u2 = uniform(j, "u2")
         phi = TWO_PI * u1
-        s2 = torch.sqrt(1.0 - u2)
+        s2 = sqrt32(1.0 - u2)
         ny_ok = torch.abs(ny) < 0.999
         axx = torch.where(ny_ok, 0.0, 1.0)
         axy = torch.where(ny_ok, 1.0, 0.0)
         ux_ = ny * 0.0 - nz * axy
         uy_ = nz * axx - nx * 0.0
         uz_ = nx * axy - ny * axx
-        uinv = torch.reciprocal(torch.sqrt(torch.clamp(
+        uinv = torch.reciprocal(sqrt32(torch.clamp(
             ux_ * ux_ + uy_ * uy_ + uz_ * uz_, min=1e-24)))
         ux_, uy_, uz_ = ux_ * uinv, uy_ * uinv, uz_ * uinv
         vx_ = uy_ * nz - uz_ * ny
@@ -347,11 +350,11 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
         vz_ = ux_ * ny - uy_ * nx
         cp_ = s2 * torch.cos(phi)
         sp_ = s2 * torch.sin(phi)
-        sr2 = torch.sqrt(u2)
+        sr2 = sqrt32(u2)
         ddx = cp_ * ux_ + sp_ * vx_ + sr2 * nx
         ddy = cp_ * uy_ + sp_ * vy_ + sr2 * ny
         ddz = cp_ * uz_ + sp_ * vz_ + sr2 * nz
-        dinv = torch.reciprocal(torch.sqrt(torch.clamp(
+        dinv = torch.reciprocal(sqrt32(torch.clamp(
             ddx * ddx + ddy * ddy + ddz * ddz, min=1e-24)))
         ddx, ddy, ddz = ddx * dinv, ddy * dinv, ddz * dinv
 
@@ -366,7 +369,7 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
         cosi = nnx * rdx + nny * rdy + nnz * rdz
         kk = 1.0 - eta * eta * (1.0 - cosi * cosi)
         tir = kk < 0.0
-        f = eta * cosi + torch.sqrt(torch.clamp(kk, min=0.0))
+        f = eta * cosi + sqrt32(torch.clamp(kk, min=0.0))
         rfx, rfy, rfz = eta * rdx - f * nnx, eta * rdy - f * nny, \
             eta * rdz - f * nnz
         u3 = uniform(j, "u3")
@@ -378,7 +381,7 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
         sx_ = torch.where(use_reflect, rlx, rfx)
         sy_ = torch.where(use_reflect, rly, rfy)
         sz_ = torch.where(use_reflect, rlz, rfz)
-        sinv = torch.reciprocal(torch.sqrt(torch.clamp(
+        sinv = torch.reciprocal(sqrt32(torch.clamp(
             sx_ * sx_ + sy_ * sy_ + sz_ * sz_, min=1e-24)))
         sx_, sy_, sz_ = sx_ * sinv, sy_ * sinv, sz_ * sinv
 
@@ -398,12 +401,12 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
                 shadow_rays += int((alive & ~is_spec & live_rays).sum())
             h1 = uniform(j, "h1") * 2.0 - 1.0
             h2 = uniform(j, "h2") * TWO_PI
-            sl = torch.sqrt(torch.clamp(1.0 - h1 * h1, min=0.0))
+            sl = sqrt32(torch.clamp(1.0 - h1 * h1, min=0.0))
             lpx = lcx + lrad * sl * torch.sin(h2)
             lpy = lcy + lrad * sl * torch.cos(h2)
             lpz = lcz + lrad * h1
             ldx, ldy, ldz = lpx - hx, lpy - hy, lpz - hz
-            dist = torch.sqrt(torch.clamp(
+            dist = sqrt32(torch.clamp(
                 ldx * ldx + ldy * ldy + ldz * ldz, min=1e-24))
             ldx, ldy, ldz = ldx / dist, ldy / dist, ldz / dist
             so = (hx + nx * eps, hy + ny * eps, hz + nz * eps)
@@ -411,7 +414,7 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
             shadowed = t_sh < dist
             dlx, dly, dlz = lcx - hx, lcy - hy, lcz - hz
             dd2 = torch.clamp(dlx * dlx + dly * dly + dlz * dlz, min=1e-12)
-            cam = torch.sqrt(1.0 - torch.clamp(lrad * lrad / dd2, 0.0, 1.0))
+            cam = sqrt32(1.0 - torch.clamp(lrad * lrad / dd2, 0.0, 1.0))
             wgt = 2.0 * (1.0 - cam)
             ndl = torch.clamp(ldx * nx + ldy * ny + ldz * nz, min=0.0)
             contrib = alive & ~is_spec & ~shadowed

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from ascii_renderer_tpu_torch.core.fp import fma32
+from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.ops import _build
 
 TILE_H, TILE_W = 8, 128
@@ -55,6 +55,10 @@ CH_TID = 13
 
 launches = 0       # kernel launches by tile_eval_bins_mm (B6)
 launches_loop = 0  # kernel launches by tile_eval_bins (B6')
+# kernels each wrapper launches per call on CUDA tensors (a walk, then the
+# merge of its work items' partials)
+LAUNCHES_PER_CALL = {"tile_eval_bins_mm": 2, "tile_eval_bins": 2,
+                     "tile_eval_bins_shaded": 2}
 
 
 def pack_entries(data: torch.Tensor) -> torch.Tensor:
@@ -283,12 +287,8 @@ def _shaded_planes(e, px, py):
 
 
 def _rsqrt(x):
-    """1 / sqrt(x), both operations IEEE: the kernel's rounding. The square
-    root is taken in float64 and rounded once, which is sqrtf's correctly
-    rounded value: torch's CPU float32 sqrt is not correctly rounded, and
-    under pytest-xdist it once returned values ~5e-5 off. On CUDA the bits
-    are those of torch.sqrt in float32."""
-    return torch.reciprocal(torch.sqrt(x.double()).float())
+    """1 / sqrtf(x), both operations IEEE: the kernel's rounding."""
+    return torch.reciprocal(sqrt32(x))
 
 
 def tile_eval_bins_shaded_ref(data_packed: torch.Tensor,

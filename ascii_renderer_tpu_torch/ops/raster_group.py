@@ -8,7 +8,8 @@ All n_tiles*8 bins (8 x 16 px) are sorted by depth (descending, stable by
 bin id) and grouped 8 at a time, so one 8 x 128 pixel block walks 8 bins of
 similar depth side by side. Every walk keeps, per pixel, the nearest
 covering entry of its bin; they differ only in how the entries are laid
-out (one kernel template, one entry-source policy per walk):
+out. B1 and B9f walk slab work items and merge them in a second launch
+(``group_work_items``); B9d and B9e walk one block per group:
 
   B1  ``tile_eval_grouped_skip`` (``_kernel_grouped_skip``): rows128 f32
       [r_cap, 128], row r holding in lanes 16g..16g+15 the 16 walk channels
@@ -64,6 +65,10 @@ launches = 0          # kernel launches by tile_eval_grouped_skip (B1)
 launches_grouped = 0  # kernel launches by tile_eval_grouped (B9d)
 launches_direct = 0   # kernel launches by tile_eval_direct (B9e)
 launches_k2 = 0       # kernel launches by tile_eval_grouped_k2 (B9f)
+# kernels each wrapper launches per call on CUDA tensors (B1 and B9f: a
+# walk, then the merge of their slabs' partials)
+LAUNCHES_PER_CALL = {"tile_eval_grouped_skip": 2, "tile_eval_grouped_k2": 2,
+                     "tile_eval_grouped": 1, "tile_eval_direct": 1}
 
 
 def _round_up_i(x, q: int):
@@ -442,27 +447,51 @@ def _launch(name: str, tensors, n: int, grp_cap: int):
     return z, e
 
 
-def group_slots(rowptr: torch.Tensor):
-    """B1's work list, per group: the first slot and the number of
-    CHUNK_RG-row slabs (rowptr clamped to [0, r_cap], as the wrapper
-    clamps it). Slab c of group t takes slot rowptr[t] // CHUNK_RG + t + c:
-    slots increase with (t, c), so a group's slabs are consecutive and
-    merge in slab order."""
+def _launch_slabs(name: str, rows, rowptr, gdepth, gskip, xl, yl,
+                  grp_cap: int, slab_rows: int):
+    """Launch slab walk ``name`` (B1 or B9f; C entry ``walk_{name}_launch``):
+    the walk over the work list of ``group_work_items``, then the merge of
+    the partial results -> (z, entry id) f32 [grp_cap, 8, 128]."""
+    r_cap = rows.shape[0]
+    rowptr = torch.clamp(rowptr, 0, r_cap)  # the walk never reads past r_cap
+    tensors = (rows, rowptr, gdepth, gskip, xl, yl)
+    _build.require_cuda(*tensors, what=f"walk {name}")
+    z = torch.empty((grp_cap, TILE_H, TILE_W), dtype=torch.float32,
+                    device=rows.device)
+    e = torch.empty_like(z)
+    slots = group_n_slots(r_cap, grp_cap, slab_rows)
+    part = torch.empty((slots, 2, TILE_H * TILE_W), dtype=torch.float32,
+                       device=rows.device)
+    err = getattr(_build.lib(), f"walk_{name}_launch")(
+        *[t.data_ptr() for t in tensors], z.data_ptr(), e.data_ptr(),
+        part.data_ptr(), slots, r_cap, grp_cap, _build.stream_ptr(z.device))
+    _build.check(err, f"walk_{name}_launch")
+    return z, e
+
+
+def group_slots(rowptr: torch.Tensor, rows: int = CHUNK_RG):
+    """The slab walks' work list (B1; B9f with ``rows`` = CHUNK_RG // 2,
+    its two-entry rows), per group: the first slot and the number of
+    slabs of ``rows`` layout rows (rowptr clamped to [0, r_cap], as the
+    wrapper clamps it). Slab c of group t takes slot rowptr[t] // rows + t
+    + c: slots increase with (t, c), so a group's slabs are consecutive
+    and merge in slab order."""
     rp = rowptr.long()
     r0 = rp[:-1]
-    first = r0 // CHUNK_RG + torch.arange(r0.shape[0], device=rp.device)
-    return first, torch.clamp((rp[1:] - r0) // CHUNK_RG, min=0)
+    first = r0 // rows + torch.arange(r0.shape[0], device=rp.device)
+    return first, torch.clamp((rp[1:] - r0) // rows, min=0)
 
 
-def group_n_slots(r_cap: int, grp_cap: int) -> int:
-    """Slots of B1's work list for any rowptr into r_cap rows."""
-    return r_cap // CHUNK_RG + grp_cap
+def group_n_slots(r_cap: int, grp_cap: int, rows: int = CHUNK_RG) -> int:
+    """Slots of the work list for any rowptr into r_cap layout rows."""
+    return r_cap // rows + grp_cap
 
 
-def group_work_items(rowptr: torch.Tensor, r_cap: int):
-    """(slot, group, slab) of every work item the B1 kernel walks."""
-    first, n = group_slots(torch.clamp(rowptr, 0, r_cap))
-    return work_list(first, n, group_n_slots(r_cap, first.shape[0]))
+def group_work_items(rowptr: torch.Tensor, r_cap: int, rows: int = CHUNK_RG):
+    """(slot, group, slab) of every work item the B1 (B9f: ``rows`` =
+    CHUNK_RG // 2, r_cap in two-entry rows) kernel walks."""
+    first, n = group_slots(torch.clamp(rowptr, 0, r_cap), rows)
+    return work_list(first, n, group_n_slots(r_cap, first.shape[0], rows))
 
 
 def tile_eval_grouped_skip(rows128: torch.Tensor, rowptr: torch.Tensor,
@@ -487,21 +516,10 @@ def tile_eval_grouped_skip(rows128: torch.Tensor, rowptr: torch.Tensor,
            {"rowptr": (grp_cap + 1, rowptr),
             "gdepth": (grp_cap * N_SUB, gdepth),
             "gskip": (grp_cap * N_SUB, gskip)}, xl, yl)
-    rowptr = torch.clamp(rowptr, 0, r_cap)  # the walk never reads past r_cap
-    tensors = (rows128, rowptr, gdepth, gskip, xl, yl)
-    _build.require_cuda(*tensors, what="walk grouped_skip")
-    z = torch.empty((grp_cap, TILE_H, TILE_W), dtype=torch.float32,
-                    device=rows128.device)
-    e = torch.empty_like(z)
-    slots = group_n_slots(r_cap, grp_cap)
-    part = torch.empty((slots, 2, TILE_H * TILE_W), dtype=torch.float32,
-                       device=rows128.device)
-    err = _build.lib().walk_grouped_skip_launch(
-        *[t.data_ptr() for t in tensors], z.data_ptr(), e.data_ptr(),
-        part.data_ptr(), slots, r_cap, grp_cap, _build.stream_ptr(z.device))
-    _build.check(err, "walk_grouped_skip_launch")
+    out = _launch_slabs("grouped_skip", rows128, rowptr, gdepth, gskip, xl,
+                        yl, grp_cap, CHUNK_RG)
     launches += 1
-    return z, e
+    return out
 
 
 def tile_eval_grouped(rows128: torch.Tensor, rowptr: torch.Tensor,
@@ -533,7 +551,11 @@ def tile_eval_grouped_k2(rows256: torch.Tensor, rowptr: torch.Tensor,
                          xl: torch.Tensor, yl: torch.Tensor, grp_cap: int):
     """B9f: the two-entry-row walk over rows256 f32 [r_cap/2, 256] (rowptr
     in row units, CHUNK_RG/2 multiples) -> (z, entry id) f32
-    [grp_cap, 8, 128]."""
+    [grp_cap, 8, 128]. CPU tensors run the plain version; CUDA tensors
+    launch the kernel once: a walk over the work list
+    (``group_work_items(rowptr, r_cap2, CHUNK_RG // 2)``: one item per
+    16-row, 32-entry slab of a group and quarter of its pixel block), then
+    a merge of the partial results in slab order."""
     if rows256.device.type == "cpu":
         return tile_eval_grouped_k2_ref(rows256, rowptr, gdepth, gskip, xl,
                                         yl, grp_cap)
@@ -546,9 +568,8 @@ def tile_eval_grouped_k2(rows256: torch.Tensor, rowptr: torch.Tensor,
            {"rowptr": (grp_cap + 1, rowptr),
             "gdepth": (grp_cap * N_SUB, gdepth),
             "gskip": (grp_cap * N_SUB, gskip)}, xl, yl)
-    rowptr = torch.clamp(rowptr, 0, r_cap2)
-    out = _launch("grouped_k2", (rows256, rowptr, gdepth, gskip, xl, yl),
-                  r_cap2, grp_cap)
+    out = _launch_slabs("grouped_k2", rows256, rowptr, gdepth, gskip, xl, yl,
+                        grp_cap, CHUNK_RG // 2)
     launches_k2 += 1
     return out
 

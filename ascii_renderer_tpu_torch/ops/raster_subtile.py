@@ -23,7 +23,9 @@ merge is a strict z < best, so the smallest id wins depth ties.
   B9a ``tile_eval_subtile`` (``_kernel``): expanded rows f32
       [r_cap, 16, 128], channel c of group g broadcast over its 16 lanes,
       CHUNK_R-row chunks, built by ``build_subtile_rows``. Dead slots hold
-      an inert row (G0 = +1). Planes round as fma(A, x, B*y) + G.
+      an inert row (G0 = +1). Planes round as fma(A, x, B*y) + G. The
+      kernel walks work items of ITEM_R rows (``subtile_work_items``) and
+      merges them in a second launch.
   B9b ``tile_eval_packed`` (``_kernel_packed``): packed rows f32
       [r_cap, 128], lane g*16 + c, CHUNK_RP-row chunks, built by
       ``build_packed_rows`` (inert dead slots). The reference expands a
@@ -54,6 +56,7 @@ SUB_SHIFT = 18      # sort key: (tile*8 + subtile) << 18 | tri
 MAX_TRI = 1 << SUB_SHIFT
 CHUNK_R = 8         # expanded rows per walk chunk (B9a)
 CHUNK_RP = 32       # packed rows per walk chunk (B9b, B9c)
+ITEM_R = 32         # expanded rows per B9a work item (four chunks)
 
 CH_A = (0, 3, 6)
 CH_B = (1, 4, 7)
@@ -64,9 +67,13 @@ CH_PAIR = 12
 launches = 0           # kernel launches by tile_eval_subtile (B9a)
 launches_packed = 0    # kernel launches by tile_eval_packed (B9b)
 launches_packed_d = 0  # kernel launches by tile_eval_packed_d (B9c)
+# kernels each wrapper launches per call on CUDA tensors (B9a: a walk, then
+# the merge of its work items' partials)
+LAUNCHES_PER_CALL = {"tile_eval_subtile": 2, "tile_eval_packed": 1,
+                     "tile_eval_packed_d": 1}
 
-# entry sources of the CUDA walk (csrc/raster_subtile.cu)
-_EXPANDED, _PACKED, _PACKED_DEPTH = 0, 1, 2
+# entry sources of subtile_walk_launch (csrc/raster_subtile.cu)
+_PACKED, _PACKED_DEPTH = 1, 2
 
 
 # --------------------------------------------------------------------------
@@ -276,8 +283,8 @@ def _check(what: str, rows, row_shape, chunk: int, rowptr, depth,
 
 def _launch(what: str, rows, rowptr, depth, tiles_x: int, n_tiles: int,
             source: int):
-    """One launch of the walk (one block of 1,024 threads per tile) ->
-    (z, entry id) f32 [n_tiles, 8, 128]."""
+    """One launch of the packed walk (one block of 1,024 threads per tile)
+    -> (z, entry id) f32 [n_tiles, 8, 128]."""
     rowptr = torch.clamp(rowptr, 0, rows.shape[0])  # reads stay below r_cap
     tensors = (rows, rowptr) + (() if depth is None else (depth,))
     _build.require_cuda(*tensors, what=what)
@@ -296,21 +303,60 @@ def _launch(what: str, rows, rowptr, depth, tiles_x: int, n_tiles: int,
     return z, e
 
 
+def subtile_items(rowptr: torch.Tensor):
+    """B9a's work list, per tile: the first slot and the number of ITEM_R
+    row items (rowptr clamped to [0, r_cap], as the wrapper clamps it).
+    Item k of tile t holds the tile's rows k*ITEM_R .. and takes slot
+    rowptr[t] // ITEM_R + t + k: slots increase with (t, k), so a tile's
+    items are consecutive and merge in row order."""
+    rp = rowptr.long()
+    r0 = rp[:-1]
+    first = r0 // ITEM_R + torch.arange(r0.shape[0], device=rp.device)
+    return first, torch.clamp((rp[1:] - r0 + ITEM_R - 1) // ITEM_R, min=0)
+
+
+def subtile_n_slots(r_cap: int, n_tiles: int) -> int:
+    """Slots of B9a's work list for any rowptr into r_cap rows."""
+    return -(-r_cap // ITEM_R) + n_tiles
+
+
+def subtile_work_items(rowptr: torch.Tensor, r_cap: int):
+    """(slot, tile, item) of every work item the B9a kernel walks."""
+    from ascii_renderer_tpu_torch.ops.raster_bins import work_list
+    first, n = subtile_items(torch.clamp(rowptr, 0, r_cap))
+    return work_list(first, n, subtile_n_slots(r_cap, first.shape[0]))
+
+
 def tile_eval_subtile(rows_data: torch.Tensor, rowptr: torch.Tensor,
                       tiles_x: int, n_tiles: int):
     """B9a: expanded rows f32 [r_cap, 16, 128], rowptr i32 [n_tiles+1] in
     CHUNK_R multiples -> (z, entry id) f32 [n_tiles, 8, 128], id -1 =
     background. CPU tensors run the plain version; CUDA tensors launch the
-    kernel once."""
+    kernel once: a walk over the work list (``subtile_work_items``: one
+    item per ITEM_R rows of a tile and quarter of its pixel rows), then a
+    merge of the partial results in row order."""
     _check("tile_eval_subtile", rows_data, (N_CHAN, TILE_W), CHUNK_R,
            rowptr, None, n_tiles)
     if rows_data.device.type == "cpu":
         return tile_eval_subtile_ref(rows_data, rowptr, tiles_x, n_tiles)
     global launches
-    out = _launch("tile_eval_subtile", rows_data, rowptr, None, tiles_x,
-                  n_tiles, _EXPANDED)
+    r_cap = rows_data.shape[0]
+    rowptr = torch.clamp(rowptr, 0, r_cap)  # reads stay below r_cap
+    _build.require_cuda(rows_data, rowptr, what="tile_eval_subtile")
+    z = torch.empty((n_tiles, TILE_H, TILE_W), dtype=torch.float32,
+                    device=rows_data.device)
+    e = torch.empty_like(z)
+    if n_tiles:
+        slots = subtile_n_slots(r_cap, n_tiles)
+        part = torch.empty((slots, 2, TILE_H * TILE_W), dtype=torch.float32,
+                           device=rows_data.device)
+        err = _build.lib().subtile_walk_expanded_launch(
+            rows_data.data_ptr(), rowptr.data_ptr(), z.data_ptr(),
+            e.data_ptr(), part.data_ptr(), slots, n_tiles, tiles_x, r_cap,
+            _build.stream_ptr(rows_data.device))
+        _build.check(err, "subtile_walk_expanded_launch")
     launches += 1
-    return out
+    return z, e
 
 
 def tile_eval_packed(rows128: torch.Tensor, rowptr: torch.Tensor,

@@ -1,6 +1,6 @@
 """A/B of the path-trace megakernel B5, the bin walks B6 / B6', the
-fused-shading walk B8 and the headline's grouped walk B1 between two
-checkouts of the repo on one card.
+fused-shading walk B8, the grouped walks B1 and B9f and the expanded
+subtile walk B9a between two checkouts of the repo on one card.
 
 Each side runs in its own process with its own checkout's
 ``ascii_renderer_tpu_torch`` (kernels built from that checkout's
@@ -15,9 +15,12 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
   (``chip_smoke.B6_TIMED``): the entry() room 96x36, the teapot 240x135 and
   the mid-scale HD arm 960x540;
 - B8 at the bunny's fused call (``chip_smoke.b8_bunny_inputs``: 544 tiles,
-  50,811 bin entries) and B1 at the headline's frame 0
-  (``chip_smoke.b1_headline_inputs``), each with its side's launches per
-  call (two where the walk is followed by a merge launch).
+  50,811 bin entries), B1 at the headline's frame 0
+  (``chip_smoke.b1_headline_inputs``), B9f at the golden call's K2 layout
+  (``chip_smoke.b9f_golden_inputs``) and B9a at the bunny's
+  visibility_subtile call (``chip_smoke.b9a_bunny_inputs``), each with its
+  side's launches per call (two where the walk is followed by a merge
+  launch).
 
 Both sides' outputs must be bit-identical (a digest per kernel and shape);
 the inputs are built by the side's own package from this checkout's
@@ -42,6 +45,17 @@ HERE = Path(__file__).resolve().parents[2]  # this checkout's root
 DEVICE = "cuda:0"
 PT_SHAPES = ((36, 96, 32, "reference batch"), (36, 96, 1, "reference probe"),
              (540, 960, 1, "HD probe"), (540, 960, 8, "HD arm batch"))
+# launches per call of a checkout whose wrapper modules predate their
+# LAUNCHES_PER_CALL: B6, B6', B8 and B1 walk work items and merge, the
+# others launch once. A wrong count fails _device_ms's row check
+_PREDATING = {"tile_eval_bins_mm": 2, "tile_eval_bins": 2,
+              "tile_eval_bins_shaded": 2, "tile_eval_grouped_skip": 2}
+
+
+def _per_call(mod, wrapper: str) -> int:
+    """Kernels ``mod.<wrapper>`` launches per call, by the module's
+    LAUNCHES_PER_CALL."""
+    return getattr(mod, "LAUNCHES_PER_CALL", _PREDATING).get(wrapper, 1)
 
 
 def _chip_smoke():
@@ -61,7 +75,7 @@ def _digest(outs) -> str:
 
 
 def worker(root: str) -> dict:
-    """Times B5, B6 / B6', B8 and B1 with the package of checkout
+    """Times B5, B6 / B6', B8, B1, B9f and B9a with the package of checkout
     ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -72,19 +86,19 @@ def worker(root: str) -> dict:
     from ascii_renderer_tpu_torch.ops import pt_kernel as PK
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
     from ascii_renderer_tpu_torch.ops import raster_group as RG
+    from ascii_renderer_tpu_torch.ops import raster_subtile as RS
     cs = _chip_smoke()
     dev = torch.device(DEVICE)
     out = {"root": root, "b5_ms": {}, "b6_ms": {}, "b8_ms": {}, "b1_ms": {},
-           "digest": {}}
+           "b9f_ms": {}, "b9a_ms": {}, "digest": {}}
     scene = cs._pt_scene(device=dev)
     for rows, cols, B, label in PT_SHAPES:
         args, kw, _uid, n = cs._pt_batch(dev, scene, rows, cols, B, 1)
         out["digest"][f"B5 {label}"] = _digest(PK.trace_blocks_raw(*args,
                                                                    **kw))
         out["b5_ms"][f"{label} ({n} rays)"] = cs._device_ms(
-            lambda: PK.trace_blocks_raw(*args, **kw), "pt_trace_kernel", 1)
-    # a bin walk split over work items merges in a second launch
-    per_call = 2 if hasattr(RB, "work_items") else 1
+            lambda: PK.trace_blocks_raw(*args, **kw), "pt_trace_kernel",
+            _per_call(PK, "trace_blocks_raw"))
     mid_preps = []
     for label, name, grid in (("teapot 240x135", "teapot", cs.TEAPOT_GRID),
                               ("mid-scale HD 960x540", "mid", cs.MID_GRID)):
@@ -98,7 +112,7 @@ def worker(root: str) -> dict:
             continue
         for kern, fn in (("mm", RB.tile_eval_bins_mm),
                          ("loop", RB.tile_eval_bins)):
-            d = data[kern]
+            d, per_call = data[kern], _per_call(RB, fn.__name__)
             out["digest"][f"B6 {kern} {label}"] = _digest(
                 fn(d, offs, tiles_x, n_tiles))
             out["b6_ms"][f"{kern} {label}"] = cs._device_ms(
@@ -108,7 +122,7 @@ def worker(root: str) -> dict:
     out["digest"]["B8 bunny"] = _digest([RB.tile_eval_bins_shaded(*b8) + 0.0])
     out["b8_ms"]["bunny fused call"] = cs._device_ms(
         lambda: RB.tile_eval_bins_shaded(*b8), "shaded_walk_kernel",
-        2 if hasattr(RB, "shaded_work_items") else 1)
+        _per_call(RB, "tile_eval_bins_shaded"))
     del b8
     lay, grp_cap = cs.b1_headline_inputs(dev)
     out["digest"]["B1 headline"] = _digest(RG.tile_eval_grouped_skip(
@@ -116,7 +130,21 @@ def worker(root: str) -> dict:
     out["b1_ms"]["headline frame 0"] = cs._device_ms(
         lambda: RG.tile_eval_grouped_skip(*lay, grp_cap),
         "walk_grouped_skip_kernel",
-        2 if hasattr(RG, "group_work_items") else 1)
+        _per_call(RG, "tile_eval_grouped_skip"))
+    del lay
+    lay, grp_cap = cs.b9f_golden_inputs(dev)
+    out["digest"]["B9f golden K2"] = _digest(RG.tile_eval_grouped_k2(
+        *lay, grp_cap))
+    out["b9f_ms"]["golden call K2"] = cs._device_ms(
+        lambda: RG.tile_eval_grouped_k2(*lay, grp_cap),
+        "walk_grouped_k2_kernel",
+        _per_call(RG, "tile_eval_grouped_k2"))
+    del lay
+    b9a = cs.b9a_bunny_inputs(dev)
+    out["digest"]["B9a bunny"] = _digest(RS.tile_eval_subtile(*b9a))
+    out["b9a_ms"]["bunny visibility_subtile"] = cs._device_ms(
+        lambda: RS.tile_eval_subtile(*b9a), "subtile_walk_",
+        _per_call(RS, "tile_eval_subtile"))
     return out
 
 
@@ -150,9 +178,9 @@ def main() -> int:
     if len(digests) != 1:
         raise AssertionError("the two checkouts' outputs differ")
     summary = {}
-    for key in ("b5_ms", "b6_ms", "b8_ms", "b1_ms"):
+    for key in ("b5_ms", "b6_ms", "b8_ms", "b1_ms", "b9f_ms", "b9a_ms"):
         for shape in runs[0][1][key]:
-            summary[f"{key[:2].upper()} {shape}"] = {
+            summary[f"{key[:-3].capitalize()} {shape}"] = {
                 side: statistics.median(r[key][shape] for s, r in runs
                                         if s == side)
                 for side in ("other", "this")}

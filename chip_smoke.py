@@ -27,7 +27,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    calls, their count checked against the kernel's launches per call);
    plain ms is CUDA events around whole calls; bound ms is the larger of
    bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM; B5's unfused
-   operations / 33.5 T FP32 instructions/s), from this run's inputs.
+   operations / 33.5 T FP32 instructions/s, B4's integer operations /
+   16.7 T INT32 instructions/s), from this run's inputs.
    - bin walks B6 (channel-major chunks) and B6' (row-major entries, the
      valid flag tested) on the inputs the binned paths build
      (raster_channels.binned_entries): the demo room 96x36, the cube
@@ -46,8 +47,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      generous and overflowing caps (odd CSR offsets, clamped slab starts)
      and with one group far deeper than the rest: the walks B9d
      (subtile3), B9e (subtile4), B9f (subtile5's K2 and subtile6's K4
-     layouts) and B1 (subtile7's K4 and subtile8's K8 gathers) z and ids
-     bit for bit; the fused setup+pack
+     layouts: slab work items, then a merge launch; its work lists
+     printed, both layouts timed, the K2 one recorded) and B1 (subtile7's
+     K4 and subtile8's K8 gathers) z and ids bit for bit; the fused
+     setup+pack
      B10 bit for bit against its plain version and against B2 then B3
      (sign of zero included), and timed beside B2 + B3; B7 at the wide
      pack of subtile3 / subtile4;
@@ -58,10 +61,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      the fused-shading walk B8 (chunk work items, then a merge launch that
      shades; its work list printed) rgb bit for bit (also on the demo room
      with its point light and on random deep bins of 1,000 entries and
-     more), the subtile walks B9a (expanded rows), B9b (packed
-     rows) and B9c (packed rows, depth mask) z and ids bit for bit (also
-     on a random 64x512 soup, 4 tiles across, at generous and overflowing
-      caps), and B9a against B9b on the same bunny bins: z within 1e-5
+     more), the subtile walks B9a (expanded rows: chunk work items, then
+     a merge launch; its work list printed), B9b (packed rows) and B9c
+     (packed rows, depth mask) z and ids bit for bit (also on a random
+     64x512 soup, 4 tiles across, at generous and overflowing caps), and
+     B9a against B9b on the same bunny bins: z within 1e-5
      where the ids agree, ids differing (edges through pixel centres,
      rounded apart) at most at 6 pixels.
 4. Drives each main path as a user would, every launch count set to 0
@@ -157,6 +161,15 @@ PEAK_FP32_INSTR = 33.5e12
 # one triangle entry of a nearest-hit search, the rest of a bounce, and
 # the NEE arithmetic around a shadow search
 B5_OPS_SPHERE, B5_OPS_TRI, B5_OPS_BOUNCE, B5_OPS_NEE = 25, 43, 250, 60
+# 32-bit integer instructions: 132 SMs x 64 INT32 lanes x 1.98 GHz; shared
+# memory loads: 132 SMs x 32 words a clock x 1.98 GHz
+PEAK_INT32 = 16.7e12
+PEAK_LDS = 8.36e12
+# B4 integer operations per neighbour and pass that the function needs: the
+# override test, the compare, and the vote's select or the count's add.
+# Loop control and the centre test are left out: a fixed radius unrolls
+# them away
+B4_OPS = 3
 OUT = os.path.join(ROOT, "smoke_out")
 
 
@@ -318,16 +331,19 @@ def b1_headline_inputs(dev):
     return lay[:6], grp_cap
 
 
-def _print_b1_work(lay, grp_cap, label):
-    """B1's work list on a layout: slabs per group, items, blocks."""
+def _print_slab_work(lay, grp_cap, label, walk="B1"):
+    """A slab walk's work list on a layout (B1: 32-row slabs; B9f: 16 of its
+    two-entry rows): slabs per group, items, blocks."""
     from ascii_renderer_tpu_torch.ops import raster_group as RG
     r_cap = lay[0].shape[0]
-    _first, n = RG.group_slots(lay[1].clamp(0, r_cap))
+    rows = RG.CHUNK_RG // (lay[0].shape[1] // 128)
+    _first, n = RG.group_slots(lay[1].clamp(0, r_cap), rows)
     items = int(n.sum())
-    print(f"B1 {label}: {grp_cap} groups, {int((n > 0).sum())} with slabs, "
-          f"deepest {int(n.max())} slabs of 32 rows; {items} work items of "
-          f"one slab, 4 a slab for {4 * items} block-items, walked by "
-          f"{min(4 * RG.group_n_slots(r_cap, grp_cap), 2048)} blocks",
+    print(f"{walk} {label}: {grp_cap} groups, {int((n > 0).sum())} with "
+          f"slabs, deepest {int(n.max())} slabs of {rows} rows (32 entries); "
+          f"{items} work items of one slab, 4 a slab for {4 * items} "
+          f"block-items, walked by "
+          f"{min(4 * RG.group_n_slots(r_cap, grp_cap, rows), 2048)} blocks",
           flush=True)
 
 
@@ -404,7 +420,7 @@ def check_kernels(dev, soup, scene):
 
     # B1 grouped walk, on the layout frame 0's first render builds
     lay, grp_cap = _b1_layout(outs_k[0], bb_k, T)
-    _print_b1_work(lay, grp_cap, "headline")
+    _print_slab_work(lay, grp_cap, "headline")
     z_k, e_k = RG.tile_eval_grouped_skip(*lay[:6], grp_cap)
     z_r, e_r = RG.tile_eval_grouped_skip_ref(*lay[:6], grp_cap)
     torch.cuda.synchronize()
@@ -571,19 +587,31 @@ def check_generation_kernels(dev, soup, scene):
         assert hits > 20000, (walk, hits)
         print(f"{walk} golden frame: exact, {hits} lit pixels, "
               f"n_rows={n_rows}, plain {plain:.1f} ms", flush=True)
-        if walk in ("B9d", "B9e", "B9f K2"):
+        if walk in ("B9d", "B9e"):
             kname = {"B9d": "walk_grouped_kernel",
-                     "B9e": "walk_direct_kernel",
-                     "B9f K2": "walk_grouped_k2_kernel"}[walk]
+                     "B9e": "walk_direct_kernel"}[walk]
             recs[walk] = _rec(
                 {"B9d": "raster_group_walk_grouped",
-                 "B9e": "raster_group_walk_direct",
-                 "B9f K2": "raster_group_walk_k2"}[walk],
-                "raster_group.cu",
-                {"B9d": "raster_group.py:135", "B9e": "raster_group.py:586",
-                 "B9f K2": "raster_group.py:735"}[walk], 0.0,
+                 "B9e": "raster_group_walk_direct"}[walk], "raster_group.cu",
+                {"B9d": "raster_group.py:135",
+                 "B9e": "raster_group.py:586"}[walk], 0.0,
                 _device_ms(lambda: fn(*lay[:-4], grp_cap), kname, 1), plain,
                 _walk_bound(lay, z_k, e_k))
+        elif walk.startswith("B9f"):  # the walk, then the merge
+            _print_slab_work(lay, grp_cap, "golden frame", walk)
+            rec = _rec("raster_group_walk_k2", "raster_group.cu",
+                       "raster_group.py:735", 0.0,
+                       _device_ms(lambda: fn(*lay[:-4], grp_cap),
+                                  "walk_grouped_k2_kernel", 2), plain,
+                       _walk_bound(lay, z_k, e_k))
+            merge = _device_ms(lambda: fn(*lay[:-4], grp_cap),
+                               "walk_grouped_k2_kernel_merge", 1)
+            print(f"{walk} golden frame: kernel {rec['ms']:.5f} ms (walk "
+                  f"{rec['ms'] - merge:.5f}, merge {merge:.5f}), bound "
+                  f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})",
+                  flush=True)
+            if walk == "B9f K2":  # the record; the K4 layout is also timed
+                recs[walk] = rec
     del lays
 
     # a random 48x96 soup: odd CSR offsets (gskip 0..3), and caps that
@@ -615,8 +643,9 @@ def check_generation_kernels(dev, soup, scene):
             ("deep group", (32 * 512, 1 << 16, 6), (dkeys, dsrc32))):
         for walk, (lay, fn, ref) in _generation_layouts(
                 wsrc, wkeys, 1, 6, r_cap, pair_cap, gcap).items():
-            if walk == "B1 K8":
-                _print_b1_work(lay, gcap, f"random 48x96 {label} caps")
+            if walk in ("B1 K8", "B9f K2", "B9f K4"):
+                _print_slab_work(lay, gcap, f"random 48x96 {label} caps",
+                                 walk)
             z_k, e_k = fn(*lay[:-4], gcap)
             z_r, e_r = ref(*lay[:-4], gcap)
             torch.cuda.synchronize()
@@ -629,6 +658,28 @@ def check_generation_kernels(dev, soup, scene):
                   f"{int((e_k >= 0).sum())} lit pixels, gskip values {skips}",
                   flush=True)
     return [recs["B9d"], recs["B9e"], recs["B9f K2"], recs["B10"]]
+
+
+def b9f_golden_inputs(dev):
+    """(layout args, grp_cap) of B9f at the golden call's bunny frame
+    (subtile5's K2 layout at the golden caps), built by the calling
+    package (tools/kernel_ab.py)."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import raster_group as RG
+    p, n, c = (torch.as_tensor(x).to(dev) for x in _bunny())
+    pos9, attrs_t = R.soup_static_prep(p, n, c, _scene(dev))
+    mvp = R.camera_mvp(_golden_camera(), ROWS, COLS, PIXEL_ASPECT)
+    caps = _golden_caps(pos9.shape[1])
+    tiles_x = -(-COLS // 128)
+    n_tiles = (-(-ROWS // 8)) * tiles_x
+    grp_cap = caps["tile_cap"] // 8
+    keys, src32 = _setup_and_keys(pos9, attrs_t, mvp, ROWS, COLS,
+                                  caps["big_cap"])
+    lay = RG.GENERATIONS["subtile5"].build(src32, keys, tiles_x, n_tiles,
+                                           caps["r_cap"], caps["pair_cap"],
+                                           grp_cap)
+    return lay[:-4], grp_cap
 
 
 def _generation_frame(dev, soup, scene):
@@ -906,6 +957,34 @@ def _print_b8_work(args, label):
           flush=True)
 
 
+def _print_b9a_work(args, label):
+    """B9a's work list on its arguments: rows and items per tile, blocks."""
+    from ascii_renderer_tpu_torch.ops import raster_subtile as RS
+    rows, rowptr, _tiles_x, n_tiles = args
+    r_cap = rows.shape[0]
+    rp = rowptr.clamp(0, r_cap)
+    _first, n = RS.subtile_items(rp)
+    items = int(n.sum())
+    print(f"B9a {label}: {n_tiles} tiles, {int((n > 0).sum())} with rows, "
+          f"{int(rp[-1])} rows of r_cap {r_cap}, deepest tile "
+          f"{int((rp[1:] - rp[:-1]).max())} rows in {int(n.max())} items; "
+          f"{items} work items of up to {RS.ITEM_R} rows, 4 an item for "
+          f"{4 * items} block-items, walked by "
+          f"{min(4 * RS.subtile_n_slots(r_cap, n_tiles), 2048)} blocks",
+          flush=True)
+
+
+def b9a_bunny_inputs(dev, soup=None, scene=None):
+    """B9a's arguments at the bunny's visibility_subtile call (golden pose,
+    the subtile path's settled caps; tools/kernel_ab.py too)."""
+    from ascii_renderer_tpu_torch.ops import raster_subtile as RS
+    soup, scene = soup or _bunny(), scene or _scene(dev)
+    caps, _tries = _oracle_caps(dev, soup, scene, "subtile")
+    args, _kw = _capture(RS, "tile_eval_subtile",
+                         _visibility_subtile_call(dev, soup, caps))
+    return args
+
+
 def check_oracle_kernels(dev, soup, scene, caps):
     """B8, B9a, B9b and B9c against their plain versions: at the inputs
     their paths give them on the bunny at the golden pose (captured from
@@ -962,17 +1041,25 @@ def check_oracle_kernels(dev, soup, scene, caps):
         live = _live_pairs(wargs[0], wargs[1], depth, walk)
         bound = _bound(64 * live + _nbytes(wargs[1], z, e),
                        20 * 128 * live)
-        kname = "subtile_walk_kernel"
-        ms = _device_ms(lambda: fn(*wargs), kname, 1)
+        if walk == "B9a":  # the walk, then the merge
+            _print_b9a_work(wargs, "bunny (visibility_subtile)")
+            ms = _device_ms(lambda: fn(*wargs), "subtile_walk_expanded_kernel",
+                            2)
+            merge = _device_ms(lambda: fn(*wargs),
+                               "subtile_walk_expanded_kernel_merge", 1)
+            split = f" (walk {ms - merge:.5f}, merge {merge:.5f})"
+        else:
+            ms = _device_ms(lambda: fn(*wargs), "subtile_walk_kernel", 1)
+            split = ""
         recs[walk] = _rec(
             {"B9a": "raster_subtile_walk", "B9b": "raster_subtile_walk_packed",
              "B9c": "raster_subtile_walk_packed_d"}[walk],
             "raster_subtile.cu",
             {"B9a": "raster_subtile.py:60", "B9b": "raster_subtile.py:274",
              "B9c": "raster_subtile.py:433"}[walk], 0.0, ms, plain, bound)
-        print(f"{walk} bunny: kernel {ms:.4f} ms, bound {bound[0]:.5f} ms "
-              f"({bound[1]}), {live} live pairs, r_cap {wargs[0].shape[0]}",
-              flush=True)
+        print(f"{walk} bunny: kernel {ms:.5f} ms{split}, bound "
+              f"{bound[0]:.5f} ms ({bound[1]}), {live} live pairs, r_cap "
+              f"{wargs[0].shape[0]}", flush=True)
 
     # B9a against B9b on the same bunny bins, both reporting triangle ids
     bargs, bkw = _capture(RS, "build_packed_rows", _oracle_frame(
@@ -1006,6 +1093,8 @@ def check_oracle_kernels(dev, soup, scene, caps):
                          ("overflow", (256, 2048))):
         for walk, (wargs, fn, ref) in _random_subtile_layouts(
                 dev, wcaps).items():
+            if walk == "B9a":
+                _print_b9a_work(wargs, f"random 64x512 {label} caps")
             _check_walk(f"{walk} random 64x512 {label} caps", fn, ref, wargs)
     return [recs["B8"], recs["B9a"], recs["B9b"], recs["B9c"]]
 
@@ -1104,12 +1193,23 @@ def check_modal(dev):
     idx = torch.randint(0, 10, (h, w), generator=g, dtype=torch.int32).to(dev)
     ovr = (torch.rand((h, w), generator=g) < 0.1).to(dev)
     print("B4 modal: exact at 540x960 and 36x96, radius 1-3", flush=True)
-    return _rec(
+    # each cell reads its 24 neighbours' index and override in both passes
+    neighbours = (2 * 2 + 1) ** 2 - 1
+    bound = _bound(h * w * (4 + 1 + 4), B4_OPS * 2 * neighbours * h * w,
+                   PEAK_INT32)
+    lds = 2 * 2 * neighbours * h * w / PEAK_LDS * 1e3
+    print(f"B4 bound at {h}x{w}, radius 2: {bound[0]:.5f} ms ({bound[1]}: "
+          f"{B4_OPS} integer operations a neighbour and pass at "
+          f"{PEAK_INT32:.3g}/s; bytes alone {h * w * 9 / PEAK_BYTES * 1e3:.5f}"
+          f" ms, the {2 * 2 * neighbours} shared loads a cell {lds:.5f} ms)",
+          flush=True)
+    rec = _rec(
         "modal_vote", "modal.cu", "ascii_kernel.py:41", 0.0,
         _device_ms(lambda: AK.modal_filter_kernel(idx, ovr, 2, 12),
                    "modal_kernel", 1),
-        _event_ms(lambda: AK.modal_filter(idx, ovr, 2, 12), 20),
-        _bound(h * w * (4 + 1 + 4), 0))
+        _event_ms(lambda: AK.modal_filter(idx, ovr, 2, 12), 20), bound)
+    rec["ops_rate"] = PEAK_INT32
+    return rec
 
 
 def _pt_scene(atlas=(32, 32), **build_kw):
@@ -2071,6 +2171,10 @@ def main() -> int:
         r["launches"] = c_gen[r["name"]]
     profile_frames(gen_fn, 5, ("raster.", "frame.", "glyph"),
                    "subtile3 golden call")
+    # subtile5 walks B9f where subtile3 walks B9d (and packs with B3, not B7)
+    gen_frame = _generation_frame(dev, soup, scene)
+    profile_frames(lambda: gen_frame("subtile5", False), 5,
+                   ("raster.", "frame.", "glyph"), "subtile5 golden call")
 
     # the retired generations: B8, B9a, B9b and B9c against their plain
     # versions, then fused, subtile, subtile2 and visibility_subtile

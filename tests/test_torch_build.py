@@ -292,6 +292,24 @@ def test_c_entry_points_match_the_ctypes_signatures():
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
 
 
+@pytest.mark.parametrize("mod", (RB, RG, RS), ids=("bins", "group", "subtile"))
+def test_launches_per_call_names_the_module_wrappers(mod):
+    """LAUNCHES_PER_CALL keys are the module's wrappers, two launches for
+    a walk with a merge; kernel_ab reads it, and a module that predates
+    it gets the walks with a merge that existed before it."""
+    from types import SimpleNamespace
+
+    from ascii_renderer_tpu_torch.tools import kernel_ab
+    assert mod.LAUNCHES_PER_CALL
+    for name, n in mod.LAUNCHES_PER_CALL.items():
+        assert callable(getattr(mod, name)) and n in (1, 2)
+        assert kernel_ab._per_call(mod, name) == n
+    old = SimpleNamespace()
+    assert kernel_ab._per_call(old, "tile_eval_grouped_skip") == 2
+    assert kernel_ab._per_call(old, "tile_eval_grouped_k2") == 1
+    assert kernel_ab._per_call(old, "tile_eval_subtile") == 1
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -864,23 +882,26 @@ def _grouped_entries(seed, depths, r_cap):
             torch.from_numpy(xl), torch.from_numpy(yl))
 
 
-def _sliced_grouped(rows128, rowptr, gdepth, gskip, xl, yl, grp_cap):
-    """B1 as its kernel walks it: every work item of ``group_work_items``
-    (one 32-row slab of one group, rows min(r0 + c*32, r_cap - 32) + r
-    taken as entries idx = c*32 + r) walked on its own for the first live
-    covering entry of least z, then each group's items folded in slot
-    order with a strict z < best."""
+def _sliced_grouped(rows, rowptr, gdepth, gskip, xl, yl, grp_cap, per=1):
+    """B1 (``per`` = 1) and B9f (``per`` = 2 entries a row) as their kernel
+    walks them: every work item of ``group_work_items`` (one slab of
+    32 // per rows of one group, rows min(r0 + c*R, r_cap - R) + r, R =
+    32 // per, whose sub-entry j of row r is entry idx = c*32 + per*r + j)
+    walked on its own for the first live covering entry of least z, then
+    each group's items folded in slot order with a strict z < best."""
     inf = float("inf")
-    r_cap = rows128.shape[0]
+    r_cap = rows.shape[0]
+    slab = RG.CHUNK_RG // per
     rp = torch.clamp(rowptr.long(), 0, r_cap)
     zb = torch.full((grp_cap, 8, 8, 16), inf)
     eb = torch.full((grp_cap, 8, 8, 16), -1.0)
     r_iota = torch.arange(RG.CHUNK_RG).view(-1, 1, 1, 1)
     ys = (torch.arange(8.0) + 0.5).view(1, 8, 1, 1)
-    for _q, t, c in zip(*(x.tolist() for x in RG.group_work_items(rowptr,
-                                                                  r_cap))):
-        start = min(int(rp[t]) + c * RG.CHUNK_RG, r_cap - RG.CHUNK_RG)
-        ent = rows128[start:start + RG.CHUNK_RG].view(-1, 1, 8, 16)
+    for _q, t, c in zip(*(x.tolist() for x in RG.group_work_items(
+            rowptr, r_cap, slab))):
+        start = min(int(rp[t]) + c * slab, r_cap - slab)
+        ent = (rows[start:start + slab].view(slab, 8, per, 16).transpose(1, 2)
+               .reshape(-1, 1, 8, 16))
         x = xl[t].view(1, 1, 8, 16)
         y = ys + yl[t].view(1, 1, 8, 16)
 
@@ -929,6 +950,184 @@ def test_sliced_grouped_walk_equals_the_plain_walk(case):
         assert not torch.signbit(zt[zt == 0.0]).any()
 
 
+def _k2_rows(rows128, rowptr, gdepth, gskip, xl, yl):
+    """A rows128 layout in B9f's two-entry rows: row q holds entries 2q and
+    2q + 1 (lane g*32 + j*16 + c), rowptr in row units."""
+    r2 = rows128.shape[0] // 2
+    rows256 = (rows128.view(r2, 2, 8, 16).transpose(1, 2)
+               .reshape(r2, 256).contiguous())
+    return rows256, rowptr // 2, gdepth, gskip, xl, yl
+
+
+# B9f's layouts: GROUPED relaid to two-entry rows (skips 0..3, a group of
+# 37 slabs with +0.0 / -0.0 ties at slab boundaries, the clamp, one
+# group), and the K2 and K4 builds of a random 48x96 soup
+K2_CASES = sorted(GROUPED) + ["K2 build", "K4 build"]
+
+
+def _k2_layout(case):
+    """(layout args, grp_cap) of a B9f case on the CPU."""
+    if case in GROUPED:
+        depths, r_cap = GROUPED[case]
+        return _k2_rows(*_grouped_entries(11, depths, r_cap)), len(depths)
+    pos9, attrs_t, mvp = _walk_inputs("cpu", T=3000, seed=5)
+    cm, bbox = S.setup_2dh_fused_ref(pos9, attrs_t, mvp, 48, 96)
+    lay, _fn, _ref = _gen_layout("B9f_" + case[:2].lower(), cm, bbox,
+                                 (32 * 512, 1 << 16, 6))
+    return lay[:-4], 6
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_sliced_k2_walk_equals_the_plain_walk(case):
+    """B9f as its kernel walks it, 16-row (32-entry) slab by slab from the
+    work list and merged in slot order, equals the plain walk bit for bit
+    (z as int32, ids): odd skip windows, a group of 37 slabs with
+    +0.0 / -0.0 ties at slab boundaries, rowptr clamped to a short r_cap,
+    one group, and the K2 and K4 builds."""
+    lay, G = _k2_layout(case)
+    r_cap2 = lay[0].shape[0]
+    slots, groups, slabs = RG.group_work_items(lay[1], r_cap2, 16)
+    first, n = RG.group_slots(torch.clamp(lay[1], 0, r_cap2), 16)
+    assert int(n.sum()) == slots.numel()
+    assert torch.equal(slots, first[groups] + slabs)
+    assert int(slots.max()) < RG.group_n_slots(r_cap2, G, 16)
+    z, e = _sliced_grouped(*lay, G, per=2)
+    z_r, e_r = RG.tile_eval_grouped_k2_ref(*lay, G)
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+    assert set(lay[3].tolist()) >= ({0, 1} if case == "K2 build" else
+                                    {0, 1, 2, 3})
+    if case in ("deep", "overflow"):  # the boundary ties: the earlier +0.0
+        zt = z[-1][:, :16]
+        assert int((zt == 0.0).sum()) > 20
+        assert not torch.signbit(zt[zt == 0.0]).any()
+
+
+# B9a's layouts (tile row counts, tiles_x, r_cap): a grid 4 tiles wide
+# (tile x offsets up to 384); the same with a ninth tile of 1,152 rows
+# whose item boundaries carry +0.0 / -0.0 depth ties; the same with r_cap
+# short of the layout (clamped rowptr, chunks re-read at r_cap - 8)
+SUBTILES = {"grid": ((40, 72, 8, 0, 136, 32, 16, 64), 4, 512),
+            "deep": ((40, 72, 8, 0, 136, 32, 16, 64, 1152), 4, 1600),
+            "overflow": ((40, 72, 8, 0, 136, 32, 16, 64, 1152), 4, 1200)}
+
+
+def _subtile_entries(seed, n_rows, tiles_x, r_cap):
+    """A random expanded layout (rows f32 [r_cap, 16, 128], channel c of
+    group g over lanes 16g..16g+15) of len(n_rows) tiles tiles_x wide:
+    group g of tile t holds live entries for its first rows and the inert
+    row (G0 = +1) after; planes in global pixel centres, coefficients up
+    to 1e10, depth ties with the previous row, ids increasing. In a tile
+    of 1,100 rows or more, group 0's rows across each 32-row item boundary
+    are a tie of the nearest kind, the earlier at z = +0.0, the later at
+    -0.0 on the same edges. Returns (rows, rowptr)."""
+    rng = np.random.default_rng(seed)
+    rowptr = np.concatenate([[0], np.cumsum(n_rows)]).astype(np.int32)
+    n = max(int(rowptr[-1]), r_cap)
+    ent = np.zeros((n, 8, 16), np.float32)
+    ent[:, :, 2] = 1.0  # inert
+    for t, (lo, hi) in enumerate(zip(rowptr[:-1], rowptr[1:])):
+        m = hi - lo
+        if m == 0:
+            continue
+        tx, ty = t % tiles_x, t // tiles_x
+        cx = tx * 128 + np.arange(8)[:, None] * 16 + rng.uniform(-6, 22,
+                                                                   (8, m))
+        cy = ty * 8 + rng.uniform(-3, 11, (8, m))
+        for k in range(3):
+            ang = rng.uniform(0, 2 * np.pi, (m, 8))
+            scale = np.where(rng.random((m, 8)) < 0.15, 3e8, 1.0)
+            a = np.cos(ang) * rng.uniform(0.05, 40, (m, 8)) * scale
+            b = np.sin(ang) * rng.uniform(0.05, 40, (m, 8)) * scale
+            g = -(a * (cx.T + rng.uniform(-20, 20, a.shape))
+                  + b * (cy.T + rng.uniform(-5, 5, a.shape)))
+            ent[lo:hi, :, 3 * k:3 * k + 3] = np.stack([a, b, g], -1)
+        zx = rng.normal(size=(m, 8)) * 2e-3
+        zy = rng.normal(size=(m, 8)) * 2e-2
+        ent[lo:hi, :, 9:12] = np.stack(
+            [zx, zy, rng.uniform(-0.1, 1.1, zx.shape) - zx * cx.T
+             - zy * cy.T], -1)
+        ent[lo:hi, :, 12] = np.sort(rng.choice(100000, m * 8, replace=False)
+                                    ).reshape(8, m).T
+        tie = np.nonzero(rng.random(m) < 0.3)[0]
+        tie = tie[tie > 0] + lo
+        ent[tie, :, 9:12] = ent[tie - 1, :, 9:12]
+        if m >= 1100:
+            for r in range(lo + 32, hi, 32):
+                ent[r - 1, 0, 9:12] = 0.0
+                ent[r, 0, :9] = ent[r - 1, 0, :9]
+                ent[r, 0, 9:12] = -0.0
+        dead = np.arange(m)[:, None] >= rng.integers(m // 2, m + 1, 8)
+        dead[:, 0] = False
+        ent[lo:hi][dead] = np.float32([0, 0, 1] + [0] * 13)
+    rows = torch.from_numpy(ent[:r_cap]).transpose(1, 2).repeat_interleave(
+        16, dim=-1).contiguous()
+    return rows, torch.from_numpy(rowptr)
+
+
+def _sliced_subtile(rows, rowptr, tiles_x, n_tiles):
+    """B9a as its kernel walks it: every work item of
+    ``subtile_work_items`` (up to 32 rows of one tile, each 8-row chunk c of
+    the tile read at min(r0 + 8c, r_cap - 8)) walked on its own for the
+    first covering entry of least z, then each tile's items folded in slot
+    order with a strict z < best."""
+    inf = float("inf")
+    r_cap = rows.shape[0]
+    rp = torch.clamp(rowptr.long(), 0, r_cap)
+    zb = torch.full((n_tiles, 8, 8, 16), inf)
+    eb = torch.full((n_tiles, 8, 8, 16), -1.0)
+    for _q, t, k in zip(*(x.tolist() for x in RS.subtile_work_items(
+            rowptr, r_cap))):
+        m = min(int(rp[t + 1] - rp[t]) - k * RS.ITEM_R, RS.ITEM_R)
+        d = k * RS.ITEM_R + torch.arange(m)
+        row = torch.clamp(rp[t] + (d // 8) * 8, max=r_cap - 8) + d % 8
+        ent = rows[row][:, :, ::16].transpose(1, 2).reshape(m, 1, 8, 16)
+        tx, ty = t % tiles_x, t // tiles_x
+        x = (tx * 128 + torch.arange(128)).float().view(1, 1, 8, 16) + 0.5
+        y = (torch.arange(8) + ty * 8).float().view(1, 8, 1, 1) + 0.5
+
+        def plane(c):  # channels c..c+2 -> [m, 8 rows, 8 groups, 16]
+            a, b, g = (ent[..., c + i:c + i + 1] for i in range(3))
+            return fma32(a, x, b * y) + g
+
+        z = plane(9)
+        ok = ((plane(0) <= 0.0) & (plane(3) <= 0.0) & (plane(6) <= 0.0)
+              & (z >= 0.0) & (z <= 1.0))
+        zm = torch.where(ok, z, inf)
+        j = zm.argmin(dim=0)                 # the first of least z
+        zc = zm.gather(0, j[None])[0]
+        ec = ent[..., 12:13].expand(zm.shape).gather(0, j[None])[0]
+        better = zc < zb[t]
+        zb[t] = torch.where(better, zc, zb[t])
+        eb[t] = torch.where(better, ec, eb[t])
+    return zb.view(n_tiles, 8, 128), eb.view(n_tiles, 8, 128)
+
+
+@pytest.mark.parametrize("case", sorted(SUBTILES))
+def test_sliced_subtile_walk_equals_the_plain_walk(case):
+    """B9a as its kernel walks it, 32-row item by item from the work list
+    (each 8-row chunk clamped as the reference clamps it) and merged in
+    slot order, equals the plain walk bit for bit (z as int32, ids): a
+    grid 4 tiles wide, a tile of 1,152 rows (36 items) with +0.0 / -0.0
+    ties across item boundaries, and an r_cap short of the layout."""
+    n_rows, tiles_x, r_cap = SUBTILES[case]
+    rows, rowptr = _subtile_entries(12, n_rows, tiles_x, r_cap)
+    n_tiles = len(n_rows)
+    slots, tiles, items = RS.subtile_work_items(rowptr, r_cap)
+    first, n = RS.subtile_items(torch.clamp(rowptr, 0, r_cap))
+    assert int(n.sum()) == slots.numel()
+    assert torch.equal(slots, first[tiles] + items)
+    assert int(slots.max()) < RS.subtile_n_slots(r_cap, n_tiles)
+    z, e = _sliced_subtile(rows, rowptr, tiles_x, n_tiles)
+    z_r, e_r = RS.tile_eval_subtile_ref(rows, rowptr, tiles_x, n_tiles)
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 1000
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+    if case != "grid":  # the boundary ties: the earlier +0.0
+        zt = z[-1][:, :16]
+        assert int((zt == 0.0).sum()) > 20
+        assert not torch.signbit(zt[zt == 0.0]).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bins", sorted(BINS))
 def test_shaded_kernel_on_the_work_list_equals_plain_on_cuda(
@@ -964,4 +1163,41 @@ def test_grouped_skip_kernel_on_the_work_list_equals_plain_on_cuda(
     torch.cuda.synchronize()
     assert RG.launches == 1
     assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_CASES)
+def test_k2_kernel_on_the_work_list_equals_plain_on_cuda(cuda_device, case,
+                                                         zero_counts):
+    """B9f's slab work items and merge on the sliced test's layouts (odd
+    skips, a group of 37 slabs, clamped rowptr, one group, the K2 and K4
+    builds): z and ids bit for bit equal to the plain walk; one call counts
+    one launch."""
+    lay, G = _k2_layout(case)
+    lay = [x.to(cuda_device) for x in lay]
+    z, e = RG.tile_eval_grouped_k2(*lay, G)
+    z_r, e_r = RG.tile_eval_grouped_k2_ref(*lay, G)
+    torch.cuda.synchronize()
+    assert RG.launches_k2 == 1
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SUBTILES))
+def test_subtile_kernel_on_the_work_list_equals_plain_on_cuda(
+        cuda_device, case, zero_counts):
+    """B9a's chunk work items and merge on the sliced test's layouts (4
+    tiles wide, a tile of 36 items with boundary ties, an overflowing
+    r_cap): z and ids bit for bit equal to the plain walk; one call counts
+    one launch."""
+    n_rows, tiles_x, r_cap = SUBTILES[case]
+    rows, rowptr = (x.to(cuda_device) for x in _subtile_entries(
+        12, n_rows, tiles_x, r_cap))
+    z, e = RS.tile_eval_subtile(rows, rowptr, tiles_x, len(n_rows))
+    z_r, e_r = RS.tile_eval_subtile_ref(rows, rowptr, tiles_x, len(n_rows))
+    torch.cuda.synchronize()
+    assert RS.launches == 1
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 1000
     assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))

@@ -7,7 +7,7 @@ The port fuses products into adds where the compiled reference does
 (core/fp.py), so the clip channels, screen setup, compaction, plane table
 and winner ids are bit-identical, and every quantized byte of the frames
 below is equal. Float shading is held to a few ulps: the reference's rsqrt
-is a CPU estimate refined by one Newton step (raster_common._rsqrt)."""
+is a CPU estimate refined by one Newton step (core/fp.rsqrt32)."""
 
 import functools
 import os

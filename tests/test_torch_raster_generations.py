@@ -12,7 +12,7 @@ bit for bit. JAX's golden path is one jit of the whole frame, in which XLA
 contracts the setup's products somewhat differently than in the
 standalone setup kernel the port matches (a few plane ulps, so now and
 then another winner at an edge: one pixel of the seed-7 soup), and its
-CPU rsqrt is a host-specific estimate (raster_common._rsqrt). Whole frames
+CPU rsqrt is a host-specific estimate (core/fp.rsqrt32). Whole frames
 are therefore held to the bound the JAX suite holds its own paths to
 (tests/test_raster_group.py:83), as tests/test_torch_raster.py holds the
 headline subtile8: at most 6 pixels over 2e-3, and on the random,
