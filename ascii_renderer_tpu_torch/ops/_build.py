@@ -76,10 +76,9 @@ SIGNATURES = {
     # (data, offsets, light, rgb, part, n_slots, n_tiles, tiles_x,
     #  n_entries, stream)
     "shaded_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (rows, rowptr, depth, z, e, n_tiles, tiles_x, r_cap, source, stream)
-    "subtile_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (rows, rowptr, z, e, part, n_slots, n_tiles, tiles_x, r_cap, stream)
-    "subtile_walk_expanded_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (rows, rowptr, depth, z, e, part, n_slots, n_tiles, tiles_x, r_cap,
+    #  source, stream)
+    "subtile_walk_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -469,22 +469,26 @@ def _launch_slabs(name: str, rows, rowptr, gdepth, gskip, xl, yl,
     return z, e
 
 
-def group_slots(rowptr: torch.Tensor, rows: int = CHUNK_RG):
-    """The slab walks' work list (B1; B9f with ``rows`` = CHUNK_RG // 2,
-    its two-entry rows), per group: the first slot and the number of
-    slabs of ``rows`` layout rows (rowptr clamped to [0, r_cap], as the
-    wrapper clamps it). Slab c of group t takes slot rowptr[t] // rows + t
-    + c: slots increase with (t, c), so a group's slabs are consecutive
-    and merge in slab order."""
+def group_slots(rowptr: torch.Tensor, rows: int = CHUNK_RG,
+                round_up: bool = False):
+    """A work list of slabs of ``rows`` layout rows, per group (B1; B9f
+    with ``rows`` = CHUNK_RG // 2, its two-entry rows; the subtile walks
+    with ``round_up``, whose last item may be short): the first slot and
+    the number of slabs (rowptr clamped to [0, r_cap], as the wrappers
+    clamp it). Slab c of group t takes slot rowptr[t] // rows + t + c:
+    slots increase with (t, c), so a group's slabs are consecutive and
+    merge in slab order."""
     rp = rowptr.long()
     r0 = rp[:-1]
     first = r0 // rows + torch.arange(r0.shape[0], device=rp.device)
-    return first, torch.clamp((rp[1:] - r0) // rows, min=0)
+    span = rp[1:] - r0 + (rows - 1 if round_up else 0)
+    return first, torch.clamp(span // rows, min=0)
 
 
-def group_n_slots(r_cap: int, grp_cap: int, rows: int = CHUNK_RG) -> int:
+def group_n_slots(r_cap: int, grp_cap: int, rows: int = CHUNK_RG,
+                  round_up: bool = False) -> int:
     """Slots of the work list for any rowptr into r_cap layout rows."""
-    return r_cap // rows + grp_cap
+    return (-(-r_cap // rows) if round_up else r_cap // rows) + grp_cap
 
 
 def group_work_items(rowptr: torch.Tensor, r_cap: int, rows: int = CHUNK_RG):

@@ -36,6 +36,8 @@ merge is a strict z < best, so the smallest id wins depth ties.
   B9c ``tile_eval_packed_d`` (``_kernel_packed_d``): B9b's walk on
       ``build_packed_rows_pre_id``'s rows, whose dead slots hold arbitrary
       live rows: slot d of bin (t, g) is live iff d < depth[t*8 + g].
+The B9b and B9c kernels walk B9a's work list too: one item per CHUNK_RP
+(= ITEM_R) row chunk, merged in a second launch.
 The TPU expands rows through a constant selection matrix on its matrix
 unit; each CUDA thread reads its lane group's channels from shared memory
 instead, so the port has no such matrix.
@@ -56,7 +58,7 @@ SUB_SHIFT = 18      # sort key: (tile*8 + subtile) << 18 | tri
 MAX_TRI = 1 << SUB_SHIFT
 CHUNK_R = 8         # expanded rows per walk chunk (B9a)
 CHUNK_RP = 32       # packed rows per walk chunk (B9b, B9c)
-ITEM_R = 32         # expanded rows per B9a work item (four chunks)
+ITEM_R = 32         # rows per work item (B9a: four chunks; B9b, B9c: one)
 
 CH_A = (0, 3, 6)
 CH_B = (1, 4, 7)
@@ -67,13 +69,13 @@ CH_PAIR = 12
 launches = 0           # kernel launches by tile_eval_subtile (B9a)
 launches_packed = 0    # kernel launches by tile_eval_packed (B9b)
 launches_packed_d = 0  # kernel launches by tile_eval_packed_d (B9c)
-# kernels each wrapper launches per call on CUDA tensors (B9a: a walk, then
-# the merge of its work items' partials)
-LAUNCHES_PER_CALL = {"tile_eval_subtile": 2, "tile_eval_packed": 1,
-                     "tile_eval_packed_d": 1}
+# kernels each wrapper launches per call on CUDA tensors: a walk, then the
+# merge of its work items' partials
+LAUNCHES_PER_CALL = {"tile_eval_subtile": 2, "tile_eval_packed": 2,
+                     "tile_eval_packed_d": 2}
 
 # entry sources of subtile_walk_launch (csrc/raster_subtile.cu)
-_PACKED, _PACKED_DEPTH = 1, 2
+_EXPANDED, _PACKED, _PACKED_DEPTH = 0, 1, 2
 
 
 # --------------------------------------------------------------------------
@@ -283,9 +285,11 @@ def _check(what: str, rows, row_shape, chunk: int, rowptr, depth,
 
 def _launch(what: str, rows, rowptr, depth, tiles_x: int, n_tiles: int,
             source: int):
-    """One launch of the packed walk (one block of 1,024 threads per tile)
-    -> (z, entry id) f32 [n_tiles, 8, 128]."""
-    rowptr = torch.clamp(rowptr, 0, rows.shape[0])  # reads stay below r_cap
+    """One call of a subtile walk kernel (``source``): the walk over the
+    work list (``subtile_work_items``), then the merge of the partial
+    results in row order -> (z, entry id) f32 [n_tiles, 8, 128]."""
+    r_cap = rows.shape[0]
+    rowptr = torch.clamp(rowptr, 0, r_cap)  # reads stay below r_cap
     tensors = (rows, rowptr) + (() if depth is None else (depth,))
     _build.require_cuda(*tensors, what=what)
     if rows.data_ptr() % 16:
@@ -294,34 +298,40 @@ def _launch(what: str, rows, rowptr, depth, tiles_x: int, n_tiles: int,
                     device=rows.device)
     e = torch.empty_like(z)
     if n_tiles:
+        slots = subtile_n_slots(r_cap, n_tiles)
+        part = torch.empty((slots, 2, TILE_H * TILE_W), dtype=torch.float32,
+                           device=rows.device)
         err = _build.lib().subtile_walk_launch(
             rows.data_ptr(), rowptr.data_ptr(),
             None if depth is None else depth.data_ptr(), z.data_ptr(),
-            e.data_ptr(), n_tiles, tiles_x, rows.shape[0], source,
-            _build.stream_ptr(rows.device))
+            e.data_ptr(), part.data_ptr(), slots, n_tiles, tiles_x, r_cap,
+            source, _build.stream_ptr(rows.device))
         _build.check(err, "subtile_walk_launch")
     return z, e
 
 
 def subtile_items(rowptr: torch.Tensor):
-    """B9a's work list, per tile: the first slot and the number of ITEM_R
-    row items (rowptr clamped to [0, r_cap], as the wrapper clamps it).
-    Item k of tile t holds the tile's rows k*ITEM_R .. and takes slot
-    rowptr[t] // ITEM_R + t + k: slots increase with (t, k), so a tile's
-    items are consecutive and merge in row order."""
-    rp = rowptr.long()
-    r0 = rp[:-1]
-    first = r0 // ITEM_R + torch.arange(r0.shape[0], device=rp.device)
-    return first, torch.clamp((rp[1:] - r0 + ITEM_R - 1) // ITEM_R, min=0)
+    """The subtile walks' work list, per tile: the first slot and the
+    number of ITEM_R-row items (rowptr clamped to [0, r_cap], as the
+    wrappers clamp it; B9a's rowptr in CHUNK_R multiples rounds up to a
+    last short item). Item k of tile t holds the tile's rows k*ITEM_R ..
+    and takes slot rowptr[t] // ITEM_R + t + k: slots increase with (t, k),
+    so a tile's items are consecutive and merge in row order. One packed
+    chunk (CHUNK_RP == ITEM_R) is one item."""
+    from ascii_renderer_tpu_torch.ops.raster_group import group_slots
+    return group_slots(rowptr, ITEM_R, round_up=True)
 
 
 def subtile_n_slots(r_cap: int, n_tiles: int) -> int:
-    """Slots of B9a's work list for any rowptr into r_cap rows."""
-    return -(-r_cap // ITEM_R) + n_tiles
+    """Slots of the subtile walks' work list for any rowptr into r_cap
+    rows."""
+    from ascii_renderer_tpu_torch.ops.raster_group import group_n_slots
+    return group_n_slots(r_cap, n_tiles, ITEM_R, round_up=True)
 
 
 def subtile_work_items(rowptr: torch.Tensor, r_cap: int):
-    """(slot, tile, item) of every work item the B9a kernel walks."""
+    """(slot, tile, item) of every work item the B9a, B9b and B9c kernels
+    walk."""
     from ascii_renderer_tpu_torch.ops.raster_bins import work_list
     first, n = subtile_items(torch.clamp(rowptr, 0, r_cap))
     return work_list(first, n, subtile_n_slots(r_cap, first.shape[0]))
@@ -340,29 +350,19 @@ def tile_eval_subtile(rows_data: torch.Tensor, rowptr: torch.Tensor,
     if rows_data.device.type == "cpu":
         return tile_eval_subtile_ref(rows_data, rowptr, tiles_x, n_tiles)
     global launches
-    r_cap = rows_data.shape[0]
-    rowptr = torch.clamp(rowptr, 0, r_cap)  # reads stay below r_cap
-    _build.require_cuda(rows_data, rowptr, what="tile_eval_subtile")
-    z = torch.empty((n_tiles, TILE_H, TILE_W), dtype=torch.float32,
-                    device=rows_data.device)
-    e = torch.empty_like(z)
-    if n_tiles:
-        slots = subtile_n_slots(r_cap, n_tiles)
-        part = torch.empty((slots, 2, TILE_H * TILE_W), dtype=torch.float32,
-                           device=rows_data.device)
-        err = _build.lib().subtile_walk_expanded_launch(
-            rows_data.data_ptr(), rowptr.data_ptr(), z.data_ptr(),
-            e.data_ptr(), part.data_ptr(), slots, n_tiles, tiles_x, r_cap,
-            _build.stream_ptr(rows_data.device))
-        _build.check(err, "subtile_walk_expanded_launch")
+    out = _launch("tile_eval_subtile", rows_data, rowptr, None, tiles_x,
+                  n_tiles, _EXPANDED)
     launches += 1
-    return z, e
+    return out
 
 
 def tile_eval_packed(rows128: torch.Tensor, rowptr: torch.Tensor,
                      tiles_x: int, n_tiles: int):
     """B9b: packed rows f32 [r_cap, 128], rowptr in CHUNK_RP multiples ->
-    (z, entry id) f32 [n_tiles, 8, 128]."""
+    (z, entry id) f32 [n_tiles, 8, 128], id -1 = background. CPU tensors
+    run the plain version; CUDA tensors launch the kernel once: a walk
+    over the work list (``subtile_work_items``: one item per chunk of a
+    tile), then a merge of the partial results in row order."""
     _check("tile_eval_packed", rows128, (TILE_W,), CHUNK_RP, rowptr, None,
            n_tiles)
     if rows128.device.type == "cpu":

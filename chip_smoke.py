@@ -61,11 +61,13 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      the fused-shading walk B8 (chunk work items, then a merge launch that
      shades; its work list printed) rgb bit for bit (also on the demo room
      with its point light and on random deep bins of 1,000 entries and
-     more), the subtile walks B9a (expanded rows: chunk work items, then
-     a merge launch; its work list printed), B9b (packed rows) and B9c
-     (packed rows, depth mask) z and ids bit for bit (also on a random
-     64x512 soup, 4 tiles across, at generous and overflowing caps), and
-     B9a against B9b on the same bunny bins: z within 1e-5
+     more), the subtile walks B9a (expanded rows), B9b (packed rows) and
+     B9c (packed rows, depth mask), each chunk work items, then a merge
+     launch (timed at two launches a call, walk / merge split and work
+     lists printed), z and ids bit for bit (also on a random 64x512 soup,
+     4 tiles across, at generous and overflowing caps, and B9b / B9c on a
+     tile of 36 items whose boundaries carry +0.0 / -0.0 ties, the +0.0
+     kept), and B9a against B9b on the same bunny bins: z within 1e-5
      where the ids agree, ids differing (edges through pixel centres,
      rounded apart) at most at 6 pixels.
 4. Drives each main path as a user would, every launch count set to 0
@@ -957,32 +959,125 @@ def _print_b8_work(args, label):
           flush=True)
 
 
-def _print_b9a_work(args, label):
-    """B9a's work list on its arguments: rows and items per tile, blocks."""
+# subtile walk -> (kernel wrapper, render_soup kernel whose caps it takes,
+# the path that calls it on the bunny)
+SUBTILE_PATHS = {"B9a": ("tile_eval_subtile", "subtile", "visibility_subtile"),
+                 "B9b": ("tile_eval_packed", "subtile", "subtile"),
+                 "B9c": ("tile_eval_packed_d", "subtile2", "subtile2")}
+# the profiler's name of each walk's kernels: walk + merge match it
+SUBTILE_KERNELS = {"B9a": "subtile_walk_expanded_kernel",
+                   "B9b": "subtile_walk_kernel", "B9c": "subtile_walk_kernel"}
+
+
+def _print_subtile_work(walk, args, label):
+    """A subtile walk's work list on its arguments: rows and items per
+    tile, blocks."""
     from ascii_renderer_tpu_torch.ops import raster_subtile as RS
-    rows, rowptr, _tiles_x, n_tiles = args
+    rows, rowptr, n_tiles = args[0], args[1], args[-1]
     r_cap = rows.shape[0]
     rp = rowptr.clamp(0, r_cap)
     _first, n = RS.subtile_items(rp)
     items = int(n.sum())
-    print(f"B9a {label}: {n_tiles} tiles, {int((n > 0).sum())} with rows, "
-          f"{int(rp[-1])} rows of r_cap {r_cap}, deepest tile "
+    split = 4 if walk == "B9a" else 1  # blocks an item (a quarter tile each)
+    print(f"{walk} {label}: {n_tiles} tiles, {int((n > 0).sum())} with "
+          f"rows, {int(rp[-1])} rows of r_cap {r_cap}, deepest tile "
           f"{int((rp[1:] - rp[:-1]).max())} rows in {int(n.max())} items; "
-          f"{items} work items of up to {RS.ITEM_R} rows, 4 an item for "
-          f"{4 * items} block-items, walked by "
-          f"{min(4 * RS.subtile_n_slots(r_cap, n_tiles), 2048)} blocks",
+          f"{items} work items of up to {RS.ITEM_R} rows, {split} an item "
+          f"for {split * items} block-items, walked by "
+          f"{min(split * RS.subtile_n_slots(r_cap, n_tiles), 2048)} blocks",
           flush=True)
 
 
-def b9a_bunny_inputs(dev, soup=None, scene=None):
-    """B9a's arguments at the bunny's visibility_subtile call (golden pose,
-    the subtile path's settled caps; tools/kernel_ab.py too)."""
+def _subtile_bunny_inputs(dev, walk, soup=None, scene=None, caps=None):
+    """A subtile walk's arguments at its path's call on the bunny (golden
+    pose, the caps its render_soup kernel settles on), captured from one
+    call of the path."""
     from ascii_renderer_tpu_torch.ops import raster_subtile as RS
     soup, scene = soup or _bunny(), scene or _scene(dev)
-    caps, _tries = _oracle_caps(dev, soup, scene, "subtile")
-    args, _kw = _capture(RS, "tile_eval_subtile",
-                         _visibility_subtile_call(dev, soup, caps))
+    wrapper, kernel, path = SUBTILE_PATHS[walk]
+    caps = caps or _oracle_caps(dev, soup, scene, kernel)[0]
+    run = (_visibility_subtile_call(dev, soup, caps) if walk == "B9a" else
+           _oracle_frame(dev, soup, scene, path, caps))
+    args, _kw = _capture(RS, wrapper, run)
     return args
+
+
+def b9a_bunny_inputs(dev, soup=None, scene=None):
+    """B9a's arguments at the bunny's visibility_subtile call
+    (tools/kernel_ab.py)."""
+    return _subtile_bunny_inputs(dev, "B9a", soup, scene)
+
+
+def b9b_bunny_inputs(dev, soup=None, scene=None):
+    """B9b's arguments at the bunny's subtile call (tools/kernel_ab.py)."""
+    return _subtile_bunny_inputs(dev, "B9b", soup, scene)
+
+
+def b9c_bunny_inputs(dev, soup=None, scene=None):
+    """B9c's arguments at the bunny's subtile2 call (tools/kernel_ab.py)."""
+    return _subtile_bunny_inputs(dev, "B9c", soup, scene)
+
+
+def _deep_tie_packed(dev):
+    """B9b's and B9c's arguments on a packed layout of eight tiles 4
+    across, one of them 1,152 rows deep (36 work items): random planes in
+    global pixel centres (coefficients up to 3e8), ids increasing; group
+    0's rows across every 32-row item boundary are a depth tie at z = 0,
+    the earlier +0.0, the later -0.0 on the same edges; group 1's last
+    live row is a backdrop covering its bin at z = 0.995. B9b's dead slots
+    hold the inert row (G0 = +1, ZC = 2); B9c's hold the next tile's
+    backdrop, which wins wherever the depth mask does not kill it.
+    Returns {walk: args}."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(21)
+    n_rows, tiles_x = (64, 96, 32, 0, 160, 32, 1152, 64), 4
+    rowptr = np.concatenate([[0], np.cumsum(n_rows)]).astype(np.int32)
+    ent = np.zeros((int(rowptr[-1]), 8, 16), np.float32)
+    depth = np.zeros((len(n_rows), 8), np.int32)
+    backdrops = {}
+    for t, (lo, hi) in enumerate(zip(rowptr[:-1], rowptr[1:])):
+        m = int(hi - lo)
+        if m == 0:
+            continue
+        cx = (t % tiles_x * 128 + np.arange(8) * 16
+              + rng.uniform(-6, 22, (m, 8)))
+        cy = t // tiles_x * 8 + rng.uniform(-3, 11, (m, 8))
+        for k in range(3):
+            ang = rng.uniform(0, 2 * np.pi, (m, 8))
+            r = rng.uniform(0.05, 40, (m, 8)) * np.where(
+                rng.random((m, 8)) < 0.15, 3e8, 1.0)
+            a, b = np.cos(ang) * r, np.sin(ang) * r
+            ent[lo:hi, :, 3 * k:3 * k + 3] = np.stack([a, b, -(
+                a * (cx + rng.uniform(-20, 20, (m, 8)))
+                + b * (cy + rng.uniform(-5, 5, (m, 8))))], -1)
+        zx, zy = rng.normal(0, 2e-3, (m, 8)), rng.normal(0, 2e-2, (m, 8))
+        ent[lo:hi, :, 9:12] = np.stack(
+            [zx, zy, rng.uniform(-0.1, 1.1, (m, 8)) - zx * cx - zy * cy], -1)
+        ent[lo:hi, :, 12] = np.sort(rng.choice(1 << 17, m * 8, replace=False)
+                                    ).reshape(8, m).T
+        for row in range(lo + 32, hi, 32):  # group 0's item boundaries
+            ent[row - 1, 0, 9:12] = 0.0
+            ent[row, 0, :9] = ent[row - 1, 0, :9]
+            ent[row, 0, 9:12] = -0.0
+        depth[t] = rng.integers(m // 2, m + 1, 8)
+        depth[t, 0] = m
+        ent[lo + depth[t, 1] - 1, 1, :12] = [0, 0, -1] * 3 + [0, 0, 0.995]
+        backdrops[t] = ent[lo + depth[t, 1] - 1, 1].copy()
+    inert = np.float32([0, 0, 1] + [0] * 8 + [2] + [0] * 4)
+    out = {}
+    for walk in ("B9b", "B9c"):
+        e = ent.copy()
+        for t, (lo, hi) in enumerate(zip(rowptr[:-1], rowptr[1:])):
+            dead = np.arange(hi - lo)[:, None] >= depth[t]
+            e[lo:hi][dead] = inert if walk == "B9b" else backdrops[
+                min((u for u in backdrops if u > t), default=0)]
+        rows = torch.from_numpy(e.reshape(-1, 128)).to(dev)
+        mask = (torch.from_numpy(depth.ravel()).to(dev),) if (
+            walk == "B9c") else ()
+        out[walk] = (rows, torch.from_numpy(rowptr).to(dev), *mask, tiles_x,
+                     len(n_rows))
+    return out
 
 
 def check_oracle_kernels(dev, soup, scene, caps):
@@ -1026,40 +1121,29 @@ def check_oracle_kernels(dev, soup, scene, caps):
     _check_b8("random deep bins 48x384", dargs)
 
     # B9b and B9c on the bunny's subtile / subtile2 paths, B9a on
-    # visibility_subtile's
-    for walk, mod_name, run, method in (
-            ("B9b", "tile_eval_packed", _oracle_frame(
-                dev, soup, scene, "subtile", caps["subtile"]), "subtile"),
-            ("B9c", "tile_eval_packed_d", _oracle_frame(
-                dev, soup, scene, "subtile2", caps["subtile2"]), "subtile2"),
-            ("B9a", "tile_eval_subtile", _visibility_subtile_call(
-                dev, soup, caps["subtile"]), "visibility_subtile")):
-        wargs, _kw = _capture(RS, mod_name, run)
-        fn, ref = getattr(RS, mod_name), getattr(RS, mod_name + "_ref")
-        z, e, plain = _check_walk(f"{walk} bunny ({method})", fn, ref, wargs)
+    # visibility_subtile's; each a walk, then a merge launch
+    for walk in ("B9b", "B9c", "B9a"):
+        wrapper, kernel, path = SUBTILE_PATHS[walk]
+        wargs = _subtile_bunny_inputs(dev, walk, soup, scene, caps[kernel])
+        fn, ref = getattr(RS, wrapper), getattr(RS, wrapper + "_ref")
+        z, e, plain = _check_walk(f"{walk} bunny ({path})", fn, ref, wargs)
         depth = (wargs[2] if walk == "B9c" else None)
         live = _live_pairs(wargs[0], wargs[1], depth, walk)
         bound = _bound(64 * live + _nbytes(wargs[1], z, e),
                        20 * 128 * live)
-        if walk == "B9a":  # the walk, then the merge
-            _print_b9a_work(wargs, "bunny (visibility_subtile)")
-            ms = _device_ms(lambda: fn(*wargs), "subtile_walk_expanded_kernel",
-                            2)
-            merge = _device_ms(lambda: fn(*wargs),
-                               "subtile_walk_expanded_kernel_merge", 1)
-            split = f" (walk {ms - merge:.5f}, merge {merge:.5f})"
-        else:
-            ms = _device_ms(lambda: fn(*wargs), "subtile_walk_kernel", 1)
-            split = ""
+        _print_subtile_work(walk, wargs, f"bunny ({path})")
+        name = SUBTILE_KERNELS[walk]
+        ms = _device_ms(lambda: fn(*wargs), name, 2)
+        merge = _device_ms(lambda: fn(*wargs), name + "_merge", 1)
         recs[walk] = _rec(
             {"B9a": "raster_subtile_walk", "B9b": "raster_subtile_walk_packed",
              "B9c": "raster_subtile_walk_packed_d"}[walk],
             "raster_subtile.cu",
             {"B9a": "raster_subtile.py:60", "B9b": "raster_subtile.py:274",
              "B9c": "raster_subtile.py:433"}[walk], 0.0, ms, plain, bound)
-        print(f"{walk} bunny: kernel {ms:.5f} ms{split}, bound "
-              f"{bound[0]:.5f} ms ({bound[1]}), {live} live pairs, r_cap "
-              f"{wargs[0].shape[0]}", flush=True)
+        print(f"{walk} bunny: kernel {ms:.5f} ms (walk {ms - merge:.5f}, "
+              f"merge {merge:.5f}), bound {bound[0]:.5f} ms ({bound[1]}), "
+              f"{live} live pairs, r_cap {wargs[0].shape[0]}", flush=True)
 
     # B9a against B9b on the same bunny bins, both reporting triangle ids
     bargs, bkw = _capture(RS, "build_packed_rows", _oracle_frame(
@@ -1093,9 +1177,19 @@ def check_oracle_kernels(dev, soup, scene, caps):
                          ("overflow", (256, 2048))):
         for walk, (wargs, fn, ref) in _random_subtile_layouts(
                 dev, wcaps).items():
-            if walk == "B9a":
-                _print_b9a_work(wargs, f"random 64x512 {label} caps")
+            _print_subtile_work(walk, wargs, f"random 64x512 {label} caps")
             _check_walk(f"{walk} random 64x512 {label} caps", fn, ref, wargs)
+
+    # B9b and B9c on a tile of 36 items with +0.0 / -0.0 boundary ties
+    for walk, wargs in _deep_tie_packed(dev).items():
+        label = f"{walk} deep tile with boundary ties"
+        wrapper = SUBTILE_PATHS[walk][0]
+        _print_subtile_work(walk, wargs, "deep tile with boundary ties")
+        z, _e, _plain = _check_walk(label, getattr(RS, wrapper),
+                                    getattr(RS, wrapper + "_ref"), wargs)
+        zt = z[6][:, :16]  # the deep tile's group 0
+        assert int((zt == 0.0).sum()) > 20, label
+        assert not torch.signbit(zt[zt == 0.0]).any(), f"{label}: -0.0 won"
     return [recs["B8"], recs["B9a"], recs["B9b"], recs["B9c"]]
 
 
@@ -1120,8 +1214,8 @@ def run_oracle_paths(dev, soup, scene, caps, counters):
     every launch count set to 0 just before and read just after: frame 0
     through the glyph pass (checksum printed; its pixels over 2e-3 from
     subtile8's frame within ORACLE_SLACK of ORACLE_REF_DIFF), then 10 timed
-    frames; and visibility_subtile. Returns {path: counts} and a function
-    rendering one fused frame through the glyph pass."""
+    frames; and visibility_subtile. Returns {path: counts} and {method: a
+    function rendering one frame through the glyph pass}."""
     import numpy as np
     import torch
     from ascii_renderer_tpu_torch.core.config import Config
@@ -1130,8 +1224,7 @@ def run_oracle_paths(dev, soup, scene, caps, counters):
     p = soup[0]
     ref = _oracle_frame(dev, soup, scene, "subtile8",
                         _golden_caps(p.shape[0] // 3))()
-    out = {}
-    fused_fn = None
+    out, frames = {}, {}
     for method in ("fused", "subtile", "subtile2"):
         frame = _oracle_frame(dev, soup, scene, method, caps.get(method, {}))
 
@@ -1156,8 +1249,8 @@ def run_oracle_paths(dev, soup, scene, caps, counters):
 
         out[method], _ = _path_counts(counters, run)
         print(f"launches on the {method} path: {out[method]}", flush=True)
-        if method == "fused":
-            fused_fn = frame
+        frames[method] = lambda frame=frame: _glyph(Frame.from_float(
+            frame()), cfg)
     vis = _visibility_subtile_call(dev, soup, caps["subtile"])
 
     def run_vis():
@@ -1170,7 +1263,7 @@ def run_oracle_paths(dev, soup, scene, caps, counters):
     out["visibility_subtile"], _ = _path_counts(counters, run_vis)
     print(f"launches on visibility_subtile: {out['visibility_subtile']}",
           flush=True)
-    return out, lambda: _glyph(Frame.from_float(fused_fn()), cfg)
+    return out, frames
 
 
 def check_modal(dev):
@@ -2185,7 +2278,7 @@ def main() -> int:
               f"passes", flush=True)
     oracle_recs = check_oracle_kernels(dev, soup, scene, caps)
     recs += oracle_recs
-    c_or, fused_fn = run_oracle_paths(dev, soup, scene, caps, counters)
+    c_or, or_frames = run_oracle_paths(dev, soup, scene, caps, counters)
     for rec, path in zip(oracle_recs, ("fused", "visibility_subtile",
                                        "subtile", "subtile2")):
         assert c_or[path][rec["name"]] > 0, \
@@ -2194,8 +2287,9 @@ def main() -> int:
     for path in ("fused", "subtile", "subtile2"):
         assert c_or[path]["modal_vote"] > 0, f"B4 not launched on {path}"
     assert c_or["subtile2"]["pack_channels"] > 0, "B7 not launched: subtile2"
-    profile_frames(fused_fn, 3, ("raster.", "frame.", "glyph"),
-                   "fused golden pose")
+    for method, fn in or_frames.items():  # B8, B9b, B9c in their frames
+        profile_frames(fn, 3, ("raster.", "frame.", "glyph"),
+                       f"{method} golden pose")
 
     # path tracer: frame 0 against the CPU render, then the reference run
     # (96x36, spp 64, 5 bounces) and the HD arm (960x540, spp 8)

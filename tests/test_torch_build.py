@@ -1012,15 +1012,47 @@ SUBTILES = {"grid": ((40, 72, 8, 0, 136, 32, 16, 64), 4, 512),
             "overflow": ((40, 72, 8, 0, 136, 32, 16, 64, 1152), 4, 1200)}
 
 
+def _random_tile(rng, ent, lo, hi, t, tiles_x):
+    """Random walk entries for rows lo..hi of tile t (ent [n, 8, 16], one
+    entry per lane group): planes in global pixel centres, coefficients up
+    to 1e10, depth ties with the previous row, ids increasing; in a tile of
+    1,100 rows or more, group 0's rows across each 32-row item boundary
+    are a tie of the nearest kind, the earlier at z = +0.0, the later at
+    -0.0 on the same edges."""
+    m = hi - lo
+    tx, ty = t % tiles_x, t // tiles_x
+    cx = tx * 128 + np.arange(8)[:, None] * 16 + rng.uniform(-6, 22, (8, m))
+    cy = ty * 8 + rng.uniform(-3, 11, (8, m))
+    for k in range(3):
+        ang = rng.uniform(0, 2 * np.pi, (m, 8))
+        scale = np.where(rng.random((m, 8)) < 0.15, 3e8, 1.0)
+        a = np.cos(ang) * rng.uniform(0.05, 40, (m, 8)) * scale
+        b = np.sin(ang) * rng.uniform(0.05, 40, (m, 8)) * scale
+        g = -(a * (cx.T + rng.uniform(-20, 20, a.shape))
+              + b * (cy.T + rng.uniform(-5, 5, a.shape)))
+        ent[lo:hi, :, 3 * k:3 * k + 3] = np.stack([a, b, g], -1)
+    zx = rng.normal(size=(m, 8)) * 2e-3
+    zy = rng.normal(size=(m, 8)) * 2e-2
+    ent[lo:hi, :, 9:12] = np.stack(
+        [zx, zy, rng.uniform(-0.1, 1.1, zx.shape) - zx * cx.T - zy * cy.T],
+        -1)
+    ent[lo:hi, :, 12] = np.sort(rng.choice(100000, m * 8, replace=False)
+                                ).reshape(8, m).T
+    tie = np.nonzero(rng.random(m) < 0.3)[0]
+    tie = tie[tie > 0] + lo
+    ent[tie, :, 9:12] = ent[tie - 1, :, 9:12]
+    if m >= 1100:
+        for r in range(lo + 32, hi, 32):
+            ent[r - 1, 0, 9:12] = 0.0
+            ent[r, 0, :9] = ent[r - 1, 0, :9]
+            ent[r, 0, 9:12] = -0.0
+
+
 def _subtile_entries(seed, n_rows, tiles_x, r_cap):
     """A random expanded layout (rows f32 [r_cap, 16, 128], channel c of
     group g over lanes 16g..16g+15) of len(n_rows) tiles tiles_x wide:
-    group g of tile t holds live entries for its first rows and the inert
-    row (G0 = +1) after; planes in global pixel centres, coefficients up
-    to 1e10, depth ties with the previous row, ids increasing. In a tile
-    of 1,100 rows or more, group 0's rows across each 32-row item boundary
-    are a tie of the nearest kind, the earlier at z = +0.0, the later at
-    -0.0 on the same edges. Returns (rows, rowptr)."""
+    group g of tile t holds ``_random_tile``'s entries for its first rows
+    and the inert row (G0 = +1) after. Returns (rows, rowptr)."""
     rng = np.random.default_rng(seed)
     rowptr = np.concatenate([[0], np.cumsum(n_rows)]).astype(np.int32)
     n = max(int(rowptr[-1]), r_cap)
@@ -1030,33 +1062,7 @@ def _subtile_entries(seed, n_rows, tiles_x, r_cap):
         m = hi - lo
         if m == 0:
             continue
-        tx, ty = t % tiles_x, t // tiles_x
-        cx = tx * 128 + np.arange(8)[:, None] * 16 + rng.uniform(-6, 22,
-                                                                   (8, m))
-        cy = ty * 8 + rng.uniform(-3, 11, (8, m))
-        for k in range(3):
-            ang = rng.uniform(0, 2 * np.pi, (m, 8))
-            scale = np.where(rng.random((m, 8)) < 0.15, 3e8, 1.0)
-            a = np.cos(ang) * rng.uniform(0.05, 40, (m, 8)) * scale
-            b = np.sin(ang) * rng.uniform(0.05, 40, (m, 8)) * scale
-            g = -(a * (cx.T + rng.uniform(-20, 20, a.shape))
-                  + b * (cy.T + rng.uniform(-5, 5, a.shape)))
-            ent[lo:hi, :, 3 * k:3 * k + 3] = np.stack([a, b, g], -1)
-        zx = rng.normal(size=(m, 8)) * 2e-3
-        zy = rng.normal(size=(m, 8)) * 2e-2
-        ent[lo:hi, :, 9:12] = np.stack(
-            [zx, zy, rng.uniform(-0.1, 1.1, zx.shape) - zx * cx.T
-             - zy * cy.T], -1)
-        ent[lo:hi, :, 12] = np.sort(rng.choice(100000, m * 8, replace=False)
-                                    ).reshape(8, m).T
-        tie = np.nonzero(rng.random(m) < 0.3)[0]
-        tie = tie[tie > 0] + lo
-        ent[tie, :, 9:12] = ent[tie - 1, :, 9:12]
-        if m >= 1100:
-            for r in range(lo + 32, hi, 32):
-                ent[r - 1, 0, 9:12] = 0.0
-                ent[r, 0, :9] = ent[r - 1, 0, :9]
-                ent[r, 0, 9:12] = -0.0
+        _random_tile(rng, ent, lo, hi, t, tiles_x)
         dead = np.arange(m)[:, None] >= rng.integers(m // 2, m + 1, 8)
         dead[:, 0] = False
         ent[lo:hi][dead] = np.float32([0, 0, 1] + [0] * 13)
@@ -1122,6 +1128,137 @@ def test_sliced_subtile_walk_equals_the_plain_walk(case):
     z_r, e_r = RS.tile_eval_subtile_ref(rows, rowptr, tiles_x, n_tiles)
     assert torch.equal(e, e_r) and int((e >= 0).sum()) > 1000
     assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+    if case != "grid":  # the boundary ties: the earlier +0.0
+        zt = z[-1][:, :16]
+        assert int((zt == 0.0).sum()) > 20
+        assert not torch.signbit(zt[zt == 0.0]).any()
+
+
+# B9b's / B9c's packed layouts, SUBTILES' cases with every tile's rows
+# rounded up to the 32-row chunk (= one work item): a grid 4 tiles wide,
+# the same with a ninth tile of 1,152 rows (36 items) whose item
+# boundaries carry +0.0 / -0.0 ties, and the same with r_cap short of it
+PACKED = {"grid": ((64, 96, 32, 0, 160, 32, 32, 64), 4, 512),
+          "deep": ((64, 96, 32, 0, 160, 32, 32, 64, 1152), 4, 1664),
+          "overflow": ((64, 96, 32, 0, 160, 32, 32, 64, 1152), 4, 1216)}
+PACKED_WALKS = {"B9b": ("tile_eval_packed", False),
+                "B9c": ("tile_eval_packed_d", True)}
+
+
+def _packed_entries(seed, n_rows, tiles_x, r_cap, masked):
+    """A random packed layout (rows f32 [r_cap, 128], lane g*16 + c) of
+    len(n_rows) tiles tiles_x wide: bin (t, g) holds ``_random_tile``'s
+    entries in its first depth[t*8 + g] rows (group 0 in all of them);
+    group 1's last live row is a backdrop covering its bin at z near 1.
+    Dead slots hold build_packed_rows' inert row (G0 = +1, ZC = 2) or,
+    ``masked``, as build_packed_rows_pre_id's hold live rows of other
+    pairs, the next tile's backdrop, which wins wherever the depth mask
+    does not kill it. Returns (rows, rowptr, depth i32 [n_tiles*8])."""
+    rng = np.random.default_rng(seed)
+    rowptr = np.concatenate([[0], np.cumsum(n_rows)]).astype(np.int32)
+    n = max(int(rowptr[-1]), r_cap)
+    ent = np.zeros((n, 8, 16), np.float32)
+    depth = np.zeros((len(n_rows), 8), np.int32)
+    backdrops = {}
+    for t, (lo, hi) in enumerate(zip(rowptr[:-1], rowptr[1:])):
+        m = hi - lo
+        if m == 0:
+            continue
+        _random_tile(rng, ent, lo, hi, t, tiles_x)
+        depth[t] = rng.integers(m // 2, m + 1, 8)
+        depth[t, 0] = m
+        back = lo + depth[t, 1] - 1
+        ent[back, 1, :12] = [0, 0, -1] * 3 + [0, 0, rng.uniform(0.99, 1.0)]
+        backdrops[t] = ent[back, 1].copy()
+    inert = np.float32([0, 0, 1] + [0] * 8 + [2] + [0] * 4)
+    for t, (lo, hi) in enumerate(zip(rowptr[:-1], rowptr[1:])):
+        dead = np.arange(hi - lo)[:, None] >= depth[t]
+        ent[lo:hi][dead] = inert if not masked else backdrops[
+            min((u for u in backdrops if u > t), default=0)]
+    rows = torch.from_numpy(ent[:r_cap].reshape(r_cap, 128).copy())
+    return rows, torch.from_numpy(rowptr), torch.from_numpy(depth.ravel())
+
+
+def _sliced_packed(rows, rowptr, depth, tiles_x, n_tiles):
+    """B9b (``depth`` None) or B9c as their kernels walk them: every work
+    item of ``subtile_work_items`` (one 32-row chunk of one tile, read at
+    min(r0 + 32k, r_cap - 32), row i the tile's slot 32k + i, which B9c
+    masks by its bin's depth) walked on its own for the first covering
+    entry of least z, the planes rounded as the reference's expand dot,
+    then each tile's items folded in slot order with a strict z < best."""
+    inf = float("inf")
+    r_cap = rows.shape[0]
+    rp = torch.clamp(rowptr.long(), 0, r_cap)
+    zb = torch.full((n_tiles, 8, 8, 16), inf)
+    eb = torch.full((n_tiles, 8, 8, 16), -1.0)
+    lx = (torch.arange(128).float() + 0.5).view(1, 1, 8, 16)
+    i = torch.arange(RS.ITEM_R).view(-1, 1, 1, 1)
+    for _q, t, k in zip(*(x.tolist() for x in RS.subtile_work_items(
+            rowptr, r_cap))):
+        start = min(int(rp[t]) + k * RS.ITEM_R, r_cap - RS.ITEM_R)
+        ent = rows[start:start + RS.ITEM_R].view(RS.ITEM_R, 1, 8, 16)
+        tx, ty = t % tiles_x, t // tiles_x
+        bx = float(tx * 128)
+        y = (torch.arange(8) + ty * 8).float().view(1, 8, 1, 1) + 0.5
+
+        def plane(c):  # channels c..c+2 -> [32, 8 rows, 8 groups, 16]
+            a, b, g = (ent[..., c + j:c + j + 1] for j in range(3))
+            return fma32(b, y, fma32(bx, a, a * lx + g))
+
+        z = plane(9)
+        ok = ((plane(0) <= 0.0) & (plane(3) <= 0.0) & (plane(6) <= 0.0)
+              & (z >= 0.0) & (z <= 1.0))
+        if depth is not None:
+            ok &= k * RS.ITEM_R + i < depth.view(n_tiles, 1, 8, 1)[t]
+        zm = torch.where(ok, z, inf)
+        j = zm.argmin(dim=0)                 # the first of least z
+        zc = zm.gather(0, j[None])[0]
+        ec = ent[..., 12:13].expand(zm.shape).gather(0, j[None])[0]
+        better = zc < zb[t]
+        zb[t] = torch.where(better, zc, zb[t])
+        eb[t] = torch.where(better, ec, eb[t])
+    return zb.view(n_tiles, 8, 128), eb.view(n_tiles, 8, 128)
+
+
+def _packed_args(walk, case, device="cpu"):
+    """(args, kernel wrapper, plain version) of a packed walk on case's
+    layout."""
+    name, masked = PACKED_WALKS[walk]
+    n_rows, tiles_x, r_cap = PACKED[case]
+    rows, rowptr, depth = (x.to(device) for x in _packed_entries(
+        13, n_rows, tiles_x, r_cap, masked))
+    args = (rows, rowptr) + ((depth,) if masked else ()) + (tiles_x,
+                                                            len(n_rows))
+    return args, getattr(RS, name), getattr(RS, name + "_ref")
+
+
+@pytest.mark.parametrize("case", sorted(PACKED))
+@pytest.mark.parametrize("walk", sorted(PACKED_WALKS))
+def test_sliced_packed_walk_equals_the_plain_walk(walk, case):
+    """B9b and B9c as their kernels walk them, chunk item by item from the
+    work list (B9c masking row i of item k by 32k + i) and merged in slot
+    order, equal the plain walks bit for bit (z as int32, ids): a grid 4
+    tiles wide (the packed rounding of tile x offsets up to 384), a tile of
+    1,152 rows (36 items) with +0.0 / -0.0 ties across item boundaries,
+    and an r_cap short of the layout. B9c's dead slots hold rows that win
+    where they are not masked."""
+    args, _fn, ref = _packed_args(walk, case)
+    rows, rowptr = args[:2]
+    r_cap, n_tiles = rows.shape[0], args[-1]
+    rp = torch.clamp(rowptr, 0, r_cap)
+    slots, tiles, items = RS.subtile_work_items(rowptr, r_cap)
+    first, n = RS.subtile_items(rp)
+    assert int(n.sum()) == slots.numel() == int(rp[-1]) // RS.ITEM_R
+    assert torch.equal(slots, first[tiles] + items)
+    assert int(slots.max()) < RS.subtile_n_slots(r_cap, n_tiles)
+    depth = args[2] if walk == "B9c" else None
+    z, e = _sliced_packed(rows, rowptr, depth, args[-2], n_tiles)
+    z_r, e_r = ref(*args)
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 1000
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+    if depth is not None:  # unmasked, the dead slots' backdrops show
+        _z_u, e_u = RS.tile_eval_packed_ref(rows, rowptr, *args[-2:])
+        assert int((e_u != e_r).sum()) > 100
     if case != "grid":  # the boundary ties: the earlier +0.0
         zt = z[-1][:, :16]
         assert int((zt == 0.0).sum()) > 20
@@ -1199,5 +1336,24 @@ def test_subtile_kernel_on_the_work_list_equals_plain_on_cuda(
     z_r, e_r = RS.tile_eval_subtile_ref(rows, rowptr, tiles_x, len(n_rows))
     torch.cuda.synchronize()
     assert RS.launches == 1
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 1000
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PACKED))
+@pytest.mark.parametrize("walk", sorted(PACKED_WALKS))
+def test_packed_kernel_on_the_work_list_equals_plain_on_cuda(
+        cuda_device, walk, case, zero_counts):
+    """B9b's and B9c's chunk work items and merge on the sliced test's
+    layouts (4 tiles wide, a tile of 36 items with boundary ties, an
+    overflowing r_cap; B9c's dead slots holding winning rows): z and ids
+    bit for bit equal to the plain walks; one call counts one launch."""
+    args, fn, ref = _packed_args(walk, case, cuda_device)
+    z, e = fn(*args)
+    z_r, e_r = ref(*args)
+    torch.cuda.synchronize()
+    assert (RS.launches_packed, RS.launches_packed_d) == {
+        "B9b": (1, 0), "B9c": (0, 1)}[walk]
     assert torch.equal(e, e_r) and int((e >= 0).sum()) > 1000
     assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
