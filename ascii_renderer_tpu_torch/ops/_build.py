@@ -55,14 +55,17 @@ SIGNATURES = {
     #  grp_cap, stream)
     "walk_grouped_skip_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _P),
-    # (rows128, rowptr, gdepth, xl, yl, z, e, r_cap, grp_cap, stream)
-    "walk_grouped_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (rows128, rowptr, gdepth, xl, yl, z, e, part, n_slots, r_cap,
+    #  grp_cap, stream)
+    "walk_grouped_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # (rows256, rowptr, gdepth, gskip, xl, yl, z, e, part, n_slots, r_cap2,
     #  grp_cap, stream)
     "walk_grouped_k2_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _P),
-    # (src_pair, goff, gdepth, gchunks, xl, yl, z, e, p_max, grp_cap, stream)
-    "walk_direct_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # (src_pair, goff, gdepth, gchunks, xl, yl, z, e, part, rowptr, n_slots,
+    #  p_max, grp_cap, stream)
+    "walk_direct_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _P),
     # (params, prim, n_entries, n_sph, ro, rd, uid, block_active, seed,
     #  atlas, atlas_w, atlas_h, lor, log, lob, ov, fet, n_rays, bounces,
     #  nee, next_ray, stream)

@@ -8,8 +8,10 @@ All n_tiles*8 bins (8 x 16 px) are sorted by depth (descending, stable by
 bin id) and grouped 8 at a time, so one 8 x 128 pixel block walks 8 bins of
 similar depth side by side. Every walk keeps, per pixel, the nearest
 covering entry of its bin; they differ only in how the entries are laid
-out. B1 and B9f walk slab work items and merge them in a second launch
-(``group_work_items``); B9d and B9e walk one block per group:
+out. All four walk slab work items (one 32-entry slab of a group and a
+quarter of its pixel block; ``group_work_items``, B9e's
+``direct_work_items``) and merge each group's partials in slot order in a
+second launch:
 
   B1  ``tile_eval_grouped_skip`` (``_kernel_grouped_skip``): rows128 f32
       [r_cap, 128], row r holding in lanes 16g..16g+15 the 16 walk channels
@@ -65,10 +67,10 @@ launches = 0          # kernel launches by tile_eval_grouped_skip (B1)
 launches_grouped = 0  # kernel launches by tile_eval_grouped (B9d)
 launches_direct = 0   # kernel launches by tile_eval_direct (B9e)
 launches_k2 = 0       # kernel launches by tile_eval_grouped_k2 (B9f)
-# kernels each wrapper launches per call on CUDA tensors (B1 and B9f: a
-# walk, then the merge of their slabs' partials)
+# kernels each wrapper launches per call on CUDA tensors: a walk, then
+# the merge of its slabs' partials
 LAUNCHES_PER_CALL = {"tile_eval_grouped_skip": 2, "tile_eval_grouped_k2": 2,
-                     "tile_eval_grouped": 1, "tile_eval_direct": 1}
+                     "tile_eval_grouped": 2, "tile_eval_direct": 2}
 
 
 def _round_up_i(x, q: int):
@@ -432,52 +434,51 @@ def _check(what: str, grp_cap: int, data, data_shape, ints: dict, xl, yl):
         raise ValueError(f"{what}: bad dtypes")
 
 
-def _launch(name: str, tensors, n: int, grp_cap: int):
-    """Launch walk ``name`` (C entry ``walk_{name}_launch``) over grp_cap
-    groups, one block of 1,024 threads each: (z, entry id) f32
-    [grp_cap, 8, 128]."""
+def _launch_slabs(name: str, data, ints, xl, yl, grp_cap: int,
+                  n_slots: int, n: int, scratch=()):
+    """Launch slab walk ``name`` (C entry ``walk_{name}_launch``) on
+    ``data`` and the int32 tensors ``ints``: the walk over its work list,
+    then the merge of the partial results of n_slots slots -> (z, entry
+    id) f32 [grp_cap, 8, 128]. ``n`` bounds the slab starts (r_cap, or
+    B9e's p_max); ``scratch`` tensors follow the partials (B9e's rowptr,
+    which its walk stores for the merge)."""
+    tensors = (data, *ints, xl, yl)
     _build.require_cuda(*tensors, what=f"walk {name}")
+    if not all(t.is_contiguous() for t in tensors) or data.data_ptr() % 16:
+        raise ValueError(f"walk {name}: inputs must be contiguous and the "
+                         f"entries 16-byte aligned")
     z = torch.empty((grp_cap, TILE_H, TILE_W), dtype=torch.float32,
-                    device=tensors[0].device)
+                    device=data.device)
     e = torch.empty_like(z)
+    part = torch.empty((n_slots, 2, TILE_H * TILE_W), dtype=torch.float32,
+                       device=data.device)
     err = getattr(_build.lib(), f"walk_{name}_launch")(
-        *[t.data_ptr() for t in tensors], z.data_ptr(), e.data_ptr(), n,
+        *[t.data_ptr() for t in tensors], z.data_ptr(), e.data_ptr(),
+        part.data_ptr(), *[t.data_ptr() for t in scratch], n_slots, n,
         grp_cap, _build.stream_ptr(z.device))
     _build.check(err, f"walk_{name}_launch")
     return z, e
 
 
-def _launch_slabs(name: str, rows, rowptr, gdepth, gskip, xl, yl,
-                  grp_cap: int, slab_rows: int):
-    """Launch slab walk ``name`` (B1 or B9f; C entry ``walk_{name}_launch``):
-    the walk over the work list of ``group_work_items``, then the merge of
-    the partial results -> (z, entry id) f32 [grp_cap, 8, 128]."""
+def _launch_rows(name: str, rows, rowptr, ints, xl, yl, grp_cap: int,
+                 slab_rows: int):
+    """A layout walk (B1, B9d, B9f): rowptr clamped to the layout's rows,
+    the partials sized by ``group_n_slots``."""
     r_cap = rows.shape[0]
     rowptr = torch.clamp(rowptr, 0, r_cap)  # the walk never reads past r_cap
-    tensors = (rows, rowptr, gdepth, gskip, xl, yl)
-    _build.require_cuda(*tensors, what=f"walk {name}")
-    z = torch.empty((grp_cap, TILE_H, TILE_W), dtype=torch.float32,
-                    device=rows.device)
-    e = torch.empty_like(z)
-    slots = group_n_slots(r_cap, grp_cap, slab_rows)
-    part = torch.empty((slots, 2, TILE_H * TILE_W), dtype=torch.float32,
-                       device=rows.device)
-    err = getattr(_build.lib(), f"walk_{name}_launch")(
-        *[t.data_ptr() for t in tensors], z.data_ptr(), e.data_ptr(),
-        part.data_ptr(), slots, r_cap, grp_cap, _build.stream_ptr(z.device))
-    _build.check(err, f"walk_{name}_launch")
-    return z, e
+    return _launch_slabs(name, rows, (rowptr, *ints), xl, yl, grp_cap,
+                         group_n_slots(r_cap, grp_cap, slab_rows), r_cap)
 
 
 def group_slots(rowptr: torch.Tensor, rows: int = CHUNK_RG,
                 round_up: bool = False):
-    """A work list of slabs of ``rows`` layout rows, per group (B1; B9f
-    with ``rows`` = CHUNK_RG // 2, its two-entry rows; the subtile walks
-    with ``round_up``, whose last item may be short): the first slot and
-    the number of slabs (rowptr clamped to [0, r_cap], as the wrappers
-    clamp it). Slab c of group t takes slot rowptr[t] // rows + t + c:
-    slots increase with (t, c), so a group's slabs are consecutive and
-    merge in slab order."""
+    """A work list of slabs of ``rows`` layout rows, per group (B1, B9d,
+    B9e over ``direct_rowptr``; B9f with ``rows`` = CHUNK_RG // 2, its
+    two-entry rows; the subtile walks with ``round_up``, whose last item
+    may be short): the first slot and the number of slabs (rowptr clamped
+    to [0, r_cap], as the wrappers clamp it). Slab c of group t takes slot
+    rowptr[t] // rows + t + c: slots increase with (t, c), so a group's
+    slabs are consecutive and merge in slab order."""
     rp = rowptr.long()
     r0 = rp[:-1]
     first = r0 // rows + torch.arange(r0.shape[0], device=rp.device)
@@ -492,10 +493,35 @@ def group_n_slots(r_cap: int, grp_cap: int, rows: int = CHUNK_RG,
 
 
 def group_work_items(rowptr: torch.Tensor, r_cap: int, rows: int = CHUNK_RG):
-    """(slot, group, slab) of every work item the B1 (B9f: ``rows`` =
-    CHUNK_RG // 2, r_cap in two-entry rows) kernel walks."""
+    """(slot, group, slab) of every work item the B1 and B9d (B9f: ``rows``
+    = CHUNK_RG // 2, r_cap in two-entry rows) kernels walk."""
     first, n = group_slots(torch.clamp(rowptr, 0, r_cap), rows)
     return work_list(first, n, group_n_slots(r_cap, first.shape[0], rows))
+
+
+def direct_n_slots(p_eff: int, grp_cap: int) -> int:
+    """Slots of B9e's work list, from shapes alone: the bins are disjoint,
+    so the groups' slabs number at most ceil(p_eff / CHUNK_RG) + grp_cap,
+    and the slot numbering (``group_slots``: + t) adds one a group."""
+    return -(-p_eff // CHUNK_RG) + 2 * grp_cap
+
+
+def direct_rowptr(gchunks: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """B9e's rowptr i32 [grp_cap+1], as each block of its walk forms it
+    (block 0 also stores it for the merge): CHUNK_RG times the exclusive
+    prefix of gchunks, each count clamped to [0, n_slots] and the sum
+    saturating at n_slots."""
+    c = torch.clamp(gchunks.long(), 0, n_slots)
+    incl = torch.clamp(torch.cumsum(c, 0), max=n_slots)
+    return (torch.cat([incl.new_zeros((1,)), incl]) * CHUNK_RG).to(torch.int32)
+
+
+def direct_work_items(gchunks: torch.Tensor, p_eff: int):
+    """(slot, group, slab) of every work item the B9e kernel walks: group t
+    takes gchunks[t] slabs, numbered as B9d's over ``direct_rowptr``."""
+    n_slots = direct_n_slots(p_eff, gchunks.shape[0])
+    first, n = group_slots(direct_rowptr(gchunks, n_slots))
+    return work_list(first, n, n_slots)
 
 
 def tile_eval_grouped_skip(rows128: torch.Tensor, rowptr: torch.Tensor,
@@ -504,10 +530,10 @@ def tile_eval_grouped_skip(rows128: torch.Tensor, rowptr: torch.Tensor,
     """B1: rows128 f32 [r_cap, 128] grouped layout with skip window ->
     (z, entry id) f32 [grp_cap, 8, 128] per group (lane group g = bin
     gbins[t*8+g]); id -1 = background. CPU tensors run the plain version;
-    CUDA tensors launch the kernel once: a walk over the work list
-    (``group_work_items``: one item per 32-row slab of a group and
-    quarter of its pixel block), then a merge of the partial results in
-    slab order."""
+    CUDA tensors launch the kernel once (a call counts one launch): a walk
+    over the work list (``group_work_items``: one item per 32-row slab of
+    a group and quarter of its pixel block), then a merge of the partial
+    results in slab order."""
     if rows128.device.type == "cpu":
         return tile_eval_grouped_skip_ref(rows128, rowptr, gdepth, gskip,
                                           xl, yl, grp_cap)
@@ -520,8 +546,8 @@ def tile_eval_grouped_skip(rows128: torch.Tensor, rowptr: torch.Tensor,
            {"rowptr": (grp_cap + 1, rowptr),
             "gdepth": (grp_cap * N_SUB, gdepth),
             "gskip": (grp_cap * N_SUB, gskip)}, xl, yl)
-    out = _launch_slabs("grouped_skip", rows128, rowptr, gdepth, gskip, xl,
-                        yl, grp_cap, CHUNK_RG)
+    out = _launch_rows("grouped_skip", rows128, rowptr, (gdepth, gskip), xl,
+                       yl, grp_cap, CHUNK_RG)
     launches += 1
     return out
 
@@ -531,7 +557,10 @@ def tile_eval_grouped(rows128: torch.Tensor, rowptr: torch.Tensor,
                       yl: torch.Tensor, grp_cap: int):
     """B9d: the single-entry grouped walk (no skip window) over
     ``build_packed_rows_grouped``'s layout -> (z, entry id) f32
-    [grp_cap, 8, 128]."""
+    [grp_cap, 8, 128]. CPU tensors run the plain version; CUDA tensors
+    launch the kernel once: B1's walk over the same work list
+    (``group_work_items``) with entry idx = c*32 + r live iff idx < gdepth,
+    then the merge of the partial results in slab order."""
     if rows128.device.type == "cpu":
         return tile_eval_grouped_ref(rows128, rowptr, gdepth, xl, yl,
                                      grp_cap)
@@ -543,9 +572,8 @@ def tile_eval_grouped(rows128: torch.Tensor, rowptr: torch.Tensor,
     _check("tile_eval_grouped", grp_cap, rows128, (r_cap, TILE_W),
            {"rowptr": (grp_cap + 1, rowptr),
             "gdepth": (grp_cap * N_SUB, gdepth)}, xl, yl)
-    rowptr = torch.clamp(rowptr, 0, r_cap)
-    out = _launch("grouped", (rows128, rowptr, gdepth, xl, yl), r_cap,
-                  grp_cap)
+    out = _launch_rows("grouped", rows128, rowptr, (gdepth,), xl, yl, grp_cap,
+                       CHUNK_RG)
     launches_grouped += 1
     return out
 
@@ -572,8 +600,8 @@ def tile_eval_grouped_k2(rows256: torch.Tensor, rowptr: torch.Tensor,
            {"rowptr": (grp_cap + 1, rowptr),
             "gdepth": (grp_cap * N_SUB, gdepth),
             "gskip": (grp_cap * N_SUB, gskip)}, xl, yl)
-    out = _launch_slabs("grouped_k2", rows256, rowptr, gdepth, gskip, xl, yl,
-                        grp_cap, CHUNK_RG // 2)
+    out = _launch_rows("grouped_k2", rows256, rowptr, (gdepth, gskip), xl, yl,
+                       grp_cap, CHUNK_RG // 2)
     launches_k2 += 1
     return out
 
@@ -584,7 +612,13 @@ def tile_eval_direct(src_pair: torch.Tensor, goff: torch.Tensor,
     """B9e: the direct walk, each bin read straight from the pair-ordered
     table src_pair f32 [P_pad, 32] (reads clamped to start <= P_pad -
     CHUNK_RG) -> (z, entry id) f32 [grp_cap, 8, 128]; equal to
-    ``tile_eval_grouped`` on the same grouping."""
+    ``tile_eval_grouped`` on the same grouping. CPU tensors run the plain
+    version; CUDA tensors launch the kernel once: a walk over
+    ``direct_work_items`` (slab c of group t and a quarter of its pixel
+    block, slot g's 32 entries read from src_pair rows min(goff + c*32,
+    P_pad - CHUNK_RG) + r), then the merge of the partial results in slab
+    order. The partials are sized from shapes alone (``direct_n_slots``);
+    a gchunks that is not the build's is read only as far as they reach."""
     if src_pair.device.type == "cpu":
         return tile_eval_direct_ref(src_pair, goff, gdepth, gchunks, xl, yl,
                                     grp_cap)
@@ -597,8 +631,12 @@ def tile_eval_direct(src_pair: torch.Tensor, goff: torch.Tensor,
             "gdepth": (grp_cap * N_SUB, gdepth),
             "gchunks": (grp_cap, gchunks)}, xl, yl)
     goff = torch.clamp(goff, min=0)  # the walk never reads before row 0
-    out = _launch("direct", (src_pair, goff, gdepth, gchunks, xl, yl),
-                  p_pad - CHUNK_RG, grp_cap)
+    p_max = p_pad - CHUNK_RG
+    rowptr = torch.empty((grp_cap + 1,), dtype=torch.int32,
+                         device=src_pair.device)
+    out = _launch_slabs("direct", src_pair, (goff, gdepth, gchunks), xl, yl,
+                        grp_cap, direct_n_slots(p_max, grp_cap), p_max,
+                        (rowptr,))
     launches_direct += 1
     return out
 

@@ -1,6 +1,7 @@
 """A/B of the path-trace megakernel B5, the bin walks B6 / B6', the
-fused-shading walk B8, the grouped walks B1 and B9f and the subtile walks
-B9a, B9b and B9c between two checkouts of the repo on one card.
+fused-shading walk B8, the grouped walks B1, B9d, B9e and B9f and the
+subtile walks B9a, B9b and B9c between two checkouts of the repo on one
+card.
 
 Each side runs in its own process with its own checkout's
 ``ascii_renderer_tpu_torch`` (kernels built from that checkout's
@@ -16,14 +17,19 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
   the mid-scale HD arm 960x540;
 - B8 at the bunny's fused call (``chip_smoke.b8_bunny_inputs``: 544 tiles,
   50,811 bin entries), B1 at the headline's frame 0
-  (``chip_smoke.b1_headline_inputs``), B9f at the golden call's K2 layout
-  (``chip_smoke.b9f_golden_inputs``), B9a at the bunny's
+  (``chip_smoke.b1_headline_inputs``), B9d, B9e and B9f at the golden
+  call's subtile3, subtile4 and K2 (subtile5) layouts
+  (``chip_smoke.b9d_golden_inputs``, ``b9e_golden_inputs``,
+  ``b9f_golden_inputs``), B9a at the bunny's
   visibility_subtile call (``chip_smoke.b9a_bunny_inputs``), B9b at its
   subtile call and B9c at its subtile2 call (``b9b_bunny_inputs``,
   ``b9c_bunny_inputs``), each with its side's launches per call (two where
   the walk is followed by a merge launch). The profiler rows are matched
-  by name: B9a's ``subtile_walk_expanded_kernel`` (+ ``_merge``), B9b's
-  and B9c's ``subtile_walk_kernel`` (+ ``_merge``).
+  by name: B9d's ``walk_grouped_kernel`` (+ ``_merge``; B1's
+  ``walk_grouped_skip_kernel`` does not contain it), B9e's
+  ``walk_direct_kernel`` (+ ``_merge``), B9a's
+  ``subtile_walk_expanded_kernel`` (+ ``_merge``), B9b's and B9c's
+  ``subtile_walk_kernel`` (+ ``_merge``).
 
 Both sides' outputs must be bit-identical (a digest per kernel and shape);
 the inputs are built by the side's own package from this checkout's
@@ -78,8 +84,8 @@ def _digest(outs) -> str:
 
 
 def worker(root: str) -> dict:
-    """Times B5, B6 / B6', B8, B1, B9f, B9a, B9b and B9c with the package
-    of checkout ``root``."""
+    """Times B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a, B9b and B9c with the
+    package of checkout ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -93,8 +99,8 @@ def worker(root: str) -> dict:
     cs = _chip_smoke()
     dev = torch.device(DEVICE)
     out = {"root": root, "b5_ms": {}, "b6_ms": {}, "b8_ms": {}, "b1_ms": {},
-           "b9f_ms": {}, "b9a_ms": {}, "b9b_ms": {}, "b9c_ms": {},
-           "digest": {}}
+           "b9d_ms": {}, "b9e_ms": {}, "b9f_ms": {}, "b9a_ms": {},
+           "b9b_ms": {}, "b9c_ms": {}, "digest": {}}
     scene = cs._pt_scene(device=dev)
     for rows, cols, B, label in PT_SHAPES:
         args, kw, _uid, n = cs._pt_batch(dev, scene, rows, cols, B, 1)
@@ -136,14 +142,16 @@ def worker(root: str) -> dict:
         "walk_grouped_skip_kernel",
         _per_call(RG, "tile_eval_grouped_skip"))
     del lay
-    lay, grp_cap = cs.b9f_golden_inputs(dev)
-    out["digest"]["B9f golden K2"] = _digest(RG.tile_eval_grouped_k2(
-        *lay, grp_cap))
-    out["b9f_ms"]["golden call K2"] = cs._device_ms(
-        lambda: RG.tile_eval_grouped_k2(*lay, grp_cap),
-        "walk_grouped_k2_kernel",
-        _per_call(RG, "tile_eval_grouped_k2"))
-    del lay
+    for walk, wrapper, kernel, layout in (
+            ("B9d", "tile_eval_grouped", "walk_grouped_kernel", "subtile3"),
+            ("B9e", "tile_eval_direct", "walk_direct_kernel", "subtile4"),
+            ("B9f", "tile_eval_grouped_k2", "walk_grouped_k2_kernel", "K2")):
+        lay, grp_cap = getattr(cs, f"{walk.lower()}_golden_inputs")(dev)
+        fn = getattr(RG, wrapper)
+        out["digest"][f"{walk} golden {layout}"] = _digest(fn(*lay, grp_cap))
+        out[f"{walk.lower()}_ms"][f"golden call {layout}"] = cs._device_ms(
+            lambda: fn(*lay, grp_cap), kernel, _per_call(RG, wrapper))
+        del lay
     for walk, wrapper, kernel, path in (
             ("B9a", "tile_eval_subtile", "subtile_walk_expanded_kernel",
              "visibility_subtile"),
@@ -188,8 +196,8 @@ def main() -> int:
     if len(digests) != 1:
         raise AssertionError("the two checkouts' outputs differ")
     summary = {}
-    for key in ("b5_ms", "b6_ms", "b8_ms", "b1_ms", "b9f_ms", "b9a_ms",
-                "b9b_ms", "b9c_ms"):
+    for key in ("b5_ms", "b6_ms", "b8_ms", "b1_ms", "b9d_ms", "b9e_ms",
+                "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms"):
         for shape in runs[0][1][key]:
             summary[f"{key[:-3].capitalize()} {shape}"] = {
                 side: statistics.median(r[key][shape] for s, r in runs

@@ -46,14 +46,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      tests/test_headline_goldens.py:49-52) and on a random 48x96 soup at
      generous and overflowing caps (odd CSR offsets, clamped slab starts)
      and with one group far deeper than the rest: the walks B9d
-     (subtile3), B9e (subtile4), B9f (subtile5's K2 and subtile6's K4
-     layouts: slab work items, then a merge launch; its work lists
-     printed, both layouts timed, the K2 one recorded) and B1 (subtile7's
-     K4 and subtile8's K8 gathers) z and ids bit for bit; the fused
-     setup+pack
-     B10 bit for bit against its plain version and against B2 then B3
-     (sign of zero included), and timed beside B2 + B3; B7 at the wide
-     pack of subtile3 / subtile4;
+     (subtile3), B9e (subtile4: each slot's strip of the pair-ordered
+     table), B9f (subtile5's K2 and subtile6's K4 layouts, both timed, the
+     K2 one recorded) and B1 (subtile7's K4 and subtile8's K8 gathers),
+     each slab work items, then a merge launch (timed at two launches a
+     call, walk / merge split and work lists printed), z and ids bit for
+     bit; the fused setup+pack B10 bit for bit against its plain version
+     and against B2 then B3 (sign of zero included), and timed beside
+     B2 + B3; B7 at the wide pack of subtile3 / subtile4;
    - the retired generations' kernels on the inputs their paths give them
      (captured from one call of each path on the bunny at the golden pose:
      fused, subtile and subtile2 at the caps a diagnostic pass and
@@ -334,18 +334,25 @@ def b1_headline_inputs(dev):
 
 
 def _print_slab_work(lay, grp_cap, label, walk="B1"):
-    """A slab walk's work list on a layout (B1: 32-row slabs; B9f: 16 of its
-    two-entry rows): slabs per group, items, blocks."""
+    """A slab walk's work list on a layout (B1, B9d: 32-row slabs; B9f: 16
+    of its two-entry rows; B9e: 32 entries from each slot's strip): slabs
+    per group, items, slots, blocks."""
     from ascii_renderer_tpu_torch.ops import raster_group as RG
-    r_cap = lay[0].shape[0]
-    rows = RG.CHUNK_RG // (lay[0].shape[1] // 128)
-    _first, n = RG.group_slots(lay[1].clamp(0, r_cap), rows)
+    if walk == "B9e":
+        n_slots = RG.direct_n_slots(lay[0].shape[0] - RG.CHUNK_RG, grp_cap)
+        _first, n = RG.group_slots(RG.direct_rowptr(lay[3], n_slots))
+        unit = "8 strips of 32 entries"
+    else:
+        r_cap = lay[0].shape[0]
+        rows = RG.CHUNK_RG // (lay[0].shape[1] // 128)
+        n_slots = RG.group_n_slots(r_cap, grp_cap, rows)
+        _first, n = RG.group_slots(lay[1].clamp(0, r_cap), rows)
+        unit = f"{rows} rows (32 entries)"
     items = int(n.sum())
     print(f"{walk} {label}: {grp_cap} groups, {int((n > 0).sum())} with "
-          f"slabs, deepest {int(n.max())} slabs of {rows} rows (32 entries); "
-          f"{items} work items of one slab, 4 a slab for {4 * items} "
-          f"block-items, walked by "
-          f"{min(4 * RG.group_n_slots(r_cap, grp_cap, rows), 2048)} blocks",
+          f"slabs, deepest {int(n.max())} slabs of {unit}; {items} work "
+          f"items of one slab in {n_slots} slots, 4 a slab for {4 * items} "
+          f"block-items, walked by {min(4 * n_slots, 2048)} blocks",
           flush=True)
 
 
@@ -496,6 +503,19 @@ GEN_WALKS = {"B9d": "subtile3", "B9e": "subtile4", "B9f K2": "subtile5",
              "B9f K4": "subtile6", "B1 K4": "subtile7", "B1 K8": "subtile8"}
 
 
+# the walks check_generation_kernels times at the golden frame: (record
+# name, profiler name of the walk (its merge adds "_merge"), TPU kernel)
+GEN_RECORDS = {
+    "B9d": ("raster_group_walk_grouped", "walk_grouped_kernel",
+            "raster_group.py:135"),
+    "B9e": ("raster_group_walk_direct", "walk_direct_kernel",
+            "raster_group.py:586"),
+    "B9f K2": ("raster_group_walk_k2", "walk_grouped_k2_kernel",
+               "raster_group.py:735"),
+    "B9f K4": ("raster_group_walk_k2", "walk_grouped_k2_kernel",
+               "raster_group.py:735")}
+
+
 def _generation_layouts(src32, keys, *caps):
     """{walk: (layout, kernel wrapper, plain version)} of the grouped
     generations' own walks; caps (tiles_x, n_tiles, r_cap, pair_cap,
@@ -589,30 +609,19 @@ def check_generation_kernels(dev, soup, scene):
         assert hits > 20000, (walk, hits)
         print(f"{walk} golden frame: exact, {hits} lit pixels, "
               f"n_rows={n_rows}, plain {plain:.1f} ms", flush=True)
-        if walk in ("B9d", "B9e"):
-            kname = {"B9d": "walk_grouped_kernel",
-                     "B9e": "walk_direct_kernel"}[walk]
-            recs[walk] = _rec(
-                {"B9d": "raster_group_walk_grouped",
-                 "B9e": "raster_group_walk_direct"}[walk], "raster_group.cu",
-                {"B9d": "raster_group.py:135",
-                 "B9e": "raster_group.py:586"}[walk], 0.0,
-                _device_ms(lambda: fn(*lay[:-4], grp_cap), kname, 1), plain,
-                _walk_bound(lay, z_k, e_k))
-        elif walk.startswith("B9f"):  # the walk, then the merge
+        if walk in GEN_RECORDS:  # the walk, then the merge
+            name, kname, replaces = GEN_RECORDS[walk]
             _print_slab_work(lay, grp_cap, "golden frame", walk)
-            rec = _rec("raster_group_walk_k2", "raster_group.cu",
-                       "raster_group.py:735", 0.0,
-                       _device_ms(lambda: fn(*lay[:-4], grp_cap),
-                                  "walk_grouped_k2_kernel", 2), plain,
-                       _walk_bound(lay, z_k, e_k))
+            rec = _rec(name, "raster_group.cu", replaces, 0.0,
+                       _device_ms(lambda: fn(*lay[:-4], grp_cap), kname, 2),
+                       plain, _walk_bound(lay, z_k, e_k))
             merge = _device_ms(lambda: fn(*lay[:-4], grp_cap),
-                               "walk_grouped_k2_kernel_merge", 1)
+                               kname + "_merge", 1)
             print(f"{walk} golden frame: kernel {rec['ms']:.5f} ms (walk "
                   f"{rec['ms'] - merge:.5f}, merge {merge:.5f}), bound "
                   f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})",
                   flush=True)
-            if walk == "B9f K2":  # the record; the K4 layout is also timed
+            if walk != "B9f K4":  # the record; the K4 layout is also timed
                 recs[walk] = rec
     del lays
 
@@ -645,9 +654,7 @@ def check_generation_kernels(dev, soup, scene):
             ("deep group", (32 * 512, 1 << 16, 6), (dkeys, dsrc32))):
         for walk, (lay, fn, ref) in _generation_layouts(
                 wsrc, wkeys, 1, 6, r_cap, pair_cap, gcap).items():
-            if walk in ("B1 K8", "B9f K2", "B9f K4"):
-                _print_slab_work(lay, gcap, f"random 48x96 {label} caps",
-                                 walk)
+            _print_slab_work(lay, gcap, f"random 48x96 {label} caps", walk)
             z_k, e_k = fn(*lay[:-4], gcap)
             z_r, e_r = ref(*lay[:-4], gcap)
             torch.cuda.synchronize()
@@ -662,10 +669,10 @@ def check_generation_kernels(dev, soup, scene):
     return [recs["B9d"], recs["B9e"], recs["B9f K2"], recs["B10"]]
 
 
-def b9f_golden_inputs(dev):
-    """(layout args, grp_cap) of B9f at the golden call's bunny frame
-    (subtile5's K2 layout at the golden caps), built by the calling
-    package (tools/kernel_ab.py)."""
+def _golden_generation_inputs(dev, gen):
+    """(walk args, grp_cap) of generation ``gen``'s walk at the golden
+    call's bunny frame (its layout at the golden caps), built by the
+    calling package (tools/kernel_ab.py)."""
     import torch
     from ascii_renderer_tpu_torch.backends import raster as R
     from ascii_renderer_tpu_torch.ops import raster_group as RG
@@ -678,10 +685,24 @@ def b9f_golden_inputs(dev):
     grp_cap = caps["tile_cap"] // 8
     keys, src32 = _setup_and_keys(pos9, attrs_t, mvp, ROWS, COLS,
                                   caps["big_cap"])
-    lay = RG.GENERATIONS["subtile5"].build(src32, keys, tiles_x, n_tiles,
-                                           caps["r_cap"], caps["pair_cap"],
-                                           grp_cap)
+    lay = RG.GENERATIONS[gen].build(src32, keys, tiles_x, n_tiles,
+                                    caps["r_cap"], caps["pair_cap"], grp_cap)
     return lay[:-4], grp_cap
+
+
+def b9d_golden_inputs(dev):
+    """B9d at the golden call: subtile3's single-entry layout."""
+    return _golden_generation_inputs(dev, "subtile3")
+
+
+def b9e_golden_inputs(dev):
+    """B9e at the golden call: subtile4's pair-ordered table and groups."""
+    return _golden_generation_inputs(dev, "subtile4")
+
+
+def b9f_golden_inputs(dev):
+    """B9f at the golden call: subtile5's K2 layout."""
+    return _golden_generation_inputs(dev, "subtile5")
 
 
 def _generation_frame(dev, soup, scene):
@@ -2264,10 +2285,13 @@ def main() -> int:
         r["launches"] = c_gen[r["name"]]
     profile_frames(gen_fn, 5, ("raster.", "frame.", "glyph"),
                    "subtile3 golden call")
-    # subtile5 walks B9f where subtile3 walks B9d (and packs with B3, not B7)
+    # subtile4 walks B9e where subtile3 walks B9d; subtile5 walks B9f (and
+    # packs with B3, not B7)
     gen_frame = _generation_frame(dev, soup, scene)
-    profile_frames(lambda: gen_frame("subtile5", False), 5,
-                   ("raster.", "frame.", "glyph"), "subtile5 golden call")
+    for method in ("subtile4", "subtile5"):
+        profile_frames(lambda: gen_frame(method, False), 5,
+                       ("raster.", "frame.", "glyph"),
+                       f"{method} golden call")
 
     # the retired generations: B8, B9a, B9b and B9c against their plain
     # versions, then fused, subtile, subtile2 and visibility_subtile

@@ -304,6 +304,8 @@ def test_launches_per_call_names_the_module_wrappers(mod):
     for name, n in mod.LAUNCHES_PER_CALL.items():
         assert callable(getattr(mod, name)) and n in (1, 2)
         assert kernel_ab._per_call(mod, name) == n
+    if mod is RG:  # all four grouped walks: slab work items, then a merge
+        assert set(RG.LAUNCHES_PER_CALL.values()) == {2}
     old = SimpleNamespace()
     assert kernel_ab._per_call(old, "tile_eval_grouped_skip") == 2
     assert kernel_ab._per_call(old, "tile_eval_grouped_k2") == 1
@@ -889,19 +891,32 @@ def _sliced_grouped(rows, rowptr, gdepth, gskip, xl, yl, grp_cap, per=1):
     32 // per, whose sub-entry j of row r is entry idx = c*32 + per*r + j)
     walked on its own for the first live covering entry of least z, then
     each group's items folded in slot order with a strict z < best."""
-    inf = float("inf")
     r_cap = rows.shape[0]
     slab = RG.CHUNK_RG // per
     rp = torch.clamp(rowptr.long(), 0, r_cap)
+
+    def stage(t, c):
+        start = min(int(rp[t]) + c * slab, r_cap - slab)
+        return (rows[start:start + slab].view(slab, 8, per, 16)
+                .transpose(1, 2).reshape(-1, 1, 8, 16))
+
+    return _sliced_fold(RG.group_work_items(rowptr, r_cap, slab), stage,
+                        gdepth, gskip, xl, yl, grp_cap)
+
+
+def _sliced_fold(items, stage, gdepth, gskip, xl, yl, grp_cap):
+    """The grouped walks' work items (slot, group, slab) in slot order,
+    slab c of group t staged as ``stage(t, c)`` -> [32 entries, 1, 8
+    slots, 16 channels]: each item walked on its own for the first live
+    covering entry of least z (idx = c*32 + r live iff skip <= idx < skip
+    + depth), folded into its group with a strict z < best."""
+    inf = float("inf")
     zb = torch.full((grp_cap, 8, 8, 16), inf)
     eb = torch.full((grp_cap, 8, 8, 16), -1.0)
     r_iota = torch.arange(RG.CHUNK_RG).view(-1, 1, 1, 1)
     ys = (torch.arange(8.0) + 0.5).view(1, 8, 1, 1)
-    for _q, t, c in zip(*(x.tolist() for x in RG.group_work_items(
-            rowptr, r_cap, slab))):
-        start = min(int(rp[t]) + c * slab, r_cap - slab)
-        ent = (rows[start:start + slab].view(slab, 8, per, 16).transpose(1, 2)
-               .reshape(-1, 1, 8, 16))
+    for _q, t, c in zip(*(x.tolist() for x in items)):
+        ent = stage(t, c)
         x = xl[t].view(1, 1, 8, 16)
         y = ys + yl[t].view(1, 1, 8, 16)
 
@@ -998,6 +1013,150 @@ def test_sliced_k2_walk_equals_the_plain_walk(case):
     assert set(lay[3].tolist()) >= ({0, 1} if case == "K2 build" else
                                     {0, 1, 2, 3})
     if case in ("deep", "overflow"):  # the boundary ties: the earlier +0.0
+        zt = z[-1][:, :16]
+        assert int((zt == 0.0).sum()) > 20
+        assert not torch.signbit(zt[zt == 0.0]).any()
+
+
+@pytest.mark.parametrize("case", sorted(GROUPED))
+def test_sliced_b9d_walk_equals_the_plain_walk(case):
+    """B9d as its kernel walks it (B1's slab work items with every skip at
+    0, live iff idx < depth), merged in slot order, equals the plain walk
+    bit for bit (z as int32, ids): clamped rowptr, one group and the
+    +0.0 / -0.0 ties across slab boundaries included."""
+    depths, r_cap = GROUPED[case]
+    rows, rowptr, gdepth, _gskip, xl, yl = _grouped_entries(11, depths,
+                                                             r_cap)
+    G = len(depths)
+    z, e = _sliced_grouped(rows, rowptr, gdepth, torch.zeros_like(gdepth),
+                           xl, yl, G)
+    z_r, e_r = RG.tile_eval_grouped_ref(rows, rowptr, gdepth, xl, yl, G)
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+    if case in ("deep", "overflow"):  # the boundary ties: the earlier +0.0
+        zt = z[-1][:, :16]
+        assert int((zt == 0.0).sum()) > 20
+        assert not torch.signbit(zt[zt == 0.0]).any()
+
+
+def _direct_entries(seed, depths):
+    """B9e's inputs (src_pair, goff, gdepth, gchunks, xl, yl) from a random
+    rows128 layout (``_grouped_entries``): slot g of group t's entries are
+    its rows from the group's first, laid out as one strip of the
+    pair-ordered table, strips in (group, slot) order but the shallowest
+    live strip of the deepest group last, so its later slabs read
+    clamped at p_max. Channels 16-31 hold noise (the walk reads 0-15),
+    the 32 rows past p_max zeros, as the build leaves them; the deepest
+    group's slot 0 carries +0.0 / -0.0 ties across its slab boundaries."""
+    rows, rowptr, gdepth, _gskip, xl, yl = _grouped_entries(seed, depths,
+                                                            1 << 12)
+    G = len(depths)
+    rows = rows.view(-1, 8, 16)
+    gd = gdepth.view(G, 8)
+    gchunks = (gd.amax(1) + 31) // 32
+    deep = int(gchunks.argmax())
+    live = torch.nonzero(gd[deep] > 0)[:, 0]
+    last = (deep, int(live[gd[deep][live].argmin()]))
+    order = [(t, g) for t in range(G) for g in range(8) if (t, g) != last]
+    goff = torch.zeros((G, 8), dtype=torch.int32)
+    strips, p = [], 0
+    for t, g in order + [last]:
+        d, lo = int(gd[t, g]), int(rowptr[t])
+        goff[t, g] = p
+        strips.append(rows[lo:lo + d, g])
+        p += d
+    noise = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -1e3, 1e3, (p, 16)).astype(np.float32))
+    src_pair = torch.cat([torch.cat([torch.cat(strips), noise], 1),
+                          torch.zeros((32, 32))])
+    return (src_pair, goff.view(-1), gdepth, gchunks.to(torch.int32), xl,
+            yl)
+
+
+def _deep_soup_inputs():
+    """The random 48x96 soup with 1,500 small triangles stacked in front of
+    one spot: one group far deeper than the rest."""
+    pos9, attrs_t, mvp = _walk_inputs("cpu", T=3000, seed=5)
+    rng = np.random.default_rng(7)
+    stack = (np.repeat(rng.normal(0, 0.1, (1500, 3)), 3, 0)
+             + rng.normal(0, 0.05, (4500, 3))).astype(np.float32)
+    spos9 = torch.from_numpy(stack).view(1500, 3, 3).permute(1, 2, 0).reshape(
+        9, 1500)
+    return (torch.cat([pos9, spos9], 1),
+            torch.cat([attrs_t, attrs_t[:, :1500]], 1), mvp)
+
+
+# B9e's layouts: the subtile4 build of the random 48x96 soup (at generous
+# caps, with one group far deeper than the rest, at a pair_cap that
+# overflows), and random strips (a group of 0 chunks, a strip clamped at
+# p_max, +0.0 / -0.0 ties across slab boundaries in a group of 37 slabs)
+DIRECT = {"soup": (32 * 512, 1 << 16, 6), "deep soup": (32 * 512, 1 << 16, 6),
+          "overflow": (64, 2048, 6), "zero chunks": GROUPED["generous"][0],
+          "clamp": GROUPED["one group"][0], "ties": GROUPED["deep"][0]}
+
+
+def _direct_layout(case):
+    """(B9e's args (src_pair, goff, gdepth, gchunks, xl, yl), grp_cap,
+    n_pairs or None) of a DIRECT case on the CPU."""
+    if case in ("zero chunks", "clamp", "ties"):
+        return _direct_entries(13, DIRECT[case]), len(DIRECT[case]), None
+    pos9, attrs_t, mvp = (_deep_soup_inputs() if case == "deep soup" else
+                          _walk_inputs("cpu", T=3000, seed=5))
+    cm, bbox = S.setup_2dh_fused_ref(pos9, attrs_t, mvp, 48, 96)
+    lay, _fn, _ref = _gen_layout("B9e", cm, bbox, DIRECT[case])
+    return lay[:-4], DIRECT[case][2], int(lay[-2])
+
+
+def _sliced_direct(src_pair, goff, gdepth, gchunks, xl, yl, grp_cap):
+    """B9e as its kernel walks it: every work item of ``direct_work_items``
+    staged from 8 strips (slot g from src_pair rows min(goff + c*32,
+    p_max) + r, channels 0-15), walked and folded as ``_sliced_fold``."""
+    p_max = src_pair.shape[0] - RG.CHUNK_RG
+    goff = torch.clamp(goff.long(), min=0).view(grp_cap, 8)
+    r_off = torch.arange(RG.CHUNK_RG)[:, None]
+
+    def stage(t, c):
+        start = torch.clamp(goff[t] + c * RG.CHUNK_RG, max=p_max)
+        return src_pair[start[None, :] + r_off, :16].view(-1, 1, 8, 16)
+
+    return _sliced_fold(RG.direct_work_items(gchunks, p_max), stage, gdepth,
+                        torch.zeros_like(gdepth), xl, yl, grp_cap)
+
+
+@pytest.mark.parametrize("case", list(DIRECT))
+def test_sliced_direct_walk_equals_the_plain_walk(case):
+    """B9e as its kernel walks it, slab by slab from its work list (each
+    slot's strip read on its own) and merged in slot order, equals the
+    plain walk bit for bit (z as int32, ids), and the list's slots stay
+    under the bound the partials are sized by: the subtile4 builds (a
+    deep group, an overflowing pair_cap), a group of 0 chunks, a strip
+    clamped at p_max, +0.0 / -0.0 ties across slab boundaries."""
+    lay, G, n_pairs = _direct_layout(case)
+    src_pair, goff, gdepth, gchunks = lay[:4]
+    p_max = src_pair.shape[0] - RG.CHUNK_RG
+    slots, groups, slabs = RG.direct_work_items(gchunks, p_max)
+    first, n = RG.group_slots(RG.direct_rowptr(
+        gchunks, RG.direct_n_slots(p_max, G)))
+    assert torch.equal(n, gchunks.long())
+    assert int(n.sum()) == slots.numel()
+    assert torch.equal(slots, first[groups] + slabs)
+    assert int(slots.max()) < RG.direct_n_slots(p_max, G)
+    z, e = _sliced_direct(*lay, G)
+    z_r, e_r = RG.tile_eval_direct_ref(*lay, G)
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+    if case == "overflow":
+        assert p_max < n_pairs
+    elif case == "deep soup":
+        assert int(gchunks.max()) >= 20
+    elif case == "zero chunks":
+        empty = gchunks == 0
+        assert empty.any() and (e[empty] == -1).all()
+        assert torch.isinf(z[empty]).all()
+    elif case == "clamp":
+        ends = goff + (gchunks.repeat_interleave(8) - 1) * RG.CHUNK_RG
+        assert bool((ends > p_max).any())
+    elif case == "ties":  # the boundary ties: the earlier +0.0
         zt = z[-1][:, :16]
         assert int((zt == 0.0).sum()) > 20
         assert not torch.signbit(zt[zt == 0.0]).any()
@@ -1299,6 +1458,44 @@ def test_grouped_skip_kernel_on_the_work_list_equals_plain_on_cuda(
     z_r, e_r = RG.tile_eval_grouped_skip_ref(*lay, len(depths))
     torch.cuda.synchronize()
     assert RG.launches == 1
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPED))
+def test_grouped_kernel_on_the_work_list_equals_plain_on_cuda(
+        cuda_device, case, zero_counts):
+    """B9d's slab work items and merge on the random layouts with every
+    skip at 0 (a group of 37 slabs with +0.0 / -0.0 boundary ties, clamped
+    rowptr and the re-read live rows under it, one group): z and ids bit
+    for bit equal to the plain walk; one call counts one launch."""
+    depths, r_cap = GROUPED[case]
+    rows, rowptr, gdepth, _gskip, xl, yl = (
+        x.to(cuda_device) for x in _grouped_entries(11, depths, r_cap))
+    z, e = RG.tile_eval_grouped(rows, rowptr, gdepth, xl, yl, len(depths))
+    z_r, e_r = RG.tile_eval_grouped_ref(rows, rowptr, gdepth, xl, yl,
+                                        len(depths))
+    torch.cuda.synchronize()
+    assert RG.launches_grouped == 1
+    assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
+    assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DIRECT))
+def test_direct_kernel_on_the_work_list_equals_plain_on_cuda(
+        cuda_device, case, zero_counts):
+    """B9e's slab work items (strips staged per slot, the gchunks prefix
+    formed on the device) and merge on the sliced test's layouts: z and
+    ids bit for bit equal to the plain walk; one call counts one
+    launch."""
+    lay, G, _n_pairs = _direct_layout(case)
+    lay = [x.to(cuda_device) for x in lay]
+    z, e = RG.tile_eval_direct(*lay, G)
+    z_r, e_r = RG.tile_eval_direct_ref(*lay, G)
+    torch.cuda.synchronize()
+    assert RG.launches_direct == 1
     assert torch.equal(e, e_r) and int((e >= 0).sum()) > 300
     assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
 
