@@ -44,11 +44,12 @@ from ascii_renderer_tpu_torch.backends.pt_core import (
 from ascii_renderer_tpu_torch.core import quantize
 from ascii_renderer_tpu_torch.core import threefry as TF
 from ascii_renderer_tpu_torch.core.camera import (Camera, camera_basis,
-                                                  ndc_grid, ray_dirs)
+                                                  ndc_grid)
 from ascii_renderer_tpu_torch.core.fp import sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.ops import pt_kernel as PK
+from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
 _GOLDEN = -1640531527  # int32 golden-ratio stride between batch seeds
@@ -414,17 +415,6 @@ def atlas_ok(scene: SceneData) -> bool:
     return not (ah > 1 and aw > 1) or ah * aw <= PK.MAX_ATLAS_TEXELS
 
 
-def _core_ray_dirs(px, py, basis):
-    """normalize(px*uu + py*vv + focal*ww) as the reference's eager ray
-    grid rounds it: the components in its order, each operation on its
-    own, over the fused norm of ``jnp.linalg.norm`` (pt_core.ray_unit)."""
-    uu, vv, ww, focal = basis
-    fw = focal * ww
-    return PC.ray_unit(torch.stack(
-        [px * uu[i].item() + py * vv[i].item() + fw[i].item()
-         for i in range(3)], dim=-1))
-
-
 def _render_core(scene, cam, rows, cols, pixel_aspect, spp, bounces, lcol,
                  nee, sample_batch, key, light_center, light_radius, dev):
     """render_pt's XLA-core branch (pathtrace.py:558-722 of the
@@ -441,7 +431,7 @@ def _render_core(scene, cam, rows, cols, pixel_aspect, spp, bounces, lcol,
                                bounces=bounces, light_color=lcol, nee=nee)
 
     with record_function("pt.rays"):
-        rd0 = _core_ray_dirs(px, py, basis)
+        rd0 = ray_grid(px, py, basis)
     with record_function("pt.core"):
         col0, ov0, fetched = trace(pos.expand(rows, cols, 3), rd0,
                                    TF.fold_in(key, 0xC0FFEE))
@@ -460,7 +450,7 @@ def _render_core(scene, cam, rows, cols, pixel_aspect, spp, bounces, lcol,
             use_jit = (s_idx > 0)[:, None, None] & ~fetched[None]
             jx = torch.where(use_jit, rpof[..., 0] * aspect, 0.0)
             jy = torch.where(use_jit, rpof[..., 1], 0.0)
-            rd = _core_ray_dirs(px[None] + jx, py[None] + jy, basis)
+            rd = ray_grid(px[None] + jx, py[None] + jy, basis)
         with record_function("pt.core"):
             col, ov, _pf = trace(pos.expand(B, rows, cols, 3), rd, k_path)
         with record_function("pt.reduce"):
@@ -494,7 +484,7 @@ def _centre_rays(cam: Camera, rows: int, cols: int, pixel_aspect, device):
     ``device``."""
     basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
     px, py, aspect = ndc_grid(rows, cols, pixel_aspect, device)
-    return basis, px, py, aspect, ray_dirs(px, py, basis)
+    return basis, px, py, aspect, ray_grid(px, py, basis)
 
 
 def primary_ray_grid(cam: Camera, rows: int, cols: int, pixel_aspect,
@@ -539,7 +529,7 @@ def batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs: int, s_idx):
     use_jit = (s_idx > 0)[:, None] & ~fetched.reshape(1, rows * cols)
     jx = torch.where(use_jit, jx, 0.0).reshape(B, rows, cols)
     jy = torch.where(use_jit, jy, 0.0).reshape(B, rows, cols)
-    return ray_dirs(px[None] + jx, py[None] + jy, basis)
+    return ray_grid(px[None] + jx, py[None] + jy, basis)
 
 
 def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,

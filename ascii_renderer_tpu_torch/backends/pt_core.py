@@ -9,10 +9,11 @@ and vectors are triples of scalar channels (``V3``), as in the reference.
 Rounding follows the reference called eagerly (``render_pt`` without
 ``jax.jit``, as its goldens were rendered): each operation rounds on its
 own, in the reference's order, except inside JAX's own jitted helpers,
-where its compiler fuses products into adds (``ray_unit``:
-``jnp.linalg.norm``). ``sqrt`` and ``1/sqrt`` are taken in float64 and
-rounded once (``core/fp.sqrt32``, ``rsqrt32``), and so are ``sin``,
-``cos`` and ``pow``, so the CPU and CUDA tensors of the port agree.
+where its compiler fuses products into adds (the ray grid's
+``jnp.linalg.norm``: ``core/camera._norm3``). ``sqrt`` and ``1/sqrt``
+are taken in float64 and rounded once (``core/fp.sqrt32``, ``rsqrt32``),
+and so are ``sin``, ``cos`` and ``pow``, so the CPU and CUDA tensors of
+the port agree.
 Divisions are tensor by tensor (``quantize.fdiv``: a CUDA tensor divided
 by a Python float is not IEEE).
 """
@@ -24,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ascii_renderer_tpu_torch.core import quantize
-from ascii_renderer_tpu_torch.core.fp import fma32, rsqrt32, sqrt32
+from ascii_renderer_tpu_torch.core.fp import rsqrt32, sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 
 BIG = 1e30
@@ -92,15 +93,6 @@ def norm(a: V3):
 
 def gather(v: V3, idx) -> V3:
     return V3(v.x[idx], v.y[idx], v.z[idx])
-
-
-def ray_unit(rd: torch.Tensor) -> torch.Tensor:
-    """rd [..., 3] / jnp.linalg.norm(rd, axis=-1, keepdims=True): the
-    norm's sum of squares fuses each product into the running sum (x*x,
-    then fma(y, y, .), then fma(z, z, .)), as JAX's jitted norm rounds."""
-    x, y, z = rd[..., 0], rd[..., 1], rd[..., 2]
-    n = sqrt32(fma32(z, z, fma32(y, y, x * x)))
-    return rd / n[..., None]
 
 
 # --------------------------------------------------------------------------

@@ -46,7 +46,7 @@ from torch.profiler import record_function as stage
 
 from ascii_renderer_tpu_torch.core import quantize as Q
 from ascii_renderer_tpu_torch.core.camera import Camera
-from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
+from ascii_renderer_tpu_torch.core.fp import fma32, libm32, sqrt32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
 from ascii_renderer_tpu_torch.ops import raster_group as RG
@@ -89,17 +89,10 @@ _GROUPED_MIN_TRIS = 32768   # RasterBackend: headline path from here up
 # constant taken as a product with the constant's float32 reciprocal, and
 # the reductions (norm, matrix products) accumulated in index order with
 # fused multiply-adds.
-def _trig(fn, x) -> torch.Tensor:
-    """fn of a float32 scalar, correctly rounded to float32 (through
-    Python's float64 libm): the same on every host, unlike torch's CPU
-    trig, whose vectorised paths differ by an ulp between builds."""
-    return torch.tensor(fn(float(x)), dtype=torch.float32)
-
-
 def perspective(fovy_rad, aspect: float, near: float = NEAR,
                 far: float = FAR) -> torch.Tensor:
     fovy = torch.as_tensor(fovy_rad, dtype=torch.float32).cpu()
-    f = torch.reciprocal(_trig(math.tan, torch.clamp(fovy * 0.5, min=1e-6)))
+    f = torch.reciprocal(libm32(math.tan, torch.clamp(fovy * 0.5, min=1e-6)))
     nf = 1.0 / (near - far)
     m = torch.zeros((4, 4), dtype=torch.float32)
     m[0, 0] = f * torch.reciprocal(torch.tensor(aspect, dtype=torch.float32))
@@ -143,8 +136,8 @@ def camera_mvp(cam: Camera, rows: int, cols: int,
                pixel_aspect: float) -> torch.Tensor:
     """proj @ view, f32 [4, 4] on the CPU whatever the camera's device, so
     every device renders from the same matrix."""
-    cp, sp = _trig(math.cos, cam.pitch), _trig(math.sin, cam.pitch)
-    cy, sy = _trig(math.cos, cam.yaw), _trig(math.sin, cam.yaw)
+    cp, sp = libm32(math.cos, cam.pitch), libm32(math.sin, cam.pitch)
+    cy, sy = libm32(math.cos, cam.yaw), libm32(math.sin, cam.yaw)
     aspect = max(1e-6, (cols / max(1, rows)) * pixel_aspect)
     proj = perspective(cam.fov_y, aspect)
     pos = cam.pos.cpu()

@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
+from ascii_renderer_tpu_torch.core.fp import fma32, libm32, sqrt32
 
 _PITCH_LIMIT = math.pi * 0.5 - 0.1  # just shy of +/-90 deg (js/camera.js:34)
 
@@ -109,8 +109,8 @@ def update_camera(cam: Camera, inputs: CameraInputs, dt) -> Camera:
 
     move = cam.speed * dt
     zero = torch.zeros_like(yaw)
-    cy = _f32(math.cos(float(yaw)), yaw.device)
-    sy = _f32(math.sin(float(yaw)), yaw.device)
+    cy = libm32(math.cos, yaw, yaw.device)
+    sy = libm32(math.sin, yaw, yaw.device)
     fwd = torch.stack([cy, zero, sy])
     right = torch.stack([sy, zero, -cy])
     pos = fma32(fwd, move * (inputs.forward - inputs.back), cam.pos)
@@ -120,37 +120,44 @@ def update_camera(cam: Camera, inputs: CameraInputs, dt) -> Camera:
     return cam.replace(pos=pos, yaw=yaw, pitch=pitch)
 
 
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.stack([a[1] * b[2] - a[2] * b[1],
-                        a[2] * b[0] - a[0] * b[2],
-                        a[0] * b[1] - a[1] * b[0]])
+def _cross(a, b) -> torch.Tensor:
+    """jnp.cross as XLA fuses it: a1*b2 - a2*b1 -> fma(a1, b2, -(a2*b1))."""
+    return torch.stack([fma32(a[1], b[2], -(a[2] * b[1])),
+                        fma32(a[2], b[0], -(a[0] * b[2])),
+                        fma32(a[0], b[1], -(a[1] * b[0]))])
 
 
-def _norm3(a: torch.Tensor) -> torch.Tensor:
-    return sqrt32(a[0] * a[0] + a[1] * a[1] + a[2] * a[2])
+def _norm3(a) -> torch.Tensor:
+    """jnp.linalg.norm over the three components a[0..2] (tensors of one
+    shape) as XLA fuses its sum of squares: x*x, then fma(y, y, .), then
+    fma(z, z, .); the root correctly rounded."""
+    return sqrt32(fma32(a[2], a[2], fma32(a[1], a[1], a[0] * a[0])))
 
 
 def camera_basis(yaw, pitch, fov_y):
     """Orthonormal camera frame used by every backend (contract 4), on the
     host like the rest of the camera: float32 tensors on ``yaw``'s device.
+    Rounds as the reference's eager call, whose norms and cross products
+    are jitted helpers (``_norm3``, ``_cross``); cos, sin and tan through
+    ``core/fp.libm32``.
 
     Returns (uu, vv, ww, focal): ww = look dir, uu = right, vv = up,
     focal = 1/tan(fovY/2) (ref: pathtrace_shader.js:195-201)."""
-    cp, sp = torch.cos(pitch), torch.sin(pitch)
-    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    dev = yaw.device
+    cp, sp = libm32(math.cos, pitch, dev), libm32(math.sin, pitch, dev)
+    cy, sy = libm32(math.cos, yaw, dev), libm32(math.sin, yaw, dev)
     ww = torch.stack([cp * cy, sp, cp * sy])
     ww = ww / _norm3(ww)
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=ww.device)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
     uu = _cross(ww, up)
     nu = _norm3(uu)
     # Degenerate straight-up/down guard (ref: `if (length(uu) < 1e-3)`).
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
-                          device=ww.device)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
     uu = torch.where(nu < 1e-3, x_axis, uu / torch.clamp(nu, min=1e-20))
     vv = _cross(uu, ww)
     vv = vv / _norm3(vv)
-    one = torch.ones((), dtype=torch.float32, device=ww.device)
-    focal = one / torch.clamp(torch.tan(0.5 * fov_y), min=1e-6)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    focal = one / torch.clamp(libm32(math.tan, 0.5 * fov_y, dev), min=1e-6)
     return uu, vv, ww, focal
 
 
@@ -174,16 +181,16 @@ def ndc_grid(rows: int, cols: int, pixel_aspect: float, device):
 
 
 def ray_dirs(px, py, basis) -> torch.Tensor:
-    """normalize(px*uu + py*vv + focal*ww) -> f32 [*px.shape, 3], each
-    component in the reference's order with IEEE float32 ops, so the CPU
-    and CUDA grids agree bit for bit. ``basis`` is camera_basis's tuple
-    (host tensors)."""
+    """normalize(px*uu + py*vv + focal*ww) -> f32 [*px.shape, 3] as the
+    reference's eager grid rounds it: each component in its order with
+    one IEEE float32 operation at a time, over the fused norm of
+    ``jnp.linalg.norm`` (``_norm3``), so the CPU and CUDA grids agree bit
+    for bit. ``basis`` is camera_basis's tuple (host tensors)."""
     uu, vv, ww, focal = basis
     fw = focal * ww
     comps = [px * uu[i].item() + py * vv[i].item() + fw[i].item()
              for i in range(3)]
-    n = sqrt32(comps[0] * comps[0] + comps[1] * comps[1]
-               + comps[2] * comps[2])
+    n = _norm3(comps)
     return torch.stack([c / n for c in comps], dim=-1)
 
 

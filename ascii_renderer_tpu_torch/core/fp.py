@@ -57,6 +57,15 @@ def fma32(a, b, c) -> torch.Tensor:
     return torch.where(tie, torch.where(err > 0, up, down).float(), r)
 
 
+def libm32(fn, x, device=None) -> torch.Tensor:
+    """``fn`` (a ``math`` function) of a float32 scalar, taken in float64
+    through Python's libm and rounded once to float32: the same on every
+    host, unlike torch's CPU trig, whose vectorised paths differ by an ulp
+    between builds (XLA's float32 trig differs from it on a few percent of
+    arguments, tests/test_torch_camera_exact.py)."""
+    return torch.tensor(fn(float(x)), dtype=torch.float32, device=device)
+
+
 def sqrt32(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (CUDA's ``sqrtf``). Where a
     caller needs ``1 / sqrtf(x)``, it takes ``torch.reciprocal`` of this."""

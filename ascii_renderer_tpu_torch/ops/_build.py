@@ -71,8 +71,10 @@ SIGNATURES = {
     #  nee, next_ray, stream)
     "pt_trace_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
                         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    # (idx, ovr, out, H, W, radius, thresh, stream)
-    "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (px, py, out, n, basis9_host, stream)
+    "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
+    # (idx, ovr, out, H, W, radius, thresh, cells_per_thread, stream)
+    "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (data, offsets, z, tid, part, n_slots, n_tiles, tiles_x, n_entries,
     #  mm, stream)
     "bins_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -8,10 +8,11 @@ The setup stages emit channel-major [C, N] planes; the row-gather
 consumers (the walk source, the deferred-shade and plane tables) need
 row-major [N, W] arrays, one contiguous array per channel span. The
 blocked [C, N/128, 128] input of B3 is the flat [C, N] one, so every
-wrapper launches the same span kernel. The reference pads N to a multiple
-of BLK inside its kernels and drops the pad rows; the span kernel takes
-any N. The transpose is an exact copy, so kernel and plain version agree
-bit for bit.
+wrapper launches the same span kernel, once per span: a thread gathers
+one 16-byte quad of the span's contiguous output and stores it whole.
+The reference pads N to a multiple of BLK inside its kernels and drops
+the pad rows; the span kernel takes any N. The transpose is an exact
+copy, so kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations

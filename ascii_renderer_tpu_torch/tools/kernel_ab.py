@@ -1,7 +1,8 @@
 """A/B of the path-trace megakernel B5, the bin walks B6 / B6', the
-fused-shading walk B8, the grouped walks B1, B9d, B9e and B9f and the
-subtile walks B9a, B9b and B9c between two checkouts of the repo on one
-card.
+fused-shading walk B8, the grouped walks B1, B9d, B9e and B9f, the
+subtile walks B9a, B9b and B9c, the modal vote B4 and the packs B3, B7
+and B7', and the frame median and busy time of the path tracer's frames,
+between two checkouts of the repo on one card.
 
 Each side runs in its own process with its own checkout's
 ``ascii_renderer_tpu_torch`` (kernels built from that checkout's
@@ -11,7 +12,8 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
 
 - B5 at every launch shape of the PT runs (``chip_smoke._pt_batch``): the
   reference run's batch (110,592 rays) and probe (3,456), the HD arm's
-  probe (518,400) and batch (4,147,200);
+  probe (518,400) and batch (4,147,200), on rays made in float64 by this
+  tool (``_shared_rays``), the same on both sides;
 - B6 and B6' at the shapes the binned paths give them
   (``chip_smoke.B6_TIMED``): the entry() room 96x36, the teapot 240x135 and
   the mid-scale HD arm 960x540;
@@ -29,7 +31,22 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
   ``walk_grouped_skip_kernel`` does not contain it), B9e's
   ``walk_direct_kernel`` (+ ``_merge``), B9a's
   ``subtile_walk_expanded_kernel`` (+ ``_merge``), B9b's and B9c's
-  ``subtile_walk_kernel`` (+ ``_merge``).
+  ``subtile_walk_kernel`` (+ ``_merge``);
+- B4 (``modal_kernel``) at 540x960, radius 2, thresh 12, on seeded random
+  planes (10 indices, 10% overrides), on the same indices with no
+  override and on the headline frame 0's own planes
+  (``chip_smoke.b4_headline_inputs``), and at 36x96 (random);
+- the span kernel (``pack_span_kernel``, one launch a span): B7 at the
+  plane tables of the teapot 240x135 and the mid-scale HD arm
+  (``chip_smoke._mid_prep``), B7' at [40, 69632] (spans (0, 16), (16, 40))
+  and B3 at the headline frame 0's setup block
+  (``chip_smoke.b3_headline_inputs``);
+- the frame median (wall ms over 20 frames, ``chip_smoke._timed``) and the
+  device busy ms a frame (``chip_smoke.profile_frames``, 3 frames) of the
+  path tracer's reference run (96x36, spp 64) and HD arm (960x540, spp 8)
+  through ``Renderer``: their ray grids are the port's own, so this is
+  where a change of the ray-grid arithmetic shows (frames are not
+  digested: each side's rays are its own).
 
 Both sides' outputs must be bit-identical (a digest per kernel and shape);
 the inputs are built by the side's own package from this checkout's
@@ -83,15 +100,50 @@ def _digest(outs) -> str:
     return h.hexdigest()[:16]
 
 
+def _shared_rays(cs, dev, rows: int, cols: int, B: int):
+    """B5's ray blocks of a rows x cols batch of B samples at the poster
+    pose, made here in float64 and rounded once, so that both sides trace
+    the same rays whatever their own ray grids round: the cell centres,
+    samples s > 0 jittered by seeded uniform draws as render_pt jitters
+    them. Blocked by the side's own ``_blockify``."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    cam = cs._pt_camera()
+    yaw, pitch = float(cam.yaw), float(cam.pitch)
+    ww = np.array([np.cos(pitch) * np.cos(yaw), np.sin(pitch),
+                   np.cos(pitch) * np.sin(yaw)])
+    uu = np.cross(ww, [0.0, 1.0, 0.0])
+    uu /= np.linalg.norm(uu)
+    vv = np.cross(uu, ww)
+    focal = 1.0 / np.tan(0.5 * float(cam.fov_y))
+    aspect = cols / rows * cs.PIXEL_ASPECT
+    px = (-1.0 + 2.0 * (np.arange(cols) + 0.5) / cols) * aspect
+    py = -1.0 + 2.0 * (np.arange(rows)[::-1] + 0.5) / rows
+    jit = np.random.default_rng(rows * cols + B).random((B, rows, cols, 2))
+    jit = 2.0 * (jit - 0.5) / rows
+    jit[0] = 0.0
+    x = px[None, None, :] + jit[..., 0] * aspect
+    y = py[None, :, None] + jit[..., 1]
+    rd = (x[..., None] * uu + y[..., None] * vv + focal * ww)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    n = B * rows * cols
+    return PT._blockify(torch.from_numpy(rd.astype(np.float32)).to(dev), n,
+                        -(-n // 1024))
+
+
 def worker(root: str) -> dict:
-    """Times B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a, B9b and B9c with the
-    package of checkout ``root``."""
+    """Times B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a, B9b, B9c, B4, B7,
+    B7' and B3, and the PT frames' median and busy time, with the package
+    of checkout ``root``."""
     sys.path.insert(0, root)
     import torch
 
     import ascii_renderer_tpu_torch as pkg
     if not Path(pkg.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise RuntimeError(f"imported {pkg.__file__}, not {root}'s package")
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    from ascii_renderer_tpu_torch.ops import pack as PKS
     from ascii_renderer_tpu_torch.ops import pt_kernel as PK
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
     from ascii_renderer_tpu_torch.ops import raster_group as RG
@@ -100,10 +152,13 @@ def worker(root: str) -> dict:
     dev = torch.device(DEVICE)
     out = {"root": root, "b5_ms": {}, "b6_ms": {}, "b8_ms": {}, "b1_ms": {},
            "b9d_ms": {}, "b9e_ms": {}, "b9f_ms": {}, "b9a_ms": {},
-           "b9b_ms": {}, "b9c_ms": {}, "digest": {}}
+           "b9b_ms": {}, "b9c_ms": {}, "b4_ms": {}, "b7_ms": {},
+           "b7s_ms": {}, "b3_ms": {}, "frame_ms": {}, "busy_ms": {},
+           "digest": {}}
     scene = cs._pt_scene(device=dev)
     for rows, cols, B, label in PT_SHAPES:
         args, kw, _uid, n = cs._pt_batch(dev, scene, rows, cols, B, 1)
+        args = (*args[:3], _shared_rays(cs, dev, rows, cols, B), *args[4:])
         out["digest"][f"B5 {label}"] = _digest(PK.trace_blocks_raw(*args,
                                                                    **kw))
         out["b5_ms"][f"{label} ({n} rays)"] = cs._device_ms(
@@ -163,6 +218,51 @@ def worker(root: str) -> dict:
         out[f"{walk.lower()}_ms"][f"bunny {path}"] = cs._device_ms(
             lambda: fn(*args), kernel, _per_call(RS, wrapper))
         del args
+    g = torch.Generator().manual_seed(0)
+    planes = {}
+    for h, w in ((540, 960), (36, 96)):
+        planes[f"random {h}x{w}"] = (
+            torch.randint(0, 10, (h, w), generator=g,
+                          dtype=torch.int32).to(dev),
+            (torch.rand((h, w), generator=g) < 0.1).to(dev))
+    planes["headline frame 0 540x960"] = cs.b4_headline_inputs(dev)
+    # the random indices with no override: what the valid tests cost
+    planes["random, no override, 540x960"] = (
+        planes["random 540x960"][0],
+        torch.zeros((540, 960), dtype=torch.bool, device=dev))
+    for label, (idx, ovr) in planes.items():
+        out["digest"][f"B4 {label}"] = _digest(
+            [AK.modal_filter_kernel(idx, ovr, 2, 12)])
+        out["b4_ms"][label] = cs._device_ms(
+            lambda: AK.modal_filter_kernel(idx, ovr, 2, 12), "modal_kernel",
+            1)
+    for label, _grid, (_c, chans, _caps) in mid_preps:
+        out["digest"][f"B7 {label}"] = _digest([PKS.pack_channels(chans)])
+        out["b7_ms"][f"{label} [{len(chans)}, {chans[0].numel()}]"] = \
+            cs._device_ms(lambda: PKS.pack_channels(chans),
+                          "pack_span_kernel", 1)
+    cm = torch.randn((40, 544 * 128), generator=g).to(dev)
+    spans = [(0, 16), (16, 40)]
+    out["digest"]["B7' [40, 69632]"] = _digest(
+        PKS.pack_channels_split(cm, spans))
+    out["b7s_ms"]["[40, 69632] two spans"] = cs._device_ms(
+        lambda: PKS.pack_channels_split(cm, spans), "pack_span_kernel",
+        len(spans))
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    for label, cfg, rows, cols in (
+            ("PT reference run 96x36 spp64", Config(), 36, 96),
+            ("PT HD arm 960x540 spp8", Config(path_tracer=PathTracerConfig(
+                samples_per_batch=8)), cs.ROWS, cs.COLS)):
+        frame = cs.run_pt_path(cfg, rows, cols, 1, 3, label)
+        out["frame_ms"][label] = statistics.median(cs._timed(frame, 20))
+        out["busy_ms"][label] = cs.profile_frames(
+            frame, 3, ("pt.", "frame.", "glyph"), label)
+    cm3, spans = cs.b3_headline_inputs(dev)
+    out["digest"]["B3 headline"] = _digest(
+        PKS.pack_channels_split_blocked(cm3, spans))
+    out["b3_ms"][f"headline {list(cm3.shape)} two spans"] = cs._device_ms(
+        lambda: PKS.pack_channels_split_blocked(cm3, spans),
+        "pack_span_kernel", len(spans))
     return out
 
 
@@ -197,7 +297,8 @@ def main() -> int:
         raise AssertionError("the two checkouts' outputs differ")
     summary = {}
     for key in ("b5_ms", "b6_ms", "b8_ms", "b1_ms", "b9d_ms", "b9e_ms",
-                "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms"):
+                "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms", "b4_ms", "b7_ms",
+                "b7s_ms", "b3_ms", "frame_ms", "busy_ms"):
         for shape in runs[0][1][key]:
             summary[f"{key[:-3].capitalize()} {shape}"] = {
                 side: statistics.median(r[key][shape] for s, r in runs

@@ -16,13 +16,18 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      bit-exact; grouped walk (B1: slab work items, then a merge launch;
      its work list printed) winner ids and depths exactly equal;
    - modal vote (B4) at 540x960 and 36x96, radius 1..3, random override
-     masks: exactly equal;
+     masks, and on the headline frame 0's own index and override planes:
+     exactly equal; timed at 540x960 radius 2 on random planes (the
+     record), on the headline's planes and at 36x96;
    - path-trace megakernel (B5) at every launch shape of the PT runs: the
      reference run's batch (110,592 rays, seed 1) and probe (3,456), the HD
      arm's probe (518,400) and batch (4,147,200): ov / fet and radiance
      bit-identical; then a random block gate and a permuted ray order
      with canonical uids: every live ray bit-identical to the plain run,
-     gated blocks zero.
+     gated blocks zero;
+   - the PT ray grid (a kernel for XLA code: no Pallas kernel computes
+     it) at the runs' centre grids and jittered batches, 96x36 and
+     960x540, at two poses: bit for bit; timed at the HD arm's batch.
    Kernel ms is device time (profiler kernel rows over 50 back-to-back
    calls, their count checked against the kernel's launches per call);
    plain ms is CUDA events around whole calls; bound ms is the larger of
@@ -163,14 +168,12 @@ PEAK_FP32_INSTR = 33.5e12
 # one triangle entry of a nearest-hit search, the rest of a bounce, and
 # the NEE arithmetic around a shadow search
 B5_OPS_SPHERE, B5_OPS_TRI, B5_OPS_BOUNCE, B5_OPS_NEE = 25, 43, 250, 60
-# 32-bit integer instructions: 132 SMs x 64 INT32 lanes x 1.98 GHz; shared
-# memory loads: 132 SMs x 32 words a clock x 1.98 GHz
+# 32-bit integer instructions: 132 SMs x 64 INT32 lanes x 1.98 GHz
 PEAK_INT32 = 16.7e12
-PEAK_LDS = 8.36e12
 # B4 integer operations per neighbour and pass that the function needs: the
 # override test, the compare, and the vote's select or the count's add.
 # Loop control and the centre test are left out: a fixed radius unrolls
-# them away
+# them away. The work depends on the planes (_b4_ops)
 B4_OPS = 3
 OUT = os.path.join(ROOT, "smoke_out")
 
@@ -316,21 +319,35 @@ def _b1_layout(src16, bbox, T):
         src16, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap, 8), grp_cap
 
 
-def b1_headline_inputs(dev):
-    """(layout args, grp_cap) of B1 at the headline's frame 0, built by the
-    calling package's own setup and pack (tools/kernel_ab.py)."""
+def _headline_setup(dev):
+    """The headline frame 0's setup block, by the calling package's own
+    setup kernel: (cm [C, R, 128], bbox, B3's spans, T)."""
     import torch
     from ascii_renderer_tpu_torch.backends import raster as R
-    from ascii_renderer_tpu_torch.ops import pack as PK
     from ascii_renderer_tpu_torch.ops import setup2dh as S
     p, n, c = (torch.as_tensor(x).to(dev) for x in _bunny())
     pos9, attrs_t = R.soup_static_prep(p, n, c, _scene(dev))
     mvp = R.camera_mvp(_golden_camera(), ROWS, COLS, PIXEL_ASPECT)
     cm, bb = S.setup_2dh_fused(pos9, attrs_t, mvp, ROWS, COLS)
     tw = R._round_up(3 * (attrs_t.shape[0] // 3) + 3, 8)
-    src16 = PK.pack_channels_split_blocked(cm, [(0, 16), (16, 16 + tw)])[0]
-    lay, grp_cap = _b1_layout(src16, bb, pos9.shape[1])
+    return cm, bb, [(0, 16), (16, 16 + tw)], pos9.shape[1]
+
+
+def b1_headline_inputs(dev):
+    """(layout args, grp_cap) of B1 at the headline's frame 0, built by the
+    calling package's own setup and pack (tools/kernel_ab.py)."""
+    from ascii_renderer_tpu_torch.ops import pack as PK
+    cm, bb, spans, T = _headline_setup(dev)
+    src16 = PK.pack_channels_split_blocked(cm, spans)[0]
+    lay, grp_cap = _b1_layout(src16, bb, T)
     return lay[:6], grp_cap
+
+
+def b3_headline_inputs(dev):
+    """(cm [C, R, 128], spans) of B3 at the headline's frame 0
+    (tools/kernel_ab.py)."""
+    cm, _bb, spans, _T = _headline_setup(dev)
+    return cm, spans
 
 
 def _print_slab_work(lay, grp_cap, label, walk="B1"):
@@ -1287,10 +1304,48 @@ def run_oracle_paths(dev, soup, scene, caps, counters):
     return out, frames
 
 
-def check_modal(dev):
+def b4_headline_inputs(dev, soup=None, scene=None):
+    """B4's inputs at the raster headline's frame 0 (RasterBackend at the
+    golden camera): the ramp-index plane and the override plane that
+    glyph_decide hands the vote, int32 / bool [540, 960]
+    (tools/kernel_ab.py too)."""
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.core import quantize
+    from ascii_renderer_tpu_torch.core.config import Config
+    cfg = Config(pixel_aspect=PIXEL_ASPECT)
+    backend = RasterBackend(cfg, device=dev)
+    backend.set_soup(*(soup or _bunny()), scene or _scene(dev))
+    frame = backend.render(0.0, _golden_camera(), ROWS, COLS, PIXEL_ASPECT)
+    ramp_len = len(cfg.ascii_ramp or quantize.DEFAULT_RAMP)
+    return (quantize.quantize_index(frame.rgb, ramp_len),
+            quantize.is_override(frame.a))
+
+
+def _b4_ops(idx, ovr, radius):
+    """The integer operations the vote needs on these planes: none at an
+    override cell; else B4_OPS a neighbour in the first pass, and again in
+    the second where the candidate could be adopted (cand >= 0 and cand !=
+    the cell's index), one fewer a neighbour and pass where no cell of the
+    window is an override (no override test)."""
+    import torch
+    import torch.nn.functional as F
+    from ascii_renderer_tpu_torch.ascii.modal import modal_candidate
+    cand, _votes = modal_candidate(idx, ovr, radius)
+    k = 2 * radius + 1
+    # the window's cells, the grid edge clamped as the vote clamps it
+    near = F.max_pool2d(F.pad(ovr.float()[None, None], (radius,) * 4,
+                              mode="replicate"), k, stride=1)[0, 0] > 0
+    per = (B4_OPS - 1) + near.long()
+    passes = 1 + ((cand >= 0) & (cand != idx)).long()
+    return int((per * passes * (~ovr).long()).sum()) * (k * k - 1)
+
+
+def check_modal(dev, soup, scene):
     """B4 against its plain version: 540x960 and 36x96, radius 1..3,
-    random indices and override masks; exactly equal. Timed at the raster
-    frame's shape and the config's radius 2 / thresh 12."""
+    random indices and override masks, and the headline frame 0's own
+    planes; exactly equal. Timed at the raster frame's shape and the
+    config's radius 2 / thresh 12, on the random planes (the record) and
+    on the headline's."""
     import torch
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
     g = torch.Generator().manual_seed(0)
@@ -1306,23 +1361,49 @@ def check_modal(dev):
     h, w = ROWS, COLS
     idx = torch.randint(0, 10, (h, w), generator=g, dtype=torch.int32).to(dev)
     ovr = (torch.rand((h, w), generator=g) < 0.1).to(dev)
-    print("B4 modal: exact at 540x960 and 36x96, radius 1-3", flush=True)
-    # each cell reads its 24 neighbours' index and override in both passes
-    neighbours = (2 * 2 + 1) ** 2 - 1
-    bound = _bound(h * w * (4 + 1 + 4), B4_OPS * 2 * neighbours * h * w,
-                   PEAK_INT32)
-    lds = 2 * 2 * neighbours * h * w / PEAK_LDS * 1e3
-    print(f"B4 bound at {h}x{w}, radius 2: {bound[0]:.5f} ms ({bound[1]}: "
-          f"{B4_OPS} integer operations a neighbour and pass at "
-          f"{PEAK_INT32:.3g}/s; bytes alone {h * w * 9 / PEAK_BYTES * 1e3:.5f}"
-          f" ms, the {2 * 2 * neighbours} shared loads a cell {lds:.5f} ms)",
-          flush=True)
+    real_idx, real_ovr = b4_headline_inputs(dev, soup, scene)
+    assert torch.equal(AK.modal_filter_kernel(real_idx, real_ovr, 2, 12),
+                       AK.modal_filter(real_idx, real_ovr, 2, 12)), \
+        "B4 differs on the headline's planes"
+    print(f"B4 modal: exact at 540x960 and 36x96, radius 1-3, and on the "
+          f"headline frame 0's planes ({int(real_ovr.sum())} overrides); "
+          f"{AK.cells_per_thread(h, w)} cells a thread at {h}x{w}, "
+          f"{AK.cells_per_thread(36, 96)} at 36x96", flush=True)
+    # each plane's bound from the operations its data needs (_b4_ops)
+    bound, real_bound = (
+        _bound(h * w * (4 + 1 + 4), _b4_ops(i, o, 2), PEAK_INT32)
+        for i, o in ((idx, ovr), (real_idx, real_ovr)))
+    every = B4_OPS * 2 * ((2 * 2 + 1) ** 2 - 1) * h * w
+    print(f"B4 bound at {h}x{w}, radius 2: random planes {bound[0]:.5f} ms, "
+          f"the headline's {real_bound[0]:.5f} ms ({bound[1]}, "
+          f"{real_bound[1]}: up to {B4_OPS} integer operations a neighbour "
+          f"and pass as the planes need them, at {PEAK_INT32:.3g}/s; "
+          f"every cell, both passes {every / PEAK_INT32 * 1e3:.5f} ms; "
+          f"bytes alone {h * w * 9 / PEAK_BYTES * 1e3:.5f} ms)", flush=True)
     rec = _rec(
         "modal_vote", "modal.cu", "ascii_kernel.py:41", 0.0,
         _device_ms(lambda: AK.modal_filter_kernel(idx, ovr, 2, 12),
                    "modal_kernel", 1),
         _event_ms(lambda: AK.modal_filter(idx, ovr, 2, 12), 20), bound)
     rec["ops_rate"] = PEAK_INT32
+    rec["real_planes_ms"] = _device_ms(
+        lambda: AK.modal_filter_kernel(real_idx, real_ovr, 2, 12),
+        "modal_kernel", 1)
+    rec["ms_36x96"] = _device_ms(
+        lambda: AK.modal_filter_kernel(idx[:36, :96].contiguous(),
+                                       ovr[:36, :96].contiguous(), 2, 12),
+        "modal_kernel", 1)
+    # the same grid at one cell a thread, beside the chosen K
+    one = _device_ms(lambda: AK.modal_filter_kernel(idx, ovr, 2, 12,
+                                                    cells=1),
+                     "modal_kernel", 1)
+    rec["real_planes_bound_ms"] = real_bound[0]
+    print(f"B4 kernel at {h}x{w} r2: random planes {rec['ms']:.5f} ms "
+          f"({one:.5f} at 1 cell a thread; "
+          f"{100 * bound[0] / rec['ms']:.0f}% of the bound), the headline's "
+          f"{rec['real_planes_ms']:.5f} ms "
+          f"({100 * real_bound[0] / rec['real_planes_ms']:.0f}%); 36x96 "
+          f"{rec['ms_36x96']:.5f} ms", flush=True)
     return rec
 
 
@@ -1458,6 +1539,50 @@ def check_pt_kernel(dev):
             print(f"B5 placement: {int(act.sum())}/{nblk} blocks live, "
                   f"every live ray bit-identical under a permuted order, "
                   f"gated blocks zero", flush=True)
+    return rec
+
+
+def check_ray_grid(dev):
+    """The ray grid kernel against its plain version (core/camera.ray_dirs
+    on the same CUDA tensors) at the PT runs' shapes: the centre grids
+    96x36 and 960x540, and a jittered batch of each (32 and 8 samples),
+    at the poster pose and at a pose off the axes; bit for bit. Returns
+    the record (timed at the HD arm's batch)."""
+    import torch
+    from ascii_renderer_tpu_torch.core.camera import (Camera, camera_basis,
+                                                      ndc_grid, ray_dirs)
+    from ascii_renderer_tpu_torch.ops import ray_grid as RYG
+    g = torch.Generator().manual_seed(2)
+    rec = None
+    for cam in (_pt_camera(), Camera.create(pos=(0.3, 1.2, 4.0), yaw=-1.234,
+                                            pitch=0.321)):
+        basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+        for rows, cols, B in ((36, 96, 0), (36, 96, 32), (540, 960, 0),
+                              (540, 960, 8)):
+            px, py, aspect = ndc_grid(rows, cols, PIXEL_ASPECT, dev)
+            if B:
+                jit = ((torch.rand((B, rows, cols, 2), generator=g) - 0.5)
+                       * (2.0 / rows)).to(dev)
+                px, py = px[None] + jit[..., 0] * aspect, py[None] + jit[..., 1]
+            got = RYG.ray_grid(px, py, basis)
+            want = ray_dirs(px, py, basis)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+                f"ray grid differs at {tuple(px.shape)}"
+        n = px.numel()
+        if rec is None:
+            ms = _device_ms(lambda: RYG.ray_grid(px, py, basis),
+                            "ray_grid_kernel", 1)
+            plain = _event_ms(lambda: ray_dirs(px, py, basis), 5)
+            # 8 bytes in and 12 out a ray; ~21 float operations a ray
+            bound = _bound(20 * n, 21 * n)
+            print(f"ray grid: bit-identical at 96x36 and 960x540, centre "
+                  f"and jittered batches, two poses; kernel {ms:.5f} ms, "
+                  f"plain {plain:.3f} ms, bound {bound[0]:.5f} ms "
+                  f"({bound[1]}) at {n} rays", flush=True)
+            rec = _rec("ray_grid", "ray_grid.cu", "", 0.0, ms, plain, bound)
+            # the XLA code it stands for: no Pallas kernel computes the grid
+            rec["replaces"] = "ascii_renderer_tpu/backends/pathtrace.py:394"
     return rec
 
 
@@ -1744,7 +1869,8 @@ def run_pt_path(cfg, rows, cols, n_checked, n_timed, label):
 def profile_frames(frame_fn, n, prefixes, label):
     """torch.profiler over n frames: per-stage host and device ms per frame
     (the record_function ranges), the device's busy share of the wall time,
-    and the top kernels. The full table goes to smoke_out/."""
+    and the top kernels. The full table goes to smoke_out/. Returns the
+    device busy ms a frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1784,6 +1910,7 @@ def profile_frames(frame_fn, n, prefixes, label):
     name = label.replace(" ", "_").replace(",", "")
     with open(os.path.join(OUT, f"profile_{name}.txt"), "w") as fh:
         fh.write(avgs.table(sort_by="self_device_time_total", row_limit=200))
+    return busy
 
 
 # --------------------------------------------------------------------------
@@ -2032,6 +2159,13 @@ def check_pack_channels(dev, mid_preps):
         if label.startswith("mid-scale"):
             chans = list(cm)
             padded = torch.cat([cm, cm.new_zeros((W - C, N))])
+            # the floor under a pack this small: a fill of its output
+            # alone, and of one float
+            out, one = torch.empty((N, W), device=dev), cm.new_zeros(1)
+            fill = _device_ms(lambda: out.fill_(0.0), None, 1)
+            fill1 = _device_ms(lambda: one.fill_(0.0), None, 1)
+            print(f"B7 floor: a fill of the [{N}, {W}] output {fill:.5f} ms, "
+                  f"of one float {fill1:.5f} ms", flush=True)
             bound = _bound(4 * N * (C + W), 0)
             recs.append(_rec(
                 "pack_channels", "pack.cu", "pack.py:95", 0.0,
@@ -2216,6 +2350,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
     from ascii_renderer_tpu_torch.ops import raster_group as RG
+    from ascii_renderer_tpu_torch.ops import ray_grid as RYG
     from ascii_renderer_tpu_torch.ops import raster_subtile as RS
     from ascii_renderer_tpu_torch.ops import setup2dh as S
 
@@ -2252,12 +2387,14 @@ def main() -> int:
                 "raster_bins_walk_shaded": (RB, "launches_shaded"),
                 "raster_subtile_walk": (RS, "launches"),
                 "raster_subtile_walk_packed": (RS, "launches_packed"),
-                "raster_subtile_walk_packed_d": (RS, "launches_packed_d")}
+                "raster_subtile_walk_packed_d": (RS, "launches_packed_d"),
+                "ray_grid": (RYG, "launches")}
     soup = _bunny()
     scene = _scene(dev)
     recs = check_kernels(dev, soup, scene)
-    recs.append(check_modal(dev))
+    recs.append(check_modal(dev, soup, scene))
     recs.append(check_pt_kernel(dev))
+    recs.append(check_ray_grid(dev))
     by_name = {r["name"]: r for r in recs}
 
     # raster headline path: B1-B3, and B4 in the glyph stage
@@ -2322,7 +2459,7 @@ def main() -> int:
     c_ref, ref_fn = _path_counts(counters, lambda: run_pt_path(
         cfg_ref, 36, 96, 4, 20, "PT reference run 96x36 spp64"))
     print(f"launches on the PT reference run: {c_ref}", flush=True)
-    for k in ("pt_megakernel", "modal_vote"):
+    for k in ("pt_megakernel", "ray_grid", "modal_vote"):
         assert c_ref[k] > 0, f"{k} never launched on the PT reference run"
     by_name["pt_megakernel"]["launches"] = c_ref["pt_megakernel"]
     profile_frames(ref_fn, 3, ("pt.", "frame.", "glyph"), "PT reference run")
@@ -2330,7 +2467,7 @@ def main() -> int:
     c_hd, hd_fn = _path_counts(counters, lambda: run_pt_path(
         cfg_hd, ROWS, COLS, 2, 10, "PT HD arm 960x540 spp8"))
     print(f"launches on the PT HD arm: {c_hd}", flush=True)
-    for k in ("pt_megakernel", "modal_vote"):
+    for k in ("pt_megakernel", "ray_grid", "modal_vote"):
         assert c_hd[k] > 0, f"{k} never launched on the PT HD arm"
     profile_frames(hd_fn, 3, ("pt.", "frame.", "glyph"), "PT HD arm")
 
@@ -2375,7 +2512,7 @@ def main() -> int:
     profile_frames(mid_fn, 3, raster_prefixes, "mid-scale HD arm")
     c_pts, pts_fn = _path_counts(counters, lambda: run_pt_step_path(dev))
     print(f"launches on the PT frame step: {c_pts}", flush=True)
-    for k in ("pt_megakernel", "modal_vote"):
+    for k in ("pt_megakernel", "ray_grid", "modal_vote"):
         assert c_pts[k] > 0, f"{k} never launched on the PT frame step"
     profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"), "PT frame step")
 
@@ -2385,7 +2522,8 @@ def main() -> int:
     check_pt_core(dev)
     c_core, core_fn = _path_counts(counters, lambda: run_pt_core_path(dev))
     print(f"launches on the PT core path: {c_core}", flush=True)
-    assert c_core["modal_vote"] > 0 and c_core["pt_megakernel"] == 0
+    assert c_core["modal_vote"] > 0 and c_core["ray_grid"] > 0
+    assert c_core["pt_megakernel"] == 0
     profile_frames(core_fn, 2, ("pt.", "frame.", "glyph"),
                    "PT core wide atlas")
     for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels",
@@ -2393,6 +2531,8 @@ def main() -> int:
         by_name[k]["launches"] = sum(
             c[k] for c in (c_gen, c_entry, c_cube, c_tea, c_mid, c_pts,
                            *c_or.values()))
+    by_name["ray_grid"]["launches"] = sum(
+        c["ray_grid"] for c in (c_ref, c_hd, c_pts, c_core))
     # pack_channels_split has no caller on a driven path (the reference
     # calls it only from its exactness probe): its launches stay 0
 

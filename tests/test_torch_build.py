@@ -14,12 +14,14 @@ import pytest
 import torch
 
 from ascii_renderer_tpu_torch.backends import raster as R
-from ascii_renderer_tpu_torch.core.camera import Camera
+from ascii_renderer_tpu_torch.core.camera import (Camera, camera_basis,
+                                                  ndc_grid, ray_dirs)
 from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import pack as PK
 from ascii_renderer_tpu_torch.ops import raster_bins as RB
 from ascii_renderer_tpu_torch.ops import raster_group as RG
+from ascii_renderer_tpu_torch.ops import ray_grid as RYG
 from ascii_renderer_tpu_torch.ops import raster_subtile as RS
 from ascii_renderer_tpu_torch.ops import setup2dh as S
 
@@ -72,7 +74,8 @@ COUNTERS = ((S, "launches"), (PK, "launches"), (RG, "launches"),
             (RB, "launches"), (RB, "launches_loop"), (S, "launches_packed"),
             (RG, "launches_grouped"), (RG, "launches_direct"),
             (RG, "launches_k2"), (RB, "launches_shaded"), (RS, "launches"),
-            (RS, "launches_packed"), (RS, "launches_packed_d"))
+            (RS, "launches_packed"), (RS, "launches_packed_d"),
+            (RYG, "launches"))
 
 
 @pytest.fixture
@@ -263,6 +266,63 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_versions(zero_counts):
             RS.launches_packed_d) == (0, 0, 0, 0)
 
 
+def test_modal_wrapper_takes_the_override_bytes(zero_counts):
+    """B4's wrapper reaches the kernel path for a tensor off the CPU (a
+    bool override plane passed as its bytes, others compared with 0), and
+    picks K = CELLS cells a thread where that still gives MIN_BLOCKS
+    blocks: the 540 x 960 glyph grid, not the 36 x 96 one; a K asked for
+    must be 1 or CELLS."""
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    meta = torch.device("meta")
+    launches = AK.launches
+    for ovr in (torch.empty((36, 96), dtype=torch.bool, device=meta),
+                torch.empty((36, 96), dtype=torch.uint8, device=meta)):
+        with pytest.raises(ValueError, match="CUDA"):
+            AK.modal_filter_kernel(
+                torch.empty((36, 96), dtype=torch.int32, device=meta), ovr,
+                2, 12)
+    assert AK.launches == launches
+    with pytest.raises(ValueError, match="cells 2"):  # K is 1 or CELLS
+        AK.modal_filter_kernel(torch.zeros((4, 4), dtype=torch.int32),
+                               torch.zeros((4, 4), dtype=torch.bool), 2, 12,
+                               cells=2)
+    assert AK.cells_per_thread(540, 960) == AK.CELLS > 1
+    assert AK.cells_per_thread(36, 96) == 1
+    assert AK.cells_per_thread(1, 1) == 1
+
+
+def _ray_grid_inputs(device, rows, cols, B, seed):
+    """(px, py, basis) of a rows x cols grid at a seeded pose: the centre
+    grid (expanded views) if B == 0, else B jittered samples of it."""
+    rng = np.random.default_rng(seed)
+    cam = Camera.create(pos=(0.0, 1.0, 3.0), yaw=float(rng.uniform(-3, 3)),
+                        pitch=float(rng.uniform(-1.4, 1.4)))
+    basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+    px, py, aspect = ndc_grid(rows, cols, 0.5, device)
+    if B:
+        jit = torch.from_numpy(((rng.random((B, rows, cols, 2)) - 0.5)
+                                * (2.0 / rows)).astype(np.float32))
+        jit = jit.to(device)
+        px, py = px[None] + jit[..., 0] * aspect, py[None] + jit[..., 1]
+    return px, py, basis
+
+
+def test_ray_grid_wrapper_runs_the_plain_version_on_cpu(zero_counts):
+    """The ray grid's wrapper: CPU tensors run core/camera.ray_dirs and
+    launch nothing; tensors on another device reach the kernel path,
+    which takes CUDA tensors only."""
+    px, py, basis = _ray_grid_inputs("cpu", 6, 10, 3, 0)
+    assert torch.equal(RYG.ray_grid(px, py, basis), ray_dirs(px, py, basis))
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        RYG.ray_grid(torch.empty((6, 10), device=meta),
+                     torch.empty((6, 10), device=meta), basis)
+    with pytest.raises(ValueError, match="float32"):
+        RYG.ray_grid(torch.empty((6, 10), dtype=torch.float64, device=meta),
+                     torch.empty((6, 10), device=meta), basis)
+    assert RYG.launches == 0
+
+
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -286,10 +346,17 @@ def test_c_entry_points_match_the_ctypes_signatures():
     assert {k: len(v) for k, v in _build.SIGNATURES.items()} == found
     assert {p.name for p in _build.sources()} == {
         "setup2dh.cu", "pack.cu", "raster_group.cu", "pt_trace.cu",
-        "modal.cu", "raster_bins.cu", "raster_shaded.cu", "raster_subtile.cu"}
+        "modal.cu", "raster_bins.cu", "raster_shaded.cu", "raster_subtile.cu",
+        "ray_grid.cu"}
     for flag in ("-fmad=false", "arch=compute_90a,code=sm_90a"):
         assert flag in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    # the staged span pack that tools/pack_probe.py measures
+    from ascii_renderer_tpu_torch.tools import pack_probe
+    (m,) = re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                       pack_probe.SOURCE.read_text())
+    assert m.group(1) == "pack_staged_launch"
+    assert len(m.group(2).split(",")) == len(pack_probe.SIGNATURE)
 
 
 @pytest.mark.parametrize("mod", (RB, RG, RS), ids=("bins", "group", "subtile"))
@@ -341,20 +408,73 @@ def test_kernels_equal_plain_versions_on_cuda(cuda_device, n_attrs,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,B", [(36, 96, 0), (36, 96, 32),
+                                         (540, 960, 0), (540, 960, 8),
+                                         (1, 1, 0), (7, 13, 3)])
+def test_ray_grid_kernel_equals_plain_on_cuda(cuda_device, rows, cols, B,
+                                              zero_counts):
+    """The ray grid kernel equals core/camera.ray_dirs bit for bit, on the
+    CPU and on the same CUDA tensors, at the PT runs' centre grids and
+    jittered batches and at odd sizes, over seeded poses; one launch a
+    call."""
+    for seed in range(3):
+        px, py, basis = _ray_grid_inputs(cuda_device, rows, cols, B, seed)
+        got = RYG.ray_grid(px, py, basis)
+        torch.cuda.synchronize()
+        assert got.shape == (*px.shape, 3)
+        for want in (ray_dirs(px, py, basis).cpu(),
+                     ray_dirs(px.cpu(), py.cpu(), basis)):
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)), seed
+    assert RYG.launches == 3
+
+
+# B4's planes: (indices, override mask) makers over a numpy generator
+MODAL_PLANES = {
+    "random": lambda rng, h, w: (rng.integers(0, 6, (h, w)),
+                                 rng.random((h, w)) < 0.1),
+    # every int32, -1 and INT_MIN among them: no value is a sentinel
+    "full_range": lambda rng, h, w: (
+        np.where(rng.random((h, w)) < 0.3,
+                 rng.choice([-1, -2**31, 2**31 - 1, 0], (h, w)),
+                 rng.integers(-2**31, 2**31, (h, w))),
+        rng.random((h, w)) < 0.2),
+    "all_override": lambda rng, h, w: (rng.integers(0, 4, (h, w)),
+                                       np.ones((h, w), bool)),
+    "no_override": lambda rng, h, w: (rng.integers(0, 4, (h, w)),
+                                      np.zeros((h, w), bool)),
+    # two values: deep Boyer-Moore ties, the scan order decides
+    "two_values": lambda rng, h, w: (rng.integers(0, 2, (h, w)),
+                                     rng.random((h, w)) < 0.05),
+}
+# grids: the driven 540x960 and 36x96, odd sizes, one cell, one row, one
+# column, and heights that are no multiple of any tile height (4 K)
+MODAL_SHAPES = ((540, 960), (36, 96), (13, 45), (1, 1), (1, 77), (61, 1),
+                (70, 33))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", [1, 4])
+@pytest.mark.parametrize("plane", sorted(MODAL_PLANES))
 @pytest.mark.parametrize("radius,thresh", [(1, 5), (2, 12), (3, 24)])
-def test_modal_kernel_equals_plain_on_cuda(cuda_device, radius, thresh):
+def test_modal_kernel_equals_plain_on_cuda(cuda_device, radius, thresh,
+                                           plane, cells):
+    """B4 (``modal_kernel<R, K>``) equals ``modal_filter`` exactly, every
+    grid walked at K = ``cells`` cells a thread, one launch a call."""
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
-    g = torch.Generator().manual_seed(radius)
-    for h, w in ((540, 960), (36, 96), (13, 45)):
-        idx = torch.randint(0, 6, (h, w), generator=g, dtype=torch.int32)
-        ovr = torch.rand((h, w), generator=g) < 0.1
+    rng = np.random.default_rng(radius * 10 + cells)
+    for h, w in MODAL_SHAPES:
+        i, o = MODAL_PLANES[plane](rng, h, w)
+        idx = torch.from_numpy(i.astype(np.int32))
+        ovr = torch.from_numpy(o)
         launches = AK.launches
         got = AK.modal_filter_kernel(idx.to(cuda_device),
-                                     ovr.to(cuda_device), radius, thresh)
+                                     ovr.to(cuda_device), radius, thresh,
+                                     cells=cells)
         torch.cuda.synchronize()
         assert AK.launches == launches + 1
         assert torch.equal(got.cpu(), AK.modal_filter(idx, ovr, radius,
-                                                      thresh))
+                                                      thresh)), (h, w)
 
 
 def _pt_inputs(device, n_tris, n_blocks=3, seed=0):
@@ -597,23 +717,37 @@ def test_bins_kernel_equals_plain_on_cuda(cuda_device, bins, mm,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,n", [(21, 8192), (30, 700), (40, 69632)])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("c,n", [(21, 8192), (30, 700), (40, 69632),
+                                 (5, 1000), (64, 4100), (12, 2048)])
 def test_pack_channels_kernels_equal_plain_on_cuda(cuda_device, c, n,
-                                                   zero_counts):
-    """B7 and B7' bit-exact: W = C rounded up to 8, zero columns past C."""
+                                                   aligned, zero_counts):
+    """B7, B7' and (where N is a multiple of 1,024) B3 bit-exact: W = C
+    rounded up to 8 (8 to 64), N no multiple of the block's rows, spans
+    past C and overlapping, and an input whose data_ptr is 4 bytes past a
+    16-byte boundary (a contiguous view one float into its buffer)."""
     g = torch.Generator().manual_seed(c)
-    cm = torch.randn((c, n), generator=g).to(cuda_device)
+    buf = torch.randn(c * n + 1, generator=g).to(cuda_device)
+    cm = buf[1:].view(c, n) if not aligned else buf[:-1].view(c, n)
+    assert (cm.data_ptr() % 16 == 0) == aligned and cm.is_contiguous()
     w = -(-c // 8) * 8
     got = PK.pack_channels(list(cm))
     assert tuple(got.shape) == (n, w)
     assert torch.equal(got.view(torch.int32),
                        PK.pack_channels_ref(list(cm)).view(torch.int32))
-    spans = [(0, 16), (16, w), (8, 24)]
+    spans = [(0, min(16, w)), (w // 2, w), (max(0, c - 3), c + 5)]
     for o, r in zip(PK.pack_channels_split(cm, spans),
                     PK.pack_channels_split_ref(cm, spans)):
         assert torch.equal(o.view(torch.int32), r.view(torch.int32))
+    blocked = n % 1024 == 0
+    if blocked:
+        cm3 = cm.view(c, n // 128, 128)
+        for o, r in zip(PK.pack_channels_split_blocked(cm3, spans),
+                        PK.pack_channels_split_blocked_ref(cm3, spans)):
+            assert torch.equal(o.view(torch.int32), r.view(torch.int32))
     torch.cuda.synchronize()
-    assert (PK.launches_channels, PK.launches_split) == (1, 3)
+    assert (PK.launches_channels, PK.launches_split, PK.launches) == (
+        1, 3, 3 if blocked else 0)
 
 
 @pytest.mark.cuda

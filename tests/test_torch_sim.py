@@ -243,11 +243,19 @@ def test_raster_overflow_flag(raster_setup):
 PT_CFG = dict(samples_per_batch=2, max_bounces=2)
 
 
-def _jax_pt_steps(n):
+def _jax_pt_steps(n, moves=None, outer_jit=True):
     """JAX's frame step with the path tracer's kernel path, by hand: the
     same stages as ``_step_body``, ``render_pt(use_kernel=True)`` with the
     scene pack closed over and the frame key ``fold_in(rng, frame_idx)``
-    (JAX's own step takes the XLA core on the CPU)."""
+    (JAX's own step takes the XLA core on the CPU). ``moves``: one
+    (keys, mouse_dx, mouse_dy) a frame (default MOVES, no mouse).
+
+    ``outer_jit=False`` runs the step without the outer ``jax.jit``, as
+    the port rounds it: the camera integrator and the clock jitted (the
+    port's ``update_camera`` and clock fuse as they do), the rest of the
+    step, the ray grids among it, eager. The caller jits the kernel call
+    itself (``trace_blocks_raw``), which is jitted inside the step too."""
+    moves = moves or [(keys, 0.0, 0.0) for keys in MOVES]
     jcfg = JConfig(grid_width=COLS, grid_height=ROWS,
                    path_tracer=JPTConfig(**PT_CFG))
     sb = JD.create_demo_scene()
@@ -257,10 +265,17 @@ def _jax_pt_steps(n):
     pt = jcfg.path_tracer
 
     @jax.jit
+    def advance(state, inputs, dt_s):
+        return (JC.update_camera(state.camera, inputs, dt_s),
+                state.time_ms + dt_s * 1000.0)
+
     def step(scene, state, inputs, dt_s, fps):
         dt_s = jnp.float32(dt_s)
-        cam = JC.update_camera(state.camera, inputs, dt_s)
-        time_ms = state.time_ms + dt_s * 1000.0
+        if outer_jit:
+            cam = JC.update_camera(state.camera, inputs, dt_s)
+            time_ms = state.time_ms + dt_s * 1000.0
+        else:
+            cam, time_ms = advance(state, inputs, dt_s)
         key = jax.random.fold_in(state.rng, state.frame_idx)
         rgb, a = JPT.render_pt(scene, cam, time_ms / 1000.0, key, rows=ROWS,
                                cols=COLS, pixel_aspect=jcfg.pixel_aspect,
@@ -279,10 +294,13 @@ def _jax_pt_steps(n):
         return (state.replace(camera=cam, time_ms=time_ms,
                               frame_idx=state.frame_idx + 1), chars, frame.a)
 
+    if outer_jit:
+        step = jax.jit(step)
     state = JFS.FrameState.create(scene.camera).add_ripple(20.0, 6.0)
     out = []
     for f in range(n):
-        ins = JC.CameraInputs.from_keys(MOVES[f])
+        keys, dx, dy = moves[f]
+        ins = JC.CameraInputs.from_keys(keys, mouse_dx=dx, mouse_dy=dy)
         state, chars, a = step(scene, state, ins, 1.0 / 60, 60.0)
         out.append((np.asarray(chars), np.asarray(a)))
     return out
@@ -306,6 +324,48 @@ def test_pathtrace_steps_equal_jax_kernel_path():
         n_ov += int(((ja >= 2) & (ja <= 254)).sum())
     assert n_ov > 2 * (2 * COLS + 2 * ROWS)  # more than the border
     assert int(state.frame_idx) == 2
+
+
+# mouse-look moves that take the camera off the axis poses from the
+# second frame on: (held keys, mouse_dx, mouse_dy) a frame
+LOOKS = [((), 0.0, 0.0), (("w",), 37.0, -11.0), (("arrowleft",), -23.0, 5.0),
+         (("a", "arrowup"), 14.0, 19.0), (("s",), -51.0, -7.0),
+         (("d", "arrowdown"), 8.0, 29.0)]
+# alpha cells of the 6 LOOKS steps where JAX's jitted step differs from
+# its step without the outer jit (the port's rounding): the override
+# plane is too coarse for the fused ray grid to move a cell
+JIT_STEP_APART = 0
+
+
+def test_pathtrace_look_steps_equal_jax_kernel_path(monkeypatch):
+    """6 path-traced steps of demo_setup at 12 x 32, spp 2, turning with
+    the mouse and the arrow keys: the alpha plane equals JAX's kernel-path
+    step without the outer jit at every step (the rounding the port
+    targets), and the count of cells where JAX's jitted step differs is
+    recorded."""
+    from ascii_renderer_tpu.ops import pt_kernel as JPK
+    jitted = _jax_pt_steps(len(LOOKS), LOOKS)
+    monkeypatch.setattr(JPK, "trace_blocks_raw", jax.jit(
+        JPK.trace_blocks_raw, static_argnames=(
+            "bounces", "nee", "atlas_w", "atlas_h", "sph_rows", "interpret",
+            "layout")))
+    eager = _jax_pt_steps(len(LOOKS), LOOKS, outer_jit=False)
+    cfg = Config(grid_width=COLS, grid_height=ROWS,
+                 path_tracer=PathTracerConfig(**PT_CFG))
+    cfg, scene, state, step = FS.demo_setup(cfg, backend="pathtrace",
+                                            device="cpu")
+    state = state.add_ripple(20.0, 6.0)
+    apart = 0
+    for f, (keys, dx, dy) in enumerate(LOOKS):
+        ins = TC.CameraInputs.from_keys(keys, mouse_dx=dx, mouse_dy=dy)
+        state, _chars, _tint, frame = step(scene, state, ins, 1.0 / 60, 60.0)
+        _eq(frame.a.numpy(), eager[f][1], f"alpha, frame {f}")
+        apart += int((frame.a.numpy() != jitted[f][1]).sum())
+        if f > 0:  # off the axis poses
+            assert float(state.camera.yaw) != 0.0
+            assert float(state.camera.pitch) != 0.0
+    assert apart == JIT_STEP_APART
+    assert int(state.frame_idx) == len(LOOKS)
 
 
 def test_raytrace_step_raises():
