@@ -23,18 +23,19 @@ _PAD = 3  # MAX_MODE_RADIUS
 
 
 def _edge_pad(x: torch.Tensor) -> torch.Tensor:
-    """Edge-replicate pad by _PAD on both spatial axes (clampCell,
-    ascii_pass_shader.js:71-73), as an index gather: works for every dtype."""
-    h, w = x.shape
+    """Edge-replicate pad by _PAD on both spatial axes, the last two
+    (clampCell, ascii_pass_shader.js:71-73), as an index gather: works for
+    every dtype; a leading batch axis pads each grid alone."""
+    h, w = x.shape[-2:]
     ri = torch.arange(-_PAD, h + _PAD, device=x.device).clamp_(0, h - 1)
     ci = torch.arange(-_PAD, w + _PAD, device=x.device).clamp_(0, w - 1)
-    return x[ri][:, ci]
+    return x[..., ri, :][..., ci]
 
 
 def _shifted(padded: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    h = padded.shape[0] - 2 * _PAD
-    w = padded.shape[1] - 2 * _PAD
-    return padded[_PAD + dy:_PAD + dy + h, _PAD + dx:_PAD + dx + w]
+    h = padded.shape[-2] - 2 * _PAD
+    w = padded.shape[-1] - 2 * _PAD
+    return padded[..., _PAD + dy:_PAD + dy + h, _PAD + dx:_PAD + dx + w]
 
 
 def _offsets(radius: int):
@@ -55,7 +56,8 @@ def modal_candidate(idx: torch.Tensor, override: torch.Tensor, radius: int):
     """Per-cell Boyer-Moore candidate + true vote count.
 
     idx int32 [H, W] ramp indices; override bool [H, W] (excluded as
-    voters); radius 1..3. Returns (cand int32 [H,W] with -1 = none,
+    voters); radius 1..3. A leading batch axis ([V, H, W]) votes each grid
+    alone. Returns (cand int32 [H,W] with -1 = none,
     votes int32 [H,W])."""
     idx_p = _edge_pad(idx)
     ovr_p = _edge_pad(override)

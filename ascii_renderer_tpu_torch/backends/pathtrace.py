@@ -26,8 +26,10 @@ short-circuits (colour passes through, the glyph code rides the alpha
 byte) and later hits take the glyph as a solid texel; the centre-ray /
 fetched-texel anti-aliasing rule; alpha 255 for pixels without override.
 
-Not ported (each raises ``NotImplementedError``): ``pixel_active``
-compaction (ROADMAP A8) and row bands ``row_lo``/``n_rows`` (A12).
+``render_pt(pixel_active=)`` (the progressive tracer's adaptive path,
+``sim/accum``) compacts the active pixels to the front of the kernel's ray
+stream, so its block gate skips the converged tail. Not ported: row bands
+``row_lo``/``n_rows`` (ROADMAP A12, they raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -189,12 +191,14 @@ def _params(light_center, light_radius, light_color, device):
 def trace_eye_paths_kernel_packed(scene: SceneData, ro, rd, seed_base,
                                   light_center, light_radius, *,
                                   bounces: int, light_color, nee: bool,
-                                  ray_uid=None, packed=None):
+                                  ray_active=None, ray_uid=None,
+                                  packed=None):
     """Trace ro/rd f32 [..., 3] through the megakernel: (lor, log, lob, ov,
-    fet), each f32 FLAT [R] in ray order. ray_uid: optional flat [R] int32
-    RNG ids (default: stream position). packed: a precomputed
-    pack_scene_entries(scene). Block gating by ray_active (adaptive
-    compaction) is ROADMAP A8."""
+    fet), each f32 FLAT [R] in ray order. ray_active: optional flat [R]
+    bool; a block of 1,024 rays none of which is active is gated (its
+    outputs are zero), the reference's block gate. ray_uid: optional flat
+    [R] int32 RNG ids (default: stream position). packed: a precomputed
+    pack_scene_entries(scene)."""
     shp = rd.shape[:-1]
     n = int(np.prod(shp))
     nblk = -(-n // PK.BLOCK)
@@ -209,10 +213,17 @@ def trace_eye_paths_kernel_packed(scene: SceneData, ro, rd, seed_base,
         if pad:  # pad-ray uids are arbitrary (outputs discarded)
             uid = torch.cat([uid, uid.new_zeros(pad)])
         uid = uid.reshape(nblk, PK.BH, PK.BW)
+    block_active = None
+    if ray_active is not None:
+        act = ray_active.reshape(-1).to(torch.int32)
+        pad = nblk * PK.BLOCK - n
+        if pad:  # pad rays are inactive
+            act = torch.cat([act, act.new_zeros(pad)])
+        block_active = act.reshape(nblk, PK.BLOCK).amax(dim=1)
     outs = PK.trace_blocks_raw(
         params, prim, _blockify(ro, n, nblk), _blockify(rd, n, nblk),
         int(seed_base), atlas, bounces=bounces, nee=nee, atlas_w=aw,
-        atlas_h=ah, sph_rows=sph_rows, uid=uid)
+        atlas_h=ah, sph_rows=sph_rows, block_active=block_active, uid=uid)
     return tuple(o.reshape(-1)[:n] for o in outs)
 
 
@@ -546,6 +557,14 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     Returns (rgb f32 [rows, cols, 3] in [0, 1], alpha u8 [rows, cols]) on
     ``device`` (default: the scene's device).
 
+    ``pixel_active`` (bool [rows, cols], kernel path only; the reference
+    ignores it on the core): the active pixels go first in the ray stream
+    (a stable partition of the pixel uids), each ray carries its pixel's
+    uid as its RNG id, and the kernel gates every 1,024-ray block with no
+    active ray; the outputs return to pixel order through the inverse
+    permutation. An active pixel's values are those of the full render bit
+    for bit; an inactive one's are unspecified.
+
     ``use_kernel``: the megakernel path (True) or the XLA core (False,
     the reference's default; it takes atlases of any size). ``key``: the
     frame's key, two uint32 words (``jax.random.key_data`` of the
@@ -555,8 +574,6 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     draws under ``key_data(frame_seed)``. ``packed`` and ``light_host``:
     the scene's pack_scene_entries and light_sphere_host, if precomputed
     (the core takes no pack)."""
-    if pixel_active is not None:
-        raise _not_ported("pixel_active (adaptive compaction)", "A8")
     if row_lo != 0 or n_rows is not None:
         raise _not_ported("row_lo / n_rows (row-band rendering)", "A12")
     if key is not None:
@@ -586,17 +603,31 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
         lcol = torch.as_tensor(light_color, dtype=torch.float32) * 1.3
         pc = rows * cols
         pix_uid = torch.arange(pc, dtype=torch.int32, device=dev)
+        mask = None
+        if pixel_active is not None:
+            # adaptive compaction: a stable partition of the pixel uids,
+            # active first (one sort of the unique key (1 - active) * pc +
+            # uid); a ray is a pure function of its pixel, so the centre
+            # rays and cell centres are the full grid's, gathered by uid
+            act = pixel_active.reshape(-1).to(device=dev, dtype=torch.int64)
+            order = torch.argsort((1 - act) * pc + pix_uid.long())
+            pix_uid = order.to(torch.int32)
+            rd0 = rd0.reshape(pc, 3)[order].reshape(rows, cols, 3)
+            px = px.reshape(pc)[order].reshape(rows, cols)
+            py = py.reshape(pc)[order].reshape(rows, cols)
+            # the actives hold slots [0, n_act)
+            mask = torch.arange(pc, device=dev) < act.sum()
 
-    def trace(ro, rd, seed, uid):
+    def trace(ro, rd, seed, uid, active):
         return trace_eye_paths_kernel_packed(
             scene, ro, rd, seed, light_center, light_radius,
-            bounces=bounces, light_color=lcol, nee=nee, ray_uid=uid,
-            packed=packed)
+            bounces=bounces, light_color=lcol, nee=nee, ray_active=active,
+            ray_uid=uid, packed=packed)
 
     # ---- phase 1: centre-ray probe (fetched flag + primary glyph hits) ----
     with record_function("pt.trace"):
         lor0, log0, lob0, ov0f, fet0 = trace(pos.expand(rows, cols, 3), rd0,
-                                             frame_seed, pix_uid)
+                                             frame_seed, pix_uid, mask)
     with record_function("pt.reduce"):
         ov0 = torch.round(ov0f).to(torch.int32)        # [pc]
         fetched = (fet0 > 0.5).reshape(rows, cols)     # jitter mask
@@ -610,6 +641,8 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     tr, tg, tb, ocr, ocg, ocb = zc, zc, zc, zc, zc, zc
     override = torch.zeros(pc, dtype=torch.int32, device=dev)
     bsel = torch.arange(B, device=dev)[:, None]
+    # ray s * pc + p: the compacted pixel mask tiles over the sample axis
+    ray_active = None if mask is None else mask.repeat(B)
     for b in range(n_batches):
         with record_function("pt.rays"):
             bs = batch_seed_of(frame_seed, b)
@@ -618,7 +651,7 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
                                 s_idx)
         with record_function("pt.trace"):
             cr, cg, cb, ovf, _fet = trace(pos.expand(B, rows, cols, 3), rd,
-                                          bs, uid_sp)
+                                          bs, uid_sp, ray_active)
         with record_function("pt.reduce"):
             cr, cg, cb = (c.reshape(B, pc) for c in (cr, cg, cb))
             ov = torch.round(ovf).to(torch.int32).reshape(B, pc)
@@ -653,8 +686,11 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
                              torch.clamp(t * inv_spp, 0.0, 1.0))
                  for oc, t in ((ocr, tr), (ocg, tg), (ocb, tb))]
         a = torch.where(has_ov, override, 255).to(torch.uint8)
-        rgb = torch.stack(chans, dim=-1).reshape(rows, cols, 3)
-    return rgb, a.reshape(rows, cols)
+        rgb = torch.stack(chans, dim=-1)
+        if mask is not None:  # back to pixel order: slot i holds pixel uid[i]
+            rgb = torch.empty_like(rgb).index_copy_(0, pix_uid.long(), rgb)
+            a = torch.empty_like(a).index_copy_(0, pix_uid.long(), a)
+    return rgb.reshape(rows, cols, 3), a.reshape(rows, cols)
 
 
 class PathtraceBackend:

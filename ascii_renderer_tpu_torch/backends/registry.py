@@ -6,9 +6,8 @@ re-push, and a stable render facade. ``Renderer`` renders on ``device``
 (CUDA unless the caller asks for the CPU); each factory is called as
 ``factory(cfg, device=device)``. "raster" renders scenes of every size
 (the scan / binned walk below 2,048 triangle slots, the compacted
-mid-scale walk below 32,768, the headline pipeline above) and "pathtrace"
-the path tracer. "raytrace" is listed but not ported (ROADMAP A9):
-choosing it raises ``NotImplementedError``.
+mid-scale walk below 32,768, the headline pipeline above), "pathtrace"
+the path tracer and "raytrace" the deterministic ray tracer.
 """
 
 from __future__ import annotations
@@ -50,19 +49,14 @@ def _canonical(name: str) -> Optional[str]:
     return a if a in _factories else None
 
 
-def _raytrace_not_ported(cfg=None, device=None):
-    raise NotImplementedError(
-        "the raytrace backend is not ported to ascii_renderer_tpu_torch yet "
-        "(ROADMAP A9)")
-
-
 def _ensure_defaults():
     if _factories:
         return
     # Lazy imports to avoid cycles.
     from ascii_renderer_tpu_torch.backends.pathtrace import PathtraceBackend
     from ascii_renderer_tpu_torch.backends.raster import RasterBackend
-    register_backend("raytrace", _raytrace_not_ported)
+    from ascii_renderer_tpu_torch.backends.raytrace import RaytraceBackend
+    register_backend("raytrace", RaytraceBackend)
     register_backend("raster", RasterBackend)
     register_backend("pathtrace", PathtraceBackend)
 

@@ -136,29 +136,39 @@ def _norm3(a) -> torch.Tensor:
 
 def camera_basis(yaw, pitch, fov_y):
     """Orthonormal camera frame used by every backend (contract 4), on the
-    host like the rest of the camera: float32 tensors on ``yaw``'s device.
-    Rounds as the reference's eager call, whose norms and cross products
-    are jitted helpers (``_norm3``, ``_cross``); cos, sin and tan through
-    ``core/fp.libm32``.
+    host like the rest of the camera: float32 tensors on ``yaw``'s device
+    (``camera_bases`` of the one pose).
 
     Returns (uu, vv, ww, focal): ww = look dir, uu = right, vv = up,
     focal = 1/tan(fovY/2) (ref: pathtrace_shader.js:195-201)."""
-    dev = yaw.device
-    cp, sp = libm32(math.cos, pitch, dev), libm32(math.sin, pitch, dev)
-    cy, sy = libm32(math.cos, yaw, dev), libm32(math.sin, yaw, dev)
-    ww = torch.stack([cp * cy, sp, cp * sy])
+    bases = camera_bases(*(t.reshape(1).cpu() for t in (yaw, pitch, fov_y)))
+    return tuple(b[0].to(yaw.device) for b in bases)
+
+
+def camera_bases(yaw, pitch, fov_y):
+    """The camera frames of a batch of views (yaw, pitch, fov_y f32 [V] on
+    the host): (uu, vv, ww f32 [V, 3], focal f32 [V]). Rounds as the
+    reference's calls, whose norms and cross products are jitted helpers
+    (``_norm3``, ``_cross``); cos, sin and tan through Python's libm, one
+    call a view (``core/fp.libm32``'s rounding)."""
+    def trig(fn, x):
+        return torch.tensor([fn(float(v)) for v in x.reshape(-1)],
+                            dtype=torch.float32)
+
+    cp, sp = trig(math.cos, pitch), trig(math.sin, pitch)
+    cy, sy = trig(math.cos, yaw), trig(math.sin, yaw)
+    zero, one = torch.zeros_like(cp), torch.ones_like(cp)
+    ww = torch.stack([cp * cy, sp, cp * sy])             # [3, V]
     ww = ww / _norm3(ww)
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
-    uu = _cross(ww, up)
+    uu = _cross(ww, torch.stack([zero, one, zero]))
     nu = _norm3(uu)
-    # Degenerate straight-up/down guard (ref: `if (length(uu) < 1e-3)`).
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    x_axis = torch.stack([one, zero, zero])
     uu = torch.where(nu < 1e-3, x_axis, uu / torch.clamp(nu, min=1e-20))
     vv = _cross(uu, ww)
     vv = vv / _norm3(vv)
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    focal = one / torch.clamp(libm32(math.tan, 0.5 * fov_y, dev), min=1e-6)
-    return uu, vv, ww, focal
+    half = trig(math.tan, 0.5 * fov_y.reshape(-1))
+    focal = one / torch.clamp(half, min=1e-6)
+    return uu.t(), vv.t(), ww.t(), focal
 
 
 def ndc_grid(rows: int, cols: int, pixel_aspect: float, device):
@@ -178,6 +188,35 @@ def ndc_grid(rows: int, cols: int, pixel_aspect: float, device):
     px = ((-1.0 + 2.0 * x) * aspect).expand(rows, cols)
     py = (-1.0 + 2.0 * y_gl)[:, None].expand(rows, cols)
     return px, py, aspect
+
+
+def ndc_grid_jit(rows: int, cols: int, pixel_aspect: float, device):
+    """ndc_grid as the reference's jitted program rounds it: XLA turns
+    the divisions by the grid size into products with 2 / res, which fuse
+    into the -1: p = fma(pix + 0.5, 2 / res, -1), then p.x *= aspect.
+    Returns (px, py) f32 [rows, cols] on ``device``."""
+    aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
+    x = torch.arange(cols, dtype=torch.float32, device=device) + 0.5
+    y = torch.arange(rows, dtype=torch.float32, device=device).flip(0) + 0.5
+    px = fma32(x, float(np.float32(2.0 / cols)), -1.0) * aspect
+    py = fma32(y, float(np.float32(2.0 / rows)), -1.0)
+    return px.expand(rows, cols), py[:, None].expand(rows, cols)
+
+
+def ray_dirs_jit(px, py, bases) -> torch.Tensor:
+    """normalize(px*uu + py*vv + focal*ww) as the reference's jitted grid
+    rounds it, for a batch of views: f32 [V, *px.shape, 3]. There
+    px*uu + py*vv fuses (the left product, fma(px, uu, py*vv)), while
+    focal*ww, the same for every ray, is formed apart and added; the norm
+    fuses as ``_norm3``. ``bases``: camera_bases' tuple (uu, vv, ww
+    [V, 3], focal [V]), on px's device."""
+    uu, vv, ww, focal = bases
+    fw = focal[:, None] * ww
+    lead = (-1,) + (1,) * px.dim()
+    comps = [fma32(px, uu[:, k].reshape(lead), py * vv[:, k].reshape(lead))
+             + fw[:, k].reshape(lead) for k in range(3)]
+    n = _norm3(comps)
+    return torch.stack([c / n for c in comps], dim=-1)
 
 
 def ray_dirs(px, py, basis) -> torch.Tensor:

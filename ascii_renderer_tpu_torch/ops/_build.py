@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)
 # C signatures of the entry points in csrc/*.cu (all return cudaError_t).
 SIGNATURES = {
@@ -73,8 +74,10 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
-    # (idx, ovr, out, H, W, radius, thresh, cells_per_thread, stream)
-    "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (bases, out, rows, cols, views, sx, sy, aspect, stream)
+    "ray_grid_jit_launch": (_P, _P, _I, _I, _I, _F, _F, _F, _P),
+    # (idx, ovr, out, V, H, W, radius, thresh, cells_per_thread, stream)
+    "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (data, offsets, z, tid, part, n_slots, n_tiles, tiles_x, n_entries,
     #  mm, stream)
     "bins_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

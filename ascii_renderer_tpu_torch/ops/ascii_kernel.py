@@ -23,10 +23,10 @@ CELLS = 4           # cells a thread walks down its column on large grids
 MIN_BLOCKS = 264
 
 
-def cells_per_thread(h: int, w: int) -> int:
-    """K of ``modal_kernel<R, K>`` for an h x w grid: CELLS where that
-    still gives MIN_BLOCKS blocks, else 1."""
-    blocks = -(-h // (CELLS * WARPS)) * -(-w // TILE_W)
+def cells_per_thread(h: int, w: int, v: int = 1) -> int:
+    """K of ``modal_kernel<R, K>`` for v grids of h x w: CELLS where that
+    still gives MIN_BLOCKS blocks over the batch, else 1."""
+    blocks = v * -(-h // (CELLS * WARPS)) * -(-w // TILE_W)
     return CELLS if blocks >= MIN_BLOCKS else 1
 
 
@@ -34,15 +34,16 @@ def modal_filter_kernel(idx: torch.Tensor, override: torch.Tensor,
                         radius: int, thresh: int, *,
                         cells: int | None = None) -> torch.Tensor:
     """Twin of ``modal_filter`` (and of the JAX ``modal_filter_pallas``):
-    idx int32 [H, W] ramp indices, override bool [H, W], radius 1..3.
-    Returns the smoothed int32 [H, W]. CPU tensors run the plain version;
-    CUDA tensors launch the kernel once (an empty grid launches nothing).
-    A contiguous bool override plane goes to the kernel as its bytes.
-    ``cells`` sets K (1 or 4) where a measurement or a test needs it; by
-    default ``cells_per_thread(h, w)``."""
-    if idx.dim() != 2 or override.shape != idx.shape:
+    idx int32 [H, W] ramp indices, override bool [H, W], radius 1..3; or a
+    batch of V grids, [V, H, W] each, every grid voted alone. Returns the
+    smoothed int32 plane(s). CPU tensors run the plain version; CUDA
+    tensors launch the kernel once, the batch included (an empty grid
+    launches nothing). A contiguous bool override plane goes to the kernel
+    as its bytes. ``cells`` sets K (1 or 4) where a measurement or a test
+    needs it; by default ``cells_per_thread(h, w, v)``."""
+    if idx.dim() not in (2, 3) or override.shape != idx.shape:
         raise ValueError(f"modal_filter_kernel: idx and override must be "
-                         f"[H, W], got {tuple(idx.shape)} / "
+                         f"[H, W] or [V, H, W], got {tuple(idx.shape)} / "
                          f"{tuple(override.shape)}")
     if not 1 <= radius <= MAX_RADIUS:
         raise ValueError(f"modal_filter_kernel: radius {radius} not in "
@@ -58,14 +59,14 @@ def modal_filter_kernel(idx: torch.Tensor, override: torch.Tensor,
         override = override != 0
     ovr = override.contiguous().view(torch.uint8)  # the bool bytes, no copy
     _build.require_cuda(idx, ovr, what="modal_filter_kernel")
-    h, w = idx.shape
+    v, h, w = (1,) * (3 - idx.dim()) + tuple(idx.shape)
     out = torch.empty_like(idx)
     if out.numel() == 0:
         return out
     err = _build.lib().modal_launch(idx.data_ptr(), ovr.data_ptr(),
-                                    out.data_ptr(), h, w, int(radius),
+                                    out.data_ptr(), v, h, w, int(radius),
                                     int(thresh),
-                                    cells or cells_per_thread(h, w),
+                                    cells or cells_per_thread(h, w, v),
                                     _build.stream_ptr(idx.device))
     launches += 1
     _build.check(err, "modal_launch")

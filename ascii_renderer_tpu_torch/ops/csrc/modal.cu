@@ -7,7 +7,9 @@
 // cell is not an override.
 //
 // Replaces: ascii_renderer_tpu/ops/ascii_kernel.py:_kernel (Pallas, TPU),
-// called through modal_filter_pallas. The TPU kernel DMA'd row bands with a
+// called through modal_filter_pallas. A batch of V grids (a view farm's
+// glyph planes) is one launch, the view on the grid's z dimension; a view's
+// edges clamp as a lone grid's do, so no vote crosses views. The TPU kernel DMA'd row bands with a
 // 3-row halo into VMEM by hand and voted with whole-band selects; here a
 // block stages its tile plus an edge-clamped halo in shared memory and each
 // thread votes for a column of cells from registers.
@@ -122,7 +124,10 @@ __device__ __forceinline__ void column(const int (*s_idx)[kTileW + 8],
   }
 }
 
-template <int R, int K>
+// kBatch: a batch of grids, blockIdx.z the grid; a lone grid (V = 1) runs
+// the instantiation without it, whose code is the one-grid kernel's (the
+// plane offsets cost the K = 4 kernels 4 registers and an occupancy step)
+template <int R, int K, bool kBatch>
 __global__ void __launch_bounds__(kTileW * kWarps)
 modal_kernel(const int* __restrict__ idx, const uint8_t* __restrict__ ovr,
              int* __restrict__ out, int H, int W, int thresh) {
@@ -133,6 +138,12 @@ modal_kernel(const int* __restrict__ idx, const uint8_t* __restrict__ ovr,
   __shared__ int s_idx[kHaloH][kTileW + 8];
   __shared__ unsigned long long s_valid[kHaloH];
 
+  if constexpr (kBatch) {  // blockIdx.z's grid, voted alone
+    const size_t plane = (size_t)blockIdx.z * H * W;
+    idx += plane;
+    ovr += plane;
+    out += plane;
+  }
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
   // stage: warp w takes halo rows w, w + kWarps, ...; lane l columns l and
@@ -170,36 +181,44 @@ modal_kernel(const int* __restrict__ idx, const uint8_t* __restrict__ ovr,
 }
 
 template <int R, int K>
-int launch(const int* idx, const uint8_t* ovr, int* out, int H, int W,
+int launch(const int* idx, const uint8_t* ovr, int* out, int V, int H, int W,
            int thresh, cudaStream_t stream) {
   dim3 block(kTileW, kWarps);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + K * kWarps - 1) / (K * kWarps));
-  modal_kernel<R, K><<<grid, block, 0, stream>>>(idx, ovr, out, H, W, thresh);
+  dim3 grid((W + kTileW - 1) / kTileW, (H + K * kWarps - 1) / (K * kWarps),
+            V);
+  if (V == 1)
+    modal_kernel<R, K, false><<<grid, block, 0, stream>>>(idx, ovr, out, H, W,
+                                                          thresh);
+  else
+    modal_kernel<R, K, true><<<grid, block, 0, stream>>>(idx, ovr, out, H, W,
+                                                         thresh);
   return (int)cudaGetLastError();
 }
 
 template <int R>
-int launch_k(const int* idx, const uint8_t* ovr, int* out, int H, int W,
-             int thresh, int k, cudaStream_t stream) {
+int launch_k(const int* idx, const uint8_t* ovr, int* out, int V, int H,
+             int W, int thresh, int k, cudaStream_t stream) {
   switch (k) {
-    case 1: return launch<R, 1>(idx, ovr, out, H, W, thresh, stream);
-    case 4: return launch<R, 4>(idx, ovr, out, H, W, thresh, stream);
+    case 1: return launch<R, 1>(idx, ovr, out, V, H, W, thresh, stream);
+    case 4: return launch<R, 4>(idx, ovr, out, V, H, W, thresh, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// V grids of H x W, one after another (V = 1: a lone grid);
 // cells_per_thread: K, 1 or 4 (ops/ascii_kernel.cells_per_thread)
 extern "C" int modal_launch(const int* idx, const uint8_t* ovr, int* out,
-                            int H, int W, int radius, int thresh,
+                            int V, int H, int W, int radius, int thresh,
                             int cells_per_thread, void* stream) {
+  if (V < 1 || V > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int k = cells_per_thread;
   switch (radius) {
-    case 1: return launch_k<1>(idx, ovr, out, H, W, thresh, k, s);
-    case 2: return launch_k<2>(idx, ovr, out, H, W, thresh, k, s);
-    case 3: return launch_k<3>(idx, ovr, out, H, W, thresh, k, s);
+    case 1: return launch_k<1>(idx, ovr, out, V, H, W, thresh, k, s);
+    case 2: return launch_k<2>(idx, ovr, out, V, H, W, thresh, k, s);
+    case 3: return launch_k<3>(idx, ovr, out, V, H, W, thresh, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -40,6 +40,7 @@ from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.ops import _build
 
 launches = 0        # kernel launches by trace_blocks_raw
+launches_gated = 0  # of those, launches with a block gate (block_active)
 LAUNCHES_PER_CALL = {"trace_blocks_raw": 1}  # kernels a call launches
 
 BH, BW = 8, 128     # the TPU's ray block; block_active gates 1,024 rays
@@ -504,7 +505,7 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
             params, prim, ro, rd, seed, atlas, bounces=bounces, nee=nee,
             atlas_w=atlas_w, atlas_h=atlas_h, sph_rows=sph_rows,
             block_active=block_active, uid=uid)
-    global launches
+    global launches, launches_gated
     tensors = [params, prim, ro, rd]
     if texels:
         tensors.append(atlas)
@@ -531,5 +532,7 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
         *(o.data_ptr() for o in outs), n, int(bounces), int(bool(nee)),
         next_ray.data_ptr(), _build.stream_ptr(ro.device))
     launches += 1
+    if block_active is not None:
+        launches_gated += 1
     _build.check(err, "pt_trace_launch")
     return tuple(outs)

@@ -1,5 +1,8 @@
-"""The path tracer's primary ray directions: the CUDA kernel
-``csrc/ray_grid.cu`` and its plain version ``core/camera.ray_dirs``.
+"""Primary ray directions: the CUDA kernels of ``csrc/ray_grid.cu`` and
+their plain versions, ``core/camera.ray_dirs`` (the path tracer's grid,
+rounded as the reference's eager call) and ``core/camera.ray_dirs_jit``
+over ``ndc_grid_jit`` (the ray tracer's grid, rounded as its jitted
+program, for a batch of views in one launch).
 
 Stands for XLA code of the reference, not a Pallas kernel: the ray grid of
 ``ascii_renderer_tpu/backends/pathtrace.py`` (``primary_ray_grid``,
@@ -17,10 +20,14 @@ import ctypes
 
 import torch
 
-from ascii_renderer_tpu_torch.core.camera import ray_dirs
+import numpy as np
+
+from ascii_renderer_tpu_torch.core.camera import (ndc_grid_jit, ray_dirs,
+                                                  ray_dirs_jit)
 from ascii_renderer_tpu_torch.ops import _build
 
-launches = 0   # kernel launches by ray_grid
+launches = 0       # kernel launches by ray_grid
+jit_launches = 0   # kernel launches by ray_grid_jit
 
 
 def ray_grid(px: torch.Tensor, py: torch.Tensor, basis) -> torch.Tensor:
@@ -47,4 +54,37 @@ def ray_grid(px: torch.Tensor, py: torch.Tensor, basis) -> torch.Tensor:
                                        _build.stream_ptr(px.device))
     launches += 1
     _build.check(err, "ray_grid_launch")
+    return out
+
+
+def ray_grid_jit(bases, rows: int, cols: int, pixel_aspect: float,
+                 device) -> torch.Tensor:
+    """The ray tracer's primary directions for V views, f32 [V, rows,
+    cols, 3] on ``device``, rounded as the reference's jitted grid (the
+    cell centres fused, then fma(px, uu, py*vv) + focal*ww over the fused
+    norm). ``bases``: ``core/camera.camera_bases``' tuple (host tensors).
+    On the CPU the plain version (``ndc_grid_jit`` and ``ray_dirs_jit``);
+    on a CUDA device one launch for every view."""
+    device = torch.device(device)
+    uu, vv, ww, focal = (b.to("cpu", torch.float32) for b in bases)
+    if device.type == "cpu":
+        px, py = ndc_grid_jit(rows, cols, pixel_aspect, device)
+        return ray_dirs_jit(px, py, (uu, vv, ww, focal))
+    global jit_launches
+    views = uu.shape[0]
+    host = torch.cat([uu, vv, focal[:, None] * ww], dim=1).contiguous()
+    dev_bases = host.to(device)
+    out = torch.empty((views, rows, cols, 3), dtype=torch.float32,
+                      device=device)
+    _build.require_cuda(dev_bases, out, what="ray_grid_jit")
+    if views * rows * cols * 3 >= 2 ** 31:
+        raise ValueError(f"ray_grid_jit: {views} views of {rows} x {cols}, "
+                         "at most 2^31 - 1 outputs")
+    aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
+    err = _build.lib().ray_grid_jit_launch(
+        dev_bases.data_ptr(), out.data_ptr(), rows, cols, views,
+        float(np.float32(2.0 / cols)), float(np.float32(2.0 / rows)), aspect,
+        _build.stream_ptr(device))
+    jit_launches += 1
+    _build.check(err, "ray_grid_jit_launch")
     return out

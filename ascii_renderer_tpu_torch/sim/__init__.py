@@ -1,5 +1,5 @@
-"""The frame step and its UI layer (torch port of
-``ascii_renderer_tpu/sim``)."""
+"""The frame step, its UI layer and progressive accumulation (torch port
+of ``ascii_renderer_tpu/sim``)."""
 
 from ascii_renderer_tpu_torch.sim.ui import ui_char_plane  # noqa: F401
 from ascii_renderer_tpu_torch.sim.framestep import (  # noqa: F401

@@ -102,9 +102,10 @@ def _render_rgb_a(backend: str, scene: SceneData, cam: Camera, time_s,
     """Dispatch to a backend's render function: (rgb f32 [rows, cols, 3],
     alpha u8 [rows, cols] or None, overflow i32 0-d)."""
     if backend == "raytrace":
-        raise NotImplementedError(
-            "the raytrace backend is not ported to ascii_renderer_tpu_torch "
-            "yet (ROADMAP A9)")
+        from ascii_renderer_tpu_torch.backends.raytrace import render_rgb
+        rgb = render_rgb(scene, cam, rows, cols, cfg.pixel_aspect,
+                         prims=prep(scene))
+        return rgb, None, _i32_zero(rgb.device)
     if backend == "raster":
         from ascii_renderer_tpu_torch.backends import raster as R
         if not raster_caps:
@@ -203,6 +204,9 @@ def _body(cfg: Config, backend, rows, cols, soup, raster_caps, pt_packed):
     if backend == "raster":  # the static channel-major soup tables
         from ascii_renderer_tpu_torch.backends.raster import soup_static_prep
         prep = _per_scene(lambda s: soup_static_prep(*soup, s))
+    elif backend == "raytrace":  # the primitive channels and light counts
+        from ascii_renderer_tpu_torch.backends.raytrace import ScenePrims
+        prep = _per_scene(ScenePrims)
     else:  # the light sphere's fixed values, read to the host once
         from ascii_renderer_tpu_torch.backends.pathtrace import (
             light_sphere_host)

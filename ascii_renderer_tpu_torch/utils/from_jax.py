@@ -47,3 +47,14 @@ def scene_from_numpy(d: dict, device) -> SceneData:
         else:
             kw[f.name] = _t(d[f.name], device)
     return SceneData(**kw)
+
+
+def accum_state_from_numpy(d: dict, device):
+    """A JAX ``AccumState``'s leaves as numpy arrays (count, mean, m2,
+    cam_sig, mean_y, m2_y, alpha) -> the port's ``sim.accum.AccumState``
+    on ``device``; cam_sig stays on the host, as the port keeps it."""
+    from ascii_renderer_tpu_torch.sim.accum import AccumState
+
+    kw = {f.name: _t(d[f.name], "cpu" if f.name == "cam_sig" else device)
+          for f in dataclasses.fields(AccumState)}
+    return AccumState(**kw)

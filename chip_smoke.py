@@ -27,7 +27,13 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      gated blocks zero;
    - the PT ray grid (a kernel for XLA code: no Pallas kernel computes
      it) at the runs' centre grids and jittered batches, 96x36 and
-     960x540, at two poses: bit for bit; timed at the HD arm's batch.
+     960x540, at two poses: bit for bit; timed at the HD arm's batch;
+   - B4 over the view farm's batch of glyph planes [1024, 36, 96] in one
+     launch, radius 1..3, random override masks: equal to the plain
+     version and to 1,024 one-plane launches; timed at the K the wrapper
+     picks and at K = 1 and K = 4;
+   - the ray tracer's jitted ray grid (one launch for every view) at the
+     farm's 1,024 orbit poses and the rt_demo pose: bit for bit; timed.
    Kernel ms is device time (profiler kernel rows over 50 back-to-back
    calls, their count checked against the kernel's launches per call);
    plain ms is CUDA events around whole calls; bound ms is the larger of
@@ -121,6 +127,20 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      the kernel's budget, through Renderer(cfg, "pathtrace") at 96x36,
      spp 64, 5 bounces, NEE: frame 0's alpha plane must equal the port's
      CPU render, then 10 timed frames.
+   - the ray tracer: Renderer(Config(pixel_aspect=0.5), "rt") on the
+     rt_demo scene at 96x36 must give tests/goldens/rt_demo.txt exactly,
+     then 3 moves and 20 timed frames; the "raytrace" frame step's frame
+     0 chars must equal the port's CPU step;
+   - the view farm, bench config 4 at full size: 1,024 orbit views at
+     96x36, render_rgb and the glyph pass (B4 one launch over the views)
+     in one batched call; 8 spread views must equal the port's CPU render
+     of them; then 5 timed farms (views/s);
+   - the progressive path tracer (sim/accum) at 96x36, the config's path
+     tracer and adaptive settings: adaptive_skip=True (B5 with its block
+     gate over the compacted stream) bit-identical to adaptive_skip=False
+     for 8 batches, then batches until poll_done() or 64 (active pixels,
+     gated blocks, ms); a spp-2 frame 0's alpha equal to the CPU run; the
+     960x540 spp-8 arm, 8 batches.
    Each path's kernels must have launched. Frames of every path are
    profiled (stage host ms and device span, device busy share; tables in
    smoke_out/, git-ignored).
@@ -1332,9 +1352,11 @@ def _b4_ops(idx, ovr, radius):
     from ascii_renderer_tpu_torch.ascii.modal import modal_candidate
     cand, _votes = modal_candidate(idx, ovr, radius)
     k = 2 * radius + 1
-    # the window's cells, the grid edge clamped as the vote clamps it
-    near = F.max_pool2d(F.pad(ovr.float()[None, None], (radius,) * 4,
-                              mode="replicate"), k, stride=1)[0, 0] > 0
+    # the window's cells, the grid edge clamped as the vote clamps it (a
+    # batch of planes [V, H, W] each alone)
+    planes = ovr.float().reshape(-1, 1, *ovr.shape[-2:])
+    near = (F.max_pool2d(F.pad(planes, (radius,) * 4, mode="replicate"), k,
+                         stride=1) > 0).reshape(ovr.shape)
     per = (B4_OPS - 1) + near.long()
     passes = 1 + ((cand >= 0) & (cand != idx)).long()
     return int((per * passes * (~ovr).long()).sum()) * (k * k - 1)
@@ -1584,6 +1606,335 @@ def check_ray_grid(dev):
             # the XLA code it stands for: no Pallas kernel computes the grid
             rec["replaces"] = "ascii_renderer_tpu/backends/pathtrace.py:394"
     return rec
+
+
+# --------------------------------------------------------------------------
+# The ray tracer (Renderer "rt", the "raytrace" step), its 1,024-view farm
+# and the progressive path tracer (sim/accum)
+# --------------------------------------------------------------------------
+FARM_VIEWS, FARM_GRID = 1024, (36, 96)
+GOLDEN_RT = os.path.join(ROOT, "tests", "goldens", "rt_demo.txt")
+# views of the farm checked against the port's CPU render
+FARM_CHECKED = tuple(range(0, FARM_VIEWS, FARM_VIEWS // 8))
+
+
+def _orbit(n=FARM_VIEWS):
+    from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
+    return orbit_cameras(n, center=(0, 1.0, 1.0), radius=6.0)
+
+
+def check_modal_batched(dev):
+    """B4 over a batch of 1,024 glyph planes [1024, 36, 96] in one launch,
+    radius 1..3, random indices and override masks: equal to the plain
+    version on the batch and to 1,024 one-plane launches. Timed at the
+    farm's radius 2 / thresh 12 with the K the wrapper picks, and at K = 1
+    and K = 4 beside it. Returns the record."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    g = torch.Generator().manual_seed(4)
+    V, (h, w) = FARM_VIEWS, FARM_GRID
+    for radius, thresh in ((1, 5), (2, 12), (3, 24)):
+        idx = torch.randint(0, 10, (V, h, w), generator=g,
+                            dtype=torch.int32).to(dev)
+        ovr = (torch.rand((V, h, w), generator=g) < 0.1).to(dev)
+        got = AK.modal_filter_kernel(idx, ovr, radius, thresh)
+        ref = AK.modal_filter(idx, ovr, radius, thresh)
+        one = torch.stack([AK.modal_filter_kernel(idx[v], ovr[v], radius,
+                                                  thresh) for v in range(V)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"batched B4 differs, radius {radius}"
+        assert torch.equal(got, one), \
+            f"batched B4 differs from one-plane launches, radius {radius}"
+    k = AK.cells_per_thread(h, w, V)
+    bound = _bound(V * h * w * (4 + 1 + 4), _b4_ops(idx, ovr, 2), PEAK_INT32)
+    ms = _device_ms(lambda: AK.modal_filter_kernel(idx, ovr, 2, 12),
+                    "modal_kernel", 1)
+    by_k = {c: _device_ms(lambda: AK.modal_filter_kernel(idx, ovr, 2, 12,
+                                                         cells=c),
+                          "modal_kernel", 1) for c in (1, AK.CELLS)}
+    plain = _event_ms(lambda: AK.modal_filter(idx, ovr, 2, 12), 5)
+    print(f"B4 batched [{V}, {h}, {w}]: exact against the plain version and "
+          f"{V} one-plane launches, radius 1-3; K = {k} chosen; "
+          f"r2 {ms:.5f} ms (K=1 {by_k[1]:.5f}, K={AK.CELLS} "
+          f"{by_k[AK.CELLS]:.5f}), plain {plain:.3f} ms, bound "
+          f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+    rec = _rec("modal_vote_views", "modal.cu", "ascii_kernel.py:41", 0.0,
+               ms, plain, bound)
+    rec.update(ops_rate=PEAK_INT32, shape=[V, h, w], cells=k,
+               ms_k1=by_k[1], ms_k4=by_k[AK.CELLS])
+    return rec
+
+
+def check_ray_grid_jit(dev):
+    """The ray tracer's grid kernel (one launch for every view) against its
+    plain version (ndc_grid_jit + ray_dirs_jit on the same CUDA device) at
+    the farm's 1,024 orbit poses and the rt_demo pose, 96x36: bit for bit.
+    Returns the record (timed at the farm's batch)."""
+    import torch
+    from ascii_renderer_tpu_torch.core.camera import (camera_bases,
+                                                      ndc_grid_jit,
+                                                      ray_dirs_jit)
+    from ascii_renderer_tpu_torch.ops import ray_grid as RYG
+    from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+    rows, cols = FARM_GRID
+    demo = create_rt_demo_scene().build(device="cpu").camera
+    for cams in (_orbit(), demo):
+        bases = camera_bases(cams.yaw.reshape(-1), cams.pitch.reshape(-1),
+                             cams.fov_y.reshape(-1))
+        got = RYG.ray_grid_jit(bases, rows, cols, PIXEL_ASPECT, dev)
+        px, py = ndc_grid_jit(rows, cols, PIXEL_ASPECT, dev)
+        want = ray_dirs_jit(px, py, tuple(b.to(dev) for b in bases))
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            f"jitted ray grid differs at {tuple(got.shape)}"
+    bases = camera_bases(*(getattr(_orbit(), f) for f in
+                           ("yaw", "pitch", "fov_y")))
+    n = FARM_VIEWS * rows * cols
+    ms = _device_ms(lambda: RYG.ray_grid_jit(bases, rows, cols, PIXEL_ASPECT,
+                                             dev), "ray_grid_jit_kernel", 1)
+    dbases = tuple(b.to(dev) for b in bases)
+
+    def plain():
+        px, py = ndc_grid_jit(rows, cols, PIXEL_ASPECT, dev)
+        return ray_dirs_jit(px, py, dbases)
+
+    plain_ms = _event_ms(plain, 5)
+    # 12 bytes out a ray (and 36 in a view); ~22 float operations a ray:
+    # the two cell centres, three fused sums, the norm, three divisions
+    bound = _bound(12 * n + 36 * FARM_VIEWS, 22 * n)
+    print(f"jitted ray grid: bit-identical at the {FARM_VIEWS} orbit poses "
+          f"and the rt_demo pose, 96x36; kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}) at {n} "
+          f"rays", flush=True)
+    rec = _rec("ray_grid_jit", "ray_grid.cu", "", 0.0, ms, plain_ms, bound)
+    # the XLA code it stands for: the jitted primary_ray_dirs of render_rgb
+    rec["replaces"] = "ascii_renderer_tpu/core/camera.py:172"
+    return rec
+
+
+def run_rt_path(dev):
+    """Renderer(Config(pixel_aspect=0.5), "rt") on the rt_demo scene at
+    96x36, the golden's call: frame 0 must give tests/goldens/rt_demo.txt
+    exactly; then 3 moves and 20 timed frames. Then the "raytrace" frame
+    step at 96x36: frame 0's chars must equal the port's CPU step.
+    Returns a function that renders one frame at the pose."""
+    import torch
+    from ascii_renderer_tpu_torch.ascii import chars_to_strings
+    from ascii_renderer_tpu_torch.backends.registry import Renderer
+    from ascii_renderer_tpu_torch.core.camera import CameraInputs, update_camera
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+    from ascii_renderer_tpu_torch.sim.framestep import demo_setup
+    cfg = Config(pixel_aspect=0.5)
+    r = Renderer(cfg, "rt")
+    scene = create_rt_demo_scene().build()
+    r.set_scene(scene)
+    cam = scene.camera
+    moves = _moves()
+    with open(GOLDEN_RT) as fh:
+        golden = fh.read().splitlines()
+    for f in range(4):
+        if f:
+            cam = update_camera(cam, moves[f - 1], 1.0 / 30.0)
+        box = {}
+        (ms,) = _timed(lambda: box.update(
+            chars=_glyph(r.render(0.0, cam), cfg)), 1)
+        chars = box["chars"]
+        assert chars.device.type == "cuda" and tuple(chars.shape) == (36, 96)
+        kinds = int(torch.unique(chars).numel())
+        assert kinds >= 4, kinds
+        if f == 0:
+            rows = chars_to_strings(chars)
+            bad = [i for i, (a, b) in enumerate(zip(rows, golden)) if a != b]
+            assert rows == golden, f"rt_demo rows {bad} differ from golden"
+            print("RT frame 0: tests/goldens/rt_demo.txt exactly", flush=True)
+        print(f"RT frame {f}: {ms:.3f} ms, {kinds} distinct glyphs",
+              flush=True)
+    pose = scene.camera
+
+    def one():
+        _glyph(r.render(0.0, pose), cfg)
+
+    _summary("RT frame 96x36 (rt_demo pose)", _timed(one, 20))
+    ins = CameraInputs.from_keys({"w"})
+    outs = []
+    for d in (dev, "cpu"):
+        _cfg, sc, state, step = demo_setup(Config(), "raytrace", device=d)
+        _s, chars, _t, _f = step(sc, state, ins, 1.0 / 60, 60.0)
+        assert tuple(chars.shape) == ENTRY_GRID
+        outs.append(chars.cpu())
+    assert torch.equal(outs[0], outs[1]), \
+        f"RT step frame 0: {int((outs[0] != outs[1]).sum())} chars differ " \
+        f"from the CPU step"
+    print("RT step frame 0: chars equal the CPU step", flush=True)
+    return one
+
+
+def _farm_fn(scene, cfg, cams):
+    """render_views of render_rgb + the glyph pass over ``cams``."""
+    from ascii_renderer_tpu_torch.backends.raytrace import (render_rgb,
+                                                            ScenePrims)
+    from ascii_renderer_tpu_torch.core.frame import Frame
+    from ascii_renderer_tpu_torch.parallel.mesh import render_views
+    rows, cols = FARM_GRID
+    prims = ScenePrims(scene)
+
+    def one(sc, cam):
+        rgb = render_rgb(sc, cam, rows, cols, cfg.pixel_aspect, prims=prims)
+        return _glyph(Frame.from_float(rgb), cfg)
+
+    return lambda: render_views(one, scene, cams)
+
+
+def run_farm_path(dev):
+    """bench config 4 at full size: 1,024 orbit views of the rt_demo
+    scene (exact primitive counts) at 96x36, rendered and glyph-decided
+    (mode filter on: the batched B4, one launch) in one batched call. The
+    views in FARM_CHECKED must give the glyph grids of the port's CPU
+    render of those views exactly. Then 5 timed farms (views/s). Returns
+    a function that runs one farm."""
+    import torch
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.parallel.mesh import batch_cameras
+    from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+    cfg = Config(pixel_aspect=0.5)
+    assert cfg.ascii_mode_filter
+    cams = _orbit()
+    farm = _farm_fn(create_rt_demo_scene().build(min_pad=1), cfg, cams)
+    chars, ms = _event_once(farm)
+    assert chars.device.type == "cuda"
+    assert tuple(chars.shape) == (FARM_VIEWS,) + FARM_GRID
+    sel = list(FARM_CHECKED)
+    sub = batch_cameras(cams.pos[sel].numpy(), cams.yaw[sel].numpy(),
+                        cams.pitch[sel].numpy())
+    cpu = _farm_fn(create_rt_demo_scene().build(min_pad=1, device="cpu"),
+                   cfg, sub)()
+    got = chars[sel].cpu()
+    assert torch.equal(got, cpu), \
+        f"farm views differ from the CPU render: " \
+        f"{[v for i, v in enumerate(sel) if not torch.equal(got[i], cpu[i])]}"
+    kinds = int(torch.unique(chars).numel())
+    print(f"view farm: {FARM_VIEWS} views at 96x36 in {ms:.1f} ms (first "
+          f"call); views {sel} equal the CPU render's glyph grids; "
+          f"{kinds} distinct glyphs", flush=True)
+    t = _timed(farm, 5)
+    _summary(f"view farm {FARM_VIEWS} x 96x36", t)
+    print(f"view farm: {FARM_VIEWS / (statistics.median(t) / 1e3):.1f} "
+          f"views/s (median of 5 farms)", flush=True)
+    return farm
+
+
+def _progressive_tracer(dev, cfg, rows, cols, skip):
+    from ascii_renderer_tpu_torch.sim.accum import ProgressivePathTracer
+    return ProgressivePathTracer(cfg, _pt_scene(device=dev), rows, cols,
+                                 adaptive_skip=skip, device=dev)
+
+
+PROG_CHECKED, PROG_MAX = 8, 64
+
+
+def run_progressive_path(dev):
+    """ProgressivePathTracer on the demo scene with its atlas at 96x36,
+    the config's path tracer (spp 64 a batch, 5 bounces, NEE) and adaptive
+    settings: for the first PROG_CHECKED batches adaptive_skip=True (B5
+    with the block gate over the compacted stream) must give the display
+    rgb, alpha and active mask of adaptive_skip=False bit for bit; then the
+    skipping tracer runs on until poll_done() or PROG_MAX batches, each
+    batch's active pixels, gated blocks and device ms printed. A spp-2 /
+    2-bounce frame 0's alpha must equal the port's CPU run. Then the HD
+    arm, 960x540 at spp 8, 8 batches. Returns a function that runs one
+    HD batch."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    small = Config(path_tracer=PathTracerConfig(samples_per_batch=2,
+                                                max_bounces=2))
+    alphas = []
+    for d in (dev, "cpu"):
+        tr = _progressive_tracer(d, small, 36, 96, True)
+        _disp, a, _act = tr.step(_pt_camera())
+        alphas.append(a.cpu())
+    assert torch.equal(alphas[0], alphas[1]), \
+        f"progressive frame 0: {int((alphas[0] != alphas[1]).sum())} alpha " \
+        f"cells differ from the CPU run"
+    print("progressive frame 0 (spp 2, 2 bounces): alpha equals the CPU run",
+          flush=True)
+    cfg = Config()
+    cam = _pt_camera()
+    full = _progressive_tracer(dev, cfg, 36, 96, False)
+    fast = _progressive_tracer(dev, cfg, 36, 96, True)
+    assert fast.skip and fast.use_kernel
+    n_pix = 36 * 96
+    blocks = -(-cfg.path_tracer.samples_per_batch * n_pix // PTK.BLOCK)
+    # the full trajectory's first batches, held to compare with
+    ref = [full.step(cam) for _ in range(PROG_CHECKED)]
+    log = []
+    # B5's device time a batch: its kernel rows in a profile of the loop,
+    # in launch order (every batch launches PTK.launches' increment)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in range(PROG_MAX):
+            a0 = torch.cuda.Event(enable_timing=True)
+            a1 = torch.cuda.Event(enable_timing=True)
+            n0 = PTK.launches
+            a0.record()
+            disp, alpha, act = fast.step(cam)
+            a1.record()
+            log.append((a0, a1, act.sum(), PTK.launches - n0))
+            if b < PROG_CHECKED:
+                d2, al2, ac2 = ref[b]
+                assert torch.equal(disp.view(torch.int32),
+                                   d2.view(torch.int32)) \
+                    and torch.equal(alpha, al2) and torch.equal(act, ac2), \
+                    f"progressive batch {b}: adaptive skip differs from full"
+            if fast.poll_done():
+                break
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "pt_trace_kernel" in e.name),
+                  key=lambda e: e.time_range.start)
+    per = [n for *_x, n in log]
+    whole = len(kern) == sum(per)
+    if not whole:
+        print(f"progressive: the profile holds {len(kern)} B5 rows for "
+              f"{sum(per)} launches; per-batch device ms not shown",
+              flush=True)
+    spp = cfg.path_tracer.samples_per_batch
+    b5, first = [], 0
+    for b, (a0, a1, n_act, n_l) in enumerate(log):
+        # the mask a step returns is the one its batch was traced under:
+        # the compacted stream's rays s * pc + p are live iff p < n_act
+        n_act = int(n_act)
+        live = (np.arange(blocks * PTK.BLOCK) % n_pix < n_act) \
+            & (np.arange(blocks * PTK.BLOCK) < spp * n_pix)
+        gated = int((~live.reshape(blocks, PTK.BLOCK).any(1)).sum())
+        b5_ms = "not measured"
+        if whole:
+            b5.append(sum(e.time_range.elapsed_us()
+                          for e in kern[first:first + n_l]) / 1e3)
+            b5_ms = f"{b5[-1]:.4f} ms"
+        first += n_l
+        print(f"progressive batch {b}: {n_act} active pixels, {gated} of "
+              f"{blocks} sample blocks gated, B5 {b5_ms} on the device "
+              f"({n_l} launches), the batch {a0.elapsed_time(a1):.3f} ms on "
+              f"the stream", flush=True)
+    print(f"progressive: adaptive skip bit-identical to full for "
+          f"{PROG_CHECKED} batches; stopped after {len(log)} batches "
+          f"(poll_done: {len(log) < PROG_MAX})"
+          + (f"; B5 {b5[0]:.4f} ms on the device at batch 0, {b5[-1]:.4f} "
+             f"at the last" if b5 else ""), flush=True)
+    hd_cfg = Config(path_tracer=PathTracerConfig(samples_per_batch=8))
+    hd = _progressive_tracer(dev, hd_cfg, ROWS, COLS, True)
+    hd_ms = _timed(lambda: hd.step(cam), 8)
+    _summary("progressive HD 960x540 spp8", hd_ms)
+
+    def one():
+        hd.step(cam)
+
+    return one
 
 
 # --------------------------------------------------------------------------
@@ -2388,13 +2739,17 @@ def main() -> int:
                 "raster_subtile_walk": (RS, "launches"),
                 "raster_subtile_walk_packed": (RS, "launches_packed"),
                 "raster_subtile_walk_packed_d": (RS, "launches_packed_d"),
-                "ray_grid": (RYG, "launches")}
+                "ray_grid": (RYG, "launches"),
+                "ray_grid_jit": (RYG, "jit_launches"),
+                "pt_megakernel_gated": (PTK, "launches_gated")}
     soup = _bunny()
     scene = _scene(dev)
     recs = check_kernels(dev, soup, scene)
     recs.append(check_modal(dev, soup, scene))
     recs.append(check_pt_kernel(dev))
     recs.append(check_ray_grid(dev))
+    recs.append(check_modal_batched(dev))
+    recs.append(check_ray_grid_jit(dev))
     by_name = {r["name"]: r for r in recs}
 
     # raster headline path: B1-B3, and B4 in the glyph stage
@@ -2515,6 +2870,32 @@ def main() -> int:
     for k in ("pt_megakernel", "ray_grid", "modal_vote"):
         assert c_pts[k] > 0, f"{k} never launched on the PT frame step"
     profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"), "PT frame step")
+
+    # the ray tracer: the golden frame and the "raytrace" step, then the
+    # 1,024-view farm, then the progressive path tracer
+    rt_prefixes = ("rt.", "frame.", "glyph")
+    c_rt, rt_fn = _path_counts(counters, lambda: run_rt_path(dev))
+    print(f"launches on the RT path: {c_rt}", flush=True)
+    for k in ("ray_grid_jit", "modal_vote"):
+        assert c_rt[k] > 0, f"{k} never launched on the RT path"
+    profile_frames(rt_fn, 5, rt_prefixes, "RT frame")
+    c_farm, farm_fn = _path_counts(counters, lambda: run_farm_path(dev))
+    print(f"launches on the view farm: {c_farm}", flush=True)
+    for k in ("ray_grid_jit", "modal_vote"):
+        assert c_farm[k] > 0, f"{k} never launched on the view farm"
+    c_one, _ = _path_counts(counters, farm_fn)
+    assert c_one["modal_vote"] == 1 and c_one["ray_grid_jit"] == 1, \
+        f"a farm launches B4 and the grid once each: {c_one}"
+    by_name["modal_vote_views"]["launches"] = c_farm["modal_vote"]
+    by_name["ray_grid_jit"]["launches"] = sum(
+        c["ray_grid_jit"] for c in (c_rt, c_farm))
+    profile_frames(farm_fn, 2, ("rt.", "glyph"), "view farm")
+    c_prog, prog_fn = _path_counts(counters,
+                                   lambda: run_progressive_path(dev))
+    print(f"launches on the progressive tracer: {c_prog}", flush=True)
+    for k in ("pt_megakernel", "pt_megakernel_gated", "ray_grid"):
+        assert c_prog[k] > 0, f"{k} never launched on the progressive path"
+    profile_frames(prog_fn, 3, ("pt.", "accum."), "progressive HD batch")
 
     # the path tracer's XLA core: the goldens and the core against B5,
     # then the wide-atlas frame. Last: its profile holds ~20,000 launches a

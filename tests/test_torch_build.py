@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from ascii_renderer_tpu_torch.backends import raster as R
-from ascii_renderer_tpu_torch.core.camera import (Camera, camera_basis,
-                                                  ndc_grid, ray_dirs)
+from ascii_renderer_tpu_torch.core.camera import (Camera, camera_bases,
+                                                  camera_basis, ndc_grid,
+                                                  ndc_grid_jit, ray_dirs,
+                                                  ray_dirs_jit)
 from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import pack as PK
@@ -75,7 +77,7 @@ COUNTERS = ((S, "launches"), (PK, "launches"), (RG, "launches"),
             (RG, "launches_grouped"), (RG, "launches_direct"),
             (RG, "launches_k2"), (RB, "launches_shaded"), (RS, "launches"),
             (RS, "launches_packed"), (RS, "launches_packed_d"),
-            (RYG, "launches"))
+            (RYG, "launches"), (RYG, "jit_launches"))
 
 
 @pytest.fixture
@@ -289,6 +291,19 @@ def test_modal_wrapper_takes_the_override_bytes(zero_counts):
     assert AK.cells_per_thread(540, 960) == AK.CELLS > 1
     assert AK.cells_per_thread(36, 96) == 1
     assert AK.cells_per_thread(1, 1) == 1
+    # a batch of planes counts its views' blocks: a 1,024-view farm of
+    # 36 x 96 grids makes enough blocks for K = CELLS
+    assert AK.cells_per_thread(36, 96, 1024) == AK.CELLS
+    for ovr in (torch.empty((8, 36, 96), dtype=torch.bool, device=meta),):
+        with pytest.raises(ValueError, match="CUDA"):
+            AK.modal_filter_kernel(
+                torch.empty((8, 36, 96), dtype=torch.int32, device=meta),
+                ovr, 2, 12)
+    with pytest.raises(ValueError, match=r"\[V, H, W\]"):
+        AK.modal_filter_kernel(torch.zeros((2, 2, 4, 4), dtype=torch.int32),
+                               torch.zeros((2, 2, 4, 4), dtype=torch.bool),
+                               2, 12)
+    assert AK.launches == launches
 
 
 def _ray_grid_inputs(device, rows, cols, B, seed):
@@ -321,6 +336,22 @@ def test_ray_grid_wrapper_runs_the_plain_version_on_cpu(zero_counts):
         RYG.ray_grid(torch.empty((6, 10), dtype=torch.float64, device=meta),
                      torch.empty((6, 10), device=meta), basis)
     assert RYG.launches == 0
+
+
+def test_ray_grid_jit_wrapper_runs_the_plain_version_on_cpu(zero_counts):
+    """The ray tracer's grid wrapper: on the CPU ndc_grid_jit and
+    ray_dirs_jit, no launch; any other device reaches the kernel path,
+    which takes a CUDA device only."""
+    yaw = torch.tensor([0.3, -1.2], dtype=torch.float32)
+    bases = camera_bases(yaw, torch.tensor([0.1, -0.2]),
+                         torch.full((2,), 1.3962634))
+    px, py = ndc_grid_jit(6, 10, 0.5, "cpu")
+    got = RYG.ray_grid_jit(bases, 6, 10, 0.5, "cpu")
+    assert got.shape == (2, 6, 10, 3)
+    assert torch.equal(got, ray_dirs_jit(px, py, bases))
+    with pytest.raises(ValueError, match="CUDA"):
+        RYG.ray_grid_jit(bases, 6, 10, 0.5, "meta")
+    assert RYG.jit_launches == 0
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -475,6 +506,63 @@ def test_modal_kernel_equals_plain_on_cuda(cuda_device, radius, thresh,
         assert AK.launches == launches + 1
         assert torch.equal(got.cpu(), AK.modal_filter(idx, ovr, radius,
                                                       thresh)), (h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", [1, 4])
+@pytest.mark.parametrize("plane", sorted(MODAL_PLANES))
+@pytest.mark.parametrize("radius,thresh", [(1, 5), (2, 12), (3, 24)])
+def test_modal_kernel_batch_equals_plain_on_cuda(cuda_device, radius, thresh,
+                                                 plane, cells):
+    """B4 over a batch of planes [V, H, W] in one launch equals
+    ``modal_filter`` on the batch and each plane's own launch exactly: no
+    vote crosses a plane's edge."""
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    rng = np.random.default_rng(radius * 100 + cells)
+    for v, (h, w) in ((5, (36, 96)), (3, (13, 45)), (4, (1, 77)),
+                      (2, (61, 1)), (7, (1, 1))):
+        planes = [MODAL_PLANES[plane](rng, h, w) for _ in range(v)]
+        idx = torch.from_numpy(np.stack([i for i, _ in planes])
+                               .astype(np.int32))
+        ovr = torch.from_numpy(np.stack([o for _, o in planes]))
+        launches = AK.launches
+        got = AK.modal_filter_kernel(idx.to(cuda_device),
+                                     ovr.to(cuda_device), radius, thresh,
+                                     cells=cells)
+        torch.cuda.synchronize()
+        assert AK.launches == launches + 1
+        assert torch.equal(got.cpu(), AK.modal_filter(idx, ovr, radius,
+                                                      thresh)), (v, h, w)
+        for k in range(v):
+            one = AK.modal_filter_kernel(idx[k].to(cuda_device),
+                                         ovr[k].to(cuda_device), radius,
+                                         thresh, cells=cells)
+            assert torch.equal(got[k].cpu(), one.cpu()), (v, h, w, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views,rows,cols", [(1, 36, 96), (1024, 36, 96),
+                                             (3, 12, 32), (2, 540, 960),
+                                             (5, 1, 1), (4, 7, 13)])
+def test_ray_grid_jit_kernel_equals_plain_on_cuda(cuda_device, views, rows,
+                                                  cols, zero_counts):
+    """The ray tracer's grid kernel equals ndc_grid_jit + ray_dirs_jit bit
+    for bit, on the CPU and on the same CUDA device, for a batch of seeded
+    poses in one launch."""
+    rng = np.random.default_rng(views + rows)
+    yaw = torch.from_numpy(rng.uniform(-3, 3, views).astype(np.float32))
+    pitch = torch.from_numpy(rng.uniform(-1.4, 1.4, views).astype(np.float32))
+    fov = torch.full((views,), np.float32(80 * np.pi / 180))
+    bases = camera_bases(yaw, pitch, fov)
+    got = RYG.ray_grid_jit(bases, rows, cols, 0.5, cuda_device)
+    torch.cuda.synchronize()
+    assert got.shape == (views, rows, cols, 3) and RYG.jit_launches == 1
+    px, py = ndc_grid_jit(rows, cols, 0.5, cuda_device)
+    for want in (ray_dirs_jit(px, py, tuple(b.to(cuda_device)
+                                            for b in bases)).cpu(),
+                 RYG.ray_grid_jit(bases, rows, cols, 0.5, "cpu")):
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
 
 
 def _pt_inputs(device, n_tris, n_blocks=3, seed=0):

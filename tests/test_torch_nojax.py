@@ -27,7 +27,9 @@ for name in names:
 assert len(names) >= 20, names
 for new in ("backends.raster_channels", "backends.raster_oracles",
             "ops.raster_bins", "ops.raster_subtile", "sim.ui",
-            "sim.framestep", "entry"):
+            "sim.framestep", "entry", "backends.raytrace",
+            "backends.rt_core", "geom.intersect", "parallel.mesh",
+            "sim.accum"):
     assert "ascii_renderer_tpu_torch." + new in names, new
 from ascii_renderer_tpu_torch.backends import raster as R
 from ascii_renderer_tpu_torch.core.camera import Camera
@@ -93,6 +95,20 @@ pchars, _ = AsciiPass(cfg)(f)
 assert tuple(pchars.shape) == (12, 32)
 assert int(((f.a >= 2) & (f.a <= 254)).sum()) > 5
 assert pt_kernel.launches == 0 and pathtrace.PathtraceBackend
+# the ray tracer, a 2-view farm and a progressive batch, without jax
+from ascii_renderer_tpu_torch.backends.raytrace import render_rgb
+from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras, render_views
+from ascii_renderer_tpu_torch.sim.accum import ProgressivePathTracer
+rts = demo.create_rt_demo_scene().build(device="cpu")
+rt = registry.Renderer(Config(pixel_aspect=0.5), "rt", device="cpu")
+rt.set_scene(rts)
+assert rt.render(0.0, rts.camera, 12, 32).rgb.any()
+farm = render_views(lambda sc, cams: render_rgb(sc, cams, 6, 10, 0.5),
+                    rts, orbit_cameras(2, center=(0, 1.0, 1.0)))
+assert tuple(farm.shape) == (2, 6, 10, 3)
+prog = ProgressivePathTracer(cfg, sb.build(min_pad=1, device="cpu"))
+_d, _a, act = prog.step(Camera.create(pos=(0, 2.5, 6), yaw=-1.5707963))
+assert bool(act.all()) and pt_kernel.launches == 0
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax"))
        or m.startswith("ascii_renderer_tpu.")]
 assert not [m for m in bad if sys.modules[m] is not None], bad

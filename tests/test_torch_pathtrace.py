@@ -32,6 +32,7 @@ from ascii_renderer_tpu_torch.atlas import io as TIO
 from ascii_renderer_tpu_torch.backends import pathtrace as TPT
 from ascii_renderer_tpu_torch.backends import registry as REG
 from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+from ascii_renderer_tpu_torch.backends.raytrace import RaytraceBackend
 from ascii_renderer_tpu_torch.core import camera as TC
 from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
 from ascii_renderer_tpu_torch.core.frame import Frame
@@ -193,8 +194,22 @@ def test_renderer_routes_to_the_pathtracer():
     rdirect = rb.render(0.0, TC.Camera.create(**POSE), 8, 24, 0.5)
     assert tuple(rframe.a.shape) == (8, 24)
     assert torch.equal(rframe.rgb, rdirect.rgb) and rframe.rgb.any()
-    with pytest.raises(NotImplementedError, match="A9"):
-        r.set_backend("rt")
+    # the ray tracer through the router: the frame RaytraceBackend renders
+    assert r.set_backend("rt") == "raytrace"  # re-pushes the scene
+    tb = RaytraceBackend(cfg, device="cpu")
+    tb.set_scene(ts)
+    tframe = r.render(0.0, TC.Camera.create(**POSE))
+    assert torch.equal(tframe.rgb, tb.render(0.0, TC.Camera.create(**POSE),
+                                             8, 24, 0.5).rgb)
+    rt_scene = TD.create_rt_demo_scene().build(device="cpu")  # its lights
+    r.set_scene(rt_scene)
+    tb.set_scene(rt_scene)
+    tframe = r.render(0.0, rt_scene.camera)
+    tdirect = tb.render(0.0, rt_scene.camera, 8, 24, 0.5)
+    assert tuple(tframe.rgb.shape) == (8, 24, 3) and tframe.rgb.any()
+    assert torch.equal(tframe.rgb, tdirect.rgb)
+    assert torch.equal(tframe.a, tdirect.a)
+    assert r.set_backend("ray") == "raytrace"
     with pytest.raises(ValueError, match="Unknown backend"):
         r.set_backend("nope")
     r.dispose()
@@ -206,9 +221,19 @@ def test_unported_paths_raise():
     kw = dict(rows=4, cols=8, pixel_aspect=0.5, spp=1, bounces=1,
               light_color=LIGHT)
     cam = TC.Camera.create(**POSE)
-    with pytest.raises(NotImplementedError, match="A8"):
-        TPT.render_pt(ts, cam, 0.0, 0,
-                      pixel_active=torch.ones(4, 8, dtype=torch.bool), **kw)
+    # the adaptive compaction (A8, ported): at 36 x 96, spp 2 (7 blocks of
+    # 1,024 rays), the active pixels of a seeded mask get the full render's
+    # rgb and alpha bit for bit, and the gated blocks' pixels come back
+    # empty in pixel order
+    ckw = dict(kw, rows=36, cols=96, spp=2, bounces=2)
+    full_rgb, full_a = TPT.render_pt(ts, cam, 0.0, 3, **ckw)
+    act = torch.from_numpy(np.random.default_rng(4).random((36, 96)) < 0.2)
+    rgb, a = TPT.render_pt(ts, cam, 0.0, 3, pixel_active=act, **ckw)
+    assert torch.equal(rgb[act].view(torch.int32),
+                       full_rgb[act].view(torch.int32))
+    assert torch.equal(a[act], full_a[act])
+    empty = (rgb == 0).all(-1) & (a == 255)
+    assert empty[~act].sum() > (~act).sum() // 2
     with pytest.raises(NotImplementedError, match="A12"):
         TPT.render_pt(ts, cam, 0.0, 0, row_lo=1, n_rows=2, **kw)
     with pytest.raises(NotImplementedError, match="A12"):

@@ -369,12 +369,25 @@ def test_pathtrace_look_steps_equal_jax_kernel_path(monkeypatch):
 
 
 def test_raytrace_step_raises():
+    """The "raytrace" frame step (ported; the name is the test's from
+    before the port): 3 steps of demo_setup at 12 x 32, a different held
+    key set each frame, give the chars, tint, camera and clock of JAX's
+    jitted step exactly, with no overflow."""
+    jcfg = JConfig(grid_width=COLS, grid_height=ROWS)
+    _jcfg, jscene, js, jstep = JFS.demo_setup(jcfg, backend="raytrace")
     cfg = Config(grid_width=COLS, grid_height=ROWS)
-    cfg, scene, state, step = FS.demo_setup(cfg, backend="pathtrace",
-                                            device="cpu")
-    rt = FS.make_frame_step(cfg, "raytrace")
-    with pytest.raises(NotImplementedError, match="A9"):
-        rt(scene, state, TC.CameraInputs.from_keys(()), 1.0 / 60, 60.0)
+    cfg, scene, ts, step = FS.demo_setup(cfg, backend="raytrace",
+                                         device="cpu")
+    for f, keys in enumerate(MOVES):
+        ji = JC.CameraInputs.from_keys(keys, mouse_dx=4.0 * f)
+        ti = TC.CameraInputs.from_keys(keys, mouse_dx=4.0 * f)
+        js, jchars, jtint, _jf = jstep(jscene, js, ji, 1.0 / 60, 60.0)
+        ts, chars, tint, _frame = step(scene, ts, ti, 1.0 / 60, 60.0)
+        _eq(chars.numpy(), jchars, f"chars, frame {f}")
+        _eq(tint.numpy(), jtint, f"tint, frame {f}")
+        _assert_state_equal(ts, js)
+        assert int(ts.raster_overflow) == 0
+    assert len(np.unique(chars.numpy())) >= 4
 
 
 def test_entry_frames_equal_jax():

@@ -43,11 +43,15 @@ from ascii_renderer_tpu_torch.backends import pathtrace as TPT
 from ascii_renderer_tpu_torch.backends import pt_core as PC
 from ascii_renderer_tpu_torch.backends import raster as R
 from ascii_renderer_tpu_torch.backends import raster_channels as RC
+from ascii_renderer_tpu_torch.backends import raytrace as TRT
+from ascii_renderer_tpu_torch.backends import rt_core as RTC
 from ascii_renderer_tpu_torch.core import camera as TC
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
+from ascii_renderer_tpu_torch.geom import intersect as TG
 from ascii_renderer_tpu_torch.ops import pt_kernel as TPK
 from ascii_renderer_tpu_torch.scene import demo as TD
 from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
+from ascii_renderer_tpu_torch.sim import accum as TA
 
 torch.set_num_threads(2)
 
@@ -272,7 +276,8 @@ def test_b5_plain_version_equals_jax_kernel(monkeypatch):
     assert (got[0].numpy() > 0).sum() > 50  # the paths gathered light
 
 
-@pytest.mark.parametrize("module", [RC, R, TC, TPK, TPT, PC])
+@pytest.mark.parametrize("module", [RC, R, TC, TPK, TPT, PC, RTC, TRT, TG,
+                                    TA])
 def test_every_site_takes_the_shared_root(module):
     """No site of these modules takes torch's float32 sqrt directly."""
     assert "torch.sqrt(" not in inspect.getsource(module)
