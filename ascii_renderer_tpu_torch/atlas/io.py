@@ -10,12 +10,15 @@ Format (ref: atlas_paint.py:5-66):
       32 <= A <= 126-> ASCII glyph texel, A = character code, RGB = tint
       anything else -> invalid.
 
-The atlas stays a host array until ``SceneBuilder.build`` moves it to the
-device.
+This module provides the loader / validator and the editing primitives
+of the reference's AtlasModel (set_pixel / set_char / clear / ASCII-art
+stamping), so atlases can be authored programmatically. The atlas stays a
+host array until ``SceneBuilder.build`` moves it to the device.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -41,6 +44,15 @@ def load_atlas(path: str, width: int, height: int, *,
         bad = int((~valid_mask(arr)).sum())
         raise ValueError(f"atlas has {bad} invalid texels")
     return arr
+
+
+def save_atlas(path: str, arr: np.ndarray) -> None:
+    """Write u8 [H, W, 4] as the raw headerless RGBA stream."""
+    arr = np.asarray(arr, dtype=np.uint8)
+    if arr.ndim != 3 or arr.shape[2] != 4:
+        raise ValueError(f"save_atlas: expected [H, W, 4], got {arr.shape}")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    arr.tofile(path)
 
 
 def valid_mask(arr: np.ndarray) -> np.ndarray:
@@ -83,13 +95,82 @@ class AtlasImage:
     def __init__(self, width: int, height: int):
         self.arr = np.zeros((height, width, 4), dtype=np.uint8)
 
+    @property
+    def width(self) -> int:
+        return self.arr.shape[1]
+
+    @property
+    def height(self) -> int:
+        return self.arr.shape[0]
+
+    @classmethod
+    def load(cls, path: str, width: int, height: int) -> "AtlasImage":
+        out = cls(width, height)
+        out.arr = load_atlas(path, width, height)
+        return out
+
+    def save(self, path: str) -> None:
+        save_atlas(path, self.arr)
+
     def set_pixel(self, x: int, y: int, rgb) -> None:
         """Solid color texel (A=1)."""
         self.arr[y, x, :3] = rgb
         self.arr[y, x, 3] = ATLAS_SOLID
 
+    def set_char(self, x: int, y: int, ch: str, rgb) -> None:
+        """Glyph texel (A=ord(ch)); ch must be visible ASCII."""
+        if len(ch) != 1:
+            raise ValueError("set_char requires a single character")
+        code = ord(ch)
+        if not (ATLAS_GLYPH_MIN <= code <= ATLAS_GLYPH_MAX):
+            raise ValueError("character is not visible ASCII (32..126)")
+        self.arr[y, x, :3] = rgb
+        self.arr[y, x, 3] = code
+
+    def clear(self, x: int, y: int) -> None:
+        self.arr[y, x] = (0, 0, 0, ATLAS_CLEAR)
+
+    def valid_mask(self) -> np.ndarray:
+        return valid_mask(self.arr)
+
     def stamp(self, x: int, y: int, art: str, rgb=(255, 255, 255)) -> None:
         stamp_ascii_art(self.arr, x, y, art, rgb)
+
+    def preview_image(self, scale: int = 16):
+        """PNG-able PIL preview for human inspection (clear = checkerboard,
+        solid = fill, glyph = drawn character, invalid = red X). Needs
+        PIL, imported here."""
+        from PIL import Image, ImageDraw, ImageFont
+        h, w = self.height, self.width
+        img = Image.new("RGBA", (w * scale, h * scale), (0, 0, 0, 0))
+        d = ImageDraw.Draw(img)
+        c1, c2 = (200, 200, 200, 255), (160, 160, 160, 255)
+        ck = max(4, scale // 2)
+        for yy in range(0, h * scale, ck):
+            for xx in range(0, w * scale, ck):
+                d.rectangle([xx, yy, xx + ck - 1, yy + ck - 1],
+                            fill=c1 if ((xx // ck + yy // ck) % 2 == 0)
+                            else c2)
+        try:
+            font = ImageFont.truetype("DejaVuSansMono.ttf", int(scale * 0.75))
+        except OSError:
+            font = ImageFont.load_default()
+        for y in range(h):
+            for x in range(w):
+                r, g, b, a = (int(v) for v in self.arr[y, x])
+                box = [x * scale, y * scale, (x + 1) * scale - 1,
+                       (y + 1) * scale - 1]
+                if a == ATLAS_CLEAR:
+                    continue
+                if a == ATLAS_SOLID:
+                    d.rectangle(box, fill=(r, g, b, 255))
+                elif ATLAS_GLYPH_MIN <= a <= ATLAS_GLYPH_MAX:
+                    d.text((box[0] + scale // 5, box[1]), chr(a),
+                           fill=(r, g, b, 255), font=font)
+                else:
+                    d.rectangle(box, outline=(255, 0, 0, 255), width=2)
+                    d.line(box, fill=(255, 0, 0, 255), width=2)
+        return img
 
 
 def demo_atlas_wide(width: int = 32, height: int = 16) -> np.ndarray:

@@ -121,7 +121,7 @@ class Renderer:
         frame = self._last_frame
         if frame is None:
             return None
-        px = torch.cat([frame.rgb, frame.a[..., None]], dim=-1).cpu().numpy()
+        px = frame.interleaved().cpu().numpy()
         return px[::-1] if flip_y else px
 
     def dispose(self) -> None:

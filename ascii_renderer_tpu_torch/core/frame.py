@@ -53,3 +53,13 @@ class Frame:
         rgb = torch.where(mask[..., None], torch.zeros_like(self.rgb), self.rgb)
         a = torch.where(mask, chars.to(torch.uint8), self.a)
         return Frame(rgb=rgb, a=a)
+
+    def interleaved(self) -> torch.Tensor:
+        """RGBA-interleaved uint8 [H, W, 4] (the reference's wire format,
+        for IO / preview compatibility)."""
+        return torch.cat([self.rgb, self.a[..., None]], dim=-1)
+
+    @staticmethod
+    def from_interleaved(rgba: torch.Tensor) -> "Frame":
+        return Frame(rgb=rgba[..., :3].to(torch.uint8),
+                     a=rgba[..., 3].to(torch.uint8))

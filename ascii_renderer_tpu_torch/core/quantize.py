@@ -64,6 +64,17 @@ def is_override(a_u8: torch.Tensor) -> torch.Tensor:
     return (a >= OVERRIDE_MIN) & (a <= OVERRIDE_MAX)
 
 
+def quantize_index_np(rgb_u8: np.ndarray, ramp_len: int) -> np.ndarray:
+    """Pure-numpy twin of :func:`quantize_index` (the host decode of
+    ``ascii.overlay.TextOverlay.set_frame``)."""
+    n = np.float32(max(1, ramp_len) - 1)
+    s = rgb_u8.astype(np.int64).sum(axis=-1)
+    x = s.astype(np.float32) / np.float32(3.0) / np.float32(255.0)
+    x = np.clip(x, 0.0, 1.0 - 1e-6)
+    idx = np.floor(x * n + np.float32(0.5))
+    return np.clip(idx, 0, n).astype(np.int32)
+
+
 def float_rgb_to_u8(rgb: torch.Tensor) -> torch.Tensor:
     """Linear [0,1] float RGB -> bytes, matching GL RGBA8 UNORM conversion
     (round-half-up of clamp(v,0,1)*255)."""

@@ -1,19 +1,23 @@
-"""Scene authoring API + packed device scene (torch port of the parts of
-``ascii_renderer_tpu/scene/builder.py`` the raster and path-tracer main
-paths call).
+"""Scene authoring API + packed device scene (torch port of
+``ascii_renderer_tpu/scene/builder.py``; ref: js/render/scene_api.js).
+
+``SceneBuilder`` mirrors the reference's authoring surface (materials
+table with conventional uint IDs, spheres / tris / quads / planes with
+uint16 texel UVs, meshes, env + area + point + directional lights, camera
+pose, atlas descriptor, caps) and its JSON-able unified schema
+(``to_unified`` / ``from_object``, the same dict as the JAX package's, so
+a scene file written by either package loads in the other).
 
 ``SceneData`` keeps every field of the JAX pytree, as tensors, so
 ``tessellate_scene``, the raster shading, the path tracer's packer and
-``utils.from_jax`` see one schema. The builder covers materials, lights,
-camera pose, spheres, triangles, quads, planes and the atlas; meshes and
-the JSON schema are ROADMAP A2.
+``utils.from_jax`` see one schema.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -189,10 +193,19 @@ class SceneBuilder:
         self.add_material(MaterialIds.MIRROR, Material(
             "MIRROR", (1, 1, 1), False, (0, 0, 0), True, 0.0))
 
-    def add_material(self, mat_id, mat: Material) -> int:
+    def add_material(self, mat_id, mat: Material | dict) -> int:
         mid = _u32(mat_id)
+        if isinstance(mat, dict):
+            mat = Material(**{k: v for k, v in mat.items()
+                              if k in Material.__dataclass_fields__})
         self._materials[mid] = mat.clamped()
         return mid
+
+    def has_material(self, mat_id) -> bool:
+        return _u32(mat_id) in self._materials
+
+    def get_material(self, mat_id) -> Optional[Material]:
+        return self._materials.get(_u32(mat_id))
 
     def _resolve_mat(self, mat_id) -> int:
         """Unknown/None ids coerce through _u32 exactly like the JS
@@ -298,6 +311,81 @@ class SceneBuilder:
             return self
         self._planes.append({"n": (n / ln).tolist(), "d": float(d),
                              "matId": self._resolve_mat(material_id)})
+        return self
+
+    def add_mesh(self, positions: Sequence[float], indices=None, uvs=None,
+                 material_id=MaterialIds.WHITE) -> "SceneBuilder":
+        """Triangle soup / indexed mesh helper (scene_api.js:169-192):
+        flat xyz positions; indexed triangles with an index out of range
+        are skipped; uvs are flat per-vertex u16 texel pairs."""
+        positions = list(positions)
+        if len(positions) % 3 != 0:
+            return self
+        nverts = len(positions) // 3
+        get_v = lambda i: positions[3 * i: 3 * i + 3]  # noqa: E731
+
+        def get_uv(i):
+            if not uvs or len(uvs) < 2 * (i + 1):
+                return (0, 0)
+            return (_u16(int(uvs[2 * i])), _u16(int(uvs[2 * i + 1])))
+
+        if indices is not None and len(indices) % 3 == 0:
+            for t in range(0, len(indices), 3):
+                i0, i1, i2 = (int(indices[t]), int(indices[t + 1]),
+                              int(indices[t + 2]))
+                if min(i0, i1, i2) < 0 or max(i0, i1, i2) >= nverts:
+                    continue
+                self.add_triangle(get_v(i0), get_v(i1), get_v(i2),
+                                  material_id, get_uv(i0), get_uv(i1),
+                                  get_uv(i2))
+        else:
+            for i in range(0, len(positions) - 8, 9):
+                self.add_triangle(positions[i:i + 3], positions[i + 3:i + 6],
+                                  positions[i + 6:i + 9], material_id)
+        return self
+
+    def to_unified(self) -> dict:
+        """JSON-friendly unified schema v2 (scene_api.js:195-236), extended
+        with planes and point / directional lights; key for key the JAX
+        package's dict."""
+        mat_table = {str(mid): dataclasses.asdict(m)
+                     for mid, m in self._materials.items()}
+        for m in mat_table.values():
+            m["albedo"] = list(m["albedo"])
+            m["emission"] = list(m["emission"])
+        return {
+            "version": 2,
+            "camera": dict(self._camera, pos=list(self._camera["pos"])),
+            "atlas": {"width": self._atlas_size[0],
+                      "height": self._atlas_size[1]},
+            "materials": {"table": mat_table},
+            "geometry": {
+                "spheres": [dict(s) for s in self._spheres],
+                "tris": [dict(t) for t in self._tris],
+                "quads": [dict(q) for q in self._quads],
+                "planes": [dict(p) for p in self._planes],
+            },
+            "lights": {
+                "env": dict(self._env),
+                "area": dict(self._area),
+                "points": [dict(p) for p in self._point_lights],
+                "directionals": [dict(d) for d in self._dir_lights],
+            },
+        }
+
+    to_path_tracer = to_unified
+    to_object = to_unified
+
+    def reset(self) -> "SceneBuilder":
+        """Clear geometry, lights, atlas and camera; keep the materials
+        (scene_api.js:248-257)."""
+        self._spheres, self._tris, self._quads, self._planes = [], [], [], []
+        self._point_lights, self._dir_lights = [], []
+        self._atlas_size, self._atlas_pixels = (0, 0), None
+        self._env = {"color": [0.0, 0.0, 0.0], "intensity": 0.0}
+        self._area = {"center": [3.0, 2.8, 3.0], "radius": 0.5, "auto": True}
+        self._camera = {"pos": [2.78, 2.73, -8.00], "yaw": 0.0, "pitch": 0.0,
+                        "fovY": 80 * math.pi / 180}
         return self
 
     def build(self, *, min_pad: int = 8, device="cuda") -> SceneData:
@@ -424,3 +512,112 @@ class SceneBuilder:
             camera=cam,
             atlas_rgb=j(at_rgb), atlas_a=j(at_a),
         )
+
+
+def create_scene_builder(max_spheres=64, max_tris=4096,
+                         max_quads=4096) -> SceneBuilder:
+    return SceneBuilder(max_spheres, max_tris, max_quads)
+
+
+def from_legacy_object(obj: dict) -> SceneBuilder:
+    """Adapt the legacy flat PT scene shape — {spheres: [{p, r, m}],
+    planes: [{p: [nx,ny,nz,d], m}], tris: [{a,b,c,m}], envLight, dirLight}
+    — the way the reference's raytrace backend does (raytrace.js:140-193),
+    including its legacy material palette and the GLASS -> mirror
+    promotion."""
+    pal = {0: (5, 5, 5), 1: (0.9, 0.9, 0.9), 2: (0.7, 0.9, 0.7),
+           3: (0.95, 0.45, 0.45), 6: (0.9, 0.95, 1.0)}
+    sb = SceneBuilder()
+    if not isinstance(obj, dict):
+        return sb
+    next_id = [100]  # private id space, one material per primitive
+
+    def mat_for(m):
+        m = int(m or 1)
+        albedo = pal.get(m, (0.8, 0.8, 0.8))
+        reflective = m > 4  # GLASS in PT -> mirror here (raytrace.js:164)
+        mid = next_id[0]
+        next_id[0] += 1
+        sb.add_material(mid, Material(albedo=albedo, reflective=reflective))
+        return mid
+
+    if obj.get("camera"):
+        cam = obj["camera"]
+        sb.set_camera_pose(cam.get("pos", [2.78, 2.73, -8.0]),
+                           yaw=float(cam.get("yaw", 0.0)),
+                           pitch=float(cam.get("pitch", 0.0)))
+    for s in obj.get("spheres", []):
+        sb.add_sphere(s.get("p", [0, 0, 0]), float(s.get("r", 1.0)),
+                      mat_for(s.get("m")))
+    for p in obj.get("planes", []):
+        v = p.get("p", [0, 1, 0, 0])
+        sb.add_plane(v[:3], float(v[3]), mat_for(p.get("m")))
+    for t in obj.get("tris", []):
+        sb.add_triangle(t.get("a", [0, 0, 0]), t.get("b", [1, 0, 0]),
+                        t.get("c", [0, 1, 0]), mat_for(t.get("m")))
+    env = obj.get("envLight")
+    if env:
+        sb.set_env_light(env.get("color", [0, 0, 0]),
+                         float(env.get("intensity", 0.0)))
+    dl = obj.get("dirLight")
+    if dl:
+        sb.add_dir_light(dl.get("dir", [0, -1, 0]), dl.get("color", [1, 1, 1]),
+                         float(dl.get("intensity", 0.0)))
+    return sb
+
+
+def from_object(obj: dict) -> SceneBuilder:
+    """Rebuild a SceneBuilder from the unified schema
+    (scene_api.js:266-319)."""
+    sb = SceneBuilder()
+    if not isinstance(obj, dict):
+        return sb
+    cam = obj.get("camera") or {}
+    if cam:
+        fovy = cam.get("fovY", 80 * math.pi / 180)
+        sb.set_camera_pose(cam.get("pos", [2.78, 2.73, -8.00]),
+                           yaw=float(cam.get("yaw", 0.0)),
+                           pitch=float(cam.get("pitch", 0.0)),
+                           fovy_deg=float(fovy) * 180.0 / math.pi)
+    at = obj.get("atlas") or {}
+    if at:
+        sb.set_texture_atlas_size(int(at.get("width", 0)),
+                                  int(at.get("height", 0)))
+    table = (obj.get("materials") or {}).get("table") or {}
+    for k, v in table.items():
+        sb.add_material(_u32(k), v)
+    lights = obj.get("lights") or {}
+    if "env" in lights:
+        sb.set_env_light(lights["env"].get("color", [0, 0, 0]),
+                         lights["env"].get("intensity", 0.0))
+    if "area" in lights:
+        a = lights["area"]
+        sb.set_area_light(a.get("center", [3, 2.8, 3]),
+                          float(a.get("radius") or 0.5),
+                          auto=bool(a.get("auto")))
+    for L in lights.get("points", []):
+        sb.add_point_light(L.get("p", [0, 0, 0]), L.get("color", [1, 1, 1]),
+                           L.get("intensity", 0.0))
+    for L in lights.get("directionals", []):
+        sb.add_dir_light(L.get("dir", [0, -1, 0]), L.get("color", [1, 1, 1]),
+                         L.get("intensity", 0.0))
+    geo = obj.get("geometry") or {}
+    white = MaterialIds.WHITE
+    for s in geo.get("spheres", []):
+        sb.add_sphere(s.get("p", [0, 0, 0]), float(s.get("r") or 1.0),
+                      _u32(s.get("matId", white)))
+    for t in geo.get("tris", []):
+        sb.add_triangle(t.get("a", [0, 0, 0]), t.get("b", [1, 0, 0]),
+                        t.get("c", [0, 1, 0]), _u32(t.get("matId", white)),
+                        t.get("uvA", (0, 0)), t.get("uvB", (0, 0)),
+                        t.get("uvC", (0, 0)))
+    for q in geo.get("quads", []):
+        sb.add_quad(q.get("a", [0, 0, 0]), q.get("b", [1, 0, 0]),
+                    q.get("c", [1, 1, 0]), q.get("d", [0, 1, 0]),
+                    _u32(q.get("matId", white)),
+                    q.get("uv0", (0, 0)), q.get("uv1", (0, 0)),
+                    q.get("uv2", (0, 0)), q.get("uv3", (0, 0)))
+    for p in geo.get("planes", []):
+        sb.add_plane(p.get("n", [0, 1, 0]), float(p.get("d") or 0.0),
+                     _u32(p.get("matId", white)))
+    return sb

@@ -57,7 +57,9 @@ class FrameState:
     camera: Camera
     time_ms: torch.Tensor  # f32 0-d clock (performance.now analog), host
     frame_idx: torch.Tensor  # i32 0-d, host
-    rng: torch.Tensor  # i64 [2]: the uint32 words of the key data, host
+    # i64 [2]: the uint32 words of the key data, host; a PRNG key to
+    # utils/checkpoint (stored as its key words, as JAX stores a key)
+    rng: torch.Tensor = dataclasses.field(metadata={"prng_key": True})
     ripples: torch.Tensor  # f32 [MAX_RIPPLES, 3] (x, y, start_ms), host
     n_ripples: torch.Tensor  # i32 0-d, host
     # i32 0-d, nonzero iff the last raster frame overflowed its fixed

@@ -141,11 +141,24 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      for 8 batches, then batches until poll_done() or 64 (active pixels,
      gated blocks, ms); a spp-2 frame 0's alpha equal to the CPU run; the
      960x540 spp-8 arm, 8 batches.
+   - the app shell: the port's CLI (app/cli.main) in this process at
+     96x36: offline raster, raytrace and raster --batch 4 must print the
+     text of the CPU run of the same argv; offline pathtrace (spp 2) must
+     give the CPU run's alpha plane and its text at the override cells;
+     20 timed offline frames of each backend (pathtrace at spp 64);
+     --progressive until poll_done; --mode pixels --backend raytrace, 60
+     frames, the first 2 frames' bytes equal to the CPU run's (FPS
+     printed); --mode term --backend raster on a pty, "w" held 2 s, then
+     "q": exit 0 within 20 s, its FrameStats (fps, p50, p95) printed; the
+     exactness canary (utils/exactness.run_checks("cuda"): B3 and B7' at
+     [40, 69632], a float32 identity product) must say "ok". B5, B4, B6,
+     B3, B7' and both ray grids must launch in the phase; expand_pixels
+     (the pixels mode's glyph bitmap) is profiled.
    Each path's kernels must have launched. Frames of every path are
    profiled (stage host ms and device span, device busy share; tables in
    smoke_out/, git-ignored).
-5. Prints {"kernels": [...]} and, as the last line,
-   {"ok": true, "device": {...}}.
+5. Prints the script's total time, {"kernels": [...]} and, as the last
+   line, {"ok": true, "device": {...}}.
 
 Exits non-zero (and prints no result) without CUDA or without the
 package beside it. Every check is an assert or an explicit raise.
@@ -1938,6 +1951,219 @@ def run_progressive_path(dev):
 
 
 # --------------------------------------------------------------------------
+# The app shell: the port's CLI, every mode, on the card
+# --------------------------------------------------------------------------
+CLI_GRID = ("--rows", "36", "--cols", "96")
+TERM_LIMIT_S = 20.0
+
+
+def _cli(argv):
+    """main(argv) of the port's CLI in this process, its stdout and stderr
+    captured and every call of its frame step recorded: (rc, stdout,
+    stderr, frames, ms) — frames: the Frame each one-frame step returned;
+    ms: the host ms between successive step calls (a frame, its
+    completion wait and the loop around it)."""
+    import contextlib
+    import io
+    from ascii_renderer_tpu_torch.app import cli as C
+    frames, stamps = [], []
+    setup = C.demo_setup
+
+    def recording(*a, **k):
+        cfg, scene, state, step = setup(*a, **k)
+
+        def rec(*sa):
+            stamps.append(time.perf_counter())
+            out = step(*sa)
+            frames.append(out[3] if len(out) == 4 else None)
+            return out
+
+        return cfg, scene, state, rec
+
+    out, err = io.StringIO(), io.StringIO()
+    C.demo_setup = recording
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = C.main(list(argv))
+    finally:
+        C.demo_setup = setup
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return rc, out.getvalue(), err.getvalue(), frames, ms
+
+
+def _term_pty(argv, hold=b"w", hold_s=2.0, limit_s=TERM_LIMIT_S):
+    """``python -m ascii_renderer_tpu_torch.app.cli argv`` on a pty: wait
+    for the loop (mouse tracking switched on), hold ``hold`` for hold_s
+    seconds, then "q". Returns (rc, stderr, seconds from start to exit);
+    the process is killed at limit_s."""
+    import pty
+    import select
+    master, slave = pty.openpty()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ascii_renderer_tpu_torch.app.cli", *argv],
+        stdin=slave, stdout=slave, stderr=subprocess.PIPE, env=env, cwd=ROOT)
+    os.close(slave)
+    seen = b""
+
+    def pump(wait):
+        nonlocal seen
+        if select.select([master], [], [], wait)[0]:
+            try:
+                seen += os.read(master, 1 << 16)
+            except OSError:
+                return False
+        return True
+
+    try:
+        deadline = t0 + limit_s
+        while (b"\x1b[?1003h" not in seen and proc.poll() is None
+               and time.perf_counter() < deadline and pump(0.1)):
+            pass
+        t_hold = time.perf_counter() + hold_s
+        while time.perf_counter() < t_hold and proc.poll() is None:
+            os.write(master, hold)
+            pump(0.05)
+        os.write(master, b"q")
+        while (proc.poll() is None and time.perf_counter() < deadline
+               and pump(0.1)):
+            pass
+        if proc.poll() is None:
+            proc.kill()
+        rc = proc.wait()
+        dt = time.perf_counter() - t0
+    finally:
+        os.close(master)
+    return rc, proc.stderr.read().decode(), dt
+
+
+def _cli_rows(text):
+    rows = text.splitlines()
+    assert len(rows) == ENTRY_GRID[0] and all(
+        len(r) == ENTRY_GRID[1] for r in rows), [len(r) for r in rows]
+    return rows
+
+
+def run_cli_path(dev):
+    """The port's CLI (``app/cli.main``) in this process on the card at
+    96x36, each output held to its path's gate against the CPU run of the
+    same argv: offline raster, raytrace and raster --batch 4 text equal;
+    offline pathtrace (spp 2) the last frame's alpha plane equal and the
+    text equal at its override cells. Then 20 timed offline frames of each
+    backend (pathtrace at the default spp 64), --progressive until
+    poll_done, --mode pixels --backend raytrace for 60 frames (the first 2
+    frames' bytes equal the CPU run's), --mode term --backend raster
+    through a pty ("w" held ~2 s, then "q": exit 0 within TERM_LIMIT_S,
+    its FrameStats printed), and the exactness canary (B3, B7', the
+    float32 product). Returns a function that expands one 96x36 frame's
+    glyph bitmap (the pixels mode's expand_pixels)."""
+    import ast
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.ascii.ascii_pass import AsciiPass
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.utils import exactness
+    os.makedirs(OUT, exist_ok=True)
+    t_phase = time.perf_counter()
+    for label, argv in (("raster", ["--backend", "raster"]),
+                        ("raytrace", ["--backend", "raytrace"]),
+                        ("raster --batch 4", ["--backend", "raster",
+                                              "--batch", "4", "--frames",
+                                              "4"]),
+                        ("pathtrace spp 2", ["--backend", "pathtrace",
+                                             "--spp", "2"])):
+        runs = [_cli([*argv, *CLI_GRID, "--device", d])
+                for d in ("cuda", "cpu")]
+        for rc, _o, err, _f, _m in runs:
+            assert rc == 0, f"CLI {label}: rc {rc}\n{err}"
+        (_r, out_g, _e, fr_g, _m), (_r, out_c, _e, fr_c, _m) = runs
+        rows_g, rows_c = _cli_rows(out_g), _cli_rows(out_c)
+        if label.startswith("pathtrace"):
+            a_g, a_c = fr_g[-1].a.cpu(), fr_c[-1].a
+            assert fr_g[-1].a.device.type == "cuda"
+            assert torch.equal(a_g, a_c), \
+                f"CLI {label}: {int((a_g != a_c).sum())} alpha bytes differ"
+            ov = ((a_c >= 2) & (a_c <= 254)).numpy()
+            g = np.array([list(r) for r in rows_g])
+            c = np.array([list(r) for r in rows_c])
+            assert (g[ov] == c[ov]).all(), f"CLI {label}: override text"
+            print(f"CLI offline {label}: alpha plane equal to the CPU run "
+                  f"({int(ov.sum())} overrides, their text equal); "
+                  f"{int((g != c).sum())} of {g.size} other cells differ "
+                  f"(rgb rounded apart)", flush=True)
+        else:
+            assert rows_g == rows_c, f"CLI {label}: rows " \
+                f"{[i for i, (a, b) in enumerate(zip(rows_g, rows_c)) if a != b]}" \
+                f" differ from the CPU run"
+            print(f"CLI offline {label}: text equal to the CPU run",
+                  flush=True)
+    for be in ("raster", "raytrace", "pathtrace"):
+        rc, out, err, _f, ms = _cli(["--backend", be, *CLI_GRID, "--frames",
+                                     "21", "--out",
+                                     os.path.join(OUT, f"cli_{be}.txt")])
+        assert rc == 0 and "wrote" in out, err
+        _summary(f"CLI offline {be} 96x36 (a frame: step + completion)",
+                 ms)
+
+    rc, _o, err, _f, _m = _cli(["--progressive", *CLI_GRID, "--out",
+                                os.path.join(OUT, "cli_progressive.txt")])
+    assert rc == 0, err
+    with open(os.path.join(OUT, "cli_progressive.txt")) as fh:
+        _cli_rows(fh.read())
+    line = [x for x in err.splitlines() if x.startswith("[progressive]")]
+    assert line and "converged" in line[-1], err
+    print(f"CLI --progressive: {line[-1]}", flush=True)
+
+    px = {}
+    for d, n in (("cuda", 60), ("cpu", 2)):
+        path = os.path.join(OUT, f"cli_frames_{n}.rgb")
+        rc, out, err, _f, _m = _cli(["--mode", "pixels", "--backend",
+                                     "raytrace", *CLI_GRID, "--frames",
+                                     str(n), "--device", d, "--out", path])
+        assert rc == 0 and f"wrote {n} raw frames" in out, out + err
+        px[n] = np.fromfile(path, np.uint8)
+        if d == "cuda":
+            print(f"CLI --mode pixels: {out.strip()}", flush=True)
+    f_bytes = px[2].size // 2
+    assert f_bytes == 36 * 16 * 96 * 8 * 4 and px[60].size == 60 * f_bytes
+    assert np.array_equal(px[60][:2 * f_bytes], px[2]), \
+        f"CLI pixels: {int((px[60][:2 * f_bytes] != px[2]).sum())} bytes " \
+        f"of the first 2 frames differ from the CPU run"
+    print("CLI --mode pixels: the first 2 frames' bytes equal the CPU run",
+          flush=True)
+
+    rc, err, dt = _term_pty(["--mode", "term", "--backend", "raster",
+                             *CLI_GRID])
+    stats = [x for x in err.splitlines() if x.startswith("[termblit")]
+    assert rc == 0 and dt < TERM_LIMIT_S and stats, \
+        f"CLI --mode term: rc {rc} after {dt:.1f} s\n{err[-2000:]}"
+    summary = ast.literal_eval(stats[-1].split("] ", 1)[1])
+    assert summary["frames"] > 0, stats[-1]
+    print(f"CLI --mode term (raster, w held 2 s, then q): exit 0 after "
+          f"{dt:.1f} s, {stats[-1]}", flush=True)
+
+    checks = exactness.run_checks("cuda")
+    verdict = exactness.verdict(checks)
+    assert verdict == "ok", f"exactness canary: {verdict}"
+    print(f"exactness canary on the card: {verdict} {checks}", flush=True)
+    print(f"CLI phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    cfg = Config()
+    p = AsciiPass(cfg, device=dev)
+    rng = np.random.default_rng(5)
+    chars = torch.from_numpy(rng.integers(32, 127, ENTRY_GRID).astype(
+        np.uint8)).to(dev)
+    tint = torch.from_numpy(rng.integers(0, 256, ENTRY_GRID + (3,)).astype(
+        np.uint8)).to(dev)
+
+    def expand():
+        p._expand(chars, tint, p.atlas)
+
+    return expand
+
+
+# --------------------------------------------------------------------------
 # The path tracer's XLA core: render_pt(use_kernel=False), wide atlases
 # --------------------------------------------------------------------------
 PT_LIGHT = (16.86, 10.76, 8.2)
@@ -2897,6 +3123,15 @@ def main() -> int:
         assert c_prog[k] > 0, f"{k} never launched on the progressive path"
     profile_frames(prog_fn, 3, ("pt.", "accum."), "progressive HD batch")
 
+    # the app shell: the CLI's modes on the card against its CPU runs,
+    # then the exactness canary (B3 and B7' at the reference's shapes)
+    c_cli, expand_fn = _path_counts(counters, lambda: run_cli_path(dev))
+    print(f"launches in the CLI phase: {c_cli}", flush=True)
+    for k in ("pt_megakernel", "modal_vote", "raster_bins_walk", "pack",
+              "pack_channels_split", "ray_grid", "ray_grid_jit"):
+        assert c_cli[k] > 0, f"{k} never launched in the CLI phase"
+    profile_frames(expand_fn, 20, ("glyph.",), "expand_pixels 96x36")
+
     # the path tracer's XLA core: the goldens and the core against B5,
     # then the wide-atlas frame. Last: its profile holds ~20,000 launches a
     # frame, after which the profiler's sessions lost rows
@@ -2907,15 +3142,14 @@ def main() -> int:
     assert c_core["pt_megakernel"] == 0
     profile_frames(core_fn, 2, ("pt.", "frame.", "glyph"),
                    "PT core wide atlas")
-    for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels",
-              "pack_channels_split"):
+    for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels"):
         by_name[k]["launches"] = sum(
             c[k] for c in (c_gen, c_entry, c_cube, c_tea, c_mid, c_pts,
                            *c_or.values()))
     by_name["ray_grid"]["launches"] = sum(
         c["ray_grid"] for c in (c_ref, c_hd, c_pts, c_core))
-    # pack_channels_split has no caller on a driven path (the reference
-    # calls it only from its exactness probe): its launches stay 0
+    # pack_channels_split's one driven caller is the exactness canary
+    by_name["pack_channels_split"]["launches"] = c_cli["pack_channels_split"]
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

@@ -1776,3 +1776,14 @@ def test_packed_kernel_on_the_work_list_equals_plain_on_cuda(
         "B9b": (1, 0), "B9c": (0, 1)}[walk]
     assert torch.equal(e, e_r) and int((e >= 0).sum()) > 1000
     assert torch.equal(z.view(torch.int32), z_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_exactness_canary_on_cuda(cuda_device, zero_counts):
+    """``utils/exactness.run_checks`` on the card: B3 and B7' at the
+    reference's canary shape [40, 69632] and the float32 identity product
+    bit for bit; each pack launches once per span."""
+    from ascii_renderer_tpu_torch.utils import exactness
+    checks = exactness.run_checks(cuda_device)
+    assert exactness.verdict(checks) == "ok", checks
+    assert (PK.launches, PK.launches_split) == (2, 2)

@@ -6,7 +6,9 @@ subtile4 and subtile5 walks and the fused setup+pack), a 48x96 binned-walk
 frame, the same scene through the fused-shading walk, the channel-era
 subtile and subtile2 walks and visibility_subtile, one ``entry()``
 frame step (96x36) and one 12x32 path-traced frame of the demo scene render
-(plain-torch kernel versions on the CPU) through the glyph pass."""
+(plain-torch kernel versions on the CPU) through the glyph pass; the app
+shell's modules (the CLI, terminal IO, checkpoints, the glyph atlas)
+import, one offline CLI frame renders and the exactness canary passes."""
 
 import os
 import subprocess
@@ -29,7 +31,9 @@ for new in ("backends.raster_channels", "backends.raster_oracles",
             "ops.raster_bins", "ops.raster_subtile", "sim.ui",
             "sim.framestep", "entry", "backends.raytrace",
             "backends.rt_core", "geom.intersect", "parallel.mesh",
-            "sim.accum"):
+            "sim.accum", "app.cli", "app.termblit", "app.terminput",
+            "ascii.glyphs", "ascii.overlay", "core.color", "geom.reorder",
+            "utils.checkpoint", "utils.exactness", "utils.profiling"):
     assert "ascii_renderer_tpu_torch." + new in names, new
 from ascii_renderer_tpu_torch.backends import raster as R
 from ascii_renderer_tpu_torch.core.camera import Camera
@@ -109,6 +113,17 @@ assert tuple(farm.shape) == (2, 6, 10, 3)
 prog = ProgressivePathTracer(cfg, sb.build(min_pad=1, device="cpu"))
 _d, _a, act = prog.step(Camera.create(pos=(0, 2.5, 6), yaw=-1.5707963))
 assert bool(act.all()) and pt_kernel.launches == 0
+# the app shell: one offline CLI frame and the exactness canary
+import contextlib, io
+from ascii_renderer_tpu_torch.app.cli import main
+from ascii_renderer_tpu_torch.utils import exactness
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert main(["--backend", "raster", "--rows", "12", "--cols", "32",
+                 "--device", "cpu"]) == 0
+cli_rows = buf.getvalue().splitlines()
+assert len(cli_rows) == 12 and all(len(r) == 32 for r in cli_rows), cli_rows
+assert exactness.verdict(exactness.run_checks("cpu")) == "ok"
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax"))
        or m.startswith("ascii_renderer_tpu.")]
 assert not [m for m in bad if sys.modules[m] is not None], bad

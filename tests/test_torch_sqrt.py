@@ -46,6 +46,7 @@ from ascii_renderer_tpu_torch.backends import raster_channels as RC
 from ascii_renderer_tpu_torch.backends import raytrace as TRT
 from ascii_renderer_tpu_torch.backends import rt_core as RTC
 from ascii_renderer_tpu_torch.core import camera as TC
+from ascii_renderer_tpu_torch.core import color as TCO
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.geom import intersect as TG
 from ascii_renderer_tpu_torch.ops import pt_kernel as TPK
@@ -106,6 +107,27 @@ def test_camera_norm_equals_jax():
     np.testing.assert_array_equal(_bits(got.numpy()), want)
     parent = torch.sqrt(torch.from_numpy(s[keep])).numpy()
     np.testing.assert_array_equal(_bits(parent) != want, off[keep])
+
+
+def test_color_normalize_equals_jax(monkeypatch):
+    """``color.normalize`` against JAX's (``jnp.linalg.norm``, then the
+    division) on [N, 3] vectors of components k / 32 with |k| < 2^11, so
+    every square and sum is exact and the root is the one rounding that
+    can differ; with torch's float32 sqrt put back the misrounded roots
+    move the output."""
+    from ascii_renderer_tpu.core import color as JCO
+    rng = np.random.default_rng(6)
+    v = (rng.integers(-2047, 2048, (40_000, 3)) / 32).astype(np.float32)
+    s = (v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2]
+    off = _misrounds(s)
+    keep = _first(off, 200)
+    assert off[keep].all() or not _torch_misrounds()
+    x = torch.from_numpy(np.ascontiguousarray(v[keep]))
+    want = _bits(JCO.normalize(jnp.asarray(v[keep])))
+    np.testing.assert_array_equal(_bits(TCO.normalize(x)), want)
+    monkeypatch.setattr(TCO, "sqrt32", torch.sqrt)
+    moved = (_bits(TCO.normalize(x)) != want).any(axis=1)
+    assert moved.any() or not _torch_misrounds()
 
 
 def test_ray_grid_equals_jax(monkeypatch):
@@ -277,7 +299,7 @@ def test_b5_plain_version_equals_jax_kernel(monkeypatch):
 
 
 @pytest.mark.parametrize("module", [RC, R, TC, TPK, TPT, PC, RTC, TRT, TG,
-                                    TA])
+                                    TA, TCO])
 def test_every_site_takes_the_shared_root(module):
     """No site of these modules takes torch's float32 sqrt directly."""
     assert "torch.sqrt(" not in inspect.getsource(module)
