@@ -28,8 +28,12 @@ fetched-texel anti-aliasing rule; alpha 255 for pixels without override.
 
 ``render_pt(pixel_active=)`` (the progressive tracer's adaptive path,
 ``sim/accum``) compacts the active pixels to the front of the kernel's ray
-stream, so its block gate skips the converged tail. Not ported: row bands
-``row_lo``/``n_rows`` (ROADMAP A12, they raise ``NotImplementedError``).
+stream, so its block gate skips the converged tail. ``render_pt(row_lo=,
+n_rows=)`` renders a row band of the frame (``parallel.mesh
+.render_rows_sharded``): on the kernel path each ray's RNG id is its
+pixel's global uid, so a band equals those rows of the full frame bit for
+bit; the core draws its threefry jitter over the band's shape, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -45,8 +49,8 @@ from ascii_renderer_tpu_torch.backends.pt_core import (
     EPS, KIND_LIGHT, V3, _ScenePack, dot, normalize)
 from ascii_renderer_tpu_torch.core import quantize
 from ascii_renderer_tpu_torch.core import threefry as TF
-from ascii_renderer_tpu_torch.core.camera import (Camera, camera_basis,
-                                                  ndc_grid)
+from ascii_renderer_tpu_torch.core.camera import (Camera, band_of,
+                                                  camera_basis, ndc_grid)
 from ascii_renderer_tpu_torch.core.fp import sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.core.frame import Frame
@@ -55,12 +59,6 @@ from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
 _GOLDEN = -1640531527  # int32 golden-ratio stride between batch seeds
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ascii_renderer_tpu_torch yet "
-        f"(ROADMAP {item})")
 
 
 def light_sphere_host(scene: SceneData):
@@ -427,14 +425,18 @@ def atlas_ok(scene: SceneData) -> bool:
 
 
 def _render_core(scene, cam, rows, cols, pixel_aspect, spp, bounces, lcol,
-                 nee, sample_batch, key, light_center, light_radius, dev):
+                 nee, sample_batch, key, light_center, light_radius, dev,
+                 row_lo=0, n_rows=None):
     """render_pt's XLA-core branch (pathtrace.py:558-722 of the
     reference): the centre-ray probe under fold_in(key, 0xC0FFEE), then
     batch b under the split of fold_in(key, b) into (jitter, path) keys,
     the first overriding sample of a batch kept and the valid samples
-    summed; the probe's overrides take precedence."""
+    summed; the probe's overrides take precedence. A row band draws its
+    jitter and paths over the band's shape (the jitter scaled by the
+    global rows), as the reference's band does."""
     basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
-    px, py, aspect = ndc_grid(rows, cols, pixel_aspect, dev)
+    px, py, aspect = ndc_grid(rows, cols, pixel_aspect, dev, row_lo, n_rows)
+    band = px.shape[0]
     pos = cam.pos.to(device=dev, dtype=torch.float32)
 
     def trace(ro, rd, k):
@@ -444,26 +446,26 @@ def _render_core(scene, cam, rows, cols, pixel_aspect, spp, bounces, lcol,
     with record_function("pt.rays"):
         rd0 = ray_grid(px, py, basis)
     with record_function("pt.core"):
-        col0, ov0, fetched = trace(pos.expand(rows, cols, 3), rd0,
+        col0, ov0, fetched = trace(pos.expand(band, cols, 3), rd0,
                                    TF.fold_in(key, 0xC0FFEE))
 
     B = max(1, min(sample_batch, spp))
     n_batches = -(-spp // B)
-    tot = torch.zeros((rows, cols, 3), dtype=torch.float32, device=dev)
-    override = torch.zeros((rows, cols), dtype=torch.int32, device=dev)
-    ovcol = torch.zeros((rows, cols, 3), dtype=torch.float32, device=dev)
+    tot = torch.zeros((band, cols, 3), dtype=torch.float32, device=dev)
+    override = torch.zeros((band, cols), dtype=torch.int32, device=dev)
+    ovcol = torch.zeros((band, cols, 3), dtype=torch.float32, device=dev)
     for b in range(n_batches):
         with record_function("pt.rays"):
             k_jit, k_path = TF.split(TF.fold_in(key, b))
             s_idx = b * B + torch.arange(B, device=dev)
-            r2 = TF.uniform(k_jit, (B, rows, cols, 2), dev)
+            r2 = TF.uniform(k_jit, (B, band, cols, 2), dev)
             rpof = fdiv(2.0 * (r2 - 0.5), float(rows))
             use_jit = (s_idx > 0)[:, None, None] & ~fetched[None]
             jx = torch.where(use_jit, rpof[..., 0] * aspect, 0.0)
             jy = torch.where(use_jit, rpof[..., 1], 0.0)
             rd = ray_grid(px[None] + jx, py[None] + jy, basis)
         with record_function("pt.core"):
-            col, ov, _pf = trace(pos.expand(B, rows, cols, 3), rd, k_path)
+            col, ov, _pf = trace(pos.expand(B, band, cols, 3), rd, k_path)
         with record_function("pt.reduce"):
             valid_s = (s_idx < spp)[:, None, None]
             tot = tot + torch.where(valid_s[..., None], col, 0.0).sum(0)
@@ -473,7 +475,7 @@ def _render_core(scene, cam, rows, cols, pixel_aspect, spp, bounces, lcol,
             new = has & (override == 0)
             override = torch.where(new, ov.gather(0, first[None])[0],
                                    override)
-            sel = col.gather(0, first[None, ..., None].expand(1, rows, cols,
+            sel = col.gather(0, first[None, ..., None].expand(1, band, cols,
                                                               3))[0]
             ovcol = torch.where(new[..., None], sel, ovcol)
 
@@ -489,25 +491,30 @@ def _render_core(scene, cam, rows, cols, pixel_aspect, spp, bounces, lcol,
     return rgb, a
 
 
-def _centre_rays(cam: Camera, rows: int, cols: int, pixel_aspect, device):
+def _centre_rays(cam: Camera, rows: int, cols: int, pixel_aspect, device,
+                 row_lo: int = 0, n_rows: int | None = None):
     """(basis, px, py, aspect, rd0): the host camera basis, the NDC cell
-    centres and the centre-ray directions f32 [rows, cols, 3] on
-    ``device``."""
+    centres and the centre-ray directions f32 [band, cols, 3] on
+    ``device``, of the row band [row_lo, row_lo + n_rows) of the rows x
+    cols grid (all rows by default)."""
     basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
-    px, py, aspect = ndc_grid(rows, cols, pixel_aspect, device)
+    px, py, aspect = ndc_grid(rows, cols, pixel_aspect, device, row_lo,
+                              n_rows)
     return basis, px, py, aspect, ray_grid(px, py, basis)
 
 
 def primary_ray_grid(cam: Camera, rows: int, cols: int, pixel_aspect,
                      row_lo=0, n_rows: int | None = None, device="cuda"):
     """Centre-ray grid (ro, rd, px, py) for the PT camera mapping
-    (pathtrace_shader.js:195-201): ro/rd f32 [rows, cols, 3], px/py f32
-    [rows, cols] on ``device``; the basis comes from the host camera."""
-    if row_lo != 0 or n_rows is not None:
-        raise _not_ported("row_lo / n_rows (row-band rendering)", "A12")
+    (pathtrace_shader.js:195-201): ro/rd f32 [band, cols, 3], px/py f32
+    [band, cols] on ``device``, the row band [row_lo, row_lo + n_rows) of
+    the rows x cols grid (all rows by default; a band equals those rows of
+    the full grid bit for bit); the basis comes from the host camera."""
     _basis, px, py, _aspect, rd0 = _centre_rays(cam, rows, cols,
-                                                pixel_aspect, device)
-    ro0 = cam.pos.to(device=device, dtype=torch.float32).expand(rows, cols, 3)
+                                                pixel_aspect, device, row_lo,
+                                                n_rows)
+    ro0 = cam.pos.to(device=device, dtype=torch.float32).expand(
+        px.shape[0], cols, 3)
     return ro0, rd0, px, py
 
 
@@ -524,22 +531,24 @@ def batch_seed_of(frame_seed: int, b: int) -> int:
     return PK.int32_wrap(frame_seed + (b + 1) * _GOLDEN)
 
 
-def batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs: int, s_idx):
-    """Directions f32 [B, rows, cols, 3] of one sample batch: sample s > 0
-    of a pixel that fetched no texel is jittered inside its cell by
-    (2 (u - 0.5) / rows) * (aspect, 1), u the hash draws of the (sample,
-    pixel) uid at counters 0x40000001 / 0x40000002; the rest trace the
-    cell centre."""
+def batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs: int, s_idx,
+                   rows: int | None = None):
+    """Directions f32 [B, band, cols, 3] of one sample batch (px, py f32
+    [band, cols]): sample s > 0 of a pixel that fetched no texel is
+    jittered inside its cell by (2 (u - 0.5) / rows) * (aspect, 1), u the
+    hash draws of the (sample, pixel) uid at counters 0x40000001 /
+    0x40000002; the rest trace the cell centre. ``rows``: the full grid's
+    rows (default: the band's)."""
     B = uid_sp.shape[0]
-    rows, cols = px.shape
-    rows_t = torch.tensor(float(rows), device=px.device)
+    band, cols = px.shape
+    rows_t = torch.tensor(float(rows or band), device=px.device)
     jxu = PK.hash_unit(uid_sp, bs, 0x40000001)
     jyu = PK.hash_unit(uid_sp, bs, 0x40000002)
     jx = (2.0 * (jxu - 0.5)) / rows_t * aspect
     jy = (2.0 * (jyu - 0.5)) / rows_t
-    use_jit = (s_idx > 0)[:, None] & ~fetched.reshape(1, rows * cols)
-    jx = torch.where(use_jit, jx, 0.0).reshape(B, rows, cols)
-    jy = torch.where(use_jit, jy, 0.0).reshape(B, rows, cols)
+    use_jit = (s_idx > 0)[:, None] & ~fetched.reshape(1, band * cols)
+    jx = torch.where(use_jit, jx, 0.0).reshape(B, band, cols)
+    jy = torch.where(use_jit, jy, 0.0).reshape(B, band, cols)
     return ray_grid(px[None] + jx, py[None] + jy, basis)
 
 
@@ -557,7 +566,16 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     Returns (rgb f32 [rows, cols, 3] in [0, 1], alpha u8 [rows, cols]) on
     ``device`` (default: the scene's device).
 
-    ``pixel_active`` (bool [rows, cols], kernel path only; the reference
+    ``row_lo`` / ``n_rows`` render the row band [row_lo, row_lo + n_rows)
+    of the rows x cols frame ([n_rows, cols]; the camera mapping and the
+    jitter scale stay the full frame's). On the kernel path a ray's RNG id
+    is its pixel's global uid (and sample s's ray s * rows * cols more), so
+    a band equals those rows of the full frame bit for bit, rgb and alpha;
+    the core draws its threefry jitter and paths over the band's shape, as
+    the reference's band does, so its radiance differs from the full
+    frame's there.
+
+    ``pixel_active`` (bool [band, cols], kernel path only; the reference
     ignores it on the core): the active pixels go first in the ray stream
     (a stable partition of the pixel uids), each ray carries its pixel's
     uid as its RNG id, and the kernel gates every 1,024-ray block with no
@@ -574,8 +592,7 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     draws under ``key_data(frame_seed)``. ``packed`` and ``light_host``:
     the scene's pack_scene_entries and light_sphere_host, if precomputed
     (the core takes no pack)."""
-    if row_lo != 0 or n_rows is not None:
-        raise _not_ported("row_lo / n_rows (row-band rendering)", "A12")
+    band = band_of(rows, row_lo, n_rows)
     if key is not None:
         key = TF.as_key(key)
         frame_seed = key[-1]
@@ -590,31 +607,36 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
             scene, cam, rows, cols, pixel_aspect, spp, bounces,
             torch.as_tensor(light_color, dtype=torch.float32) * 1.3, nee,
             sample_batch, key or TF.key_data(int(frame_seed) & TF.M32),
-            light_center, light_radius, dev)
+            light_center, light_radius, dev, row_lo, n_rows)
     if packed is None:
         packed = pack_scene_entries(scene)
     frame_seed = PK.int32_wrap(frame_seed)
     with record_function("pt.rays"):
         basis, px, py, aspect, rd0 = _centre_rays(cam, rows, cols,
-                                                  pixel_aspect, dev)
+                                                  pixel_aspect, dev, row_lo,
+                                                  n_rows)
         pos = cam.pos.to(device=dev, dtype=torch.float32)
         light_center, light_radius = get_light_sphere(scene, time,
                                                       light_host)
         lcol = torch.as_tensor(light_color, dtype=torch.float32) * 1.3
-        pc = rows * cols
-        pix_uid = torch.arange(pc, dtype=torch.int32, device=dev)
+        pc = band * cols
+        # the band's pixels in order; a ray's RNG id is its pixel's global
+        # uid (band offset included), whatever its slot in the stream
+        slot = torch.arange(pc, dtype=torch.int32, device=dev)
+        pix_uid = slot + row_lo * cols
         mask = None
         if pixel_active is not None:
-            # adaptive compaction: a stable partition of the pixel uids,
+            # adaptive compaction: a stable partition of the band's pixels,
             # active first (one sort of the unique key (1 - active) * pc +
-            # uid); a ray is a pure function of its pixel, so the centre
-            # rays and cell centres are the full grid's, gathered by uid
+            # slot); a ray is a pure function of its pixel, so the centre
+            # rays and cell centres are the full grid's, gathered by slot
             act = pixel_active.reshape(-1).to(device=dev, dtype=torch.int64)
-            order = torch.argsort((1 - act) * pc + pix_uid.long())
-            pix_uid = order.to(torch.int32)
-            rd0 = rd0.reshape(pc, 3)[order].reshape(rows, cols, 3)
-            px = px.reshape(pc)[order].reshape(rows, cols)
-            py = py.reshape(pc)[order].reshape(rows, cols)
+            order = torch.argsort((1 - act) * pc + slot.long())
+            slot = order.to(torch.int32)
+            pix_uid = slot + row_lo * cols
+            rd0 = rd0.reshape(pc, 3)[order].reshape(band, cols, 3)
+            px = px.reshape(pc)[order].reshape(band, cols)
+            py = py.reshape(pc)[order].reshape(band, cols)
             # the actives hold slots [0, n_act)
             mask = torch.arange(pc, device=dev) < act.sum()
 
@@ -626,17 +648,18 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
 
     # ---- phase 1: centre-ray probe (fetched flag + primary glyph hits) ----
     with record_function("pt.trace"):
-        lor0, log0, lob0, ov0f, fet0 = trace(pos.expand(rows, cols, 3), rd0,
+        lor0, log0, lob0, ov0f, fet0 = trace(pos.expand(band, cols, 3), rd0,
                                              frame_seed, pix_uid, mask)
     with record_function("pt.reduce"):
         ov0 = torch.round(ov0f).to(torch.int32)        # [pc]
-        fetched = (fet0 > 0.5).reshape(rows, cols)     # jitter mask
+        fetched = (fet0 > 0.5).reshape(band, cols)     # jitter mask
 
     # ---- phase 2: batched samples ----
     B = max(1, min(sample_batch, spp))
     n_batches = -(-spp // B)
-    uid_sp = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * pc
-              + pix_uid[None, :])                      # [B, pc]
+    # sample s of a pixel: s * (the full frame's pixels) + its global uid
+    uid_sp = (torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+              * (rows * cols) + pix_uid[None, :])      # [B, pc]
     zc = torch.zeros(pc, dtype=torch.float32, device=dev)
     tr, tg, tb, ocr, ocg, ocb = zc, zc, zc, zc, zc, zc
     override = torch.zeros(pc, dtype=torch.int32, device=dev)
@@ -648,9 +671,9 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
             bs = batch_seed_of(frame_seed, b)
             s_idx = b * B + torch.arange(B, device=dev)
             rd = batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs,
-                                s_idx)
+                                s_idx, rows)
         with record_function("pt.trace"):
-            cr, cg, cb, ovf, _fet = trace(pos.expand(B, rows, cols, 3), rd,
+            cr, cg, cb, ovf, _fet = trace(pos.expand(B, band, cols, 3), rd,
                                           bs, uid_sp, ray_active)
         with record_function("pt.reduce"):
             cr, cg, cb = (c.reshape(B, pc) for c in (cr, cg, cb))
@@ -687,10 +710,10 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
                  for oc, t in ((ocr, tr), (ocg, tg), (ocb, tb))]
         a = torch.where(has_ov, override, 255).to(torch.uint8)
         rgb = torch.stack(chans, dim=-1)
-        if mask is not None:  # back to pixel order: slot i holds pixel uid[i]
-            rgb = torch.empty_like(rgb).index_copy_(0, pix_uid.long(), rgb)
-            a = torch.empty_like(a).index_copy_(0, pix_uid.long(), a)
-    return rgb.reshape(rows, cols, 3), a.reshape(rows, cols)
+        if mask is not None:  # back to pixel order: slot i holds pixel slot[i]
+            rgb = torch.empty_like(rgb).index_copy_(0, slot.long(), rgb)
+            a = torch.empty_like(a).index_copy_(0, slot.long(), a)
+    return rgb.reshape(band, cols, 3), a.reshape(band, cols)
 
 
 class PathtraceBackend:

@@ -184,12 +184,22 @@ def _floor_i32(x: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def _bin_span(xmin, xmax, ymin, ymax, valid, rows: int, cols: int):
+def _bin_span(xmin, xmax, ymin, ymax, valid, rows: int, cols: int,
+              ty_lo: int = 0, tiles_y_band: int | None = None):
+    """Bin spans (sc0, sc1, ty0, ty1: subtile columns and tile rows) and
+    the small / big classes of each triangle; with ``tiles_y_band``, on
+    screen means inside the tile-row band [ty_lo, ty_lo + tiles_y_band)."""
     sc0 = _floor_i32(xmin / RS.SUB_W)
     sc1 = _floor_i32(xmax / RS.SUB_W)
     ty0 = _floor_i32(ymin / TILE_H)
     ty1 = _floor_i32(ymax / TILE_H)
-    onscreen = (xmax > 0) & (xmin < cols) & (ymax > 0) & (ymin < rows)
+    if tiles_y_band is None:
+        y_lo_px, y_hi_px = 0, rows
+    else:
+        y_lo_px = ty_lo * TILE_H
+        y_hi_px = min((ty_lo + tiles_y_band) * TILE_H, rows)
+    onscreen = ((xmax > 0) & (xmin < cols) & (ymax > y_lo_px)
+                & (ymin < y_hi_px))
     fits = ((sc1 - sc0) < 2) & ((ty1 - ty0) < 2)
     small = valid & onscreen & fits
     bigt = valid & onscreen & ~fits
@@ -197,22 +207,26 @@ def _bin_span(xmin, xmax, ymin, ymax, valid, rows: int, cols: int):
 
 
 def _pair_keys_core(xmin, xmax, ymin, ymax, valid, rows: int, cols: int,
-                    *, big_cap: int):
+                    *, big_cap: int, ty_lo: int = 0,
+                    tiles_y_band: int | None = None):
     """bbox + valid [T] -> sorted pair keys ``bin << SUB_SHIFT | tri``.
     Small tris (bbox within a 2 x 2 tile-row x subtile-col window) emit up
     to 4 candidate keys; big tris one key per overlapped bin via a
     [big_cap, n_bins] overlap matrix. Unused keys carry bin = n_bins and
-    sort last."""
+    sort last. ``ty_lo`` / ``tiles_y_band`` restrict the keys to the
+    tile-row band [ty_lo, ty_lo + tiles_y_band), with band-local bin ids
+    (bin 0 = the band's first subtile) over global tile rows."""
     T = xmin.shape[0]
     dev = xmin.device
     assert T < RS.MAX_TRI, f"subtile sort key supports < {RS.MAX_TRI} tris"
     tiles_y = -(-rows // TILE_H)
     tiles_x = -(-cols // TILE_W)
+    tiles_y_eff = tiles_y if tiles_y_band is None else tiles_y_band
     sx_n = tiles_x * RS.N_SUB
-    n_bins = tiles_y * tiles_x * RS.N_SUB
+    n_bins = tiles_y_eff * tiles_x * RS.N_SUB
 
-    sc0, sc1, ty0, ty1, small, bigt = _bin_span(xmin, xmax, ymin, ymax,
-                                                valid, rows, cols)
+    sc0, sc1, ty0, ty1, small, bigt = _bin_span(
+        xmin, xmax, ymin, ymax, valid, rows, cols, ty_lo, tiles_y_band)
     # clamp BEFORE the span test so borderless-huge bboxes (near-plane
     # crossers) classify big but index sanely
     sc0c = torch.clamp(sc0, 0, sx_n - 1)
@@ -225,9 +239,10 @@ def _pair_keys_core(xmin, xmax, ymin, ymax, valid, rows: int, cols: int,
     for k in range(4):
         ty = ty0 + (k // 2)
         sc = sc0 + (k % 2)
-        ok = (small & (ty >= 0) & (ty < tiles_y) & (sc >= 0) & (sc < sx_n)
-              & (ty <= ty1) & (sc <= sc1))
-        bins = torch.where(ok, ty * sx_n + sc, n_bins)
+        tyl = ty - ty_lo  # band-local tile row (ty when unbanded)
+        ok = (small & (tyl >= 0) & (tyl < tiles_y_eff) & (sc >= 0)
+              & (sc < sx_n) & (ty <= ty1) & (sc <= sc1))
+        bins = torch.where(ok, tyl * sx_n + sc, n_bins)
         key_parts.append((bins << RS.SUB_SHIFT) | tri_ids)
 
     # big_cap == 0 is a specialisation for scenes without big tris (the
@@ -252,7 +267,7 @@ def _pair_keys_core(xmin, xmax, ymin, ymax, valid, rows: int, cols: int,
         bty0 = padi(ty0c, 1)
         bty1 = padi(ty1c, 0)
         bins_g = torch.arange(n_bins, dtype=torch.int32, device=dev)
-        g_ty = bins_g // sx_n
+        g_ty = bins_g // sx_n + ty_lo  # global tile row of the local bin
         g_sc = bins_g % sx_n
         overlap = ((g_sc[None, :] >= bsc0[:, None])
                    & (g_sc[None, :] <= bsc1[:, None])
@@ -266,16 +281,22 @@ def _pair_keys_core(xmin, xmax, ymin, ymax, valid, rows: int, cols: int,
     return torch.sort(torch.cat(key_parts)).values
 
 
-def _subtile_pair_keys_bbox(cch, rows: int, cols: int, *, big_cap: int):
-    """Sorted (bin << SUB_SHIFT | tri) pair keys from bbox channels."""
+def _subtile_pair_keys_bbox(cch, rows: int, cols: int, *, big_cap: int,
+                            ty_lo: int = 0, tiles_y_band: int | None = None):
+    """Sorted (bin << SUB_SHIFT | tri) pair keys from bbox channels (of
+    the tile-row band [ty_lo, ty_lo + tiles_y_band) when given)."""
     return _pair_keys_core(cch["bx0"], cch["bx1"], cch["by0"], cch["by1"],
-                           cch["valid"], rows, cols, big_cap=big_cap)
+                           cch["valid"], rows, cols, big_cap=big_cap,
+                           ty_lo=ty_lo, tiles_y_band=tiles_y_band)
 
 
-def count_big_small_bbox(cch, rows: int, cols: int):
-    """(n_small, n_big) 0-d i32 counts under _pair_keys_core's rules."""
+def count_big_small_bbox(cch, rows: int, cols: int, ty_lo: int = 0,
+                         tiles_y_band: int | None = None):
+    """(n_small, n_big) 0-d i32 counts under _pair_keys_core's rules, its
+    band restriction included."""
     _, _, _, _, small, bigt = _bin_span(cch["bx0"], cch["bx1"], cch["by0"],
-                                        cch["by1"], cch["valid"], rows, cols)
+                                        cch["by1"], cch["valid"], rows, cols,
+                                        ty_lo, tiles_y_band)
     return small.sum(dtype=torch.int32), bigt.sum(dtype=torch.int32)
 
 
@@ -321,8 +342,18 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
                      attrs_t=None, emit: str = "rgb", ramp_len: int = 10,
                      row_lo=None, band_rows: int | None = None):
     """Compacted raster pipeline with capacity diagnostics. The soup lives
-    on the device that renders. Row bands (``row_lo`` / ``band_rows``) are
-    ROADMAP A12 and raise.
+    on the device that renders.
+
+    ``row_lo`` / ``band_rows`` (the grouped generations but 'subtile4';
+    the hook of ``render_soup_rows_sharded``): rasterize only the row
+    band [row_lo, row_lo + band_rows) of the rows x cols frame and return
+    [band_rows, cols, 3]. The frame is banded iff band_rows is given (as
+    in the reference); both must be multiples of TILE_H. Pair keys, caps
+    and diag counts are the band's; the setup planes stay in global
+    screen coordinates, so a band equals those rows of the full frame bit
+    for bit. The reference ignores a band for the other kernels and
+    returns the full frame; here they raise ValueError, as does a row_lo
+    without band_rows.
 
     kernel 'mm' / 'loop': the clip-expansion channel pipeline
     (raster_channels.render_channels_diag: valid compaction to v_cap, the
@@ -346,10 +377,20 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     group layout and assembles (idx i32 [rows, cols], rgb8 u8 [rows, cols,
     3]) instead — bit-identical to quantizing the assembled image
     (assembly is a permutation)."""
-    if row_lo is not None or band_rows is not None:
-        raise NotImplementedError(
-            "row_lo / band_rows (row-band rendering) is not ported to "
-            "ascii_renderer_tpu_torch yet (ROADMAP A12)")
+    banded = band_rows is not None
+    if banded:
+        row_lo = 0 if row_lo is None else int(row_lo)
+        if kernel not in GROUPED_KERNELS or kernel == "subtile4":
+            raise ValueError(f"row bands take the grouped kernels but "
+                             f"subtile4, not {kernel!r}")
+        if (band_rows <= 0 or band_rows % TILE_H or row_lo % TILE_H
+                or row_lo < 0 or row_lo + band_rows > _round_up(rows,
+                                                                TILE_H)):
+            raise ValueError(f"row band [{row_lo}, {row_lo + band_rows}) "
+                             f"of {rows} rows: TILE_H ({TILE_H}) multiples "
+                             f"inside the frame")
+    elif row_lo not in (None, 0):
+        raise ValueError(f"row_lo {row_lo} without band_rows")
     with stage("raster.mvp"):
         mvp = camera_mvp(cam, rows, cols, pixel_aspect)
     if kernel not in GROUPED_KERNELS:
@@ -370,7 +411,11 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     if pos9 is None or attrs_t is None:
         pos9, attrs_t = soup_static_prep(positions, normals, colors, scene)
     A = attrs_t.shape[0] // 3
-    tiles_y = -(-rows // TILE_H)
+    if banded:
+        tiles_y, ty_lo, out_rows = band_rows // TILE_H, row_lo // TILE_H, \
+            band_rows
+    else:
+        tiles_y, ty_lo, out_rows = -(-rows // TILE_H), 0, rows
     tiles_x = -(-cols // TILE_W)
     n_tiles = tiles_y * tiles_x
     if tile_cap is None:
@@ -397,14 +442,17 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
             else:  # two contiguous spans (B3)
                 src, table = pack_channels_split_blocked(
                     cm, [(0, 16), (16, 16 + tw)])
+    band_kw = dict(ty_lo=ty_lo, tiles_y_band=tiles_y if banded else None)
     with stage("raster.keys"):
-        keys = _subtile_pair_keys_bbox(bbox, rows, cols, big_cap=big_cap)
+        keys = _subtile_pair_keys_bbox(bbox, rows, cols, big_cap=big_cap,
+                                       **band_kw)
     e, xl, yl, gbins, n_rows, n_pairs, n_used = _grouped_walk(
-        kernel, src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap)
+        kernel, src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap,
+        ty_lo * TILE_H)
     with stage("raster.shade"):
         rgbg = shade_groups(e, xl, yl, table, scene, A)
     with stage("raster.assemble"):
-        _n_small, n_big = count_big_small_bbox(bbox, rows, cols)
+        _n_small, n_big = count_big_small_bbox(bbox, rows, cols, **band_kw)
         diag = {"n_valid": bbox["valid"].sum(dtype=torch.int32),
                 "n_big": n_big, "n_rows": n_rows, "n_pairs": n_pairs,
                 "n_tiles_nz": n_used}
@@ -414,22 +462,29 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
             rgb8g = Q.float_rgb_to_u8(rgbg)            # [grp, 8, 128, 3]
             bidx = Q.quantize_index(rgb8g, ramp_len)   # [grp, 8, 128]
             idx_img = RG.assemble_group_image(bidx, gbins, n_tiles, tiles_y,
-                                              tiles_x, rows, cols, 0)
+                                              tiles_x, out_rows, cols, 0)
             rgb8_img = RG.assemble_group_image(rgb8g, gbins, n_tiles,
-                                               tiles_y, tiles_x, rows, cols, 0)
+                                               tiles_y, tiles_x, out_rows,
+                                               cols, 0)
             return (idx_img, rgb8_img), diag
         rgb = RG.assemble_group_image(rgbg, gbins, n_tiles, tiles_y, tiles_x,
-                                      rows, cols, 0.0)
+                                      out_rows, cols, 0.0)
     return rgb, diag
 
 
 def _grouped_walk(kernel: str, src, keys, tiles_x: int, n_tiles: int,
-                  r_cap: int, pair_cap: int, grp_cap: int):
+                  r_cap: int, pair_cap: int, grp_cap: int, y_off: int = 0):
     """Layout build and walk of grouped generation ``kernel`` -> (winner
-    ids e f32 [grp_cap, 8, 128], xl, yl, gbins, n_rows, n_pairs, n_used)."""
+    ids e f32 [grp_cap, 8, 128], xl, yl, gbins, n_rows, n_pairs, n_used).
+    ``y_off``: a row band's first pixel row. Its bins, and so the lanes'
+    pixel origins, are band-local, while the setup planes are in global
+    screen coordinates: yl is shifted to global rows before the walk."""
     gen = RG.GENERATIONS[kernel]
     with stage("raster.build"):
         lay = gen.build(src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap)
+        if y_off:
+            yl = lay[-5] + float(y_off)  # exact: small integers in float32
+            lay = (*lay[:-5], yl, *lay[-4:])
     with stage("raster.walk"):
         _z, e = gen.walk(*lay[:-4], grp_cap)
     return (e, *lay[-6:])
@@ -500,6 +555,47 @@ def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
         _zbuf, tid = visibility_scan(setup, rows, cols, chunk)
     with stage("raster.shade"):
         return shade_visibility(tid, clip, tattr, scene, rows, cols)
+
+
+def render_soup_rows_sharded(positions, normals, colors, scene: SceneData,
+                             cam: Camera, rows: int, cols: int,
+                             pixel_aspect: float, mesh, axis: str = "rows",
+                             *, big_cap: int = 64, r_cap: int = 16384,
+                             pair_cap: int = 65536,
+                             bin_cap: int | None = None,
+                             kernel: str | None = None):
+    """Row-band sharding of the grouped raster pipeline: rank i of the
+    mesh axis (``parallel.mesh.make_mesh``) rasterizes tile-row band i of
+    one frame (band-local pair keys, walk, shade and assembly, no
+    collective), then the bands and overflow counts are gathered.
+
+    Returns (rgb f32 [rows, cols, 3], overflow i32 [n]) on every rank:
+    overflow[i] counts the caps band i exceeded. The caps are per band and
+    the same on every rank, so size them for the heaviest band and render
+    again when any overflow[i] > 0."""
+    from ascii_renderer_tpu_torch.parallel.mesh import (all_gather_cat,
+                                                        mesh_axis)
+    if kernel is None:
+        kernel = HEADLINE_KERNEL
+    n, i, group = mesh_axis(mesh, axis)
+    assert rows % (TILE_H * n) == 0, (rows, TILE_H, n)
+    band = rows // n
+    tiles_x = -(-cols // TILE_W)
+    if bin_cap is None:  # every bin of the band: bins never overflow
+        bin_cap = (band // TILE_H) * tiles_x * 8
+    T = positions.shape[0] // 3
+    v_cap = _round_up(2 * T + 1, 4096)  # informational (no compaction)
+    rgb, diag = render_soup_diag(
+        positions, normals, colors, scene, cam, rows, cols, pixel_aspect,
+        v_cap=v_cap, big_cap=big_cap, kernel=kernel, r_cap=r_cap,
+        pair_cap=pair_cap, tile_cap=bin_cap, row_lo=i * band,
+        band_rows=band)
+    over = ((diag["n_big"] > big_cap).to(torch.int32)
+            + (diag["n_rows"] > r_cap).to(torch.int32)
+            + (diag["n_pairs"] > pair_cap).to(torch.int32)
+            + (diag["n_tiles_nz"] > bin_cap).to(torch.int32))
+    return (all_gather_cat(rgb, n, group),
+            all_gather_cat(over.reshape(1), n, group))
 
 
 _DIAG_KEYS = ("n_valid", "n_big", "n_rows", "n_pairs", "n_tiles_nz")

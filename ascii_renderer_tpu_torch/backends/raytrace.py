@@ -37,7 +37,7 @@ from torch.profiler import record_function
 
 from ascii_renderer_tpu_torch.backends import rt_core as RC
 from ascii_renderer_tpu_torch.backends.pt_core import BIG, V3
-from ascii_renderer_tpu_torch.core.camera import Camera, camera_bases
+from ascii_renderer_tpu_torch.core.camera import Camera, band_of, camera_bases
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid_jit
@@ -205,19 +205,19 @@ def render_rgb(scene: SceneData, camera: Camera, rows: int, cols: int,
                prims: ScenePrims = None) -> torch.Tensor:
     """Full deterministic trace -> linear RGB f32 [rows, cols, 3] in [0, 1]
     on the scene's device; for a batch of V cameras, [V, rows, cols, 3]
-    from one batched call. Row bands (``row_lo`` / ``n_rows``) are ROADMAP
-    A12 and raise."""
-    if row_lo != 0 or n_rows is not None:
-        raise NotImplementedError(
-            "row_lo / n_rows (row-band rendering) is not ported to "
-            "ascii_renderer_tpu_torch yet (ROADMAP A12)")
+    from one batched call. ``row_lo`` / ``n_rows`` render the row band
+    [row_lo, row_lo + n_rows) of the global grid ([n_rows, cols, 3], the
+    hook of ``parallel.mesh.render_rows_sharded``): the shading is per
+    pixel, so a band equals those rows of the full frame bit for bit."""
     dev = scene.sph_pos.device
     pr = prims or ScenePrims(scene)
     pos_c, yaw, pitch, fov = _camera_batch(camera)
-    V, R = pos_c.shape[0], rows * cols
+    rows_out = band_of(rows, row_lo, n_rows)
+    V, R = pos_c.shape[0], rows_out * cols
     with record_function("rt.grid"):
         rd3 = ray_grid_jit(camera_bases(yaw, pitch, fov), rows, cols,
-                           pixel_aspect, dev).reshape(V, R, 3)
+                           pixel_aspect, dev, row_lo,
+                           rows_out).reshape(V, R, 3)
         rd = V3.of(rd3)
         pos_d = pos_c.to(device=dev, dtype=torch.float32)
         ro = V3(pos_d[:, 0:1], pos_d[:, 1:2], pos_d[:, 2:3])
@@ -244,7 +244,7 @@ def render_rgb(scene: SceneData, camera: Camera, rows: int, cols: int,
         col_refl = torch.where(hit2[..., None], col_refl_hit, env_raw)
         col = torch.where(refl[..., None], col_refl, col_diff.stack())
         col = torch.where(hit[..., None], col, env)
-        rgb = torch.clamp(col, 0.0, 1.0).reshape(V, rows, cols, 3)
+        rgb = torch.clamp(col, 0.0, 1.0).reshape(V, rows_out, cols, 3)
     return rgb if camera.yaw.dim() else rgb[0]
 
 

@@ -51,6 +51,11 @@ class Camera:
     def replace(self, **kw) -> "Camera":
         return dataclasses.replace(self, **kw)
 
+    def __getitem__(self, key) -> "Camera":
+        """View ``key`` (an index or a slice) of a batch of cameras."""
+        return Camera(**{f.name: getattr(self, f.name)[key]
+                         for f in dataclasses.fields(self)})
+
 
 @dataclasses.dataclass(frozen=True)
 class CameraInputs:
@@ -171,36 +176,65 @@ def camera_bases(yaw, pitch, fov_y):
     return uu.t(), vv.t(), ww.t(), focal
 
 
-def ndc_grid(rows: int, cols: int, pixel_aspect: float, device):
-    """NDC centres (px, py) f32 [rows, cols] of the rows x cols cell grid,
-    row 0 = top (GL fragCoord has y = 0 at the bottom; the readback is
-    Y-flipped, so top row r maps to gl y = rows-1-r):
+def band_of(rows: int, row_lo: int = 0, n_rows: int | None = None) -> int:
+    """The height of the row band [row_lo, row_lo + n_rows) of a grid of
+    ``rows`` rows (all of them when n_rows is None). Raises ValueError for
+    a band that does not lie inside the grid, and for a row_lo without
+    n_rows (the reference ignores it there and renders the full grid)."""
+    if n_rows is None and row_lo != 0:
+        raise ValueError(f"row_lo {row_lo} without n_rows")
+    band = rows if n_rows is None else n_rows
+    if row_lo < 0 or band < 0 or row_lo + band > rows:
+        raise ValueError(f"row band [{row_lo}, {row_lo + band}) outside "
+                         f"the {rows} rows of the grid")
+    return band
+
+
+def _band_rows(rows: int, row_lo: int, band: int, device) -> torch.Tensor:
+    """GL rows (rows - 1 - r) of the grid's rows r in [row_lo, row_lo +
+    band), f32 [band]: a slice of the full grid's, computed exactly."""
+    r = torch.arange(row_lo, row_lo + band, dtype=torch.float32,
+                     device=device)
+    return float(rows - 1) - r
+
+
+def ndc_grid(rows: int, cols: int, pixel_aspect: float, device,
+             row_lo: int = 0, n_rows: int | None = None):
+    """NDC centres (px, py) f32 [band, cols] of the rows x cols cell grid's
+    row band [row_lo, row_lo + n_rows) (all rows by default), row 0 = top
+    (GL fragCoord has y = 0 at the bottom; the readback is Y-flipped, so
+    top row r maps to gl y = rows-1-r):
 
       p = -1 + 2 * (pix + 0.5) / res;   p.x *= (cols/rows) * pixel_aspect
 
-    Returns (px, py, aspect), aspect the float32 (cols/rows) * pixel_aspect
-    as a Python float."""
+    A band keeps the full grid's aspect and mapping, so it equals those
+    rows of the full grid bit for bit. Returns (px, py, aspect), aspect
+    the float32 (cols/rows) * pixel_aspect as a Python float."""
+    band = band_of(rows, row_lo, n_rows)
     aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
     x = torch.arange(cols, dtype=torch.float32, device=device) + 0.5
     x = x / torch.tensor(float(cols), device=device)
-    y_gl = torch.arange(rows, dtype=torch.float32, device=device).flip(0)
+    y_gl = _band_rows(rows, row_lo, band, device)
     y_gl = (y_gl + 0.5) / torch.tensor(float(rows), device=device)
-    px = ((-1.0 + 2.0 * x) * aspect).expand(rows, cols)
-    py = (-1.0 + 2.0 * y_gl)[:, None].expand(rows, cols)
+    px = ((-1.0 + 2.0 * x) * aspect).expand(band, cols)
+    py = (-1.0 + 2.0 * y_gl)[:, None].expand(band, cols)
     return px, py, aspect
 
 
-def ndc_grid_jit(rows: int, cols: int, pixel_aspect: float, device):
+def ndc_grid_jit(rows: int, cols: int, pixel_aspect: float, device,
+                 row_lo: int = 0, n_rows: int | None = None):
     """ndc_grid as the reference's jitted program rounds it: XLA turns
     the divisions by the grid size into products with 2 / res, which fuse
     into the -1: p = fma(pix + 0.5, 2 / res, -1), then p.x *= aspect.
-    Returns (px, py) f32 [rows, cols] on ``device``."""
+    Returns (px, py) f32 [band, cols] on ``device``, the row band
+    [row_lo, row_lo + n_rows) of the full grid (all rows by default)."""
+    band = band_of(rows, row_lo, n_rows)
     aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
     x = torch.arange(cols, dtype=torch.float32, device=device) + 0.5
-    y = torch.arange(rows, dtype=torch.float32, device=device).flip(0) + 0.5
+    y = _band_rows(rows, row_lo, band, device) + 0.5
     px = fma32(x, float(np.float32(2.0 / cols)), -1.0) * aspect
     py = fma32(y, float(np.float32(2.0 / rows)), -1.0)
-    return px.expand(rows, cols), py[:, None].expand(rows, cols)
+    return px.expand(band, cols), py[:, None].expand(band, cols)
 
 
 def ray_dirs_jit(px, py, bases) -> torch.Tensor:
@@ -239,15 +273,14 @@ def primary_ray_dirs(cam: Camera, rows: int, cols: int, pixel_aspect: float,
     """Per-cell primary ray directions, f32 [rows, cols, 3] on ``device``,
     row 0 = top (pathtrace_shader.js:187-201, raytrace_shader.js:198-210).
     The basis is computed on the host; the grid is built on the device.
-    ``jitter`` (optional, [rows, cols, 2]) is added to p (anti-aliasing
-    offsets, already scaled by the caller). Row bands ``row_lo``/``n_rows``
-    are ROADMAP A12 and raise."""
-    if row_lo != 0 or n_rows is not None:
-        raise NotImplementedError(
-            "row_lo / n_rows (row-band rendering) is not ported to "
-            "ascii_renderer_tpu_torch yet (ROADMAP A12)")
+    ``jitter`` (optional, [band, cols, 2]) is added to p (anti-aliasing
+    offsets, already scaled by the caller). ``row_lo`` / ``n_rows`` select
+    the row band [row_lo, row_lo + n_rows) of the global grid
+    (``parallel.mesh.render_rows_sharded``): f32 [n_rows, cols, 3], equal
+    to those rows of the full grid bit for bit."""
     basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
-    px, py, _aspect = ndc_grid(rows, cols, pixel_aspect, device)
+    px, py, _aspect = ndc_grid(rows, cols, pixel_aspect, device, row_lo,
+                               n_rows)
     if jitter is not None:
         px = px + jitter[..., 0]
         py = py + jitter[..., 1]

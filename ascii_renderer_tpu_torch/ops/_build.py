@@ -75,7 +75,7 @@ SIGNATURES = {
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (bases, out, rows, cols, views, sx, sy, aspect, stream)
-    "ray_grid_jit_launch": (_P, _P, _I, _I, _I, _F, _F, _F, _P),
+    "ray_grid_jit_launch": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # (idx, ovr, out, V, H, W, radius, thresh, cells_per_thread, stream)
     "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (data, offsets, z, tid, part, n_slots, n_tiles, tiles_x, n_entries,

@@ -63,35 +63,41 @@ ray_grid_kernel(const float* __restrict__ px, const float* __restrict__ py,
 // (XLA turns the division by the grid size into a product, which fuses),
 // then d = fma(px, uu, py * vv) + fw (the left product fuses; fw = focal *
 // ww, the same for every ray, is formed apart) and d / |d| with the fused
-// norm. bases: V x (uu, vv, fw), 9 floats a view.
+// norm. bases: V x (uu, vv, fw), 9 floats a view. The launch covers the
+// row band [row_lo, row_lo + band) of the rows x cols grid: row is the
+// global row, so a band equals those rows of the full grid bit for bit.
 __global__ void __launch_bounds__(kThreads)
 ray_grid_jit_kernel(const float* __restrict__ bases, float* __restrict__ out,
-                    int rows, int cols, float sx, float sy, float aspect) {
-  const int n = rows * cols;
+                    int rows, int cols, int row_lo, int band, float sx,
+                    float sy, float aspect) {
+  const int n = band * cols;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const int view = blockIdx.y;
   const float* b = bases + 9 * view;
-  const int row = i / cols, col = i - row * cols;
+  const int r = i / cols, col = i - r * cols;
   const float x = fmaf((float)col + 0.5f, sx, -1.0f) * aspect;
-  const float y = fmaf((float)(rows - 1 - row) + 0.5f, sy, -1.0f);
+  const float y = fmaf((float)(rows - 1 - (row_lo + r)) + 0.5f, sy, -1.0f);
   direction<true>(x, y, b, b + 3, b + 6, out + ((size_t)view * n + i) * 3);
 }
 
 }  // namespace
 
 // bases: device floats [views, 9] (uu, vv, focal * ww a view); out: device
-// floats [views, rows, cols, 3]; sx = 2 / cols, sy = 2 / rows (float32)
+// floats [views, band, cols, 3], rows [row_lo, row_lo + band) of the
+// rows x cols grid; sx = 2 / cols, sy = 2 / rows (float32)
 extern "C" int ray_grid_jit_launch(const float* bases, float* out, int rows,
-                                   int cols, int views, float sx, float sy,
-                                   float aspect, void* stream) {
-  if (rows < 0 || cols < 0 || views < 0 || views > 65535)
+                                   int cols, int row_lo, int band, int views,
+                                   float sx, float sy, float aspect,
+                                   void* stream) {
+  if (rows < 0 || cols < 0 || views < 0 || views > 65535 || row_lo < 0 ||
+      band < 0 || row_lo + band > rows)
     return (int)cudaErrorInvalidValue;
-  const int n = rows * cols;
+  const int n = band * cols;
   if (n == 0 || views == 0) return 0;
   dim3 grid((n + kThreads - 1) / kThreads, views);
   ray_grid_jit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      bases, out, rows, cols, sx, sy, aspect);
+      bases, out, rows, cols, row_lo, band, sx, sy, aspect);
   return (int)cudaGetLastError();
 }
 

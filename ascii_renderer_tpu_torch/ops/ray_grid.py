@@ -22,8 +22,8 @@ import torch
 
 import numpy as np
 
-from ascii_renderer_tpu_torch.core.camera import (ndc_grid_jit, ray_dirs,
-                                                  ray_dirs_jit)
+from ascii_renderer_tpu_torch.core.camera import (band_of, ndc_grid_jit,
+                                                  ray_dirs, ray_dirs_jit)
 from ascii_renderer_tpu_torch.ops import _build
 
 launches = 0       # kernel launches by ray_grid
@@ -58,33 +58,37 @@ def ray_grid(px: torch.Tensor, py: torch.Tensor, basis) -> torch.Tensor:
 
 
 def ray_grid_jit(bases, rows: int, cols: int, pixel_aspect: float,
-                 device) -> torch.Tensor:
-    """The ray tracer's primary directions for V views, f32 [V, rows,
+                 device, row_lo: int = 0,
+                 n_rows: int | None = None) -> torch.Tensor:
+    """The ray tracer's primary directions for V views, f32 [V, band,
     cols, 3] on ``device``, rounded as the reference's jitted grid (the
     cell centres fused, then fma(px, uu, py*vv) + focal*ww over the fused
-    norm). ``bases``: ``core/camera.camera_bases``' tuple (host tensors).
+    norm): the row band [row_lo, row_lo + n_rows) of the rows x cols grid
+    (all rows by default), equal to those rows of the full grid bit for
+    bit. ``bases``: ``core/camera.camera_bases``' tuple (host tensors).
     On the CPU the plain version (``ndc_grid_jit`` and ``ray_dirs_jit``);
     on a CUDA device one launch for every view."""
     device = torch.device(device)
     uu, vv, ww, focal = (b.to("cpu", torch.float32) for b in bases)
+    band = band_of(rows, row_lo, n_rows)
     if device.type == "cpu":
-        px, py = ndc_grid_jit(rows, cols, pixel_aspect, device)
+        px, py = ndc_grid_jit(rows, cols, pixel_aspect, device, row_lo, band)
         return ray_dirs_jit(px, py, (uu, vv, ww, focal))
     global jit_launches
     views = uu.shape[0]
     host = torch.cat([uu, vv, focal[:, None] * ww], dim=1).contiguous()
     dev_bases = host.to(device)
-    out = torch.empty((views, rows, cols, 3), dtype=torch.float32,
+    out = torch.empty((views, band, cols, 3), dtype=torch.float32,
                       device=device)
     _build.require_cuda(dev_bases, out, what="ray_grid_jit")
-    if views * rows * cols * 3 >= 2 ** 31:
-        raise ValueError(f"ray_grid_jit: {views} views of {rows} x {cols}, "
+    if views * band * cols * 3 >= 2 ** 31:
+        raise ValueError(f"ray_grid_jit: {views} views of {band} x {cols}, "
                          "at most 2^31 - 1 outputs")
     aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
     err = _build.lib().ray_grid_jit_launch(
-        dev_bases.data_ptr(), out.data_ptr(), rows, cols, views,
-        float(np.float32(2.0 / cols)), float(np.float32(2.0 / rows)), aspect,
-        _build.stream_ptr(device))
+        dev_bases.data_ptr(), out.data_ptr(), rows, cols, row_lo, band,
+        views, float(np.float32(2.0 / cols)), float(np.float32(2.0 / rows)),
+        aspect, _build.stream_ptr(device))
     jit_launches += 1
     _build.check(err, "ray_grid_jit_launch")
     return out

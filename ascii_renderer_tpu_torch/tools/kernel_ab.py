@@ -41,6 +41,8 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
   (``chip_smoke._mid_prep``), B7' at [40, 69632] (spans (0, 16), (16, 40))
   and B3 at the headline frame 0's setup block
   (``chip_smoke.b3_headline_inputs``);
+- the ray tracer's jitted grid (``ray_grid_jit_kernel``) over the view
+  farm's 1,024 orbit poses at 96x36, the full grid (3,538,944 rays);
 - the frame median (wall ms over 20 frames, ``chip_smoke._timed``) and the
   device busy ms a frame (``chip_smoke.profile_frames``, 3 frames) of the
   path tracer's reference run (96x36, spp 64) and HD arm (960x540, spp 8)
@@ -133,9 +135,9 @@ def _shared_rays(cs, dev, rows: int, cols: int, B: int):
 
 
 def worker(root: str) -> dict:
-    """Times B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a, B9b, B9c, B4, B7,
-    B7' and B3, and the PT frames' median and busy time, with the package
-    of checkout ``root``."""
+    """Times the jitted ray grid, B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a,
+    B9b, B9c, B4, B7, B7' and B3, and the PT frames' median and busy time,
+    with the package of checkout ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -148,13 +150,24 @@ def worker(root: str) -> dict:
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
     from ascii_renderer_tpu_torch.ops import raster_group as RG
     from ascii_renderer_tpu_torch.ops import raster_subtile as RS
+    from ascii_renderer_tpu_torch.ops import ray_grid as RYG
+    from ascii_renderer_tpu_torch.core.camera import camera_bases
     cs = _chip_smoke()
     dev = torch.device(DEVICE)
-    out = {"root": root, "b5_ms": {}, "b6_ms": {}, "b8_ms": {}, "b1_ms": {},
-           "b9d_ms": {}, "b9e_ms": {}, "b9f_ms": {}, "b9a_ms": {},
-           "b9b_ms": {}, "b9c_ms": {}, "b4_ms": {}, "b7_ms": {},
-           "b7s_ms": {}, "b3_ms": {}, "frame_ms": {}, "busy_ms": {},
-           "digest": {}}
+    out = {"root": root, "jit_grid_ms": {}, "b5_ms": {}, "b6_ms": {},
+           "b8_ms": {}, "b1_ms": {}, "b9d_ms": {}, "b9e_ms": {},
+           "b9f_ms": {}, "b9a_ms": {}, "b9b_ms": {}, "b9c_ms": {},
+           "b4_ms": {}, "b7_ms": {}, "b7s_ms": {}, "b3_ms": {},
+           "frame_ms": {}, "busy_ms": {}, "digest": {}}
+    orbit = cs._orbit()
+    bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
+    rows, cols = cs.FARM_GRID
+    out["digest"]["jitted grid farm"] = _digest([RYG.ray_grid_jit(
+        bases, rows, cols, cs.PIXEL_ASPECT, dev)])
+    out["jit_grid_ms"][f"farm {cs.FARM_VIEWS} views {rows}x{cols}"] = \
+        cs._device_ms(lambda: RYG.ray_grid_jit(bases, rows, cols,
+                                               cs.PIXEL_ASPECT, dev),
+                      "ray_grid_jit_kernel", 1)
     scene = cs._pt_scene(device=dev)
     for rows, cols, B, label in PT_SHAPES:
         args, kw, _uid, n = cs._pt_batch(dev, scene, rows, cols, B, 1)
@@ -296,9 +309,9 @@ def main() -> int:
     if len(digests) != 1:
         raise AssertionError("the two checkouts' outputs differ")
     summary = {}
-    for key in ("b5_ms", "b6_ms", "b8_ms", "b1_ms", "b9d_ms", "b9e_ms",
-                "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms", "b4_ms", "b7_ms",
-                "b7s_ms", "b3_ms", "frame_ms", "busy_ms"):
+    for key in ("jit_grid_ms", "b5_ms", "b6_ms", "b8_ms", "b1_ms",
+                "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
+                "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "frame_ms", "busy_ms"):
         for shape in runs[0][1][key]:
             summary[f"{key[:-3].capitalize()} {shape}"] = {
                 side: statistics.median(r[key][shape] for s, r in runs

@@ -58,3 +58,21 @@ def accum_state_from_numpy(d: dict, device):
     kw = {f.name: _t(d[f.name], "cpu" if f.name == "cam_sig" else device)
           for f in dataclasses.fields(AccumState)}
     return AccumState(**kw)
+
+
+def train_state_from_numpy(verts, colors, mu, nu, count, device):
+    """A JAX train state carried to the port: the parameters (numpy
+    verts, colors [N, 3]) and optax adam's state (``mu`` and ``nu``, each
+    a dict with "verts" and "colors", and ``count``, the steps taken) ->
+    ``parallel.train.TrainState`` on ``device``, whose torch.optim.Adam
+    state (exp_avg = mu, exp_avg_sq = nu, step = count) continues the
+    reference's trajectory."""
+    from ascii_renderer_tpu_torch.parallel.train import TrainState
+
+    def t(x):
+        return _t(np.asarray(x, np.float32), device)
+
+    return TrainState(t(verts), t(colors), {
+        "step": torch.tensor(float(np.asarray(count))),
+        "exp_avg": (t(mu["verts"]), t(mu["colors"])),
+        "exp_avg_sq": (t(nu["verts"]), t(nu["colors"]))})

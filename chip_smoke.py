@@ -1694,12 +1694,16 @@ def check_ray_grid_jit(dev):
     for cams in (_orbit(), demo):
         bases = camera_bases(cams.yaw.reshape(-1), cams.pitch.reshape(-1),
                              cams.fov_y.reshape(-1))
-        got = RYG.ray_grid_jit(bases, rows, cols, PIXEL_ASPECT, dev)
-        px, py = ndc_grid_jit(rows, cols, PIXEL_ASPECT, dev)
-        want = ray_dirs_jit(px, py, tuple(b.to(dev) for b in bases))
-        torch.cuda.synchronize()
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
-            f"jitted ray grid differs at {tuple(got.shape)}"
+        # the full grid, then row bands of 12 (the kernel's row offset)
+        for band in ((0, None), (0, 12), (12, 12), (24, 12)):
+            got = RYG.ray_grid_jit(bases, rows, cols, PIXEL_ASPECT, dev,
+                                   *band)
+            px, py = ndc_grid_jit(rows, cols, PIXEL_ASPECT, dev, *band)
+            want = ray_dirs_jit(px, py, tuple(b.to(dev) for b in bases))
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), \
+                f"jitted ray grid differs at {tuple(got.shape)}, band {band}"
     bases = camera_bases(*(getattr(_orbit(), f) for f in
                            ("yaw", "pitch", "fov_y")))
     n = FARM_VIEWS * rows * cols
@@ -1716,9 +1720,9 @@ def check_ray_grid_jit(dev):
     # the two cell centres, three fused sums, the norm, three divisions
     bound = _bound(12 * n + 36 * FARM_VIEWS, 22 * n)
     print(f"jitted ray grid: bit-identical at the {FARM_VIEWS} orbit poses "
-          f"and the rt_demo pose, 96x36; kernel {ms:.5f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}) at {n} "
-          f"rays", flush=True)
+          f"and the rt_demo pose, 96x36 and its bands of 12; kernel "
+          f"{ms:.5f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms "
+          f"({bound[1]}) at {n} rays", flush=True)
     rec = _rec("ray_grid_jit", "ray_grid.cu", "", 0.0, ms, plain_ms, bound)
     # the XLA code it stands for: the jitted primary_ray_dirs of render_rgb
     rec["replaces"] = "ascii_renderer_tpu/core/camera.py:172"
@@ -2161,6 +2165,413 @@ def run_cli_path(dev):
         p._expand(chars, tint, p.atlas)
 
     return expand
+
+
+# --------------------------------------------------------------------------
+# The parallel path: the soft-raster train step (config 5), row bands, the
+# mesh over a world of one card, dryrun_multichip(1)
+# --------------------------------------------------------------------------
+CONFIG5_GRID, CONFIG5_STEPS, CONFIG5_LR = (36, 96), 32, 5e-2
+# config 5's losses on the card against the CPU, relative: CUDA's exp, log
+# and sigmoid round apart from the CPU's, and the gradients' scatter-adds
+# (colors[faces], ndc[faces]) are atomics on the card, summed in another
+# order. The card's loss at each of its 32 states is held to the CPU's
+# loss at that state; the card's run against the CPU's own run of the 32
+# steps only for CONFIG5_SAME_STEPS steps: the sphere seen from its
+# equator has gradient components that are zero by symmetry and come out
+# as rounding noise, whose sign Adam's normalised step turns into +-lr,
+# so the two runs separate from step 3 on (this script's first card run:
+# relative 4.0e-6 at step 2, 2.9e-4 at step 3, 0.37 at step 25, both
+# runs falling 0.212 -> 0.042 / 0.043)
+CONFIG5_RTOL, CONFIG5_SAME_STEPS = 1e-5, 2
+# the card's gradients at the initial state against the CPU's, as the
+# CPU tests hold the port's against JAX's: within 1e-4 x max |g|
+CONFIG5_GRAD_TOL = 1e-4
+# Adam's trajectory on the card, update by update: tests/test_torch_train
+# .py's scene (the bench's uv_sphere(6, 8) moved by seeded noise, 4 views
+# above the equator, 16x32, Adam 1e-2), where no gradient is zero by
+# symmetry. TRAJ_STEPS single steps on the card; from each card state the
+# CPU takes the same step (its own gradients at that state, then
+# torch.optim.Adam from the card's moments and step count), and the
+# card's next verts and colors are held to it within atol TRAJ_ATOL, its
+# loss to the CPU's loss at that state within TRAJ_LOSS_RTOL. That is
+# looser than CONFIG5_RTOL because the loss is ill-conditioned at some
+# states: moving every vertex one ulp moves the CPU's loss by the same
+# order as the card is from it (this script's card runs 5 and 6: the card
+# 2.78e-5 from the CPU at step 19, where one ulp of the verts moves the
+# CPU's loss 1.70e-5, the most over the 32 states; every other step under
+# 2.5e-6); the check prints both. The two whole runs are held together
+# for CONFIG5_SAME_STEPS steps only: the scene is sensitive too (the
+# CPU's run from the first verts moved one ulp, which this check prints
+# beside it, is 2.9e-6 apart in loss at step 3, 1.1e-5 at step 4 and
+# 3.4e-2 at step 32), so past a few steps the two runs test the scene,
+# not the card
+TRAJ_GRID, TRAJ_VIEWS, TRAJ_LR, TRAJ_STEPS, TRAJ_ATOL = \
+    (16, 32), 4, 1e-2, 32, 1e-5
+TRAJ_LOSS_RTOL = 1e-4
+BAND_ROWS = 176  # headline bands: 540 rows hold no TILE_H x n split
+PAR_ROWS = 512   # the sharded raster over the world: TILE_H x n divide it
+
+
+def _config5(device, views=1):
+    """bench.py's config 5 (bench_config5): a 36x96 grid, uv_sphere(8, 12)
+    (117 vertices, 192 triangles), ``views`` orbit cameras at radius 2.5,
+    height 0; targets the soft render of the ground-truth colour (0.9,
+    0.2, 0.1) on the CPU. Returns (verts, faces, cameras, targets)."""
+    import torch
+    from ascii_renderer_tpu_torch.diff.soft_raster import soft_render
+    from ascii_renderer_tpu_torch.geom import meshes
+    from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
+    v, f = meshes.uv_sphere(8, 12)
+    assert v.shape == (117, 3) and f.shape == (192, 3), (v.shape, f.shape)
+    cams = orbit_cameras(views, center=(0, 0, 0), radius=2.5, height=0.0)
+    gt = torch.tensor([0.9, 0.2, 0.1]).expand(v.shape)
+    targets = soft_render(torch.from_numpy(v), gt, f, cams, *CONFIG5_GRID)
+    return v, f, cams, targets
+
+
+def _perturbed_sphere():
+    """tests/test_torch_train.py's scene, targets by the port's soft render
+    on the CPU: (verts, colors, faces, cameras, targets)."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.diff.soft_raster import soft_render
+    from ascii_renderer_tpu_torch.geom import meshes
+    from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
+    rng = np.random.default_rng(7)
+    v, f = meshes.uv_sphere(6, 8)
+    v = (v + rng.normal(0, 0.05, v.shape)).astype(np.float32)
+    c0 = rng.uniform(0.3, 0.7, v.shape).astype(np.float32)
+    gt = rng.uniform(0.1, 0.9, v.shape).astype(np.float32)
+    cams = orbit_cameras(TRAJ_VIEWS, center=(0, 0, 0), radius=2.5,
+                         height=0.3)
+    targets = soft_render(torch.from_numpy(v), torch.from_numpy(gt), f, cams,
+                          *TRAJ_GRID)
+    return v, c0, f, cams, targets
+
+
+def _train_loss(verts, colors, f, cams, targets, grid=CONFIG5_GRID,
+                grad=False):
+    """The train step's loss at (verts, colors) for a mesh of one rank
+    (the views' image losses summed) on a ``grid`` (rows, cols), on verts'
+    device; with ``grad``, (loss, d loss / d verts, d loss / d colors)."""
+    import torch
+    from ascii_renderer_tpu_torch.diff.soft_raster import (
+        camera_mvps, soft_luminance_loss, soft_render_mvp)
+    v = verts.detach().clone().requires_grad_(grad)
+    c = colors.detach().clone().requires_grad_(grad)
+    img = soft_render_mvp(v, c, torch.as_tensor(f, device=v.device),
+                          camera_mvps(cams, *grid), *grid)
+    tgt = targets.to(v.device)
+    loss = sum(soft_luminance_loss(img[k], tgt[k])
+               for k in range(img.shape[0]))
+    if not grad:
+        return float(loss)
+    gv, gc = torch.autograd.grad(loss, (v, c))
+    return float(loss.detach()), gv.cpu(), gc.cpu()
+
+
+def _cpu_state(state):
+    """A TrainState's copy on the CPU, Adam's moments and step included."""
+    from ascii_renderer_tpu_torch.parallel import train as T
+    st = state.opt_state
+    return T.TrainState(state.verts.cpu(), state.colors.cpu(), {
+        "step": st["step"].clone(),
+        "exp_avg": tuple(x.cpu() for x in st["exp_avg"]),
+        "exp_avg_sq": tuple(x.cpu() for x in st["exp_avg_sq"])})
+
+
+def _check_trajectory(dev, tmesh):
+    """TRAJ_STEPS train steps on the card from the perturbed sphere, each
+    held to the CPU's step from the card's state (TRAJ_* above); the
+    CPU's own run of the same steps beside it."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.parallel import train as T
+    v, c0, f, cams, targets = _perturbed_sphere()
+    step = T.make_train_step(tmesh, torch.as_tensor(f, device=dev),
+                             *TRAJ_GRID, optimizer=T.adam(TRAJ_LR))
+    tgt = targets.to(dev)
+
+    def cpu_step(st):  # the CPU's loss at st and its Adam step from st
+        loss, gv, gc = _train_loss(st.verts, st.colors, f, cams, targets,
+                                   TRAJ_GRID, grad=True)
+        return T._optimizer_step(T.adam(TRAJ_LR), st, (gv, gc)), loss
+
+    card = T.init_train_state(v, c0, device=dev)
+    own = T.init_train_state(v, c0, device="cpu")
+    # the scene's own sensitivity: the CPU's run from verts one ulp up
+    ulp = T.init_train_state(np.nextafter(v, np.float32(np.inf)), c0,
+                             device="cpu")
+    losses, d_loss, d_par, own_rel, ulp_rel, ulp_at = [], [], [], [], [], []
+    for k in range(TRAJ_STEPS):
+        at = _cpu_state(card)
+        want, want_loss = cpu_step(at)
+        up = torch.from_numpy(np.nextafter(at.verts.numpy(), np.float32(
+            np.inf)))
+        ulp_at.append(abs(_train_loss(up, at.colors, f, cams, targets,
+                                      TRAJ_GRID) - want_loss) / want_loss)
+        card, loss = step(card, cams, tgt)
+        assert float(card.opt_state["step"]) == k + 1, card.opt_state
+        losses.append(float(loss))
+        d_loss.append(abs(losses[-1] - want_loss) / want_loss)
+        d_par.append(max(float((card.verts.cpu() - want.verts).abs().max()),
+                         float((card.colors.cpu() - want.colors).abs().max())))
+        own, own_loss = cpu_step(own)
+        own_rel.append(abs(losses[-1] - own_loss) / own_loss)
+        ulp, ulp_loss = cpu_step(ulp)
+        ulp_rel.append(abs(ulp_loss - own_loss) / own_loss)
+    worst = int(np.argmax(d_loss))
+    print(f"Adam trajectory on the card ({TRAJ_STEPS} steps, perturbed "
+          f"sphere {TRAJ_GRID[1]}x{TRAJ_GRID[0]}, {TRAJ_VIEWS} views, Adam "
+          f"{TRAJ_LR}): losses {losses[0]:.6f} -> {losses[-1]:.6f}; each "
+          f"step from the card's state within {max(d_loss):.2e} (loss, "
+          f"relative; step {worst + 1}, where one ulp of the verts moves "
+          f"the CPU's loss {ulp_at[worst]:.2e}, at most {max(ulp_at):.2e} "
+          f"over the states) and {max(d_par):.2e} (verts and colors) of "
+          f"the CPU's step from that state; against the CPU's own run: "
+          f"{', '.join(f'{x:.2e}' for x in own_rel)}; the CPU's run from "
+          f"verts one ulp up against its own: "
+          f"{', '.join(f'{x:.2e}' for x in ulp_rel)}", flush=True)
+    assert max(d_loss) <= TRAJ_LOSS_RTOL, d_loss
+    assert max(d_par) <= TRAJ_ATOL, d_par
+    assert max(own_rel[:CONFIG5_SAME_STEPS]) <= CONFIG5_RTOL, own_rel
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+def _bit_equal(a, b):
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def run_parallel_path(dev, soup, scene):
+    """The parallel path on the card, in a world of one rank (an NCCL
+    group in this process, its FileStore under smoke_out/, torn down at
+    the end): config 5 at full size through make_train_steps(n_steps=32)
+    on make_mesh((1, 1), ("dp", "sp")): its 32 losses against the port's
+    CPU losses at the card's states and, for CONFIG5_SAME_STEPS, the CPU's
+    run, within CONFIG5_RTOL, falling; Adam's trajectory on the perturbed
+    sphere, each card step held to the CPU's step from the card's state
+    (TRAJ_*); 8 timed calls (steps/s) and one profiled; a 4-view step (B
+    = 4, dp = 1). Row bands, each the full
+    frame's rows bit for bit: the ray tracer's rt_demo frame at 96x36 in
+    bands of 12 (the jitted grid with a row offset), the PT demo frame at
+    the poster pose (96x36, spp 2, 2 bounces, bands of 12: B5 on band
+    uids), the bunny at 960x540 in direct bands of BAND_ROWS rows at
+    row_lo 0, 176 and 352 through subtile8 (B2, B3, B1), subtile6 (B3,
+    B9f), subtile3 (B7, B9d) and subtile8 with SETUP_PACKED (B10), each
+    band's caps those of the full frame, overflow 0; render_rows_sharded
+    and render_soup_rows_sharded over make_mesh((1,), ("rows",)) at
+    960x512, equal to the local frame, overflow 0. Before the world,
+    entry.dryrun_multichip(1) on the card. Returns a function that runs
+    one config-5 call (32 steps), one that renders a band of each kind,
+    and one that tears the world down (the first needs it)."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.backends.pathtrace import render_pt
+    from ascii_renderer_tpu_torch.backends.raytrace import render_rgb
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.core.frame import Frame
+    from ascii_renderer_tpu_torch.entry import dryrun_multichip
+    from ascii_renderer_tpu_torch.parallel import train as T
+    from ascii_renderer_tpu_torch.parallel.mesh import (
+        make_mesh, render_rows_sharded, run_world)
+    from ascii_renderer_tpu_torch.parallel.worlds import train_trajectory
+    from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+    t_phase = time.perf_counter()
+    os.makedirs(OUT, exist_ok=True)
+
+    # the CPU run of config 5 (a gloo world of 1), before the card's group
+    v, f, cams, targets = _config5("cpu")
+    c0 = np.full_like(v, 0.5)
+    rows, cols = CONFIG5_GRID
+    cpu = run_world(train_trajectory, 1, "cpu", "cpu", (1, 1), v, c0, f,
+                    cams, targets, rows, cols, lr=CONFIG5_LR, n_single=0,
+                    n_scan=CONFIG5_STEPS)[0]
+    v4, _f, cams4, targets4 = _config5("cpu", views=4)
+    cpu4 = run_world(train_trajectory, 1, "cpu", "cpu", (1, 1), v4, c0, f,
+                     cams4, targets4, rows, cols, lr=CONFIG5_LR,
+                     n_single=1)[0]
+    # the multi-device entry on the card (its own world of 1)
+    line = dryrun_multichip(1)
+    assert line.startswith("dryrun_multichip OK: 1 cuda ranks"), line
+
+    store = os.path.join(OUT, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        tmesh = make_mesh((1, 1), ("dp", "sp"))
+        rmesh = make_mesh((1,), ("rows",))
+        faces = torch.as_tensor(f, device=dev)
+        opt = T.adam(CONFIG5_LR)
+        state0 = T.init_train_state(v, c0, device=dev)
+        tgt = targets.to(dev)
+        # the gradients at the initial state, card against CPU
+        g_cpu = _train_loss(torch.from_numpy(v), torch.from_numpy(c0), f,
+                              cams, targets, grad=True)
+        g_dev = _train_loss(state0.verts, state0.colors, f, cams, targets,
+                              grad=True)
+        g_err = [float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(g_dev[1:], g_cpu[1:])]
+        assert max(g_err) <= CONFIG5_GRAD_TOL, g_err
+        # 32 single steps on the card, keeping each state
+        step = T.make_train_step(tmesh, faces, rows, cols, optimizer=opt)
+        st, losses, at = state0, [], []
+        for _ in range(CONFIG5_STEPS):
+            at.append((st.verts.cpu(), st.colors.cpu()))
+            st, loss = step(st, cams, tgt)
+            losses.append(float(loss))
+        losses = np.asarray(losses)
+        assert st.verts.device.type == dev.type
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+        # each loss against the CPU's loss at the card's state
+        tf = np.asarray([_train_loss(vk, ck, f, cams, targets)
+                         for vk, ck in at])
+        rel_tf = np.abs(losses - tf) / tf
+        # and against the CPU's own run of the 32 steps
+        rel = np.abs(losses - cpu["scan_losses"]) / cpu["scan_losses"]
+        print(f"config 5 (36x96, 192 triangles, Adam {CONFIG5_LR}, "
+              f"{CONFIG5_STEPS} steps): losses {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f} (CPU run {cpu['scan_losses'][-1]:.6f}); "
+              f"gradients at the initial state within {max(g_err):.2e} x "
+              f"max |g| of the CPU's; each loss within {rel_tf.max():.2e} "
+              f"(relative) of the CPU's loss at the card's state; against "
+              f"the CPU's run: {', '.join(f'{x:.2e}' for x in rel)}",
+              flush=True)
+        assert rel_tf.max() <= CONFIG5_RTOL, rel_tf
+        assert rel[:CONFIG5_SAME_STEPS].max() <= CONFIG5_RTOL, rel
+        _check_trajectory(dev, tmesh)
+        steps = T.make_train_steps(tmesh, faces, rows, cols,
+                                   n_steps=CONFIG5_STEPS, optimizer=opt)
+        _s, scan = steps(state0, cams, tgt)
+        assert torch.isfinite(scan).all() and float(scan[-1]) < float(
+            scan[0])
+        ms = []
+        for _ in range(8):
+            (_out, t) = _event_once(lambda: steps(state0, cams, tgt))
+            ms.append(t)
+        print(f"config 5: 8 timed calls of {CONFIG5_STEPS} steps (CUDA "
+              f"events around each call): median {statistics.median(ms):.3f}"
+              f" ms a call, {1e3 * CONFIG5_STEPS * len(ms) / sum(ms):.1f} "
+              f"steps/s; each: {', '.join(f'{x:.3f}' for x in ms)}",
+              flush=True)
+        step4 = T.make_train_step(tmesh, faces, rows, cols,
+                                  optimizer=T.adam(CONFIG5_LR))
+        _s4, loss4 = step4(T.init_train_state(v4, c0, device=dev), cams4,
+                           targets4.to(dev))
+        r4 = abs(float(loss4) - cpu4["losses"][0]) / cpu4["losses"][0]
+        assert tuple(cams4.yaw.shape) == (4,)
+        print(f"config 5, 4 views on one rank (B = 4, dp = 1): loss "
+              f"{float(loss4):.6f}, the CPU's {cpu4['losses'][0]:.6f} "
+              f"(relative {r4:.2e})", flush=True)
+        assert r4 <= CONFIG5_RTOL, r4
+
+        # the ray tracer's rt_demo frame in bands of 12
+        cfg = Config(pixel_aspect=PIXEL_ASPECT)
+        rts = create_rt_demo_scene().build(device=dev)
+        rt_full = render_rgb(rts, rts.camera, 36, 96, PIXEL_ASPECT)
+        for lo in (0, 12, 24):
+            band = render_rgb(rts, rts.camera, 36, 96, PIXEL_ASPECT,
+                              row_lo=lo, n_rows=12)
+            assert _bit_equal(band, rt_full[lo:lo + 12]), f"RT band {lo}"
+        rt_rows = render_rows_sharded(
+            lambda sc, c, lo, nr: render_rgb(sc, c, 36, 96, PIXEL_ASPECT,
+                                             row_lo=lo, n_rows=nr),
+            rts, rts.camera, rmesh, 36, 96)
+        assert _bit_equal(rt_rows, rt_full), "RT render_rows_sharded"
+        _glyph(Frame.from_float(rt_full), cfg)
+        print("RT rt_demo 96x36: bands of 12 at row_lo 0, 12, 24 and "
+              "render_rows_sharded bit for bit the full frame", flush=True)
+
+        # the path tracer's demo frame in bands of 12 (B5 on band uids)
+        pts = _pt_scene(device=dev)
+        pkw = dict(rows=36, cols=96, pixel_aspect=PIXEL_ASPECT, spp=2,
+                   bounces=2, light_color=PT_LIGHT)
+        pt_full = render_pt(pts, _pt_camera(), 0.0, 0, **pkw)
+        for lo in (0, 12, 24):
+            rgb, a = render_pt(pts, _pt_camera(), 0.0, 0, row_lo=lo,
+                               n_rows=12, **pkw)
+            assert _bit_equal(rgb, pt_full[0][lo:lo + 12]) and torch.equal(
+                a, pt_full[1][lo:lo + 12]), f"PT band {lo}"
+        n_ov = int(((pt_full[1] >= 2) & (pt_full[1] <= 254)).sum())
+        assert n_ov == PT_OVERRIDES, n_ov
+        _glyph(Frame.from_float(*pt_full), cfg)
+        print(f"PT demo 96x36 spp 2: bands of 12 at row_lo 0, 12, 24 bit for "
+              f"bit the full frame, rgb and alpha ({n_ov} overrides)",
+              flush=True)
+
+        # the bunny at 960x540 in direct bands, each generation's walk
+        p, n, c = (torch.as_tensor(x).to(dev) for x in soup)
+        caps = _golden_caps(p.shape[0] // 3)
+        cam = _golden_camera()
+        for gen, packed in (("subtile8", False), ("subtile6", False),
+                            ("subtile3", False), ("subtile8", True)):
+            R.SETUP_PACKED = packed
+            try:
+                full, _d = R.render_soup_diag(p, n, c, scene, cam, ROWS,
+                                              COLS, PIXEL_ASPECT,
+                                              kernel=gen, **caps)
+                counts = []
+                for lo in (0, BAND_ROWS, 2 * BAND_ROWS):
+                    band, d = R.render_soup_diag(
+                        p, n, c, scene, cam, ROWS, COLS, PIXEL_ASPECT,
+                        kernel=gen, row_lo=lo, band_rows=BAND_ROWS, **caps)
+                    assert _bit_equal(band, full[lo:lo + BAND_ROWS]), \
+                        f"{gen} band {lo}"
+                    d = {k: int(x) for k, x in d.items()}
+                    assert d["n_rows"] <= caps["r_cap"] and d["n_pairs"] \
+                        <= caps["pair_cap"] and d["n_tiles_nz"] <= \
+                        caps["tile_cap"] and d["n_big"] == 0, (gen, lo, d)
+                    counts.append(d["n_pairs"])
+            finally:
+                R.SETUP_PACKED = False
+            print(f"{gen}{' SETUP_PACKED' if packed else ''} {COLS}x{ROWS}: "
+                  f"bands of {BAND_ROWS} at row_lo 0, {BAND_ROWS}, "
+                  f"{2 * BAND_ROWS} bit for bit the full frame, overflow "
+                  f"0, pairs {counts}", flush=True)
+
+        # the sharded forms over the world, at 960x512
+        soup_rgb, over = R.render_soup_rows_sharded(
+            p, n, c, scene, cam, PAR_ROWS, COLS, PIXEL_ASPECT, rmesh,
+            big_cap=0, r_cap=caps["r_cap"], pair_cap=caps["pair_cap"])
+        local, _d = R.render_soup_diag(p, n, c, scene, cam, PAR_ROWS, COLS,
+                                       PIXEL_ASPECT, kernel="subtile8",
+                                       **caps)
+        assert int(over.max()) == 0, over.tolist()
+        assert _bit_equal(soup_rgb, local), "render_soup_rows_sharded"
+        rows_rgb = render_rows_sharded(
+            lambda sc, cm, lo, nr: R.render_soup_diag(
+                p, n, c, sc, cm, PAR_ROWS, COLS, PIXEL_ASPECT,
+                kernel="subtile8", row_lo=lo, band_rows=nr, **caps)[0],
+            scene, cam, rmesh, PAR_ROWS, COLS)
+        assert _bit_equal(rows_rgb, local), "render_rows_sharded raster"
+        print(f"world of 1 (NCCL): render_soup_rows_sharded and "
+              f"render_rows_sharded at {COLS}x{PAR_ROWS} bit for bit the "
+              f"local frame, overflow {over.tolist()}", flush=True)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    def band_frames():
+        render_rgb(rts, rts.camera, 36, 96, PIXEL_ASPECT, row_lo=12,
+                   n_rows=12)
+        render_pt(pts, _pt_camera(), 0.0, 0, row_lo=12, n_rows=12, **pkw)
+        R.render_soup_diag(p, n, c, scene, cam, ROWS, COLS, PIXEL_ASPECT,
+                           kernel="subtile8", row_lo=BAND_ROWS,
+                           band_rows=BAND_ROWS, **caps)
+
+    return (lambda: steps(state0, cams, tgt), band_frames,
+            dist.destroy_process_group)
 
 
 # --------------------------------------------------------------------------
@@ -2913,6 +3324,14 @@ def _path_counts(counters, run):
     return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}, out
 
 
+# kernels the parallel phase must launch: both ray grids, B5, B4 (the
+# dryrun's farm) and every walk and setup of the raster bands
+PARALLEL_KERNELS = ("ray_grid_jit", "pt_megakernel", "ray_grid",
+                    "modal_vote", "setup2dh", "pack", "raster_group_walk",
+                    "raster_group_walk_k2", "raster_group_walk_grouped",
+                    "pack_channels", "setup2dh_packed")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3132,6 +3551,24 @@ def main() -> int:
         assert c_cli[k] > 0, f"{k} never launched in the CLI phase"
     profile_frames(expand_fn, 20, ("glyph.",), "expand_pixels 96x36")
 
+    # the parallel path: config 5's train steps, row bands, the mesh over
+    # a world of one card, dryrun_multichip(1)
+    c_par, (train_fn, band_fn, close) = _path_counts(
+        counters, lambda: run_parallel_path(dev, soup, scene))
+    print(f"launches in the parallel phase: {c_par}", flush=True)
+    for k in PARALLEL_KERNELS:
+        assert c_par[k] > 0, f"{k} never launched in the parallel phase"
+        if k not in ("pack_channels", "ray_grid"):  # summed at the end
+            by_name[k]["launches"] += c_par[k]
+    try:
+        profile_frames(train_fn, 1, ("train.",),
+                       f"config 5 train call ({CONFIG5_STEPS} steps)")
+        profile_frames(band_fn, 3, ("rt.", "pt.", "raster."),
+                       "band frames (RT 12 rows, PT 12 rows, subtile8 176 "
+                       "rows)")
+    finally:
+        close()
+
     # the path tracer's XLA core: the goldens and the core against B5,
     # then the wide-atlas frame. Last: its profile holds ~20,000 launches a
     # frame, after which the profiler's sessions lost rows
@@ -3145,9 +3582,9 @@ def main() -> int:
     for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels"):
         by_name[k]["launches"] = sum(
             c[k] for c in (c_gen, c_entry, c_cube, c_tea, c_mid, c_pts,
-                           *c_or.values()))
+                           c_par, *c_or.values()))
     by_name["ray_grid"]["launches"] = sum(
-        c["ray_grid"] for c in (c_ref, c_hd, c_pts, c_core))
+        c["ray_grid"] for c in (c_ref, c_hd, c_pts, c_core, c_par))
     # pack_channels_split's one driven caller is the exactness canary
     by_name["pack_channels_split"]["launches"] = c_cli["pack_channels_split"]
 

@@ -565,6 +565,70 @@ def test_ray_grid_jit_kernel_equals_plain_on_cuda(cuda_device, views, rows,
                            want.view(torch.int32))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("views,rows,cols,row_lo,n_rows",
+                         [(1, 36, 96, 12, 12), (1024, 36, 96, 24, 12),
+                          (3, 540, 960, 176, 176), (2, 7, 13, 3, 4)])
+def test_ray_grid_jit_band_equals_plain_on_cuda(cuda_device, views, rows,
+                                                cols, row_lo, n_rows,
+                                                zero_counts):
+    """The jitted grid kernel launched for a row band (its global row
+    offset) equals the plain version's band, on the CPU and on the card,
+    and the full grid's rows, bit for bit."""
+    rng = np.random.default_rng(views + row_lo)
+    yaw = torch.from_numpy(rng.uniform(-3, 3, views).astype(np.float32))
+    pitch = torch.from_numpy(rng.uniform(-1.4, 1.4, views).astype(np.float32))
+    fov = torch.full((views,), np.float32(80 * np.pi / 180))
+    bases = camera_bases(yaw, pitch, fov)
+    got = RYG.ray_grid_jit(bases, rows, cols, 0.5, cuda_device, row_lo,
+                           n_rows)
+    full = RYG.ray_grid_jit(bases, rows, cols, 0.5, cuda_device)
+    torch.cuda.synchronize()
+    assert got.shape == (views, n_rows, cols, 3) and RYG.jit_launches == 2
+    px, py = ndc_grid_jit(rows, cols, 0.5, cuda_device, row_lo, n_rows)
+    for want in (ray_dirs_jit(px, py, tuple(b.to(cuda_device)
+                                            for b in bases)).cpu(),
+                 RYG.ray_grid_jit(bases, rows, cols, 0.5, "cpu", row_lo,
+                                  n_rows),
+                 full[:, row_lo:row_lo + n_rows].cpu()):
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_pt_band_uids_equal_plain_on_cuda(cuda_device, zero_counts):
+    """B5 on a row band's global uids (its pixels' uids, row_lo * cols on)
+    equals its plain version bit for bit; render_pt's bands on the card
+    are the card's full frame rows bit for bit, and the alpha planes the
+    CPU band's."""
+    import math
+
+    from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    from ascii_renderer_tpu_torch.parallel.worlds import pt_fixture
+    args, kw = _pt_inputs(cuda_device, 20)
+    uid = (torch.arange(3 * 1024, dtype=torch.int32) + 12 * 96).reshape(
+        3, 8, 128).to(cuda_device)
+    got = PTK.trace_blocks_raw(*args, **kw, uid=uid)
+    want = PTK.trace_blocks_raw_ref(*args, **kw, uid=uid)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    scene, cam, pkw = pt_fixture(cuda_device)
+    cscene, _c, _k = pt_fixture("cpu")
+    full = PT.render_pt(scene, cam, 0.0, 3, rows=36, cols=96, **pkw)
+    for lo in (0, 12, 24):
+        band = PT.render_pt(scene, cam, 0.0, 3, rows=36, cols=96, row_lo=lo,
+                            n_rows=12, **pkw)
+        cpu = PT.render_pt(cscene, cam, 0.0, 3, rows=36, cols=96, row_lo=lo,
+                           n_rows=12, **pkw)
+        assert torch.equal(band[0].view(torch.int32),
+                           full[0][lo:lo + 12].view(torch.int32))
+        assert torch.equal(band[1], full[1][lo:lo + 12])
+        assert torch.equal(band[1].cpu(), cpu[1])
+    assert PTK.launches > 0 and not math.isnan(float(full[0].sum()))
+
+
 def _pt_inputs(device, n_tris, n_blocks=3, seed=0):
     """A random scene of spheres and n_tris triangles (2 + n_tris entries
     past 64 take the kernel's chunked entry stream) with the demo atlas,

@@ -8,7 +8,9 @@ subtile and subtile2 walks and visibility_subtile, one ``entry()``
 frame step (96x36) and one 12x32 path-traced frame of the demo scene render
 (plain-torch kernel versions on the CPU) through the glyph pass; the app
 shell's modules (the CLI, terminal IO, checkpoints, the glyph atlas)
-import, one offline CLI frame renders and the exactness canary passes."""
+import, one offline CLI frame renders and the exactness canary passes;
+two spawned gloo ranks, whose jax import fails too, build a mesh without
+loading jax, and a train step and a row band run in a world of 1."""
 
 import os
 import subprocess
@@ -33,7 +35,8 @@ for new in ("backends.raster_channels", "backends.raster_oracles",
             "backends.rt_core", "geom.intersect", "parallel.mesh",
             "sim.accum", "app.cli", "app.termblit", "app.terminput",
             "ascii.glyphs", "ascii.overlay", "core.color", "geom.reorder",
-            "utils.checkpoint", "utils.exactness", "utils.profiling"):
+            "utils.checkpoint", "utils.exactness", "utils.profiling",
+            "diff.soft_raster", "parallel.train", "parallel.worlds"):
     assert "ascii_renderer_tpu_torch." + new in names, new
 from ascii_renderer_tpu_torch.backends import raster as R
 from ascii_renderer_tpu_torch.core.camera import Camera
@@ -124,6 +127,23 @@ with contextlib.redirect_stdout(buf):
 cli_rows = buf.getvalue().splitlines()
 assert len(cli_rows) == 12 and all(len(r) == 32 for r in cli_rows), cli_rows
 assert exactness.verdict(exactness.run_checks("cpu")) == "ok"
+# the distributed paths: spawned gloo ranks (whose jax import fails too,
+# through the blocking package on PYTHONPATH) build a mesh and load no jax;
+# a train step and a row-band frame in a world of 1 in this process
+from ascii_renderer_tpu_torch.parallel.mesh import run_world
+from ascii_renderer_tpu_torch.parallel.worlds import (mesh_facts,
+                                                      train_trajectory)
+from ascii_renderer_tpu_torch.geom import meshes
+facts = run_world(mesh_facts, 2, "cpu", "cpu", (2,), ("rows",))
+assert [f["jax_modules"] for f in facts] == [[], []], facts
+sv, sf = meshes.uv_sphere(4, 6)
+tr = run_world(train_trajectory, 1, "cpu", "cpu", (1, 1), sv,
+               np.full_like(sv, 0.5), sf, orbit_cameras(1, center=(0, 0, 0),
+                                                        radius=2.5),
+               np.zeros((1, 8, 16, 3), np.float32), 8, 16, n_single=2)[0]
+assert np.isfinite(tr["losses"]).all() and tr["losses"][1] < tr["losses"][0]
+band = render_rgb(rts, rts.camera, 12, 32, 0.5, row_lo=4, n_rows=4)
+assert torch.equal(band, render_rgb(rts, rts.camera, 12, 32, 0.5)[4:8])
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax"))
        or m.startswith("ascii_renderer_tpu.")]
 assert not [m for m in bad if sys.modules[m] is not None], bad
@@ -131,8 +151,11 @@ print("OK", len(names))
 '''
 
 
-def test_port_imports_and_renders_without_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
+def test_port_imports_and_renders_without_jax(tmp_path):
+    shim = tmp_path / "jax"  # spawned ranks import this jax, which fails
+    shim.mkdir()
+    (shim / "__init__.py").write_text("raise ImportError('blocked')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
     env.pop("XLA_FLAGS", None)
     res = subprocess.run([sys.executable, "-c", SRC], capture_output=True,
                          text=True, timeout=300, env=env, cwd=REPO)

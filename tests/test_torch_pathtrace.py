@@ -234,12 +234,22 @@ def test_unported_paths_raise():
     assert torch.equal(a[act], full_a[act])
     empty = (rgb == 0).all(-1) & (a == 255)
     assert empty[~act].sum() > (~act).sum() // 2
-    with pytest.raises(NotImplementedError, match="A12"):
-        TPT.render_pt(ts, cam, 0.0, 0, row_lo=1, n_rows=2, **kw)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # row bands (A12, ported): a band is the full frame's rows bit for bit
+    # (rgb and alpha), as are the band's centre-ray grid and directions; a
+    # row_lo without n_rows raises (the reference ignores it)
+    rgb4, a4 = TPT.render_pt(ts, cam, 0.0, 0, **kw)
+    brgb, ba = TPT.render_pt(ts, cam, 0.0, 0, row_lo=1, n_rows=2, **kw)
+    assert torch.equal(brgb.view(torch.int32), rgb4[1:3].view(torch.int32))
+    assert torch.equal(ba, a4[1:3])
+    full = TPT.primary_ray_grid(cam, 4, 8, 0.5, device="cpu")
+    band = TPT.primary_ray_grid(cam, 4, 8, 0.5, row_lo=2, n_rows=2,
+                                device="cpu")
+    for f, b in zip(full, band):
+        assert torch.equal(b, f[2:4])
+    with pytest.raises(ValueError, match="without n_rows"):
         TPT.primary_ray_grid(cam, 4, 8, 0.5, row_lo=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TC.primary_ray_dirs(cam, 4, 8, 0.5, n_rows=2, device="cpu")
+    assert torch.equal(TC.primary_ray_dirs(cam, 4, 8, 0.5, n_rows=2,
+                                           device="cpu"), full[1][:2])
     with pytest.raises(ValueError, match="scene on"):
         TPT.PathtraceBackend(device="meta").set_scene(ts)
 

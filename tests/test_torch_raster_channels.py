@@ -325,14 +325,25 @@ def test_unported_methods_raise_naming_their_roadmap_items():
                                   dict(row_lo=0), dict(band_rows=8)])
 def test_render_soup_diag_row_bands_raise_naming_a12(band):
     """JAX's render_soup_diag takes row_lo / band_rows (the row-band hook
-    of ROADMAP A12); the port takes them too and raises
-    NotImplementedError naming A12, as every unported argument does."""
+    of ROADMAP A12, ported): a frame is banded iff band_rows is given, as
+    in JAX. The grouped kernels render the band, the full frame's rows
+    bit for bit (here the band is the whole 8-row frame, or row_lo 0 alone
+    and no band); the channel kernels ("mm"), which JAX renders in full
+    whatever the band, raise ValueError for a band."""
     p, attrs = near_plane_soup(50)
     scene = SceneBuilder().set_env_light([0.2, 0.2, 0.2], 1.0).build(
         device="cpu")
     args = (torch.from_numpy(p), torch.from_numpy(attrs[:, :3]),
             torch.from_numpy(attrs[:, 3:6]), scene, Camera.create(**NEAR_CAM),
             8, 16, 0.5)
-    for kernel in ("mm", "subtile8"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            R.render_soup_diag(*args, v_cap=4096, kernel=kernel, **band)
+    full, _d = R.render_soup_diag(*args, v_cap=4096, kernel="subtile8")
+    got, diag = R.render_soup_diag(*args, v_cap=4096, kernel="subtile8",
+                                   **band)
+    assert torch.equal(got.view(torch.int32), full.view(torch.int32))
+    assert int(diag["n_valid"]) > 0
+    if "band_rows" in band:
+        with pytest.raises(ValueError, match="grouped kernels"):
+            R.render_soup_diag(*args, v_cap=4096, kernel="mm", **band)
+    else:
+        mm, _d = R.render_soup_diag(*args, v_cap=4096, kernel="mm", **band)
+        assert tuple(mm.shape) == (8, 16, 3)

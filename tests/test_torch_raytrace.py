@@ -442,15 +442,17 @@ def test_render_rgb_equals_jax_jit_at_three_poses(name, pose):
 
 def test_backend_protocol_and_row_bands():
     """RaytraceBackend: blank frame before a scene, a scene on another
-    device refused, dispose; row bands raise, naming A12."""
+    device refused, dispose; a row band is the full frame's rows bit for
+    bit (A12, ported)."""
     be = TRT.RaytraceBackend(Config(), device="cpu")
     f = be.render(0.0, TC.Camera.create(), 4, 8, 0.5)
     assert tuple(f.rgb.shape) == (4, 8, 3) and not f.rgb.any()
     ts = TD.create_rt_demo_scene().build(device="cpu")
     with pytest.raises(ValueError, match="scene on"):
         TRT.RaytraceBackend(device="meta").set_scene(ts)
-    with pytest.raises(NotImplementedError, match="A12"):
-        TRT.render_rgb(ts, ts.camera, 4, 8, 0.5, row_lo=1, n_rows=2)
+    band = TRT.render_rgb(ts, ts.camera, 4, 8, 0.5, row_lo=1, n_rows=2)
+    full = TRT.render_rgb(ts, ts.camera, 4, 8, 0.5)
+    assert torch.equal(band.view(torch.int32), full[1:3].view(torch.int32))
     be.set_scene(ts)
     assert be.render(0.0, ts.camera, 4, 8, 0.5).rgb.any()
     be.dispose()
