@@ -50,6 +50,7 @@ from ascii_renderer_tpu_torch.core.fp import fma32, libm32, sqrt32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
 from ascii_renderer_tpu_torch.ops import raster_group as RG
+from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import raster_subtile as RS
 from ascii_renderer_tpu_torch.ops.pack import (pack_channels,
                                                pack_channels_split_blocked)
@@ -304,16 +305,13 @@ def shade_groups(e, xl, yl, table, scene: SceneData, n_attrs: int):
     """Deferred shading over grouped walk output: e f32 [grp_cap, 8, 128]
     winner ids (-1 = bg), xl/yl f32 [grp_cap, 128] pixel-origin lanes,
     table [N, W] per-triangle shade planes. Returns rgb f32
-    [grp_cap, 8, 128, 3]."""
-    grp_cap = e.shape[0]
-    idx = e.reshape(-1).to(torch.int64)
-    hit = idx >= 0
-    g = table[torch.where(hit, idx, 0)]  # non-hit rows zeroed after
-    px = xl[:, None, :].expand(grp_cap, TILE_H, TILE_W)
+    [grp_cap, 8, 128, 3] (``ops/raster_shade``: one launch on a CUDA
+    device)."""
+    px = xl[:, None, :]
     py = (yl[:, None, :]
           + (torch.arange(TILE_H, dtype=torch.float32, device=e.device)
              + 0.5)[None, :, None])
-    return _shade_rows(g, e >= 0.0, px, py, scene, n_attrs)
+    return RSH.shade(table, e, px, py, scene, n_attrs)
 
 
 def suggest_caps_grouped(n_valid: int, n_big: int, n_rows: int,

@@ -23,8 +23,9 @@ from torch.profiler import record_function as stage
 from ascii_renderer_tpu_torch.backends.raster_channels import (
     plane_entries, tile_pairs)
 from ascii_renderer_tpu_torch.backends.raster_common import (
-    _DEFAULT_DIR, _DEFAULT_DIR_COL, TILE_H, TILE_W, _round_up, _shade_rows)
+    _DEFAULT_DIR, _DEFAULT_DIR_COL, TILE_H, TILE_W, _round_up)
 from ascii_renderer_tpu_torch.ops import raster_bins as RB
+from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import raster_subtile as RS
 from ascii_renderer_tpu_torch.ops.pack import pack_channels
 from ascii_renderer_tpu_torch.ops.setup2dh import _plane_keys
@@ -200,23 +201,18 @@ def shade_tiles_compact(etile, nonempty, ptable, scene: SceneData,
     nz_ids = torch.cat([nz, nz.new_full((tile_cap - nz.shape[0],), n_tiles)])
     pad_tile = etile.new_full((1, TILE_H, TILE_W), -1.0)
     et = torch.cat([etile, pad_tile])[nz_ids]               # [tc, 8, 128]
-    idx = et.reshape(-1).long()
-    hit = idx >= 0
-    g = ptable[torch.where(hit, idx, ptable.shape[0] - 1)]  # [tc*1024, W]
     t_ids = torch.clamp(nz_ids, max=n_tiles - 1)
     ty = (t_ids // tiles_x).to(torch.float32)
     tx = (t_ids % tiles_x).to(torch.float32)
     sub = torch.arange(TILE_H, dtype=torch.float32, device=dev)
     lane = torch.arange(TILE_W, dtype=torch.float32, device=dev)
-    px = (tx[:, None, None] * TILE_W + lane[None, None, :] + 0.5).expand(
-        tile_cap, TILE_H, TILE_W)
-    py = (ty[:, None, None] * TILE_H + sub[None, :, None] + 0.5).expand(
-        tile_cap, TILE_H, TILE_W)
-    rgb_flat = _shade_rows(g, hit, px.reshape(-1), py.reshape(-1), scene,
-                           n_attrs)
+    px = tx[:, None, None] * TILE_W + lane[None, None, :] + 0.5
+    py = ty[:, None, None] * TILE_H + sub[None, :, None] + 0.5
+    # int ids: a pixel is lit where its id, truncated, is >= 0
+    rgb = RSH.shade(ptable, et.to(torch.int32), px, py, scene, n_attrs)
     full = torch.zeros((n_tiles + 1, TILE_H, TILE_W, 3), dtype=torch.float32,
                        device=dev)
-    full[nz_ids] = rgb_flat.view(tile_cap, TILE_H, TILE_W, 3)
+    full[nz_ids] = rgb
     return _tiles_to_image(full[:n_tiles], tiles_y, tiles_x, rows, cols)
 
 

@@ -25,9 +25,13 @@ Every function takes a batch of V views: a ray channel is [V, R] (R rays
 a view), a camera origin [V, 1]. ``render_rgb`` renders one camera or a
 batch of cameras (``parallel.mesh.batch_cameras``) in one call.
 
-Profiler ranges: ``rt.grid`` (the primary directions), ``rt.hit`` (the
-primary nearest hit), ``rt.shade`` (direct light and shadow rays, both
-hits), ``rt.bounce`` (the mirror ray's nearest hit).
+After the grid, one CUDA kernel traces every ray of every view on the
+card (``ops/rt_trace``); ``trace_rgb`` is its plain version.
+
+Profiler ranges: ``rt.grid`` (the primary directions), ``rt.trace`` (the
+kernel: hits, shading and the bounce in one launch); on the CPU
+``rt.hit`` (the primary nearest hit), ``rt.shade`` (direct light and
+shadow rays, both hits), ``rt.bounce`` (the mirror ray's nearest hit).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ascii_renderer_tpu_torch.backends.pt_core import BIG, V3
 from ascii_renderer_tpu_torch.core.camera import Camera, band_of, camera_bases
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.core.frame import Frame
+from ascii_renderer_tpu_torch.ops import rt_trace
 from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid_jit
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
@@ -208,7 +213,9 @@ def render_rgb(scene: SceneData, camera: Camera, rows: int, cols: int,
     from one batched call. ``row_lo`` / ``n_rows`` render the row band
     [row_lo, row_lo + n_rows) of the global grid ([n_rows, cols, 3], the
     hook of ``parallel.mesh.render_rows_sharded``): the shading is per
-    pixel, so a band equals those rows of the full frame bit for bit."""
+    pixel, so a band equals those rows of the full frame bit for bit.
+    After the grid, ``trace``: one kernel launch on a CUDA device,
+    ``trace_rgb`` on the CPU."""
     dev = scene.sph_pos.device
     pr = prims or ScenePrims(scene)
     pos_c, yaw, pitch, fov = _camera_batch(camera)
@@ -218,11 +225,35 @@ def render_rgb(scene: SceneData, camera: Camera, rows: int, cols: int,
         rd3 = ray_grid_jit(camera_bases(yaw, pitch, fov), rows, cols,
                            pixel_aspect, dev, row_lo,
                            rows_out).reshape(V, R, 3)
-        rd = V3.of(rd3)
         pos_d = pos_c.to(device=dev, dtype=torch.float32)
-        ro = V3(pos_d[:, 0:1], pos_d[:, 1:2], pos_d[:, 2:3])
-        env_raw = scene.env_color * scene.env_intensity
-        env = torch.clamp(env_raw, 0.0, 1.0)
+    rgb = trace(scene, pr, pos_d, rd3).reshape(V, rows_out, cols, 3)
+    return rgb if camera.yaw.dim() else rgb[0]
+
+
+def trace(scene: SceneData, pr: ScenePrims, cam: torch.Tensor,
+          rd3: torch.Tensor) -> torch.Tensor:
+    """Everything ``render_rgb`` does after its grid, for ``cam`` f32
+    [V, 3] origins and ``rd3`` f32 [V, R, 3] primary directions -> RGB f32
+    [V, R, 3]: ``trace_rgb`` on CPU tensors; on any other device
+    ``ops/rt_trace``'s kernel, one launch for every view, which raises
+    where it cannot run."""
+    if rd3.device.type == "cpu":
+        return trace_rgb(scene, pr, cam, rd3)
+    V, R = rd3.shape[0], rd3.shape[1]
+    return rt_trace.trace(scene, pr, cam, rd3,
+                          (RC.sphere_c_fused((V, 1, 1), pr.n_sph),
+                           RC.sphere_c_fused((V, 1, R), pr.n_sph)))
+
+
+def trace_rgb(scene: SceneData, pr: ScenePrims, cam: torch.Tensor,
+              rd3: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``ops/rt_trace``'s kernel: everything
+    ``render_rgb`` does after its grid, for ``cam`` f32 [V, 3] origins and
+    ``rd3`` f32 [V, R, 3] primary directions -> RGB f32 [V, R, 3]."""
+    rd = V3.of(rd3)
+    ro = V3(cam[:, 0:1], cam[:, 1:2], cam[:, 2:3])
+    env_raw = scene.env_color * scene.env_intensity
+    env = torch.clamp(env_raw, 0.0, 1.0)
 
     with record_function("rt.hit"):
         t, mat, n, hit = closest_hit(ro, rd, scene, pr)
@@ -244,8 +275,7 @@ def render_rgb(scene: SceneData, camera: Camera, rows: int, cols: int,
         col_refl = torch.where(hit2[..., None], col_refl_hit, env_raw)
         col = torch.where(refl[..., None], col_refl, col_diff.stack())
         col = torch.where(hit[..., None], col, env)
-        rgb = torch.clamp(col, 0.0, 1.0).reshape(V, rows_out, cols, 3)
-    return rgb if camera.yaw.dim() else rgb[0]
+        return torch.clamp(col, 0.0, 1.0)
 
 
 class RaytraceBackend:

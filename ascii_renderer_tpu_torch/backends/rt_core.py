@@ -28,6 +28,7 @@ import torch
 
 from ascii_renderer_tpu_torch.backends.pt_core import BIG, V3
 from ascii_renderer_tpu_torch.core.fp import fma32, rsqrt32, sqrt32
+from ascii_renderer_tpu_torch.ops.fp import broadcast_shape
 
 _CONST = 1 << 30  # depth of a value that varies along no dimension
 
@@ -121,6 +122,17 @@ def spheres_t(ro: V3, rd: V3, center: V3, radius, valid, eps):
     t2 = -b + s
     t = torch.where(t1 > eps, t1, torch.where(t2 > eps, t2, BIG))
     return torch.where((h >= 0.0) & valid, t, BIG)
+
+
+def sphere_c_fused(ro_shape, n_sph: int) -> bool:
+    """Whether ``spheres_t`` fuses c = dot(oc, oc) - r*r for rays whose
+    origins have shape ``ro_shape`` against the primitives ([V, 1, 1]
+    primary, [V, 1, R] the others) and ``n_sph`` sphere slots:
+    ``_sub_mul``'s rule on those shapes."""
+    one = torch.empty(())
+    oc = one.expand(broadcast_shape(ro_shape, (n_sph, 1)))
+    r = one.expand(n_sph, 1)
+    return _pdepth(r, r) <= _depth(oc)
 
 
 def planes_t(ro: V3, rd: V3, normal: V3, ds, valid, eps):

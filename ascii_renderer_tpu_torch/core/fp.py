@@ -13,9 +13,11 @@ order the expression is written:
 
 The golden frames were rendered that way, so the port evaluates the same
 chains with an explicit fused multiply-add: ``fma32`` for tensors (plain
-versions, shading, the camera) and ``fmaf`` in the CUDA kernels, which are
-built with ``-fmad=false`` so that nothing else fuses. Every chain that
-fuses carries a comment naming the rule it follows.
+versions, shading, the camera; on CUDA tensors one launch of the kernel of
+``ops/fp.py``, on the CPU the float64 form ``fma32_f64``) and ``fmaf`` in
+the CUDA kernels, which are built with ``-fmad=false`` so that nothing
+else fuses. Every chain that fuses carries a comment naming the rule it
+follows.
 
 Square roots are taken in float64 and rounded once (``sqrt32``,
 ``rsqrt32``): torch's CPU float32 ``sqrt`` is not correctly rounded (about
@@ -31,12 +33,29 @@ import torch
 
 def fma32(a, b, c) -> torch.Tensor:
     """Correctly rounded float32 ``a * b + c`` (IEEE fusedMultiplyAdd).
+    Operands broadcast; Python floats are taken as float32 values. The
+    first tensor operand's device decides: on the CPU the float64 form
+    (``fma32_f64``), elsewhere one launch of the CUDA kernel of
+    ``ops/fp.py`` (``__fmaf_rn``), which raises where it cannot run."""
+    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+    if ref.device.type == "cpu":
+        return fma32_f64(a, b, c)
+    from ascii_renderer_tpu_torch.ops.fp import fma32_kernel
+    return fma32_kernel(a, b, c)
+
+
+_F32_OVERFLOW = 2.0 ** 128  # the float32 grid's next step past FLT_MAX
+
+
+def fma32_f64(a, b, c) -> torch.Tensor:
+    """``fma32`` in float64, on the device of the first tensor operand.
 
     The float32 product is exact in float64, so one float64 add leaves the
     exact sum within half a float64 ulp; rounding that to float32 is exact
     unless the float64 sum lands on a float32 midpoint it did not start on
     (double rounding). The add's exact error (TwoSum) decides those ties.
-    Operands broadcast; Python floats are taken as float32 values."""
+    A sum that rounds past FLT_MAX takes 2^128 as its upper neighbour, so
+    that a tie there goes to FLT_MAX or infinity as IEEE rounding does."""
     ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
 
     def f64(x):
@@ -49,7 +68,9 @@ def fma32(a, b, c) -> torch.Tensor:
     bv = s - p
     err = (p - (s - bv)) + (c64 - bv)    # s + err == p + c exactly
     r = s.float()
-    r64 = r.double()
+    r64 = torch.where(torch.isinf(r) & torch.isfinite(s),
+                      torch.copysign(torch.full_like(s, _F32_OVERFLOW), s),
+                      r.double())
     o = 2.0 * s - r64                    # r's neighbour if s is a midpoint
     tie = (o.float().double() == o) & (o != r64) & (err != 0)
     up = torch.maximum(r64, o)

@@ -42,6 +42,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)
+_LL = ctypes.c_longlong
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of the entry points in csrc/*.cu (all return cudaError_t).
 SIGNATURES = {
     # (pos9, attrs_t, mvp16_host, out, T, Tp, A, rows, cols, stream)
@@ -72,6 +74,21 @@ SIGNATURES = {
     #  nee, next_ray, stream)
     "pt_trace_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
                         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # (a, b, c, sa, sb, sc, scalar_mask, geom24_host, flat, out, n, stream)
+    "fma32_launch": (_P, _P, _P, _F, _F, _F, _I, _LLP, _I, _P, _LL, _P),
+    # (table, row_stride, table_rows, ids, ids_f32, px, py, geom12_host,
+    #  n_attrs, env_color, env_intensity, n_dl, dl_dir, dl_col, n_pt,
+    #  pt_pos, pt_col, n_pl, out, n, stream)
+    "raster_shade_launch": (_P, _LL, _I, _P, _I, _P, _P, _LLP, _I, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _I, _P, _LL, _P),
+    # (cam, rd3, out, views, rays, sph_pos, sph_rad, sph_valid, sph_mat,
+    #  n_sph, pln_n, pln_d, pln_valid, pln_mat, n_pln, tri_a, tri_e1,
+    #  tri_e2, tri_valid, tri_mat, n_tri, mat_albedo, mat_reflective,
+    #  dl_dir, dl_col, n_dl, pt_pos, pt_col, n_pt, pair, env_color,
+    #  env_intensity, fuse_p, fuse_s, stream)
+    "rt_trace_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                        _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                        _P, _P, _I, _I, _P, _P, _I, _I, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (bases, out, rows, cols, views, sx, sy, aspect, stream)

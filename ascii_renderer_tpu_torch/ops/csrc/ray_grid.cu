@@ -8,9 +8,9 @@
 //
 // Stands for XLA code, not a Pallas kernel: the ray grid of
 // ascii_renderer_tpu/backends/pathtrace.py (primary_ray_grid, render_pt's
-// centre rays and batch_rays). On CUDA tensors the plain version's fused
-// sums are float64 emulations (core/fp.fma32, ~27 launches each over every
-// ray); this kernel does the whole grid in one launch with fmaf.
+// centre rays and batch_rays). On CUDA tensors the plain version is a
+// dozen torch and core/fp.fma32 launches over every ray; this kernel does
+// the whole grid in one launch with fmaf.
 //
 // The same source holds the ray tracer's grid (ray_grid_jit_kernel, the
 // template flag kJit of direction()): the reference renders the ray tracer

@@ -1,0 +1,175 @@
+"""The raster's deferred shade: the CUDA kernel of ``csrc/raster_shade.cu``
+and its plain version (the shade-table gather, then ``_shade_rows``, the
+port of the reference's row shading, which ``backends/raster_common``
+re-exports).
+
+Stands for XLA code, not a Pallas kernel: the deferred-shade gather and
+lighting of ``ascii_renderer_tpu/backends/raster_common.py:73``
+(``_shade_rows``). Its three callers go through ``shade``: the headline's
+grouped tiles (``backends/raster.shade_groups``: f32 winner ids
+[grp_cap, 8, 128], pixel-origin lanes), the mid-scale plane table
+(``raster_common.shade_from_table``: i32 ids [rows, cols]) and the retired
+generations' compacted tiles (``raster_oracles.shade_tiles_compact``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ascii_renderer_tpu_torch.core.fp import fma32, rsqrt32
+from ascii_renderer_tpu_torch.ops import _build
+from ascii_renderer_tpu_torch.ops.fp import broadcast_geom, broadcast_shape
+from ascii_renderer_tpu_torch.scene.builder import SceneData
+
+launches = 0  # kernel launches by shade
+LAUNCHES_PER_CALL = {"shade": 1}  # kernels a call launches
+MAX_DIMS = 3
+
+_DEFAULT_AMBIENT = (0.15, 0.18, 0.22)  # raster.js:66-69
+_DEFAULT_DIR = (0.25, -1.0, 0.15)
+_DEFAULT_DIR_COL = (1.2, 1.15, 1.1)
+
+
+def shade(table, ids, px, py, scene: SceneData, n_attrs: int):
+    """rgb f32 [*S, 3] of the pixels S: ``ids`` (f32 or i32, -1 = no hit)
+    pick rows of ``table`` [N, W] (a row may be a strided slice of a wider
+    array; W >= 3 * n_attrs + 3), ``px`` / ``py`` f32 are the pixel
+    centres; each of the three broadcasts to S. No-hit pixels are zero. On
+    the CPU the plain version; on a CUDA device one launch."""
+    if table.device.type == "cpu":
+        return shade_ref(table, ids, px, py, scene, n_attrs)
+    global launches
+    shape = broadcast_shape(ids.shape, px.shape, py.shape)
+    if len(shape) > MAX_DIMS:
+        raise ValueError(f"shade: {len(shape)} pixel dimensions, at most "
+                         f"{MAX_DIMS}")
+    if ids.dtype not in (torch.float32, torch.int32):
+        raise ValueError(f"shade: ids must be float32 or int32, got "
+                         f"{ids.dtype}")
+    if (table.dtype, px.dtype, py.dtype) != (torch.float32,) * 3:
+        raise ValueError("shade: expected a float32 table and centres")
+    if table.dim() != 2 or table.stride(1) != 1 or \
+            table.shape[1] < 3 * n_attrs + 3:
+        raise ValueError(f"shade: table {tuple(table.shape)} (stride "
+                         f"{table.stride()}) holds no {n_attrs}-attribute "
+                         "rows of unit column stride")
+    if scene.dl_dir.shape[0] < 1:
+        raise ValueError("shade: the scene has no directional-light slot")
+    lights = (scene.env_color, scene.env_intensity, scene.dl_dir,
+              scene.dl_col, scene.pt_pos, scene.pt_col)
+    counts = (scene.n_dl, scene.n_pt)
+    _build.require_cuda(*lights, *counts, what="shade")
+    for t in (table, ids, px, py):
+        if t.device != scene.env_color.device:
+            raise ValueError(f"shade: expected CUDA tensors on one device, "
+                             f"got {t.device}")
+    if any(t.dtype != torch.float32 for t in lights) or any(
+            t.dtype != torch.int32 for t in counts):
+        raise ValueError("shade: expected float32 lights, int32 counts")
+    out = torch.empty((*shape, 3), dtype=torch.float32, device=table.device)
+    n = out.numel() // 3
+    if n >= 2 ** 31:
+        raise ValueError(f"shade: {n} pixels, at most 2^31 - 1")
+    geom = broadcast_geom((ids, px, py), shape, MAX_DIMS)
+    g = (ctypes.c_longlong * len(geom))(*geom)
+    err = _build.lib().raster_shade_launch(
+        table.data_ptr(), table.stride(0), table.shape[0], ids.data_ptr(),
+        int(ids.dtype == torch.float32), px.data_ptr(), py.data_ptr(), g,
+        n_attrs, *(t.data_ptr() for t in lights[:2]), scene.n_dl.data_ptr(),
+        *(t.data_ptr() for t in lights[2:4]), scene.n_pt.data_ptr(),
+        *(t.data_ptr() for t in lights[4:]), scene.pt_pos.shape[0],
+        out.data_ptr(), n, _build.stream_ptr(table.device))
+    launches += 1
+    _build.check(err, "raster_shade_launch")
+    return out
+
+
+def shade_ref(table, ids, px, py, scene: SceneData, n_attrs: int):
+    """The plain version: gather each hit pixel's table row (no-hit pixels
+    read the last row, never used), then ``_shade_rows``."""
+    shape = broadcast_shape(ids.shape, px.shape, py.shape)
+    ids = ids.expand(shape)
+    idx = ids.reshape(-1).to(torch.int64)
+    hit = ids >= 0
+    g = table[torch.where(idx >= 0, idx, table.shape[0] - 1)]
+    return _shade_rows(g, hit, px.expand(shape), py.expand(shape), scene,
+                       n_attrs)
+
+
+def _dot3(a0, b0, a1, b1, a2, b2):
+    """a0*b0 + a1*b1 + a2*b2 as the reference fuses it (core/fp.py)."""
+    return fma32(a2, b2, fma32(a0, b0, a1 * b1))
+
+
+def _shade_rows(g, hit, px, py, scene: SceneData, n_attrs: int):
+    """Plane evaluation + reference fragment lighting over gathered pixel
+    rows: g [R, W] gathered shade-table rows (channels as columns);
+    hit/px/py pixel predicates/centres of any shape S with prod(S) = R.
+    Returns rgb f32 [*S, 3]. Ambient + one directional (a default one when
+    the scene has none) + the scene's point lights, unshadowed, with
+    attenuation 1 / (1 + d^2 * 0.05) (raster_shader.js:42-62). Products
+    that feed a sum are fused as the reference fuses them (core/fp.py)."""
+    W = g.shape[1]
+    gT = g.t().reshape((W,) + tuple(px.shape))        # [W, *S]
+    dn = 3 * n_attrs
+    # (a*px + b*py) + c: the left product fuses
+    d = fma32(gT[dn], px, gT[dn + 1] * py) + gT[dn + 2]
+    inv_d = torch.reciprocal(torch.where(d.abs() < 1e-12, 1e-12, d))
+
+    def attr(j):
+        return (fma32(gT[3 * j], px, gT[3 * j + 1] * py)
+                + gT[3 * j + 2]) * inv_d
+
+    nx, ny, nz = attr(0), attr(1), attr(2)
+    cr, cg, cb = attr(3), attr(4), attr(5)
+    if n_attrs >= 9:
+        wx, wy_, wz = attr(6), attr(7), attr(8)
+    else:
+        assert scene.pt_pos.shape[0] == 0, (
+            "point lights require world-pos planes (n_attrs=9)")
+        wx = wy_ = wz = torch.zeros_like(nx)
+    # the reference's rsqrt is a CPU estimate refined by one Newton step,
+    # within 1 ulp of this; shading is compared at its own tolerance
+    inv_nl = rsqrt32(torch.clamp(_dot3(nx, nx, ny, ny, nz, nz), min=1e-24))
+    nx, ny, nz = nx * inv_nl, ny * inv_nl, nz * inv_nl
+
+    dev = g.device
+    ambient = scene.env_color * scene.env_intensity
+    have_dl = scene.n_dl > 0
+    ddir = torch.where(have_dl, scene.dl_dir[0],
+                       torch.tensor(_DEFAULT_DIR, dtype=torch.float32,
+                                    device=dev))
+    dcol = torch.where(have_dl, scene.dl_col[0],
+                       torch.tensor(_DEFAULT_DIR_COL, dtype=torch.float32,
+                                    device=dev))
+    ndl = torch.clamp(-_dot3(nx, ddir[0], ny, ddir[1], nz, ddir[2]), min=0.0)
+    # c * (ambient + dcol * ndl): the ambient product is formed apart
+    lit = [fma32(dcol[k], ndl, ambient[k]) for k in range(3)]
+    out = [c * lit[k] for k, c in enumerate((cr, cg, cb))]
+
+    n_pl = scene.pt_pos.shape[0]
+    pl_valid = torch.arange(n_pl, device=dev) < scene.n_pt
+    for i in range(n_pl):
+        lx = scene.pt_pos[i, 0] - wx
+        ly = scene.pt_pos[i, 1] - wy_
+        lz = scene.pt_pos[i, 2] - wz
+        d2 = torch.clamp(_dot3(lx, lx, ly, ly, lz, lz), min=1e-4)
+        inv_dd = rsqrt32(d2)
+        ndlp = torch.clamp(_dot3(nx, lx, ny, ly, nz, lz) * inv_dd, min=0.0)
+        att = torch.reciprocal(fma32(d2, 0.05, 1.0))
+        w_i = torch.where(pl_valid[i], ndlp * att, 0.0)
+        for k, c in enumerate((cr, cg, cb)):
+            # out + (c * col) * w: the first light's add sees two
+            # products and fuses the left one, c * lit
+            if i == 0:
+                out[k] = fma32(c, lit[k], (c * scene.pt_col[i, k]) * w_i)
+            else:
+                out[k] = fma32(c * scene.pt_col[i, k], w_i, out[k])
+    out_r, out_g, out_b = out
+
+    rgb = torch.stack([torch.clamp(out_r, 0.0, 1.0),
+                       torch.clamp(out_g, 0.0, 1.0),
+                       torch.clamp(out_b, 0.0, 1.0)], dim=-1)
+    return torch.where(hit[..., None], rgb, 0.0)

@@ -8,9 +8,9 @@ Stands for XLA code of the reference, not a Pallas kernel: the ray grid of
 ``ascii_renderer_tpu/backends/pathtrace.py`` (``primary_ray_grid``,
 ``render_pt``'s centre rays and ``batch_rays``). The plain version
 rounds as the reference's eager grid, the norm's sum of squares fused;
-on CUDA tensors its fused sums are float64 emulations (``core/fp.fma32``)
-of ~27 launches each over every ray, which the kernel replaces with one
-launch that calls ``fmaf``. Both are correctly rounded at every step, so
+on CUDA tensors it is a dozen torch and ``core/fp.fma32`` launches over
+every ray, which the kernel replaces with one launch that calls
+``fmaf``. Both are correctly rounded at every step, so
 kernel and plain version agree bit for bit.
 """
 

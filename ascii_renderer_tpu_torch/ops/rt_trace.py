@@ -1,0 +1,116 @@
+"""The ray tracer's frame after its primary grid: the CUDA kernel of
+``csrc/rt_trace.cu`` (one thread a ray, every view of a batch in one
+launch). Its plain version is ``backends/raytrace.trace_rgb``
+(``closest_hit``, ``occluded``, ``shade_diffuse`` and the mirror bounce,
+rounded as the reference's jitted program by ``backends/rt_core``), and
+``backends/raytrace.trace`` picks between the two by the rays' device.
+
+Stands for XLA code, not a Pallas kernel: ``closest_hit``, ``occluded``,
+``shade_diffuse`` and the bounce of ``render_rgb`` in
+``ascii_renderer_tpu/backends/raytrace.py`` (:68, :115, :136, :166),
+under ``jax.jit``.
+
+Where the reference's compiler fuses a product into an add depends on the
+operands' shapes (``rt_core._mul_add``). ``FUSE`` is the kernel's
+decision at every fuse site of ``rt_core``'s intersection helpers, for the
+four kinds of ray: primary rays (one origin a view), bounce rays, and
+shadow rays toward a directional light (one direction for every ray) and
+toward a point light. Each string holds one letter per helper call of
+the function, in the order the calls begin: "F" where the product fuses
+(for ``dot`` and ``_diff``: where the left product fuses), "-" where it
+is rounded apart; ``HELPERS`` names the calls. The table holds for a
+frame of more than one ray a view and more than one sphere slot; the
+caller passes the one decision that varies, the sphere's
+``dot(oc, oc) - r*r``, as ``rt_core.sphere_c_fused`` takes it from the
+shapes of each call.
+Every fuse site of ``backends/raytrace`` itself (the hit points, the
+offset origins, the lights' dots and attenuation) fuses in every case.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from ascii_renderer_tpu_torch.ops import _build
+
+launches = 0  # kernel launches by trace
+LAUNCHES_PER_CALL = {"trace": 1}  # kernels a call launches
+
+_DOT = "dot _mul_add"
+_CROSS = "_diff _diff _diff"
+HELPERS = {
+    "spheres_t": f"{_DOT} {_DOT} _sub_mul _mul_sub",
+    "planes_t": f"{_DOT} {_DOT}",
+    "tris_t": f"{_CROSS} {_DOT} {_DOT} {_CROSS} {_DOT} {_DOT}",
+    "tri_hit_info": f"{_CROSS} {_DOT} {_DOT} {_CROSS} {_DOT} {_CROSS} "
+                    f"{_DOT} {_DOT}",
+    "reflect": "_mul_add _mul_add _sub_mul _sub_mul",
+}
+_HIT = {"spheres_t": "FFFFFF", "planes_t": "FFFF", "tris_t": "F" * 14,
+        "tri_hit_info": "F" * 19}
+FUSE = {
+    "primary": _HIT,
+    "bounce": {**_HIT, "spheres_t": "FFFF-F", "reflect": "FFFF"},
+    "shadow_dir": {"spheres_t": "FFFF-F", "tris_t": "F" * 14},
+    "shadow_point": {"spheres_t": "FFFF-F", "tris_t": "F" * 14},
+}
+
+
+def light_pair(scene, n_dl: int, n_pt: int) -> bool:
+    """Whether the first two set light slots are 0 and 1, so that their
+    terms meet in one fused add (``raytrace.shade_diffuse``)."""
+    slots = list(range(n_dl)) + [scene.dl_dir.shape[0] + i
+                                 for i in range(n_pt)]
+    return slots[:2] == [0, 1]
+
+
+def trace(scene, pr, cam, rd3, sphere_c) -> torch.Tensor:
+    """Linear RGB f32 [V, R, 3] in [0, 1] of R primary rays a view, one
+    launch for every view: ``cam`` f32 [V, 3] the views' origins, ``rd3``
+    f32 [V, R, 3] their directions, ``pr`` the scene's
+    ``raytrace.ScenePrims``, ``sphere_c`` (primary, other rays) whether
+    the sphere's c fuses. CUDA tensors only: the CPU's route is
+    ``raytrace.trace``."""
+    global launches
+    V, R = rd3.shape[0], rd3.shape[1]
+    if tuple(rd3.shape) != (V, R, 3) or tuple(cam.shape) != (V, 3):
+        raise ValueError(f"trace: expected cam [V, 3] and rd3 [V, R, 3], "
+                         f"got {tuple(cam.shape)} and {tuple(rd3.shape)}")
+    floats = (cam, rd3, scene.sph_pos, scene.sph_rad, scene.pln_n,
+              scene.pln_d, pr.tri_a, pr.tri_e1, pr.tri_e2, scene.mat_albedo,
+              scene.dl_dir, scene.dl_col, scene.pt_pos, scene.pt_col,
+              scene.env_color, scene.env_intensity)
+    flags = (pr.sph_valid, pr.pln_valid, pr.tri_valid, scene.mat_reflective)
+    ints = (scene.sph_mat, scene.pln_mat, pr.tri_mat)
+    _build.require_cuda(*floats, *flags, *ints, what="trace")
+    if any(t.dtype != torch.float32 for t in floats) or any(
+            t.dtype != torch.bool for t in flags) or any(
+            t.dtype != torch.int32 for t in ints):
+        raise ValueError("trace: expected float32 geometry, bool flags and "
+                         "int32 materials")
+    if min(pr.n_sph, pr.n_pln, pr.n_tri) < 1:
+        raise ValueError("trace: every primitive kind needs a slot")
+    if V * R >= 2 ** 31:
+        raise ValueError(f"trace: {V * R} rays, at most 2^31 - 1")
+    out = torch.empty((V, R, 3), dtype=torch.float32, device=rd3.device)
+    if V * R == 0:
+        return out
+    with record_function("rt.trace"):
+        err = _build.lib().rt_trace_launch(
+            cam.data_ptr(), rd3.data_ptr(), out.data_ptr(), V, R,
+            scene.sph_pos.data_ptr(), scene.sph_rad.data_ptr(),
+            pr.sph_valid.data_ptr(), scene.sph_mat.data_ptr(), pr.n_sph,
+            scene.pln_n.data_ptr(), scene.pln_d.data_ptr(),
+            pr.pln_valid.data_ptr(), scene.pln_mat.data_ptr(), pr.n_pln,
+            pr.tri_a.data_ptr(), pr.tri_e1.data_ptr(), pr.tri_e2.data_ptr(),
+            pr.tri_valid.data_ptr(), pr.tri_mat.data_ptr(), pr.n_tri,
+            scene.mat_albedo.data_ptr(), scene.mat_reflective.data_ptr(),
+            scene.dl_dir.data_ptr(), scene.dl_col.data_ptr(), pr.n_dl,
+            scene.pt_pos.data_ptr(), scene.pt_col.data_ptr(), pr.n_pt,
+            int(light_pair(scene, pr.n_dl, pr.n_pt)),
+            scene.env_color.data_ptr(), scene.env_intensity.data_ptr(),
+            *(int(f) for f in sphere_c), _build.stream_ptr(rd3.device))
+        launches += 1
+        _build.check(err, "rt_trace_launch")
+    return out

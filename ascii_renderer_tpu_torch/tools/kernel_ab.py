@@ -1,8 +1,9 @@
 """A/B of the path-trace megakernel B5, the bin walks B6 / B6', the
 fused-shading walk B8, the grouped walks B1, B9d, B9e and B9f, the
 subtile walks B9a, B9b and B9c, the modal vote B4 and the packs B3, B7
-and B7', and the frame median and busy time of the path tracer's frames,
-between two checkouts of the repo on one card.
+and B7', the frame median and busy time of the path tracer's frames, and
+the median, busy time and launches of the paths the kernels for XLA code
+serve, between two checkouts of the repo on one card.
 
 Each side runs in its own process with its own checkout's
 ``ascii_renderer_tpu_torch`` (kernels built from that checkout's
@@ -48,7 +49,12 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
   path tracer's reference run (96x36, spp 64) and HD arm (960x540, spp 8)
   through ``Renderer``: their ray grids are the port's own, so this is
   where a change of the ray-grid arithmetic shows (frames are not
-  digested: each side's rays are its own).
+  digested: each side's rays are its own);
+- the host median, device busy ms and kernel launches a call of the
+  paths the kernels for XLA code serve (``paths``): the raster headline
+  frame, the entry() step, the mid-scale HD arm, the ray tracer's frame
+  and the 1,024-view farm (and its views/s); the headline's and the
+  farm's glyph grids are digested.
 
 Both sides' outputs must be bit-identical (a digest per kernel and shape);
 the inputs are built by the side's own package from this checkout's
@@ -136,8 +142,8 @@ def _shared_rays(cs, dev, rows: int, cols: int, B: int):
 
 def worker(root: str) -> dict:
     """Times the jitted ray grid, B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a,
-    B9b, B9c, B4, B7, B7' and B3, and the PT frames' median and busy time,
-    with the package of checkout ``root``."""
+    B9b, B9c, B4, B7, B7' and B3, the PT frames' median and busy time,
+    and the paths of ``paths``, with the package of checkout ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -269,7 +275,8 @@ def worker(root: str) -> dict:
         frame = cs.run_pt_path(cfg, rows, cols, 1, 3, label)
         out["frame_ms"][label] = statistics.median(cs._timed(frame, 20))
         out["busy_ms"][label] = cs.profile_frames(
-            frame, 3, ("pt.", "frame.", "glyph"), label)
+            frame, 3, ("pt.", "frame.", "glyph"), label)[0]
+    paths(cs, dev, out)
     cm3, spans = cs.b3_headline_inputs(dev)
     out["digest"]["B3 headline"] = _digest(
         PKS.pack_channels_split_blocked(cm3, spans))
@@ -277,6 +284,44 @@ def worker(root: str) -> dict:
         lambda: PKS.pack_channels_split_blocked(cm3, spans),
         "pack_span_kernel", len(spans))
     return out
+
+
+def paths(cs, dev, out) -> None:
+    """The host median (``chip_smoke._timed``), device busy ms and kernel
+    launches a call (``chip_smoke.profile_frames``, 3 calls) of the paths
+    the kernels for XLA code serve: the raster headline frame (960x540),
+    the entry() step (96x36), the mid-scale HD arm (960x540), the ray
+    tracer's frame (96x36) and the 1,024-view farm (views/s); each
+    driven, and its first frames checked, by chip_smoke's own run_*
+    function. The headline's and the farm's glyph grids are digested."""
+    import torch
+    for key in ("path_ms", "path_busy_ms", "path_launches"):
+        out[key] = {}
+    soup, scene = cs._bunny(), cs._scene(dev)
+    backend, cfg = cs.run_main_path(dev, soup, scene)
+
+    def headline():
+        return cs._frame(backend, cfg, cs._golden_camera())[1]
+
+    farm = cs.run_farm_path(dev)
+    out["digest"]["headline frame 0 chars"] = _digest([headline()])
+    out["digest"]["view farm chars"] = _digest([farm()])
+    runs = {"headline frame 960x540": (headline, 20, "raster."),
+            "entry step 96x36": (cs.run_entry_path(), 20, "raster."),
+            "mid-scale HD arm 960x540": (cs.run_raster_mesh_path(
+                dev, "mid", cs.MID_GRID, 2, 0, 10, "mid-scale HD 960x540"),
+                20, "raster."),
+            "RT frame 96x36": (cs.run_rt_path(dev), 20, "rt."),
+            "view farm 1024 x 96x36": (farm, 5, "rt.")}
+    for label, (fn, n, stage) in runs.items():
+        out["path_ms"][label] = statistics.median(cs._timed(fn, n))
+        busy, launches = cs.profile_frames(fn, 3, (stage, "frame.", "glyph"),
+                                           label)
+        out["path_busy_ms"][label] = busy
+        out["path_launches"][label] = launches
+        torch.cuda.synchronize()
+    out["path_ms"]["view farm views/s"] = cs.FARM_VIEWS / (
+        out["path_ms"]["view farm 1024 x 96x36"] / 1e3)
 
 
 def main() -> int:
@@ -311,15 +356,20 @@ def main() -> int:
     summary = {}
     for key in ("jit_grid_ms", "b5_ms", "b6_ms", "b8_ms", "b1_ms",
                 "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
-                "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "frame_ms", "busy_ms"):
+                "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "frame_ms", "busy_ms",
+                "path_ms", "path_busy_ms", "path_launches"):
         for shape in runs[0][1][key]:
-            summary[f"{key[:-3].capitalize()} {shape}"] = {
+            name = key[:-3] if key.endswith("_ms") else key
+            summary[f"{name.capitalize()} {shape}"] = {
                 side: statistics.median(r[key][shape] for s, r in runs
                                         if s == side)
                 for side in ("other", "this")}
     for shape, ms in summary.items():
-        print(f"{shape}: other {ms['other']:.5f} ms, this {ms['this']:.5f} "
-              f"ms, other / this {ms['other'] / ms['this']:.2f}", flush=True)
+        unit = "" if shape.startswith("Path_launches") or shape.endswith(
+            "views/s") else " ms"
+        print(f"{shape}: other {ms['other']:.5f}{unit}, this "
+              f"{ms['this']:.5f}{unit}, other / this "
+              f"{ms['other'] / ms['this']:.2f}", flush=True)
     print("outputs bit-identical in both checkouts", flush=True)
     print(json.dumps({"runs": [dict(side=s, **r) for s, r in runs],
                       "median_ms": summary}), flush=True)

@@ -1,0 +1,154 @@
+"""Inputs of the kernels that stand for XLA code (``ops/fp``,
+``ops/raster_shade``, ``ops/rt_trace``), made from seeds: operands of
+``fma32`` (random, constructed float32 midpoint ties, subnormal and
+special values, each operand form the wrapper packs), scenes and shade
+tables for the deferred shade, and the ray tracer's test scenes. The
+kernels' tests and ``chip_smoke.py``'s checks build their inputs here."""
+
+import numpy as np
+import torch
+
+from ascii_renderer_tpu_torch.scene.builder import MaterialIds as TM
+from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
+from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+
+
+def fma_ties(seed=11):
+    """(a, b, c) float32: (1 + m 2^-12)^2 2^2e is a float32 midpoint (odd
+    m < 1,400), and c = +-2^(2e - k) puts the exact sum a hair either side
+    of it or on it (k = 0: c = 0); the float64 sum rounds onto the
+    midpoint for k = 70."""
+    rng = np.random.default_rng(seed)
+    a, c = [], []
+    for m in rng.integers(0, 700, 60) * 2 + 1:
+        for e in (-20, 0, 17):
+            x = np.float32((1 + int(m) * 2.0 ** -12) * 2.0 ** e)
+            for k in (0, 40, 70):
+                for sgn in (1, -1):
+                    a.append(x)
+                    c.append(np.float32(sgn * 2.0 ** (2 * e - k))
+                             if k else np.float32(0.0))
+    a = np.asarray(a, np.float32)
+    return a, a.copy(), np.asarray(c, np.float32)
+
+
+def fma_specials():
+    """(a, b, c) float32: subnormal products and sums, exact
+    cancellation to +-0, infinities, NaN and sums past FLT_MAX."""
+    rng = np.random.default_rng(12)
+    a = list(rng.uniform(1, 2, 200) * 2.0 ** -70)
+    b = list(rng.uniform(-2, 2, 200) * 2.0 ** -62)
+    c = list(rng.uniform(-1, 1, 200) * 2.0 ** -130)
+    x, y = rng.normal(size=(2, 200)).astype(np.float32)
+    a += list(x)  # c = -(x*y) rounded: exact cancellation where x*y is
+    b += list(y)
+    c += list(-(x * y))
+    big = float(np.finfo(np.float32).max)
+    for t in ((0.0, 1.0, 0.0), (-0.0, 1.0, 0.0), (-0.0, 1.0, -0.0),
+              (0.0, -1.0, -0.0), (2.0, 3.0, -6.0), (-2.0, 3.0, 6.0),
+              (np.inf, 1.0, 0.0), (np.inf, 0.0, 1.0), (np.inf, 1.0, -np.inf),
+              (1.0, 1.0, np.inf), (np.nan, 1.0, 1.0), (1.0, 1.0, np.nan),
+              (2.0 ** 64, 2.0 ** 64, -1.0), (2.0 ** 64, 2.0 ** 64, 1.0),
+              (-(2.0 ** 64), 2.0 ** 64, 1.0), (big, 1.0, 2.0 ** 103),
+              (big, 1.0, 2.0 ** 103 - 2.0 ** 79), (big, -1.0, -(2.0 ** 102))):
+        a.append(t[0]), b.append(t[1]), c.append(t[2])
+    return tuple(np.asarray(v, np.float32) for v in (a, b, c))
+
+
+def fma_operands(case, device, seed=5):
+    """Operands of each form fma32 takes: broadcast shapes, strided views
+    (a permutation, a transpose, an expanded column), Python floats, 0-d
+    tensors (a CPU one of float64: a scalar; a device one: a tensor),
+    other dtypes."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+
+    return {"broadcast": (r(6, 1, 4), r(5, 1), r(1, 1, 1, 4)),
+            "five_dims": (r(3, 4, 1, 8, 16)[..., ::2].transpose(0, 1),
+                          r(1, 3, 2, 1, 1), r(1, 8, 8)),
+            "strided": (r(6, 5, 4).permute(2, 0, 1), r(5, 6).t()[None],
+                        r(4, 3)[:, 1][:, None, None].expand(4, 6, 5)),
+            "scalars": (r(3, 7), 0.1, 1e-3),
+            "zero_d": (r(2, 3), r(1).reshape(()),
+                       torch.tensor(-1.25, dtype=torch.float64)),
+            "dtype": (r(2, 3).double(),
+                      torch.arange(3, dtype=torch.int32, device=device),
+                      torch.tensor([True, False, True], device=device))}[case]
+
+
+FMA_CASES = ("broadcast", "five_dims", "strided", "scalars", "zero_d",
+             "dtype")
+
+
+def shade_builder(builder, dir_light, n_pts):
+    """A scene for the deferred shade: a directional light or none (the
+    default direction), ``n_pts`` point lights (the builder pads their
+    slots to 8; none, no slot)."""
+    sb = builder()
+    sb.set_env_light([0.3, 0.35, 0.45], 0.8)
+    if dir_light:
+        sb.add_dir_light([0.4, -0.8, -0.3], [1.0, 0.95, 0.9], 0.9)
+    for i in range(n_pts):
+        sb.add_point_light([1.5 * i - 3.0, 2.0 + 0.3 * i, 1.0 - i],
+                           [1.0, 0.8 + 0.02 * i, 0.6], 1.5 + 0.2 * i)
+    return sb
+
+
+def shade_inputs(n_attrs, shape, n_tris=40, seed=1):
+    """(table [n_tris + 1, W] with a trailing zero row, f32 ids of
+    ``shape`` with -1 where no hit, px, py) for a shade: planes whose
+    denominator stays near 1, colours in [0, 1], world positions in a
+    room."""
+    rng = np.random.default_rng(seed)
+    t = np.zeros((n_tris + 1, 3 * n_attrs + 3), np.float32)
+    for j in range(n_attrs + 1):
+        t[:n_tris, 3 * j:3 * j + 2] = rng.uniform(-2e-3, 2e-3, (n_tris, 2))
+        lo, hi = {3: (0.0, 1.0), 4: (0.0, 1.0), 5: (0.0, 1.0),
+                  6: (-3, 3), 7: (0, 3), 8: (-3, 3),
+                  n_attrs: (0.8, 1.2)}.get(j, (-1.0, 1.0))
+        t[:n_tris, 3 * j + 2] = rng.uniform(lo, hi, n_tris)
+    ids = rng.integers(-1, n_tris, shape).astype(np.float32)
+    px = rng.uniform(0, 96, shape).astype(np.float32)
+    py = rng.uniform(0, 36, shape).astype(np.float32)
+    return tuple(torch.from_numpy(x) for x in (t, ids, px, py))
+
+
+def rt_scene(name, device):
+    """The ray tracer's test scenes: rt_demo (as its golden renders it,
+    every slot padded to 8), the triangle, quad and mirror scene of
+    tests/test_torch_raytrace.py, rt_demo with two lights of each kind
+    (exact primitive slots; two directional lights, so the first two light
+    terms meet in one fused add), and a mirror floor under one sphere slot
+    (where the primary rays of a batch round the sphere's c apart)."""
+    if name == "rt_demo":
+        return create_rt_demo_scene().build(device=device)
+    sb = TSB()
+    if name == "tris_quad":
+        sb.add_plane([0, 1, 0], 0.0, TM.MIRROR)
+        sb.add_sphere([0, 1, -1], 0.8, TM.RED)
+        sb.add_triangle([-2, 0.2, -2], [2, 0.3, -2.5], [0, 2.5, -3],
+                        TM.GREEN)
+        sb.add_quad([-3, 0.1, 1], [-1, 0.1, 1], [-1, 1.5, 0.5],
+                    [-3, 1.5, 0.5], TM.WHITE)
+        sb.add_dir_light([0.3, -1, -0.2], [1, 1, 1], 1.0)
+        sb.add_point_light([1, 3, 2], [1, 0.9, 0.8], 2.0)
+        sb.set_env_light([0.2, 0.3, 0.5], 1.0)
+        sb.set_camera_pose([0.0, 1.5, 5.0], yaw=-1.5707963, pitch=-0.1)
+        return sb.build(device=device)
+    if name == "two_lights":
+        sb = create_rt_demo_scene()
+        sb.add_dir_light([-0.5, -0.7, 0.2], [0.5, 0.6, 0.9], 0.7)
+        sb.add_point_light([-2.0, 2.5, 3.0], [0.9, 0.5, 0.4], 2.0)
+        return sb.build(min_pad=1, device=device)
+    sb.add_plane([0, 1, 0], 0.0, TM.MIRROR)
+    sb.add_sphere([0, 1, -1], 0.8, TM.RED)
+    sb.add_point_light([1, 3, 2], [1, 0.9, 0.8], 2.0)
+    sb.set_env_light([0.2, 0.3, 0.5], 1.0)
+    sb.set_camera_pose([0.0, 1.5, 4.0], yaw=-1.5707963, pitch=-0.2)
+    return sb.build(min_pad=1, device=device)
+
+
+RT_SCENES = ("rt_demo", "tris_quad", "two_lights", "one_sphere")

@@ -11,6 +11,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    registers, spills and shared memory (-Xptxas -v).
 3. Holds each kernel against its plain-torch version on the same CUDA
    inputs, at the shapes its main path gives it:
+   - first fma32 (K1, a kernel for XLA code: the fused product-add every
+     plain version calls) against its float64 form on 16,777,216 random
+     triples, constructed float32 midpoint ties, subnormal and special
+     values, broadcast / 5-d / strided / scalar operands: bit for bit
+     (NaN in the same places); timed at the largest call of a mid-scale
+     HD frame beside torch.addcmul;
    - raster headline (bunny-class mesh, 68,644 triangles, 960x540):
      setup (B2) valid flags equal and planes bit-exact; pack (B3)
      bit-exact; grouped walk (B1: slab work items, then a merge launch;
@@ -33,7 +39,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      version and to 1,024 one-plane launches; timed at the K the wrapper
      picks and at K = 1 and K = 4;
    - the ray tracer's jitted ray grid (one launch for every view) at the
-     farm's 1,024 orbit poses and the rt_demo pose: bit for bit; timed.
+     farm's 1,024 orbit poses and the rt_demo pose: bit for bit; timed;
+   - the ray tracer's frame after its grid (K3, a kernel for XLA code:
+     hits, shading, shadow rays and the mirror bounce, one launch for
+     every view) on the rt_demo golden's frame and its bands, the farm's
+     1,024 views and three more scenes over 16 views: bit for bit; timed
+     at the farm's batch;
+   - the raster's deferred shade (K2, a kernel for XLA code) at each
+     caller's inputs, captured on its path (the headline's grouped
+     tiles, the mid-scale HD arm's plane table, the subtile path's
+     compacted tiles): bit for bit; timed at the headline's;
    Kernel ms is device time (profiler kernel rows over 50 back-to-back
    calls, their count checked against the kernel's launches per call);
    plain ms is CUDA events around whole calls; bound ms is the larger of
@@ -154,9 +169,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      [40, 69632], a float32 identity product) must say "ok". B5, B4, B6,
      B3, B7' and both ray grids must launch in the phase; expand_pixels
      (the pixels mode's glyph bitmap) is profiled.
-   Each path's kernels must have launched. Frames of every path are
-   profiled (stage host ms and device span, device busy share; tables in
-   smoke_out/, git-ignored).
+   Each path's kernels must have launched: the raster paths' shade
+   through K2, every frame of the ray tracer and each farm through K3
+   (a farm launches K3 once), fma32 through K1. Frames of every path are
+   profiled (stage host ms, device span and kernel launches, device busy
+   share; tables in smoke_out/, git-ignored).
 5. Prints the script's total time, {"kernels": [...]} and, as the last
    line, {"ok": true, "device": {...}}.
 
@@ -295,7 +312,10 @@ def _bound(n_bytes, n_ops, ops_rate=PEAK_FP32):
 
 
 def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
+    """Bytes the tensors hold: a dimension of stride 0 (a broadcast) is
+    read once, not once an index."""
+    return sum(math.prod(n for n, st in zip(t.shape, t.stride()) if st)
+               * t.element_size() for t in ts)
 
 
 def _walk_bound(lay, z, e):
@@ -1729,6 +1749,282 @@ def check_ray_grid_jit(dev):
     return rec
 
 
+# --------------------------------------------------------------------------
+# The kernels for XLA code: fma32 (ops/fp), the raster's deferred shade
+# (ops/raster_shade) and the ray tracer's frame (ops/rt_trace)
+# --------------------------------------------------------------------------
+FMA_BATCH = 1 << 23  # random triples a batch, two batches: 16,777,216
+# float operations a lit pixel of the shade (a fused product-add counted
+# as two; 1 / sqrt in double as two), and more a point light, from
+# csrc/raster_shade.cu
+SHADE_OPS_PIXEL, SHADE_OPS_POINT = 86, 28
+# float operations of the ray tracer's kernel (csrc/rt_trace.cu, a fused
+# product-add counted as two): a ray against a sphere, a plane, a
+# triangle; a hit's point, normal and material; a light's direction,
+# attenuation and term
+RT_OPS_SPHERE, RT_OPS_PLANE, RT_OPS_TRI, RT_OPS_HIT, RT_OPS_LIGHT = \
+    27, 17, 60, 20, 25
+
+
+def _same_bits(got, want, what):
+    """Bit for bit, NaN payloads aside: NaN in the same places."""
+    import torch
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), f"{what}: NaN elsewhere"
+    g, w = got[~nan].view(torch.int32), want[~nan].view(torch.int32)
+    assert torch.equal(g, w), f"{what}: {int((g != w).sum())} of " \
+        f"{w.numel()} values differ"
+
+
+def _jax_def_line(port_file, fn):
+    """``ascii_renderer_tpu/<path>:<line>`` of the reference's ``def fn``
+    for a module of the port (the source is read, never imported)."""
+    rel = os.path.relpath(port_file, ROOT).replace(
+        "ascii_renderer_tpu_torch", "ascii_renderer_tpu", 1)
+    with open(os.path.join(ROOT, rel)) as fh:
+        for i, line in enumerate(fh, 1):
+            if line.startswith(f"def {fn}("):
+                return f"{rel}:{i}"
+    return rel
+
+
+def mid_frame_calls(dev):
+    """One frame of the mid-scale HD arm (RasterBackend, 14,884 triangles,
+    960x540) with the kernel wrappers of fma32 and the shade recorded,
+    each fma32 call held to fma32_f64 on its own operands as it is made:
+    (the largest fma32 call's operands, the ``def`` it came from in the
+    reference, fma32 calls in the frame, the last shade call's
+    arguments)."""
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.core.fp import fma32_f64
+    from ascii_renderer_tpu_torch.ops import fp as KFP
+    calls = []
+    real = KFP.fma32_kernel
+
+    def rec(a, b, c):
+        out = real(a, b, c)
+        f = sys._getframe(2)  # core/fp.fma32's caller
+        _same_bits(out, fma32_f64(a, b, c), f"fma32 call {len(calls)} of a "
+                   f"mid HD frame, from {f.f_code.co_name}")
+        calls.append((out.numel(), (a, b, c), f.f_code.co_filename,
+                      f.f_code.co_name))
+        return out
+
+    KFP.fma32_kernel = rec
+    try:
+        soup, cam = _mesh("mid")
+        be = RasterBackend(Config(pixel_aspect=PIXEL_ASPECT), device=dev)
+        be.set_soup(*soup, _scene(dev))
+        from ascii_renderer_tpu_torch.ops import raster_shade as RSH
+        (shade_args, _kw) = _capture(RSH, "shade", lambda: be.render(
+            0.0, cam, *MID_GRID, PIXEL_ASPECT))
+    finally:
+        KFP.fma32_kernel = real
+    _n, ops, path, fn = max(calls, key=lambda c: c[0])
+    return ops, _jax_def_line(path, fn), len(calls), shade_args
+
+
+def check_fma32(dev):
+    """K1, fma32 on CUDA tensors (one launch of csrc/fp.cu's __fmaf_rn),
+    against its plain version fma32_f64 on the same card, before any
+    other kernel is held to its plain version (those call fma32): 16,777,216
+    random triples (half of them random bit patterns: every exponent,
+    subnormals, infinities, NaN; half normal values of one scale),
+    constructed float32 midpoint ties, subnormal and special values, and
+    broadcast, strided, 0-d and Python-float operands, and every fma32
+    call of a mid-scale HD frame on its own operands (mid_frame_calls):
+    bit for bit, NaN in the same places. Timed at the largest of those
+    calls beside torch.addcmul on the same operands (the elementwise
+    floor, not the same function: it rounds the product).
+    Returns the record and that frame's shade call."""
+    import torch
+    from ascii_renderer_tpu_torch.core.fp import fma32_f64
+    from ascii_renderer_tpu_torch.ops import fp as KFP
+    from ascii_renderer_tpu_torch.tools import xla_inputs as xi
+    g = torch.Generator(device=dev).manual_seed(15)
+    sets = {"random bit patterns": tuple(torch.randint(
+        -2 ** 31, 2 ** 31, (FMA_BATCH,), generator=g, device=dev).to(
+        torch.int32).view(torch.float32) for _ in range(3)),
+        "random normal": tuple(torch.randn(FMA_BATCH, generator=g,
+                                           device=dev) * 4
+                               for _ in range(3))}
+    for label, trip in (("midpoint ties", xi.fma_ties()),
+                        ("special values", xi.fma_specials())):
+        sets[label] = tuple(torch.from_numpy(x).to(dev) for x in trip)
+    sets.update({case: xi.fma_operands(case, dev) for case in xi.FMA_CASES})
+    n_random = 0
+    for label, ops in sets.items():
+        _same_bits(KFP.fma32_kernel(*ops), fma32_f64(*ops), f"fma32 {label}")
+        if label.startswith("random"):
+            n_random += ops[0].numel()
+    torch.cuda.synchronize()
+    ops, site, n_calls, shade_args = mid_frame_calls(dev)
+    out = KFP.fma32_kernel(*ops)
+    _same_bits(out, fma32_f64(*ops), "fma32, the timed call")
+    n = out.numel()
+    tens = [x for x in ops if isinstance(x, torch.Tensor)
+            and x.device.type == "cuda"]
+    at, bt, ct = (x if isinstance(x, torch.Tensor) and x.device == out.device
+                  else torch.tensor(float(x), dtype=torch.float32,
+                                    device=out.device) for x in ops)
+    ms = _device_ms(lambda: KFP.fma32_kernel(*ops), "fma32_kernel", 1)
+    plain = _event_ms(lambda: fma32_f64(*ops), 20)
+    lib = _device_ms(lambda: torch.addcmul(ct, at, bt), None, 1)
+    # each tensor operand read once, the result written once; an FMA is
+    # two float operations
+    bound = _bound(_nbytes(*tens, out), 2 * n)
+    forms = [f"{tuple(x.shape)} strides {x.stride()}"
+             if isinstance(x, torch.Tensor) else repr(x) for x in ops]
+    print(f"fma32 (K1): bit-identical to fma32_f64 on {n_random} random "
+          f"triples, {sets['midpoint ties'][0].numel()} midpoint ties, "
+          f"{sets['special values'][0].numel()} subnormal and special "
+          f"values, operands {', '.join(xi.FMA_CASES)}, and each of the "
+          f"{n_calls} calls of a mid HD frame; timed at the largest, "
+          f"{' x '.join(forms[:2])} + {forms[2]} -> {tuple(out.shape)}, "
+          f"{_nbytes(*tens, out)} bytes (the reference's {site}): kernel "
+          f"{ms:.5f} ms, plain {plain:.3f} ms, addcmul {lib:.5f} ms, bound "
+          f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+    rec = _rec("fma32", "fp.cu", "", 0.0, ms, plain, bound, lib)
+    # XLA code: the contraction of a product into its add, at the site of
+    # the timed call
+    rec.update(replaces=site, shape=list(out.shape), random=n_random)
+    return rec, shade_args
+
+
+def _shade_bound(args):
+    """The least work of a shade call: ids, centres and the used columns
+    of the table rows the lit pixels pick read once, rgb written once;
+    SHADE_OPS_PIXEL (+ SHADE_OPS_POINT a point-light slot) a lit pixel."""
+    import torch
+    table, ids, px, py, scene, n_attrs = args
+    hit = int((ids >= 0).sum())
+    rows = torch.unique(ids[ids >= 0]).numel()
+    n = torch.broadcast_shapes(ids.shape, px.shape, py.shape).numel()
+    n_bytes = (_nbytes(ids, px, py) + 4 * rows * (3 * n_attrs + 3)
+               + 12 * n)
+    ops = hit * (SHADE_OPS_PIXEL + SHADE_OPS_POINT * scene.pt_pos.shape[0])
+    return _bound(n_bytes, ops), hit, rows, n
+
+
+def check_raster_shade(dev, calls):
+    """K2, the raster's deferred shade (one launch of
+    csrc/raster_shade.cu), against its plain version (the gather, then
+    raster_common._shade_rows) on the inputs each caller gives it on its
+    path (``calls``: the headline's grouped tiles, the mid-scale HD arm's
+    plane table, the subtile path's compacted tiles): bit for bit. Timed
+    at the headline's call. Returns the record."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import raster_shade as RSH
+    lines = []
+    for label, args in calls.items():
+        got, want = RSH.shade(*args), RSH.shade_ref(*args)
+        torch.cuda.synchronize()
+        _same_bits(got, want, f"shade, {label}")
+        assert (want > 0).any(), label
+        (bnd, by), hit, rows, n = _shade_bound(args)
+        lines.append(f"{label} {n} pixels ({hit} lit from {rows} rows, ids "
+                     f"{str(args[1].dtype)[6:]}, {args[5]} attributes)")
+    args = calls["headline"]
+    ms = _device_ms(lambda: RSH.shade(*args), "raster_shade_kernel", 1)
+    plain = _event_ms(lambda: RSH.shade_ref(*args), 5)
+    bound, hit, rows, n = _shade_bound(args)
+    print(f"raster shade (K2): bit-identical to the plain version for "
+          f"{'; '.join(lines)}; headline kernel {ms:.5f} ms, plain "
+          f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]})",
+          flush=True)
+    rec = _rec("raster_shade", "raster_shade.cu", "", 0.0, ms, plain, bound)
+    rec.update(replaces="ascii_renderer_tpu/backends/raster_common.py:73",
+               pixels=n, lit=hit, rows=rows)
+    return rec
+
+
+def _rt_inputs(scene, cams, rows, cols, dev, row_lo=0, n_rows=None):
+    """(prims, cam [V, 3], rd3 [V, R, 3]) of render_rgb's trace."""
+    import torch
+    from ascii_renderer_tpu_torch.backends.raytrace import ScenePrims
+    from ascii_renderer_tpu_torch.core.camera import band_of, camera_bases
+    from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid_jit
+    yaw, pitch, fov = (getattr(cams, f).reshape(-1)
+                       for f in ("yaw", "pitch", "fov_y"))
+    rows_out = band_of(rows, row_lo, n_rows)
+    rd3 = ray_grid_jit(camera_bases(yaw, pitch, fov), rows, cols,
+                       PIXEL_ASPECT, dev, row_lo, rows_out)
+    V = yaw.shape[0]
+    cam = cams.pos.reshape(-1, 3).to(dev, torch.float32)
+    return ScenePrims(scene), cam, rd3.reshape(V, rows_out * cols, 3)
+
+
+def _rt_ops(scene, prims, cam, rd3):
+    """The ray tracer kernel's float operations on these rays, counted
+    from the plain version's primary hits: every ray tests every
+    primitive; a hit shades with a shadow ray a set light (spheres and
+    triangles); a mirror hit traces and shades its bounce as well."""
+    from ascii_renderer_tpu_torch.backends.pt_core import V3
+    from ascii_renderer_tpu_torch.backends.raytrace import closest_hit
+    pr = prims
+    ro = V3(cam[:, 0:1], cam[:, 1:2], cam[:, 2:3])
+    _t, mat, _n, hit = closest_hit(ro, V3.of(rd3), scene, pr)
+    n_hit = int(hit.sum())
+    n_refl = int((hit & scene.mat_reflective[mat.long()]).sum())
+    trace = (RT_OPS_SPHERE * pr.n_sph + RT_OPS_PLANE * pr.n_pln
+             + RT_OPS_TRI * pr.n_tri + RT_OPS_HIT)
+    shade = (pr.n_dl + pr.n_pt) * (RT_OPS_SPHERE * pr.n_sph
+                                   + RT_OPS_TRI * pr.n_tri + RT_OPS_LIGHT)
+    return (rd3.shape[0] * rd3.shape[1] * trace + n_hit * shade
+            + n_refl * (trace + shade)), n_hit, n_refl
+
+
+def check_rt_trace(dev):
+    """K3, the ray tracer's frame after its grid (one launch of
+    csrc/rt_trace.cu for every view), against its plain version
+    (raytrace.trace_rgb) on the same rays: the rt_demo golden's frame
+    (96x36, its padded slots), its row bands of 12, the farm's 1,024 orbit
+    views (exact slots), and the triangle / quad / mirror scene, rt_demo
+    with two lights of each kind and a one-sphere scene over 16 views:
+    bit for bit. Timed at the farm's batch. Returns the record."""
+    import torch
+    from ascii_renderer_tpu_torch.backends.raytrace import trace, trace_rgb
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+    from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+    rows, cols = FARM_GRID
+    demo = create_rt_demo_scene().build(device=dev)
+    cases = [("rt_demo golden pose", demo, demo.camera, {})]
+    cases += [(f"rt_demo band {lo}-{lo + 12}", demo, demo.camera,
+               dict(row_lo=lo, n_rows=12)) for lo in (0, 12, 24)]
+    cases.append(("farm 1,024 views", create_rt_demo_scene().build(
+        min_pad=1, device=dev), _orbit(), {}))
+    from ascii_renderer_tpu_torch.tools import xla_inputs as xi
+    for name in xi.RT_SCENES[1:]:  # the triangle / quad / mirror scene,
+        # two lights of each kind, one sphere slot
+        cases.append((f"{name} 16 views", xi.rt_scene(name, dev),
+                      _orbit(16), {}))
+    for label, scene, cams, kw in cases:
+        args = (scene, *_rt_inputs(scene, cams, rows, cols, dev, **kw))
+        got, want = trace(*args), trace_rgb(*args)
+        torch.cuda.synchronize()
+        _same_bits(got, want, f"rt trace, {label}")
+        assert (want > 0.05).float().mean() > 0.3, label
+    farm = cases[4][1]
+    args = (farm, *_rt_inputs(farm, _orbit(), rows, cols, dev))
+    ms = _device_ms(lambda: trace(*args), "rt_trace_kernel", 1)
+    plain = _event_ms(lambda: trace_rgb(*args), 3)
+    n_ops, n_hit, n_refl = _rt_ops(*args)
+    n = args[3].shape[0] * args[3].shape[1]
+    # cam and rd3 read once (12 bytes a ray), rgb written once (12)
+    bound = _bound(24 * n + _nbytes(args[2]), n_ops)
+    print(f"rt trace (K3): bit-identical to the plain version on "
+          f"{', '.join(c[0] for c in cases)}; farm {n} rays ({n_hit} hit, "
+          f"{n_refl} on a mirror): kernel {ms:.5f} ms, plain {plain:.3f} "
+          f"ms, bound {bound[0]:.5f} ms ({bound[1]}); decisions "
+          f"{RTK.FUSE['primary']['spheres_t']} (primary) / "
+          f"{RTK.FUSE['bounce']['spheres_t']} (bounce, shadow)", flush=True)
+    rec = _rec("rt_trace", "rt_trace.cu", "", 0.0, ms, plain, bound)
+    rec.update(replaces="ascii_renderer_tpu/backends/raytrace.py:166",
+               rays=n, hit=n_hit, mirror=n_refl)
+    return rec
+
+
 def run_rt_path(dev):
     """Renderer(Config(pixel_aspect=0.5), "rt") on the rt_demo scene at
     96x36, the golden's call: frame 0 must give tests/goldens/rt_demo.txt
@@ -2854,11 +3150,34 @@ def run_pt_path(cfg, rows, cols, n_checked, n_timed, label):
     return lambda: one()
 
 
+def _stage_launches(prof, prefixes, n):
+    """Kernel launches a frame inside each stage: the kernels whose device
+    interval lies within one of the stage's spans on the device (its
+    annotation, from its first kernel to its last)."""
+    from torch.autograd import DeviceType
+    spans, kernels = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        r = (e.time_range.start, e.time_range.end)
+        if e.name.startswith(prefixes):
+            spans.setdefault(e.name, []).append(r)
+        elif "spin_kernel" not in e.name:
+            kernels.append(r)
+    kernels.sort()
+    out = {}
+    for name, rs in spans.items():
+        inside = sum(1 for a, b in kernels for lo, hi in rs
+                     if lo <= a and b <= hi)
+        out[name] = inside / n
+    return out
+
+
 def profile_frames(frame_fn, n, prefixes, label):
-    """torch.profiler over n frames: per-stage host and device ms per frame
-    (the record_function ranges), the device's busy share of the wall time,
-    and the top kernels. The full table goes to smoke_out/. Returns the
-    device busy ms a frame."""
+    """torch.profiler over n frames: per-stage host and device ms and
+    kernel launches per frame (the record_function ranges), the device's
+    busy share of the wall time, and the top kernels. The full table goes
+    to smoke_out/. Returns (device busy ms, kernel launches) a frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2882,15 +3201,16 @@ def profile_frames(frame_fn, n, prefixes, label):
                    and not e.key.startswith(prefixes)),
                   key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kern) / n / 1e3
+    launches = sum(e.count for e in kern) // n
+    stage_launches = _stage_launches(prof, prefixes, n)
     print(f"{label} profile: {wall:.3f} ms/frame under the profiler, device "
           f"busy {busy:.3f} ms/frame ({100 * busy / wall:.1f}%), "
-          f"{sum(e.count for e in kern) // n} kernel launches/frame",
-          flush=True)
+          f"{launches} kernel launches/frame", flush=True)
     for e in sorted(avgs, key=lambda e: -e.cpu_time_total):
         if e.device_type == DeviceType.CPU and e.key.startswith(prefixes):
             print(f"  stage {e.key}: host {e.cpu_time_total / n / 1e3:.3f} "
-                  f"ms, device span {spans.get(e.key, 0.0):.3f} ms",
-                  flush=True)
+                  f"ms, device span {spans.get(e.key, 0.0):.3f} ms, "
+                  f"{stage_launches.get(e.key, 0.0):g} launches", flush=True)
     for e in kern[:8]:
         print(f"  kernel {e.key[:60]}: {e.self_device_time_total / n / 1e3:.3f}"
               f" ms/frame, {e.count // n} launches/frame", flush=True)
@@ -2898,7 +3218,7 @@ def profile_frames(frame_fn, n, prefixes, label):
     name = label.replace(" ", "_").replace(",", "")
     with open(os.path.join(OUT, f"profile_{name}.txt"), "w") as fh:
         fh.write(avgs.table(sort_by="self_device_time_total", row_limit=200))
-    return busy
+    return busy, launches
 
 
 # --------------------------------------------------------------------------
@@ -3329,7 +3649,8 @@ def _path_counts(counters, run):
 PARALLEL_KERNELS = ("ray_grid_jit", "pt_megakernel", "ray_grid",
                     "modal_vote", "setup2dh", "pack", "raster_group_walk",
                     "raster_group_walk_k2", "raster_group_walk_grouped",
-                    "pack_channels", "setup2dh_packed")
+                    "pack_channels", "setup2dh_packed", "rt_trace",
+                    "raster_shade")
 
 
 def main() -> int:
@@ -3342,12 +3663,15 @@ def main() -> int:
     from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
     from ascii_renderer_tpu_torch.ops import _build
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    from ascii_renderer_tpu_torch.ops import fp as KFP
     from ascii_renderer_tpu_torch.ops import pack as PK
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
     from ascii_renderer_tpu_torch.ops import raster_group as RG
+    from ascii_renderer_tpu_torch.ops import raster_shade as RSH
     from ascii_renderer_tpu_torch.ops import ray_grid as RYG
     from ascii_renderer_tpu_torch.ops import raster_subtile as RS
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
     from ascii_renderer_tpu_torch.ops import setup2dh as S
 
     t_start = time.perf_counter()
@@ -3386,15 +3710,20 @@ def main() -> int:
                 "raster_subtile_walk_packed_d": (RS, "launches_packed_d"),
                 "ray_grid": (RYG, "launches"),
                 "ray_grid_jit": (RYG, "jit_launches"),
-                "pt_megakernel_gated": (PTK, "launches_gated")}
+                "pt_megakernel_gated": (PTK, "launches_gated"),
+                "fma32": (KFP, "launches"), "raster_shade": (RSH, "launches"),
+                "rt_trace": (RTK, "launches")}
+    # fma32 first: the other kernels' plain versions call it
+    fma_rec, mid_shade = check_fma32(dev)
     soup = _bunny()
     scene = _scene(dev)
-    recs = check_kernels(dev, soup, scene)
+    recs = [fma_rec] + check_kernels(dev, soup, scene)
     recs.append(check_modal(dev, soup, scene))
     recs.append(check_pt_kernel(dev))
     recs.append(check_ray_grid(dev))
     recs.append(check_modal_batched(dev))
     recs.append(check_ray_grid_jit(dev))
+    recs.append(check_rt_trace(dev))
     by_name = {r["name"]: r for r in recs}
 
     # raster headline path: B1-B3, and B4 in the glyph stage
@@ -3404,8 +3733,14 @@ def main() -> int:
     for k in ("setup2dh", "pack", "raster_group_walk", "modal_vote"):
         assert c_raster[k] > 0, f"{k} never launched on the raster path"
         by_name[k]["launches"] = c_raster[k]
+    assert c_raster["raster_shade"] > 0, "the shade kernel never launched"
     profile_frames(lambda: _frame(backend, cfg, _golden_camera()), 5,
                    ("raster.", "frame.", "glyph"), "raster")
+    # the shade's inputs on each caller's path: the headline's grouped
+    # tiles here, the mid HD arm's plane table (captured by check_fma32),
+    # the subtile path's compacted tiles (below)
+    shade_calls = {"headline": _capture(RSH, "shade", lambda: _frame(
+        backend, cfg, _golden_camera()))[0], "mid HD": mid_shade}
     del backend
 
     # the grouped generations: B9d, B9e, B9f and B10 against their plain
@@ -3439,6 +3774,10 @@ def main() -> int:
               f"passes", flush=True)
     oracle_recs = check_oracle_kernels(dev, soup, scene, caps)
     recs += oracle_recs
+    shade_calls["subtile"] = _capture(RSH, "shade", _oracle_frame(
+        dev, soup, scene, "subtile", caps["subtile"]))[0]
+    recs.append(check_raster_shade(dev, shade_calls))
+    del shade_calls, mid_shade
     c_or, or_frames = run_oracle_paths(dev, soup, scene, caps, counters)
     for rec, path in zip(oracle_recs, ("fused", "visibility_subtile",
                                        "subtile", "subtile2")):
@@ -3447,6 +3786,8 @@ def main() -> int:
         rec["launches"] = c_or[path][rec["name"]]
     for path in ("fused", "subtile", "subtile2"):
         assert c_or[path]["modal_vote"] > 0, f"B4 not launched on {path}"
+    for path in ("subtile", "subtile2"):
+        assert c_or[path]["raster_shade"] > 0, f"K2 not launched on {path}"
     assert c_or["subtile2"]["pack_channels"] > 0, "B7 not launched: subtile2"
     for method, fn in or_frames.items():  # B8, B9b, B9c in their frames
         profile_frames(fn, 3, ("raster.", "frame.", "glyph"),
@@ -3492,7 +3833,7 @@ def main() -> int:
     raster_prefixes = ("raster.", "frame.", "glyph")
     c_entry, entry_fn = _path_counts(counters, run_entry_path)
     print(f"launches on the entry step: {c_entry}", flush=True)
-    for k in ("raster_bins_walk", "modal_vote"):
+    for k in ("raster_bins_walk", "modal_vote", "fma32"):
         assert c_entry[k] > 0, f"{k} never launched on the entry step"
     profile_frames(entry_fn, 5, raster_prefixes, "entry step")
     c_cube, _ = _path_counts(counters, lambda: run_cube_path(dev))
@@ -3506,7 +3847,8 @@ def main() -> int:
         dev, "mid", MID_GRID, 2, 0, 10, "mid-scale HD 960x540"))
     print(f"launches on the mid-scale HD arm: {c_mid}", flush=True)
     for c, what in ((c_tea, "teapot path"), (c_mid, "mid-scale HD arm")):
-        for k in ("raster_bins_walk", "pack_channels", "modal_vote"):
+        for k in ("raster_bins_walk", "pack_channels", "modal_vote",
+                  "raster_shade", "fma32"):
             assert c[k] > 0, f"{k} never launched on the {what}"
     profile_frames(tea_fn, 5, raster_prefixes, "teapot 240x135")
     profile_frames(mid_fn, 3, raster_prefixes, "mid-scale HD arm")
@@ -3521,16 +3863,17 @@ def main() -> int:
     rt_prefixes = ("rt.", "frame.", "glyph")
     c_rt, rt_fn = _path_counts(counters, lambda: run_rt_path(dev))
     print(f"launches on the RT path: {c_rt}", flush=True)
-    for k in ("ray_grid_jit", "modal_vote"):
+    for k in ("ray_grid_jit", "modal_vote", "rt_trace"):
         assert c_rt[k] > 0, f"{k} never launched on the RT path"
     profile_frames(rt_fn, 5, rt_prefixes, "RT frame")
     c_farm, farm_fn = _path_counts(counters, lambda: run_farm_path(dev))
     print(f"launches on the view farm: {c_farm}", flush=True)
-    for k in ("ray_grid_jit", "modal_vote"):
+    for k in ("ray_grid_jit", "modal_vote", "rt_trace"):
         assert c_farm[k] > 0, f"{k} never launched on the view farm"
     c_one, _ = _path_counts(counters, farm_fn)
-    assert c_one["modal_vote"] == 1 and c_one["ray_grid_jit"] == 1, \
-        f"a farm launches B4 and the grid once each: {c_one}"
+    assert (c_one["modal_vote"], c_one["ray_grid_jit"],
+            c_one["rt_trace"]) == (1, 1, 1), \
+        f"a farm launches B4, the grid and the trace once each: {c_one}"
     by_name["modal_vote_views"]["launches"] = c_farm["modal_vote"]
     by_name["ray_grid_jit"]["launches"] = sum(
         c["ray_grid_jit"] for c in (c_rt, c_farm))
@@ -3547,7 +3890,7 @@ def main() -> int:
     c_cli, expand_fn = _path_counts(counters, lambda: run_cli_path(dev))
     print(f"launches in the CLI phase: {c_cli}", flush=True)
     for k in ("pt_megakernel", "modal_vote", "raster_bins_walk", "pack",
-              "pack_channels_split", "ray_grid", "ray_grid_jit"):
+              "pack_channels_split", "ray_grid", "ray_grid_jit", "rt_trace"):
         assert c_cli[k] > 0, f"{k} never launched in the CLI phase"
     profile_frames(expand_fn, 20, ("glyph.",), "expand_pixels 96x36")
 
@@ -3558,7 +3901,8 @@ def main() -> int:
     print(f"launches in the parallel phase: {c_par}", flush=True)
     for k in PARALLEL_KERNELS:
         assert c_par[k] > 0, f"{k} never launched in the parallel phase"
-        if k not in ("pack_channels", "ray_grid"):  # summed at the end
+        if k not in ("pack_channels", "ray_grid", "rt_trace",
+                     "raster_shade"):  # summed at the end
             by_name[k]["launches"] += c_par[k]
     try:
         profile_frames(train_fn, 1, ("train.",),
@@ -3587,6 +3931,13 @@ def main() -> int:
         c["ray_grid"] for c in (c_ref, c_hd, c_pts, c_core, c_par))
     # pack_channels_split's one driven caller is the exactness canary
     by_name["pack_channels_split"]["launches"] = c_cli["pack_channels_split"]
+    # the kernels for XLA code: every driven path's launches
+    driven = (c_raster, c_gen, *c_or.values(), c_ref, c_hd, c_entry, c_cube,
+              c_tea, c_mid, c_pts, c_rt, c_farm, c_prog, c_cli, c_par,
+              c_core)
+    for k in ("fma32", "raster_shade", "rt_trace"):
+        by_name[k]["launches"] = sum(c[k] for c in driven)
+        assert by_name[k]["launches"] > 0, k
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

@@ -1,0 +1,188 @@
+"""The kernels that stand for XLA code of the reference, on the card: the
+fused multiply-add ``fma32`` (``ops/fp``), the raster's deferred shade
+(``ops/raster_shade``) and the ray tracer's frame (``ops/rt_trace``), each
+held to its plain version bit for bit. Tests marked ``cuda`` skip without
+a card; this file imports no JAX, so they run where there is none:
+
+    python -m pytest tests/test_torch_build_xla.py -m cuda --noconftest
+
+The inputs come from ``ascii_renderer_tpu_torch/tools/xla_inputs``, which
+the CPU tests of ``tests/test_torch_xla_kernels.py`` and ``chip_smoke.py``'s
+checks of the same kernels use too."""
+
+import numpy as np
+import pytest
+import torch
+
+from ascii_renderer_tpu_torch.backends import raster as R
+from ascii_renderer_tpu_torch.backends import raster_common as RCM
+from ascii_renderer_tpu_torch.backends import raster_oracles as RO
+from ascii_renderer_tpu_torch.backends import raytrace as RT
+from ascii_renderer_tpu_torch.core.fp import fma32, fma32_f64
+from ascii_renderer_tpu_torch.ops import fp as KFP
+from ascii_renderer_tpu_torch.ops import raster_shade as RSH
+from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
+from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
+from ascii_renderer_tpu_torch.tools.xla_inputs import (
+    FMA_CASES, RT_SCENES, fma_operands, fma_specials, fma_ties, rt_scene,
+    shade_builder, shade_inputs)
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _same_bits(got, want) -> None:
+    """Bit for bit, NaN payloads aside: NaN in the same places."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# inputs
+# --------------------------------------------------------------------------
+def shade_calls(device, n_attrs=9, dir_light=True, n_pts=3):
+    """The three callers of the shade at small sizes on ``device``, each a
+    function of no argument returning its rgb: the headline's grouped
+    tiles (f32 ids [3, 8, 128], lane centres, the table a column slice of
+    a wide pack), the mid path's plane table (i32 ids [16, 96]) and the
+    retired generations' compacted tiles (2 tiles of 8 x 128)."""
+    scene = shade_builder(TSB, dir_light, n_pts).build(device=device)
+    table, ids, _px, _py = (t.to(device) for t in shade_inputs(
+        n_attrs, (3, 8, 128), n_tris=60))
+    W = table.shape[1]
+    wide = torch.zeros((table.shape[0], 64), device=device)
+    wide[:, 16:16 + W] = table
+    xl = (torch.from_numpy(np.random.default_rng(2).integers(
+        0, 4, (3, 128)).astype(np.float32)) * 128
+        + torch.arange(128.0) + 0.5).to(device)
+    yl = torch.tensor([[0.0], [8.0], [16.0]], device=device).expand(3, 128)
+    tid = ids[:2].reshape(16, 128)[:, :96].to(torch.int32).contiguous()
+    nonempty = torch.tensor([True, True], device=device)
+    return {
+        "groups": lambda: R.shade_groups(ids, xl, yl, wide[:, 16:16 + W],
+                                         scene, n_attrs),
+        "table": lambda: RCM.shade_from_table(tid, table, scene, 16, 96,
+                                              n_attrs),
+        "compact": lambda: RO.shade_tiles_compact(ids[:2].clone(), nonempty,
+                                                  table, scene, 8, 256, 2,
+                                                  n_attrs)}
+
+
+def _plain_trace(monkeypatch):
+    """Route raytrace.trace to its plain version on any device."""
+    monkeypatch.setattr(RT, "trace", RT.trace_rgb)
+
+
+# --------------------------------------------------------------------------
+# fma32
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_fma32_kernel_equals_the_float64_form(cuda_device):
+    """One launch of __fmaf_rn equals the float64 form bit for bit on 2^21
+    random bit patterns (every exponent, subnormals, infinities, NaN), on
+    products and sums of one scale, on constructed midpoint ties and on
+    the special values (NaN in the same places)."""
+    rng = np.random.default_rng(3)
+    sets = [tuple(rng.integers(0, 2 ** 32, 2 ** 21, dtype=np.uint64).astype(
+        np.uint32).view(np.float32) for _ in range(3)),
+        tuple((rng.normal(size=2 ** 21) * 4).astype(np.float32)
+              for _ in range(3)), fma_ties(), fma_specials()]
+    for a, b, c in sets:
+        a, b, c = (torch.from_numpy(x).to(cuda_device) for x in (a, b, c))
+        n0 = KFP.launches
+        got = fma32(a, b, c)
+        assert KFP.launches == n0 + 1
+        _same_bits(got, fma32_f64(a, b, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FMA_CASES)
+def test_fma32_kernel_broadcast_and_strided_operands(cuda_device, case):
+    """Broadcast and strided views, Python floats and 0-d tensors reach
+    the kernel as strides and scalars: one launch, the float64 form's
+    result bit for bit."""
+    ops = fma_operands(case, cuda_device)
+    n0 = KFP.launches
+    got = fma32(*ops)
+    assert KFP.launches == n0 + 1
+    assert got.device.type == "cuda" and got.is_contiguous()
+    _same_bits(got, fma32_f64(*ops))
+
+
+@pytest.mark.cuda
+def test_fma32_kernel_refuses_gradients_and_seven_dims(cuda_device):
+    x = torch.ones((1, 1, 1, 1, 1, 1, 2), device=cuda_device)
+    with pytest.raises(ValueError):
+        fma32(x, 1.0, 2.0)
+    with pytest.raises(ValueError):
+        fma32(torch.ones(2, device=cuda_device, requires_grad=True), 1.0,
+              2.0)
+    assert fma32(torch.ones((0, 3), device=cuda_device), 1.0,
+                 2.0).shape == (0, 3)
+
+
+# --------------------------------------------------------------------------
+# the deferred shade
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_attrs,dir_light,n_pts", [
+    (9, True, 3), (9, False, 5), (6, True, 0), (6, False, 0)],
+    ids=["9_dl_3pt", "9_no_dl_5pt", "6_dl", "6_no_dl"])
+def test_shade_kernel_equals_plain_for_each_caller(cuda_device, monkeypatch,
+                                                    n_attrs, dir_light,
+                                                    n_pts):
+    """Each caller's frame through the kernel (one launch) equals the same
+    call with the plain version, bit for bit."""
+    calls = shade_calls(cuda_device, n_attrs, dir_light, n_pts)
+    got = {}
+    for name, fn in calls.items():
+        n0 = RSH.launches
+        got[name] = fn()
+        assert RSH.launches == n0 + 1, name
+    monkeypatch.setattr(RSH, "shade", RSH.shade_ref)
+    for name, fn in calls.items():
+        want = fn()
+        _same_bits(got[name], want)
+        assert (want > 0).any(), name
+
+
+# --------------------------------------------------------------------------
+# the ray tracer's frame
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RT_SCENES)
+def test_trace_kernel_equals_plain_frames(cuda_device, monkeypatch, name):
+    """render_rgb through the kernel (one launch a call) equals the plain
+    version bit for bit: one camera at 36x96, a batch of 16 orbit views
+    at 24x40, and a band of 12 rows, which also equals its frame's rows."""
+    scene = rt_scene(name, cuda_device)
+    pr = RT.ScenePrims(scene)
+    orbit = orbit_cameras(16, center=(0, 1.0, 0.0), radius=5.5)
+    runs = {"frame": lambda: RT.render_rgb(scene, scene.camera, 36, 96, 0.5,
+                                           prims=pr),
+            "views": lambda: RT.render_rgb(scene, orbit, 24, 40, 0.5,
+                                           prims=pr),
+            "band": lambda: RT.render_rgb(scene, scene.camera, 36, 96, 0.5,
+                                          row_lo=12, n_rows=12, prims=pr)}
+    got = {}
+    for k, fn in runs.items():
+        n0 = RTK.launches
+        got[k] = fn()
+        assert RTK.launches == n0 + 1, k
+    assert torch.equal(got["band"], got["frame"][12:24])
+    _plain_trace(monkeypatch)
+    for k, fn in runs.items():
+        _same_bits(got[k], fn())
+    lit = got["frame"].amax(-1)
+    assert (lit > 0.05).float().mean() > 0.3 and got["views"].std() > 0.05

@@ -1,0 +1,468 @@
+"""The kernels that stand for XLA code of the reference: the fused
+multiply-add ``fma32`` (``ops/fp``), the raster's deferred shade
+(``ops/raster_shade``) and the ray tracer's frame (``ops/rt_trace``), on
+the CPU.
+
+CPU tensors run the plain versions and launch nothing; a tensor on any
+other device reaches the kernel path, which raises where it cannot run.
+What the kernels are handed is checked here without a card: the float64
+form of ``fma32`` against exact rational rounding (midpoint ties,
+subnormals, signed zeros, infinities, overflow), the strides and scalars
+each wrapper packs (replayed on the CPU with the kernel's addressing),
+and the ray tracer's table of fused products against the decisions the
+plain version makes. ``_shade_rows`` is held to the reference's. The
+kernels themselves are held to their plain versions on the card
+(``tests/test_torch_build_xla.py``, marked ``cuda``)."""
+
+import dataclasses
+import sys
+from fractions import Fraction
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ascii_renderer_tpu.backends import raster_common as JRC
+from ascii_renderer_tpu.scene.builder import SceneBuilder as JSB
+from ascii_renderer_tpu_torch.backends import raster as R
+from ascii_renderer_tpu_torch.backends import raster_common as RCM
+from ascii_renderer_tpu_torch.backends import raster_oracles as RO
+from ascii_renderer_tpu_torch.backends import raytrace as RT
+from ascii_renderer_tpu_torch.backends import rt_core as RC
+from ascii_renderer_tpu_torch.core.fp import fma32, fma32_f64
+from ascii_renderer_tpu_torch.ops import fp as KFP
+from ascii_renderer_tpu_torch.ops import raster_shade as RSH
+from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
+from ascii_renderer_tpu_torch.scene.builder import MaterialIds as TM
+from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
+from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+from ascii_renderer_tpu_torch.tools.xla_inputs import (
+    FMA_CASES, fma_operands, fma_specials, fma_ties, rt_scene, shade_builder,
+    shade_inputs)
+
+torch.set_num_threads(2)
+
+COUNTERS = ((KFP, "launches"), (RSH, "launches"), (RTK, "launches"))
+
+
+@pytest.fixture
+def zero_counts():
+    saved = [getattr(m, a) for m, a in COUNTERS]
+    for m, a in COUNTERS:
+        setattr(m, a, 0)
+    yield
+    for (m, a), v in zip(COUNTERS, saved):
+        setattr(m, a, v)
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+# --------------------------------------------------------------------------
+# fma32: the float64 form against exact rounding, the kernel's operands
+# --------------------------------------------------------------------------
+_MAX = Fraction(float(np.finfo(np.float32).max))
+_HALF_TOP = Fraction(2) ** 103  # half the float32 spacing at FLT_MAX
+
+
+def _round_f32(q: Fraction) -> float:
+    """IEEE float32 round-to-nearest-even of the rational q, over the
+    whole range: subnormals, and infinity from FLT_MAX + half a step."""
+    if abs(q) >= _MAX + _HALF_TOP:
+        return float("inf") if q > 0 else float("-inf")
+    if q == 0:
+        return 0.0
+    lo = np.float32(float(q))  # within a float32 step of q
+    cands = {lo, np.nextafter(lo, np.float32(np.inf)),
+             np.nextafter(lo, np.float32(-np.inf))}
+    cands = {v for v in cands if np.isfinite(v)}
+    return float(min(cands, key=lambda v: (
+        abs(Fraction(float(v)) - q),
+        int(np.asarray(v, np.float32).view(np.int32)) & 1)))
+
+
+def _exact_fma(a, b, c) -> np.ndarray:
+    """Correctly rounded float32 a*b + c from exact rational arithmetic;
+    IEEE's special values where an operand is not finite."""
+    out = []
+    for x, y, z in zip(a, b, c):
+        x, y, z = float(x), float(y), float(z)
+        if not all(np.isfinite((x, y, z))):
+            out.append(np.float32(np.float64(x) * y + z))  # inf / nan rules
+            continue
+        q = Fraction(x) * Fraction(y) + Fraction(z)
+        # an exact zero is +0, unless both addends are -0
+        if q == 0:
+            p_neg = (np.signbit(x) != np.signbit(y))
+            out.append(np.float32(-0.0 if (p_neg and np.signbit(z))
+                                  else 0.0))
+            continue
+        out.append(np.float32(_round_f32(q)))
+    return np.asarray(out, np.float32)
+
+
+def test_fma32_f64_is_correctly_rounded_at_the_edges():
+    """The float64 form (the CPU path and the card's twin) equals exact
+    rounding bit for bit on constructed midpoint ties, subnormals, exact
+    cancellation and IEEE's special values; NaN where IEEE gives NaN. A
+    sum past FLT_MAX rounds to infinity (a tie there used to come out as
+    -inf when the float64 sum's lost part was negative)."""
+    a, b, c = (np.concatenate(x) for x in zip(fma_ties(), fma_specials()))
+    with np.errstate(all="ignore"):
+        want = _exact_fma(a, b, c)
+        naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    got = fma32_f64(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(_bits(got[~nan]), _bits(want[~nan]))
+    assert (_bits(naive[~nan]) != _bits(want[~nan])).sum() >= 100
+    assert np.isposinf(got[np.flatnonzero((a == 2.0 ** 64) & (c == -1.0))]
+                       ).all()
+
+
+def test_cpu_tensors_run_the_plain_versions(zero_counts):
+    """fma32, shade and trace on CPU tensors are their plain versions and
+    launch nothing."""
+    rng = np.random.default_rng(0)
+    a, b, c = (torch.from_numpy(rng.normal(size=(3, 5)).astype(np.float32))
+               for _ in range(3))
+    assert torch.equal(fma32(a, b, c), fma32_f64(a, b, c))
+    assert torch.equal(fma32(a.t(), 2.5, c.t()),
+                       fma32_f64(a.t(), 2.5, c.t()))
+    scene = shade_builder(TSB, True, 3).build(device="cpu")
+    table, ids, px, py = shade_inputs(9, (4, 8, 16))
+    assert torch.equal(RSH.shade(table, ids, px, py, scene, 9),
+                       RSH.shade_ref(table, ids, px, py, scene, 9))
+    rs = create_rt_demo_scene().build(device="cpu")
+    pr = RT.ScenePrims(rs)
+    cams = orbit_cameras(2, center=(0, 1.0, 1.0))
+    rgb = RT.render_rgb(rs, cams, 6, 8, 0.5, prims=pr)
+    from ascii_renderer_tpu_torch.core.camera import camera_bases
+    from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid_jit
+    rd3 = ray_grid_jit(camera_bases(cams.yaw, cams.pitch, cams.fov_y), 6, 8,
+                       0.5, "cpu").reshape(2, 48, 3)
+    assert torch.equal(rgb.reshape(2, 48, 3),
+                       RT.trace_rgb(rs, pr, cams.pos.float(), rd3))
+    assert (KFP.launches, RSH.launches, RTK.launches) == (0, 0, 0)
+
+
+def test_non_cpu_tensors_never_fall_back_to_the_plain_versions(zero_counts):
+    """A tensor that is not on the CPU reaches the kernel path, whose
+    checks raise for anything but CUDA tensors."""
+    meta = torch.device("meta")
+    x = torch.empty((4, 8), device=meta)
+    for args in ((x, x, x), (x, 2.0, 1.0), (1.0, x, torch.tensor(2.0))):
+        with pytest.raises(ValueError):
+            fma32(*args)
+    with pytest.raises(ValueError):
+        KFP.fma32_kernel(torch.ones(3), 1.0, 1.0)  # not a CUDA tensor
+    scene = shade_builder(TSB, True, 3).build(device="cpu")
+    on_meta = dataclasses.replace(scene, **{
+        f: getattr(scene, f).to(meta) for f in (
+            "env_color", "env_intensity", "dl_dir", "dl_col", "pt_pos",
+            "pt_col", "n_dl", "n_pt")})
+    table, ids, px, py = (t.to(meta) for t in shade_inputs(9, (2, 8, 16)))
+    with pytest.raises(ValueError):
+        RSH.shade(table, ids, px, py, on_meta, 9)
+    rs = create_rt_demo_scene().build(device="cpu")
+    with pytest.raises(ValueError):
+        RT.trace(rs, RT.ScenePrims(rs), torch.zeros((1, 3), device=meta),
+                 torch.zeros((1, 8, 3), device=meta))
+    with pytest.raises(ValueError):  # the kernel's wrapper: CUDA only
+        RTK.trace(rs, RT.ScenePrims(rs), torch.zeros((1, 3)),
+                  torch.zeros((1, 8, 3)), (True, True))
+    assert (KFP.launches, RSH.launches, RTK.launches) == (0, 0, 0)
+
+
+def _replay(t, geom, k, dims):
+    """Operand k of a packed launch, read back as the kernel addresses it:
+    sizes geom[:dims], strides geom[dims * (k + 1):dims * (k + 2)] from
+    the tensor's own storage offset."""
+    return torch.as_strided(t, geom[:dims], geom[dims * (k + 1):
+                                                  dims * (k + 2)])
+
+
+@pytest.mark.parametrize("case", FMA_CASES)
+def test_fma32_packs_strides_and_scalars(case):
+    """pack_operands + broadcast_geom hand the kernel each operand as its
+    strides over the output (0 along a broadcast dimension) or as a
+    float32 scalar; replayed with the kernel's addressing they give the
+    same fused product-add as the plain version."""
+    ops = fma_operands(case, "cpu")
+    tensors, scalars, mask, shape = KFP.pack_operands(*ops, "cpu")
+    geom = KFP.broadcast_geom(tensors, shape)
+    D = KFP.MAX_DIMS
+    vals = []
+    for k, x in enumerate(ops):
+        if mask >> k & 1:
+            assert tensors[k] is None and isinstance(scalars[k], float)
+            assert scalars[k] == float(np.float32(
+                x.item() if isinstance(x, torch.Tensor) else x))
+            vals.append(torch.full(geom[:D], scalars[k]))
+        else:
+            assert tensors[k].dtype == torch.float32
+            vals.append(_replay(tensors[k], geom, k, D))
+    assert geom[:D][D - len(shape):] == list(shape)
+    want = fma32_f64(*ops)
+    got = fma32_f64(*vals).reshape(shape)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "zero_d":  # a 0-d CPU tensor is a scalar, rounded to float32
+        assert mask == 0b110 and scalars[2] == -1.25
+
+
+def test_fma32_kernel_refuses_what_it_cannot_take():
+    """More than 6 dimensions after broadcasting, or an operand that
+    requires a gradient, raise before any build or launch."""
+    x = torch.ones((1, 1, 1, 1, 1, 1, 2))
+    with pytest.raises(ValueError):
+        KFP.pack_operands(x, 1.0, torch.ones(2, requires_grad=True), "cpu")
+    tensors, _s, _m, shape = KFP.pack_operands(x, 1.0, 2.0, "cpu")
+    assert len(shape) == 7 > KFP.MAX_DIMS
+
+
+# --------------------------------------------------------------------------
+# the deferred shade
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("n_attrs,dir_light,n_pts", [
+    (9, False, 5), (9, True, 5), (9, True, 0), (6, False, 0), (6, True, 0)],
+    ids=["9_no_dl_5_of_8", "9_dl_5_of_8", "9_dl_none", "6_no_dl", "6_dl"])
+def test_shade_rows_equals_jax(n_attrs, dir_light, n_pts):
+    """_shade_rows (the plain version of the shade kernel) against the
+    reference's _shade_rows under jax.jit, the same gathered rows and
+    centres: no-hit pixels zero in both, colours within 1e-5 (the
+    reference's rsqrt is an estimate refined by one Newton step, within
+    an ulp of the correctly rounded 1 / sqrt)."""
+    table, ids, px, py = shade_inputs(n_attrs, (6, 40))
+    idx = ids.reshape(-1).long()
+    g = table[torch.where(idx >= 0, idx, table.shape[0] - 1)]
+    hit = ids >= 0
+    ts = shade_builder(TSB, dir_light, n_pts).build(device="cpu")
+    js = shade_builder(JSB, dir_light, n_pts).build()
+    assert ts.pt_pos.shape[0] == (8 if n_pts else 0)
+    assert int(ts.n_dl) == int(dir_light) and int(ts.n_pt) == n_pts
+    want = np.asarray(jax.jit(JRC._shade_rows, static_argnums=(5,))(
+        g.numpy(), hit.numpy(), px.numpy(), py.numpy(), js, n_attrs))
+    got = RCM._shade_rows(g, hit, px, py, ts, n_attrs).numpy()
+    assert got.shape == want.shape == (6, 40, 3)
+    np.testing.assert_array_equal(got[~hit.numpy()], 0.0)
+    np.testing.assert_array_equal(want[~hit.numpy()], 0.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (got[hit.numpy()] > 0).mean() > 0.5
+
+
+def _capture_shade(monkeypatch):
+    """Record each call of ops/raster_shade.shade (its callers look it up
+    on the module), passing it through."""
+    calls = []
+
+    def rec(table, ids, px, py, scene, n_attrs):
+        calls.append((table, ids, px, py, scene, n_attrs))
+        return RSH.shade_ref(table, ids, px, py, scene, n_attrs)
+
+    monkeypatch.setattr(RSH, "shade", rec)
+    return calls
+
+
+def _replay_shade(table, ids, px, py, scene, n_attrs):
+    """The shade of a packed launch on the CPU: every operand read back as
+    the kernel addresses it (the table's rows by its row stride, ids and
+    centres by their strides over the pixel grid), then the plain
+    lighting."""
+    shape = torch.broadcast_shapes(ids.shape, px.shape, py.shape)
+    geom = KFP.broadcast_geom((ids, px, py), shape, RSH.MAX_DIMS)
+    rows = torch.as_strided(table, (table.shape[0], 3 * n_attrs + 3),
+                            (table.stride(0), 1))
+    rids, rpx, rpy = (_replay(t, geom, k, RSH.MAX_DIMS)
+                      for k, t in enumerate((ids, px, py)))
+    return RSH.shade_ref(rows, rids, rpx, rpy, scene, n_attrs).reshape(
+        *shape, 3)
+
+
+def test_shade_callers_pack_their_layouts(monkeypatch):
+    """Each caller of the shade hands it what its kernel can address: the
+    headline's grouped tiles (f32 ids [grp, 8, 128], lane centres, the
+    table a column slice of the wide pack), the mid path's plane table
+    (i32 ids [rows, cols], centres as broadcast rows and columns) and the
+    compacted tiles of the retired generations (truncated i32 ids);
+    replayed with the kernel's addressing they give the caller's frame."""
+    calls = _capture_shade(monkeypatch)
+    scene = shade_builder(TSB, True, 2).build(device="cpu")
+    table, ids, _px, _py = shade_inputs(9, (3, 8, 128), n_tris=60)
+    wide = torch.zeros((table.shape[0], 64))
+    wide[:, 16:16 + table.shape[1]] = table
+    xl = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 4, (3, 128)).astype(np.float32) * 128 + np.arange(128)
+        + 0.5).float()
+    yl = torch.tensor([[0.0], [8.0], [16.0]]).expand(3, 128)
+    outs = [R.shade_groups(ids, xl, yl, wide[:, 16:16 + table.shape[1]],
+                           scene, 9)]
+    tid = ids[:2].reshape(16, 128)[:, :96].to(torch.int32).contiguous()
+    outs.append(RCM.shade_from_table(tid, table, scene, 16, 96, 9))
+    etile = ids[:2].clone()
+    nonempty = torch.tensor([True, True])
+    outs.append(RO.shade_tiles_compact(etile, nonempty, table, scene, 8, 256,
+                                       2, 9))
+    assert len(calls) == 3
+    assert calls[0][0].stride(0) == 64 and calls[0][1].dtype == torch.float32
+    assert calls[1][1].dtype == torch.int32 == calls[2][1].dtype
+    assert calls[1][2].stride() == (96, 1) and calls[1][2].shape == (1, 96)
+    for (table_, ids_, px_, py_, sc, na), out in zip(calls, outs):
+        got = _replay_shade(table_, ids_, px_, py_, sc, na)
+        want = RSH.shade_ref(table_, ids_, px_, py_, sc, na)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (outs[0] > 0).any() and (outs[1] > 0).any()
+
+
+# --------------------------------------------------------------------------
+# the ray tracer's frame: where its products fuse
+# --------------------------------------------------------------------------
+_HELPERS = ("_mul_add", "_sub_mul", "_mul_sub", "_diff", "dot")
+_NESTED = set(_HELPERS) | {"rdot", "cross", "norm", "w"}
+
+
+def _record_fuses(monkeypatch, run):
+    """Run ``run`` with rt_core's fuse helpers recorded: for each call of
+    an intersection function of rt_core (spheres_t, planes_t, tris_t,
+    tri_hit_info, reflect), its case and the "F" / "-" of each helper call
+    in it, in the order the calls begin (for dot and _diff: whether the
+    left product fused); for the sites of backends/raytrace itself, every
+    decision under "raytrace". Returns {(case, function): [strings]}."""
+    log, firsts = [], []
+    real_fma = RC.fma32
+
+    def fma(a, b, c):
+        firsts.append(a)
+        return real_fma(a, b, c)
+
+    def wrap(name, fn):
+        def w(*args):
+            frame, names, top = sys._getframe(1), [], None
+            while frame is not None:
+                names.append(frame.f_code.co_name)
+                if top is None and frame.f_code.co_name not in _NESTED:
+                    top = frame
+                frame = frame.f_back
+            entry = [top, names, None]
+            log.append(entry)
+            n0 = len(firsts)
+            out = fn(*args)
+            if name == "_diff":
+                entry[2] = firsts[n0] is args[0]
+            elif name == "dot":
+                entry[2] = firsts[n0] is args[0].x
+            else:
+                entry[2] = len(firsts) > n0
+            return out
+        return w
+
+    monkeypatch.setattr(RC, "fma32", fma)
+    for name in _HELPERS:
+        monkeypatch.setattr(RC, name, wrap(name, getattr(RC, name)))
+    run()
+    monkeypatch.undo()
+    seqs, cur = {}, None
+    for top, names, fused in log:
+        fn = top.f_code.co_name
+        if top is not cur:
+            cur = top
+            if fn not in RTK.HELPERS:
+                case = "raytrace"
+            elif fn == "reflect":
+                case = "bounce"
+            elif top.f_locals["rd"].x.dim() == 0:
+                case = "shadow_dir"
+            elif "occluded" in names:
+                case = "shadow_point"
+            elif top.f_locals["ro"].x.shape[-1] == 1:
+                case = "primary"
+            else:
+                case = "bounce"
+            key = (case, "raytrace" if case == "raytrace" else fn)
+            seqs.setdefault(key, []).append("")
+        seqs[key][-1] += "F" if fused else "-"
+    return seqs
+
+
+def test_rt_fuse_table_equals_the_plain_decisions(monkeypatch):
+    """ops/rt_trace.FUSE, the kernel's decision at every fuse site of the
+    intersection helpers in each of the four cases, equals what the plain
+    version decides when it renders a batch of views of a scene with a
+    mirror, triangles, quads, a directional and a point light; every
+    site of backends/raytrace itself fuses. The one site that varies, the
+    sphere's c, is rt_core.sphere_c_fused for these shapes."""
+    scene = rt_scene("tris_quad", "cpu")
+    cams = orbit_cameras(3, center=(0, 1.0, 0.0), radius=5.0)
+    seqs = _record_fuses(monkeypatch,
+                         lambda: RT.render_rgb(scene, cams, 6, 10, 0.5))
+    table = {}
+    for (case, fn), runs in seqs.items():
+        if case == "raytrace":
+            assert set("".join(runs)) == {"F"}
+            continue
+        assert len(set(runs)) == 1, (case, fn, set(runs))
+        assert len(runs[0]) == len(RTK.HELPERS[fn].split()), (case, fn)
+        table.setdefault(case, {})[fn] = runs[0]
+    assert table == RTK.FUSE
+    n_sph = scene.sph_pos.shape[0]
+    assert RC.sphere_c_fused((3, 1, 1), n_sph)
+    assert not RC.sphere_c_fused((3, 1, 60), n_sph)
+
+
+@pytest.mark.parametrize("views,rows,cols", [(2, 4, 6), (1, 4, 6),
+                                             (2, 1, 1)])
+def test_sphere_decision_follows_the_shapes(monkeypatch, views, rows, cols):
+    """With one sphere slot, or one ray a view, the sphere's c fuses
+    elsewhere than FUSE says. At every call of spheres_t the plain version
+    makes, its decision is rt_core.sphere_c_fused of that call's
+    origins, which have one of the two shapes raytrace.trace asks about."""
+    sb = TSB()
+    sb.add_plane([0, 1, 0], 0.0, TM.MIRROR)
+    sb.add_sphere([0, 1, -1], 0.8, TM.RED)
+    sb.add_point_light([1, 3, 2], [1, 0.9, 0.8], 2.0)
+    sb.set_env_light([0.2, 0.3, 0.5], 1.0)
+    scene = sb.build(min_pad=1, device="cpu")
+    assert scene.sph_pos.shape[0] == 1
+    cams = orbit_cameras(views, center=(0, 1.0, -1.0), radius=4.0)
+    calls, firsts = [], []
+    real_fma, real_sph, real_sub = RC.fma32, RC.spheres_t, RC._sub_mul
+
+    def fma(a, b, c):
+        firsts.append(a)
+        return real_fma(a, b, c)
+
+    def spheres_t(ro, *args):
+        calls.append([tuple(ro.x.shape), None])
+        return real_sph(ro, *args)
+
+    def sub_mul(x, a, b):  # the sphere's c, or the bounce's reflect
+        n0 = len(firsts)
+        out = real_sub(x, a, b)
+        if calls and calls[-1][1] is None:
+            calls[-1][1] = len(firsts) > n0
+        return out
+
+    monkeypatch.setattr(RC, "fma32", fma)
+    monkeypatch.setattr(RC, "spheres_t", spheres_t)
+    monkeypatch.setattr(RC, "_sub_mul", sub_mul)
+    RT.render_rgb(scene, cams, rows, cols, 0.5)
+    monkeypatch.undo()
+    asked = {(views, 1, 1), (views, 1, rows * cols)}
+    assert {shape for shape, _f in calls} <= asked
+    for shape, fused in calls:
+        assert fused == RC.sphere_c_fused(shape, 1), shape
+    assert len(calls) >= 3
+
+
+def test_light_pair_follows_the_slots():
+    """The first two set light slots are 0 and 1 only where two
+    directional lights are set: the builder pads the directional slots to
+    8, so a point light's slot is 8 or more."""
+    two = rt_scene("two_lights", "cpu")
+    assert two.dl_dir.shape[0] == 8
+    assert RTK.light_pair(two, 2, 2) and RTK.light_pair(two, 2, 0)
+    demo = create_rt_demo_scene().build(min_pad=1, device="cpu")
+    assert not RTK.light_pair(demo, 1, 1)
+    assert not RTK.light_pair(demo, 0, 2)
