@@ -62,11 +62,12 @@ from ascii_renderer_tpu_torch.backends.raster_common import (  # noqa: F401
     _DEFAULT_DIR_COL, _cumsum_i32, _round_up, _shade_rows, shade_from_table)
 from ascii_renderer_tpu_torch.backends.raster_channels import (  # noqa: F401
     _COMPACT_KEYS, _clip_channels_core, _edge, build_plane_table,
-    clip_attrs_channel_lists, clip_attrs_compact_lists, compact_valid_ch,
-    count_big_small, render_channels_diag, setup_screen,
+    channels_clip_array, channels_to_setup, clip_attrs_channel_lists,
+    clip_attrs_channels, clip_attrs_compact_lists, clip_screen_channels,
+    compact_valid_ch, count_big_small, render_channels_diag, setup_screen,
     setup_screen_channels, shade_planes_ch, shade_visibility, transform_clip,
-    transform_clip_channels, transform_clip_channels9, visibility_binned_ch,
-    visibility_scan)
+    transform_clip_channels, transform_clip_channels9, visibility_binned,
+    visibility_binned_ch, visibility_scan)
 from ascii_renderer_tpu_torch.backends.raster_oracles import (  # noqa: F401
     _build_bins, _entry_planes_src, _subtile_pair_keys, render_fused_ch,
     render_subtile2_diag, shade_tiles_compact, suggest_caps_subtile,
@@ -532,20 +533,17 @@ def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
         mvp = camera_mvp(cam, rows, cols, pixel_aspect)
     if method == "fused":
         with stage("raster.clip"):
-            ch = transform_clip_channels(positions, mvp)
-            ch = setup_screen_channels(ch, rows, cols)
+            ch = clip_screen_channels(positions, mvp, rows, cols)
             attr_slots = clip_attrs_channel_lists(attrs, ch)
         return render_fused_ch(ch, attr_slots, scene, rows, cols)
     if method in scatter:
         with stage("raster.clip"):
-            ch = transform_clip_channels(positions, mvp)
-            ch = setup_screen_channels(ch, rows, cols)
+            ch = clip_screen_channels(positions, mvp, rows, cols)
         with stage("raster.walk"):
             kern = "loop" if method == "scatter_loop" else "mm"
             _zbuf, tid = visibility_binned_ch(ch, rows, cols, kernel=kern)
         with stage("raster.shade"):
-            attr_slots = clip_attrs_channel_lists(attrs, ch)
-            return shade_planes_ch(tid, ch, attr_slots, scene, rows, cols)
+            return shade_planes_ch(tid, ch, attrs, scene, rows, cols)
     with stage("raster.clip"):
         clip, tattr, valid = transform_clip(positions, attrs, mvp)
         setup = setup_screen(clip, valid, rows, cols)

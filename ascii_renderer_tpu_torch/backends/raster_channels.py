@@ -2,21 +2,25 @@
 (torch port of ``ascii_renderer_tpu/backends/raster_channels.py``).
 
 The [2T]-domain pipeline: branchless near-clip expansion into
-channel-major screen triangles, order-preserving valid compaction, exact
-per-tile binning, the bin walks B6 / B6' (ops/raster_bins) and deferred
-plane-table shading (its table through the pack kernel B7 when its length
-is a multiple of 512); and the compacted channels of generation 1
-(``render_channels_diag(kernel="subtile")``, raster_oracles). The chunked
-``visibility_scan`` path is the reference rasterizer the faster paths are
-compared with, and the one ``render_soup`` takes below 512 triangle slots.
+channel-major screen triangles with their screen setup (ops/raster_clip:
+one launch of the kernel X4 on CUDA), order-preserving valid compaction,
+exact per-tile binning, the bin walks B6 / B6' (ops/raster_bins) and
+deferred plane-table shading (the attribute lerps and the table through
+ops/plane_table: one launch of the kernel X3 on CUDA; the reference packs
+its table with B7 when its length is a multiple of 512); and the
+compacted channels of generation 1 (``render_channels_diag(kernel=
+"subtile")``, raster_oracles). The chunked ``visibility_scan`` path is the
+reference rasterizer the faster paths are compared with, and the one
+``render_soup`` takes below 512 triangle slots.
 
 Rounding: the reference is compiled by XLA, whose CPU code generator fuses
 a product into the add or subtract it feeds (core/fp.py). Every such chain
-below is written with ``fma32`` where the reference's compiled program
-fuses it (each one carries a comment), so the clip channels, screen
-setup, plane table and winners equal the compiled reference bit for bit.
-A division by a Python float on a CUDA tensor is not IEEE, so constants
-divide through 0-d tensors (``quantize.fdiv``).
+below and in the two kernels' plain versions is written with ``fma32``
+where the reference's compiled program fuses it (each one carries a
+comment), so the clip channels, screen setup, plane table and winners
+equal the compiled reference bit for bit. A division by a Python float on
+a CUDA tensor is not IEEE, so constants divide through 0-d tensors
+(``quantize.fdiv``).
 """
 
 from __future__ import annotations
@@ -25,11 +29,19 @@ import torch
 from torch.profiler import record_function as stage
 
 from ascii_renderer_tpu_torch.backends.raster_common import (
-    _DEFAULT_DIR, _DEFAULT_DIR_COL, MAX_V_CAP, TILE_H, TILE_W, _dot3,
+    _DEFAULT_DIR, _DEFAULT_DIR_COL, MAX_V_CAP, TILE_H, TILE_W,
     shade_from_table)
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
+from ascii_renderer_tpu_torch.ops import plane_table as PT
 from ascii_renderer_tpu_torch.ops import raster_bins as RB
+from ascii_renderer_tpu_torch.ops import raster_clip as RCL
+from ascii_renderer_tpu_torch.ops.plane_table import (  # noqa: F401
+    _edge_coeffs, _sum3, build_plane_table, clip_attrs_channel_lists,
+    clip_attrs_compact_lists, plane_channels)
+from ascii_renderer_tpu_torch.ops.raster_clip import (  # noqa: F401
+    _clip_channels_core, _recip_guard, setup_screen_channels,
+    transform_clip_channels, transform_clip_channels9)
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
 
@@ -39,135 +51,39 @@ def _floor_i32(x: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def _recip_guard(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """1 / where(|x| < eps, eps, x)."""
-    return torch.reciprocal(torch.where(x.abs() < eps, eps, x))
+def clip_screen_channels(positions, mvp, rows: int, cols: int, pos9=None):
+    """setup_screen_channels(transform_clip_channels(positions, mvp)), or
+    with ``pos9`` (the [9, T] geometry) transform_clip_channels9: the [2T]
+    clipped-triangle channel dict. One launch of X4 on CUDA
+    (ops/raster_clip), its plain version on the CPU."""
+    if pos9 is not None:
+        return RCL.clip_screen(pos9, mvp, rows, cols, pos9=True)
+    return RCL.clip_screen(positions, mvp, rows, cols)
 
 
-def _lerp(c0, c1, t):
-    # c0 + t * (c1 - c0): the product fuses into the add
-    return fma32(t, c1 - c0, c0)
+def channels_to_setup(ch):
+    """Adapter: channel dict -> the [T, 3, ...] setup dict the scan /
+    oracle paths consume (the small-lane layout; for tests)."""
+    xy = torch.stack([torch.stack([ch["sxa"], ch["sya"]], dim=-1),
+                      torch.stack([ch["sxb"], ch["syb"]], dim=-1),
+                      torch.stack([ch["sxc"], ch["syc"]], dim=-1)], dim=1)
+    z01 = torch.stack([ch["sza"], ch["szb"], ch["szc"]], dim=1)
+    return {"xy": xy, "z01": z01, "valid": ch["valid"],
+            "area2": ch["area2"]}
 
 
-def transform_clip_channels(positions: torch.Tensor, mvp: torch.Tensor):
-    """Channel-major vertex stage: positions f32 [V=3T, 3] -> dict of
-    [2T]-shaped per-component tensors for the near-clipped triangles (see
-    ``_clip_channels_core``). The reference's vertex transform is a K = 4
-    dot, which its compiler sums pairwise without fusing: (x m0 + y m1) +
-    (z m2 + m3)."""
-    V = positions.shape[0]
-    T = V // 3
-    m = mvp.tolist()  # host floats: the matrix is the host's
-    x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
-    clip = [(x * m[j][0] + y * m[j][1]) + (z * m[j][2] + m[j][3])
-            for j in range(4)]
-    cv = torch.stack(clip, dim=-1).reshape(T, 12).t()
-    ch = {f"{c}{s}": cv[4 * i + j]
-          for i, s in enumerate("abc")
-          for j, c in enumerate("xyzw")}
-    return _clip_channels_core(ch)
+def clip_attrs_channels(attrs: torch.Tensor, ch) -> torch.Tensor:
+    """Array-layout view of clip_attrs_channel_lists: tattr [2T, 3, A]
+    (the scan / oracle paths and tests)."""
+    out_slots = clip_attrs_channel_lists(attrs, ch)
+    return torch.stack([torch.stack(s, dim=-1) for s in out_slots], dim=1)
 
 
-def transform_clip_channels9(pos9: torch.Tensor, mvp: torch.Tensor):
-    """transform_clip_channels on pre-transposed geometry pos9 f32 [9, T]
-    (rows xa ya za xb yb zb xc yc zc): four-term chains per channel."""
-    m = mvp.tolist()
-    ch = {}
-    for i, s in enumerate("abc"):
-        px, py, pz = pos9[3 * i], pos9[3 * i + 1], pos9[3 * i + 2]
-        for j, c in enumerate("xyzw"):
-            # (m0 px + m1 py) + m2 pz fuse (core/fp.py), then + m3
-            ch[f"{c}{s}"] = fma32(m[j][2], pz,
-                                  fma32(m[j][0], px, m[j][1] * py)) + m[j][3]
-    return _clip_channels_core(ch)
-
-
-def _clip_channels_core(ch):
-    """Shared near-clip channel math: per-slot clip channels x/y/z/w{a,b,c}
-    [T] -> the [2T] clipped-triangle channel dict: x/y/z/w per output vertex
-    slot ('xa' .. 'wc'), 'valid' bool, and the lerp records 'rot', 't_ab',
-    't_ac', 't_bc', 'n_in' [T] for the attributes."""
-    d = {s: ch[f"z{s}"] + ch[f"w{s}"] for s in "abc"}
-    ins = {s: d[s] >= 0.0 for s in "abc"}
-    n_in = (ins["a"].to(torch.int32) + ins["b"].to(torch.int32)
-            + ins["c"].to(torch.int32))
-
-    # rotation r in {0,1,2}: 1-in -> first inside vertex first;
-    # 2-in -> outside vertex last (as transform_clip)
-    first_in = torch.where(ins["a"], 0, torch.where(ins["b"], 1, 2))
-    first_out = torch.where(~ins["a"], 0, torch.where(~ins["b"], 1, 2))
-    rot = torch.where(n_in == 1, first_in,
-                      torch.where(n_in == 2, (first_out + 1) % 3, 0)).to(
-        torch.int32)
-
-    def rot_sel(ca, cb, cc):
-        return torch.where(rot == 0, ca, torch.where(rot == 1, cb, cc))
-
-    names = "abc"
-    rch, rd = {}, {}
-    for k, s in enumerate("abc"):
-        # rotated slot s takes original slot (rot + k) % 3
-        srcs = [names[(i + k) % 3] for i in range(3)]
-        for c in "xyzw":
-            rch[f"{c}{s}"] = rot_sel(*(ch[f"{c}{q}"] for q in srcs))
-        rd[s] = rot_sel(*(d[q] for q in srcs))
-
-    def ratio(p, q):
-        return p / torch.where(p == q, 1.0, p - q)
-
-    ta = ratio(rd["a"], rd["b"])  # a->b
-    tc = ratio(rd["a"], rd["c"])  # a->c
-    tb = ratio(rd["b"], rd["c"])  # b->c
-
-    one_in = n_in == 1
-    two_in = n_in == 2
-    out = {}
-    for c in "xyzw":
-        a0, b0, c0 = rch[f"{c}a"], rch[f"{c}b"], rch[f"{c}c"]
-        ab = _lerp(a0, b0, ta)
-        ac = _lerp(a0, c0, tc)
-        bc = _lerp(b0, c0, tb)
-        # tri1: 3-in (a,b,c); 1-in (a, ab, ac); 2-in (a, b, bc)
-        t1b = torch.where(one_in, ab, b0)
-        t1c = torch.where(one_in, ac, torch.where(two_in, bc, c0))
-        # tri2 (only 2-in): (a, bc, ac)
-        out[f"{c}a"] = torch.cat([a0, a0])
-        out[f"{c}b"] = torch.cat([t1b, bc])
-        out[f"{c}c"] = torch.cat([t1c, ac])
-    out["valid"] = torch.cat([n_in >= 1, two_in])
-    out["rot"] = rot
-    out["t_ab"], out["t_ac"], out["t_bc"] = ta, tc, tb
-    out["n_in"] = n_in
-    return out
-
-
-def setup_screen_channels(ch, rows: int, cols: int):
-    """Channel-major screen setup: adds screen-space sx/sy/sz and iw per
-    slot, 'area2' and the facing/degenerate cull to ``ch`` (in place) and
-    returns it. Front faces have NEGATIVE y-down area (raster.js:100-102)."""
-    # the compiler folds "* 0.5 * cols" into one product by 0.5 * cols
-    hx, hy = 0.5 * cols, 0.5 * rows
-    ux, uy = {}, {}
-    for s in "abc":
-        inv_w = _recip_guard(ch[f"w{s}"], 1e-9)
-        # (x*inv_w + 1) * 0.5 * cols: the product fuses into the add
-        ux[s] = fma32(ch[f"x{s}"], inv_w, 1.0)
-        ch[f"sx{s}"] = ux[s] * hx
-        # (1 - y*inv_w): the product fuses into the subtract
-        uy[s] = fma32(-ch[f"y{s}"], inv_w, 1.0)
-        ch[f"sy{s}"] = uy[s] * hy
-        ch[f"sz{s}"] = fma32(ch[f"z{s}"], inv_w, 1.0) * 0.5
-        ch[f"iw{s}"] = inv_w
-    # edges, with each vertex's scale product inlined: the single-use
-    # product of the minuend fuses into the subtract (vertex a's is shared)
-    e0x = fma32(ux["b"], hx, -ch["sxa"])
-    e0y = fma32(uy["b"], hy, -ch["sya"])
-    e1x = fma32(ux["c"], hx, -ch["sxa"])
-    e1y = fma32(uy["c"], hy, -ch["sya"])
-    area2 = fma32(e0x, e1y, -(e0y * e1x))  # a*b - c*d: the left fuses
-    ch["valid"] = ch["valid"] & (area2 < 0.0) & (area2.abs() > 1e-12)
-    ch["area2"] = area2
-    return ch
+def channels_clip_array(ch) -> torch.Tensor:
+    """The [2T, 3, 4] clip array from the channels (one stack)."""
+    return torch.stack([torch.stack([ch[f"x{s}"], ch[f"y{s}"], ch[f"z{s}"],
+                                     ch[f"w{s}"]], dim=-1) for s in "abc"],
+                       dim=1)
 
 
 def transform_clip(positions: torch.Tensor, attrs: torch.Tensor,
@@ -324,58 +240,6 @@ def compact_valid_ch(ch, v_cap: int):
     return cch, cidx, n_valid
 
 
-def _attr_slots(ai, A: int, rot, ta, tc, tb, one_in, two_in, second):
-    """Rotation + clip lerps of per-vertex attribute channels ai [3A, N]
-    (vertex-major). ``second``: the slot holds the second clip output
-    (None: emit both outputs, [2N] channels)."""
-    out_slots = [[], [], []]
-    for j in range(A):
-        base = [ai[0 * A + j], ai[1 * A + j], ai[2 * A + j]]
-        r = [torch.where(rot == 0, base[k % 3],
-                         torch.where(rot == 1, base[(1 + k) % 3],
-                                     base[(2 + k) % 3])) for k in range(3)]
-        ab = _lerp(r[0], r[1], ta)
-        ac = _lerp(r[0], r[2], tc)
-        bc = _lerp(r[1], r[2], tb)
-        t1b = torch.where(one_in, ab, r[1])
-        t1c = torch.where(one_in, ac, torch.where(two_in, bc, r[2]))
-        if second is None:
-            out_slots[0].append(torch.cat([r[0], r[0]]))
-            out_slots[1].append(torch.cat([t1b, bc]))
-            out_slots[2].append(torch.cat([t1c, ac]))
-        else:  # tri1 and tri2 share vertex a
-            out_slots[0].append(r[0])
-            out_slots[1].append(torch.where(second, bc, t1b))
-            out_slots[2].append(torch.where(second, ac, t1c))
-    return out_slots
-
-
-def clip_attrs_channel_lists(attrs: torch.Tensor, ch):
-    """Apply the clip rotation + lerp recorded by transform_clip_channels to
-    per-vertex attributes: attrs f32 [V=3T, A] -> 3 lists (one per output
-    vertex slot) of A channels, each [2T]."""
-    V, A = attrs.shape
-    ai = attrs.reshape(V // 3, 3 * A).t()
-    n_in = ch["n_in"]
-    return _attr_slots(ai, A, ch["rot"], ch["t_ab"], ch["t_ac"], ch["t_bc"],
-                       n_in == 1, n_in == 2, None)
-
-
-def clip_attrs_compact_lists(attrs: torch.Tensor, ch, cidx: torch.Tensor):
-    """clip_attrs_channel_lists evaluated only at the compacted slots:
-    cidx [v_cap] holds original [2T] ids (o < T: first clip output of
-    triangle o; o >= T: the second). Returns 3 slot lists of A channels,
-    each [v_cap]."""
-    V, A = attrs.shape
-    T = V // 3
-    src = torch.where(cidx < 2 * T, cidx % T, 0).long()
-    ai = attrs.reshape(T, 3 * A)[src].t()  # [3A, v_cap]
-    n_in = ch["n_in"][src]
-    return _attr_slots(ai, A, ch["rot"][src], ch["t_ab"][src],
-                       ch["t_ac"][src], ch["t_bc"][src], n_in == 1,
-                       n_in == 2, cidx >= T)
-
-
 def _tile_span(ch, rows: int, cols: int, tile_window: int):
     """Per-triangle bbox tile span and the small / big classification of
     the bin pass: (tx0, tx1, ty0, ty1, small, big)."""
@@ -402,75 +266,20 @@ def count_big_small(ch, rows: int, cols: int, tile_window: int = 2):
     return small.sum(dtype=torch.int32), big.sum(dtype=torch.int32)
 
 
-def _edge_coeffs(sx, sy):
-    """Edge-plane coefficients w_k = alpha_k px + beta_k py + gamma_k."""
-    alpha, beta, gamma = [], [], []
-    for k in range(3):
-        x1, y1 = sx[(k + 1) % 3], sy[(k + 1) % 3]
-        x2, y2 = sx[(k + 2) % 3], sy[(k + 2) % 3]
-        alpha.append(-(y2 - y1))
-        beta.append(x2 - x1)
-        # (y2 - y1) x1 - (x2 - x1) y1: the left product fuses
-        gamma.append(fma32(y2 - y1, x1, -((x2 - x1) * y1)))
-    return alpha, beta, gamma
-
-
-def _sum3(p, q):
-    """p0 q0 + p1 q1 + p2 q2 as the reference fuses it (core/fp.py)."""
-    return _dot3(p[0], q[0], p[1], q[1], p[2], q[2])
-
-
-def plane_channels(ch, attr_slots):
-    """The shading planes as 3*(A+1) channels, each [N]: A attribute
-    planes (numerators) + the perspective denominator, 3 coeffs each.
-    A = 9 (nx ny nz cr cg cb wx wy wz), or 6 without point lights."""
-    A = len(attr_slots[0])
-    sx = [ch[f"sx{s}"] for s in "abc"]
-    sy = [ch[f"sy{s}"] for s in "abc"]
-    iw = [ch[f"iw{s}"] for s in "abc"]
-    alpha, beta, gamma = _edge_coeffs(sx, sy)
-    inv_area = _recip_guard(ch["area2"], 1e-12)
-    ai = [alpha[k] * iw[k] for k in range(3)]
-    bi = [beta[k] * iw[k] for k in range(3)]
-    gi = [gamma[k] * iw[k] for k in range(3)]
-    chans = []
-    for j in range(A):
-        av = [attr_slots[k][j] for k in range(3)]
-        chans += [_sum3(ai, av) * inv_area, _sum3(bi, av) * inv_area,
-                  _sum3(gi, av) * inv_area]
-    # the denominator plane: sum_k coef_k iw_k, fused as the reference's
-    # compiled table fuses it (for alpha the second product fuses first)
-    chans += [fma32(alpha[2], iw[2], fma32(alpha[1], iw[1], ai[0])) * inv_area,
-              fma32(beta[2], iw[2], fma32(beta[0], iw[0], bi[1])) * inv_area,
-              fma32(gamma[2], iw[2], fma32(gamma[0], iw[0], gi[1])) * inv_area]
-    return chans
-
-
-def build_plane_table(ch, attr_slots) -> torch.Tensor:
-    """Per-triangle shading-plane table [N, 3*(A+1) padded to 8] of
-    plane_channels. At a length that is a multiple of 512 it is packed by
-    ops/pack (kernel B7 on CUDA), as the reference does."""
-    chans = plane_channels(ch, attr_slots)
-    n = chans[0].shape[0]
-    if n % 512 == 0:
-        from ascii_renderer_tpu_torch.ops.pack import pack_channels
-        return pack_channels(chans)
-    table = torch.stack(chans, dim=-1)
-    pad = (-table.shape[1]) % 8
-    if pad:
-        table = torch.cat([table, table.new_zeros((n, pad))], dim=-1)
-    return table
-
-
-def shade_planes_ch(tid, ch, attr_slots, scene: SceneData, rows: int,
-                    cols: int):
+def shade_planes_ch(tid, ch, attrs, scene: SceneData, rows: int,
+                    cols: int, rec=None, cidx=None):
     """Deferred shading via per-triangle screen-space plane coefficients:
-    the plane table, one trailing all-zero background row, then
-    shade_from_table."""
-    table = build_plane_table(ch, attr_slots)
-    table = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+    the plane table of the clipped triangles with its trailing all-zero
+    background row (ops/plane_table: the clip's attribute lerps and the
+    planes, one launch of X3 on CUDA), then shade_from_table. ``ch`` holds
+    the table rows' screen channels, ``rec`` the clip records (``ch``
+    itself when None), attrs f32 [3T, A] the per-vertex attributes, cidx
+    the compacted rows' [2T] ids. The reference takes the attribute slot
+    lists (clip_attrs_channel_lists) where this takes ``attrs``: the kernel
+    applies the lerps itself."""
+    table = PT.plane_table(ch, ch if rec is None else rec, attrs, cidx)
     return shade_from_table(tid, table, scene, rows, cols,
-                            n_attrs=len(attr_slots[0]))
+                            n_attrs=attrs.shape[1])
 
 
 def tile_pairs(ch, rows: int, cols: int, big_cap: int = 64,
@@ -610,6 +419,22 @@ def visibility_binned_ch(ch, rows: int, cols: int, *, kernel: str = "mm",
     return zimg[:rows, :cols], torch.where(tid < 0, -1, tid)
 
 
+def visibility_binned(setup, rows: int, cols: int, slots: int = 256,
+                      tile_window: int = 2, big_cap: int = 64,
+                      slot_chunk: int = 16):
+    """Setup-dict adapter over visibility_binned_ch (for tests and the
+    reference's API; ``slots`` / ``slot_chunk`` are the reference's
+    obsolete no-ops)."""
+    xy, z01 = setup["xy"], setup["z01"]
+    ch = {"sxa": xy[:, 0, 0], "sya": xy[:, 0, 1],
+          "sxb": xy[:, 1, 0], "syb": xy[:, 1, 1],
+          "sxc": xy[:, 2, 0], "syc": xy[:, 2, 1],
+          "sza": z01[:, 0], "szb": z01[:, 1], "szc": z01[:, 2],
+          "valid": setup["valid"]}
+    return visibility_binned_ch(ch, rows, cols, big_cap=big_cap,
+                                tile_window=tile_window)
+
+
 def _reduce3(p, q):
     """sum_k p_k q_k over the last axis (size 3) as the reference's
     compiled reduce runs it: in order, each product fused into the sum."""
@@ -696,12 +521,9 @@ def render_channels_diag(positions, attrs, scene: SceneData, mvp,
     if kernel not in ("mm", "loop", "subtile"):
         raise ValueError(f"render_channels_diag: unknown kernel {kernel!r}")
     with stage("raster.clip"):
-        ch = (transform_clip_channels9(pos9, mvp) if pos9 is not None
-              else transform_clip_channels(positions, mvp))
-        ch = setup_screen_channels(ch, rows, cols)
+        ch = clip_screen_channels(positions, mvp, rows, cols, pos9=pos9)
     with stage("raster.compact"):
         cch, cidx, n_valid = compact_valid_ch(ch, v_cap)
-        attr_slots = clip_attrs_compact_lists(attrs, ch, cidx)
     if kernel == "subtile":
         from ascii_renderer_tpu_torch.backends import raster_oracles as RO
         if tile_cap is None:
@@ -711,11 +533,10 @@ def render_channels_diag(positions, attrs, scene: SceneData, mvp,
         with stage("raster.shade"):
             # the walk emits triangle ids: the shade indexes the plane
             # table directly (one trailing all-zero background row)
-            table = build_plane_table(cch, attr_slots)
-            table = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+            table = PT.plane_table(cch, ch, attrs, cidx)
             rgb = RO.shade_tiles_compact(etile, nonempty, table, scene, rows,
                                          cols, tile_cap=tile_cap,
-                                         n_attrs=len(attr_slots[0]))
+                                         n_attrs=attrs.shape[1])
             _n_small, n_big = count_big_small(cch, rows, cols)
         return rgb, {"n_valid": n_valid, "n_big": n_big, "n_rows": n_rows,
                      "n_pairs": n_pairs,
@@ -724,7 +545,8 @@ def render_channels_diag(positions, attrs, scene: SceneData, mvp,
         _zbuf, tid = visibility_binned_ch(cch, rows, cols, kernel=kernel,
                                           big_cap=big_cap)
     with stage("raster.shade"):
-        rgb = shade_planes_ch(tid, cch, attr_slots, scene, rows, cols)
+        rgb = shade_planes_ch(tid, cch, attrs, scene, rows, cols, rec=ch,
+                              cidx=cidx)
         _n_small, n_big = count_big_small(cch, rows, cols)
     zero = torch.zeros((), dtype=torch.int32, device=rgb.device)
     return rgb, {"n_valid": n_valid, "n_big": n_big, "n_rows": zero,

@@ -89,6 +89,12 @@ SIGNATURES = {
     "rt_trace_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                         _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                         _P, _P, _I, _I, _P, _P, _I, _I, _P),
+    # (src, pos9, mvp16_host, hx, hy, ch, valid, t_rec, i_rec, T, stream)
+    "raster_clip_launch": (_P, _I, _FP, _F, _F, _P, _P, _P, _P, _I, _P),
+    # (screen20_host, cidx, rot, n_in, t_ab, t_ac, t_bc, attrs, table, N, T,
+    #  A, stream)
+    "plane_table_launch": (_LLP, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (bases, out, rows, cols, views, sx, sy, aspect, stream)

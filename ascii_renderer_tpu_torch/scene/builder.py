@@ -36,6 +36,9 @@ class MaterialIds:
     MIRROR = 7
 
 
+DEFAULT_MAT_ID = MaterialIds.WHITE
+
+
 def _u32(x) -> int:
     try:
         n = math.floor(float(x))
@@ -212,7 +215,7 @@ class SceneBuilder:
         (`undefined` -> 0 -> LIGHT exists -> used!), else fall back to WHITE
         (scene_api.js:133)."""
         mid = _u32(mat_id)
-        return mid if mid in self._materials else MaterialIds.WHITE
+        return mid if mid in self._materials else DEFAULT_MAT_ID
 
     def set_camera_pose(self, pos=(2.78, 2.73, -8.00), *, yaw=0.0, pitch=0.0,
                         fovy_deg=80.0) -> "SceneBuilder":
@@ -258,7 +261,7 @@ class SceneBuilder:
         return self
 
     def add_sphere(self, center=(0, 0, 0), radius=1.0,
-                   material_id=MaterialIds.WHITE) -> "SceneBuilder":
+                   material_id=DEFAULT_MAT_ID) -> "SceneBuilder":
         center = _v3(center)
         if not all(math.isfinite(v) for v in center + [radius]):
             raise ValueError("add_sphere: bad args")
@@ -269,7 +272,7 @@ class SceneBuilder:
         return self
 
     def add_triangle(self, a=(0, 0, 0), b=(1, 0, 0), c=(0, 1, 0),
-                     material_id=MaterialIds.WHITE,
+                     material_id=DEFAULT_MAT_ID,
                      uv_a=(0, 0), uv_b=(0, 0), uv_c=(0, 0)) -> "SceneBuilder":
         a, b, c = _v3(a), _v3(b), _v3(c)
         if not all(math.isfinite(v) for v in a + b + c):
@@ -283,7 +286,7 @@ class SceneBuilder:
         return self
 
     def add_quad(self, a=(0, 0, 0), b=(1, 0, 0), c=(1, 1, 0), d=(0, 1, 0),
-                 material_id=MaterialIds.WHITE, uv0=(0, 0), uv1=(0, 0),
+                 material_id=DEFAULT_MAT_ID, uv0=(0, 0), uv1=(0, 0),
                  uv2=(0, 0), uv3=(0, 0)) -> "SceneBuilder":
         a, b, c, d = _v3(a), _v3(b), _v3(c), _v3(d)
         if not all(math.isfinite(v) for v in a + b + c + d):
@@ -297,14 +300,14 @@ class SceneBuilder:
                             "uv3": u(uv3)})
         return self
 
-    def add_rect(self, p00, p10, p11, p01, material_id=MaterialIds.WHITE,
+    def add_rect(self, p00, p10, p11, p01, material_id=DEFAULT_MAT_ID,
                  uv00=(0, 0), uv10=(0, 0), uv11=(0, 0),
                  uv01=(0, 0)) -> "SceneBuilder":
         return self.add_quad(p00, p10, p11, p01, material_id, uv00, uv10,
                              uv11, uv01)
 
     def add_plane(self, normal=(0, 1, 0), d=0.0,
-                  material_id=MaterialIds.WHITE) -> "SceneBuilder":
+                  material_id=DEFAULT_MAT_ID) -> "SceneBuilder":
         n = np.asarray(_v3(normal), dtype=np.float64)
         ln = float(np.linalg.norm(n)) or 1.0
         if len(self._planes) >= self._max_p:
@@ -314,7 +317,7 @@ class SceneBuilder:
         return self
 
     def add_mesh(self, positions: Sequence[float], indices=None, uvs=None,
-                 material_id=MaterialIds.WHITE) -> "SceneBuilder":
+                 material_id=DEFAULT_MAT_ID) -> "SceneBuilder":
         """Triangle soup / indexed mesh helper (scene_api.js:169-192):
         flat xyz positions; indexed triangles with an index out of range
         are skipped; uvs are flat per-vertex u16 texel pairs."""
@@ -602,22 +605,22 @@ def from_object(obj: dict) -> SceneBuilder:
         sb.add_dir_light(L.get("dir", [0, -1, 0]), L.get("color", [1, 1, 1]),
                          L.get("intensity", 0.0))
     geo = obj.get("geometry") or {}
-    white = MaterialIds.WHITE
     for s in geo.get("spheres", []):
         sb.add_sphere(s.get("p", [0, 0, 0]), float(s.get("r") or 1.0),
-                      _u32(s.get("matId", white)))
+                      _u32(s.get("matId", DEFAULT_MAT_ID)))
     for t in geo.get("tris", []):
         sb.add_triangle(t.get("a", [0, 0, 0]), t.get("b", [1, 0, 0]),
-                        t.get("c", [0, 1, 0]), _u32(t.get("matId", white)),
+                        t.get("c", [0, 1, 0]),
+                        _u32(t.get("matId", DEFAULT_MAT_ID)),
                         t.get("uvA", (0, 0)), t.get("uvB", (0, 0)),
                         t.get("uvC", (0, 0)))
     for q in geo.get("quads", []):
         sb.add_quad(q.get("a", [0, 0, 0]), q.get("b", [1, 0, 0]),
                     q.get("c", [1, 1, 0]), q.get("d", [0, 1, 0]),
-                    _u32(q.get("matId", white)),
+                    _u32(q.get("matId", DEFAULT_MAT_ID)),
                     q.get("uv0", (0, 0)), q.get("uv1", (0, 0)),
                     q.get("uv2", (0, 0)), q.get("uv3", (0, 0)))
     for p in geo.get("planes", []):
         sb.add_plane(p.get("n", [0, 1, 0]), float(p.get("d") or 0.0),
-                     _u32(p.get("matId", white)))
+                     _u32(p.get("matId", DEFAULT_MAT_ID)))
     return sb

@@ -1,9 +1,10 @@
 """A/B of the path-trace megakernel B5, the bin walks B6 / B6', the
 fused-shading walk B8, the grouped walks B1, B9d, B9e and B9f, the
-subtile walks B9a, B9b and B9c, the modal vote B4 and the packs B3, B7
-and B7', the frame median and busy time of the path tracer's frames, and
-the median, busy time and launches of the paths the kernels for XLA code
-serve, between two checkouts of the repo on one card.
+subtile walks B9a, B9b and B9c, the modal vote B4, the packs B3, B7 and
+B7', the raster front end's clip X4 and plane table X3, the frame median
+and busy time of the path tracer's frames, and the median, busy time and
+launches of the paths the kernels for XLA code serve, between two
+checkouts of the repo on one card.
 
 Each side runs in its own process with its own checkout's
 ``ascii_renderer_tpu_torch`` (kernels built from that checkout's
@@ -50,11 +51,20 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
   through ``Renderer``: their ray grids are the port's own, so this is
   where a change of the ray-grid arithmetic shows (frames are not
   digested: each side's rays are its own);
+- the raster front end of the small and mid paths (``front``): the clip
+  with its screen setup (X4, ``ops/raster_clip.clip_screen``) and the
+  plane table (X3, ``ops/plane_table.plane_table``) at the calls of the
+  entry() room, the teapot 240x135 and the mid-scale HD arm, by CUDA
+  events around whole calls (a side without those modules runs the torch
+  chain the paths ran before them: ``setup_screen_channels(
+  transform_clip_channels[9](...))`` and ``build_plane_table`` of the
+  attribute lerps, then the zero row); the dicts and tables are digested;
 - the host median, device busy ms and kernel launches a call of the
   paths the kernels for XLA code serve (``paths``): the raster headline
-  frame, the entry() step, the mid-scale HD arm, the ray tracer's frame
-  and the 1,024-view farm (and its views/s); the headline's and the
-  farm's glyph grids are digested.
+  frame, the entry() step, the teapot 240x135, the mid-scale HD arm, the
+  ray tracer's frame and the 1,024-view farm (and its views/s); the
+  headline's, the entry() step's, the teapot's, the mid-scale HD arm's
+  and the farm's outputs are digested.
 
 Both sides' outputs must be bit-identical (a digest per kernel and shape);
 the inputs are built by the side's own package from this checkout's
@@ -143,7 +153,8 @@ def _shared_rays(cs, dev, rows: int, cols: int, B: int):
 def worker(root: str) -> dict:
     """Times the jitted ray grid, B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a,
     B9b, B9c, B4, B7, B7' and B3, the PT frames' median and busy time,
-    and the paths of ``paths``, with the package of checkout ``root``."""
+    the front end of ``front`` and the paths of ``paths``, with the
+    package of checkout ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -276,6 +287,7 @@ def worker(root: str) -> dict:
         out["frame_ms"][label] = statistics.median(cs._timed(frame, 20))
         out["busy_ms"][label] = cs.profile_frames(
             frame, 3, ("pt.", "frame.", "glyph"), label)[0]
+    front(cs, dev, out)
     paths(cs, dev, out)
     cm3, spans = cs.b3_headline_inputs(dev)
     out["digest"]["B3 headline"] = _digest(
@@ -286,15 +298,88 @@ def worker(root: str) -> dict:
     return out
 
 
+def _front_fns(R, pos9, src, mvp, grid, attrs, v_cap):
+    """(clip, table) of one caller: X4 and X3 where the side's package has
+    them, else the torch chain its paths ran; ``v_cap`` None: the table
+    uncompacted, else at a compaction to v_cap."""
+    import torch
+    try:
+        from ascii_renderer_tpu_torch.ops import plane_table as PT
+        from ascii_renderer_tpu_torch.ops import raster_clip as RCL
+    except ImportError:
+        PT = RCL = None
+    if RCL is not None:
+        def clip():
+            return RCL.clip_screen(src, mvp, *grid, pos9=pos9)
+    else:
+        chain = R.transform_clip_channels9 if pos9 else \
+            R.transform_clip_channels
+
+        def clip():
+            return R.setup_screen_channels(chain(src, mvp), *grid)
+    ch = clip()
+    cch, cidx = (ch, None) if v_cap is None else R.compact_valid_ch(
+        dict(ch), v_cap)[:2]
+    if PT is not None:
+        def table():
+            return PT.plane_table(cch, ch, attrs, cidx)
+    else:
+        def table():
+            slots = (R.clip_attrs_channel_lists(attrs, ch) if cidx is None
+                     else R.clip_attrs_compact_lists(attrs, ch, cidx))
+            t = R.build_plane_table(cch, slots)
+            return torch.cat([t, t.new_zeros((1, t.shape[1]))])
+    return clip, table
+
+
+def front(cs, dev, out) -> None:
+    """X4 and X3 (or the side's torch chains) at the calls of the entry()
+    room (positions, the table uncompacted, 9 attributes), the teapot and
+    the mid-scale HD arm (pos9, the table at the steady cap, 6 attributes:
+    chip_smoke._mid_prep's caps): ms a call by CUDA events over 20 calls,
+    the outputs digested."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    out["x4_ms"], out["x3_ms"] = {}, {}
+    scene, (p, n, c) = cs._room(dev)
+    runs = {"entry() room 96x36": (
+        False, p, R.camera_mvp(scene.camera, *cs.ENTRY_GRID, cs.PIXEL_ASPECT),
+        cs.ENTRY_GRID, torch.cat([n, c, p], dim=1), None)}
+    for label, name, grid in (("teapot 240x135", "teapot", cs.TEAPOT_GRID),
+                              ("mid-scale HD 960x540", "mid", cs.MID_GRID)):
+        msoup, mcam = cs._mesh(name)
+        mp, mn, mc = (torch.from_numpy(x).to(dev) for x in msoup)
+        mscene = cs._scene(dev)
+        caps = cs._mid_prep((mp, mn, mc), mscene, mcam, *grid)[2]
+        parts = [mn, mc] + ([mp] if mscene.pt_pos.shape[0] else [])
+        runs[label] = (True, R.positions_to_pos9(mp), R.camera_mvp(
+            mcam, *grid, cs.PIXEL_ASPECT), grid, torch.cat(parts, dim=1),
+            caps[0])
+    for label, (pos9, src, mvp, grid, attrs, v_cap) in runs.items():
+        clip, table = _front_fns(R, pos9, src, mvp, grid, attrs, v_cap)
+        ch = clip()
+        out["digest"][f"X4 {label}"] = _digest(
+            [ch[k] if ch[k].dtype != torch.bool else ch[k].to(torch.int32)
+             for k in sorted(ch)])
+        out["digest"][f"X3 {label}"] = _digest([table()])
+        out["x4_ms"][label] = cs._event_ms(clip, 20)
+        out["x3_ms"][label] = cs._event_ms(table, 20)
+
+
 def paths(cs, dev, out) -> None:
     """The host median (``chip_smoke._timed``), device busy ms and kernel
     launches a call (``chip_smoke.profile_frames``, 3 calls) of the paths
     the kernels for XLA code serve: the raster headline frame (960x540),
-    the entry() step (96x36), the mid-scale HD arm (960x540), the ray
-    tracer's frame (96x36) and the 1,024-view farm (views/s); each
-    driven, and its first frames checked, by chip_smoke's own run_*
-    function. The headline's and the farm's glyph grids are digested."""
+    the entry() step (96x36), the teapot (240x135), the mid-scale HD arm
+    (960x540), the ray tracer's frame (96x36) and the 1,024-view farm
+    (views/s); each driven, and its first frames checked, by chip_smoke's
+    own run_* function. The headline's and the farm's glyph grids, the
+    entry() step's first chars and the teapot's and the mid-scale HD arm's
+    second frames are digested."""
     import torch
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.entry import entry
     for key in ("path_ms", "path_busy_ms", "path_launches"):
         out[key] = {}
     soup, scene = cs._bunny(), cs._scene(dev)
@@ -306,8 +391,21 @@ def paths(cs, dev, out) -> None:
     farm = cs.run_farm_path(dev)
     out["digest"]["headline frame 0 chars"] = _digest([headline()])
     out["digest"]["view farm chars"] = _digest([farm()])
+    fn, args = entry()
+    out["digest"]["entry step frame 0 chars"] = _digest(
+        [fn(*args)[1].to(torch.int32)])
+    for name, grid in (("teapot", cs.TEAPOT_GRID), ("mid", cs.MID_GRID)):
+        msoup, mcam = cs._mesh(name)
+        be = RasterBackend(Config(pixel_aspect=cs.PIXEL_ASPECT), device=dev)
+        be.set_soup(*msoup, cs._scene(dev))
+        rgb = [be.render(0.0, mcam, *grid, cs.PIXEL_ASPECT).rgb
+               for _ in range(2)][-1]
+        out["digest"][f"{name} frame 1 rgb"] = _digest([rgb.to(torch.int32)])
     runs = {"headline frame 960x540": (headline, 20, "raster."),
             "entry step 96x36": (cs.run_entry_path(), 20, "raster."),
+            "teapot 240x135": (cs.run_raster_mesh_path(
+                dev, "teapot", cs.TEAPOT_GRID, 2, 0, 10, "teapot 240x135"),
+                20, "raster."),
             "mid-scale HD arm 960x540": (cs.run_raster_mesh_path(
                 dev, "mid", cs.MID_GRID, 2, 0, 10, "mid-scale HD 960x540"),
                 20, "raster."),
@@ -356,8 +454,9 @@ def main() -> int:
     summary = {}
     for key in ("jit_grid_ms", "b5_ms", "b6_ms", "b8_ms", "b1_ms",
                 "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
-                "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "frame_ms", "busy_ms",
-                "path_ms", "path_busy_ms", "path_launches"):
+                "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "x4_ms", "x3_ms",
+                "frame_ms", "busy_ms", "path_ms", "path_busy_ms",
+                "path_launches"):
         for shape in runs[0][1][key]:
             name = key[:-3] if key.endswith("_ms") else key
             summary[f"{name.capitalize()} {shape}"] = {

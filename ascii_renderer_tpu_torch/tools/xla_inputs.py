@@ -1,9 +1,11 @@
 """Inputs of the kernels that stand for XLA code (``ops/fp``,
-``ops/raster_shade``, ``ops/rt_trace``), made from seeds: operands of
-``fma32`` (random, constructed float32 midpoint ties, subnormal and
-special values, each operand form the wrapper packs), scenes and shade
-tables for the deferred shade, and the ray tracer's test scenes. The
-kernels' tests and ``chip_smoke.py``'s checks build their inputs here."""
+``ops/raster_shade``, ``ops/rt_trace``, ``ops/raster_clip``,
+``ops/plane_table``), made from seeds: operands of ``fma32`` (random,
+constructed float32 midpoint ties, subnormal and special values, each
+operand form the wrapper packs), scenes and shade tables for the deferred
+shade, the ray tracer's test scenes, and triangle soups at the near plane
+for the clip and the plane table. The kernels' tests and
+``chip_smoke.py``'s checks build their inputs here."""
 
 import numpy as np
 import torch
@@ -152,3 +154,43 @@ def rt_scene(name, device):
 
 
 RT_SCENES = ("rt_demo", "tris_quad", "two_lights", "one_sphere")
+
+
+# the camera of front_soup: at the near plane of the soup's triangles
+FRONT_CAM = dict(pos=(0.0, 0.2, 0.3), yaw=-np.pi / 2, pitch=-0.1)
+
+
+def front_soup(T, mvp, seed):
+    """T random triangles straddling the near plane, with attributes
+    [3T, 9]; triangles 0-9 are a point and 10-19 are collinear
+    (degenerate), 20-29 lie on the camera's w = 0 plane (w near 0 once
+    rounded) and 30-39 have one vertex there, 40-44 lie at the eye and
+    45-49 have one vertex there."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-2, 2, (3 * T, 3))
+    p[:, 2] = rng.uniform(-1.5, 1.0, 3 * T)
+    for t in range(10):
+        p[3 * t + 1] = p[3 * t + 2] = p[3 * t]
+    for t in range(10, 20):
+        p[3 * t + 2] = 2.0 * p[3 * t + 1] - p[3 * t]
+    m = np.asarray(mvp, np.float64)
+    for t in range(20, 40):  # z on w = m30 x + m31 y + m32 z + m33 = 0
+        for i in range(3) if t < 30 else (t % 3,):
+            v = p[3 * t + i]
+            v[2] = -(m[3, 0] * v[0] + m[3, 1] * v[1] + m[3, 3]) / m[3, 2]
+    for t in range(40, 50):
+        for i in range(3) if t < 45 else (t % 3,):
+            p[3 * t + i] = FRONT_CAM["pos"]
+    attrs = rng.uniform(-1, 1, (3 * T, 9)).astype(np.float32)
+    return p.astype(np.float32), attrs
+
+
+def front_inputs(T, seed, device, rows=36, cols=96):
+    """(positions f32 [3T, 3], attrs f32 [3T, 9] on ``device``, mvp) of
+    front_soup, the MVP the port's camera_mvp at FRONT_CAM (pixel aspect
+    0.5, rows x cols)."""
+    from ascii_renderer_tpu_torch.backends.raster import camera_mvp
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    mvp = camera_mvp(Camera.create(**FRONT_CAM), rows, cols, 0.5)
+    p, a = front_soup(T, mvp.numpy(), seed)
+    return torch.from_numpy(p).to(device), torch.from_numpy(a).to(device), mvp

@@ -67,6 +67,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    - the plane-table packs B7 (pack_channels) and B7' (pack_channels_split)
      at the teapot's and the HD arm's table widths and lengths, and B7' at
      the reference's exactness shape [40, 69632]: bit-exact;
+   - the small and mid raster paths' front end, two kernels for XLA code:
+     the clip with its screen setup (X4, ops/raster_clip) and the plane
+     table with its attribute lerps (X3, ops/plane_table), on the inputs
+     each caller gives them (captured from a call of each path: entry()'s
+     room, the cube, the teapot and the mid-scale HD arm at their settled
+     caps, the bunny's "fused" clip and "subtile" table) and on a seeded
+     60,000-triangle soup at the near plane (both vertex layouts, the
+     table uncompacted and compacted): the dict and the table bit for bit
+     (NaN in the same places); each timed at the mid-scale HD arm's call;
    - the grouped generations' kernels on the inputs of the golden call's
      bunny frame (render_soup(method=g) at the caps of
      tests/test_headline_goldens.py:49-52) and on a random 48x96 soup at
@@ -171,7 +180,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      (the pixels mode's glyph bitmap) is profiled.
    Each path's kernels must have launched: the raster paths' shade
    through K2, every frame of the ray tracer and each farm through K3
-   (a farm launches K3 once), fma32 through K1. Frames of every path are
+   (a farm launches K3 once), fma32 through K1, the entry() step's, the
+   cube's, the teapot's, the mid-scale HD arm's and the subtile path's
+   clip and table through X4 and X3 (the fused path's clip through X4).
+   K3's launches are recorded by size (rays) on the driven paths, and
+   each size is timed at the end: its loss, launches x (kernel - bound),
+   goes into K3's record. Frames of every path are
    profiled (stage host ms, device span and kernel launches, device busy
    share; tables in smoke_out/, git-ignored).
 5. Prints the script's total time, {"kernels": [...]} and, as the last
@@ -1776,11 +1790,17 @@ def _same_bits(got, want, what):
         f"{w.numel()} values differ"
 
 
+# port functions whose reference code sits inside another function there
+JAX_HOSTS = {"plane_entries": "visibility_binned_ch"}
+
+
 def _jax_def_line(port_file, fn):
     """``ascii_renderer_tpu/<path>:<line>`` of the reference's ``def fn``
-    for a module of the port (the source is read, never imported)."""
+    (or of the function that holds its code, JAX_HOSTS) for a module of the
+    port (the source is read, never imported)."""
     rel = os.path.relpath(port_file, ROOT).replace(
         "ascii_renderer_tpu_torch", "ascii_renderer_tpu", 1)
+    fn = JAX_HOSTS.get(fn, fn)
     with open(os.path.join(ROOT, rel)) as fh:
         for i, line in enumerate(fh, 1):
             if line.startswith(f"def {fn}("):
@@ -1792,9 +1812,9 @@ def mid_frame_calls(dev):
     """One frame of the mid-scale HD arm (RasterBackend, 14,884 triangles,
     960x540) with the kernel wrappers of fma32 and the shade recorded,
     each fma32 call held to fma32_f64 on its own operands as it is made:
-    (the largest fma32 call's operands, the ``def`` it came from in the
-    reference, fma32 calls in the frame, the last shade call's
-    arguments)."""
+    (the largest fma32 call's operands, the ``def`` in the reference of
+    the backend function it came from, fma32 calls in the frame, the last
+    shade call's arguments)."""
     from ascii_renderer_tpu_torch.backends.raster import RasterBackend
     from ascii_renderer_tpu_torch.core.config import Config
     from ascii_renderer_tpu_torch.core.fp import fma32_f64
@@ -1804,7 +1824,10 @@ def mid_frame_calls(dev):
 
     def rec(a, b, c):
         out = real(a, b, c)
-        f = sys._getframe(2)  # core/fp.fma32's caller
+        f = sys._getframe(2)  # core/fp.fma32's caller, or the backend
+        while f.f_back is not None and os.sep + "backends" + os.sep not in \
+                f.f_code.co_filename:  # function that called its helper
+            f = f.f_back
         _same_bits(out, fma32_f64(a, b, c), f"fma32 call {len(calls)} of a "
                    f"mid HD frame, from {f.f_code.co_name}")
         calls.append((out.numel(), (a, b, c), f.f_code.co_filename,
@@ -3495,6 +3518,198 @@ def check_pack_channels(dev, mid_preps):
     return recs
 
 
+# float operations a triangle slot of X4 and a table row of X3 (a fused
+# product-add two), counted from csrc/raster_clip.cu and plane_table.cu:
+# X4's vertex transforms, clip ratios and lerps and both output triangles'
+# setup; X3's edge coefficients and reciprocal, then per attribute its
+# three lerps and three planes, and the denominator
+X4_OPS_SLOT = 197
+X3_OPS_ROW, X3_OPS_ATTR = 46, 27
+ROWS_COLS_FRONT = (270, 480)  # the near-plane soup's grid
+
+
+def _capture_last(mods_names, run):
+    """Run ``run()`` recording the arguments of the LAST call of each
+    ``mod.name`` in ``mods_names``: the inputs a path's steady frame gives
+    a kernel wrapper. Returns {name: (args, kwargs) or None}."""
+    seen = {name: None for _mod, name in mods_names}
+    origs = [(mod, name, getattr(mod, name)) for mod, name in mods_names]
+    for mod, name, orig in origs:
+        def rec(*a, _orig=orig, _name=name, **k):
+            seen[_name] = (a, k)
+            return _orig(*a, **k)
+        setattr(mod, name, rec)
+    try:
+        run()
+    finally:
+        for mod, name, orig in origs:
+            setattr(mod, name, orig)
+    return seen
+
+
+def _front_calls(dev, soup, scene, caps):
+    """The inputs each caller gives X4 (clip_screen) and X3 (plane_table):
+    entry()'s step (the demo room at 96x36), the cube at 80x24 through
+    render_soup's binned walk, the teapot 240x135 and the mid-scale HD arm
+    (RasterBackend, a second frame at its settled caps), the bunny's
+    "fused" call (its clip) and "subtile" call (its table) at the golden
+    pose, and a seeded soup of 60,000 triangles at the near plane (both
+    vertex layouts; its table uncompacted with 9 attributes and at a
+    compaction with 6). Returns {kernel: {caller: (args, kwargs)}}."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.entry import entry
+    from ascii_renderer_tpu_torch.ops import plane_table as PT
+    from ascii_renderer_tpu_torch.ops import raster_clip as RCL
+    from ascii_renderer_tpu_torch.tools.xla_inputs import front_inputs
+    wrappers = ((RCL, "clip_screen"), (PT, "plane_table"))
+    runs = {}
+    fn, args = entry(device=dev)
+    runs["entry() room 96x36"] = lambda: fn(*args)
+    (cp, cn, cc), ccam = _mesh("cube")
+    cube = tuple(torch.from_numpy(x).to(dev) for x in (cp, cn, cc))
+    cscene = _cube_scene(dev)
+    runs["cube 80x24"] = lambda: R.render_soup(
+        *cube, cscene, ccam, *CUBE_GRID, PIXEL_ASPECT, method="scatter")
+    for label, name, grid in (("teapot 240x135", "teapot", TEAPOT_GRID),
+                              ("mid-scale HD 960x540", "mid", MID_GRID)):
+        msoup, mcam = _mesh(name)
+        be = RasterBackend(Config(pixel_aspect=PIXEL_ASPECT), device=dev)
+        be.set_soup(*msoup, _scene(dev))
+        runs[label] = lambda be=be, mcam=mcam, grid=grid: [be.render(
+            0.0, mcam, *grid, PIXEL_ASPECT) for _ in range(2)]
+    for method in ("fused", "subtile"):
+        runs[f"bunny {method} 960x540"] = _oracle_frame(
+            dev, soup, scene, method, caps.get(method, {}))
+    out = {"clip_screen": {}, "plane_table": {}}
+    for label, run in runs.items():
+        for name, call in _capture_last(wrappers, run).items():
+            if call is not None:
+                out[name][label] = call
+    p, attrs, mvp = front_inputs(60000, 16, dev, *ROWS_COLS_FRONT)
+    pos9 = R.positions_to_pos9(p)
+    near = "near-plane soup 60,000 triangles"
+    out["clip_screen"][near] = ((p, mvp, *ROWS_COLS_FRONT), {})
+    out["clip_screen"][near + ", pos9"] = (
+        (pos9, mvp, *ROWS_COLS_FRONT), {"pos9": True})
+    ch = RCL.clip_screen(p, mvp, *ROWS_COLS_FRONT)
+    cch, cidx, _n = R.compact_valid_ch(dict(ch), 65536)
+    out["plane_table"][near] = ((ch, ch, attrs), {})
+    out["plane_table"][near + ", compacted, 6 attributes"] = (
+        (cch, ch, attrs[:, :6].contiguous(), cidx), {})
+    return out
+
+
+def _same_dict(got, want, what):
+    """A channel dict bit for bit: keys in order, dtypes, NaN places."""
+    import torch
+    assert list(got) == list(want), f"{what}: keys {list(got)}"
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, \
+            f"{what}: {k} {got[k].dtype} {tuple(got[k].shape)}"
+        if w.dtype == torch.float32:
+            _same_bits(got[k], w, f"{what}: {k}")
+        else:
+            assert torch.equal(got[k], w), f"{what}: {k} differs"
+
+
+def _x4_bound(args, kw):
+    """X4's least work: each slot's 9 coordinates read once, 25 floats of
+    each of its two output slots, 2 valid bytes and 20 bytes of records
+    written once; X4_OPS_SLOT operations a slot."""
+    src = args[0]
+    T = src.shape[1] if kw.get("pos9") else src.shape[0] // 3
+    return _bound(36 * T + 200 * T + 2 * T + 20 * T, X4_OPS_SLOT * T), T
+
+
+def _x3_bound(args):
+    """X3's least work: the rows' 10 screen floats (and cidx) read once,
+    the records and 3A attributes of each distinct source slot a row reads
+    read once, the [N + 1, W] table written once; X3_OPS_ROW +
+    X3_OPS_ATTR A operations a row."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import plane_table as PT
+    ch, rec, attrs = args[:3]
+    cidx = args[3] if len(args) > 3 else None
+    N, T, A = ch["sxa"].shape[0], rec["rot"].shape[0], attrs.shape[1]
+    if cidx is None:
+        n_src = T
+    else:
+        src = torch.where(cidx < 2 * T, cidx % T, 0)
+        n_src = torch.unique(src).numel()
+    n_bytes = (40 * N + (0 if cidx is None else 4 * N)
+               + (20 + 12 * A) * n_src + 4 * (N + 1) * PT.table_width(A))
+    return _bound(n_bytes, (X3_OPS_ROW + X3_OPS_ATTR * A) * N), N, A, n_src
+
+
+def check_front_kernels(dev, soup, scene, caps):
+    """X4 (the clip with its screen setup, one launch of
+    csrc/raster_clip.cu) and X3 (the plane table with its attribute lerps,
+    one launch of csrc/plane_table.cu) against their plain versions on the
+    inputs each caller gives them (_front_calls): the dict and the table
+    bit for bit (NaN in the same places). Each timed at the mid-scale HD
+    arm's call. Returns the two records."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import plane_table as PT
+    from ascii_renderer_tpu_torch.ops import raster_clip as RCL
+    calls = _front_calls(dev, soup, scene, caps)
+    lines = []
+    for label, (args, kw) in calls["clip_screen"].items():
+        got, want = RCL.clip_screen(*args, **kw), RCL.clip_screen_ref(*args,
+                                                                      **kw)
+        torch.cuda.synchronize()
+        _same_dict(got, want, f"X4 {label}")
+        T = _x4_bound(args, kw)[1]
+        assert int(want["valid"].sum()) > 0, label
+        lines.append(f"{label} ({T} slots{', pos9' if kw.get('pos9') else ''}"
+                     f", {int(want['valid'].sum())} valid)")
+    print(f"clip (X4): bit-identical to the plain version for "
+          f"{'; '.join(lines)}", flush=True)
+    lines = []
+    for label, (args, kw) in calls["plane_table"].items():
+        got, want = PT.plane_table(*args, **kw), PT.plane_table_ref(*args,
+                                                                    **kw)
+        torch.cuda.synchronize()
+        _same_bits(got, want, f"X3 {label}")
+        _b, N, A, n_src = _x3_bound(args)
+        compacted = len(args) > 3 and args[3] is not None
+        lines.append(f"{label} ({N} rows{', compacted' if compacted else ''}"
+                     f", {A} attributes, {n_src} source slots, "
+                     f"{'B7 layout' if N % 512 == 0 else 'stacked'})")
+    print(f"plane table (X3): bit-identical to the plain version for "
+          f"{'; '.join(lines)}", flush=True)
+    recs = []
+    timed = "mid-scale HD 960x540"
+    args, kw = calls["clip_screen"][timed]
+    ms = _device_ms(lambda: RCL.clip_screen(*args, **kw),
+                    "raster_clip_kernel", RCL.LAUNCHES_PER_CALL["clip_screen"])
+    plain = _event_ms(lambda: RCL.clip_screen_ref(*args, **kw), 5)
+    bound, T = _x4_bound(args, kw)
+    print(f"clip (X4) at the {timed} arm's call ({T} slots): kernel "
+          f"{ms:.5f} ms, plain {plain:.3f} ms, bound {bound[0]:.5f} ms "
+          f"({bound[1]})", flush=True)
+    rec = _rec("raster_clip", "raster_clip.cu", "", 0.0, ms, plain, bound)
+    rec.update(replaces="ascii_renderer_tpu/backends/raster_channels.py:139",
+               slots=T)
+    recs.append(rec)
+    args, kw = calls["plane_table"][timed]
+    ms = _device_ms(lambda: PT.plane_table(*args, **kw),
+                    "plane_table_kernel", PT.LAUNCHES_PER_CALL["plane_table"])
+    plain = _event_ms(lambda: PT.plane_table_ref(*args, **kw), 5)
+    bound, N, A, n_src = _x3_bound(args)
+    print(f"plane table (X3) at the {timed} arm's call ({N} rows, {A} "
+          f"attributes, {n_src} source slots): kernel {ms:.5f} ms, plain "
+          f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]})",
+          flush=True)
+    rec = _rec("plane_table", "plane_table.cu", "", 0.0, ms, plain, bound)
+    rec.update(replaces="ascii_renderer_tpu/backends/raster_channels.py:481",
+               rows=N, attrs=A)
+    recs.append(rec)
+    return recs
+
+
 def _step_frames(fn, state, args, n):
     for _ in range(n):
         state, chars, tint = fn(args[0], state, *args[2:])
@@ -3636,12 +3851,61 @@ def run_pt_step_path(dev):
     return one
 
 
-def _path_counts(counters, run):
-    """Zero every launch count, run the path, return the counts."""
+# while a driven path runs (_path_counts), the K3 launches it makes are
+# recorded by size (_record_k3)
+_DRIVEN = [False]
+
+
+def _path_counts(counters, run, record=True):
+    """Zero every launch count, run the path, return the counts. With
+    ``record`` the path is one of the driven paths whose K3 launch sizes
+    _record_k3 keeps."""
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    out = run()
+    _DRIVEN[0] = record
+    try:
+        out = run()
+    finally:
+        _DRIVEN[0] = False
     return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}, out
+
+
+def _record_k3(RTK):
+    """Wrap ops/rt_trace.trace so that it keeps, while a driven path runs,
+    the first call's arguments at each launch size (rays) and the launches
+    at it. Returns ({rays: [args, kwargs, launches]}, the real trace)."""
+    real, sizes = RTK.trace, {}
+
+    def trace(*a, **k):
+        out = real(*a, **k)
+        if _DRIVEN[0]:
+            rays = a[3].shape[0] * a[3].shape[1]
+            sizes.setdefault(rays, [a, k, 0])[2] += 1
+        return out
+
+    RTK.trace = trace
+    return sizes, real
+
+
+def k3_loss(sizes, trace, rec):
+    """K3's loss on the driven paths from the sizes of its launches: each
+    size's device ms (at its first driven call's rays) less its bound,
+    times its launches. Adds them to the record (main checks their sum
+    against the driven paths' count); returns the loss."""
+    loss, parts = 0.0, []
+    for rays, (a, k, n) in sorted(sizes.items()):
+        ms = _device_ms(lambda: trace(*a, **k), "rt_trace_kernel", 1)
+        scene, pr, cam, rd3 = a[:4]
+        bound = _bound(24 * rays + _nbytes(cam), _rt_ops(scene, pr, cam,
+                                                         rd3)[0])[0]
+        loss += n * (ms - bound)
+        parts.append(dict(rays=rays, launches=n, ms=ms, bound_ms=bound))
+    print("rt trace (K3) launch sizes on the driven paths: " + "; ".join(
+        f"{p['rays']} rays: {p['launches']} launches, kernel {p['ms']:.5f} "
+        f"ms, bound {p['bound_ms']:.5f} ms" for p in parts)
+        + f"; loss {loss:.3f} ms", flush=True)
+    rec.update(launch_sizes=parts, loss_ms=loss)
+    return loss
 
 
 # kernels the parallel phase must launch: both ray grids, B5, B4 (the
@@ -3665,8 +3929,10 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
     from ascii_renderer_tpu_torch.ops import fp as KFP
     from ascii_renderer_tpu_torch.ops import pack as PK
+    from ascii_renderer_tpu_torch.ops import plane_table as PT
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
+    from ascii_renderer_tpu_torch.ops import raster_clip as RCL
     from ascii_renderer_tpu_torch.ops import raster_group as RG
     from ascii_renderer_tpu_torch.ops import raster_shade as RSH
     from ascii_renderer_tpu_torch.ops import ray_grid as RYG
@@ -3691,6 +3957,7 @@ def main() -> int:
         print(f"ptxas: {line}", flush=True)
 
     dev = torch.device("cuda:0")
+    k3_sizes, k3_trace = _record_k3(RTK)
     # each kernel's wrapper module and launch counter
     counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
                 "raster_group_walk": (RG, "launches"),
@@ -3712,7 +3979,9 @@ def main() -> int:
                 "ray_grid_jit": (RYG, "jit_launches"),
                 "pt_megakernel_gated": (PTK, "launches_gated"),
                 "fma32": (KFP, "launches"), "raster_shade": (RSH, "launches"),
-                "rt_trace": (RTK, "launches")}
+                "rt_trace": (RTK, "launches"),
+                "raster_clip": (RCL, "launches"),
+                "plane_table": (PT, "launches")}
     # fma32 first: the other kernels' plain versions call it
     fma_rec, mid_shade = check_fma32(dev)
     soup = _bunny()
@@ -3788,6 +4057,10 @@ def main() -> int:
         assert c_or[path]["modal_vote"] > 0, f"B4 not launched on {path}"
     for path in ("subtile", "subtile2"):
         assert c_or[path]["raster_shade"] > 0, f"K2 not launched on {path}"
+    for path, kernels in (("fused", ("raster_clip",)),
+                          ("subtile", ("raster_clip", "plane_table"))):
+        for k in kernels:
+            assert c_or[path][k] > 0, f"{k} not launched on {path}"
     assert c_or["subtile2"]["pack_channels"] > 0, "B7 not launched: subtile2"
     for method, fn in or_frames.items():  # B8, B9b, B9c in their frames
         profile_frames(fn, 3, ("raster.", "frame.", "glyph"),
@@ -3828,17 +4101,20 @@ def main() -> int:
               f"{mid_preps[-1][2][2]}", flush=True)
     recs += check_bins_kernels(dev, room, cube, mid_preps)
     recs += check_pack_channels(dev, mid_preps)
+    recs += check_front_kernels(dev, soup, scene, caps)
     by_name = {r["name"]: r for r in recs}
 
     raster_prefixes = ("raster.", "frame.", "glyph")
     c_entry, entry_fn = _path_counts(counters, run_entry_path)
     print(f"launches on the entry step: {c_entry}", flush=True)
-    for k in ("raster_bins_walk", "modal_vote", "fma32"):
+    for k in ("raster_bins_walk", "modal_vote", "fma32", "raster_clip",
+              "plane_table", "raster_shade"):
         assert c_entry[k] > 0, f"{k} never launched on the entry step"
     profile_frames(entry_fn, 5, raster_prefixes, "entry step")
     c_cube, _ = _path_counts(counters, lambda: run_cube_path(dev))
     print(f"launches on the cube path: {c_cube}", flush=True)
-    for k in ("raster_bins_walk", "raster_bins_walk_loop"):
+    for k in ("raster_bins_walk", "raster_bins_walk_loop", "raster_clip",
+              "plane_table"):
         assert c_cube[k] > 0, f"{k} never launched on the cube path"
     c_tea, tea_fn = _path_counts(counters, lambda: run_raster_mesh_path(
         dev, "teapot", TEAPOT_GRID, 3, 2, 20, "teapot 240x135"))
@@ -3847,8 +4123,8 @@ def main() -> int:
         dev, "mid", MID_GRID, 2, 0, 10, "mid-scale HD 960x540"))
     print(f"launches on the mid-scale HD arm: {c_mid}", flush=True)
     for c, what in ((c_tea, "teapot path"), (c_mid, "mid-scale HD arm")):
-        for k in ("raster_bins_walk", "pack_channels", "modal_vote",
-                  "raster_shade", "fma32"):
+        for k in ("raster_bins_walk", "modal_vote", "raster_shade", "fma32",
+                  "raster_clip", "plane_table"):
             assert c[k] > 0, f"{k} never launched on the {what}"
     profile_frames(tea_fn, 5, raster_prefixes, "teapot 240x135")
     profile_frames(mid_fn, 3, raster_prefixes, "mid-scale HD arm")
@@ -3870,7 +4146,7 @@ def main() -> int:
     print(f"launches on the view farm: {c_farm}", flush=True)
     for k in ("ray_grid_jit", "modal_vote", "rt_trace"):
         assert c_farm[k] > 0, f"{k} never launched on the view farm"
-    c_one, _ = _path_counts(counters, farm_fn)
+    c_one, _ = _path_counts(counters, farm_fn, record=False)
     assert (c_one["modal_vote"], c_one["ray_grid_jit"],
             c_one["rt_trace"]) == (1, 1, 1), \
         f"a farm launches B4, the grid and the trace once each: {c_one}"
@@ -3913,6 +4189,10 @@ def main() -> int:
     finally:
         close()
 
+    # K3 timed at each size it launched at on the driven paths (all of
+    # them are behind: the PT core launches none)
+    k3_loss(k3_sizes, k3_trace, by_name["rt_trace"])
+
     # the path tracer's XLA core: the goldens and the core against B5,
     # then the wide-atlas frame. Last: its profile holds ~20,000 launches a
     # frame, after which the profiler's sessions lost rows
@@ -3935,9 +4215,13 @@ def main() -> int:
     driven = (c_raster, c_gen, *c_or.values(), c_ref, c_hd, c_entry, c_cube,
               c_tea, c_mid, c_pts, c_rt, c_farm, c_prog, c_cli, c_par,
               c_core)
-    for k in ("fma32", "raster_shade", "rt_trace"):
+    for k in ("fma32", "raster_shade", "rt_trace", "raster_clip",
+              "plane_table"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
+    k3_rec = by_name["rt_trace"]
+    assert sum(p["launches"] for p in k3_rec["launch_sizes"]) == \
+        k3_rec["launches"], (k3_rec["launch_sizes"], k3_rec["launches"])
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

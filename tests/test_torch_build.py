@@ -22,7 +22,9 @@ from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import fp as KFP
 from ascii_renderer_tpu_torch.ops import pack as PK
+from ascii_renderer_tpu_torch.ops import plane_table as PT
 from ascii_renderer_tpu_torch.ops import raster_bins as RB
+from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops import raster_group as RG
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import ray_grid as RYG
@@ -381,7 +383,8 @@ def test_c_entry_points_match_the_ctypes_signatures():
     assert {p.name for p in _build.sources()} == {
         "setup2dh.cu", "pack.cu", "raster_group.cu", "pt_trace.cu",
         "modal.cu", "raster_bins.cu", "raster_shaded.cu", "raster_subtile.cu",
-        "ray_grid.cu", "fp.cu", "raster_shade.cu", "rt_trace.cu"}
+        "ray_grid.cu", "fp.cu", "raster_shade.cu", "rt_trace.cu",
+        "raster_clip.cu", "plane_table.cu"}
     for flag in ("-fmad=false", "arch=compute_90a,code=sm_90a"):
         assert flag in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
@@ -393,9 +396,9 @@ def test_c_entry_points_match_the_ctypes_signatures():
     assert len(m.group(2).split(",")) == len(pack_probe.SIGNATURE)
 
 
-@pytest.mark.parametrize("mod", (RB, RG, RS, KFP, RSH, RTK),
+@pytest.mark.parametrize("mod", (RB, RG, RS, KFP, RSH, RTK, RCL, PT),
                          ids=("bins", "group", "subtile", "fp", "shade",
-                              "trace"))
+                              "trace", "clip", "table"))
 def test_launches_per_call_names_the_module_wrappers(mod):
     """LAUNCHES_PER_CALL keys are the module's wrappers, two launches for
     a walk with a merge; kernel_ab reads it, and a module that predates

@@ -1,7 +1,9 @@
 """The kernels that stand for XLA code of the reference, on the card: the
 fused multiply-add ``fma32`` (``ops/fp``), the raster's deferred shade
-(``ops/raster_shade``) and the ray tracer's frame (``ops/rt_trace``), each
-held to its plain version bit for bit. Tests marked ``cuda`` skip without
+(``ops/raster_shade``), the ray tracer's frame (``ops/rt_trace``), the
+small and mid raster paths' clip with its screen setup
+(``ops/raster_clip``, X4) and their plane table (``ops/plane_table``, X3),
+each held to its plain version bit for bit. Tests marked ``cuda`` skip without
 a card; this file imports no JAX, so they run where there is none:
 
     python -m pytest tests/test_torch_build_xla.py -m cuda --noconftest
@@ -20,13 +22,15 @@ from ascii_renderer_tpu_torch.backends import raster_oracles as RO
 from ascii_renderer_tpu_torch.backends import raytrace as RT
 from ascii_renderer_tpu_torch.core.fp import fma32, fma32_f64
 from ascii_renderer_tpu_torch.ops import fp as KFP
+from ascii_renderer_tpu_torch.ops import plane_table as PT
+from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import rt_trace as RTK
 from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
 from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
 from ascii_renderer_tpu_torch.tools.xla_inputs import (
-    FMA_CASES, RT_SCENES, fma_operands, fma_specials, fma_ties, rt_scene,
-    shade_builder, shade_inputs)
+    FMA_CASES, RT_SCENES, fma_operands, fma_specials, fma_ties, front_inputs,
+    rt_scene, shade_builder, shade_inputs)
 
 torch.set_num_threads(2)
 
@@ -186,3 +190,93 @@ def test_trace_kernel_equals_plain_frames(cuda_device, monkeypatch, name):
         _same_bits(got[k], fn())
     lit = got["frame"].amax(-1)
     assert (lit > 0.05).float().mean() > 0.3 and got["views"].std() > 0.05
+
+
+# --------------------------------------------------------------------------
+# the clip with its screen setup (X4) and the plane table (X3)
+# --------------------------------------------------------------------------
+def _same_dict(got, want) -> None:
+    assert list(got) == list(want)
+    for k, w in want.items():
+        if w.dtype == torch.float32:
+            _same_bits(got[k], w)
+        else:
+            assert got[k].dtype == w.dtype and torch.equal(got[k].cpu(),
+                                                           w.cpu()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [300, 5000])
+@pytest.mark.parametrize("pos9", [False, True], ids=["positions", "pos9"])
+def test_clip_kernel_equals_plain(cuda_device, T, pos9):
+    """One launch of X4 gives the plain version's dict, keys in order,
+    dtypes and bits (NaN in the same places), on a soup at the near plane
+    (every clip case, back faces, degenerate triangles, w near 0)."""
+    p, _a, mvp = front_inputs(T, T, cuda_device)
+    src = R.positions_to_pos9(p) if pos9 else p
+    n0 = RCL.launches
+    got = RCL.clip_screen(src, mvp, 36, 96, pos9=pos9)
+    assert RCL.launches == n0 + 1
+    want = RCL.clip_screen_ref(src, mvp, 36, 96, pos9=pos9)
+    _same_dict(got, want)
+    assert {0, 1, 2, 3} <= set(want["n_in"].tolist())
+    assert 0 < int(want["valid"].sum()) < 2 * T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_attrs", [9, 6])
+@pytest.mark.parametrize("form,T,v_cap", [
+    ("uncompacted", 256, None), ("uncompacted", 300, None),
+    ("compacted", 300, 512), ("compacted", 300, 520)],
+    ids=["2T_512", "2T_600", "cap_512", "cap_520"])
+def test_plane_table_kernel_equals_plain(cuda_device, n_attrs, form, T,
+                                         v_cap):
+    """One launch of X3 gives the plain version's table (the B7 pack's
+    layout at a multiple of 512 rows, stacked and padded otherwise) with
+    its zero row, bit for bit, uncompacted and at a compaction's cidx."""
+    p, attrs, mvp = front_inputs(T, 7, cuda_device)
+    a = attrs[:, :n_attrs].contiguous()
+    ch = RCL.clip_screen(p, mvp, 36, 96)
+    if form == "compacted":
+        cch, cidx, _n = R.compact_valid_ch(dict(ch), v_cap)
+        args = (cch, ch, a, cidx)
+    else:
+        args = (ch, ch, a)
+    n0 = PT.launches
+    got = PT.plane_table(*args)
+    assert PT.launches == n0 + 1
+    want = PT.plane_table_ref(*args)
+    _same_bits(got, want)
+    assert got.shape == (args[0]["sxa"].shape[0] + 1,
+                         PT.table_width(n_attrs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,v_cap", [
+    ("scatter", None), ("scatter", 1024), ("fused", None),
+    ("subtile", 1024)], ids=["scatter", "mm", "fused", "subtile"])
+def test_front_kernels_frames_equal_plain(cuda_device, monkeypatch, method,
+                                          v_cap):
+    """render_soup's frames through X4 and X3 equal the same frames with
+    the plain versions in their place, bit for bit."""
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.tools.xla_inputs import FRONT_CAM
+    p, attrs, _mvp = front_inputs(600, 4, cuda_device)
+    n = torch.nn.functional.normalize(attrs[:, :3], dim=1)
+    c = attrs[:, 3:6].abs()
+    scene = shade_builder(TSB, True, 2).build(device=cuda_device)
+    cam = Camera.create(**FRONT_CAM)
+
+    def frame():
+        return R.render_soup(p, n, c, scene, cam, 36, 96, 0.5,
+                             method=method, v_cap=v_cap, big_cap=512)
+
+    n0 = (RCL.launches, PT.launches)
+    got = frame()
+    assert RCL.launches == n0[0] + 1
+    assert PT.launches == n0[1] + (method != "fused")
+    monkeypatch.setattr(RCL, "clip_screen", RCL.clip_screen_ref)
+    monkeypatch.setattr(PT, "plane_table", PT.plane_table_ref)
+    _same_bits(got, frame())
+    assert (got.amax(-1) > 0).sum() > 200
+

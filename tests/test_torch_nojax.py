@@ -37,7 +37,8 @@ for new in ("backends.raster_channels", "backends.raster_oracles",
             "ascii.glyphs", "ascii.overlay", "core.color", "geom.reorder",
             "utils.checkpoint", "utils.exactness", "utils.profiling",
             "diff.soft_raster", "parallel.train", "parallel.worlds",
-            "ops.fp", "ops.raster_shade", "ops.rt_trace"):
+            "ops.fp", "ops.raster_shade", "ops.rt_trace", "ops.raster_clip",
+            "ops.plane_table"):
     assert "ascii_renderer_tpu_torch." + new in names, new
 from ascii_renderer_tpu_torch.backends import raster as R
 from ascii_renderer_tpu_torch.core.camera import Camera

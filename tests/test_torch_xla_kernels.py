@@ -31,7 +31,10 @@ from ascii_renderer_tpu_torch.backends import raster_oracles as RO
 from ascii_renderer_tpu_torch.backends import raytrace as RT
 from ascii_renderer_tpu_torch.backends import rt_core as RC
 from ascii_renderer_tpu_torch.core.fp import fma32, fma32_f64
+from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import fp as KFP
+from ascii_renderer_tpu_torch.ops import plane_table as PT
+from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import rt_trace as RTK
 from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
@@ -39,12 +42,13 @@ from ascii_renderer_tpu_torch.scene.builder import MaterialIds as TM
 from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
 from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
 from ascii_renderer_tpu_torch.tools.xla_inputs import (
-    FMA_CASES, fma_operands, fma_specials, fma_ties, rt_scene, shade_builder,
-    shade_inputs)
+    FMA_CASES, fma_operands, fma_specials, fma_ties, front_inputs, rt_scene,
+    shade_builder, shade_inputs)
 
 torch.set_num_threads(2)
 
-COUNTERS = ((KFP, "launches"), (RSH, "launches"), (RTK, "launches"))
+COUNTERS = ((KFP, "launches"), (RSH, "launches"), (RTK, "launches"),
+            (RCL, "launches"), (PT, "launches"))
 
 
 @pytest.fixture
@@ -175,6 +179,101 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_versions(zero_counts):
         RTK.trace(rs, RT.ScenePrims(rs), torch.zeros((1, 3)),
                   torch.zeros((1, 8, 3)), (True, True))
     assert (KFP.launches, RSH.launches, RTK.launches) == (0, 0, 0)
+
+
+def _front_calls(monkeypatch):
+    """Record every call of X4's and X3's plain versions."""
+    calls = []
+    for mod, name in ((RCL, "clip_screen_ref"), (PT, "plane_table_ref")):
+        def rec(*a, _real=getattr(mod, name), _name=name, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, rec)
+    return calls
+
+
+def _front_meta(seed=2):
+    """X4's and X3's inputs on the CPU and on the meta device: positions,
+    pos9, attrs (A = 9 and 6), the clip dict and a compaction's cidx."""
+    p, attrs, mvp = front_inputs(60, seed, "cpu")
+    ch = RCL.clip_screen(p, mvp, 36, 96)
+    cch, cidx, _n = R.compact_valid_ch(dict(ch), 64)
+    meta = torch.device("meta")
+    on = {"p": p, "pos9": R.positions_to_pos9(p), "attrs": attrs,
+          "ch": ch, "cch": cch, "cidx": cidx}
+    to_meta = {k: ({c: t.to(meta) for c, t in v.items()}
+                   if isinstance(v, dict) else v.to(meta))
+               for k, v in on.items()}
+    return on, to_meta, mvp
+
+
+def test_front_kernels_cpu_tensors_run_the_plain_versions(zero_counts,
+                                                          monkeypatch):
+    """clip_screen and plane_table on CPU tensors are their plain versions
+    (each reached once a call) and launch nothing."""
+    on, _m, mvp = _front_meta()
+    calls = _front_calls(monkeypatch)
+    for pos9, src in ((False, on["p"]), (True, on["pos9"])):
+        ch = RCL.clip_screen(src, mvp, 36, 96, pos9=pos9)
+        assert ch["area2"].shape == on["ch"]["area2"].shape == (120,)
+    for A in (9, 6):
+        a = on["attrs"][:, :A]
+        PT.plane_table(on["ch"], on["ch"], a)
+        PT.plane_table(on["cch"], on["ch"], a, on["cidx"])
+    assert calls == ["clip_screen_ref"] * 2 + ["plane_table_ref"] * 4
+    assert (RCL.launches, PT.launches, KFP.launches) == (0, 0, 0)
+
+
+def test_front_kernels_never_fall_back(zero_counts, monkeypatch):
+    """Tensors that are not on the CPU reach the kernel paths, whose checks
+    raise for anything but CUDA tensors; no call reaches a plain
+    version."""
+    _on, m, mvp = _front_meta()
+    calls = _front_calls(monkeypatch)
+    with pytest.raises(ValueError):
+        RCL.clip_screen(m["p"], mvp, 36, 96)
+    with pytest.raises(ValueError):
+        RCL.clip_screen(m["pos9"], mvp, 36, 96, pos9=True)
+    with pytest.raises(ValueError):
+        PT.plane_table(m["ch"], m["ch"], m["attrs"])
+    with pytest.raises(ValueError):
+        PT.plane_table(m["cch"], m["ch"], m["attrs"][:, :6], m["cidx"])
+    with pytest.raises(ValueError):  # the kernel takes A = 6 or 9 only
+        PT.plane_table(m["ch"], m["ch"], m["attrs"][:, :4])
+    assert calls == []
+    assert (RCL.launches, PT.launches) == (0, 0)
+
+
+class _FailingLib:
+    """A kernel library whose every launch reports a CUDA error."""
+
+    def __getattr__(self, name):
+        return lambda *args: 700  # cudaErrorIllegalAddress
+
+
+def test_front_kernels_raise_on_build_or_launch_failure(zero_counts,
+                                                        monkeypatch):
+    """Past the device checks, a failed build and a failed launch each
+    raise out of clip_screen and plane_table; neither falls back to the
+    plain version."""
+    _on, m, mvp = _front_meta()
+    calls = _front_calls(monkeypatch)
+    monkeypatch.setattr(_build, "require_cuda", lambda *t, what: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    runs = (lambda: RCL.clip_screen(m["p"], mvp, 36, 96),
+            lambda: PT.plane_table(m["cch"], m["ch"], m["attrs"], m["cidx"]))
+    for lib, match in ((no_build, "nvcc failed"),
+                       (lambda: _FailingLib(), "launch failed")):
+        monkeypatch.setattr(_build, "lib", lib)
+        for run in runs:
+            with pytest.raises(RuntimeError, match=match):
+                run()
+    assert calls == []
+    assert (RCL.launches, PT.launches) == (1, 1)  # the failed launches
 
 
 def _replay(t, geom, k, dims):
