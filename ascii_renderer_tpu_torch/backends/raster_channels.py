@@ -4,7 +4,9 @@
 The [2T]-domain pipeline: branchless near-clip expansion into
 channel-major screen triangles with their screen setup (ops/raster_clip:
 one launch of the kernel X4 on CUDA), order-preserving valid compaction,
-exact per-tile binning, the bin walks B6 / B6' (ops/raster_bins) and
+exact per-tile binning (the walk's entries through ops/bin_entries: the
+four launches of X9 on CUDA), the bin walks B6 / B6'
+(ops/raster_bins) and
 deferred plane-table shading (the attribute lerps and the table through
 ops/plane_table: one launch of the kernel X3 on CUDA; the reference packs
 its table with B7 when its length is a multiple of 512); and the
@@ -15,12 +17,12 @@ reference rasterizer the faster paths are compared with, and the one
 
 Rounding: the reference is compiled by XLA, whose CPU code generator fuses
 a product into the add or subtract it feeds (core/fp.py). Every such chain
-below and in the two kernels' plain versions is written with ``fma32``
+below and in the three kernels' plain versions is written with ``fma32``
 where the reference's compiled program fuses it (each one carries a
-comment), so the clip channels, screen setup, plane table and winners
-equal the compiled reference bit for bit. A division by a Python float on
-a CUDA tensor is not IEEE, so constants divide through 0-d tensors
-(``quantize.fdiv``).
+comment), so the clip channels, screen setup, bin entries, plane table
+and winners equal the compiled reference bit for bit. A division by a
+Python float on a CUDA tensor is not IEEE, so constants divide through
+0-d tensors (``quantize.fdiv``).
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ from ascii_renderer_tpu_torch.backends.raster_common import (
     _DEFAULT_DIR, _DEFAULT_DIR_COL, MAX_V_CAP, TILE_H, TILE_W,
     shade_from_table)
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
-from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.ops import plane_table as PT
 from ascii_renderer_tpu_torch.ops import raster_bins as RB
+from ascii_renderer_tpu_torch.ops.bin_entries import (  # noqa: F401
+    _tile_span, binned_entries, binned_entries_ref, plane_entries,
+    tile_pairs)
 from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops.plane_table import (  # noqa: F401
     _edge_coeffs, _sum3, build_plane_table, clip_attrs_channel_lists,
@@ -43,12 +47,6 @@ from ascii_renderer_tpu_torch.ops.raster_clip import (  # noqa: F401
     _clip_channels_core, _recip_guard, setup_screen_channels,
     transform_clip_channels, transform_clip_channels9)
 from ascii_renderer_tpu_torch.scene.builder import SceneData
-
-
-def _floor_i32(x: torch.Tensor) -> torch.Tensor:
-    # saturate like XLA's f32 -> s32 conversion (huge near-plane bboxes)
-    return torch.clamp(torch.floor(x), -2147483648.0, 2147483520.0).to(
-        torch.int32)
 
 
 def clip_screen_channels(positions, mvp, rows: int, cols: int, pos9=None):
@@ -240,26 +238,6 @@ def compact_valid_ch(ch, v_cap: int):
     return cch, cidx, n_valid
 
 
-def _tile_span(ch, rows: int, cols: int, tile_window: int):
-    """Per-triangle bbox tile span and the small / big classification of
-    the bin pass: (tx0, tx1, ty0, ty1, small, big)."""
-    xa, xb, xc = ch["sxa"], ch["sxb"], ch["sxc"]
-    ya, yb, yc = ch["sya"], ch["syb"], ch["syc"]
-    xmin = torch.minimum(torch.minimum(xa, xb), xc)
-    xmax = torch.maximum(torch.maximum(xa, xb), xc)
-    ymin = torch.minimum(torch.minimum(ya, yb), yc)
-    ymax = torch.maximum(torch.maximum(ya, yb), yc)
-    tx0 = _floor_i32(fdiv(xmin, float(TILE_W)))
-    ty0 = _floor_i32(fdiv(ymin, float(TILE_H)))
-    tx1 = _floor_i32(fdiv(xmax, float(TILE_W)))
-    ty1 = _floor_i32(fdiv(ymax, float(TILE_H)))
-    onscreen = (xmax > 0) & (xmin < cols) & (ymax > 0) & (ymin < rows)
-    fits = ((tx1 - tx0) < tile_window) & ((ty1 - ty0) < tile_window)
-    small = ch["valid"] & onscreen & fits
-    big = ch["valid"] & onscreen & ~fits
-    return tx0, tx1, ty0, ty1, small, big
-
-
 def count_big_small(ch, rows: int, cols: int, tile_window: int = 2):
     """(n_small, n_big) 0-d i32 counts under the bin pass's rules."""
     *_, small, big = _tile_span(ch, rows, cols, tile_window)
@@ -280,122 +258,6 @@ def shade_planes_ch(tid, ch, attrs, scene: SceneData, rows: int,
     table = PT.plane_table(ch, ch if rec is None else rec, attrs, cidx)
     return shade_from_table(tid, table, scene, rows, cols,
                             n_attrs=attrs.shape[1])
-
-
-def tile_pairs(ch, rows: int, cols: int, big_cap: int = 64,
-               tile_window: int = 2):
-    """Exact per-tile bins of the clipped triangles: small triangles (bbox
-    within a 2 x 2 tile window) emit up to 4 (tile, tri) pairs, big ones
-    (the first ``big_cap``, in id order) one pair per overlapped tile; one
-    (tile << 19 | tri) int32 sort and a left-side searchsorted give the
-    bins. Returns (tri_s i32 [P] the sorted pairs' triangles, all < T,
-    offsets i32 [n_tiles + 1], tiles_y, tiles_x)."""
-    xa = ch["sxa"]
-    dev = xa.device
-    T = xa.shape[0]
-    assert T < (1 << 19), "packed sort key supports < 524288 clipped tris"
-    tiles_y = -(-rows // TILE_H)
-    tiles_x = -(-cols // TILE_W)
-    n_tiles = tiles_y * tiles_x
-    assert n_tiles < (1 << 12), "tile << 19 must fit int32"
-    tx0, tx1, ty0, ty1, small, big = _tile_span(ch, rows, cols, tile_window)
-
-    # small pairs: a static 2 x 2 window, as flat [T] channels
-    tri_ids = torch.arange(T, dtype=torch.int32, device=dev)
-    tile_parts = []
-    for k in range(tile_window * tile_window):
-        ty = ty0 + (k // tile_window)
-        tx = tx0 + (k % tile_window)
-        ok = (small & (ty >= 0) & (ty < tiles_y) & (tx >= 0) & (tx < tiles_x)
-              & (ty <= ty1) & (tx <= tx1))
-        tile_parts.append(torch.where(ok, ty * tiles_x + tx, n_tiles))
-    pair_tri = [tri_ids.repeat(tile_window * tile_window)]
-
-    # big pairs: the first big_cap big triangles in id order (the
-    # reference's stable top_k on a 0/1 score), one pair per tile overlap
-    rank = torch.cumsum(big.to(torch.int32), 0, dtype=torch.int32) - 1
-    slot = torch.where(big & (rank < big_cap), rank, big_cap)
-    big_idx = torch.full((big_cap + 1,), T, dtype=torch.int32, device=dev)
-    big_idx.scatter_(0, slot.long(), tri_ids)
-    big_idx = big_idx[:big_cap]
-
-    def padi(c, fill):
-        return torch.cat([c, c.new_full((1,), fill)])[big_idx.long()]
-
-    btx0, btx1 = padi(tx0, 1), padi(tx1, 0)  # fill slots: an empty range
-    bty0, bty1 = padi(ty0, 1), padi(ty1, 0)
-    tids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
-    g_ty, g_tx = tids // tiles_x, tids % tiles_x
-    overlap = ((g_tx[None, :] >= btx0[:, None]) & (g_tx[None, :] <= btx1[:, None])
-               & (g_ty[None, :] >= bty0[:, None])
-               & (g_ty[None, :] <= bty1[:, None]) & (big_idx < T)[:, None])
-    tile_parts.append(torch.where(overlap, tids[None, :], n_tiles).reshape(-1))
-    pair_tri.append(torch.clamp(big_idx, max=T - 1)[:, None].expand(
-        big_cap, n_tiles).reshape(-1))
-
-    packed = torch.sort((torch.cat(tile_parts) << 19)
-                        | torch.cat(pair_tri)).values
-    tile_s = packed >> 19
-    tri_s = packed & ((1 << 19) - 1)
-    offsets = torch.searchsorted(
-        tile_s, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
-        side="left").to(torch.int32)
-    return tri_s, offsets, tiles_y, tiles_x
-
-
-def plane_entries(ch):
-    """The 12 plane-form walk channels of each clipped triangle (ops/
-    raster_bins.py CH_A0 .. CH_ZC): three edge planes w_k = A_k px + B_k py
-    + G_k and the screen-depth plane, each a [T] tensor."""
-    xa, xb, xc = ch["sxa"], ch["sxb"], ch["sxc"]
-    ya, yb, yc = ch["sya"], ch["syb"], ch["syc"]
-    za, zb, zc = ch["sza"], ch["szb"], ch["szc"]
-    acs, bcs, gcs = _edge_coeffs((xa, xb, xc), (ya, yb, yc))
-    # (xb - xa)(yc - ya) - (yb - ya)(xc - xa) == w0 + w1 + w2
-    area = fma32(xb - xa, yc - ya, -((yb - ya) * (xc - xa)))
-    inv_area = _recip_guard(area, 1e-12)
-    zs = (za, zb, zc)
-    return [acs[0], bcs[0], gcs[0], acs[1], bcs[1], gcs[1],
-            acs[2], bcs[2], gcs[2],
-            # sum_k coef_k z_k: for alpha the second product fuses first,
-            # as in build_plane_table's denominator
-            fma32(acs[2], zc, fma32(acs[1], zb, acs[0] * za)) * inv_area,
-            _sum3(bcs, zs) * inv_area,
-            _sum3(gcs, zs) * inv_area]
-
-
-def binned_entries(ch, rows: int, cols: int, *, kernel: str = "mm",
-                   big_cap: int = 64, tile_window: int = 2):
-    """The bin walk's input: the exact bins of ``tile_pairs`` and the
-    plane-form entries gathered into pair order, in the layout of kernel
-    'mm' (B6: [P/128, 16, 128]) or 'loop' (B6': [P/8, 128]), with an inert
-    zero tail. Returns (data, offsets i32 [n_tiles + 1], tiles_x,
-    n_tiles)."""
-    tri_s, offsets, tiles_y, tiles_x = tile_pairs(
-        ch, rows, cols, big_cap=big_cap, tile_window=tile_window)
-    n_tiles = tiles_y * tiles_x
-    xa = ch["sxa"]
-    T = xa.shape[0]
-    src = torch.stack(plane_entries(ch) + [
-        torch.ones_like(xa),
-        torch.arange(T, dtype=torch.float32, device=xa.device)], dim=-1)
-    src = torch.cat([src, src.new_zeros((T, RB.N_CHAN - 14))], dim=-1)
-    # inert tail so an aligned chunk read past the last bin stays in
-    # bounds, rounded so the layout divides evenly: row T of src is zero
-    # and the padded tail of tri_s points at it
-    P = tri_s.shape[0]
-    if kernel == "mm":
-        tail, quantum = 2 * RB.MM_CHUNK, RB.MM_CHUNK
-    else:
-        tail, quantum = RB.CHUNK + 8 * RB.PACK, RB.PACK
-    pad_rows = (-(P + tail)) % quantum + tail
-    src = torch.cat([src, src.new_zeros((1, RB.N_CHAN))])
-    tri_sp = torch.cat([tri_s, tri_s.new_full((pad_rows,), T)])
-    data = src[tri_sp.long()]
-    if kernel == "mm":
-        data = data.reshape(-1, RB.MM_CHUNK, RB.N_CHAN).transpose(1, 2)
-        return data.contiguous(), offsets, tiles_x, n_tiles
-    return RB.pack_entries(data), offsets, tiles_x, n_tiles
 
 
 def visibility_binned_ch(ch, rows: int, cols: int, *, kernel: str = "mm",

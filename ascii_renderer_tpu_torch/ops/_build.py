@@ -3,7 +3,8 @@
 On first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process,
 all started together, and the objects are linked into ONE shared library
 with a plain C interface, which is loaded with ``ctypes``. No PyTorch
-headers are included, so the build takes seconds, and it needs no
+headers are included, so the build takes about a minute (the longest
+source, rt_trace.cu's 48 template instances, ~55 s), and it needs no
 ``ninja``. The library's name carries a hash of the sources and flags, so
 an edited source never loads a stale build. The build directory is
 ``ops/build`` (listed in ``.gitignore``).
@@ -85,16 +86,25 @@ SIGNATURES = {
     #  n_sph, pln_n, pln_d, pln_valid, pln_mat, n_pln, tri_a, tri_e1,
     #  tri_e2, tri_valid, tri_mat, n_tri, mat_albedo, mat_reflective,
     #  dl_dir, dl_col, n_dl, pt_pos, pt_col, n_pt, pair, env_color,
-    #  env_intensity, fuse_p, fuse_s, stream)
+    #  env_intensity, fuse_p, fuse_s, lanes, stage, stream)
     "rt_trace_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                         _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                        _P, _P, _I, _I, _P, _P, _I, _I, _P),
+                        _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
+    # (n_rays): the lanes a ray a launch of n_rays takes by its own choice
+    "rt_trace_lanes": (_LL,),
+    # (lanes, n_sph, n_pln, n_tri): whether a launch of that many lanes a
+    # ray stages such a scene's slots
+    "rt_trace_staged": (_I, _I, _I, _I),
     # (src, pos9, mvp16_host, hx, hy, ch, valid, t_rec, i_rec, T, stream)
     "raster_clip_launch": (_P, _I, _FP, _F, _F, _P, _P, _P, _P, _I, _P),
     # (screen20_host, cidx, rot, n_in, t_ab, t_ac, t_bc, attrs, table, N, T,
     #  A, stream)
     "plane_table_launch": (_LLP, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _P),
+    # (screen20_host, T, rows, cols, tile_window, big_cap, tiles, span,
+    #  mask, src, seq, hist, offsets, data, n_rows, mm, stream)
+    "bin_entries_launch": (_LLP, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _I, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (bases, out, rows, cols, views, sx, sy, aspect, stream)

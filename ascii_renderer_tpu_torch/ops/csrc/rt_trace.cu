@@ -1,11 +1,11 @@
-// The ray tracer's frame after its primary grid, one thread a ray, every
-// view of a batch in one launch: the nearest hit over spheres, planes and
-// triangles (quads split), the hit's normal and material, direct light
-// with hard shadows, one mirror bounce and its shade, the environment
-// where a ray misses, the clamp. backends/raytrace.trace_rgb is the plain
-// version (closest_hit, occluded, shade_diffuse); it rounds as the
-// reference's jitted program, the products fused by backends/rt_core's
-// rules, and this kernel rounds each chain the same way with fmaf:
+// The ray tracer's frame after its primary grid, every view of a batch in
+// one launch: the nearest hit over spheres, planes and triangles (quads
+// split), the hit's normal and material, direct light with hard shadows,
+// one mirror bounce and its shade, the environment where a ray misses,
+// the clamp. backends/raytrace.trace_rgb is the plain version
+// (closest_hit, occluded, shade_diffuse); it rounds as the reference's
+// jitted program, the products fused by backends/rt_core's rules, and
+// this kernel rounds each chain the same way with fmaf:
 //   dot     (ax*bx + ay*by) + az*bz  -> fma(az, bz, fma(ax, bx, ay*by))
 //   rdot    sum of a*b from 0        -> fma(az, bz, fma(ay, by, ax*bx + 0))
 //   cross   a1*b2 - a2*b1            -> fma(a1, b2, -(a2*b1))
@@ -29,20 +29,61 @@
 // hundreds of torch launches a frame over [V, P, R] candidate matrices;
 // this is one launch.
 //
-// What bounds it on the H100: operations. A ray tests every primitive
-// (a sphere ~27 float operations, a plane ~17, a triangle ~60, a fused
-// product-add counted as two: chip_smoke.RT_OPS_*), for its
-// primary ray, its shadow rays (spheres and triangles) and, on a mirror,
-// its bounce; bytes are 12 in and 12 out a ray (the scene, a few KB,
-// stays in L1). Primitives are read in the same order by every thread of
-// a warp, so their loads are broadcasts.
+// What bounds it on the H100: operations. A ray tests every valid
+// primitive (a sphere ~27 float operations, a plane ~17, a triangle ~60,
+// a fused product-add counted as two: chip_smoke.RT_OPS_*) for its primary
+// ray, its shadow rays (spheres and triangles) and, on a mirror, its
+// bounce; bytes are 12 in and 12 out a ray. Padding slots are no work of
+// the function: an invalid slot's t is kBig, never NaN, so it wins the
+// nearest hit only where nothing is hit (and then the hit's normal and
+// material are not read), and it occludes only where tmax > kBig.
+//
+// The design: a 96x36 frame is 3,456 rays, 27 blocks of 128 threads at
+// one thread a ray, and a padded scene's slots are mostly padding (the
+// rt_demo golden's: 4 valid of 40). So:
+// - Valid slots staged in shared memory (kStage). Each block reads the
+//   scene once and keeps each kind's valid slots in slot order, compacted
+//   with a ballot and a block prefix, as packed rows (a sphere float4
+//   {x, y, z, r}, a plane {nx, ny, nz, d}, a triangle three float4s) with
+//   the original slot index. Rays loop over these lists only; the index
+//   that breaks ties is the original one. Without kStage (a scene whose
+//   slots exceed the shared-memory budget, or a launch of 4 or more lanes
+//   a ray) the same order is read from the global arrays, an invalid slot
+//   skipped.
+// - L lanes a ray (a tile of L threads, L in 1..32). The lanes split each
+//   loop over primitives; the nearest hit is reduced across the tile by a
+//   total order on (NaN first, t, slot index), which gives the serial
+//   first minimum (a +0 / -0 tie to the lower index), and occluded is the tile's
+//   any-hit. Everything else (the hit's shading, the light sum in slot
+//   order, the bounce) every lane computes alike, so the tile's control
+//   flow stays uniform; lane 0 stores the colour.
+// The launch's own form, from timed variants of every form at the driven
+// paths' five launch sizes (tools/rt_variants.py; PERF.md): L from the
+// ray count, so that a small frame fills the card (all 32 lanes at 256 to
+// 3,456 rays, one at the farm's 3,538,944), and the slots staged only
+// where a ray has fewer than 4 lanes: with 4 or more the block's staging
+// (a compaction a kind, six barriers) cost more than the few global reads
+// each lane makes (rt_trace_lanes, rt_trace_staged).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr float kEps = 1e-4f;  // raytrace.EPS
 constexpr float kBig = 1e30f;  // pt_core.BIG: no hit
+constexpr int kNone = INT_MAX;  // a lane's nearest hit before any slot
+// shared memory a block may stage (dynamic; under the 48 KB that needs no
+// opt-in): above it the launch reads the global arrays
+constexpr size_t kStageBudget = 32 * 1024;
+// threads the launch aims for when it picks the lanes a ray: 132 SMs of
+// 1,024 (half their 2,048)
+constexpr long long kFillThreads = 132LL * 1024;
 
 struct V {
   float x, y, z;
@@ -74,6 +115,20 @@ struct Scene {
   int n_dl, n_pt;              // the set lights (the first n_dl, n_pt slots)
   int pair;  // the first two set light slots are 0 and 1 (their terms meet
              // in one add, the left product fused)
+};
+
+// The block's staged scene: each kind's valid slots in slot order (rows
+// in dynamic shared memory, sized from the slot counts), their original
+// indices, their counts, and whether a sphere or triangle slot is padding.
+struct Staged {
+  const float4* sph;  // [ns]: x, y, z, r
+  const float4* pln;  // [np]: nx, ny, nz, d
+  const float4* tri;  // [3 nt]: ax ay az e1x, e1y e1z e2x e2y, e2z - - -
+  const int* sph_i;
+  const int* pln_i;
+  const int* tri_i;
+  int ns, np, nt;
+  bool pad_occludes;  // an invalid sphere or triangle slot exists
 };
 
 __device__ __forceinline__ V ld3(const float* p, int i) {
@@ -114,11 +169,11 @@ __device__ __forceinline__ float clamp01(float v) {
   return isnan(v) ? v : fminf(fmaxf(v, 0.0f), 1.0f);
 }
 
-// rt_core.spheres_t: the near root if > EPS, else the far one. kFuseC:
-// c = fma(-r, r, dot(oc, oc)), else dot(oc, oc) - r*r rounded apart.
+// rt_core.spheres_t of a valid slot: the near root if > EPS, else the far
+// one. kFuseC: c = fma(-r, r, dot(oc, oc)), else dot(oc, oc) - r*r
+// rounded apart.
 template <bool kFuseC>
-__device__ __forceinline__ float sphere_t(V ro, V rd, V c, float r,
-                                          bool valid) {
+__device__ __forceinline__ float sphere_t(V ro, V rd, V c, float r) {
   const V oc = sub(ro, c);
   const float b = dot(oc, rd);
   const float cc = dot(oc, oc);
@@ -127,22 +182,20 @@ __device__ __forceinline__ float sphere_t(V ro, V rd, V c, float r,
   const float s = sqrtf(clamp_min(h, 0.0f));
   const float t1 = -b - s, t2 = -b + s;
   const float t = t1 > kEps ? t1 : (t2 > kEps ? t2 : kBig);
-  return (h >= 0.0f && valid) ? t : kBig;
+  return h >= 0.0f ? t : kBig;
 }
 
-// rt_core.planes_t: n . x + d = 0
-__device__ __forceinline__ float plane_t(V ro, V rd, V n, float d,
-                                         bool valid) {
+// rt_core.planes_t of a valid slot: n . x + d = 0
+__device__ __forceinline__ float plane_t(V ro, V rd, V n, float d) {
   const float denom = dot(n, rd);
   const float num = -d - dot(n, ro);
   const bool flat = fabsf(denom) < 1e-6f;
   const float t = num / (flat ? 1.0f : denom);
-  return (flat || t <= kEps || !valid) ? kBig : t;
+  return (flat || t <= kEps) ? kBig : t;
 }
 
-// rt_core.tris_t: Moller-Trumbore, t only
-__device__ __forceinline__ float tri_t(V ro, V rd, V a, V e1, V e2,
-                                       bool valid) {
+// rt_core.tris_t of a valid slot: Moller-Trumbore, t only
+__device__ __forceinline__ float tri_t(V ro, V rd, V a, V e1, V e2) {
   const V p = cross(rd, e2);
   const float det = dot(e1, p);
   const bool bad = fabsf(det) < 1e-6f;
@@ -153,8 +206,110 @@ __device__ __forceinline__ float tri_t(V ro, V rd, V a, V e1, V e2,
   const float v = dot(rd, q) * inv;
   const float tt = dot(e2, q) * inv;
   const bool miss = bad || u < 0.0f || u > 1.0f || v < 0.0f ||
-                    u + v > 1.0f || tt <= kEps || !valid;
+                    u + v > 1.0f || tt <= kEps;
   return miss ? kBig : tt;
+}
+
+// The primitives as a ray's loops read them: from the staged rows, or
+// (kStage false) from the global arrays.
+template <bool kStage>
+struct Prims;
+
+template <>
+struct Prims<true> {
+  const Staged& st;
+  __device__ int n_sph() const { return st.ns; }
+  __device__ int n_pln() const { return st.np; }
+  __device__ int n_tri() const { return st.nt; }
+  __device__ bool sph_ok(int) const { return true; }
+  __device__ bool pln_ok(int) const { return true; }
+  __device__ bool tri_ok(int) const { return true; }
+  __device__ int sph_slot(int i) const { return st.sph_i[i]; }
+  __device__ int pln_slot(int i) const { return st.pln_i[i]; }
+  __device__ int tri_slot(int i) const { return st.tri_i[i]; }
+  template <bool kFuseC>
+  __device__ float sphere(V ro, V rd, int i) const {
+    const float4 c = st.sph[i];
+    return sphere_t<kFuseC>(ro, rd, {c.x, c.y, c.z}, c.w);
+  }
+  __device__ float plane(V ro, V rd, int i) const {
+    const float4 p = st.pln[i];
+    return plane_t(ro, rd, {p.x, p.y, p.z}, p.w);
+  }
+  __device__ float tri(V ro, V rd, int i) const {
+    const float4 r0 = st.tri[3 * i], r1 = st.tri[3 * i + 1],
+                 r2 = st.tri[3 * i + 2];
+    return tri_t(ro, rd, {r0.x, r0.y, r0.z}, {r0.w, r1.x, r1.y},
+                 {r1.z, r1.w, r2.x});
+  }
+  // a padding slot's kBig is below tmax
+  __device__ bool pad_occludes(float tmax) const {
+    return st.pad_occludes && kBig < tmax;
+  }
+};
+
+template <>
+struct Prims<false> {
+  const Scene& s;
+  __device__ int n_sph() const { return s.n_sph; }
+  __device__ int n_pln() const { return s.n_pln; }
+  __device__ int n_tri() const { return s.n_tri; }
+  __device__ bool sph_ok(int i) const { return s.sph_valid[i]; }
+  __device__ bool pln_ok(int i) const { return s.pln_valid[i]; }
+  __device__ bool tri_ok(int i) const { return s.tri_valid[i]; }
+  __device__ int sph_slot(int i) const { return i; }
+  __device__ int pln_slot(int i) const { return i; }
+  __device__ int tri_slot(int i) const { return i; }
+  template <bool kFuseC>
+  __device__ float sphere(V ro, V rd, int i) const {
+    return sphere_t<kFuseC>(ro, rd, ld3(s.sph_pos, i), s.sph_rad[i]);
+  }
+  __device__ float plane(V ro, V rd, int i) const {
+    return plane_t(ro, rd, ld3(s.pln_n, i), s.pln_d[i]);
+  }
+  __device__ float tri(V ro, V rd, int i) const {
+    return tri_t(ro, rd, ld3(s.tri_a, i), ld3(s.tri_e1, i),
+                 ld3(s.tri_e2, i));
+  }
+  // occluded tests an invalid slot as its kBig (sph_ok / tri_ok false)
+  __device__ bool pad_occludes(float) const { return false; }
+};
+
+// (t, slot) of a candidate: a NaN first, then the lesser t (-0 == +0),
+// then the lesser slot; kNone is no candidate
+__device__ __forceinline__ bool before(float ta, int ka, float tb, int kb) {
+  if (kb == kNone) return ka != kNone;
+  if (ka == kNone) return false;
+  const bool na = isnan(ta), nb = isnan(tb);
+  if (na != nb) return na;
+  if (!na && ta != tb) return ta < tb;
+  return ka < kb;
+}
+
+template <int L>
+__device__ __forceinline__ void reduce_first_min(
+    const cg::thread_block_tile<L>& g, float& t, int& k) {
+  if constexpr (L > 1) {
+#pragma unroll
+    for (int m = L / 2; m > 0; m >>= 1) {
+      const float to = g.shfl_xor(t, m);
+      const int ko = g.shfl_xor(k, m);
+      if (before(to, ko, t, k)) {
+        t = to;
+        k = ko;
+      }
+    }
+  }
+}
+
+template <int L>
+__device__ __forceinline__ bool group_any(const cg::thread_block_tile<L>& g,
+                                          bool p) {
+  if constexpr (L > 1) {
+    return g.any(p);
+  } else {
+    return p;
+  }
 }
 
 struct Hit {
@@ -165,31 +320,35 @@ struct Hit {
 };
 
 // raytrace.closest_hit: the first minimum over spheres, planes, triangles
-template <bool kFuseC>
-__device__ Hit closest_hit(V ro, V rd, const Scene& s) {
+// (slots numbered in that order); lane r of the tile takes items r,
+// r + L, ... of each list, then the tile reduces
+template <bool kFuseC, int L, bool kStage>
+__device__ Hit closest_hit(V ro, V rd, const Scene& s, const Prims<kStage>& P,
+                           const cg::thread_block_tile<L>& g) {
   float best = 0.0f;
-  int k = -1;
+  int k = kNone;
   auto take = [&](float t, int j) {
-    if (k < 0 || t < best || (isnan(t) && !isnan(best))) {
+    if (k == kNone || t < best || (isnan(t) && !isnan(best))) {
       best = t;
       k = j;
     }
   };
-  for (int i = 0; i < s.n_sph; ++i)
-    take(sphere_t<kFuseC>(ro, rd, ld3(s.sph_pos, i), s.sph_rad[i],
-                          s.sph_valid[i]),
-         i);
-  for (int i = 0; i < s.n_pln; ++i)
-    take(plane_t(ro, rd, ld3(s.pln_n, i), s.pln_d[i], s.pln_valid[i]),
-         s.n_sph + i);
-  for (int i = 0; i < s.n_tri; ++i)
-    take(tri_t(ro, rd, ld3(s.tri_a, i), ld3(s.tri_e1, i), ld3(s.tri_e2, i),
-               s.tri_valid[i]),
-         s.n_sph + s.n_pln + i);
+  const int lane = g.thread_rank();
+  for (int i = lane; i < P.n_sph(); i += L)
+    if (P.sph_ok(i)) take(P.template sphere<kFuseC>(ro, rd, i), P.sph_slot(i));
+  for (int i = lane; i < P.n_pln(); i += L)
+    if (P.pln_ok(i)) take(P.plane(ro, rd, i), s.n_sph + P.pln_slot(i));
+  for (int i = lane; i < P.n_tri(); i += L)
+    if (P.tri_ok(i))
+      take(P.tri(ro, rd, i), s.n_sph + s.n_pln + P.tri_slot(i));
+  reduce_first_min<L>(g, best, k);
   Hit h;
   h.t = best;
-  h.hit = best < 5e29f;  // BIG * 0.5
+  h.hit = k != kNone && best < 5e29f;  // BIG * 0.5
   h.pos = mul_add(best, rd, ro);
+  h.n = {0.0f, 0.0f, 0.0f};
+  h.mat = 0;
+  if (!h.hit) return h;  // neither normal nor material is read
   if (k < s.n_sph) {
     const V c = ld3(s.sph_pos, k);
     const float rsel = clamp_min(s.sph_rad[k], 1e-6f);
@@ -214,26 +373,27 @@ __device__ Hit closest_hit(V ro, V rd, const Scene& s) {
   return h;
 }
 
-// raytrace.occluded: any sphere or triangle hit closer than tmax (planes
-// cast no shadow)
-template <bool kFuseC>
-__device__ bool occluded(V ro, V rd, float tmax, const Scene& s) {
-  for (int i = 0; i < s.n_sph; ++i)
-    if (sphere_t<kFuseC>(ro, rd, ld3(s.sph_pos, i), s.sph_rad[i],
-                         s.sph_valid[i]) < tmax)
-      return true;
-  for (int i = 0; i < s.n_tri; ++i)
-    if (tri_t(ro, rd, ld3(s.tri_a, i), ld3(s.tri_e1, i), ld3(s.tri_e2, i),
-              s.tri_valid[i]) < tmax)
-      return true;
-  return false;
+// raytrace.occluded: any sphere or triangle slot hit closer than tmax
+// (planes cast no shadow), the tile's any-hit
+template <bool kFuseC, int L, bool kStage>
+__device__ bool occluded(V ro, V rd, float tmax, const Prims<kStage>& P,
+                         const cg::thread_block_tile<L>& g) {
+  const int lane = g.thread_rank();
+  bool occ = lane == 0 && P.pad_occludes(tmax);
+  for (int i = lane; i < P.n_sph() && !occ; i += L)
+    occ = (P.sph_ok(i) ? P.template sphere<kFuseC>(ro, rd, i) : kBig) < tmax;
+  for (int i = lane; i < P.n_tri() && !occ; i += L)
+    occ = (P.tri_ok(i) ? P.tri(ro, rd, i) : kBig) < tmax;
+  return group_any<L>(g, occ);
 }
 
 // raytrace.shade_diffuse: each set light adds (albedo * colour) * w, in
 // slot order; with s.pair the first two terms meet in one add
 // (fma(a0, w0, a1 * w1)), every later one fuses into the sum.
-template <bool kFuseC>
-__device__ V shade_diffuse(V pos, V n, int mat, const Scene& s) {
+template <bool kFuseC, int L, bool kStage>
+__device__ V shade_diffuse(V pos, V n, int mat, const Scene& s,
+                           const Prims<kStage>& P,
+                           const cg::thread_block_tile<L>& g) {
   const V alb = ld3(s.mat_albedo, mat);
   const V sro = offset(n, pos);  // shadow rays leave from pos + n * EPS
   float lo[3] = {0.0f, 0.0f, 0.0f};
@@ -254,32 +414,64 @@ __device__ V shade_diffuse(V pos, V n, int mat, const Scene& s) {
   for (int i = 0; i < s.n_dl; ++i) {
     const V d = ld3(s.dl_dir, i);
     const float nd = clamp_min(sqrtf(rdot(d, d)), 1e-20f);
-    const V L = {-d.x / nd, -d.y / nd, -d.z / nd};
-    const float ndl = clamp_min(rdot(n, L), 0.0f);
-    const bool occ = occluded<kFuseC>(sro, L, 1e5f, s);
+    const V L_ = {-d.x / nd, -d.y / nd, -d.z / nd};
+    const float ndl = clamp_min(rdot(n, L_), 0.0f);
+    const bool occ = occluded<kFuseC, L, kStage>(sro, L_, 1e5f, P, g);
     add(ld3(s.dl_col, i), (ndl > 0.0f && !occ) ? ndl : 0.0f);
   }
   for (int i = 0; i < s.n_pt; ++i) {
     const V lvec = sub(ld3(s.pt_pos, i), pos);
     const float d2 = clamp_min(rdot(lvec, lvec), 1e-6f);
     const float dist = sqrtf(d2);
-    const V L = {lvec.x / dist, lvec.y / dist, lvec.z / dist};
-    const float ndl = clamp_min(rdot(n, L), 0.0f);
-    const bool occ = occluded<kFuseC>(sro, L, dist - 2.0f * kEps, s);
+    const V L_ = {lvec.x / dist, lvec.y / dist, lvec.z / dist};
+    const float ndl = clamp_min(rdot(n, L_), 0.0f);
+    const bool occ =
+        occluded<kFuseC, L, kStage>(sro, L_, dist - 2.0f * kEps, P, g);
     const float att = 1.0f / fmaf(d2, 0.05f, 1.0f);  // 1 + d2 * 0.05
     add(ld3(s.pt_col, i), (ndl > 0.0f && !occ) ? ndl * att : 0.0f);
   }
   return {lo[0], lo[1], lo[2]};
 }
 
-// kFuseP: the primary rays' sphere decision; kFuseS: the bounce and
-// shadow rays'
-template <bool kFuseP, bool kFuseS>
-__global__ void __launch_bounds__(kThreads)
-rt_trace_kernel(const float* __restrict__ cam, const float* __restrict__ rd3,
-                float* __restrict__ out, int rays, unsigned n, Scene s) {
-  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+// Compact the valid slots of one kind (n slots, flags ok) in slot order:
+// row j of the output is emit(j, slot). A ballot a warp, the warps'
+// counts prefixed in shared memory. Returns the count; every thread of
+// the block calls it.
+template <typename Emit>
+__device__ int compact(const bool* ok, int n, int* warp_tot, Emit emit) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int total = 0;
+  for (int base = 0; base < n; base += kThreads) {
+    const int i = base + tid;
+    const bool v = i < n && ok[i];
+    const unsigned bal = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) warp_tot[warp] = __popc(bal);
+    __syncthreads();
+    int before_w = 0, chunk = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      before_w += w < warp ? warp_tot[w] : 0;
+      chunk += warp_tot[w];
+    }
+    if (v) emit(total + before_w + __popc(bal & ((1u << lane) - 1u)), i);
+    total += chunk;
+    __syncthreads();  // warp_tot is written again
+  }
+  return total;
+}
+
+// the staged rows' layout in dynamic shared memory (float4 units, then
+// the indices) for ns, np, nt slots
+__host__ __device__ inline size_t stage_bytes(int ns, int np, int nt) {
+  return 16 * (size_t)(ns + np + 3 * nt) + 4 * (size_t)(ns + np + nt);
+}
+
+// One ray's colour, every lane of its tile alike; lane 0 stores it.
+template <bool kFuseP, bool kFuseS, int L, bool kStage>
+__device__ void trace_ray(const Prims<kStage>& P, const float* cam,
+                          const float* rd3, float* out, int rays,
+                          unsigned i, const Scene& s) {
+  const cg::thread_block_tile<L> g =
+      cg::tiled_partition<L>(cg::this_thread_block());
   const int view = i / (unsigned)rays;
   const V ro = ld3(cam, view);
   const V rd = ld3(rd3, i);
@@ -287,41 +479,160 @@ rt_trace_kernel(const float* __restrict__ cam, const float* __restrict__ rd3,
   const V env_raw = {s.env_color[0] * inten, s.env_color[1] * inten,
                      s.env_color[2] * inten};
   V col = {clamp01(env_raw.x), clamp01(env_raw.y), clamp01(env_raw.z)};
-  const Hit h = closest_hit<kFuseP>(ro, rd, s);
+  const Hit h = closest_hit<kFuseP, L, kStage>(ro, rd, s, P, g);
   if (h.hit) {
     if (s.mat_reflective[h.mat]) {
       // one deterministic mirror bounce: rd - 2 (rd . n) n, x and y fused
       const float d2 = 2.0f * rdot(rd, h.n);
       const V rdir = {fmaf(-d2, h.n.x, rd.x), fmaf(-d2, h.n.y, rd.y),
                       rd.z - d2 * h.n.z};
-      const Hit h2 = closest_hit<kFuseS>(offset(h.n, h.pos), rdir, s);
-      col = h2.hit ? shade_diffuse<kFuseS>(h2.pos, h2.n, h2.mat, s)
+      const Hit h2 =
+          closest_hit<kFuseS, L, kStage>(offset(h.n, h.pos), rdir, s, P, g);
+      col = h2.hit ? shade_diffuse<kFuseS, L, kStage>(h2.pos, h2.n, h2.mat,
+                                                      s, P, g)
                    : env_raw;
     } else {
-      col = shade_diffuse<kFuseS>(h.pos, h.n, h.mat, s);
+      col = shade_diffuse<kFuseS, L, kStage>(h.pos, h.n, h.mat, s, P, g);
     }
   }
-  float* o = out + 3 * (size_t)i;
-  o[0] = clamp01(col.x);
-  o[1] = clamp01(col.y);
-  o[2] = clamp01(col.z);
+  if (g.thread_rank() == 0) {
+    float* o = out + 3 * (size_t)i;
+    o[0] = clamp01(col.x);
+    o[1] = clamp01(col.y);
+    o[2] = clamp01(col.z);
+  }
+}
+
+// kFuseP: the primary rays' sphere decision; kFuseS: the bounce and
+// shadow rays'; L: lanes a ray; kStage: valid slots staged in shared
+// memory
+template <bool kFuseP, bool kFuseS, int L, bool kStage>
+__global__ void __launch_bounds__(kThreads)
+rt_trace_kernel(const float* __restrict__ cam, const float* __restrict__ rd3,
+                float* __restrict__ out, int rays, unsigned n, Scene s) {
+  extern __shared__ float4 smem[];
+  __shared__ int warp_tot[kWarps];
+  Staged st{};
+  if constexpr (kStage) {
+    float4* sph = smem;
+    float4* pln = sph + s.n_sph;
+    float4* tri = pln + s.n_pln;
+    int* sph_i = reinterpret_cast<int*>(tri + 3 * s.n_tri);
+    int* pln_i = sph_i + s.n_sph;
+    int* tri_i = pln_i + s.n_pln;
+    st.ns = compact(s.sph_valid, s.n_sph, warp_tot, [&](int j, int i) {
+      sph[j] = make_float4(s.sph_pos[3 * i], s.sph_pos[3 * i + 1],
+                           s.sph_pos[3 * i + 2], s.sph_rad[i]);
+      sph_i[j] = i;
+    });
+    st.np = compact(s.pln_valid, s.n_pln, warp_tot, [&](int j, int i) {
+      pln[j] = make_float4(s.pln_n[3 * i], s.pln_n[3 * i + 1],
+                           s.pln_n[3 * i + 2], s.pln_d[i]);
+      pln_i[j] = i;
+    });
+    st.nt = compact(s.tri_valid, s.n_tri, warp_tot, [&](int j, int i) {
+      const float* a = s.tri_a + 3 * i;
+      const float* e1 = s.tri_e1 + 3 * i;
+      const float* e2 = s.tri_e2 + 3 * i;
+      tri[3 * j] = make_float4(a[0], a[1], a[2], e1[0]);
+      tri[3 * j + 1] = make_float4(e1[1], e1[2], e2[0], e2[1]);
+      tri[3 * j + 2] = make_float4(e2[2], 0.0f, 0.0f, 0.0f);
+      tri_i[j] = i;
+    });
+    __syncthreads();
+    st.sph = sph;
+    st.pln = pln;
+    st.tri = tri;
+    st.sph_i = sph_i;
+    st.pln_i = pln_i;
+    st.tri_i = tri_i;
+    st.pad_occludes = st.ns < s.n_sph || st.nt < s.n_tri;
+  }
+  const unsigned i = (blockIdx.x * kThreads + threadIdx.x) / L;
+  if (i >= n) return;  // the tile's lanes leave together
+  if constexpr (kStage)
+    trace_ray<kFuseP, kFuseS, L, true>(Prims<true>{st}, cam, rd3, out, rays,
+                                       i, s);
+  else
+    trace_ray<kFuseP, kFuseS, L, false>(Prims<false>{s}, cam, rd3, out, rays,
+                                        i, s);
+}
+
+template <bool kFuseP, bool kFuseS, int L, bool kStage>
+int launch(const float* cam, const float* rd3, float* out, int rays,
+           unsigned n, const Scene& s, cudaStream_t stream) {
+  const size_t smem = kStage ? stage_bytes(s.n_sph, s.n_pln, s.n_tri) : 0;
+  const unsigned long long threads = (unsigned long long)n * L;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  rt_trace_kernel<kFuseP, kFuseS, L, kStage>
+      <<<blocks, kThreads, smem, stream>>>(cam, rd3, out, rays, n, s);
+  return (int)cudaGetLastError();
+}
+
+template <bool kFuseP, bool kFuseS, bool kStage>
+int launch_lanes(int lanes, const float* cam, const float* rd3, float* out,
+                 int rays, unsigned n, const Scene& s, cudaStream_t st) {
+  switch (lanes) {
+    case 1:
+      return launch<kFuseP, kFuseS, 1, kStage>(cam, rd3, out, rays, n, s, st);
+    case 2:
+      return launch<kFuseP, kFuseS, 2, kStage>(cam, rd3, out, rays, n, s, st);
+    case 4:
+      return launch<kFuseP, kFuseS, 4, kStage>(cam, rd3, out, rays, n, s, st);
+    case 8:
+      return launch<kFuseP, kFuseS, 8, kStage>(cam, rd3, out, rays, n, s, st);
+    case 16:
+      return launch<kFuseP, kFuseS, 16, kStage>(cam, rd3, out, rays, n, s,
+                                                st);
+    case 32:
+      return launch<kFuseP, kFuseS, 32, kStage>(cam, rd3, out, rays, n, s,
+                                                st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <bool kFuseP, bool kFuseS>
-void launch(const float* cam, const float* rd3, float* out, int rays,
-            unsigned n, const Scene& s, cudaStream_t stream) {
-  rt_trace_kernel<kFuseP, kFuseS>
-      <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-          cam, rd3, out, rays, n, s);
+int launch_form(int lanes, bool staged, const float* cam, const float* rd3,
+                float* out, int rays, unsigned n, const Scene& s,
+                cudaStream_t st) {
+  return staged ? launch_lanes<kFuseP, kFuseS, true>(lanes, cam, rd3, out,
+                                                     rays, n, s, st)
+                : launch_lanes<kFuseP, kFuseS, false>(lanes, cam, rd3, out,
+                                                      rays, n, s, st);
+}
+
+// Whether a scene of these slot counts fits the staging budget.
+bool stage_fits(int n_sph, int n_pln, int n_tri) {
+  return stage_bytes(n_sph, n_pln, n_tri) <= kStageBudget;
 }
 
 }  // namespace
+
+// The lanes a ray the launch takes for n rays: the least power of two
+// (at most 32) whose threads reach kFillThreads, so that a 96x36 frame
+// fills the card and the farm keeps one thread a ray.
+extern "C" int rt_trace_lanes(long long n) {
+  int lanes = 1;
+  while (lanes < 32 && n * lanes < kFillThreads) lanes *= 2;
+  return lanes;
+}
+
+// Whether a launch of this many lanes a ray stages the valid slots of a
+// scene of these slot counts in shared memory (stage == 0: its own
+// choice): where they fit and a ray has fewer than 4 lanes.
+extern "C" int rt_trace_staged(int lanes, int n_sph, int n_pln, int n_tri) {
+  return lanes < 4 && stage_fits(n_sph, n_pln, n_tri);
+}
 
 // cam: device floats [views, 3] (the views' origins); rd3: device floats
 // [views, rays, 3] (the primary directions); out: device floats
 // [views, rays, 3]; scene: device pointers, slot counts and the set
 // lights; fuse_p / fuse_s: the sphere decision of primary / bounce and
-// shadow rays (ops/rt_trace.FUSE)
+// shadow rays (ops/rt_trace.FUSE); lanes: the lanes a ray (1, 2, 4, 8,
+// 16 or 32; 0: rt_trace_lanes); stage: 1 stages the valid slots in shared
+// memory, 2 reads them from the global arrays, 0 lets rt_trace_staged
+// choose.
 extern "C" int rt_trace_launch(
     const float* cam, const float* rd3, float* out, int views, int rays,
     const float* sph_pos, const float* sph_rad, const bool* sph_valid,
@@ -332,25 +643,34 @@ extern "C" int rt_trace_launch(
     const bool* mat_reflective, const float* dl_dir, const float* dl_col,
     int n_dl, const float* pt_pos, const float* pt_col, int n_pt, int pair,
     const float* env_color, const float* env_intensity, int fuse_p,
-    int fuse_s, void* stream) {
+    int fuse_s, int lanes, int stage, void* stream) {
   const long long n = (long long)views * rays;
   if (views < 0 || rays < 0 || n >= (1LL << 31) || n_sph < 1 || n_pln < 1 ||
-      n_tri < 1 || n_dl < 0 || n_pt < 0)
+      n_tri < 1 || n_dl < 0 || n_pt < 0 || lanes < 0 || stage < 0 ||
+      stage > 2)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
+  if (stage == 1 && !stage_fits(n_sph, n_pln, n_tri))
+    return (int)cudaErrorInvalidValue;
+  if (lanes == 0) lanes = rt_trace_lanes(n);
+  const bool staged =
+      stage == 0 ? rt_trace_staged(lanes, n_sph, n_pln, n_tri) : stage == 1;
   Scene s{sph_pos,   sph_rad,   sph_valid,      sph_mat, pln_n,     pln_d,
           pln_valid, pln_mat,   tri_a,          tri_e1,  tri_e2,    tri_valid,
           tri_mat,   mat_albedo, mat_reflective, dl_dir, dl_col,    pt_pos,
           pt_col,    env_color, env_intensity,  n_sph,   n_pln,     n_tri,
           n_dl,      n_pt,      pair};
   const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned un = (unsigned)n;
   if (fuse_p && !fuse_s)
-    launch<true, false>(cam, rd3, out, rays, (unsigned)n, s, st);
-  else if (fuse_p && fuse_s)
-    launch<true, true>(cam, rd3, out, rays, (unsigned)n, s, st);
-  else if (!fuse_p && !fuse_s)
-    launch<false, false>(cam, rd3, out, rays, (unsigned)n, s, st);
-  else
-    launch<false, true>(cam, rd3, out, rays, (unsigned)n, s, st);
-  return (int)cudaGetLastError();
+    return launch_form<true, false>(lanes, staged, cam, rd3, out, rays, un, s,
+                                    st);
+  if (fuse_p && fuse_s)
+    return launch_form<true, true>(lanes, staged, cam, rd3, out, rays, un, s,
+                                   st);
+  if (!fuse_p && !fuse_s)
+    return launch_form<false, false>(lanes, staged, cam, rd3, out, rays, un,
+                                     s, st);
+  return launch_form<false, true>(lanes, staged, cam, rd3, out, rays, un, s,
+                                  st);
 }

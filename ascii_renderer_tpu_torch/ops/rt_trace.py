@@ -1,6 +1,13 @@
 """The ray tracer's frame after its primary grid: the CUDA kernel of
-``csrc/rt_trace.cu`` (one thread a ray, every view of a batch in one
-launch). Its plain version is ``backends/raytrace.trace_rgb``
+``csrc/rt_trace.cu``, every view of a batch in one launch. A tile of L
+lanes (1-32) shares a ray and splits its loops over the scene's valid
+slots, which each block either stages in shared memory (compacted in slot
+order) or reads from the global arrays in the same order. The launch
+picks its own form from timed variants (``tools/rt_variants.py``): L from
+the ray count, so that a 96x36 frame fills the card (32 lanes) and the
+farm keeps one thread a ray, and staged slots only below 4 lanes. Its
+bound is the operations the valid slots need (``chip_smoke._rt_ops``).
+Its plain version is ``backends/raytrace.trace_rgb``
 (``closest_hit``, ``occluded``, ``shade_diffuse`` and the mirror bounce,
 rounded as the reference's jitted program by ``backends/rt_core``), and
 ``backends/raytrace.trace`` picks between the two by the rays' device.
@@ -65,12 +72,30 @@ def light_pair(scene, n_dl: int, n_pt: int) -> bool:
     return slots[:2] == [0, 1]
 
 
-def trace(scene, pr, cam, rd3, sphere_c) -> torch.Tensor:
+LANES = (1, 2, 4, 8, 16, 32)  # the lanes a ray the kernel takes
+STAGES = {"auto": 0, "staged": 1, "global": 2}  # the C entry's stage
+
+
+def launch_form(n_rays: int, pr) -> tuple[int, bool]:
+    """(lanes a ray, staged) that a launch of ``n_rays`` rays over the
+    scene ``pr`` takes by its own choice (the C entry's rt_trace_lanes and
+    rt_trace_staged; builds the kernels)."""
+    lib = _build.lib()
+    lanes = lib.rt_trace_lanes(n_rays)
+    return lanes, bool(lib.rt_trace_staged(lanes, pr.n_sph, pr.n_pln,
+                                           pr.n_tri))
+
+
+def trace(scene, pr, cam, rd3, sphere_c, *, lanes: int = 0,
+          stage: str = "auto") -> torch.Tensor:
     """Linear RGB f32 [V, R, 3] in [0, 1] of R primary rays a view, one
     launch for every view: ``cam`` f32 [V, 3] the views' origins, ``rd3``
     f32 [V, R, 3] their directions, ``pr`` the scene's
     ``raytrace.ScenePrims``, ``sphere_c`` (primary, other rays) whether
-    the sphere's c fuses. CUDA tensors only: the CPU's route is
+    the sphere's c fuses. ``lanes`` (one of LANES; 0: the launch's own
+    choice) and ``stage`` ("staged", "global"; "auto": the launch's own
+    choice) force a form of the kernel, for its tests and timings; every
+    form gives the same bits. CUDA tensors only: the CPU's route is
     ``raytrace.trace``."""
     global launches
     V, R = rd3.shape[0], rd3.shape[1]
@@ -91,6 +116,9 @@ def trace(scene, pr, cam, rd3, sphere_c) -> torch.Tensor:
                          "int32 materials")
     if min(pr.n_sph, pr.n_pln, pr.n_tri) < 1:
         raise ValueError("trace: every primitive kind needs a slot")
+    if (lanes and lanes not in LANES) or stage not in STAGES:
+        raise ValueError(f"trace: lanes {lanes} (0 or one of {LANES}), "
+                         f"stage {stage!r} (one of {tuple(STAGES)})")
     if V * R >= 2 ** 31:
         raise ValueError(f"trace: {V * R} rays, at most 2^31 - 1")
     out = torch.empty((V, R, 3), dtype=torch.float32, device=rd3.device)
@@ -110,7 +138,8 @@ def trace(scene, pr, cam, rd3, sphere_c) -> torch.Tensor:
             scene.pt_pos.data_ptr(), scene.pt_col.data_ptr(), pr.n_pt,
             int(light_pair(scene, pr.n_dl, pr.n_pt)),
             scene.env_color.data_ptr(), scene.env_intensity.data_ptr(),
-            *(int(f) for f in sphere_c), _build.stream_ptr(rd3.device))
+            *(int(f) for f in sphere_c), lanes, STAGES[stage],
+            _build.stream_ptr(rd3.device))
         launches += 1
         _build.check(err, "rt_trace_launch")
     return out

@@ -1,10 +1,11 @@
 """A/B of the path-trace megakernel B5, the bin walks B6 / B6', the
 fused-shading walk B8, the grouped walks B1, B9d, B9e and B9f, the
 subtile walks B9a, B9b and B9c, the modal vote B4, the packs B3, B7 and
-B7', the raster front end's clip X4 and plane table X3, the frame median
-and busy time of the path tracer's frames, and the median, busy time and
-launches of the paths the kernels for XLA code serve, between two
-checkouts of the repo on one card.
+B7', the raster front end's clip X4 and plane table X3, the ray tracer's
+frame K3, the bin walk's entries X9, the frame median and busy time of the
+path tracer's frames, and the median, busy time and launches of the paths
+the kernels for XLA code serve, between two checkouts of the repo on one
+card.
 
 Each side runs in its own process with its own checkout's
 ``ascii_renderer_tpu_torch`` (kernels built from that checkout's
@@ -59,12 +60,22 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
   chain the paths ran before them: ``setup_screen_channels(
   transform_clip_channels[9](...))`` and ``build_plane_table`` of the
   attribute lerps, then the zero row); the dicts and tables are digested;
+- the ray tracer's frame after its grid (K3, ``rt_trace_kernel``, one
+  launch a call through ``raytrace.trace``) at its five launch sizes on
+  the driven paths: the rt_demo golden frame's first 256, 512 and 1,152
+  rays and all its 3,456 (its padded slots), and the 1,024-view farm's
+  3,538,944 (exact slots), outputs digested;
+- the walk's front (``raster_channels.binned_entries``: X9 where the
+  side's package has ``ops/bin_entries``, else the torch chain its paths
+  ran) at the calls of the entry() room, the teapot 240x135 and the
+  mid-scale HD arm, by CUDA events around whole calls, outputs digested;
 - the host median, device busy ms and kernel launches a call of the
   paths the kernels for XLA code serve (``paths``): the raster headline
   frame, the entry() step, the teapot 240x135, the mid-scale HD arm, the
-  ray tracer's frame and the 1,024-view farm (and its views/s); the
-  headline's, the entry() step's, the teapot's, the mid-scale HD arm's
-  and the farm's outputs are digested.
+  ray tracer's frame and the 1,024-view farm (and its views/s), and the
+  launches of the raster paths' ``raster.walk`` stage; the headline's,
+  the entry() step's, the teapot's, the mid-scale HD arm's and the
+  farm's outputs are digested.
 
 Both sides' outputs must be bit-identical (a digest per kernel and shape);
 the inputs are built by the side's own package from this checkout's
@@ -89,6 +100,7 @@ HERE = Path(__file__).resolve().parents[2]  # this checkout's root
 DEVICE = "cuda:0"
 PT_SHAPES = ((36, 96, 32, "reference batch"), (36, 96, 1, "reference probe"),
              (540, 960, 1, "HD probe"), (540, 960, 8, "HD arm batch"))
+K3_SIZES = (256, 512, 1152, 3456)  # K3's launch sizes below the farm's
 # launches per call of a checkout whose wrapper modules predate their
 # LAUNCHES_PER_CALL: B6, B6', B8 and B1 walk work items and merge, the
 # others launch once. A wrong count fails _device_ms's row check
@@ -153,8 +165,9 @@ def _shared_rays(cs, dev, rows: int, cols: int, B: int):
 def worker(root: str) -> dict:
     """Times the jitted ray grid, B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a,
     B9b, B9c, B4, B7, B7' and B3, the PT frames' median and busy time,
-    the front end of ``front`` and the paths of ``paths``, with the
-    package of checkout ``root``."""
+    the front end of ``front``, K3 and the walk's front
+    (``rt_and_walk_front``) and the paths of ``paths``, with the package
+    of checkout ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -288,6 +301,7 @@ def worker(root: str) -> dict:
         out["busy_ms"][label] = cs.profile_frames(
             frame, 3, ("pt.", "frame.", "glyph"), label)[0]
     front(cs, dev, out)
+    rt_and_walk_front(cs, dev, out, mid_preps)
     paths(cs, dev, out)
     cm3, spans = cs.b3_headline_inputs(dev)
     out["digest"]["B3 headline"] = _digest(
@@ -366,6 +380,39 @@ def front(cs, dev, out) -> None:
         out["x3_ms"][label] = cs._event_ms(table, 20)
 
 
+def rt_and_walk_front(cs, dev, out, mid_preps) -> None:
+    """K3 at its five launch sizes on the driven paths (the golden frame's
+    first 256, 512 and 1,152 rays and all its 3,456, and the farm's rays;
+    profiler kernel rows) and the walk's front at the entry() room's, the teapot's and the
+    mid-scale HD arm's calls (CUDA events over 20 whole calls)."""
+    from ascii_renderer_tpu_torch.backends import raster_channels as RC
+    from ascii_renderer_tpu_torch.backends.raytrace import trace
+    from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+    out["k3_ms"], out["x9_ms"] = {}, {}
+    golden = create_rt_demo_scene().build(device=dev)
+    farm = create_rt_demo_scene().build(min_pad=1, device=dev)
+    g_args = (golden, *cs._rt_inputs(golden, golden.camera, *cs.FARM_GRID,
+                                     dev))
+    runs = [(f"golden frame's first {n} rays",
+             (*g_args[:3], g_args[3][:, :n].contiguous()))
+            for n in K3_SIZES]
+    runs.append(("farm 3538944 rays", (farm, *cs._rt_inputs(
+        farm, cs._orbit(), *cs.FARM_GRID, dev))))
+    for label, args in runs:
+        out["digest"][f"K3 {label}"] = _digest([trace(*args)])
+        out["k3_ms"][label] = cs._device_ms(lambda: trace(*args),
+                                            "rt_trace_kernel", 1)
+    for label, grid, ch in cs._walk_chans(dev, cs._room(dev),
+                                          cs._mesh("cube"), mid_preps):
+        if label not in cs.B6_TIMED:
+            continue
+
+        def fn(ch=ch, grid=grid):
+            return RC.binned_entries(dict(ch), *grid, kernel="mm")
+        out["digest"][f"X9 {label}"] = _digest(fn()[:2])
+        out["x9_ms"][label] = cs._event_ms(fn, 20)
+
+
 def paths(cs, dev, out) -> None:
     """The host median (``chip_smoke._timed``), device busy ms and kernel
     launches a call (``chip_smoke.profile_frames``, 3 calls) of the paths
@@ -380,7 +427,8 @@ def paths(cs, dev, out) -> None:
     from ascii_renderer_tpu_torch.backends.raster import RasterBackend
     from ascii_renderer_tpu_torch.core.config import Config
     from ascii_renderer_tpu_torch.entry import entry
-    for key in ("path_ms", "path_busy_ms", "path_launches"):
+    for key in ("path_ms", "path_busy_ms", "path_launches",
+                "walk_launches"):
         out[key] = {}
     soup, scene = cs._bunny(), cs._scene(dev)
     backend, cfg = cs.run_main_path(dev, soup, scene)
@@ -413,10 +461,12 @@ def paths(cs, dev, out) -> None:
             "view farm 1024 x 96x36": (farm, 5, "rt.")}
     for label, (fn, n, stage) in runs.items():
         out["path_ms"][label] = statistics.median(cs._timed(fn, n))
-        busy, launches = cs.profile_frames(fn, 3, (stage, "frame.", "glyph"),
-                                           label)
+        busy, launches, stages = cs.profile_frames(
+            fn, 3, (stage, "frame.", "glyph"), label)
         out["path_busy_ms"][label] = busy
         out["path_launches"][label] = launches
+        if "raster.walk" in stages:
+            out["walk_launches"][label] = stages["raster.walk"]
         torch.cuda.synchronize()
     out["path_ms"]["view farm views/s"] = cs.FARM_VIEWS / (
         out["path_ms"]["view farm 1024 x 96x36"] / 1e3)
@@ -455,8 +505,8 @@ def main() -> int:
     for key in ("jit_grid_ms", "b5_ms", "b6_ms", "b8_ms", "b1_ms",
                 "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
                 "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "x4_ms", "x3_ms",
-                "frame_ms", "busy_ms", "path_ms", "path_busy_ms",
-                "path_launches"):
+                "k3_ms", "x9_ms", "frame_ms", "busy_ms", "path_ms",
+                "path_busy_ms", "path_launches", "walk_launches"):
         for shape in runs[0][1][key]:
             name = key[:-3] if key.endswith("_ms") else key
             summary[f"{name.capitalize()} {shape}"] = {
@@ -464,8 +514,8 @@ def main() -> int:
                                         if s == side)
                 for side in ("other", "this")}
     for shape, ms in summary.items():
-        unit = "" if shape.startswith("Path_launches") or shape.endswith(
-            "views/s") else " ms"
+        unit = "" if shape.startswith(("Path_launches", "Walk_launches")) \
+            or shape.endswith("views/s") else " ms"
         print(f"{shape}: other {ms['other']:.5f}{unit}, this "
               f"{ms['this']:.5f}{unit}, other / this "
               f"{ms['other'] / ms['this']:.2f}", flush=True)

@@ -1,10 +1,11 @@
 """Inputs of the kernels that stand for XLA code (``ops/fp``,
 ``ops/raster_shade``, ``ops/rt_trace``, ``ops/raster_clip``,
-``ops/plane_table``), made from seeds: operands of ``fma32`` (random,
-constructed float32 midpoint ties, subnormal and special values, each
-operand form the wrapper packs), scenes and shade tables for the deferred
-shade, the ray tracer's test scenes, and triangle soups at the near plane
-for the clip and the plane table. The kernels' tests and
+``ops/plane_table``, ``ops/bin_entries``), made from seeds: operands of
+``fma32`` (random, constructed float32 midpoint ties, subnormal and
+special values, each operand form the wrapper packs), scenes and shade
+tables for the deferred shade, the ray tracer's test scenes, triangle
+soups at the near plane for the clip and the plane table, and screen
+channel dicts for the bin entries. The kernels' tests and
 ``chip_smoke.py``'s checks build their inputs here."""
 
 import numpy as np
@@ -194,3 +195,112 @@ def front_inputs(T, seed, device, rows=36, cols=96):
     mvp = camera_mvp(Camera.create(**FRONT_CAM), rows, cols, 0.5)
     p, a = front_soup(T, mvp.numpy(), seed)
     return torch.from_numpy(p).to(device), torch.from_numpy(a).to(device), mvp
+
+
+# the bin entries' test soups: (rows, cols, triangles, big triangles) of
+# each; "one_tile" is a grid one tile wide, "hd" the 544-tile grid of the
+# mid-scale HD arm (960x540), "many_big" holds more big triangles than the
+# cap of 64, "edge" adds off-screen, degenerate, huge and NaN triangles,
+# "all_invalid" has no valid slot (the reference takes T >= big_cap)
+BIN_SOUPS = {"one_tile": (36, 96, 300, 6), "hd": (540, 960, 120, 8),
+             "many_big": (72, 512, 260, 90), "edge": (40, 300, 200, 10),
+             "all_invalid": (36, 96, 80, 5)}
+
+
+def bin_soup(name, seed=3):
+    """A screen channel dict (sxa .. szc float32, valid bool, each [T];
+    numpy arrays) and its grid (rows, cols) for ``binned_entries``: small
+    triangles scattered over the grid (some across a tile boundary), big
+    ones over several tiles, 10% invalid slots; see BIN_SOUPS."""
+    rows, cols, T, n_big = BIN_SOUPS[name]
+    rng = np.random.default_rng(seed + len(name))
+    hd = name == "hd"
+    # small: a few pixels across; in the HD grid kept to a corner of tiles
+    # so that the plain walk stays small
+    cx = rng.uniform(0, min(cols, 400) if hd else cols, T)
+    cy = rng.uniform(0, min(rows, 64) if hd else rows, T)
+    size = rng.uniform(0.5, 10.0, T)[:, None]
+    x = cx[:, None] + rng.uniform(-1, 1, (T, 3)) * size
+    y = cy[:, None] + rng.uniform(-1, 1, (T, 3)) * size * 0.5
+    big = np.arange(T) % max(1, T // n_big) == 0
+    big &= np.cumsum(big) <= n_big
+    nb = int(big.sum())
+    span_x = rng.uniform(40, 400 if hd else max(cols, 160), nb)
+    span_y = rng.uniform(12, 40 if hd else rows, nb)
+    x[big] = cx[big, None] + rng.uniform(-1, 1, (nb, 3)) * span_x[:, None]
+    y[big] = cy[big, None] + rng.uniform(-1, 1, (nb, 3)) * span_y[:, None]
+    z = rng.uniform(-0.05, 1.05, (T, 3))
+    valid = rng.random(T) >= 0.1
+    if name == "edge":
+        x[0:5] += 1e4  # off-screen right, below, left, above
+        y[5:10] += 1e4
+        x[10:15] -= 1e4
+        y[15:20] -= 1e4
+        x[20:25], y[20:25] = x[20:25, :1], y[20:25, :1]  # a point
+        x[25:30, 2] = 2 * x[25:30, 1] - x[25:30, 0]  # collinear
+        y[25:30, 2] = 2 * y[25:30, 1] - y[25:30, 0]
+        x[30:33, 0] = [3e9, -3e9, 1e30]  # near-plane sized bboxes
+        y[33:36, 1] = [3e9, -1e38, 1e38]
+        x[36, 0], y[37, 2], z[38, 1] = np.nan, np.nan, np.nan
+        x[39, 1], y[40, 0] = np.inf, -np.inf
+        valid[0:41] = True
+    if name == "all_invalid":
+        valid[:] = False
+    ch = {}
+    for i, v in enumerate("abc"):
+        ch[f"sx{v}"] = x[:, i].astype(np.float32)
+        ch[f"sy{v}"] = y[:, i].astype(np.float32)
+        ch[f"sz{v}"] = z[:, i].astype(np.float32)
+    ch["valid"] = valid
+    return ch, rows, cols
+
+
+def mesh_soup(name):
+    """Soup of bench config 2 (teapot) or the mid-scale HD arm
+    (bunny-class, 14,884 triangles) as numpy arrays, and its camera, as
+    chip_smoke._mesh makes them (which keeps its own copy: tools/kernel_ab
+    runs chip_smoke.py against the package of another checkout)."""
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.geom import meshes
+    if name == "teapot":
+        v, i = meshes.teapot_like(1024)
+        return meshes.mesh_to_soup(v, i, color=(0.9, 0.9, 0.9)), \
+            Camera.create(pos=(1.9, 1.3, 2.7),
+                          yaw=float(np.arctan2(-2.7, -1.9)), pitch=-0.4)
+    v, i = meshes.bunny_like(15000)
+    return meshes.mesh_to_soup(v, i, color=(0.8, 0.78, 0.75)), \
+        Camera.create(pos=(2.4, 1.4, 2.8), yaw=float(np.arctan2(-2.8, -2.4)),
+                      pitch=-0.3)
+
+
+def bin_calls(device):
+    """{label: (channel dict, rows, cols)} of binned_entries' callers at
+    the pixel aspect 0.5: the entry() room's uncompacted clip dict (96x36),
+    the teapot's (240x135) and the mid-scale HD arm's (960x540) compacted
+    dicts at the caps their first frame's counts suggest, and a seeded
+    20,000-triangle soup at the near plane (480x270, compacted)."""
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
+    from ascii_renderer_tpu_torch.scene.demo import create_demo_scene
+    scene = create_demo_scene().build(device=device)
+    p = torch.from_numpy(tessellate_scene(scene)[0]).to(device)
+    calls = {"room 96x36": (R.clip_screen_channels(
+        p, R.camera_mvp(scene.camera, 36, 96, 0.5), 36, 96), 36, 96)}
+    for label, name, (rows, cols) in (("teapot 240x135", "teapot",
+                                       (135, 240)),
+                                      ("mid-scale HD 960x540", "mid",
+                                       (540, 960))):
+        soup, cam = mesh_soup(name)
+        p = torch.from_numpy(soup[0]).to(device)
+        ch = R.clip_screen_channels(None, R.camera_mvp(cam, rows, cols, 0.5),
+                                    rows, cols, pos9=R.positions_to_pos9(p))
+        n2t = p.shape[0] // 3 * 2
+        cch, _cidx, n_valid = R.compact_valid_ch(dict(ch), n2t)
+        caps = R.suggest_caps(int(n_valid), int(R.count_big_small(
+            cch, rows, cols)[1]))
+        calls[label] = (R.compact_valid_ch(dict(ch), caps[0])[0], rows, cols)
+    p, _a, mvp = front_inputs(20000, 16, device, 270, 480)
+    ch = R.clip_screen_channels(p, mvp, 270, 480)
+    calls["near-plane soup 480x270"] = (R.compact_valid_ch(
+        dict(ch), 40000)[0], 270, 480)
+    return calls

@@ -14,9 +14,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    - first fma32 (K1, a kernel for XLA code: the fused product-add every
      plain version calls) against its float64 form on 16,777,216 random
      triples, constructed float32 midpoint ties, subnormal and special
-     values, broadcast / 5-d / strided / scalar operands: bit for bit
-     (NaN in the same places); timed at the largest call of a mid-scale
-     HD frame beside torch.addcmul;
+     values, broadcast / 5-d / strided / scalar operands, every call of a
+     mid-scale HD frame and of the bunny's fused frame: bit for bit (NaN
+     in the same places); timed at the largest of those calls beside
+     torch.addcmul;
    - raster headline (bunny-class mesh, 68,644 triangles, 960x540):
      setup (B2) valid flags equal and planes bit-exact; pack (B3)
      bit-exact; grouped walk (B1: slab work items, then a merge launch;
@@ -43,8 +44,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    - the ray tracer's frame after its grid (K3, a kernel for XLA code:
      hits, shading, shadow rays and the mirror bounce, one launch for
      every view) on the rt_demo golden's frame and its bands, the farm's
-     1,024 views and three more scenes over 16 views: bit for bit; timed
-     at the farm's batch;
+     1,024 views and three more scenes over 16 views, in the launch's own
+     form and in every form it can be asked for (1 to 32 lanes a ray, the
+     valid slots staged in shared memory or read from the global arrays):
+     bit for bit; timed at the farm's batch;
    - the raster's deferred shade (K2, a kernel for XLA code) at each
      caller's inputs, captured on its path (the headline's grouped
      tiles, the mid-scale HD arm's plane table, the subtile path's
@@ -64,6 +67,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      ties: z and winner ids exactly equal; each timed (walk and merge)
      at the entry() room's, the teapot's and the mid-scale HD arm's
      shapes;
+   - the bin walk's entries (X9, a kernel for XLA code, ops/bin_entries:
+     four launches, the keys' sort a counting sort) at every call the
+     binned paths make (the demo room, the cube, the teapot, the mid-scale
+     HD arm) and on a seeded 60,000-triangle soup at the near plane, in
+     both walk layouts: entries, offsets and grid bit for bit; timed at
+     the entry() room's and the mid-scale HD arm's calls;
    - the plane-table packs B7 (pack_channels) and B7' (pack_channels_split)
      at the teapot's and the HD arm's table widths and lengths, and B7' at
      the reference's exactness shape [40, 69632]: bit-exact;
@@ -182,10 +191,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    through K2, every frame of the ray tracer and each farm through K3
    (a farm launches K3 once), fma32 through K1, the entry() step's, the
    cube's, the teapot's, the mid-scale HD arm's and the subtile path's
-   clip and table through X4 and X3 (the fused path's clip through X4).
+   clip and table through X4 and X3 (the fused path's clip through X4),
+   the binned paths' entries through X9; raster.walk makes at most
+   RASTER_WALK_LAUNCHES kernel launches a frame of the entry() step and
+   the mid-scale HD arm (printed with their fma32 launches).
    K3's launches are recorded by size (rays) on the driven paths, and
-   each size is timed at the end: its loss, launches x (kernel - bound),
-   goes into K3's record. Frames of every path are
+   each size is timed at the end in the launch's own form (its lanes a
+   ray, staging and blocks printed): its loss, launches x (kernel -
+   bound), goes into K3's record. Frames of every path are
    profiled (stage host ms, device span and kernel launches, device busy
    share; tables in smoke_out/, git-ignored).
 5. Prints the script's total time, {"kernels": [...]} and, as the last
@@ -1790,17 +1803,11 @@ def _same_bits(got, want, what):
         f"{w.numel()} values differ"
 
 
-# port functions whose reference code sits inside another function there
-JAX_HOSTS = {"plane_entries": "visibility_binned_ch"}
-
-
 def _jax_def_line(port_file, fn):
     """``ascii_renderer_tpu/<path>:<line>`` of the reference's ``def fn``
-    (or of the function that holds its code, JAX_HOSTS) for a module of the
-    port (the source is read, never imported)."""
+    for a module of the port (the source is read, never imported)."""
     rel = os.path.relpath(port_file, ROOT).replace(
         "ascii_renderer_tpu_torch", "ascii_renderer_tpu", 1)
-    fn = JAX_HOSTS.get(fn, fn)
     with open(os.path.join(ROOT, rel)) as fh:
         for i, line in enumerate(fh, 1):
             if line.startswith(f"def {fn}("):
@@ -1808,13 +1815,15 @@ def _jax_def_line(port_file, fn):
     return rel
 
 
-def mid_frame_calls(dev):
+def frame_fma_calls(dev, soup, scene):
     """One frame of the mid-scale HD arm (RasterBackend, 14,884 triangles,
-    960x540) with the kernel wrappers of fma32 and the shade recorded,
-    each fma32 call held to fma32_f64 on its own operands as it is made:
-    (the largest fma32 call's operands, the ``def`` in the reference of
-    the backend function it came from, fma32 calls in the frame, the last
-    shade call's arguments)."""
+    960x540) and one of the bunny through render_soup(method="fused") (the
+    clip's attribute lerps, which stay torch ops with fma32 on the card),
+    with the kernel wrappers of fma32 and the shade recorded, each fma32
+    call held to fma32_f64 on its own operands as it is made: (the largest
+    fma32 call's operands, the ``def`` in the reference of the backend
+    function it came from, fma32 calls in the mid HD frame and in the
+    fused frame, the mid HD frame's last shade call's arguments)."""
     from ascii_renderer_tpu_torch.backends.raster import RasterBackend
     from ascii_renderer_tpu_torch.core.config import Config
     from ascii_renderer_tpu_torch.core.fp import fma32_f64
@@ -1829,26 +1838,29 @@ def mid_frame_calls(dev):
                 f.f_code.co_filename:  # function that called its helper
             f = f.f_back
         _same_bits(out, fma32_f64(a, b, c), f"fma32 call {len(calls)} of a "
-                   f"mid HD frame, from {f.f_code.co_name}")
+                   f"mid HD or fused frame, from {f.f_code.co_name}")
         calls.append((out.numel(), (a, b, c), f.f_code.co_filename,
                       f.f_code.co_name))
         return out
 
     KFP.fma32_kernel = rec
     try:
-        soup, cam = _mesh("mid")
+        msoup, cam = _mesh("mid")
         be = RasterBackend(Config(pixel_aspect=PIXEL_ASPECT), device=dev)
-        be.set_soup(*soup, _scene(dev))
+        be.set_soup(*msoup, _scene(dev))
         from ascii_renderer_tpu_torch.ops import raster_shade as RSH
         (shade_args, _kw) = _capture(RSH, "shade", lambda: be.render(
             0.0, cam, *MID_GRID, PIXEL_ASPECT))
+        n_mid = len(calls)
+        _oracle_frame(dev, soup, scene, "fused", {})()
     finally:
         KFP.fma32_kernel = real
     _n, ops, path, fn = max(calls, key=lambda c: c[0])
-    return ops, _jax_def_line(path, fn), len(calls), shade_args
+    return (ops, _jax_def_line(path, fn), n_mid, len(calls) - n_mid,
+            shade_args)
 
 
-def check_fma32(dev):
+def check_fma32(dev, soup, scene):
     """K1, fma32 on CUDA tensors (one launch of csrc/fp.cu's __fmaf_rn),
     against its plain version fma32_f64 on the same card, before any
     other kernel is held to its plain version (those call fma32): 16,777,216
@@ -1856,7 +1868,8 @@ def check_fma32(dev):
     subnormals, infinities, NaN; half normal values of one scale),
     constructed float32 midpoint ties, subnormal and special values, and
     broadcast, strided, 0-d and Python-float operands, and every fma32
-    call of a mid-scale HD frame on its own operands (mid_frame_calls):
+    call of a mid-scale HD frame and of the bunny's fused frame on its
+    own operands (frame_fma_calls):
     bit for bit, NaN in the same places. Timed at the largest of those
     calls beside torch.addcmul on the same operands (the elementwise
     floor, not the same function: it rounds the product).
@@ -1882,7 +1895,8 @@ def check_fma32(dev):
         if label.startswith("random"):
             n_random += ops[0].numel()
     torch.cuda.synchronize()
-    ops, site, n_calls, shade_args = mid_frame_calls(dev)
+    ops, site, n_mid, n_fused, shade_args = frame_fma_calls(dev, soup,
+                                                           scene)
     out = KFP.fma32_kernel(*ops)
     _same_bits(out, fma32_f64(*ops), "fma32, the timed call")
     n = out.numel()
@@ -1903,7 +1917,8 @@ def check_fma32(dev):
           f"triples, {sets['midpoint ties'][0].numel()} midpoint ties, "
           f"{sets['special values'][0].numel()} subnormal and special "
           f"values, operands {', '.join(xi.FMA_CASES)}, and each of the "
-          f"{n_calls} calls of a mid HD frame; timed at the largest, "
+          f"{n_mid} calls of a mid HD frame and {n_fused} of the bunny's "
+          f"fused frame; timed at the largest, "
           f"{' x '.join(forms[:2])} + {forms[2]} -> {tuple(out.shape)}, "
           f"{_nbytes(*tens, out)} bytes (the reference's {site}): kernel "
           f"{ms:.5f} ms, plain {plain:.3f} ms, addcmul {lib:.5f} ms, bound "
@@ -1911,7 +1926,8 @@ def check_fma32(dev):
     rec = _rec("fma32", "fp.cu", "", 0.0, ms, plain, bound, lib)
     # XLA code: the contraction of a product into its add, at the site of
     # the timed call
-    rec.update(replaces=site, shape=list(out.shape), random=n_random)
+    rec.update(replaces=site, shape=list(out.shape), random=n_random,
+               mid_frame_calls=n_mid, fused_frame_calls=n_fused)
     return rec, shade_args
 
 
@@ -1980,9 +1996,11 @@ def _rt_inputs(scene, cams, rows, cols, dev, row_lo=0, n_rows=None):
 
 def _rt_ops(scene, prims, cam, rd3):
     """The ray tracer kernel's float operations on these rays, counted
-    from the plain version's primary hits: every ray tests every
-    primitive; a hit shades with a shadow ray a set light (spheres and
-    triangles); a mirror hit traces and shades its bounce as well."""
+    from the plain version's primary hits over the scene's valid slots
+    (padding is no work of the function: the kernel skips it): every ray
+    tests every valid primitive; a hit shades with a shadow ray a set
+    light (spheres and triangles); a mirror hit traces and shades its
+    bounce as well."""
     from ascii_renderer_tpu_torch.backends.pt_core import V3
     from ascii_renderer_tpu_torch.backends.raytrace import closest_hit
     pr = prims
@@ -1990,22 +2008,33 @@ def _rt_ops(scene, prims, cam, rd3):
     _t, mat, _n, hit = closest_hit(ro, V3.of(rd3), scene, pr)
     n_hit = int(hit.sum())
     n_refl = int((hit & scene.mat_reflective[mat.long()]).sum())
-    trace = (RT_OPS_SPHERE * pr.n_sph + RT_OPS_PLANE * pr.n_pln
-             + RT_OPS_TRI * pr.n_tri + RT_OPS_HIT)
-    shade = (pr.n_dl + pr.n_pt) * (RT_OPS_SPHERE * pr.n_sph
-                                   + RT_OPS_TRI * pr.n_tri + RT_OPS_LIGHT)
+    n_sph, n_pln, n_tri = (int(v.sum()) for v in (
+        pr.sph_valid, pr.pln_valid, pr.tri_valid))
+    trace = (RT_OPS_SPHERE * n_sph + RT_OPS_PLANE * n_pln
+             + RT_OPS_TRI * n_tri + RT_OPS_HIT)
+    shade = (pr.n_dl + pr.n_pt) * (RT_OPS_SPHERE * n_sph
+                                   + RT_OPS_TRI * n_tri + RT_OPS_LIGHT)
     return (rd3.shape[0] * rd3.shape[1] * trace + n_hit * shade
             + n_refl * (trace + shade)), n_hit, n_refl
+
+
+def _k3_form(RTK, n_rays, pr):
+    """K3's launch at n_rays over the scene pr, by the launch's own choice:
+    (lanes a ray, staged, blocks of 128 threads)."""
+    lanes, staged = RTK.launch_form(n_rays, pr)
+    return lanes, staged, -(-n_rays * lanes // 128)
 
 
 def check_rt_trace(dev):
     """K3, the ray tracer's frame after its grid (one launch of
     csrc/rt_trace.cu for every view), against its plain version
-    (raytrace.trace_rgb) on the same rays: the rt_demo golden's frame
-    (96x36, its padded slots), its row bands of 12, the farm's 1,024 orbit
-    views (exact slots), and the triangle / quad / mirror scene, rt_demo
-    with two lights of each kind and a one-sphere scene over 16 views:
-    bit for bit. Timed at the farm's batch. Returns the record."""
+    (raytrace.trace_rgb) on the same rays, in every form of the kernel
+    (1-32 lanes a ray, the valid slots staged in shared memory or read
+    from the global arrays) and the launch's own: the rt_demo golden's
+    frame (96x36, its padded slots), its row bands of 12, the farm's 1,024
+    orbit views (exact slots), and the triangle / quad / mirror scene,
+    rt_demo with two lights of each kind and a one-sphere scene over 16
+    views: bit for bit. Timed at the farm's batch. Returns the record."""
     import torch
     from ascii_renderer_tpu_torch.backends.raytrace import trace, trace_rgb
     from ascii_renderer_tpu_torch.ops import rt_trace as RTK
@@ -2022,12 +2051,19 @@ def check_rt_trace(dev):
         # two lights of each kind, one sphere slot
         cases.append((f"{name} 16 views", xi.rt_scene(name, dev),
                       _orbit(16), {}))
+    forms = [dict(lanes=L, stage=st) for L in RTK.LANES
+             for st in ("staged", "global")]
     for label, scene, cams, kw in cases:
         args = (scene, *_rt_inputs(scene, cams, rows, cols, dev, **kw))
         got, want = trace(*args), trace_rgb(*args)
         torch.cuda.synchronize()
         _same_bits(got, want, f"rt trace, {label}")
         assert (want > 0.05).float().mean() > 0.3, label
+        V, R = args[3].shape[:2]
+        fuse = (_rt_fuse(args[1], V, 1), _rt_fuse(args[1], V, R))
+        for f in forms:
+            _same_bits(RTK.trace(*args, fuse, **f), want,
+                       f"rt trace, {label}, {f}")
     farm = cases[4][1]
     args = (farm, *_rt_inputs(farm, _orbit(), rows, cols, dev))
     ms = _device_ms(lambda: trace(*args), "rt_trace_kernel", 1)
@@ -2036,16 +2072,26 @@ def check_rt_trace(dev):
     n = args[3].shape[0] * args[3].shape[1]
     # cam and rd3 read once (12 bytes a ray), rgb written once (12)
     bound = _bound(24 * n + _nbytes(args[2]), n_ops)
-    print(f"rt trace (K3): bit-identical to the plain version on "
-          f"{', '.join(c[0] for c in cases)}; farm {n} rays ({n_hit} hit, "
-          f"{n_refl} on a mirror): kernel {ms:.5f} ms, plain {plain:.3f} "
-          f"ms, bound {bound[0]:.5f} ms ({bound[1]}); decisions "
+    lanes, staged, blocks = _k3_form(RTK, n, args[1])
+    print(f"rt trace (K3): bit-identical to the plain version in all "
+          f"{len(forms)} forms (lanes {RTK.LANES}, staged and global) and "
+          f"the launch's own on {', '.join(c[0] for c in cases)}; farm "
+          f"{n} rays ({n_hit} hit, {n_refl} on a mirror; {lanes} lanes a "
+          f"ray, {'staged' if staged else 'global'}, {blocks} blocks): "
+          f"kernel {ms:.5f} ms, plain {plain:.3f} ms, bound "
+          f"{bound[0]:.5f} ms ({bound[1]}, valid slots); decisions "
           f"{RTK.FUSE['primary']['spheres_t']} (primary) / "
           f"{RTK.FUSE['bounce']['spheres_t']} (bounce, shadow)", flush=True)
     rec = _rec("rt_trace", "rt_trace.cu", "", 0.0, ms, plain, bound)
     rec.update(replaces="ascii_renderer_tpu/backends/raytrace.py:166",
                rays=n, hit=n_hit, mirror=n_refl)
     return rec
+
+
+def _rt_fuse(pr, views, rays):
+    """raytrace.trace's sphere decision for origins [views, 1, rays]."""
+    from ascii_renderer_tpu_torch.backends import rt_core as RC
+    return RC.sphere_c_fused((views, 1, rays), pr.n_sph)
 
 
 def run_rt_path(dev):
@@ -3200,7 +3246,8 @@ def profile_frames(frame_fn, n, prefixes, label):
     """torch.profiler over n frames: per-stage host and device ms and
     kernel launches per frame (the record_function ranges), the device's
     busy share of the wall time, and the top kernels. The full table goes
-    to smoke_out/. Returns (device busy ms, kernel launches) a frame."""
+    to smoke_out/. Returns (device busy ms, kernel launches, {stage:
+    kernel launches}) a frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3241,7 +3288,7 @@ def profile_frames(frame_fn, n, prefixes, label):
     name = label.replace(" ", "_").replace(",", "")
     with open(os.path.join(OUT, f"profile_{name}.txt"), "w") as fh:
         fh.write(avgs.table(sort_by="self_device_time_total", row_limit=200))
-    return busy, launches
+    return busy, launches, stage_launches
 
 
 # --------------------------------------------------------------------------
@@ -3372,21 +3419,27 @@ def _random_bins(dev):
     return {"mm": mm, "loop": loop}, torch.from_numpy(offs).to(dev), 3, 6
 
 
-def _walk_inputs(dev, room, cube, mid_preps):
-    """(label, {"mm": data, "loop": data}, offsets, tiles_x, n_tiles) for
-    every shape the binned paths give the walks."""
+def _walk_chans(dev, room, cube, mid_preps):
+    """(label, (rows, cols), channel dict) of every call the binned paths
+    make of binned_entries: the entry() room's and the cube's uncompacted
+    clip dicts, the teapot's and the mid-scale HD arm's compacted ones."""
     import torch
-    from ascii_renderer_tpu_torch.backends import raster_channels as RC
     scene, soup = room
     cube_p = torch.from_numpy(cube[0][0]).to(dev)
     chans = [("demo room 96x36", ENTRY_GRID,
               _scatter_ch(soup[0], scene.camera, *ENTRY_GRID)),
              ("cube 80x24", CUBE_GRID,
               _scatter_ch(cube_p, cube[1], *CUBE_GRID))]
-    chans += [(label, grid, cch) for label, grid, (cch, _pc, _caps)
-              in mid_preps]
+    return chans + [(label, grid, cch) for label, grid, (cch, _pc, _caps)
+                    in mid_preps]
+
+
+def _walk_inputs(dev, room, cube, mid_preps):
+    """(label, {"mm": data, "loop": data}, offsets, tiles_x, n_tiles) for
+    every shape the binned paths give the walks."""
+    from ascii_renderer_tpu_torch.backends import raster_channels as RC
     out = []
-    for label, grid, ch in chans:
+    for label, grid, ch in _walk_chans(dev, room, cube, mid_preps):
         data = {}
         for kern in ("mm", "loop"):
             data[kern], offs, tiles_x, n_tiles = RC.binned_entries(
@@ -3394,6 +3447,69 @@ def _walk_inputs(dev, room, cube, mid_preps):
         out.append((label, data, offs, tiles_x, n_tiles))
     out.append(("random entries", *_random_bins(dev)))
     return out
+
+
+# the calls X9 is timed at: the entry() step's and the mid-scale HD arm's
+# (the record)
+X9_TIMED = ("demo room 96x36", "mid-scale HD 960x540")
+
+
+def check_bin_entries(dev, room, cube, mid_preps):
+    """X9, the bin walk's entries (ops/bin_entries: four launches, the
+    keys' sort a counting sort), against its plain version (the torch
+    chain tile_pairs, plane_entries, the gather) at every call of the
+    binned paths (_walk_chans) and at a seeded 60,000-triangle soup at the
+    near plane (480x270, the clip dict uncompacted), in both layouts:
+    entries (NaN in the same places), offsets, tiles_x and n_tiles bit for
+    bit. Timed (kernel rows over 50 calls; the whole call, sort included,
+    by CUDA events) at the entry() room's and the mid-scale HD arm's calls
+    in walk "mm"'s layout. Returns the record, at the mid-scale HD arm."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import bin_entries as BE
+    from ascii_renderer_tpu_torch.tools.xla_inputs import front_inputs
+    p, _a, mvp = front_inputs(60000, 16, dev, *ROWS_COLS_FRONT)
+    calls = _walk_chans(dev, room, cube, mid_preps) + [(
+        "near-plane soup 60,000 triangles", ROWS_COLS_FRONT,
+        R.clip_screen_channels(p, mvp, *ROWS_COLS_FRONT))]
+    rec = None
+    for label, grid, ch in calls:
+        T = ch["valid"].shape[0]
+        for kern in ("mm", "loop"):
+            def fn(ch=ch, grid=grid, kern=kern):
+                return BE.binned_entries(dict(ch), *grid, kernel=kern)
+            got = fn()
+            want = BE.binned_entries_ref(dict(ch), *grid, kernel=kern)
+            torch.cuda.synchronize()
+            _same_bits(got[0], want[0], f"X9 {kern} {label}: entries")
+            assert torch.equal(got[1], want[1]), f"X9 {kern} {label}: bins"
+            assert got[2:] == want[2:], (label, got[2:], want[2:])
+            n_tiles = got[3]
+            P = 4 * T + 64 * n_tiles
+            walked = int(got[1][-1])
+            print(f"X9 {kern} {label}: exact, {T} triangle slots, {P} "
+                  f"pairs ({walked} in bins), {n_tiles} tiles", flush=True)
+            if kern != "mm" or label not in X9_TIMED:
+                continue
+            ms = _device_ms(fn, "bin_", 4)
+            call = _event_ms(fn, 20)
+            plain = _event_ms(lambda: BE.binned_entries_ref(
+                dict(ch), *grid, kernel=kern), 3)
+            # the screen channels and flags read once, the keys, the
+            # source rows, the entries and the offsets written once; ~60
+            # float operations a triangle
+            bound = _bound(37 * T + 4 * P + 64 * (T + 1) + _nbytes(*got[:2]),
+                           60 * T)
+            print(f"X9 {label}: kernels {ms:.5f} ms (4 launches), the "
+                  f"whole call {call:.5f} ms, plain {plain:.3f} ms,"
+                  f" bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+            if label.startswith("mid-scale"):
+                rec = _rec("bin_entries", "bin_entries.cu", "", 0.0, ms,
+                           plain, bound)
+                rec.update(replaces="ascii_renderer_tpu/backends/"
+                           "raster_channels.py:546", call_ms=call,
+                           slots=T, pairs=P)
+    return rec
 
 
 # the shapes B6 / B6' are timed at: the driven paths' own; the records
@@ -3889,24 +4005,34 @@ def _record_k3(RTK):
 
 def k3_loss(sizes, trace, rec):
     """K3's loss on the driven paths from the sizes of its launches: each
-    size's device ms (at its first driven call's rays) less its bound,
-    times its launches. Adds them to the record (main checks their sum
-    against the driven paths' count); returns the loss."""
+    size's device ms (at its first driven call's rays, the launch's own
+    form) less its bound (the valid slots' operations), times its
+    launches. Adds them to the record (main checks their sum against the
+    driven paths' count); returns the loss."""
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
     loss, parts = 0.0, []
     for rays, (a, k, n) in sorted(sizes.items()):
         ms = _device_ms(lambda: trace(*a, **k), "rt_trace_kernel", 1)
         scene, pr, cam, rd3 = a[:4]
         bound = _bound(24 * rays + _nbytes(cam), _rt_ops(scene, pr, cam,
                                                          rd3)[0])[0]
+        lanes, staged, blocks = _k3_form(RTK, rays, pr)
         loss += n * (ms - bound)
-        parts.append(dict(rays=rays, launches=n, ms=ms, bound_ms=bound))
+        parts.append(dict(rays=rays, launches=n, ms=ms, bound_ms=bound,
+                          lanes=lanes, staged=staged, blocks=blocks))
     print("rt trace (K3) launch sizes on the driven paths: " + "; ".join(
-        f"{p['rays']} rays: {p['launches']} launches, kernel {p['ms']:.5f} "
-        f"ms, bound {p['bound_ms']:.5f} ms" for p in parts)
-        + f"; loss {loss:.3f} ms", flush=True)
+        f"{p['rays']} rays: {p['launches']} launches, {p['lanes']} lanes a "
+        f"ray {'staged' if p['staged'] else 'global'} on {p['blocks']} "
+        f"blocks, kernel {p['ms']:.5f} ms, bound {p['bound_ms']:.5f} ms"
+        for p in parts) + f"; loss {loss:.3f} ms", flush=True)
     rec.update(launch_sizes=parts, loss_ms=loss)
     return loss
 
+
+# kernel launches raster.walk may make a frame of the entry() step and the
+# mid-scale HD arm: X9's four, B6's walk and merge and the image assembly
+# after it
+RASTER_WALK_LAUNCHES = 15
 
 # kernels the parallel phase must launch: both ray grids, B5, B4 (the
 # dryrun's farm) and every walk and setup of the raster bands
@@ -3927,6 +4053,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
     from ascii_renderer_tpu_torch.ops import _build
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    from ascii_renderer_tpu_torch.ops import bin_entries as BE
     from ascii_renderer_tpu_torch.ops import fp as KFP
     from ascii_renderer_tpu_torch.ops import pack as PK
     from ascii_renderer_tpu_torch.ops import plane_table as PT
@@ -3981,11 +4108,12 @@ def main() -> int:
                 "fma32": (KFP, "launches"), "raster_shade": (RSH, "launches"),
                 "rt_trace": (RTK, "launches"),
                 "raster_clip": (RCL, "launches"),
-                "plane_table": (PT, "launches")}
+                "plane_table": (PT, "launches"),
+                "bin_entries": (BE, "launches")}
     # fma32 first: the other kernels' plain versions call it
-    fma_rec, mid_shade = check_fma32(dev)
     soup = _bunny()
     scene = _scene(dev)
+    fma_rec, mid_shade = check_fma32(dev, soup, scene)
     recs = [fma_rec] + check_kernels(dev, soup, scene)
     recs.append(check_modal(dev, soup, scene))
     recs.append(check_pt_kernel(dev))
@@ -4100,6 +4228,7 @@ def main() -> int:
         print(f"{label}: {msoup[0].shape[0] // 3} triangles, steady caps "
               f"{mid_preps[-1][2][2]}", flush=True)
     recs += check_bins_kernels(dev, room, cube, mid_preps)
+    recs.append(check_bin_entries(dev, room, cube, mid_preps))
     recs += check_pack_channels(dev, mid_preps)
     recs += check_front_kernels(dev, soup, scene, caps)
     by_name = {r["name"]: r for r in recs}
@@ -4107,14 +4236,15 @@ def main() -> int:
     raster_prefixes = ("raster.", "frame.", "glyph")
     c_entry, entry_fn = _path_counts(counters, run_entry_path)
     print(f"launches on the entry step: {c_entry}", flush=True)
-    for k in ("raster_bins_walk", "modal_vote", "fma32", "raster_clip",
-              "plane_table", "raster_shade"):
+    for k in ("raster_bins_walk", "modal_vote", "raster_clip",
+              "plane_table", "raster_shade", "bin_entries"):
         assert c_entry[k] > 0, f"{k} never launched on the entry step"
-    profile_frames(entry_fn, 5, raster_prefixes, "entry step")
+    walk_launches = {"entry step": profile_frames(
+        entry_fn, 5, raster_prefixes, "entry step")[2]["raster.walk"]}
     c_cube, _ = _path_counts(counters, lambda: run_cube_path(dev))
     print(f"launches on the cube path: {c_cube}", flush=True)
     for k in ("raster_bins_walk", "raster_bins_walk_loop", "raster_clip",
-              "plane_table"):
+              "plane_table", "bin_entries"):
         assert c_cube[k] > 0, f"{k} never launched on the cube path"
     c_tea, tea_fn = _path_counts(counters, lambda: run_raster_mesh_path(
         dev, "teapot", TEAPOT_GRID, 3, 2, 20, "teapot 240x135"))
@@ -4123,11 +4253,18 @@ def main() -> int:
         dev, "mid", MID_GRID, 2, 0, 10, "mid-scale HD 960x540"))
     print(f"launches on the mid-scale HD arm: {c_mid}", flush=True)
     for c, what in ((c_tea, "teapot path"), (c_mid, "mid-scale HD arm")):
-        for k in ("raster_bins_walk", "modal_vote", "raster_shade", "fma32",
-                  "raster_clip", "plane_table"):
+        for k in ("raster_bins_walk", "modal_vote", "raster_shade",
+                  "raster_clip", "plane_table", "bin_entries"):
             assert c[k] > 0, f"{k} never launched on the {what}"
     profile_frames(tea_fn, 5, raster_prefixes, "teapot 240x135")
-    profile_frames(mid_fn, 3, raster_prefixes, "mid-scale HD arm")
+    walk_launches["mid-scale HD arm"] = profile_frames(
+        mid_fn, 3, raster_prefixes, "mid-scale HD arm")[2]["raster.walk"]
+    # X9 leaves raster.walk its passes, the sort, B6's walk and merge and
+    # the image assembly after it; fma32 no longer launches in these paths
+    print(f"raster.walk kernel launches a frame: {walk_launches}; fma32 "
+          f"launches: entry step {c_entry['fma32']}, teapot "
+          f"{c_tea['fma32']}, mid-scale HD arm {c_mid['fma32']}", flush=True)
+    assert max(walk_launches.values()) <= RASTER_WALK_LAUNCHES, walk_launches
     c_pts, pts_fn = _path_counts(counters, lambda: run_pt_step_path(dev))
     print(f"launches on the PT frame step: {c_pts}", flush=True)
     for k in ("pt_megakernel", "ray_grid", "modal_vote"):
@@ -4216,7 +4353,7 @@ def main() -> int:
               c_tea, c_mid, c_pts, c_rt, c_farm, c_prog, c_cli, c_par,
               c_core)
     for k in ("fma32", "raster_shade", "rt_trace", "raster_clip",
-              "plane_table"):
+              "plane_table", "bin_entries"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
     k3_rec = by_name["rt_trace"]

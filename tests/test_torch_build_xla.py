@@ -1,9 +1,11 @@
 """The kernels that stand for XLA code of the reference, on the card: the
 fused multiply-add ``fma32`` (``ops/fp``), the raster's deferred shade
-(``ops/raster_shade``), the ray tracer's frame (``ops/rt_trace``), the
-small and mid raster paths' clip with its screen setup
-(``ops/raster_clip``, X4) and their plane table (``ops/plane_table``, X3),
-each held to its plain version bit for bit. Tests marked ``cuda`` skip without
+(``ops/raster_shade``), the ray tracer's frame (``ops/rt_trace``, K3, in
+every form: 1-32 lanes a ray, the valid slots staged or read from the
+global arrays), the small and mid raster paths' clip with its screen setup
+(``ops/raster_clip``, X4), their plane table (``ops/plane_table``, X3) and
+their bin entries (``ops/bin_entries``, X9), each held to its plain
+version bit for bit. Tests marked ``cuda`` skip without
 a card; this file imports no JAX, so they run where there is none:
 
     python -m pytest tests/test_torch_build_xla.py -m cuda --noconftest
@@ -17,20 +19,28 @@ import pytest
 import torch
 
 from ascii_renderer_tpu_torch.backends import raster as R
+from ascii_renderer_tpu_torch.backends import raster_channels as RCH
 from ascii_renderer_tpu_torch.backends import raster_common as RCM
 from ascii_renderer_tpu_torch.backends import raster_oracles as RO
 from ascii_renderer_tpu_torch.backends import raytrace as RT
+from ascii_renderer_tpu_torch.backends import rt_core as RC
+from ascii_renderer_tpu_torch.core.camera import band_of, camera_bases
 from ascii_renderer_tpu_torch.core.fp import fma32, fma32_f64
+from ascii_renderer_tpu_torch.ops import _build
+from ascii_renderer_tpu_torch.ops import bin_entries as BE
 from ascii_renderer_tpu_torch.ops import fp as KFP
 from ascii_renderer_tpu_torch.ops import plane_table as PT
 from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid_jit
 from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
 from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
+from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
 from ascii_renderer_tpu_torch.tools.xla_inputs import (
-    FMA_CASES, RT_SCENES, fma_operands, fma_specials, fma_ties, front_inputs,
-    rt_scene, shade_builder, shade_inputs)
+    BIN_SOUPS, FMA_CASES, RT_SCENES, bin_calls, bin_soup, fma_operands,
+    fma_specials, fma_ties, front_inputs, rt_scene, shade_builder,
+    shade_inputs)
 
 torch.set_num_threads(2)
 
@@ -257,8 +267,8 @@ def test_plane_table_kernel_equals_plain(cuda_device, n_attrs, form, T,
     ("subtile", 1024)], ids=["scatter", "mm", "fused", "subtile"])
 def test_front_kernels_frames_equal_plain(cuda_device, monkeypatch, method,
                                           v_cap):
-    """render_soup's frames through X4 and X3 equal the same frames with
-    the plain versions in their place, bit for bit."""
+    """render_soup's frames through X4, X3 and X9 equal the same frames
+    with the plain versions in their place, bit for bit."""
     from ascii_renderer_tpu_torch.core.camera import Camera
     from ascii_renderer_tpu_torch.tools.xla_inputs import FRONT_CAM
     p, attrs, _mvp = front_inputs(600, 4, cuda_device)
@@ -271,12 +281,139 @@ def test_front_kernels_frames_equal_plain(cuda_device, monkeypatch, method,
         return R.render_soup(p, n, c, scene, cam, 36, 96, 0.5,
                              method=method, v_cap=v_cap, big_cap=512)
 
-    n0 = (RCL.launches, PT.launches)
+    n0 = (RCL.launches, PT.launches, BE.launches)
     got = frame()
     assert RCL.launches == n0[0] + 1
     assert PT.launches == n0[1] + (method != "fused")
+    assert BE.launches == n0[2] + (method == "scatter")
     monkeypatch.setattr(RCL, "clip_screen", RCL.clip_screen_ref)
     monkeypatch.setattr(PT, "plane_table", PT.plane_table_ref)
+    monkeypatch.setattr(RCH, "binned_entries", BE.binned_entries_ref)
     _same_bits(got, frame())
     assert (got.amax(-1) > 0).sum() > 200
 
+
+
+# --------------------------------------------------------------------------
+# K3 in every form, and X9
+# --------------------------------------------------------------------------
+def _rt_args(scene, pr, cams, rows, cols, row_lo=0, n_rows=None):
+    """(scene, pr, cam [V, 3], rd3 [V, R, 3], sphere_c) of render_rgb's
+    trace on the card: the jitted grid's rays, raytrace.trace's fuse
+    decisions."""
+    yaw, pitch, fov = (getattr(cams, f).reshape(-1)
+                       for f in ("yaw", "pitch", "fov_y"))
+    rows_out = band_of(rows, row_lo, n_rows)
+    dev = scene.sph_pos.device
+    V = yaw.shape[0]
+    rd3 = ray_grid_jit(camera_bases(yaw, pitch, fov), rows, cols, 0.5, dev,
+                       row_lo, rows_out).reshape(V, rows_out * cols, 3)
+    cam = cams.pos.reshape(-1, 3).to(dev, torch.float32)
+    R_ = rd3.shape[1]
+    return (scene, pr, cam, rd3, (RC.sphere_c_fused((V, 1, 1), pr.n_sph),
+                                  RC.sphere_c_fused((V, 1, R_), pr.n_sph)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["staged", "global"])
+@pytest.mark.parametrize("lanes", RTK.LANES)
+@pytest.mark.parametrize("name", RT_SCENES)
+def test_trace_kernel_every_form_equals_plain(cuda_device, name, lanes,
+                                              stage):
+    """K3 with L lanes a ray and the valid slots staged in shared memory
+    or read from the global arrays (one launch each) gives trace_rgb's
+    bits: one camera at 36x96, 16 orbit views at 24x40, a band of 12
+    rows."""
+    scene = rt_scene(name, cuda_device)
+    pr = RT.ScenePrims(scene)
+    orbit = orbit_cameras(16, center=(0, 1.0, 0.0), radius=5.5)
+    for cams, rows, cols, kw in ((scene.camera, 36, 96, {}),
+                                 (orbit, 24, 40, {}),
+                                 (scene.camera, 36, 96,
+                                  dict(row_lo=12, n_rows=12))):
+        *args, fuse = _rt_args(scene, pr, cams, rows, cols, **kw)
+        n0 = RTK.launches
+        got = RTK.trace(*args, fuse, lanes=lanes, stage=stage)
+        assert RTK.launches == n0 + 1
+        _same_bits(got, RT.trace_rgb(*args))
+
+
+@pytest.mark.cuda
+def test_trace_kernel_farm_every_form_equals_plain(cuda_device):
+    """The farm's 1,024 orbit views of rt_demo (exact slots, 3,538,944
+    rays) through every form of K3 give trace_rgb's bits; the launch's own
+    choice keeps one lane a ray there, staged, and takes all 32 at a 96x36
+    frame, reading the global arrays."""
+    scene = create_rt_demo_scene().build(min_pad=1, device=cuda_device)
+    pr = RT.ScenePrims(scene)
+    *args, fuse = _rt_args(scene, pr, orbit_cameras(
+        1024, center=(0, 1.0, 1.0)), 36, 96)
+    want = RT.trace_rgb(*args)
+    for stage in ("staged", "global"):
+        for lanes in RTK.LANES:
+            _same_bits(RTK.trace(*args, fuse, lanes=lanes, stage=stage),
+                       want)
+    _same_bits(RTK.trace(*args, fuse), want)
+    assert RTK.launch_form(1024 * 3456, pr) == (1, True)
+    assert RTK.launch_form(3456, pr) == (32, False)
+
+
+class _FailingLib:
+    """A kernel library whose every launch reports a CUDA error."""
+
+    def __getattr__(self, name):
+        return lambda *args: 700  # cudaErrorIllegalAddress
+
+
+@pytest.mark.cuda
+def test_trace_and_bin_entries_raise_on_build_or_launch_failure(
+        cuda_device, monkeypatch):
+    """A failed build and a failed launch each raise out of K3's and X9's
+    wrappers; neither falls back to its plain version."""
+    scene = rt_scene("rt_demo", cuda_device)
+    pr = RT.ScenePrims(scene)
+    *args, fuse = _rt_args(scene, pr, scene.camera, 12, 32)
+    ch, rows, cols = bin_calls(cuda_device)["room 96x36"]
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    runs = (lambda: RTK.trace(*args, fuse),
+            lambda: BE.binned_entries(dict(ch), rows, cols))
+    for lib, match in ((no_build, "nvcc failed"),
+                       (lambda: _FailingLib(), "launch failed")):
+        monkeypatch.setattr(_build, "lib", lib)
+        for run in runs:
+            with pytest.raises(RuntimeError, match=match):
+                run()
+    monkeypatch.undo()
+    for kw in (dict(lanes=3), dict(stage="shared")):  # forms it lacks
+        with pytest.raises(ValueError):
+            RTK.trace(*args, fuse, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mm", "loop"])
+@pytest.mark.parametrize("call", ["room 96x36", "teapot 240x135",
+                                  "mid-scale HD 960x540",
+                                  "near-plane soup 480x270"]
+                         + [f"soup {n}" for n in BIN_SOUPS])
+def test_bin_entries_kernel_equals_plain(cuda_device, call, kernel):
+    """X9 (four launches) gives the plain chain's entries,
+    offsets, tiles_x and n_tiles bit for bit at its callers' channel dicts
+    (the entry() room's, the teapot's, the mid-scale HD arm's, a soup at
+    the near plane) and the CPU tests' soups, in both layouts."""
+    if call.startswith("soup "):
+        np_ch, rows, cols = bin_soup(call[5:])
+        ch = {k: torch.from_numpy(v).to(cuda_device)
+              for k, v in np_ch.items()}
+    else:
+        ch, rows, cols = bin_calls(cuda_device)[call]
+    n0 = BE.launches
+    got = BE.binned_entries(dict(ch), rows, cols, kernel=kernel)
+    assert BE.launches == n0 + 1
+    want = BE.binned_entries_ref(dict(ch), rows, cols, kernel=kernel)
+    assert got[0].shape == want[0].shape and got[0].is_contiguous()
+    _same_bits(got[0], want[0])
+    assert torch.equal(got[1].cpu(), want[1].cpu())
+    assert got[2:] == want[2:]

@@ -9,9 +9,12 @@ What the kernels are handed is checked here without a card: the float64
 form of ``fma32`` against exact rational rounding (midpoint ties,
 subnormals, signed zeros, infinities, overflow), the strides and scalars
 each wrapper packs (replayed on the CPU with the kernel's addressing),
-and the ray tracer's table of fused products against the decisions the
-plain version makes. ``_shade_rows`` is held to the reference's. The
-kernels themselves are held to their plain versions on the card
+the ray tracer's table of fused products against the decisions the
+plain version makes, and a replay of its kernel's tile reduction (1-32
+lanes a ray) against ``torch.argmin``. ``_shade_rows`` is held to the
+reference's. The clip (X4), the plane table (X3) and the bin entries (X9)
+never fall back and raise on a failed build or launch. The kernels
+themselves are held to their plain versions on the card
 (``tests/test_torch_build_xla.py``, marked ``cuda``)."""
 
 import dataclasses
@@ -32,6 +35,7 @@ from ascii_renderer_tpu_torch.backends import raytrace as RT
 from ascii_renderer_tpu_torch.backends import rt_core as RC
 from ascii_renderer_tpu_torch.core.fp import fma32, fma32_f64
 from ascii_renderer_tpu_torch.ops import _build
+from ascii_renderer_tpu_torch.ops import bin_entries as BE
 from ascii_renderer_tpu_torch.ops import fp as KFP
 from ascii_renderer_tpu_torch.ops import plane_table as PT
 from ascii_renderer_tpu_torch.ops import raster_clip as RCL
@@ -48,7 +52,7 @@ from ascii_renderer_tpu_torch.tools.xla_inputs import (
 torch.set_num_threads(2)
 
 COUNTERS = ((KFP, "launches"), (RSH, "launches"), (RTK, "launches"),
-            (RCL, "launches"), (PT, "launches"))
+            (RCL, "launches"), (PT, "launches"), (BE, "launches"))
 
 
 @pytest.fixture
@@ -265,7 +269,8 @@ def test_front_kernels_raise_on_build_or_launch_failure(zero_counts,
         raise RuntimeError("nvcc failed")
 
     runs = (lambda: RCL.clip_screen(m["p"], mvp, 36, 96),
-            lambda: PT.plane_table(m["cch"], m["ch"], m["attrs"], m["cidx"]))
+            lambda: PT.plane_table(m["cch"], m["ch"], m["attrs"], m["cidx"]),
+            lambda: BE.binned_entries(m["cch"], 36, 96))
     for lib, match in ((no_build, "nvcc failed"),
                        (lambda: _FailingLib(), "launch failed")):
         monkeypatch.setattr(_build, "lib", lib)
@@ -273,7 +278,30 @@ def test_front_kernels_raise_on_build_or_launch_failure(zero_counts,
             with pytest.raises(RuntimeError, match=match):
                 run()
     assert calls == []
-    assert (RCL.launches, PT.launches) == (1, 1)  # the failed launches
+    # the failed launches
+    assert (RCL.launches, PT.launches, BE.launches) == (1, 1, 1)
+
+
+def test_bin_entries_never_fall_back(zero_counts, monkeypatch):
+    """binned_entries on tensors that are not on the CPU reaches the
+    kernel path, whose checks raise for anything but CUDA tensors and for
+    what the kernels do not take; no call reaches the plain version."""
+    _on, m, _mvp = _front_meta()
+    calls = []
+    monkeypatch.setattr(BE, "binned_entries_ref",
+                        lambda *a, **k: calls.append(a))
+    with pytest.raises(ValueError):
+        BE.binned_entries(m["cch"], 36, 96)
+    with pytest.raises(ValueError):
+        BE.binned_entries(m["ch"], 36, 96, kernel="loop")
+    monkeypatch.setattr(_build, "require_cuda", lambda *t, what: None)
+    for kw in (dict(big_cap=0), dict(big_cap=BE.MAX_BIG_CAP + 1),
+               dict(tile_window=0)):
+        with pytest.raises(ValueError):
+            BE.binned_entries(m["cch"], 36, 96, **kw)
+    with pytest.raises(ValueError):  # 4,096 tiles: a key's tile overflows
+        BE.binned_entries(m["cch"], 8 * 64, 128 * 64)
+    assert calls == [] and BE.launches == 0
 
 
 def _replay(t, geom, k, dims):
@@ -565,3 +593,77 @@ def test_light_pair_follows_the_slots():
     demo = create_rt_demo_scene().build(min_pad=1, device="cpu")
     assert not RTK.light_pair(demo, 1, 1)
     assert not RTK.light_pair(demo, 0, 2)
+
+
+# --------------------------------------------------------------------------
+# the ray tracer's frame: its tile reduction
+# --------------------------------------------------------------------------
+K_NONE = 2 ** 31 - 1  # csrc/rt_trace.cu kNone
+K_BIG = float(np.float32(1e30))
+
+
+def _before(ta, ka, tb, kb) -> bool:
+    """csrc/rt_trace.cu before(): a NaN first, then the lesser t (-0 ==
+    +0), then the lesser slot; K_NONE is no candidate."""
+    if kb == K_NONE:
+        return ka != K_NONE
+    if ka == K_NONE:
+        return False
+    na, nb = np.isnan(ta), np.isnan(tb)
+    if na != nb:
+        return bool(na)
+    if not na and ta != tb:
+        return ta < tb
+    return ka < kb
+
+
+def _tile_first_min(t, slots, L):
+    """closest_hit's search as a tile of L lanes runs it: lane r takes
+    items r, r + L, ... with the serial take (the first minimum, a NaN
+    first), then the xor butterfly with before(). Every lane must end with
+    the same (t, slot)."""
+    lanes = []
+    for r in range(L):
+        best, k = 0.0, K_NONE
+        for i in range(r, len(t), L):
+            if k == K_NONE or t[i] < best or (np.isnan(t[i])
+                                              and not np.isnan(best)):
+                best, k = float(t[i]), int(slots[i])
+        lanes.append((best, k))
+    m = L // 2
+    while m:
+        lanes = [lanes[j ^ m] if _before(*lanes[j ^ m], *lanes[j])
+                 else lanes[j] for j in range(L)]
+        m //= 2
+    assert len({(repr(a), b) for a, b in lanes}) == 1
+    return lanes[0]
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32])
+def test_rt_tile_reduction_is_the_first_minimum(L):
+    """Over random t arrays of slots, some invalid (NaN, +-0, K_BIG ties,
+    duplicates, no valid slot), the tile's search over the valid slots
+    gives torch.argmin's first minimum of them; where that is a hit (t <
+    5e29) or NaN it is also argmin's over every slot with the invalid
+    ones at K_BIG, as the plain version searches; with no valid slot it is
+    no candidate."""
+    rng = np.random.default_rng(L)
+    for case in range(300):
+        n = int(rng.integers(1, 90))
+        t = rng.choice(np.float32([0.5, 2.0, 7.25, K_BIG, 0.0, -0.0, np.nan,
+                                   3e29, 6e29, np.inf]), n)
+        t = np.where(rng.random(n) < 0.4, rng.uniform(0.1, 50, n)
+                     .astype(np.float32), t).astype(np.float32)
+        if case % 7 == 0:
+            t[rng.integers(0, n, 3)] = np.float32(np.nan)
+        valid = rng.random(n) < (0.0 if case % 11 == 0 else 0.6)
+        slots = np.flatnonzero(valid)
+        got_t, got_k = _tile_first_min(t[slots], slots, L)
+        if not slots.size:
+            assert got_k == K_NONE
+            continue
+        j = int(torch.argmin(torch.from_numpy(t[slots])))
+        assert got_k == slots[j], (case, t[slots], got_k)
+        full = np.where(valid, t, np.float32(K_BIG))
+        if np.isnan(got_t) or got_t < 5e29:
+            assert got_k == int(torch.argmin(torch.from_numpy(full)))
