@@ -49,6 +49,7 @@ from ascii_renderer_tpu_torch.core.camera import Camera
 from ascii_renderer_tpu_torch.core.fp import fma32, libm32, sqrt32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
+from ascii_renderer_tpu_torch.ops import bin_entries as BE
 from ascii_renderer_tpu_torch.ops import raster_group as RG
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import raster_subtile as RS
@@ -56,6 +57,8 @@ from ascii_renderer_tpu_torch.ops.pack import (pack_channels,
                                                pack_channels_split_blocked)
 from ascii_renderer_tpu_torch.ops.setup2dh import (
     setup_2dh_fused, setup_2dh_fused_packed, setup_channels)
+from ascii_renderer_tpu_torch.ops.bin_entries import (  # noqa: F401
+    _bin_span, _floor_i32, _pair_keys_core)
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 from ascii_renderer_tpu_torch.backends.raster_common import (  # noqa: F401
     FAR, MAX_V_CAP, NEAR, TILE_H, TILE_W, _DEFAULT_AMBIENT, _DEFAULT_DIR,
@@ -180,122 +183,24 @@ def setup_2dh(pos9: torch.Tensor, attrs_t: torch.Tensor, mvp: torch.Tensor,
     return setup_channels(pos9, attrs_t, mvp, rows, cols)
 
 
-def _floor_i32(x: torch.Tensor) -> torch.Tensor:
-    # saturate like XLA's f32 -> s32 conversion (huge near-plane bboxes)
-    return torch.clamp(torch.floor(x), -2147483648.0, 2147483520.0).to(
-        torch.int32)
-
-
-def _bin_span(xmin, xmax, ymin, ymax, valid, rows: int, cols: int,
-              ty_lo: int = 0, tiles_y_band: int | None = None):
-    """Bin spans (sc0, sc1, ty0, ty1: subtile columns and tile rows) and
-    the small / big classes of each triangle; with ``tiles_y_band``, on
-    screen means inside the tile-row band [ty_lo, ty_lo + tiles_y_band)."""
-    sc0 = _floor_i32(xmin / RS.SUB_W)
-    sc1 = _floor_i32(xmax / RS.SUB_W)
-    ty0 = _floor_i32(ymin / TILE_H)
-    ty1 = _floor_i32(ymax / TILE_H)
-    if tiles_y_band is None:
-        y_lo_px, y_hi_px = 0, rows
-    else:
-        y_lo_px = ty_lo * TILE_H
-        y_hi_px = min((ty_lo + tiles_y_band) * TILE_H, rows)
-    onscreen = ((xmax > 0) & (xmin < cols) & (ymax > y_lo_px)
-                & (ymin < y_hi_px))
-    fits = ((sc1 - sc0) < 2) & ((ty1 - ty0) < 2)
-    small = valid & onscreen & fits
-    bigt = valid & onscreen & ~fits
-    return sc0, sc1, ty0, ty1, small, bigt
-
-
-def _pair_keys_core(xmin, xmax, ymin, ymax, valid, rows: int, cols: int,
-                    *, big_cap: int, ty_lo: int = 0,
-                    tiles_y_band: int | None = None):
-    """bbox + valid [T] -> sorted pair keys ``bin << SUB_SHIFT | tri``.
-    Small tris (bbox within a 2 x 2 tile-row x subtile-col window) emit up
-    to 4 candidate keys; big tris one key per overlapped bin via a
-    [big_cap, n_bins] overlap matrix. Unused keys carry bin = n_bins and
-    sort last. ``ty_lo`` / ``tiles_y_band`` restrict the keys to the
-    tile-row band [ty_lo, ty_lo + tiles_y_band), with band-local bin ids
-    (bin 0 = the band's first subtile) over global tile rows."""
-    T = xmin.shape[0]
-    dev = xmin.device
-    assert T < RS.MAX_TRI, f"subtile sort key supports < {RS.MAX_TRI} tris"
-    tiles_y = -(-rows // TILE_H)
-    tiles_x = -(-cols // TILE_W)
-    tiles_y_eff = tiles_y if tiles_y_band is None else tiles_y_band
-    sx_n = tiles_x * RS.N_SUB
-    n_bins = tiles_y_eff * tiles_x * RS.N_SUB
-
-    sc0, sc1, ty0, ty1, small, bigt = _bin_span(
-        xmin, xmax, ymin, ymax, valid, rows, cols, ty_lo, tiles_y_band)
-    # clamp BEFORE the span test so borderless-huge bboxes (near-plane
-    # crossers) classify big but index sanely
-    sc0c = torch.clamp(sc0, 0, sx_n - 1)
-    sc1c = torch.clamp(sc1, 0, sx_n - 1)
-    ty0c = torch.clamp(ty0, 0, tiles_y - 1)
-    ty1c = torch.clamp(ty1, 0, tiles_y - 1)
-
-    tri_ids = torch.arange(T, dtype=torch.int32, device=dev)
-    key_parts = []
-    for k in range(4):
-        ty = ty0 + (k // 2)
-        sc = sc0 + (k % 2)
-        tyl = ty - ty_lo  # band-local tile row (ty when unbanded)
-        ok = (small & (tyl >= 0) & (tyl < tiles_y_eff) & (sc >= 0)
-              & (sc < sx_n) & (ty <= ty1) & (sc <= sc1))
-        bins = torch.where(ok, tyl * sx_n + sc, n_bins)
-        key_parts.append((bins << RS.SUB_SHIFT) | tri_ids)
-
-    # big_cap == 0 is a specialisation for scenes without big tris (the
-    # bunny headline): a big tri appearing later overflows diag n_big and
-    # the caller re-renders with a real cap.
-    big_cap = min(big_cap, T)
-    if big_cap > 0:
-        # the first big_cap big tris in id order (jax.lax.top_k's order);
-        # non-big and overflow tris go to a dump slot
-        rank = torch.cumsum(bigt.to(torch.int32), 0, dtype=torch.int32) - 1
-        slot = torch.where(bigt & (rank < big_cap), rank, big_cap)
-        big_idx = torch.full((big_cap + 1,), T, dtype=torch.int32, device=dev)
-        big_idx.scatter_(0, slot.long(), tri_ids)
-        big_idx[big_cap] = T
-        big_idx = big_idx[:big_cap]
-
-        def padi(c, fill):
-            return torch.cat([c, c.new_full((1,), fill)])[big_idx.long()]
-
-        bsc0 = padi(sc0c, 1)
-        bsc1 = padi(sc1c, 0)
-        bty0 = padi(ty0c, 1)
-        bty1 = padi(ty1c, 0)
-        bins_g = torch.arange(n_bins, dtype=torch.int32, device=dev)
-        g_ty = bins_g // sx_n + ty_lo  # global tile row of the local bin
-        g_sc = bins_g % sx_n
-        overlap = ((g_sc[None, :] >= bsc0[:, None])
-                   & (g_sc[None, :] <= bsc1[:, None])
-                   & (g_ty[None, :] >= bty0[:, None])
-                   & (g_ty[None, :] <= bty1[:, None])
-                   & (big_idx < T)[:, None])
-        bins_big = torch.where(overlap, bins_g[None, :], n_bins)
-        tri_big = torch.clamp(big_idx, max=T - 1)[:, None].expand(
-            big_cap, n_bins)
-        key_parts.append(((bins_big << RS.SUB_SHIFT) | tri_big).reshape(-1))
-    return torch.sort(torch.cat(key_parts)).values
-
-
 def _subtile_pair_keys_bbox(cch, rows: int, cols: int, *, big_cap: int,
                             ty_lo: int = 0, tiles_y_band: int | None = None):
     """Sorted (bin << SUB_SHIFT | tri) pair keys from bbox channels (of
-    the tile-row band [ty_lo, ty_lo + tiles_y_band) when given)."""
-    return _pair_keys_core(cch["bx0"], cch["bx1"], cch["by0"], cch["by1"],
-                           cch["valid"], rows, cols, big_cap=big_cap,
-                           ty_lo=ty_lo, tiles_y_band=tiles_y_band)
+    the tile-row band [ty_lo, ty_lo + tiles_y_band) when given): X9's bin
+    keys on a CUDA device (ops/bin_entries.pair_keys), _pair_keys_core on
+    the CPU."""
+    return BE.pair_keys_bbox(cch, rows, cols, big_cap=big_cap, ty_lo=ty_lo,
+                             tiles_y_band=tiles_y_band)[0]
 
 
 def count_big_small_bbox(cch, rows: int, cols: int, ty_lo: int = 0,
-                         tiles_y_band: int | None = None):
+                         tiles_y_band: int | None = None, counts=None):
     """(n_small, n_big) 0-d i32 counts under _pair_keys_core's rules, its
-    band restriction included."""
+    band restriction included; ``counts``: the ones ``BE.pair_keys`` left
+    beside the keys of the same call, read instead of running the span
+    test again."""
+    if counts is not None:
+        return counts[0], counts[1]
     _, _, _, _, small, bigt = _bin_span(cch["bx0"], cch["bx1"], cch["by0"],
                                         cch["by1"], cch["valid"], rows, cols,
                                         ty_lo, tiles_y_band)
@@ -442,17 +347,18 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
                 src, table = pack_channels_split_blocked(
                     cm, [(0, 16), (16, 16 + tw)])
     band_kw = dict(ty_lo=ty_lo, tiles_y_band=tiles_y if banded else None)
-    with stage("raster.keys"):
-        keys = _subtile_pair_keys_bbox(bbox, rows, cols, big_cap=big_cap,
-                                       **band_kw)
+    with stage("raster.keys"):  # X9's bin keys on a CUDA device
+        keys, offsets, counts = BE.pair_keys_bbox(bbox, rows, cols,
+                                                  big_cap=big_cap, **band_kw)
     e, xl, yl, gbins, n_rows, n_pairs, n_used = _grouped_walk(
         kernel, src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap,
-        ty_lo * TILE_H)
+        ty_lo * TILE_H, offsets)
     with stage("raster.shade"):
         rgbg = shade_groups(e, xl, yl, table, scene, A)
     with stage("raster.assemble"):
-        _n_small, n_big = count_big_small_bbox(bbox, rows, cols, **band_kw)
-        diag = {"n_valid": bbox["valid"].sum(dtype=torch.int32),
+        _n_small, n_big = count_big_small_bbox(bbox, rows, cols,
+                                               counts=counts, **band_kw)
+        diag = {"n_valid": counts[3],
                 "n_big": n_big, "n_rows": n_rows, "n_pairs": n_pairs,
                 "n_tiles_nz": n_used}
         if emit == "idx":
@@ -472,18 +378,18 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
 
 
 def _grouped_walk(kernel: str, src, keys, tiles_x: int, n_tiles: int,
-                  r_cap: int, pair_cap: int, grp_cap: int, y_off: int = 0):
+                  r_cap: int, pair_cap: int, grp_cap: int, y_off: int = 0,
+                  offsets=None):
     """Layout build and walk of grouped generation ``kernel`` -> (winner
     ids e f32 [grp_cap, 8, 128], xl, yl, gbins, n_rows, n_pairs, n_used).
     ``y_off``: a row band's first pixel row. Its bins, and so the lanes'
     pixel origins, are band-local, while the setup planes are in global
-    screen coordinates: yl is shifted to global rows before the walk."""
+    screen coordinates: the build shifts yl to global rows. ``offsets``:
+    the keys' bin offsets from X9 (the X10 builds read them)."""
     gen = RG.GENERATIONS[kernel]
-    with stage("raster.build"):
-        lay = gen.build(src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap)
-        if y_off:
-            yl = lay[-5] + float(y_off)  # exact: small integers in float32
-            lay = (*lay[:-5], yl, *lay[-4:])
+    with stage("raster.build"):  # X10 on a CUDA device but for subtile4
+        lay = gen.build(src, keys, tiles_x, n_tiles, r_cap, pair_cap,
+                        grp_cap, offsets=offsets, y_off=y_off)
     with stage("raster.walk"):
         _z, e = gen.walk(*lay[:-4], grp_cap)
     return (e, *lay[-6:])

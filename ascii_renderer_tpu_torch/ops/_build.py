@@ -101,10 +101,16 @@ SIGNATURES = {
     #  A, stream)
     "plane_table_launch": (_LLP, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _P),
-    # (screen20_host, T, rows, cols, tile_window, big_cap, tiles, span,
-    #  mask, src, seq, hist, offsets, data, n_rows, mm, stream)
-    "bin_entries_launch": (_LLP, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _I, _I, _P),
+    # (screen20_host, ws13_host, layout, T, rows, cols, tile_window,
+    #  big_cap, ty_lo, band, src, offsets, counts, data, keys, n_out, mm,
+    #  form, tickets, stream)
+    "bin_entries_launch": (_LLP, _LLP, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _LL, _I, _I, _P, _P),
+    # (src32, src_stride, keys, P, offsets, p_eff, n_bins, tiles_x, k,
+    #  rows256, r_cap, grp_cap, y_off, ws, rows, rowptr, gdepth, gskip, xl,
+    #  yl, gbins, counts, stream)
+    "group_build_launch": (_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (bases, out, rows, cols, views, sx, sy, aspect, stream)

@@ -1,8 +1,9 @@
 """Depth-sorted bin-group walks: the CUDA kernels of ``csrc/raster_group.cu``
 (replacing the Pallas walks of ``ascii_renderer_tpu/ops/raster_group.py``),
-their plain-torch versions, and the torch layout code around them (torch
-port of the same JAX module's layout builds, depth-group order, CSR offsets
-and image assembly).
+their plain-torch versions, the grouped generations' table and the image
+assembly. The layout builds (depth-group order, CSR offsets, the slot
+gathers) live in ``ops/group_build`` (X10 and its plain versions) and are
+re-exported here.
 
 All n_tiles*8 bins (8 x 16 px) are sorted by depth (descending, stable by
 bin id) and grouped 8 at a time, so one 8 x 128 pixel block walks 8 bins of
@@ -49,19 +50,24 @@ generations give bit-identical winners on the same pair keys.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.ops import _build
+from ascii_renderer_tpu_torch.ops import group_build as GB
+# the layout builds and their pieces live in ops/group_build (X10)
+from ascii_renderer_tpu_torch.ops.group_build import (  # noqa: F401
+    CHUNK_RG, _bin_offsets, _build_rows256, _group_bins, _pixel_origins,
+    _round_up_i, _slot_gather, build_groups_direct,
+    build_packed_rows_grouped, build_packed_rows_grouped_k2,
+    build_packed_rows_grouped_k4, build_packed_rows_grouped_kgather,
+    depth_group_order)
 from ascii_renderer_tpu_torch.ops.raster_bins import work_list
 from ascii_renderer_tpu_torch.ops.raster_subtile import (
-    CH_A, CH_B, CH_G, CH_PAIR, CH_ZC, CH_ZX, CH_ZY, MAX_TRI, N_CHAN, N_SUB,
-    SUB_SHIFT, SUB_W, TILE_H, TILE_W)
-
-CHUNK_RG = 32      # entries per bin slot per walk slab (16 KB of shared memory)
+    CH_A, CH_B, CH_G, CH_PAIR, CH_ZC, CH_ZX, CH_ZY, N_CHAN, N_SUB, SUB_W,
+    TILE_H, TILE_W)
 
 launches = 0          # kernel launches by tile_eval_grouped_skip (B1)
 launches_grouped = 0  # kernel launches by tile_eval_grouped (B9d)
@@ -71,219 +77,6 @@ launches_k2 = 0       # kernel launches by tile_eval_grouped_k2 (B9f)
 # the merge of its slabs' partials
 LAUNCHES_PER_CALL = {"tile_eval_grouped_skip": 2, "tile_eval_grouped_k2": 2,
                      "tile_eval_grouped": 2, "tile_eval_direct": 2}
-
-
-def _round_up_i(x, q: int):
-    return ((x + q - 1) // q) * q
-
-
-def _bin_offsets(bin_s: torch.Tensor, p_eff: int, n_bins: int) -> torch.Tensor:
-    """offsets[q] = #entries of the SORTED bin_s[:p_eff] with bin < q,
-    q in [0, n_bins] — the CSR offsets of the pair list."""
-    q = torch.arange(n_bins + 1, dtype=bin_s.dtype, device=bin_s.device)
-    return torch.searchsorted(bin_s[:p_eff].contiguous(), q,
-                              side="left").to(torch.int32)
-
-
-def depth_group_order(depth_bins: torch.Tensor, n_bins: int):
-    """Bin visit order for the depth-similar grouping: (binperm i32
-    [n_bins], depth_sorted i32 [n_bins]), depth descending, ascending bin
-    id among equal depths (a stable sort)."""
-    negd, binperm = torch.sort(-depth_bins, stable=True)
-    return binperm.to(torch.int32), -negd
-
-
-def _pixel_origins(gbins, tiles_x: int, n_bins: int, grp_cap: int):
-    """Per-group lane pixel origins xl, yl f32 [grp_cap, 128] (sentinel
-    slots clamp to the last bin: their depth is 0, so no lane lights)."""
-    safe_bins = torch.clamp(gbins, max=n_bins - 1)
-    tile = safe_bins // N_SUB
-    sub = safe_bins % N_SUB
-    x0 = ((tile % tiles_x) * TILE_W + sub * SUB_W).to(torch.float32)
-    y0 = ((tile // tiles_x) * TILE_H).to(torch.float32)
-    lane_in = torch.arange(SUB_W, dtype=torch.float32, device=gbins.device) + 0.5
-    xl = (torch.repeat_interleave(x0.view(grp_cap, N_SUB), SUB_W, dim=1)
-          + lane_in.repeat(N_SUB)[None, :])
-    yl = torch.repeat_interleave(y0.view(grp_cap, N_SUB), SUB_W, dim=1)
-    return xl, yl
-
-
-def _group_bins(pair_key: torch.Tensor, n_tiles: int, pair_cap: int,
-                grp_cap: int):
-    """Sorted pair keys ``bin << SUB_SHIFT | tri`` -> (tri_s, p_eff,
-    offsets [n_bins+1], gbins, gdepth [grp_cap*8], n_pairs, n_used): the
-    CSR offsets of the first p_eff = min(pair_cap, P) pairs and the bins
-    in depth-group order, sentinel-padded (bin n_bins, depth 0) when there
-    are more group slots than bins. Bins past grp_cap*8 (the shallowest)
-    are dropped; n_used > grp_cap*8 reports it."""
-    n_bins = n_tiles * N_SUB
-    assert n_bins < (1 << 13)  # sentinel key (n_bins << 18) must fit int32
-    bin_s = pair_key >> SUB_SHIFT
-    tri_s = pair_key & (MAX_TRI - 1)
-    p_eff = min(pair_cap, pair_key.shape[0])
-    offsets = _bin_offsets(bin_s, p_eff, n_bins)
-    n_pairs = (bin_s < n_bins).sum(dtype=torch.int32)
-    depth_bins = offsets[1:] - offsets[:-1]
-    n_used = (depth_bins > 0).sum(dtype=torch.int32)
-    binperm, dsorted = depth_group_order(depth_bins, n_bins)
-    nsel = grp_cap * N_SUB
-    if nsel > n_bins:  # more group slots than bins: sentinel-pad
-        pad = nsel - n_bins
-        binperm = torch.cat([binperm, binperm.new_full((pad,), n_bins)])
-        dsorted = torch.cat([dsorted, dsorted.new_zeros((pad,))])
-    return (tri_s, p_eff, offsets, binperm[:nsel], dsorted[:nsel], n_pairs,
-            n_used)
-
-
-def _slot_gather(src32, pair_key, tiles_x: int, n_tiles: int, r_cap: int,
-                 pair_cap: int, grp_cap: int, k: int):
-    """The slot gather every materialised layout shares: K consecutive bin
-    entries per gathered row, from K-aligned starts in the pair-ordered
-    16-channel source. Returns (g f32 [r_cap/k*8, k*16] (gathered row q of
-    group slot s at q*8 + s), rowptr [grp_cap+1] in entries (CHUNK_RG
-    multiples, clamped to r_cap), gdepth, gskip, xl, yl, gbins, n_rows,
-    n_pairs, n_used) with n_rows the true entry-row total (vs r_cap)."""
-    assert k in (1, 2, 4, 8) and CHUNK_RG % k == 0 and r_cap % CHUNK_RG == 0
-    dev = pair_key.device
-    n_bins = n_tiles * N_SUB
-    tri_s, p_eff, offsets, gbins, gdepth, n_pairs, n_used = _group_bins(
-        pair_key, n_tiles, pair_cap, grp_cap)
-    # a sentinel slot (depth 0, never live) reads bin n_bins's offset; the
-    # single-entry layout's reference gathers from offsets[:n_bins], which
-    # clamps it to the last bin
-    last = n_bins - 1 if k == 1 else n_bins
-    off_g = offsets[torch.clamp(gbins, max=last).long()]
-    gskip = torch.where(gdepth > 0, off_g % k, torch.zeros_like(off_g))
-    offk = (off_g - gskip) // k          # K-aligned K-row start per bin
-    rbk = (gdepth + gskip + k - 1) // k  # K-rows needed per bin
-    d_pad = _round_up_i(rbk.view(grp_cap, N_SUB).amax(dim=1) * k, CHUNK_RG)
-    rowptr = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
-                        torch.cumsum(d_pad, 0).to(torch.int32)])
-    n_rows = rowptr[-1]
-
-    # group of each K-row, and its offset inside the group
-    rowptrk = rowptr // k
-    rk_ids = torch.arange(r_cap // k, dtype=torch.int32, device=dev)
-    t_r = torch.clamp(torch.searchsorted(rowptrk[1:].contiguous(), rk_ids,
-                                         right=True), max=grp_cap - 1)
-    d_rk = rk_ids - rowptrk[:-1][t_r]
-    off_rows = offk.view(grp_cap, N_SUB)[t_r]          # [r_cap/k, 8]
-
-    # pair-ordered 16-channel source, K entries per k*16-lane row
-    src_pair = src32[tri_s[:p_eff].long(), :N_CHAN]
-    pek = _round_up_i(p_eff, k)
-    if pek > p_eff:
-        src_pair = torch.cat([src_pair, src_pair.new_zeros((pek - p_eff,
-                                                            N_CHAN))])
-    srckk = src_pair.view(pek // k, k * N_CHAN)
-    pidx = torch.clamp(off_rows + d_rk[:, None], 0, pek // k - 1).reshape(-1)
-    g = srckk[pidx.long()]                              # [r_cap/k*8, k*16]
-    xl, yl = _pixel_origins(gbins, tiles_x, n_bins, grp_cap)
-    return (g, torch.clamp(rowptr, max=r_cap), gdepth, gskip, xl, yl, gbins,
-            n_rows, n_pairs, n_used)
-
-
-def build_packed_rows_grouped(src32: torch.Tensor, pair_key: torch.Tensor,
-                              tiles_x: int, n_tiles: int, r_cap: int,
-                              pair_cap: int, grp_cap: int):
-    """Sorted pair keys -> the single-entry grouped layout (subtile3).
-
-    src32 f32 [Tp, >=16] walk-entry rows (only channels :16 are read, so
-    the 16-wide rows of ``setup_2dh_fused_packed`` serve too); pair_key
-    i32 [P] sorted ``bin << SUB_SHIFT | tri``. Returns (rows128 [r_cap,
-    128], rowptr [grp_cap+1], gdepth [grp_cap*8], xl, yl [grp_cap, 128],
-    gbins [grp_cap*8], n_rows, n_pairs, n_used), the counts as 0-d i32
-    tensors: n_rows = true row total (vs r_cap), n_pairs = true pair count
-    (vs pair_cap), n_used = nonempty bins (vs grp_cap*8). A count over its
-    cap means work was dropped and the caller must re-render."""
-    g, rowptr, gdepth, _gskip, xl, yl, gbins, n_rows, n_pairs, n_used = \
-        _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
-                     grp_cap, 1)
-    return (g.view(r_cap, N_SUB * N_CHAN), rowptr, gdepth, xl, yl, gbins,
-            n_rows, n_pairs, n_used)
-
-
-def build_packed_rows_grouped_kgather(src32: torch.Tensor,
-                                      pair_key: torch.Tensor,
-                                      tiles_x: int, n_tiles: int,
-                                      r_cap: int, pair_cap: int,
-                                      grp_cap: int, k: int):
-    """The K-entry slot gather (subtile7: K = 4, subtile8: K = 8) relaid to
-    the single-entry rows128 layout (bins whose CSR offset is not K-aligned
-    start mid-row; the walk masks those leading slots by gskip).
-
-    Returns (rows128 [r_cap, 128], rowptr [grp_cap+1] (CHUNK_RG multiples,
-    clamped to r_cap), gdepth, gskip [grp_cap*8], xl, yl [grp_cap, 128],
-    gbins [grp_cap*8], n_rows, n_pairs, n_used), as
-    ``build_packed_rows_grouped`` plus gskip."""
-    assert k in (2, 4, 8)
-    g, *rest = _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap,
-                            pair_cap, grp_cap, k)
-    # K-row q, sub-entry p, slot s -> row q*k+p, slot s
-    rows128 = (g.view(r_cap // k, N_SUB, k, N_CHAN).transpose(1, 2)
-               .reshape(r_cap, N_SUB * N_CHAN))
-    return (rows128, *rest)
-
-
-def _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
-                   grp_cap, k):
-    g, rowptr, *rest = _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap,
-                                    pair_cap, grp_cap, k)
-    # K4 row q, half p, slot s -> K2 row 2q+p, slot s (K2: the identity)
-    rows256 = (g.view(r_cap // k, N_SUB, k // 2, 2 * N_CHAN).transpose(1, 2)
-               .reshape(r_cap // 2, N_SUB * 2 * N_CHAN))
-    return (rows256, rowptr // 2, *rest)
-
-
-def build_packed_rows_grouped_k2(src32: torch.Tensor, pair_key: torch.Tensor,
-                                 tiles_x: int, n_tiles: int, r_cap: int,
-                                 pair_cap: int, grp_cap: int):
-    """The two-entry-row layout of the K2 walk (subtile5): the slot gather
-    fetches two consecutive bin entries per row; a bin whose CSR offset is
-    odd starts mid-row (gskip = 1).
-
-    Returns (rows256 [r_cap/2, 256], rowptr [grp_cap+1] in row units
-    (CHUNK_RG/2 multiples), gdepth, gskip [grp_cap*8], xl, yl, gbins,
-    n_rows, n_pairs, n_used) with n_rows in ENTRY units, compared against
-    the same r_cap as the single-entry walk."""
-    return _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
-                          grp_cap, 2)
-
-
-def build_packed_rows_grouped_k4(src32: torch.Tensor, pair_key: torch.Tensor,
-                                 tiles_x: int, n_tiles: int, r_cap: int,
-                                 pair_cap: int, grp_cap: int):
-    """Four entries per gathered row relaid to the K2 row format by one
-    permutation (subtile6): gskip in [0, 3]. Same tuple as
-    ``build_packed_rows_grouped_k2``."""
-    return _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
-                          grp_cap, 4)
-
-
-def build_groups_direct(src32: torch.Tensor, pair_key: torch.Tensor,
-                        tiles_x: int, n_tiles: int, pair_cap: int,
-                        grp_cap: int):
-    """Grouping for the direct walk (subtile4): no layout is materialised,
-    only the pair-ordered source and per-bin (offset, depth) in depth-group
-    order.
-
-    src32 f32 [Tp, 32]. Returns (src_pair [p_eff + CHUNK_RG, 32] (zero
-    rows past p_eff, the walk's clamped reads land there), goff, gdepth
-    [grp_cap*8], gchunks [grp_cap] (ceil(group max depth / CHUNK_RG)), xl,
-    yl [grp_cap, 128], gbins [grp_cap*8], n_rows, n_pairs, n_used) with
-    n_rows = gchunks.sum() * CHUNK_RG, the walk's slot count (there is no
-    r_cap to overflow)."""
-    n_bins = n_tiles * N_SUB
-    tri_s, p_eff, offsets, gbins, gdepth, n_pairs, n_used = _group_bins(
-        pair_key, n_tiles, pair_cap, grp_cap)
-    gchunks = (gdepth[0::N_SUB] + CHUNK_RG - 1) // CHUNK_RG
-    n_rows = (gchunks * CHUNK_RG).sum(dtype=torch.int32)
-    goff = offsets[torch.clamp(gbins, max=n_bins - 1).long()]
-    src_pair = torch.cat([src32[tri_s[:p_eff].long()],
-                          src32.new_zeros((CHUNK_RG, src32.shape[1]))])
-    xl, yl = _pixel_origins(gbins, tiles_x, n_bins, grp_cap)
-    return (src_pair, goff, gdepth, gchunks, xl, yl, gbins, n_rows, n_pairs,
-            n_used)
 
 
 # --------------------------------------------------------------------------
@@ -646,8 +439,10 @@ def tile_eval_direct(src_pair: torch.Tensor, goff: torch.Tensor,
 # --------------------------------------------------------------------------
 class Generation(NamedTuple):
     """A grouped generation's layout builder, called as ``build(src, pair_key,
-    tiles_x, n_tiles, r_cap, pair_cap, grp_cap)``, its walk's kernel wrapper
-    and that walk's plain version. Every layout tuple ends (xl, yl, gbins,
+    tiles_x, n_tiles, r_cap, pair_cap, grp_cap, offsets=None, y_off=0)``
+    (``offsets``: the keys' bin offsets where X9 left them; ``y_off``: a
+    row band's first pixel row, added to yl), its walk's kernel wrapper and
+    that walk's plain version. Every layout tuple ends (xl, yl, gbins,
     n_rows, n_pairs, n_used) and the walk takes all of it but the last four
     items: ``walk(*lay[:-4], grp_cap)``."""
     build: Callable
@@ -656,24 +451,34 @@ class Generation(NamedTuple):
 
 
 def _build_direct(src32, pair_key, tiles_x, n_tiles, _r_cap, pair_cap,
-                  grp_cap):
-    return build_groups_direct(src32, pair_key, tiles_x, n_tiles, pair_cap,
-                               grp_cap)
+                  grp_cap, offsets=None, y_off=0):
+    """subtile4's grouping, the torch chain on every device (X10 builds
+    the row layouts only; the offsets are formed again here)."""
+    return GB._shift_rows(build_groups_direct(
+        src32, pair_key, tiles_x, n_tiles, pair_cap, grp_cap), y_off)
+
+
+def _x10(gen: str):
+    """Generation ``gen``'s build: X10's ``build_rows`` at its layout (the
+    name read at each call, so a caller may wrap it)."""
+    k, rows256 = GB.LAYOUTS[gen]
+
+    def build(*args, **kw):
+        return GB.build_rows(*args, k=k, rows256=rows256, **kw)
+    return build
 
 
 _KGATHER_WALK = (tile_eval_grouped_skip, tile_eval_grouped_skip_ref)
 _K2_WALK = (tile_eval_grouped_k2, tile_eval_grouped_k2_ref)
 GENERATIONS = {
-    "subtile3": Generation(build_packed_rows_grouped, tile_eval_grouped,
+    "subtile3": Generation(_x10("subtile3"), tile_eval_grouped,
                            tile_eval_grouped_ref),                    # B9d
     "subtile4": Generation(_build_direct, tile_eval_direct,
                            tile_eval_direct_ref),                     # B9e
-    "subtile5": Generation(build_packed_rows_grouped_k2, *_K2_WALK),  # B9f
-    "subtile6": Generation(build_packed_rows_grouped_k4, *_K2_WALK),  # B9f
-    "subtile7": Generation(functools.partial(
-        build_packed_rows_grouped_kgather, k=4), *_KGATHER_WALK),    # B1
-    "subtile8": Generation(functools.partial(
-        build_packed_rows_grouped_kgather, k=8), *_KGATHER_WALK),    # B1
+    "subtile5": Generation(_x10("subtile5"), *_K2_WALK),             # B9f
+    "subtile6": Generation(_x10("subtile6"), *_K2_WALK),             # B9f
+    "subtile7": Generation(_x10("subtile7"), *_KGATHER_WALK),        # B1
+    "subtile8": Generation(_x10("subtile8"), *_KGATHER_WALK),        # B1
 }
 
 

@@ -68,7 +68,15 @@ profiler's kernel rows over 50 back-to-back calls (``chip_smoke
 - the walk's front (``raster_channels.binned_entries``: X9 where the
   side's package has ``ops/bin_entries``, else the torch chain its paths
   ran) at the calls of the entry() room, the teapot 240x135 and the
-  mid-scale HD arm, by CUDA events around whole calls, outputs digested;
+  mid-scale HD arm, by CUDA events around whole calls and by the
+  profiler's ``bin_`` kernel rows (the side's launches a call), outputs
+  digested;
+- the headline's raster.keys (``raster._subtile_pair_keys_bbox`` at its
+  steady frame's bbox and big_cap: X9's bin keys where the side has
+  them, else the torch chain and its sort) and raster.build (subtile8's
+  ``GENERATIONS`` build at the steady caps: X10, or the torch chain), by
+  CUDA events around whole calls and by the profiler's busy ms and
+  launches a call, outputs digested;
 - the host median, device busy ms and kernel launches a call of the
   paths the kernels for XLA code serve (``paths``): the raster headline
   frame, the entry() step, the teapot 240x135, the mid-scale HD arm, the
@@ -83,6 +91,10 @@ the inputs are built by the side's own package from this checkout's
 with the other checkout unpacked in a git-ignored directory:
 
     python3 -m ascii_renderer_tpu_torch.tools.kernel_ab --other DIR
+
+``--only bins`` times the raster's bins alone (X9 at the room, teapot and
+mid HD calls, the headline's raster.keys and raster.build, and the
+``paths``), a few minutes less a side.
 """
 
 from __future__ import annotations
@@ -162,7 +174,7 @@ def _shared_rays(cs, dev, rows: int, cols: int, B: int):
                         -(-n // 1024))
 
 
-def worker(root: str) -> dict:
+def worker(root: str, only: str = "all") -> dict:
     """Times the jitted ray grid, B5, B6 / B6', B8, B1, B9d, B9e, B9f, B9a,
     B9b, B9c, B4, B7, B7' and B3, the PT frames' median and busy time,
     the front end of ``front``, K3 and the walk's front
@@ -189,6 +201,11 @@ def worker(root: str) -> dict:
            "b9f_ms": {}, "b9a_ms": {}, "b9b_ms": {}, "b9c_ms": {},
            "b4_ms": {}, "b7_ms": {}, "b7s_ms": {}, "b3_ms": {},
            "frame_ms": {}, "busy_ms": {}, "digest": {}}
+    if only == "bins":
+        mid_preps = _mid_preps(cs, dev)
+        rt_and_walk_front(cs, dev, out, mid_preps, k3=False)
+        paths(cs, dev, out)
+        return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
     rows, cols = cs.FARM_GRID
@@ -207,13 +224,7 @@ def worker(root: str) -> dict:
         out["b5_ms"][f"{label} ({n} rays)"] = cs._device_ms(
             lambda: PK.trace_blocks_raw(*args, **kw), "pt_trace_kernel",
             _per_call(PK, "trace_blocks_raw"))
-    mid_preps = []
-    for label, name, grid in (("teapot 240x135", "teapot", cs.TEAPOT_GRID),
-                              ("mid-scale HD 960x540", "mid", cs.MID_GRID)):
-        msoup, mcam = cs._mesh(name)
-        mid_preps.append((label, grid, cs._mid_prep(
-            tuple(torch.from_numpy(x).to(dev) for x in msoup),
-            cs._scene(dev), mcam, *grid)))
+    mid_preps = _mid_preps(cs, dev)
     for label, data, offs, tiles_x, n_tiles in cs._walk_inputs(
             dev, cs._room(dev), cs._mesh("cube"), mid_preps):
         if label not in cs.B6_TIMED:
@@ -312,6 +323,19 @@ def worker(root: str) -> dict:
     return out
 
 
+def _mid_preps(cs, dev):
+    """chip_smoke._mid_prep of the teapot and the mid-scale HD arm."""
+    import torch
+    preps = []
+    for label, name, grid in (("teapot 240x135", "teapot", cs.TEAPOT_GRID),
+                              ("mid-scale HD 960x540", "mid", cs.MID_GRID)):
+        msoup, mcam = cs._mesh(name)
+        preps.append((label, grid, cs._mid_prep(
+            tuple(torch.from_numpy(x).to(dev) for x in msoup),
+            cs._scene(dev), mcam, *grid)))
+    return preps
+
+
 def _front_fns(R, pos9, src, mvp, grid, attrs, v_cap):
     """(clip, table) of one caller: X4 and X3 where the side's package has
     them, else the torch chain its paths ran; ``v_cap`` None: the table
@@ -380,24 +404,32 @@ def front(cs, dev, out) -> None:
         out["x3_ms"][label] = cs._event_ms(table, 20)
 
 
-def rt_and_walk_front(cs, dev, out, mid_preps) -> None:
+def rt_and_walk_front(cs, dev, out, mid_preps, k3=True) -> None:
     """K3 at its five launch sizes on the driven paths (the golden frame's
     first 256, 512 and 1,152 rays and all its 3,456, and the farm's rays;
-    profiler kernel rows) and the walk's front at the entry() room's, the teapot's and the
-    mid-scale HD arm's calls (CUDA events over 20 whole calls)."""
+    profiler kernel rows; not with ``k3`` False) and the walk's front at
+    the entry() room's, the teapot's and the mid-scale HD arm's calls
+    (CUDA events over 20 whole calls; X9's ``bin_`` kernel rows)."""
     from ascii_renderer_tpu_torch.backends import raster_channels as RC
     from ascii_renderer_tpu_torch.backends.raytrace import trace
     from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
-    out["k3_ms"], out["x9_ms"] = {}, {}
-    golden = create_rt_demo_scene().build(device=dev)
-    farm = create_rt_demo_scene().build(min_pad=1, device=dev)
-    g_args = (golden, *cs._rt_inputs(golden, golden.camera, *cs.FARM_GRID,
-                                     dev))
-    runs = [(f"golden frame's first {n} rays",
-             (*g_args[:3], g_args[3][:, :n].contiguous()))
-            for n in K3_SIZES]
-    runs.append(("farm 3538944 rays", (farm, *cs._rt_inputs(
-        farm, cs._orbit(), *cs.FARM_GRID, dev))))
+    out["k3_ms"], out["x9_ms"], out["x9_kernel_ms"] = {}, {}, {}
+    try:
+        from ascii_renderer_tpu_torch.ops import bin_entries as BE
+    except ImportError:
+        BE = None
+    if not k3:
+        runs = []
+    else:
+        golden = create_rt_demo_scene().build(device=dev)
+        farm = create_rt_demo_scene().build(min_pad=1, device=dev)
+        g_args = (golden, *cs._rt_inputs(golden, golden.camera,
+                                         *cs.FARM_GRID, dev))
+        runs = [(f"golden frame's first {n} rays",
+                 (*g_args[:3], g_args[3][:, :n].contiguous()))
+                for n in K3_SIZES]
+        runs.append(("farm 3538944 rays", (farm, *cs._rt_inputs(
+            farm, cs._orbit(), *cs.FARM_GRID, dev))))
     for label, args in runs:
         out["digest"][f"K3 {label}"] = _digest([trace(*args)])
         out["k3_ms"][label] = cs._device_ms(lambda: trace(*args),
@@ -411,6 +443,49 @@ def rt_and_walk_front(cs, dev, out, mid_preps) -> None:
             return RC.binned_entries(dict(ch), *grid, kernel="mm")
         out["digest"][f"X9 {label}"] = _digest(fn()[:2])
         out["x9_ms"][label] = cs._event_ms(fn, 20)
+        if BE is not None:  # the side's kernels: its launches a call
+            out["x9_kernel_ms"][label] = cs._device_ms(
+                fn, "bin_", getattr(BE, "last_launches", 4))
+
+
+def keys_and_build(cs, dev, out, caps) -> None:
+    """The headline's raster.keys and raster.build at its steady frame's
+    inputs (the golden pose's bbox and walk rows by the side's own setup
+    and pack, ``caps`` the backend's lean caps): whole calls by CUDA
+    events over 20 calls, device busy ms and launches a call by the
+    profiler, outputs digested."""
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import pack as PKS
+    from ascii_renderer_tpu_torch.ops import raster_group as RG
+    for key in ("keys_ms", "keys_busy_ms", "keys_launches", "build_ms",
+                "build_busy_ms", "build_launches"):
+        out[key] = {}
+    cm, bb, spans, _T = cs._headline_setup(dev)
+    src16 = PKS.pack_channels_split_blocked(cm, spans)[0]
+    _v, big_cap, r_cap, pair_cap, bin_cap = caps
+    tiles_x = -(-cs.COLS // 128)
+    n_tiles = -(-cs.ROWS // 8) * tiles_x
+
+    def keys():
+        return R._subtile_pair_keys_bbox(bb, cs.ROWS, cs.COLS,
+                                         big_cap=big_cap)
+
+    pair_key = keys()
+
+    def build():
+        return RG.GENERATIONS["subtile8"].build(
+            src16, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
+            bin_cap // 8)
+
+    label = f"headline steady caps {list(caps)}"
+    out["digest"]["raster.keys headline"] = _digest([pair_key])
+    out["digest"]["raster.build headline"] = _digest(build())
+    for name, fn in (("keys", keys), ("build", build)):
+        out[f"{name}_ms"][label] = cs._event_ms(fn, 20)
+        busy, launches, _st = cs.profile_frames(fn, 5, ("raster.",),
+                                                f"raster.{name} {label}")
+        out[f"{name}_busy_ms"][label] = busy
+        out[f"{name}_launches"][label] = launches
 
 
 def paths(cs, dev, out) -> None:
@@ -432,6 +507,7 @@ def paths(cs, dev, out) -> None:
         out[key] = {}
     soup, scene = cs._bunny(), cs._scene(dev)
     backend, cfg = cs.run_main_path(dev, soup, scene)
+    keys_and_build(cs, dev, out, backend._caps)
 
     def headline():
         return cs._frame(backend, cfg, cs._golden_camera())[1]
@@ -476,9 +552,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=("all", "bins"), default="all",
+                    help="bins: the raster's bins and the paths alone")
     a = ap.parse_args()
     if a.worker:
-        print(json.dumps(worker(a.worker)), flush=True)
+        print(json.dumps(worker(a.worker, a.only)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -491,7 +569,8 @@ def main() -> int:
     runs = []
     for side, root in (("other", other), ("this", str(HERE)),
                        ("this", str(HERE)), ("other", other)):
-        res = subprocess.run([sys.executable, __file__, "--worker", root],
+        res = subprocess.run([sys.executable, __file__, "--worker", root,
+                              "--only", a.only],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise RuntimeError(f"{side} side ({root}) failed:\n"
@@ -505,17 +584,22 @@ def main() -> int:
     for key in ("jit_grid_ms", "b5_ms", "b6_ms", "b8_ms", "b1_ms",
                 "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
                 "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "x4_ms", "x3_ms",
-                "k3_ms", "x9_ms", "frame_ms", "busy_ms", "path_ms",
+                "k3_ms", "x9_ms", "x9_kernel_ms", "keys_ms", "keys_busy_ms",
+                "keys_launches", "build_ms", "build_busy_ms",
+                "build_launches", "frame_ms", "busy_ms", "path_ms",
                 "path_busy_ms", "path_launches", "walk_launches"):
-        for shape in runs[0][1][key]:
+        for shape in runs[0][1].get(key, {}):
+            if not all(shape in r.get(key, {}) for _s, r in runs):
+                continue  # timed on one side only
             name = key[:-3] if key.endswith("_ms") else key
             summary[f"{name.capitalize()} {shape}"] = {
                 side: statistics.median(r[key][shape] for s, r in runs
                                         if s == side)
                 for side in ("other", "this")}
     for shape, ms in summary.items():
-        unit = "" if shape.startswith(("Path_launches", "Walk_launches")) \
-            or shape.endswith("views/s") else " ms"
+        unit = "" if shape.startswith((
+            "Path_launches", "Walk_launches", "Keys_launches",
+            "Build_launches")) or shape.endswith("views/s") else " ms"
         print(f"{shape}: other {ms['other']:.5f}{unit}, this "
               f"{ms['this']:.5f}{unit}, other / this "
               f"{ms['other'] / ms['this']:.2f}", flush=True)

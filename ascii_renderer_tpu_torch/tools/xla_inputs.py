@@ -4,8 +4,9 @@
 ``fma32`` (random, constructed float32 midpoint ties, subnormal and
 special values, each operand form the wrapper packs), scenes and shade
 tables for the deferred shade, the ray tracer's test scenes, triangle
-soups at the near plane for the clip and the plane table, and screen
-channel dicts for the bin entries. The kernels' tests and
+soups at the near plane for the clip and the plane table, screen
+channel dicts for the bin entries' tile keys and bbox dicts for their bin
+keys. The kernels' tests and
 ``chip_smoke.py``'s checks build their inputs here."""
 
 import numpy as np
@@ -253,6 +254,23 @@ def bin_soup(name, seed=3):
         ch[f"sz{v}"] = z[:, i].astype(np.float32)
     ch["valid"] = valid
     return ch, rows, cols
+
+
+def bbox_soup(name, seed=3):
+    """The bbox dict (bx0 bx1 by0 by1 float32, valid bool, each [T]; numpy
+    arrays) of ``bin_soup(name)``'s triangles, as the setup forms it (min
+    and max of the three corners, a NaN corner giving a NaN bound), and its
+    grid: bins keys' inputs with off-screen, huge (near-plane sized), NaN
+    and infinite bounds where the soup has them."""
+    ch, rows, cols = bin_soup(name, seed)
+    x = np.stack([ch[f"sx{v}"] for v in "abc"])
+    y = np.stack([ch[f"sy{v}"] for v in "abc"])
+    with np.errstate(invalid="ignore"):
+        bb = {"bx0": np.min(x, 0), "bx1": np.max(x, 0),
+              "by0": np.min(y, 0), "by1": np.max(y, 0)}
+    bb = {k: v.astype(np.float32) for k, v in bb.items()}
+    bb["valid"] = ch["valid"]
+    return bb, rows, cols
 
 
 def mesh_soup(name):

@@ -68,11 +68,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      at the entry() room's, the teapot's and the mid-scale HD arm's
      shapes;
    - the bin walk's entries (X9, a kernel for XLA code, ops/bin_entries:
-     four launches, the keys' sort a counting sort) at every call the
-     binned paths make (the demo room, the cube, the teapot, the mid-scale
-     HD arm) and on a seeded 60,000-triangle soup at the near plane, in
-     both walk layouts: entries, offsets and grid bit for bit; timed at
-     the entry() room's and the mid-scale HD arm's calls;
+     three or four launches, the keys' sort a counting sort) at every call
+     the binned paths make (the demo room, the cube, the teapot, the
+     mid-scale HD arm) and on a seeded 60,000-triangle soup at the near
+     plane, in both walk layouts: entries, offsets and grid bit for bit;
+     timed at the entry() room's and the mid-scale HD arm's calls;
    - the plane-table packs B7 (pack_channels) and B7' (pack_channels_split)
      at the teapot's and the HD arm's table widths and lengths, and B7' at
      the reference's exactness shape [40, 69632]: bit-exact;
@@ -119,7 +119,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    - raster: RasterBackend.set_soup(bunny), render 960x540, glyph_decide
      (B4 in the glyph stage); frame 0 at the golden camera must give the
      reference frame (checksum + the ds20 golden), then 3 moves, then 20
-     timed frames;
+     timed frames; its raster.keys (X9's bin keys) and raster.build (X10)
+     held to RASTER_KEYS_LAUNCHES and RASTER_BUILD_LAUNCHES kernel
+     launches a frame; X9's bin keys and X10 at a fresh backend's frame 0
+     (big_cap 64) and the steady frame (big_cap 0) against their plain
+     versions bit for bit, timed at the steady frame (split by kernel);
+     then the same at every grouped golden call (check_golden_keys_builds)
+     and at the bunny's row bands of subtile8, subtile6 and subtile3
+     (check_band_keys_builds, after the parallel phase);
    - every grouped generation through the golden call render_soup(
      method=g) and the glyph pass: subtile8, subtile3 .. subtile7, and
      subtile8 under SETUP_PACKED; each frame 0 must give the checksum and
@@ -3491,7 +3498,8 @@ def check_bin_entries(dev, room, cube, mid_preps):
                   f"pairs ({walked} in bins), {n_tiles} tiles", flush=True)
             if kern != "mm" or label not in X9_TIMED:
                 continue
-            ms = _device_ms(fn, "bin_", 4)
+            n_launch = BE.last_launches  # the form the launch took
+            ms = _device_ms(fn, "bin_", n_launch)
             call = _event_ms(fn, 20)
             plain = _event_ms(lambda: BE.binned_entries_ref(
                 dict(ch), *grid, kernel=kern), 3)
@@ -3500,9 +3508,10 @@ def check_bin_entries(dev, room, cube, mid_preps):
             # float operations a triangle
             bound = _bound(37 * T + 4 * P + 64 * (T + 1) + _nbytes(*got[:2]),
                            60 * T)
-            print(f"X9 {label}: kernels {ms:.5f} ms (4 launches), the "
-                  f"whole call {call:.5f} ms, plain {plain:.3f} ms,"
-                  f" bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+            print(f"X9 {label}: kernels {ms:.5f} ms ({n_launch} launches, "
+                  f"form {BE.auto_form(n_tiles, P)}), the whole call "
+                  f"{call:.5f} ms, plain {plain:.3f} ms, bound "
+                  f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
             if label.startswith("mid-scale"):
                 rec = _rec("bin_entries", "bin_entries.cu", "", 0.0, ms,
                            plain, bound)
@@ -3510,6 +3519,230 @@ def check_bin_entries(dev, room, cube, mid_preps):
                            "raster_channels.py:546", call_ms=call,
                            slots=T, pairs=P)
     return rec
+
+
+# --------------------------------------------------------------------------
+# X9's bin keys and X10, the grouped generations' raster.keys and
+# raster.build
+# --------------------------------------------------------------------------
+# kernel launches a headline frame's raster.keys (X9: four) and
+# raster.build (X10: two) may make
+RASTER_KEYS_LAUNCHES = 5
+RASTER_BUILD_LAUNCHES = 4
+
+
+def _record_keys_builds(run):
+    """Run ``run()`` recording the arguments of every call of X9's bin keys
+    (ops/bin_entries.pair_keys) and of X10 (ops/group_build.build_rows):
+    (keys calls, build calls), each a list of (args, kwargs)."""
+    from ascii_renderer_tpu_torch.ops import bin_entries as BE
+    from ascii_renderer_tpu_torch.ops import group_build as GB
+    seen = {"pair_keys": [], "build_rows": []}
+    origs = [(BE, "pair_keys", BE.pair_keys), (GB, "build_rows",
+                                                GB.build_rows)]
+    for mod, name, orig in origs:
+        def rec(*a, _orig=orig, _name=name, **k):
+            seen[_name].append((a, k))
+            return _orig(*a, **k)
+        setattr(mod, name, rec)
+    try:
+        run()
+    finally:
+        for mod, name, orig in origs:
+            setattr(mod, name, orig)
+    return seen["pair_keys"], seen["build_rows"]
+
+
+def _keys_call_plain(a, k):
+    from ascii_renderer_tpu_torch.ops import bin_entries as BE
+    return BE.pair_keys_ref(*a, **{n: v for n, v in k.items()
+                                   if n != "form"})
+
+
+def _build_call_plain(a, k):
+    from ascii_renderer_tpu_torch.ops import group_build as GB
+    return GB._shift_rows(GB.build_rows_ref(
+        *a, k=k["k"], rows256=k.get("rows256", False)), k.get("y_off", 0))
+
+
+def check_keys_builds(label, keys_calls, build_calls, builds=True):
+    """X9's bin keys and X10 at recorded calls, each against its plain
+    version on the same inputs: keys, offsets and counts, and every
+    output of the layout, bit for bit. ``builds``: whether the path built
+    through X10 (subtile4 does not)."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import bin_entries as BE
+    from ascii_renderer_tpu_torch.ops import group_build as GB
+    assert keys_calls and bool(build_calls) == builds, (
+        label, len(keys_calls), len(build_calls))
+    for i, (a, k) in enumerate(keys_calls):
+        got = BE.pair_keys(*a, **k)
+        n_launch = BE.last_launches
+        want = _keys_call_plain(a, k)
+        torch.cuda.synchronize()
+        for nm, g, w in zip(("keys", "offsets", "counts"), got, want):
+            assert torch.equal(g, w), f"X9 bin keys {label} call {i}: {nm}"
+        n_small, n_big, n_pairs, n_valid = got[2].tolist()
+        print(f"X9 bin keys {label} call {i}: exact, {a[4].shape[0]} slots, "
+              f"{got[0].shape[0]} keys ({n_pairs} in {got[1].shape[0] - 1} "
+              f"bins), big_cap {k['big_cap']}, band "
+              f"{k.get('ty_lo', 0)}+{k.get('tiles_y_band')}, {n_small} "
+              f"small, {n_big} big, {n_valid} valid, {n_launch} launches",
+              flush=True)
+    for i, (a, k) in enumerate(build_calls):
+        got = GB.build_rows(*a, **k)
+        n_launch = GB.last_launches
+        want = _build_call_plain(a, k)
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for j, (g, w) in enumerate(zip(got, want)):
+            if w.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert g.shape == w.shape and torch.equal(g, w), \
+                f"X10 {label} call {i}: output {j} differs"
+        n_rows, n_pairs, n_used = (int(x) for x in got[-3:])
+        print(f"X10 {label} call {i}: exact, K {k['k']}"
+              f"{' rows256' if k.get('rows256') else ''}, r_cap {a[4]}, "
+              f"pair_cap {a[5]}, grp_cap {a[6]}, y_off {k.get('y_off', 0)}, "
+              f"n_rows {n_rows}, n_pairs {n_pairs}, n_used {n_used}, "
+              f"{n_launch} launches", flush=True)
+
+
+def _kernel_split(fn, pattern, n=20):
+    """{kernel: device ms a call} of fn's kernels whose names match the
+    regular expression ``pattern`` (the profiler's rows over n calls)."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out, calls = {}, {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + \
+                e.self_device_time_total / n / 1e3
+            calls[m.group(0)] = calls.get(m.group(0), 0) + e.count
+    # a profile that lost rows (see _device_ms) splits nothing
+    return out if all(c == n for c in calls.values()) else {}
+
+
+def time_keys_build(keys_call, build_call, label):
+    """X9's bin keys and X10 timed at one recorded call each: kernel rows
+    (the launch's own form), the whole call by CUDA events, the plain
+    version, the bound. Returns (X9's bin-key numbers, X10's record)."""
+    from ascii_renderer_tpu_torch.ops import bin_entries as BE
+    from ascii_renderer_tpu_torch.ops import group_build as GB
+    a, k = keys_call
+
+    def keys_fn():
+        return BE.pair_keys(*a, **k)
+
+    keys, offs, _c = keys_fn()
+    n_launch = BE.last_launches
+    T, P, n_bins = a[4].shape[0], keys.shape[0], offs.shape[0] - 1
+    ms = _device_ms(keys_fn, "bin_", n_launch)
+    call = _event_ms(keys_fn, 20)
+    plain = _event_ms(lambda: _keys_call_plain(a, k), 3)
+    # the four bbox channels and the flags read once, the keys, offsets
+    # and counts written once; ~40 operations a triangle
+    bound = _bound(17 * T + 4 * P + 4 * (n_bins + 1) + 16, 40 * T)
+    x9 = dict(keys_ms=ms, keys_call_ms=call, keys_plain_ms=plain,
+              keys_bound_ms=bound[0], keys_bound_by=bound[1],
+              keys_launches_a_call=n_launch, keys_at=label, keys_slots=T,
+              keys_pairs=P, keys_bins=n_bins)
+    split = _kernel_split(keys_fn, r"bin_\w+")
+    x9["keys_split_ms"] = split
+    print(f"X9 bin keys {label}: kernels {ms:.5f} ms ({n_launch} launches, "
+          f"{T} slots, {P} keys, {n_bins} bins; "
+          + ", ".join(f"{k} {v:.5f}" for k, v in split.items())
+          + f"), the whole call {call:.5f} ms, plain {plain:.3f} ms, bound "
+          f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+    a, k = build_call
+
+    def build_fn():
+        return GB.build_rows(*a, **k)
+
+    lay = build_fn()
+    n_launch = GB.last_launches
+    ms = _device_ms(build_fn, "group_build_", n_launch)
+    call = _event_ms(build_fn, 20)
+    plain = _event_ms(lambda: _build_call_plain(a, k), 3)
+    p_eff = min(a[5], a[1].shape[0])
+    n_bins = a[3] * 8
+    # the first p_eff keys and their pairs' 16-channel rows read once, the
+    # offsets read, every output written once; the rank's 2 n_bins^2
+    # integer compares
+    bound = _bound(_nbytes(*lay) + 68 * p_eff + 4 * (n_bins + 1),
+                   2 * n_bins * n_bins)
+    rec = _rec("group_build", "group_build.cu", "raster_group.py:418", 0.0,
+               ms, plain, bound)
+    split = _kernel_split(build_fn, r"group_build_\w+")
+    rec.update(call_ms=call, launches_a_call=n_launch, at=label,
+               r_cap=a[4], pair_cap=a[5], grp_cap=a[6], k=k["k"],
+               split_ms=split)
+    print(f"X10 {label}: kernels {ms:.5f} ms ({n_launch} launches, K "
+          f"{k['k']}, r_cap {a[4]}, grp_cap {a[6]}; "
+          + ", ".join(f"{k_} {v:.5f}" for k_, v in split.items())
+          + "), the whole call "
+          f"{call:.5f} ms, plain {plain:.3f} ms, bound {bound[0]:.5f} ms "
+          f"({bound[1]})", flush=True)
+    return x9, rec
+
+
+def check_headline_keys_builds(dev, soup, scene, backend, cfg):
+    """X9's bin keys and X10 at the headline: a fresh RasterBackend's
+    frame 0 (its first caps, big_cap 64) and the driven backend's steady
+    frame (its lean caps, big_cap 0), each call against its plain
+    version; both timed at the steady frame. Returns (X9's bin-key
+    numbers, X10's record)."""
+    import torch
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    fresh = RasterBackend(cfg, device=dev)
+    fresh.set_soup(*(torch.as_tensor(x) for x in soup), scene)
+    calls = _record_keys_builds(lambda: _frame(fresh, cfg, _golden_camera()))
+    check_keys_builds("headline frame 0", *calls)
+    del fresh, calls
+    keys_calls, build_calls = _record_keys_builds(
+        lambda: _frame(backend, cfg, _golden_camera()))
+    check_keys_builds("headline steady frame", keys_calls, build_calls)
+    return time_keys_build(keys_calls[-1], build_calls[-1],
+                           "headline steady frame")
+
+
+def check_golden_keys_builds(dev, soup, scene):
+    """X9's bin keys and X10 at every grouped generation's golden call
+    (FRAME_RUNS' frame 0; subtile4's direct grouping is the torch chain),
+    each call against its plain version."""
+    frame = _generation_frame(dev, soup, scene)
+    for method, packed in FRAME_RUNS:
+        keys_calls, build_calls = _record_keys_builds(
+            lambda: frame(method, packed))
+        label = f"{method}{' SETUP_PACKED' if packed else ''} golden call"
+        check_keys_builds(label, keys_calls, build_calls,
+                          builds=method != "subtile4")
+
+
+def check_band_keys_builds(dev, soup, scene):
+    """X9's bin keys and X10 at the bunny's row bands (BAND_ROWS rows at
+    row_lo 0, BAND_ROWS, 2 BAND_ROWS, the golden caps) of subtile8,
+    subtile6 and subtile3, each call against its plain version."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    p, n, c = (torch.as_tensor(x).to(dev) for x in soup)
+    caps = _golden_caps(p.shape[0] // 3)
+    cam = _golden_camera()
+    for gen in ("subtile8", "subtile6", "subtile3"):
+        for lo in (0, BAND_ROWS, 2 * BAND_ROWS):
+            calls = _record_keys_builds(lambda: R.render_soup_diag(
+                p, n, c, scene, cam, ROWS, COLS, PIXEL_ASPECT, kernel=gen,
+                row_lo=lo, band_rows=BAND_ROWS, **caps))
+            check_keys_builds(f"{gen} band {lo}", *calls)
 
 
 # the shapes B6 / B6' are timed at: the driven paths' own; the records
@@ -4055,6 +4288,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
     from ascii_renderer_tpu_torch.ops import bin_entries as BE
     from ascii_renderer_tpu_torch.ops import fp as KFP
+    from ascii_renderer_tpu_torch.ops import group_build as GB
     from ascii_renderer_tpu_torch.ops import pack as PK
     from ascii_renderer_tpu_torch.ops import plane_table as PT
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
@@ -4109,7 +4343,9 @@ def main() -> int:
                 "rt_trace": (RTK, "launches"),
                 "raster_clip": (RCL, "launches"),
                 "plane_table": (PT, "launches"),
-                "bin_entries": (BE, "launches")}
+                "bin_entries": (BE, "launches"),
+                "bin_entries_keys": (BE, "launches_keys"),
+                "group_build": (GB, "launches")}
     # fma32 first: the other kernels' plain versions call it
     soup = _bunny()
     scene = _scene(dev)
@@ -4131,8 +4367,20 @@ def main() -> int:
         assert c_raster[k] > 0, f"{k} never launched on the raster path"
         by_name[k]["launches"] = c_raster[k]
     assert c_raster["raster_shade"] > 0, "the shade kernel never launched"
-    profile_frames(lambda: _frame(backend, cfg, _golden_camera()), 5,
-                   ("raster.", "frame.", "glyph"), "raster")
+    for k in ("bin_entries_keys", "group_build"):  # X9's bin keys, X10
+        assert c_raster[k] > 0, f"{k} never launched on the raster path"
+    stage_launches = profile_frames(
+        lambda: _frame(backend, cfg, _golden_camera()), 5,
+        ("raster.", "frame.", "glyph"), "raster")[2]
+    # X9 and X10 leave raster.keys and raster.build their kernels alone
+    print(f"headline frame: raster.keys {stage_launches['raster.keys']:g}, "
+          f"raster.build {stage_launches['raster.build']:g} kernel "
+          f"launches", flush=True)
+    assert 0 < stage_launches["raster.keys"] <= RASTER_KEYS_LAUNCHES
+    assert 0 < stage_launches["raster.build"] <= RASTER_BUILD_LAUNCHES
+    x9_keys, x10_rec = check_headline_keys_builds(dev, soup, scene, backend,
+                                                  cfg)
+    recs.append(x10_rec)
     # the shade's inputs on each caller's path: the headline's grouped
     # tiles here, the mid HD arm's plane table (captured by check_fma32),
     # the subtile path's compacted tiles (below)
@@ -4152,6 +4400,9 @@ def main() -> int:
         assert c_gen[k] > 0, f"{k} never launched on the grouped generations"
     for r in gen_recs:
         r["launches"] = c_gen[r["name"]]
+    for k in ("bin_entries_keys", "group_build"):
+        assert c_gen[k] > 0, f"{k} never launched on the grouped generations"
+    check_golden_keys_builds(dev, soup, scene)
     profile_frames(gen_fn, 5, ("raster.", "frame.", "glyph"),
                    "subtile3 golden call")
     # subtile4 walks B9e where subtile3 walks B9d; subtile5 walks B9f (and
@@ -4317,6 +4568,9 @@ def main() -> int:
         if k not in ("pack_channels", "ray_grid", "rt_trace",
                      "raster_shade"):  # summed at the end
             by_name[k]["launches"] += c_par[k]
+    for k in ("bin_entries_keys", "group_build"):  # the bunny's bands
+        assert c_par[k] > 0, f"{k} never launched in the parallel phase"
+    check_band_keys_builds(dev, soup, scene)
     try:
         profile_frames(train_fn, 1, ("train.",),
                        f"config 5 train call ({CONFIG5_STEPS} steps)")
@@ -4353,9 +4607,17 @@ def main() -> int:
               c_tea, c_mid, c_pts, c_rt, c_farm, c_prog, c_cli, c_par,
               c_core)
     for k in ("fma32", "raster_shade", "rt_trace", "raster_clip",
-              "plane_table", "bin_entries"):
+              "plane_table", "bin_entries", "group_build"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
+    # X9's launches in both layouts: the tile keys' and the bin keys'
+    by_name["bin_entries"]["launches_tile"] = by_name["bin_entries"][
+        "launches"]
+    by_name["bin_entries"]["launches_keys"] = sum(
+        c["bin_entries_keys"] for c in driven)
+    by_name["bin_entries"]["launches"] += by_name["bin_entries"][
+        "launches_keys"]
+    by_name["bin_entries"].update(x9_keys)
     k3_rec = by_name["rt_trace"]
     assert sum(p["launches"] for p in k3_rec["launch_sizes"]) == \
         k3_rec["launches"], (k3_rec["launch_sizes"], k3_rec["launches"])

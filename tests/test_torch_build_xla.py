@@ -29,6 +29,7 @@ from ascii_renderer_tpu_torch.core.fp import fma32, fma32_f64
 from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import bin_entries as BE
 from ascii_renderer_tpu_torch.ops import fp as KFP
+from ascii_renderer_tpu_torch.ops import group_build as GB
 from ascii_renderer_tpu_torch.ops import plane_table as PT
 from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
@@ -38,7 +39,8 @@ from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
 from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
 from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
 from ascii_renderer_tpu_torch.tools.xla_inputs import (
-    BIN_SOUPS, FMA_CASES, RT_SCENES, bin_calls, bin_soup, fma_operands,
+    BIN_SOUPS, FMA_CASES, RT_SCENES, bbox_soup, bin_calls, bin_soup,
+    fma_operands,
     fma_specials, fma_ties, front_inputs, rt_scene, shade_builder,
     shade_inputs)
 
@@ -399,7 +401,7 @@ def test_trace_and_bin_entries_raise_on_build_or_launch_failure(
                                   "near-plane soup 480x270"]
                          + [f"soup {n}" for n in BIN_SOUPS])
 def test_bin_entries_kernel_equals_plain(cuda_device, call, kernel):
-    """X9 (four launches) gives the plain chain's entries,
+    """X9 (three or four launches) gives the plain chain's entries,
     offsets, tiles_x and n_tiles bit for bit at its callers' channel dicts
     (the entry() room's, the teapot's, the mid-scale HD arm's, a soup at
     the near plane) and the CPU tests' soups, in both layouts."""
@@ -417,3 +419,122 @@ def test_bin_entries_kernel_equals_plain(cuda_device, call, kernel):
     _same_bits(got[0], want[0])
     assert torch.equal(got[1].cpu(), want[1].cpu())
     assert got[2:] == want[2:]
+
+
+
+# --------------------------------------------------------------------------
+# X9's forms and its bin keys; X10
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(BE.FORMS))
+@pytest.mark.parametrize("call", ["room 96x36", "teapot 240x135",
+                                  "mid-scale HD 960x540"])
+def test_bin_entries_every_form_equals_plain(cuda_device, call, form):
+    """Each form of X9 (three or four launches at chunks of 1,024-4,096
+    keys) gives the plain chain's entries and offsets in walk "mm"'s
+    layout at its callers' dicts."""
+    ch, rows, cols = bin_calls(cuda_device)[call]
+    got = BE.binned_entries(dict(ch), rows, cols, form=form)
+    assert BE.last_launches == BE.launches_of(
+        form, got[3], 4 * ch["valid"].shape[0] + 64 * got[3])
+    want = BE.binned_entries_ref(dict(ch), rows, cols)
+    _same_bits(got[0], want[0])
+    assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
+# a band (ty_lo, tiles_y_band) of each bbox soup's grid
+BANDS = {"one_tile": (4, 1), "hd": (2, 22), "many_big": (3, 4),
+         "edge": (1, 3), "all_invalid": (0, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(BE.FORMS) + [0])
+@pytest.mark.parametrize("name", list(BIN_SOUPS))
+def test_bin_keys_kernel_equals_plain(cuda_device, name, form):
+    """X9's bin keys (pair_keys) in each form give the plain chain's
+    sorted keys, offsets and counts, unbanded and banded, big_cap 0 and
+    64, on soups with off-screen, near-plane sized, NaN and infinite
+    bounds."""
+    np_bb, rows, cols = bbox_soup(name)
+    bb = {k: torch.from_numpy(v).to(cuda_device) for k, v in np_bb.items()}
+    for cap in (0, 64):
+        for kw in ({}, dict(zip(("ty_lo", "tiles_y_band"), BANDS[name]))):
+            n0 = BE.launches_keys
+            got = BE.pair_keys_bbox(bb, rows, cols, big_cap=cap, form=form,
+                                    **kw)
+            assert BE.launches_keys == n0 + 1
+            want = BE.pair_keys_ref(bb["bx0"], bb["bx1"], bb["by0"],
+                                    bb["by1"], bb["valid"], rows, cols,
+                                    big_cap=cap, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w.cpu()), (cap, kw)
+
+
+GROUP_CAPS = {  # (r_cap, pair_cap, grp_cap) over the many_big soup's grid
+    "generous": (32 * 2048, 1 << 20, 36),
+    "overflow": (64, 600, 2),
+    "truncated": (32 * 256, 900, 20),
+    "sentinels": (32 * 1024, 1 << 20, 72),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", sorted(GROUP_CAPS))
+@pytest.mark.parametrize("gen", sorted(GB.LAYOUTS))
+def test_group_build_kernel_equals_plain(cuda_device, gen, caps):
+    """X10 gives the plain build's layout bit for bit for each layout it
+    serves, with X9's offsets (two launches) and without (three), banded
+    pixel rows included, over 32-wide source rows."""
+    k, rows256 = GB.LAYOUTS[gen]
+    np_bb, rows, cols = bbox_soup("many_big")
+    bb = {nm: torch.from_numpy(v) for nm, v in np_bb.items()}
+    keys, offs, _c = BE.pair_keys_bbox(bb, rows, cols, big_cap=64)
+    n_tiles = -(-rows // 8) * -(-cols // 128)
+    src = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(keys.shape[0] // 4, 32)).astype(np.float32))
+    r_cap, pair_cap, grp_cap = GROUP_CAPS[caps]
+    if rows256 and caps == "overflow":
+        r_cap = 128
+    args = (-(-cols // 128), n_tiles, r_cap, pair_cap, grp_cap)
+    for offsets, y_off in ((None, 0), (offs, 16)):
+        want = GB.build_rows(src, keys, *args, k=k, rows256=rows256,
+                             y_off=y_off)
+        n0 = GB.launches
+        got = GB.build_rows(
+            src.to(cuda_device), keys.to(cuda_device), *args, k=k,
+            rows256=rows256, y_off=y_off,
+            offsets=None if offsets is None else offsets.to(cuda_device))
+        assert GB.launches == n0 + 1
+        assert GB.last_launches == (3 if offsets is None else 2)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            if w.dtype == torch.float32:
+                assert torch.equal(g.cpu().view(torch.int32),
+                                   w.view(torch.int32))
+            else:
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_bin_keys_and_group_build_raise_on_build_or_launch_failure(
+        cuda_device, monkeypatch):
+    """A failed build and a failed launch each raise out of pair_keys and
+    build_rows; neither falls back to its plain version."""
+    np_bb, rows, cols = bbox_soup("one_tile")
+    bb = {k: torch.from_numpy(v).to(cuda_device) for k, v in np_bb.items()}
+    keys, offs, _c = BE.pair_keys_bbox(bb, rows, cols, big_cap=64)
+    src = torch.zeros((keys.shape[0] // 4, 16), device=cuda_device)
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    runs = (lambda: BE.pair_keys_bbox(bb, rows, cols, big_cap=64),
+            lambda: GB.build_rows(src, keys, 1, 5, 256, 4096, 5, k=8,
+                                  offsets=offs))
+    for lib, match in ((no_build, "nvcc failed"),
+                       (lambda: _FailingLib(), "launch failed")):
+        monkeypatch.setattr(_build, "lib", lib)
+        for run in runs:
+            with pytest.raises(RuntimeError, match=match):
+                run()
