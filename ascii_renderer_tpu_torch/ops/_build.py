@@ -77,11 +77,11 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # (a, b, c, sa, sb, sc, scalar_mask, geom24_host, flat, out, n, stream)
     "fma32_launch": (_P, _P, _P, _F, _F, _F, _I, _LLP, _I, _P, _LL, _P),
-    # (table, row_stride, table_rows, ids, ids_f32, px, py, geom12_host,
-    #  n_attrs, env_color, env_intensity, n_dl, dl_dir, dl_col, n_pt,
-    #  pt_pos, pt_col, n_pl, out, n, stream)
-    "raster_shade_launch": (_P, _LL, _I, _P, _I, _P, _P, _LLP, _I, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _I, _P, _LL, _P),
+    # (table, row_stride, table_rows, vec, ids, ids_f32, px, py,
+    #  geom12_host, n_attrs, env_color, env_intensity, n_dl, dl_dir, dl_col,
+    #  n_pt, pt_pos, pt_col, n_pl, out, n, stream)
+    "raster_shade_launch": (_P, _LL, _I, _I, _P, _I, _P, _P, _LLP, _I, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _I, _P, _LL, _P),
     # (cam, rd3, out, views, rays, sph_pos, sph_rad, sph_valid, sph_mat,
     #  n_sph, pln_n, pln_d, pln_valid, pln_mat, n_pln, tri_a, tri_e1,
     #  tri_e2, tri_valid, tri_mat, n_tri, mat_albedo, mat_reflective,

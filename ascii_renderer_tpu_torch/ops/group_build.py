@@ -12,10 +12,13 @@ slot's entries K at a time from K-aligned starts (``_slot_gather``). On
 CUDA tensors the chain is some 87 launches at the headline;
 ``build_rows`` is two (three when the caller has no offsets: X9 leaves
 them beside the keys): one block for the depth order (the nonempty bins
-compacted and bitonic-sorted, the empty ones after them), the slots,
-skips and row pointers; a thread a (row, slot) gathering its pair's 16 channels
-straight into the layout, the K-row relayout folded into its store, and
-the lanes' pixel origins.
+compacted by ballots and counted into depth buckets, each placed by its
+bucket's start and the bins of its bucket ahead of it; the empty ones
+after them), a thread a slot for the slots, skips and row pointers, and
+each used K-row's group; four lanes a (row, slot) gathering its pair's 16
+channels
+straight into the layout, the K-row relayout folded into the store's
+address, and the lanes' pixel origins.
 It serves the rows128 layout (subtile3: K = 1; subtile7 / subtile8: K =
 4 / 8) and rows256 (subtile5 / subtile6: K = 2 / 4), ``LAYOUTS``;
 subtile4's direct grouping (``build_groups_direct``) stays the torch
@@ -290,8 +293,9 @@ def build_rows(src32: torch.Tensor, pair_key: torch.Tensor, tiles_x: int,
     ``build_packed_rows_grouped_k2`` / ``_k4`` (rows256). ``offsets``: the
     bins' offsets over all keys, i32 [n_tiles*8 + 1], as X9 leaves them
     (computed here when None); ``y_off``: a row band's first pixel row,
-    added to yl. On the CPU the plain version; on a CUDA device two
-    kernel launches (three without offsets), bit for bit with it."""
+    added to yl. On the CPU the plain version; on a CUDA device two kernel
+    launches (three without offsets), bit for bit with it. The outputs are
+    views of one int32 and one float32 buffer."""
     if (k, rows256) not in LAYOUTS.values():
         raise ValueError(f"build_rows: no layout of K = {k}, rows256 = "
                          f"{rows256}")
@@ -308,44 +312,53 @@ def build_rows(src32: torch.Tensor, pair_key: torch.Tensor, tiles_x: int,
         raise ValueError(f"build_rows: {n_bins} bins (1 to 8191), {p_eff} "
                          f"pairs, grp_cap {grp_cap}, r_cap {r_cap} (a "
                          f"positive CHUNK_RG multiple)")
-    ints = [pair_key] + ([] if offsets is None else [offsets])
-    _build.require_cuda(*ints, what="build_rows")
+    _build.require_cuda(pair_key, *(() if offsets is None else (offsets,)),
+                        what="build_rows")
     if (src32.device != pair_key.device or src32.dtype != torch.float32
             or src32.dim() != 2
             or src32.shape[1] < N_CHAN or src32.stride(1) != 1
             or src32.stride(0) % 4 or src32.data_ptr() % 16):
         raise ValueError("build_rows: src32 must be float32 [N, >= 16] rows "
                          "of a 16-byte aligned stride on the keys' device")
-    if (pair_key.dtype != torch.int32 or pair_key.dim() != 1
-            or not pair_key.is_contiguous()):
+    if pair_key.dtype != torch.int32 or pair_key.dim() != 1:
         raise ValueError("build_rows: pair_key must be contiguous int32 [P]")
-    if offsets is not None and (
-            offsets.dtype != torch.int32 or offsets.shape != (n_bins + 1,)
-            or not offsets.is_contiguous()):
+    if offsets is not None and (offsets.dtype != torch.int32
+                                or offsets.shape != (n_bins + 1,)):
         raise ValueError(f"build_rows: offsets must be contiguous int32 "
                          f"[{n_bins + 1}]")
-    dev = pair_key.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    rows = torch.empty((r_cap // 2, 2 * TILE_W) if rows256 else
-                       (r_cap, TILE_W), **f32)
-    rowptr = torch.empty((grp_cap + 1,), **i32)
-    gdepth, gskip, gbins = (torch.empty((grp_cap * N_SUB,), **i32)
-                            for _ in range(3))
-    xl, yl = (torch.empty((grp_cap, TILE_W), **f32) for _ in range(2))
-    counts = torch.empty((3,), **i32)
-    ws = torch.empty((n_bins + 1 + (N_SUB + 1) * grp_cap + 1,), **i32)
+    (rows, rowptr, gdepth, gskip, xl, yl, gbins, counts), ws = \
+        layout_buffers(n_bins, r_cap, grp_cap, k, rows256, pair_key.device)
     err = _build.lib().group_build_launch(
         src32.data_ptr(), src32.stride(0), pair_key.data_ptr(), P,
         None if offsets is None else offsets.data_ptr(), p_eff, n_bins,
         tiles_x, k, int(rows256), r_cap, grp_cap, float(y_off),
         ws.data_ptr(), rows.data_ptr(), rowptr.data_ptr(), gdepth.data_ptr(),
         gskip.data_ptr(), xl.data_ptr(), yl.data_ptr(), gbins.data_ptr(),
-        counts.data_ptr(), _build.stream_ptr(dev))
+        counts.data_ptr(), _build.stream_ptr(pair_key.device))
     launches += 1
     last_launches = 2 if offsets is not None else 3
     _build.check(err, "group_build_launch")
-    n_rows, n_pairs, n_used = counts[0], counts[1], counts[2]
     skip = () if k == 1 and not rows256 else (gskip,)
-    return (rows, rowptr, gdepth, *skip, xl, yl, gbins, n_rows, n_pairs,
-            n_used)
+    return (rows, rowptr, gdepth, *skip, xl, yl, gbins, counts[0],
+            counts[1], counts[2])
+
+
+def layout_buffers(n_bins: int, r_cap: int, grp_cap: int, k: int,
+                   rows256: bool, device):
+    """The kernels' outputs as views of one int32 and one float32 buffer:
+    ((rows, rowptr, gdepth, gskip, xl, yl, gbins, counts), ws), ws the
+    kernels' own ints (offsets [n_bins + 1], each slot's K-row start less
+    its group's [8 grp_cap], the unclamped row pointers [grp_cap + 1], each
+    K-row's group [r_cap / k])."""
+    ns = grp_cap * N_SUB
+    sizes = (grp_cap + 1, ns, ns, ns, 3,
+             n_bins + 1 + ns + grp_cap + 1 + r_cap // k)
+    ints = torch.empty((sum(sizes),), dtype=torch.int32, device=device)
+    rowptr, gdepth, gskip, gbins, counts, ws = ints.split(sizes)
+    n_rows = r_cap * TILE_W
+    floats = torch.empty((n_rows + 2 * grp_cap * TILE_W,),
+                         dtype=torch.float32, device=device)
+    rows = floats[:n_rows].view((r_cap // 2, 2 * TILE_W) if rows256 else
+                                (r_cap, TILE_W))
+    xl, yl = floats[n_rows:].view(2, grp_cap, TILE_W).unbind(0)
+    return (rows, rowptr, gdepth, gskip, xl, yl, gbins, counts), ws

@@ -26,6 +26,7 @@ from ascii_renderer_tpu_torch.scene.builder import SceneData
 launches = 0  # kernel launches by shade
 LAUNCHES_PER_CALL = {"shade": 1}  # kernels a call launches
 MAX_DIMS = 3
+_geoms = {}  # (shapes, strides) -> the kernel's geometry, a ctypes array
 
 _DEFAULT_AMBIENT = (0.15, 0.18, 0.22)  # raster.js:66-69
 _DEFAULT_DIR = (0.25, -1.0, 0.15)
@@ -50,7 +51,7 @@ def shade(table, ids, px, py, scene: SceneData, n_attrs: int):
                          f"{ids.dtype}")
     if (table.dtype, px.dtype, py.dtype) != (torch.float32,) * 3:
         raise ValueError("shade: expected a float32 table and centres")
-    if table.dim() != 2 or table.stride(1) != 1 or \
+    if table.dim() != 2 or table.stride(1) != 1 or table.shape[0] < 1 or \
             table.shape[1] < 3 * n_attrs + 3:
         raise ValueError(f"shade: table {tuple(table.shape)} (stride "
                          f"{table.stride()}) holds no {n_attrs}-attribute "
@@ -72,15 +73,26 @@ def shade(table, ids, px, py, scene: SceneData, n_attrs: int):
     n = out.numel() // 3
     if n >= 2 ** 31:
         raise ValueError(f"shade: {n} pixels, at most 2^31 - 1")
-    geom = broadcast_geom((ids, px, py), shape, MAX_DIMS)
-    g = (ctypes.c_longlong * len(geom))(*geom)
+    key = (shape, ids.shape, ids.stride(), px.shape, px.stride(), py.shape,
+           py.stride())
+    g = _geoms.get(key)
+    if g is None:
+        if len(_geoms) >= 64:
+            _geoms.clear()
+        geom = broadcast_geom((ids, px, py), shape, MAX_DIMS)
+        g = _geoms[key] = (ctypes.c_longlong * len(geom))(*geom)
+    # the rows read as float4: aligned, each row's used floats rounded up
+    # to a multiple of 4 inside the row
+    vec = int(table.stride(0) % 4 == 0 and table.data_ptr() % 16 == 0
+              and table.shape[1] >= -(-(3 * n_attrs + 3) // 4) * 4)
     err = _build.lib().raster_shade_launch(
-        table.data_ptr(), table.stride(0), table.shape[0], ids.data_ptr(),
-        int(ids.dtype == torch.float32), px.data_ptr(), py.data_ptr(), g,
-        n_attrs, *(t.data_ptr() for t in lights[:2]), scene.n_dl.data_ptr(),
-        *(t.data_ptr() for t in lights[2:4]), scene.n_pt.data_ptr(),
-        *(t.data_ptr() for t in lights[4:]), scene.pt_pos.shape[0],
-        out.data_ptr(), n, _build.stream_ptr(table.device))
+        table.data_ptr(), table.stride(0), table.shape[0], vec,
+        ids.data_ptr(), int(ids.dtype == torch.float32), px.data_ptr(),
+        py.data_ptr(), g, n_attrs, *(t.data_ptr() for t in lights[:2]),
+        scene.n_dl.data_ptr(), *(t.data_ptr() for t in lights[2:4]),
+        scene.n_pt.data_ptr(), *(t.data_ptr() for t in lights[4:]),
+        scene.pt_pos.shape[0], out.data_ptr(), n,
+        _build.stream_ptr(table.device))
     launches += 1
     _build.check(err, "raster_shade_launch")
     return out

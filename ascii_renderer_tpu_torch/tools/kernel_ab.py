@@ -94,7 +94,13 @@ with the other checkout unpacked in a git-ignored directory:
 
 ``--only bins`` times the raster's bins alone (X9 at the room, teapot and
 mid HD calls, the headline's raster.keys and raster.build, and the
-``paths``), a few minutes less a side.
+``paths``), a few minutes less a side. ``--only shade`` times the raster's
+deferred shade K2 at its callers' recorded inputs (the headline's grouped
+tiles, the mid-scale HD arm's plane table, the entry() room's and the
+subtile path's compacted tiles: device ms, the whole call, launches a
+call) and the grouped layout build X10 at the headline's steady frame
+(raster.build's whole call, busy ms and launches, and X10's kernel rows),
+then the headline frame (median, busy ms, launches), ~2 min a side.
 """
 
 from __future__ import annotations
@@ -205,6 +211,9 @@ def worker(root: str, only: str = "all") -> dict:
         mid_preps = _mid_preps(cs, dev)
         rt_and_walk_front(cs, dev, out, mid_preps, k3=False)
         paths(cs, dev, out)
+        return out
+    if only == "shade":
+        shade_and_build(cs, dev, out)
         return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
@@ -486,6 +495,75 @@ def keys_and_build(cs, dev, out, caps) -> None:
                                                 f"raster.{name} {label}")
         out[f"{name}_busy_ms"][label] = busy
         out[f"{name}_launches"][label] = launches
+    try:  # X10's kernels, where the side has them
+        from ascii_renderer_tpu_torch.ops import group_build as GB
+    except ImportError:
+        return
+    build()
+    out.setdefault("x10_ms", {})[label] = cs._device_ms(
+        build, "group_build_", GB.last_launches)
+
+
+def _shade_calls(cs, dev, backend, cfg):
+    """{label: shade args} of K2's callers, recorded from their paths: the
+    headline's grouped tiles (its steady frame), the mid-scale HD arm's
+    plane table, the entry() room's and the subtile path's compacted
+    tiles."""
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.entry import entry
+    from ascii_renderer_tpu_torch.ops import raster_shade as RSH
+    soup, scene = cs._bunny(), cs._scene(dev)
+    calls = {"headline grouped tiles": cs._capture(RSH, "shade", lambda: (
+        cs._frame(backend, cfg, cs._golden_camera())))[0]}
+    msoup, mcam = cs._mesh("mid")
+    be = RasterBackend(cfg, device=dev)
+    be.set_soup(*msoup, cs._scene(dev))
+    be.render(0.0, mcam, *cs.MID_GRID, cs.PIXEL_ASPECT)
+    calls["mid HD plane table"] = cs._capture(RSH, "shade", lambda: (
+        be.render(0.0, mcam, *cs.MID_GRID, cs.PIXEL_ASPECT)))[0]
+    fn, args = entry()
+    calls["entry() room"] = cs._capture(RSH, "shade", lambda: fn(*args))[0]
+    caps = cs._oracle_caps(dev, soup, scene, "subtile")[0]
+    calls["subtile compacted tiles"] = cs._capture(
+        RSH, "shade", cs._oracle_frame(dev, soup, scene, "subtile", caps))[0]
+    return calls
+
+
+def shade_and_build(cs, dev, out) -> None:
+    """K2 at its callers' recorded inputs (``_shade_calls``) and X10 at the
+    headline's steady frame (``keys_and_build``): device ms by the
+    profiler's kernel rows over 50 calls, the whole call by CUDA events
+    over 20, kernel launches a call; outputs digested. Then the headline
+    frame's median, busy time and launches."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import raster_shade as RSH
+    for key in ("k2_ms", "k2_call_ms", "k2_launches"):
+        out[key] = {}
+    soup, scene = cs._bunny(), cs._scene(dev)
+    backend, cfg = cs.run_main_path(dev, soup, scene)
+    keys_and_build(cs, dev, out, backend._caps)
+    for label, args in _shade_calls(cs, dev, backend, cfg).items():
+        def fn(args=args):
+            return RSH.shade(*args)
+        n0 = RSH.launches
+        out["digest"][f"K2 {label}"] = _digest([fn()])
+        out["k2_launches"][label] = RSH.launches - n0
+        out["k2_ms"][label] = cs._device_ms(fn, "raster_shade_kernel", 1)
+        out["k2_call_ms"][label] = cs._event_ms(fn, 20)
+
+    def headline():
+        return cs._frame(backend, cfg, cs._golden_camera())[1]
+
+    out["digest"]["headline frame 0 chars"] = _digest([headline()])
+    for key in ("path_ms", "path_busy_ms", "path_launches"):
+        out[key] = {}
+    label = "headline frame 960x540"
+    out["path_ms"][label] = statistics.median(cs._timed(headline, 20))
+    busy, launches, _st = cs.profile_frames(
+        headline, 3, ("raster.", "frame.", "glyph"), label)
+    out["path_busy_ms"][label] = busy
+    out["path_launches"][label] = launches
+    torch.cuda.synchronize()
 
 
 def paths(cs, dev, out) -> None:
@@ -552,8 +630,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=("all", "bins"), default="all",
-                    help="bins: the raster's bins and the paths alone")
+    ap.add_argument("--only", choices=("all", "bins", "shade"),
+                    default="all",
+                    help="bins: the raster's bins and the paths alone; "
+                    "shade: K2 at its callers, X10 and the headline")
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.worker, a.only)), flush=True)
@@ -586,7 +666,8 @@ def main() -> int:
                 "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "x4_ms", "x3_ms",
                 "k3_ms", "x9_ms", "x9_kernel_ms", "keys_ms", "keys_busy_ms",
                 "keys_launches", "build_ms", "build_busy_ms",
-                "build_launches", "frame_ms", "busy_ms", "path_ms",
+                "build_launches", "x10_ms", "k2_ms", "k2_call_ms",
+                "k2_launches", "frame_ms", "busy_ms", "path_ms",
                 "path_busy_ms", "path_launches", "walk_launches"):
         for shape in runs[0][1].get(key, {}):
             if not all(shape in r.get(key, {}) for _s, r in runs):
@@ -599,7 +680,8 @@ def main() -> int:
     for shape, ms in summary.items():
         unit = "" if shape.startswith((
             "Path_launches", "Walk_launches", "Keys_launches",
-            "Build_launches")) or shape.endswith("views/s") else " ms"
+            "Build_launches", "K2_launches")) or shape.endswith(
+                "views/s") else " ms"
         print(f"{shape}: other {ms['other']:.5f}{unit}, this "
               f"{ms['this']:.5f}{unit}, other / this "
               f"{ms['other'] / ms['this']:.2f}", flush=True)

@@ -770,7 +770,45 @@ def check_generation_kernels(dev, soup, scene):
             print(f"{walk} random 48x96 {label} caps: exact, "
                   f"{int((e_k >= 0).sum())} lit pixels, gskip values {skips}",
                   flush=True)
+        check_x10_layouts(wsrc, wkeys, (1, 6, r_cap, pair_cap, gcap),
+                          f"random 48x96 {label} caps",
+                          overflow=label == "overflow")
     return [recs["B9d"], recs["B9e"], recs["B9f K2"], recs["B10"]]
+
+
+def _same_layout(got, want, what):
+    """Every output of a layout build bit for bit (floats as their bits)."""
+    import torch
+    assert len(got) == len(want), what
+    for j, (g, w) in enumerate(zip(got, want)):
+        if w.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert g.shape == w.shape and torch.equal(g, w), \
+            f"{what}: output {j} differs"
+
+
+def check_x10_layouts(src32, keys, caps, label, overflow=False):
+    """X10 in every layout it serves (GB.LAYOUTS), with and without the
+    keys' offsets, against its plain version bit for bit; at overflowing
+    caps the counts must report what was dropped."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import group_build as GB
+    tiles_x, n_tiles, r_cap, pair_cap, grp_cap = caps
+    offsets = GB._bin_offsets(keys >> 18, keys.shape[0], n_tiles * 8)
+    for gen, (k, rows256) in sorted(GB.LAYOUTS.items()):
+        rc = 128 if rows256 and overflow else r_cap
+        a = (src32, keys, tiles_x, n_tiles, rc, pair_cap, grp_cap)
+        want = GB.build_rows_ref(*a, k=k, rows256=rows256)
+        for offs in (None, offsets):
+            got = GB.build_rows(*a, k=k, rows256=rows256, offsets=offs)
+            torch.cuda.synchronize()
+            _same_layout(got, want, f"X10 {gen} {label}")
+        n_rows, n_pairs, n_used = (int(x) for x in want[-3:])
+        if overflow:
+            assert n_rows > rc or n_used > 8 * grp_cap, (gen, n_rows, n_used)
+        print(f"X10 {gen} {label}: exact with and without offsets; n_rows "
+              f"{n_rows} (r_cap {rc}), n_pairs {n_pairs}, n_used {n_used} "
+              f"(slots {8 * grp_cap})", flush=True)
 
 
 def _golden_generation_inputs(dev, gen):
@@ -3526,9 +3564,9 @@ def check_bin_entries(dev, room, cube, mid_preps):
 # raster.build
 # --------------------------------------------------------------------------
 # kernel launches a headline frame's raster.keys (X9: four) and
-# raster.build (X10: two) may make
+# raster.build (X10: two, with X9's offsets) may make
 RASTER_KEYS_LAUNCHES = 5
-RASTER_BUILD_LAUNCHES = 4
+RASTER_BUILD_LAUNCHES = 2
 
 
 def _record_keys_builds(run):
@@ -3594,12 +3632,7 @@ def check_keys_builds(label, keys_calls, build_calls, builds=True):
         n_launch = GB.last_launches
         want = _build_call_plain(a, k)
         torch.cuda.synchronize()
-        assert len(got) == len(want)
-        for j, (g, w) in enumerate(zip(got, want)):
-            if w.dtype == torch.float32:
-                g, w = g.view(torch.int32), w.view(torch.int32)
-            assert g.shape == w.shape and torch.equal(g, w), \
-                f"X10 {label} call {i}: output {j} differs"
+        _same_layout(got, want, f"X10 {label} call {i}")
         n_rows, n_pairs, n_used = (int(x) for x in got[-3:])
         print(f"X10 {label} call {i}: exact, K {k['k']}"
               f"{' rows256' if k.get('rows256') else ''}, r_cap {a[4]}, "
@@ -3630,6 +3663,14 @@ def _kernel_split(fn, pattern, n=20):
             calls[m.group(0)] = calls.get(m.group(0), 0) + e.count
     # a profile that lost rows (see _device_ms) splits nothing
     return out if all(c == n for c in calls.values()) else {}
+
+
+def _x10_bound(a, lay):
+    """The bytes any layout build must move: the first p_eff keys and their
+    pairs' 16-channel rows read once, the offsets read, every output
+    written once (args ``a`` of build_rows, its outputs ``lay``)."""
+    p_eff = min(a[5], a[1].shape[0])
+    return _bound(_nbytes(*lay) + 68 * p_eff + 4 * (a[3] * 8 + 1), 0)
 
 
 def time_keys_build(keys_call, build_call, label):
@@ -3673,13 +3714,7 @@ def time_keys_build(keys_call, build_call, label):
     ms = _device_ms(build_fn, "group_build_", n_launch)
     call = _event_ms(build_fn, 20)
     plain = _event_ms(lambda: _build_call_plain(a, k), 3)
-    p_eff = min(a[5], a[1].shape[0])
-    n_bins = a[3] * 8
-    # the first p_eff keys and their pairs' 16-channel rows read once, the
-    # offsets read, every output written once; the rank's 2 n_bins^2
-    # integer compares
-    bound = _bound(_nbytes(*lay) + 68 * p_eff + 4 * (n_bins + 1),
-                   2 * n_bins * n_bins)
+    bound = _x10_bound(a, lay)
     rec = _rec("group_build", "group_build.cu", "raster_group.py:418", 0.0,
                ms, plain, bound)
     split = _kernel_split(build_fn, r"group_build_\w+")
@@ -4200,15 +4235,15 @@ def run_pt_step_path(dev):
     return one
 
 
-# while a driven path runs (_path_counts), the K3 launches it makes are
-# recorded by size (_record_k3)
+# while a driven path runs (_path_counts), the K3, K2, X10 and jitted grid
+# launches it makes are recorded by size (_record_sizes)
 _DRIVEN = [False]
 
 
 def _path_counts(counters, run, record=True):
     """Zero every launch count, run the path, return the counts. With
-    ``record`` the path is one of the driven paths whose K3 launch sizes
-    _record_k3 keeps."""
+    ``record`` the path is one of the driven paths whose launch sizes
+    _record_sizes keeps."""
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     _DRIVEN[0] = record
@@ -4219,21 +4254,124 @@ def _path_counts(counters, run, record=True):
     return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}, out
 
 
-def _record_k3(RTK):
-    """Wrap ops/rt_trace.trace so that it keeps, while a driven path runs,
-    the first call's arguments at each launch size (rays) and the launches
-    at it. Returns ({rays: [args, kwargs, launches]}, the real trace)."""
-    real, sizes = RTK.trace, {}
+def _record_sizes(mod, name, size_of, also=(), weight_of=None):
+    """Wrap ``mod.name`` (and the same function where a module of ``also``
+    binds it by name) so that it keeps, while a driven path runs, at each
+    launch size (``size_of(args, kwargs)``; None for a call that launches
+    nothing) the first call's arguments, or with ``weight_of`` those of
+    the heaviest call (the largest ``weight_of(args, kwargs)``; its
+    tensors copied, so a later call cannot change them), and the calls at
+    it. Returns ({size: [args, kwargs, calls, weight]}, the real
+    function)."""
+    import torch
+    real, sizes = getattr(mod, name), {}
 
-    def trace(*a, **k):
+    def copied(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def rec(*a, **k):
         out = real(*a, **k)
         if _DRIVEN[0]:
-            rays = a[3].shape[0] * a[3].shape[1]
-            sizes.setdefault(rays, [a, k, 0])[2] += 1
+            size = size_of(a, k)
+            if size is not None:
+                ent = sizes.setdefault(size, [a, k, 0, None])
+                ent[2] += 1
+                w = None if weight_of is None else weight_of(a, k)
+                if w is not None and (ent[3] is None or w > ent[3]):
+                    ent[0] = tuple(copied(x) for x in a)
+                    ent[1] = {kk: copied(v) for kk, v in k.items()}
+                    ent[3] = w
         return out
 
-    RTK.trace = trace
+    for m in (mod, *also):
+        setattr(m, name, rec)
     return sizes, real
+
+
+def _shade_size(a, k):
+    """K2's launch size: the pixel grid, id type, attributes, lights."""
+    if a[0].device.type != "cuda":
+        return None
+    import torch
+    shape = tuple(torch.broadcast_shapes(a[1].shape, a[2].shape, a[3].shape))
+    return (shape, str(a[1].dtype)[6:], a[5], a[4].pt_pos.shape[0])
+
+
+def _build_size(a, k):
+    """X10's launch size: r_cap, grp_cap, bins, the layout, offsets."""
+    if a[1].device.type != "cuda":
+        return None
+    return (a[4], a[6], a[3] * 8, k["k"], bool(k.get("rows256")),
+            k.get("offsets") is not None)
+
+
+def _build_weight(a, k):
+    """An X10 call's weight: its p_eff, the pairs it gathers."""
+    return min(a[5], a[1].shape[0])
+
+
+def _grid_size(a, k):
+    """The jitted grid's launch size: views, rows, columns."""
+    import torch
+    dev = k.get("device", a[4] if len(a) > 4 else None)
+    if torch.device(dev).type != "cuda":
+        return None
+    n_rows = k.get("n_rows", a[6] if len(a) > 6 else None)
+    return (a[0][0].shape[0], n_rows or a[1], a[2])
+
+
+def size_loss(label, sizes, real, kernel, per_call, bound_of, rec):
+    """A kernel's loss on the driven paths from the sizes of its launches
+    (``_record_sizes``): each size's device ms (at its recorded call's
+    arguments: the first, or the heaviest where a weight was kept;
+    ``per_call(args, kwargs)`` kernels a call) less its bound
+    (``bound_of(args, kwargs)`` ms), times its calls. Adds them to the
+    record (main checks their sum against the driven paths' count);
+    returns the loss."""
+    loss, parts = 0.0, []
+    for size, (a, k, n, w) in sorted(sizes.items(),
+                                     key=lambda it: str(it[0])):
+        ms = _device_ms(lambda: real(*a, **k), kernel, per_call(a, k))
+        bound = bound_of(a, k)
+        loss += n * (ms - bound)
+        parts.append(dict(size=list(size), launches=n, ms=ms,
+                          bound_ms=bound, weight=w))
+    print(f"{label} launch sizes on the driven paths: " + "; ".join(
+        f"{p['size']}: {p['launches']} calls, kernel {p['ms']:.5f} ms"
+        + ("" if p["weight"] is None else f" at weight {p['weight']}")
+        + f", bound {p['bound_ms']:.5f} ms" for p in parts)
+        + f"; loss {loss:.3f} ms", flush=True)
+    rec.update(launch_sizes=parts, loss_ms=loss)
+    return loss
+
+
+def _size_losses(recorded, by_name):
+    """K2's, X10's and the jitted grid's losses by launch size."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import group_build as GB
+    (shade, shade_real), (build, build_real), (grid, grid_real) = recorded
+
+    def build_launches(a, k):
+        build_real(*a, **k)
+        return GB.last_launches
+
+    def build_bound(a, k):
+        return _x10_bound(a, build_real(*a, **k))[0]
+
+    def grid_bound(a, k):
+        out = grid_real(*a, **k)
+        n = out.numel() // 3
+        return _bound(12 * n + 36 * a[0][0].shape[0], 22 * n)[0]
+
+    size_loss("raster shade (K2)", shade, shade_real, "raster_shade_kernel",
+              lambda a, k: 1, lambda a, k: _shade_bound(a)[0][0],
+              by_name["raster_shade"])
+    size_loss("grouped layout build (X10)", build, build_real,
+              "group_build_", build_launches, build_bound,
+              by_name["group_build"])
+    size_loss("jitted ray grid", grid, grid_real, "ray_grid_jit_kernel",
+              lambda a, k: 1, grid_bound, by_name["ray_grid_jit"])
+    torch.cuda.synchronize()
 
 
 def k3_loss(sizes, trace, rec):
@@ -4244,7 +4382,7 @@ def k3_loss(sizes, trace, rec):
     driven paths' count); returns the loss."""
     from ascii_renderer_tpu_torch.ops import rt_trace as RTK
     loss, parts = 0.0, []
-    for rays, (a, k, n) in sorted(sizes.items()):
+    for rays, (a, k, n, _w) in sorted(sizes.items()):
         ms = _device_ms(lambda: trace(*a, **k), "rt_trace_kernel", 1)
         scene, pr, cam, rd3 = a[:4]
         bound = _bound(24 * rays + _nbytes(cam), _rt_ops(scene, pr, cam,
@@ -4318,7 +4456,13 @@ def main() -> int:
         print(f"ptxas: {line}", flush=True)
 
     dev = torch.device("cuda:0")
-    k3_sizes, k3_trace = _record_k3(RTK)
+    k3_sizes, k3_trace = _record_sizes(
+        RTK, "trace", lambda a, k: a[3].shape[0] * a[3].shape[1])
+    from ascii_renderer_tpu_torch.backends import raytrace as RTB
+    recorded = (_record_sizes(RSH, "shade", _shade_size),
+                _record_sizes(GB, "build_rows", _build_size,
+                              weight_of=_build_weight),
+                _record_sizes(RYG, "ray_grid_jit", _grid_size, (RTB,)))
     # each kernel's wrapper module and launch counter
     counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
                 "raster_group_walk": (RG, "launches"),
@@ -4580,9 +4724,11 @@ def main() -> int:
     finally:
         close()
 
-    # K3 timed at each size it launched at on the driven paths (all of
-    # them are behind: the PT core launches none)
+    # K3, K2, X10 and the jitted grid timed at each size they launched at
+    # on the driven paths (all of them are behind: the PT core launches
+    # none of them)
     k3_loss(k3_sizes, k3_trace, by_name["rt_trace"])
+    _size_losses(recorded, by_name)
 
     # the path tracer's XLA core: the goldens and the core against B5,
     # then the wide-atlas frame. Last: its profile holds ~20,000 launches a
@@ -4607,9 +4753,14 @@ def main() -> int:
               c_tea, c_mid, c_pts, c_rt, c_farm, c_prog, c_cli, c_par,
               c_core)
     for k in ("fma32", "raster_shade", "rt_trace", "raster_clip",
-              "plane_table", "bin_entries", "group_build"):
+              "plane_table", "bin_entries", "group_build", "ray_grid_jit"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
+    # the losses by launch size count every driven launch
+    for k in ("raster_shade", "group_build", "ray_grid_jit"):
+        assert sum(p["launches"] for p in by_name[k]["launch_sizes"]) == \
+            by_name[k]["launches"], (k, by_name[k]["launch_sizes"],
+                                     by_name[k]["launches"])
     # X9's launches in both layouts: the tile keys' and the bin keys'
     by_name["bin_entries"]["launches_tile"] = by_name["bin_entries"][
         "launches"]

@@ -173,6 +173,48 @@ def test_shade_kernel_equals_plain_for_each_caller(cuda_device, monkeypatch,
         assert (want > 0).any(), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["groups_f32", "table_i32",
+                                    "unaligned_rows"])
+@pytest.mark.parametrize("n_attrs,n_pts", [(9, 3), (6, 0)],
+                         ids=["9_3pt", "6"])
+def test_shade_kernel_every_form_equals_plain(cuda_device, layout, n_attrs,
+                                              n_pts):
+    """The kernel equals the plain version bit for bit: f32 ids over
+    grouped tiles with lane centres, i32 ids over a 2-D grid, and a table
+    whose rows cannot be read as float4; ids of -0.0 and past the table
+    included (NaN rgb in the same places)."""
+    scene = shade_builder(TSB, True, n_pts).build(device=cuda_device)
+    table, ids, px, py = (t.to(cuda_device) for t in shade_inputs(
+        n_attrs, (5, 8, 128), n_tris=90))
+    ids.view(-1)[::11] = -0.0
+    ids.view(-1)[5::97] = float(table.shape[0] + 3)
+    if layout == "table_i32":
+        ids = ids.reshape(40, 128).to(torch.int32)
+        px = (torch.arange(128.0, device=cuda_device) + 0.5)[None]
+        py = (torch.arange(40.0, device=cuda_device) + 0.5)[:, None]
+    else:  # rows of the pack's width (float4 reads), or misaligned ones
+        px = px[:, :1, :]
+        W = table.shape[1]
+        wide = torch.zeros((table.shape[0], -(-W // 8) * 8 + 8),
+                           device=cuda_device)
+        if layout == "unaligned_rows":
+            wide[:, 1:1 + W] = table
+            table = wide[:, 1:1 + W]
+        else:
+            wide[:, :W] = table
+            table = wide[:, :-(-W // 8) * 8]
+    want = RSH.shade_ref(table, ids.clamp(max=table.shape[0] - 1), px, py,
+                         scene, n_attrs)
+    past = ids >= table.shape[0]
+    want[past.expand(want.shape[:-1])] = float("nan")
+    n0 = RSH.launches
+    got = RSH.shade(table, ids, px, py, scene, n_attrs)
+    assert RSH.launches == n0 + 1
+    _same_bits(got, want)
+    assert bool(torch.isnan(got).any()) and (want > 0).any()
+
+
 # --------------------------------------------------------------------------
 # the ray tracer's frame
 # --------------------------------------------------------------------------
@@ -478,24 +520,9 @@ GROUP_CAPS = {  # (r_cap, pair_cap, grp_cap) over the many_big soup's grid
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("caps", sorted(GROUP_CAPS))
-@pytest.mark.parametrize("gen", sorted(GB.LAYOUTS))
-def test_group_build_kernel_equals_plain(cuda_device, gen, caps):
-    """X10 gives the plain build's layout bit for bit for each layout it
-    serves, with X9's offsets (two launches) and without (three), banded
-    pixel rows included, over 32-wide source rows."""
-    k, rows256 = GB.LAYOUTS[gen]
-    np_bb, rows, cols = bbox_soup("many_big")
-    bb = {nm: torch.from_numpy(v) for nm, v in np_bb.items()}
-    keys, offs, _c = BE.pair_keys_bbox(bb, rows, cols, big_cap=64)
-    n_tiles = -(-rows // 8) * -(-cols // 128)
-    src = torch.from_numpy(np.random.default_rng(5).normal(
-        size=(keys.shape[0] // 4, 32)).astype(np.float32))
-    r_cap, pair_cap, grp_cap = GROUP_CAPS[caps]
-    if rows256 and caps == "overflow":
-        r_cap = 128
-    args = (-(-cols // 128), n_tiles, r_cap, pair_cap, grp_cap)
+def _same_build(cuda_device, src, keys, offs, args, k, rows256):
+    """X10 against the plain build bit for bit, with X9's offsets (two
+    launches) and without (three), banded pixel rows included."""
     for offsets, y_off in ((None, 0), (offs, 16)):
         want = GB.build_rows(src, keys, *args, k=k, rows256=rows256,
                              y_off=y_off)
@@ -514,6 +541,62 @@ def test_group_build_kernel_equals_plain(cuda_device, gen, caps):
                                    w.view(torch.int32))
             else:
                 assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", sorted(GROUP_CAPS))
+@pytest.mark.parametrize("gen", sorted(GB.LAYOUTS))
+def test_group_build_kernel_equals_plain(cuda_device, gen, caps):
+    """X10 gives the plain build's layout bit for bit for each layout it
+    serves, over 32-wide source rows."""
+    k, rows256 = GB.LAYOUTS[gen]
+    np_bb, rows, cols = bbox_soup("many_big")
+    bb = {nm: torch.from_numpy(v) for nm, v in np_bb.items()}
+    keys, offs, _c = BE.pair_keys_bbox(bb, rows, cols, big_cap=64)
+    n_tiles = -(-rows // 8) * -(-cols // 128)
+    src = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(keys.shape[0] // 4, 32)).astype(np.float32))
+    r_cap, pair_cap, grp_cap = GROUP_CAPS[caps]
+    if rows256 and caps == "overflow":
+        r_cap = 128
+    _same_build(cuda_device, src, keys, offs,
+                (-(-cols // 128), n_tiles, r_cap, pair_cap, grp_cap), k,
+                rows256)
+
+
+GROUP_DEPTHS = {  # (tiles_x, n_tiles, depths: a bin's, or choices, caps)
+    "ties": (5, 40, [0, 3, 3, 5, 5, 9], (32 * 256, 1 << 16, 40)),
+    "flat": (8, 544, [2], (32 * 320, 1 << 16, 60)),
+    "deep": (3, 6, [0, 4, 1023, 1200, 1200, 1500], (32 * 256, 1 << 16, 6)),
+    "one_bin": (5, 25, [0] * 199 + [50], (32 * 8, 1 << 16, 3)),
+    "max_bins": (31, 1023, [0, 0, 0, 1, 2, 5, 8], (32 * 512, 1 << 16, 400)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUP_DEPTHS))
+@pytest.mark.parametrize("gen", sorted(GB.LAYOUTS))
+def test_group_build_kernel_equals_plain_at_edges(cuda_device, gen, case):
+    """X10 equals the plain build where its depth order has its edge
+    cases: depths tied across many bins, every bin of a 960x540 frame
+    equally deep (one depth bucket), depths from 1023 on with ties (the
+    last bucket), a single nonempty bin, 8,184 bins."""
+    k, rows256 = GB.LAYOUTS[gen]
+    tiles_x, n_tiles, choices, caps = GROUP_DEPTHS[case]
+    rng = np.random.default_rng(11)
+    depths = (np.array(choices) if len(choices) == n_tiles * 8 else
+              rng.choice(choices, n_tiles * 8))
+    n_tri = max(64, int(depths.max()) + 1)
+    keys = np.concatenate(
+        [(b << 18) | np.sort(rng.choice(n_tri, d, replace=False))
+         for b, d in enumerate(depths) if d]
+        + [(n_tiles * 8 << 18) | np.sort(rng.integers(0, n_tri, 37))])
+    keys = torch.from_numpy(keys.astype(np.int32))
+    offs = torch.from_numpy(np.searchsorted(
+        keys.numpy(), np.arange(n_tiles * 8 + 1) << 18).astype(np.int32))
+    src = torch.from_numpy(rng.normal(size=(n_tri, 32)).astype(np.float32))
+    _same_build(cuda_device, src, keys, offs, (tiles_x, n_tiles, *caps), k,
+                rows256)
 
 
 @pytest.mark.cuda

@@ -39,7 +39,7 @@ for new in ("backends.raster_channels", "backends.raster_oracles",
             "diff.soft_raster", "parallel.train", "parallel.worlds",
             "ops.fp", "ops.raster_shade", "ops.rt_trace", "ops.raster_clip",
             "ops.plane_table", "ops.bin_entries", "ops.group_build",
-            "tools.bin_variants"):
+            "tools.bin_variants", "tools.build_variants"):
     assert "ascii_renderer_tpu_torch." + new in names, new
 from ascii_renderer_tpu_torch.backends import raster as R
 from ascii_renderer_tpu_torch.core.camera import Camera

@@ -11,15 +11,19 @@ subnormals, signed zeros, infinities, overflow), the strides and scalars
 each wrapper packs (replayed on the CPU with the kernel's addressing),
 the ray tracer's table of fused products against the decisions the
 plain version makes, and a replay of its kernel's tile reduction (1-32
-lanes a ray) against ``torch.argmin``. ``_shade_rows`` is held to the
-reference's. The clip (X4), the plane table (X3) and the bin entries (X9)
+lanes a ray) against ``torch.argmin``. ``_shade_rows`` and the shade's
+plain version are held to the reference's (0 to 3 point lights, no
+directional light, an f32 id of -0.0, an id past the table), and the
+shade kernel's division-free grid indices are replayed. The clip (X4), the plane table (X3) and the bin entries (X9)
 never fall back and raise on a failed build or launch. The kernels
 themselves are held to their plain versions on the card
 (``tests/test_torch_build_xla.py``, marked ``cuda``)."""
 
 import dataclasses
+import inspect
 import sys
 from fractions import Fraction
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -378,6 +382,118 @@ def test_shade_rows_equals_jax(n_attrs, dir_light, n_pts):
     np.testing.assert_array_equal(want[~hit.numpy()], 0.0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert (got[hit.numpy()] > 0).mean() > 0.5
+
+
+def _jax_shade(table, ids, px, py, js, n_attrs):
+    """The reference's shade of f32 winner ids as ``shade_groups`` gathers
+    them (the id truncated, a hit where id >= 0.0), ``_shade_rows`` under
+    jax.jit."""
+    e = ids.numpy()
+    idx = e.astype(np.int32)
+    g = table.numpy()[np.where(idx >= 0, idx, 0)]
+    return np.asarray(jax.jit(JRC._shade_rows, static_argnums=(5,))(
+        g.reshape(-1, g.shape[-1]), e >= 0.0, px.numpy(), py.numpy(), js,
+        n_attrs))
+
+
+@pytest.mark.parametrize("dir_light", [True, False], ids=["dl", "no_dl"])
+@pytest.mark.parametrize("n_pts", [0, 1, 2, 3])
+def test_shade_ref_equals_jax_for_each_light_count(n_pts, dir_light):
+    """The plain version (the gather, then ``_shade_rows``) against the
+    reference's gather and ``_shade_rows`` under jax.jit, for 0 to 3 point
+    lights with and without a directional light (without one, the
+    default light): no-hit pixels zero in both, colours within 1e-5 (the
+    reference's rsqrt is within an ulp of the correctly rounded one)."""
+    table, ids, px, py = shade_inputs(9, (4, 8, 16), seed=n_pts)
+    ts = shade_builder(TSB, dir_light, n_pts).build(device="cpu")
+    js = shade_builder(JSB, dir_light, n_pts).build()
+    assert int(ts.n_dl) == int(dir_light) and int(ts.n_pt) == n_pts
+    got = RSH.shade_ref(table, ids, px, py, ts, 9).numpy()
+    want = _jax_shade(table, ids, px, py, js, 9)
+    hit = ids.numpy() >= 0
+    np.testing.assert_array_equal(got[~hit], 0.0)
+    np.testing.assert_array_equal(want[~hit], 0.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (got[hit] > 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("case", ["negative_zero_id", "id_past_the_table"])
+def test_shade_edges_equal_jax(case):
+    """An f32 id of -0.0 is a hit on row 0 (the plain version against the
+    reference's gather and shade); an id past the table gives NaN rgb (the
+    kernel's answer, which is ``_shade_rows`` of a row of NaN in the port
+    and in the reference; the reference's gather would clamp such an id
+    instead, and no caller makes one)."""
+    table, ids, px, py = shade_inputs(9, (4, 8, 16), seed=5)
+    ts = shade_builder(TSB, True, 2).build(device="cpu")
+    js = shade_builder(JSB, True, 2).build()
+    flat = ids.view(-1)
+    if case == "negative_zero_id":
+        flat[::7] = -0.0
+        flat[3::7] = -0.5  # truncates to row 0, but is no hit
+        got = RSH.shade_ref(table, ids, px, py, ts, 9).numpy()
+        want = _jax_shade(table, ids, px, py, js, 9)
+        zero = (flat == 0) & torch.signbit(flat)
+        assert bool(zero.any())
+        assert (got.reshape(-1, 3)[zero.numpy()] > 0).any()
+        np.testing.assert_array_equal(got.reshape(-1, 3)[3::7], 0.0)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        return
+    past = np.zeros(flat.shape[0], bool)
+    past[::5] = True
+    idx = flat.long().clamp(min=0).numpy()
+    g = table.numpy()[idx]
+    g[past] = np.nan
+    hit = (flat >= 0).numpy() | past
+    px_, py_ = px.view(-1), py.view(-1)
+    got = RCM._shade_rows(torch.from_numpy(g), torch.from_numpy(hit), px_,
+                          py_, ts, 9).numpy()
+    want = np.asarray(jax.jit(JRC._shade_rows, static_argnums=(5,))(
+        g, hit, px_.numpy(), py_.numpy(), js, 9))
+    assert np.isnan(got[past]).all() and np.isnan(want[past]).all()
+    np.testing.assert_allclose(got[~past], want[~past], rtol=0, atol=1e-5)
+
+
+def _div_magic(d):
+    """csrc/raster_shade.cu's make_div: (magic, shift) of a divisor."""
+    s = 0
+    while (1 << s) < d:
+        s += 1
+    return (((1 << 32) * ((1 << s) - d)) // d + 1) & 0xFFFFFFFF, s
+
+
+def test_shade_grid_division_is_exact():
+    """The kernel's pixel-grid indices come from (umulhi(n, magic) + n) >>
+    shift in 32-bit arithmetic: equal to n // d for every divisor and
+    every n < 2^31 tried (the grids' own sizes, powers of two, random
+    divisors; n at 0, d - 1, d, random and 2^31 - 1)."""
+    rng = np.random.default_rng(7)
+    ds = [1, 2, 3, 7, 8, 16, 36, 96, 128, 540, 960, 1024, 2 ** 30,
+          2 ** 31 - 1, *rng.integers(1, 2 ** 31, 200).tolist()]
+    for d in ds:
+        magic, shift = _div_magic(d)
+        n = np.r_[0, d - 1, d, 2 ** 31 - 1, rng.integers(0, 2 ** 31, 2000),
+                  rng.integers(0, min(4 * d, 2 ** 31), 2000)].astype(
+                      np.uint64)
+        hi = (n * np.uint64(magic)) >> np.uint64(32)
+        q = ((hi + n) & np.uint64(0xFFFFFFFF)) >> np.uint64(shift)
+        np.testing.assert_array_equal(q, n // np.uint64(d), err_msg=str(d))
+
+
+def test_shade_forms():
+    """The kernel ships in one form, blocks of 128 threads (the source's
+    RS_THREADS, which tools/build_variants overrides for its variants),
+    and the wrapper takes no form; it refuses a table of no rows before
+    any build."""
+    src = (Path(RSH.__file__).parent / "csrc" / "raster_shade.cu").read_text()
+    assert "#define RS_THREADS 128" in src
+    assert list(inspect.signature(RSH.shade).parameters) == [
+        "table", "ids", "px", "py", "scene", "n_attrs"]
+    meta = torch.device("meta")
+    scene = shade_builder(TSB, True, 3).build(device="cpu")
+    table, ids, px, py = (t.to(meta) for t in shade_inputs(9, (2, 8, 16)))
+    with pytest.raises(ValueError, match="holds no 9-attribute"):
+        RSH.shade(table[:0], ids, px, py, scene, 9)
 
 
 def _capture_shade(monkeypatch):
