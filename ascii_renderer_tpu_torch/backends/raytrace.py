@@ -18,20 +18,23 @@ Semantics reproduced exactly:
 Rounding follows the reference's jitted program (``RaytraceBackend``
 renders under ``jax.jit``): the helpers of ``backends/rt_core`` fuse
 products where XLA's CPU code does, and the primary grid is the jitted one
-(``ops/ray_grid.ray_grid_jit``: the CUDA kernel on the card). Divisions
-are tensor by tensor and roots go through ``core/fp.sqrt32``.
+(``core/camera.ndc_grid_jit`` and ``ray_dirs_jit``). Divisions are tensor
+by tensor and roots go through ``core/fp.sqrt32``.
 
 Every function takes a batch of V views: a ray channel is [V, R] (R rays
 a view), a camera origin [V, 1]. ``render_rgb`` renders one camera or a
 batch of cameras (``parallel.mesh.batch_cameras``) in one call.
 
-After the grid, one CUDA kernel traces every ray of every view on the
-card (``ops/rt_trace``); ``trace_rgb`` is its plain version.
+On the card one CUDA kernel computes every primary ray of every view from
+the views' bases and traces it (``ops/rt_trace``'s grid form): a frame,
+a band or a farm is one launch. ``trace_rgb`` over the plain grid is its
+plain version, the CPU's route.
 
-Profiler ranges: ``rt.grid`` (the primary directions), ``rt.trace`` (the
-kernel: hits, shading and the bounce in one launch); on the CPU
-``rt.hit`` (the primary nearest hit), ``rt.shade`` (direct light and
-shadow rays, both hits), ``rt.bounce`` (the mirror ray's nearest hit).
+Profiler ranges: ``rt.grid`` (the host's camera bases; on the CPU the
+primary directions too), ``rt.trace`` (the kernel: rays, hits, shading
+and the bounce in one launch); on the CPU ``rt.hit`` (the primary
+nearest hit), ``rt.shade`` (direct light and shadow rays, both hits),
+``rt.bounce`` (the mirror ray's nearest hit).
 """
 
 from __future__ import annotations
@@ -41,11 +44,11 @@ from torch.profiler import record_function
 
 from ascii_renderer_tpu_torch.backends import rt_core as RC
 from ascii_renderer_tpu_torch.backends.pt_core import BIG, V3
-from ascii_renderer_tpu_torch.core.camera import Camera, band_of, camera_bases
+from ascii_renderer_tpu_torch.core.camera import (Camera, band_of,
+                                                  camera_bases)
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.ops import rt_trace
-from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid_jit
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
 EPS = 1e-4
@@ -214,20 +217,32 @@ def render_rgb(scene: SceneData, camera: Camera, rows: int, cols: int,
     [row_lo, row_lo + n_rows) of the global grid ([n_rows, cols, 3], the
     hook of ``parallel.mesh.render_rows_sharded``): the shading is per
     pixel, so a band equals those rows of the full frame bit for bit.
-    After the grid, ``trace``: one kernel launch on a CUDA device,
-    ``trace_rgb`` on the CPU."""
+    On the CPU the plain grid, then ``trace_rgb``; on any other device
+    one launch of ``ops/rt_trace``'s kernel in its grid form, which
+    raises where it cannot run."""
     dev = scene.sph_pos.device
     pr = prims or ScenePrims(scene)
     pos_c, yaw, pitch, fov = _camera_batch(camera)
     rows_out = band_of(rows, row_lo, n_rows)
     V, R = pos_c.shape[0], rows_out * cols
     with record_function("rt.grid"):
-        rd3 = ray_grid_jit(camera_bases(yaw, pitch, fov), rows, cols,
-                           pixel_aspect, dev, row_lo,
-                           rows_out).reshape(V, R, 3)
-        pos_d = pos_c.to(device=dev, dtype=torch.float32)
-    rgb = trace(scene, pr, pos_d, rd3).reshape(V, rows_out, cols, 3)
+        grid = rt_trace.Grid(camera_bases(yaw, pitch, fov), rows, cols,
+                             pixel_aspect, row_lo, rows_out)
+        rd3 = rt_trace.grid_rays(grid, dev) if dev.type == "cpu" else None
+    if rd3 is None:
+        rgb = rt_trace.trace(scene, pr, pos_c, None, _fuse(pr, V, R),
+                             grid=grid)
+    else:
+        rgb = trace_rgb(scene, pr, pos_c.to(dev, torch.float32), rd3)
+    rgb = rgb.reshape(V, rows_out, cols, 3)
     return rgb if camera.yaw.dim() else rgb[0]
+
+
+def _fuse(pr: ScenePrims, V: int, R: int):
+    """The kernel's sphere decisions (primary, other rays) for V views of
+    R rays: one origin a view, then one a ray."""
+    return (RC.sphere_c_fused((V, 1, 1), pr.n_sph),
+            RC.sphere_c_fused((V, 1, R), pr.n_sph))
 
 
 def trace(scene: SceneData, pr: ScenePrims, cam: torch.Tensor,
@@ -239,10 +254,8 @@ def trace(scene: SceneData, pr: ScenePrims, cam: torch.Tensor,
     where it cannot run."""
     if rd3.device.type == "cpu":
         return trace_rgb(scene, pr, cam, rd3)
-    V, R = rd3.shape[0], rd3.shape[1]
     return rt_trace.trace(scene, pr, cam, rd3,
-                          (RC.sphere_c_fused((V, 1, 1), pr.n_sph),
-                           RC.sphere_c_fused((V, 1, R), pr.n_sph)))
+                          _fuse(pr, rd3.shape[0], rd3.shape[1]))
 
 
 def trace_rgb(scene: SceneData, pr: ScenePrims, cam: torch.Tensor,

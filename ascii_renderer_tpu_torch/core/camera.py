@@ -157,7 +157,7 @@ def camera_bases(yaw, pitch, fov_y):
     (``_norm3``, ``_cross``); cos, sin and tan through Python's libm, one
     call a view (``core/fp.libm32``'s rounding)."""
     def trig(fn, x):
-        return torch.tensor([fn(float(v)) for v in x.reshape(-1)],
+        return torch.tensor([fn(v) for v in x.reshape(-1).tolist()],
                             dtype=torch.float32)
 
     cp, sp = trig(math.cos, pitch), trig(math.sin, pitch)
@@ -221,6 +221,14 @@ def ndc_grid(rows: int, cols: int, pixel_aspect: float, device,
     return px, py, aspect
 
 
+def jit_grid_consts(rows: int, cols: int, pixel_aspect: float):
+    """(sx, sy, aspect) of the jitted grid: 2 / cols, 2 / rows and
+    (cols / rows) * pixel_aspect, each a float32 value (as Python floats),
+    as ``ndc_grid_jit`` and the kernels that compute its rays take them."""
+    return (float(np.float32(2.0 / cols)), float(np.float32(2.0 / rows)),
+            float(np.float32(cols / rows) * np.float32(pixel_aspect)))
+
+
 def ndc_grid_jit(rows: int, cols: int, pixel_aspect: float, device,
                  row_lo: int = 0, n_rows: int | None = None):
     """ndc_grid as the reference's jitted program rounds it: XLA turns
@@ -229,11 +237,11 @@ def ndc_grid_jit(rows: int, cols: int, pixel_aspect: float, device,
     Returns (px, py) f32 [band, cols] on ``device``, the row band
     [row_lo, row_lo + n_rows) of the full grid (all rows by default)."""
     band = band_of(rows, row_lo, n_rows)
-    aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
+    sx, sy, aspect = jit_grid_consts(rows, cols, pixel_aspect)
     x = torch.arange(cols, dtype=torch.float32, device=device) + 0.5
     y = _band_rows(rows, row_lo, band, device) + 0.5
-    px = fma32(x, float(np.float32(2.0 / cols)), -1.0) * aspect
-    py = fma32(y, float(np.float32(2.0 / rows)), -1.0)
+    px = fma32(x, sx, -1.0) * aspect
+    py = fma32(y, sy, -1.0)
     return px.expand(band, cols), py[:, None].expand(band, cols)
 
 

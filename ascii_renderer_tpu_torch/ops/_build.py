@@ -82,14 +82,16 @@ SIGNATURES = {
     #  n_pt, pt_pos, pt_col, n_pl, out, n, stream)
     "raster_shade_launch": (_P, _LL, _I, _I, _P, _I, _P, _P, _LLP, _I, _P,
                             _P, _P, _P, _P, _P, _P, _P, _I, _P, _LL, _P),
-    # (cam, rd3, out, views, rays, sph_pos, sph_rad, sph_valid, sph_mat,
+    # (cam, rd3, grid_views, grid_one12_host, rows, cols, row_lo, sx, sy,
+    #  aspect, out, views, rays, sph_pos, sph_rad, sph_valid, sph_mat,
     #  n_sph, pln_n, pln_d, pln_valid, pln_mat, n_pln, tri_a, tri_e1,
     #  tri_e2, tri_valid, tri_mat, n_tri, mat_albedo, mat_reflective,
     #  dl_dir, dl_col, n_dl, pt_pos, pt_col, n_pt, pair, env_color,
     #  env_intensity, fuse_p, fuse_s, lanes, stage, stream)
-    "rt_trace_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                        _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                        _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P),
+    "rt_trace_launch": (_P, _P, _P, _FP, _I, _I, _I, _F, _F, _F, _P, _I, _I,
+                        _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                        _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P,
+                        _P, _I, _I, _I, _I, _P),
     # (n_rays): the lanes a ray a launch of n_rays takes by its own choice
     "rt_trace_lanes": (_LL,),
     # (lanes, n_sph, n_pln, n_tri): whether a launch of that many lanes a

@@ -15,13 +15,19 @@
 // The same source holds the ray tracer's grid (ray_grid_jit_kernel, the
 // template flag kJit of direction()): the reference renders the ray tracer
 // under jax.jit, whose grid fuses the cell centres and px*uu + py*vv;
-// one launch covers every view of a batch (the 1,024-view farm).
+// one launch covers every view of a batch (the 1,024-view farm). No
+// render path launches it: the ray tracer's frame (rt_trace.cu) computes
+// the same rays itself in its grid form. It stays as the source of device
+// rays for that kernel's rd3 form in the tools and tests.
 //
 // What bounds it on the H100: memory, 8 bytes in and 12 out a ray (the
 // jitted grid: 12 out). Built with -fmad=false, so only the explicit fmaf
 // calls fuse; sqrtf and the division are IEEE (nvcc's -prec-sqrt /
-// -prec-div defaults).
+// -prec-div defaults). The arithmetic is ray_dir.cuh's, which the ray
+// tracer's frame (rt_trace.cu) shares.
 #include <cuda_runtime.h>
+
+#include "ray_dir.cuh"
 
 namespace {
 
@@ -31,22 +37,7 @@ struct Basis {
   float u[3], v[3], fw[3];  // uu, vv and focal * ww
 };
 
-// normalize(x * u + y * v + fw) into o[0..2]. kJit: the reference's jitted
-// rounding, fma(x, u, y * v) + fw (the left product fused, fw added
-// apart); else its eager one, every product and add rounded alone. The
-// norm's sum of squares is fused either way.
-template <bool kJit>
-__device__ __forceinline__ void direction(float x, float y, const float* u,
-                                          const float* v, const float* fw,
-                                          float* __restrict__ o) {
-  float d[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    d[k] = kJit ? fmaf(x, u[k], y * v[k]) + fw[k] : x * u[k] + y * v[k] + fw[k];
-  const float len = sqrtf(fmaf(d[2], d[2], fmaf(d[1], d[1], d[0] * d[0])));
-#pragma unroll
-  for (int k = 0; k < 3; ++k) o[k] = d[k] / len;
-}
+using ray_dir::direction;
 
 __global__ void __launch_bounds__(kThreads)
 ray_grid_kernel(const float* __restrict__ px, const float* __restrict__ py,
@@ -76,8 +67,8 @@ ray_grid_jit_kernel(const float* __restrict__ bases, float* __restrict__ out,
   const int view = blockIdx.y;
   const float* b = bases + 9 * view;
   const int r = i / cols, col = i - r * cols;
-  const float x = fmaf((float)col + 0.5f, sx, -1.0f) * aspect;
-  const float y = fmaf((float)(rows - 1 - (row_lo + r)) + 0.5f, sy, -1.0f);
+  float x, y;
+  ray_dir::jit_centre(rows, row_lo + r, col, sx, sy, aspect, x, y);
   direction<true>(x, y, b, b + 3, b + 6, out + ((size_t)view * n + i) * 3);
 }
 

@@ -1,9 +1,11 @@
-// The ray tracer's frame after its primary grid, every view of a batch in
-// one launch: the nearest hit over spheres, planes and triangles (quads
-// split), the hit's normal and material, direct light with hard shadows,
-// one mirror bounce and its shade, the environment where a ray misses,
-// the clamp. backends/raytrace.trace_rgb is the plain version
-// (closest_hit, occluded, shade_diffuse); it rounds as the reference's
+// The ray tracer's frame, every view of a batch in one launch: its primary
+// rays (read from rd3, or computed from the jitted grid: the grid form),
+// the nearest hit over spheres, planes and triangles (quads split), the
+// hit's normal and material, direct light with hard shadows, one mirror
+// bounce and its shade, the environment where a ray misses, the clamp.
+// backends/raytrace.trace_rgb is the plain version (closest_hit,
+// occluded, shade_diffuse; of the plain grid in the grid form, whose rays
+// are ops/rt_trace.grid_rays); it rounds as the reference's
 // jitted program, the products fused by backends/rt_core's rules, and
 // this kernel rounds each chain the same way with fmaf:
 //   dot     (ax*bx + ay*by) + az*bz  -> fma(az, bz, fma(ax, bx, ay*by))
@@ -33,10 +35,11 @@
 // primitive (a sphere ~27 float operations, a plane ~17, a triangle ~60,
 // a fused product-add counted as two: chip_smoke.RT_OPS_*) for its primary
 // ray, its shadow rays (spheres and triangles) and, on a mirror, its
-// bounce; bytes are 12 in and 12 out a ray. Padding slots are no work of
-// the function: an invalid slot's t is kBig, never NaN, so it wins the
-// nearest hit only where nothing is hit (and then the hit's normal and
-// material are not read), and it occludes only where tmax > kBig.
+// bounce; bytes are 12 out a ray, and 12 in where rd3 holds the rays.
+// Padding slots are no work of the function: an invalid slot's t is kBig,
+// never NaN, so it wins the nearest hit only where nothing is hit (and
+// then the hit's normal and material are not read), and it occludes only
+// where tmax > kBig.
 //
 // The design: a 96x36 frame is 3,456 rays, 27 blocks of 128 threads at
 // one thread a ray, and a padded scene's slots are mostly padding (the
@@ -57,6 +60,15 @@
 //   any-hit. Everything else (the hit's shading, the light sum in slot
 //   order, the bounce) every lane computes alike, so the tile's control
 //   flow stays uniform; lane 0 stores the colour.
+// - The grid form (rd3 null): each tile computes its ray's direction from
+//   its view's 12 floats (origin, uu, vv, focal * ww) and its (row, col),
+//   with the jitted grid's rounding (ray_dir.cuh, shared with
+//   ray_grid.cu's ray_grid_jit_kernel), ~22 operations a ray. The render
+//   path's rays then make no round trip through device memory (12 bytes
+//   written by a grid launch and read back here), and a frame is one
+//   launch. One view's floats come as launch arguments, a batch's as one
+//   device array. A runtime branch, not a template flag: every lane of a
+//   tile takes it alike.
 // The launch's own form, from timed variants of every form at the driven
 // paths' five launch sizes (tools/rt_variants.py; PERF.md): L from the
 // ray count, so that a small frame fills the card (all 32 lanes at 256 to
@@ -68,6 +80,8 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+
+#include "ray_dir.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -115,6 +129,20 @@ struct Scene {
   int n_dl, n_pt;              // the set lights (the first n_dl, n_pt slots)
   int pair;  // the first two set light slots are 0 and 1 (their terms meet
              // in one add, the left product fused)
+};
+
+// The primary rays: read from rd3 (with their views' origins cam), or,
+// where rd3 is null, computed from the jitted grid of the row band
+// [row_lo, row_lo + rays / cols) of a rows x cols grid, each view's 12
+// floats (origin, uu, vv, focal * ww) read from views ([V, 12] on the
+// device) or, for one view, taken from one (a launch argument).
+struct Rays {
+  const float* cam;  // [V, 3]
+  const float* rd3;  // [V, R, 3]
+  const float* views;
+  float one[12];
+  int rows, cols, row_lo;
+  float sx, sy, aspect;  // float32 2 / cols, 2 / rows, the aspect
 };
 
 // The block's staged scene: each kind's valid slots in slot order (rows
@@ -465,16 +493,40 @@ __host__ __device__ inline size_t stage_bytes(int ns, int np, int nt) {
   return 16 * (size_t)(ns + np + 3 * nt) + 4 * (size_t)(ns + np + nt);
 }
 
+// Ray i's origin and direction (i = view * rays + its ray in the view)
+__device__ __forceinline__ void primary_ray(const Rays& p, int rays,
+                                           unsigned i, V& ro, V& rd) {
+  const int view = i / (unsigned)rays;
+  if (p.rd3 != nullptr) {
+    ro = ld3(p.cam, view);
+    rd = ld3(p.rd3, i);
+    return;
+  }
+  float b[12];
+  if (p.views != nullptr) {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) b[k] = p.views[12 * view + k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 12; ++k) b[k] = p.one[k];
+  }
+  const int j = (int)(i - (unsigned)view * rays);
+  const int r = j / p.cols, col = j - r * p.cols;
+  float x, y, d[3];
+  ray_dir::jit_centre(p.rows, p.row_lo + r, col, p.sx, p.sy, p.aspect, x, y);
+  ray_dir::direction<true>(x, y, b + 3, b + 6, b + 9, d);
+  ro = {b[0], b[1], b[2]};
+  rd = {d[0], d[1], d[2]};
+}
+
 // One ray's colour, every lane of its tile alike; lane 0 stores it.
 template <bool kFuseP, bool kFuseS, int L, bool kStage>
-__device__ void trace_ray(const Prims<kStage>& P, const float* cam,
-                          const float* rd3, float* out, int rays,
-                          unsigned i, const Scene& s) {
+__device__ void trace_ray(const Prims<kStage>& P, const Rays& p, float* out,
+                          int rays, unsigned i, const Scene& s) {
   const cg::thread_block_tile<L> g =
       cg::tiled_partition<L>(cg::this_thread_block());
-  const int view = i / (unsigned)rays;
-  const V ro = ld3(cam, view);
-  const V rd = ld3(rd3, i);
+  V ro, rd;
+  primary_ray(p, rays, i, ro, rd);
   const float inten = *s.env_intensity;
   const V env_raw = {s.env_color[0] * inten, s.env_color[1] * inten,
                      s.env_color[2] * inten};
@@ -508,8 +560,8 @@ __device__ void trace_ray(const Prims<kStage>& P, const float* cam,
 // memory
 template <bool kFuseP, bool kFuseS, int L, bool kStage>
 __global__ void __launch_bounds__(kThreads)
-rt_trace_kernel(const float* __restrict__ cam, const float* __restrict__ rd3,
-                float* __restrict__ out, int rays, unsigned n, Scene s) {
+rt_trace_kernel(const Rays p, float* __restrict__ out, int rays, unsigned n,
+                Scene s) {
   extern __shared__ float4 smem[];
   __shared__ int warp_tot[kWarps];
   Staged st{};
@@ -551,55 +603,50 @@ rt_trace_kernel(const float* __restrict__ cam, const float* __restrict__ rd3,
   const unsigned i = (blockIdx.x * kThreads + threadIdx.x) / L;
   if (i >= n) return;  // the tile's lanes leave together
   if constexpr (kStage)
-    trace_ray<kFuseP, kFuseS, L, true>(Prims<true>{st}, cam, rd3, out, rays,
-                                       i, s);
+    trace_ray<kFuseP, kFuseS, L, true>(Prims<true>{st}, p, out, rays, i, s);
   else
-    trace_ray<kFuseP, kFuseS, L, false>(Prims<false>{s}, cam, rd3, out, rays,
-                                        i, s);
+    trace_ray<kFuseP, kFuseS, L, false>(Prims<false>{s}, p, out, rays, i, s);
 }
 
 template <bool kFuseP, bool kFuseS, int L, bool kStage>
-int launch(const float* cam, const float* rd3, float* out, int rays,
-           unsigned n, const Scene& s, cudaStream_t stream) {
+int launch(const Rays& p, float* out, int rays, unsigned n, const Scene& s,
+           cudaStream_t stream) {
   const size_t smem = kStage ? stage_bytes(s.n_sph, s.n_pln, s.n_tri) : 0;
   const unsigned long long threads = (unsigned long long)n * L;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   rt_trace_kernel<kFuseP, kFuseS, L, kStage>
-      <<<blocks, kThreads, smem, stream>>>(cam, rd3, out, rays, n, s);
+      <<<blocks, kThreads, smem, stream>>>(p, out, rays, n, s);
   return (int)cudaGetLastError();
 }
 
 template <bool kFuseP, bool kFuseS, bool kStage>
-int launch_lanes(int lanes, const float* cam, const float* rd3, float* out,
-                 int rays, unsigned n, const Scene& s, cudaStream_t st) {
+int launch_lanes(int lanes, const Rays& p, float* out, int rays, unsigned n,
+                 const Scene& s, cudaStream_t st) {
   switch (lanes) {
     case 1:
-      return launch<kFuseP, kFuseS, 1, kStage>(cam, rd3, out, rays, n, s, st);
+      return launch<kFuseP, kFuseS, 1, kStage>(p, out, rays, n, s, st);
     case 2:
-      return launch<kFuseP, kFuseS, 2, kStage>(cam, rd3, out, rays, n, s, st);
+      return launch<kFuseP, kFuseS, 2, kStage>(p, out, rays, n, s, st);
     case 4:
-      return launch<kFuseP, kFuseS, 4, kStage>(cam, rd3, out, rays, n, s, st);
+      return launch<kFuseP, kFuseS, 4, kStage>(p, out, rays, n, s, st);
     case 8:
-      return launch<kFuseP, kFuseS, 8, kStage>(cam, rd3, out, rays, n, s, st);
+      return launch<kFuseP, kFuseS, 8, kStage>(p, out, rays, n, s, st);
     case 16:
-      return launch<kFuseP, kFuseS, 16, kStage>(cam, rd3, out, rays, n, s,
-                                                st);
+      return launch<kFuseP, kFuseS, 16, kStage>(p, out, rays, n, s, st);
     case 32:
-      return launch<kFuseP, kFuseS, 32, kStage>(cam, rd3, out, rays, n, s,
-                                                st);
+      return launch<kFuseP, kFuseS, 32, kStage>(p, out, rays, n, s, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 template <bool kFuseP, bool kFuseS>
-int launch_form(int lanes, bool staged, const float* cam, const float* rd3,
-                float* out, int rays, unsigned n, const Scene& s,
-                cudaStream_t st) {
-  return staged ? launch_lanes<kFuseP, kFuseS, true>(lanes, cam, rd3, out,
-                                                     rays, n, s, st)
-                : launch_lanes<kFuseP, kFuseS, false>(lanes, cam, rd3, out,
-                                                      rays, n, s, st);
+int launch_form(int lanes, bool staged, const Rays& p, float* out, int rays,
+                unsigned n, const Scene& s, cudaStream_t st) {
+  return staged ? launch_lanes<kFuseP, kFuseS, true>(lanes, p, out, rays, n,
+                                                     s, st)
+                : launch_lanes<kFuseP, kFuseS, false>(lanes, p, out, rays, n,
+                                                      s, st);
 }
 
 // Whether a scene of these slot counts fits the staging budget.
@@ -626,7 +673,12 @@ extern "C" int rt_trace_staged(int lanes, int n_sph, int n_pln, int n_tri) {
 }
 
 // cam: device floats [views, 3] (the views' origins); rd3: device floats
-// [views, rays, 3] (the primary directions); out: device floats
+// [views, rays, 3] (the primary directions), or null for the grid form:
+// grid_views device floats [views, 12] (a view's origin, uu, vv and
+// focal * ww), or null for one view whose 12 floats grid_one holds (host
+// memory, passed by value); the rays are the row band [row_lo, row_lo +
+// rays / cols) of the rows x cols grid, sx = 2 / cols, sy = 2 / rows and
+// aspect float32 as the host rounds them; out: device floats
 // [views, rays, 3]; scene: device pointers, slot counts and the set
 // lights; fuse_p / fuse_s: the sphere decision of primary / bounce and
 // shadow rays (ops/rt_trace.FUSE); lanes: the lanes a ray (1, 2, 4, 8,
@@ -634,7 +686,9 @@ extern "C" int rt_trace_staged(int lanes, int n_sph, int n_pln, int n_tri) {
 // memory, 2 reads them from the global arrays, 0 lets rt_trace_staged
 // choose.
 extern "C" int rt_trace_launch(
-    const float* cam, const float* rd3, float* out, int views, int rays,
+    const float* cam, const float* rd3, const float* grid_views,
+    const float* grid_one, int rows, int cols, int row_lo, float sx,
+    float sy, float aspect, float* out, int views, int rays,
     const float* sph_pos, const float* sph_rad, const bool* sph_valid,
     const int* sph_mat, int n_sph, const float* pln_n, const float* pln_d,
     const bool* pln_valid, const int* pln_mat, int n_pln, const float* tri_a,
@@ -649,6 +703,15 @@ extern "C" int rt_trace_launch(
       n_tri < 1 || n_dl < 0 || n_pt < 0 || lanes < 0 || stage < 0 ||
       stage > 2)
     return (int)cudaErrorInvalidValue;
+  Rays p{cam, rd3, grid_views, {}, rows, cols, row_lo, sx, sy, aspect};
+  if (rd3 == nullptr) {  // the grid form
+    if (rows < 1 || cols < 1 || row_lo < 0 || rays % cols != 0 ||
+        row_lo + rays / cols > rows ||
+        (grid_views == nullptr && (views != 1 || grid_one == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    if (grid_views == nullptr)
+      for (int k = 0; k < 12; ++k) p.one[k] = grid_one[k];
+  }
   if (n == 0) return 0;
   if (stage == 1 && !stage_fits(n_sph, n_pln, n_tri))
     return (int)cudaErrorInvalidValue;
@@ -663,14 +726,10 @@ extern "C" int rt_trace_launch(
   const cudaStream_t st = (cudaStream_t)stream;
   const unsigned un = (unsigned)n;
   if (fuse_p && !fuse_s)
-    return launch_form<true, false>(lanes, staged, cam, rd3, out, rays, un, s,
-                                    st);
+    return launch_form<true, false>(lanes, staged, p, out, rays, un, s, st);
   if (fuse_p && fuse_s)
-    return launch_form<true, true>(lanes, staged, cam, rd3, out, rays, un, s,
-                                   st);
+    return launch_form<true, true>(lanes, staged, p, out, rays, un, s, st);
   if (!fuse_p && !fuse_s)
-    return launch_form<false, false>(lanes, staged, cam, rd3, out, rays, un,
-                                     s, st);
-  return launch_form<false, true>(lanes, staged, cam, rd3, out, rays, un, s,
-                                  st);
+    return launch_form<false, false>(lanes, staged, p, out, rays, un, s, st);
+  return launch_form<false, true>(lanes, staged, p, out, rays, un, s, st);
 }

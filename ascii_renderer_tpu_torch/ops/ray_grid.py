@@ -2,7 +2,11 @@
 their plain versions, ``core/camera.ray_dirs`` (the path tracer's grid,
 rounded as the reference's eager call) and ``core/camera.ray_dirs_jit``
 over ``ndc_grid_jit`` (the ray tracer's grid, rounded as its jitted
-program, for a batch of views in one launch).
+program, for a batch of views in one launch). No render path launches the
+jitted grid: the ray tracer's frame kernel (``ops/rt_trace``, its grid
+form) computes the same rays itself, through the same device code
+(``csrc/ray_dir.cuh``); ``ray_grid_jit`` stays as the source of device
+rays for that kernel's ``rd3`` form in the tools and tests.
 
 Stands for XLA code of the reference, not a Pallas kernel: the ray grid of
 ``ascii_renderer_tpu/backends/pathtrace.py`` (``primary_ray_grid``,
@@ -20,10 +24,9 @@ import ctypes
 
 import torch
 
-import numpy as np
-
-from ascii_renderer_tpu_torch.core.camera import (band_of, ndc_grid_jit,
-                                                  ray_dirs, ray_dirs_jit)
+from ascii_renderer_tpu_torch.core.camera import (band_of, jit_grid_consts,
+                                                  ndc_grid_jit, ray_dirs,
+                                                  ray_dirs_jit)
 from ascii_renderer_tpu_torch.ops import _build
 
 launches = 0       # kernel launches by ray_grid
@@ -84,11 +87,10 @@ def ray_grid_jit(bases, rows: int, cols: int, pixel_aspect: float,
     if views * band * cols * 3 >= 2 ** 31:
         raise ValueError(f"ray_grid_jit: {views} views of {band} x {cols}, "
                          "at most 2^31 - 1 outputs")
-    aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
     err = _build.lib().ray_grid_jit_launch(
         dev_bases.data_ptr(), out.data_ptr(), rows, cols, row_lo, band,
-        views, float(np.float32(2.0 / cols)), float(np.float32(2.0 / rows)),
-        aspect, _build.stream_ptr(device))
+        views, *jit_grid_consts(rows, cols, pixel_aspect),
+        _build.stream_ptr(device))
     jit_launches += 1
     _build.check(err, "ray_grid_jit_launch")
     return out

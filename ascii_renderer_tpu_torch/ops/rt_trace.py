@@ -1,5 +1,12 @@
-"""The ray tracer's frame after its primary grid: the CUDA kernel of
-``csrc/rt_trace.cu``, every view of a batch in one launch. A tile of L
+"""The ray tracer's frame: the CUDA kernel of ``csrc/rt_trace.cu``, every
+view of a batch in one launch. It reads its primary rays from ``rd3``, or,
+in its grid form (``trace(..., grid=Grid(...))``, the render path's),
+computes them itself from each view's camera basis with the jitted grid's
+rounding (``csrc/ray_dir.cuh``, which ``csrc/ray_grid.cu``'s jitted grid
+shares), so that a frame, a band or a farm is one launch and its rays
+make no round trip through device memory; ``grid_rays`` is the plain
+version of those rays (``core/camera.ndc_grid_jit`` and
+``ray_dirs_jit``). A tile of L
 lanes (1-32) shares a ray and splits its loops over the scene's valid
 slots, which each block either stages in shared memory (compacted in slot
 order) or reads from the global arrays in the same order. The launch
@@ -7,7 +14,8 @@ picks its own form from timed variants (``tools/rt_variants.py``): L from
 the ray count, so that a 96x36 frame fills the card (32 lanes) and the
 farm keeps one thread a ray, and staged slots only below 4 lanes. Its
 bound is the operations the valid slots need (``chip_smoke._rt_ops``).
-Its plain version is ``backends/raytrace.trace_rgb``
+Its plain version is ``backends/raytrace.trace_rgb`` (of ``grid_rays``
+in the grid form)
 (``closest_hit``, ``occluded``, ``shade_diffuse`` and the mirror bounce,
 rounded as the reference's jitted program by ``backends/rt_core``), and
 ``backends/raytrace.trace`` picks between the two by the rays' device.
@@ -36,9 +44,14 @@ offset origins, the lights' dots and attenuation) fuses in every case.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 from torch.profiler import record_function
 
+from ascii_renderer_tpu_torch.core.camera import (band_of, jit_grid_consts,
+                                                  ndc_grid_jit, ray_dirs_jit)
 from ascii_renderer_tpu_torch.ops import _build
 
 launches = 0  # kernel launches by trace
@@ -86,23 +99,81 @@ def launch_form(n_rays: int, pr) -> tuple[int, bool]:
                                            pr.n_tri))
 
 
-def trace(scene, pr, cam, rd3, sphere_c, *, lanes: int = 0,
-          stage: str = "auto") -> torch.Tensor:
+class Grid(NamedTuple):
+    """The primary rays of ``trace``'s grid form: the row band [row_lo,
+    row_lo + band) of the rows x cols cell grid of every view, rounded as
+    the reference's jitted grid; ``bases`` is ``core/camera.camera_bases``'
+    tuple (uu, vv, ww f32 [V, 3], focal f32 [V]) on the host."""
+    bases: tuple
+    rows: int
+    cols: int
+    pixel_aspect: float
+    row_lo: int
+    band: int
+
+
+def grid_rays(grid: Grid, device) -> torch.Tensor:
+    """The plain version of the grid form's rays: f32 [V, band * cols, 3]
+    on ``device`` (``ndc_grid_jit`` and ``ray_dirs_jit``), bit for bit the
+    directions the kernel computes."""
+    px, py = ndc_grid_jit(grid.rows, grid.cols, grid.pixel_aspect, device,
+                          grid.row_lo, grid.band)
+    rd = ray_dirs_jit(px, py, tuple(b.to(device, torch.float32)
+                                    for b in grid.bases))
+    return rd.reshape(rd.shape[0], grid.band * grid.cols, 3)
+
+
+def _grid_views(grid: Grid, cam) -> torch.Tensor:
+    """Each view's 12 floats of the grid form, f32 [V, 12] on the host:
+    its origin, uu, vv and focal * ww (rounded here, as the plain grid
+    rounds it)."""
+    if grid.rows < 1 or grid.cols < 1:
+        raise ValueError(f"trace: a {grid.rows} x {grid.cols} grid")
+    band_of(grid.rows, grid.row_lo, grid.band)
+    uu, vv, ww, focal = (b.to("cpu", torch.float32) for b in grid.bases)
+    V = uu.shape[0]
+    if tuple(cam.shape) != (V, 3):
+        raise ValueError(f"trace: expected cam [V, 3] for the grid's {V} "
+                         f"views, got {tuple(cam.shape)}")
+    return torch.cat([cam.to("cpu", torch.float32), uu, vv,
+                      focal[:, None] * ww], dim=1)
+
+
+def trace(scene, pr, cam, rd3, sphere_c, *, grid: Grid | None = None,
+          lanes: int = 0, stage: str = "auto") -> torch.Tensor:
     """Linear RGB f32 [V, R, 3] in [0, 1] of R primary rays a view, one
     launch for every view: ``cam`` f32 [V, 3] the views' origins, ``rd3``
-    f32 [V, R, 3] their directions, ``pr`` the scene's
-    ``raytrace.ScenePrims``, ``sphere_c`` (primary, other rays) whether
-    the sphere's c fuses. ``lanes`` (one of LANES; 0: the launch's own
-    choice) and ``stage`` ("staged", "global"; "auto": the launch's own
-    choice) force a form of the kernel, for its tests and timings; every
-    form gives the same bits. CUDA tensors only: the CPU's route is
-    ``raytrace.trace``."""
+    f32 [V, R, 3] their directions, or None with ``grid`` (the grid form:
+    the kernel computes the rays of ``grid`` itself, R = band * cols;
+    ``cam`` may lie on the host, and the views' origins and bases reach
+    the card as launch arguments for one view, in one copy for a batch),
+    ``pr`` the scene's ``raytrace.ScenePrims``, ``sphere_c`` (primary,
+    other rays) whether the sphere's c fuses. ``lanes`` (one of LANES; 0:
+    the launch's own choice) and ``stage`` ("staged", "global"; "auto":
+    the launch's own choice) force a form of the kernel, for its tests and
+    timings; every form gives the same bits. CUDA tensors only: the CPU's
+    route is ``raytrace.trace`` (``raytrace.render_rgb``'s for a grid)."""
     global launches
-    V, R = rd3.shape[0], rd3.shape[1]
-    if tuple(rd3.shape) != (V, R, 3) or tuple(cam.shape) != (V, 3):
-        raise ValueError(f"trace: expected cam [V, 3] and rd3 [V, R, 3], "
-                         f"got {tuple(cam.shape)} and {tuple(rd3.shape)}")
-    floats = (cam, rd3, scene.sph_pos, scene.sph_rad, scene.pln_n,
+    if (rd3 is None) == (grid is None):
+        raise ValueError("trace: give one of the rays (rd3) and their "
+                         "grid")
+    if grid is None:
+        V, R = rd3.shape[0], rd3.shape[1]
+        if tuple(rd3.shape) != (V, R, 3) or tuple(cam.shape) != (V, 3):
+            raise ValueError(f"trace: expected cam [V, 3] and rd3 "
+                             f"[V, R, 3], got {tuple(cam.shape)} and "
+                             f"{tuple(rd3.shape)}")
+        rays = (cam, rd3)
+    else:
+        views = _grid_views(grid, cam)
+        V, R = views.shape[0], grid.band * grid.cols
+        one = None
+        if V == 1:  # launch arguments
+            one = (ctypes.c_float * 12)(*views[0].tolist())
+            rays = ()
+        else:  # one copy
+            rays = (views.to(scene.sph_pos.device),)
+    floats = (*rays, scene.sph_pos, scene.sph_rad, scene.pln_n,
               scene.pln_d, pr.tri_a, pr.tri_e1, pr.tri_e2, scene.mat_albedo,
               scene.dl_dir, scene.dl_col, scene.pt_pos, scene.pt_col,
               scene.env_color, scene.env_intensity)
@@ -121,12 +192,21 @@ def trace(scene, pr, cam, rd3, sphere_c, *, lanes: int = 0,
                          f"stage {stage!r} (one of {tuple(STAGES)})")
     if V * R >= 2 ** 31:
         raise ValueError(f"trace: {V * R} rays, at most 2^31 - 1")
-    out = torch.empty((V, R, 3), dtype=torch.float32, device=rd3.device)
+    dev = scene.sph_pos.device
+    out = torch.empty((V, R, 3), dtype=torch.float32, device=dev)
     if V * R == 0:
         return out
+    if grid is None:
+        ray_args = (cam.data_ptr(), rd3.data_ptr(), None, None, 0, 0, 0,
+                    0.0, 0.0, 0.0)
+    else:
+        ray_args = (None, None, rays[0].data_ptr() if rays else None, one,
+                    grid.rows, grid.cols, grid.row_lo,
+                    *jit_grid_consts(grid.rows, grid.cols,
+                                     grid.pixel_aspect))
     with record_function("rt.trace"):
         err = _build.lib().rt_trace_launch(
-            cam.data_ptr(), rd3.data_ptr(), out.data_ptr(), V, R,
+            *ray_args, out.data_ptr(), V, R,
             scene.sph_pos.data_ptr(), scene.sph_rad.data_ptr(),
             pr.sph_valid.data_ptr(), scene.sph_mat.data_ptr(), pr.n_sph,
             scene.pln_n.data_ptr(), scene.pln_d.data_ptr(),
@@ -139,7 +219,7 @@ def trace(scene, pr, cam, rd3, sphere_c, *, lanes: int = 0,
             int(light_pair(scene, pr.n_dl, pr.n_pt)),
             scene.env_color.data_ptr(), scene.env_intensity.data_ptr(),
             *(int(f) for f in sphere_c), lanes, STAGES[stage],
-            _build.stream_ptr(rd3.device))
+            _build.stream_ptr(dev))
         launches += 1
         _build.check(err, "rt_trace_launch")
     return out

@@ -101,6 +101,14 @@ subtile path's compacted tiles: device ms, the whole call, launches a
 call) and the grouped layout build X10 at the headline's steady frame
 (raster.build's whole call, busy ms and launches, and X10's kernel rows),
 then the headline frame (median, busy ms, launches), ~2 min a side.
+``--only rt`` times the ray tracer's render path (``rt_frames``):
+``render_rgb`` at K3's five launch sizes on the driven paths (a side
+whose K3 has no grid form launches the jitted grid kernel and K3: their
+device ms summed; one with it, K3 alone), the whole call, and K3 alone on
+the jitted grid kernel's rays (the rd3 form, which both sides have); the
+host's ``camera_bases`` at the farm's 1,024 poses, then the ray tracer's
+frame and the farm (median, busy ms, launches, views/s), about a minute
+a side; every rgb digested, so both sides' frames are the same bits.
 """
 
 from __future__ import annotations
@@ -119,6 +127,14 @@ DEVICE = "cuda:0"
 PT_SHAPES = ((36, 96, 32, "reference batch"), (36, 96, 1, "reference probe"),
              (540, 960, 1, "HD probe"), (540, 960, 8, "HD arm batch"))
 K3_SIZES = (256, 512, 1152, 3456)  # K3's launch sizes below the farm's
+# render_rgb's calls on the driven paths at those sizes and the farm's:
+# (rays, the rt_demo scene padded or with exact slots, views (0: the
+# scene's camera), rows, cols, row band): dryrun_multichip(1)'s band frame
+# and two-view farm, the parallel phase's bands of 12 rows, the golden
+# frame, the 1,024-view farm
+RT_CALLS = ((256, False, 0, 8, 32, {}), (512, False, 2, 8, 32, {}),
+            (1152, True, 0, 36, 96, dict(row_lo=12, n_rows=12)),
+            (3456, True, 0, 36, 96, {}), (3538944, False, 1024, 36, 96, {}))
 # launches per call of a checkout whose wrapper modules predate their
 # LAUNCHES_PER_CALL: B6, B6', B8 and B1 walk work items and merge, the
 # others launch once. A wrong count fails _device_ms's row check
@@ -214,6 +230,9 @@ def worker(root: str, only: str = "all") -> dict:
         return out
     if only == "shade":
         shade_and_build(cs, dev, out)
+        return out
+    if only == "rt":
+        rt_frames(cs, dev, out)
         return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
@@ -457,6 +476,75 @@ def rt_and_walk_front(cs, dev, out, mid_preps, k3=True) -> None:
                 fn, "bin_", getattr(BE, "last_launches", 4))
 
 
+def rt_frames(cs, dev, out) -> None:
+    """The ray tracer's render path at RT_CALLS: ``render_rgb``'s device
+    ms (profiler rows of the jitted grid kernel and K3 over 50 calls, the
+    side's launches a call: 2 where its render path launches the grid
+    kernel, 1 where K3 computes the rays) and whole call (CUDA events over
+    20 calls), rgb digested, and K3's device ms on the grid kernel's rays
+    (``raytrace.trace``, the rd3 form); the host ms of ``camera_bases``
+    at the farm's 1,024 poses (median of 20); then the ray tracer's frame
+    and the farm through chip_smoke's run_rt_path and run_farm_path
+    (median, busy ms and launches a call, views/s)."""
+    import time
+    import torch
+    from ascii_renderer_tpu_torch.backends.raytrace import (ScenePrims,
+                                                            render_rgb,
+                                                            trace)
+    from ascii_renderer_tpu_torch.core.camera import camera_bases
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+    from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
+    from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+    per_call = 1 if hasattr(RTK, "Grid") else 2
+    for key in ("rt_ms", "rt_call_ms", "rt_launches", "k3_rd3_ms",
+                "bases_ms", "path_ms", "path_busy_ms", "path_launches"):
+        out[key] = {}
+    for rays, padded, views, rows, cols, kw in RT_CALLS:
+        scene = create_rt_demo_scene().build(
+            **({} if padded else dict(min_pad=1)), device=dev)
+        pr = ScenePrims(scene)
+        cams = (orbit_cameras(views, center=(0, 1.0, 1.0)) if views
+                else scene.camera)
+
+        def call(scene=scene, cams=cams, rows=rows, cols=cols, kw=kw,
+                 pr=pr):
+            return render_rgb(scene, cams, rows, cols, cs.PIXEL_ASPECT,
+                              prims=pr, **kw)
+
+        label = f"render_rgb {rays} rays"
+        out["digest"][label] = _digest([call()])
+        out["rt_ms"][label] = cs._device_ms(
+            call, ("ray_grid_jit_kernel", "rt_trace_kernel"), per_call)
+        out["rt_call_ms"][label] = cs._event_ms(call, 20)
+        out["rt_launches"][label] = per_call
+        rays_of = (scene, *cs._rt_inputs(scene, cams, rows, cols, dev,
+                                         **kw))
+        out["digest"][f"K3 rd3 form {rays} rays"] = _digest(
+            [trace(*rays_of)])
+        out["k3_rd3_ms"][f"K3 rd3 form {rays} rays"] = cs._device_ms(
+            lambda: trace(*rays_of), "rt_trace_kernel", 1)
+    orbit = cs._orbit()
+    ts = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    out["bases_ms"][f"camera_bases {cs.FARM_VIEWS} poses"] = \
+        statistics.median(ts[1:])
+    farm = cs.run_farm_path(dev)
+    out["digest"]["view farm chars"] = _digest([farm()])
+    for label, (fn, n) in {"RT frame 96x36": (cs.run_rt_path(dev), 20),
+                           "view farm 1024 x 96x36": (farm, 5)}.items():
+        out["path_ms"][label] = statistics.median(cs._timed(fn, n))
+        busy, launches, _st = cs.profile_frames(fn, 3, ("rt.", "frame.",
+                                                        "glyph"), label)
+        out["path_busy_ms"][label] = busy
+        out["path_launches"][label] = launches
+        torch.cuda.synchronize()
+    out["path_ms"]["view farm views/s"] = cs.FARM_VIEWS / (
+        out["path_ms"]["view farm 1024 x 96x36"] / 1e3)
+
+
 def keys_and_build(cs, dev, out, caps) -> None:
     """The headline's raster.keys and raster.build at its steady frame's
     inputs (the golden pose's bbox and walk rows by the side's own setup
@@ -630,10 +718,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=("all", "bins", "shade"),
+    ap.add_argument("--only", choices=("all", "bins", "shade", "rt"),
                     default="all",
                     help="bins: the raster's bins and the paths alone; "
-                    "shade: K2 at its callers, X10 and the headline")
+                    "shade: K2 at its callers, X10 and the headline; rt: "
+                    "the ray tracer's render path")
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.worker, a.only)), flush=True)
@@ -667,7 +756,8 @@ def main() -> int:
                 "k3_ms", "x9_ms", "x9_kernel_ms", "keys_ms", "keys_busy_ms",
                 "keys_launches", "build_ms", "build_busy_ms",
                 "build_launches", "x10_ms", "k2_ms", "k2_call_ms",
-                "k2_launches", "frame_ms", "busy_ms", "path_ms",
+                "k2_launches", "rt_ms", "rt_call_ms", "rt_launches",
+                "k3_rd3_ms", "bases_ms", "frame_ms", "busy_ms", "path_ms",
                 "path_busy_ms", "path_launches", "walk_launches"):
         for shape in runs[0][1].get(key, {}):
             if not all(shape in r.get(key, {}) for _s, r in runs):
@@ -680,7 +770,7 @@ def main() -> int:
     for shape, ms in summary.items():
         unit = "" if shape.startswith((
             "Path_launches", "Walk_launches", "Keys_launches",
-            "Build_launches", "K2_launches")) or shape.endswith(
+            "Build_launches", "K2_launches", "Rt_launches")) or shape.endswith(
                 "views/s") else " ms"
         print(f"{shape}: other {ms['other']:.5f}{unit}, this "
               f"{ms['this']:.5f}{unit}, other / this "

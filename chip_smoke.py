@@ -39,15 +39,20 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      launch, radius 1..3, random override masks: equal to the plain
      version and to 1,024 one-plane launches; timed at the K the wrapper
      picks and at K = 1 and K = 4;
-   - the ray tracer's jitted ray grid (one launch for every view) at the
+   - the ray tracer's jitted ray grid (one launch for every view; no
+     render path launches it, K3 computes those rays itself) at the
      farm's 1,024 orbit poses and the rt_demo pose: bit for bit; timed;
-   - the ray tracer's frame after its grid (K3, a kernel for XLA code:
+   - the ray tracer's frame (K3, a kernel for XLA code: its primary rays
+     from the jitted grid (the grid form, render_rgb's) or read from rd3,
      hits, shading, shadow rays and the mirror bounce, one launch for
      every view) on the rt_demo golden's frame and its bands, the farm's
-     1,024 views and three more scenes over 16 views, in the launch's own
-     form and in every form it can be asked for (1 to 32 lanes a ray, the
-     valid slots staged in shared memory or read from the global arrays):
-     bit for bit; timed at the farm's batch;
+     1,024 views and three more scenes over 16 views, in both ray forms,
+     in the launch's own form and in every form it can be asked for (1 to
+     32 lanes a ray, the valid slots staged in shared memory or read from
+     the global arrays): bit for bit with the plain grid (ndc_grid_jit +
+     ray_dirs_jit) and trace_rgb, and render_rgb on the card one launch a
+     call (one view, a band, the farm; no grid kernel, no torch op);
+     timed at the farm's batch in both forms;
    - the raster's deferred shade (K2, a kernel for XLA code) at each
      caller's inputs, captured on its path (the headline's grouped
      tiles, the mid-scale HD arm's plane table, the subtile path's
@@ -192,22 +197,25 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      "q": exit 0 within 20 s, its FrameStats (fps, p50, p95) printed; the
      exactness canary (utils/exactness.run_checks("cuda"): B3 and B7' at
      [40, 69632], a float32 identity product) must say "ok". B5, B4, B6,
-     B3, B7' and both ray grids must launch in the phase; expand_pixels
-     (the pixels mode's glyph bitmap) is profiled.
+     B3, B7', the PT ray grid and K3 must launch in the phase;
+     expand_pixels (the pixels mode's glyph bitmap) is profiled.
    Each path's kernels must have launched: the raster paths' shade
    through K2, every frame of the ray tracer and each farm through K3
-   (a farm launches K3 once), fma32 through K1, the entry() step's, the
+   (a farm launches K3 once and nothing else of the ray tracer: its
+   rt.grid stage launches nothing, and no driven path launches the jitted
+   grid kernel), fma32 through K1, the entry() step's, the
    cube's, the teapot's, the mid-scale HD arm's and the subtile path's
    clip and table through X4 and X3 (the fused path's clip through X4),
    the binned paths' entries through X9; raster.walk makes at most
    RASTER_WALK_LAUNCHES kernel launches a frame of the entry() step and
    the mid-scale HD arm (printed with their fma32 launches).
-   K3's launches are recorded by size (rays) on the driven paths, and
-   each size is timed at the end in the launch's own form (its lanes a
-   ray, staging and blocks printed): its loss, launches x (kernel -
-   bound), goes into K3's record. Frames of every path are
-   profiled (stage host ms, device span and kernel launches, device busy
-   share; tables in smoke_out/, git-ignored).
+   K3's launches are recorded by size (rays and form) on the driven
+   paths, and each size is timed at the end in the launch's own form (its
+   lanes a ray, staging and blocks printed): its loss, launches x (kernel
+   - bound), goes into K3's record; so are K2's, X10's, X4's, X3's and
+   K1's, each kernel's summed launches checked against its count. Frames
+   of every path are profiled (stage host ms, device span and kernel
+   launches, device busy share; tables in smoke_out/, git-ignored).
 5. Prints the script's total time, {"kernels": [...]} and, as the last
    line, {"ok": true, "device": {...}}.
 
@@ -294,13 +302,15 @@ _PROFILES = 5
 
 def _device_ms(fn, kernel, per_call, n=50):
     """Device ms per call of fn: the profiler's CUDA rows whose name holds
-    ``kernel`` (every CUDA row if None), summed over n back-to-back calls,
+    ``kernel`` (one of them, for a tuple of names; every CUDA row if
+    None), summed over n back-to-back calls,
     over n. fn launches ``per_call`` such kernels; a profile whose matched
     rows count another number of launches than n * per_call is taken
     again, and the fifth such profile fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     counts = []
@@ -317,7 +327,7 @@ def _device_ms(fn, kernel, per_call, n=50):
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and "spin_kernel" not in e.key
-                and (kernel is None or kernel in e.key)]
+                and (kernel is None or any(k in e.key for k in names))]
         counts.append(sum(e.count for e in rows))
         if counts[-1] == n * per_call:
             return sum(e.self_device_time_total for e in rows) / n / 1e3
@@ -1810,14 +1820,16 @@ def check_ray_grid_jit(dev):
     plain_ms = _event_ms(plain, 5)
     # 12 bytes out a ray (and 36 in a view); ~22 float operations a ray:
     # the two cell centres, three fused sums, the norm, three divisions
-    bound = _bound(12 * n + 36 * FARM_VIEWS, 22 * n)
+    bound = _bound(12 * n + 36 * FARM_VIEWS, RT_OPS_GRID * n)
     print(f"jitted ray grid: bit-identical at the {FARM_VIEWS} orbit poses "
           f"and the rt_demo pose, 96x36 and its bands of 12; kernel "
           f"{ms:.5f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms "
           f"({bound[1]}) at {n} rays", flush=True)
     rec = _rec("ray_grid_jit", "ray_grid.cu", "", 0.0, ms, plain_ms, bound)
     # the XLA code it stands for: the jitted primary_ray_dirs of render_rgb
+    # (K3's grid form computes those rays on the render paths)
     rec["replaces"] = "ascii_renderer_tpu/core/camera.py:172"
+    rec["folded_into"] = "rt_trace (grid form)"
     return rec
 
 
@@ -1836,6 +1848,9 @@ SHADE_OPS_PIXEL, SHADE_OPS_POINT = 86, 28
 # attenuation and term
 RT_OPS_SPHERE, RT_OPS_PLANE, RT_OPS_TRI, RT_OPS_HIT, RT_OPS_LIGHT = \
     27, 17, 60, 20, 25
+# float operations of a primary ray in K3's grid form (csrc/ray_dir.cuh):
+# the two cell centres, three fused sums, the norm, three divisions
+RT_OPS_GRID = 22
 
 
 def _same_bits(got, want, what):
@@ -2023,8 +2038,48 @@ def check_raster_shade(dev, calls):
     return rec
 
 
+def _rt_grid(cams, rows, cols, row_lo=0, n_rows=None):
+    """render_rgb's grid (ops/rt_trace.Grid) of ``cams`` and their origins
+    f32 [V, 3] on the host."""
+    import torch
+    from ascii_renderer_tpu_torch.core.camera import band_of, camera_bases
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+    yaw, pitch, fov = (getattr(cams, f).reshape(-1)
+                       for f in ("yaw", "pitch", "fov_y"))
+    grid = RTK.Grid(camera_bases(yaw, pitch, fov), rows, cols, PIXEL_ASPECT,
+                    row_lo, band_of(rows, row_lo, n_rows))
+    return grid, cams.pos.reshape(-1, 3).to(torch.float32)
+
+
+def _k3_args(a, k):
+    """(scene, prims, cam [V, 3], rd3 [V, R, 3], grid or None) on the
+    scene's device of a call of ops/rt_trace.trace: the grid form's rays
+    by the plain grid."""
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+    scene, pr, cam, rd3 = a[:4]
+    grid = k.get("grid")
+    dev = scene.sph_pos.device
+    if grid is not None:
+        rd3 = RTK.grid_rays(grid, dev)
+    return scene, pr, cam.to(dev), rd3, grid
+
+
+def _k3_bound(scene, pr, cam, rd3, grid):
+    """K3's least work on these rays: rgb written once (12 bytes a ray);
+    the grid form's 48 bytes a view and RT_OPS_GRID operations a ray, or
+    rd3 and cam read once; the valid slots' operations (_rt_ops). Returns
+    (bound, rays, hits, mirror hits)."""
+    n_ops, n_hit, n_refl = _rt_ops(scene, pr, cam, rd3)
+    n = rd3.shape[0] * rd3.shape[1]
+    if grid is None:
+        return _bound(24 * n + _nbytes(cam), n_ops), n, n_hit, n_refl
+    return (_bound(12 * n + 48 * rd3.shape[0], n_ops + RT_OPS_GRID * n), n,
+            n_hit, n_refl)
+
+
 def _rt_inputs(scene, cams, rows, cols, dev, row_lo=0, n_rows=None):
-    """(prims, cam [V, 3], rd3 [V, R, 3]) of render_rgb's trace."""
+    """(prims, cam [V, 3], rd3 [V, R, 3]) of K3's rd3 form: the jitted grid
+    kernel's rays."""
     import torch
     from ascii_renderer_tpu_torch.backends.raytrace import ScenePrims
     from ascii_renderer_tpu_torch.core.camera import band_of, camera_bases
@@ -2071,17 +2126,21 @@ def _k3_form(RTK, n_rays, pr):
 
 
 def check_rt_trace(dev):
-    """K3, the ray tracer's frame after its grid (one launch of
-    csrc/rt_trace.cu for every view), against its plain version
-    (raytrace.trace_rgb) on the same rays, in every form of the kernel
-    (1-32 lanes a ray, the valid slots staged in shared memory or read
-    from the global arrays) and the launch's own: the rt_demo golden's
-    frame (96x36, its padded slots), its row bands of 12, the farm's 1,024
-    orbit views (exact slots), and the triangle / quad / mirror scene,
-    rt_demo with two lights of each kind and a one-sphere scene over 16
-    views: bit for bit. Timed at the farm's batch. Returns the record."""
+    """K3, the ray tracer's frame (one launch of csrc/rt_trace.cu for every
+    view), against its plain version, trace_rgb of the plain grid
+    (ndc_grid_jit + ray_dirs_jit on the same device), in its grid form
+    (render_rgb's: the kernel computes the rays) and its rd3 form (the
+    jitted grid kernel's rays), each in every form of the kernel (1-32
+    lanes a ray, the valid slots staged in shared memory or read from the
+    global arrays) and the launch's own: the rt_demo golden's frame (96x36,
+    its padded slots), its row bands of 12, the farm's 1,024 orbit views
+    (exact slots), and the triangle / quad / mirror scene, rt_demo with
+    two lights of each kind and a one-sphere scene over 16 views: bit for
+    bit, and render_rgb too. Timed at the farm's batch in both forms.
+    Returns the record (the grid form's times)."""
     import torch
-    from ascii_renderer_tpu_torch.backends.raytrace import trace, trace_rgb
+    from ascii_renderer_tpu_torch.backends.raytrace import (render_rgb,
+                                                            trace, trace_rgb)
     from ascii_renderer_tpu_torch.ops import rt_trace as RTK
     from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
     rows, cols = FARM_GRID
@@ -2099,38 +2158,123 @@ def check_rt_trace(dev):
     forms = [dict(lanes=L, stage=st) for L in RTK.LANES
              for st in ("staged", "global")]
     for label, scene, cams, kw in cases:
-        args = (scene, *_rt_inputs(scene, cams, rows, cols, dev, **kw))
-        got, want = trace(*args), trace_rgb(*args)
-        torch.cuda.synchronize()
-        _same_bits(got, want, f"rt trace, {label}")
+        pr, cam, rd3 = _rt_inputs(scene, cams, rows, cols, dev, **kw)
+        grid, cam_h = _rt_grid(cams, rows, cols, **kw)
+        plain_rd3 = RTK.grid_rays(grid, dev)
+        _same_bits(rd3, plain_rd3, f"jitted grid kernel, {label}")
+        want = trace_rgb(scene, pr, cam, plain_rd3)
+        V, R = rd3.shape[:2]
+        fuse = (_rt_fuse(pr, V, 1), _rt_fuse(pr, V, R))
+        runs = {"rd3 form": lambda **f: RTK.trace(scene, pr, cam, rd3, fuse,
+                                                  **f),
+                "grid form": lambda **f: RTK.trace(scene, pr, cam_h, None,
+                                                   fuse, grid=grid, **f)}
+        _same_bits(trace(scene, pr, cam, rd3), want, f"rt trace, {label}")
+        _same_bits(render_rgb(scene, cams, rows, cols, PIXEL_ASPECT,
+                              prims=pr, **kw).reshape(want.shape), want,
+                   f"render_rgb, {label}")
         assert (want > 0.05).float().mean() > 0.3, label
-        V, R = args[3].shape[:2]
-        fuse = (_rt_fuse(args[1], V, 1), _rt_fuse(args[1], V, R))
-        for f in forms:
-            _same_bits(RTK.trace(*args, fuse, **f), want,
-                       f"rt trace, {label}, {f}")
+        for ray_form, run in runs.items():
+            for f in [{}] + forms:
+                _same_bits(run(**f), want,
+                           f"rt trace, {label}, {ray_form} {f or 'own'}")
+        torch.cuda.synchronize()
     farm = cases[4][1]
-    args = (farm, *_rt_inputs(farm, _orbit(), rows, cols, dev))
-    ms = _device_ms(lambda: trace(*args), "rt_trace_kernel", 1)
-    plain = _event_ms(lambda: trace_rgb(*args), 3)
-    n_ops, n_hit, n_refl = _rt_ops(*args)
-    n = args[3].shape[0] * args[3].shape[1]
-    # cam and rd3 read once (12 bytes a ray), rgb written once (12)
-    bound = _bound(24 * n + _nbytes(args[2]), n_ops)
-    lanes, staged, blocks = _k3_form(RTK, n, args[1])
-    print(f"rt trace (K3): bit-identical to the plain version in all "
+    pr, cam, rd3 = _rt_inputs(farm, _orbit(), rows, cols, dev)
+    grid, cam_h = _rt_grid(_orbit(), rows, cols)
+    fuse = (_rt_fuse(pr, FARM_VIEWS, 1), _rt_fuse(pr, FARM_VIEWS,
+                                                  rd3.shape[1]))
+    ms = _device_ms(lambda: RTK.trace(farm, pr, cam_h, None, fuse,
+                                      grid=grid), "rt_trace_kernel", 1)
+    ms_rd3 = _device_ms(lambda: trace(farm, pr, cam, rd3), "rt_trace_kernel",
+                        1)
+    plain = _event_ms(lambda: trace_rgb(farm, pr, cam,
+                                        RTK.grid_rays(grid, dev)), 3)
+    bound, n, n_hit, n_refl = _k3_bound(farm, pr, cam, rd3, grid)
+    bound_rd3 = _k3_bound(farm, pr, cam, rd3, None)[0]
+    lanes, staged, blocks = _k3_form(RTK, n, pr)
+    print(f"rt trace (K3): bit-identical to the plain version (trace_rgb "
+          f"of the plain grid) in the grid form and the rd3 form, all "
           f"{len(forms)} forms (lanes {RTK.LANES}, staged and global) and "
-          f"the launch's own on {', '.join(c[0] for c in cases)}; farm "
-          f"{n} rays ({n_hit} hit, {n_refl} on a mirror; {lanes} lanes a "
-          f"ray, {'staged' if staged else 'global'}, {blocks} blocks): "
-          f"kernel {ms:.5f} ms, plain {plain:.3f} ms, bound "
-          f"{bound[0]:.5f} ms ({bound[1]}, valid slots); decisions "
+          f"the launch's own, and render_rgb, on "
+          f"{', '.join(c[0] for c in cases)}; farm {n} rays ({n_hit} hit, "
+          f"{n_refl} on a mirror; {lanes} lanes a ray, "
+          f"{'staged' if staged else 'global'}, {blocks} blocks): grid form "
+          f"{ms:.5f} ms (bound {bound[0]:.5f} ms, {bound[1]}), rd3 form "
+          f"{ms_rd3:.5f} ms (bound {bound_rd3[0]:.5f} ms, {bound_rd3[1]}), "
+          f"plain {plain:.3f} ms; decisions "
           f"{RTK.FUSE['primary']['spheres_t']} (primary) / "
           f"{RTK.FUSE['bounce']['spheres_t']} (bounce, shadow)", flush=True)
     rec = _rec("rt_trace", "rt_trace.cu", "", 0.0, ms, plain, bound)
     rec.update(replaces="ascii_renderer_tpu/backends/raytrace.py:166",
-               rays=n, hit=n_hit, mirror=n_refl)
+               rays=n, hit=n_hit, mirror=n_refl, ms_rd3=ms_rd3,
+               bound_ms_rd3=bound_rd3[0])
     return rec
+
+
+def check_render_rgb_one_launch(dev):
+    """render_rgb on the card is one kernel launch a call, K3's grid form:
+    a profile of 3 calls each of one view (the rt_demo golden pose), a
+    band of 12 rows and the 1,024-view farm holds 3 CUDA kernel rows, all
+    rt_trace_kernel (no grid kernel, no torch op; a batch's bases are one
+    host-to-device copy, counted apart), and the wrappers count 3 K3
+    launches, no jitted grid and no fma32."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ascii_renderer_tpu_torch.backends.raytrace import (ScenePrims,
+                                                            render_rgb)
+    from ascii_renderer_tpu_torch.ops import fp as KFP
+    from ascii_renderer_tpu_torch.ops import ray_grid as RYG
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+    from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+    rows, cols = FARM_GRID
+    demo = create_rt_demo_scene().build(device=dev)
+    farm = create_rt_demo_scene().build(min_pad=1, device=dev)
+    calls = {"one view": (demo, demo.camera, {}),
+             "band 12-24": (demo, demo.camera, dict(row_lo=12, n_rows=12)),
+             "farm": (farm, _orbit(), {})}
+    lines = []
+    for label, (scene, cams, kw) in calls.items():
+        pr = ScenePrims(scene)
+
+        def one():
+            return render_rgb(scene, cams, rows, cols, PIXEL_ASPECT,
+                              prims=pr, **kw)
+
+        one()
+        torch.cuda.synchronize()
+        for _attempt in range(_PROFILES):  # the profiler now and then
+            # drops rows at a session's edge: spin kernels sit there
+            counts = (RTK.launches, RYG.jit_launches, KFP.launches)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _spin()
+                for _ in range(3):
+                    one()
+                torch.cuda.synchronize()
+                _spin()
+            made = tuple(now - was for now, was in zip(
+                (RTK.launches, RYG.jit_launches, KFP.launches), counts))
+            assert made == (3, 0, 0), f"render_rgb {label}: K3, grid, " \
+                f"fma32 launches {made} in 3 calls"
+            rows_ = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and "spin_kernel" not in e.key
+                     and not e.key.startswith(("rt.", "frame.", "glyph"))]
+            copies = sum(e.count for e in rows_
+                         if e.key.startswith(("Memcpy", "Memset")))
+            kernels = {e.key: e.count for e in rows_
+                       if not e.key.startswith(("Memcpy", "Memset"))}
+            assert all("rt_trace_kernel" in k for k in kernels), \
+                f"render_rgb {label}: device kernels {kernels} in 3 calls"
+            if sum(kernels.values()) == 3:
+                break
+        else:
+            raise AssertionError(f"render_rgb {label}: {kernels} kernel "
+                                 f"rows in 3 calls, {_PROFILES} profiles")
+        lines.append(f"{label} 1 launch, {copies / 3:g} copies a call")
+    print(f"render_rgb on the card: {'; '.join(lines)} (K3's grid form "
+          f"only)", flush=True)
 
 
 def _rt_fuse(pr, views, rays):
@@ -4235,7 +4379,7 @@ def run_pt_step_path(dev):
     return one
 
 
-# while a driven path runs (_path_counts), the K3, K2, X10 and jitted grid
+# while a driven path runs (_path_counts), the K3, K2, X10, X4, X3 and K1
 # launches it makes are recorded by size (_record_sizes)
 _DRIVEN = [False]
 
@@ -4310,14 +4454,52 @@ def _build_weight(a, k):
     return min(a[5], a[1].shape[0])
 
 
-def _grid_size(a, k):
-    """The jitted grid's launch size: views, rows, columns."""
-    import torch
-    dev = k.get("device", a[4] if len(a) > 4 else None)
-    if torch.device(dev).type != "cuda":
+def _k3_size(a, k):
+    """K3's launch size: its rays, and its form (the grid's views, band
+    rows and columns, or rd3)."""
+    grid = k.get("grid")
+    if grid is None:
+        return (a[3].shape[0] * a[3].shape[1], "rd3")
+    V = grid.bases[0].shape[0]
+    return (V * grid.band * grid.cols, f"grid {V} x {grid.band}x{grid.cols}")
+
+
+def _x4_size(a, k):
+    """X4's launch size: triangle slots, the pos9 layout."""
+    if a[0].device.type != "cuda":
         return None
-    n_rows = k.get("n_rows", a[6] if len(a) > 6 else None)
-    return (a[0][0].shape[0], n_rows or a[1], a[2])
+    return (_x4_bound(a, k)[1], bool(k.get("pos9")))
+
+
+def _x3_size(a, k):
+    """X3's launch size: rows, attributes, source slots, compacted."""
+    if a[2].device.type != "cuda":
+        return None
+    cidx = a[3] if len(a) > 3 else None
+    return (a[0]["sxa"].shape[0], a[2].shape[1], a[1]["rot"].shape[0],
+            cidx is not None)
+
+
+def _fma_size(a, k):
+    """K1's launch size: the broadcast shape (None where nothing
+    launches)."""
+    import math
+    import torch
+    from ascii_renderer_tpu_torch.ops import fp as KFP
+    ref = next(x for x in a if isinstance(x, torch.Tensor))
+    if ref.device.type != "cuda":
+        return None
+    shape = tuple(KFP.pack_operands(*a, ref.device)[3])
+    return shape if math.prod(shape) else None
+
+
+def _fma_bound(a, out):
+    """K1's least work: each CUDA tensor operand read once (a broadcast
+    dimension once), the result written once; an FMA two operations."""
+    import torch
+    tens = [x for x in a if isinstance(x, torch.Tensor)
+            and x.device.type == "cuda"]
+    return _bound(_nbytes(*tens, out), 2 * out.numel())
 
 
 def size_loss(label, sizes, real, kernel, per_call, bound_of, rec):
@@ -4346,10 +4528,11 @@ def size_loss(label, sizes, real, kernel, per_call, bound_of, rec):
 
 
 def _size_losses(recorded, by_name):
-    """K2's, X10's and the jitted grid's losses by launch size."""
+    """K2's, X10's, X4's, X3's and K1's losses by launch size."""
     import torch
     from ascii_renderer_tpu_torch.ops import group_build as GB
-    (shade, shade_real), (build, build_real), (grid, grid_real) = recorded
+    ((shade, shade_real), (build, build_real), (clip, clip_real),
+     (table, table_real), (fma, fma_real)) = recorded
 
     def build_launches(a, k):
         build_real(*a, **k)
@@ -4358,44 +4541,47 @@ def _size_losses(recorded, by_name):
     def build_bound(a, k):
         return _x10_bound(a, build_real(*a, **k))[0]
 
-    def grid_bound(a, k):
-        out = grid_real(*a, **k)
-        n = out.numel() // 3
-        return _bound(12 * n + 36 * a[0][0].shape[0], 22 * n)[0]
-
     size_loss("raster shade (K2)", shade, shade_real, "raster_shade_kernel",
               lambda a, k: 1, lambda a, k: _shade_bound(a)[0][0],
               by_name["raster_shade"])
     size_loss("grouped layout build (X10)", build, build_real,
               "group_build_", build_launches, build_bound,
               by_name["group_build"])
-    size_loss("jitted ray grid", grid, grid_real, "ray_grid_jit_kernel",
-              lambda a, k: 1, grid_bound, by_name["ray_grid_jit"])
+    size_loss("raster clip (X4)", clip, clip_real, "raster_clip_kernel",
+              lambda a, k: 1, lambda a, k: _x4_bound(a, k)[0][0],
+              by_name["raster_clip"])
+    size_loss("plane table (X3)", table, table_real, "plane_table_kernel",
+              lambda a, k: 1, lambda a, k: _x3_bound(a)[0][0],
+              by_name["plane_table"])
+    size_loss("fma32 (K1)", fma, fma_real, "fma32_kernel", lambda a, k: 1,
+              lambda a, k: _fma_bound(a, fma_real(*a))[0], by_name["fma32"])
     torch.cuda.synchronize()
 
 
 def k3_loss(sizes, trace, rec):
     """K3's loss on the driven paths from the sizes of its launches: each
     size's device ms (at its first driven call's rays, the launch's own
-    form) less its bound (the valid slots' operations), times its
-    launches. Adds them to the record (main checks their sum against the
-    driven paths' count); returns the loss."""
+    form) less its bound (_k3_bound: the valid slots' operations, the grid
+    form's rays), times its launches. Adds them to the record (main
+    checks their sum against the driven paths' count); returns the
+    loss."""
     from ascii_renderer_tpu_torch.ops import rt_trace as RTK
     loss, parts = 0.0, []
-    for rays, (a, k, n, _w) in sorted(sizes.items()):
+    for (rays, form), (a, k, n, _w) in sorted(sizes.items()):
         ms = _device_ms(lambda: trace(*a, **k), "rt_trace_kernel", 1)
-        scene, pr, cam, rd3 = a[:4]
-        bound = _bound(24 * rays + _nbytes(cam), _rt_ops(scene, pr, cam,
-                                                         rd3)[0])[0]
+        scene, pr, cam, rd3, grid = _k3_args(a, k)
+        bound = _k3_bound(scene, pr, cam, rd3, grid)[0][0]
         lanes, staged, blocks = _k3_form(RTK, rays, pr)
         loss += n * (ms - bound)
-        parts.append(dict(rays=rays, launches=n, ms=ms, bound_ms=bound,
-                          lanes=lanes, staged=staged, blocks=blocks))
+        parts.append(dict(rays=rays, form=form, launches=n, ms=ms,
+                          bound_ms=bound, lanes=lanes, staged=staged,
+                          blocks=blocks))
     print("rt trace (K3) launch sizes on the driven paths: " + "; ".join(
-        f"{p['rays']} rays: {p['launches']} launches, {p['lanes']} lanes a "
-        f"ray {'staged' if p['staged'] else 'global'} on {p['blocks']} "
-        f"blocks, kernel {p['ms']:.5f} ms, bound {p['bound_ms']:.5f} ms"
-        for p in parts) + f"; loss {loss:.3f} ms", flush=True)
+        f"{p['rays']} rays ({p['form']}): {p['launches']} launches, "
+        f"{p['lanes']} lanes a ray {'staged' if p['staged'] else 'global'} "
+        f"on {p['blocks']} blocks, kernel {p['ms']:.5f} ms, bound "
+        f"{p['bound_ms']:.5f} ms" for p in parts) + f"; loss {loss:.3f} ms",
+        flush=True)
     rec.update(launch_sizes=parts, loss_ms=loss)
     return loss
 
@@ -4405,9 +4591,10 @@ def k3_loss(sizes, trace, rec):
 # after it
 RASTER_WALK_LAUNCHES = 15
 
-# kernels the parallel phase must launch: both ray grids, B5, B4 (the
-# dryrun's farm) and every walk and setup of the raster bands
-PARALLEL_KERNELS = ("ray_grid_jit", "pt_megakernel", "ray_grid",
+# kernels the parallel phase must launch: the PT ray grid, B5, B4 (the
+# dryrun's farm), K3 (RT bands and farms) and every walk and setup of the
+# raster bands
+PARALLEL_KERNELS = ("pt_megakernel", "ray_grid",
                     "modal_vote", "setup2dh", "pack", "raster_group_walk",
                     "raster_group_walk_k2", "raster_group_walk_grouped",
                     "pack_channels", "setup2dh_packed", "rt_trace",
@@ -4456,13 +4643,13 @@ def main() -> int:
         print(f"ptxas: {line}", flush=True)
 
     dev = torch.device("cuda:0")
-    k3_sizes, k3_trace = _record_sizes(
-        RTK, "trace", lambda a, k: a[3].shape[0] * a[3].shape[1])
-    from ascii_renderer_tpu_torch.backends import raytrace as RTB
+    k3_sizes, k3_trace = _record_sizes(RTK, "trace", _k3_size)
     recorded = (_record_sizes(RSH, "shade", _shade_size),
                 _record_sizes(GB, "build_rows", _build_size,
                               weight_of=_build_weight),
-                _record_sizes(RYG, "ray_grid_jit", _grid_size, (RTB,)))
+                _record_sizes(RCL, "clip_screen", _x4_size),
+                _record_sizes(PT, "plane_table", _x3_size),
+                _record_sizes(KFP, "fma32_kernel", _fma_size))
     # each kernel's wrapper module and launch counter
     counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
                 "raster_group_walk": (RG, "launches"),
@@ -4501,6 +4688,7 @@ def main() -> int:
     recs.append(check_modal_batched(dev))
     recs.append(check_ray_grid_jit(dev))
     recs.append(check_rt_trace(dev))
+    check_render_rgb_one_launch(dev)
     by_name = {r["name"]: r for r in recs}
 
     # raster headline path: B1-B3, and B4 in the glyph stage
@@ -4671,21 +4859,24 @@ def main() -> int:
     rt_prefixes = ("rt.", "frame.", "glyph")
     c_rt, rt_fn = _path_counts(counters, lambda: run_rt_path(dev))
     print(f"launches on the RT path: {c_rt}", flush=True)
-    for k in ("ray_grid_jit", "modal_vote", "rt_trace"):
+    for k in ("modal_vote", "rt_trace"):
         assert c_rt[k] > 0, f"{k} never launched on the RT path"
-    profile_frames(rt_fn, 5, rt_prefixes, "RT frame")
+    rt_stages = profile_frames(rt_fn, 5, rt_prefixes, "RT frame")[2]
     c_farm, farm_fn = _path_counts(counters, lambda: run_farm_path(dev))
     print(f"launches on the view farm: {c_farm}", flush=True)
-    for k in ("ray_grid_jit", "modal_vote", "rt_trace"):
+    for k in ("modal_vote", "rt_trace"):
         assert c_farm[k] > 0, f"{k} never launched on the view farm"
     c_one, _ = _path_counts(counters, farm_fn, record=False)
     assert (c_one["modal_vote"], c_one["ray_grid_jit"],
-            c_one["rt_trace"]) == (1, 1, 1), \
-        f"a farm launches B4, the grid and the trace once each: {c_one}"
+            c_one["rt_trace"]) == (1, 0, 1), \
+        f"a farm launches B4 and the trace once each, no grid: {c_one}"
     by_name["modal_vote_views"]["launches"] = c_farm["modal_vote"]
-    by_name["ray_grid_jit"]["launches"] = sum(
-        c["ray_grid_jit"] for c in (c_rt, c_farm))
-    profile_frames(farm_fn, 2, ("rt.", "glyph"), "view farm")
+    farm_stages = profile_frames(farm_fn, 2, ("rt.", "glyph"),
+                                 "view farm")[2]
+    # rt.grid is host work; rt.trace is K3 alone
+    for label, st in (("RT frame", rt_stages), ("view farm", farm_stages)):
+        assert (st.get("rt.grid", 0), st.get("rt.trace")) == (0, 1), \
+            (label, st)
     c_prog, prog_fn = _path_counts(counters,
                                    lambda: run_progressive_path(dev))
     print(f"launches on the progressive tracer: {c_prog}", flush=True)
@@ -4698,7 +4889,7 @@ def main() -> int:
     c_cli, expand_fn = _path_counts(counters, lambda: run_cli_path(dev))
     print(f"launches in the CLI phase: {c_cli}", flush=True)
     for k in ("pt_megakernel", "modal_vote", "raster_bins_walk", "pack",
-              "pack_channels_split", "ray_grid", "ray_grid_jit", "rt_trace"):
+              "pack_channels_split", "ray_grid", "rt_trace"):
         assert c_cli[k] > 0, f"{k} never launched in the CLI phase"
     profile_frames(expand_fn, 20, ("glyph.",), "expand_pixels 96x36")
 
@@ -4724,9 +4915,9 @@ def main() -> int:
     finally:
         close()
 
-    # K3, K2, X10 and the jitted grid timed at each size they launched at
-    # on the driven paths (all of them are behind: the PT core launches
-    # none of them)
+    # K3, K2, X10, X4, X3 and K1 timed at each size they launched at on
+    # the driven paths (all of them are behind: the PT core launches none
+    # of them)
     k3_loss(k3_sizes, k3_trace, by_name["rt_trace"])
     _size_losses(recorded, by_name)
 
@@ -4738,6 +4929,9 @@ def main() -> int:
     print(f"launches on the PT core path: {c_core}", flush=True)
     assert c_core["modal_vote"] > 0 and c_core["ray_grid"] > 0
     assert c_core["pt_megakernel"] == 0
+    for k in ("rt_trace", "raster_shade", "group_build", "raster_clip",
+              "plane_table", "fma32"):  # their losses by size are counted
+        assert c_core[k] == 0, (k, c_core[k])
     profile_frames(core_fn, 2, ("pt.", "frame.", "glyph"),
                    "PT core wide atlas")
     for k in ("raster_bins_walk", "raster_bins_walk_loop", "pack_channels"):
@@ -4753,11 +4947,17 @@ def main() -> int:
               c_tea, c_mid, c_pts, c_rt, c_farm, c_prog, c_cli, c_par,
               c_core)
     for k in ("fma32", "raster_shade", "rt_trace", "raster_clip",
-              "plane_table", "bin_entries", "group_build", "ray_grid_jit"):
+              "plane_table", "bin_entries", "group_build"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
+    # K3 computes the jitted grid's rays on every render path
+    by_name["ray_grid_jit"]["launches"] = sum(c["ray_grid_jit"]
+                                              for c in driven)
+    assert by_name["ray_grid_jit"]["launches"] == 0, \
+        [c["ray_grid_jit"] for c in driven]
     # the losses by launch size count every driven launch
-    for k in ("raster_shade", "group_build", "ray_grid_jit"):
+    for k in ("raster_shade", "group_build", "raster_clip", "plane_table",
+              "fma32"):
         assert sum(p["launches"] for p in by_name[k]["launch_sizes"]) == \
             by_name[k]["launches"], (k, by_name[k]["launch_sizes"],
                                      by_name[k]["launches"])

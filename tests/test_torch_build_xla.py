@@ -2,8 +2,9 @@
 fused multiply-add ``fma32`` (``ops/fp``), the raster's deferred shade
 (``ops/raster_shade``), the ray tracer's frame (``ops/rt_trace``, K3, in
 every form: 1-32 lanes a ray, the valid slots staged or read from the
-global arrays), the small and mid raster paths' clip with its screen setup
-(``ops/raster_clip``, X4), their plane table (``ops/plane_table``, X3) and
+global arrays, its rays read from rd3 or computed from the jitted grid;
+``render_rgb`` one launch a call), the small and mid raster paths' clip
+with its screen setup (``ops/raster_clip``, X4), their plane table (``ops/plane_table``, X3) and
 their bin entries (``ops/bin_entries``, X9), each held to its plain
 version bit for bit. Tests marked ``cuda`` skip without
 a card; this file imports no JAX, so they run where there is none:
@@ -30,6 +31,7 @@ from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import bin_entries as BE
 from ascii_renderer_tpu_torch.ops import fp as KFP
 from ascii_renderer_tpu_torch.ops import group_build as GB
+from ascii_renderer_tpu_torch.ops import ray_grid as RYG
 from ascii_renderer_tpu_torch.ops import plane_table as PT
 from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
@@ -358,6 +360,95 @@ def _rt_args(scene, pr, cams, rows, cols, row_lo=0, n_rows=None):
                                   RC.sphere_c_fused((V, 1, R_), pr.n_sph)))
 
 
+def _rt_grid_args(scene, pr, cams, rows, cols, row_lo=0, n_rows=None):
+    """(scene, pr, cam [V, 3] on the host, sphere_c, grid) of render_rgb's
+    trace on the card, and the plain version's rays and origins on the
+    scene's device (``rt_trace.grid_rays``)."""
+    yaw, pitch, fov = (getattr(cams, f).reshape(-1)
+                       for f in ("yaw", "pitch", "fov_y"))
+    grid = RTK.Grid(camera_bases(yaw, pitch, fov), rows, cols, 0.5, row_lo,
+                    band_of(rows, row_lo, n_rows))
+    dev = scene.sph_pos.device
+    cam = cams.pos.reshape(-1, 3).to(torch.float32)
+    rd3 = RTK.grid_rays(grid, dev)
+    V, R_ = rd3.shape[:2]
+    fuse = (RC.sphere_c_fused((V, 1, 1), pr.n_sph),
+            RC.sphere_c_fused((V, 1, R_), pr.n_sph))
+    return (scene, pr, cam, fuse, grid), (cam.to(dev), rd3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["staged", "global"])
+@pytest.mark.parametrize("lanes", RTK.LANES)
+@pytest.mark.parametrize("name", RT_SCENES)
+def test_trace_kernel_grid_form_every_form_equals_plain(cuda_device, name,
+                                                        lanes, stage):
+    """K3's grid form (the kernel computes its rays from the views'
+    bases) with L lanes a ray, staged or global (one launch each, no grid
+    launch) gives trace_rgb's bits over the plain grid (ndc_grid_jit +
+    ray_dirs_jit): one camera at 36x96, 16 orbit views at 24x40, bands of
+    12 rows."""
+    scene = rt_scene(name, cuda_device)
+    pr = RT.ScenePrims(scene)
+    orbit = orbit_cameras(16, center=(0, 1.0, 0.0), radius=5.5)
+    for cams, rows, cols, kw in ((scene.camera, 36, 96, {}),
+                                 (orbit, 24, 40, {}),
+                                 (scene.camera, 36, 96,
+                                  dict(row_lo=12, n_rows=12)),
+                                 (orbit, 24, 40, dict(row_lo=12, n_rows=12))):
+        (sc, pr_, cam, fuse, grid), (cam_d, rd3) = _rt_grid_args(
+            scene, pr, cams, rows, cols, **kw)
+        n0 = (RTK.launches, RYG.jit_launches)
+        got = RTK.trace(sc, pr_, cam, None, fuse, grid=grid, lanes=lanes,
+                        stage=stage)
+        assert (RTK.launches, RYG.jit_launches) == (n0[0] + 1, n0[1])
+        _same_bits(got, RT.trace_rgb(scene, pr, cam_d, rd3))
+
+
+@pytest.mark.cuda
+def test_trace_kernel_grid_form_farm_every_form_equals_plain(cuda_device):
+    """The farm's 1,024 orbit views of rt_demo (3,538,944 rays) through K3's
+    grid form in every form and the launch's own give trace_rgb's bits
+    over the plain grid, and render_rgb's; its bands of 12 rows equal
+    those rows."""
+    scene = create_rt_demo_scene().build(min_pad=1, device=cuda_device)
+    pr = RT.ScenePrims(scene)
+    cams = orbit_cameras(1024, center=(0, 1.0, 1.0))
+    (sc, pr_, cam, fuse, grid), (cam_d, rd3) = _rt_grid_args(
+        scene, pr, cams, 36, 96)
+    want = RT.trace_rgb(scene, pr, cam_d, rd3)
+    for stage in ("staged", "global"):
+        for lanes in RTK.LANES:
+            _same_bits(RTK.trace(sc, pr_, cam, None, fuse, grid=grid,
+                                 lanes=lanes, stage=stage), want)
+    _same_bits(RTK.trace(sc, pr_, cam, None, fuse, grid=grid), want)
+    full = RT.render_rgb(scene, cams, 36, 96, 0.5, prims=pr)
+    _same_bits(full.reshape(want.shape), want)
+    for lo in (0, 12, 24):
+        _same_bits(RT.render_rgb(scene, cams, 36, 96, 0.5, row_lo=lo,
+                                 n_rows=12, prims=pr), full[:, lo:lo + 12])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["one view", "band", "two views", "farm"])
+def test_render_rgb_is_one_k3_launch_on_cuda(cuda_device, call):
+    """render_rgb on the card launches K3 once a call and neither the
+    jitted grid kernel nor fma32, and equals the plain route (the plain
+    grid, then trace_rgb) on the same card."""
+    scene = create_rt_demo_scene().build(min_pad=1, device=cuda_device)
+    pr = RT.ScenePrims(scene)
+    cams = {"one view": scene.camera, "band": scene.camera,
+            "two views": orbit_cameras(2, center=(0, 1.0, 1.0)),
+            "farm": orbit_cameras(1024, center=(0, 1.0, 1.0))}[call]
+    kw = dict(row_lo=12, n_rows=12) if call == "band" else {}
+    n0 = (RTK.launches, RYG.jit_launches, KFP.launches)
+    got = RT.render_rgb(scene, cams, 36, 96, 0.5, prims=pr, **kw)
+    assert (RTK.launches, RYG.jit_launches, KFP.launches) == (
+        n0[0] + 1, n0[1], n0[2])
+    _args, (cam_d, rd3) = _rt_grid_args(scene, pr, cams, 36, 96, **kw)
+    _same_bits(got.reshape(rd3.shape), RT.trace_rgb(scene, pr, cam_d, rd3))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stage", ["staged", "global"])
 @pytest.mark.parametrize("lanes", RTK.LANES)
@@ -412,17 +503,23 @@ class _FailingLib:
 @pytest.mark.cuda
 def test_trace_and_bin_entries_raise_on_build_or_launch_failure(
         cuda_device, monkeypatch):
-    """A failed build and a failed launch each raise out of K3's and X9's
-    wrappers; neither falls back to its plain version."""
+    """A failed build and a failed launch each raise out of K3's (rd3 and
+    grid forms, and render_rgb) and X9's wrappers; neither falls back to
+    its plain version."""
     scene = rt_scene("rt_demo", cuda_device)
     pr = RT.ScenePrims(scene)
     *args, fuse = _rt_args(scene, pr, scene.camera, 12, 32)
+    (sc, pr_, cam, gfuse, grid), _plain = _rt_grid_args(
+        scene, pr, orbit_cameras(2, center=(0, 1.0, 0.0)), 12, 32)
     ch, rows, cols = bin_calls(cuda_device)["room 96x36"]
 
     def no_build():
         raise RuntimeError("nvcc failed")
 
     runs = (lambda: RTK.trace(*args, fuse),
+            lambda: RTK.trace(sc, pr_, cam, None, gfuse, grid=grid),
+            lambda: RT.render_rgb(scene, scene.camera, 12, 32, 0.5,
+                                  prims=pr),
             lambda: BE.binned_entries(dict(ch), rows, cols))
     for lib, match in ((no_build, "nvcc failed"),
                        (lambda: _FailingLib(), "launch failed")):
@@ -434,6 +531,8 @@ def test_trace_and_bin_entries_raise_on_build_or_launch_failure(
     for kw in (dict(lanes=3), dict(stage="shared")):  # forms it lacks
         with pytest.raises(ValueError):
             RTK.trace(*args, fuse, **kw)
+        with pytest.raises(ValueError):
+            RTK.trace(sc, pr_, cam, None, gfuse, grid=grid, **kw)
 
 
 @pytest.mark.cuda

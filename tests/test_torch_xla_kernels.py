@@ -10,8 +10,11 @@ form of ``fma32`` against exact rational rounding (midpoint ties,
 subnormals, signed zeros, infinities, overflow), the strides and scalars
 each wrapper packs (replayed on the CPU with the kernel's addressing),
 the ray tracer's table of fused products against the decisions the
-plain version makes, and a replay of its kernel's tile reduction (1-32
-lanes a ray) against ``torch.argmin``. ``_shade_rows`` and the shade's
+plain version makes, a replay of its kernel's tile reduction (1-32
+lanes a ray) against ``torch.argmin`` and of its grid form's rays (the
+index of a ray to its view, row and column, the host's float32
+constants, ``csrc/ray_dir.cuh``'s rounding) against the plain grid, and
+the grid form's argument checks. ``_shade_rows`` and the shade's
 plain version are held to the reference's (0 to 3 point lights, no
 directional light, an f32 id of -0.0, an id past the table), and the
 shade kernel's division-free grid indices are replayed. The clip (X4), the plane table (X3) and the bin entries (X9)
@@ -783,3 +786,101 @@ def test_rt_tile_reduction_is_the_first_minimum(L):
         full = np.where(valid, t, np.float32(K_BIG))
         if np.isnan(got_t) or got_t < 5e29:
             assert got_k == int(torch.argmin(torch.from_numpy(full)))
+
+
+def _fmaf(a, b, c):
+    """One float32 fma of numpy float32 arrays (core/fp.fma32_f64)."""
+    return fma32_f64(*(torch.from_numpy(np.asarray(x, np.float32))
+                       for x in (a, b, c))).numpy()
+
+
+def _replay_grid_form(grid, cam):
+    """The grid form's primary rays as the kernel computes them, replayed
+    on the CPU in float32: ray i of V * R (R = band * cols) takes view
+    i // R, row row_lo + j // cols and column j % cols of j = i - view *
+    R, the view's 12 floats (origin, uu, vv, focal * ww) as the wrapper
+    sends them, then ray_dir.cuh's jit_centre and direction<true>.
+    Returns (origins, directions) f32 [V, R, 3]."""
+    views = RTK._grid_views(grid, cam).numpy()
+    from ascii_renderer_tpu_torch.core.camera import jit_grid_consts
+    sx, sy, aspect = (np.float32(c) for c in jit_grid_consts(
+        grid.rows, grid.cols, grid.pixel_aspect))
+    V, R = views.shape[0], grid.band * grid.cols
+    i = np.arange(V * R)
+    view = i // R
+    j = i - view * R
+    r, col = j // grid.cols, j % grid.cols
+    b = views[view]
+    x = _fmaf(col.astype(np.float32) + np.float32(0.5), sx,
+              np.float32(-1.0)) * aspect
+    y = _fmaf((grid.rows - 1 - (grid.row_lo + r)).astype(np.float32)
+              + np.float32(0.5), sy, np.float32(-1.0))
+    d = [_fmaf(x, b[:, 3 + k], y * b[:, 6 + k]) + b[:, 9 + k]
+         for k in range(3)]
+    length = torch.from_numpy(_fmaf(d[2], d[2], _fmaf(d[1], d[1],
+                                                      d[0] * d[0])))
+    from ascii_renderer_tpu_torch.core.fp import sqrt32
+    length = sqrt32(length).numpy()
+    rd = np.stack([dk / length for dk in d], axis=-1)
+    return b[:, :3].reshape(V, R, 3), rd.reshape(V, R, 3)
+
+
+@pytest.mark.parametrize("views,rows,cols,row_lo,band", [
+    (1, 36, 96, 0, 36), (3, 36, 96, 12, 12), (2, 7, 5, 6, 1),
+    (4, 24, 40, 0, 24)])
+def test_grid_form_rays_replay_the_plain_grid(views, rows, cols, row_lo,
+                                              band):
+    """The grid form's rays, replayed as the kernel indexes and rounds
+    them, equal rt_trace.grid_rays (ndc_grid_jit + ray_dirs_jit, the
+    render path's plain grid) bit for bit, and the origins are the views'
+    own; grid_rays of a band is those rows of the full grid's."""
+    cams = orbit_cameras(views, center=(0, 1.0, 1.0))
+    yaw, pitch, fov = (getattr(cams, f) for f in ("yaw", "pitch", "fov_y"))
+    from ascii_renderer_tpu_torch.core.camera import camera_bases
+    grid = RTK.Grid(camera_bases(yaw, pitch, fov), rows, cols, 0.5, row_lo,
+                    band)
+    cam = cams.pos.reshape(-1, 3)
+    ro, rd = _replay_grid_form(grid, cam)
+    want = RTK.grid_rays(grid, "cpu")
+    assert want.shape == (views, band * cols, 3)
+    assert np.array_equal(_bits(rd), _bits(want))
+    assert np.array_equal(ro, np.broadcast_to(cam.numpy()[:, None],
+                                              ro.shape))
+    full = RTK.grid_rays(grid._replace(row_lo=0, band=rows), "cpu")
+    assert torch.equal(want, full.reshape(views, rows, cols, 3)[
+        :, row_lo:row_lo + band].reshape(want.shape))
+
+
+def _grid_case(case):
+    """(scene, prims, cam, rd3, grid) of one wrong call of the grid form:
+    each raises ValueError before anything launches."""
+    from ascii_renderer_tpu_torch.core.camera import camera_bases
+    rs = create_rt_demo_scene().build(device="cpu")
+    pr = RT.ScenePrims(rs)
+    cams = orbit_cameras(2, center=(0, 1.0, 1.0))
+    bases = camera_bases(cams.yaw, cams.pitch, cams.fov_y)
+    grid = RTK.Grid(bases, 6, 8, 0.5, 0, 6)
+    cam = cams.pos.reshape(-1, 3)
+    rd3 = torch.zeros((2, 48, 3))
+    return {"rays and grid": (rs, pr, cam, rd3, grid),
+            "neither": (rs, pr, cam, None, None),
+            "band past the grid": (rs, pr, cam, None,
+                                   grid._replace(row_lo=4, band=3)),
+            "no columns": (rs, pr, cam, None, grid._replace(cols=0)),
+            "origins of other views": (rs, pr, cam[:1], None, grid),
+            "scene on the host": (rs, pr, cam, None, grid)}[case]
+
+
+@pytest.mark.parametrize("case", ["rays and grid", "neither",
+                                  "band past the grid", "no columns",
+                                  "origins of other views",
+                                  "scene on the host"])
+def test_trace_grid_form_refuses_what_it_cannot_take(zero_counts, case):
+    """ops/rt_trace.trace takes its rays from rd3 or from a grid, never
+    both or neither; a grid's band must lie inside it, with columns, and
+    its origins match its views; a host scene never reaches the kernel.
+    Each raises ValueError and launches nothing."""
+    scene, pr, cam, rd3, grid = _grid_case(case)
+    with pytest.raises(ValueError):
+        RTK.trace(scene, pr, cam, rd3, (True, True), grid=grid)
+    assert RTK.launches == 0
