@@ -28,13 +28,16 @@ from ascii_renderer_tpu_torch.ops import ascii_kernel
 def glyph_decide(frame: Frame, *, ramp: str, mode_on: bool, mode_radius: int,
                  mode_thresh: int, grayscale: bool):
     """Per-cell glyph decision (ascii_pass_shader.js:140-188).
-    Returns (chars u8 [H,W], tint u8 [H,W,3])."""
-    ramp_len = len(ramp) if ramp else len(quantize.DEFAULT_RAMP)
+    Returns (chars u8 [H,W], tint u8 [H,W,3]); a frame of V views
+    ([V, H, W]) is voted a view at a time. On a CUDA frame one launch from
+    the bytes to the chars (``ops/ascii_kernel.glyph_chars``, B4's chars
+    form); on the CPU its plain version, the torch chain of quantize, vote
+    and ramp."""
     with record_function("glyph"):
-        base_idx = quantize.quantize_index(frame.rgb, ramp_len)
-        return glyph_from_index(base_idx, frame.a, frame.rgb, ramp=ramp,
-                                mode_on=mode_on, mode_radius=mode_radius,
-                                mode_thresh=mode_thresh, grayscale=grayscale)
+        chars = ascii_kernel.glyph_chars(frame.rgb, frame.a, ramp,
+                                         mode_on=mode_on, radius=mode_radius,
+                                         thresh=mode_thresh)
+        return chars, _tint(frame.rgb, grayscale)
 
 
 def glyph_from_index(base_idx: torch.Tensor, a_plane: torch.Tensor,
@@ -42,24 +45,19 @@ def glyph_from_index(base_idx: torch.Tensor, a_plane: torch.Tensor,
                      mode_radius: int, mode_thresh: int, grayscale: bool):
     """Image-space tail of the glyph decision, starting from a
     pre-quantized ramp-index plane (i32 [H, W]) — what
-    ``render_soup_diag(emit="idx")`` assembles. The modal vote is the
-    CUDA kernel B4 for a CUDA plane (``ops/ascii_kernel``)."""
-    codes = torch.as_tensor(quantize.ramp_codes(ramp), device=base_idx.device)
-    override = quantize.is_override(a_plane)
-    idx = base_idx
-    if mode_on:
-        idx = ascii_kernel.modal_filter_kernel(base_idx, override,
-                                               mode_radius, mode_thresh)
-    ramp_chars = codes[idx.long()]
-    chars = torch.where(override, a_plane.to(torch.uint8), ramp_chars)
+    ``render_soup_diag(emit="idx")`` assembles. On a CUDA plane one launch
+    (the index form of ``ops/ascii_kernel.glyph_chars``)."""
+    chars = ascii_kernel.glyph_chars(base_idx.to(torch.int32), a_plane, ramp,
+                                     mode_on=mode_on, radius=mode_radius,
+                                     thresh=mode_thresh)
+    return chars, _tint(tint_rgb_u8, grayscale)
 
-    if tint_rgb_u8 is None:
-        tint = None
-    elif grayscale:
-        tint = torch.zeros_like(tint_rgb_u8)
-    else:
-        tint = tint_rgb_u8
-    return chars, tint
+
+def _tint(rgb_u8, grayscale: bool):
+    """The glyphs' colour: the cell's bytes, or black when grayscale."""
+    if rgb_u8 is None:
+        return None
+    return torch.zeros_like(rgb_u8) if grayscale else rgb_u8
 
 
 def expand_pixels(chars: torch.Tensor, tint: torch.Tensor,

@@ -45,8 +45,8 @@ import torch
 from torch.profiler import record_function
 
 from ascii_renderer_tpu_torch.backends import pt_core as PC
-from ascii_renderer_tpu_torch.backends.pt_core import (
-    EPS, KIND_LIGHT, V3, _ScenePack, dot, normalize)
+from ascii_renderer_tpu_torch.backends.pt_core import (  # noqa: F401
+    EPS, KIND_LIGHT, V3, _ScenePack, dot, environment_ch, normalize)
 from ascii_renderer_tpu_torch.core import quantize
 from ascii_renderer_tpu_torch.core import threefry as TF
 from ascii_renderer_tpu_torch.core.camera import (Camera, band_of,

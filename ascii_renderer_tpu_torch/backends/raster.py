@@ -45,8 +45,8 @@ import torch
 from torch.profiler import record_function as stage
 
 from ascii_renderer_tpu_torch.core import quantize as Q
-from ascii_renderer_tpu_torch.core.camera import Camera
-from ascii_renderer_tpu_torch.core.fp import fma32, libm32, sqrt32
+from ascii_renderer_tpu_torch.core.camera import Camera, cross3, norm3
+from ascii_renderer_tpu_torch.core.fp import div32, fma32_scalar, round32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
 from ascii_renderer_tpu_torch.ops import bin_entries as BE
@@ -93,65 +93,79 @@ _GROUPED_MIN_TRIS = 32768   # RasterBackend: headline path from here up
 # products fused into the adds they feed (core/fp.py), a division by a
 # constant taken as a product with the constant's float32 reciprocal, and
 # the reductions (norm, matrix products) accumulated in index order with
-# fused multiply-adds.
+# fused multiply-adds. The chains run on Python floats, each operation
+# rounded to float32 where a float32 tensor operation would round it
+# (``core/fp.round32``, ``fma32_scalar``); one tensor is built at the end.
+_F32_1EM6 = round32(1e-6)
+
+
+def _perspective_s(fovy: float, aspect: float, near: float,
+                   far: float) -> list:
+    """``perspective`` as rows of Python floats."""
+    half = max(round32(fovy * 0.5), _F32_1EM6)  # clamp(min=1e-6): NaN stays
+    f = div32(1.0, round32(math.tan(half)))
+    nf = 1.0 / (near - far)  # float64: the next two round only when stored
+    return [[round32(f * div32(1.0, round32(aspect))), 0.0, 0.0, 0.0],
+            [0.0, f, 0.0, 0.0],
+            [0.0, 0.0, round32((far + near) * nf),
+             round32(2 * far * near * nf)],
+            [0.0, 0.0, -1.0, 0.0]]
+
+
 def perspective(fovy_rad, aspect: float, near: float = NEAR,
                 far: float = FAR) -> torch.Tensor:
-    fovy = torch.as_tensor(fovy_rad, dtype=torch.float32).cpu()
-    f = torch.reciprocal(libm32(math.tan, torch.clamp(fovy * 0.5, min=1e-6)))
-    nf = 1.0 / (near - far)
-    m = torch.zeros((4, 4), dtype=torch.float32)
-    m[0, 0] = f * torch.reciprocal(torch.tensor(aspect, dtype=torch.float32))
-    m[1, 1] = f
-    m[2, 2] = (far + near) * nf
-    m[2, 3] = 2 * far * near * nf
-    m[3, 2] = -1.0
-    return m
+    return torch.tensor(_perspective_s(round32(float(fovy_rad)), aspect,
+                                       near, far), dtype=torch.float32)
 
 
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a x b, each component p*q - r*s with the left product fused."""
-    return torch.stack([fma32(a[i], b[j], -(a[j] * b[i]))
-                        for i, j in ((1, 2), (2, 0), (0, 1))])
+def _matmul(p: list, q: list) -> list:
+    """p @ q (rows of Python floats) accumulated over k in order with fused
+    multiply-adds."""
+    out = []
+    for row in p:
+        acc = [round32(row[0] * x) for x in q[0]]
+        for k in range(1, len(row)):
+            acc = [fma32_scalar(row[k], x, a) for x, a in zip(q[k], acc)]
+        out.append(acc)
+    return out
 
 
-def _matmul(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """p @ q accumulated over k in order with fused multiply-adds."""
-    acc = p[:, :1] * q[:1, :]
-    for k in range(1, p.shape[1]):
-        acc = fma32(p[:, k:k + 1], q[k:k + 1, :], acc)
-    return acc
+def _normalize(v: list) -> list:
+    """v over its norm, v . v summed as ``_matmul`` sums it."""
+    n = norm3(v)
+    return [div32(x, n) for x in v]
 
 
-def _normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / sqrt32(_matmul(v[None, :], v[:, None])[0, 0])
+def _look_at_s(eye: list, center: list, up: list) -> list:
+    f = _normalize([round32(c - e) for c, e in zip(center, eye)])
+    s = _normalize(cross3(f, up))
+    u = cross3(s, f)
+    m = [s, u, [-x for x in f]]  # rows
+    t = _matmul([[-x for x in row] for row in m], [[e] for e in eye])
+    return [m[i] + t[i] for i in range(3)] + [[0.0, 0.0, 0.0, 1.0]]
 
 
 def look_at(eye: torch.Tensor, center: torch.Tensor,
             up: torch.Tensor) -> torch.Tensor:
-    f = _normalize(center - eye)
-    s = _normalize(_cross(f, up))
-    u = _cross(s, f)
-    m = torch.stack([s, u, -f])  # rows
-    t = _matmul(-m, eye[:, None])
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32)
-    return torch.cat([torch.cat([m, t], dim=1), bottom], dim=0)
+    return torch.tensor(_look_at_s(*(x.tolist() for x in (eye, center, up))),
+                        dtype=torch.float32)
 
 
 def camera_mvp(cam: Camera, rows: int, cols: int,
                pixel_aspect: float) -> torch.Tensor:
     """proj @ view, f32 [4, 4] on the CPU whatever the camera's device, so
     every device renders from the same matrix."""
-    cp, sp = libm32(math.cos, cam.pitch), libm32(math.sin, cam.pitch)
-    cy, sy = libm32(math.cos, cam.yaw), libm32(math.sin, cam.yaw)
+    pitch, yaw = float(cam.pitch), float(cam.yaw)
+    cp, sp = round32(math.cos(pitch)), round32(math.sin(pitch))
+    cy, sy = round32(math.cos(yaw)), round32(math.sin(yaw))
     aspect = max(1e-6, (cols / max(1, rows)) * pixel_aspect)
-    proj = perspective(cam.fov_y, aspect)
-    pos = cam.pos.cpu()
+    proj = _perspective_s(float(cam.fov_y), aspect, NEAR, FAR)
+    pos = cam.pos.tolist()
     # pos + look, look = (cp*cy, sp, cp*sy): its products fuse into the add
-    center = torch.stack([fma32(cp, cy, pos[0]), pos[1] + sp,
-                          fma32(cp, sy, pos[2])])
-    view = look_at(pos, center,
-                   torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32))
-    return _matmul(proj, view)
+    center = [fma32_scalar(cp, cy, pos[0]), round32(pos[1] + sp),
+              fma32_scalar(cp, sy, pos[2])]
+    view = _look_at_s(pos, center, [0.0, 1.0, 0.0])
+    return torch.tensor(_matmul(proj, view), dtype=torch.float32)
 
 
 def positions_to_pos9(positions: torch.Tensor) -> torch.Tensor:

@@ -152,6 +152,11 @@ def occluded(ro: V3, rd: V3, tmax, scene: SceneData, prims: ScenePrims = None):
     return (t_s < tm).any(dim=-2) | (t_t < tm).any(dim=-2)
 
 
+def gi_V3(arr: torch.Tensor, R: int) -> V3:
+    """[..., 3] -> flat V3 channels [R]."""
+    return V3.of(arr.reshape(R, 3))
+
+
 def shade_diffuse(pos: V3, n: V3, albedo, scene: SceneData,
                   prims: ScenePrims = None):
     """Direct lighting with hard shadows (raytrace_shader.js:168-196):

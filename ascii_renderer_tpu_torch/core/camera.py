@@ -18,7 +18,9 @@ import math
 import numpy as np
 import torch
 
-from ascii_renderer_tpu_torch.core.fp import fma32, libm32, sqrt32
+from ascii_renderer_tpu_torch.core.fp import (div32, fma32, fma32_np,
+                                              fma32_scalar, libm32, round32,
+                                              sqrt32, sqrt32_scalar)
 
 _PITCH_LIMIT = math.pi * 0.5 - 0.1  # just shy of +/-90 deg (js/camera.js:34)
 
@@ -139,6 +141,20 @@ def _norm3(a) -> torch.Tensor:
     return sqrt32(fma32(a[2], a[2], fma32(a[1], a[1], a[0] * a[0])))
 
 
+def cross3(a, b) -> list:
+    """``_cross`` on three Python floats each (float32 values): the left
+    product of each component fused, the right one rounded."""
+    return [fma32_scalar(a[1], b[2], -round32(a[2] * b[1])),
+            fma32_scalar(a[2], b[0], -round32(a[0] * b[2])),
+            fma32_scalar(a[0], b[1], -round32(a[1] * b[0]))]
+
+
+def norm3(a) -> float:
+    """``_norm3`` of three Python floats (float32 values)."""
+    return sqrt32_scalar(fma32_scalar(a[2], a[2], fma32_scalar(
+        a[1], a[1], round32(a[0] * a[0]))))
+
+
 def camera_basis(yaw, pitch, fov_y):
     """Orthonormal camera frame used by every backend (contract 4), on the
     host like the rest of the camera: float32 tensors on ``yaw``'s device
@@ -150,30 +166,93 @@ def camera_basis(yaw, pitch, fov_y):
     return tuple(b[0].to(yaw.device) for b in bases)
 
 
+# camera_bases evaluates up to this many views on Python floats, more as
+# numpy arrays: on floats a view costs ~0.05 ms, on arrays a call costs
+# ~0.3 ms whatever its views up to a few dozen (``kernel_ab --only glyph``
+# times both forms at 1, 8, 16 and 1,024 poses)
+SCALAR_VIEWS = 8
+_F32_1EM3, _F32_1EM6, _F32_1EM20 = (round32(x) for x in (1e-3, 1e-6, 1e-20))
+
+
+def _basis_scalar(yaw: float, pitch: float, fov_y: float):
+    """One view's (uu, vv, ww, focal) on Python floats."""
+    cp, sp = round32(math.cos(pitch)), round32(math.sin(pitch))
+    cy, sy = round32(math.cos(yaw)), round32(math.sin(yaw))
+    ww = [round32(cp * cy), sp, round32(cp * sy)]
+    n = norm3(ww)
+    ww = [div32(x, n) for x in ww]
+    uu = cross3(ww, (0.0, 1.0, 0.0))
+    nu = norm3(uu)
+    if nu < _F32_1EM3:
+        uu = [1.0, 0.0, 0.0]
+    else:
+        d = max(nu, _F32_1EM20)  # clamp(min=1e-20): NaN stays
+        uu = [div32(x, d) for x in uu]
+    vv = cross3(uu, ww)
+    n = norm3(vv)
+    vv = [div32(x, n) for x in vv]
+    half = round32(math.tan(round32(0.5 * fov_y)))
+    return uu, vv, ww, div32(1.0, max(half, _F32_1EM6))
+
+
+def bases_floats(yaw: list, pitch: list, fov_y: list):
+    """``camera_bases`` of the views (Python floats), each on Python
+    floats (``_basis_scalar``)."""
+    views = [_basis_scalar(*v) for v in zip(yaw, pitch, fov_y)]
+    uu, vv, ww = (torch.tensor([v[k] for v in views],
+                               dtype=torch.float32).reshape(-1, 3)
+                  for k in range(3))
+    return uu, vv, ww, torch.tensor([v[3] for v in views],
+                                    dtype=torch.float32)
+
+
+def bases_arrays(yaw: list, pitch: list, fov_y: list):
+    """``camera_bases`` of the views (Python floats) on numpy float32
+    arrays (a vector's three components stacked): the chains of
+    ``_basis_scalar``, each operation rounded once (the fused ones through
+    ``fma32_np``), the trig libm's."""
+    f32 = np.float32
+    rot1, rot2 = [1, 2, 0], [2, 0, 1]
+
+    def trig(fn, xs):
+        return np.fromiter(map(fn, xs), np.float64, len(xs)).astype(f32)
+
+    def norm(a):
+        d = fma32_np(a[2], a[2], fma32_np(a[1], a[1], a[0] * a[0]))
+        return np.sqrt(d.astype(np.float64)).astype(f32)
+
+    def cross(a, b):  # component k: fma(a[k+1], b[k+2], -(a[k+2] b[k+1]))
+        return fma32_np(a[rot1], b[rot2], -(a[rot2] * b[rot1]))
+
+    with np.errstate(all="ignore"):
+        cp, sp = trig(math.cos, pitch), trig(math.sin, pitch)
+        cy, sy = trig(math.cos, yaw), trig(math.sin, yaw)
+        zero, one = np.zeros_like(cp), np.ones_like(cp)
+        ww = np.stack([cp * cy, sp, cp * sy])
+        ww = ww / norm(ww)
+        uu = cross(ww, np.stack([zero, one, zero]))
+        nu = norm(uu)
+        uu = np.where(nu < f32(1e-3), np.stack([one, zero, zero]),
+                      uu / np.maximum(nu, f32(1e-20)))  # NaN stays
+        vv = cross(uu, ww)
+        vv = vv / norm(vv)
+        half = trig(math.tan, (f32(0.5) * np.array(fov_y, f32)).tolist())
+        focal = one / np.maximum(half, f32(1e-6))
+    return (*(torch.from_numpy(np.ascontiguousarray(v.T))
+              for v in (uu, vv, ww)), torch.from_numpy(focal))
+
+
 def camera_bases(yaw, pitch, fov_y):
     """The camera frames of a batch of views (yaw, pitch, fov_y f32 [V] on
-    the host): (uu, vv, ww f32 [V, 3], focal f32 [V]). Rounds as the
-    reference's calls, whose norms and cross products are jitted helpers
-    (``_norm3``, ``_cross``); cos, sin and tan through Python's libm, one
-    call a view (``core/fp.libm32``'s rounding)."""
-    def trig(fn, x):
-        return torch.tensor([fn(v) for v in x.reshape(-1).tolist()],
-                            dtype=torch.float32)
-
-    cp, sp = trig(math.cos, pitch), trig(math.sin, pitch)
-    cy, sy = trig(math.cos, yaw), trig(math.sin, yaw)
-    zero, one = torch.zeros_like(cp), torch.ones_like(cp)
-    ww = torch.stack([cp * cy, sp, cp * sy])             # [3, V]
-    ww = ww / _norm3(ww)
-    uu = _cross(ww, torch.stack([zero, one, zero]))
-    nu = _norm3(uu)
-    x_axis = torch.stack([one, zero, zero])
-    uu = torch.where(nu < 1e-3, x_axis, uu / torch.clamp(nu, min=1e-20))
-    vv = _cross(uu, ww)
-    vv = vv / _norm3(vv)
-    half = trig(math.tan, 0.5 * fov_y.reshape(-1))
-    focal = one / torch.clamp(half, min=1e-6)
-    return uu.t(), vv.t(), ww.t(), focal
+    the host): (uu, vv, ww f32 [V, 3], focal f32 [V]) CPU tensors. Rounds
+    as the reference's calls, whose norms and cross products are jitted
+    helpers (``_norm3``, ``_cross``): up to SCALAR_VIEWS views on Python
+    floats (``cross3``, ``norm3``), more as numpy arrays; cos, sin and tan
+    through Python's libm, one call a view (``core/fp.libm32``'s
+    rounding)."""
+    ys, ps, fs = (x.reshape(-1).tolist() for x in (yaw, pitch, fov_y))
+    form = bases_floats if len(ys) <= SCALAR_VIEWS else bases_arrays
+    return form(ys, ps, fs)
 
 
 def band_of(rows: int, row_lo: int = 0, n_rows: int | None = None) -> int:

@@ -12,8 +12,6 @@ import dataclasses
 
 import torch
 
-from ascii_renderer_tpu_torch.core import quantize
-
 
 @dataclasses.dataclass(frozen=True)
 class Frame:
@@ -36,16 +34,17 @@ class Frame:
         )
 
     @staticmethod
-    def from_float(rgb: torch.Tensor, a: torch.Tensor | None = None) -> "Frame":
+    def from_float(rgb: torch.Tensor, a: torch.Tensor | None = None,
+                   overrides=None) -> "Frame":
         """Build from linear [0,1] float RGB with GL UNORM byte conversion;
-        ``a`` may be a uint8 alpha plane or None (=1)."""
-        rgb_u8 = quantize.float_rgb_to_u8(rgb)
-        if a is None:
-            a_u8 = torch.ones(rgb.shape[:-1], dtype=torch.uint8,
-                              device=rgb.device)
-        else:
-            a_u8 = a.to(torch.uint8)
-        return Frame(rgb=rgb_u8, a=a_u8)
+        ``a`` may be a uint8 alpha plane or None (=1); ``overrides``, a UI
+        plane (chars u8, mask bool), is burnt in as ``with_overrides``
+        burns it. Any leading shape (a batch of views [V, H, W, 3] too).
+        On a CUDA tensor one launch of the kernel of ``ops/frame_bytes``
+        (X12a), on the CPU its plain version (the torch chain)."""
+        from ascii_renderer_tpu_torch.ops.frame_bytes import frame_bytes
+        chars, mask = overrides if overrides is not None else (None, None)
+        return Frame(*frame_bytes(rgb, a, chars, mask))
 
     def with_overrides(self, chars: torch.Tensor, mask: torch.Tensor) -> "Frame":
         """Burn a char plane into the frame where ``mask`` is set: RGB <- black,

@@ -119,6 +119,13 @@ SIGNATURES = {
     "ray_grid_jit_launch": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # (idx, ovr, out, V, H, W, radius, thresh, cells_per_thread, stream)
     "modal_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (idx, rgb, alpha, chars, codes, n_codes, V, H, W, mode_on, radius,
+    #  thresh, cells_per_thread, stream)
+    "glyph_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P),
+    # (rgb, alpha, ui_chars, ui_mask, rgb_out, a_out, n, W, row_stride,
+    #  stream)
+    "frame_bytes_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
     # (data, offsets, z, tid, part, n_slots, n_tiles, tiles_x, n_entries,
     #  mm, stream)
     "bins_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -202,18 +209,19 @@ def build() -> Path:
 
 def ptxas_report() -> list[str]:
     """One line per kernel of the current build, from nvcc's ``-Xptxas
-    -v`` output: its name, registers, spill stores / loads, shared
-    memory."""
+    -v`` output: its name, registers, stack frame, spill stores / loads,
+    shared memory."""
     log = build().with_suffix(".ptxas.txt").read_text()
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            spill = (f"stack frame {m.group(1)} B, spill stores "
+                     f"{m.group(2)} B, loads {m.group(3)} B")
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)

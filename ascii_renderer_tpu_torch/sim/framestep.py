@@ -167,12 +167,10 @@ def _step_body(cfg: Config, backend: str, rows: int, cols: int, soup,
                                      fdiv(time_ms, 1000.0), key, cfg, rows,
                                      cols, soup=soup, raster_caps=raster_caps,
                                      pt_packed=pt_packed, prep=prep)
-    with record_function("frame.compose"):
-        frame = Frame.from_float(rgb, a)
-        ui_chars, ui_mask = ui_mod.ui_char_plane(
-            cfg, rows, cols, fps, state.ripples, state.n_ripples, time_ms,
-            device=rgb.device)
-        frame = frame.with_overrides(ui_chars, ui_mask)
+    with record_function("frame.compose"):  # X12a with the UI plane
+        ui = ui_mod.ui_char_plane(cfg, rows, cols, fps, state.ripples,
+                                  state.n_ripples, time_ms, device=rgb.device)
+        frame = Frame.from_float(rgb, a, overrides=ui)
 
     chars, tint = glyph_decide(
         frame, ramp=cfg.ascii_ramp, mode_on=cfg.ascii_mode_filter,

@@ -161,4 +161,4 @@ def ui_char_plane(cfg: Config, rows: int, cols: int, fps, ripples,
     both = torch.from_numpy(np.stack([chars.astype(np.uint8),
                                       mask.astype(np.uint8)]))
     both = both.to(device, non_blocking=False)
-    return both[0], both[1].bool()
+    return both[0], both[1].view(torch.bool)  # 0 / 1 bytes: no conversion

@@ -109,6 +109,19 @@ the jitted grid kernel's rays (the rd3 form, which both sides have); the
 host's ``camera_bases`` at the farm's 1,024 poses, then the ray tracer's
 frame and the farm (median, busy ms, launches, views/s), about a minute
 a side; every rgb digested, so both sides' frames are the same bits.
+``--only glyph`` times the host's camera chains and the glyph tail
+(``glyph_tail``): ``camera_mvp`` at the golden camera and
+``camera_bases`` at one pose and the farm's 1,024 (host ms, median of
+20), and in this checkout each of its two forms at 1, 8, 16 and 1,024
+poses (``_bases_forms``); the frame step's ``frame.compose`` in its
+parts (``_compose_parts``); ``Frame.from_float`` then ``glyph_decide`` (mode filter on, radius
+2) at the headline's frame 0 float rgb, a 36x96 frame and the farm's
+[1024, 36, 96] (the whole call by CUDA events, busy ms and launches a
+call by the profiler; chars digested); B4's int form at the planes the
+``all`` mode times; then the headline frame, the entry() step, the ray
+tracer's frame, the PT reference run and the farm (median, busy ms,
+launches, and the host ms and launches a frame of the stages
+``chip_smoke.TAIL_STAGES``), about 3 minutes a side.
 """
 
 from __future__ import annotations
@@ -120,6 +133,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]  # this checkout's root
@@ -233,6 +247,9 @@ def worker(root: str, only: str = "all") -> dict:
         return out
     if only == "rt":
         rt_frames(cs, dev, out)
+        return out
+    if only == "glyph":
+        glyph_tail(cs, dev, out)
         return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
@@ -536,10 +553,207 @@ def rt_frames(cs, dev, out) -> None:
     for label, (fn, n) in {"RT frame 96x36": (cs.run_rt_path(dev), 20),
                            "view farm 1024 x 96x36": (farm, 5)}.items():
         out["path_ms"][label] = statistics.median(cs._timed(fn, n))
-        busy, launches, _st = cs.profile_frames(fn, 3, ("rt.", "frame.",
+        busy, launches, _st, _host = cs.profile_frames(fn, 3, ("rt.", "frame.",
                                                         "glyph"), label)
         out["path_busy_ms"][label] = busy
         out["path_launches"][label] = launches
+        torch.cuda.synchronize()
+    out["path_ms"]["view farm views/s"] = cs.FARM_VIEWS / (
+        out["path_ms"]["view farm 1024 x 96x36"] / 1e3)
+
+
+def _host_ms(fn, n=21):
+    """Median host ms of fn() over n - 1 calls after one warm-up."""
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts[1:])
+
+
+def _bases_forms(orbit, out) -> None:
+    """Both forms of ``camera_bases`` (Python floats, numpy arrays) at the
+    first 1, 8 and 16 of the farm's poses and at all 1,024, host ms; a
+    checkout that has one form only times nothing."""
+    from ascii_renderer_tpu_torch.core import camera as C
+    if not hasattr(C, "bases_arrays"):
+        return
+    out["forms_ms"] = {}
+    for n in (1, 8, 16, orbit.yaw.numel()):
+        poses = [x[:n].reshape(-1).tolist()
+                 for x in (orbit.yaw, orbit.pitch, orbit.fov_y)]
+        for name in ("floats", "arrays"):
+            fn = getattr(C, f"bases_{name}")
+            out["forms_ms"][f"camera_bases on {name}, {n} poses"] = _host_ms(
+                lambda fn=fn: fn(*poses), 21 if n > 16 else 101)
+
+
+def _compose_parts(cs, dev, out) -> None:
+    """The frame step's ``frame.compose`` in its parts at the entry()
+    step's 36x96 grid, host ms: the UI plane (``ui_char_plane``: built in
+    numpy, one blocking copy to the card) and the frame's bytes with the
+    UI plane burnt in (the side's own calls: ``from_float`` then
+    ``with_overrides``, or ``from_float(overrides=)``), and with an alpha
+    plane alone (the path tracer's call), each after a synchronisation;
+    and the UI plane right after an entry() step, which
+    its copy waits for."""
+    import inspect
+    import torch
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.core.frame import Frame
+    from ascii_renderer_tpu_torch.sim import ui as ui_mod
+    rows, cols = cs.ENTRY_GRID
+    g = torch.Generator().manual_seed(21)
+    rgb = torch.rand((rows, cols, 3), generator=g).to(dev)
+    a = torch.ones((rows, cols), dtype=torch.uint8, device=dev)
+    ripples = torch.zeros((ui_mod.MAX_RIPPLES, 3), dtype=torch.float32)
+    n_rip, t_ms = torch.zeros((), dtype=torch.int32), torch.tensor(16.0)
+
+    def ui():
+        return ui_mod.ui_char_plane(Config(), rows, cols, 60.0, ripples,
+                                    n_rip, t_ms, device=dev)
+
+    ui_c, ui_m = ui()
+    if "overrides" in inspect.signature(Frame.from_float).parameters:
+        def frame():
+            return Frame.from_float(rgb, a, overrides=(ui_c, ui_m))
+    else:
+        def frame():
+            return Frame.from_float(rgb, a).with_overrides(ui_c, ui_m)
+
+    f = frame()
+    out["digest"]["frame with UI plane 36x96"] = _digest(
+        [f.rgb.to(torch.int32), f.a.to(torch.int32)])
+    step = cs.run_entry_path()
+
+    def after_step():
+        step()
+        t0 = time.perf_counter()
+        ui()
+        return (time.perf_counter() - t0) * 1e3
+
+    def synced(fn):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            return (time.perf_counter() - t0) * 1e3
+        return run
+
+    for label, fn in (("UI plane 36x96", synced(ui)),
+                      ("frame bytes with UI plane 36x96", synced(frame)),
+                      ("frame bytes with alpha 36x96",
+                       synced(lambda: Frame.from_float(rgb, a))),
+                      ("UI plane after an entry() step", after_step)):
+        out["host_ms"][f"frame.compose: {label}"] = statistics.median(
+            fn() for _ in range(41))
+    torch.cuda.synchronize()
+
+
+def glyph_tail(cs, dev, out) -> None:
+    """The host's camera chains, the glyph tail at three sizes, B4's int
+    form, and the paths' tail stages (module docstring, ``--only
+    glyph``)."""
+    import torch
+    from torch.profiler import record_function
+    from ascii_renderer_tpu_torch.ascii.ascii_pass import glyph_decide
+    from ascii_renderer_tpu_torch.backends.raster import camera_mvp
+    from ascii_renderer_tpu_torch.core.camera import camera_bases
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.core.frame import Frame
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    for key in ("host_ms", "tail_ms", "tail_busy_ms", "tail_launches",
+                "chars_ms",
+                "b4_ms", "path_ms", "path_busy_ms", "path_launches",
+                "stage_ms", "stage_launches"):
+        out[key] = {}
+    cam = cs._golden_camera()
+    out["host_ms"]["camera_mvp golden camera 540x960"] = _host_ms(
+        lambda: camera_mvp(cam, cs.ROWS, cs.COLS, cs.PIXEL_ASPECT))
+    out["host_ms"]["camera_bases 1 pose"] = _host_ms(
+        lambda: camera_bases(cam.yaw.reshape(1), cam.pitch.reshape(1),
+                             cam.fov_y.reshape(1)))
+    orbit = cs._orbit()
+    out["host_ms"][f"camera_bases {cs.FARM_VIEWS} poses"] = _host_ms(
+        lambda: camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y))
+    out["digest"]["camera_mvp"] = _digest([camera_mvp(cam, cs.ROWS, cs.COLS,
+                                                      cs.PIXEL_ASPECT)])
+    _bases_forms(orbit, out)
+    _compose_parts(cs, dev, out)
+    cfg = Config(pixel_aspect=cs.PIXEL_ASPECT)
+    soup, scene = cs._bunny(), cs._scene(dev)
+    backend, cfg = cs.run_main_path(dev, soup, scene)
+    real, seen = Frame.__dict__["from_float"], []  # the float rgb of frame 0
+    Frame.from_float = staticmethod(
+        lambda *a, **k: seen.append(a[0]) or real.__func__(*a, **k))
+    try:
+        backend.render(0.0, cam, cs.ROWS, cs.COLS, cs.PIXEL_ASPECT)
+    finally:
+        Frame.from_float = real
+    rgb0 = seen[0]
+    g = torch.Generator().manual_seed(21)
+    rgbs = {"headline frame 0 540x960": rgb0,
+            "random 36x96": torch.rand((36, 96, 3), generator=g).to(dev),
+            "random farm 1024x36x96": torch.rand(
+                (cs.FARM_VIEWS, 36, 96, 3), generator=g).to(dev)}
+    kw = dict(ramp=cfg.ascii_ramp, mode_on=True, mode_radius=2,
+              mode_thresh=12, grayscale=False)
+    for label, rgb in rgbs.items():
+        def tail(rgb=rgb):
+            with record_function("frame.from_float"):
+                frame = Frame.from_float(rgb)
+            return glyph_decide(frame, **kw)[0]
+
+        out["digest"][f"glyph tail {label}"] = _digest(
+            [tail().to(torch.int32)])
+        out["tail_ms"][label] = cs._event_ms(tail, 50)
+        busy, launches, _st, _host = cs.profile_frames(
+            tail, 20, ("frame.", "glyph"), f"glyph tail {label}")
+        out["tail_busy_ms"][label] = busy
+        out["tail_launches"][label] = launches
+        if hasattr(AK, "glyph_chars"):  # the chars form's kernel alone
+            f = Frame.from_float(rgb)
+            out["chars_ms"][label] = cs._device_ms(
+                lambda f=f: AK.glyph_chars(f.rgb, f.a, cfg.ascii_ramp,
+                                           mode_on=True, radius=2,
+                                           thresh=12), "modal_kernel", 1)
+    planes = {"random 540x960": (
+        torch.randint(0, 10, (540, 960), generator=g,
+                      dtype=torch.int32).to(dev),
+        (torch.rand((540, 960), generator=g) < 0.1).to(dev)),
+        "headline frame 0 540x960": cs.b4_headline_inputs(dev, soup, scene)}
+    planes["random 36x96"] = tuple(x[:36, :96].contiguous()
+                                   for x in planes["random 540x960"])
+    for label, (idx, ovr) in planes.items():
+        out["digest"][f"B4 {label}"] = _digest(
+            [AK.modal_filter_kernel(idx, ovr, 2, 12)])
+        out["b4_ms"][label] = cs._device_ms(
+            lambda: AK.modal_filter_kernel(idx, ovr, 2, 12), "modal_kernel",
+            1)
+
+    def headline():
+        return cs._frame(backend, cfg, cam)[1]
+
+    farm = cs.run_farm_path(dev)
+    out["digest"]["headline frame 0 chars"] = _digest([headline()])
+    out["digest"]["view farm chars"] = _digest([farm()])
+    runs = {"headline frame 960x540": (headline, 20, "raster."),
+            "entry step 96x36": (cs.run_entry_path(), 20, "raster."),
+            "RT frame 96x36": (cs.run_rt_path(dev), 20, "rt."),
+            "PT reference run 96x36 spp64": (cs.run_pt_path(
+                Config(), 36, 96, 1, 3, "PT reference run"), 20, "pt."),
+            "view farm 1024 x 96x36": (farm, 5, "rt.")}
+    for label, (fn, n, stage) in runs.items():
+        out["path_ms"][label] = statistics.median(cs._timed(fn, n))
+        busy, launches, stages, host = cs.profile_frames(
+            fn, 3, (stage, "frame.", "glyph"), label)
+        out["path_busy_ms"][label] = busy
+        out["path_launches"][label] = launches
+        for k in cs.TAIL_STAGES:
+            if k in host:
+                out["stage_ms"][f"{label} {k}"] = host[k]
+                out["stage_launches"][f"{label} {k}"] = stages.get(k, 0.0)
         torch.cuda.synchronize()
     out["path_ms"]["view farm views/s"] = cs.FARM_VIEWS / (
         out["path_ms"]["view farm 1024 x 96x36"] / 1e3)
@@ -579,7 +793,7 @@ def keys_and_build(cs, dev, out, caps) -> None:
     out["digest"]["raster.build headline"] = _digest(build())
     for name, fn in (("keys", keys), ("build", build)):
         out[f"{name}_ms"][label] = cs._event_ms(fn, 20)
-        busy, launches, _st = cs.profile_frames(fn, 5, ("raster.",),
+        busy, launches, _st, _host = cs.profile_frames(fn, 5, ("raster.",),
                                                 f"raster.{name} {label}")
         out[f"{name}_busy_ms"][label] = busy
         out[f"{name}_launches"][label] = launches
@@ -647,7 +861,7 @@ def shade_and_build(cs, dev, out) -> None:
         out[key] = {}
     label = "headline frame 960x540"
     out["path_ms"][label] = statistics.median(cs._timed(headline, 20))
-    busy, launches, _st = cs.profile_frames(
+    busy, launches, _st, _host = cs.profile_frames(
         headline, 3, ("raster.", "frame.", "glyph"), label)
     out["path_busy_ms"][label] = busy
     out["path_launches"][label] = launches
@@ -703,7 +917,7 @@ def paths(cs, dev, out) -> None:
             "view farm 1024 x 96x36": (farm, 5, "rt.")}
     for label, (fn, n, stage) in runs.items():
         out["path_ms"][label] = statistics.median(cs._timed(fn, n))
-        busy, launches, stages = cs.profile_frames(
+        busy, launches, stages, _host = cs.profile_frames(
             fn, 3, (stage, "frame.", "glyph"), label)
         out["path_busy_ms"][label] = busy
         out["path_launches"][label] = launches
@@ -718,11 +932,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=("all", "bins", "shade", "rt"),
+    ap.add_argument("--only", choices=("all", "bins", "shade", "rt",
+                                       "glyph"),
                     default="all",
                     help="bins: the raster's bins and the paths alone; "
                     "shade: K2 at its callers, X10 and the headline; rt: "
-                    "the ray tracer's render path")
+                    "the ray tracer's render path; glyph: the camera "
+                    "chains, the glyph tail and the paths' tail stages")
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.worker, a.only)), flush=True)
@@ -758,7 +974,10 @@ def main() -> int:
                 "build_launches", "x10_ms", "k2_ms", "k2_call_ms",
                 "k2_launches", "rt_ms", "rt_call_ms", "rt_launches",
                 "k3_rd3_ms", "bases_ms", "frame_ms", "busy_ms", "path_ms",
-                "path_busy_ms", "path_launches", "walk_launches"):
+                "path_busy_ms", "path_launches", "walk_launches", "host_ms",
+                "tail_ms", "tail_busy_ms", "tail_launches", "chars_ms",
+                "stage_ms",
+                "stage_launches"):
         for shape in runs[0][1].get(key, {}):
             if not all(shape in r.get(key, {}) for _s, r in runs):
                 continue  # timed on one side only
@@ -770,11 +989,18 @@ def main() -> int:
     for shape, ms in summary.items():
         unit = "" if shape.startswith((
             "Path_launches", "Walk_launches", "Keys_launches",
-            "Build_launches", "K2_launches", "Rt_launches")) or shape.endswith(
+            "Build_launches", "K2_launches", "Rt_launches", "Tail_launches",
+            "Stage_launches")) or shape.endswith(
                 "views/s") else " ms"
+        ratio = (f"{ms['other'] / ms['this']:.2f}" if ms["this"]
+                 else "n/a")
         print(f"{shape}: other {ms['other']:.5f}{unit}, this "
-              f"{ms['this']:.5f}{unit}, other / this "
-              f"{ms['other'] / ms['this']:.2f}", flush=True)
+              f"{ms['this']:.5f}{unit}, other / this {ratio}", flush=True)
+    for shape in runs[0][1].get("forms_ms", {}) or runs[1][1].get(
+            "forms_ms", {}):  # timed in this checkout only
+        ms = statistics.median(r["forms_ms"][shape] for s, r in runs
+                               if s == "this")
+        print(f"Forms {shape}: this {ms:.5f} ms", flush=True)
     print("outputs bit-identical in both checkouts", flush=True)
     print(json.dumps({"runs": [dict(side=s, **r) for s, r in runs],
                       "median_ms": summary}), flush=True)

@@ -1,12 +1,14 @@
 """Inputs of the kernels that stand for XLA code (``ops/fp``,
 ``ops/raster_shade``, ``ops/rt_trace``, ``ops/raster_clip``,
-``ops/plane_table``, ``ops/bin_entries``), made from seeds: operands of
+``ops/plane_table``, ``ops/bin_entries``, ``ops/frame_bytes`` and the
+glyph tail), made from seeds: operands of
 ``fma32`` (random, constructed float32 midpoint ties, subnormal and
 special values, each operand form the wrapper packs), scenes and shade
 tables for the deferred shade, the ray tracer's test scenes, triangle
 soups at the near plane for the clip and the plane table, screen
 channel dicts for the bin entries' tile keys and bbox dicts for their bin
-keys. The kernels' tests and
+keys, float frames with alpha and UI planes for the glyph tail. The
+kernels' tests and
 ``chip_smoke.py``'s checks build their inputs here."""
 
 import numpy as np
@@ -322,3 +324,40 @@ def bin_calls(device):
     calls["near-plane soup 480x270"] = (R.compact_valid_ch(
         dict(ch), 40000)[0], 270, 480)
     return calls
+
+
+# ramps of the glyph tail's checks: one code, the default's ten, and a
+# hundred
+GLYPH_RAMPS = ("#", "@%#*+=-:. ",
+               "".join(chr(32 + (i * 37) % 95) for i in range(100)))
+
+
+def glyph_frame(shape, seed=0):
+    """Inputs of a frame's glyph tail, numpy, for a grid ``shape`` ((H, W)
+    or (V, H, W)): (rgb float32 [*shape, 3], alpha u8, ui_chars u8,
+    ui_mask bool, each [*shape]). The floats reach outside [0, 1]; a
+    quarter of the cells hold k / 255 or a float32 either side of it, and
+    a quarter (k + 0.5) / 255 or a float32 either side of it, where the
+    byte's rounding turns. The alpha plane is mostly 1 or 255 (no
+    override), 10% overrides in 2..254, and its protocol edges 0, 1, 2,
+    254, 255 in the first cells; the UI mask covers 5% of the cells."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    rgb = rng.uniform(-0.25, 1.25, n * 3).astype(np.float32)
+    k = rng.integers(0, 256, n * 3)
+    edge = np.where(rng.random(n * 3) < 0.5, k / 255.0,
+                    np.minimum(k + 0.5, 255.0) / 255.0).astype(np.float32)
+    step = rng.integers(-1, 2, n * 3)  # the float32 below, it, above
+    edge = np.where(step < 0, np.nextafter(edge, np.float32(-1)),
+                    np.where(step > 0, np.nextafter(edge, np.float32(2)),
+                             edge))
+    pick = rng.random(n * 3) < 0.5
+    rgb = np.where(pick, edge, rgb).astype(np.float32).reshape(*shape, 3)
+    alpha = np.where(rng.random(n) < 0.5, 1, 255).astype(np.uint8)
+    ovr = rng.random(n) < 0.1
+    alpha[ovr] = rng.integers(2, 255, int(ovr.sum()))
+    alpha[:5] = (0, 1, 2, 254, 255)[:n]
+    ui_chars = rng.integers(32, 127, n).astype(np.uint8)
+    ui_mask = rng.random(n) < 0.05
+    return (rgb, alpha.reshape(shape), ui_chars.reshape(shape),
+            ui_mask.reshape(shape))

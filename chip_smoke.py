@@ -39,6 +39,18 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      launch, radius 1..3, random override masks: equal to the plain
      version and to 1,024 one-plane launches; timed at the K the wrapper
      picks and at K = 1 and K = 4;
+   - the glyph tail, float rgb to chars in two launches: X12a
+     (Frame.from_float, a kernel for XLA code, with the frame step's UI
+     plane) and B4's chars form (the bytes' ramp indices formed as the
+     vote stages its window, the overrides from the alpha bytes, the
+     chars through the ramp's codes; glyph_map_kernel with the mode filter
+     off) on seeded float planes (outside [0, 1], at every byte's rounding
+     edge and a float32 either side, the alpha protocol's edges, a UI
+     plane) at 540x960, 36x96 and [1024, 36, 96], on the headline's frame
+     0 and on the entry() step's frame with its UI plane; the chars form
+     from the bytes and from the index plane, radius 1-3 and off, ramps of
+     1, 10 and 100 codes (each a device copy made once): bit for
+     bit; timed at the headline's frame 0, 36x96 and the farm's batch;
    - the ray tracer's jitted ray grid (one launch for every view; no
      render path launches it, K3 computes those rays itself) at the
      farm's 1,024 orbit poses and the rt_demo pose: bit for bit; timed;
@@ -215,7 +227,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    - bound), goes into K3's record; so are K2's, X10's, X4's, X3's and
    K1's, each kernel's summed launches checked against its count. Frames
    of every path are profiled (stage host ms, device span and kernel
-   launches, device busy share; tables in smoke_out/, git-ignored).
+   launches, device busy share; tables in smoke_out/, git-ignored). The
+   headline, entry() step, PT reference run, PT frame step, RT frame and
+   farm print raster.mvp, rt.grid, frame.from_float, frame.compose and
+   glyph (host ms and launches a frame) and must take float rgb to chars
+   in GLYPH_LAUNCHES launches (X12a, then B4's chars form), the glyph
+   stage one; the CLI's votes all come through the chars form.
 5. Prints the script's total time, {"kernels": [...]} and, as the last
    line, {"ok": true, "device": {...}}.
 
@@ -1780,6 +1797,189 @@ def check_modal_batched(dev):
     return rec
 
 
+# --------------------------------------------------------------------------
+# The glyph tail: X12a (Frame.from_float) and B4's chars form
+# --------------------------------------------------------------------------
+# float rgb to chars on every driven glyph path: X12a, then B4's chars form
+GLYPH_LAUNCHES = 2
+# FP32 operations of quantize_index a cell in B4's chars form: two
+# divisions, the upper clamp, the product, the sum, the floor, the clamp
+# to [0, n] (two) and the conversion
+QUANT_OPS = 9
+# X12a's FP32 operations a channel: two compares, the product, the sum, the
+# floor and the conversion
+X12A_OPS = 6
+
+
+def _glyph_bound(n_bytes, int_ops, fp_ops):
+    """The larger of the bytes' time and the operations' (integer ones at
+    the INT32 rate plus FP32 ones at the FP32 rate)."""
+    t_b = n_bytes / PEAK_BYTES * 1e3
+    t_o = (int_ops / PEAK_INT32 + fp_ops / PEAK_FP32) * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _x12a_bound(rgb, a, ui):
+    cells = rgb.numel() // 3
+    n_in = _nbytes(rgb) + (cells if a is not None else 0) + (
+        2 * cells if ui is not None else 0)
+    return _glyph_bound(n_in + 4 * cells, 0, X12A_OPS * 3 * cells)
+
+
+def _chars_bound(rgb_u8, a_u8, radius, mode_on):
+    """B4's chars form on these bytes: 4 bytes in and 1 out a cell,
+    quantize_index's FP32 operations, and the vote's integer operations as
+    the planes need them (_b4_ops)."""
+    from ascii_renderer_tpu_torch.core import quantize as Q
+    cells = a_u8.numel()
+    int_ops = 0
+    if mode_on:
+        int_ops = _b4_ops(Q.quantize_index(rgb_u8, 10), Q.is_override(a_u8),
+                          radius)
+    return _glyph_bound(5 * cells, int_ops, QUANT_OPS * cells)
+
+
+def _glyph_cases(dev, soup, scene):
+    """X12a's inputs (rgb float, a, ui_chars, ui_mask) by label: seeded
+    float planes (tools/xla_inputs.glyph_frame: outside [0, 1], at k / 255
+    and (k + 0.5) / 255 and a float32 either side, the alpha protocol's
+    edges, a UI plane) at 540x960, 36x96 and the farm's [1024, 36, 96];
+    the headline's frame 0 (RasterBackend.render at the golden camera) and
+    the entry() step's frame with its UI plane, both captured from their
+    calls."""
+    import torch
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.entry import entry
+    from ascii_renderer_tpu_torch.ops import frame_bytes as FB
+    from ascii_renderer_tpu_torch.tools.xla_inputs import glyph_frame
+    cases = {}
+    for seed, shape in enumerate(((ROWS, COLS), FARM_GRID,
+                                  (FARM_VIEWS,) + FARM_GRID)):
+        rgb, a, c, m = (torch.from_numpy(x).to(dev)
+                        for x in glyph_frame(shape, seed))
+        label = "x".join(map(str, shape))
+        cases[f"random {label}"] = (rgb, None, None, None)
+        cases[f"random {label}, alpha + UI"] = (rgb, a, c, m)
+    backend = RasterBackend(Config(pixel_aspect=PIXEL_ASPECT), device=dev)
+    backend.set_soup(*soup, scene)
+    a, k = _capture(FB, "frame_bytes", lambda: backend.render(
+        0.0, _golden_camera(), ROWS, COLS, PIXEL_ASPECT))
+    cases["headline frame 0"] = (a + (None,) * 4)[:4]
+    fn, args = entry()
+    a, k = _capture(FB, "frame_bytes", lambda: fn(*args))
+    assert a[3] is not None and bool(a[3].any()), "entry(): no UI plane"
+    cases["entry() step, UI plane"] = a
+    return cases
+
+
+def check_glyph_tail(dev, soup, scene):
+    """X12a (Frame.from_float in one launch) and B4's chars form (bytes to
+    chars in one launch; glyph_map_kernel without the vote) against their
+    plain versions on the same CUDA inputs, bit for bit: every case of
+    _glyph_cases; the chars form from the rgb bytes and from the index
+    plane, the mode filter at radius 1-3 and off, the default ramp, one of
+    one code and one of 100 codes.
+    Timed: X12a and the chars form at the headline's frame 0 (the
+    records), at 36x96 and the farm's batch; glyph_map at 540x960. Returns
+    the three records."""
+    import torch
+    from ascii_renderer_tpu_torch.core import quantize as Q
+    from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
+    from ascii_renderer_tpu_torch.ops import frame_bytes as FB
+    from ascii_renderer_tpu_torch.tools.xla_inputs import GLYPH_RAMPS
+    cases = _glyph_cases(dev, soup, scene)
+    small, farm, hd = (f"random {'x'.join(map(str, g))}" for g in (
+        FARM_GRID, (FARM_VIEWS,) + FARM_GRID, (ROWS, COLS)))
+    frames = {}
+    for label, (rgb, a, c, m) in cases.items():
+        got = FB.frame_bytes(rgb, a, c, m)
+        want = FB.frame_bytes_ref(rgb, a, c, m)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("rgb", "alpha")):
+            assert torch.equal(g, w), f"X12a {what} differs: {label}"
+        frames[label] = got
+    n_checked = 0
+    for label, (rgb8, a8) in frames.items():
+        for ramp in GLYPH_RAMPS:
+            for radius in (0, 1, 2, 3):  # 0: the mode filter off
+                kw = dict(mode_on=radius > 0, radius=max(radius, 1),
+                          thresh={1: 5, 2: 12, 3: 24}[max(radius, 1)])
+                idx = Q.quantize_index(rgb8, len(ramp))
+                for src in (rgb8, idx):
+                    got = AK.glyph_chars(src, a8, ramp, **kw)
+                    want = AK.glyph_chars_ref(src, a8, ramp, **kw)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), \
+                        f"B4 chars form differs: {label}, ramp of " \
+                        f"{len(ramp)}, radius {radius}, {src.dtype}"
+                    n_checked += 1
+    print(f"glyph tail: X12a bit for bit on {len(cases)} inputs "
+          f"({', '.join(cases)}); B4's chars form (and glyph_map) bit for "
+          f"bit in {n_checked} calls (rgb bytes and index planes, radius "
+          f"1-3 and off, ramps of {[len(r) for r in GLYPH_RAMPS]} codes)",
+          flush=True)
+    recs = []
+    rgb = cases["headline frame 0"][0]
+    rgb8, a8 = frames["headline frame 0"]
+    ms = _device_ms(lambda: FB.frame_bytes(rgb), "frame_bytes_kernel", 1)
+    plain = _event_ms(lambda: FB.frame_bytes_ref(rgb), 20)
+    bound = _x12a_bound(rgb, None, None)
+    rec = _rec("frame_bytes", "frame_bytes.cu", "", 0.0, ms, plain, bound)
+    rec["replaces"] = "ascii_renderer_tpu/core/frame.py:44"
+    for key, label in (("ms_36x96_ui", f"{small}, alpha + UI"),
+                       ("ms_farm", farm)):
+        args = cases[label]
+        rec[key] = _device_ms(lambda: FB.frame_bytes(*args),
+                              "frame_bytes_kernel", 1)
+        rec[key.replace("ms", "bound_ms", 1)] = _x12a_bound(
+            args[0], args[1], args[2])[0]
+    recs.append(rec)
+    kw = dict(mode_on=True, radius=2, thresh=12)
+    ramp = GLYPH_RAMPS[1]
+    ms = _device_ms(lambda: AK.glyph_chars(rgb8, a8, ramp, **kw),
+                    "modal_kernel", 1)
+    plain = _event_ms(lambda: AK.glyph_chars_ref(rgb8, a8, ramp, **kw), 20)
+    bound = _chars_bound(rgb8, a8, 2, True)
+    rec = _rec("modal_vote_chars", "modal.cu", "ascii_kernel.py:41", 0.0, ms,
+               plain, bound)
+    idx8 = Q.quantize_index(rgb8, len(ramp))
+    rec.update(ops_rate=PEAK_INT32, shape=list(a8.shape),
+               ms_from_index=_device_ms(
+                   lambda: AK.glyph_chars(idx8, a8, ramp, **kw),
+                   "modal_kernel", 1))
+    for key, label in (("ms_36x96", f"{small}, alpha + UI"),
+                       ("ms_farm", f"{farm}, alpha + UI")):
+        r8, a = frames[label]
+        rec[key] = _device_ms(lambda: AK.glyph_chars(r8, a, ramp, **kw),
+                              "modal_kernel", 1)
+        rec[key.replace("ms", "bound_ms", 1)] = _chars_bound(r8, a, 2,
+                                                             True)[0]
+    recs.append(rec)
+    r8, a = frames[f"{hd}, alpha + UI"]
+    kw0 = dict(mode_on=False, radius=1, thresh=5)
+    ms = _device_ms(lambda: AK.glyph_chars(r8, a, ramp, **kw0),
+                    "glyph_map_kernel", 1)
+    plain = _event_ms(lambda: AK.glyph_chars_ref(r8, a, ramp, **kw0), 20)
+    rec = _rec("glyph_map", "modal.cu", "", 0.0, ms, plain,
+               _chars_bound(r8, a, 1, False))
+    rec["replaces"] = "ascii_renderer_tpu/ascii/ascii_pass.py:69"
+    recs.append(rec)
+    for r in recs:
+        extra = {k: v for k, v in r.items() if k.startswith(("ms_", "bound"))}
+        print(f"{r['name']}: {r['ms']:.5f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+              f"{json.dumps(extra)}", flush=True)
+    return recs
+
+
+def _tail_counts(counters, fn):
+    """The glyph tail's launches in one call of fn: X12a's, B4's chars
+    form's and glyph_map's."""
+    c, _out = _path_counts(counters, fn, record=False)
+    return c["frame_bytes"] + c["modal_vote_chars"] + c["glyph_map"]
+
+
 def check_ray_grid_jit(dev):
     """The ray tracer's grid kernel (one launch for every view) against its
     plain version (ndc_grid_jit + ray_dirs_jit on the same CUDA device) at
@@ -2351,8 +2551,11 @@ def _farm_fn(scene, cfg, cams):
     prims = ScenePrims(scene)
 
     def one(sc, cam):
+        from torch.profiler import record_function
         rgb = render_rgb(sc, cam, rows, cols, cfg.pixel_aspect, prims=prims)
-        return _glyph(Frame.from_float(rgb), cfg)
+        with record_function("frame.from_float"):
+            frame = Frame.from_float(rgb)
+        return _glyph(frame, cfg)
 
     return lambda: render_views(one, scene, cams)
 
@@ -3436,7 +3639,7 @@ def profile_frames(frame_fn, n, prefixes, label):
     kernel launches per frame (the record_function ranges), the device's
     busy share of the wall time, and the top kernels. The full table goes
     to smoke_out/. Returns (device busy ms, kernel launches, {stage:
-    kernel launches}) a frame."""
+    kernel launches}, {stage: host ms}) a frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3465,9 +3668,11 @@ def profile_frames(frame_fn, n, prefixes, label):
     print(f"{label} profile: {wall:.3f} ms/frame under the profiler, device "
           f"busy {busy:.3f} ms/frame ({100 * busy / wall:.1f}%), "
           f"{launches} kernel launches/frame", flush=True)
+    stage_host = {}
     for e in sorted(avgs, key=lambda e: -e.cpu_time_total):
         if e.device_type == DeviceType.CPU and e.key.startswith(prefixes):
-            print(f"  stage {e.key}: host {e.cpu_time_total / n / 1e3:.3f} "
+            stage_host[e.key] = e.cpu_time_total / n / 1e3
+            print(f"  stage {e.key}: host {stage_host[e.key]:.3f} "
                   f"ms, device span {spans.get(e.key, 0.0):.3f} ms, "
                   f"{stage_launches.get(e.key, 0.0):g} launches", flush=True)
     for e in kern[:8]:
@@ -3477,7 +3682,31 @@ def profile_frames(frame_fn, n, prefixes, label):
     name = label.replace(" ", "_").replace(",", "")
     with open(os.path.join(OUT, f"profile_{name}.txt"), "w") as fh:
         fh.write(avgs.table(sort_by="self_device_time_total", row_limit=200))
-    return busy, launches, stage_launches
+    return busy, launches, stage_launches, stage_host
+
+
+# the host stages the glyph tail and the camera chains take on each path
+TAIL_STAGES = ("raster.mvp", "rt.grid", "frame.from_float", "frame.compose",
+               "glyph")
+
+
+def tail_stages(label, prof, counters, fn):
+    """Print the host ms and kernel launches a frame of TAIL_STAGES from a
+    profile_frames result ``prof`` of ``fn``, and the launches from float
+    rgb to chars in one call of fn (X12a, B4's chars form, glyph_map);
+    those must be GLYPH_LAUNCHES, and the glyph stage one launch. Returns
+    {stage: (host ms, launches)}."""
+    launches, host = prof[2], prof[3]
+    out = {k: (host[k], launches.get(k, 0.0)) for k in TAIL_STAGES
+           if k in host}
+    n = _tail_counts(counters, fn)
+    print(f"{label} stages a frame: " + "; ".join(
+        f"{k} host {ms:.3f} ms, {ln:g} launches"
+        for k, (ms, ln) in out.items()) + f"; float rgb to chars {n} "
+        f"launches", flush=True)
+    assert n == GLYPH_LAUNCHES, (label, n)
+    assert out["glyph"][1] == 1, (label, out)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4613,6 +4842,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
     from ascii_renderer_tpu_torch.ops import bin_entries as BE
     from ascii_renderer_tpu_torch.ops import fp as KFP
+    from ascii_renderer_tpu_torch.ops import frame_bytes as FB
     from ascii_renderer_tpu_torch.ops import group_build as GB
     from ascii_renderer_tpu_torch.ops import pack as PK
     from ascii_renderer_tpu_torch.ops import plane_table as PT
@@ -4654,6 +4884,9 @@ def main() -> int:
     counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
                 "raster_group_walk": (RG, "launches"),
                 "modal_vote": (AK, "launches"),
+                "modal_vote_chars": (AK, "launches_chars"),
+                "glyph_map": (AK, "launches_map"),
+                "frame_bytes": (FB, "launches"),
                 "pt_megakernel": (PTK, "launches"),
                 "raster_bins_walk": (RB, "launches"),
                 "raster_bins_walk_loop": (RB, "launches_loop"),
@@ -4686,6 +4919,7 @@ def main() -> int:
     recs.append(check_pt_kernel(dev))
     recs.append(check_ray_grid(dev))
     recs.append(check_modal_batched(dev))
+    recs += check_glyph_tail(dev, soup, scene)
     recs.append(check_ray_grid_jit(dev))
     recs.append(check_rt_trace(dev))
     check_render_rgb_one_launch(dev)
@@ -4701,9 +4935,12 @@ def main() -> int:
     assert c_raster["raster_shade"] > 0, "the shade kernel never launched"
     for k in ("bin_entries_keys", "group_build"):  # X9's bin keys, X10
         assert c_raster[k] > 0, f"{k} never launched on the raster path"
-    stage_launches = profile_frames(
-        lambda: _frame(backend, cfg, _golden_camera()), 5,
-        ("raster.", "frame.", "glyph"), "raster")[2]
+    prof = profile_frames(lambda: _frame(backend, cfg, _golden_camera()), 5,
+                          ("raster.", "frame.", "glyph"), "raster")
+    stage_launches = prof[2]
+    tails = {"headline frame": tail_stages(
+        "headline frame", prof, counters,
+        lambda: _frame(backend, cfg, _golden_camera()))}
     # X9 and X10 leave raster.keys and raster.build their kernels alone
     print(f"headline frame: raster.keys {stage_launches['raster.keys']:g}, "
           f"raster.build {stage_launches['raster.build']:g} kernel "
@@ -4787,7 +5024,11 @@ def main() -> int:
     for k in ("pt_megakernel", "ray_grid", "modal_vote"):
         assert c_ref[k] > 0, f"{k} never launched on the PT reference run"
     by_name["pt_megakernel"]["launches"] = c_ref["pt_megakernel"]
-    profile_frames(ref_fn, 3, ("pt.", "frame.", "glyph"), "PT reference run")
+    tails["PT reference run"] = tail_stages(
+        "PT reference run", profile_frames(ref_fn, 3, ("pt.", "frame.",
+                                                       "glyph"),
+                                           "PT reference run"),
+        counters, ref_fn)
     cfg_hd = Config(path_tracer=PathTracerConfig(samples_per_batch=8))
     c_hd, hd_fn = _path_counts(counters, lambda: run_pt_path(
         cfg_hd, ROWS, COLS, 2, 10, "PT HD arm 960x540 spp8"))
@@ -4822,8 +5063,9 @@ def main() -> int:
     for k in ("raster_bins_walk", "modal_vote", "raster_clip",
               "plane_table", "raster_shade", "bin_entries"):
         assert c_entry[k] > 0, f"{k} never launched on the entry step"
-    walk_launches = {"entry step": profile_frames(
-        entry_fn, 5, raster_prefixes, "entry step")[2]["raster.walk"]}
+    prof = profile_frames(entry_fn, 5, raster_prefixes, "entry step")
+    walk_launches = {"entry step": prof[2]["raster.walk"]}
+    tails["entry step"] = tail_stages("entry step", prof, counters, entry_fn)
     c_cube, _ = _path_counts(counters, lambda: run_cube_path(dev))
     print(f"launches on the cube path: {c_cube}", flush=True)
     for k in ("raster_bins_walk", "raster_bins_walk_loop", "raster_clip",
@@ -4852,7 +5094,9 @@ def main() -> int:
     print(f"launches on the PT frame step: {c_pts}", flush=True)
     for k in ("pt_megakernel", "ray_grid", "modal_vote"):
         assert c_pts[k] > 0, f"{k} never launched on the PT frame step"
-    profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"), "PT frame step")
+    tails["PT frame step"] = tail_stages(
+        "PT frame step", profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"),
+                                        "PT frame step"), counters, pts_fn)
 
     # the ray tracer: the golden frame and the "raytrace" step, then the
     # 1,024-view farm, then the progressive path tracer
@@ -4861,18 +5105,23 @@ def main() -> int:
     print(f"launches on the RT path: {c_rt}", flush=True)
     for k in ("modal_vote", "rt_trace"):
         assert c_rt[k] > 0, f"{k} never launched on the RT path"
-    rt_stages = profile_frames(rt_fn, 5, rt_prefixes, "RT frame")[2]
+    prof = profile_frames(rt_fn, 5, rt_prefixes, "RT frame")
+    rt_stages = prof[2]
+    tails["RT frame"] = tail_stages("RT frame", prof, counters, rt_fn)
     c_farm, farm_fn = _path_counts(counters, lambda: run_farm_path(dev))
     print(f"launches on the view farm: {c_farm}", flush=True)
     for k in ("modal_vote", "rt_trace"):
         assert c_farm[k] > 0, f"{k} never launched on the view farm"
     c_one, _ = _path_counts(counters, farm_fn, record=False)
     assert (c_one["modal_vote"], c_one["ray_grid_jit"],
-            c_one["rt_trace"]) == (1, 0, 1), \
+            c_one["rt_trace"], c_one["frame_bytes"],
+            c_one["modal_vote_chars"]) == (1, 0, 1, 1, 1), \
         f"a farm launches B4 and the trace once each, no grid: {c_one}"
     by_name["modal_vote_views"]["launches"] = c_farm["modal_vote"]
-    farm_stages = profile_frames(farm_fn, 2, ("rt.", "glyph"),
-                                 "view farm")[2]
+    prof = profile_frames(farm_fn, 2, ("rt.", "frame.", "glyph"),
+                          "view farm")
+    farm_stages = prof[2]
+    tails["view farm"] = tail_stages("view farm", prof, counters, farm_fn)
     # rt.grid is host work; rt.trace is K3 alone
     for label, st in (("RT frame", rt_stages), ("view farm", farm_stages)):
         assert (st.get("rt.grid", 0), st.get("rt.trace")) == (0, 1), \
@@ -4889,8 +5138,14 @@ def main() -> int:
     c_cli, expand_fn = _path_counts(counters, lambda: run_cli_path(dev))
     print(f"launches in the CLI phase: {c_cli}", flush=True)
     for k in ("pt_megakernel", "modal_vote", "raster_bins_walk", "pack",
-              "pack_channels_split", "ray_grid", "rt_trace"):
+              "pack_channels_split", "ray_grid", "rt_trace", "frame_bytes",
+              "modal_vote_chars"):
         assert c_cli[k] > 0, f"{k} never launched in the CLI phase"
+    # every vote of the CLI's frames came through the chars form, one X12a
+    # launch before each glyph launch
+    assert c_cli["modal_vote"] == c_cli["modal_vote_chars"], c_cli
+    assert c_cli["frame_bytes"] >= c_cli["modal_vote_chars"] + c_cli[
+        "glyph_map"], c_cli
     profile_frames(expand_fn, 20, ("glyph.",), "expand_pixels 96x36")
 
     # the parallel path: config 5's train steps, row bands, the mesh over
@@ -4950,6 +5205,12 @@ def main() -> int:
               "plane_table", "bin_entries", "group_build"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
+    # the glyph tail: X12a, B4's chars form and glyph_map on every path
+    for k in ("frame_bytes", "modal_vote_chars", "glyph_map"):
+        by_name[k]["launches"] = sum(c[k] for c in driven)
+        assert by_name[k]["launches"] > 0, k
+    print(f"glyph tail a frame (host ms, launches): {json.dumps(tails)}",
+          flush=True)
     # K3 computes the jitted grid's rays on every render path
     by_name["ray_grid_jit"]["launches"] = sum(c["ray_grid_jit"]
                                               for c in driven)

@@ -47,7 +47,7 @@ from ascii_renderer_tpu_torch.backends import raytrace as TRT
 from ascii_renderer_tpu_torch.backends import rt_core as RTC
 from ascii_renderer_tpu_torch.core import camera as TC
 from ascii_renderer_tpu_torch.core import color as TCO
-from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
+from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32, sqrt32_scalar
 from ascii_renderer_tpu_torch.geom import intersect as TG
 from ascii_renderer_tpu_torch.ops import pt_kernel as TPK
 from ascii_renderer_tpu_torch.scene import demo as TD
@@ -190,8 +190,9 @@ def test_raster_look_at_normalise_equals_jax(monkeypatch):
                              jnp.asarray(up)))
         args = [torch.from_numpy(v) for v in (eye[i], cen[i], up)]
         np.testing.assert_array_equal(_bits(R.look_at(*args)), want)
-        with monkeypatch.context() as m:
-            m.setattr(R, "sqrt32", torch.sqrt)
+        with monkeypatch.context() as m:  # the root torch's float32 takes
+            m.setattr(TC, "sqrt32_scalar", lambda x: float(torch.sqrt(
+                torch.tensor(x, dtype=torch.float32))))
             n_parent_off += not np.array_equal(_bits(R.look_at(*args)), want)
     assert n_parent_off >= off[keep].sum() // 2
 
@@ -301,6 +302,12 @@ def test_b5_plain_version_equals_jax_kernel(monkeypatch):
 @pytest.mark.parametrize("module", [RC, R, TC, TPK, TPT, PC, RTC, TRT, TG,
                                     TA, TCO])
 def test_every_site_takes_the_shared_root(module):
-    """No site of these modules takes torch's float32 sqrt directly."""
+    """No site of these modules takes torch's float32 sqrt directly: each
+    root is the shared one, on tensors or on Python floats (directly or
+    through camera.norm3)."""
     assert "torch.sqrt(" not in inspect.getsource(module)
-    assert module.sqrt32 is sqrt32
+    shared = (sqrt32, sqrt32_scalar, TC.norm3)
+    roots = [getattr(module, n, None) for n in ("sqrt32", "sqrt32_scalar",
+                                                "norm3")]
+    assert any(r is s for r, s in zip(roots, shared))
+    assert all(r is None or r is s for r, s in zip(roots, shared))
