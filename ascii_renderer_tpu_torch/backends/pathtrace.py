@@ -55,7 +55,8 @@ from ascii_renderer_tpu_torch.core.fp import sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.ops import pt_kernel as PK
-from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid
+from ascii_renderer_tpu_torch.ops import pt_reduce as PR
+from ascii_renderer_tpu_torch.ops.ray_grid import pt_rays, ray_grid
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
 _GOLDEN = -1640531527  # int32 golden-ratio stride between batch seeds
@@ -172,14 +173,6 @@ def pack_scene_entries(scene: SceneData):
     return prim_packed, atlas.contiguous(), aw, ah, sph_rows
 
 
-def _blockify(a: torch.Tensor, n: int, nblk: int) -> torch.Tensor:
-    flat = a.reshape(n, 3)
-    pad = nblk * PK.BLOCK - n
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros((pad, 3))])
-    return flat.reshape(nblk, PK.BH, PK.BW, 3).contiguous()
-
-
 def _params(light_center, light_radius, light_color, device):
     lc = torch.as_tensor(light_color, dtype=torch.float32).cpu()
     return torch.cat([light_center.reshape(3), light_radius.reshape(1), lc,
@@ -197,31 +190,14 @@ def trace_eye_paths_kernel_packed(scene: SceneData, ro, rd, seed_base,
     outputs are zero), the reference's block gate. ray_uid: optional flat
     [R] int32 RNG ids (default: stream position). packed: a precomputed
     pack_scene_entries(scene)."""
-    shp = rd.shape[:-1]
-    n = int(np.prod(shp))
-    nblk = -(-n // PK.BLOCK)
+    n = int(np.prod(rd.shape[:-1]))
     if packed is None:
         packed = pack_scene_entries(scene)
-    prim, atlas, aw, ah, sph_rows = packed
-    params = _params(light_center, light_radius, light_color, rd.device)
-    uid = None
-    if ray_uid is not None:
-        uid = ray_uid.reshape(-1).to(torch.int32)
-        pad = nblk * PK.BLOCK - n
-        if pad:  # pad-ray uids are arbitrary (outputs discarded)
-            uid = torch.cat([uid, uid.new_zeros(pad)])
-        uid = uid.reshape(nblk, PK.BH, PK.BW)
-    block_active = None
-    if ray_active is not None:
-        act = ray_active.reshape(-1).to(torch.int32)
-        pad = nblk * PK.BLOCK - n
-        if pad:  # pad rays are inactive
-            act = torch.cat([act, act.new_zeros(pad)])
-        block_active = act.reshape(nblk, PK.BLOCK).amax(dim=1)
-    outs = PK.trace_blocks_raw(
-        params, prim, _blockify(ro, n, nblk), _blockify(rd, n, nblk),
-        int(seed_base), atlas, bounces=bounces, nee=nee, atlas_w=aw,
-        atlas_h=ah, sph_rows=sph_rows, block_active=block_active, uid=uid)
+    blocks = _RayBlocks.of_rays(ro, n, ray_active, ray_uid)
+    outs = blocks.trace(
+        _params(light_center, light_radius, light_color, rd.device), packed,
+        PK.blockify(rd, n, -(-n // PK.BLOCK)), seed_base, 0,
+        bounces=bounces, nee=nee)
     return tuple(o.reshape(-1)[:n] for o in outs)
 
 
@@ -531,27 +507,6 @@ def batch_seed_of(frame_seed: int, b: int) -> int:
     return PK.int32_wrap(frame_seed + (b + 1) * _GOLDEN)
 
 
-def batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs: int, s_idx,
-                   rows: int | None = None):
-    """Directions f32 [B, band, cols, 3] of one sample batch (px, py f32
-    [band, cols]): sample s > 0 of a pixel that fetched no texel is
-    jittered inside its cell by (2 (u - 0.5) / rows) * (aspect, 1), u the
-    hash draws of the (sample, pixel) uid at counters 0x40000001 /
-    0x40000002; the rest trace the cell centre. ``rows``: the full grid's
-    rows (default: the band's)."""
-    B = uid_sp.shape[0]
-    band, cols = px.shape
-    rows_t = torch.tensor(float(rows or band), device=px.device)
-    jxu = PK.hash_unit(uid_sp, bs, 0x40000001)
-    jyu = PK.hash_unit(uid_sp, bs, 0x40000002)
-    jx = (2.0 * (jxu - 0.5)) / rows_t * aspect
-    jy = (2.0 * (jyu - 0.5)) / rows_t
-    use_jit = (s_idx > 0)[:, None] & ~fetched.reshape(1, band * cols)
-    jx = torch.where(use_jit, jx, 0.0).reshape(B, band, cols)
-    jy = torch.where(use_jit, jy, 0.0).reshape(B, band, cols)
-    return ray_grid(px[None] + jx, py[None] + jy, basis)
-
-
 def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
               rows: int, cols: int, pixel_aspect: float, spp: int,
               bounces: int, light_color, nee: bool = True,
@@ -611,109 +566,148 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     if packed is None:
         packed = pack_scene_entries(scene)
     frame_seed = PK.int32_wrap(frame_seed)
-    with record_function("pt.rays"):
-        basis, px, py, aspect, rd0 = _centre_rays(cam, rows, cols,
-                                                  pixel_aspect, dev, row_lo,
-                                                  n_rows)
-        pos = cam.pos.to(device=dev, dtype=torch.float32)
+    B = max(1, min(sample_batch, spp))
+    n_batches = -(-spp // B)
+    pc = band * cols
+    with record_function("pt.setup"):
+        basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
         light_center, light_radius = get_light_sphere(scene, time,
                                                       light_host)
         lcol = torch.as_tensor(light_color, dtype=torch.float32) * 1.3
+        blocks = _RayBlocks.of_frame(cam, rows, cols, row_lo, band, B,
+                                     n_batches, pixel_active, dev)
+        params = _params(light_center, light_radius, lcol, dev)
+        state = PR.new_state(pc, dev)
+    kw = dict(bounces=bounces, nee=nee)
+    rays = dict(row_lo=row_lo, n_rows=band, pix_uid=blocks.pix_uid,
+                device=dev)
+
+    # ---- phase 1: centre-ray probe (fetched flag + primary glyph hits) ----
+    with record_function("pt.rays"):
+        rd0 = pt_rays(basis, rows, cols, pixel_aspect, **rays)
+    with record_function("pt.trace"):
+        probe = blocks.trace(params, packed, rd0, frame_seed, 0, **kw)
+    fet0 = probe[4]  # the fetch flags: X7 jitters where not fet0 > 0.5
+
+    # ---- phase 2: batched samples, folded into the state (X14); the last
+    # batch's fold resolves the frame ----
+    for b in range(n_batches):
+        bs = batch_seed_of(frame_seed, b)
+        with record_function("pt.rays"):
+            rd = pt_rays(basis, rows, cols, pixel_aspect, **rays, fet0=fet0,
+                         samples=B, s0=b * B, seed=bs)
+        with record_function("pt.trace"):
+            cr, cg, cb, ovf, _fet = blocks.trace(params, packed, rd, bs,
+                                                 b + 1, **kw)
+        last = b == n_batches - 1
+        with record_function("pt.reduce"):
+            out = PR.fold(state, cr, cg, cb, ovf, min(B, spp - b * B),
+                          first=b == 0, probe=probe[:4] if last else None,
+                          spp=spp, slot=blocks.slot)
+    rgb, a = out
+    return rgb.reshape(band, cols, 3), a.reshape(band, cols)
+
+
+class _RayBlocks:
+    """The megakernel's launch inputs besides the directions, staged once
+    for every launch that shares them (a kernel-path frame's probe and
+    batches, or trace_eye_paths_kernel_packed's one launch): the ray
+    origins in the block layout (0 past the rays), the RNG uids (None:
+    the stream position), the block gates by launch size (none: every
+    block runs) and one zeroed ray counter a launch. A shorter launch
+    takes a prefix of the origins and uids. A frame's also hold its
+    compaction's stream order ``slot`` and the slots' pixel uids
+    ``pix_uid`` (None when it is not compacted)."""
+
+    def __init__(self, ro, uid, gates, launches: int, dev):
+        self._ro, self._uid, self._gates = ro, uid, gates
+        self.counters = torch.zeros(launches, dtype=torch.int32, device=dev)
+        self.pix_uid = self.slot = None
+
+    @classmethod
+    def of_rays(cls, ro, n: int, ray_active=None, ray_uid=None):
+        """The blocks of n rays: origins ro [..., 3], the optional flat
+        [n] live mask ray_active and RNG ids ray_uid."""
+        nblk = -(-n // PK.BLOCK)
+        uid = None
+        if ray_uid is not None:
+            # pad-ray uids are arbitrary (their outputs are discarded)
+            uid = ray_uid.reshape(-1).to(torch.int32)
+            uid = torch.cat([uid, uid.new_zeros(nblk * PK.BLOCK - n)])
+        gates = {} if ray_active is None else {
+            nblk: _block_gate(ray_active.reshape(-1))}
+        return cls(PK.blockify(ro, n, nblk).reshape(-1, 3), uid, gates, 1,
+                   ro.device)
+
+    @classmethod
+    def of_frame(cls, cam: Camera, rows: int, cols: int, row_lo: int,
+                 band: int, B: int, n_batches: int, pixel_active, dev):
+        """The blocks of a frame's probe and its batches of B samples:
+        every origin the camera position, a ray's RNG id its pixel's
+        global uid (band offset included) plus s * rows * cols for sample
+        s, whatever its slot in the stream (the stream position itself
+        for a full, uncompacted frame, which passes none)."""
         pc = band * cols
-        # the band's pixels in order; a ray's RNG id is its pixel's global
-        # uid (band offset included), whatever its slot in the stream
-        slot = torch.arange(pc, dtype=torch.int32, device=dev)
-        pix_uid = slot + row_lo * cols
-        mask = None
+        n = B * pc
+        nblk = -(-n // PK.BLOCK)
+        ro = torch.empty((nblk * PK.BLOCK, 3), dtype=torch.float32,
+                         device=dev)
+        ro[:n] = cam.pos.to(device=dev, dtype=torch.float32)
+        ro[n:] = 0.0
+        pix_uid = slot = uid = None
+        gates = {}
         if pixel_active is not None:
             # adaptive compaction: a stable partition of the band's pixels,
             # active first (one sort of the unique key (1 - active) * pc +
-            # slot); a ray is a pure function of its pixel, so the centre
-            # rays and cell centres are the full grid's, gathered by slot
+            # slot); X7 computes each slot's ray from its pixel's uid
             act = pixel_active.reshape(-1).to(device=dev, dtype=torch.int64)
-            order = torch.argsort((1 - act) * pc + slot.long())
-            slot = order.to(torch.int32)
+            local = torch.arange(pc, device=dev)
+            slot = torch.argsort((1 - act) * pc + local).to(torch.int32)
             pix_uid = slot + row_lo * cols
-            rd0 = rd0.reshape(pc, 3)[order].reshape(band, cols, 3)
-            px = px.reshape(pc)[order].reshape(band, cols)
-            py = py.reshape(pc)[order].reshape(band, cols)
-            # the actives hold slots [0, n_act)
-            mask = torch.arange(pc, device=dev) < act.sum()
+            # the actives hold slots [0, n_act); ray s * pc + p is live
+            # where slot p is. The probe's launch and a batch's differ in
+            # size unless both are one block, whose gates agree.
+            mask = local < act.sum()
+            gates = {-(-pc // PK.BLOCK): _block_gate(mask),
+                     nblk: _block_gate(mask.repeat(B))}
+        if pixel_active is not None or band != rows:
+            pu = pix_uid if pix_uid is not None else (
+                torch.arange(pc, dtype=torch.int32, device=dev)
+                + row_lo * cols)
+            uid = torch.zeros(nblk * PK.BLOCK, dtype=torch.int32, device=dev)
+            uid[:n] = (torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+                       * (rows * cols) + pu[None, :]).reshape(-1)
+        blocks = cls(ro, uid, gates, n_batches + 1, dev)
+        blocks.pix_uid, blocks.slot = pix_uid, slot
+        return blocks
 
-    def trace(ro, rd, seed, uid, active):
-        return trace_eye_paths_kernel_packed(
-            scene, ro, rd, seed, light_center, light_radius,
-            bounces=bounces, light_color=lcol, nee=nee, ray_active=active,
-            ray_uid=uid, packed=packed)
+    def trace(self, params, packed, rd, seed, i: int, *, bounces: int,
+              nee: bool):
+        """The megakernel's outputs (lor, log, lob, ov, fet), each f32
+        [nblk, 8, 128], of the rays rd f32 [nblk, 8, 128, 3] under seed,
+        on launch i's counter; packed: pack_scene_entries(scene)."""
+        nblk = rd.shape[0]
+        prim, atlas, aw, ah, sph_rows = packed
+        uid = None
+        if self._uid is not None:
+            uid = self._uid[:nblk * PK.BLOCK].view(nblk, PK.BH, PK.BW)
+        return PK.trace_blocks_raw(
+            params, prim, self._ro[:nblk * PK.BLOCK].view(
+                nblk, PK.BH, PK.BW, 3), rd, int(seed), atlas,
+            bounces=bounces, nee=nee, atlas_w=aw, atlas_h=ah,
+            sph_rows=sph_rows, block_active=self._gates.get(nblk), uid=uid,
+            counter=self.counters[i:i + 1])
 
-    # ---- phase 1: centre-ray probe (fetched flag + primary glyph hits) ----
-    with record_function("pt.trace"):
-        lor0, log0, lob0, ov0f, fet0 = trace(pos.expand(band, cols, 3), rd0,
-                                             frame_seed, pix_uid, mask)
-    with record_function("pt.reduce"):
-        ov0 = torch.round(ov0f).to(torch.int32)        # [pc]
-        fetched = (fet0 > 0.5).reshape(band, cols)     # jitter mask
 
-    # ---- phase 2: batched samples ----
-    B = max(1, min(sample_batch, spp))
-    n_batches = -(-spp // B)
-    # sample s of a pixel: s * (the full frame's pixels) + its global uid
-    uid_sp = (torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-              * (rows * cols) + pix_uid[None, :])      # [B, pc]
-    zc = torch.zeros(pc, dtype=torch.float32, device=dev)
-    tr, tg, tb, ocr, ocg, ocb = zc, zc, zc, zc, zc, zc
-    override = torch.zeros(pc, dtype=torch.int32, device=dev)
-    bsel = torch.arange(B, device=dev)[:, None]
-    # ray s * pc + p: the compacted pixel mask tiles over the sample axis
-    ray_active = None if mask is None else mask.repeat(B)
-    for b in range(n_batches):
-        with record_function("pt.rays"):
-            bs = batch_seed_of(frame_seed, b)
-            s_idx = b * B + torch.arange(B, device=dev)
-            rd = batch_ray_dirs(basis, px, py, aspect, fetched, uid_sp, bs,
-                                s_idx, rows)
-        with record_function("pt.trace"):
-            cr, cg, cb, ovf, _fet = trace(pos.expand(B, band, cols, 3), rd,
-                                          bs, uid_sp, ray_active)
-        with record_function("pt.reduce"):
-            cr, cg, cb = (c.reshape(B, pc) for c in (cr, cg, cb))
-            ov = torch.round(ovf).to(torch.int32).reshape(B, pc)
-            valid_s = (s_idx < spp)[:, None]
-            tr = tr + torch.where(valid_s, cr, 0.0).sum(0)
-            tg = tg + torch.where(valid_s, cg, 0.0).sum(0)
-            tb = tb + torch.where(valid_s, cb, 0.0).sum(0)
-            has_s = (ov > 0) & valid_s
-            first = torch.argmax(has_s.to(torch.int32), dim=0)  # first true
-            has = has_s.any(0)
-            onehot = bsel == first[None]
-
-            def sel(arr):
-                return torch.where(onehot, arr, 0).sum(0, dtype=arr.dtype)
-
-            new = has & (override == 0)
-            override = torch.where(new, sel(ov), override)
-            ocr = torch.where(new, sel(cr), ocr)
-            ocg = torch.where(new, sel(cg), ocg)
-            ocb = torch.where(new, sel(cb), ocb)
-
-    with record_function("pt.reduce"):
-        # phase-1 overrides (centre ray) take precedence — sample 0
-        has0 = ov0 > 0
-        override = torch.where(has0, ov0, override)
-        ocr = torch.where(has0, lor0, ocr)
-        ocg = torch.where(has0, log0, ocg)
-        ocb = torch.where(has0, lob0, ocb)
-        has_ov = override > 0
-        inv_spp = float(np.float32(1.0) / np.float32(spp))
-        chans = [torch.where(has_ov, torch.clamp(oc, 0.0, 1.0),
-                             torch.clamp(t * inv_spp, 0.0, 1.0))
-                 for oc, t in ((ocr, tr), (ocg, tg), (ocb, tb))]
-        a = torch.where(has_ov, override, 255).to(torch.uint8)
-        rgb = torch.stack(chans, dim=-1)
-        if mask is not None:  # back to pixel order: slot i holds pixel slot[i]
-            rgb = torch.empty_like(rgb).index_copy_(0, slot.long(), rgb)
-            a = torch.empty_like(a).index_copy_(0, slot.long(), a)
-    return rgb.reshape(band, cols, 3), a.reshape(band, cols)
+def _block_gate(live: torch.Tensor) -> torch.Tensor:
+    """int32 [nblk]: whether each 1,024-ray block of the flat ray mask
+    ``live`` holds a live ray (the pad rays are not)."""
+    n = live.numel()
+    pad = -n % PK.BLOCK
+    act = live.to(torch.int32)
+    if pad:
+        act = torch.cat([act, act.new_zeros(pad)])
+    return act.reshape(-1, PK.BLOCK).amax(dim=1)
 
 
 class PathtraceBackend:

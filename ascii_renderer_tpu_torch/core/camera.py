@@ -277,6 +277,12 @@ def _band_rows(rows: int, row_lo: int, band: int, device) -> torch.Tensor:
     return float(rows - 1) - r
 
 
+def grid_aspect(rows: int, cols: int, pixel_aspect: float) -> float:
+    """The grid's x scale, the float32 (cols / rows) * pixel_aspect, as a
+    Python float."""
+    return float(np.float32(cols / rows) * np.float32(pixel_aspect))
+
+
 def ndc_grid(rows: int, cols: int, pixel_aspect: float, device,
              row_lo: int = 0, n_rows: int | None = None):
     """NDC centres (px, py) f32 [band, cols] of the rows x cols cell grid's
@@ -290,7 +296,7 @@ def ndc_grid(rows: int, cols: int, pixel_aspect: float, device,
     rows of the full grid bit for bit. Returns (px, py, aspect), aspect
     the float32 (cols/rows) * pixel_aspect as a Python float."""
     band = band_of(rows, row_lo, n_rows)
-    aspect = float(np.float32(cols / rows) * np.float32(pixel_aspect))
+    aspect = grid_aspect(rows, cols, pixel_aspect)
     x = torch.arange(cols, dtype=torch.float32, device=device) + 0.5
     x = x / torch.tensor(float(cols), device=device)
     y_gl = _band_rows(rows, row_lo, band, device)

@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _FP = ctypes.POINTER(ctypes.c_float)
 _LL = ctypes.c_longlong
 _LLP = ctypes.POINTER(ctypes.c_longlong)
@@ -115,6 +116,14 @@ SIGNATURES = {
                            _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
+    # (pix_uid, fet0, out, pc, samples, n_out, rows, cols, uid0, aspect,
+    #  s0, key_x, key_y, jitter, basis9_host, stream)
+    "pt_rays_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U,
+                       _I, _FP, _P),
+    # (cr, cg, cb, ovf, tf, tov, pc, n_valid, first, resolve, lor0, log0,
+    #  lob0, ov0f, inv_spp, slot, rgb, a, stream)
+    "pt_reduce_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                         _P, _F, _P, _P, _P, _P),
     # (bases, out, rows, cols, views, sx, sy, aspect, stream)
     "ray_grid_jit_launch": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # (idx, ovr, out, V, H, W, radius, thresh, cells_per_thread, stream)

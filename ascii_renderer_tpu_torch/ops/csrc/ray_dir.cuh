@@ -1,9 +1,13 @@
 // The primary ray direction's arithmetic, shared by the ray grids of
 // ray_grid.cu and by the ray tracer's frame (rt_trace.cu), which computes
 // its primary rays itself in its grid form: one header, one rounding.
+// Also the path tracer's jitter draw (unit), which X7 (pt_rays_kernel)
+// takes for each sample ray.
 // Built with -fmad=false, so only the explicit fmaf calls fuse; sqrtf and
 // the division are IEEE (nvcc's -prec-sqrt / -prec-div defaults).
 #pragma once
+
+#include <stdint.h>
 
 namespace ray_dir {
 
@@ -35,6 +39,17 @@ __device__ __forceinline__ void jit_centre(int rows, int row, int col,
                                            float& x, float& y) {
   x = fmaf((float)col + 0.5f, sx, -1.0f) * aspect;
   y = fmaf((float)(rows - 1 - row) + 0.5f, sy, -1.0f);
+}
+
+// lowbias32 of x (x = uid ^ key), its top 23 bits as a float in [1, 2),
+// minus 1: ops/pt_kernel.hash_unit, the path tracer's jitter draw.
+__device__ __forceinline__ float unit(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return __uint_as_float((x >> 9) | 0x3F800000u) - 1.0f;
 }
 
 }  // namespace ray_dir

@@ -20,12 +20,18 @@
 // the same rays itself in its grid form. It stays as the source of device
 // rays for that kernel's rd3 form in the tools and tests.
 //
+// The render paths' form is X7, pt_rays_kernel: the path tracer's rays of
+// one sample batch (and of the probe) in one launch, each ray's cell
+// centre and jitter computed from its pixel's uid in the kernel, written
+// straight into the megakernel's padded ray block (below).
+//
 // What bounds it on the H100: memory, 8 bytes in and 12 out a ray (the
-// jitted grid: 12 out). Built with -fmad=false, so only the explicit fmaf
+// jitted grid: 12 out; X7: 12 out a ray, 4 or 8 in a pixel). Built with -fmad=false, so only the explicit fmaf
 // calls fuse; sqrtf and the division are IEEE (nvcc's -prec-sqrt /
 // -prec-div defaults). The arithmetic is ray_dir.cuh's, which the ray
 // tracer's frame (rt_trace.cu) shares.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "ray_dir.cuh"
 
@@ -45,6 +51,65 @@ ray_grid_kernel(const float* __restrict__ px, const float* __restrict__ py,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   direction<false>(px[i], py[i], b.u, b.v, b.fw, out + 3 * i);
+}
+
+// X7: the rays of one path-tracer sample batch, or of the probe (kJitter
+// false), in B5's padded ray block. Stands for the reference's batch_rays
+// (ascii_renderer_tpu/backends/pathtrace.py:579-602) with its centre rays
+// (:394-415, and :537-544 under compaction); the plain version is the
+// torch chain of ops/ray_grid.pt_rays_ref. Thread i is ray s * pc + p
+// (s < samples the batch's sample slot, p < pc the stream slot):
+//   uid      pix_uid[p], or uid0 + p (uid0 = row_lo * cols) uncompacted;
+//            row = uid / cols, col = uid % cols (the global cell);
+//   centre   x = (col + 0.5) / cols, px = (-1 + 2 x) * aspect,
+//            y = (rows - 1 - row + 0.5) / rows, py = -1 + 2 y
+//            (core/camera.ndc_grid's operations in its order, IEEE
+//            division, nothing fused);
+//   jitter   samples s0 + s > 0 of a pixel whose probe fetched no texel
+//            (!(fet0[p] > 0.5): NaN counts as not fetched): u = lowbias32
+//            of (s * rows * cols + uid) ^ key, key_x / key_y the host's
+//            (seed * 0x9E3779B1 + ctr * 0x85EBCA6B) for the counters
+//            0x40000001 / 0x40000002 (ops/pt_kernel.hash_unit), then
+//            jx = ((2 (u - 0.5)) / rows) * aspect, jy = (2 (u - 0.5)) /
+//            rows, else 0; x = px + jx and y = py + jy always added, as
+//            the plain chain adds its zeros;
+//   ray      direction<false>(x, y), the eager grid's rounding.
+// Rays n_rays .. n_out - 1 are the block's padding: 0, as
+// pt_kernel.blockify pads.
+// 12 bytes out a ray, 4 (8 with compaction) in a pixel: bytes-bound.
+template <bool kJitter>
+__global__ void __launch_bounds__(kThreads)
+pt_rays_kernel(const int* __restrict__ pix_uid, const float* __restrict__ fet0,
+               float* __restrict__ out, int pc, int n_rays, int n_out,
+               int rows, int cols, int uid0, float aspect, int s0,
+               uint32_t key_x, uint32_t key_y, Basis b) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_out) return;
+  float* o = out + 3 * (size_t)i;
+  if (i >= n_rays) {
+    o[0] = o[1] = o[2] = 0.0f;
+    return;
+  }
+  const unsigned s = (unsigned)i / (unsigned)pc;
+  const int p = i - (int)s * pc;
+  const int uid = pix_uid != nullptr ? pix_uid[p] : uid0 + p;
+  const int row = uid / cols, col = uid - row * cols;
+  const float x = ((float)col + 0.5f) / (float)cols;
+  float px = (-1.0f + 2.0f * x) * aspect;
+  const float y = ((float)(rows - 1 - row) + 0.5f) / (float)rows;
+  float py = -1.0f + 2.0f * y;
+  if (kJitter) {
+    float jx = 0.0f, jy = 0.0f;
+    if (s0 + (int)s > 0 && !(fet0[p] > 0.5f)) {
+      const uint32_t us = s * (uint32_t)(rows * cols) + (uint32_t)uid;
+      jx = ((2.0f * (ray_dir::unit(us ^ key_x) - 0.5f)) / (float)rows) *
+           aspect;
+      jy = (2.0f * (ray_dir::unit(us ^ key_y) - 0.5f)) / (float)rows;
+    }
+    px = px + jx;
+    py = py + jy;
+  }
+  direction<false>(px, py, b.u, b.v, b.fw, o);
 }
 
 // The ray tracer's grid, as the reference's jitted program rounds it, for
@@ -105,5 +170,36 @@ extern "C" int ray_grid_launch(const float* px, const float* py, float* out,
   }
   ray_grid_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                     (cudaStream_t)stream>>>(px, py, out, n, b);
+  return (int)cudaGetLastError();
+}
+
+// X7 (pt_rays_kernel): samples x pc rays into out (device floats
+// [n_out, 3], n_out >= samples * pc, the padded block), jittered where
+// jitter != 0 (then fet0 is the probe's fetch output, pc floats); pix_uid
+// (pc ints) or null for uid0 + p; basis9: uu, vv, focal * ww (host)
+extern "C" int pt_rays_launch(const int* pix_uid, const float* fet0,
+                              float* out, int pc, int samples, int n_out,
+                              int rows, int cols, int uid0, float aspect,
+                              int s0, unsigned key_x, unsigned key_y,
+                              int jitter, const float* basis9,
+                              void* stream) {
+  if (pc <= 0 || samples <= 0 || rows <= 0 || cols <= 0 || n_out < 0 ||
+      (long long)pc * samples > n_out || (jitter && fet0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Basis b;
+  for (int k = 0; k < 3; ++k) {
+    b.u[k] = basis9[k];
+    b.v[k] = basis9[3 + k];
+    b.fw[k] = basis9[6 + k];
+  }
+  const int blocks = (n_out + kThreads - 1) / kThreads;
+  if (jitter)
+    pt_rays_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        pix_uid, fet0, out, pc, pc * samples, n_out, rows, cols, uid0,
+        aspect, s0, key_x, key_y, b);
+  else
+    pt_rays_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        pix_uid, fet0, out, pc, pc * samples, n_out, rows, cols, uid0,
+        aspect, s0, key_x, key_y, b);
   return (int)cudaGetLastError();
 }

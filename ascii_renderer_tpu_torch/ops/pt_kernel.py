@@ -81,14 +81,18 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
 
 
+def hash_key(seed: int, ctr: int) -> int:
+    """The draw's key (seed * 0x9E3779B1 + ctr * 0x85EBCA6B) mod 2**32."""
+    return ((int(seed) & _M32) * 0x9E3779B1
+            + (int(ctr) & _M32) * 0x85EBCA6B) & _M32
+
+
 def hash_unit(uid: torch.Tensor, seed: int, ctr: int) -> torch.Tensor:
     """U[0,1) as a pure function of (ray uid, seed, counter): the lowbias32
     avalanche of uid ^ (seed * 0x9E3779B1 + ctr * 0x85EBCA6B) on uint32,
     its top 23 bits as a float in [1, 2), minus 1. Computed in int64 with
     the 32-bit wrap made explicit (torch has no uint32 arithmetic)."""
-    k = ((int(seed) & _M32) * 0x9E3779B1 + (int(ctr) & _M32) * 0x85EBCA6B) \
-        & _M32
-    x = (uid.to(torch.int64) & _M32) ^ k
+    x = (uid.to(torch.int64) & _M32) ^ hash_key(seed, ctr)
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
@@ -455,6 +459,16 @@ def trace_blocks_raw_ref(params, prim, ro, rd, seed, atlas, *, bounces: int,
 # --------------------------------------------------------------------------
 # wrapper
 # --------------------------------------------------------------------------
+def blockify(a: torch.Tensor, n: int, nblk: int) -> torch.Tensor:
+    """The first n vectors of a [..., 3] as the kernel's ray block f32
+    [nblk, BH, BW, 3], the rays past n zero."""
+    flat = a.reshape(n, 3)
+    pad = nblk * BLOCK - n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad, 3))])
+    return flat.reshape(nblk, BH, BW, 3).contiguous()
+
+
 def _check(params, prim, ro, rd, atlas, atlas_w, atlas_h, sph_rows,
            block_active, uid):
     nblk = ro.shape[0]
@@ -487,7 +501,7 @@ def _check(params, prim, ro, rd, atlas, atlas_w, atlas_h, sph_rows,
 
 def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
                      nee: bool, atlas_w: int, atlas_h: int, sph_rows: int,
-                     block_active=None, uid=None):
+                     block_active=None, uid=None, counter=None):
     """params f32 [8] (light centre xyz, radius, colour rgb, eps); prim f32
     [rows, 128], sphere rows first (``sph_rows`` of them); ro/rd f32
     [B, 8, 128, 3]; seed int (int32 value); atlas int32 [>= texels] packed
@@ -497,7 +511,9 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
 
     Returns (lor, log, lob, ov, fet), each f32 [B, 8, 128]. CPU tensors run
     the plain version; CUDA tensors launch the kernel once (persistent
-    warps that take rays from a counter the wrapper zeroes)."""
+    warps that take rays from a counter: ``counter``, an int32 CUDA tensor
+    whose first element is 0, which the launch uses up; by default the
+    wrapper zeroes one, a launch of its own)."""
     nblk, texels = _check(params, prim, ro, rd, atlas, atlas_w, atlas_h,
                           sph_rows, block_active, uid)
     if ro.device.type == "cpu":
@@ -521,7 +537,14 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
     n = nblk * BLOCK
     outs = [torch.empty((nblk, BH, BW), dtype=torch.float32, device=ro.device)
             for _ in range(5)]
-    next_ray = torch.zeros(1, dtype=torch.int32, device=ro.device)
+    if counter is None:
+        next_ray = torch.zeros(1, dtype=torch.int32, device=ro.device)
+    else:
+        if counter.dtype != torch.int32 or counter.numel() < 1:
+            raise ValueError("trace_blocks_raw: counter must be int32 with "
+                             "one element at least")
+        next_ray = counter
+        _build.require_cuda(ro, next_ray, what="trace_blocks_raw")
     err = _build.lib().pt_trace_launch(
         params.data_ptr(), prim.data_ptr(), prim.shape[0] * PACK,
         sph_rows * PACK, ro.data_ptr(), rd.data_ptr(),

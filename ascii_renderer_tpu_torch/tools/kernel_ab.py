@@ -122,6 +122,16 @@ call by the profiler; chars digested); B4's int form at the planes the
 tracer's frame, the PT reference run and the farm (median, busy ms,
 launches, and the host ms and launches a frame of the stages
 ``chip_smoke.TAIL_STAGES``), about 3 minutes a side.
+``--only pt`` times the path tracer's kernel-path frames (``pt_frames``):
+the PT reference run (96x36, spp 64), the HD arm (960x540, spp 8), the
+"pathtrace" frame step (96x36) and the progressive tracer (960x540, spp
+8 a batch, the camera moved every batch, so every pixel is active and
+the stream is the compacted one): the median (wall ms over 20 calls),
+device busy ms, kernel launches a call, and the host ms and launches a
+call of the stages ``pt.setup``, ``pt.rays``, ``pt.trace`` and
+``pt.reduce``; the reference run's, the HD arm's and a progressive
+batch's alpha planes digested (their rgb may differ in the last bits:
+a side whose fold sums in another order), about 2 minutes a side.
 """
 
 from __future__ import annotations
@@ -183,10 +193,13 @@ def _shared_rays(cs, dev, rows: int, cols: int, B: int):
     pose, made here in float64 and rounded once, so that both sides trace
     the same rays whatever their own ray grids round: the cell centres,
     samples s > 0 jittered by seeded uniform draws as render_pt jitters
-    them. Blocked by the side's own ``_blockify``."""
+    them. Blocked by the side's own ``blockify`` (an older checkout keeps
+    it in the backend, as ``_blockify``)."""
     import numpy as np
     import torch
     from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PK
+    blockify = getattr(PK, "blockify", None) or PT._blockify
     cam = cs._pt_camera()
     yaw, pitch = float(cam.yaw), float(cam.pitch)
     ww = np.array([np.cos(pitch) * np.cos(yaw), np.sin(pitch),
@@ -206,8 +219,8 @@ def _shared_rays(cs, dev, rows: int, cols: int, B: int):
     rd = (x[..., None] * uu + y[..., None] * vv + focal * ww)
     rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
     n = B * rows * cols
-    return PT._blockify(torch.from_numpy(rd.astype(np.float32)).to(dev), n,
-                        -(-n // 1024))
+    return blockify(torch.from_numpy(rd.astype(np.float32)).to(dev), n,
+                    -(-n // 1024))
 
 
 def worker(root: str, only: str = "all") -> dict:
@@ -250,6 +263,9 @@ def worker(root: str, only: str = "all") -> dict:
         return out
     if only == "glyph":
         glyph_tail(cs, dev, out)
+        return out
+    if only == "pt":
+        pt_frames(cs, dev, out)
         return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
@@ -868,6 +884,56 @@ def shade_and_build(cs, dev, out) -> None:
     torch.cuda.synchronize()
 
 
+PT_STAGES = ("pt.setup", "pt.rays", "pt.trace", "pt.reduce")
+
+
+def pt_frames(cs, dev, out) -> None:
+    """The path tracer's kernel-path frames (module docstring, ``--only
+    pt``): median, busy ms and launches a call, the PT_STAGES' host ms
+    and launches a call; alpha planes digested."""
+    import math
+    import torch
+    from ascii_renderer_tpu_torch.backends.registry import Renderer
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    for key in ("path_ms", "path_busy_ms", "path_launches", "stage_ms",
+                "stage_launches"):
+        out[key] = {}
+    hd_cfg = Config(path_tracer=PathTracerConfig(samples_per_batch=8))
+    runs = {}
+    for label, cfg, rows, cols in (
+            ("PT reference run 96x36 spp64", Config(), 36, 96),
+            ("PT HD arm 960x540 spp8", hd_cfg, cs.ROWS, cs.COLS)):
+        r = Renderer(cfg, "pathtrace", device=dev)
+        r.set_scene(cs._pt_scene(device=dev))
+        out["digest"][f"{label} alpha"] = _digest(
+            [r.render(0.0, cs._pt_camera(), rows, cols).a.to(torch.int32)])
+        runs[label] = (cs.run_pt_path(cfg, rows, cols, 1, 3, label), 20)
+    runs["PT frame step 96x36"] = (cs.run_pt_step_path(dev), 20)
+    tracer = cs._progressive_tracer(dev, hd_cfg, cs.ROWS, cs.COLS, True)
+    poses = [cs._pt_camera(), Camera.create(pos=(0.0, 2.5, 5.9),
+                                            yaw=-math.pi / 2)]
+    box = {"i": 0}
+
+    def prog():
+        box["i"] += 1
+        return tracer.step(poses[box["i"] % 2])
+
+    out["digest"]["progressive HD batch alpha"] = _digest(
+        [prog()[1].to(torch.int32)])
+    runs["progressive HD batch 960x540 spp8"] = (prog, 10)
+    for label, (fn, n) in runs.items():
+        out["path_ms"][label] = statistics.median(cs._timed(fn, n))
+        busy, launches, stages, host = cs.profile_frames(
+            fn, 3, ("pt.", "frame.", "glyph", "accum."), label)
+        out["path_busy_ms"][label] = busy
+        out["path_launches"][label] = launches
+        for st in PT_STAGES:
+            out["stage_ms"][f"{label} {st}"] = host.get(st, 0.0)
+            out["stage_launches"][f"{label} {st}"] = stages.get(st, 0.0)
+        torch.cuda.synchronize()
+
+
 def paths(cs, dev, out) -> None:
     """The host median (``chip_smoke._timed``), device busy ms and kernel
     launches a call (``chip_smoke.profile_frames``, 3 calls) of the paths
@@ -933,12 +999,13 @@ def main() -> int:
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=("all", "bins", "shade", "rt",
-                                       "glyph"),
+                                       "glyph", "pt"),
                     default="all",
                     help="bins: the raster's bins and the paths alone; "
                     "shade: K2 at its callers, X10 and the headline; rt: "
                     "the ray tracer's render path; glyph: the camera "
-                    "chains, the glyph tail and the paths' tail stages")
+                    "chains, the glyph tail and the paths' tail stages; "
+                    "pt: the path tracer's frames and their stages")
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.worker, a.only)), flush=True)

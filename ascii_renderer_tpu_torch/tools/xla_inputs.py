@@ -7,7 +7,9 @@ special values, each operand form the wrapper packs), scenes and shade
 tables for the deferred shade, the ray tracer's test scenes, triangle
 soups at the near plane for the clip and the plane table, screen
 channel dicts for the bin entries' tile keys and bbox dicts for their bin
-keys, float frames with alpha and UI planes for the glyph tail. The
+keys, float frames with alpha and UI planes for the glyph tail, the path
+tracer's megakernel outputs for its batch fold (``ops/pt_reduce``) and
+stream orders for its sample rays (``ops/ray_grid.pt_rays``). The
 kernels' tests and
 ``chip_smoke.py``'s checks build their inputs here."""
 
@@ -361,3 +363,40 @@ def glyph_frame(shape, seed=0):
     ui_mask = rng.random(n) < 0.05
     return (rgb, alpha.reshape(shape), ui_chars.reshape(shape),
             ui_mask.reshape(shape))
+
+
+def pt_outputs(n_rays: int, seed=0, p_override=0.04):
+    """The megakernel's five outputs (lor, log, lob, ov, fet) for n_rays
+    rays, f32 numpy: radiance in [0, 3) with 0.5% NaN and 1% zeros; the
+    override 0 for most rays, a glyph code (1-255) for a share
+    ``p_override``, a tie of rint (0.5, 1.5, 2.5, 254.5) for a quarter of
+    that; fet 1 for 30% and NaN for 1%."""
+    rng = np.random.default_rng(seed)
+    rad = []
+    for _ in range(3):
+        c = rng.uniform(0.0, 3.0, n_rays).astype(np.float32)
+        u = rng.random(n_rays)
+        c[u < 0.01] = 0.0
+        c[u > 0.995] = np.nan
+        rad.append(c)
+    ov = np.zeros(n_rays, np.float32)
+    u = rng.random(n_rays)
+    codes = rng.integers(1, 256, n_rays).astype(np.float32)
+    ov[u < p_override] = codes[u < p_override]
+    ties = np.asarray([0.5, 1.5, 2.5, 254.5], np.float32)
+    tie = (u >= p_override) & (u < 1.25 * p_override)
+    ov[tie] = ties[rng.integers(0, 4, int(tie.sum()))]
+    fet = (rng.random(n_rays) < 0.3).astype(np.float32)
+    fet[rng.random(n_rays) < 0.01] = np.nan
+    return (*rad, ov, fet)
+
+
+def pixel_order(rows: int, cols: int, frac: float, seed=0):
+    """A seeded active mask bool [rows, cols] (about ``frac`` of the
+    pixels) and its stable partition, active first, int32 [rows * cols]:
+    the stream order ``render_pt(pixel_active=)`` gives the pixels."""
+    rng = np.random.default_rng(seed)
+    act = rng.random((rows, cols)) < frac
+    flat = act.reshape(-1)
+    order = np.concatenate([np.flatnonzero(flat), np.flatnonzero(~flat)])
+    return act, order.astype(np.int32)

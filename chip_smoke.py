@@ -35,6 +35,17 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    - the PT ray grid (a kernel for XLA code: no Pallas kernel computes
      it) at the runs' centre grids and jittered batches, 96x36 and
      960x540, at two poses: bit for bit; timed at the HD arm's batch;
+   - X7, the path tracer's sample rays (a kernel for XLA code: each ray
+     from its pixel's uid, jitter included, into B5's ray block) at the
+     reference run's batches 0 and 1 and probe, the HD arm's batch and
+     probe, a compacted order and a band, at two poses, against the
+     plain chain: bit for bit; timed at the HD arm's and the reference
+     batch; X14, the batch fold and the frame's resolve, on seeded
+     megakernel outputs (overrides in several samples, NaN radiance, a
+     last batch past spp, a compacted order, the HD arm's batch) and on
+     a PT reference frame's own outputs: every state and the resolve bit
+     for bit; timed at a reference batch and the HD arm's batch with the
+     resolve;
    - B4 over the view farm's batch of glyph planes [1024, 36, 96] in one
      launch, radius 1..3, random override masks: equal to the plain
      version and to 1,024 one-plane launches; timed at the K the wrapper
@@ -158,9 +169,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      scene with its atlas, 96x36, spp 64, 5 bounces, NEE; a fresh
      spp-2 / 2-bounce frame 0 at the poster pose must equal the port's
      CPU render's alpha plane and carry 117 overrides; then 4 checked
-     frames (the pose, then 3 moves) and 20 timed ones;
+     frames (the pose, then 3 moves) and 20 timed ones; its profile's
+     stage launches must be pt.rays 3 (X7: the probe and 2 batches),
+     pt.trace 3 (B5) and pt.reduce 2 (X14), and no PT ray grid launch;
    - path tracer, HD arm: 960x540, spp 8 (one batch): 2 checked frames,
-     10 timed;
+     10 timed; stage launches pt.rays 2, pt.trace 2, pt.reduce 1;
    - the frame step of entry() (the demo room through render_soup, the
      binned walk B6, then the UI composite and the glyph pass) at 96x36:
      frame 0's chars and tint must equal the port's CPU step, then 3
@@ -209,7 +222,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      "q": exit 0 within 20 s, its FrameStats (fps, p50, p95) printed; the
      exactness canary (utils/exactness.run_checks("cuda"): B3 and B7' at
      [40, 69632], a float32 identity product) must say "ok". B5, B4, B6,
-     B3, B7', the PT ray grid and K3 must launch in the phase;
+     B3, B7', X7, X14 and K3 must launch in the phase;
      expand_pixels (the pixels mode's glyph bitmap) is profiled.
    Each path's kernels must have launched: the raster paths' shade
    through K2, every frame of the ray tracer and each farm through K3
@@ -1582,6 +1595,8 @@ def _pt_batch(dev, scene, rows, cols, B, seed):
     from ascii_renderer_tpu_torch.backends import pathtrace as PT
     from ascii_renderer_tpu_torch.core.camera import camera_basis, ndc_grid
     from ascii_renderer_tpu_torch.core.config import PathTracerConfig
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    from ascii_renderer_tpu_torch.ops import ray_grid as RYG
     cam = _pt_camera()
     basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
     px, py, aspect = ndc_grid(rows, cols, PIXEL_ASPECT, dev)
@@ -1589,16 +1604,16 @@ def _pt_batch(dev, scene, rows, cols, B, seed):
     uid = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * pc
            + torch.arange(pc, dtype=torch.int32, device=dev)[None])
     fetched = torch.zeros(pc, dtype=torch.bool, device=dev)
-    rd = PT.batch_ray_dirs(basis, px, py, aspect, fetched, uid, seed,
-                           torch.arange(B, device=dev))
+    rd = RYG.batch_ray_dirs(basis, px, py, aspect, fetched, uid, seed,
+                            torch.arange(B, device=dev))
     n = B * pc
     nblk = -(-n // 1024)
     ro = cam.pos.to(dev).expand(B, rows, cols, 3)
     lc, lr = PT.get_light_sphere(scene, 0.0)
     lcol = torch.tensor(PathTracerConfig().light_color) * 1.3
     prim, atlas, aw, ah, sph_rows = PT.pack_scene_entries(scene)
-    args = (PT._params(lc, lr, lcol, dev), prim, PT._blockify(ro, n, nblk),
-            PT._blockify(rd, n, nblk), seed, atlas)
+    args = (PT._params(lc, lr, lcol, dev), prim, PTK.blockify(ro, n, nblk),
+            PTK.blockify(rd, n, nblk), seed, atlas)
     kw = dict(bounces=5, nee=True, atlas_w=aw, atlas_h=ah, sph_rows=sph_rows)
     uid = torch.cat([uid.reshape(-1), uid.new_zeros(nblk * 1024 - n)])
     return args, kw, uid.reshape(nblk, 8, 128), n
@@ -1737,6 +1752,231 @@ def check_ray_grid(dev):
             rec = _rec("ray_grid", "ray_grid.cu", "", 0.0, ms, plain, bound)
             # the XLA code it stands for: no Pallas kernel computes the grid
             rec["replaces"] = "ascii_renderer_tpu/backends/pathtrace.py:394"
+    return rec
+
+
+# render_pt's sample-ray (X7) calls held to the plain chain: (rows, cols,
+# samples a batch (0: the probe), batch index, row band or None, stream
+# order compacted): the reference run's batches 0 and 1 and probe, the HD
+# arm's batch and probe, a compacted reference batch, a band's batch, a
+# compacted band's probe
+PT_RAY_CALLS = {"reference batch 0": (36, 96, 32, 0, None, False),
+                "reference batch 1": (36, 96, 32, 1, None, False),
+                "reference probe": (36, 96, 0, 0, None, False),
+                "HD arm batch": (540, 960, 8, 0, None, False),
+                "HD probe": (540, 960, 0, 0, None, False),
+                "compacted reference batch 1": (36, 96, 32, 1, None, True),
+                "band batch 1": (36, 96, 32, 1, (12, 12), False),
+                "compacted band probe": (36, 96, 0, 0, (12, 12), True)}
+
+
+def _pt_rays_call(dev, basis, rows, cols, B, b, band, compacted):
+    """(keywords of a pt_rays call, rays, pixels): a mix of fetched,
+    unfetched and NaN probe pixels (tools/xla_inputs.pt_outputs), a
+    seeded compacted order."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    from ascii_renderer_tpu_torch.tools.xla_inputs import (pixel_order,
+                                                           pt_outputs)
+    row_lo, n_rows = band if band else (0, rows)
+    pc = n_rows * cols
+    kw = dict(row_lo=row_lo, n_rows=n_rows, device=dev)
+    if compacted:
+        order = pixel_order(n_rows, cols, 0.3, seed=b)[1] + row_lo * cols
+        kw["pix_uid"] = torch.from_numpy(order).to(dev)
+    if B:
+        kw.update(fet0=torch.from_numpy(pt_outputs(
+            -(-pc // 1024) * 1024, seed=rows + b)[4]).to(dev), samples=B,
+            s0=b * B, seed=PT.batch_seed_of(7, b))
+    return (basis, rows, cols, PIXEL_ASPECT), kw, max(B, 1) * pc, pc
+
+
+def check_pt_rays(dev):
+    """X7 (ops/ray_grid.pt_rays, the render paths' sample rays) against
+    its plain chain (pt_rays_ref) on the same CUDA tensors at
+    PT_RAY_CALLS, at the poster pose and a pose off the axes: bit for
+    bit, pad rays 0. Timed at the HD arm's batch (the record) and the
+    reference batch; bound: 12 bytes out a ray, and in a pixel 4 for the
+    fetch flag where the call jitters and 4 for the uid where it is
+    compacted."""
+    import torch
+    from ascii_renderer_tpu_torch.core.camera import Camera, camera_basis
+    from ascii_renderer_tpu_torch.ops import ray_grid as RYG
+    rec = None
+    for cam in (_pt_camera(), Camera.create(pos=(0.3, 1.2, 4.0), yaw=-1.234,
+                                            pitch=0.321)):
+        basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+        for label, call in PT_RAY_CALLS.items():
+            args, kw, n, pc = _pt_rays_call(dev, basis, *call)
+            got = RYG.pt_rays(*args, **kw)
+            want = RYG.pt_rays_ref(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), f"X7 {label} differs"
+            assert not got.reshape(-1, 3)[n:].any(), f"X7 {label}: pad rays"
+        if rec is not None:
+            continue
+        times = {}
+        for label in ("HD arm batch", "reference batch 0"):
+            args, kw, n, pc = _pt_rays_call(dev, basis,
+                                            *PT_RAY_CALLS[label])
+            ms = _device_ms(lambda: RYG.pt_rays(*args, **kw),
+                            "pt_rays_kernel", 1)
+            plain = _event_ms(lambda: RYG.pt_rays_ref(*args, **kw), 5)
+            # 12 bytes out a ray; in a pixel, the fetch flag (4) where the
+            # call jitters and the uid (4) where it is compacted; ~40
+            # operations a ray (the hash, the jitter, the direction)
+            n_bytes = 12 * n + 4 * pc * (("fet0" in kw) + ("pix_uid" in kw))
+            bound = _bound(n_bytes, 40 * n)
+            times[label] = (ms, plain, bound)
+            print(f"X7 {label} ({n} rays): kernel {ms:.5f} ms, plain "
+                  f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}, "
+                  f"{n_bytes / 1e6:.2f} MB)", flush=True)
+        ms, plain, bound = times["HD arm batch"]
+        rec = _rec("pt_rays", "ray_grid.cu", "", 0.0, ms, plain, bound)
+        rec["replaces"] = "ascii_renderer_tpu/backends/pathtrace.py:579"
+        rec["ms_reference_batch"], rec["plain_ms_reference_batch"], \
+            (rec["bound_ms_reference_batch"], _b) = times["reference batch 0"]
+    print(f"X7: bit-identical to the plain chain at {len(PT_RAY_CALLS)} "
+          f"calls (batches 0 and 1, probes, 96x36 and 960x540, fetched / "
+          f"unfetched / NaN, compacted, a band), two poses", flush=True)
+    return rec
+
+
+# X14's folds held to the plain version: (pixels, samples a batch, spp,
+# compacted): the reference run's two batches of 32, a last batch past spp
+# (spp 40 at 32), the HD arm's one batch of 8, a compacted order
+PT_FOLD_CALLS = {"reference 2 x 32": (3456, 32, 64, False),
+                 "spp 40 at 32": (3456, 32, 40, False),
+                 "HD arm 1 x 8": (518400, 8, 8, False),
+                 "compacted 3 x 4": (3456, 4, 10, True)}
+
+
+def _fold_pair(label, probe, batches, B, spp, slot, pc):
+    """Folds ``batches`` (the megakernel's outputs a batch) with X14 and
+    with its plain version into two states; each state bit for bit after
+    each batch (NaN in the same places), then the resolve's rgb and
+    alpha. Returns the number of overridden pixels."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import pt_reduce as PR
+    states = [PR.new_state(pc, probe[0].device) for _ in range(2)]
+    for b, outs in enumerate(batches):
+        last = b == len(batches) - 1
+        kw = dict(first=b == 0, probe=probe[:4] if last else None, spp=spp,
+                  slot=slot)
+        n_valid = min(B, spp - b * B)
+        got = PR.fold(states[0], *outs[:4], n_valid, **kw)
+        want = PR.fold_ref(states[1], *outs[:4], n_valid, **kw)
+        torch.cuda.synchronize()
+        if not last:
+            for g, w in zip(*states):
+                _same_nan_bits(g.view(torch.float32), w.view(torch.float32),
+                               f"X14 {label} batch {b} state")
+    _same_nan_bits(got[0], want[0], f"X14 {label} rgb")
+    assert torch.equal(got[1], want[1]), f"X14 {label}: alpha differs"
+    return int((got[1] != 255).sum())
+
+
+def _same_nan_bits(got, want, what):
+    import torch
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), f"{what}: NaN differs"
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32)), f"{what} differs"
+
+
+def _frame_outputs(dev, rows, cols, cfg):
+    """The megakernel's outputs of one render_pt frame of the demo scene
+    at the poster pose (probe, then each batch), captured from its calls."""
+    from ascii_renderer_tpu_torch.backends.registry import Renderer
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    orig, seen = PTK.trace_blocks_raw, []
+
+    def rec(*a, **k):
+        out = orig(*a, **k)
+        seen.append([o.clone() for o in out])
+        return out
+
+    r = Renderer(cfg, "pathtrace", device=dev)
+    r.set_scene(_pt_scene(device=dev))
+    PTK.trace_blocks_raw = rec
+    try:
+        r.render(0.0, _pt_camera(), rows, cols)
+    finally:
+        PTK.trace_blocks_raw = orig
+    return seen[0], seen[1:]
+
+
+def check_pt_reduce(dev):
+    """X14 (ops/pt_reduce.fold) against its plain version on the same
+    CUDA tensors: at PT_FOLD_CALLS on seeded megakernel outputs
+    (overrides in several samples, NaN radiance, ties of rint), and on the
+    real outputs of a PT reference frame (96x36, spp 64: the probe and two
+    batches of 32): every state and the resolve bit for bit. Timed at the
+    launches the driven paths make: the reference run's two (batch 0's
+    first fold, batch 1's fold with the resolve) and the HD arm's one
+    batch, which folds first and resolves (the record); bound: 16 bytes
+    read a ray, the state's 28 bytes a pixel read unless the fold is the
+    first and written unless it resolves, the resolve's 16 in and 13 out."""
+    import torch
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.ops import pt_reduce as PR
+    from ascii_renderer_tpu_torch.tools.xla_inputs import (pixel_order,
+                                                           pt_outputs)
+
+    def outs(n, seed):
+        return [torch.from_numpy(x).to(dev)
+                for x in pt_outputs(-(-n // 1024) * 1024, seed=seed,
+                                    p_override=0.003)]
+
+    for label, (pc, B, spp, compacted) in PT_FOLD_CALLS.items():
+        slot = None
+        if compacted:
+            slot = torch.from_numpy(pixel_order(36, 96, 0.3, seed=4)[1]).to(
+                dev)
+        probe = outs(pc, 0)
+        batches = [outs(B * pc, 1 + b) for b in range(-(-spp // B))]
+        n_ov = _fold_pair(label, probe, batches, B, spp, slot, pc)
+        print(f"X14 {label} ({pc} pixels): bit-identical, {n_ov} "
+              f"overridden pixels", flush=True)
+    probe, batches = _frame_outputs(dev, 36, 96, Config())
+    n_ov = _fold_pair("PT reference frame", probe, batches, 32, 64, None,
+                      3456)
+    print(f"X14 on a PT reference frame's megakernel outputs: bit-identical, "
+          f"{n_ov} overridden pixels", flush=True)
+    # timing: the launches the driven paths make (the reference run, the
+    # frame step and the progressive run fold two batches of 32; the HD arm
+    # folds and resolves its one batch of 8)
+    times = {}
+    for label, pc, B, first, resolve in (
+            ("reference batch 0", 3456, 32, True, False),
+            ("reference batch 1 with the resolve", 3456, 32, False, True),
+            ("HD arm batch with the resolve", 518400, 8, True, True)):
+        state = PR.new_state(pc, dev)
+        state[0].zero_()
+        state[1].zero_()
+        o = outs(B * pc, 5)
+        probe = outs(pc, 6)
+        kw = dict(first=first, probe=probe[:4] if resolve else None,
+                  spp=B if first else 2 * B)
+        ms = _device_ms(lambda: PR.fold(state, *o[:4], B, **kw),
+                        "pt_reduce_kernel", 1)
+        plain = _event_ms(lambda: PR.fold_ref(state, *o[:4], B, **kw), 3)
+        n_bytes = 16 * B * pc + (16 + 13 if resolve else 0) * pc + (
+            0 if first else 28) * pc + (0 if resolve else 28) * pc
+        bound = _bound(n_bytes, (3 + 1) * B * pc + 12 * pc)
+        times[label] = (ms, plain, bound)
+        print(f"X14 {label} ({B * pc} rays): kernel {ms:.5f} ms, plain "
+              f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}, "
+              f"{n_bytes / 1e6:.2f} MB)", flush=True)
+    ms, plain, bound = times["HD arm batch with the resolve"]
+    rec = _rec("pt_reduce", "pt_reduce.cu", "", 0.0, ms, plain, bound)
+    rec["replaces"] = "ascii_renderer_tpu/backends/pathtrace.py:611"
+    for i, label in enumerate(("reference batch 0",
+                               "reference batch 1 with the resolve")):
+        rec[f"ms_reference_batch{i}"], \
+            rec[f"plain_ms_reference_batch{i}"], \
+            (rec[f"bound_ms_reference_batch{i}"], _b) = times[label]
     return rec
 
 
@@ -3634,6 +3874,20 @@ def _stage_launches(prof, prefixes, n):
     return out
 
 
+def pt_stages(label, stages, n_batches):
+    """A kernel-path PT frame's stage launches (profile_frames' stage
+    counts): pt.rays is X7 once for the probe and once a batch, pt.trace
+    B5 likewise, pt.reduce X14 once a batch; pt.setup builds the frame's
+    blocks and counters."""
+    want = {"pt.rays": 1 + n_batches, "pt.trace": 1 + n_batches,
+            "pt.reduce": n_batches}
+    got = {k: stages.get(k, 0.0) for k in want}
+    print(f"{label}: kernel launches a frame by stage {json.dumps(got)}, "
+          f"pt.setup {stages.get('pt.setup', 0.0):g} ({n_batches} batches)",
+          flush=True)
+    assert got == want, (label, got, want)
+
+
 def profile_frames(frame_fn, n, prefixes, label):
     """torch.profiler over n frames: per-stage host and device ms and
     kernel launches per frame (the record_function ranges), the device's
@@ -4820,10 +5074,14 @@ def k3_loss(sizes, trace, rec):
 # after it
 RASTER_WALK_LAUNCHES = 15
 
-# kernels the parallel phase must launch: the PT ray grid, B5, B4 (the
-# dryrun's farm), K3 (RT bands and farms) and every walk and setup of the
-# raster bands
-PARALLEL_KERNELS = ("pt_megakernel", "ray_grid",
+# the kernels of the path tracer's kernel path: its sample rays X7, B5 and
+# its batch fold X14
+PT_KERNELS = ("pt_rays", "pt_megakernel", "pt_reduce")
+
+# kernels the parallel phase must launch: the PT sample rays and fold, B5,
+# B4 (the dryrun's farm), K3 (RT bands and farms) and every walk and setup
+# of the raster bands
+PARALLEL_KERNELS = ("pt_megakernel", "pt_rays", "pt_reduce",
                     "modal_vote", "setup2dh", "pack", "raster_group_walk",
                     "raster_group_walk_k2", "raster_group_walk_grouped",
                     "pack_channels", "setup2dh_packed", "rt_trace",
@@ -4847,6 +5105,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import pack as PK
     from ascii_renderer_tpu_torch.ops import plane_table as PT
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    from ascii_renderer_tpu_torch.ops import pt_reduce as PR
     from ascii_renderer_tpu_torch.ops import raster_bins as RB
     from ascii_renderer_tpu_torch.ops import raster_clip as RCL
     from ascii_renderer_tpu_torch.ops import raster_group as RG
@@ -4902,6 +5161,8 @@ def main() -> int:
                 "raster_subtile_walk_packed_d": (RS, "launches_packed_d"),
                 "ray_grid": (RYG, "launches"),
                 "ray_grid_jit": (RYG, "jit_launches"),
+                "pt_rays": (RYG, "pt_launches"),
+                "pt_reduce": (PR, "launches"),
                 "pt_megakernel_gated": (PTK, "launches_gated"),
                 "fma32": (KFP, "launches"), "raster_shade": (RSH, "launches"),
                 "rt_trace": (RTK, "launches"),
@@ -4918,6 +5179,8 @@ def main() -> int:
     recs.append(check_modal(dev, soup, scene))
     recs.append(check_pt_kernel(dev))
     recs.append(check_ray_grid(dev))
+    recs.append(check_pt_rays(dev))
+    recs.append(check_pt_reduce(dev))
     recs.append(check_modal_batched(dev))
     recs += check_glyph_tail(dev, soup, scene)
     recs.append(check_ray_grid_jit(dev))
@@ -5021,21 +5284,24 @@ def main() -> int:
     c_ref, ref_fn = _path_counts(counters, lambda: run_pt_path(
         cfg_ref, 36, 96, 4, 20, "PT reference run 96x36 spp64"))
     print(f"launches on the PT reference run: {c_ref}", flush=True)
-    for k in ("pt_megakernel", "ray_grid", "modal_vote"):
+    for k in PT_KERNELS + ("modal_vote",):
         assert c_ref[k] > 0, f"{k} never launched on the PT reference run"
+    assert c_ref["ray_grid"] == 0, c_ref["ray_grid"]
     by_name["pt_megakernel"]["launches"] = c_ref["pt_megakernel"]
-    tails["PT reference run"] = tail_stages(
-        "PT reference run", profile_frames(ref_fn, 3, ("pt.", "frame.",
-                                                       "glyph"),
-                                           "PT reference run"),
-        counters, ref_fn)
+    prof = profile_frames(ref_fn, 3, ("pt.", "frame.", "glyph"),
+                          "PT reference run")
+    pt_stages("PT reference run", prof[2], 2)
+    tails["PT reference run"] = tail_stages("PT reference run", prof,
+                                            counters, ref_fn)
     cfg_hd = Config(path_tracer=PathTracerConfig(samples_per_batch=8))
     c_hd, hd_fn = _path_counts(counters, lambda: run_pt_path(
         cfg_hd, ROWS, COLS, 2, 10, "PT HD arm 960x540 spp8"))
     print(f"launches on the PT HD arm: {c_hd}", flush=True)
-    for k in ("pt_megakernel", "ray_grid", "modal_vote"):
+    for k in PT_KERNELS + ("modal_vote",):
         assert c_hd[k] > 0, f"{k} never launched on the PT HD arm"
-    profile_frames(hd_fn, 3, ("pt.", "frame.", "glyph"), "PT HD arm")
+    pt_stages("PT HD arm", profile_frames(hd_fn, 3, ("pt.", "frame.",
+                                                     "glyph"),
+                                          "PT HD arm")[2], 1)
 
     # small- and mid-scale raster: B6 / B6' and B7 / B7' against their
     # plain versions, then the entry step, config 1, config 2, the
@@ -5092,7 +5358,7 @@ def main() -> int:
     assert max(walk_launches.values()) <= RASTER_WALK_LAUNCHES, walk_launches
     c_pts, pts_fn = _path_counts(counters, lambda: run_pt_step_path(dev))
     print(f"launches on the PT frame step: {c_pts}", flush=True)
-    for k in ("pt_megakernel", "ray_grid", "modal_vote"):
+    for k in PT_KERNELS + ("modal_vote",):
         assert c_pts[k] > 0, f"{k} never launched on the PT frame step"
     tails["PT frame step"] = tail_stages(
         "PT frame step", profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"),
@@ -5129,7 +5395,7 @@ def main() -> int:
     c_prog, prog_fn = _path_counts(counters,
                                    lambda: run_progressive_path(dev))
     print(f"launches on the progressive tracer: {c_prog}", flush=True)
-    for k in ("pt_megakernel", "pt_megakernel_gated", "ray_grid"):
+    for k in PT_KERNELS + ("pt_megakernel_gated",):
         assert c_prog[k] > 0, f"{k} never launched on the progressive path"
     profile_frames(prog_fn, 3, ("pt.", "accum."), "progressive HD batch")
 
@@ -5138,8 +5404,8 @@ def main() -> int:
     c_cli, expand_fn = _path_counts(counters, lambda: run_cli_path(dev))
     print(f"launches in the CLI phase: {c_cli}", flush=True)
     for k in ("pt_megakernel", "modal_vote", "raster_bins_walk", "pack",
-              "pack_channels_split", "ray_grid", "rt_trace", "frame_bytes",
-              "modal_vote_chars"):
+              "pack_channels_split", "pt_rays", "pt_reduce", "rt_trace",
+              "frame_bytes", "modal_vote_chars"):
         assert c_cli[k] > 0, f"{k} never launched in the CLI phase"
     # every vote of the CLI's frames came through the chars form, one X12a
     # launch before each glyph launch
@@ -5155,7 +5421,7 @@ def main() -> int:
     print(f"launches in the parallel phase: {c_par}", flush=True)
     for k in PARALLEL_KERNELS:
         assert c_par[k] > 0, f"{k} never launched in the parallel phase"
-        if k not in ("pack_channels", "ray_grid", "rt_trace",
+        if k not in ("pack_channels", "pt_rays", "pt_reduce", "rt_trace",
                      "raster_shade"):  # summed at the end
             by_name[k]["launches"] += c_par[k]
     for k in ("bin_entries_keys", "group_build"):  # the bunny's bands
@@ -5193,6 +5459,8 @@ def main() -> int:
         by_name[k]["launches"] = sum(
             c[k] for c in (c_gen, c_entry, c_cube, c_tea, c_mid, c_pts,
                            c_par, *c_or.values()))
+    # the PT core's centre rays and jittered batches: no kernel-path frame
+    # launches the ray grid, X7 computes its rays
     by_name["ray_grid"]["launches"] = sum(
         c["ray_grid"] for c in (c_ref, c_hd, c_pts, c_core, c_par))
     # pack_channels_split's one driven caller is the exactness canary
@@ -5202,7 +5470,8 @@ def main() -> int:
               c_tea, c_mid, c_pts, c_rt, c_farm, c_prog, c_cli, c_par,
               c_core)
     for k in ("fma32", "raster_shade", "rt_trace", "raster_clip",
-              "plane_table", "bin_entries", "group_build"):
+              "plane_table", "bin_entries", "group_build", "pt_rays",
+              "pt_reduce"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
     # the glyph tail: X12a, B4's chars form and glyph_map on every path

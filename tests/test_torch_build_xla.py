@@ -5,8 +5,9 @@ every form: 1-32 lanes a ray, the valid slots staged or read from the
 global arrays, its rays read from rd3 or computed from the jitted grid;
 ``render_rgb`` one launch a call), the small and mid raster paths' clip
 with its screen setup (``ops/raster_clip``, X4), their plane table (``ops/plane_table``, X3) and
-their bin entries (``ops/bin_entries``, X9), each held to its plain
-version bit for bit. Tests marked ``cuda`` skip without
+their bin entries (``ops/bin_entries``, X9), and the path tracer's sample
+rays (``ops/ray_grid.pt_rays``, X7) and batch fold (``ops/pt_reduce``,
+X14), each held to its plain version bit for bit. Tests marked ``cuda`` skip without
 a card; this file imports no JAX, so they run where there is none:
 
     python -m pytest tests/test_torch_build_xla.py -m cuda --noconftest
@@ -40,11 +41,12 @@ from ascii_renderer_tpu_torch.ops.ray_grid import ray_grid_jit
 from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
 from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
 from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
+from ascii_renderer_tpu_torch.ops import pt_reduce as PR
 from ascii_renderer_tpu_torch.tools.xla_inputs import (
     BIN_SOUPS, FMA_CASES, RT_SCENES, bbox_soup, bin_calls, bin_soup,
     fma_operands,
-    fma_specials, fma_ties, front_inputs, rt_scene, shade_builder,
-    shade_inputs)
+    fma_specials, fma_ties, front_inputs, pixel_order, pt_outputs, rt_scene,
+    shade_builder, shade_inputs)
 
 torch.set_num_threads(2)
 
@@ -720,3 +722,115 @@ def test_bin_keys_and_group_build_raise_on_build_or_launch_failure(
         for run in runs:
             with pytest.raises(RuntimeError, match=match):
                 run()
+
+
+# --------------------------------------------------------------------------
+# the path tracer's sample rays (X7) and batch fold (X14)
+# --------------------------------------------------------------------------
+# (rows, cols, samples a batch (0: the probe), batch index, row band or
+# None, compacted): the reference run's batches and probe, the HD arm's
+# batch, a compacted order, a band, a compacted band
+PT_RAY_CASES = {"reference batch 0": (36, 96, 32, 0, None, False),
+                "reference batch 1": (36, 96, 32, 1, None, False),
+                "reference probe": (36, 96, 0, 0, None, False),
+                "HD batch": (540, 960, 8, 0, None, False),
+                "compacted batch 1": (36, 96, 32, 1, None, True),
+                "band batch 1": (36, 96, 32, 1, (12, 12), False),
+                "compacted band probe": (36, 96, 0, 0, (12, 12), True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pose", [(-np.pi / 2, 0.0), (-1.234, 0.321)])
+@pytest.mark.parametrize("case", sorted(PT_RAY_CASES))
+def test_pt_rays_kernel_equals_plain(cuda_device, case, pose):
+    """X7 equals its plain version on the same CUDA tensors bit for bit
+    (a mix of fetched, unfetched and NaN probe pixels), pad rays 0; one
+    launch a call."""
+    from ascii_renderer_tpu_torch.core.camera import Camera, camera_basis
+    rows, cols, B, b, band, compacted = PT_RAY_CASES[case]
+    row_lo, n_rows = band if band else (0, rows)
+    pc = n_rows * cols
+    cam = Camera.create(pos=(0.0, 2.5, 6.0), yaw=pose[0], pitch=pose[1])
+    basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+    kw = dict(row_lo=row_lo, n_rows=n_rows, device=cuda_device)
+    if compacted:
+        order = pixel_order(n_rows, cols, 0.3, seed=1)[1] + row_lo * cols
+        kw["pix_uid"] = torch.from_numpy(order).to(cuda_device)
+    if B:
+        kw.update(fet0=torch.from_numpy(pt_outputs(
+            -(-pc // 1024) * 1024, seed=2)[4]).to(cuda_device), samples=B,
+            s0=b * B, seed=-1640531527 * (b + 1) + 7)
+    RYG.pt_launches = 0
+    got = RYG.pt_rays(basis, rows, cols, 0.5, **kw)
+    want = RYG.pt_rays_ref(basis, rows, cols, 0.5, **kw)
+    torch.cuda.synchronize()
+    assert RYG.pt_launches == 1 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# (pc, samples a batch, spp, compacted): the reference run's two batches,
+# a last batch past spp (spp 40 at 32), the HD arm's one batch, a
+# compacted order
+PT_FOLD_CASES = {"reference 2 x 32": (3456, 32, 64, False),
+                 "spp 40 at 32": (3456, 32, 40, False),
+                 "HD 1 x 8": (518400, 8, 8, False),
+                 "compacted 3 x 4": (3456, 4, 10, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PT_FOLD_CASES))
+def test_pt_reduce_kernel_equals_plain(cuda_device, case):
+    """X14 equals its plain version on the same CUDA tensors: every
+    batch's state bit for bit (NaN in the same places), then the resolve's
+    rgb and alpha; overrides in several samples, NaN radiance and ties of
+    rint in the seeded outputs; one launch a fold."""
+    pc, B, spp, compacted = PT_FOLD_CASES[case]
+    n_batches = -(-spp // B)
+
+    def outs(n, seed):
+        return [torch.from_numpy(x).to(cuda_device)
+                for x in pt_outputs(-(-n // 1024) * 1024, seed=seed,
+                                    p_override=0.003)]
+
+    probe = outs(pc, 0)
+    slot = None
+    if compacted:
+        slot = torch.from_numpy(pixel_order(36, 96, 0.3, seed=4)[1]).to(
+            cuda_device)
+    states = [PR.new_state(pc, cuda_device) for _ in range(2)]
+    PR.launches = 0
+    for b in range(n_batches):
+        o = outs(B * pc, b + 1)
+        last = b == n_batches - 1
+        kw = dict(first=b == 0, probe=probe[:4] if last else None, spp=spp,
+                  slot=slot)
+        n_valid = min(B, spp - b * B)
+        got = PR.fold(states[0], *o[:4], n_valid, **kw)
+        want = PR.fold_ref(states[1], *o[:4], n_valid, **kw)
+        torch.cuda.synchronize()
+        if not last:
+            for g, w in zip(*states):
+                _same_bits(g.view(torch.float32), w.view(torch.float32))
+    assert PR.launches == n_batches
+    _same_bits(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and (got[1] != 255).any()
+
+
+@pytest.mark.cuda
+def test_render_pt_takes_rays_and_reduce_in_one_launch_a_batch(cuda_device):
+    """render_pt on the card: X7 once for the probe and once a batch, B5
+    likewise, X14 once a batch; the alpha plane equals the CPU's and the
+    rgb is finite; the old ray grid is not launched."""
+    from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    from ascii_renderer_tpu_torch.parallel.worlds import pt_fixture
+    scene, cam, pkw = pt_fixture(cuda_device)
+    cscene, _c, _k = pt_fixture("cpu")
+    pkw = dict(pkw, spp=5, sample_batch=2)
+    RYG.pt_launches = RYG.launches = PR.launches = PTK.launches = 0
+    rgb, a = PT.render_pt(scene, cam, 0.0, 3, rows=36, cols=96, **pkw)
+    torch.cuda.synchronize()
+    assert (RYG.pt_launches, PTK.launches, PR.launches,
+            RYG.launches) == (4, 4, 3, 0)
+    _rgb, a_cpu = PT.render_pt(cscene, cam, 0.0, 3, rows=36, cols=96, **pkw)
+    assert torch.equal(a.cpu(), a_cpu) and bool(torch.isfinite(rgb).all())

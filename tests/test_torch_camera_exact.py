@@ -24,6 +24,7 @@ from ascii_renderer_tpu.backends import pathtrace as JPT
 from ascii_renderer_tpu.core import camera as JC
 from ascii_renderer_tpu_torch.backends import pathtrace as TPT
 from ascii_renderer_tpu_torch.core import camera as TC
+from ascii_renderer_tpu_torch.ops.ray_grid import batch_ray_dirs
 
 torch.set_num_threads(2)
 
@@ -162,7 +163,7 @@ def test_batch_ray_dirs_equal_jax_eager():
     uid = (torch.arange(B, dtype=torch.int32)[:, None] * (rows * cols)
            + torch.arange(rows * cols, dtype=torch.int32)[None])
     s_idx = torch.arange(B)
-    got = TPT.batch_ray_dirs(basis, px, py, aspect, fetched, uid, 77, s_idx)
+    got = batch_ray_dirs(basis, px, py, aspect, fetched, uid, 77, s_idx)
     jcam = JC.Camera.create(pos=(0.0, 2.5, 6.0), yaw=yaw, pitch=pitch)
     uu, vv, ww, focal = JC.camera_basis(jcam.yaw, jcam.pitch, jcam.fov_y)
     _ro, _rd, jpx, jpy = JPT.primary_ray_grid(jcam, rows, cols, 0.5)
