@@ -173,10 +173,17 @@ def pack_scene_entries(scene: SceneData):
     return prim_packed, atlas.contiguous(), aw, ah, sph_rows
 
 
-def _params(light_center, light_radius, light_color, device):
+def _light_host(light_center, light_radius, light_color):
+    """The megakernel's 8 light parameters (centre xyz, radius, colour
+    rgb, eps) as a float32 CPU tensor."""
     lc = torch.as_tensor(light_color, dtype=torch.float32).cpu()
     return torch.cat([light_center.reshape(3), light_radius.reshape(1), lc,
-                      torch.tensor([EPS], dtype=torch.float32)]).to(device)
+                      torch.tensor([EPS], dtype=torch.float32)])
+
+
+def _params(light_center, light_radius, light_color, device):
+    """The light parameters on ``device``, for the per-ray form."""
+    return _light_host(light_center, light_radius, light_color).to(device)
 
 
 def trace_eye_paths_kernel_packed(scene: SceneData, ro, rd, seed_base,
@@ -191,13 +198,22 @@ def trace_eye_paths_kernel_packed(scene: SceneData, ro, rd, seed_base,
     [R] int32 RNG ids (default: stream position). packed: a precomputed
     pack_scene_entries(scene)."""
     n = int(np.prod(rd.shape[:-1]))
+    nblk = -(-n // PK.BLOCK)
     if packed is None:
         packed = pack_scene_entries(scene)
-    blocks = _RayBlocks.of_rays(ro, n, ray_active, ray_uid)
-    outs = blocks.trace(
-        _params(light_center, light_radius, light_color, rd.device), packed,
-        PK.blockify(rd, n, -(-n // PK.BLOCK)), seed_base, 0,
-        bounces=bounces, nee=nee)
+    prim, atlas, aw, ah, sph_rows = packed
+    uid = None
+    if ray_uid is not None:
+        # pad-ray uids are arbitrary (their outputs are discarded)
+        uid = ray_uid.reshape(-1).to(torch.int32)
+        uid = torch.cat([uid, uid.new_zeros(nblk * PK.BLOCK - n)]).view(
+            nblk, PK.BH, PK.BW)
+    outs = PK.trace_blocks_raw(
+        _params(light_center, light_radius, light_color, rd.device), prim,
+        PK.blockify(ro, n, nblk), PK.blockify(rd, n, nblk), int(seed_base),
+        atlas, bounces=bounces, nee=nee, atlas_w=aw, atlas_h=ah,
+        sph_rows=sph_rows, uid=uid, block_active=None if ray_active is None
+        else _block_gate(ray_active.reshape(-1)))
     return tuple(o.reshape(-1)[:n] for o in outs)
 
 
@@ -570,13 +586,14 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     n_batches = -(-spp // B)
     pc = band * cols
     with record_function("pt.setup"):
+        # host floats, passed by value: no copy to the card
         basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
         light_center, light_radius = get_light_sphere(scene, time,
                                                       light_host)
         lcol = torch.as_tensor(light_color, dtype=torch.float32) * 1.3
-        blocks = _RayBlocks.of_frame(cam, rows, cols, row_lo, band, B,
-                                     n_batches, pixel_active, dev)
-        params = _params(light_center, light_radius, lcol, dev)
+        light = _light_host(light_center, light_radius, lcol).tolist()
+        blocks = _FrameRays(cam, light, rows, cols, row_lo, band, B,
+                            n_batches, pixel_active, dev)
         state = PR.new_state(pc, dev)
     kw = dict(bounces=bounces, nee=nee)
     rays = dict(row_lo=row_lo, n_rows=band, pix_uid=blocks.pix_uid,
@@ -586,7 +603,7 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     with record_function("pt.rays"):
         rd0 = pt_rays(basis, rows, cols, pixel_aspect, **rays)
     with record_function("pt.trace"):
-        probe = blocks.trace(params, packed, rd0, frame_seed, 0, **kw)
+        probe = blocks.trace(packed, rd0, frame_seed, 0, 1, **kw)
     fet0 = probe[4]  # the fetch flags: X7 jitters where not fet0 > 0.5
 
     # ---- phase 2: batched samples, folded into the state (X14); the last
@@ -597,8 +614,8 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
             rd = pt_rays(basis, rows, cols, pixel_aspect, **rays, fet0=fet0,
                          samples=B, s0=b * B, seed=bs)
         with record_function("pt.trace"):
-            cr, cg, cb, ovf, _fet = blocks.trace(params, packed, rd, bs,
-                                                 b + 1, **kw)
+            cr, cg, cb, ovf, _fet = blocks.trace(packed, rd, bs, b + 1, B,
+                                                 **kw)
         last = b == n_batches - 1
         with record_function("pt.reduce"):
             out = PR.fold(state, cr, cg, cb, ovf, min(B, spp - b * B),
@@ -608,94 +625,56 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     return rgb.reshape(band, cols, 3), a.reshape(band, cols)
 
 
-class _RayBlocks:
-    """The megakernel's launch inputs besides the directions, staged once
-    for every launch that shares them (a kernel-path frame's probe and
-    batches, or trace_eye_paths_kernel_packed's one launch): the ray
-    origins in the block layout (0 past the rays), the RNG uids (None:
-    the stream position), the block gates by launch size (none: every
-    block runs) and one zeroed ray counter a launch. A shorter launch
-    takes a prefix of the origins and uids. A frame's also hold its
-    compaction's stream order ``slot`` and the slots' pixel uids
-    ``pix_uid`` (None when it is not compacted)."""
+class _FrameRays:
+    """What a kernel-path frame's megakernel launches share besides their
+    directions, made once a frame: the light's 8 parameters and the
+    camera position as host floats (the kernel's frame form takes them by
+    value, ``ops/pt_kernel.trace_frame``), one zeroed ray counter a launch
+    (the probe's and each batch's) and, for a compacted stream, its order
+    ``slot`` (the pixel of each stream slot), the slots' pixel uids
+    ``pix_uid`` (X7 and the megakernel form each ray's cell and RNG id
+    from them) and the block gates by launch size. A full frame or a band
+    needs nothing else: the kernels form a ray's uid from uid0 = row_lo *
+    cols (s * rows * cols + uid0 + p for sample s of slot p), so its
+    set-up is the counters' one launch."""
 
-    def __init__(self, ro, uid, gates, launches: int, dev):
-        self._ro, self._uid, self._gates = ro, uid, gates
-        self.counters = torch.zeros(launches, dtype=torch.int32, device=dev)
+    def __init__(self, cam: Camera, light, rows: int, cols: int,
+                 row_lo: int, band: int, samples: int, n_batches: int,
+                 pixel_active, dev):
+        self.light = light
+        self.origin = cam.pos.detach().cpu().to(torch.float32).tolist()
+        self.pc, self.npix, self.uid0 = band * cols, rows * cols, row_lo * cols
+        self.counters = torch.zeros(n_batches + 1, dtype=torch.int32,
+                                    device=dev)
         self.pix_uid = self.slot = None
-
-    @classmethod
-    def of_rays(cls, ro, n: int, ray_active=None, ray_uid=None):
-        """The blocks of n rays: origins ro [..., 3], the optional flat
-        [n] live mask ray_active and RNG ids ray_uid."""
-        nblk = -(-n // PK.BLOCK)
-        uid = None
-        if ray_uid is not None:
-            # pad-ray uids are arbitrary (their outputs are discarded)
-            uid = ray_uid.reshape(-1).to(torch.int32)
-            uid = torch.cat([uid, uid.new_zeros(nblk * PK.BLOCK - n)])
-        gates = {} if ray_active is None else {
-            nblk: _block_gate(ray_active.reshape(-1))}
-        return cls(PK.blockify(ro, n, nblk).reshape(-1, 3), uid, gates, 1,
-                   ro.device)
-
-    @classmethod
-    def of_frame(cls, cam: Camera, rows: int, cols: int, row_lo: int,
-                 band: int, B: int, n_batches: int, pixel_active, dev):
-        """The blocks of a frame's probe and its batches of B samples:
-        every origin the camera position, a ray's RNG id its pixel's
-        global uid (band offset included) plus s * rows * cols for sample
-        s, whatever its slot in the stream (the stream position itself
-        for a full, uncompacted frame, which passes none)."""
-        pc = band * cols
-        n = B * pc
-        nblk = -(-n // PK.BLOCK)
-        ro = torch.empty((nblk * PK.BLOCK, 3), dtype=torch.float32,
-                         device=dev)
-        ro[:n] = cam.pos.to(device=dev, dtype=torch.float32)
-        ro[n:] = 0.0
-        pix_uid = slot = uid = None
-        gates = {}
+        self._gates = {}  # a compacted launch's block gates, by samples
         if pixel_active is not None:
             # adaptive compaction: a stable partition of the band's pixels,
             # active first (one sort of the unique key (1 - active) * pc +
-            # slot); X7 computes each slot's ray from its pixel's uid
+            # slot); X7 and the megakernel take each slot's pixel uid
+            pc = self.pc
             act = pixel_active.reshape(-1).to(device=dev, dtype=torch.int64)
             local = torch.arange(pc, device=dev)
-            slot = torch.argsort((1 - act) * pc + local).to(torch.int32)
-            pix_uid = slot + row_lo * cols
+            self.slot = torch.argsort((1 - act) * pc + local).to(torch.int32)
+            self.pix_uid = self.slot + self.uid0
             # the actives hold slots [0, n_act); ray s * pc + p is live
-            # where slot p is. The probe's launch and a batch's differ in
-            # size unless both are one block, whose gates agree.
+            # where slot p is (the pad rays are not)
             mask = local < act.sum()
-            gates = {-(-pc // PK.BLOCK): _block_gate(mask),
-                     nblk: _block_gate(mask.repeat(B))}
-        if pixel_active is not None or band != rows:
-            pu = pix_uid if pix_uid is not None else (
-                torch.arange(pc, dtype=torch.int32, device=dev)
-                + row_lo * cols)
-            uid = torch.zeros(nblk * PK.BLOCK, dtype=torch.int32, device=dev)
-            uid[:n] = (torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-                       * (rows * cols) + pu[None, :]).reshape(-1)
-        blocks = cls(ro, uid, gates, n_batches + 1, dev)
-        blocks.pix_uid, blocks.slot = pix_uid, slot
-        return blocks
+            self._gates = {s: _block_gate(mask.repeat(s))
+                           for s in {1, samples}}
 
-    def trace(self, params, packed, rd, seed, i: int, *, bounces: int,
+    def trace(self, packed, rd, seed, i: int, samples: int, *, bounces: int,
               nee: bool):
         """The megakernel's outputs (lor, log, lob, ov, fet), each f32
-        [nblk, 8, 128], of the rays rd f32 [nblk, 8, 128, 3] under seed,
-        on launch i's counter; packed: pack_scene_entries(scene)."""
-        nblk = rd.shape[0]
+        [nblk, 8, 128], of ``samples`` samples' rays rd f32 [nblk, 8, 128,
+        3] (X7's stream) under seed, on launch i's counter; packed:
+        pack_scene_entries(scene)."""
         prim, atlas, aw, ah, sph_rows = packed
-        uid = None
-        if self._uid is not None:
-            uid = self._uid[:nblk * PK.BLOCK].view(nblk, PK.BH, PK.BW)
-        return PK.trace_blocks_raw(
-            params, prim, self._ro[:nblk * PK.BLOCK].view(
-                nblk, PK.BH, PK.BW, 3), rd, int(seed), atlas,
+        return PK.trace_frame(
+            self.light, self.origin, prim, rd, int(seed), atlas, pc=self.pc,
+            npix=self.npix, uid0=self.uid0, pix_uid=self.pix_uid,
             bounces=bounces, nee=nee, atlas_w=aw, atlas_h=ah,
-            sph_rows=sph_rows, block_active=self._gates.get(nblk), uid=uid,
+            sph_rows=sph_rows, block_active=self._gates.get(samples),
             counter=self.counters[i:i + 1])
 
 

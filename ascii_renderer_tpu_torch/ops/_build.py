@@ -76,6 +76,12 @@ SIGNATURES = {
     #  nee, next_ray, stream)
     "pt_trace_launch": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
                         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # (light8_host, origin3_host, prim, n_entries, n_sph, rd, pix_uid, pc,
+    #  npix, uid0, block_active, seed, atlas, atlas_w, atlas_h, lor, log,
+    #  lob, ov, fet, n_rays, bounces, nee, next_ray, stream)
+    "pt_trace_frame_launch": (_FP, _FP, _P, _I, _I, _P, _P, _I, _I, _I, _P,
+                              _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _P, _P),
     # (a, b, c, sa, sb, sc, scalar_mask, geom24_host, flat, out, n, stream)
     "fma32_launch": (_P, _P, _P, _F, _F, _F, _I, _LLP, _I, _P, _LL, _P),
     # (table, row_stride, table_rows, vec, ids, ids_f32, px, py,
@@ -116,14 +122,14 @@ SIGNATURES = {
                            _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
-    # (pix_uid, fet0, out, pc, samples, n_out, rows, cols, uid0, aspect,
-    #  s0, key_x, key_y, jitter, basis9_host, stream)
-    "pt_rays_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U,
-                       _I, _FP, _P),
-    # (cr, cg, cb, ovf, tf, tov, pc, n_valid, first, resolve, lor0, log0,
-    #  lob0, ov0f, inv_spp, slot, rgb, a, stream)
-    "pt_reduce_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                         _P, _F, _P, _P, _P, _P),
+    # (pix_uid, fet0, out, pc, samples, per, n_out, rows, cols, uid0,
+    #  aspect, s0, key_x, key_y, jitter, basis9_host, stream)
+    "pt_rays_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _U,
+                       _U, _I, _FP, _P),
+    # (cr, cg, cb, ovf, tf, tov, pc, n_valid, first, resolve, tile, lor0,
+    #  log0, lob0, ov0f, inv_spp, slot, rgb, a, stream)
+    "pt_reduce_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _F, _P, _P, _P, _P),
     # (bases, out, rows, cols, views, sx, sy, aspect, stream)
     "ray_grid_jit_launch": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # (idx, ovr, out, V, H, W, radius, thresh, cells_per_thread, stream)

@@ -47,6 +47,14 @@
 //   each warp leaves on its own; otherwise chunks are staged behind block
 //   barriers, which every thread reaches the same number of times, and
 //   the block leaves when the counter is spent and no lane holds a ray.
+// - Two forms of the ray inputs (a template flag). A kernel-path frame's
+//   rays share one origin, the camera's, and their uids follow from their
+//   places in X7's stream; its launches (pt_trace_frame_launch) take the
+//   origin and the light's 8 parameters as launch arguments and form each
+//   uid, so a frame's set-up copies nothing to the card and fills no
+//   origin block (49.8 MB at 960x540 spp 8). The per-ray form
+//   (pt_trace_launch: the light in device memory, an origin and a uid a
+//   ray) serves trace_eye_paths_kernel_packed and the reference's tests.
 //
 // Exactness: built with -fmad=false, so every product and sum rounds on its
 // own as in the plain version; division and sqrt are IEEE; max/clamp
@@ -225,11 +233,32 @@ __device__ __forceinline__ Hit attrs(const float* __restrict__ prim,
   return h;
 }
 
+// A frame's rays (the frame form, kFrame): one origin for every ray, and
+// each ray's uid from its place in the stream, as X7 places the rays: ray
+// r = s * pc + p is sample s of stream slot p, uid s * npix + pix_uid[p]
+// (the compacted order), or s * npix + uid0 + p (a full frame or a row
+// band: uid0 = row_lo * cols); npix = rows * cols.
+struct FrameRays {
+  float ox, oy, oz;
+  int pc, npix, uid0;
+  const int* pix_uid;
+};
+
+// The light's 8 parameters: centre xyz, radius, colour rgb, eps.
+struct Light {
+  float p[8];
+};
+
+// kFrame: the frame form, the light and the origin launch arguments
+// (Light, FrameRays), each ray's uid formed here; else the per-ray form,
+// the light read from params, an origin a ray from ro, a uid a ray from
+// uid_in (or the stream position).
+template <bool kFrame>
 __global__ void __launch_bounds__(kThreads)
-pt_trace_kernel(const float* __restrict__ params,
-                const float* __restrict__ prim, int n_entries, int n_sph,
-                const float* __restrict__ ro, const float* __restrict__ rd,
-                const int* __restrict__ uid_in,
+pt_trace_kernel(const float* __restrict__ params, const Light light,
+                const FrameRays fr, const float* __restrict__ prim,
+                int n_entries, int n_sph, const float* __restrict__ ro,
+                const float* __restrict__ rd, const int* __restrict__ uid_in,
                 const int* __restrict__ block_active, int seed,
                 const uint32_t* __restrict__ atlas, int atlas_w, int atlas_h,
                 float* __restrict__ lor, float* __restrict__ log_,
@@ -243,10 +272,15 @@ pt_trace_kernel(const float* __restrict__ params,
     __syncthreads();
   }
 
-  const float lcx = params[0], lcy = params[1], lcz = params[2];
-  const float lrad = params[3];
-  const float lcr = params[4], lcg = params[5], lcb = params[6];
-  const float eps = params[7];
+  // the light, each parameter by a constant index (no local copy)
+  const float lcx = kFrame ? light.p[0] : params[0];
+  const float lcy = kFrame ? light.p[1] : params[1];
+  const float lcz = kFrame ? light.p[2] : params[2];
+  const float lrad = kFrame ? light.p[3] : params[3];
+  const float lcr = kFrame ? light.p[4] : params[4];
+  const float lcg = kFrame ? light.p[5] : params[5];
+  const float lcb = kFrame ? light.p[6] : params[6];
+  const float eps = kFrame ? light.p[7] : params[7];
   const int texels = atlas_w > 0 ? atlas_w * atlas_h : 0;
   const uint32_t seed_mix = (uint32_t)seed * 0x9E3779B1u;
   const int lane = threadIdx.x & 31;
@@ -283,10 +317,20 @@ pt_trace_kernel(const float* __restrict__ params,
           } else {
             busy = true;
             ray = r;
-            uid = (uint32_t)(uid_in != nullptr ? uid_in[r] : r);
-            rox = ro[3 * r];
-            roy = ro[3 * r + 1];
-            roz = ro[3 * r + 2];
+            if (kFrame) {
+              const int s = r / fr.pc, p = r - s * fr.pc;
+              uid = (uint32_t)s * (uint32_t)fr.npix +
+                    (uint32_t)(fr.pix_uid != nullptr ? fr.pix_uid[p]
+                                                     : fr.uid0 + p);
+              rox = fr.ox;
+              roy = fr.oy;
+              roz = fr.oz;
+            } else {
+              uid = (uint32_t)(uid_in != nullptr ? uid_in[r] : r);
+              rox = ro[3 * r];
+              roy = ro[3 * r + 1];
+              roz = ro[3 * r + 2];
+            }
             rdx = rd[3 * r];
             rdy = rd[3 * r + 1];
             rdz = rd[3 * r + 2];
@@ -539,14 +583,15 @@ pt_trace_kernel(const float* __restrict__ params,
 
 // Blocks of the persistent grid: as many as the SMs hold at once, no more
 // than the rays need.
+template <bool kFrame>
 int grid_blocks(int n_rays) {
   static int resident_blocks = 0;
   if (resident_blocks == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pt_trace_kernel,
-                                                  kThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pt_trace_kernel<kFrame>, kThreads, 0);
     resident_blocks = max(sms * per_sm, 1);
   }
   return min(resident_blocks, (n_rays + kThreads - 1) / kThreads);
@@ -554,6 +599,8 @@ int grid_blocks(int n_rays) {
 
 }  // namespace
 
+// The per-ray form: params (8 device floats), ro (device floats [n_rays,
+// 3]), uid (device ints [n_rays]) or null for the stream position
 extern "C" int pt_trace_launch(const float* params, const float* prim,
                                int n_entries, int n_sph, const float* ro,
                                const float* rd, const int* uid,
@@ -563,9 +610,39 @@ extern "C" int pt_trace_launch(const float* params, const float* prim,
                                float* fet, int n_rays, int bounces, int nee,
                                int* next_ray, void* stream) {
   if (n_rays <= 0) return 0;
-  pt_trace_kernel<<<grid_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-      params, prim, n_entries, n_sph, ro, rd, uid, block_active, seed,
-      reinterpret_cast<const uint32_t*>(atlas), atlas_w, atlas_h, lor, log_,
-      lob, ov, fet, n_rays, bounces, nee, next_ray);
+  pt_trace_kernel<false>
+      <<<grid_blocks<false>(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+          params, Light{}, FrameRays{}, prim, n_entries, n_sph, ro, rd, uid,
+          block_active, seed, reinterpret_cast<const uint32_t*>(atlas),
+          atlas_w, atlas_h, lor, log_, lob, ov, fet, n_rays, bounces, nee,
+          next_ray);
+  return (int)cudaGetLastError();
+}
+
+// The frame form: light8 (centre xyz, radius, colour rgb, eps) and
+// origin3 host floats, passed by value; ray r = s * pc + p takes the uid
+// s * npix + (pix_uid ? pix_uid[p] : uid0 + p), pix_uid device ints [pc]
+extern "C" int pt_trace_frame_launch(const float* light8,
+                                     const float* origin3, const float* prim,
+                                     int n_entries, int n_sph, const float* rd,
+                                     const int* pix_uid, int pc, int npix,
+                                     int uid0, const int* block_active,
+                                     int seed, const int* atlas, int atlas_w,
+                                     int atlas_h, float* lor, float* log_,
+                                     float* lob, float* ov, float* fet,
+                                     int n_rays, int bounces, int nee,
+                                     int* next_ray, void* stream) {
+  if (pc <= 0 || npix <= 0) return (int)cudaErrorInvalidValue;
+  if (n_rays <= 0) return 0;
+  Light light;
+  for (int k = 0; k < 8; ++k) light.p[k] = light8[k];
+  const FrameRays fr{origin3[0], origin3[1], origin3[2], pc, npix, uid0,
+                     pix_uid};
+  pt_trace_kernel<true>
+      <<<grid_blocks<true>(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+          nullptr, light, fr, prim, n_entries, n_sph, nullptr, rd, nullptr,
+          block_active, seed, reinterpret_cast<const uint32_t*>(atlas),
+          atlas_w, atlas_h, lor, log_, lob, ov, fet, n_rays, bounces, nee,
+          next_ray);
   return (int)cudaGetLastError();
 }

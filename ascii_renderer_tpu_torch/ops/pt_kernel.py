@@ -33,15 +33,17 @@ rounded), ``x ** 5`` as JAX's ``integer_pow`` multiply chain
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ascii_renderer_tpu_torch.core.fp import sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.ops import _build
 
-launches = 0        # kernel launches by trace_blocks_raw
+launches = 0        # kernel launches by trace_blocks_raw and trace_frame
 launches_gated = 0  # of those, launches with a block gate (block_active)
-LAUNCHES_PER_CALL = {"trace_blocks_raw": 1}  # kernels a call launches
+LAUNCHES_PER_CALL = {"trace_blocks_raw": 1, "trace_frame": 1}
 
 BH, BW = 8, 128     # the TPU's ray block; block_active gates 1,024 rays
 BLOCK = BH * BW
@@ -469,33 +471,31 @@ def blockify(a: torch.Tensor, n: int, nblk: int) -> torch.Tensor:
     return flat.reshape(nblk, BH, BW, 3).contiguous()
 
 
-def _check(params, prim, ro, rd, atlas, atlas_w, atlas_h, sph_rows,
-           block_active, uid):
-    nblk = ro.shape[0]
-    if ro.shape != (nblk, BH, BW, 3) or rd.shape != ro.shape:
-        raise ValueError(f"trace_blocks_raw: ro/rd must be [B, {BH}, {BW}, "
-                         f"3], got {tuple(ro.shape)} / {tuple(rd.shape)}")
+def _check(prim, rd, atlas, atlas_w, atlas_h, sph_rows, block_active, uid,
+           what="trace_blocks_raw"):
+    nblk = rd.shape[0]
+    if rd.shape != (nblk, BH, BW, 3):
+        raise ValueError(f"{what}: rd must be [B, {BH}, {BW}, 3], got "
+                         f"{tuple(rd.shape)}")
     if prim.dim() != 2 or prim.shape[1] != PACK * N_CHAN:
-        raise ValueError(f"trace_blocks_raw: prim must be [rows, "
-                         f"{PACK * N_CHAN}], got {tuple(prim.shape)}")
+        raise ValueError(f"{what}: prim must be [rows, {PACK * N_CHAN}], "
+                         f"got {tuple(prim.shape)}")
     if not 0 <= sph_rows <= prim.shape[0]:
-        raise ValueError(f"trace_blocks_raw: sph_rows {sph_rows} out of range")
-    if params.shape != (8,):
-        raise ValueError("trace_blocks_raw: params must be f32 [8]")
+        raise ValueError(f"{what}: sph_rows {sph_rows} out of range")
     texels = atlas_w * atlas_h if atlas_w > 0 else 0
     if texels > MAX_ATLAS_TEXELS:
         raise ValueError(
-            f"trace_blocks_raw: a {atlas_w}x{atlas_h} atlas is above the "
+            f"{what}: a {atlas_w}x{atlas_h} atlas is above the "
             f"kernel's budget, MAX_ATLAS_TEXELS = {MAX_ATLAS_TEXELS}; the "
             f"XLA core takes it (backends/pathtrace.trace_eye_paths, "
             f"render_pt(use_kernel=False))")
     if texels and (atlas.dtype != torch.int32 or atlas.numel() < texels):
-        raise ValueError("trace_blocks_raw: atlas must be int32 rgba with "
-                         f"at least {texels} texels")
+        raise ValueError(f"{what}: atlas must be int32 rgba with at least "
+                         f"{texels} texels")
     if block_active is not None and block_active.numel() != nblk:
-        raise ValueError("trace_blocks_raw: block_active must have B entries")
+        raise ValueError(f"{what}: block_active must have B entries")
     if uid is not None and uid.numel() != nblk * BLOCK:
-        raise ValueError("trace_blocks_raw: uid must have one id per ray")
+        raise ValueError(f"{what}: uid must have one id per ray")
     return nblk, texels
 
 
@@ -514,8 +514,13 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
     warps that take rays from a counter: ``counter``, an int32 CUDA tensor
     whose first element is 0, which the launch uses up; by default the
     wrapper zeroes one, a launch of its own)."""
-    nblk, texels = _check(params, prim, ro, rd, atlas, atlas_w, atlas_h,
-                          sph_rows, block_active, uid)
+    if ro.shape != rd.shape or rd.shape[1:] != (BH, BW, 3):
+        raise ValueError(f"trace_blocks_raw: ro/rd must be [B, {BH}, {BW}, "
+                         f"3], got {tuple(ro.shape)} / {tuple(rd.shape)}")
+    if params.shape != (8,):
+        raise ValueError("trace_blocks_raw: params must be f32 [8]")
+    nblk, texels = _check(prim, rd, atlas, atlas_w, atlas_h, sph_rows,
+                          block_active, uid)
     if ro.device.type == "cpu":
         return trace_blocks_raw_ref(
             params, prim, ro, rd, seed, atlas, bounces=bounces, nee=nee,
@@ -558,4 +563,117 @@ def trace_blocks_raw(params, prim, ro, rd, seed, atlas, *, bounces: int,
     if block_active is not None:
         launches_gated += 1
     _build.check(err, "pt_trace_launch")
+    return tuple(outs)
+
+
+# --------------------------------------------------------------------------
+# the frame form: one origin and the light by value, uids from the stream
+# --------------------------------------------------------------------------
+def frame_uids(nblk: int, pc: int, npix: int, uid0: int = 0, pix_uid=None,
+               device="cpu") -> torch.Tensor:
+    """int32 [nblk, BH, BW]: the RNG id of each ray of a frame's launch,
+    ray r = s * pc + p (sample s of stream slot p) taking s * npix +
+    pix_uid[p], or s * npix + uid0 + p without ``pix_uid`` (int32 [pc]),
+    as the frame form of the kernel forms them (int32 wrap-around)."""
+    r = torch.arange(nblk * BLOCK, dtype=torch.int64, device=device)
+    s = r // pc
+    p = r - s * pc
+    base = pix_uid.to(torch.int64)[p] if pix_uid is not None else uid0 + p
+    uid = (s * npix + base) & _M32
+    return torch.where(uid >= 2 ** 31, uid - 2 ** 32, uid).to(
+        torch.int32).reshape(nblk, BH, BW)
+
+
+def _frame_args(light, origin, pc, npix, pix_uid, what):
+    light = [float(x) for x in light]
+    origin = [float(x) for x in origin]
+    if len(light) != 8 or len(origin) != 3:
+        raise ValueError(f"{what}: light is 8 floats (centre, radius, "
+                         f"colour, eps) and origin 3")
+    if pc < 1 or npix < 1:
+        raise ValueError(f"{what}: pc and npix must be positive")
+    if pix_uid is not None and (pix_uid.dtype != torch.int32
+                                or pix_uid.numel() != pc):
+        raise ValueError(f"{what}: pix_uid must be int32 [{pc}]")
+    return light, origin
+
+
+def trace_frame_ref(light, origin, prim, rd, seed, atlas, *, pc: int,
+                    npix: int, uid0: int = 0, pix_uid=None, bounces: int,
+                    nee: bool, atlas_w: int, atlas_h: int, sph_rows: int,
+                    block_active=None, stats: dict | None = None):
+    """Plain version of ``trace_frame``: the per-ray plain version on the
+    light as a tensor, the origin expanded to every ray and the uids of
+    ``frame_uids``, so the two forms give the same bits on the same
+    rays."""
+    light, origin = _frame_args(light, origin, pc, npix, pix_uid,
+                                "trace_frame")
+    dev = rd.device
+    nblk = rd.shape[0]
+    ro = torch.tensor(origin, dtype=torch.float32, device=dev).expand(
+        nblk, BH, BW, 3)
+    return trace_blocks_raw_ref(
+        torch.tensor(light, dtype=torch.float32, device=dev), prim, ro, rd,
+        seed, atlas, bounces=bounces, nee=nee, atlas_w=atlas_w,
+        atlas_h=atlas_h, sph_rows=sph_rows, block_active=block_active,
+        uid=frame_uids(nblk, pc, npix, uid0, pix_uid, dev), stats=stats)
+
+
+def trace_frame(light, origin, prim, rd, seed, atlas, *, pc: int, npix: int,
+                uid0: int = 0, pix_uid=None, bounces: int, nee: bool,
+                atlas_w: int, atlas_h: int, sph_rows: int, block_active=None,
+                counter=None):
+    """The megakernel over a kernel-path frame's rays, its frame form: the
+    light's 8 parameters (centre xyz, radius, colour rgb, eps) and one
+    origin for every ray as host floats, passed by value; rd f32 [B, 8,
+    128, 3] in X7's stream (ray s * pc + p is sample s of stream slot p,
+    ``ops/ray_grid.pt_rays``), each ray's RNG id formed from its place
+    (``frame_uids``: npix = rows * cols, ``uid0`` = row_lo * cols, or the
+    compacted order's ``pix_uid``). seed, atlas, block_active and counter
+    as ``trace_blocks_raw``. Returns (lor, log, lob, ov, fet), each f32
+    [B, 8, 128]. CPU tensors run the plain version (``trace_frame_ref``);
+    CUDA tensors launch the kernel once and copy nothing to the card."""
+    light, origin = _frame_args(light, origin, pc, npix, pix_uid,
+                                "trace_frame")
+    nblk, texels = _check(prim, rd, atlas, atlas_w, atlas_h, sph_rows,
+                          block_active, None, "trace_frame")
+    if rd.device.type == "cpu":
+        return trace_frame_ref(
+            light, origin, prim, rd, seed, atlas, pc=pc, npix=npix,
+            uid0=uid0, pix_uid=pix_uid, bounces=bounces, nee=nee,
+            atlas_w=atlas_w, atlas_h=atlas_h, sph_rows=sph_rows,
+            block_active=block_active)
+    global launches, launches_gated
+    tensors = [prim, rd]
+    if texels:
+        tensors.append(atlas)
+    if block_active is not None:
+        block_active = block_active.to(torch.int32).contiguous()
+        tensors.append(block_active)
+    if pix_uid is not None:
+        tensors.append(pix_uid)
+    if any(t.dtype != torch.float32 for t in (prim, rd)):
+        raise ValueError("trace_frame: prim/rd must be float32")
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=rd.device)
+    elif counter.dtype != torch.int32 or counter.numel() < 1:
+        raise ValueError("trace_frame: counter must be int32 with one "
+                         "element at least")
+    _build.require_cuda(*tensors, counter, what="trace_frame")
+    outs = [torch.empty((nblk, BH, BW), dtype=torch.float32, device=rd.device)
+            for _ in range(5)]
+    err = _build.lib().pt_trace_frame_launch(
+        (ctypes.c_float * 8)(*light), (ctypes.c_float * 3)(*origin),
+        prim.data_ptr(), prim.shape[0] * PACK, sph_rows * PACK,
+        rd.data_ptr(), pix_uid.data_ptr() if pix_uid is not None else None,
+        pc, npix, uid0,
+        block_active.data_ptr() if block_active is not None else None,
+        int32_wrap(seed), atlas.data_ptr() if texels else None,
+        atlas_w if texels else 0, atlas_h if texels else 0,
+        *(o.data_ptr() for o in outs), nblk * BLOCK, int(bounces),
+        int(bool(nee)), counter.data_ptr(), _build.stream_ptr(rd.device))
+    launches += 1
+    if block_active is not None:
+        launches_gated += 1
+    _build.check(err, "pt_trace_frame_launch")
     return tuple(outs)

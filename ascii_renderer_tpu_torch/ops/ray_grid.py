@@ -43,6 +43,15 @@ jit_launches = 0   # kernel launches by ray_grid_jit
 pt_launches = 0    # kernel launches by pt_rays (X7)
 LAUNCHES_PER_CALL = {"ray_grid": 1, "ray_grid_jit": 1, "pt_rays": 1}
 JITTER_X, JITTER_Y = 0x40000001, 0x40000002  # the jitter's hash counters
+# X7's threads that fill an H100: 132 SMs x 2,048 resident threads. A
+# launch with slots enough takes every sample of a slot in one thread
+FILL_THREADS = 132 * 2048
+
+
+def samples_per_thread(pc: int, samples: int) -> int:
+    """X7's own choice of the samples a thread takes (the launch's
+    ``per``): as many as keep FILL_THREADS threads busy, 1 to samples."""
+    return max(1, min(samples, pc * samples // FILL_THREADS))
 
 
 def _basis9(basis):
@@ -183,7 +192,8 @@ def pt_rays(basis, rows: int, cols: int, pixel_aspect: float, *,
     output, f32, pc or more) and ``seed`` (the batch's seed): a sample
     batch, jittered as ``batch_ray_dirs`` jitters. ``basis`` is
     ``camera_basis``'s tuple (host tensors). On the CPU the plain version
-    (``pt_rays_ref``); on a CUDA device one launch (X7)."""
+    (``pt_rays_ref``); on a CUDA device one launch (X7), a thread taking
+    ``samples_per_thread`` samples of its slot."""
     device = torch.device(device)
     if device.type == "cpu":
         return pt_rays_ref(basis, rows, cols, pixel_aspect, row_lo=row_lo,
@@ -217,7 +227,8 @@ def pt_rays(basis, rows: int, cols: int, pixel_aspect: float, *,
     err = _build.lib().pt_rays_launch(
         pix_uid.data_ptr() if pix_uid is not None else None,
         fet0.data_ptr() if jitter else None, out.data_ptr(), pc, samples,
-        nblk * PK.BLOCK, rows, cols, row_lo * cols,
+        samples_per_thread(pc, samples), nblk * PK.BLOCK, rows, cols,
+        row_lo * cols,
         grid_aspect(rows, cols, pixel_aspect), s0,
         PK.hash_key(seed, JITTER_X) if jitter else 0,
         PK.hash_key(seed, JITTER_Y) if jitter else 0, int(jitter),

@@ -129,9 +129,15 @@ the PT reference run (96x36, spp 64), the HD arm (960x540, spp 8), the
 the stream is the compacted one): the median (wall ms over 20 calls),
 device busy ms, kernel launches a call, and the host ms and launches a
 call of the stages ``pt.setup``, ``pt.rays``, ``pt.trace`` and
-``pt.reduce``; the reference run's, the HD arm's and a progressive
-batch's alpha planes digested (their rgb may differ in the last bits:
-a side whose fold sums in another order), about 2 minutes a side.
+``pt.reduce`` (and, apart, the host-to-device copies among them); the
+reference run's, the HD arm's and a progressive batch's alpha planes
+digested (their rgb may differ in the last bits: a side whose fold sums
+in another order); then the frame's kernels at the launches its paths
+make (``pt_kernels``): X7 at the HD arm's batch and the reference
+batch, X14 at the reference run's two launches and the HD arm's, B5 at
+110,592 and 4,147,200 rays in the form the side's frames launch (the
+light and the origin by value where the side has ``trace_frame``),
+each output digested; about 2 minutes a side.
 """
 
 from __future__ import annotations
@@ -887,10 +893,60 @@ def shade_and_build(cs, dev, out) -> None:
 PT_STAGES = ("pt.setup", "pt.rays", "pt.trace", "pt.reduce")
 
 
+def pt_kernels(cs, dev, out) -> None:
+    """The PT frame's kernels at the launches its paths make, each side's
+    own form (module docstring, ``--only pt``): X7 at the HD arm's batch
+    and the reference batch, X14 at the reference run's two launches and
+    the HD arm's, B5 at the reference batch and the HD arm's as the
+    side's frames launch it (a side with ``trace_frame``: the light and
+    the origin by value; else the per-ray form on the origin block);
+    outputs digested."""
+    import torch
+    from ascii_renderer_tpu_torch.core.camera import camera_basis
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PK
+    from ascii_renderer_tpu_torch.ops import pt_reduce as PR
+    from ascii_renderer_tpu_torch.ops import ray_grid as RYG
+    out["x7_ms"], out["x14_ms"] = {}, {}
+    cam = cs._pt_camera()
+    basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+    for label in ("HD arm batch", "reference batch 0"):
+        args, kw, n, _pc = cs._pt_rays_call(dev, basis,
+                                            *cs.PT_RAY_CALLS[label])
+        out["digest"][f"X7 {label}"] = _digest([RYG.pt_rays(*args, **kw)])
+        out["x7_ms"][f"{label} ({n} rays)"] = cs._device_ms(
+            lambda: RYG.pt_rays(*args, **kw), "pt_rays_kernel", 1)
+    for label, ((a, k), n) in cs._fold_timing_calls(dev).items():
+        res = PR.fold(*a, **k)
+        out["digest"][f"X14 {label}"] = _digest(
+            [a[0][0], a[0][1]] if res is None else [res[0],
+                                                    res[1].to(torch.int32)])
+        out["x14_ms"][f"{label} ({n} rays)"] = cs._device_ms(
+            lambda: PR.fold(*a, **k), "pt_reduce_kernel", 1)
+    scene = cs._pt_scene(device=dev)
+    for rows, cols, B, label in (PT_SHAPES[0], PT_SHAPES[3]):
+        args, kw, _uid, n = cs._pt_batch(dev, scene, rows, cols, B, 1)
+        args = (*args[:3], _shared_rays(cs, dev, rows, cols, B), *args[4:])
+        if hasattr(PK, "trace_frame"):
+            light = args[0].tolist()
+            origin = cam.pos.to(torch.float32).tolist()
+
+            def fn(args=args, kw=kw, light=light, origin=origin, pc=rows *
+                   cols):
+                return PK.trace_frame(light, origin, args[1], *args[3:],
+                                      **kw, pc=pc, npix=pc)
+        else:
+            def fn(args=args, kw=kw):
+                return PK.trace_blocks_raw(*args, **kw)
+        out["digest"][f"B5 frame {label}"] = _digest(fn())
+        out["b5_ms"][f"frame {label} ({n} rays)"] = cs._device_ms(
+            fn, "pt_trace_kernel", 1)
+
+
 def pt_frames(cs, dev, out) -> None:
     """The path tracer's kernel-path frames (module docstring, ``--only
     pt``): median, busy ms and launches a call, the PT_STAGES' host ms
-    and launches a call; alpha planes digested."""
+    and launches a call (host-to-device copies apart); alpha planes
+    digested; then pt_kernels."""
     import math
     import torch
     from ascii_renderer_tpu_torch.backends.registry import Renderer
@@ -931,7 +987,10 @@ def pt_frames(cs, dev, out) -> None:
         for st in PT_STAGES:
             out["stage_ms"][f"{label} {st}"] = host.get(st, 0.0)
             out["stage_launches"][f"{label} {st}"] = stages.get(st, 0.0)
+            out["stage_launches"][f"{label} {st} HtoD"] = stages.get(
+                f"{st} HtoD", 0.0)
         torch.cuda.synchronize()
+    pt_kernels(cs, dev, out)
 
 
 def paths(cs, dev, out) -> None:
@@ -1036,7 +1095,8 @@ def main() -> int:
     for key in ("jit_grid_ms", "b5_ms", "b6_ms", "b8_ms", "b1_ms",
                 "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
                 "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "x4_ms", "x3_ms",
-                "k3_ms", "x9_ms", "x9_kernel_ms", "keys_ms", "keys_busy_ms",
+                "k3_ms", "x9_ms", "x9_kernel_ms", "x7_ms", "x14_ms",
+                "keys_ms", "keys_busy_ms",
                 "keys_launches", "build_ms", "build_busy_ms",
                 "build_launches", "x10_ms", "k2_ms", "k2_call_ms",
                 "k2_launches", "rt_ms", "rt_call_ms", "rt_launches",

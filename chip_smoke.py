@@ -1649,16 +1649,99 @@ def _b5_ops(stats, prim_rows, sph_rows):
             + stats["shadow_rays"] * (search + B5_OPS_NEE))
 
 
+def _b5_frame_form(PK, args, kw, pc, npix, uid0=0, pix_uid=None,
+                   block_active=None):
+    """B5's frame form on a _pt_batch launch's rays (the light and the
+    camera position by value, each ray's uid from its stream slot: pc
+    slots of npix pixels from uid0, or pix_uid), its plain version, and
+    its per-ray form on the same rays: the origin on every ray, the same
+    uids (frame_uids). Returns (frame call, plain call, per-ray call)."""
+    import torch
+    params, prim, _ro, rd, seed, atlas = args
+    nblk = rd.shape[0]
+    light = params.tolist()
+    origin = _pt_camera().pos.to(torch.float32).tolist()
+    fkw = dict(kw, pc=pc, npix=npix, uid0=uid0, pix_uid=pix_uid,
+               block_active=block_active)
+    ro = torch.tensor(origin, device=rd.device).expand(nblk, 8, 128,
+                                                       3).contiguous()
+    uid = PK.frame_uids(nblk, pc, npix, uid0, pix_uid, device=rd.device)
+    return (lambda: PK.trace_frame(light, origin, prim, rd, seed, atlas,
+                                   **fkw),
+            lambda: PK.trace_frame_ref(light, origin, prim, rd, seed, atlas,
+                                       **fkw),
+            lambda: PK.trace_blocks_raw(params, prim, ro, rd, seed, atlas,
+                                        **kw, uid=uid,
+                                        block_active=block_active))
+
+
+def _b5_same(label, frame, plain, per_ray):
+    """Holds B5's frame form to its plain version and to the per-ray form
+    on the same rays, every output bit for bit."""
+    import torch
+    fk, fp, fr = frame(), plain(), per_ray()
+    torch.cuda.synchronize()
+    for a_, b_, c_ in zip(fk, fr, fp):
+        assert torch.equal(a_.view(torch.int32), b_.view(torch.int32)), \
+            f"B5 {label}: the frame form differs from the per-ray form"
+        assert torch.equal(a_.view(torch.int32), c_.view(torch.int32)), \
+            f"B5 {label}: the frame form differs from its plain version"
+    return fk
+
+
+# B5's frame form over a stream that is not a whole frame's: (rows, cols,
+# samples, band (row_lo, n_rows) or None, compacted): a band's batch of the
+# reference run (uid0 = 12 x 96), the progressive HD batch's compacted
+# stream (pix_uid, 30% of its pixels active, the blocks of the rest gated)
+B5_STREAM_CALLS = {"band 12-24 batch": (36, 96, 32, (12, 12), False),
+                   "compacted HD batch": (540, 960, 8, None, True)}
+
+
+def check_b5_streams(dev, scene):
+    """B5's frame form at B5_STREAM_CALLS against its plain version and
+    its per-ray form, bit for bit (a gated block's outputs included)."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import pathtrace as PT
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PK
+    from ascii_renderer_tpu_torch.tools.xla_inputs import pixel_order
+    for label, (rows, cols, B, band, compacted) in B5_STREAM_CALLS.items():
+        row_lo, n_rows = band or (0, rows)
+        pc = n_rows * cols
+        args, kw, _uid, n = _pt_batch(dev, scene, n_rows, cols, B, 1)
+        skw = dict(uid0=row_lo * cols)
+        gated = ""
+        if compacted:
+            act, order = pixel_order(n_rows, cols, 0.3, seed=1)
+            skw["pix_uid"] = torch.from_numpy(order + row_lo * cols).to(
+                device=dev, dtype=torch.int32)
+            skw["block_active"] = PT._block_gate(
+                (torch.arange(pc) < int(act.sum())).repeat(B)).to(dev)
+            gated = (f", {int(skw['block_active'].sum())}/"
+                     f"{skw['block_active'].numel()} blocks live")
+        fk = _b5_same(label, *_b5_frame_form(PK, args, kw, pc, rows * cols,
+                                             **skw))
+        print(f"B5 {label} ({n} rays, uid0 {skw['uid0']}"
+              f"{', pix_uid' if compacted else ''}{gated}): frame form "
+              f"bit-identical to its plain version and to the per-ray form, "
+              f"{int((fk[3].reshape(-1)[:n] > 0).sum())} overrides",
+              flush=True)
+
+
 def check_pt_kernel(dev):
     """B5 against its plain version at every launch shape of the PT runs:
     the reference run's batch (32 x 96x36 rays, seed 1) and probe (1 x
-    96x36), the HD arm's probe (1 x 960x540) and batch (8 x 960x540), then
-    the placement check at the reference batch. Returns the record (timed
-    at the reference batch)."""
+    96x36), the HD arm's probe (1 x 960x540) and batch (8 x 960x540), in
+    its per-ray form, and its frame form (the render paths': the light and
+    one origin by value) against its plain version and against the
+    per-ray form on the same rays, also on a band's and a compacted
+    stream (check_b5_streams); then the placement check at the reference
+    batch. Returns the record (the frame form timed at the
+    reference batch and the HD arm's, beside the per-ray form)."""
     import torch
     from ascii_renderer_tpu_torch.ops import pt_kernel as PK
     scene = _pt_scene(device=dev)
     rec = None
+    frame_ms = {}
     for rows, cols, B, label in ((36, 96, 32, "reference batch"),
                                  (36, 96, 1, "reference probe"),
                                  (540, 960, 1, "HD probe"),
@@ -1681,6 +1764,22 @@ def check_pt_kernel(dev):
               f"{stats['segments']} segments, alive per bounce "
               f"{stats['alive']}, {stats['shadow_rays']} shadow searches, "
               f"{ops:.4g} ops)", flush=True)
+        # the frame form: its plain version and the per-ray form on the
+        # same rays (the origin on the pad rays too), bit for bit
+        frame, plain_f, per_ray = _b5_frame_form(PK, args, kw, rows * cols,
+                                                 rows * cols)
+        _b5_same(label, frame, plain_f, per_ray)
+        if B > 1:
+            frame_ms[label] = (
+                _device_ms(frame, "pt_trace_kernel", 1),
+                _device_ms(per_ray, "pt_trace_kernel", 1), bound[0])
+            print(f"B5 {label}: frame form {frame_ms[label][0]:.4f} ms, "
+                  f"per-ray form on the same rays {frame_ms[label][1]:.4f} "
+                  f"ms; both bit-identical to each other and to the plain "
+                  f"version", flush=True)
+        else:
+            print(f"B5 {label}: frame form bit-identical to the per-ray "
+                  f"form and to its plain version", flush=True)
         if rec is None:
             rec = _rec("pt_megakernel", "pt_trace.cu", "pt_kernel.py:153",
                        err, ms, plain, bound)
@@ -1708,6 +1807,13 @@ def check_pt_kernel(dev):
             print(f"B5 placement: {int(act.sum())}/{nblk} blocks live, "
                   f"every live ray bit-identical under a permuted order, "
                   f"gated blocks zero", flush=True)
+    check_b5_streams(dev, scene)
+    # the record: the frame form, the render paths' (the per-ray form's
+    # times beside it)
+    rec["ms_per_ray"] = rec["ms"]
+    rec["ms"], _pr, _b = frame_ms["reference batch"]
+    (rec["ms_hd"], rec["ms_hd_per_ray"],
+     rec["bound_ms_hd"]) = frame_ms["HD arm batch"]
     return rec
 
 
@@ -1791,14 +1897,23 @@ def _pt_rays_call(dev, basis, rows, cols, B, b, band, compacted):
     return (basis, rows, cols, PIXEL_ASPECT), kw, max(B, 1) * pc, pc
 
 
+def _x7_bound(kw, n, pc):
+    """X7's least time: 12 bytes out a ray; in a pixel, the fetch flag (4)
+    where the call jitters and the uid (4) where it is compacted; ~40
+    operations a ray (the hash, the jitter, the direction)."""
+    n_bytes = 12 * n + 4 * pc * ((kw.get("fet0") is not None)
+                                 + (kw.get("pix_uid") is not None))
+    return _bound(n_bytes, 40 * n), n_bytes
+
+
 def check_pt_rays(dev):
     """X7 (ops/ray_grid.pt_rays, the render paths' sample rays) against
     its plain chain (pt_rays_ref) on the same CUDA tensors at
-    PT_RAY_CALLS, at the poster pose and a pose off the axes: bit for
-    bit, pad rays 0. Timed at the HD arm's batch (the record) and the
-    reference batch; bound: 12 bytes out a ray, and in a pixel 4 for the
-    fetch flag where the call jitters and 4 for the uid where it is
-    compacted."""
+    PT_RAY_CALLS, at the poster pose and a pose off the axes: bit for bit,
+    pad rays 0; the launch's own split of the samples among threads (a
+    sample a thread at 96x36 and the probes, every sample of a slot at the
+    HD arm's batch). Timed at the HD arm's batch and the reference batch
+    (the record: the HD arm's)."""
     import torch
     from ascii_renderer_tpu_torch.core.camera import Camera, camera_basis
     from ascii_renderer_tpu_torch.ops import ray_grid as RYG
@@ -1808,8 +1923,8 @@ def check_pt_rays(dev):
         basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
         for label, call in PT_RAY_CALLS.items():
             args, kw, n, pc = _pt_rays_call(dev, basis, *call)
-            got = RYG.pt_rays(*args, **kw)
             want = RYG.pt_rays_ref(*args, **kw)
+            got = RYG.pt_rays(*args, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got.view(torch.int32),
                                want.view(torch.int32)), f"X7 {label} differs"
@@ -1820,18 +1935,15 @@ def check_pt_rays(dev):
         for label in ("HD arm batch", "reference batch 0"):
             args, kw, n, pc = _pt_rays_call(dev, basis,
                                             *PT_RAY_CALLS[label])
+            per = RYG.samples_per_thread(pc, kw["samples"])
             ms = _device_ms(lambda: RYG.pt_rays(*args, **kw),
                             "pt_rays_kernel", 1)
             plain = _event_ms(lambda: RYG.pt_rays_ref(*args, **kw), 5)
-            # 12 bytes out a ray; in a pixel, the fetch flag (4) where the
-            # call jitters and the uid (4) where it is compacted; ~40
-            # operations a ray (the hash, the jitter, the direction)
-            n_bytes = 12 * n + 4 * pc * (("fet0" in kw) + ("pix_uid" in kw))
-            bound = _bound(n_bytes, 40 * n)
+            bound, n_bytes = _x7_bound(kw, n, pc)
             times[label] = (ms, plain, bound)
-            print(f"X7 {label} ({n} rays): kernel {ms:.5f} ms, plain "
-                  f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}, "
-                  f"{n_bytes / 1e6:.2f} MB)", flush=True)
+            print(f"X7 {label} ({n} rays, {per} samples a thread): kernel "
+                  f"{ms:.5f} ms; plain {plain:.3f} ms, bound {bound[0]:.5f} "
+                  f"ms ({bound[1]}, {n_bytes / 1e6:.2f} MB)", flush=True)
         ms, plain, bound = times["HD arm batch"]
         rec = _rec("pt_rays", "ray_grid.cu", "", 0.0, ms, plain, bound)
         rec["replaces"] = "ascii_renderer_tpu/backends/pathtrace.py:579"
@@ -1845,11 +1957,15 @@ def check_pt_rays(dev):
 
 # X14's folds held to the plain version: (pixels, samples a batch, spp,
 # compacted): the reference run's two batches of 32, a last batch past spp
-# (spp 40 at 32), the HD arm's one batch of 8, a compacted order
+# (spp 40 at 32), the HD arm's one batch of 8, a compacted order; batches
+# of 8 on each side of the size where the kernel changes form (32,400
+# slots in the tile form, 129,600 in the slot form)
 PT_FOLD_CALLS = {"reference 2 x 32": (3456, 32, 64, False),
                  "spp 40 at 32": (3456, 32, 40, False),
                  "HD arm 1 x 8": (518400, 8, 8, False),
-                 "compacted 3 x 4": (3456, 4, 10, True)}
+                 "compacted 3 x 4": (3456, 4, 10, True),
+                 "240x135 2 x 8": (32400, 8, 16, False),
+                 "480x270 2 x 8": (129600, 8, 16, False)}
 
 
 def _fold_pair(label, probe, batches, B, spp, slot, pc):
@@ -1890,7 +2006,7 @@ def _frame_outputs(dev, rows, cols, cfg):
     at the poster pose (probe, then each batch), captured from its calls."""
     from ascii_renderer_tpu_torch.backends.registry import Renderer
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
-    orig, seen = PTK.trace_blocks_raw, []
+    orig, seen = PTK.trace_frame, []
 
     def rec(*a, **k):
         out = orig(*a, **k)
@@ -1899,11 +2015,11 @@ def _frame_outputs(dev, rows, cols, cfg):
 
     r = Renderer(cfg, "pathtrace", device=dev)
     r.set_scene(_pt_scene(device=dev))
-    PTK.trace_blocks_raw = rec
+    PTK.trace_frame = rec
     try:
         r.render(0.0, _pt_camera(), rows, cols)
     finally:
-        PTK.trace_blocks_raw = orig
+        PTK.trace_frame = orig
     return seen[0], seen[1:]
 
 
@@ -1912,12 +2028,11 @@ def check_pt_reduce(dev):
     CUDA tensors: at PT_FOLD_CALLS on seeded megakernel outputs
     (overrides in several samples, NaN radiance, ties of rint), and on the
     real outputs of a PT reference frame (96x36, spp 64: the probe and two
-    batches of 32): every state and the resolve bit for bit. Timed at the
-    launches the driven paths make: the reference run's two (batch 0's
-    first fold, batch 1's fold with the resolve) and the HD arm's one
-    batch, which folds first and resolves (the record); bound: 16 bytes
-    read a ray, the state's 28 bytes a pixel read unless the fold is the
-    first and written unless it resolves, the resolve's 16 in and 13 out."""
+    batches of 32): every state and the resolve bit for bit, in the form
+    the size gives (a block a tile of slots below 32,768 slots, a thread a
+    slot from there). Timed at the launches the driven paths make
+    (_fold_timing_calls; the record: the HD arm's), bound by
+    _x14_bound."""
     import torch
     from ascii_renderer_tpu_torch.core.config import Config
     from ascii_renderer_tpu_torch.ops import pt_reduce as PR
@@ -1937,8 +2052,8 @@ def check_pt_reduce(dev):
         probe = outs(pc, 0)
         batches = [outs(B * pc, 1 + b) for b in range(-(-spp // B))]
         n_ov = _fold_pair(label, probe, batches, B, spp, slot, pc)
-        print(f"X14 {label} ({pc} pixels): bit-identical, {n_ov} "
-              f"overridden pixels", flush=True)
+        print(f"X14 {label} ({pc} pixels, {PR.form_of(pc)} form): "
+              f"bit-identical, {n_ov} overridden pixels", flush=True)
     probe, batches = _frame_outputs(dev, 36, 96, Config())
     n_ov = _fold_pair("PT reference frame", probe, batches, 32, 64, None,
                       3456)
@@ -1948,6 +2063,42 @@ def check_pt_reduce(dev):
     # frame step and the progressive run fold two batches of 32; the HD arm
     # folds and resolves its one batch of 8)
     times = {}
+    for label, (fold, real) in _fold_timing_calls(dev).items():
+        a, k = fold
+        ms = _device_ms(lambda: PR.fold(*a, **k), "pt_reduce_kernel", 1)
+        plain = _event_ms(lambda: PR.fold_ref(*a, **k), 3)
+        bound, n_bytes = _x14_bound(a, k)
+        times[label] = (ms, plain, bound)
+        print(f"X14 {label} ({real} rays, {PR.form_of(a[0][1].shape[0])} "
+              f"form): kernel {ms:.5f} ms; plain {plain:.3f} ms, bound "
+              f"{bound[0]:.5f} ms ({bound[1]}, {n_bytes / 1e6:.2f} MB)",
+              flush=True)
+    ms, plain, bound = times["HD arm batch with the resolve"]
+    rec = _rec("pt_reduce", "pt_reduce.cu", "", 0.0, ms, plain, bound)
+    rec["replaces"] = "ascii_renderer_tpu/backends/pathtrace.py:611"
+    for i, label in enumerate(("reference batch 0",
+                               "reference batch 1 with the resolve")):
+        rec[f"ms_reference_batch{i}"], \
+            rec[f"plain_ms_reference_batch{i}"], \
+            (rec[f"bound_ms_reference_batch{i}"], _b) = times[label]
+    return rec
+
+
+def _fold_timing_calls(dev):
+    """{label: ((args, keywords) of an X14 fold, its rays)} at the launches
+    the driven paths make: the reference run's batch 0 (the first fold)
+    and batch 1 (the fold with the resolve), the HD arm's one batch (the
+    first fold with the resolve); seeded outputs and state."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import pt_reduce as PR
+    from ascii_renderer_tpu_torch.tools.xla_inputs import pt_outputs
+
+    def outs(n, seed):
+        return [torch.from_numpy(x).to(dev)
+                for x in pt_outputs(-(-n // 1024) * 1024, seed=seed,
+                                    p_override=0.003)]
+
+    calls = {}
     for label, pc, B, first, resolve in (
             ("reference batch 0", 3456, 32, True, False),
             ("reference batch 1 with the resolve", 3456, 32, False, True),
@@ -1959,25 +2110,21 @@ def check_pt_reduce(dev):
         probe = outs(pc, 6)
         kw = dict(first=first, probe=probe[:4] if resolve else None,
                   spp=B if first else 2 * B)
-        ms = _device_ms(lambda: PR.fold(state, *o[:4], B, **kw),
-                        "pt_reduce_kernel", 1)
-        plain = _event_ms(lambda: PR.fold_ref(state, *o[:4], B, **kw), 3)
-        n_bytes = 16 * B * pc + (16 + 13 if resolve else 0) * pc + (
-            0 if first else 28) * pc + (0 if resolve else 28) * pc
-        bound = _bound(n_bytes, (3 + 1) * B * pc + 12 * pc)
-        times[label] = (ms, plain, bound)
-        print(f"X14 {label} ({B * pc} rays): kernel {ms:.5f} ms, plain "
-              f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}, "
-              f"{n_bytes / 1e6:.2f} MB)", flush=True)
-    ms, plain, bound = times["HD arm batch with the resolve"]
-    rec = _rec("pt_reduce", "pt_reduce.cu", "", 0.0, ms, plain, bound)
-    rec["replaces"] = "ascii_renderer_tpu/backends/pathtrace.py:611"
-    for i, label in enumerate(("reference batch 0",
-                               "reference batch 1 with the resolve")):
-        rec[f"ms_reference_batch{i}"], \
-            rec[f"plain_ms_reference_batch{i}"], \
-            (rec[f"bound_ms_reference_batch{i}"], _b) = times[label]
-    return rec
+        calls[label] = ((state, *o[:4], B), kw), B * pc
+    return calls
+
+
+def _x14_bound(a, k):
+    """X14's least time at a fold's arguments: 16 bytes read a ray of its
+    valid samples; a pixel's state, 28 bytes read unless the fold is the
+    first and written unless it resolves; the resolve's 16 in (the
+    probe's), 13 out and the slot (4) under compaction; 4 operations a
+    ray and 12 a pixel."""
+    pc, n_valid = a[0][1].shape[0], a[5]
+    resolve = k.get("probe") is not None
+    n_bytes = 16 * n_valid * pc + (0 if k["first"] else 28) * pc + (
+        (16 + 13 + 4 * (k.get("slot") is not None)) if resolve else 28) * pc
+    return _bound(n_bytes, 4 * n_valid * pc + 12 * pc), n_bytes
 
 
 # --------------------------------------------------------------------------
@@ -3852,9 +3999,10 @@ def run_pt_path(cfg, rows, cols, n_checked, n_timed, label):
 
 
 def _stage_launches(prof, prefixes, n):
-    """Kernel launches a frame inside each stage: the kernels whose device
-    interval lies within one of the stage's spans on the device (its
-    annotation, from its first kernel to its last)."""
+    """Kernel launches a frame inside each stage: the kernels (and copies)
+    whose device interval lies within one of the stage's spans on the
+    device (its annotation, from its first kernel to its last); and, as
+    "<stage> HtoD", the host-to-device copies among them."""
     from torch.autograd import DeviceType
     spans, kernels = {}, []
     for e in prof.events():
@@ -3864,28 +4012,38 @@ def _stage_launches(prof, prefixes, n):
         if e.name.startswith(prefixes):
             spans.setdefault(e.name, []).append(r)
         elif "spin_kernel" not in e.name:
-            kernels.append(r)
+            kernels.append((*r, "Memcpy HtoD" in e.name))
     kernels.sort()
     out = {}
     for name, rs in spans.items():
-        inside = sum(1 for a, b in kernels for lo, hi in rs
-                     if lo <= a and b <= hi)
-        out[name] = inside / n
+        inside = [h for a, b, h in kernels for lo, hi in rs
+                  if lo <= a and b <= hi]
+        out[name] = len(inside) / n
+        out[f"{name} HtoD"] = sum(inside) / n
     return out
+
+
+# kernel launches pt.setup may make on a frame that is not compacted: the
+# ray counters' fill (the light and the camera position go by value)
+PT_SETUP_LAUNCHES = 1
 
 
 def pt_stages(label, stages, n_batches):
     """A kernel-path PT frame's stage launches (profile_frames' stage
     counts): pt.rays is X7 once for the probe and once a batch, pt.trace
-    B5 likewise, pt.reduce X14 once a batch; pt.setup builds the frame's
-    blocks and counters."""
+    B5 likewise, pt.reduce X14 once a batch; pt.setup (the frame's ray
+    counters; the paths it is asked for are not compacted) at most
+    PT_SETUP_LAUNCHES and no host-to-device copy."""
     want = {"pt.rays": 1 + n_batches, "pt.trace": 1 + n_batches,
             "pt.reduce": n_batches}
     got = {k: stages.get(k, 0.0) for k in want}
+    setup = stages.get("pt.setup", 0.0)
+    copies = stages.get("pt.setup HtoD", 0.0)
     print(f"{label}: kernel launches a frame by stage {json.dumps(got)}, "
-          f"pt.setup {stages.get('pt.setup', 0.0):g} ({n_batches} batches)",
-          flush=True)
+          f"pt.setup {setup:g} ({copies:g} host-to-device copies; "
+          f"{n_batches} batches)", flush=True)
     assert got == want, (label, got, want)
+    assert setup <= PT_SETUP_LAUNCHES and copies == 0, (label, setup, copies)
 
 
 def profile_frames(frame_fn, n, prefixes, label):
@@ -4985,6 +5143,32 @@ def _fma_bound(a, out):
     return _bound(_nbytes(*tens, out), 2 * out.numel())
 
 
+def _x7_size(a, k):
+    """X7's launch size: rays, samples, jittered, compacted (None where
+    nothing launches)."""
+    from ascii_renderer_tpu_torch.core.camera import band_of
+    if str(k.get("device", "cuda")).startswith("cpu"):
+        return None
+    pc = band_of(a[1], k.get("row_lo", 0), k.get("n_rows")) * a[2]
+    samples = k.get("samples", 1)
+    return (samples * pc, samples, k.get("fet0") is not None,
+            k.get("pix_uid") is not None)
+
+
+def _x7_size_bound(a, k):
+    n, samples = _x7_size(a, k)[:2]
+    return _x7_bound(k, n, n // samples)[0][0]
+
+
+def _x14_size(a, k):
+    """X14's launch size: pixels, valid samples, first, resolving,
+    compacted (None where nothing launches)."""
+    if a[0][1].device.type != "cuda":
+        return None
+    return (a[0][1].shape[0], a[5], bool(k["first"]),
+            k.get("probe") is not None, k.get("slot") is not None)
+
+
 def size_loss(label, sizes, real, kernel, per_call, bound_of, rec):
     """A kernel's loss on the driven paths from the sizes of its launches
     (``_record_sizes``): each size's device ms (at its recorded call's
@@ -5096,6 +5280,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import ascii_renderer_tpu_torch  # noqa: F401  (fails outside the repo)
     from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    from ascii_renderer_tpu_torch.backends import pathtrace as PTB
     from ascii_renderer_tpu_torch.ops import _build
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
     from ascii_renderer_tpu_torch.ops import bin_entries as BE
@@ -5133,6 +5318,10 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     k3_sizes, k3_trace = _record_sizes(RTK, "trace", _k3_size)
+    # the PT frame's X7 and X14 launches by size (the backend binds
+    # pt_rays by name)
+    pt_sizes = (_record_sizes(RYG, "pt_rays", _x7_size, also=(PTB,)),
+                _record_sizes(PR, "fold", _x14_size))
     recorded = (_record_sizes(RSH, "shade", _shade_size),
                 _record_sizes(GB, "build_rows", _build_size,
                               weight_of=_build_weight),
@@ -5360,9 +5549,11 @@ def main() -> int:
     print(f"launches on the PT frame step: {c_pts}", flush=True)
     for k in PT_KERNELS + ("modal_vote",):
         assert c_pts[k] > 0, f"{k} never launched on the PT frame step"
-    tails["PT frame step"] = tail_stages(
-        "PT frame step", profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"),
-                                        "PT frame step"), counters, pts_fn)
+    prof = profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"),
+                          "PT frame step")
+    pt_stages("PT frame step", prof[2], 2)
+    tails["PT frame step"] = tail_stages("PT frame step", prof, counters,
+                                         pts_fn)
 
     # the ray tracer: the golden frame and the "raytrace" step, then the
     # 1,024-view farm, then the progressive path tracer
@@ -5441,6 +5632,12 @@ def main() -> int:
     # of them)
     k3_loss(k3_sizes, k3_trace, by_name["rt_trace"])
     _size_losses(recorded, by_name)
+    ((x7_sizes, x7_real), (x14_sizes, x14_real)) = pt_sizes
+    size_loss("PT sample rays (X7)", x7_sizes, x7_real, "pt_rays_kernel",
+              lambda a, k: 1, _x7_size_bound, by_name["pt_rays"])
+    size_loss("PT batch fold (X14)", x14_sizes, x14_real, "pt_reduce_kernel",
+              lambda a, k: 1, lambda a, k: _x14_bound(a, k)[0][0],
+              by_name["pt_reduce"])
 
     # the path tracer's XLA core: the goldens and the core against B5,
     # then the wide-atlas frame. Last: its profile holds ~20,000 launches a
@@ -5487,7 +5684,7 @@ def main() -> int:
         [c["ray_grid_jit"] for c in driven]
     # the losses by launch size count every driven launch
     for k in ("raster_shade", "group_build", "raster_clip", "plane_table",
-              "fma32"):
+              "fma32", "pt_rays", "pt_reduce"):
         assert sum(p["launches"] for p in by_name[k]["launch_sizes"]) == \
             by_name[k]["launches"], (k, by_name[k]["launch_sizes"],
                                      by_name[k]["launches"])

@@ -6,8 +6,11 @@ global arrays, its rays read from rd3 or computed from the jitted grid;
 ``render_rgb`` one launch a call), the small and mid raster paths' clip
 with its screen setup (``ops/raster_clip``, X4), their plane table (``ops/plane_table``, X3) and
 their bin entries (``ops/bin_entries``, X9), and the path tracer's sample
-rays (``ops/ray_grid.pt_rays``, X7) and batch fold (``ops/pt_reduce``,
-X14), each held to its plain version bit for bit. Tests marked ``cuda`` skip without
+rays (``ops/ray_grid.pt_rays``, X7, every split of a batch's samples
+among threads) and batch fold (``ops/pt_reduce``, X14, both forms), and
+the megakernel's frame form (``ops/pt_kernel.trace_frame``), each held to
+its plain version bit for bit, and a frame's set-up held to one launch
+and no copy to the card. Tests marked ``cuda`` skip without
 a card; this file imports no JAX, so they run where there is none:
 
     python -m pytest tests/test_torch_build_xla.py -m cuda --noconftest
@@ -729,14 +732,20 @@ def test_bin_keys_and_group_build_raise_on_build_or_launch_failure(
 # --------------------------------------------------------------------------
 # (rows, cols, samples a batch (0: the probe), batch index, row band or
 # None, compacted): the reference run's batches and probe, the HD arm's
-# batch, a compacted order, a band, a compacted band
+# batch, a compacted order, a band, a compacted band; where X7 takes a
+# sample a thread at HD (the probe), every sample of a slot (the
+# progressive HD batch's compacted stream) and a split between (3 of a
+# 480x270 batch's 8, ops/ray_grid.samples_per_thread)
 PT_RAY_CASES = {"reference batch 0": (36, 96, 32, 0, None, False),
                 "reference batch 1": (36, 96, 32, 1, None, False),
                 "reference probe": (36, 96, 0, 0, None, False),
                 "HD batch": (540, 960, 8, 0, None, False),
                 "compacted batch 1": (36, 96, 32, 1, None, True),
                 "band batch 1": (36, 96, 32, 1, (12, 12), False),
-                "compacted band probe": (36, 96, 0, 0, (12, 12), True)}
+                "compacted band probe": (36, 96, 0, 0, (12, 12), True),
+                "HD probe": (540, 960, 0, 0, None, False),
+                "compacted HD batch": (540, 960, 8, 1, None, True),
+                "480x270 batch": (270, 480, 8, 0, None, False)}
 
 
 @pytest.mark.cuda
@@ -770,11 +779,14 @@ def test_pt_rays_kernel_equals_plain(cuda_device, case, pose):
 
 # (pc, samples a batch, spp, compacted): the reference run's two batches,
 # a last batch past spp (spp 40 at 32), the HD arm's one batch, a
-# compacted order
+# compacted order; batches of 8 on each side of the size where X14
+# changes form (32,400 slots in the tile form, 129,600 in the slot form)
 PT_FOLD_CASES = {"reference 2 x 32": (3456, 32, 64, False),
                  "spp 40 at 32": (3456, 32, 40, False),
                  "HD 1 x 8": (518400, 8, 8, False),
-                 "compacted 3 x 4": (3456, 4, 10, True)}
+                 "compacted 3 x 4": (3456, 4, 10, True),
+                 "240x135 2 x 8": (32400, 8, 16, False),
+                 "480x270 2 x 8": (129600, 8, 16, False)}
 
 
 @pytest.mark.cuda
@@ -834,3 +846,129 @@ def test_render_pt_takes_rays_and_reduce_in_one_launch_a_batch(cuda_device):
             RYG.launches) == (4, 4, 3, 0)
     _rgb, a_cpu = PT.render_pt(cscene, cam, 0.0, 3, rows=36, cols=96, **pkw)
     assert torch.equal(a.cpu(), a_cpu) and bool(torch.isfinite(rgb).all())
+
+
+# B5's frame form, and the frame's set-up
+def _pt_frame_launch(device, case):
+    """(light, origin, prim, rays, seed, atlas, keywords) of a frame-form
+    launch of the demo room at 36x96: X7's rays of batch 1 (32 samples),
+    of a band's or of a compacted stream's, with the compacted stream's
+    block gate."""
+    from ascii_renderer_tpu_torch.atlas.io import demo_atlas
+    from ascii_renderer_tpu_torch.backends import pathtrace as PTB
+    from ascii_renderer_tpu_torch.core.camera import Camera, camera_basis
+    from ascii_renderer_tpu_torch.scene.demo import create_demo_scene
+    sb = create_demo_scene()
+    sb.set_atlas(demo_atlas())
+    scene = sb.build(min_pad=1, device=device)
+    prim, atlas, aw, ah, sph_rows = PTB.pack_scene_entries(scene)
+    cam = Camera.create(pos=(0.0, 2.5, 6.0), yaw=-1.234, pitch=0.321)
+    basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
+    row_lo, n_rows = (12, 12) if case == "band" else (0, 36)
+    pc = n_rows * 96
+    kw = dict(row_lo=row_lo, n_rows=n_rows, device=device)
+    gate = None
+    if case == "compacted":
+        act, order = pixel_order(n_rows, 96, 0.3, seed=1)
+        kw["pix_uid"] = torch.from_numpy(order).to(device)
+        gate = PTB._block_gate((torch.arange(pc) < int(act.sum())).repeat(
+            32)).to(device)
+    rd = RYG.pt_rays(basis, 36, 96, 0.5, **kw, fet0=torch.from_numpy(
+        pt_outputs(pc, seed=3)[4]).to(device), samples=32, s0=32,
+        seed=PTB.batch_seed_of(5, 1))
+    lc, lr = PTB.get_light_sphere(scene, 0.4)
+    light = PTB._light_host(lc, lr, torch.tensor((16.86, 10.76, 8.2)) *
+                            1.3).tolist()
+    return (light, cam.pos.tolist(), prim, rd, PTB.batch_seed_of(5, 1),
+            atlas, dict(pc=pc, npix=36 * 96, uid0=row_lo * 96,
+                        pix_uid=kw.get("pix_uid"), bounces=5, nee=True,
+                        atlas_w=aw, atlas_h=ah, sph_rows=sph_rows,
+                        block_active=gate))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full", "band", "compacted"])
+def test_pt_trace_frame_form_equals_plain_and_per_ray_form(cuda_device,
+                                                           case):
+    """B5's frame form (the light and the origin by value, uids from the
+    stream) equals its plain version and the per-ray form on the origin
+    expanded to every ray and the same uids, every output bit for bit."""
+    from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
+    light, origin, prim, rd, seed, atlas, kw = _pt_frame_launch(
+        cuda_device, case)
+    nblk = rd.shape[0]
+    launches = PTK.launches
+    got = PTK.trace_frame(light, origin, prim, rd, seed, atlas, **kw)
+    want = PTK.trace_frame_ref(light, origin, prim, rd, seed, atlas, **kw)
+    per_ray = PTK.trace_blocks_raw(
+        torch.tensor(light, device=cuda_device), prim,
+        torch.tensor(origin, device=cuda_device).expand(
+            nblk, 8, 128, 3).contiguous(), rd, seed, atlas,
+        bounces=5, nee=True, atlas_w=kw["atlas_w"], atlas_h=kw["atlas_h"],
+        sph_rows=kw["sph_rows"], block_active=kw["block_active"],
+        uid=PTK.frame_uids(nblk, kw["pc"], kw["npix"], kw["uid0"],
+                           kw["pix_uid"], cuda_device))
+    torch.cuda.synchronize()
+    assert PTK.launches == launches + 2
+    for g, w, r in zip(got, want, per_ray):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+    assert bool((got[0] != 0).any())
+
+
+# aten ops that allocate or reshape and launch nothing on the card
+_NO_LAUNCH = {"empty", "empty_strided", "view", "_unsafe_view", "reshape",
+              "as_strided", "detach", "alias", "slice", "select", "expand",
+              "t", "permute", "unsqueeze", "squeeze", "lift_fresh",
+              "_reshape_alias"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [False, True])
+def test_render_pt_set_up_makes_one_launch_and_no_copy(cuda_device,
+                                                       monkeypatch, band):
+    """A full frame's or a band's pt.setup asks the card for one op that
+    launches (the ray counters' fill) and for no copy from the host: the
+    light and the camera position go to the megakernel by value (the
+    scene's light read to the host once, as PathtraceBackend reads it).
+    The ops are those torch dispatches inside the stage's range (no
+    profiler: its sessions lose rows in later tests' sessions)."""
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ascii_renderer_tpu_torch.backends import pathtrace as PTB
+    from ascii_renderer_tpu_torch.parallel.worlds import pt_fixture
+    stage, ops = [None], []
+
+    @contextlib.contextmanager
+    def stage_range(name):
+        stage[0] = name
+        try:
+            yield
+        finally:
+            stage[0] = None
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if stage[0] == "pt.setup":
+                flat = [t for t in torch.utils._pytree.tree_leaves(
+                    (args, kwargs, out)) if isinstance(t, torch.Tensor)]
+                devs = {t.device.type for t in flat}
+                if "cuda" in devs:
+                    ops.append((func.__name__.split(".")[0], devs))
+            return out
+
+    scene, cam, pkw = pt_fixture(cuda_device)
+    kw = dict(pkw, rows=36, cols=96, light_host=PTB.light_sphere_host(scene),
+              packed=PTB.pack_scene_entries(scene),
+              **(dict(row_lo=12, n_rows=12) if band else {}))
+    monkeypatch.setattr(PTB, "record_function", stage_range)
+    with Count():
+        rgb, _a = PTB.render_pt(scene, cam, 0.0, 3, **kw)
+    torch.cuda.synchronize()
+    launching = [name for name, _d in ops if name not in _NO_LAUNCH]
+    copies = [name for name, devs in ops if "cpu" in devs]
+    assert len(launching) <= 1 and not copies, ops
+    assert bool(torch.isfinite(rgb).all())
