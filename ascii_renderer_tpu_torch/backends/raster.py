@@ -67,8 +67,9 @@ from ascii_renderer_tpu_torch.backends.raster_channels import (  # noqa: F401
     _COMPACT_KEYS, _clip_channels_core, _edge, build_plane_table,
     channels_clip_array, channels_to_setup, clip_attrs_channel_lists,
     clip_attrs_channels, clip_attrs_compact_lists, clip_screen_channels,
-    compact_valid_ch, count_big_small, render_channels_diag, setup_screen,
-    setup_screen_channels, shade_planes_ch, shade_visibility, transform_clip,
+    clip_screen_table_channels, compact_valid_ch, count_big_small,
+    render_channels_diag, setup_screen, setup_screen_channels,
+    shade_planes_ch, shade_visibility, transform_clip,
     transform_clip_channels, transform_clip_channels9, visibility_binned,
     visibility_binned_ch, visibility_scan)
 from ascii_renderer_tpu_torch.backends.raster_oracles import (  # noqa: F401
@@ -435,7 +436,6 @@ def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
     render_soup_diag; None keeps the exact uncapped path (the subtile
     names then take the scan, as in the reference). Any other name takes
     the scan, as in the reference."""
-    attrs = torch.cat([normals, colors, positions], dim=1)  # [V, 9]
     if method == "auto":
         method = "scatter" if positions.shape[0] // 3 * 2 > 512 else "scan"
     scatter = ("scatter", "scatter_mm", "scatter_loop")
@@ -451,19 +451,24 @@ def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
         return rgb
     with stage("raster.mvp"):
         mvp = camera_mvp(cam, rows, cols, pixel_aspect)
+    if method in scatter:
+        # the clip, its screen setup and the plane table of the normals,
+        # colors and positions: one launch of X4's table form on CUDA
+        with stage("raster.clip"):
+            ch, table = clip_screen_table_channels(positions, normals,
+                                                   colors, mvp, rows, cols)
+        with stage("raster.walk"):
+            kern = "loop" if method == "scatter_loop" else "mm"
+            _zbuf, tid = visibility_binned_ch(ch, rows, cols, kernel=kern)
+        with stage("raster.shade"):
+            return shade_planes_ch(tid, ch, None, scene, rows, cols,
+                                   table=table)
+    attrs = torch.cat([normals, colors, positions], dim=1)  # [V, 9]
     if method == "fused":
         with stage("raster.clip"):
             ch = clip_screen_channels(positions, mvp, rows, cols)
             attr_slots = clip_attrs_channel_lists(attrs, ch)
         return render_fused_ch(ch, attr_slots, scene, rows, cols)
-    if method in scatter:
-        with stage("raster.clip"):
-            ch = clip_screen_channels(positions, mvp, rows, cols)
-        with stage("raster.walk"):
-            kern = "loop" if method == "scatter_loop" else "mm"
-            _zbuf, tid = visibility_binned_ch(ch, rows, cols, kernel=kern)
-        with stage("raster.shade"):
-            return shade_planes_ch(tid, ch, attrs, scene, rows, cols)
     with stage("raster.clip"):
         clip, tattr, valid = transform_clip(positions, attrs, mvp)
         setup = setup_screen(clip, valid, rows, cols)

@@ -3,7 +3,8 @@
 
 The [2T]-domain pipeline: branchless near-clip expansion into
 channel-major screen triangles with their screen setup (ops/raster_clip:
-one launch of the kernel X4 on CUDA), order-preserving valid compaction,
+one launch of the kernel X4 on CUDA; uncompacted, its table form also
+writes the plane table in that launch), order-preserving valid compaction,
 exact per-tile binning (the walk's entries through ops/bin_entries: the
 four launches of X9 on CUDA), the bin walks B6 / B6'
 (ops/raster_bins) and
@@ -57,6 +58,16 @@ def clip_screen_channels(positions, mvp, rows: int, cols: int, pos9=None):
     if pos9 is not None:
         return RCL.clip_screen(pos9, mvp, rows, cols, pos9=True)
     return RCL.clip_screen(positions, mvp, rows, cols)
+
+
+def clip_screen_table_channels(positions, normals, colors, mvp, rows: int,
+                               cols: int):
+    """clip_screen_channels(positions, mvp, rows, cols) and the plane table
+    of its [2T] slots over the attributes [normals, colors, positions]
+    with its zero background row (plane_table's uncompacted table, A =
+    9): (dict, table). One launch of X4's table form on CUDA
+    (ops/raster_clip.clip_screen_table), its plain version on the CPU."""
+    return RCL.clip_screen_table(positions, normals, colors, mvp, rows, cols)
 
 
 def channels_to_setup(ch):
@@ -245,19 +256,24 @@ def count_big_small(ch, rows: int, cols: int, tile_window: int = 2):
 
 
 def shade_planes_ch(tid, ch, attrs, scene: SceneData, rows: int,
-                    cols: int, rec=None, cidx=None):
+                    cols: int, rec=None, cidx=None, table=None):
     """Deferred shading via per-triangle screen-space plane coefficients:
     the plane table of the clipped triangles with its trailing all-zero
     background row (ops/plane_table: the clip's attribute lerps and the
     planes, one launch of X3 on CUDA), then shade_from_table. ``ch`` holds
     the table rows' screen channels, ``rec`` the clip records (``ch``
     itself when None), attrs f32 [3T, A] the per-vertex attributes, cidx
-    the compacted rows' [2T] ids. The reference takes the attribute slot
-    lists (clip_attrs_channel_lists) where this takes ``attrs``: the kernel
-    applies the lerps itself."""
-    table = PT.plane_table(ch, ch if rec is None else rec, attrs, cidx)
-    return shade_from_table(tid, table, scene, rows, cols,
-                            n_attrs=attrs.shape[1])
+    the compacted rows' [2T] ids. ``table``: the finished table of
+    clip_screen_table_channels (A = 9; ``attrs`` then unused), which X4's
+    table form wrote in the clip's launch. The reference takes the
+    attribute slot lists (clip_attrs_channel_lists) where this takes
+    ``attrs``: the kernel applies the lerps itself."""
+    if table is None:
+        table = PT.plane_table(ch, ch if rec is None else rec, attrs, cidx)
+        n_attrs = attrs.shape[1]
+    else:
+        n_attrs = RCL.TABLE_ATTRS
+    return shade_from_table(tid, table, scene, rows, cols, n_attrs=n_attrs)
 
 
 def visibility_binned_ch(ch, rows: int, cols: int, *, kernel: str = "mm",

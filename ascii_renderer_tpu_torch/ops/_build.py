@@ -106,6 +106,10 @@ SIGNATURES = {
     "rt_trace_staged": (_I, _I, _I, _I),
     # (src, pos9, mvp16_host, hx, hy, ch, valid, t_rec, i_rec, T, stream)
     "raster_clip_launch": (_P, _I, _FP, _F, _F, _P, _P, _P, _P, _I, _P),
+    # (src, pos9, mvp16_host, hx, hy, normals, colors, ch, valid, t_rec,
+    #  i_rec, table, T, stream)
+    "raster_clip_table_launch": (_P, _I, _FP, _F, _F, _P, _P, _P, _P, _P,
+                                 _P, _P, _I, _P),
     # (screen20_host, cidx, rot, n_in, t_ab, t_ac, t_bc, attrs, table, N, T,
     #  A, stream)
     "plane_table_launch": (_LLP, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -8,8 +8,12 @@ coefficients) of ``ascii_renderer_tpu/backends/raster_channels.py``
 that is a multiple of 512 the reference packs the table with its Pallas
 kernel (B7, ``ops/pack``). On CUDA tensors the plain version is some 180
 launches (about 70 of them ``fma32``) and the pack; ``plane_table`` is one
-launch, a thread a table row, that writes the table with its trailing
-all-zero background row.
+launch, a thread a row (its gathers loaded before the arithmetic), that
+writes the table with its trailing all-zero background row. The
+compacted
+callers take it; the uncompacted table of ``render_soup``'s binned walk
+comes from X4's table form (``ops/raster_clip.clip_screen_table``), in
+the clip's launch.
 
 The plain version is the chain the backend ran before, moved here
 (``backends/raster_channels`` re-exports it): the clip's rotation and

@@ -1,13 +1,19 @@
 """The small and mid raster paths' near-plane clip and screen setup (X4):
-the CUDA kernel of ``csrc/raster_clip.cu`` and its plain version.
+the CUDA kernel of ``csrc/raster_clip.cu`` and its plain version, and
+its table form, which also writes the shading-plane table (X3's work) in
+the same launch.
 
 Stands for XLA code, not a Pallas kernel: ``transform_clip_channels``,
 ``transform_clip_channels9``, ``_clip_channels_core`` and
 ``setup_screen_channels`` of ``ascii_renderer_tpu/backends/
 raster_channels.py`` (:31, :63, :76, :139), which XLA fuses into each
 frame's program. On CUDA tensors the plain version is some 235 launches
-(about 60 of them ``fma32``); ``clip_screen`` is one launch, a thread a
-triangle slot, that writes every channel of the same dict.
+(about 60 of them ``fma32``); ``clip_screen`` is one launch, a thread an
+output triangle, that writes every channel of the same dict.
+``clip_screen_table`` is one launch for the dict and the [2T + 1, 32]
+plane table of the attributes normals, colors and positions (A = 9): the
+uncompacted path's clip, setup and table, whose plain version is
+``clip_screen_ref`` followed by ``ops/plane_table.plane_table_ref``.
 
 The plain version is the chain the backend ran before, moved here
 (``backends/raster_channels`` re-exports it): the vertex transform, the
@@ -26,8 +32,12 @@ import torch
 from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.ops import _build
 
-launches = 0  # kernel launches by clip_screen
-LAUNCHES_PER_CALL = {"clip_screen": 1}  # kernels a call launches
+launches = 0  # kernel launches by clip_screen and clip_screen_table
+launches_table = 0  # kernel launches by clip_screen_table
+# kernels a call launches
+LAUNCHES_PER_CALL = {"clip_screen": 1, "clip_screen_table": 1}
+TABLE_ATTRS = 9  # the table form's attributes: normals, colors, positions
+TABLE_WIDTH = 32  # its table's columns: 3 (A + 1) padded to 8
 
 # the kernel's float output [len(FLOAT_KEYS), 2T], row by row in this order
 CLIP_KEYS = tuple(f"{c}{s}" for c in "xyzw" for s in "abc")
@@ -46,6 +56,41 @@ def _lerp(c0, c1, t):
     return fma32(t, c1 - c0, c0)
 
 
+def _slots(src: torch.Tensor, pos9: bool, what: str) -> int:
+    """The triangle slots T of ``src`` (pos9 [9, T] or positions [3T, 3],
+    float32), or ValueError."""
+    if src.dtype != torch.float32:
+        raise ValueError(f"{what}: expected float32, got {src.dtype}")
+    if pos9:
+        if src.dim() != 2 or src.shape[0] != 9:
+            raise ValueError(f"{what}: pos9 must be [9, T], got "
+                             f"{tuple(src.shape)}")
+        T = src.shape[1]
+    else:
+        if src.dim() != 2 or src.shape[1] != 3 or src.shape[0] % 3:
+            raise ValueError(f"{what}: positions must be [3T, 3], got "
+                             f"{tuple(src.shape)}")
+        T = src.shape[0] // 3
+    if 2 * T * len(FLOAT_KEYS) >= 2 ** 31:
+        raise ValueError(f"{what}: {T} triangle slots, too many")
+    return T
+
+
+def _clip_buffers(T: int, dev):
+    """The kernel's outputs: fb [25, 2T], valid [2T], tr [3, T], ir [2,
+    T]."""
+    return (torch.empty((len(FLOAT_KEYS), 2 * T), dtype=torch.float32,
+                        device=dev),
+            torch.empty(2 * T, dtype=torch.bool, device=dev),
+            torch.empty((3, T), dtype=torch.float32, device=dev),
+            torch.empty((2, T), dtype=torch.int32, device=dev))
+
+
+def _mvp16(mvp: torch.Tensor):
+    """The matrix's 16 host floats, row-major, for the launch."""
+    return (ctypes.c_float * 16)(*mvp.reshape(16).tolist())
+
+
 def clip_screen(src: torch.Tensor, mvp: torch.Tensor, rows: int, cols: int,
                 *, pos9: bool = False) -> dict:
     """setup_screen_channels(transform_clip_channels(src, mvp)) (with
@@ -56,35 +101,51 @@ def clip_screen(src: torch.Tensor, mvp: torch.Tensor, rows: int, cols: int,
     if src.device.type == "cpu":
         return clip_screen_ref(src, mvp, rows, cols, pos9=pos9)
     global launches
-    if src.dtype != torch.float32:
-        raise ValueError(f"clip_screen: expected float32, got {src.dtype}")
-    if pos9:
-        if src.dim() != 2 or src.shape[0] != 9:
-            raise ValueError(f"clip_screen: pos9 must be [9, T], got "
-                             f"{tuple(src.shape)}")
-        T = src.shape[1]
-    else:
-        if src.dim() != 2 or src.shape[1] != 3 or src.shape[0] % 3:
-            raise ValueError(f"clip_screen: positions must be [3T, 3], got "
-                             f"{tuple(src.shape)}")
-        T = src.shape[0] // 3
-    if 2 * T * len(FLOAT_KEYS) >= 2 ** 31:
-        raise ValueError(f"clip_screen: {T} triangle slots, too many")
+    T = _slots(src, pos9, "clip_screen")
     _build.require_cuda(src, what="clip_screen")
-    m = [float(v) for v in mvp.reshape(16).tolist()]  # host floats
-    dev = src.device
-    fb = torch.empty((len(FLOAT_KEYS), 2 * T), dtype=torch.float32,
-                     device=dev)
-    valid = torch.empty(2 * T, dtype=torch.bool, device=dev)
-    tr = torch.empty((3, T), dtype=torch.float32, device=dev)
-    ir = torch.empty((2, T), dtype=torch.int32, device=dev)
+    fb, valid, tr, ir = _clip_buffers(T, src.device)
     err = _build.lib().raster_clip_launch(
-        src.data_ptr(), int(pos9), (ctypes.c_float * 16)(*m),
-        0.5 * cols, 0.5 * rows, fb.data_ptr(), valid.data_ptr(),
-        tr.data_ptr(), ir.data_ptr(), T, _build.stream_ptr(dev))
+        src.data_ptr(), int(pos9), _mvp16(mvp), 0.5 * cols, 0.5 * rows,
+        fb.data_ptr(), valid.data_ptr(), tr.data_ptr(), ir.data_ptr(), T,
+        _build.stream_ptr(src.device))
     launches += 1
     _build.check(err, "raster_clip_launch")
     return _channel_dict(fb, valid, tr, ir)
+
+
+def clip_screen_table(src: torch.Tensor, normals: torch.Tensor,
+                      colors: torch.Tensor, mvp: torch.Tensor, rows: int,
+                      cols: int, *, pos9: bool = False):
+    """``clip_screen`` and the plane table of its [2T] slots: (the channel
+    dict, the table f32 [2T + 1, 32] of the attributes normals, colors and
+    positions, A = 9, with its zero background row). ``normals`` and
+    ``colors`` are f32 [3T, 3]; the positions are ``src`` (with ``pos9``
+    its [9, T] rows). On the CPU the plain version; on a CUDA device one
+    launch."""
+    if src.device.type == "cpu":
+        return clip_screen_table_ref(src, normals, colors, mvp, rows, cols,
+                                     pos9=pos9)
+    global launches, launches_table
+    T = _slots(src, pos9, "clip_screen_table")
+    for a in (normals, colors):
+        if a.shape != (3 * T, 3) or a.dtype != torch.float32:
+            raise ValueError(f"clip_screen_table: normals and colors must "
+                             f"be float32 [{3 * T}, 3], got "
+                             f"{tuple(a.shape)} {a.dtype}")
+    _build.require_cuda(src, normals, colors, what="clip_screen_table")
+    dev = src.device
+    fb, valid, tr, ir = _clip_buffers(T, dev)
+    table = torch.empty((2 * T + 1, TABLE_WIDTH), dtype=torch.float32,
+                        device=dev)
+    err = _build.lib().raster_clip_table_launch(
+        src.data_ptr(), int(pos9), _mvp16(mvp), 0.5 * cols, 0.5 * rows,
+        normals.data_ptr(), colors.data_ptr(), fb.data_ptr(),
+        valid.data_ptr(), tr.data_ptr(), ir.data_ptr(), table.data_ptr(), T,
+        _build.stream_ptr(dev))
+    launches += 1
+    launches_table += 1
+    _build.check(err, "raster_clip_table_launch")
+    return _channel_dict(fb, valid, tr, ir), table
 
 
 def _channel_dict(fb, valid, tr, ir) -> dict:
@@ -106,6 +167,25 @@ def clip_screen_ref(src, mvp, rows: int, cols: int, *, pos9: bool = False):
     ch = (transform_clip_channels9(src, mvp) if pos9
           else transform_clip_channels(src, mvp))
     return setup_screen_channels(ch, rows, cols)
+
+
+def pos9_to_positions(pos9: torch.Tensor) -> torch.Tensor:
+    """Channel-major pos9 f32 [9, T] -> soup positions f32 [3T, 3] (an
+    exact copy)."""
+    T = pos9.shape[1]
+    return pos9.reshape(3, 3, T).permute(2, 0, 1).reshape(3 * T, 3)
+
+
+def clip_screen_table_ref(src, normals, colors, mvp, rows: int, cols: int,
+                          *, pos9: bool = False):
+    """The plain version of ``clip_screen_table``: ``clip_screen_ref``,
+    then ``plane_table_ref`` of the uncompacted dict over the attributes
+    [normals, colors, positions]."""
+    from ascii_renderer_tpu_torch.ops.plane_table import plane_table_ref
+    ch = clip_screen_ref(src, mvp, rows, cols, pos9=pos9)
+    positions = pos9_to_positions(src) if pos9 else src
+    attrs = torch.cat([normals, colors, positions], dim=1)
+    return ch, plane_table_ref(ch, ch, attrs)
 
 
 def transform_clip_channels(positions: torch.Tensor, mvp: torch.Tensor):

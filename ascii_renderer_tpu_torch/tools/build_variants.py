@@ -70,7 +70,8 @@ def build_variant(src: str, entry: str, defines=(), stamps=False):
     path = _build.CSRC / src
     extra = [*defines, *(("-include", str(STAMPS_H)) if stamps else ())]
     h = hashlib.sha256(" ".join((*_build.NVCC_FLAGS, *defines)).encode())
-    for p in (path, *((STAMPS_H,) if stamps else ())):
+    for p in (path, *sorted(_build.CSRC.glob("*.cuh")),
+              *((STAMPS_H,) if stamps else ())):
         h.update(p.read_bytes())
     out = _build.BUILD_DIR / f"lib{path.stem}_variant_{h.hexdigest()[:16]}.so"
     if not out.is_file():

@@ -138,6 +138,16 @@ batch, X14 at the reference run's two launches and the HD arm's, B5 at
 110,592 and 4,147,200 rays in the form the side's frames launch (the
 light and the origin by value where the side has ``trace_frame``),
 each output digested; about 2 minutes a side.
+``--only front`` times the raster front end of the small and mid paths
+(``front_frames``): the entry() room's clip and plane table as one whole
+call (X4's table form where the side has it, else X4 then X3 on the same
+attributes: device ms of every kernel row, and CUDA events), X4
+(``raster_clip_kernel``) and X3 (``plane_table_kernel``) at each size
+their callers give them (the room's 812 slots and 1,624 uncompacted rows,
+the teapot's, the mid-scale HD arm's and the bunny's fused and subtile
+calls, chip_smoke._front_calls), every output digested; then the entry()
+step (median, busy ms, launches a step, and the host ms and launches of
+its raster.clip and raster.shade stages), about 2 minutes a side.
 """
 
 from __future__ import annotations
@@ -272,6 +282,9 @@ def worker(root: str, only: str = "all") -> dict:
         return out
     if only == "pt":
         pt_frames(cs, dev, out)
+        return out
+    if only == "front":
+        front_frames(cs, dev, out)
         return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
@@ -469,6 +482,78 @@ def front(cs, dev, out) -> None:
         out["digest"][f"X3 {label}"] = _digest([table()])
         out["x4_ms"][label] = cs._event_ms(clip, 20)
         out["x3_ms"][label] = cs._event_ms(table, 20)
+
+
+def front_frames(cs, dev, out) -> None:
+    """The raster front end of the small and mid paths (module docstring,
+    ``--only front``): the entry() room's clip and table as one call, X4
+    and X3 at their callers' sizes, then the entry() step."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import plane_table as PT
+    from ascii_renderer_tpu_torch.ops import raster_clip as RCL
+    for key in ("front_ms", "front_call_ms", "x4_kernel_ms",
+                "x3_kernel_ms", "path_ms", "path_busy_ms", "path_launches",
+                "stage_ms", "stage_launches"):
+        out[key] = {}
+    scene, (p, n, c) = cs._room(dev)
+    grid = cs.ENTRY_GRID
+    mvp = R.camera_mvp(scene.camera, *grid, cs.PIXEL_ASPECT)
+    attrs = torch.cat([n, c, p], dim=1)
+    if hasattr(RCL, "clip_screen_table"):
+        def room():
+            return RCL.clip_screen_table(p, n, c, mvp, *grid)
+        per_call = 1
+    else:
+        def room():
+            ch = RCL.clip_screen(p, mvp, *grid)
+            return ch, PT.plane_table(ch, ch, attrs)
+        per_call = 2
+    ch, table = room()
+    label = f"entry() room {p.shape[0] // 3} slots, clip and table"
+    out["digest"][f"front {label}"] = _digest(
+        [ch[k] if ch[k].dtype != torch.bool else ch[k].to(torch.int32)
+         for k in sorted(ch)] + [table])
+    out["front_ms"][label] = cs._device_ms(room, None, per_call)
+    out["front_call_ms"][label] = cs._event_ms(room, 20)
+    soup, bscene = cs._bunny(), cs._scene(dev)
+    caps = {"subtile": cs._oracle_caps(dev, soup, bscene, "subtile")[0]}
+    calls = cs._front_calls(dev, soup, bscene, caps)
+    room_ch = RCL.clip_screen(p, mvp, *grid)
+    clips = {"entry() room": ((p, mvp, *grid), {}),
+             **{k: v for k, v in calls["clip_screen"].items()
+                if not k.startswith(("entry", "cube"))}}
+    tables = {"entry() room, uncompacted": ((room_ch, room_ch, attrs), {}),
+              **{k: v for k, v in calls["plane_table"].items()
+                 if not k.startswith(("entry", "cube"))}}
+    for name, fns, kernel, key in (
+            ("X4", {k: (RCL.clip_screen, a, kw)
+                    for k, (a, kw) in clips.items()},
+             "raster_clip_kernel", "x4_kernel_ms"),
+            ("X3", {k: (PT.plane_table, a, kw)
+                    for k, (a, kw) in tables.items()},
+             "plane_table_kernel", "x3_kernel_ms")):
+        for k, (fn, a, kw) in fns.items():
+            got = fn(*a, **kw)
+            size = (cs._x4_slots(a, kw) if name == "X4"
+                    else a[0]["sxa"].shape[0])
+            shape = f"{k} ({size} {'slots' if name == 'X4' else 'rows'})"
+            outs = ([got[c] if got[c].dtype != torch.bool
+                     else got[c].to(torch.int32) for c in sorted(got)]
+                    if name == "X4" else [got])
+            out["digest"][f"{name} {shape}"] = _digest(outs)
+            out[key][shape] = cs._device_ms(lambda: fn(*a, **kw), kernel, 1)
+    step = cs.run_entry_path()
+    label = "entry step 96x36"
+    out["path_ms"][label] = statistics.median(cs._timed(step, 20))
+    busy, launches, stages, host = cs.profile_frames(
+        step, 5, ("raster.", "frame.", "glyph"), label)
+    out["path_busy_ms"][label] = busy
+    out["path_launches"][label] = launches
+    for k in ("raster.clip", "raster.walk", "raster.shade"):
+        out["stage_ms"][f"{label} {k}"] = host.get(k, 0.0)
+        out["stage_launches"][f"{label} {k}"] = stages.get(k, 0.0)
+    torch.cuda.synchronize()
 
 
 def rt_and_walk_front(cs, dev, out, mid_preps, k3=True) -> None:
@@ -1058,13 +1143,15 @@ def main() -> int:
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=("all", "bins", "shade", "rt",
-                                       "glyph", "pt"),
+                                       "glyph", "pt", "front"),
                     default="all",
                     help="bins: the raster's bins and the paths alone; "
                     "shade: K2 at its callers, X10 and the headline; rt: "
                     "the ray tracer's render path; glyph: the camera "
                     "chains, the glyph tail and the paths' tail stages; "
-                    "pt: the path tracer's frames and their stages")
+                    "pt: the path tracer's frames and their stages; "
+                    "front: the raster's clip and plane table and the "
+                    "entry() step")
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.worker, a.only)), flush=True)
@@ -1095,6 +1182,7 @@ def main() -> int:
     for key in ("jit_grid_ms", "b5_ms", "b6_ms", "b8_ms", "b1_ms",
                 "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
                 "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "x4_ms", "x3_ms",
+                "front_ms", "front_call_ms", "x4_kernel_ms", "x3_kernel_ms",
                 "k3_ms", "x9_ms", "x9_kernel_ms", "x7_ms", "x14_ms",
                 "keys_ms", "keys_busy_ms",
                 "keys_launches", "build_ms", "build_busy_ms",

@@ -171,20 +171,20 @@ def front_soup(T, mvp, seed):
     [3T, 9]; triangles 0-9 are a point and 10-19 are collinear
     (degenerate), 20-29 lie on the camera's w = 0 plane (w near 0 once
     rounded) and 30-39 have one vertex there, 40-44 lie at the eye and
-    45-49 have one vertex there."""
+    45-49 have one vertex there (those of them below T)."""
     rng = np.random.default_rng(seed)
     p = rng.uniform(-2, 2, (3 * T, 3))
     p[:, 2] = rng.uniform(-1.5, 1.0, 3 * T)
-    for t in range(10):
+    for t in range(min(T, 10)):
         p[3 * t + 1] = p[3 * t + 2] = p[3 * t]
-    for t in range(10, 20):
+    for t in range(10, min(T, 20)):
         p[3 * t + 2] = 2.0 * p[3 * t + 1] - p[3 * t]
     m = np.asarray(mvp, np.float64)
-    for t in range(20, 40):  # z on w = m30 x + m31 y + m32 z + m33 = 0
+    for t in range(20, min(T, 40)):  # z on w = m30 x + m31 y + m32 z + m33
         for i in range(3) if t < 30 else (t % 3,):
             v = p[3 * t + i]
             v[2] = -(m[3, 0] * v[0] + m[3, 1] * v[1] + m[3, 3]) / m[3, 2]
-    for t in range(40, 50):
+    for t in range(40, min(T, 50)):
         for i in range(3) if t < 45 else (t % 3,):
             p[3 * t + i] = FRONT_CAM["pos"]
     attrs = rng.uniform(-1, 1, (3 * T, 9)).astype(np.float32)

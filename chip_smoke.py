@@ -4688,12 +4688,14 @@ def check_pack_channels(dev, mid_preps):
 
 
 # float operations a triangle slot of X4 and a table row of X3 (a fused
-# product-add two), counted from csrc/raster_clip.cu and plane_table.cu:
-# X4's vertex transforms, clip ratios and lerps and both output triangles'
-# setup; X3's edge coefficients and reciprocal, then per attribute its
-# three lerps and three planes, and the denominator
-X4_OPS_SLOT = 197
-X3_OPS_ROW, X3_OPS_ATTR = 46, 27
+# product-add two), counted from csrc/raster_clip.cu and plane_row.cuh:
+# X4's two threads a slot each transform and clip the slot (vertex
+# transforms 72, depths 3, ratios 6, lerps 36) and set up one output
+# triangle (41); X3's row forms its own values once (edge coefficients 15,
+# their products with iw 9, the guarded reciprocal 2, the denominator 15),
+# then per attribute three lerps (9) and three planes (15)
+X4_OPS_SLOT = 2 * (72 + 3 + 6 + 36 + 41)
+X3_OPS_ROW, X3_OPS_ATTR = 15 + 9 + 2 + 15, 9 + 15
 ROWS_COLS_FRONT = (270, 480)  # the near-plane soup's grid
 
 
@@ -4717,14 +4719,16 @@ def _capture_last(mods_names, run):
 
 
 def _front_calls(dev, soup, scene, caps):
-    """The inputs each caller gives X4 (clip_screen) and X3 (plane_table):
-    entry()'s step (the demo room at 96x36), the cube at 80x24 through
-    render_soup's binned walk, the teapot 240x135 and the mid-scale HD arm
+    """The inputs each caller gives X4 (clip_screen), its table form
+    (clip_screen_table) and X3 (plane_table): entry()'s step (the demo
+    room at 96x36) and the cube at 80x24 through render_soup's binned walk
+    (the table form), the teapot 240x135 and the mid-scale HD arm
     (RasterBackend, a second frame at its settled caps), the bunny's
     "fused" call (its clip) and "subtile" call (its table) at the golden
-    pose, and a seeded soup of 60,000 triangles at the near plane (both
-    vertex layouts; its table uncompacted with 9 attributes and at a
-    compaction with 6). Returns {kernel: {caller: (args, kwargs)}}."""
+    pose, and seeded soups at the near plane: 60,000 triangles (X4 in both
+    vertex layouts; X3 uncompacted with 9 attributes and at a compaction
+    with 6; the table form in the pos9 layout) and 256 (the table form at
+    2T = 512). Returns {kernel: {caller: (args, kwargs)}}."""
     import torch
     from ascii_renderer_tpu_torch.backends import raster as R
     from ascii_renderer_tpu_torch.backends.raster import RasterBackend
@@ -4733,7 +4737,10 @@ def _front_calls(dev, soup, scene, caps):
     from ascii_renderer_tpu_torch.ops import plane_table as PT
     from ascii_renderer_tpu_torch.ops import raster_clip as RCL
     from ascii_renderer_tpu_torch.tools.xla_inputs import front_inputs
-    wrappers = ((RCL, "clip_screen"), (PT, "plane_table"))
+    # (a package without the table form has its callers take X4 and X3)
+    wrappers = tuple((m, nm) for m, nm in (
+        (RCL, "clip_screen"), (RCL, "clip_screen_table"),
+        (PT, "plane_table")) if hasattr(m, nm))
     runs = {}
     fn, args = entry(device=dev)
     runs["entry() room 96x36"] = lambda: fn(*args)
@@ -4752,7 +4759,7 @@ def _front_calls(dev, soup, scene, caps):
     for method in ("fused", "subtile"):
         runs[f"bunny {method} 960x540"] = _oracle_frame(
             dev, soup, scene, method, caps.get(method, {}))
-    out = {"clip_screen": {}, "plane_table": {}}
+    out = {"clip_screen": {}, "clip_screen_table": {}, "plane_table": {}}
     for label, run in runs.items():
         for name, call in _capture_last(wrappers, run).items():
             if call is not None:
@@ -4768,6 +4775,15 @@ def _front_calls(dev, soup, scene, caps):
     out["plane_table"][near] = ((ch, ch, attrs), {})
     out["plane_table"][near + ", compacted, 6 attributes"] = (
         (cch, ch, attrs[:, :6].contiguous(), cidx), {})
+    if not hasattr(RCL, "clip_screen_table"):
+        return out
+    nc = (attrs[:, :3].contiguous(), attrs[:, 3:6].contiguous())
+    out["clip_screen_table"][near + ", pos9"] = (
+        (pos9, *nc, mvp, *ROWS_COLS_FRONT), {"pos9": True})
+    p, attrs, mvp = front_inputs(256, 17, dev, *ROWS_COLS_FRONT)
+    out["clip_screen_table"]["near-plane soup 256 triangles"] = (
+        (p, attrs[:, :3].contiguous(), attrs[:, 3:6].contiguous(), mvp,
+         *ROWS_COLS_FRONT), {})
     return out
 
 
@@ -4784,13 +4800,30 @@ def _same_dict(got, want, what):
             assert torch.equal(got[k], w), f"{what}: {k} differs"
 
 
+def _x4_slots(args, kw):
+    """X4's triangle slots T (the source's layout by ``pos9``)."""
+    src = args[0]
+    return src.shape[1] if kw.get("pos9") else src.shape[0] // 3
+
+
 def _x4_bound(args, kw):
     """X4's least work: each slot's 9 coordinates read once, 25 floats of
     each of its two output slots, 2 valid bytes and 20 bytes of records
     written once; X4_OPS_SLOT operations a slot."""
-    src = args[0]
-    T = src.shape[1] if kw.get("pos9") else src.shape[0] // 3
+    T = _x4_slots(args, kw)
     return _bound(36 * T + 200 * T + 2 * T + 20 * T, X4_OPS_SLOT * T), T
+
+
+def _x4t_bound(args, kw):
+    """The table form's least work: X4's, the normals and colors read
+    once (the positions are X4's source), the [2T + 1, 32] table written
+    once; X4_OPS_SLOT and two rows' X3 operations (A = 9) a slot."""
+    from ascii_renderer_tpu_torch.ops import raster_clip as RCL
+    T = _x4_slots(args, kw)
+    n_bytes = (36 + 200 + 2 + 20 + 72) * T + 4 * (2 * T + 1) * \
+        RCL.TABLE_WIDTH
+    return _bound(n_bytes, (X4_OPS_SLOT + 2 * (X3_OPS_ROW + 9 * X3_OPS_ATTR))
+                  * T), T
 
 
 def _x3_bound(args):
@@ -4815,11 +4848,14 @@ def _x3_bound(args):
 
 def check_front_kernels(dev, soup, scene, caps):
     """X4 (the clip with its screen setup, one launch of
-    csrc/raster_clip.cu) and X3 (the plane table with its attribute lerps,
-    one launch of csrc/plane_table.cu) against their plain versions on the
-    inputs each caller gives them (_front_calls): the dict and the table
-    bit for bit (NaN in the same places). Each timed at the mid-scale HD
-    arm's call. Returns the two records."""
+    csrc/raster_clip.cu), its table form (the clip and the plane table of
+    the uncompacted slots in one launch) and X3 (the plane table with its
+    attribute lerps, one launch of csrc/plane_table.cu) against their
+    plain versions on the inputs each caller gives them (_front_calls):
+    the dicts and the tables bit for bit (NaN in the same places). X4 and
+    X3 timed at the mid-scale HD arm's call, the table form at the entry()
+    room's (in X4's record, ``table_form``). Returns X4's and X3's
+    records."""
     import torch
     from ascii_renderer_tpu_torch.ops import plane_table as PT
     from ascii_renderer_tpu_torch.ops import raster_clip as RCL
@@ -4836,6 +4872,26 @@ def check_front_kernels(dev, soup, scene, caps):
                      f", {int(want['valid'].sum())} valid)")
     print(f"clip (X4): bit-identical to the plain version for "
           f"{'; '.join(lines)}", flush=True)
+    lines = []
+    for label, (args, kw) in calls["clip_screen_table"].items():
+        (got_ch, got), (want_ch, want) = (
+            RCL.clip_screen_table(*args, **kw),
+            RCL.clip_screen_table_ref(*args, **kw))
+        torch.cuda.synchronize()
+        _same_dict(got_ch, want_ch, f"X4 table form {label}")
+        _same_bits(got, want, f"X4 table form {label}: table")
+        T = _x4_slots(args, kw)
+        assert int(want_ch["valid"].sum()) > 0, label
+        lines.append(f"{label} ({T} slots{', pos9' if kw.get('pos9') else ''}"
+                     f", {2 * T + 1} table rows, "
+                     f"{'2T a multiple of 512' if T % 256 == 0 else '2T not'}"
+                     f")")
+    assert {"entry() room 96x36", "cube 80x24"} <= set(
+        calls["clip_screen_table"]), list(calls["clip_screen_table"])
+    assert any(_x4_slots(*c) % 256 == 0
+               for c in calls["clip_screen_table"].values())
+    print(f"clip and table (X4's table form): bit-identical to the plain "
+          f"version for {'; '.join(lines)}", flush=True)
     lines = []
     for label, (args, kw) in calls["plane_table"].items():
         got, want = PT.plane_table(*args, **kw), PT.plane_table_ref(*args,
@@ -4862,6 +4918,21 @@ def check_front_kernels(dev, soup, scene, caps):
     rec = _rec("raster_clip", "raster_clip.cu", "", 0.0, ms, plain, bound)
     rec.update(replaces="ascii_renderer_tpu/backends/raster_channels.py:139",
                slots=T)
+    room = "entry() room 96x36"
+    args, kw = calls["clip_screen_table"][room]
+    ms = _device_ms(lambda: RCL.clip_screen_table(*args, **kw),
+                    "raster_clip_table_kernel",
+                    RCL.LAUNCHES_PER_CALL["clip_screen_table"])
+    plain = _event_ms(lambda: RCL.clip_screen_table_ref(*args, **kw), 5)
+    bound, T = _x4t_bound(args, kw)
+    print(f"clip and table (X4's table form) at the {room}'s call ({T} "
+          f"slots, {2 * T + 1} table rows): kernel {ms:.5f} ms, plain "
+          f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]})",
+          flush=True)
+    rec["table_form"] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0],
+                             bound_by=bound[1], slots=T,
+                             replaces="ascii_renderer_tpu/backends/"
+                             "raster_channels.py:139, :426, :481")
     recs.append(rec)
     args, kw = calls["plane_table"][timed]
     ms = _device_ms(lambda: PT.plane_table(*args, **kw),
@@ -5109,7 +5180,15 @@ def _x4_size(a, k):
     """X4's launch size: triangle slots, the pos9 layout."""
     if a[0].device.type != "cuda":
         return None
-    return (_x4_bound(a, k)[1], bool(k.get("pos9")))
+    return (_x4_slots(a, k), bool(k.get("pos9")))
+
+
+def _x4t_size(a, k):
+    """X4's table form's launch size: triangle slots, the pos9 layout,
+    the form."""
+    if a[0].device.type != "cuda":
+        return None
+    return (_x4_slots(a, k), bool(k.get("pos9")), "table form")
 
 
 def _x3_size(a, k):
@@ -5169,22 +5248,27 @@ def _x14_size(a, k):
             k.get("probe") is not None, k.get("slot") is not None)
 
 
-def size_loss(label, sizes, real, kernel, per_call, bound_of, rec):
+def size_loss(label, sizes, real, kernel, per_call, bound_of, rec,
+              also=()):
     """A kernel's loss on the driven paths from the sizes of its launches
     (``_record_sizes``): each size's device ms (at its recorded call's
     arguments: the first, or the heaviest where a weight was kept;
     ``per_call(args, kwargs)`` kernels a call) less its bound
-    (``bound_of(args, kwargs)`` ms), times its calls. Adds them to the
-    record (main checks their sum against the driven paths' count);
-    returns the loss."""
+    (``bound_of(args, kwargs)`` ms), times its calls; ``also``: more
+    (sizes, real, kernel, per_call, bound_of) of another form of the
+    kernel, counted with it. Adds them to the record (main checks their
+    sum against the driven paths' count); returns the loss."""
     loss, parts = 0.0, []
-    for size, (a, k, n, w) in sorted(sizes.items(),
-                                     key=lambda it: str(it[0])):
-        ms = _device_ms(lambda: real(*a, **k), kernel, per_call(a, k))
-        bound = bound_of(a, k)
-        loss += n * (ms - bound)
-        parts.append(dict(size=list(size), launches=n, ms=ms,
-                          bound_ms=bound, weight=w))
+    forms = ((sizes, real, kernel, per_call, bound_of), *also)
+    for f_sizes, f_real, f_kernel, f_per_call, f_bound_of in forms:
+        for size, (a, k, n, w) in sorted(f_sizes.items(),
+                                         key=lambda it: str(it[0])):
+            ms = _device_ms(lambda: f_real(*a, **k), f_kernel,
+                            f_per_call(a, k))
+            bound = f_bound_of(a, k)
+            loss += n * (ms - bound)
+            parts.append(dict(size=list(size), launches=n, ms=ms,
+                              bound_ms=bound, weight=w))
     print(f"{label} launch sizes on the driven paths: " + "; ".join(
         f"{p['size']}: {p['launches']} calls, kernel {p['ms']:.5f} ms"
         + ("" if p["weight"] is None else f" at weight {p['weight']}")
@@ -5199,7 +5283,7 @@ def _size_losses(recorded, by_name):
     import torch
     from ascii_renderer_tpu_torch.ops import group_build as GB
     ((shade, shade_real), (build, build_real), (clip, clip_real),
-     (table, table_real), (fma, fma_real)) = recorded
+     (table, table_real), (fma, fma_real), (clipt, clipt_real)) = recorded
 
     def build_launches(a, k):
         build_real(*a, **k)
@@ -5214,9 +5298,11 @@ def _size_losses(recorded, by_name):
     size_loss("grouped layout build (X10)", build, build_real,
               "group_build_", build_launches, build_bound,
               by_name["group_build"])
-    size_loss("raster clip (X4)", clip, clip_real, "raster_clip_kernel",
-              lambda a, k: 1, lambda a, k: _x4_bound(a, k)[0][0],
-              by_name["raster_clip"])
+    size_loss("raster clip (X4; its table form's launches with it)", clip,
+              clip_real, "raster_clip_kernel", lambda a, k: 1,
+              lambda a, k: _x4_bound(a, k)[0][0], by_name["raster_clip"],
+              also=((clipt, clipt_real, "raster_clip_table_kernel",
+                     lambda a, k: 1, lambda a, k: _x4t_bound(a, k)[0][0]),))
     size_loss("plane table (X3)", table, table_real, "plane_table_kernel",
               lambda a, k: 1, lambda a, k: _x3_bound(a)[0][0],
               by_name["plane_table"])
@@ -5257,6 +5343,9 @@ def k3_loss(sizes, trace, rec):
 # mid-scale HD arm: X9's four, B6's walk and merge and the image assembly
 # after it
 RASTER_WALK_LAUNCHES = 15
+# kernel launches raster.clip makes a frame of the entry() step: X4's table
+# form (the clip, its setup and the plane table)
+ENTRY_CLIP_LAUNCHES = 1
 
 # the kernels of the path tracer's kernel path: its sample rays X7, B5 and
 # its batch fold X14
@@ -5327,7 +5416,8 @@ def main() -> int:
                               weight_of=_build_weight),
                 _record_sizes(RCL, "clip_screen", _x4_size),
                 _record_sizes(PT, "plane_table", _x3_size),
-                _record_sizes(KFP, "fma32_kernel", _fma_size))
+                _record_sizes(KFP, "fma32_kernel", _fma_size),
+                _record_sizes(RCL, "clip_screen_table", _x4t_size))
     # each kernel's wrapper module and launch counter
     counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
                 "raster_group_walk": (RG, "launches"),
@@ -5356,6 +5446,7 @@ def main() -> int:
                 "fma32": (KFP, "launches"), "raster_shade": (RSH, "launches"),
                 "rt_trace": (RTK, "launches"),
                 "raster_clip": (RCL, "launches"),
+                "raster_clip_table": (RCL, "launches_table"),
                 "plane_table": (PT, "launches"),
                 "bin_entries": (BE, "launches"),
                 "bin_entries_keys": (BE, "launches_keys"),
@@ -5515,17 +5606,26 @@ def main() -> int:
     raster_prefixes = ("raster.", "frame.", "glyph")
     c_entry, entry_fn = _path_counts(counters, run_entry_path)
     print(f"launches on the entry step: {c_entry}", flush=True)
-    for k in ("raster_bins_walk", "modal_vote", "raster_clip",
-              "plane_table", "raster_shade", "bin_entries"):
+    for k in ("raster_bins_walk", "modal_vote", "raster_clip_table",
+              "raster_shade", "bin_entries"):
         assert c_entry[k] > 0, f"{k} never launched on the entry step"
+    # the clip, its setup and the plane table: X4's table form alone
+    assert c_entry["raster_clip"] == c_entry["raster_clip_table"], c_entry
+    assert c_entry["plane_table"] == 0, c_entry
     prof = profile_frames(entry_fn, 5, raster_prefixes, "entry step")
+    print(f"entry step a frame: {prof[1]} launches; raster.clip "
+          f"{prof[2].get('raster.clip', 0):g} (X4's table form), "
+          f"raster.shade {prof[2].get('raster.shade', 0):g} (no X3)",
+          flush=True)
+    assert prof[2]["raster.clip"] == ENTRY_CLIP_LAUNCHES, prof[2]
     walk_launches = {"entry step": prof[2]["raster.walk"]}
     tails["entry step"] = tail_stages("entry step", prof, counters, entry_fn)
     c_cube, _ = _path_counts(counters, lambda: run_cube_path(dev))
     print(f"launches on the cube path: {c_cube}", flush=True)
-    for k in ("raster_bins_walk", "raster_bins_walk_loop", "raster_clip",
-              "plane_table", "bin_entries"):
+    for k in ("raster_bins_walk", "raster_bins_walk_loop",
+              "raster_clip_table", "bin_entries"):
         assert c_cube[k] > 0, f"{k} never launched on the cube path"
+    assert c_cube["plane_table"] == 0, c_cube  # the table form's tables
     c_tea, tea_fn = _path_counts(counters, lambda: run_raster_mesh_path(
         dev, "teapot", TEAPOT_GRID, 3, 2, 20, "teapot 240x135"))
     print(f"launches on the teapot path: {c_tea}", flush=True)
@@ -5671,6 +5771,9 @@ def main() -> int:
               "pt_reduce"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
+    # the table form's launches are X4's, and X3's tables folded into them
+    by_name["raster_clip"]["launches_table"] = by_name["plane_table"][
+        "folded"] = sum(c["raster_clip_table"] for c in driven)
     # the glyph tail: X12a, B4's chars form and glyph_map on every path
     for k in ("frame_bytes", "modal_vote_chars", "glyph_map"):
         by_name[k]["launches"] = sum(c[k] for c in driven)

@@ -4,7 +4,9 @@ fused multiply-add ``fma32`` (``ops/fp``), the raster's deferred shade
 every form: 1-32 lanes a ray, the valid slots staged or read from the
 global arrays, its rays read from rd3 or computed from the jitted grid;
 ``render_rgb`` one launch a call), the small and mid raster paths' clip
-with its screen setup (``ops/raster_clip``, X4), their plane table (``ops/plane_table``, X3) and
+with its screen setup (``ops/raster_clip``, X4, and its table form: the
+clip and the plane table in one launch), their plane table
+(``ops/plane_table``, X3) and
 their bin entries (``ops/bin_entries``, X9), and the path tracer's sample
 rays (``ops/ray_grid.pt_rays``, X7, every split of a batch's samples
 among threads) and batch fold (``ops/pt_reduce``, X14, both forms), and
@@ -267,12 +269,13 @@ def _same_dict(got, want) -> None:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [300, 5000])
+@pytest.mark.parametrize("T", [300, 5000, 68644])
 @pytest.mark.parametrize("pos9", [False, True], ids=["positions", "pos9"])
 def test_clip_kernel_equals_plain(cuda_device, T, pos9):
     """One launch of X4 gives the plain version's dict, keys in order,
     dtypes and bits (NaN in the same places), on a soup at the near plane
-    (every clip case, back faces, degenerate triangles, w near 0)."""
+    (every clip case, back faces, degenerate triangles, w near 0); 68,644
+    slots is the bunny's fused call's size."""
     p, _a, mvp = front_inputs(T, T, cuda_device)
     src = R.positions_to_pos9(p) if pos9 else p
     n0 = RCL.launches
@@ -285,21 +288,50 @@ def test_clip_kernel_equals_plain(cuda_device, T, pos9):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 255, 256, 300, 812, 5000],
+                         ids=["T1", "T255", "2T_512", "T300", "room",
+                              "T5000"])
+@pytest.mark.parametrize("pos9", [False, True], ids=["positions", "pos9"])
+def test_clip_table_kernel_equals_plain(cuda_device, T, pos9):
+    """One launch of X4's table form gives its plain version's dict
+    (clip_screen_ref's) and [2T + 1, 32] table (plane_table_ref's over
+    [normals, colors, positions], with its zero row), bit for bit, NaN in
+    the same places; 812 slots is the entry() room's size, 256 makes 2T a
+    multiple of 512."""
+    p, attrs, mvp = front_inputs(T, T + 3, cuda_device)
+    n, c = attrs[:, :3].contiguous(), attrs[:, 3:6].contiguous()
+    src = R.positions_to_pos9(p) if pos9 else p
+    n0 = (RCL.launches, RCL.launches_table, PT.launches)
+    got_ch, got = RCL.clip_screen_table(src, n, c, mvp, 36, 96, pos9=pos9)
+    assert (RCL.launches, RCL.launches_table, PT.launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2])
+    want_ch, want = RCL.clip_screen_table_ref(src, n, c, mvp, 36, 96,
+                                              pos9=pos9)
+    _same_dict(got_ch, want_ch)
+    _same_bits(got, want)
+    assert got.shape == (2 * T + 1, 32)
+    assert not torch.signbit(got[-1]).any() and not got[-1].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_attrs", [9, 6])
 @pytest.mark.parametrize("form,T,v_cap", [
     ("uncompacted", 256, None), ("uncompacted", 300, None),
-    ("compacted", 300, 512), ("compacted", 300, 520)],
-    ids=["2T_512", "2T_600", "cap_512", "cap_520"])
+    ("compacted", 300, 512), ("compacted", 300, 520),
+    ("compacted", 30000, 40960)],
+    ids=["2T_512", "2T_600", "cap_512", "cap_520", "cap_40960"])
 def test_plane_table_kernel_equals_plain(cuda_device, n_attrs, form, T,
                                          v_cap):
     """One launch of X3 gives the plain version's table (the B7 pack's
     layout at a multiple of 512 rows, stacked and padded otherwise) with
-    its zero row, bit for bit, uncompacted and at a compaction's cidx."""
+    its zero row, bit for bit, uncompacted and at a compaction's cidx
+    (40,960 rows: more than 300 blocks of rows, fill ids included)."""
     p, attrs, mvp = front_inputs(T, 7, cuda_device)
     a = attrs[:, :n_attrs].contiguous()
     ch = RCL.clip_screen(p, mvp, 36, 96)
     if form == "compacted":
         cch, cidx, _n = R.compact_valid_ch(dict(ch), v_cap)
+        assert (cidx == 2 * T).any()  # fill ids, which read slot 0
         args = (cch, ch, a, cidx)
     else:
         args = (ch, ch, a)
@@ -319,7 +351,9 @@ def test_plane_table_kernel_equals_plain(cuda_device, n_attrs, form, T,
 def test_front_kernels_frames_equal_plain(cuda_device, monkeypatch, method,
                                           v_cap):
     """render_soup's frames through X4, X3 and X9 equal the same frames
-    with the plain versions in their place, bit for bit."""
+    with the plain versions in their place, bit for bit. The binned walk's
+    frame takes its clip, setup and table from one launch of X4's table
+    form and launches no X3."""
     from ascii_renderer_tpu_torch.core.camera import Camera
     from ascii_renderer_tpu_torch.tools.xla_inputs import FRONT_CAM
     p, attrs, _mvp = front_inputs(600, 4, cuda_device)
@@ -332,12 +366,15 @@ def test_front_kernels_frames_equal_plain(cuda_device, monkeypatch, method,
         return R.render_soup(p, n, c, scene, cam, 36, 96, 0.5,
                              method=method, v_cap=v_cap, big_cap=512)
 
-    n0 = (RCL.launches, PT.launches, BE.launches)
+    n0 = (RCL.launches, RCL.launches_table, PT.launches, BE.launches)
     got = frame()
+    table_form = method == "scatter" and v_cap is None
     assert RCL.launches == n0[0] + 1
-    assert PT.launches == n0[1] + (method != "fused")
-    assert BE.launches == n0[2] + (method == "scatter")
+    assert RCL.launches_table == n0[1] + table_form
+    assert PT.launches == n0[2] + (method != "fused" and not table_form)
+    assert BE.launches == n0[3] + (method == "scatter")
     monkeypatch.setattr(RCL, "clip_screen", RCL.clip_screen_ref)
+    monkeypatch.setattr(RCL, "clip_screen_table", RCL.clip_screen_table_ref)
     monkeypatch.setattr(PT, "plane_table", PT.plane_table_ref)
     monkeypatch.setattr(RCH, "binned_entries", BE.binned_entries_ref)
     _same_bits(got, frame())
