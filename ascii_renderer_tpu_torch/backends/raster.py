@@ -50,6 +50,7 @@ from ascii_renderer_tpu_torch.core.fp import div32, fma32_scalar, round32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.geom.tessellate import tessellate_scene
 from ascii_renderer_tpu_torch.ops import bin_entries as BE
+from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops import raster_group as RG
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import raster_subtile as RS
@@ -463,12 +464,14 @@ def render_soup(positions, normals, colors, scene: SceneData, cam: Camera,
         with stage("raster.shade"):
             return shade_planes_ch(tid, ch, None, scene, rows, cols,
                                    table=table)
-    attrs = torch.cat([normals, colors, positions], dim=1)  # [V, 9]
     if method == "fused":
+        # the clip, its screen setup and the attribute slots of the normals,
+        # colors and positions: one launch of X4's slots form on CUDA
         with stage("raster.clip"):
-            ch = clip_screen_channels(positions, mvp, rows, cols)
-            attr_slots = clip_attrs_channel_lists(attrs, ch)
+            ch, attr_slots = RCL.clip_screen_slots(positions, normals,
+                                                   colors, mvp, rows, cols)
         return render_fused_ch(ch, attr_slots, scene, rows, cols)
+    attrs = torch.cat([normals, colors, positions], dim=1)  # [V, 9]
     with stage("raster.clip"):
         clip, tattr, valid = transform_clip(positions, attrs, mvp)
         setup = setup_screen(clip, valid, rows, cols)

@@ -4,7 +4,8 @@
 The [2T]-domain pipeline: branchless near-clip expansion into
 channel-major screen triangles with their screen setup (ops/raster_clip:
 one launch of the kernel X4 on CUDA; uncompacted, its table form also
-writes the plane table in that launch), order-preserving valid compaction,
+writes the plane table in that launch, and its slots form the attribute
+slots of the fused-shading walk), order-preserving valid compaction,
 exact per-tile binning (the walk's entries through ops/bin_entries: the
 four launches of X9 on CUDA), the bin walks B6 / B6'
 (ops/raster_bins) and

@@ -9,7 +9,8 @@ port of ``ascii_renderer_tpu/backends/raster_oracles.py``).
     (ops/raster_subtile) over the compacted clip-expansion channels, then
     the tile-compacted deferred shade ``shade_tiles_compact``.
   - ``render_subtile2_diag`` (method 'subtile2'): generation 2, the 2-D
-    homogeneous setup ([T] domain, no clip expansion), one pack (B7),
+    homogeneous setup B2 ([T] domain, no clip expansion; its channels row
+    views of B2's output), one pack (B7) of B2's rows read in place,
     tile-ordered packed rows and the depth-masked walk B9c.
 
 Every name here is re-exported by ``backends.raster``.
@@ -27,6 +28,7 @@ from ascii_renderer_tpu_torch.backends.raster_common import (
 from ascii_renderer_tpu_torch.ops import raster_bins as RB
 from ascii_renderer_tpu_torch.ops import raster_shade as RSH
 from ascii_renderer_tpu_torch.ops import raster_subtile as RS
+from ascii_renderer_tpu_torch.ops import setup2dh as S
 from ascii_renderer_tpu_torch.ops.pack import pack_channels
 from ascii_renderer_tpu_torch.ops.setup2dh import _plane_keys
 from ascii_renderer_tpu_torch.scene.builder import SceneData
@@ -216,12 +218,35 @@ def shade_tiles_compact(etile, nonempty, ptable, scene: SceneData,
     return _tiles_to_image(full[:n_tiles], tiles_y, tiles_x, rows, cols)
 
 
+# B2's walk-plane rows, in its output's order
+_WALK_KEYS = ("e0a", "e0b", "e0c", "e1a", "e1b", "e1c", "e2a", "e2b", "e2c",
+              "zx", "zy", "zc")
+
+
+def subtile2_setup(pos9, attrs_t, mvp, rows: int, cols: int):
+    """Generation 2's setup through B2 (``ops/setup2dh.setup_2dh_fused``,
+    its plain version on the CPU): (the JAX ``setup_2dh`` channel dict of
+    [T] tensors, the [16 + 3A + 3, T] block the pack reads). Both are
+    views of B2's [n_g + 5, Tp] output cut to the T slots (B2 pads to
+    1,024 with all-zero triangles, which none of the consumers sees): its
+    rows 0-11 the walk planes, 12 the float id, 13-15 zeros, then the
+    shade planes, the bbox rows and ``valid``."""
+    T = pos9.shape[1]
+    A = attrs_t.shape[0] // 3
+    cm, bbox = S.setup_2dh_fused(pos9, attrs_t, mvp, rows, cols)
+    block = cm.view(cm.shape[0], -1)[:, :T]
+    ach = dict(zip(_WALK_KEYS, block[:12]))
+    ach.update(zip(_plane_keys(A), block[16:]))
+    ach.update((k, v[:T]) for k, v in bbox.items())
+    return ach, block
+
+
 def render_subtile2_diag(attrs, scene: SceneData, mvp, rows: int,
                          cols: int, *, big_cap: int, r_cap: int,
                          pair_cap: int, tile_cap: int | None,
                          pos9=None, attrs_t=None, positions=None):
     """Generation-2 (kernel='subtile2') body of render_soup_diag: the 2-D
-    homogeneous setup over the [T] domain (no clip expansion, no
+    homogeneous setup over the [T] domain (B2; no clip expansion, no
     compaction: invalid triangles emit no pairs), tile-ordered packed rows
     with the entry id baked in (B9c masks the dead slots by depth) and the
     tile-compacted shade. Returns (rgb, diag) with 0-d i32 counts n_valid,
@@ -233,7 +258,7 @@ def render_subtile2_diag(attrs, scene: SceneData, mvp, rows: int,
     if attrs_t is None:
         attrs_t = attrs.reshape(-1, 3 * A).t().contiguous()
     with stage("raster.setup"):
-        ach = R.setup_2dh(pos9, attrs_t, mvp, rows, cols)
+        ach, block = subtile2_setup(pos9, attrs_t, mvp, rows, cols)
     tiles_x = -(-cols // TILE_W)
     n_tiles = (-(-rows // TILE_H)) * tiles_x
     if tile_cap is None:
@@ -241,15 +266,10 @@ def render_subtile2_diag(attrs, scene: SceneData, mvp, rows: int,
     with stage("raster.keys"):
         keys = R._subtile_pair_keys_bbox(ach, rows, cols, big_cap=big_cap)
     with stage("raster.pack"):
-        # one row-major pack (B7) serves both consumers by slicing: cols
-        # 0..11 the entry planes, 12 the triangle id, 16.. the shade table
-        T = pos9.shape[1]
-        zero = torch.zeros((T,), dtype=torch.float32, device=pos9.device)
-        chans = ([ach[k] for k in ("e0a", "e0b", "e0c", "e1a", "e1b", "e1c",
-                                   "e2a", "e2b", "e2c", "zx", "zy", "zc")]
-                 + [torch.arange(T, dtype=torch.float32, device=pos9.device),
-                    zero, zero, zero] + [ach[k] for k in _plane_keys(A)])
-        g40 = pack_channels(chans, width=_round_up(16 + 3 * A + 3, 8))
+        # one row-major pack (B7) of B2's rows, read in place, serves both
+        # consumers by slicing: cols 0..11 the entry planes, 12 the
+        # triangle id, 16.. the shade table
+        g40 = pack_channels(block, width=_round_up(block.shape[0], 8))
     with stage("raster.build"):
         rows128, rowptr, depth, n_rows, n_pairs = RS.build_packed_rows_pre_id(
             g40[:, :32], keys, tiles_x, n_tiles, r_cap, pair_cap)

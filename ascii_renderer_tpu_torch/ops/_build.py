@@ -54,8 +54,8 @@ SIGNATURES = {
     #  cols, stream)
     "setup2dh_packed_launch": (_P, _P, _FP, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _P),
-    # (cm, out, C, N, a, b, stream)
-    "pack_span_launch": (_P, _P, _I, _I, _I, _I, _P),
+    # (cm, out, C, N, ld, a, b, stream)
+    "pack_span_launch": (_P, _P, _I, _I, _LL, _I, _I, _P),
     # (rows128, rowptr, gdepth, gskip, xl, yl, z, e, part, n_slots, r_cap,
     #  grp_cap, stream)
     "walk_grouped_skip_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -106,6 +106,10 @@ SIGNATURES = {
     "rt_trace_staged": (_I, _I, _I, _I),
     # (src, pos9, mvp16_host, hx, hy, ch, valid, t_rec, i_rec, T, stream)
     "raster_clip_launch": (_P, _I, _FP, _F, _F, _P, _P, _P, _P, _I, _P),
+    # (src, pos9, mvp16_host, hx, hy, normals, colors, ch, valid, t_rec,
+    #  i_rec, T, stream)
+    "raster_clip_slots_launch": (_P, _I, _FP, _F, _F, _P, _P, _P, _P, _P,
+                                 _P, _I, _P),
     # (src, pos9, mvp16_host, hx, hy, normals, colors, ch, valid, t_rec,
     #  i_rec, table, T, stream)
     "raster_clip_table_launch": (_P, _I, _FP, _F, _F, _P, _P, _P, _P, _P,
@@ -287,12 +291,18 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(*tensors, what: str) -> None:
-    """Every tensor must be a contiguous CUDA tensor on one device."""
+def require_device(*tensors, what: str) -> None:
+    """Every tensor must be a CUDA tensor on one device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{what}: expected CUDA tensors on one device, "
                              f"got {t.device}")
+
+
+def require_cuda(*tensors, what: str) -> None:
+    """Every tensor must be a contiguous CUDA tensor on one device."""
+    require_device(*tensors, what=what)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{what}: expected contiguous tensors")

@@ -1,6 +1,8 @@
 // Exact channel-major -> row-major transpose of one channel span:
-// in [C, N] (the setup kernel's output), out [N, b - a] with
-// out[n, c - a] = in[c, n] for a <= c < b, and 0 for c >= C.
+// in [C, N] (the setup kernel's output; channel c starts at c * ld, ld >=
+// N, so the first N columns of a wider block are read in place), out
+// [N, b - a] with out[n, c - a] = in[c, n] for a <= c < b, and 0 for
+// c >= C.
 //
 // Replaces: ascii_renderer_tpu/ops/pack.py:_pack_split_kernel_blk (B3),
 // _pack_kernel (B7) and _pack_split_kernel (B7') (Pallas, TPU), called
@@ -31,7 +33,7 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 pack_span_kernel(const float* __restrict__ in, float* __restrict__ out,
-                 int C, int N, int a, int sw) {
+                 int C, int N, long long ld, int a, int sw) {
   const int total = N * sw;  // < 2^31, checked by the launcher
   const int quads = total >> 2;
   const int q = blockIdx.x * kThreads + threadIdx.x;
@@ -40,7 +42,7 @@ pack_span_kernel(const float* __restrict__ in, float* __restrict__ out,
     float v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      v[j] = a + c < C ? in[(size_t)(a + c) * N + n] : 0.0f;
+      v[j] = a + c < C ? in[(a + c) * ld + n] : 0.0f;
       if (++c == sw) {
         c = 0;
         ++n;
@@ -52,7 +54,7 @@ pack_span_kernel(const float* __restrict__ in, float* __restrict__ out,
   const int f = (quads << 2) + q;
   if (q < 4 && f < total) {
     const int n = f / sw, c = f - n * sw;
-    out[f] = a + c < C ? in[(size_t)(a + c) * N + n] : 0.0f;
+    out[f] = a + c < C ? in[(a + c) * ld + n] : 0.0f;
   }
 }
 
@@ -61,13 +63,13 @@ pack_span_kernel(const float* __restrict__ in, float* __restrict__ out,
 // out must be 16-byte aligned (a fresh torch allocation is); in may sit at
 // any float boundary
 extern "C" int pack_span_launch(const float* in, float* out, int C, int N,
-                                int a, int b, void* stream) {
+                                long long ld, int a, int b, void* stream) {
   const int sw = b - a;
-  if (sw <= 0 || N < 0 || (long long)N * sw >= (1LL << 31))
+  if (sw <= 0 || N < 0 || ld < N || (long long)N * sw >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int quads = (N * sw) >> 2;
   const int blocks = quads / kThreads + 1;
-  pack_span_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(in, out, C,
-                                                                  N, a, sw);
+  pack_span_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      in, out, C, N, ld, a, sw);
   return (int)cudaGetLastError();
 }

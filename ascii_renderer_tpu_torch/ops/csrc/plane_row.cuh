@@ -4,7 +4,9 @@
 // edge coefficients times iw, the guarded reciprocal of area2, the
 // denominator plane), once a row, and ``plane_attr`` the three
 // coefficients of one attribute's plane from them and the source's vertex
-// values (the table form spreads a row's attributes over threads). A table row of A
+// values (the table form spreads a row's attributes over threads), from
+// ``attr_slots``, the attribute's rotated and lerped vertex values, which
+// X4's slots form writes as they are. A table row of A
 // attributes holds W = 3 (A + 1) padded to 8 columns: column 3 j + k is
 // coefficient k (alpha, beta, gamma) of attribute j's plane, 3 A + k the
 // perspective denominator's, the rest zeros.
@@ -75,12 +77,13 @@ __device__ __forceinline__ PlaneRow plane_row(const PlaneScreen& s) {
   return w;
 }
 
-// The plane of one attribute: a0, a1, a2 the source's original vertices'
-// values of it; out the coefficients alpha, beta, gamma.
-__device__ __forceinline__ void plane_attr(const float (&p)[9], float inv,
-                                           float a0, float a1, float a2,
+// The values of one attribute at a clip output's three vertex slots: a0,
+// a1, a2 the source's original vertices' values of it; v the rotated and
+// lerped values (ops/plane_table._attr_slots' order: the rotation, the
+// three lerps, the n_in selects, then the second output's bc / ac).
+__device__ __forceinline__ void attr_slots(float a0, float a1, float a2,
                                            const PlaneRecord& r,
-                                           float (&out)[3]) {
+                                           float (&v)[3]) {
   // rotated vertex m takes original vertex (rot + m) % 3 (any rot but 0
   // and 1 selecting as 2 does, as the plain version's selects do)
   const float r0 = r.rot == 0 ? a0 : (r.rot == 1 ? a1 : a2);
@@ -92,9 +95,21 @@ __device__ __forceinline__ void plane_attr(const float (&p)[9], float inv,
   const float bc = fmaf(r.tb, r2 - r1, r1);
   const float t1b = one_in ? ab : r1;
   const float t1c = one_in ? ac : (two_in ? bc : r2);
-  const float v1 = r.second ? bc : t1b;  // the second output is (a, bc, ac)
-  const float v2 = r.second ? ac : t1c;
+  v[0] = r0;
+  v[1] = r.second ? bc : t1b;  // the second output is (a, bc, ac)
+  v[2] = r.second ? ac : t1c;
+}
+
+// The plane of one attribute: a0, a1, a2 the source's original vertices'
+// values of it; out the coefficients alpha, beta, gamma.
+__device__ __forceinline__ void plane_attr(const float (&p)[9], float inv,
+                                           float a0, float a1, float a2,
+                                           const PlaneRecord& r,
+                                           float (&out)[3]) {
+  float v[3];
+  attr_slots(a0, a1, a2, r, v);
   for (int k = 0; k < 3; ++k)
-    out[k] = fmaf(p[3 * k + 2], v2, fmaf(p[3 * k], r0, p[3 * k + 1] * v1)) *
-             inv;
+    out[k] =
+        fmaf(p[3 * k + 2], v[2], fmaf(p[3 * k], v[0], p[3 * k + 1] * v[1])) *
+        inv;
 }

@@ -18,13 +18,23 @@
 // row-major [2T + 1, 32] table); the block holding row 2T writes the zero
 // background row. plane_table.cu's standalone form shares that arithmetic.
 //
+// The slots form (raster_clip_slots_kernel) is the standalone form whose
+// output triangle threads also write their slot's attribute values, the
+// normals, colors and positions rotated and lerped as the clip moved the
+// vertices (plane_row.cuh's attr_slots), channel-major into rows 25 +
+// 9 s + j of one [25 + 27, 2T] buffer (vertex slot s, attribute j): the
+// inputs of the fused-shading walk's entries, with no plane table. A
+// thread reads its slot's normals and colors itself, before the clip's
+// arithmetic (a block's copy staged in shared memory measured slower on
+// the H100, PERF.md); the positions are the coordinates it clips.
+//
 // ops/raster_clip.clip_screen_ref is the plain version (and
 // clip_screen_table_ref, with ops/plane_table.plane_table_ref, the table
 // form's); each of its fused chains is an fmaf here, in its order
 // (core/fp.py gives the rules):
 //   vertex (positions)  (x m0 + y m1) + (z m2 + m3)      (nothing fuses)
 //   vertex (pos9)       fma(m2, z, fma(m0, x, m1 * y)) + m3
-//   lerp                fma(t, c1 - c0, c0)
+//   lerp                fma(t, c1 - c0, c0)   (the attributes' too)
 //   screen x / y / z    fma(x, iw, 1) * hx, fma(-y, iw, 1) * hy,
 //                       fma(z, iw, 1) * 0.5
 //   edges               fma(ux_b, hx, -sx_a), ...     (a's product shared)
@@ -42,7 +52,8 @@
 // floats of each of its two output slots (channel-major [25, 2T], so the
 // stores of neighbouring threads are neighbouring addresses), 2 valid
 // bytes and 20 bytes of records; the table form also reads 72 bytes of
-// normals and colors and writes two 128-byte rows.
+// normals and colors and writes two 128-byte rows, the slots form reads
+// those 72 bytes and writes 27 floats of each output slot.
 #include <cuda_runtime.h>
 
 #include "plane_row.cuh"
@@ -72,6 +83,8 @@ constexpr int kTableW = PlaneWidth<kTableA>::kW;
 constexpr int kClip = 0;
 constexpr int kScreen = 12;
 constexpr int kArea = 24;
+constexpr int kSlotRows = 25;  // the slots form's attribute rows start here
+constexpr int kSlotAttrs = 9;  // normals, colors, positions
 
 struct Mvp {
   float m[16];  // row-major 4 x 4
@@ -215,6 +228,45 @@ raster_clip_kernel(const float* __restrict__ src, Mvp mv, float hx, float hy,
                   threadIdx.x >= kSlots, scr, rec);
 }
 
+// The slots form: X4's thread, then its output slot's 27 attribute values
+// (vertex slot s, attribute j into row kSlotRows + 9 s + j).
+template <bool kPos9>
+__global__ void __launch_bounds__(RC_THREADS)
+raster_clip_slots_kernel(const float* __restrict__ src, Mvp mv, float hx,
+                         float hy, const float* __restrict__ normals,
+                         const float* __restrict__ colors,
+                         float* __restrict__ ch, bool* __restrict__ valid,
+                         float* __restrict__ t_rec, int* __restrict__ i_rec,
+                         int T) {
+  const int t = blockIdx.x * kSlots + threadIdx.x % kSlots;
+  if (t >= T) return;
+  float p[9];
+  load_slot<kPos9>(src, T, t, p);
+  // the slot's normals then colors (vertex v's component d at [3 v + d] and
+  // [9 + 3 v + d]), loaded before the clip's arithmetic
+  float nc[18];
+#pragma unroll
+  for (int k = 0; k < 18; ++k)
+    nc[k] = (k < 9 ? normals : colors)[9LL * t + k % 9];
+  PlaneScreen scr;
+  PlaneRecord rec;
+  const bool second = threadIdx.x >= kSlots;
+  clip_one<kPos9>(p, mv, hx, hy, ch, valid, t_rec, i_rec, T, t, second, scr,
+                  rec);
+  const long long n2 = 2LL * T;
+  float* out = ch + kSlotRows * n2 + (second ? (long long)T + t : t);
+#pragma unroll
+  for (int j = 0; j < kSlotAttrs; ++j) {
+    // attribute j at the source's vertices: a normal or color component,
+    // or a coordinate
+    const float* a = j < 6 ? nc + 9 * (j / 3) + j % 3 : p + j - 6;
+    float vs[3];
+    attr_slots(a[0], a[3], a[6], rec, vs);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) out[(s * kSlotAttrs + j) * n2] = vs[s];
+  }
+}
+
 template <bool kPos9>
 __global__ void __launch_bounds__(kTableThreads)
 raster_clip_table_kernel(const float* __restrict__ src, Mvp mv, float hx,
@@ -317,6 +369,27 @@ extern "C" int raster_clip_launch(const float* src, int pos9,
   else
     raster_clip_kernel<false><<<blocks, RC_THREADS, 0, s>>>(
         src, mv, hx, hy, ch, valid, t_rec, i_rec, T);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int raster_clip_slots_launch(const float* src, int pos9,
+                                        const float* mvp16, float hx,
+                                        float hy, const float* normals,
+                                        const float* colors, float* ch,
+                                        bool* valid, float* t_rec,
+                                        int* i_rec, int T, void* stream) {
+  if (T < 0) return (int)cudaErrorInvalidValue;
+  if (T == 0) return 0;
+  Mvp mv;
+  make_mvp(mvp16, mv);
+  const unsigned blocks = (unsigned)((T + kSlots - 1) / kSlots);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (pos9)
+    raster_clip_slots_kernel<true><<<blocks, RC_THREADS, 0, s>>>(
+        src, mv, hx, hy, normals, colors, ch, valid, t_rec, i_rec, T);
+  else
+    raster_clip_slots_kernel<false><<<blocks, RC_THREADS, 0, s>>>(
+        src, mv, hx, hy, normals, colors, ch, valid, t_rec, i_rec, T);
   return (int)cudaGetLastError();
 }
 

@@ -77,9 +77,21 @@ def pack_channels_ref(channels, width: int | None = None) -> torch.Tensor:
                                          * 8)])[0]
 
 
+def _rows(cm: torch.Tensor):
+    """(cm [C, N] as the kernel reads it, its row stride): rows of unit
+    stride, each at least N apart (the first N columns of a wider
+    channel-major block are read in place), else a contiguous copy."""
+    c, n = cm.shape
+    if (n > 1 and cm.stride(1) != 1) or (c > 1 and cm.stride(0) < n):
+        cm = cm.contiguous()
+    return cm, cm.stride(0) if c > 1 else n
+
+
 def _launch_spans(cm: torch.Tensor, spans, what: str):
-    """One kernel launch per span over the flat [C, N] input."""
-    _build.require_cuda(cm, what=what)
+    """One kernel launch per span over the [C, N] input (its rows one
+    stride apart, ``_rows``)."""
+    cm, ld = _rows(cm)
+    _build.require_device(cm, what=what)
     if cm.dtype != torch.float32:
         raise ValueError(f"{what}: expected float32")
     c, n = cm.shape
@@ -88,7 +100,7 @@ def _launch_spans(cm: torch.Tensor, spans, what: str):
     for a, b in spans:
         out = torch.empty((n, b - a), dtype=torch.float32, device=cm.device)
         err = _build.lib().pack_span_launch(cm.data_ptr(), out.data_ptr(),
-                                            c, n, a, b, stream)
+                                            c, n, ld, a, b, stream)
         _build.check(err, "pack_span_launch")
         outs.append(out)
     return tuple(outs)
@@ -109,17 +121,18 @@ def pack_channels_split_blocked(cm3: torch.Tensor, spans):
 
 
 def pack_channels(channels, width: int | None = None) -> torch.Tensor:
-    """[C] f32 channel arrays (each [N]), or one pre-stacked [C, N] array,
-    -> row-major [N, W] with W = width or C rounded up to 8; extra columns
-    zero. CPU tensors run the plain version; CUDA tensors launch the
-    kernel once."""
+    """[C] f32 channel arrays (each [N]), or one pre-stacked [C, N] array
+    (on a CUDA device read in place where its rows have unit stride, e.g.
+    the first N columns of a wider block), -> row-major [N, W] with W =
+    width or C rounded up to 8; extra columns zero. CPU tensors run the
+    plain version; CUDA tensors launch the kernel once."""
     cm = _stack(channels)
     spans = [(0, width or -(-cm.shape[0] // 8) * 8)]
     _check_spans(cm, spans, "pack_channels")
     if cm.device.type == "cpu":
         return pack_channels_split_ref(cm, spans)[0]
     global launches_channels
-    (out,) = _launch_spans(cm.contiguous(), spans, "pack_channels")
+    (out,) = _launch_spans(cm, spans, "pack_channels")
     launches_channels += 1
     return out
 
@@ -133,6 +146,6 @@ def pack_channels_split(cm: torch.Tensor, spans):
     if cm.device.type == "cpu":
         return pack_channels_split_ref(cm, spans)
     global launches_split
-    outs = _launch_spans(cm.contiguous(), spans, "pack_channels_split")
+    outs = _launch_spans(cm, spans, "pack_channels_split")
     launches_split += len(spans)
     return outs

@@ -14,6 +14,11 @@ output triangle, that writes every channel of the same dict.
 plane table of the attributes normals, colors and positions (A = 9): the
 uncompacted path's clip, setup and table, whose plain version is
 ``clip_screen_ref`` followed by ``ops/plane_table.plane_table_ref``.
+``clip_screen_slots`` is one launch for the dict and the attribute slots
+of the [2T] outputs (``clip_attrs_channel_lists``: normals, colors and
+positions rotated and lerped as the clip moved each vertex, A = 9): the
+fused-shading path's clip, whose plain version is ``clip_screen_ref``
+followed by ``ops/plane_table.clip_attrs_channel_lists``.
 
 The plain version is the chain the backend ran before, moved here
 (``backends/raster_channels`` re-exports it): the vertex transform, the
@@ -32,12 +37,15 @@ import torch
 from ascii_renderer_tpu_torch.core.fp import fma32
 from ascii_renderer_tpu_torch.ops import _build
 
-launches = 0  # kernel launches by clip_screen and clip_screen_table
+launches = 0  # kernel launches by clip_screen and its two other forms
 launches_table = 0  # kernel launches by clip_screen_table
+launches_slots = 0  # kernel launches by clip_screen_slots
 # kernels a call launches
-LAUNCHES_PER_CALL = {"clip_screen": 1, "clip_screen_table": 1}
-TABLE_ATTRS = 9  # the table form's attributes: normals, colors, positions
-TABLE_WIDTH = 32  # its table's columns: 3 (A + 1) padded to 8
+LAUNCHES_PER_CALL = {"clip_screen": 1, "clip_screen_table": 1,
+                     "clip_screen_slots": 1}
+TABLE_ATTRS = 9  # the table and slots forms' attributes: normals, colors,
+# positions
+TABLE_WIDTH = 32  # the table's columns: 3 (A + 1) padded to 8
 
 # the kernel's float output [len(FLOAT_KEYS), 2T], row by row in this order
 CLIP_KEYS = tuple(f"{c}{s}" for c in "xyzw" for s in "abc")
@@ -56,9 +64,10 @@ def _lerp(c0, c1, t):
     return fma32(t, c1 - c0, c0)
 
 
-def _slots(src: torch.Tensor, pos9: bool, what: str) -> int:
+def _slots(src: torch.Tensor, pos9: bool, what: str,
+           rows: int = len(FLOAT_KEYS)) -> int:
     """The triangle slots T of ``src`` (pos9 [9, T] or positions [3T, 3],
-    float32), or ValueError."""
+    float32) whose [rows, 2T] output the kernel indexes, or ValueError."""
     if src.dtype != torch.float32:
         raise ValueError(f"{what}: expected float32, got {src.dtype}")
     if pos9:
@@ -71,16 +80,16 @@ def _slots(src: torch.Tensor, pos9: bool, what: str) -> int:
             raise ValueError(f"{what}: positions must be [3T, 3], got "
                              f"{tuple(src.shape)}")
         T = src.shape[0] // 3
-    if 2 * T * len(FLOAT_KEYS) >= 2 ** 31:
+    if 2 * T * rows >= 2 ** 31:
         raise ValueError(f"{what}: {T} triangle slots, too many")
     return T
 
 
-def _clip_buffers(T: int, dev):
-    """The kernel's outputs: fb [25, 2T], valid [2T], tr [3, T], ir [2,
-    T]."""
-    return (torch.empty((len(FLOAT_KEYS), 2 * T), dtype=torch.float32,
-                        device=dev),
+def _clip_buffers(T: int, dev, extra: int = 0):
+    """The kernel's outputs: fb [25 + extra, 2T], valid [2T], tr [3, T],
+    ir [2, T]."""
+    return (torch.empty((len(FLOAT_KEYS) + extra, 2 * T),
+                        dtype=torch.float32, device=dev),
             torch.empty(2 * T, dtype=torch.bool, device=dev),
             torch.empty((3, T), dtype=torch.float32, device=dev),
             torch.empty((2, T), dtype=torch.int32, device=dev))
@@ -127,11 +136,7 @@ def clip_screen_table(src: torch.Tensor, normals: torch.Tensor,
                                      pos9=pos9)
     global launches, launches_table
     T = _slots(src, pos9, "clip_screen_table")
-    for a in (normals, colors):
-        if a.shape != (3 * T, 3) or a.dtype != torch.float32:
-            raise ValueError(f"clip_screen_table: normals and colors must "
-                             f"be float32 [{3 * T}, 3], got "
-                             f"{tuple(a.shape)} {a.dtype}")
+    _check_attrs(normals, colors, T, "clip_screen_table")
     _build.require_cuda(src, normals, colors, what="clip_screen_table")
     dev = src.device
     fb, valid, tr, ir = _clip_buffers(T, dev)
@@ -146,6 +151,49 @@ def clip_screen_table(src: torch.Tensor, normals: torch.Tensor,
     launches_table += 1
     _build.check(err, "raster_clip_table_launch")
     return _channel_dict(fb, valid, tr, ir), table
+
+
+def _check_attrs(normals, colors, T: int, what: str):
+    """normals and colors must be f32 [3T, 3], else ValueError."""
+    for a in (normals, colors):
+        if a.shape != (3 * T, 3) or a.dtype != torch.float32:
+            raise ValueError(f"{what}: normals and colors must be float32 "
+                             f"[{3 * T}, 3], got {tuple(a.shape)} {a.dtype}")
+
+
+def clip_screen_slots(src: torch.Tensor, normals: torch.Tensor,
+                      colors: torch.Tensor, mvp: torch.Tensor, rows: int,
+                      cols: int, *, pos9: bool = False):
+    """``clip_screen`` and the attribute slots of its [2T] outputs: (the
+    channel dict, 3 lists, one a vertex slot, of the 9 channels [2T] of
+    the attributes normals, colors and positions), as
+    ``clip_attrs_channel_lists([normals, colors, positions], dict)``.
+    ``normals`` and ``colors`` are f32 [3T, 3]; the positions are ``src``
+    (with ``pos9`` its [9, T] rows). On the CPU the plain version; on a
+    CUDA device one launch, whose dict and lists hold row views of one
+    [25 + 27, 2T] float buffer."""
+    if src.device.type == "cpu":
+        return clip_screen_slots_ref(src, normals, colors, mvp, rows, cols,
+                                     pos9=pos9)
+    global launches, launches_slots
+    n_a = 3 * TABLE_ATTRS
+    T = _slots(src, pos9, "clip_screen_slots", len(FLOAT_KEYS) + n_a)
+    _check_attrs(normals, colors, T, "clip_screen_slots")
+    _build.require_cuda(src, normals, colors, what="clip_screen_slots")
+    dev = src.device
+    fb, valid, tr, ir = _clip_buffers(T, dev, n_a)
+    err = _build.lib().raster_clip_slots_launch(
+        src.data_ptr(), int(pos9), _mvp16(mvp), 0.5 * cols, 0.5 * rows,
+        normals.data_ptr(), colors.data_ptr(), fb.data_ptr(),
+        valid.data_ptr(), tr.data_ptr(), ir.data_ptr(), T,
+        _build.stream_ptr(dev))
+    launches += 1
+    launches_slots += 1
+    _build.check(err, "raster_clip_slots_launch")
+    n = len(FLOAT_KEYS)
+    return _channel_dict(fb[:n], valid, tr, ir), [
+        list(fb[n + TABLE_ATTRS * s:n + TABLE_ATTRS * (s + 1)])
+        for s in range(3)]
 
 
 def _channel_dict(fb, valid, tr, ir) -> dict:
@@ -186,6 +234,19 @@ def clip_screen_table_ref(src, normals, colors, mvp, rows: int, cols: int,
     positions = pos9_to_positions(src) if pos9 else src
     attrs = torch.cat([normals, colors, positions], dim=1)
     return ch, plane_table_ref(ch, ch, attrs)
+
+
+def clip_screen_slots_ref(src, normals, colors, mvp, rows: int, cols: int,
+                          *, pos9: bool = False):
+    """The plain version of ``clip_screen_slots``: ``clip_screen_ref``,
+    then ``clip_attrs_channel_lists`` of the uncompacted dict over the
+    attributes [normals, colors, positions]."""
+    from ascii_renderer_tpu_torch.ops.plane_table import (
+        clip_attrs_channel_lists)
+    ch = clip_screen_ref(src, mvp, rows, cols, pos9=pos9)
+    positions = pos9_to_positions(src) if pos9 else src
+    attrs = torch.cat([normals, colors, positions], dim=1)
+    return ch, clip_attrs_channel_lists(attrs, ch)
 
 
 def transform_clip_channels(positions: torch.Tensor, mvp: torch.Tensor):

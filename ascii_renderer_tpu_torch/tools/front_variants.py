@@ -1,12 +1,14 @@
 """Timed launch geometries of the raster front end, on one card: the clip
-with its screen setup X4 (``ops/raster_clip.clip_screen``), its table form
-(``clip_screen_table``: the clip and the plane table of the uncompacted
-slots in one launch) and the standalone plane table X3
-(``ops/plane_table.plane_table``).
+with its screen setup X4 (``ops/raster_clip.clip_screen``), its slots
+form (``clip_screen_slots``: the clip and the attribute slots of the
+fused-shading path in one launch), its table form (``clip_screen_table``:
+the clip and the plane table of the uncompacted slots in one launch) and
+the standalone plane table X3 (``ops/plane_table.plane_table``).
 
 The variants are builds of the package's own sources with another value
 of a constant the source leaves open (``tools/build_variants``' way):
-X4's blocks of 128 threads (``RC_THREADS``: 64 or 256); the table form's
+X4's blocks of 128 threads (``RC_THREADS``: 64 or 256), which the slots
+form shares; the table form's
 16 source slots in blocks of 256 threads (``RC_TABLE_SLOTS`` /
 ``RC_TABLE_THREADS``: 32 / 256, 16 / 128, 64 / 256); X3's blocks of 128
 rows (``PT_THREADS``: 64 or 256).
@@ -16,8 +18,8 @@ wrapper, which this tool points at that library for the call.
 The calls are those each caller gives the wrappers
 (``chip_smoke._front_calls``): the entry() room and the cube (the table
 form; X4 and X3 standalone at the room's inputs too), the teapot 240x135,
-the mid-scale HD arm, the bunny's fused (X4) and subtile (X3) calls, and
-the seeded near-plane soups. At each call every output is held to the
+the mid-scale HD arm, the bunny's fused (the slots form) and subtile (X4
+and X3) calls, and the seeded near-plane soups. At each call every output is held to the
 plain version bit for bit first, then device ms by the profiler's kernel
 rows over 50 back-to-back calls (``chip_smoke._device_ms``). The table
 goes to stdout, one JSON line last. Run from the repo root on a machine
@@ -40,6 +42,9 @@ VARIANTS = {
     "clip_screen": {
         f"{t} threads": ("raster_clip.cu", "raster_clip_launch",
                          (f"-DRC_THREADS={t}",)) for t in (64, 256)},
+    "clip_screen_slots": {
+        f"{t} threads": ("raster_clip.cu", "raster_clip_slots_launch",
+                         (f"-DRC_THREADS={t}",)) for t in (64, 256)},
     "clip_screen_table": {
         f"{s} slots, {t} threads": (
             "raster_clip.cu", "raster_clip_table_launch",
@@ -49,9 +54,11 @@ VARIANTS = {
         f"{t} rows": ("plane_table.cu", "plane_table_launch",
                       (f"-DPT_THREADS={t}",)) for t in (64, 256)}}
 SHIPPED = {"clip_screen": "128 threads",
+           "clip_screen_slots": "128 threads",
            "clip_screen_table": "16 slots, 256 threads",
            "plane_table": "128 rows"}
 KERNELS = {"clip_screen": "raster_clip_kernel",
+           "clip_screen_slots": "raster_clip_slots_kernel",
            "clip_screen_table": "raster_clip_table_kernel",
            "plane_table": "plane_table_kernel"}
 
@@ -79,8 +86,12 @@ def _outputs(name, out):
     import torch
     if name == "plane_table":
         return [out]
-    ch, rest = (out[0], [out[1]]) if name == "clip_screen_table" else (
-        out, [])
+    if name == "clip_screen_table":
+        ch, rest = out[0], [out[1]]
+    elif name == "clip_screen_slots":
+        ch, rest = out[0], [x for s in out[1] for x in s]
+    else:
+        ch, rest = out, []
     return [ch[k] if ch[k].dtype != torch.bool else ch[k].to(torch.int32)
             for k in ch] + rest
 
@@ -90,8 +101,8 @@ def run(cs, dev):
     import torch
     from ascii_renderer_tpu_torch.ops import plane_table as PT
     from ascii_renderer_tpu_torch.ops import raster_clip as RCL
-    mods = {"clip_screen": RCL, "clip_screen_table": RCL,
-            "plane_table": PT}
+    mods = {"clip_screen": RCL, "clip_screen_slots": RCL,
+            "clip_screen_table": RCL, "plane_table": PT}
     calls = front_calls(cs, dev)
     table = {}
     for name, variants in VARIANTS.items():

@@ -148,6 +148,14 @@ the teapot's, the mid-scale HD arm's and the bunny's fused and subtile
 calls, chip_smoke._front_calls), every output digested; then the entry()
 step (median, busy ms, launches a step, and the host ms and launches of
 its raster.clip and raster.shade stages), about 2 minutes a side.
+``--only k1`` times K1's (``fma32``) two largest call sites as they now
+run (``k1_frames``): the bunny's fused clip with its attribute slots as
+one whole call (X4's slots form where the side has it, else X4 and the
+torch chain of the lerps: device ms of every kernel row, CUDA events,
+launches a call), then the fused and subtile2 golden-pose frames
+(median, busy ms, launches a frame, and the host ms and launches of
+their raster.setup, raster.clip, raster.pack and raster.build stages),
+the outputs digested, about 2 minutes a side.
 """
 
 from __future__ import annotations
@@ -285,6 +293,9 @@ def worker(root: str, only: str = "all") -> dict:
         return out
     if only == "front":
         front_frames(cs, dev, out)
+        return out
+    if only == "k1":
+        k1_frames(cs, dev, out)
         return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
@@ -554,6 +565,63 @@ def front_frames(cs, dev, out) -> None:
         out["stage_ms"][f"{label} {k}"] = host.get(k, 0.0)
         out["stage_launches"][f"{label} {k}"] = stages.get(k, 0.0)
     torch.cuda.synchronize()
+
+
+# the golden-pose frames whose front stages took K1's largest call sites,
+# and those stages
+K1_METHODS = ("fused", "subtile2")
+K1_STAGES = ("raster.setup", "raster.clip", "raster.pack", "raster.build")
+
+
+def k1_frames(cs, dev, out) -> None:
+    """K1's two largest call sites (module docstring, ``--only k1``): the
+    bunny's fused clip with its attribute slots as one call (X4's slots
+    form where the side has it, else X4 and the torch chain of the lerps),
+    then the fused and subtile2 golden-pose frames."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import plane_table as PT
+    from ascii_renderer_tpu_torch.ops import raster_clip as RCL
+    for key in ("k1_clip_ms", "k1_clip_call_ms", "k1_clip_launches",
+                "path_ms", "path_busy_ms", "path_launches", "stage_ms",
+                "stage_launches"):
+        out[key] = {}
+    soup, scene = cs._bunny(), cs._scene(dev)
+    p, n, c = (torch.as_tensor(x).to(dev) for x in soup)
+    mvp = R.camera_mvp(cs._golden_camera(), cs.ROWS, cs.COLS,
+                       cs.PIXEL_ASPECT)
+    if hasattr(RCL, "clip_screen_slots"):
+        def clip():
+            return RCL.clip_screen_slots(p, n, c, mvp, cs.ROWS, cs.COLS)
+    else:
+        def clip():
+            ch = RCL.clip_screen(p, mvp, cs.ROWS, cs.COLS)
+            return ch, PT.clip_attrs_channel_lists(
+                torch.cat([n, c, p], dim=1), ch)
+    ch, slots = clip()
+    label = f"bunny fused {p.shape[0] // 3} slots, clip and slots"
+    out["digest"][f"k1 {label}"] = _digest(
+        [ch[k] if ch[k].dtype != torch.bool else ch[k].to(torch.int32)
+         for k in sorted(ch)] + [x for s in slots for x in s])
+    _b, per_call, _s, _h = cs.profile_frames(clip, 3, ("raster.",), label)
+    out["k1_clip_launches"][label] = per_call
+    out["k1_clip_ms"][label] = cs._device_ms(clip, None, per_call)
+    out["k1_clip_call_ms"][label] = cs._event_ms(clip, 20)
+    caps = {"fused": {},
+            "subtile2": cs._oracle_caps(dev, soup, scene, "subtile2")[0]}
+    for method in K1_METHODS:
+        frame = cs._oracle_frame(dev, soup, scene, method, caps[method])
+        label = f"{method} golden pose 960x540"
+        out["digest"][f"{label} rgb"] = _digest([frame()])
+        out["path_ms"][label] = statistics.median(cs._timed(frame, 10))
+        busy, launches, stages, host = cs.profile_frames(
+            frame, 3, ("raster.",), label)
+        out["path_busy_ms"][label] = busy
+        out["path_launches"][label] = launches
+        for st in K1_STAGES:
+            out["stage_ms"][f"{label} {st}"] = host.get(st, 0.0)
+            out["stage_launches"][f"{label} {st}"] = stages.get(st, 0.0)
+        torch.cuda.synchronize()
 
 
 def rt_and_walk_front(cs, dev, out, mid_preps, k3=True) -> None:
@@ -1143,7 +1211,7 @@ def main() -> int:
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=("all", "bins", "shade", "rt",
-                                       "glyph", "pt", "front"),
+                                       "glyph", "pt", "front", "k1"),
                     default="all",
                     help="bins: the raster's bins and the paths alone; "
                     "shade: K2 at its callers, X10 and the headline; rt: "
@@ -1151,7 +1219,8 @@ def main() -> int:
                     "chains, the glyph tail and the paths' tail stages; "
                     "pt: the path tracer's frames and their stages; "
                     "front: the raster's clip and plane table and the "
-                    "entry() step")
+                    "entry() step; k1: the fused clip with its attribute "
+                    "slots and the fused and subtile2 frames")
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.worker, a.only)), flush=True)
@@ -1183,6 +1252,7 @@ def main() -> int:
                 "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
                 "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "x4_ms", "x3_ms",
                 "front_ms", "front_call_ms", "x4_kernel_ms", "x3_kernel_ms",
+                "k1_clip_ms", "k1_clip_call_ms", "k1_clip_launches",
                 "k3_ms", "x9_ms", "x9_kernel_ms", "x7_ms", "x14_ms",
                 "keys_ms", "keys_busy_ms",
                 "keys_launches", "build_ms", "build_busy_ms",
@@ -1205,7 +1275,7 @@ def main() -> int:
         unit = "" if shape.startswith((
             "Path_launches", "Walk_launches", "Keys_launches",
             "Build_launches", "K2_launches", "Rt_launches", "Tail_launches",
-            "Stage_launches")) or shape.endswith(
+            "Stage_launches", "K1_clip_launches")) or shape.endswith(
                 "views/s") else " ms"
         ratio = (f"{ms['other'] / ms['this']:.2f}" if ms["this"]
                  else "n/a")

@@ -963,6 +963,13 @@ B8_OPS, B8_OPS_PIXEL = 30, 400
 # against B9b's.
 ORACLE_REF_DIFF = {"fused": 1892, "subtile": 1891, "subtile2": 0}
 ORACLE_SLACK = 6
+# kernel launches a golden-pose frame makes in its front stages: fused's
+# raster.clip (X4's slots form), subtile2's raster.setup (B2 and the
+# compare that makes its valid row a bool mask) and raster.pack (B7 over
+# B2's rows)
+ORACLE_FRONT_LAUNCHES = {("fused", "raster.clip"): 1,
+                         ("subtile2", "raster.setup"): 2,
+                         ("subtile2", "raster.pack"): 1}
 
 
 def _capture(mod, name, run):
@@ -2455,56 +2462,13 @@ def _jax_def_line(port_file, fn):
     for a module of the port (the source is read, never imported)."""
     rel = os.path.relpath(port_file, ROOT).replace(
         "ascii_renderer_tpu_torch", "ascii_renderer_tpu", 1)
+    if not os.path.isfile(os.path.join(ROOT, rel)):
+        return rel
     with open(os.path.join(ROOT, rel)) as fh:
         for i, line in enumerate(fh, 1):
-            if line.startswith(f"def {fn}("):
+            if line.lstrip().startswith(f"def {fn}("):
                 return f"{rel}:{i}"
     return rel
-
-
-def frame_fma_calls(dev, soup, scene):
-    """One frame of the mid-scale HD arm (RasterBackend, 14,884 triangles,
-    960x540) and one of the bunny through render_soup(method="fused") (the
-    clip's attribute lerps, which stay torch ops with fma32 on the card),
-    with the kernel wrappers of fma32 and the shade recorded, each fma32
-    call held to fma32_f64 on its own operands as it is made: (the largest
-    fma32 call's operands, the ``def`` in the reference of the backend
-    function it came from, fma32 calls in the mid HD frame and in the
-    fused frame, the mid HD frame's last shade call's arguments)."""
-    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
-    from ascii_renderer_tpu_torch.core.config import Config
-    from ascii_renderer_tpu_torch.core.fp import fma32_f64
-    from ascii_renderer_tpu_torch.ops import fp as KFP
-    calls = []
-    real = KFP.fma32_kernel
-
-    def rec(a, b, c):
-        out = real(a, b, c)
-        f = sys._getframe(2)  # core/fp.fma32's caller, or the backend
-        while f.f_back is not None and os.sep + "backends" + os.sep not in \
-                f.f_code.co_filename:  # function that called its helper
-            f = f.f_back
-        _same_bits(out, fma32_f64(a, b, c), f"fma32 call {len(calls)} of a "
-                   f"mid HD or fused frame, from {f.f_code.co_name}")
-        calls.append((out.numel(), (a, b, c), f.f_code.co_filename,
-                      f.f_code.co_name))
-        return out
-
-    KFP.fma32_kernel = rec
-    try:
-        msoup, cam = _mesh("mid")
-        be = RasterBackend(Config(pixel_aspect=PIXEL_ASPECT), device=dev)
-        be.set_soup(*msoup, _scene(dev))
-        from ascii_renderer_tpu_torch.ops import raster_shade as RSH
-        (shade_args, _kw) = _capture(RSH, "shade", lambda: be.render(
-            0.0, cam, *MID_GRID, PIXEL_ASPECT))
-        n_mid = len(calls)
-        _oracle_frame(dev, soup, scene, "fused", {})()
-    finally:
-        KFP.fma32_kernel = real
-    _n, ops, path, fn = max(calls, key=lambda c: c[0])
-    return (ops, _jax_def_line(path, fn), n_mid, len(calls) - n_mid,
-            shade_args)
 
 
 def check_fma32(dev, soup, scene):
@@ -2514,16 +2478,16 @@ def check_fma32(dev, soup, scene):
     random triples (half of them random bit patterns: every exponent,
     subnormals, infinities, NaN; half normal values of one scale),
     constructed float32 midpoint ties, subnormal and special values, and
-    broadcast, strided, 0-d and Python-float operands, and every fma32
-    call of a mid-scale HD frame and of the bunny's fused frame on its
-    own operands (frame_fma_calls):
-    bit for bit, NaN in the same places. Timed at the largest of those
-    calls beside torch.addcmul on the same operands (the elementwise
-    floor, not the same function: it rounds the product).
-    Returns the record and that frame's shade call."""
+    broadcast, strided, 0-d and Python-float operands: bit for bit, NaN in
+    the same places. Its calls on the driven paths are held and timed
+    later (time_fma32). Returns the record and the shade call of a frame
+    of the mid-scale HD arm (RasterBackend, 14,884 triangles, 960x540)."""
     import torch
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.core.config import Config
     from ascii_renderer_tpu_torch.core.fp import fma32_f64
     from ascii_renderer_tpu_torch.ops import fp as KFP
+    from ascii_renderer_tpu_torch.ops import raster_shade as RSH
     from ascii_renderer_tpu_torch.tools import xla_inputs as xi
     g = torch.Generator(device=dev).manual_seed(15)
     sets = {"random bit patterns": tuple(torch.randint(
@@ -2542,40 +2506,99 @@ def check_fma32(dev, soup, scene):
         if label.startswith("random"):
             n_random += ops[0].numel()
     torch.cuda.synchronize()
-    ops, site, n_mid, n_fused, shade_args = frame_fma_calls(dev, soup,
-                                                           scene)
-    out = KFP.fma32_kernel(*ops)
-    _same_bits(out, fma32_f64(*ops), "fma32, the timed call")
+    print(f"fma32 (K1): bit-identical to fma32_f64 on {n_random} random "
+          f"triples, {sets['midpoint ties'][0].numel()} midpoint ties, "
+          f"{sets['special values'][0].numel()} subnormal and special "
+          f"values, operands {', '.join(xi.FMA_CASES)}", flush=True)
+    msoup, cam = _mesh("mid")
+    be = RasterBackend(Config(pixel_aspect=PIXEL_ASPECT), device=dev)
+    be.set_soup(*msoup, _scene(dev))
+    (shade_args, _kw) = _capture(RSH, "shade", lambda: be.render(
+        0.0, cam, *MID_GRID, PIXEL_ASPECT))
+    rec = _rec("fma32", "fp.cu", "", 0.0, 0.0, 0.0, (0.0, "bytes"))
+    rec.update(random=n_random)
+    return rec, shade_args
+
+
+# K1's call sites on the driven paths: {launch size: {"path:line
+# function" of the port's caller: calls}}
+_FMA_SITES = {}
+
+
+def _fma_site():
+    """"path:line function" of the port's code that called fma32: the
+    first frame above core/fp.py and this script's recorders."""
+    f = sys._getframe(1)
+    skip = ("chip_smoke.py", os.path.join("core", "fp.py"))
+    while f.f_back is not None and f.f_code.co_filename.endswith(skip):
+        f = f.f_back
+    path = f.f_code.co_filename
+    i = path.rfind("ascii_renderer_tpu_torch")
+    return f"{path[i:] if i >= 0 else path}:{f.f_lineno} {f.f_code.co_name}"
+
+
+def _record_fma_sites():
+    """Wrap fma32's kernel wrapper so that, while a driven path runs, each
+    call is counted at its launch size (_fma_size) and site in
+    _FMA_SITES."""
+    from ascii_renderer_tpu_torch.ops import fp as KFP
+    real = KFP.fma32_kernel
+
+    def rec(*a):
+        if _DRIVEN[0]:
+            size = _fma_size(a, {})
+            if size is not None:
+                sites = _FMA_SITES.setdefault(size, {})
+                site = _fma_site()
+                sites[site] = sites.get(site, 0) + 1
+        return real(*a)
+
+    KFP.fma32_kernel = rec
+
+
+def time_fma32(sizes, real, rec):
+    """K1 at each launch size of the driven paths (_record_sizes' first
+    call there) held to fma32_f64 bit for bit, then timed at the largest
+    of them beside torch.addcmul on the same operands (the elementwise
+    floor, not the same function: it rounds the product). Fills the
+    record's times, bound and site."""
+    import torch
+    from ascii_renderer_tpu_torch.core.fp import fma32_f64
+    for size, (a, _k, _n, _w) in sizes.items():
+        _same_bits(real(*a), fma32_f64(*a), f"fma32 driven call at {size}")
+    size = max(sizes, key=math.prod)
+    ops = sizes[size][0]
+    out = real(*ops)
     n = out.numel()
     tens = [x for x in ops if isinstance(x, torch.Tensor)
             and x.device.type == "cuda"]
     at, bt, ct = (x if isinstance(x, torch.Tensor) and x.device == out.device
                   else torch.tensor(float(x), dtype=torch.float32,
                                     device=out.device) for x in ops)
-    ms = _device_ms(lambda: KFP.fma32_kernel(*ops), "fma32_kernel", 1)
+    ms = _device_ms(lambda: real(*ops), "fma32_kernel", 1)
     plain = _event_ms(lambda: fma32_f64(*ops), 20)
     lib = _device_ms(lambda: torch.addcmul(ct, at, bt), None, 1)
-    # each tensor operand read once, the result written once; an FMA is
-    # two float operations
-    bound = _bound(_nbytes(*tens, out), 2 * n)
+    bound = _fma_bound(ops, out)
     forms = [f"{tuple(x.shape)} strides {x.stride()}"
              if isinstance(x, torch.Tensor) else repr(x) for x in ops]
-    print(f"fma32 (K1): bit-identical to fma32_f64 on {n_random} random "
-          f"triples, {sets['midpoint ties'][0].numel()} midpoint ties, "
-          f"{sets['special values'][0].numel()} subnormal and special "
-          f"values, operands {', '.join(xi.FMA_CASES)}, and each of the "
-          f"{n_mid} calls of a mid HD frame and {n_fused} of the bunny's "
-          f"fused frame; timed at the largest, "
-          f"{' x '.join(forms[:2])} + {forms[2]} -> {tuple(out.shape)}, "
-          f"{_nbytes(*tens, out)} bytes (the reference's {site}): kernel "
-          f"{ms:.5f} ms, plain {plain:.3f} ms, addcmul {lib:.5f} ms, bound "
-          f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
-    rec = _rec("fma32", "fp.cu", "", 0.0, ms, plain, bound, lib)
-    # XLA code: the contraction of a product into its add, at the site of
-    # the timed call
-    rec.update(replaces=site, shape=list(out.shape), random=n_random,
-               mid_frame_calls=n_mid, fused_frame_calls=n_fused)
-    return rec, shade_args
+    for sz in sorted(_FMA_SITES, key=math.prod):
+        by_site = sorted(_FMA_SITES[sz].items(), key=lambda it: -it[1])
+        print(f"fma32 (K1) calls at {list(sz)} on the driven paths: "
+              + "; ".join(f"{n} from {st}" for st, n in by_site), flush=True)
+    site = max(_FMA_SITES[size].items(), key=lambda it: it[1])[0]
+    path, _, fn = site.partition(" ")
+    print(f"fma32 (K1): each of its {len(sizes)} launch sizes on the driven "
+          f"paths bit-identical to fma32_f64 at its first call; timed at "
+          f"the largest, {list(size)} (its first call; most of that size's "
+          f"calls from {site}): "
+          f"{' x '.join(forms[:2])} + {forms[2]}, {_nbytes(*tens, out)} "
+          f"bytes: kernel {ms:.5f} ms, plain {plain:.3f} ms, addcmul "
+          f"{lib:.5f} ms, bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+    rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound[0],
+               bound_by=bound[1], shape=list(out.shape), timed_at=site,
+               replaces=_jax_def_line(os.path.join(ROOT, path.split(":")[0]),
+                                      fn))
+    assert n > 0
 
 
 def _shade_bound(args):
@@ -4693,8 +4716,10 @@ def check_pack_channels(dev, mid_preps):
 # transforms 72, depths 3, ratios 6, lerps 36) and set up one output
 # triangle (41); X3's row forms its own values once (edge coefficients 15,
 # their products with iw 9, the guarded reciprocal 2, the denominator 15),
-# then per attribute three lerps (9) and three planes (15)
+# then per attribute three lerps (9) and three planes (15); the slots
+# form's thread per attribute its three lerps (X4S_OPS_ATTR)
 X4_OPS_SLOT = 2 * (72 + 3 + 6 + 36 + 41)
+X4S_OPS_ATTR = 9
 X3_OPS_ROW, X3_OPS_ATTR = 15 + 9 + 2 + 15, 9 + 15
 ROWS_COLS_FRONT = (270, 480)  # the near-plane soup's grid
 
@@ -4720,15 +4745,17 @@ def _capture_last(mods_names, run):
 
 def _front_calls(dev, soup, scene, caps):
     """The inputs each caller gives X4 (clip_screen), its table form
-    (clip_screen_table) and X3 (plane_table): entry()'s step (the demo
-    room at 96x36) and the cube at 80x24 through render_soup's binned walk
-    (the table form), the teapot 240x135 and the mid-scale HD arm
-    (RasterBackend, a second frame at its settled caps), the bunny's
-    "fused" call (its clip) and "subtile" call (its table) at the golden
-    pose, and seeded soups at the near plane: 60,000 triangles (X4 in both
-    vertex layouts; X3 uncompacted with 9 attributes and at a compaction
-    with 6; the table form in the pos9 layout) and 256 (the table form at
-    2T = 512). Returns {kernel: {caller: (args, kwargs)}}."""
+    (clip_screen_table), its slots form (clip_screen_slots) and X3
+    (plane_table): entry()'s step (the demo room at 96x36) and the cube at
+    80x24 through render_soup's binned walk (the table form), the teapot
+    240x135 and the mid-scale HD arm (RasterBackend, a second frame at its
+    settled caps), the bunny's "fused" call (its clip and attribute slots:
+    the slots form) and "subtile" call (its clip and table) at the golden
+    pose, and seeded soups at the near plane: 60,000 triangles (X4 and the
+    slots form in both vertex layouts; X3 uncompacted with 9 attributes
+    and at a compaction with 6; the table form in the pos9 layout), 256
+    (the table form at 2T = 512) and 300 (the slots form). Returns
+    {kernel: {caller: (args, kwargs)}}."""
     import torch
     from ascii_renderer_tpu_torch.backends import raster as R
     from ascii_renderer_tpu_torch.backends.raster import RasterBackend
@@ -4740,7 +4767,7 @@ def _front_calls(dev, soup, scene, caps):
     # (a package without the table form has its callers take X4 and X3)
     wrappers = tuple((m, nm) for m, nm in (
         (RCL, "clip_screen"), (RCL, "clip_screen_table"),
-        (PT, "plane_table")) if hasattr(m, nm))
+        (RCL, "clip_screen_slots"), (PT, "plane_table")) if hasattr(m, nm))
     runs = {}
     fn, args = entry(device=dev)
     runs["entry() room 96x36"] = lambda: fn(*args)
@@ -4759,7 +4786,8 @@ def _front_calls(dev, soup, scene, caps):
     for method in ("fused", "subtile"):
         runs[f"bunny {method} 960x540"] = _oracle_frame(
             dev, soup, scene, method, caps.get(method, {}))
-    out = {"clip_screen": {}, "clip_screen_table": {}, "plane_table": {}}
+    out = {"clip_screen": {}, "clip_screen_table": {},
+           "clip_screen_slots": {}, "plane_table": {}}
     for label, run in runs.items():
         for name, call in _capture_last(wrappers, run).items():
             if call is not None:
@@ -4778,12 +4806,22 @@ def _front_calls(dev, soup, scene, caps):
     if not hasattr(RCL, "clip_screen_table"):
         return out
     nc = (attrs[:, :3].contiguous(), attrs[:, 3:6].contiguous())
+    if hasattr(RCL, "clip_screen_slots"):
+        out["clip_screen_slots"][near] = (
+            (p, *nc, mvp, *ROWS_COLS_FRONT), {})
+        out["clip_screen_slots"][near + ", pos9"] = (
+            (pos9, *nc, mvp, *ROWS_COLS_FRONT), {"pos9": True})
     out["clip_screen_table"][near + ", pos9"] = (
         (pos9, *nc, mvp, *ROWS_COLS_FRONT), {"pos9": True})
     p, attrs, mvp = front_inputs(256, 17, dev, *ROWS_COLS_FRONT)
     out["clip_screen_table"]["near-plane soup 256 triangles"] = (
         (p, attrs[:, :3].contiguous(), attrs[:, 3:6].contiguous(), mvp,
          *ROWS_COLS_FRONT), {})
+    if hasattr(RCL, "clip_screen_slots"):  # 2T no multiple of 128
+        p, attrs, mvp = front_inputs(300, 18, dev, *ROWS_COLS_FRONT)
+        out["clip_screen_slots"]["near-plane soup 300 triangles"] = (
+            (p, attrs[:, :3].contiguous(), attrs[:, 3:6].contiguous(), mvp,
+             *ROWS_COLS_FRONT), {})
     return out
 
 
@@ -4826,6 +4864,16 @@ def _x4t_bound(args, kw):
                   * T), T
 
 
+def _x4s_bound(args, kw):
+    """The slots form's least work: X4's, the normals and colors read
+    once (the positions are X4's source), 27 floats of each output slot
+    written once; X4_OPS_SLOT and two output slots' X4S_OPS_ATTR a slot
+    and attribute."""
+    T = _x4_slots(args, kw)
+    n_bytes = (36 + 200 + 2 + 20 + 72 + 2 * 4 * 27) * T
+    return _bound(n_bytes, (X4_OPS_SLOT + 2 * 9 * X4S_OPS_ATTR) * T), T
+
+
 def _x3_bound(args):
     """X3's least work: the rows' 10 screen floats (and cidx) read once,
     the records and 3A attributes of each distinct source slot a row reads
@@ -4849,12 +4897,14 @@ def _x3_bound(args):
 def check_front_kernels(dev, soup, scene, caps):
     """X4 (the clip with its screen setup, one launch of
     csrc/raster_clip.cu), its table form (the clip and the plane table of
-    the uncompacted slots in one launch) and X3 (the plane table with its
+    the uncompacted slots in one launch), its slots form (the clip and the
+    attribute slots in one launch) and X3 (the plane table with its
     attribute lerps, one launch of csrc/plane_table.cu) against their
     plain versions on the inputs each caller gives them (_front_calls):
-    the dicts and the tables bit for bit (NaN in the same places). X4 and
-    X3 timed at the mid-scale HD arm's call, the table form at the entry()
-    room's (in X4's record, ``table_form``). Returns X4's and X3's
+    the dicts, slots and tables bit for bit (NaN in the same places). X4
+    and X3 timed at the mid-scale HD arm's call, the table form at the
+    entry() room's and the slots form at the bunny's fused call (in X4's
+    record, ``table_form`` and ``slots_form``). Returns X4's and X3's
     records."""
     import torch
     from ascii_renderer_tpu_torch.ops import plane_table as PT
@@ -4892,6 +4942,30 @@ def check_front_kernels(dev, soup, scene, caps):
                for c in calls["clip_screen_table"].values())
     print(f"clip and table (X4's table form): bit-identical to the plain "
           f"version for {'; '.join(lines)}", flush=True)
+    lines = []
+    for label, (args, kw) in calls["clip_screen_slots"].items():
+        (got_ch, got), (want_ch, want) = (
+            RCL.clip_screen_slots(*args, **kw),
+            RCL.clip_screen_slots_ref(*args, **kw))
+        torch.cuda.synchronize()
+        _same_dict(got_ch, want_ch, f"X4 slots form {label}")
+        for s, (g_s, w_s) in enumerate(zip(got, want)):
+            assert len(g_s) == len(w_s) == RCL.TABLE_ATTRS, label
+            for j, (g, w) in enumerate(zip(g_s, w_s)):
+                _same_bits(g, w, f"X4 slots form {label}: slot {s} "
+                           f"attribute {j}")
+        T = _x4_slots(args, kw)
+        assert int(want_ch["valid"].sum()) > 0, label
+        lines.append(f"{label} ({T} slots{', pos9' if kw.get('pos9') else ''}"
+                     f", {int(want_ch['valid'].sum())} valid, rot "
+                     f"{sorted(set(want_ch['rot'].tolist()))}, n_in "
+                     f"{sorted(set(want_ch['n_in'].tolist()))})")
+    bunny = "bunny fused 960x540"
+    assert bunny in calls["clip_screen_slots"], list(calls[
+        "clip_screen_slots"])
+    assert _x4_slots(*calls["clip_screen_slots"][bunny]) == 68644
+    print(f"clip and attribute slots (X4's slots form): bit-identical to "
+          f"the plain version for {'; '.join(lines)}", flush=True)
     lines = []
     for label, (args, kw) in calls["plane_table"].items():
         got, want = PT.plane_table(*args, **kw), PT.plane_table_ref(*args,
@@ -4933,6 +5007,19 @@ def check_front_kernels(dev, soup, scene, caps):
                              bound_by=bound[1], slots=T,
                              replaces="ascii_renderer_tpu/backends/"
                              "raster_channels.py:139, :426, :481")
+    args, kw = calls["clip_screen_slots"][bunny]
+    ms = _device_ms(lambda: RCL.clip_screen_slots(*args, **kw),
+                    "raster_clip_slots_kernel",
+                    RCL.LAUNCHES_PER_CALL["clip_screen_slots"])
+    plain = _event_ms(lambda: RCL.clip_screen_slots_ref(*args, **kw), 5)
+    bound, T = _x4s_bound(args, kw)
+    print(f"clip and attribute slots (X4's slots form) at the {bunny} "
+          f"call ({T} slots): kernel {ms:.5f} ms, plain {plain:.3f} ms, "
+          f"bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+    rec["slots_form"] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0],
+                             bound_by=bound[1], slots=T,
+                             replaces="ascii_renderer_tpu/backends/"
+                             "raster_channels.py:139, :426")
     recs.append(rec)
     args, kw = calls["plane_table"][timed]
     ms = _device_ms(lambda: PT.plane_table(*args, **kw),
@@ -5191,6 +5278,14 @@ def _x4t_size(a, k):
     return (_x4_slots(a, k), bool(k.get("pos9")), "table form")
 
 
+def _x4s_size(a, k):
+    """X4's slots form's launch size: triangle slots, the pos9 layout,
+    the form."""
+    if a[0].device.type != "cuda":
+        return None
+    return (_x4_slots(a, k), bool(k.get("pos9")), "slots form")
+
+
 def _x3_size(a, k):
     """X3's launch size: rows, attributes, source slots, compacted."""
     if a[2].device.type != "cuda":
@@ -5279,11 +5374,13 @@ def size_loss(label, sizes, real, kernel, per_call, bound_of, rec,
 
 
 def _size_losses(recorded, by_name):
-    """K2's, X10's, X4's, X3's and K1's losses by launch size."""
+    """K2's, X10's, X4's, X3's and K1's losses by launch size; K1 timed at
+    its largest driven call (time_fma32)."""
     import torch
     from ascii_renderer_tpu_torch.ops import group_build as GB
     ((shade, shade_real), (build, build_real), (clip, clip_real),
-     (table, table_real), (fma, fma_real), (clipt, clipt_real)) = recorded
+     (table, table_real), (fma, fma_real), (clipt, clipt_real),
+     (clips, clips_real)) = recorded
 
     def build_launches(a, k):
         build_real(*a, **k)
@@ -5298,16 +5395,19 @@ def _size_losses(recorded, by_name):
     size_loss("grouped layout build (X10)", build, build_real,
               "group_build_", build_launches, build_bound,
               by_name["group_build"])
-    size_loss("raster clip (X4; its table form's launches with it)", clip,
-              clip_real, "raster_clip_kernel", lambda a, k: 1,
+    size_loss("raster clip (X4; its table and slots forms' launches with "
+              "it)", clip, clip_real, "raster_clip_kernel", lambda a, k: 1,
               lambda a, k: _x4_bound(a, k)[0][0], by_name["raster_clip"],
               also=((clipt, clipt_real, "raster_clip_table_kernel",
-                     lambda a, k: 1, lambda a, k: _x4t_bound(a, k)[0][0]),))
+                     lambda a, k: 1, lambda a, k: _x4t_bound(a, k)[0][0]),
+                    (clips, clips_real, "raster_clip_slots_kernel",
+                     lambda a, k: 1, lambda a, k: _x4s_bound(a, k)[0][0])))
     size_loss("plane table (X3)", table, table_real, "plane_table_kernel",
               lambda a, k: 1, lambda a, k: _x3_bound(a)[0][0],
               by_name["plane_table"])
     size_loss("fma32 (K1)", fma, fma_real, "fma32_kernel", lambda a, k: 1,
               lambda a, k: _fma_bound(a, fma_real(*a))[0], by_name["fma32"])
+    time_fma32(fma, fma_real, by_name["fma32"])
     torch.cuda.synchronize()
 
 
@@ -5411,13 +5511,15 @@ def main() -> int:
     # pt_rays by name)
     pt_sizes = (_record_sizes(RYG, "pt_rays", _x7_size, also=(PTB,)),
                 _record_sizes(PR, "fold", _x14_size))
+    _record_fma_sites()  # inside K1's size recorder: its sites by size
     recorded = (_record_sizes(RSH, "shade", _shade_size),
                 _record_sizes(GB, "build_rows", _build_size,
                               weight_of=_build_weight),
                 _record_sizes(RCL, "clip_screen", _x4_size),
                 _record_sizes(PT, "plane_table", _x3_size),
                 _record_sizes(KFP, "fma32_kernel", _fma_size),
-                _record_sizes(RCL, "clip_screen_table", _x4t_size))
+                _record_sizes(RCL, "clip_screen_table", _x4t_size),
+                _record_sizes(RCL, "clip_screen_slots", _x4s_size))
     # each kernel's wrapper module and launch counter
     counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
                 "raster_group_walk": (RG, "launches"),
@@ -5447,6 +5549,7 @@ def main() -> int:
                 "rt_trace": (RTK, "launches"),
                 "raster_clip": (RCL, "launches"),
                 "raster_clip_table": (RCL, "launches_table"),
+                "raster_clip_slots": (RCL, "launches_slots"),
                 "plane_table": (PT, "launches"),
                 "bin_entries": (BE, "launches"),
                 "bin_entries_keys": (BE, "launches_keys"),
@@ -5548,14 +5651,25 @@ def main() -> int:
         assert c_or[path]["modal_vote"] > 0, f"B4 not launched on {path}"
     for path in ("subtile", "subtile2"):
         assert c_or[path]["raster_shade"] > 0, f"K2 not launched on {path}"
-    for path, kernels in (("fused", ("raster_clip",)),
-                          ("subtile", ("raster_clip", "plane_table"))):
+    for path, kernels in (("fused", ("raster_clip", "raster_clip_slots")),
+                          ("subtile", ("raster_clip", "plane_table")),
+                          ("subtile2", ("setup2dh", "pack_channels"))):
         for k in kernels:
             assert c_or[path][k] > 0, f"{k} not launched on {path}"
-    assert c_or["subtile2"]["pack_channels"] > 0, "B7 not launched: subtile2"
+    # fused's clip and attribute slots are X4's slots form, subtile2's
+    # setup B2: K1 launches on neither path
+    print(f"fma32 launches: fused {c_or['fused']['fma32']}, subtile2 "
+          f"{c_or['subtile2']['fma32']}, subtile {c_or['subtile']['fma32']}, "
+          f"visibility_subtile {c_or['visibility_subtile']['fma32']}",
+          flush=True)
+    assert c_or["fused"]["fma32"] == c_or["subtile2"]["fma32"] == 0, c_or
+    by_name["setup2dh"]["launches"] += c_or["subtile2"]["setup2dh"]
+    or_stages = {}
     for method, fn in or_frames.items():  # B8, B9b, B9c in their frames
-        profile_frames(fn, 3, ("raster.", "frame.", "glyph"),
-                       f"{method} golden pose")
+        or_stages[method] = profile_frames(
+            fn, 3, ("raster.", "frame.", "glyph"), f"{method} golden pose")[2]
+    for (method, st), n in ORACLE_FRONT_LAUNCHES.items():
+        assert or_stages[method].get(st) == n, (method, or_stages[method])
 
     # path tracer: frame 0 against the CPU render, then the reference run
     # (96x36, spp 64, 5 bounces) and the HD arm (960x540, spp 8)
@@ -5771,9 +5885,14 @@ def main() -> int:
               "pt_reduce"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
-    # the table form's launches are X4's, and X3's tables folded into them
+    # the table form's launches are X4's, and X3's tables folded into them;
+    # the slots form's are X4's too
     by_name["raster_clip"]["launches_table"] = by_name["plane_table"][
         "folded"] = sum(c["raster_clip_table"] for c in driven)
+    by_name["raster_clip"]["launches_slots"] = by_name["raster_clip"][
+        "slots_form"]["launches"] = sum(c["raster_clip_slots"]
+                                        for c in driven)
+    assert by_name["raster_clip"]["launches_slots"] > 0
     # the glyph tail: X12a, B4's chars form and glyph_map on every path
     for k in ("frame_bytes", "modal_vote_chars", "glyph_map"):
         by_name[k]["launches"] = sum(c[k] for c in driven)

@@ -912,6 +912,25 @@ def test_pack_channels_kernels_equal_plain_on_cuda(cuda_device, c, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,n,tp", [(37, 68644, 69632), (46, 1000, 1024),
+                                    (37, 300, 1024), (1, 700, 1024)])
+def test_pack_channels_reads_a_row_strided_block_on_cuda(cuda_device, c, n,
+                                                         tp, zero_counts):
+    """B7 reads the first N columns of a wider [C, Tp] channel-major block
+    in place (generation 2 packs B2's rows so), bit for bit with the pack
+    of their contiguous copy, in one launch."""
+    g = torch.Generator().manual_seed(n)
+    blk = torch.randn((c, tp), generator=g).to(cuda_device)
+    view = blk[:, :n]
+    w = -(-c // 8) * 8
+    got = PK.pack_channels(view, width=w)
+    torch.cuda.synchronize()
+    assert PK.launches_channels == 1
+    assert torch.equal(got.view(torch.int32), PK.pack_channels_ref(
+        view.contiguous(), width=w).view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("caps", [(32 * 512, 1 << 16, 6), (64, 4096, 1)],
                          ids=["generous", "overflow"])
 @pytest.mark.parametrize("walk", sorted(GEN_WALKS))

@@ -314,6 +314,36 @@ def test_clip_table_kernel_equals_plain(cuda_device, T, pos9):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 300, 5000, 68644],
+                         ids=["T1", "T300", "T5000", "bunny"])
+@pytest.mark.parametrize("pos9", [False, True], ids=["positions", "pos9"])
+def test_clip_slots_kernel_equals_plain(cuda_device, T, pos9):
+    """One launch of X4's slots form gives its plain version's dict
+    (clip_screen_ref's) and 3 x 9 attribute slots [2T]
+    (clip_attrs_channel_lists' over [normals, colors, positions]), bit for
+    bit, NaN in the same places, on a soup at the near plane (every clip
+    case); 68,644 slots is the bunny's fused call's size. The dict and the
+    slots are row views of one [52, 2T] buffer."""
+    p, attrs, mvp = front_inputs(T, T + 5, cuda_device)
+    n, c = attrs[:, :3].contiguous(), attrs[:, 3:6].contiguous()
+    src = R.positions_to_pos9(p) if pos9 else p
+    n0 = (RCL.launches, RCL.launches_slots, RCL.launches_table)
+    got_ch, got = RCL.clip_screen_slots(src, n, c, mvp, 36, 96, pos9=pos9)
+    assert (RCL.launches, RCL.launches_slots, RCL.launches_table) == (
+        n0[0] + 1, n0[1] + 1, n0[2])
+    want_ch, want = RCL.clip_screen_slots_ref(src, n, c, mvp, 36, 96,
+                                              pos9=pos9)
+    _same_dict(got_ch, want_ch)
+    base = got_ch["xa"].untyped_storage().data_ptr()
+    for s in range(3):
+        for j in range(9):
+            _same_bits(got[s][j], want[s][j])
+            assert got[s][j].untyped_storage().data_ptr() == base
+    if T >= 300:
+        assert {0, 1, 2, 3} <= set(want_ch["n_in"].tolist())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_attrs", [9, 6])
 @pytest.mark.parametrize("form,T,v_cap", [
     ("uncompacted", 256, None), ("uncompacted", 300, None),
@@ -353,7 +383,8 @@ def test_front_kernels_frames_equal_plain(cuda_device, monkeypatch, method,
     """render_soup's frames through X4, X3 and X9 equal the same frames
     with the plain versions in their place, bit for bit. The binned walk's
     frame takes its clip, setup and table from one launch of X4's table
-    form and launches no X3."""
+    form and launches no X3; the fused frame its clip and attribute slots
+    from one launch of X4's slots form, and no fma32."""
     from ascii_renderer_tpu_torch.core.camera import Camera
     from ascii_renderer_tpu_torch.tools.xla_inputs import FRONT_CAM
     p, attrs, _mvp = front_inputs(600, 4, cuda_device)
@@ -366,20 +397,64 @@ def test_front_kernels_frames_equal_plain(cuda_device, monkeypatch, method,
         return R.render_soup(p, n, c, scene, cam, 36, 96, 0.5,
                              method=method, v_cap=v_cap, big_cap=512)
 
-    n0 = (RCL.launches, RCL.launches_table, PT.launches, BE.launches)
+    n0 = (RCL.launches, RCL.launches_table, PT.launches, BE.launches,
+          RCL.launches_slots, KFP.launches)
     got = frame()
     table_form = method == "scatter" and v_cap is None
     assert RCL.launches == n0[0] + 1
     assert RCL.launches_table == n0[1] + table_form
     assert PT.launches == n0[2] + (method != "fused" and not table_form)
     assert BE.launches == n0[3] + (method == "scatter")
+    assert RCL.launches_slots == n0[4] + (method == "fused")
+    if method == "fused":
+        assert KFP.launches == n0[5]
     monkeypatch.setattr(RCL, "clip_screen", RCL.clip_screen_ref)
     monkeypatch.setattr(RCL, "clip_screen_table", RCL.clip_screen_table_ref)
+    monkeypatch.setattr(RCL, "clip_screen_slots", RCL.clip_screen_slots_ref)
     monkeypatch.setattr(PT, "plane_table", PT.plane_table_ref)
     monkeypatch.setattr(RCH, "binned_entries", BE.binned_entries_ref)
     _same_bits(got, frame())
     assert (got.amax(-1) > 0).sum() > 200
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1000, 5000])
+def test_subtile2_frame_through_b2_equals_plain(cuda_device, monkeypatch, T):
+    """Generation 2's frame takes its setup from one B2 launch and its
+    pack from one B7 launch over B2's rows (no fma32), and equals the same
+    frame with B2 and the pack in their plain versions, bit for bit, its
+    diag counts too (T = 1,000 and 5,000: B2 pads to 1,024 and 5,120)."""
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.ops import pack as PK
+    from ascii_renderer_tpu_torch.ops import setup2dh as S
+    rng = np.random.default_rng(T)
+    p = torch.from_numpy(rng.uniform(-2, 2, (3 * T, 3)).astype(
+        np.float32)).to(cuda_device)
+    n = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
+        size=(3 * T, 3)).astype(np.float32)), dim=1).to(cuda_device)
+    c = torch.from_numpy(rng.uniform(0.2, 1.0, (3 * T, 3)).astype(
+        np.float32)).to(cuda_device)
+    scene = shade_builder(TSB, True, 2).build(device=cuda_device)
+    cam = Camera.create(pos=(2.5, 1.5, 3.0), yaw=-2.3, pitch=-0.3)
+    caps = dict(v_cap=16384, big_cap=1024, r_cap=65536,
+                pair_cap=8 * T + 1024 * 48 * 8)
+
+    def frame():
+        return R.render_soup_diag(p, n, c, scene, cam, 48, 96, 0.5,
+                                  kernel="subtile2", **caps)
+
+    n0 = (S.launches, PK.launches_channels, KFP.launches)
+    got, diag = frame()
+    assert (S.launches, PK.launches_channels, KFP.launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2])
+    monkeypatch.setattr(S, "setup_2dh_fused", S.setup_2dh_fused_ref)
+    monkeypatch.setattr(RO, "pack_channels", PK.pack_channels_ref)
+    want, want_diag = frame()
+    _same_bits(got, want)
+    assert {k: int(v) for k, v in diag.items()} == {
+        k: int(v) for k, v in want_diag.items()}
+    assert (got.amax(-1) > 0).sum() > 500
 
 
 # --------------------------------------------------------------------------
