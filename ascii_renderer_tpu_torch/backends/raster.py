@@ -227,13 +227,12 @@ def shade_groups(e, xl, yl, table, scene: SceneData, n_attrs: int):
     """Deferred shading over grouped walk output: e f32 [grp_cap, 8, 128]
     winner ids (-1 = bg), xl/yl f32 [grp_cap, 128] pixel-origin lanes,
     table [N, W] per-triangle shade planes. Returns rgb f32
-    [grp_cap, 8, 128, 3] (``ops/raster_shade``: one launch on a CUDA
-    device)."""
-    px = xl[:, None, :]
-    py = (yl[:, None, :]
-          + (torch.arange(TILE_H, dtype=torch.float32, device=e.device)
-             + 0.5)[None, :, None])
-    return RSH.shade(table, e, px, py, scene, n_attrs)
+    [grp_cap, 8, 128, 3]: K2's grouped form (``ops/raster_shade.shade``,
+    one launch on a CUDA device). ``render_soup_diag`` shades through K2's
+    image form instead (``ops/raster_shade.shade_image``: on a CUDA device
+    the shade and the image's assembly in one launch; on the CPU its plain
+    version, this chain over the groups, then ``assemble_group_image``)."""
+    return RSH.shade(table, e, *RSH.group_centres(xl, yl), scene, n_attrs)
 
 
 def suggest_caps_grouped(n_valid: int, n_big: int, n_rows: int,
@@ -293,10 +292,11 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     'subtile4', which has no row layout), n_pairs <= pair_cap and
     n_tiles_nz <= tile_cap (the BIN capacity; grp_cap = tile_cap // 8);
     otherwise work was dropped and the caller re-renders with
-    ``suggest_caps_grouped`` caps. emit='idx' quantizes to ramp indices in
-    group layout and assembles (idx i32 [rows, cols], rgb8 u8 [rows, cols,
-    3]) instead — bit-identical to quantizing the assembled image
-    (assembly is a permutation)."""
+    ``suggest_caps_grouped`` caps. emit='idx' returns (idx i32 [rows,
+    cols], rgb8 u8 [rows, cols, 3]) instead, the image's rgb quantized a
+    pixel at a time (``image_emit``): bit-identical to quantizing in group
+    layout and assembling (assembly is a permutation, its fill 0.0
+    quantizes to 0)."""
     banded = band_rows is not None
     if banded:
         row_lo = 0 if row_lo is None else int(row_lo)
@@ -366,38 +366,44 @@ def render_soup_diag(positions, normals, colors, scene: SceneData,
     with stage("raster.keys"):  # X9's bin keys on a CUDA device
         keys, offsets, counts = BE.pair_keys_bbox(bbox, rows, cols,
                                                   big_cap=big_cap, **band_kw)
-    e, xl, yl, gbins, n_rows, n_pairs, n_used = _grouped_walk(
+    e, xl, yl, gbins, ginv, n_rows, n_pairs, n_used = _grouped_walk(
         kernel, src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap,
         ty_lo * TILE_H, offsets)
+    # K2's image form: on a CUDA device the shade and the image's assembly
+    # in one launch (e, ginv), so raster.assemble launches nothing; on the
+    # CPU its plain version, the shade over the groups (e, xl, yl), then the
+    # assembly (gbins)
     with stage("raster.shade"):
-        rgbg = shade_groups(e, xl, yl, table, scene, A)
+        rgb = RSH.shade_image(table, e, xl, yl, gbins, ginv, scene, A,
+                              tiles_x, out_rows, cols, ty_lo * TILE_H)
     with stage("raster.assemble"):
         _n_small, n_big = count_big_small_bbox(bbox, rows, cols,
                                                counts=counts, **band_kw)
         diag = {"n_valid": counts[3],
                 "n_big": n_big, "n_rows": n_rows, "n_pairs": n_pairs,
                 "n_tiles_nz": n_used}
-        if emit == "idx":
-            # empty-ramp fallback: glyph_from_index's ramp_codes
-            ramp_len = ramp_len if ramp_len > 0 else len(Q.DEFAULT_RAMP)
-            rgb8g = Q.float_rgb_to_u8(rgbg)            # [grp, 8, 128, 3]
-            bidx = Q.quantize_index(rgb8g, ramp_len)   # [grp, 8, 128]
-            idx_img = RG.assemble_group_image(bidx, gbins, n_tiles, tiles_y,
-                                              tiles_x, out_rows, cols, 0)
-            rgb8_img = RG.assemble_group_image(rgb8g, gbins, n_tiles,
-                                               tiles_y, tiles_x, out_rows,
-                                               cols, 0)
-            return (idx_img, rgb8_img), diag
-        rgb = RG.assemble_group_image(rgbg, gbins, n_tiles, tiles_y, tiles_x,
-                                      out_rows, cols, 0.0)
-    return rgb, diag
+        return image_emit(rgb, emit, ramp_len), diag
+
+
+def image_emit(rgb, emit: str, ramp_len: int):
+    """The image form's output for ``emit``: rgb itself, or for 'idx'
+    (idx i32, rgb8 u8) quantized a pixel at a time; the same as quantizing
+    the groups and assembling both (assembly is a permutation, and its fill
+    0.0 quantizes to the fill 0 of both planes)."""
+    if emit != "idx":
+        return rgb
+    # empty-ramp fallback: glyph_from_index's ramp_codes
+    ramp_len = ramp_len if ramp_len > 0 else len(Q.DEFAULT_RAMP)
+    rgb8 = Q.float_rgb_to_u8(rgb)
+    return Q.quantize_index(rgb8, ramp_len), rgb8
 
 
 def _grouped_walk(kernel: str, src, keys, tiles_x: int, n_tiles: int,
                   r_cap: int, pair_cap: int, grp_cap: int, y_off: int = 0,
                   offsets=None):
     """Layout build and walk of grouped generation ``kernel`` -> (winner
-    ids e f32 [grp_cap, 8, 128], xl, yl, gbins, n_rows, n_pairs, n_used).
+    ids e f32 [grp_cap, 8, 128], xl, yl, gbins, ginv i32 [n_tiles*8]: each
+    bin's place among the groups' slots, n_rows, n_pairs, n_used).
     ``y_off``: a row band's first pixel row. Its bins, and so the lanes'
     pixel origins, are band-local, while the setup planes are in global
     screen coordinates: the build shifts yl to global rows. ``offsets``:
@@ -407,8 +413,8 @@ def _grouped_walk(kernel: str, src, keys, tiles_x: int, n_tiles: int,
         lay = gen.build(src, keys, tiles_x, n_tiles, r_cap, pair_cap,
                         grp_cap, offsets=offsets, y_off=y_off)
     with stage("raster.walk"):
-        _z, e = gen.walk(*lay[:-4], grp_cap)
-    return (e, *lay[-6:])
+        _z, e = gen.walk(*lay[:-5], grp_cap)
+    return (e, *lay[-7:-4], lay[-1], *lay[-4:-1])
 
 
 def suggest_caps(n_valid: int, n_big: int):

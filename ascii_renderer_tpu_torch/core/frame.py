@@ -35,16 +35,19 @@ class Frame:
 
     @staticmethod
     def from_float(rgb: torch.Tensor, a: torch.Tensor | None = None,
-                   overrides=None) -> "Frame":
+                   overrides=None, ui=None) -> "Frame":
         """Build from linear [0,1] float RGB with GL UNORM byte conversion;
         ``a`` may be a uint8 alpha plane or None (=1); ``overrides``, a UI
         plane (chars u8, mask bool), is burnt in as ``with_overrides``
-        burns it. Any leading shape (a batch of views [V, H, W, 3] too).
-        On a CUDA tensor one launch of the kernel of ``ops/frame_bytes``
-        (X12a), on the CPU its plain version (the torch chain)."""
+        burns it, or ``ui``, the frame step's UI layer by value
+        (``sim/ui.UiParams``), drawn and burnt in. Any leading shape (a
+        batch of views [V, H, W, 3] too; one frame with ``ui``). On a CUDA
+        tensor one launch of the kernel of ``ops/frame_bytes`` (X12a; its
+        UI form with ``ui``), on the CPU its plain version (the torch
+        chain, ``with_overrides``' route)."""
         from ascii_renderer_tpu_torch.ops.frame_bytes import frame_bytes
         chars, mask = overrides if overrides is not None else (None, None)
-        return Frame(*frame_bytes(rgb, a, chars, mask))
+        return Frame(*frame_bytes(rgb, a, chars, mask, ui=ui))
 
     def with_overrides(self, chars: torch.Tensor, mask: torch.Tensor) -> "Frame":
         """Burn a char plane into the frame where ``mask`` is set: RGB <- black,

@@ -46,6 +46,7 @@ _U = ctypes.c_uint
 _FP = ctypes.POINTER(ctypes.c_float)
 _LL = ctypes.c_longlong
 _LLP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points in csrc/*.cu (all return cudaError_t).
 SIGNATURES = {
     # (pos9, attrs_t, mvp16_host, out, T, Tp, A, rows, cols, stream)
@@ -89,6 +90,12 @@ SIGNATURES = {
     #  n_pt, pt_pos, pt_col, n_pl, out, n, stream)
     "raster_shade_launch": (_P, _LL, _I, _I, _P, _I, _P, _P, _LLP, _I, _P,
                             _P, _P, _P, _P, _P, _P, _P, _I, _P, _LL, _P),
+    # (table, row_stride, table_rows, vec, e, ginv, n_slots, n_bins,
+    #  tiles_x, y_off, rows, cols, n_attrs, env_color, env_intensity, n_dl,
+    #  dl_dir, dl_col, n_pt, pt_pos, pt_col, n_pl, out, stream)
+    "raster_shade_image_launch": (_P, _LL, _I, _I, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _P, _P),
     # (cam, rd3, grid_views, grid_one12_host, rows, cols, row_lo, sx, sy,
     #  aspect, out, views, rays, sph_pos, sph_rad, sph_valid, sph_mat,
     #  n_sph, pln_n, pln_d, pln_valid, pln_mat, n_pln, tri_a, tri_e1,
@@ -125,9 +132,9 @@ SIGNATURES = {
                            _P, _P, _P, _P, _LL, _I, _I, _P, _P),
     # (src32, src_stride, keys, P, offsets, p_eff, n_bins, tiles_x, k,
     #  rows256, r_cap, grp_cap, y_off, ws, rows, rowptr, gdepth, gskip, xl,
-    #  yl, gbins, counts, stream)
+    #  yl, gbins, counts, ginv, stream)
     "group_build_launch": (_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                           _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (pix_uid, fet0, out, pc, samples, per, n_out, rows, cols, uid0,
@@ -147,8 +154,9 @@ SIGNATURES = {
     "glyph_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P),
     # (rgb, alpha, ui_chars, ui_mask, rgb_out, a_out, n, W, row_stride,
-    #  stream)
-    "frame_bytes_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    #  ui_vals_host, pi, stream)
+    "frame_bytes_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _IP, _P,
+                           _P),
     # (data, offsets, z, tid, part, n_slots, n_tiles, tiles_x, n_entries,
     #  mm, stream)
     "bins_walk_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -24,7 +24,11 @@
 //                      compare;
 //                      only the last bucket's bins are ranked by depth
 //                      among themselves; each empty bin is placed after
-//                      them all by its rank among the empty ones;
+//                      them all by its rank among the empty ones; each
+//                      bin's place is also stored, ginv[b] (the inverse
+//                      of the order over every bin, the places from 8
+//                      grp_cap on, whose bins are dropped, included: K2's
+//                      image form reads it);
 //                      slots: a thread a group slot, its bin (sentinel
 //                      n_bins, depth 0 past the bins), depth, skip and
 //                      K-aligned K-row start; its group's rows (the deepest
@@ -159,7 +163,7 @@ group_build_layout_kernel(const int* __restrict__ off, int n_bins, int p_eff,
                           int* __restrict__ gdepth, int* __restrict__ gskip,
                           int* __restrict__ offr, int* __restrict__ rowptr_u,
                           int* __restrict__ rowptr, int* __restrict__ kgrp,
-                          int* __restrict__ counts) {
+                          int* __restrict__ counts, int* __restrict__ ginv) {
   constexpr int kLog = log2_of(K);
   extern __shared__ __align__(16) int sm[];
   const int n_chunks = (n_bins + 31) / 32;
@@ -285,6 +289,7 @@ group_build_layout_kernel(const int* __restrict__ off, int n_bins, int p_eff,
       const int u = start[b] + cnt[b * kRow + warp] + (bk[it] >> 11);
       if (b < kBuckets - 1) {
         if (u < n_perm) perm[u] = g;
+        ginv[g] = u;
       } else {  // the last bucket starts at 0
         big[u] = g;
         bigd[u] = offs[g + 1] - offs[g];
@@ -293,6 +298,7 @@ group_build_layout_kernel(const int* __restrict__ off, int n_bins, int p_eff,
       const int e =
           n_used + g - pre[c] - __popc((unsigned)mask[c] & below);
       if (e < n_perm) perm[e] = g;
+      ginv[g] = e;
     }
   }
   __syncthreads();
@@ -306,7 +312,10 @@ group_build_layout_kernel(const int* __restrict__ off, int n_bins, int p_eff,
         r += dq > d || (dq == d && q < u);
       }
       r = __reduce_add_sync(kFull, r);
-      if (lane == 0 && r < n_perm) perm[r] = big[u];
+      if (lane == 0) {
+        if (r < n_perm) perm[r] = big[u];
+        ginv[big[u]] = r;
+      }
     }
     __syncthreads();
   }
@@ -450,7 +459,7 @@ int launch_layout_gather(const float* src32, long long src_stride,
                          float y_off, int* offr, int* rowptr_u,
                          int* kgrp, float* rows, int* rowptr, int* gdepth,
                          int* gskip, float* xl, float* yl, int* gbins,
-                         int* counts, cudaStream_t s) {
+                         int* counts, int* ginv, cudaStream_t s) {
   const int smem = (int)sizeof(int) * layout_smem_ints(n_bins);
   static int smem_set = 0;  // the largest dynamic smem asked for so far
   if (smem > 48 * 1024 && smem > smem_set) {
@@ -462,7 +471,7 @@ int launch_layout_gather(const float* src32, long long src_stride,
   }
   group_build_layout_kernel<K, kRows256><<<1, kThreadsL, smem, s>>>(
       off, n_bins, p_eff, r_cap, grp_cap, gbins, gdepth, gskip, offr,
-      rowptr_u, rowptr, kgrp, counts);
+      rowptr_u, rowptr, kgrp, counts, ginv);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   long long n = (long long)r_cap * kNSub * 4;
@@ -484,8 +493,9 @@ int launch_layout_gather(const float* src32, long long src_stride,
 // the unclamped row pointers, each K-row's group); rows: f32 rows128 [r_cap,
 // 128] or rows256 [r_cap / 2, 256] (16-byte aligned); rowptr: i32
 // [grp_cap + 1]; gdepth, gskip, gbins: i32 [8 grp_cap]; xl, yl: f32
-// [grp_cap, 128]; counts: i32 [3] n_rows, n_pairs, n_used. Two launches
-// (three without offsets).
+// [grp_cap, 128]; counts: i32 [3] n_rows, n_pairs, n_used; ginv: i32
+// [n_bins] each bin's place in the depth order. Two launches (three without
+// offsets).
 extern "C" int group_build_launch(const float* src32, long long src_stride,
                                   const int* keys, long long P,
                                   const int* offsets, int p_eff, int n_bins,
@@ -493,7 +503,8 @@ extern "C" int group_build_launch(const float* src32, long long src_stride,
                                   int grp_cap, float y_off, int* ws,
                                   float* rows, int* rowptr, int* gdepth,
                                   int* gskip, float* xl, float* yl,
-                                  int* gbins, int* counts, void* stream) {
+                                  int* gbins, int* counts, int* ginv,
+                                  void* stream) {
   if (P < 1 || p_eff < 1 || p_eff > P || n_bins < 1 ||
       n_bins >= (1 << 13) || grp_cap < 1 || r_cap < kChunkRG ||
       r_cap % kChunkRG ||
@@ -517,7 +528,7 @@ extern "C" int group_build_launch(const float* src32, long long src_stride,
   return launch_layout_gather<KK, R256>(                                     \
       src32, src_stride, keys, offsets, p_eff, n_bins, tiles_x, r_cap,       \
       grp_cap, y_off, offr, rowptr_u, kgrp, rows, rowptr, gdepth, gskip, xl, \
-      yl, gbins, counts, s)
+      yl, gbins, counts, ginv, s)
   if (rows256) {
     if (k == 2) GB_LAUNCH(2, true);
     GB_LAUNCH(4, true);

@@ -15,10 +15,19 @@
 // lighting of ascii_renderer_tpu/backends/raster_common.py:73
 // (_shade_rows), which XLA fuses into the frame's program. On CUDA tensors
 // the plain version is ~17 fma32 launches and ~60 other elementwise
-// launches over every pixel; this is one launch. Every caller goes through
-// it: the headline's grouped tiles (raster.shade_groups), the mid-scale
-// plane table (raster_common.shade_from_table) and the retired generations'
-// compacted tiles (raster_oracles.shade_tiles_compact).
+// launches over every pixel; this is one launch. It takes the grouped
+// tiles (raster.shade_groups), the mid-scale plane table
+// (raster_common.shade_from_table) and the retired generations' compacted
+// tiles (raster_oracles.shade_tiles_compact).
+//
+// Its image form (raster_shade_image_kernel) also stands for the assembly
+// of the grouped tiles into the image (ascii_renderer_tpu/ops/
+// raster_group.py:1284, assemble_group_image, with the lane centres of
+// backends/raster.py:624-646): a thread a pixel of the image, its bin's
+// place in the depth order read from X10's inverse (ginv), the walk's
+// winner id at that place, the same per-pixel chain at the pixel's centre.
+// The grouped render paths' shade and assembly are then one launch, where
+// the grouped form and the torch assembly were 13 at the headline.
 //
 // What bounds it on the H100: bytes at the roofline (ids, centres, the
 // rows the lit pixels pick, rgb); in practice the latency of each lit
@@ -241,6 +250,49 @@ raster_shade_kernel(const float* __restrict__ table, long long row_stride,
   o[2] = rgb[2];
 }
 
+// K2's image form: a thread a pixel (r, c) of the image [rows, cols, 3].
+// Its bin is tile (r / 8) * tiles_x + c / 128, sub-bin (c % 128) / 16 (the
+// band's rows: r is band-local); ginv[bin] its place among the grouped walk's
+// slots; a place from n_slots on (a bin no group covers) is the fill, 0;
+// else the winner id is e[place / 8, r % 8, (place % 8) * 16 + c % 16] and
+// the pixel is shaded at (c + 0.5, y_off + r + 0.5), the values the lane
+// origins xl and yl + s + 0.5 hold (small integers and halves: exact in
+// float32).
+template <int A, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+raster_shade_image_kernel(const float* __restrict__ table,
+                          long long row_stride, int table_rows,
+                          const float* __restrict__ e,
+                          const int* __restrict__ ginv, int n_slots,
+                          int tiles_x, int y_off, Div div_cols, int cols,
+                          Scene sc, float* __restrict__ out, unsigned n) {
+  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const unsigned r = divq(i, div_cols);
+  const unsigned c = i - r * (unsigned)cols;
+  const int bin = (int)(((r >> 3) * (unsigned)tiles_x + (c >> 7)) * 8u +
+                        ((c & 127u) >> 4));
+  const int place = __ldg(ginv + bin);
+  float rgb[3] = {0.0f, 0.0f, 0.0f};
+  if (place < n_slots) {
+    const float id = __ldg(e + ((long long)(place >> 3) << 10) +
+                           ((r & 7u) << 7) + ((place & 7) << 4) + (c & 15u));
+    if (id >= 0.0f) {
+      const long long row = (long long)id;
+      if (row >= table_rows)  // an id past the table: no colour to give
+        rgb[0] = rgb[1] = rgb[2] = __int_as_float(0x7fffffff);
+      else
+        shade_row<A, kVec>(table + row * row_stride, (float)c + 0.5f,
+                           (float)((int)r + y_off) + 0.5f, load_lights(sc),
+                           sc, rgb);
+    }
+  }
+  float* o = out + 3ull * i;
+  o[0] = rgb[0];
+  o[1] = rgb[1];
+  o[2] = rgb[2];
+}
+
 template <bool kF32Ids, int A, bool kVec>
 int launch(const float* table, long long row_stride, int table_rows,
            const void* ids, const float* px, const float* py, const Geom& g,
@@ -299,4 +351,43 @@ extern "C" int raster_shade_launch(
   if (vec) RS_LAUNCH(false, 9, true);
   RS_LAUNCH(false, 9, false);
 #undef RS_LAUNCH
+}
+
+// K2's image form. table, vec, the scene: as raster_shade_launch; e: device
+// f32 [n_slots / 8, 8, 128] the grouped walk's winner ids; ginv: device i32
+// [n_bins] each bin's place (X10's); out: device floats [rows, cols, 3];
+// rows x cols inside the n_bins / 8 tiles, tiles_x a row; y_off: the band's
+// first pixel row.
+extern "C" int raster_shade_image_launch(
+    const float* table, long long row_stride, int table_rows, int vec,
+    const float* e, const int* ginv, int n_slots, int n_bins, int tiles_x,
+    int y_off, int rows, int cols, int n_attrs, const float* env_color,
+    const float* env_intensity, const int* n_dl, const float* dl_dir,
+    const float* dl_col, const int* n_pt, const float* pt_pos,
+    const float* pt_col, int n_pl, float* out, void* stream) {
+  if (rows < 1 || cols < 1 || (long long)rows * cols >= (1LL << 31) ||
+      tiles_x < 1 || n_bins < 8 || n_bins % (8 * tiles_x) ||
+      (long long)tiles_x * 128 < cols ||
+      (long long)(n_bins / (8 * tiles_x)) * 8 < rows || n_slots < 8 ||
+      n_slots % 8 || (n_attrs != 6 && n_attrs != 9) || n_pl < 0 ||
+      (n_attrs == 6 && n_pl > 0) || table_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const unsigned n = (unsigned)rows * (unsigned)cols;
+  const Div dc = make_div((unsigned)cols);
+  const Scene sc{env_color, env_intensity, n_dl, dl_dir, dl_col, n_pt,
+                 pt_pos, pt_col, n_pl};
+  const unsigned blocks = (n + kThreads - 1) / kThreads;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define RSI_LAUNCH(A, V)                                                     \
+  raster_shade_image_kernel<A, V><<<blocks, kThreads, 0, s>>>(              \
+      table, row_stride, table_rows, e, ginv, n_slots, tiles_x, y_off, dc, \
+      cols, sc, out, n);                                                    \
+  return (int)cudaGetLastError()
+  if (n_attrs == 6) {
+    if (vec) { RSI_LAUNCH(6, true); }
+    RSI_LAUNCH(6, false);
+  }
+  if (vec) { RSI_LAUNCH(9, true); }
+  RSI_LAUNCH(9, false);
+#undef RSI_LAUNCH
 }

@@ -14,10 +14,10 @@ CUDA tensors the chain is some 87 launches at the headline;
 them beside the keys): one block for the depth order (the nonempty bins
 compacted by ballots and counted into depth buckets, each placed by its
 bucket's start and the bins of its bucket ahead of it; the empty ones
-after them), a thread a slot for the slots, skips and row pointers, and
+after them; each bin's place in that order, ``ginv``, which K2's image
+form reads), a thread a slot for the slots, skips and row pointers, and
 each used K-row's group; four lanes a (row, slot) gathering its pair's 16
-channels
-straight into the layout, the K-row relayout folded into the store's
+channels straight into the layout, the K-row relayout folded into the store's
 address, and the lanes' pixel origins.
 It serves the rows128 layout (subtile3: K = 1; subtile7 / subtile8: K =
 4 / 8) and rows256 (subtile5 / subtile6: K = 2 / 4), ``LAYOUTS``;
@@ -81,13 +81,23 @@ def _pixel_origins(gbins, tiles_x: int, n_bins: int, grp_cap: int):
     return xl, yl
 
 
+def group_inverse(binperm: torch.Tensor) -> torch.Tensor:
+    """ginv i32 [n_bins]: each bin's place in the depth order ``binperm``
+    [n_bins] (every bin's, the places from grp_cap*8 on included)."""
+    ginv = torch.empty_like(binperm)
+    ginv[binperm.long()] = torch.arange(binperm.shape[0], dtype=binperm.dtype,
+                                        device=binperm.device)
+    return ginv
+
+
 def _group_bins(pair_key: torch.Tensor, n_tiles: int, pair_cap: int,
                 grp_cap: int):
     """Sorted pair keys ``bin << SUB_SHIFT | tri`` -> (tri_s, p_eff,
-    offsets [n_bins+1], gbins, gdepth [grp_cap*8], n_pairs, n_used): the
-    CSR offsets of the first p_eff = min(pair_cap, P) pairs and the bins
-    in depth-group order, sentinel-padded (bin n_bins, depth 0) when there
-    are more group slots than bins. Bins past grp_cap*8 (the shallowest)
+    offsets [n_bins+1], gbins, gdepth [grp_cap*8], n_pairs, n_used, ginv
+    [n_bins]): the CSR offsets of the first p_eff = min(pair_cap, P) pairs
+    and the bins in depth-group order, sentinel-padded (bin n_bins, depth
+    0) when there are more group slots than bins, and each bin's place in
+    that order (``group_inverse``). Bins past grp_cap*8 (the shallowest)
     are dropped; n_used > grp_cap*8 reports it."""
     n_bins = n_tiles * N_SUB
     assert n_bins < (1 << 13)  # sentinel key (n_bins << 18) must fit int32
@@ -99,13 +109,14 @@ def _group_bins(pair_key: torch.Tensor, n_tiles: int, pair_cap: int,
     depth_bins = offsets[1:] - offsets[:-1]
     n_used = (depth_bins > 0).sum(dtype=torch.int32)
     binperm, dsorted = depth_group_order(depth_bins, n_bins)
+    ginv = group_inverse(binperm)
     nsel = grp_cap * N_SUB
     if nsel > n_bins:  # more group slots than bins: sentinel-pad
         pad = nsel - n_bins
         binperm = torch.cat([binperm, binperm.new_full((pad,), n_bins)])
         dsorted = torch.cat([dsorted, dsorted.new_zeros((pad,))])
     return (tri_s, p_eff, offsets, binperm[:nsel], dsorted[:nsel], n_pairs,
-            n_used)
+            n_used, ginv)
 
 
 def _slot_gather(src32, pair_key, tiles_x: int, n_tiles: int, r_cap: int,
@@ -115,12 +126,13 @@ def _slot_gather(src32, pair_key, tiles_x: int, n_tiles: int, r_cap: int,
     16-channel source. Returns (g f32 [r_cap/k*8, k*16] (gathered row q of
     group slot s at q*8 + s), rowptr [grp_cap+1] in entries (CHUNK_RG
     multiples, clamped to r_cap), gdepth, gskip, xl, yl, gbins, n_rows,
-    n_pairs, n_used) with n_rows the true entry-row total (vs r_cap)."""
+    n_pairs, n_used, ginv) with n_rows the true entry-row total (vs
+    r_cap)."""
     assert k in (1, 2, 4, 8) and CHUNK_RG % k == 0 and r_cap % CHUNK_RG == 0
     dev = pair_key.device
     n_bins = n_tiles * N_SUB
-    tri_s, p_eff, offsets, gbins, gdepth, n_pairs, n_used = _group_bins(
-        pair_key, n_tiles, pair_cap, grp_cap)
+    tri_s, p_eff, offsets, gbins, gdepth, n_pairs, n_used, ginv = \
+        _group_bins(pair_key, n_tiles, pair_cap, grp_cap)
     # a sentinel slot (depth 0, never live) reads bin n_bins's offset; the
     # single-entry layout's reference gathers from offsets[:n_bins], which
     # clamps it to the last bin
@@ -153,7 +165,7 @@ def _slot_gather(src32, pair_key, tiles_x: int, n_tiles: int, r_cap: int,
     g = srckk[pidx.long()]                              # [r_cap/k*8, k*16]
     xl, yl = _pixel_origins(gbins, tiles_x, n_bins, grp_cap)
     return (g, torch.clamp(rowptr, max=r_cap), gdepth, gskip, xl, yl, gbins,
-            n_rows, n_pairs, n_used)
+            n_rows, n_pairs, n_used, ginv)
 
 
 def build_packed_rows_grouped(src32: torch.Tensor, pair_key: torch.Tensor,
@@ -169,11 +181,8 @@ def build_packed_rows_grouped(src32: torch.Tensor, pair_key: torch.Tensor,
     tensors: n_rows = true row total (vs r_cap), n_pairs = true pair count
     (vs pair_cap), n_used = nonempty bins (vs grp_cap*8). A count over its
     cap means work was dropped and the caller must re-render."""
-    g, rowptr, gdepth, _gskip, xl, yl, gbins, n_rows, n_pairs, n_used = \
-        _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
-                     grp_cap, 1)
-    return (g.view(r_cap, N_SUB * N_CHAN), rowptr, gdepth, xl, yl, gbins,
-            n_rows, n_pairs, n_used)
+    return build_rows_ref(src32, pair_key, tiles_x, n_tiles, r_cap,
+                          pair_cap, grp_cap, k=1)[:-1]
 
 
 def build_packed_rows_grouped_kgather(src32: torch.Tensor,
@@ -190,22 +199,8 @@ def build_packed_rows_grouped_kgather(src32: torch.Tensor,
     gbins [grp_cap*8], n_rows, n_pairs, n_used), as
     ``build_packed_rows_grouped`` plus gskip."""
     assert k in (2, 4, 8)
-    g, *rest = _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap,
-                            pair_cap, grp_cap, k)
-    # K-row q, sub-entry p, slot s -> row q*k+p, slot s
-    rows128 = (g.view(r_cap // k, N_SUB, k, N_CHAN).transpose(1, 2)
-               .reshape(r_cap, N_SUB * N_CHAN))
-    return (rows128, *rest)
-
-
-def _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
-                   grp_cap, k):
-    g, rowptr, *rest = _slot_gather(src32, pair_key, tiles_x, n_tiles, r_cap,
-                                    pair_cap, grp_cap, k)
-    # K4 row q, half p, slot s -> K2 row 2q+p, slot s (K2: the identity)
-    rows256 = (g.view(r_cap // k, N_SUB, k // 2, 2 * N_CHAN).transpose(1, 2)
-               .reshape(r_cap // 2, N_SUB * 2 * N_CHAN))
-    return (rows256, rowptr // 2, *rest)
+    return build_rows_ref(src32, pair_key, tiles_x, n_tiles, r_cap,
+                          pair_cap, grp_cap, k=k)[:-1]
 
 
 def build_packed_rows_grouped_k2(src32: torch.Tensor, pair_key: torch.Tensor,
@@ -219,8 +214,8 @@ def build_packed_rows_grouped_k2(src32: torch.Tensor, pair_key: torch.Tensor,
     (CHUNK_RG/2 multiples), gdepth, gskip [grp_cap*8], xl, yl, gbins,
     n_rows, n_pairs, n_used) with n_rows in ENTRY units, compared against
     the same r_cap as the single-entry walk."""
-    return _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
-                          grp_cap, 2)
+    return build_rows_ref(src32, pair_key, tiles_x, n_tiles, r_cap,
+                          pair_cap, grp_cap, k=2, rows256=True)[:-1]
 
 
 def build_packed_rows_grouped_k4(src32: torch.Tensor, pair_key: torch.Tensor,
@@ -229,8 +224,8 @@ def build_packed_rows_grouped_k4(src32: torch.Tensor, pair_key: torch.Tensor,
     """Four entries per gathered row relaid to the K2 row format by one
     permutation (subtile6): gskip in [0, 3]. Same tuple as
     ``build_packed_rows_grouped_k2``."""
-    return _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap,
-                          grp_cap, 4)
+    return build_rows_ref(src32, pair_key, tiles_x, n_tiles, r_cap,
+                          pair_cap, grp_cap, k=4, rows256=True)[:-1]
 
 
 def build_groups_direct(src32: torch.Tensor, pair_key: torch.Tensor,
@@ -246,9 +241,17 @@ def build_groups_direct(src32: torch.Tensor, pair_key: torch.Tensor,
     yl [grp_cap, 128], gbins [grp_cap*8], n_rows, n_pairs, n_used) with
     n_rows = gchunks.sum() * CHUNK_RG, the walk's slot count (there is no
     r_cap to overflow)."""
+    return groups_direct(src32, pair_key, tiles_x, n_tiles, pair_cap,
+                         grp_cap)[:-1]
+
+
+def groups_direct(src32: torch.Tensor, pair_key: torch.Tensor, tiles_x: int,
+                  n_tiles: int, pair_cap: int, grp_cap: int):
+    """``build_groups_direct``'s tuple, then ginv [n_tiles*8], each bin's
+    place in the depth order (``_group_bins``)."""
     n_bins = n_tiles * N_SUB
-    tri_s, p_eff, offsets, gbins, gdepth, n_pairs, n_used = _group_bins(
-        pair_key, n_tiles, pair_cap, grp_cap)
+    tri_s, p_eff, offsets, gbins, gdepth, n_pairs, n_used, ginv = \
+        _group_bins(pair_key, n_tiles, pair_cap, grp_cap)
     gchunks = (gdepth[0::N_SUB] + CHUNK_RG - 1) // CHUNK_RG
     n_rows = (gchunks * CHUNK_RG).sum(dtype=torch.int32)
     goff = offsets[torch.clamp(gbins, max=n_bins - 1).long()]
@@ -256,31 +259,36 @@ def build_groups_direct(src32: torch.Tensor, pair_key: torch.Tensor,
                           src32.new_zeros((CHUNK_RG, src32.shape[1]))])
     xl, yl = _pixel_origins(gbins, tiles_x, n_bins, grp_cap)
     return (src_pair, goff, gdepth, gchunks, xl, yl, gbins, n_rows, n_pairs,
-            n_used)
+            n_used, ginv)
 
 
 def build_rows_ref(src32: torch.Tensor, pair_key: torch.Tensor, tiles_x: int,
                    n_tiles: int, r_cap: int, pair_cap: int, grp_cap: int, *,
                    k: int, rows256: bool = False):
     """The plain version of ``build_rows``: the torch chain of the layout
-    K and rows256 name (``LAYOUTS``)."""
+    K and rows256 name (``LAYOUTS``), its tuple then ginv."""
+    g, rowptr, gdepth, gskip, *rest = _slot_gather(
+        src32, pair_key, tiles_x, n_tiles, r_cap, pair_cap, grp_cap, k)
     if rows256:
-        return _build_rows256(src32, pair_key, tiles_x, n_tiles, r_cap,
-                              pair_cap, grp_cap, k)
+        # K4 row q, half p, slot s -> K2 row 2q+p, slot s (K2: the identity)
+        rows = (g.view(r_cap // k, N_SUB, k // 2, 2 * N_CHAN).transpose(1, 2)
+                .reshape(r_cap // 2, N_SUB * 2 * N_CHAN))
+        return (rows, rowptr // 2, gdepth, gskip, *rest)
     if k == 1:
-        return build_packed_rows_grouped(src32, pair_key, tiles_x, n_tiles,
-                                         r_cap, pair_cap, grp_cap)
-    return build_packed_rows_grouped_kgather(src32, pair_key, tiles_x,
-                                             n_tiles, r_cap, pair_cap,
-                                             grp_cap, k)
+        return (g.view(r_cap, N_SUB * N_CHAN), rowptr, gdepth, *rest)
+    # K-row q, sub-entry p, slot s -> row q*k+p, slot s
+    rows = (g.view(r_cap // k, N_SUB, k, N_CHAN).transpose(1, 2)
+            .reshape(r_cap, N_SUB * N_CHAN))
+    return (rows, rowptr, gdepth, gskip, *rest)
 
 
 def _shift_rows(lay, y_off: int):
-    """A row band's layout: its lanes' pixel rows (yl, lay[-5]) moved to
-    global rows (exact: small integers in float32)."""
+    """A row band's layout (a tuple ending xl, yl, gbins, n_rows, n_pairs,
+    n_used, ginv): its lanes' pixel rows, yl, moved to global rows (exact:
+    small integers in float32)."""
     if not y_off:
         return lay
-    return (*lay[:-5], lay[-5] + float(y_off), *lay[-4:])
+    return (*lay[:-6], lay[-6] + float(y_off), *lay[-5:])
 
 
 def build_rows(src32: torch.Tensor, pair_key: torch.Tensor, tiles_x: int,
@@ -290,12 +298,14 @@ def build_rows(src32: torch.Tensor, pair_key: torch.Tensor, tiles_x: int,
     128], or rows256 [r_cap/2, 256]) from the sorted pair keys, with the
     tuple of ``build_packed_rows_grouped`` (K = 1),
     ``build_packed_rows_grouped_kgather`` (K = 4, 8) or
-    ``build_packed_rows_grouped_k2`` / ``_k4`` (rows256). ``offsets``: the
-    bins' offsets over all keys, i32 [n_tiles*8 + 1], as X9 leaves them
-    (computed here when None); ``y_off``: a row band's first pixel row,
-    added to yl. On the CPU the plain version; on a CUDA device two kernel
-    launches (three without offsets), bit for bit with it. The outputs are
-    views of one int32 and one float32 buffer."""
+    ``build_packed_rows_grouped_k2`` / ``_k4`` (rows256), then ginv i32
+    [n_tiles*8], each bin's place in the depth order (``group_inverse``:
+    the layout block stores it; K2's image form reads it). ``offsets``:
+    the bins' offsets over all keys, i32 [n_tiles*8 + 1], as X9 leaves
+    them (computed here when None); ``y_off``: a row band's first pixel
+    row, added to yl. On the CPU the plain version; on a CUDA device two
+    kernel launches (three without offsets), bit for bit with it. The
+    outputs are views of one int32 and one float32 buffer."""
     if (k, rows256) not in LAYOUTS.values():
         raise ValueError(f"build_rows: no layout of K = {k}, rows256 = "
                          f"{rows256}")
@@ -326,7 +336,7 @@ def build_rows(src32: torch.Tensor, pair_key: torch.Tensor, tiles_x: int,
                                 or offsets.shape != (n_bins + 1,)):
         raise ValueError(f"build_rows: offsets must be contiguous int32 "
                          f"[{n_bins + 1}]")
-    (rows, rowptr, gdepth, gskip, xl, yl, gbins, counts), ws = \
+    (rows, rowptr, gdepth, gskip, xl, yl, gbins, counts, ginv), ws = \
         layout_buffers(n_bins, r_cap, grp_cap, k, rows256, pair_key.device)
     err = _build.lib().group_build_launch(
         src32.data_ptr(), src32.stride(0), pair_key.data_ptr(), P,
@@ -334,31 +344,31 @@ def build_rows(src32: torch.Tensor, pair_key: torch.Tensor, tiles_x: int,
         tiles_x, k, int(rows256), r_cap, grp_cap, float(y_off),
         ws.data_ptr(), rows.data_ptr(), rowptr.data_ptr(), gdepth.data_ptr(),
         gskip.data_ptr(), xl.data_ptr(), yl.data_ptr(), gbins.data_ptr(),
-        counts.data_ptr(), _build.stream_ptr(pair_key.device))
+        counts.data_ptr(), ginv.data_ptr(), _build.stream_ptr(pair_key.device))
     launches += 1
     last_launches = 2 if offsets is not None else 3
     _build.check(err, "group_build_launch")
     skip = () if k == 1 and not rows256 else (gskip,)
     return (rows, rowptr, gdepth, *skip, xl, yl, gbins, counts[0],
-            counts[1], counts[2])
+            counts[1], counts[2], ginv)
 
 
 def layout_buffers(n_bins: int, r_cap: int, grp_cap: int, k: int,
                    rows256: bool, device):
     """The kernels' outputs as views of one int32 and one float32 buffer:
-    ((rows, rowptr, gdepth, gskip, xl, yl, gbins, counts), ws), ws the
-    kernels' own ints (offsets [n_bins + 1], each slot's K-row start less
-    its group's [8 grp_cap], the unclamped row pointers [grp_cap + 1], each
-    K-row's group [r_cap / k])."""
+    ((rows, rowptr, gdepth, gskip, xl, yl, gbins, counts, ginv), ws), ws
+    the kernels' own ints (offsets [n_bins + 1], each slot's K-row start
+    less its group's [8 grp_cap], the unclamped row pointers [grp_cap + 1],
+    each K-row's group [r_cap / k])."""
     ns = grp_cap * N_SUB
-    sizes = (grp_cap + 1, ns, ns, ns, 3,
+    sizes = (grp_cap + 1, ns, ns, ns, 3, n_bins,
              n_bins + 1 + ns + grp_cap + 1 + r_cap // k)
     ints = torch.empty((sum(sizes),), dtype=torch.int32, device=device)
-    rowptr, gdepth, gskip, gbins, counts, ws = ints.split(sizes)
+    rowptr, gdepth, gskip, gbins, counts, ginv, ws = ints.split(sizes)
     n_rows = r_cap * TILE_W
     floats = torch.empty((n_rows + 2 * grp_cap * TILE_W,),
                          dtype=torch.float32, device=device)
     rows = floats[:n_rows].view((r_cap // 2, 2 * TILE_W) if rows256 else
                                 (r_cap, TILE_W))
     xl, yl = floats[n_rows:].view(2, grp_cap, TILE_W).unbind(0)
-    return (rows, rowptr, gdepth, gskip, xl, yl, gbins, counts), ws
+    return (rows, rowptr, gdepth, gskip, xl, yl, gbins, counts, ginv), ws

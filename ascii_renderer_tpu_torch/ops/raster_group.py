@@ -59,7 +59,7 @@ from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops import group_build as GB
 # the layout builds and their pieces live in ops/group_build (X10)
 from ascii_renderer_tpu_torch.ops.group_build import (  # noqa: F401
-    CHUNK_RG, _bin_offsets, _build_rows256, _group_bins, _pixel_origins,
+    CHUNK_RG, _bin_offsets, _group_bins, _pixel_origins,
     _round_up_i, _slot_gather, build_groups_direct,
     build_packed_rows_grouped, build_packed_rows_grouped_k2,
     build_packed_rows_grouped_k4, build_packed_rows_grouped_kgather,
@@ -443,8 +443,10 @@ class Generation(NamedTuple):
     (``offsets``: the keys' bin offsets where X9 left them; ``y_off``: a
     row band's first pixel row, added to yl), its walk's kernel wrapper and
     that walk's plain version. Every layout tuple ends (xl, yl, gbins,
-    n_rows, n_pairs, n_used) and the walk takes all of it but the last four
-    items: ``walk(*lay[:-4], grp_cap)``."""
+    n_rows, n_pairs, n_used, ginv), ginv each bin's place in the depth
+    order (``ops/group_build``; K2's image form reads it), and the walk
+    takes all of it but the last five items: ``walk(*lay[:-5], grp_cap)``.
+    """
     build: Callable
     walk: Callable
     walk_ref: Callable
@@ -454,8 +456,8 @@ def _build_direct(src32, pair_key, tiles_x, n_tiles, _r_cap, pair_cap,
                   grp_cap, offsets=None, y_off=0):
     """subtile4's grouping, the torch chain on every device (X10 builds
     the row layouts only; the offsets are formed again here)."""
-    return GB._shift_rows(build_groups_direct(
-        src32, pair_key, tiles_x, n_tiles, pair_cap, grp_cap), y_off)
+    return GB._shift_rows(GB.groups_direct(src32, pair_key, tiles_x, n_tiles,
+                                           pair_cap, grp_cap), y_off)
 
 
 def _x10(gen: str):

@@ -5,11 +5,19 @@ re-exports).
 
 Stands for XLA code, not a Pallas kernel: the deferred-shade gather and
 lighting of ``ascii_renderer_tpu/backends/raster_common.py:73``
-(``_shade_rows``). Its three callers go through ``shade``: the headline's
-grouped tiles (``backends/raster.shade_groups``: f32 winner ids
-[grp_cap, 8, 128], pixel-origin lanes), the mid-scale plane table
+(``_shade_rows``). ``shade`` takes the grouped tiles
+(``backends/raster.shade_groups``: f32 winner ids [grp_cap, 8, 128], the
+lanes' centres ``group_centres``), the mid-scale plane table
 (``raster_common.shade_from_table``: i32 ids [rows, cols]) and the retired
 generations' compacted tiles (``raster_oracles.shade_tiles_compact``).
+
+Its image form, ``shade_image``, also stands for the assembly of the
+grouped tiles into the image (``ascii_renderer_tpu/ops/raster_group.py:1284``,
+``assemble_group_image``): every grouped render path shades through it (on
+a CUDA device the shade and the assembly in one launch, each pixel reading
+its bin's place from X10's inverse of the depth order, ``ops/group_build``
+``ginv``; on the CPU its plain version, the grouped shade over the
+layout's lanes, then the assembly).
 """
 
 from __future__ import annotations
@@ -21,10 +29,12 @@ import torch
 from ascii_renderer_tpu_torch.core.fp import fma32, rsqrt32
 from ascii_renderer_tpu_torch.ops import _build
 from ascii_renderer_tpu_torch.ops.fp import broadcast_geom, broadcast_shape
+from ascii_renderer_tpu_torch.ops.raster_subtile import N_SUB, TILE_H, TILE_W
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
-launches = 0  # kernel launches by shade
-LAUNCHES_PER_CALL = {"shade": 1}  # kernels a call launches
+launches = 0  # kernel launches by shade and shade_image
+launches_image = 0  # of them, by shade_image
+LAUNCHES_PER_CALL = {"shade": 1, "shade_image": 1}  # kernels a call launches
 MAX_DIMS = 3
 _geoms = {}  # (shapes, strides) -> the kernel's geometry, a ctypes array
 
@@ -51,24 +61,7 @@ def shade(table, ids, px, py, scene: SceneData, n_attrs: int):
                          f"{ids.dtype}")
     if (table.dtype, px.dtype, py.dtype) != (torch.float32,) * 3:
         raise ValueError("shade: expected a float32 table and centres")
-    if table.dim() != 2 or table.stride(1) != 1 or table.shape[0] < 1 or \
-            table.shape[1] < 3 * n_attrs + 3:
-        raise ValueError(f"shade: table {tuple(table.shape)} (stride "
-                         f"{table.stride()}) holds no {n_attrs}-attribute "
-                         "rows of unit column stride")
-    if scene.dl_dir.shape[0] < 1:
-        raise ValueError("shade: the scene has no directional-light slot")
-    lights = (scene.env_color, scene.env_intensity, scene.dl_dir,
-              scene.dl_col, scene.pt_pos, scene.pt_col)
-    counts = (scene.n_dl, scene.n_pt)
-    _build.require_cuda(*lights, *counts, what="shade")
-    for t in (table, ids, px, py):
-        if t.device != scene.env_color.device:
-            raise ValueError(f"shade: expected CUDA tensors on one device, "
-                             f"got {t.device}")
-    if any(t.dtype != torch.float32 for t in lights) or any(
-            t.dtype != torch.int32 for t in counts):
-        raise ValueError("shade: expected float32 lights, int32 counts")
+    scene_args = _scene_args(table, (ids, px, py), scene, n_attrs, "shade")
     out = torch.empty((*shape, 3), dtype=torch.float32, device=table.device)
     n = out.numel() // 3
     if n >= 2 ** 31:
@@ -81,21 +74,122 @@ def shade(table, ids, px, py, scene: SceneData, n_attrs: int):
             _geoms.clear()
         geom = broadcast_geom((ids, px, py), shape, MAX_DIMS)
         g = _geoms[key] = (ctypes.c_longlong * len(geom))(*geom)
-    # the rows read as float4: aligned, each row's used floats rounded up
-    # to a multiple of 4 inside the row
-    vec = int(table.stride(0) % 4 == 0 and table.data_ptr() % 16 == 0
-              and table.shape[1] >= -(-(3 * n_attrs + 3) // 4) * 4)
     err = _build.lib().raster_shade_launch(
-        table.data_ptr(), table.stride(0), table.shape[0], vec,
-        ids.data_ptr(), int(ids.dtype == torch.float32), px.data_ptr(),
-        py.data_ptr(), g, n_attrs, *(t.data_ptr() for t in lights[:2]),
-        scene.n_dl.data_ptr(), *(t.data_ptr() for t in lights[2:4]),
-        scene.n_pt.data_ptr(), *(t.data_ptr() for t in lights[4:]),
-        scene.pt_pos.shape[0], out.data_ptr(), n,
+        table.data_ptr(), table.stride(0), table.shape[0],
+        _vec(table, n_attrs), ids.data_ptr(),
+        int(ids.dtype == torch.float32), px.data_ptr(), py.data_ptr(), g,
+        n_attrs, *scene_args, out.data_ptr(), n,
         _build.stream_ptr(table.device))
     launches += 1
     _build.check(err, "raster_shade_launch")
     return out
+
+
+def _scene_args(table, tensors, scene: SceneData, n_attrs: int, what: str):
+    """The launch's table and scene checks; the scene's pointers and its
+    point-light slots in the entry points' order."""
+    if table.dim() != 2 or table.stride(1) != 1 or table.shape[0] < 1 or \
+            table.shape[1] < 3 * n_attrs + 3:
+        raise ValueError(f"{what}: table {tuple(table.shape)} (stride "
+                         f"{table.stride()}) holds no {n_attrs}-attribute "
+                         "rows of unit column stride")
+    if scene.dl_dir.shape[0] < 1:
+        raise ValueError(f"{what}: the scene has no directional-light slot")
+    lights = (scene.env_color, scene.env_intensity, scene.dl_dir,
+              scene.dl_col, scene.pt_pos, scene.pt_col)
+    counts = (scene.n_dl, scene.n_pt)
+    _build.require_cuda(*lights, *counts, what=what)
+    for t in (table, *tensors):
+        if t.device != scene.env_color.device:
+            raise ValueError(f"{what}: expected CUDA tensors on one device, "
+                             f"got {t.device}")
+    if any(t.dtype != torch.float32 for t in lights) or any(
+            t.dtype != torch.int32 for t in counts):
+        raise ValueError(f"{what}: expected float32 lights, int32 counts")
+    return (*(t.data_ptr() for t in lights[:2]), scene.n_dl.data_ptr(),
+            *(t.data_ptr() for t in lights[2:4]), scene.n_pt.data_ptr(),
+            *(t.data_ptr() for t in lights[4:]), scene.pt_pos.shape[0])
+
+
+def _vec(table, n_attrs: int) -> int:
+    """1 where the table's rows may be read as float4: aligned, each row's
+    used floats rounded up to a multiple of 4 inside the row."""
+    return int(table.stride(0) % 4 == 0 and table.data_ptr() % 16 == 0
+               and table.shape[1] >= -(-(3 * n_attrs + 3) // 4) * 4)
+
+
+def group_centres(xl, yl):
+    """The grouped tiles' pixel centres as ``shade`` takes them, from the
+    layout's lane origins xl, yl f32 [grp_cap, 128]: (px [grp_cap, 1, 128]
+    = xl, py [grp_cap, 8, 128] = yl + s + 0.5 at row s of the tile)."""
+    py = (yl[:, None, :]
+          + (torch.arange(TILE_H, dtype=torch.float32, device=yl.device)
+             + 0.5)[None, :, None])
+    return xl[:, None, :], py
+
+
+def shade_image(table, e, xl, yl, gbins, ginv, scene: SceneData,
+                n_attrs: int, tiles_x: int, rows: int, cols: int,
+                y_off: int = 0):
+    """K2's image form: rgb f32 [rows, cols, 3] of a grouped walk's image
+    (a row band's where ``y_off``, its first pixel row, is given) from the
+    walk's winner ids ``e`` f32 [grp_cap, 8, 128] (-1 = no hit) and the
+    layout's tail (``ops/raster_group.Generation``): xl, yl f32 [grp_cap,
+    128] the lanes' pixel origins (yl in the frame's rows), gbins i32
+    [grp_cap * 8] each slot's bin, ginv i32 [n_bins] each bin's place
+    among the slots (a place past them: no group covers the bin, its
+    pixels are 0), the bins those of ``n_bins / 8`` tiles, ``tiles_x`` a
+    row; ``table`` [N, W] the shade rows. Equal to ``shade`` over the
+    groups at ``group_centres`` then ``assemble_group_image`` with fill 0,
+    bit for bit. On the CPU that plain version, which reads xl, yl and
+    gbins; on a CUDA device one launch, which reads e and ginv and forms
+    each pixel's centre (c + 0.5, y_off + r + 0.5)."""
+    if table.device.type == "cpu":
+        return shade_image_ref(table, e, xl, yl, gbins, ginv, scene, n_attrs,
+                               tiles_x, rows, cols, y_off)
+    global launches, launches_image
+    n_bins = ginv.shape[0] if ginv.dim() == 1 else -1
+    if (e.dtype != torch.float32 or e.dim() != 3
+            or tuple(e.shape[1:]) != (TILE_H, TILE_W)
+            or ginv.dtype != torch.int32 or n_bins < N_SUB
+            or table.dtype != torch.float32):
+        raise ValueError(f"shade_image: expected f32 ids [grp_cap, {TILE_H}, "
+                         f"{TILE_W}], i32 places [n_bins] and a float32 "
+                         f"table, got {e.dtype} {list(e.shape)}, "
+                         f"{ginv.dtype} {list(ginv.shape)}, {table.dtype}")
+    tiles_y = n_bins // (N_SUB * max(tiles_x, 1))
+    if (tiles_x < 1 or n_bins != tiles_y * tiles_x * N_SUB or rows < 1
+            or cols < 1 or rows > tiles_y * TILE_H or cols > tiles_x * TILE_W
+            or rows * cols >= 2 ** 31):
+        raise ValueError(f"shade_image: a {rows} x {cols} image is not "
+                         f"inside {n_bins} bins of {tiles_x} tiles a row")
+    _build.require_cuda(e, ginv, what="shade_image")
+    scene_args = _scene_args(table, (e, ginv), scene, n_attrs, "shade_image")
+    out = torch.empty((rows, cols, 3), dtype=torch.float32,
+                      device=table.device)
+    err = _build.lib().raster_shade_image_launch(
+        table.data_ptr(), table.stride(0), table.shape[0],
+        _vec(table, n_attrs), e.data_ptr(), ginv.data_ptr(),
+        e.shape[0] * N_SUB, n_bins, tiles_x, int(y_off), rows, cols, n_attrs,
+        *scene_args, out.data_ptr(), _build.stream_ptr(table.device))
+    launches += 1
+    launches_image += 1
+    _build.check(err, "raster_shade_image_launch")
+    return out
+
+
+def shade_image_ref(table, e, xl, yl, gbins, ginv, scene: SceneData,
+                    n_attrs: int, tiles_x: int, rows: int, cols: int,
+                    y_off: int = 0):
+    """The plain version of ``shade_image``: the shade over the groups at
+    their lanes' centres (``group_centres``; ``backends/raster.
+    shade_groups``' chain), then ``assemble_group_image`` with fill 0
+    (``ginv`` gives the bins' count; yl holds ``y_off`` already)."""
+    from ascii_renderer_tpu_torch.ops import raster_group as RG
+    rgbg = shade_ref(table, e, *group_centres(xl, yl), scene, n_attrs)
+    n_tiles = ginv.shape[0] // N_SUB
+    return RG.assemble_group_image(rgbg, gbins, n_tiles, n_tiles // tiles_x,
+                                   tiles_x, rows, cols, 0.0)
 
 
 def shade_ref(table, ids, px, py, scene: SceneData, n_attrs: int):

@@ -4,7 +4,8 @@ One frame: camera update -> backend render -> UI char plane -> composite
 into the alpha plane -> glyph decision. The reference compiles this as one
 jitted program; here it runs eagerly, its kernels on the render device and
 its scalar state (camera, clock, frame index, RNG key, ripple pool) on the
-host, so only the UI planes cross to the device each frame.
+host; the UI layer crosses to the device by value, in the frame's byte
+launch (``sim/ui.ui_params``, X12a's UI form).
 
 FrameState is the functional analog of the `state` singleton
 (js/main.js:18-63). Its RNG is the key data of ``jax.random.key(seed)``
@@ -167,10 +168,10 @@ def _step_body(cfg: Config, backend: str, rows: int, cols: int, soup,
                                      fdiv(time_ms, 1000.0), key, cfg, rows,
                                      cols, soup=soup, raster_caps=raster_caps,
                                      pt_packed=pt_packed, prep=prep)
-    with record_function("frame.compose"):  # X12a with the UI plane
-        ui = ui_mod.ui_char_plane(cfg, rows, cols, fps, state.ripples,
-                                  state.n_ripples, time_ms, device=rgb.device)
-        frame = Frame.from_float(rgb, a, overrides=ui)
+    with record_function("frame.compose"):  # X12a's UI form: one launch
+        ui = ui_mod.ui_params(cfg, rows, cols, fps, state.ripples,
+                              state.n_ripples, time_ms)
+        frame = Frame.from_float(rgb, a, ui=ui)
 
     chars, tint = glyph_decide(
         frame, ramp=cfg.ascii_ramp, mode_on=cfg.ascii_mode_filter,

@@ -98,9 +98,13 @@ mid HD calls, the headline's raster.keys and raster.build, and the
 deferred shade K2 at its callers' recorded inputs (the headline's grouped
 tiles, the mid-scale HD arm's plane table, the entry() room's and the
 subtile path's compacted tiles: device ms, the whole call, launches a
-call) and the grouped layout build X10 at the headline's steady frame
+call), the headline's shade and assembly as the side runs them (K2's
+image form, one launch, or K2 over the groups and the torch assembly:
+device ms of every kernel row, the whole call, launches a call; the image
+digested) and the grouped layout build X10 at the headline's steady frame
 (raster.build's whole call, busy ms and launches, and X10's kernel rows),
-then the headline frame (median, busy ms, launches), ~2 min a side.
+then the headline frame (median, busy ms, launches, the host ms and
+launches of raster.shade and raster.assemble), ~2 min a side.
 ``--only rt`` times the ray tracer's render path (``rt_frames``):
 ``render_rgb`` at K3's five launch sizes on the driven paths (a side
 whose K3 has no grid form launches the jitted grid kernel and K3: their
@@ -114,12 +118,16 @@ a side; every rgb digested, so both sides' frames are the same bits.
 ``camera_bases`` at one pose and the farm's 1,024 (host ms, median of
 20), and in this checkout each of its two forms at 1, 8, 16 and 1,024
 poses (``_bases_forms``); the frame step's ``frame.compose`` in its
-parts (``_compose_parts``); ``Frame.from_float`` then ``glyph_decide`` (mode filter on, radius
+parts and whole as the side runs it (the UI layer by value and X12a's UI
+form, or the UI plane and X12a with it; no ripple and 16, after a
+synchronisation and right after an entry() step: ``_compose_parts``,
+frames digested); ``Frame.from_float`` then ``glyph_decide`` (mode filter on, radius
 2) at the headline's frame 0 float rgb, a 36x96 frame and the farm's
 [1024, 36, 96] (the whole call by CUDA events, busy ms and launches a
 call by the profiler; chars digested); B4's int form at the planes the
 ``all`` mode times; then the headline frame, the entry() step, the ray
-tracer's frame, the PT reference run and the farm (median, busy ms,
+tracer's frame, the PT reference run, the "pathtrace" frame step and the
+farm (median, busy ms,
 launches, and the host ms and launches a frame of the stages
 ``chip_smoke.TAIL_STAGES``), about 3 minutes a side.
 ``--only pt`` times the path tracer's kernel-path frames (``pt_frames``):
@@ -800,6 +808,29 @@ def _compose_parts(cs, dev, out) -> None:
     f = frame()
     out["digest"]["frame with UI plane 36x96"] = _digest(
         [f.rgb.to(torch.int32), f.a.to(torch.int32)])
+    rip16 = torch.zeros((ui_mod.MAX_RIPPLES, 3), dtype=torch.float32)
+    rip16[:, 0] = torch.linspace(-10.0, 110.0, 16)
+    rip16[:, 1] = torch.linspace(-5.0, 40.0, 16)
+    rip16[:, 2] = -torch.linspace(0.0, 1900.0, 16)  # radii 0 to 95 at 16 ms
+    n16 = torch.tensor(16, dtype=torch.int32)
+
+    def compose(rip, n):
+        """The side's whole frame.compose: the UI layer by value and X12a's
+        UI form, or the UI plane and X12a with it."""
+        if hasattr(ui_mod, "ui_params"):
+            return Frame.from_float(rgb, a, ui=ui_mod.ui_params(
+                Config(), rows, cols, 60.0, rip, n, t_ms))
+        ui_p = ui_mod.ui_char_plane(Config(), rows, cols, 60.0, rip, n,
+                                    t_ms, device=dev)
+        if "overrides" in inspect.signature(Frame.from_float).parameters:
+            return Frame.from_float(rgb, a, overrides=ui_p)
+        return Frame.from_float(rgb, a).with_overrides(*ui_p)
+
+    for label, args in (("no ripple", (ripples, n_rip)),
+                        ("16 ripples", (rip16, n16))):
+        f = compose(*args)
+        out["digest"][f"frame.compose 36x96, {label}"] = _digest(
+            [f.rgb.to(torch.int32), f.a.to(torch.int32)])
     step = cs.run_entry_path()
 
     def after_step():
@@ -816,11 +847,22 @@ def _compose_parts(cs, dev, out) -> None:
             return (time.perf_counter() - t0) * 1e3
         return run
 
+    def compose_after_step():
+        step()
+        t0 = time.perf_counter()
+        compose(ripples, n_rip)
+        return (time.perf_counter() - t0) * 1e3
+
     for label, fn in (("UI plane 36x96", synced(ui)),
                       ("frame bytes with UI plane 36x96", synced(frame)),
                       ("frame bytes with alpha 36x96",
                        synced(lambda: Frame.from_float(rgb, a))),
-                      ("UI plane after an entry() step", after_step)):
+                      ("UI plane after an entry() step", after_step),
+                      ("whole, 36x96", synced(lambda: compose(ripples,
+                                                                n_rip))),
+                      ("whole, 36x96, 16 ripples",
+                       synced(lambda: compose(rip16, n16))),
+                      ("whole, after an entry() step", compose_after_step)):
         out["host_ms"][f"frame.compose: {label}"] = statistics.median(
             fn() for _ in range(41))
     torch.cuda.synchronize()
@@ -918,6 +960,7 @@ def glyph_tail(cs, dev, out) -> None:
             "RT frame 96x36": (cs.run_rt_path(dev), 20, "rt."),
             "PT reference run 96x36 spp64": (cs.run_pt_path(
                 Config(), 36, 96, 1, 3, "PT reference run"), 20, "pt."),
+            "PT frame step 96x36": (cs.run_pt_step_path(dev), 10, "pt."),
             "view farm 1024 x 96x36": (farm, 5, "rt.")}
     for label, (fn, n, stage) in runs.items():
         out["path_ms"][label] = statistics.median(cs._timed(fn, n))
@@ -990,8 +1033,14 @@ def _shade_calls(cs, dev, backend, cfg):
     from ascii_renderer_tpu_torch.entry import entry
     from ascii_renderer_tpu_torch.ops import raster_shade as RSH
     soup, scene = cs._bunny(), cs._scene(dev)
-    calls = {"headline grouped tiles": cs._capture(RSH, "shade", lambda: (
-        cs._frame(backend, cfg, cs._golden_camera())))[0]}
+    if hasattr(RSH, "shade_image"):  # the headline's pixels, in groups
+        a = cs._capture(RSH, "shade_image", lambda: (
+            cs._frame(backend, cfg, cs._golden_camera())))[0]
+        calls = {"headline grouped tiles": (
+            a[0], a[1], *RSH.group_centres(a[2], a[3]), a[6], a[7])}
+    else:
+        calls = {"headline grouped tiles": cs._capture(RSH, "shade", lambda: (
+            cs._frame(backend, cfg, cs._golden_camera())))[0]}
     msoup, mcam = cs._mesh("mid")
     be = RasterBackend(cfg, device=dev)
     be.set_soup(*msoup, cs._scene(dev))
@@ -1006,15 +1055,54 @@ def _shade_calls(cs, dev, backend, cfg):
     return calls
 
 
+def _shade_assemble(cs, backend, cfg):
+    """The headline's shade and assembly at its steady frame as the side
+    runs them, a function of no argument returning the image: K2's image
+    form (one launch) where the side has it, else K2's grouped form over
+    the groups, then ``assemble_group_image``, each at its captured
+    arguments."""
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import raster_group as RG
+    from ascii_renderer_tpu_torch.ops import raster_shade as RSH
+
+    def headline():
+        return cs._frame(backend, cfg, cs._golden_camera())
+
+    if hasattr(RSH, "shade_image"):
+        a, k = cs._capture(RSH, "shade_image", headline)
+        return lambda: RSH.shade_image(*a, **k)
+    seen = []
+    real = RG.assemble_group_image
+
+    def rec(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+
+    RG.assemble_group_image = rec
+    try:
+        sa, _sk = cs._capture_all(R, "shade_groups", headline)[-1]
+    finally:
+        RG.assemble_group_image = real
+    aa, ak = seen[-1]
+    return lambda: RG.assemble_group_image(R.shade_groups(*sa), *aa[1:],
+                                           **ak)
+
+
 def shade_and_build(cs, dev, out) -> None:
-    """K2 at its callers' recorded inputs (``_shade_calls``) and X10 at the
-    headline's steady frame (``keys_and_build``): device ms by the
-    profiler's kernel rows over 50 calls, the whole call by CUDA events
-    over 20, kernel launches a call; outputs digested. Then the headline
-    frame's median, busy time and launches."""
+    """K2 at its callers' recorded inputs (``_shade_calls``), the
+    headline's shade and assembly as the side runs them
+    (``_shade_assemble``: device ms of all its kernel rows, the whole call,
+    launches a call) and X10 at the headline's steady frame
+    (``keys_and_build``): device ms by the profiler's kernel rows over 50
+    calls, the whole call by CUDA events over 20, kernel launches a call;
+    outputs digested. Then the headline frame's median, busy time,
+    launches, and the host ms and launches of its raster.shade and
+    raster.assemble stages."""
     import torch
     from ascii_renderer_tpu_torch.ops import raster_shade as RSH
-    for key in ("k2_ms", "k2_call_ms", "k2_launches"):
+    for key in ("k2_ms", "k2_call_ms", "k2_launches", "image_ms",
+                "image_call_ms", "image_launches", "stage_ms",
+                "stage_launches"):
         out[key] = {}
     soup, scene = cs._bunny(), cs._scene(dev)
     backend, cfg = cs.run_main_path(dev, soup, scene)
@@ -1027,6 +1115,13 @@ def shade_and_build(cs, dev, out) -> None:
         out["k2_launches"][label] = RSH.launches - n0
         out["k2_ms"][label] = cs._device_ms(fn, "raster_shade_kernel", 1)
         out["k2_call_ms"][label] = cs._event_ms(fn, 20)
+    image = _shade_assemble(cs, backend, cfg)
+    label = "headline shade and assembly"
+    out["digest"][label] = _digest([image()])
+    n = cs.profile_frames(image, 5, ("raster.",), label)[1]
+    out["image_launches"][label] = n
+    out["image_ms"][label] = cs._device_ms(image, None, n)
+    out["image_call_ms"][label] = cs._event_ms(image, 20)
 
     def headline():
         return cs._frame(backend, cfg, cs._golden_camera())[1]
@@ -1036,10 +1131,13 @@ def shade_and_build(cs, dev, out) -> None:
         out[key] = {}
     label = "headline frame 960x540"
     out["path_ms"][label] = statistics.median(cs._timed(headline, 20))
-    busy, launches, _st, _host = cs.profile_frames(
+    busy, launches, stages, host = cs.profile_frames(
         headline, 3, ("raster.", "frame.", "glyph"), label)
     out["path_busy_ms"][label] = busy
     out["path_launches"][label] = launches
+    for k in ("raster.shade", "raster.assemble"):
+        out["stage_ms"][f"{label} {k}"] = host.get(k, 0.0)
+        out["stage_launches"][f"{label} {k}"] = stages.get(k, 0.0)
     torch.cuda.synchronize()
 
 
@@ -1257,7 +1355,8 @@ def main() -> int:
                 "keys_ms", "keys_busy_ms",
                 "keys_launches", "build_ms", "build_busy_ms",
                 "build_launches", "x10_ms", "k2_ms", "k2_call_ms",
-                "k2_launches", "rt_ms", "rt_call_ms", "rt_launches",
+                "k2_launches", "image_ms", "image_call_ms",
+                "image_launches", "rt_ms", "rt_call_ms", "rt_launches",
                 "k3_rd3_ms", "bases_ms", "frame_ms", "busy_ms", "path_ms",
                 "path_busy_ms", "path_launches", "walk_launches", "host_ms",
                 "tail_ms", "tail_busy_ms", "tail_launches", "chars_ms",
@@ -1274,7 +1373,8 @@ def main() -> int:
     for shape, ms in summary.items():
         unit = "" if shape.startswith((
             "Path_launches", "Walk_launches", "Keys_launches",
-            "Build_launches", "K2_launches", "Rt_launches", "Tail_launches",
+            "Build_launches", "K2_launches", "Image_launches",
+            "Rt_launches", "Tail_launches",
             "Stage_launches", "K1_clip_launches")) or shape.endswith(
                 "views/s") else " ms"
         ratio = (f"{ms['other'] / ms['this']:.2f}" if ms["this"]

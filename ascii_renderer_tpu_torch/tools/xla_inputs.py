@@ -7,7 +7,8 @@ special values, each operand form the wrapper packs), scenes and shade
 tables for the deferred shade, the ray tracer's test scenes, triangle
 soups at the near plane for the clip and the plane table, screen
 channel dicts for the bin entries' tile keys and bbox dicts for their bin
-keys, float frames with alpha and UI planes for the glyph tail, the path
+keys, float frames with alpha and UI planes for the glyph tail, single
+ripples with the reference march's cells for X12a's UI form, the path
 tracer's megakernel outputs for its batch fold (``ops/pt_reduce``) and
 stream orders for its sample rays (``ops/ray_grid.pt_rays``). The
 kernels' tests and
@@ -364,6 +365,23 @@ def glyph_frame(shape, seed=0):
     return (rgb, alpha.reshape(shape), ui_chars.reshape(shape),
             ui_mask.reshape(shape))
 
+
+def ripple_case(r: int):
+    """(``sim/ui.UiParams``, want bool [n, n]) of one ripple of radius r at
+    the centre of an n x n grid that holds its box and two cells more on
+    each side (n = 2 r + 5): the cells of the reference march
+    (``sim/ui._bresenham_np``: the JS err rule, 8 octants, 128 steps at
+    most), which X12a's UI form must draw as '*'."""
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.sim import ui as U
+    h = r + 2
+    n = 2 * h + 1
+    px, py, on = U._bresenham_np(*(np.array([v], np.int32)
+                                   for v in (h, h, r)))
+    want = np.zeros((n, n), bool)
+    want[py[on], px[on]] = True
+    return U.UiParams(n, n, Config().pi_digits, *U._fps_digits(0.0, n),
+                      ((h, h, r),)), want
 
 def pt_outputs(n_rays: int, seed=0, p_override=0.04):
     """The megakernel's five outputs (lor, log, lob, ov, fet) for n_rays

@@ -660,12 +660,20 @@ GEN_RECORDS = {
                "raster_group.py:735")}
 
 
+def _walk_layout(lay):
+    """A generation's layout (``ops/raster_group.Generation``) without the
+    bins' places, ginv, that end it: a tuple ending (xl, yl, gbins, n_rows,
+    n_pairs, n_used), the walk's arguments all but the last four (a
+    checkout from before ginv ends its layouts with the 0-d n_used)."""
+    return lay[:-1] if lay[-1].dim() == 1 else lay
+
+
 def _generation_layouts(src32, keys, *caps):
     """{walk: (layout, kernel wrapper, plain version)} of the grouped
-    generations' own walks; caps (tiles_x, n_tiles, r_cap, pair_cap,
-    grp_cap)."""
+    generations' own walks (``_walk_layout``); caps (tiles_x, n_tiles,
+    r_cap, pair_cap, grp_cap)."""
     from ascii_renderer_tpu_torch.ops import raster_group as RG
-    return {walk: (RG.GENERATIONS[g].build(src32, keys, *caps),
+    return {walk: (_walk_layout(RG.GENERATIONS[g].build(src32, keys, *caps)),
                    RG.GENERATIONS[g].walk, RG.GENERATIONS[g].walk_ref)
             for walk, g in GEN_WALKS.items()}
 
@@ -843,7 +851,7 @@ def check_x10_layouts(src32, keys, caps, label, overflow=False):
             got = GB.build_rows(*a, k=k, rows256=rows256, offsets=offs)
             torch.cuda.synchronize()
             _same_layout(got, want, f"X10 {gen} {label}")
-        n_rows, n_pairs, n_used = (int(x) for x in want[-3:])
+        n_rows, n_pairs, n_used = (int(x) for x in want[-4:-1])
         if overflow:
             assert n_rows > rc or n_used > 8 * grp_cap, (gen, n_rows, n_used)
         print(f"X10 {gen} {label}: exact with and without offsets; n_rows "
@@ -867,8 +875,9 @@ def _golden_generation_inputs(dev, gen):
     grp_cap = caps["tile_cap"] // 8
     keys, src32 = _setup_and_keys(pos9, attrs_t, mvp, ROWS, COLS,
                                   caps["big_cap"])
-    lay = RG.GENERATIONS[gen].build(src32, keys, tiles_x, n_tiles,
-                                    caps["r_cap"], caps["pair_cap"], grp_cap)
+    lay = _walk_layout(RG.GENERATIONS[gen].build(
+        src32, keys, tiles_x, n_tiles, caps["r_cap"], caps["pair_cap"],
+        grp_cap))
     return lay[:-4], grp_cap
 
 
@@ -976,20 +985,7 @@ def _capture(mod, name, run):
     """Run ``run()`` with ``mod.name`` recording the arguments of its first
     call: the inputs a path gives a kernel wrapper. Returns (args,
     kwargs)."""
-    orig = getattr(mod, name)
-    seen = []
-
-    def rec(*a, **k):
-        seen.append((a, k))
-        return orig(*a, **k)
-
-    setattr(mod, name, rec)
-    try:
-        run()
-    finally:
-        setattr(mod, name, orig)
-    assert seen, f"{name} was not called"
-    return seen[0]
+    return _capture_all(mod, name, run)[0]
 
 
 def _oracle_caps(dev, soup, scene, kernel):
@@ -2262,8 +2258,9 @@ def _glyph_cases(dev, soup, scene):
     cases["headline frame 0"] = (a + (None,) * 4)[:4]
     fn, args = entry()
     a, k = _capture(FB, "frame_bytes", lambda: fn(*args))
-    assert a[3] is not None and bool(a[3].any()), "entry(): no UI plane"
-    cases["entry() step, UI plane"] = a
+    chars, mask = k["ui"].planes(dev)  # the UI form's layer as a plane
+    assert bool(mask.any()), "entry(): no UI plane"
+    cases["entry() step, UI plane"] = (a[0], a[1], chars, mask)
     return cases
 
 
@@ -2365,6 +2362,167 @@ def check_glyph_tail(dev, soup, scene):
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
               f"{json.dumps(extra)}", flush=True)
     return recs
+
+
+# X12a's UI form, integer operations a (cell, live ripple) pair: outside
+# the ripple's box (two subtractions, two magnitude tests), inside it (the
+# ring's prefilter: the squares, their sum and two compares more), and a
+# step of a ring cell's replayed march (its tests, the err update, x, y)
+UI_PAIR_OPS, UI_BOX_OPS, UI_STEP_OPS = 4, 12, 8
+
+
+def _ui_ops(ui):
+    """The integer operations X12a's UI form does on these values (no
+    plane read): every (cell, live ripple) pair's test, and each ring
+    cell's replayed march to its step (the first state with y >= b and x
+    <= a, as sim/ui.ripple_cells replays it), counted from the march of
+    each ripple's radius on the host; plus the border and FPS tests, 4 a
+    cell."""
+    import numpy as np
+    rows, cols = ui.rows, ui.cols
+    ops = 4 * rows * cols
+    for cx, cy, r in ui.circles:
+        ops += UI_PAIR_OPS * rows * cols
+        ys, xs = np.mgrid[max(0, cy - r):min(rows, cy + r + 1),
+                          max(0, cx - r):min(cols, cx + r + 1)]
+        if ys.size == 0:
+            continue
+        ops += (UI_BOX_OPS - UI_PAIR_OPS) * ys.size
+        ax, ay = np.abs(xs - cx), np.abs(ys - cy)
+        a, b = np.maximum(ax, ay), np.minimum(ax, ay)
+        d = a * a + b * b
+        ring = (d <= r * r) & (d >= r * r - 3 * r - 1)
+        states = []  # the march's (x, y) while active, 128 steps at most
+        x, y, err = r, 0, 0
+        while x >= y and len(states) < 128:
+            states.append((x, y))
+            if err <= 0:
+                y += 1
+                err += 2 * y + 1
+            if err > 0:
+                x -= 1
+                err -= 2 * x + 1
+        sx = np.array([s[0] for s in states])
+        sy = np.array([s[1] for s in states])
+        first = np.maximum(np.searchsorted(sy, b[ring], "left"),
+                           np.searchsorted(-sx, -a[ring], "left"))
+        ops += UI_STEP_OPS * int((np.minimum(first, len(states)) + 1).sum())
+    return ops
+
+
+def _ui_bound(rgb, a, ui):
+    """X12a's UI form: X12a's bytes without a plane, its FP32 operations,
+    and the UI layer's integer operations (_ui_ops)."""
+    cells = rgb.numel() // 3
+    n_in = _nbytes(rgb) + (cells if a is not None else 0)
+    return _glyph_bound(n_in + 4 * cells, _ui_ops(ui), X12A_OPS * 3 * cells)
+
+
+def _ui_case(dev, shape, n_live, seed, radius=None, fps=60.0):
+    """(rgb, a, ui) of a seeded frame and UI layer: n_live ripples over and
+    around the grid (each of radius ``radius`` where given), the clock at
+    1,500 ms."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.sim import ui as U
+    from ascii_renderer_tpu_torch.tools.xla_inputs import glyph_frame
+    rows, cols = shape
+    rgb, a, _c, _m = (torch.from_numpy(x).to(dev)
+                      for x in glyph_frame(shape, seed))
+    rng = np.random.default_rng(seed)
+    rip = np.stack([rng.uniform(-20, cols + 20, 16),
+                    rng.uniform(-20, rows + 20, 16),
+                    rng.uniform(0, 1500, 16)], -1).astype(np.float32)
+    if radius is not None:
+        rip[:, 2] = 1500.0 - radius / Config().ripple_speed
+    return rgb, a, U.ui_params(Config(), rows, cols, fps, rip, n_live, 1500.0)
+
+
+def check_ui_form(dev):
+    """X12a's UI form (the frame step's UI layer by value, drawn in the
+    frame's byte launch) against its plain version (the planes drawn on
+    the host, then burnt in) bit for bit: seeded frames at 1x1, 36x96 and
+    540x960 with 0, 1 and 16 live ripples and FPS values 0, 7, 1e7, NaN
+    and half-way ones; entry()'s step with 16 live ripples; the CLI's
+    raster frame (its first call). Its ripple cells against the reference
+    march itself for every radius 0-200 (``_ripple_sweep``). Timed at
+    36x96 with no live ripple and with 16 of radius 100, and at 540x960
+    with 16 of radius 100. Returns its numbers, for X12a's record."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.entry import entry
+    from ascii_renderer_tpu_torch.ops import frame_bytes as FB
+    cases = {}
+    for shape in ((1, 1), ENTRY_GRID, (ROWS, COLS)):
+        for n_live in (0, 1, 16):
+            for k, fps in enumerate((0.0, 7.0, 1e7, float("nan"), 2.5)):
+                rgb, a, ui = _ui_case(dev, shape, n_live, 7 * n_live + k,
+                                      fps=fps)
+                label = (f"{shape[0]}x{shape[1]}, {len(ui.circles)} live, "
+                         f"fps {fps}")
+                cases[label] = ((rgb, a if k % 2 else None), {"ui": ui})
+    fn, args = entry()
+    rip = np.zeros((16, 3), np.float32)
+    rip[:, 0] = np.linspace(-10, 110, 16)
+    rip[:, 1] = np.linspace(-5, 40, 16)
+    rip[:, 2] = -np.linspace(0.0, 1900.0, 16)  # radii 0 to 95 at t = 0
+    state = args[1].replace(ripples=torch.from_numpy(rip),
+                            n_ripples=torch.tensor(16, dtype=torch.int32))
+    cases["entry() step, 16 ripples"] = _capture(
+        FB, "frame_bytes", lambda: fn(args[0], state, *args[2:]))
+    cases["CLI raster frame"] = _capture(FB, "frame_bytes", lambda: _cli(
+        ["--backend", "raster", *CLI_GRID, "--frames", "2"]))
+    for label, (a, k) in cases.items():
+        assert k.get("ui") is not None, label
+        n0 = FB.launches_ui
+        got = FB.frame_bytes(*a, **k)
+        assert FB.launches_ui == n0 + 1, label
+        want = FB.frame_bytes_ref(*(None if t is None else t.cpu()
+                                    for t in a), **k)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("rgb", "alpha")):
+            assert torch.equal(g.cpu(), w), f"X12a UI form {what}: {label}"
+    n_star = int((cases["entry() step, 16 ripples"][1]["ui"].planes_np()[0]
+                  == ord("*")).sum())
+    assert n_star > 0, "entry(): no ripple cell drawn"
+    out = {"checked_calls": len(cases), "entry_ripple_cells": n_star,
+           "ripple_radii_checked": _ripple_sweep(dev)}
+    for key, shape, n_live, radius in (("36x96", ENTRY_GRID, 0, None),
+                                       ("36x96_16_r100", ENTRY_GRID, 16,
+                                        100.0),
+                                       ("540x960_16_r100", (ROWS, COLS), 16,
+                                        100.0)):
+        rgb, a, ui = _ui_case(dev, shape, n_live, 3, radius=radius)
+        out[f"ms_{key}"] = _device_ms(lambda: FB.frame_bytes(rgb, a, ui=ui),
+                                      "frame_bytes_kernel", 1)
+        bound = _ui_bound(rgb, a, ui)
+        out[f"bound_ms_{key}"], out[f"bound_by_{key}"] = bound
+        out[f"plain_ms_{key}"] = _event_ms(
+            lambda: FB.frame_bytes_ref(rgb, a, ui=ui), 20)
+    print(f"X12a UI form: bit for bit in {len(cases)} calls ({n_star} ripple "
+          f"cells in entry()'s frame); {json.dumps(out)}", flush=True)
+    return out
+
+
+def _ripple_sweep(dev, radii=range(201)):
+    """X12a's UI form's ripple cells against the reference march for each
+    radius: one ripple at the centre of a grid that holds its box, its '*'
+    cells exactly the march's (``tools/xla_inputs.ripple_case``; from
+    radius 128 on the kernel replays the march). Returns the number of
+    radii checked."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.ops import frame_bytes as FB
+    from ascii_renderer_tpu_torch.tools.xla_inputs import ripple_case
+    for r in radii:
+        ui, want = ripple_case(r)
+        _rgb8, a = FB.frame_bytes(torch.zeros((ui.rows, ui.cols, 3),
+                                              device=dev), ui=ui)
+        got = (a == ord("*")).cpu().numpy()
+        assert np.array_equal(got, want), \
+            f"X12a UI form: the ripple of radius {r} is not the march's"
+    return len(radii)
 
 
 def _tail_counts(counters, fn):
@@ -2616,36 +2774,158 @@ def _shade_bound(args):
     return _bound(n_bytes, ops), hit, rows, n
 
 
-def check_raster_shade(dev, calls):
-    """K2, the raster's deferred shade (one launch of
-    csrc/raster_shade.cu), against its plain version (the gather, then
-    raster_common._shade_rows) on the inputs each caller gives it on its
-    path (``calls``: the headline's grouped tiles, the mid-scale HD arm's
-    plane table, the subtile path's compacted tiles): bit for bit. Timed
-    at the headline's call. Returns the record."""
+def check_raster_shade(dev, calls, image_form):
+    """K2, the raster's deferred shade (csrc/raster_shade.cu), against its
+    plain version (the gather, then raster_common._shade_rows) at the
+    calls of its grouped form (``calls``: the mid-scale HD arm's plane
+    table, the subtile path's compacted tiles): bit for bit, each timed
+    (``grouped_form``). The record's own numbers are its image form's at
+    the headline's steady call (``image_form``, from check_shade_image):
+    the headline launches only that form. Returns the record."""
     import torch
     from ascii_renderer_tpu_torch.ops import raster_shade as RSH
-    lines = []
+    lines, grouped = [], {}
     for label, args in calls.items():
         got, want = RSH.shade(*args), RSH.shade_ref(*args)
         torch.cuda.synchronize()
         _same_bits(got, want, f"shade, {label}")
         assert (want > 0).any(), label
         (bnd, by), hit, rows, n = _shade_bound(args)
+        ms = _device_ms(lambda: RSH.shade(*args), "raster_shade_kernel", 1)
+        plain = _event_ms(lambda: RSH.shade_ref(*args), 5)
+        grouped[label] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                              bound_by=by, pixels=n, lit=hit, rows=rows)
         lines.append(f"{label} {n} pixels ({hit} lit from {rows} rows, ids "
-                     f"{str(args[1].dtype)[6:]}, {args[5]} attributes)")
-    args = calls["headline"]
-    ms = _device_ms(lambda: RSH.shade(*args), "raster_shade_kernel", 1)
-    plain = _event_ms(lambda: RSH.shade_ref(*args), 5)
-    bound, hit, rows, n = _shade_bound(args)
-    print(f"raster shade (K2): bit-identical to the plain version for "
-          f"{'; '.join(lines)}; headline kernel {ms:.5f} ms, plain "
-          f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]})",
-          flush=True)
-    rec = _rec("raster_shade", "raster_shade.cu", "", 0.0, ms, plain, bound)
+                     f"{str(args[1].dtype)[6:]}, {args[5]} attributes): "
+                     f"kernel {ms:.5f} ms, plain {plain:.3f} ms, bound "
+                     f"{bnd:.5f} ms ({by})")
+    print(f"raster shade (K2), grouped form: bit-identical to the plain "
+          f"version for {'; '.join(lines)}", flush=True)
+    im = image_form
+    rec = _rec("raster_shade", "raster_shade.cu", "", 0.0, im["ms"],
+               im["plain_ms"], (im["bound_ms"], im["bound_by"]))
     rec.update(replaces="ascii_renderer_tpu/backends/raster_common.py:73",
-               pixels=n, lit=hit, rows=rows)
+               at="headline steady frame (image form)", pixels=im["pixels"],
+               lit=im["lit"], rows=im["rows"], grouped_form=grouped,
+               image_form=im)
     return rec
+
+
+def _capture_all(mod, name, run):
+    """Run ``run()`` with ``mod.name`` recording the arguments of every
+    call: [(args, kwargs)]."""
+    orig = getattr(mod, name)
+    seen = []
+
+    def rec(*a, **k):
+        seen.append((a, k))
+        return orig(*a, **k)
+
+    setattr(mod, name, rec)
+    try:
+        run()
+    finally:
+        setattr(mod, name, orig)
+    assert seen, f"{name} was not called"
+    return seen
+
+
+def _image_ids(args):
+    """(winner ids f32 [rows, cols] of an image-form call, -1 where no hit
+    or no group covers the bin; bins): what each pixel of
+    ``raster_shade.shade_image(*args)`` reads."""
+    import torch
+    table, e, ginv, tiles_x, rows, cols = (args[k] for k in (0, 1, 5, 8, 9,
+                                                             10))
+    dev = e.device
+    r = torch.arange(rows, device=dev)[:, None]
+    c = torch.arange(cols, device=dev)[None, :]
+    bins = ((r // 8) * tiles_x + c // 128) * 8 + (c % 128) // 16
+    place = ginv.long()[bins]
+    covered = place < e.shape[0] * 8
+    place = torch.where(covered, place, 0)
+    flat = (place // 8) * 1024 + (r % 8) * 128 + (place % 8) * 16 + c % 16
+    return torch.where(covered, e.reshape(-1)[flat], -1.0), bins
+
+
+def _shade_image_bound(args):
+    """The least work of an image-form call: each pixel's id and its bin's
+    place read once (the places of the image's bins), the used columns of
+    the table rows the lit pixels pick, rgb written once; the lit pixels'
+    shade operations as K2's."""
+    import torch
+    ids, bins = _image_ids(args)
+    table, scene, n_attrs = args[0], args[6], args[7]
+    hit = int((ids >= 0).sum())
+    rows = torch.unique(ids[ids >= 0]).numel()
+    n = ids.numel()
+    n_bytes = (4 * n + 4 * torch.unique(bins).numel()
+               + 4 * rows * (3 * n_attrs + 3) + 12 * n)
+    ops = hit * (SHADE_OPS_PIXEL + SHADE_OPS_POINT * scene.pt_pos.shape[0])
+    return _bound(n_bytes, ops), hit, rows, n
+
+
+def check_shade_image(dev, soup, scene, backend, cfg):
+    """K2's image form (one launch: the grouped paths' shade and assembly)
+    against its plain version (the grouped shade, then
+    ``assemble_group_image``) bit for bit at every call the grouped paths
+    make: the headline's frame 0 (a fresh backend) and steady frame, every
+    grouped generation's golden call (FRAME_RUNS: its 1,024 bin slots leave
+    bins uncovered), and the bunny's row bands (subtile8, subtile6,
+    subtile3 at row_lo 0, BAND_ROWS, 2 BAND_ROWS). Timed at the headline's
+    steady call. Returns the image form's numbers."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.backends.raster import RasterBackend
+    from ascii_renderer_tpu_torch.ops import raster_shade as RSH
+    cam = _golden_camera()
+    calls = {}
+    fresh = RasterBackend(cfg, device=dev)
+    fresh.set_soup(*(torch.as_tensor(x) for x in soup), scene)
+    calls["headline frame 0"] = _capture_all(
+        RSH, "shade_image", lambda: _frame(fresh, cfg, cam))
+    del fresh
+    calls["headline steady frame"] = _capture_all(
+        RSH, "shade_image", lambda: _frame(backend, cfg, cam))
+    frame = _generation_frame(dev, soup, scene)
+    for method, packed in FRAME_RUNS:
+        label = f"{method}{' SETUP_PACKED' if packed else ''} golden call"
+        calls[label] = _capture_all(RSH, "shade_image",
+                                    lambda: frame(method, packed))
+    p, n, c = (torch.as_tensor(x).to(dev) for x in soup)
+    caps = _golden_caps(p.shape[0] // 3)
+    for gen in ("subtile8", "subtile6", "subtile3"):
+        for lo in (0, BAND_ROWS, 2 * BAND_ROWS):
+            calls[f"{gen} band {lo}"] = _capture_all(
+                RSH, "shade_image", lambda: R.render_soup_diag(
+                    p, n, c, scene, cam, ROWS, COLS, PIXEL_ASPECT,
+                    kernel=gen, row_lo=lo, band_rows=BAND_ROWS, **caps))
+    lines, n_calls = [], 0
+    for label, cl in calls.items():
+        for i, (a, k) in enumerate(cl):
+            got, want = RSH.shade_image(*a, **k), RSH.shade_image_ref(*a, **k)
+            torch.cuda.synchronize()
+            _same_bits(got, want, f"K2 image form, {label} call {i}")
+            # the bunny leaves the top band (rows 0-175) unlit
+            assert (want > 0).any() or " band 0" in label, label
+            n_calls += 1
+        ids, bins = _image_ids(cl[-1][0])
+        lines.append(f"{label} {tuple(ids.shape)} ({int((ids >= 0).sum())} "
+                     f"lit, {int(torch.unique(bins).numel())} bins, grp_cap "
+                     f"{cl[-1][0][1].shape[0]})")
+    a = calls["headline steady frame"][-1][0]
+    ms = _device_ms(lambda: RSH.shade_image(*a), "raster_shade_image_kernel",
+                    1)
+    plain = _event_ms(lambda: RSH.shade_image_ref(*a), 5)
+    bound, hit, rows, npix = _shade_image_bound(a)
+    print(f"K2 image form: bit-identical to the plain version in {n_calls} "
+          f"calls: {'; '.join(lines)}; headline kernel {ms:.5f} ms, plain "
+          f"{plain:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}; {npix} "
+          f"pixels, {hit} lit from {rows} rows)", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+                max_abs_err=0.0, pixels=npix, lit=hit, rows=rows,
+                checked_calls=n_calls,
+                replaces="ascii_renderer_tpu/ops/raster_group.py:1284")
 
 
 def _rt_grid(cams, rows, cols, row_lo=0, n_rows=None):
@@ -4120,6 +4400,32 @@ def profile_frames(frame_fn, n, prefixes, label):
     return busy, launches, stage_launches, stage_host
 
 
+# kernel launches a headline frame may make (30 before K2's image form)
+HEADLINE_FRAME_LAUNCHES = 18
+
+
+def shade_stages(label, stages):
+    """A grouped frame's shade and assembly (profile_frames' stage counts,
+    per call): one launch of K2's image form in raster.shade, none in
+    raster.assemble."""
+    got = (stages.get("raster.shade", 0.0), stages.get("raster.assemble",
+                                                       0.0))
+    print(f"{label}: raster.shade {got[0]:g}, raster.assemble {got[1]:g} "
+          f"kernel launches", flush=True)
+    assert got == (1.0, 0.0), (label, got)
+
+
+def compose_stage(label, stages):
+    """A frame step's frame.compose: one launch (X12a's UI form) and no
+    host-to-device copy (profile_frames' stage counts, after its first
+    frame)."""
+    got = (stages.get("frame.compose", 0.0),
+           stages.get("frame.compose HtoD", 0.0))
+    print(f"{label}: frame.compose {got[0]:g} kernel launches, {got[1]:g} "
+          f"host-to-device copies", flush=True)
+    assert got == (1.0, 0.0), (label, got)
+
+
 # the host stages the glyph tail and the camera chains take on each path
 TAIL_STAGES = ("raster.mvp", "rt.grid", "frame.from_float", "frame.compose",
                "glyph")
@@ -4441,7 +4747,7 @@ def check_keys_builds(label, keys_calls, build_calls, builds=True):
         want = _build_call_plain(a, k)
         torch.cuda.synchronize()
         _same_layout(got, want, f"X10 {label} call {i}")
-        n_rows, n_pairs, n_used = (int(x) for x in got[-3:])
+        n_rows, n_pairs, n_used = (int(x) for x in got[-4:-1])
         print(f"X10 {label} call {i}: exact, K {k['k']}"
               f"{' rows256' if k.get('rows256') else ''}, r_cap {a[4]}, "
               f"pair_cap {a[5]}, grp_cap {a[6]}, y_off {k.get('y_off', 0)}, "
@@ -5240,6 +5546,14 @@ def _shade_size(a, k):
     return (shape, str(a[1].dtype)[6:], a[5], a[4].pt_pos.shape[0])
 
 
+def _shade_image_size(a, k):
+    """K2's image form's launch size: the image, attributes, lights and
+    the groups' slots."""
+    if a[0].device.type != "cuda":
+        return None
+    return ((a[9], a[10]), a[7], a[6].pt_pos.shape[0], a[1].shape[0])
+
+
 def _build_size(a, k):
     """X10's launch size: r_cap, grp_cap, bins, the layout, offsets."""
     if a[1].device.type != "cuda":
@@ -5380,7 +5694,7 @@ def _size_losses(recorded, by_name):
     from ascii_renderer_tpu_torch.ops import group_build as GB
     ((shade, shade_real), (build, build_real), (clip, clip_real),
      (table, table_real), (fma, fma_real), (clipt, clipt_real),
-     (clips, clips_real)) = recorded
+     (clips, clips_real), (image, image_real)) = recorded
 
     def build_launches(a, k):
         build_real(*a, **k)
@@ -5389,9 +5703,12 @@ def _size_losses(recorded, by_name):
     def build_bound(a, k):
         return _x10_bound(a, build_real(*a, **k))[0]
 
-    size_loss("raster shade (K2)", shade, shade_real, "raster_shade_kernel",
-              lambda a, k: 1, lambda a, k: _shade_bound(a)[0][0],
-              by_name["raster_shade"])
+    size_loss("raster shade (K2; its image form's launches with it)", shade,
+              shade_real, "raster_shade_kernel", lambda a, k: 1,
+              lambda a, k: _shade_bound(a)[0][0], by_name["raster_shade"],
+              also=((image, image_real, "raster_shade_image_kernel",
+                     lambda a, k: 1,
+                     lambda a, k: _shade_image_bound(a)[0][0]),))
     size_loss("grouped layout build (X10)", build, build_real,
               "group_build_", build_launches, build_bound,
               by_name["group_build"])
@@ -5519,7 +5836,8 @@ def main() -> int:
                 _record_sizes(PT, "plane_table", _x3_size),
                 _record_sizes(KFP, "fma32_kernel", _fma_size),
                 _record_sizes(RCL, "clip_screen_table", _x4t_size),
-                _record_sizes(RCL, "clip_screen_slots", _x4s_size))
+                _record_sizes(RCL, "clip_screen_slots", _x4s_size),
+                _record_sizes(RSH, "shade_image", _shade_image_size))
     # each kernel's wrapper module and launch counter
     counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
                 "raster_group_walk": (RG, "launches"),
@@ -5546,6 +5864,8 @@ def main() -> int:
                 "pt_reduce": (PR, "launches"),
                 "pt_megakernel_gated": (PTK, "launches_gated"),
                 "fma32": (KFP, "launches"), "raster_shade": (RSH, "launches"),
+                "raster_shade_image": (RSH, "launches_image"),
+                "frame_bytes_ui": (FB, "launches_ui"),
                 "rt_trace": (RTK, "launches"),
                 "raster_clip": (RCL, "launches"),
                 "raster_clip_table": (RCL, "launches_table"),
@@ -5566,10 +5886,12 @@ def main() -> int:
     recs.append(check_pt_reduce(dev))
     recs.append(check_modal_batched(dev))
     recs += check_glyph_tail(dev, soup, scene)
+    ui_form = check_ui_form(dev)
     recs.append(check_ray_grid_jit(dev))
     recs.append(check_rt_trace(dev))
     check_render_rgb_one_launch(dev)
     by_name = {r["name"]: r for r in recs}
+    by_name["frame_bytes"]["ui_form"] = ui_form
 
     # raster headline path: B1-B3, and B4 in the glyph stage
     c_raster, (backend, cfg) = _path_counts(
@@ -5578,12 +5900,17 @@ def main() -> int:
     for k in ("setup2dh", "pack", "raster_group_walk", "modal_vote"):
         assert c_raster[k] > 0, f"{k} never launched on the raster path"
         by_name[k]["launches"] = c_raster[k]
-    assert c_raster["raster_shade"] > 0, "the shade kernel never launched"
+    assert c_raster["raster_shade_image"] > 0, "K2's image form never launched"
+    assert c_raster["raster_shade"] == c_raster["raster_shade_image"], \
+        c_raster  # no grouped shade, no assembly chain
     for k in ("bin_entries_keys", "group_build"):  # X9's bin keys, X10
         assert c_raster[k] > 0, f"{k} never launched on the raster path"
     prof = profile_frames(lambda: _frame(backend, cfg, _golden_camera()), 5,
                           ("raster.", "frame.", "glyph"), "raster")
     stage_launches = prof[2]
+    shade_stages("headline frame", stage_launches)
+    print(f"headline frame: {prof[1]} kernel launches", flush=True)
+    assert prof[1] <= HEADLINE_FRAME_LAUNCHES, prof[1]
     tails = {"headline frame": tail_stages(
         "headline frame", prof, counters,
         lambda: _frame(backend, cfg, _golden_camera()))}
@@ -5596,11 +5923,11 @@ def main() -> int:
     x9_keys, x10_rec = check_headline_keys_builds(dev, soup, scene, backend,
                                                   cfg)
     recs.append(x10_rec)
-    # the shade's inputs on each caller's path: the headline's grouped
-    # tiles here, the mid HD arm's plane table (captured by check_fma32),
-    # the subtile path's compacted tiles (below)
-    shade_calls = {"headline": _capture(RSH, "shade", lambda: _frame(
-        backend, cfg, _golden_camera()))[0], "mid HD": mid_shade}
+    # K2's image form at every grouped call; K2's grouped form at the mid
+    # HD arm's plane table (captured by check_fma32) and the subtile path's
+    # compacted tiles (below)
+    image_form = check_shade_image(dev, soup, scene, backend, cfg)
+    shade_calls = {"mid HD": mid_shade}
     del backend
 
     # the grouped generations: B9d, B9e, B9f and B10 against their plain
@@ -5615,18 +5942,19 @@ def main() -> int:
         assert c_gen[k] > 0, f"{k} never launched on the grouped generations"
     for r in gen_recs:
         r["launches"] = c_gen[r["name"]]
-    for k in ("bin_entries_keys", "group_build"):
+    for k in ("bin_entries_keys", "group_build", "raster_shade_image"):
         assert c_gen[k] > 0, f"{k} never launched on the grouped generations"
+    assert c_gen["raster_shade"] == c_gen["raster_shade_image"], c_gen
     check_golden_keys_builds(dev, soup, scene)
-    profile_frames(gen_fn, 5, ("raster.", "frame.", "glyph"),
-                   "subtile3 golden call")
+    shade_stages("subtile3 golden call", profile_frames(
+        gen_fn, 5, ("raster.", "frame.", "glyph"), "subtile3 golden call")[2])
     # subtile4 walks B9e where subtile3 walks B9d; subtile5 walks B9f (and
     # packs with B3, not B7)
     gen_frame = _generation_frame(dev, soup, scene)
     for method in ("subtile4", "subtile5"):
-        profile_frames(lambda: gen_frame(method, False), 5,
-                       ("raster.", "frame.", "glyph"),
-                       f"{method} golden call")
+        shade_stages(f"{method} golden call", profile_frames(
+            lambda: gen_frame(method, False), 5,
+            ("raster.", "frame.", "glyph"), f"{method} golden call")[2])
 
     # the retired generations: B8, B9a, B9b and B9c against their plain
     # versions, then fused, subtile, subtile2 and visibility_subtile
@@ -5639,7 +5967,7 @@ def main() -> int:
     recs += oracle_recs
     shade_calls["subtile"] = _capture(RSH, "shade", _oracle_frame(
         dev, soup, scene, "subtile", caps["subtile"]))[0]
-    recs.append(check_raster_shade(dev, shade_calls))
+    recs.append(check_raster_shade(dev, shade_calls, image_form))
     del shade_calls, mid_shade
     c_or, or_frames = run_oracle_paths(dev, soup, scene, caps, counters)
     for rec, path in zip(oracle_recs, ("fused", "visibility_subtile",
@@ -5721,7 +6049,7 @@ def main() -> int:
     c_entry, entry_fn = _path_counts(counters, run_entry_path)
     print(f"launches on the entry step: {c_entry}", flush=True)
     for k in ("raster_bins_walk", "modal_vote", "raster_clip_table",
-              "raster_shade", "bin_entries"):
+              "raster_shade", "bin_entries", "frame_bytes_ui"):
         assert c_entry[k] > 0, f"{k} never launched on the entry step"
     # the clip, its setup and the plane table: X4's table form alone
     assert c_entry["raster_clip"] == c_entry["raster_clip_table"], c_entry
@@ -5732,6 +6060,7 @@ def main() -> int:
           f"raster.shade {prof[2].get('raster.shade', 0):g} (no X3)",
           flush=True)
     assert prof[2]["raster.clip"] == ENTRY_CLIP_LAUNCHES, prof[2]
+    compose_stage("entry step", prof[2])
     walk_launches = {"entry step": prof[2]["raster.walk"]}
     tails["entry step"] = tail_stages("entry step", prof, counters, entry_fn)
     c_cube, _ = _path_counts(counters, lambda: run_cube_path(dev))
@@ -5763,9 +6092,11 @@ def main() -> int:
     print(f"launches on the PT frame step: {c_pts}", flush=True)
     for k in PT_KERNELS + ("modal_vote",):
         assert c_pts[k] > 0, f"{k} never launched on the PT frame step"
+    assert c_pts["frame_bytes_ui"] > 0, c_pts
     prof = profile_frames(pts_fn, 3, ("pt.", "frame.", "glyph"),
                           "PT frame step")
     pt_stages("PT frame step", prof[2], 2)
+    compose_stage("PT frame step", prof[2])
     tails["PT frame step"] = tail_stages("PT frame step", prof, counters,
                                          pts_fn)
 
@@ -5810,7 +6141,7 @@ def main() -> int:
     print(f"launches in the CLI phase: {c_cli}", flush=True)
     for k in ("pt_megakernel", "modal_vote", "raster_bins_walk", "pack",
               "pack_channels_split", "pt_rays", "pt_reduce", "rt_trace",
-              "frame_bytes", "modal_vote_chars"):
+              "frame_bytes", "modal_vote_chars", "frame_bytes_ui"):
         assert c_cli[k] > 0, f"{k} never launched in the CLI phase"
     # every vote of the CLI's frames came through the chars form, one X12a
     # launch before each glyph launch
@@ -5835,9 +6166,9 @@ def main() -> int:
     try:
         profile_frames(train_fn, 1, ("train.",),
                        f"config 5 train call ({CONFIG5_STEPS} steps)")
-        profile_frames(band_fn, 3, ("rt.", "pt.", "raster."),
-                       "band frames (RT 12 rows, PT 12 rows, subtile8 176 "
-                       "rows)")
+        shade_stages("band frames", profile_frames(
+            band_fn, 3, ("rt.", "pt.", "raster."),
+            "band frames (RT 12 rows, PT 12 rows, subtile8 176 rows)")[2])
     finally:
         close()
 
@@ -5897,6 +6228,13 @@ def main() -> int:
     for k in ("frame_bytes", "modal_vote_chars", "glyph_map"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
+    # K2's image form (in K2's launches) and X12a's UI form (in X12a's)
+    for rec, k, form in ((by_name["raster_shade"], "raster_shade_image",
+                          "image_form"),
+                         (by_name["frame_bytes"], "frame_bytes_ui",
+                          "ui_form")):
+        rec[form]["launches"] = sum(c[k] for c in driven)
+        assert rec[form]["launches"] > 0, k
     print(f"glyph tail a frame (host ms, launches): {json.dumps(tails)}",
           flush=True)
     # K3 computes the jitted grid's rays on every render path

@@ -122,7 +122,7 @@ def test_cpu_tensors_run_the_generations_plain_versions(zero_counts):
     cm, bbox = S.setup_2dh_fused_ref(pos9, attrs_t, mvp, 48, 96)
     for walk in GEN_WALKS:
         lay, fn, ref = _gen_layout(walk, cm, bbox, (32 * 512, 1 << 16, 6))
-        (z, e), (z_r, e_r) = fn(*lay[:-4], 6), ref(*lay[:-4], 6)
+        (z, e), (z_r, e_r) = fn(*lay[:-5], 6), ref(*lay[:-5], 6)
         assert torch.equal(e, e_r) and torch.equal(z, z_r), walk
         assert (e >= 0).sum() > 100
     assert (S.launches_packed, RG.launches_grouped, RG.launches_direct,
@@ -942,8 +942,8 @@ def test_generation_walks_equal_plain_on_cuda(cuda_device, walk, caps,
     pos9, attrs_t, mvp = _walk_inputs(cuda_device, T=3000, seed=5)
     cm, bbox = S.setup_2dh_fused(pos9, attrs_t, mvp, 48, 96)
     lay, fn, ref = _gen_layout(walk, cm, bbox, caps)
-    z, e = fn(*lay[:-4], caps[2])
-    z_r, e_r = ref(*lay[:-4], caps[2])
+    z, e = fn(*lay[:-5], caps[2])
+    z_r, e_r = ref(*lay[:-5], caps[2])
     torch.cuda.synchronize()
     assert (RG.launches_grouped, RG.launches_direct, RG.launches_k2) == {
         "B9d": (1, 0, 0), "B9e": (0, 1, 0)}.get(walk, (0, 0, 1))
@@ -1303,7 +1303,7 @@ def _k2_layout(case):
     cm, bbox = S.setup_2dh_fused_ref(pos9, attrs_t, mvp, 48, 96)
     lay, _fn, _ref = _gen_layout("B9f_" + case[:2].lower(), cm, bbox,
                                  (32 * 512, 1 << 16, 6))
-    return lay[:-4], 6
+    return lay[:-5], 6
 
 
 @pytest.mark.parametrize("case", K2_CASES)
@@ -1418,7 +1418,7 @@ def _direct_layout(case):
                           _walk_inputs("cpu", T=3000, seed=5))
     cm, bbox = S.setup_2dh_fused_ref(pos9, attrs_t, mvp, 48, 96)
     lay, _fn, _ref = _gen_layout("B9e", cm, bbox, DIRECT[case])
-    return lay[:-4], DIRECT[case][2], int(lay[-2])
+    return lay[:-5], DIRECT[case][2], int(lay[-3])
 
 
 def _sliced_direct(src_pair, goff, gdepth, gchunks, xl, yl, grp_cap):

@@ -1084,3 +1084,220 @@ def test_render_pt_set_up_makes_one_launch_and_no_copy(cuda_device,
     copies = [name for name, devs in ops if "cpu" in devs]
     assert len(launching) <= 1 and not copies, ops
     assert bool(torch.isfinite(rgb).all())
+
+
+# --------------------------------------------------------------------------
+# K2's image form (X11) and X10's inverse of the depth order
+# --------------------------------------------------------------------------
+# (rows, cols, grp_cap less the tiles, y_off): a grouped walk's image; bins
+# no group covers where grp_cap is short, sentinel slots where it is long; a
+# band of rows from y_off
+IMAGE_CASES = {"36x96": (36, 96, 0, 0), "540x960": (540, 960, 0, 0),
+               "uncovered bins": (40, 300, -6, 0),
+               "sentinel slots": (61, 200, 3, 0),
+               "band of 176 at 176": (176, 960, 0, 176)}
+
+
+def _image_walk(case, n_tris=200, seed=4):
+    """A seeded grouped walk on the CPU: keys of random depths, the plain
+    K = 8 build's lanes, slots' bins and places (xl, yl in the band's rows,
+    gbins, ginv), winner ids e (-1 where no hit, some -0.0), the
+    geometry."""
+    rows, cols, extra, y_off = IMAGE_CASES[case]
+    tiles_y, tiles_x = -(-rows // 8), -(-cols // 128)
+    n_tiles = tiles_y * tiles_x
+    grp_cap = n_tiles + extra
+    rng = np.random.default_rng(seed + rows + cols)
+    depths = rng.choice([0, 0, 1, 2, 5, 9, 14], n_tiles * 8)
+    keys = torch.from_numpy(np.concatenate(
+        [(b << 18) | np.sort(rng.choice(n_tris, d, replace=False))
+         for b, d in enumerate(depths) if d]).astype(np.int32))
+    src = torch.from_numpy(rng.normal(size=(n_tris, 32)).astype(np.float32))
+    lay = GB.build_rows(src, keys, tiles_x, n_tiles, 32 * 64, 1 << 16,
+                        grp_cap, k=8, y_off=y_off)
+    e = rng.integers(-1, n_tris, (grp_cap, 8, 128)).astype(np.float32)
+    e[rng.random(e.shape) < 0.3] = -1.0
+    e.reshape(-1)[::13] = -0.0
+    return dict(e=torch.from_numpy(e), groups=(*lay[-7:-4], lay[-1]),
+                tiles_x=tiles_x,
+                rows=rows, cols=cols, y_off=y_off, keys=keys, src=src,
+                caps=(tiles_x, n_tiles, 32 * 64, 1 << 16, grp_cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["pack_width", "unaligned_rows"])
+@pytest.mark.parametrize("n_attrs,n_pts", [(9, 3), (6, 0)],
+                         ids=["9_3pt", "6"])
+@pytest.mark.parametrize("case", sorted(IMAGE_CASES))
+def test_shade_image_kernel_equals_plain(cuda_device, case, n_attrs, n_pts,
+                                         layout):
+    """K2's image form (one launch) against its plain version (the grouped
+    shade, then the assembly) bit for bit: covered and uncovered bins,
+    sentinel slots, a band, ids of -0.0, table rows read as float4 or
+    not."""
+    w = _image_walk(case)
+    scene = shade_builder(TSB, True, n_pts).build(device=cuda_device)
+    table = shade_inputs(n_attrs, (1,), n_tris=200)[0].to(cuda_device)
+    W = table.shape[1]
+    wide = torch.zeros((table.shape[0], -(-W // 8) * 8 + 8),
+                       device=cuda_device)
+    if layout == "unaligned_rows":
+        wide[:, 1:1 + W] = table
+        table = wide[:, 1:1 + W]
+    else:
+        wide[:, :W] = table
+        table = wide[:, :-(-W // 8) * 8]
+    args = (table, w["e"].to(cuda_device),
+            *(t.to(cuda_device) for t in w["groups"]), scene, n_attrs,
+            w["tiles_x"], w["rows"], w["cols"], w["y_off"])
+    n0, i0 = RSH.launches, RSH.launches_image
+    got = RSH.shade_image(*args)
+    assert (RSH.launches, RSH.launches_image) == (n0 + 1, i0 + 1)
+    want = RSH.shade_image_ref(*args)
+    _same_bits(got, want)
+    assert got.shape == (w["rows"], w["cols"], 3) and (want > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen", sorted(GB.LAYOUTS))
+@pytest.mark.parametrize("case", sorted(IMAGE_CASES))
+def test_group_build_ginv_equals_plain(cuda_device, case, gen):
+    """X10 on the image form's walks (bins no group covers, sentinel
+    slots, a band): the layout and ginv, each bin's place that the layout
+    block stores, bit for bit with the plain build, with X9's offsets and
+    without."""
+    w = _image_walk(case)
+    k, rows256 = GB.LAYOUTS[gen]
+    src, keys = w["src"], w["keys"]
+    offs = torch.from_numpy(np.searchsorted(
+        keys.numpy(), np.arange(w["caps"][1] * 8 + 1) << 18).astype(np.int32))
+    want = GB.build_rows(src, keys, *w["caps"], k=k, rows256=rows256,
+                         y_off=w["y_off"])
+    for offsets in (None, offs):
+        kw = dict(k=k, rows256=rows256, y_off=w["y_off"],
+                  offsets=None if offsets is None else offsets.to(
+                      cuda_device))
+        got = GB.build_rows(src.to(cuda_device), keys.to(cuda_device),
+                            *w["caps"], **kw)
+        assert len(got) == len(want)
+        for g, x in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32)
+                               if g.dtype == torch.float32 else g.cpu(),
+                               x.view(torch.int32)
+                               if x.dtype == torch.float32 else x)
+
+
+def _stage_ops(monkeypatch, module, attr, names):
+    """Route ``module.attr`` (its record_function) to a recorder and count,
+    under a TorchDispatchMode, the torch ops that touch the card inside the
+    named stages: (mode, {stage: [(op, devices)]})."""
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    stage, ops = [None], {n: [] for n in names}
+
+    @contextlib.contextmanager
+    def stage_range(name):
+        prev, stage[0] = stage[0], name
+        try:
+            yield
+        finally:
+            stage[0] = prev
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if stage[0] in ops:
+                flat = [t for t in torch.utils._pytree.tree_leaves(
+                    (args, kwargs, out)) if isinstance(t, torch.Tensor)]
+                devs = {t.device.type for t in flat}
+                if "cuda" in devs:
+                    ops[stage[0]].append((func.__name__.split(".")[0],
+                                          devs))
+            return out
+
+    monkeypatch.setattr(module, attr, stage_range)
+    return Count, ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["subtile8 540x960", "subtile3 golden caps",
+                                  "subtile8 band", "subtile4 golden caps"])
+def test_grouped_frames_shade_and_assemble_in_one_launch(cuda_device,
+                                                         monkeypatch, call):
+    """A grouped frame on the card (a bunny at 960x540: the headline's
+    kernel, the golden call's caps, whose 1,024 bin slots leave bins
+    uncovered, a band of 176 rows) shades and assembles in one launch of
+    K2's image form: raster.shade and raster.assemble launch nothing else
+    and copy nothing; the frame equals the same call through the plain
+    version bit for bit."""
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.geom import meshes
+    v, i = meshes.bunny_like(15000)
+    soup = tuple(torch.from_numpy(x).to(cuda_device) for x in
+                 meshes.mesh_to_soup(v, i, color=(0.8, 0.78, 0.75)))
+    sb = TSB().set_env_light([0.22, 0.24, 0.28], 1.0)
+    sb.add_dir_light([-0.5, -0.7, -0.6], [1, 1, 1], 0.9)
+    scene = sb.build(device=cuda_device)
+    cam = Camera.create(pos=(2.4, 1.4, 2.8),
+                        yaw=float(np.arctan2(-2.8, -2.4)), pitch=-0.3)
+    T = soup[0].shape[0] // 3
+    kernel = call.split()[0]
+    kw = dict(v_cap=-(-T // 4096) * 4096, kernel=kernel)
+    if "golden" in call:
+        kw.update(big_cap=0, r_cap=-(-2 * T // 2048) * 2048, pair_cap=8 * T,
+                  tile_cap=1024)
+    else:
+        kw.update(big_cap=64, r_cap=1 << 17, pair_cap=1 << 19)
+    if "band" in call:
+        kw.update(row_lo=176, band_rows=176)
+    args = (*soup, scene, cam, 540, 960, 0.5)
+    R.render_soup_diag(*args, **kw)  # the kernels built, caches warm
+    Count, ops = _stage_ops(monkeypatch, R, "stage",
+                            ("raster.shade", "raster.assemble"))
+    n0, i0 = RSH.launches, RSH.launches_image
+    with Count():
+        got, diag = R.render_soup_diag(*args, **kw)
+    torch.cuda.synchronize()
+    assert (RSH.launches, RSH.launches_image) == (n0 + 1, i0 + 1)
+    for name, got_ops in ops.items():
+        launching = [o for o, _d in got_ops if o not in _NO_LAUNCH]
+        copies = [o for o, d in got_ops if "cpu" in d]
+        assert not launching and not copies, (name, got_ops)
+    monkeypatch.setattr(RSH, "shade_image", RSH.shade_image_ref)
+    want, _d = R.render_soup_diag(*args, **kw)
+    _same_bits(got, want)
+    assert got.shape == (176 if "band" in call else 540, 960, 3)
+    assert (want > 0).any() and int(diag["n_tiles_nz"]) > 0
+
+
+@pytest.mark.cuda
+def test_shade_image_and_ui_form_raise_on_build_or_launch_failure(
+        cuda_device, monkeypatch):
+    """A failed build and a failed launch each raise out of K2's image form
+    and X12a's UI form; neither falls back to its plain version."""
+    from ascii_renderer_tpu_torch.core.config import Config
+    from ascii_renderer_tpu_torch.ops import frame_bytes as FB
+    from ascii_renderer_tpu_torch.sim import ui as U
+    w = _image_walk("36x96")
+    scene = shade_builder(TSB, True, 0).build(device=cuda_device)
+    table = shade_inputs(6, (1,), n_tris=200)[0].to(cuda_device)
+    rip = np.zeros((16, 3), np.float32)
+    rip[0] = (40.0, 20.0, 0.0)
+    ui = U.ui_params(Config(), 36, 96, 60.0, rip, 1, 100.0)
+    rgb = torch.rand((36, 96, 3), device=cuda_device)
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    groups = [t.to(cuda_device) for t in w["groups"]]
+    runs = (lambda: RSH.shade_image(table, w["e"].to(cuda_device), *groups,
+                                    scene, 6, w["tiles_x"], w["rows"],
+                                    w["cols"]),
+            lambda: FB.frame_bytes(rgb, ui=ui))
+    for lib, match in ((no_build, "nvcc failed"),
+                       (lambda: _FailingLib(), "launch failed")):
+        monkeypatch.setattr(_build, "lib", lib)
+        for run in runs:
+            with pytest.raises(RuntimeError, match=match):
+                run()

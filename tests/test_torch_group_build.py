@@ -71,7 +71,7 @@ CAPS = {  # (r_cap, pair_cap, grp_cap)
     "sentinels": (32 * 256, 1 << 16, 2 * N_TILES),
 }
 NAMES = ("rows", "rowptr", "gdepth", "gskip", "xl", "yl", "gbins",
-         "n_rows", "n_pairs", "n_used")
+         "n_rows", "n_pairs", "n_used", "ginv")
 JAX_BUILDS = {  # (K, rows256) -> the JAX package's build
     (1, False): JRG.build_packed_rows_grouped,
     (2, True): JRG.build_packed_rows_grouped_k2,
@@ -96,7 +96,9 @@ def _offsets(keys):
 @pytest.mark.parametrize("caps", sorted(CAPS))
 def test_build_rows_plain_equals_jax(gen, caps):
     """X10's plain version gives the JAX package's build of the same
-    layout bit for bit, with or without the caller's offsets."""
+    layout bit for bit, with or without the caller's offsets, then each
+    bin's place in the depth order (ginv: a permutation of the bins whose
+    first 8 grp_cap places are the slots' bins)."""
     k, rows256 = GB.LAYOUTS[gen]
     src16, keys = _jax_src_keys()
     r_cap, pair_cap, grp_cap = CAPS[caps]
@@ -109,7 +111,13 @@ def test_build_rows_plain_equals_jax(gen, caps):
         got = GB.build_rows(_t(src16), _t(keys), TILES_X, N_TILES, r_cap,
                             pair_cap, grp_cap, k=k, rows256=rows256,
                             offsets=offsets)
-        assert len(got) == len(want)
+        assert len(got) == len(want) + 1
+        ginv, gbins = got[-1].numpy(), got[-5].numpy()
+        n_bins = N_TILES * 8
+        assert sorted(ginv) == list(range(n_bins))
+        real = gbins < n_bins
+        np.testing.assert_array_equal(ginv[gbins[real]],
+                                      np.arange(gbins.size)[real])
         for nm, w, g in zip(_names(k, rows256), want, got):
             w = np.asarray(w)
             assert g.numpy().dtype == w.dtype, nm
@@ -119,7 +127,7 @@ def test_build_rows_plain_equals_jax(gen, caps):
             else:
                 np.testing.assert_array_equal(g.numpy(), w, err_msg=nm)
     if caps == "overflow":  # the counts must report what was dropped
-        assert int(got[-3]) > r_cap or int(got[-1]) > grp_cap * 8
+        assert int(got[-4]) > r_cap or int(got[-2]) > grp_cap * 8
 
 
 # --------------------------------------------------------------------------
@@ -190,6 +198,10 @@ def replay(src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap, k,
     assert sorted(place[f]) == list(range(n_used))
     perm[place[f & (place < n_perm)]] = g[f & (place < n_perm)]
     assert (perm[:n_perm] >= 0).all()
+    # every bin's place, the dropped ones' too
+    ginv = np.zeros(nb, np.int64)
+    ginv[g[emp]] = at
+    ginv[g[f]] = place[f]
     # slots: a thread a slot, the group's deepest of 8, the rows scanned
     i = np.arange(8 * grp_cap)
     b = np.where(i < nb, perm[np.minimum(i, nb - 1)], nb)
@@ -237,7 +249,7 @@ def replay(src, keys, tiles_x, n_tiles, r_cap, pair_cap, grp_cap, k,
     yl = ((tile // tiles_x) * 8).astype(np.float32) + np.float32(y_off)
     shape = (r_cap // 2, 256) if rows256 else (r_cap, 128)
     out = [rows.reshape(shape), rowptr, dep, sk, xl.reshape(grp_cap, 128),
-           yl.reshape(grp_cap, 128), b, *counts]
+           yl.reshape(grp_cap, 128), b, *counts, ginv]
     if k == 1 and not rows256:
         del out[3]
     return out
@@ -333,9 +345,9 @@ def test_kernel_replay_equals_plain_at_edges(gen, case):
     src, keys = _synthetic(depths)
     got = _replay_equals_plain(src, keys, tiles_x, n_tiles, caps, gen)
     n_used = int((np.asarray(depths) > 0).sum())
-    assert int(got[-1]) == n_used
+    assert int(got[-2]) == n_used
     if case == "sentinels":
-        assert (np.asarray(got[-4]) == n_tiles * 8).any()
+        assert (np.asarray(got[-5]) == n_tiles * 8).any()
 
 
 @pytest.mark.parametrize("gen", sorted(GB.LAYOUTS))
@@ -347,8 +359,9 @@ def test_layout_buffers_are_two_disjoint_allocations(gen):
     k, rows256 = GB.LAYOUTS[gen]
     n_bins, r_cap, grp_cap = 4352, 10240, 60
     outs, ws = GB.layout_buffers(n_bins, r_cap, grp_cap, k, rows256, "cpu")
-    rows, rowptr, gdepth, gskip, xl, yl, gbins, counts = outs
+    rows, rowptr, gdepth, gskip, xl, yl, gbins, counts, ginv = outs
     assert rows.shape == ((r_cap // 2, 256) if rows256 else (r_cap, 128))
+    assert ginv.shape == (n_bins,)
     assert rowptr.shape == (grp_cap + 1,) and counts.shape == (3,)
     assert gdepth.shape == gskip.shape == gbins.shape == (8 * grp_cap,)
     assert xl.shape == yl.shape == (grp_cap, 128)

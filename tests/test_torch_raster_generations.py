@@ -197,7 +197,7 @@ def test_generation_walks_agree_on_one_grouping():
     outs = []
     for gen in RG.GENERATIONS.values():
         lay = gen.build(src, k, TILES_X, N_TILES, *caps)
-        outs.append(gen.walk(*lay[:-4], N_TILES))
+        outs.append(gen.walk(*lay[:-5], N_TILES))
     for z, e in outs[1:]:
         assert torch.equal(e, outs[0][1])
         assert torch.equal(z.view(torch.int32), outs[0][0].view(torch.int32))
