@@ -28,7 +28,9 @@ fetched-texel anti-aliasing rule; alpha 255 for pixels without override.
 
 ``render_pt(pixel_active=)`` (the progressive tracer's adaptive path,
 ``sim/accum``) compacts the active pixels to the front of the kernel's ray
-stream, so its block gate skips the converged tail. ``render_pt(row_lo=,
+stream (the order, uids and block gates from ``ops/partition
+.stable_order``: X13 on the card), so its block gate skips the converged
+tail. ``render_pt(row_lo=,
 n_rows=)`` renders a row band of the frame (``parallel.mesh
 .render_rows_sharded``): on the kernel path each ray's RNG id is its
 pixel's global uid, so a band equals those rows of the full frame bit for
@@ -38,6 +40,7 @@ reference's does.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -50,16 +53,23 @@ from ascii_renderer_tpu_torch.backends.pt_core import (  # noqa: F401
 from ascii_renderer_tpu_torch.core import quantize
 from ascii_renderer_tpu_torch.core import threefry as TF
 from ascii_renderer_tpu_torch.core.camera import (Camera, band_of,
-                                                  camera_basis, ndc_grid)
-from ascii_renderer_tpu_torch.core.fp import sqrt32
+                                                  camera_basis,
+                                                  camera_basis_floats,
+                                                  camera_floats, ndc_grid)
+from ascii_renderer_tpu_torch.core.fp import round32, sqrt32
 from ascii_renderer_tpu_torch.core.quantize import fdiv
 from ascii_renderer_tpu_torch.core.frame import Frame
+from ascii_renderer_tpu_torch.ops import partition as PTN
 from ascii_renderer_tpu_torch.ops import pt_kernel as PK
 from ascii_renderer_tpu_torch.ops import pt_reduce as PR
 from ascii_renderer_tpu_torch.ops.ray_grid import pt_rays, ray_grid
 from ascii_renderer_tpu_torch.scene.builder import SceneData
 
 _GOLDEN = -1640531527  # int32 golden-ratio stride between batch seeds
+_block_gate = PTN.block_gate  # the block gates' plain chain, moved to ops
+# float32 constants of the light's chain (_light_center, light_floats)
+_F32_0P9, _F32_0P7, _F32_2P8, _F32_1P3, _F32_EPS = (
+    round32(x) for x in (0.9, 0.7, 2.8, 1.3, EPS))
 
 
 def light_sphere_host(scene: SceneData):
@@ -76,11 +86,42 @@ def get_light_sphere(scene: SceneData, time, host=None):
     ``host``: a precomputed light_sphere_host(scene)."""
     auto, center, radius = light_sphere_host(scene) if host is None else host
     if auto:
-        t = torch.tensor(float(time), dtype=torch.float32)
-        center = torch.stack([3.0 + 2.0 * torch.sin(t),
-                              2.8 + 2.0 * torch.sin(t * 0.9),
-                              3.0 + 4.0 * torch.cos(t * 0.7)])
+        center = torch.tensor(_light_center(time), dtype=torch.float32)
     return center, radius
+
+
+def light_floats(scene: SceneData, time, light_color, host=None) -> list:
+    """The megakernel's 8 light parameters (centre xyz, radius, colour
+    rgb = light_color * 1.3, eps) as Python floats: get_light_sphere's
+    centre and radius, the colour's float32 product."""
+    auto, center, radius = light_sphere_host(scene) if host is None else host
+    center = _light_center(time) if auto else center.tolist()
+    return [*center, radius.item(),
+            *(round32(round32(float(c)) * _F32_1P3) for c in light_color),
+            _F32_EPS]
+
+
+def _light_center(time) -> list:
+    """The animated light's centre at ``time`` as 3 Python floats, in
+    float32: 3 + 2 sin(t), 2.8 + 2 sin(0.9 t), 3 + 4 cos(0.7 t), the sines
+    and cosine through torch's CPU float32 sin / cos, each other operation
+    rounded once (``round32``)."""
+    t = round32(float(time))
+    s1, s2, c3 = _light_trig(t, math.copysign(1.0, t))
+    return [round32(3.0 + 2.0 * s1), round32(_F32_2P8 + 2.0 * s2),
+            round32(3.0 + 4.0 * c3)]
+
+
+@functools.lru_cache(maxsize=64)
+def _light_trig(t: float, _sign: float):
+    """sin(t), sin(t * 0.9) and cos(t * 0.7) of the float32 time t, by
+    torch's CPU float32 sin and cos, cached by time (and the sign of a
+    zero time)."""
+    s1, s2 = torch.sin(torch.tensor([t, round32(t * _F32_0P9)],
+                                    dtype=torch.float32)).tolist()
+    c3 = torch.cos(torch.tensor(round32(t * _F32_0P7),
+                                dtype=torch.float32)).item()
+    return s1, s2, c3
 
 
 def _cross(a, b):
@@ -572,13 +613,13 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     dev = torch.device(device) if device is not None else \
         scene.sph_pos.device
     if not use_kernel:
-        light_center, light_radius = get_light_sphere(scene, time,
-                                                      light_host)
+        light = light_floats(scene, time, light_color, light_host)
+        center, radius, rgb = (torch.tensor(v, dtype=torch.float32)
+                               for v in (light[:3], light[3], light[4:7]))
         return _render_core(
-            scene, cam, rows, cols, pixel_aspect, spp, bounces,
-            torch.as_tensor(light_color, dtype=torch.float32) * 1.3, nee,
+            scene, cam, rows, cols, pixel_aspect, spp, bounces, rgb, nee,
             sample_batch, key or TF.key_data(int(frame_seed) & TF.M32),
-            light_center, light_radius, dev, row_lo, n_rows)
+            center, radius, dev, row_lo, n_rows)
     if packed is None:
         packed = pack_scene_entries(scene)
     frame_seed = PK.int32_wrap(frame_seed)
@@ -586,13 +627,12 @@ def render_pt(scene: SceneData, cam: Camera, time, frame_seed=None, *,
     n_batches = -(-spp // B)
     pc = band * cols
     with record_function("pt.setup"):
-        # host floats, passed by value: no copy to the card
-        basis = camera_basis(cam.yaw, cam.pitch, cam.fov_y)
-        light_center, light_radius = get_light_sphere(scene, time,
-                                                      light_host)
-        lcol = torch.as_tensor(light_color, dtype=torch.float32) * 1.3
-        light = _light_host(light_center, light_radius, lcol).tolist()
-        blocks = _FrameRays(cam, light, rows, cols, row_lo, band, B,
+        # host floats, passed by value: the camera read once, its basis on
+        # Python floats, no copy to or from the card
+        pose = camera_floats(cam)
+        basis = camera_basis_floats(*pose[3:])
+        light = light_floats(scene, time, light_color, light_host)
+        blocks = _FrameRays(light, pose[:3], rows, cols, row_lo, band, B,
                             n_batches, pixel_active, dev)
         state = PR.new_state(pc, dev)
     kw = dict(bounces=bounces, nee=nee)
@@ -633,35 +673,33 @@ class _FrameRays:
     (the probe's and each batch's) and, for a compacted stream, its order
     ``slot`` (the pixel of each stream slot), the slots' pixel uids
     ``pix_uid`` (X7 and the megakernel form each ray's cell and RNG id
-    from them) and the block gates by launch size. A full frame or a band
-    needs nothing else: the kernels form a ray's uid from uid0 = row_lo *
-    cols (s * rows * cols + uid0 + p for sample s of slot p), so its
-    set-up is the counters' one launch."""
+    from them) and the block gates by launch size, all from one call of
+    X13's order form (``ops/partition.stable_order``). A full frame or a
+    band needs nothing else: the kernels form a ray's uid from uid0 =
+    row_lo * cols (s * rows * cols + uid0 + p for sample s of slot p), so
+    its set-up is the counters' one launch. ``light`` and ``origin``:
+    light_floats' 8 and the camera position's 3 floats."""
 
-    def __init__(self, cam: Camera, light, rows: int, cols: int,
-                 row_lo: int, band: int, samples: int, n_batches: int,
-                 pixel_active, dev):
+    def __init__(self, light, origin, rows: int, cols: int, row_lo: int,
+                 band: int, samples: int, n_batches: int, pixel_active,
+                 dev):
         self.light = light
-        self.origin = cam.pos.detach().cpu().to(torch.float32).tolist()
+        self.origin = list(origin)
         self.pc, self.npix, self.uid0 = band * cols, rows * cols, row_lo * cols
-        self.counters = torch.zeros(n_batches + 1, dtype=torch.int32,
-                                    device=dev)
         self.pix_uid = self.slot = None
         self._gates = {}  # a compacted launch's block gates, by samples
         if pixel_active is not None:
             # adaptive compaction: a stable partition of the band's pixels,
-            # active first (one sort of the unique key (1 - active) * pc +
-            # slot); X7 and the megakernel take each slot's pixel uid
-            pc = self.pc
-            act = pixel_active.reshape(-1).to(device=dev, dtype=torch.int64)
-            local = torch.arange(pc, device=dev)
-            self.slot = torch.argsort((1 - act) * pc + local).to(torch.int32)
-            self.pix_uid = self.slot + self.uid0
-            # the actives hold slots [0, n_act); ray s * pc + p is live
-            # where slot p is (the pad rays are not)
-            mask = local < act.sum()
-            self._gates = {s: _block_gate(mask.repeat(s))
-                           for s in {1, samples}}
+            # active first; X7 and the megakernel take each slot's pixel
+            # uid, the gates skip the blocks past the actives
+            act = pixel_active.to(device=dev)
+            if act.dtype != torch.bool:
+                act = act != 0
+            self.slot, self.pix_uid, self._gates = PTN.stable_order(
+                act, self.uid0, samples)
+        # after the order: the set-up's launches follow each other closely
+        self.counters = torch.zeros(n_batches + 1, dtype=torch.int32,
+                                    device=dev)
 
     def trace(self, packed, rd, seed, i: int, samples: int, *, bounces: int,
               nee: bool):
@@ -676,17 +714,6 @@ class _FrameRays:
             bounces=bounces, nee=nee, atlas_w=aw, atlas_h=ah,
             sph_rows=sph_rows, block_active=self._gates.get(samples),
             counter=self.counters[i:i + 1])
-
-
-def _block_gate(live: torch.Tensor) -> torch.Tensor:
-    """int32 [nblk]: whether each 1,024-ray block of the flat ray mask
-    ``live`` holds a live ray (the pad rays are not)."""
-    n = live.numel()
-    pad = -n % PK.BLOCK
-    act = live.to(torch.int32)
-    if pad:
-        act = torch.cat([act, act.new_zeros(pad)])
-    return act.reshape(-1, PK.BLOCK).amax(dim=1)
 
 
 class PathtraceBackend:

@@ -5,10 +5,10 @@ The [2T]-domain pipeline: branchless near-clip expansion into
 channel-major screen triangles with their screen setup (ops/raster_clip:
 one launch of the kernel X4 on CUDA; uncompacted, its table form also
 writes the plane table in that launch, and its slots form the attribute
-slots of the fused-shading walk), order-preserving valid compaction,
-exact per-tile binning (the walk's entries through ops/bin_entries: the
-four launches of X9 on CUDA), the bin walks B6 / B6'
-(ops/raster_bins) and
+slots of the fused-shading walk), order-preserving valid compaction
+(ops/partition: one or two launches of X13 on CUDA), exact per-tile
+binning (the walk's entries and their counts through ops/bin_entries: the
+four launches of X9 on CUDA), the bin walks B6 / B6' (ops/raster_bins) and
 deferred plane-table shading (the attribute lerps and the table through
 ops/plane_table: one launch of the kernel X3 on CUDA; the reference packs
 its table with B7 when its length is a multiple of 512); and the
@@ -41,6 +41,7 @@ from ascii_renderer_tpu_torch.ops import raster_bins as RB
 from ascii_renderer_tpu_torch.ops.bin_entries import (  # noqa: F401
     _tile_span, binned_entries, binned_entries_ref, plane_entries,
     tile_pairs)
+from ascii_renderer_tpu_torch.ops import partition as PTN
 from ascii_renderer_tpu_torch.ops import raster_clip as RCL
 from ascii_renderer_tpu_torch.ops.plane_table import (  # noqa: F401
     _edge_coeffs, _sum3, build_plane_table, clip_attrs_channel_lists,
@@ -220,8 +221,7 @@ def visibility_scan(setup, rows: int, cols: int, chunk: int = 64):
     return zbuf, tbuf
 
 
-_COMPACT_KEYS = ("sxa", "sxb", "sxc", "sya", "syb", "syc",
-                 "sza", "szb", "szc", "iwa", "iwb", "iwc", "area2")
+_COMPACT_KEYS = PTN.COMPACT_KEYS
 
 
 def compact_valid_ch(ch, v_cap: int):
@@ -231,27 +231,17 @@ def compact_valid_ch(ch, v_cap: int):
     valid False), cidx [v_cap] i32 maps a compacted slot to its original
     [2T] index (fill = 2T), n_valid the 0-d i32 count. **If n_valid > v_cap
     the overflow triangles are dropped**: callers check the count
-    (render_soup_diag / suggest_caps) and re-render with a larger cap."""
-    valid = ch["valid"]
-    dev = valid.device
-    n2t = valid.shape[0]
+    (render_soup_diag / suggest_caps) and re-render with a larger cap.
+    One or two launches of X13's channels form on CUDA
+    (ops/partition.compact_channels), its plain version on the CPU."""
     assert v_cap <= MAX_V_CAP, f"v_cap {v_cap} exceeds {MAX_V_CAP}"
-    n_valid = valid.sum(dtype=torch.int32)
-    ids = torch.arange(n2t, dtype=torch.int32, device=dev)
-    skey = torch.sort(torch.where(valid, ids, n2t + ids)).values
-    if v_cap > n2t:  # [T]-domain callers may pass caps sized for [2T]
-        skey = torch.cat([skey, skey.new_full((v_cap - n2t,), n2t)])
-    cidx = torch.where(skey[:v_cap] < n2t, skey[:v_cap], n2t)
-    packed = torch.stack([ch[k] for k in _COMPACT_KEYS], dim=-1)
-    packed = torch.cat([packed, packed.new_zeros((1, len(_COMPACT_KEYS)))])
-    g = packed[cidx.long()].t()  # one wide row gather, then unpack
-    cch = {k: g[i] for i, k in enumerate(_COMPACT_KEYS)}
-    cch["valid"] = cidx < n2t
-    return cch, cidx, n_valid
+    return PTN.compact_channels(ch, v_cap)
 
 
 def count_big_small(ch, rows: int, cols: int, tile_window: int = 2):
-    """(n_small, n_big) 0-d i32 counts under the bin pass's rules."""
+    """(n_small, n_big) 0-d i32 counts under the bin pass's rules, by the
+    torch chain of ``_tile_span`` (the CPU route, and the ``"subtile"``
+    generation's; the card's bin walk reads X9's counts)."""
     *_, small, big = _tile_span(ch, rows, cols, tile_window)
     return small.sum(dtype=torch.int32), big.sum(dtype=torch.int32)
 
@@ -278,15 +268,17 @@ def shade_planes_ch(tid, ch, attrs, scene: SceneData, rows: int,
 
 
 def visibility_binned_ch(ch, rows: int, cols: int, *, kernel: str = "mm",
-                         big_cap: int = 64, tile_window: int = 2):
+                         big_cap: int = 64, tile_window: int = 2,
+                         counts: bool = False):
     """Channel-major tile-binned visibility with EXACT per-tile bins
     (binned_entries), walked by B6 (kernel 'mm') or B6' ('loop'). Only
     big triangles past ``big_cap`` are dropped (count_big_small reports
     them). Returns (zbuf f32 [rows, cols], tid i32 [rows, cols], -1 =
-    none)."""
-    data, offsets, tiles_x, n_tiles = binned_entries(
+    none), and with ``counts`` the bin pass's counts i32 [4] (n_small,
+    n_big, n_pairs, n_valid; binned_entries')."""
+    data, offsets, tiles_x, n_tiles, *cnt = binned_entries(
         ch, rows, cols, kernel=kernel, big_cap=big_cap,
-        tile_window=tile_window)
+        tile_window=tile_window, counts=counts)
     walk = RB.tile_eval_bins_mm if kernel == "mm" else RB.tile_eval_bins
     ztile, tidf = walk(data, offsets, tiles_x, n_tiles)
     tiles_y = n_tiles // tiles_x
@@ -295,7 +287,7 @@ def visibility_binned_ch(ch, rows: int, cols: int, *, kernel: str = "mm",
     timg = (tidf.to(torch.int32).reshape(tiles_y, tiles_x, TILE_H, TILE_W)
             .permute(0, 2, 1, 3).reshape(tiles_y * TILE_H, tiles_x * TILE_W))
     tid = timg[:rows, :cols]
-    return zimg[:rows, :cols], torch.where(tid < 0, -1, tid)
+    return (zimg[:rows, :cols], torch.where(tid < 0, -1, tid), *cnt)
 
 
 def visibility_binned(setup, rows: int, cols: int, slots: int = 256,
@@ -421,12 +413,14 @@ def render_channels_diag(positions, attrs, scene: SceneData, mvp,
                      "n_pairs": n_pairs,
                      "n_tiles_nz": nonempty.sum(dtype=torch.int32)}
     with stage("raster.walk"):
-        _zbuf, tid = visibility_binned_ch(cch, rows, cols, kernel=kernel,
-                                          big_cap=big_cap)
+        # the bin pass's counts over the compacted slots: n_big is X9's
+        # (the plain chain's on the CPU), no second span test
+        _zbuf, tid, counts = visibility_binned_ch(
+            cch, rows, cols, kernel=kernel, big_cap=big_cap, counts=True)
     with stage("raster.shade"):
         rgb = shade_planes_ch(tid, cch, attrs, scene, rows, cols, rec=ch,
                               cidx=cidx)
-        _n_small, n_big = count_big_small(cch, rows, cols)
+    n_big = counts[1]
     zero = torch.zeros((), dtype=torch.int32, device=rgb.device)
     return rgb, {"n_valid": n_valid, "n_big": n_big, "n_rows": zero,
                  "n_pairs": zero, "n_tiles_nz": zero}

@@ -13,7 +13,9 @@ whichever device renders the frame.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -153,6 +155,51 @@ def norm3(a) -> float:
     """``_norm3`` of three Python floats (float32 values)."""
     return sqrt32_scalar(fma32_scalar(a[2], a[2], fma32_scalar(
         a[1], a[1], round32(a[0] * a[0]))))
+
+
+class HostBasis(NamedTuple):
+    """One view's camera frame on Python floats (float32 values), as
+    ``_basis_scalar`` forms it: ``camera_basis``'s values, kept off
+    tensors for a launch that takes them by value."""
+    uu: tuple
+    vv: tuple
+    ww: tuple
+    focal: float
+    nine: tuple  # uu, vv, focal * ww (rounded): a ray launch's 9 floats
+
+    def tensors(self):
+        """``camera_basis``'s tuple: uu, vv, ww f32 [3], focal f32 0-d
+        (CPU tensors)."""
+        return tuple(torch.tensor(v, dtype=torch.float32) for v in self[:4])
+
+
+def camera_floats(cam: Camera) -> list:
+    """The camera's position, yaw, pitch and fov_y as 6 Python floats (its
+    float32 values), read in one copy from a camera on the card, none from
+    one on the host."""
+    parts = (cam.pos, cam.yaw, cam.pitch, cam.fov_y)
+    if all(t.device.type == "cpu" for t in parts):
+        return [*cam.pos.tolist(), cam.yaw.item(), cam.pitch.item(),
+                cam.fov_y.item()]
+    return torch.cat([t.detach().reshape(-1).to(torch.float32)
+                      for t in parts]).tolist()
+
+
+def camera_basis_floats(yaw: float, pitch: float, fov_y: float) -> HostBasis:
+    """``camera_basis`` of one pose given as Python floats, on Python
+    floats: bit for bit its tensors (``bases_floats`` makes them from the
+    same ``_basis_scalar``). Cached by pose, the signs of zeros included:
+    a still or translating camera's frames form it once."""
+    return _basis_floats(yaw, pitch, fov_y,
+                         *(math.copysign(1.0, x) for x in (yaw, pitch,
+                                                           fov_y)))
+
+
+@functools.lru_cache(maxsize=64)
+def _basis_floats(yaw, pitch, fov_y, *_signs) -> HostBasis:
+    uu, vv, ww, focal = _basis_scalar(yaw, pitch, fov_y)
+    return HostBasis(tuple(uu), tuple(vv), tuple(ww), focal,
+                     (*uu, *vv, *(round32(focal * w) for w in ww)))
 
 
 def camera_basis(yaw, pitch, fov_y):

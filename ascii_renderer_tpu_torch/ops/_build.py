@@ -135,6 +135,13 @@ SIGNATURES = {
     #  yl, gbins, counts, ginv, stream)
     "group_build_launch": (_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
                            _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # (flags, n, chans26_host, v_cap, out, cidx, valid, count, scratch,
+    #  stream)
+    "partition_channels_launch": (_P, _I, _LLP, _I, _P, _P, _P, _P, _P, _P),
+    # (flags, n, uid0, samples, ray_block, slot, pix_uid, gate1, nb1, gates,
+    #  nbs, count, scratch, stream)
+    "partition_order_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I,
+                               _P, _P, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (pix_uid, fet0, out, pc, samples, per, n_out, rows, cols, uid0,

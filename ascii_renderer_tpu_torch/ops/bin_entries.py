@@ -194,9 +194,12 @@ def pad_rows(P: int, kernel: str) -> int:
 
 
 def binned_entries_ref(ch, rows: int, cols: int, *, kernel: str = "mm",
-                       big_cap: int = 64, tile_window: int = 2):
+                       big_cap: int = 64, tile_window: int = 2,
+                       counts: bool = False):
     """The plain version of ``binned_entries``: ``tile_pairs``, the source
-    rows of ``plane_entries``, their gather into pair order."""
+    rows of ``plane_entries``, their gather into pair order; the counts
+    from ``_tile_span``'s classes (``count_big_small``'s chain), the
+    offsets' last and the valid flags."""
     tri_s, offsets, tiles_y, tiles_x = tile_pairs(
         ch, rows, cols, big_cap=big_cap, tile_window=tile_window)
     n_tiles = tiles_y * tiles_x
@@ -213,25 +216,36 @@ def binned_entries_ref(ch, rows: int, cols: int, *, kernel: str = "mm",
     data = src[tri_sp.long()]
     if kernel == "mm":
         data = data.reshape(-1, RB.MM_CHUNK, RB.N_CHAN).transpose(1, 2)
-        return data.contiguous(), offsets, tiles_x, n_tiles
-    return RB.pack_entries(data), offsets, tiles_x, n_tiles
+        out = (data.contiguous(), offsets, tiles_x, n_tiles)
+    else:
+        out = (RB.pack_entries(data), offsets, tiles_x, n_tiles)
+    if not counts:
+        return out
+    *_, small, big = _tile_span(ch, rows, cols, tile_window)
+    return out + (torch.stack([
+        small.sum(dtype=torch.int32), big.sum(dtype=torch.int32),
+        offsets[-1], ch["valid"].sum(dtype=torch.int32)]),)
 
 
 def binned_entries(ch, rows: int, cols: int, *, kernel: str = "mm",
-                   big_cap: int = 64, tile_window: int = 2, form: int = 0):
+                   big_cap: int = 64, tile_window: int = 2, form: int = 0,
+                   counts: bool = False):
     """The bin walk's input: the exact bins of ``tile_pairs`` and the
     plane-form entries gathered into pair order, in the layout of kernel
     'mm' (B6: [P/128, 16, 128]) or 'loop' (B6': [P/8, 128]), with an inert
     zero tail. Returns (data, offsets i32 [n_tiles + 1], tiles_x,
-    n_tiles). On the CPU the plain version; on a CUDA device X9 (``form``
-    0: by size, else one of ``FORMS``), bit for bit with the plain
-    version."""
+    n_tiles), and with ``counts`` the counts i32 [4] (n_small, n_big,
+    n_pairs, n_valid) of the triangles' classes, the pairs in real bins
+    and the valid slots. On the CPU the plain version; on a CUDA device X9
+    (``form`` 0: by size, else one of ``FORMS``), bit for bit with the
+    plain version, the counts those its triangles' pass leaves."""
     if kernel not in ("mm", "loop"):
         raise ValueError(f"binned_entries: unknown kernel {kernel!r}")
     valid = ch["valid"]
     if valid.device.type == "cpu":
         return binned_entries_ref(ch, rows, cols, kernel=kernel,
-                                  big_cap=big_cap, tile_window=tile_window)
+                                  big_cap=big_cap, tile_window=tile_window,
+                                  counts=counts)
     global launches
     chans = [ch[k] for k in KEYS]
     T = valid.shape[0]
@@ -253,20 +267,22 @@ def binned_entries(ch, rows: int, cols: int, *, kernel: str = "mm",
     src = torch.empty(((T + 1) * RB.N_CHAN,), dtype=torch.float32,
                       device=dev)
     offsets = torch.empty((n_tiles + 1,), dtype=torch.int32, device=dev)
-    counts = torch.empty((4,), dtype=torch.int32, device=dev)
+    cnt = torch.empty((4,), dtype=torch.int32, device=dev)
     data = torch.empty((n_rows * RB.N_CHAN,), dtype=torch.float32,
                        device=dev)
     err = _launch(chans, valid, 0, T, rows, cols, tile_window, big_cap, 0,
                   0, tile_window * tile_window, n_tiles, P, form, src=src,
-                  offsets=offsets, counts=counts, data=data, n_out=n_rows,
+                  offsets=offsets, counts=cnt, data=data, n_out=n_rows,
                   mm=kernel == "mm")
     launches += 1
     _build.check(err, "bin_entries_launch")
     if kernel == "mm":
-        return (data.view(-1, RB.N_CHAN, RB.MM_CHUNK), offsets, tiles_x,
-                n_tiles)
-    return (RB.pack_entries(data.view(n_rows, RB.N_CHAN)), offsets, tiles_x,
-            n_tiles)
+        out = (data.view(-1, RB.N_CHAN, RB.MM_CHUNK), offsets, tiles_x,
+               n_tiles)
+    else:
+        out = (RB.pack_entries(data.view(n_rows, RB.N_CHAN)), offsets,
+               tiles_x, n_tiles)
+    return out + (cnt,) if counts else out
 
 
 # --------------------------------------------------------------------------

@@ -31,7 +31,8 @@ import ctypes
 
 import torch
 
-from ascii_renderer_tpu_torch.core.camera import (band_of, grid_aspect,
+from ascii_renderer_tpu_torch.core.camera import (HostBasis, band_of,
+                                                  grid_aspect,
                                                   jit_grid_consts, ndc_grid,
                                                   ndc_grid_jit, ray_dirs,
                                                   ray_dirs_jit)
@@ -55,7 +56,10 @@ def samples_per_thread(pc: int, samples: int) -> int:
 
 
 def _basis9(basis):
-    """uu, vv and focal * ww as 9 host floats for a launch."""
+    """uu, vv and focal * ww as 9 host floats for a launch: a HostBasis's
+    own floats (no tensor operation), or camera_basis's tensors'."""
+    if isinstance(basis, HostBasis):
+        return (ctypes.c_float * 9)(*basis.nine)
     uu, vv, ww, focal = basis
     host = torch.cat([uu, vv, focal * ww]).to("cpu", torch.float32)
     return (ctypes.c_float * 9)(*host.tolist())
@@ -153,6 +157,8 @@ def pt_rays_ref(basis, rows: int, cols: int, pixel_aspect: float, *,
     ``fet0`` the centre rays (``ray_dirs``), with it ``batch_ray_dirs``
     of samples s0 .. s0 + samples - 1 (uids s * rows * cols + pix_uid,
     jitter where not fet0 > 0.5); blocked by ``pt_kernel.blockify``."""
+    if isinstance(basis, HostBasis):
+        basis = basis.tensors()
     band = band_of(rows, row_lo, n_rows)
     px, py, aspect = ndc_grid(rows, cols, pixel_aspect, device, row_lo,
                               band)
@@ -191,7 +197,9 @@ def pt_rays(basis, rows: int, cols: int, pixel_aspect: float, *,
     probe, one sample of centre rays. With ``fet0`` (the probe's fetch
     output, f32, pc or more) and ``seed`` (the batch's seed): a sample
     batch, jittered as ``batch_ray_dirs`` jitters. ``basis`` is
-    ``camera_basis``'s tuple (host tensors). On the CPU the plain version
+    ``camera_basis``'s tuple (host tensors) or its floats
+    (``core/camera.HostBasis``, passed by value with no tensor operation;
+    the render paths'). On the CPU the plain version
     (``pt_rays_ref``); on a CUDA device one launch (X7), a thread taking
     ``samples_per_thread`` samples of its slot."""
     device = torch.device(device)

@@ -418,3 +418,46 @@ def pixel_order(rows: int, cols: int, frac: float, seed=0):
     flat = act.reshape(-1)
     order = np.concatenate([np.flatnonzero(flat), np.flatnonzero(~flat)])
     return act, order.astype(np.int32)
+
+
+# X13's channel cases (ops/partition.compact_channels): (slots, mask rule,
+# v_cap) each; a rule is "all", "none", "alternating", "one" or the share
+# of set flags of a seeded random mask. "overflow" keeps more valid slots
+# than its cap; "v_cap above 2T" is the teapot's own (2,048 slots, v_cap
+# 8,192)
+PARTITION_CASES = {"all": (600, "all", 640), "none": (600, "none", 256),
+                   "alternating": (1000, "alternating", 512),
+                   "one": (1025, "one", 64), "random": (5000, 0.3, 2048),
+                   "overflow": (3000, 0.6, 1024),
+                   "v_cap above 2T": (2048, 0.3, 8192)}
+
+
+def partition_mask(n: int, rule, seed=0) -> np.ndarray:
+    """A bool [n] flag vector by ``rule`` (see PARTITION_CASES)."""
+    if rule == "all":
+        return np.ones(n, bool)
+    if rule == "none":
+        return np.zeros(n, bool)
+    if rule == "alternating":
+        return np.arange(n) % 2 == 0
+    if rule == "one":
+        return np.arange(n) == n // 2
+    return np.random.default_rng(seed).random(n) < rule
+
+
+def partition_channels(n: int, rule, seed=0) -> dict:
+    """A channel dict for the compaction: the 13 screen channels (float32
+    [n]: normal values with NaNs, infinities, signed zeros and subnormals
+    among them) and ``valid`` (``partition_mask``); numpy arrays."""
+    from ascii_renderer_tpu_torch.ops.partition import COMPACT_KEYS
+    rng = np.random.default_rng(seed + 1)
+    special = np.asarray([np.nan, np.inf, -np.inf, -0.0, 0.0, 1e-45,
+                          -3e-39], np.float32)
+    ch = {}
+    for k in COMPACT_KEYS:
+        v = rng.standard_normal(n).astype(np.float32) * 100
+        pick = rng.random(n) < 0.02
+        v[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+        ch[k] = v
+    ch["valid"] = partition_mask(n, rule, seed)
+    return ch

@@ -113,6 +113,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      60,000-triangle soup at the near plane (both vertex layouts, the
      table uncompacted and compacted): the dict and the table bit for bit
      (NaN in the same places); each timed at the mid-scale HD arm's call;
+   - the stable partition (X13, a kernel for XLA code, ops/partition: one
+     launch to 32,768 flags, two above) in its channels form at the
+     teapot's, the mid-scale HD arm's and the subtile golden call's
+     compact_valid_ch inputs (every channel's bits, valid, cidx, n_valid)
+     and in its order form at the progressive tracer's masks at 96x36 and
+     960x540 and all / none / one pixel active (slot, pix_uid, the block
+     gates of 1 and of the batch's samples): bit for bit; timed at each
+     call, the order form beside one stable torch.argsort of the same
+     flags (its order checked equal);
    - the grouped generations' kernels on the inputs of the golden call's
      bunny frame (render_soup(method=g) at the caps of
      tests/test_headline_goldens.py:49-52) and on a random 48x96 soup at
@@ -210,7 +219,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      gate over the compacted stream) bit-identical to adaptive_skip=False
      for 8 batches, then batches until poll_done() or 64 (active pixels,
      gated blocks, ms); a spp-2 frame 0's alpha equal to the CPU run; the
-     960x540 spp-8 arm, 8 batches.
+     960x540 spp-8 arm, 8 batches; its pt.setup (X13's order form and the
+     counters' fill) at most PT_SETUP_COMPACTED_LAUNCHES launches a batch
+     and no copy either way in pt.setup or pt.rays.
    - the app shell: the port's CLI (app/cli.main) in this process at
      96x36: offline raster, raytrace and raster --batch 4 must print the
      text of the CPU run of the same argv; offline pathtrace (spp 2) must
@@ -231,9 +242,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    grid kernel), fma32 through K1, the entry() step's, the
    cube's, the teapot's, the mid-scale HD arm's and the subtile path's
    clip and table through X4 and X3 (the fused path's clip through X4),
-   the binned paths' entries through X9; raster.walk makes at most
-   RASTER_WALK_LAUNCHES kernel launches a frame of the entry() step and
-   the mid-scale HD arm (printed with their fma32 launches).
+   the binned paths' entries through X9, the teapot's, the mid-scale HD
+   arm's and the subtile path's compaction through X13 (raster.compact at
+   most RASTER_COMPACT_LAUNCHES launches a frame, no copy; the mid arm's
+   raster.shade at most MID_SHADE_LAUNCHES: its n_big is X9's count),
+   the progressive tracer's order through X13's order form; raster.walk
+   makes at most RASTER_WALK_LAUNCHES kernel launches a frame of the
+   entry() step and the mid-scale HD arm (printed with their fma32
+   launches); no PT frame copies either way in pt.setup or pt.rays.
    K3's launches are recorded by size (rays and form) on the driven
    paths, and each size is timed at the end in the launch's own form (its
    lanes a ray, staging and blocks printed): its loss, launches x (kernel
@@ -4305,7 +4321,7 @@ def _stage_launches(prof, prefixes, n):
     """Kernel launches a frame inside each stage: the kernels (and copies)
     whose device interval lies within one of the stage's spans on the
     device (its annotation, from its first kernel to its last); and, as
-    "<stage> HtoD", the host-to-device copies among them."""
+    "<stage> HtoD" and "<stage> DtoH", the copies each way among them."""
     from torch.autograd import DeviceType
     spans, kernels = {}, []
     for e in prof.events():
@@ -4315,14 +4331,16 @@ def _stage_launches(prof, prefixes, n):
         if e.name.startswith(prefixes):
             spans.setdefault(e.name, []).append(r)
         elif "spin_kernel" not in e.name:
-            kernels.append((*r, "Memcpy HtoD" in e.name))
+            kernels.append((*r, "Memcpy HtoD" in e.name,
+                            "Memcpy DtoH" in e.name))
     kernels.sort()
     out = {}
     for name, rs in spans.items():
-        inside = [h for a, b, h in kernels for lo, hi in rs
+        inside = [(h, d) for a, b, h, d in kernels for lo, hi in rs
                   if lo <= a and b <= hi]
         out[name] = len(inside) / n
-        out[f"{name} HtoD"] = sum(inside) / n
+        out[f"{name} HtoD"] = sum(h for h, _d in inside) / n
+        out[f"{name} DtoH"] = sum(d for _h, d in inside) / n
     return out
 
 
@@ -4336,15 +4354,17 @@ def pt_stages(label, stages, n_batches):
     counts): pt.rays is X7 once for the probe and once a batch, pt.trace
     B5 likewise, pt.reduce X14 once a batch; pt.setup (the frame's ray
     counters; the paths it is asked for are not compacted) at most
-    PT_SETUP_LAUNCHES and no host-to-device copy."""
+    PT_SETUP_LAUNCHES; no copy either way in pt.setup and pt.rays."""
     want = {"pt.rays": 1 + n_batches, "pt.trace": 1 + n_batches,
             "pt.reduce": n_batches}
     got = {k: stages.get(k, 0.0) for k in want}
     setup = stages.get("pt.setup", 0.0)
-    copies = stages.get("pt.setup HtoD", 0.0)
+    copies = sum(stages.get(f"{st} {way}", 0.0) for st in ("pt.setup",
+                                                           "pt.rays")
+                 for way in ("HtoD", "DtoH"))
     print(f"{label}: kernel launches a frame by stage {json.dumps(got)}, "
-          f"pt.setup {setup:g} ({copies:g} host-to-device copies; "
-          f"{n_batches} batches)", flush=True)
+          f"pt.setup {setup:g} ({copies:g} copies either way in pt.setup "
+          f"and pt.rays; {n_batches} batches)", flush=True)
     assert got == want, (label, got, want)
     assert setup <= PT_SETUP_LAUNCHES and copies == 0, (label, setup, copies)
 
@@ -4671,6 +4691,174 @@ def check_bin_entries(dev, room, cube, mid_preps):
                            "raster_channels.py:546", call_ms=call,
                            slots=T, pairs=P)
     return rec
+
+
+# --------------------------------------------------------------------------
+# X13, the stable partition: the mid raster path's compaction (its
+# channels form) and the path tracer's compacted stream (its order form)
+# --------------------------------------------------------------------------
+# kernel launches raster.compact may make a frame (X13: one or two), the
+# mid HD arm's raster.shade (X3, K2 and the pixel centres' four), and
+# pt.setup under compaction (X13 and the ray counters' fill)
+RASTER_COMPACT_LAUNCHES = 2
+MID_SHADE_LAUNCHES = 6
+PT_SETUP_COMPACTED_LAUNCHES = 3
+
+
+def _x13_chan_bound(n, kept, v_cap):
+    """The channels form's least time: a flag read (1 byte), a kept slot's
+    13 channels read (52), a v_cap row written (52 of channels, the id
+    and the flag: 57), the count."""
+    return _bound(n + 52 * kept + 57 * v_cap + 4, 0)
+
+
+def _x13_order_bound(n, gates):
+    """The order form's least time: a flag read, a slot and a uid written
+    (8 bytes) a flag, the gates and the count."""
+    return _bound(9 * n + 4 * sum(g.numel() for g in gates) + 4, 0)
+
+
+def _partition_chan_calls(dev, soup, scene, caps, mid_preps):
+    """{label: (channel dict, v_cap)} of compact_valid_ch's callers: the
+    teapot's and the mid HD arm's X4 dicts at their steady caps, and the
+    subtile golden call's (captured from its frame)."""
+    import torch
+    from ascii_renderer_tpu_torch.backends import raster as R
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    calls = {}
+    for (label, grid, prep), name in zip(mid_preps, ("teapot", "mid")):
+        msoup, mcam = _mesh(name)
+        p = torch.from_numpy(msoup[0]).to(dev)
+        mvp = R.camera_mvp(mcam, *grid, PIXEL_ASPECT)
+        calls[label] = (R.clip_screen_channels(
+            None, mvp, *grid, pos9=R.positions_to_pos9(p)), prep[2][0])
+    a, _k = _capture(PTN, "compact_channels", _oracle_frame(
+        dev, soup, scene, "subtile", caps["subtile"]))
+    calls["subtile golden call"] = (dict(a[0]), a[1])
+    return calls
+
+
+def _partition_masks(dev):
+    """{label: (flag mask, uid0, samples)} of the order form: the
+    progressive tracer's own masks at 96x36 (spp 64, a converging batch's)
+    and 960x540 (spp 8, its eighth batch's), captured from stable_order,
+    and all, none and one pixel active at both sizes."""
+    import torch
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    masks = {}
+    for rows, cols, spp, steps in ((36, 96, 64, 6), (ROWS, COLS, 8, 8)):
+        cfg = Config(path_tracer=PathTracerConfig(samples_per_batch=spp))
+        tr = _progressive_tracer(dev, cfg, rows, cols, True)
+        seen = _capture_all(PTN, "stable_order", lambda: [
+            tr.step(_pt_camera()) for _ in range(steps)])
+        act = seen[-1][0][0].clone()
+        masks[f"progressive {cols}x{rows}"] = (act, 0, spp)
+        for kind in ("all", "none", "one"):
+            m = torch.zeros_like(act) if kind != "all" else \
+                torch.ones_like(act)
+            if kind == "one":
+                m.view(-1)[m.numel() // 3] = True
+            masks[f"{kind} active {cols}x{rows}"] = (m, 0, spp)
+    return masks
+
+
+def check_partition(dev, soup, scene, caps, mid_preps):
+    """X13 (ops/partition) against its plain versions on the same CUDA
+    tensors, bit for bit: the channels form at the teapot's, the mid HD
+    arm's and the subtile golden call's compact_valid_ch inputs (every
+    channel's bits, valid, cidx, n_valid), the order form at the
+    progressive tracer's masks at 96x36 and 960x540 and all / none / one
+    active (slot, pix_uid, the gates of 1 and of the batch's samples).
+    Timed (kernel rows over 50 calls, launches_of(n) a call) with the
+    plain version's time (CUDA events) and, for the order form, one
+    torch.argsort of the inverted flags (stable: the same order, checked).
+    Returns the records: the channels form at the mid HD arm, the order
+    form at the progressive HD mask."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    times = {}
+    for label, (ch, v_cap) in _partition_chan_calls(
+            dev, soup, scene, caps, mid_preps).items():
+        n = ch["valid"].shape[0]
+
+        def fn(ch=ch, v_cap=v_cap):
+            return PTN.compact_channels(dict(ch), v_cap)
+        got = fn()
+        want = PTN.compact_channels_ref(dict(ch), v_cap)
+        torch.cuda.synchronize()
+        for k in PTN.COMPACT_KEYS:
+            _same_bits(got[0][k], want[0][k], f"X13 {label}: {k}")
+        assert torch.equal(got[0]["valid"], want[0]["valid"]), label
+        assert torch.equal(got[1], want[1]), f"X13 {label}: cidx"
+        n_valid = int(got[2])
+        assert n_valid == int(want[2]), (label, n_valid, int(want[2]))
+        kept = min(n_valid, v_cap)
+        ms = _device_ms(fn, "partition_", PTN.launches_of(n))
+        plain = _event_ms(lambda: PTN.compact_channels_ref(dict(ch), v_cap),
+                          5)
+        bound = _x13_chan_bound(n, kept, v_cap)
+        times[label] = (ms, plain, bound)
+        print(f"X13 channels form, {label}: bit-identical; {n} flags "
+              f"({n_valid} valid), v_cap {v_cap}; kernel {ms:.5f} ms "
+              f"({PTN.launches_of(n)} launches), plain {plain:.3f} ms, "
+              f"bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+    label = "mid-scale HD 960x540"
+    rec = _rec("partition", "partition.cu", "", 0.0, *times[label])
+    rec.update(replaces="ascii_renderer_tpu/backends/raster_channels.py:325",
+               form="channels", call=label, by_call={
+                   k: dict(ms=v[0], plain_ms=v[1], bound_ms=v[2][0])
+                   for k, v in times.items()})
+    otimes = {}
+    for label, (act, uid0, samples) in _partition_masks(dev).items():
+        flags = act.reshape(-1)
+        n = flags.numel()
+
+        def fo(flags=flags, uid0=uid0, samples=samples):
+            return PTN.stable_order(flags, uid0, samples)
+        slot, uid, gates = fo()
+        w_slot, w_uid, w_gates = PTN.stable_order_ref(flags, uid0, samples)
+        torch.cuda.synchronize()
+        assert torch.equal(slot, w_slot) and torch.equal(uid, w_uid), label
+        assert set(gates) == set(w_gates), label
+        for s in gates:
+            assert torch.equal(gates[s], w_gates[s]), (label, s)
+        inv = (~flags).view(torch.uint8)
+        lib_order = torch.argsort(inv, stable=True)
+        assert torch.equal(lib_order.to(torch.int32), slot), label
+        ms = _device_ms(fo, "partition_", PTN.launches_of(n))
+        plain = _event_ms(lambda: PTN.stable_order_ref(flags, uid0, samples),
+                          5)
+        lib = _event_ms(lambda: torch.argsort(inv, stable=True), 20)
+        bound = _x13_order_bound(n, set(gates.values()))
+        otimes[label] = (ms, plain, bound, lib)
+        print(f"X13 order form, {label}: bit-identical; {n} pixels "
+              f"({int(flags.sum())} active), gates of 1 and {samples} "
+              f"samples; kernel {ms:.5f} ms ({PTN.launches_of(n)} launches), "
+              f"plain {plain:.3f} ms, argsort {lib:.5f} ms, bound "
+              f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+    label = f"progressive {COLS}x{ROWS}"
+    ms, plain, bound, lib = otimes[label]
+    orec = _rec("partition_order", "partition.cu", "", 0.0, ms, plain, bound,
+                library_ms=lib)
+    orec.update(replaces="ascii_renderer_tpu/backends/pathtrace.py:524",
+                form="order", call=label, by_call={
+                    k: dict(ms=v[0], plain_ms=v[1], bound_ms=v[2][0],
+                            library_ms=v[3]) for k, v in otimes.items()})
+    return [rec, orec]
+
+
+def partition_stages(label, stages, stage, most):
+    """A frame's launches in ``stage`` (profile_frames' stage counts): at
+    least one (X13's) and at most ``most``, and no copy either way."""
+    got = stages.get(stage, 0.0)
+    copies = (stages.get(f"{stage} HtoD", 0.0),
+              stages.get(f"{stage} DtoH", 0.0))
+    print(f"{label}: {stage} {got:g} kernel launches, {copies[0]:g} "
+          f"host-to-device and {copies[1]:g} device-to-host copies",
+          flush=True)
+    assert 0 < got <= most and copies == (0.0, 0.0), (label, stage, got,
+                                                      copies)
 
 
 # --------------------------------------------------------------------------
@@ -5794,6 +5982,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import frame_bytes as FB
     from ascii_renderer_tpu_torch.ops import group_build as GB
     from ascii_renderer_tpu_torch.ops import pack as PK
+    from ascii_renderer_tpu_torch.ops import partition as PTN
     from ascii_renderer_tpu_torch.ops import plane_table as PT
     from ascii_renderer_tpu_torch.ops import pt_kernel as PTK
     from ascii_renderer_tpu_torch.ops import pt_reduce as PR
@@ -5873,7 +6062,9 @@ def main() -> int:
                 "plane_table": (PT, "launches"),
                 "bin_entries": (BE, "launches"),
                 "bin_entries_keys": (BE, "launches_keys"),
-                "group_build": (GB, "launches")}
+                "group_build": (GB, "launches"),
+                "partition": (PTN, "launches"),
+                "partition_order": (PTN, "launches_order")}
     # fma32 first: the other kernels' plain versions call it
     soup = _bunny()
     scene = _scene(dev)
@@ -5998,6 +6189,10 @@ def main() -> int:
             fn, 3, ("raster.", "frame.", "glyph"), f"{method} golden pose")[2]
     for (method, st), n in ORACLE_FRONT_LAUNCHES.items():
         assert or_stages[method].get(st) == n, (method, or_stages[method])
+    # the subtile generation's compaction is X13's too
+    assert c_or["subtile"]["partition"] > 0, c_or["subtile"]
+    partition_stages("subtile golden pose", or_stages["subtile"],
+                     "raster.compact", RASTER_COMPACT_LAUNCHES)
 
     # path tracer: frame 0 against the CPU render, then the reference run
     # (96x36, spp 64, 5 bounces) and the HD arm (960x540, spp 8)
@@ -6043,6 +6238,7 @@ def main() -> int:
     recs.append(check_bin_entries(dev, room, cube, mid_preps))
     recs += check_pack_channels(dev, mid_preps)
     recs += check_front_kernels(dev, soup, scene, caps)
+    recs += check_partition(dev, soup, scene, caps, mid_preps)
     by_name = {r["name"]: r for r in recs}
 
     raster_prefixes = ("raster.", "frame.", "glyph")
@@ -6077,11 +6273,21 @@ def main() -> int:
     print(f"launches on the mid-scale HD arm: {c_mid}", flush=True)
     for c, what in ((c_tea, "teapot path"), (c_mid, "mid-scale HD arm")):
         for k in ("raster_bins_walk", "modal_vote", "raster_shade",
-                  "raster_clip", "plane_table", "bin_entries"):
+                  "raster_clip", "plane_table", "bin_entries", "partition"):
             assert c[k] > 0, f"{k} never launched on the {what}"
-    profile_frames(tea_fn, 5, raster_prefixes, "teapot 240x135")
-    walk_launches["mid-scale HD arm"] = profile_frames(
-        mid_fn, 3, raster_prefixes, "mid-scale HD arm")[2]["raster.walk"]
+    # raster.compact is X13 alone; the mid arm's raster.shade X3, K2 and
+    # the pixel centres (n_big comes from X9's counts)
+    partition_stages("teapot 240x135", profile_frames(
+        tea_fn, 5, raster_prefixes, "teapot 240x135")[2], "raster.compact",
+        RASTER_COMPACT_LAUNCHES)
+    mid_stages = profile_frames(mid_fn, 3, raster_prefixes,
+                                "mid-scale HD arm")[2]
+    walk_launches["mid-scale HD arm"] = mid_stages["raster.walk"]
+    partition_stages("mid-scale HD arm", mid_stages, "raster.compact",
+                     RASTER_COMPACT_LAUNCHES)
+    print(f"mid-scale HD arm: raster.shade {mid_stages['raster.shade']:g} "
+          f"kernel launches", flush=True)
+    assert mid_stages["raster.shade"] <= MID_SHADE_LAUNCHES, mid_stages
     # X9 leaves raster.walk its passes, the sort, B6's walk and merge and
     # the image assembly after it; fma32 no longer launches in these paths
     print(f"raster.walk kernel launches a frame: {walk_launches}; fma32 "
@@ -6131,9 +6337,15 @@ def main() -> int:
     c_prog, prog_fn = _path_counts(counters,
                                    lambda: run_progressive_path(dev))
     print(f"launches on the progressive tracer: {c_prog}", flush=True)
-    for k in PT_KERNELS + ("pt_megakernel_gated",):
+    for k in PT_KERNELS + ("pt_megakernel_gated", "partition_order"):
         assert c_prog[k] > 0, f"{k} never launched on the progressive path"
-    profile_frames(prog_fn, 3, ("pt.", "accum."), "progressive HD batch")
+    # a compacted frame's set-up: X13's order form and the counters' fill
+    prog_stages = profile_frames(prog_fn, 3, ("pt.", "accum."),
+                                 "progressive HD batch")[2]
+    partition_stages("progressive HD batch", prog_stages, "pt.setup",
+                     PT_SETUP_COMPACTED_LAUNCHES)
+    assert prog_stages.get("pt.rays HtoD", 0.0) == prog_stages.get(
+        "pt.rays DtoH", 0.0) == 0.0, prog_stages
 
     # the app shell: the CLI's modes on the card against its CPU runs,
     # then the exactness canary (B3 and B7' at the reference's shapes)
@@ -6248,6 +6460,14 @@ def main() -> int:
         assert sum(p["launches"] for p in by_name[k]["launch_sizes"]) == \
             by_name[k]["launches"], (k, by_name[k]["launch_sizes"],
                                      by_name[k]["launches"])
+    # X13's calls by form, on every driven path
+    by_name["partition_order"]["launches"] = sum(c["partition_order"]
+                                                 for c in driven)
+    by_name["partition"]["launches"] = sum(
+        c["partition"] for c in driven) - by_name["partition_order"][
+        "launches"]
+    for k in ("partition", "partition_order"):
+        assert by_name[k]["launches"] > 0, k
     # X9's launches in both layouts: the tile keys' and the bin keys'
     by_name["bin_entries"]["launches_tile"] = by_name["bin_entries"][
         "launches"]

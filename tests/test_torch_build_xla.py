@@ -10,9 +10,12 @@ clip and the plane table in one launch), their plane table
 their bin entries (``ops/bin_entries``, X9), and the path tracer's sample
 rays (``ops/ray_grid.pt_rays``, X7, every split of a batch's samples
 among threads) and batch fold (``ops/pt_reduce``, X14, both forms), and
-the megakernel's frame form (``ops/pt_kernel.trace_frame``), each held to
-its plain version bit for bit, and a frame's set-up held to one launch
-and no copy to the card. Tests marked ``cuda`` skip without
+the megakernel's frame form (``ops/pt_kernel.trace_frame``), and the
+stable partition (``ops/partition``, X13: the mid path's compaction and
+the path tracer's compacted stream), each held to its plain version bit
+for bit; a frame's set-up held to one launch and no copy to the card (a
+compacted one to X13 and that launch), the mid path's ``n_big`` to X9's
+counts. Tests marked ``cuda`` skip without
 a card; this file imports no JAX, so they run where there is none:
 
     python -m pytest tests/test_torch_build_xla.py -m cuda --noconftest
@@ -670,13 +673,15 @@ def test_bin_entries_kernel_equals_plain(cuda_device, call, kernel):
     else:
         ch, rows, cols = bin_calls(cuda_device)[call]
     n0 = BE.launches
-    got = BE.binned_entries(dict(ch), rows, cols, kernel=kernel)
+    got = BE.binned_entries(dict(ch), rows, cols, kernel=kernel, counts=True)
     assert BE.launches == n0 + 1
-    want = BE.binned_entries_ref(dict(ch), rows, cols, kernel=kernel)
+    want = BE.binned_entries_ref(dict(ch), rows, cols, kernel=kernel,
+                                 counts=True)
     assert got[0].shape == want[0].shape and got[0].is_contiguous()
     _same_bits(got[0], want[0])
     assert torch.equal(got[1].cpu(), want[1].cpu())
-    assert got[2:] == want[2:]
+    assert got[2:4] == want[2:4]
+    assert torch.equal(got[4].cpu(), want[4].cpu())
 
 
 
@@ -686,18 +691,27 @@ def test_bin_entries_kernel_equals_plain(cuda_device, call, kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", sorted(BE.FORMS))
 @pytest.mark.parametrize("call", ["room 96x36", "teapot 240x135",
-                                  "mid-scale HD 960x540"])
+                                  "mid-scale HD 960x540"]
+                         + [f"soup {n}" for n in BIN_SOUPS])
 def test_bin_entries_every_form_equals_plain(cuda_device, call, form):
     """Each form of X9 (three or four launches at chunks of 1,024-4,096
-    keys) gives the plain chain's entries and offsets in walk "mm"'s
-    layout at its callers' dicts."""
-    ch, rows, cols = bin_calls(cuda_device)[call]
-    got = BE.binned_entries(dict(ch), rows, cols, form=form)
+    keys) gives the plain chain's entries, offsets and counts (n_small,
+    n_big, n_pairs, n_valid; n_big above big_cap in the many_big soup)
+    in walk "mm"'s layout at its callers' dicts and the CPU tests'
+    soups."""
+    if call.startswith("soup "):
+        np_ch, rows, cols = bin_soup(call[5:])
+        ch = {k: torch.from_numpy(v).to(cuda_device)
+              for k, v in np_ch.items()}
+    else:
+        ch, rows, cols = bin_calls(cuda_device)[call]
+    got = BE.binned_entries(dict(ch), rows, cols, form=form, counts=True)
     assert BE.last_launches == BE.launches_of(
         form, got[3], 4 * ch["valid"].shape[0] + 64 * got[3])
-    want = BE.binned_entries_ref(dict(ch), rows, cols)
+    want = BE.binned_entries_ref(dict(ch), rows, cols, counts=True)
     _same_bits(got[0], want[0])
     assert torch.equal(got[1].cpu(), want[1].cpu())
+    assert torch.equal(got[4].cpu(), want[4].cpu())
 
 
 # a band (ty_lo, tiles_y_band) of each bbox soup's grid
@@ -1032,7 +1046,7 @@ def test_pt_trace_frame_form_equals_plain_and_per_ray_form(cuda_device,
 _NO_LAUNCH = {"empty", "empty_strided", "view", "_unsafe_view", "reshape",
               "as_strided", "detach", "alias", "slice", "select", "expand",
               "t", "permute", "unsqueeze", "squeeze", "lift_fresh",
-              "_reshape_alias"}
+              "_reshape_alias", "unbind"}
 
 
 @pytest.mark.cuda
@@ -1301,3 +1315,219 @@ def test_shade_image_and_ui_form_raise_on_build_or_launch_failure(
         for run in runs:
             with pytest.raises(RuntimeError, match=match):
                 run()
+
+
+# --------------------------------------------------------------------------
+# X13, the stable partition: the mid raster path's compaction and the path
+# tracer's compacted stream; the mid path's counts from X9
+# --------------------------------------------------------------------------
+# (flags, rule, v_cap): one flag, a warp segment's and a tile's edges, the
+# largest cap (MAX_V_CAP = 2^19 - 4,096 slots), a two-launch call
+PARTITION_SIZES = {"n 1": (1, "all", 1), "n 1 none": (1, "none", 4),
+                   "n 1023": (1023, 0.5, 1023), "n 1024": (1024, 0.5, 600),
+                   "n 1025": (1025, 0.5, 2048),
+                   "n 2^19 - 4096": ((1 << 19) - 4096, 0.3, (1 << 19) - 4096),
+                   "two launches, overflow": (40000, 0.7, 16384)}
+
+
+def _partition_case(case, device):
+    from ascii_renderer_tpu_torch.tools.xla_inputs import (
+        PARTITION_CASES, partition_channels)
+    n, rule, v_cap = (PARTITION_CASES.get(case) or PARTITION_SIZES[case])
+    ch = {k: torch.from_numpy(v).to(device)
+          for k, v in partition_channels(n, rule, seed=n).items()}
+    return ch, v_cap
+
+
+def _mesh_channels(device, name, rows, cols):
+    """X4's [2T] clip dict of a mesh soup (teapot, mid HD arm) in place."""
+    from ascii_renderer_tpu_torch.tools.xla_inputs import mesh_soup
+    soup, cam = mesh_soup(name)
+    p = torch.from_numpy(soup[0]).to(device)
+    return R.clip_screen_channels(None, R.camera_mvp(cam, rows, cols, 0.5),
+                                  rows, cols, pos9=R.positions_to_pos9(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all", "none", "alternating", "one",
+                                  "random", "overflow", "v_cap above 2T"]
+                         + sorted(PARTITION_SIZES) + ["teapot 240x135",
+                                                      "mid HD 960x540"])
+def test_partition_channels_kernel_equals_plain(cuda_device, case):
+    """X13's channels form gives the plain compaction's channels (bits),
+    valid, cidx and n_valid at the CPU tests' masks, sizes around a
+    block and a tile and MAX_V_CAP, and X4's own dicts (the teapot at
+    v_cap 8,192 above its 2,048 slots, the mid HD arm at 16,384), reading
+    X4's row views in place; one launch to 32,768 flags, two above."""
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    if case.startswith("teapot"):
+        ch, v_cap = _mesh_channels(cuda_device, "teapot", 135, 240), 8192
+    elif case.startswith("mid HD"):
+        ch, v_cap = _mesh_channels(cuda_device, "mid", 540, 960), 16384
+    else:
+        ch, v_cap = _partition_case(case, cuda_device)
+    n = ch["valid"].shape[0]
+    n0 = PTN.launches
+    cch, cidx, n_valid = RCH.compact_valid_ch(dict(ch), v_cap)
+    assert PTN.launches == n0 + 1
+    want = PTN.compact_channels_ref(dict(ch), v_cap)
+    torch.cuda.synchronize()
+    for k in PTN.COMPACT_KEYS:
+        assert cch[k].stride() == (13,)
+        _same_bits(cch[k], want[0][k])
+    assert torch.equal(cch["valid"].cpu(), want[0]["valid"].cpu())
+    assert torch.equal(cidx.cpu(), want[1].cpu())
+    assert n_valid.shape == () and n_valid.dtype == torch.int32
+    assert int(n_valid) == int(want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples", [1, 8])
+@pytest.mark.parametrize("case", ["36x96 random", "540x960 random",
+                                  "36x96 all", "36x96 none", "36x96 one",
+                                  "n 1", "n 1023", "n 1024", "n 1025",
+                                  "n 2^19 - 4096"])
+def test_partition_order_kernel_equals_plain(cuda_device, case, samples):
+    """X13's order form gives the plain argsort's slot, pix_uid and the
+    gate chain's gates of 1 and ``samples`` samples at the progressive
+    tracer's masks (36x96, 960x540), all / none / one active, and sizes
+    around a block and a tile."""
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    from ascii_renderer_tpu_torch.tools.xla_inputs import partition_mask
+    if case.startswith("n "):
+        n = (1 << 19) - 4096 if "2^19" in case else int(case[2:])
+        mask = torch.from_numpy(partition_mask(n, 0.4, seed=n))
+    else:
+        rows, cols = (int(x) for x in case.split()[0].split("x"))
+        kind = case.split()[1]
+        mask = torch.from_numpy(pixel_order(rows, cols, 0.3, seed=2)[0])
+        if kind != "random":
+            mask = torch.zeros_like(mask) if kind != "all" else \
+                torch.ones_like(mask)
+            if kind == "one":
+                mask.view(-1)[mask.numel() // 3] = True
+    uid0 = 12 * 96
+    n0, o0 = PTN.launches, PTN.launches_order
+    slot, uid, gates = PTN.stable_order(mask.to(cuda_device), uid0, samples)
+    assert (PTN.launches, PTN.launches_order) == (n0 + 1, o0 + 1)
+    w_slot, w_uid, w_gates = PTN.stable_order_ref(mask, uid0, samples)
+    torch.cuda.synchronize()
+    assert torch.equal(slot.cpu(), w_slot) and torch.equal(uid.cpu(), w_uid)
+    assert set(gates) == set(w_gates)
+    for s in w_gates:
+        assert torch.equal(gates[s].cpu(), w_gates[s]), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mm", "loop"])
+@pytest.mark.parametrize("call", ["teapot 240x135", "mid HD 960x540"])
+def test_mid_path_counts_from_x9_and_compaction_in_x13(cuda_device,
+                                                       monkeypatch, call,
+                                                       kernel):
+    """The card's mm / loop frame takes n_big from X9's counts (no
+    count_big_small call; equal to the chain's over the compacted slots)
+    and X9's counts equal the plain version's; raster.compact is one X13
+    call and no torch op that launches or copies; raster.shade launches no
+    torch op but the pixel centres' four; the frame equals the one through
+    the plain compaction."""
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    from ascii_renderer_tpu_torch.tools.xla_inputs import mesh_soup
+    name, (rows, cols) = (("teapot", (135, 240)) if call.startswith("teapot")
+                          else ("mid", (540, 960)))
+    soup, cam = mesh_soup(name)
+    soup = tuple(torch.from_numpy(x).to(cuda_device) for x in soup)
+    from ascii_renderer_tpu_torch.scene.demo import create_demo_scene
+    scene = create_demo_scene().build(device=cuda_device)
+    v_cap = 8192 if name == "teapot" else 16384
+    args = (*soup, scene, cam, rows, cols, 0.5)
+    kw = dict(kernel=kernel, v_cap=v_cap, big_cap=64)
+    R.render_soup_diag(*args, **kw)  # the kernels built, caches warm
+    called = []
+    real = RCH.count_big_small
+    monkeypatch.setattr(RCH, "count_big_small",
+                        lambda *a, **k: called.append(a) or real(*a, **k))
+    Count, ops = _stage_ops(monkeypatch, RCH, "stage",
+                            ("raster.compact", "raster.shade"))
+    n0 = PTN.launches
+    with Count():
+        got, diag = R.render_soup_diag(*args, **kw)
+    torch.cuda.synchronize()
+    assert called == [] and PTN.launches == n0 + 1
+    compact = [o for o, _d in ops["raster.compact"] if o not in _NO_LAUNCH]
+    shade = [o for o, _d in ops["raster.shade"] if o not in _NO_LAUNCH]
+    copies = [o for st in ops.values() for o, d in st if "cpu" in d]
+    assert not compact and len(shade) <= 4 and not copies, ops
+    # the counts: X9's against the plain chain's on the same compaction
+    ch = _mesh_channels(cuda_device, name, rows, cols)
+    cch = RCH.compact_valid_ch(dict(ch), v_cap)[0]
+    counts = BE.binned_entries(dict(cch), rows, cols, kernel=kernel,
+                               counts=True)[4]
+    want = BE.binned_entries_ref(dict(cch), rows, cols, kernel=kernel,
+                                 counts=True)[4]
+    assert counts.tolist() == want.tolist()
+    assert int(diag["n_big"]) == int(real(cch, rows, cols)[1]) == \
+        int(want[1])
+    monkeypatch.setattr(PTN, "compact_channels", PTN.compact_channels_ref)
+    ref, ref_diag = R.render_soup_diag(*args, **kw)
+    _same_bits(got, ref)
+    assert {k: int(v) for k, v in diag.items()} == \
+        {k: int(v) for k, v in ref_diag.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(36, 96), (540, 960)])
+def test_render_pt_compacted_set_up_is_x13_and_no_copy(cuda_device,
+                                                       monkeypatch, shape):
+    """A compacted frame's pt.setup is one X13 call (its order, uids and
+    gates) and the counters' one fill, no copy either way; pt.rays copies
+    nothing; the frame equals the one through the plain order."""
+    from ascii_renderer_tpu_torch.backends import pathtrace as PTB
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    from ascii_renderer_tpu_torch.parallel.worlds import pt_fixture
+    scene, cam, pkw = pt_fixture(cuda_device)
+    rows, cols = shape
+    act = torch.from_numpy(pixel_order(rows, cols, 0.3, seed=4)[0]).to(
+        cuda_device)
+    kw = dict(pkw, rows=rows, cols=cols, spp=8, sample_batch=4,
+              light_host=PTB.light_sphere_host(scene),
+              packed=PTB.pack_scene_entries(scene), pixel_active=act)
+    PTB.render_pt(scene, cam, 0.5, 3, **kw)  # the kernels built
+    Count, ops = _stage_ops(monkeypatch, PTB, "record_function",
+                            ("pt.setup", "pt.rays"))
+    o0 = PTN.launches_order
+    with Count():
+        rgb, a = PTB.render_pt(scene, cam, 0.5, 3, **kw)
+    torch.cuda.synchronize()
+    assert PTN.launches_order == o0 + 1
+    setup = [o for o, _d in ops["pt.setup"] if o not in _NO_LAUNCH]
+    copies = [o for st in ops.values() for o, d in st if "cpu" in d]
+    assert len(setup) <= 1 and not copies, ops
+    monkeypatch.setattr(PTN, "stable_order", PTN.stable_order_ref)
+    rgb_ref, a_ref = PTB.render_pt(scene, cam, 0.5, 3, **kw)
+    _same_bits(rgb, rgb_ref)
+    assert torch.equal(a.cpu(), a_ref.cpu())
+
+
+@pytest.mark.cuda
+def test_partition_raises_on_build_or_launch_failure(cuda_device,
+                                                     monkeypatch):
+    """A failed build or launch raises out of both forms, on CUDA tensors;
+    neither reaches its plain version."""
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    ch, v_cap = _partition_case("random", cuda_device)
+    plain = []
+    monkeypatch.setattr(PTN, "compact_channels_ref",
+                        lambda *a: plain.append(a))
+    monkeypatch.setattr(PTN, "stable_order_ref", lambda *a: plain.append(a))
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    for lib, match in ((no_build, "nvcc failed"),
+                       (lambda: _FailingLib(), "launch failed")):
+        monkeypatch.setattr(_build, "lib", lib)
+        for run in (lambda: PTN.compact_channels(dict(ch), v_cap),
+                    lambda: PTN.stable_order(ch["valid"], 0, 8)):
+            with pytest.raises(RuntimeError, match=match):
+                run()
+    assert plain == []

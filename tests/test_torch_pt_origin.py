@@ -291,8 +291,8 @@ def test_frame_set_up_stages_no_ray_block():
     cam = TC.Camera.create(**POSE)
     light = _light(scene)
     for row_lo, band in ((0, ROWS), (2, 4)):
-        fr = TPT._FrameRays(cam, light, ROWS, COLS, row_lo, band, 2, 3, None,
-                            "cpu")
+        fr = TPT._FrameRays(light, TC.camera_floats(cam)[:3], ROWS, COLS,
+                            row_lo, band, 2, 3, None, "cpu")
         assert fr.light == light and fr.origin == [0.0, 2.5, 6.0]
         assert (fr.pc, fr.npix, fr.uid0) == (band * COLS, ROWS * COLS,
                                              row_lo * COLS)
@@ -300,7 +300,8 @@ def test_frame_set_up_stages_no_ray_block():
         assert fr.pix_uid is None and fr.slot is None and not fr._gates
         assert all(isinstance(x, float) for x in fr.light + fr.origin)
     act = torch.from_numpy(pixel_order(4, COLS, 0.3, seed=5)[0])
-    fr = TPT._FrameRays(cam, light, ROWS, COLS, 2, 4, 2, 3, act, "cpu")
+    fr = TPT._FrameRays(light, TC.camera_floats(cam)[:3], ROWS, COLS, 2, 4,
+                        2, 3, act, "cpu")
     assert torch.equal(fr.pix_uid, fr.slot + 2 * COLS)
     assert set(fr._gates) == {1, 2}
 
