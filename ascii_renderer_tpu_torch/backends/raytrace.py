@@ -44,8 +44,9 @@ from torch.profiler import record_function
 
 from ascii_renderer_tpu_torch.backends import rt_core as RC
 from ascii_renderer_tpu_torch.backends.pt_core import BIG, V3
-from ascii_renderer_tpu_torch.core.camera import (Camera, band_of,
-                                                  camera_bases)
+from ascii_renderer_tpu_torch.core.camera import (SCALAR_VIEWS, Camera,
+                                                  band_of, camera_bases,
+                                                  view_trig)
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
 from ascii_renderer_tpu_torch.core.frame import Frame
 from ascii_renderer_tpu_torch.ops import rt_trace
@@ -224,15 +225,21 @@ def render_rgb(scene: SceneData, camera: Camera, rows: int, cols: int,
     pixel, so a band equals those rows of the full frame bit for bit.
     On the CPU the plain grid, then ``trace_rgb``; on any other device
     one launch of ``ops/rt_trace``'s kernel in its grid form, which
-    raises where it cannot run."""
+    raises where it cannot run (above ``SCALAR_VIEWS`` views its trig
+    form: the views' trig from the host, their bases formed on the
+    card)."""
     dev = scene.sph_pos.device
     pr = prims or ScenePrims(scene)
     pos_c, yaw, pitch, fov = _camera_batch(camera)
     rows_out = band_of(rows, row_lo, n_rows)
     V, R = pos_c.shape[0], rows_out * cols
     with record_function("rt.grid"):
-        grid = rt_trace.Grid(camera_bases(yaw, pitch, fov), rows, cols,
-                             pixel_aspect, row_lo, rows_out)
+        if dev.type != "cpu" and V > SCALAR_VIEWS:
+            grid = rt_trace.Grid(None, rows, cols, pixel_aspect, row_lo,
+                                 rows_out, view_trig(pos_c, yaw, pitch, fov))
+        else:
+            grid = rt_trace.Grid(camera_bases(yaw, pitch, fov), rows, cols,
+                                 pixel_aspect, row_lo, rows_out)
         rd3 = rt_trace.grid_rays(grid, dev) if dev.type == "cpu" else None
     if rd3 is None:
         rgb = rt_trace.trace(scene, pr, pos_c, None, _fuse(pr, V, R),

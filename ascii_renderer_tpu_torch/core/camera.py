@@ -253,16 +253,15 @@ def bases_floats(yaw: list, pitch: list, fov_y: list):
                                     dtype=torch.float32)
 
 
-def bases_arrays(yaw: list, pitch: list, fov_y: list):
-    """``camera_bases`` of the views (Python floats) on numpy float32
-    arrays (a vector's three components stacked): the chains of
-    ``_basis_scalar``, each operation rounded once (the fused ones through
-    ``fma32_np``), the trig libm's."""
+def bases_from_trig(cp, sp, cy, sy, half):
+    """``_basis_scalar``'s chain after its trig, on numpy float32 arrays
+    [V] of the views' cos / sin of pitch and of yaw and tan(fov_y / 2):
+    (uu, vv, ww f32 [3, V] (a vector's three components stacked), focal
+    f32 [V]), each operation rounded once (the fused ones through
+    ``fma32_np``). The plain version of the bases K3's grid form forms on
+    the card (``ops/rt_trace``, ``csrc/ray_dir.cuh``'s ``view_basis``)."""
     f32 = np.float32
     rot1, rot2 = [1, 2, 0], [2, 0, 1]
-
-    def trig(fn, xs):
-        return np.fromiter(map(fn, xs), np.float64, len(xs)).astype(f32)
 
     def norm(a):
         d = fma32_np(a[2], a[2], fma32_np(a[1], a[1], a[0] * a[0]))
@@ -271,9 +270,9 @@ def bases_arrays(yaw: list, pitch: list, fov_y: list):
     def cross(a, b):  # component k: fma(a[k+1], b[k+2], -(a[k+2] b[k+1]))
         return fma32_np(a[rot1], b[rot2], -(a[rot2] * b[rot1]))
 
+    cp, sp, cy, sy, half = (np.asarray(x, f32) for x in (cp, sp, cy, sy,
+                                                        half))
     with np.errstate(all="ignore"):
-        cp, sp = trig(math.cos, pitch), trig(math.sin, pitch)
-        cy, sy = trig(math.cos, yaw), trig(math.sin, yaw)
         zero, one = np.zeros_like(cp), np.ones_like(cp)
         ww = np.stack([cp * cy, sp, cp * sy])
         ww = ww / norm(ww)
@@ -283,10 +282,66 @@ def bases_arrays(yaw: list, pitch: list, fov_y: list):
                       uu / np.maximum(nu, f32(1e-20)))  # NaN stays
         vv = cross(uu, ww)
         vv = vv / norm(vv)
-        half = trig(math.tan, (f32(0.5) * np.array(fov_y, f32)).tolist())
         focal = one / np.maximum(half, f32(1e-6))
+    return uu, vv, ww, focal
+
+
+def bases_arrays(yaw: list, pitch: list, fov_y: list):
+    """``camera_bases`` of the views (Python floats) on numpy float32
+    arrays: the trig through libm, a call a view and function, then
+    ``bases_from_trig``."""
+    f32 = np.float32
+
+    def trig(fn, xs):
+        return np.fromiter(map(fn, xs), np.float64, len(xs)).astype(f32)
+
+    with np.errstate(all="ignore"):
+        half = trig(math.tan, (f32(0.5) * np.array(fov_y, f32)).tolist())
+        uu, vv, ww, focal = bases_from_trig(
+            trig(math.cos, pitch), trig(math.sin, pitch),
+            trig(math.cos, yaw), trig(math.sin, yaw), half)
     return (*(torch.from_numpy(np.ascontiguousarray(v.T))
               for v in (uu, vv, ww)), torch.from_numpy(focal))
+
+
+def _libm_once(x: np.ndarray, *fns) -> list:
+    """Each of ``fns`` (``math`` functions) of each float32 of ``x``
+    through Python's libm in float64, rounded once to float32: one call a
+    function and distinct value (by its bits, so -0.0 and 0.0 apart)."""
+    bits, inv = np.unique(x.view(np.uint32), return_inverse=True)
+    xs = bits.view(np.float32).tolist()
+    inv = inv.reshape(-1)
+    return [np.fromiter(map(fn, xs), np.float64, len(xs)).astype(
+        np.float32)[inv] for fn in fns]
+
+
+def view_trig(pos, yaw, pitch, fov_y) -> np.ndarray:
+    """The grid form's floats of a batch of views (``pos`` f32 [V, 3],
+    ``yaw``, ``pitch``, ``fov_y`` f32 [V] CPU tensors or arrays): f32
+    [V, 8], each view's origin, cos and sin of its pitch, cos and sin of
+    its yaw, and tan(fov_y / 2) (the half angle rounded to float32 first),
+    through Python's libm in float64, rounded once, one call a distinct
+    argument (an orbit's views share their pitch and fov_y). K3 forms each
+    view's basis from them on the card (``bases_from_trig`` on the host is
+    its plain version): the host's work does not grow with a view's
+    chain."""
+    f32 = np.float32
+
+    def host(x):  # a float32 numpy view of a tensor or array, on the host
+        if isinstance(x, torch.Tensor):
+            # a host float32 tensor is viewed as it is: no torch op
+            x = x.numpy() if x.device.type == "cpu" and not (
+                x.requires_grad) else x.detach().cpu().numpy()
+        return np.ascontiguousarray(x, f32).reshape(-1)
+
+    p, y, f = (host(x) for x in (pitch, yaw, fov_y))
+    out = np.empty((y.shape[0], 8), f32)
+    out[:, :3] = host(pos).reshape(-1, 3)
+    with np.errstate(all="ignore"):
+        out[:, 3], out[:, 4] = _libm_once(p, math.cos, math.sin)
+        out[:, 5], out[:, 6] = _libm_once(y, math.cos, math.sin)
+        out[:, 7], = _libm_once(f32(0.5) * f, math.tan)
+    return out
 
 
 def camera_bases(yaw, pitch, fov_y):

@@ -4,10 +4,11 @@ On first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process,
 all started together, and the objects are linked into ONE shared library
 with a plain C interface, which is loaded with ``ctypes``. No PyTorch
 headers are included, so the build takes about a minute (the longest
-source, rt_trace.cu's 48 template instances, ~55 s), and it needs no
-``ninja``. The library's name carries a hash of the sources and flags, so
-an edited source never loads a stale build. The build directory is
-``ops/build`` (listed in ``.gitignore``).
+sources, rt_trace.cu's and rt_trace_trig.cu's 48 template instances each,
+~55 s side by side), and it needs no ``ninja``. The library's name
+carries a hash of the sources and flags, so an edited source never loads
+a stale build. The build directory is ``ops/build`` (listed in
+``.gitignore``).
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` so that only the kernels'
 explicit ``fmaf`` calls fuse a product into an add (the kernels fuse exactly
@@ -96,16 +97,16 @@ SIGNATURES = {
     "raster_shade_image_launch": (_P, _LL, _I, _I, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I, _P, _P),
-    # (cam, rd3, grid_views, grid_one12_host, rows, cols, row_lo, sx, sy,
-    #  aspect, out, views, rays, sph_pos, sph_rad, sph_valid, sph_mat,
-    #  n_sph, pln_n, pln_d, pln_valid, pln_mat, n_pln, tri_a, tri_e1,
-    #  tri_e2, tri_valid, tri_mat, n_tri, mat_albedo, mat_reflective,
-    #  dl_dir, dl_col, n_dl, pt_pos, pt_col, n_pt, pair, env_color,
-    #  env_intensity, fuse_p, fuse_s, lanes, stage, stream)
-    "rt_trace_launch": (_P, _P, _P, _FP, _I, _I, _I, _F, _F, _F, _P, _I, _I,
-                        _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                        _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P,
-                        _P, _I, _I, _I, _I, _P),
+    # (cam, rd3, grid_views, grid_one12_host, basis, rows, cols, row_lo,
+    #  sx, sy, aspect, out, views, rays, sph_pos, sph_rad, sph_valid,
+    #  sph_mat, n_sph, pln_n, pln_d, pln_valid, pln_mat, n_pln, tri_a,
+    #  tri_e1, tri_e2, tri_valid, tri_mat, n_tri, mat_albedo,
+    #  mat_reflective, dl_dir, dl_col, n_dl, pt_pos, pt_col, n_pt, pair,
+    #  env_color, env_intensity, fuse_p, fuse_s, lanes, stage, stream)
+    "rt_trace_launch": (_P, _P, _P, _FP, _I, _I, _I, _I, _F, _F, _F, _P, _I,
+                        _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                        _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                        _P, _P, _I, _I, _I, _I, _P),
     # (n_rays): the lanes a ray a launch of n_rays takes by its own choice
     "rt_trace_lanes": (_LL,),
     # (lanes, n_sph, n_pln, n_tri): whether a launch of that many lanes a
@@ -142,6 +143,11 @@ SIGNATURES = {
     #  nbs, count, scratch, stream)
     "partition_order_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I,
                                _P, _P, _P),
+    # (count, mean, m2, mean_y, m2_y, alpha, sample, sample_alpha, o_count,
+    #  o_mean, o_m2, o_mean_y, o_m2_y, display, o_alpha, act, skip, any_set,
+    #  any_clear, n, reset, tol, max_samples, perceptual, stream)
+    "accum_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _P, _P, _LL, _I, _F, _F, _I, _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (pix_uid, fet0, out, pc, samples, per, n_out, rows, cols, uid0,

@@ -6,8 +6,12 @@ rounding (``csrc/ray_dir.cuh``, which ``csrc/ray_grid.cu``'s jitted grid
 shares), so that a frame, a band or a farm is one launch and its rays
 make no round trip through device memory; ``grid_rays`` is the plain
 version of those rays (``core/camera.ndc_grid_jit`` and
-``ray_dirs_jit``). A tile of L
-lanes (1-32) shares a ray and splits its loops over the scene's valid
+``ray_dirs_jit``). Above ``core/camera.SCALAR_VIEWS`` views the render
+path hands it each view's origin and trig (``core/camera.view_trig``,
+libm on the host, one call a distinct angle) and the launch forms the
+bases too, once a block in shared memory (``trig_views_ref`` is their
+plain version), so a farm's host work is its trig and one copy. A tile of
+L lanes (1-32) shares a ray and splits its loops over the scene's valid
 slots, which each block either stages in shared memory (compacted in slot
 order) or reads from the global arrays in the same order. The launch
 picks its own form from timed variants (``tools/rt_variants.py``): L from
@@ -47,10 +51,12 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ascii_renderer_tpu_torch.core.camera import (band_of, jit_grid_consts,
+from ascii_renderer_tpu_torch.core.camera import (band_of, bases_from_trig,
+                                                  jit_grid_consts,
                                                   ndc_grid_jit, ray_dirs_jit)
 from ascii_renderer_tpu_torch.ops import _build
 
@@ -103,38 +109,70 @@ class Grid(NamedTuple):
     """The primary rays of ``trace``'s grid form: the row band [row_lo,
     row_lo + band) of the rows x cols cell grid of every view, rounded as
     the reference's jitted grid; ``bases`` is ``core/camera.camera_bases``'
-    tuple (uu, vv, ww f32 [V, 3], focal f32 [V]) on the host."""
-    bases: tuple
+    tuple (uu, vv, ww f32 [V, 3], focal f32 [V]) on the host, or None with
+    ``trig``, ``core/camera.view_trig``'s f32 [V, 8] (each view's origin
+    and its trig: the kernel forms the bases, ``trig_views_ref``)."""
+    bases: tuple | None
     rows: int
     cols: int
     pixel_aspect: float
     row_lo: int
     band: int
+    trig: np.ndarray | None = None
+
+
+def trig_bases(trig: np.ndarray):
+    """``camera_bases``' tuple of the views of a ``view_trig`` table: the
+    plain chain ``bases_from_trig`` (CPU tensors)."""
+    uu, vv, ww, focal = bases_from_trig(*np.asarray(trig)[:, 3:].T)
+    return (*(torch.from_numpy(np.ascontiguousarray(v.T))
+              for v in (uu, vv, ww)), torch.from_numpy(focal))
+
+
+def trig_views_ref(trig: np.ndarray) -> torch.Tensor:
+    """The plain version of the bases the grid form forms on the card from
+    a ``view_trig`` table: each view's 12 floats, f32 [V, 12] on the host,
+    its origin, uu, vv and focal * ww (``bases_from_trig``)."""
+    uu, vv, ww, focal = trig_bases(trig)
+    return torch.cat([torch.from_numpy(np.asarray(trig)[:, :3]), uu, vv,
+                      focal[:, None] * ww], dim=1)
 
 
 def grid_rays(grid: Grid, device) -> torch.Tensor:
     """The plain version of the grid form's rays: f32 [V, band * cols, 3]
-    on ``device`` (``ndc_grid_jit`` and ``ray_dirs_jit``), bit for bit the
-    directions the kernel computes."""
+    on ``device`` (``ndc_grid_jit`` and ``ray_dirs_jit``; a trig grid's
+    bases through ``trig_bases``), bit for bit the directions the kernel
+    computes."""
     px, py = ndc_grid_jit(grid.rows, grid.cols, grid.pixel_aspect, device,
                           grid.row_lo, grid.band)
+    bases = grid.bases if grid.trig is None else trig_bases(grid.trig)
     rd = ray_dirs_jit(px, py, tuple(b.to(device, torch.float32)
-                                    for b in grid.bases))
+                                    for b in bases))
     return rd.reshape(rd.shape[0], grid.band * grid.cols, 3)
 
 
 def _grid_views(grid: Grid, cam) -> torch.Tensor:
-    """Each view's 12 floats of the grid form, f32 [V, 12] on the host:
-    its origin, uu, vv and focal * ww (rounded here, as the plain grid
-    rounds it)."""
+    """Each view's floats of the grid form on the host: f32 [V, 12], its
+    origin, uu, vv and focal * ww (rounded here, as the plain grid rounds
+    it), or a trig grid's table f32 [V, 8]."""
     if grid.rows < 1 or grid.cols < 1:
         raise ValueError(f"trace: a {grid.rows} x {grid.cols} grid")
     band_of(grid.rows, grid.row_lo, grid.band)
-    uu, vv, ww, focal = (b.to("cpu", torch.float32) for b in grid.bases)
-    V = uu.shape[0]
+    if grid.trig is not None:
+        views = torch.from_numpy(np.ascontiguousarray(grid.trig,
+                                                      np.float32))
+        if views.dim() != 2 or views.shape[1] != 8:
+            raise ValueError(f"trace: a trig table [V, 8], got "
+                             f"{tuple(views.shape)}")
+        V = views.shape[0]
+    else:
+        uu, vv, ww, focal = (b.to("cpu", torch.float32) for b in grid.bases)
+        V = uu.shape[0]
     if tuple(cam.shape) != (V, 3):
         raise ValueError(f"trace: expected cam [V, 3] for the grid's {V} "
                          f"views, got {tuple(cam.shape)}")
+    if grid.trig is not None:
+        return views
     return torch.cat([cam.to("cpu", torch.float32), uu, vv,
                       focal[:, None] * ww], dim=1)
 
@@ -151,9 +189,14 @@ def trace(scene, pr, cam, rd3, sphere_c, *, grid: Grid | None = None,
     other rays) whether the sphere's c fuses. ``lanes`` (one of LANES; 0:
     the launch's own choice) and ``stage`` ("staged", "global"; "auto":
     the launch's own choice) force a form of the kernel, for its tests and
-    timings; every form gives the same bits. CUDA tensors only: the CPU's
-    route is ``raytrace.trace`` (``raytrace.render_rgb``'s for a grid)."""
+    timings; every form gives the same bits. A trig grid's bases are formed
+    on the card, once a block in shared memory (a block spanning more views
+    than that forms them a ray). CUDA tensors only: the CPU's route is
+    ``raytrace.trace`` (``raytrace.render_rgb``'s for a grid)."""
     global launches
+    if (lanes and lanes not in LANES) or stage not in STAGES:
+        raise ValueError(f"trace: lanes {lanes} (0 or one of {LANES}), "
+                         f"stage {stage!r} (one of {tuple(STAGES)})")
     if (rd3 is None) == (grid is None):
         raise ValueError("trace: give one of the rays (rd3) and their "
                          "grid")
@@ -168,7 +211,7 @@ def trace(scene, pr, cam, rd3, sphere_c, *, grid: Grid | None = None,
         views = _grid_views(grid, cam)
         V, R = views.shape[0], grid.band * grid.cols
         one = None
-        if V == 1:  # launch arguments
+        if V == 1 and grid.trig is None:  # launch arguments
             one = (ctypes.c_float * 12)(*views[0].tolist())
             rays = ()
         else:  # one copy
@@ -187,9 +230,6 @@ def trace(scene, pr, cam, rd3, sphere_c, *, grid: Grid | None = None,
                          "int32 materials")
     if min(pr.n_sph, pr.n_pln, pr.n_tri) < 1:
         raise ValueError("trace: every primitive kind needs a slot")
-    if (lanes and lanes not in LANES) or stage not in STAGES:
-        raise ValueError(f"trace: lanes {lanes} (0 or one of {LANES}), "
-                         f"stage {stage!r} (one of {tuple(STAGES)})")
     if V * R >= 2 ** 31:
         raise ValueError(f"trace: {V * R} rays, at most 2^31 - 1")
     dev = scene.sph_pos.device
@@ -197,10 +237,11 @@ def trace(scene, pr, cam, rd3, sphere_c, *, grid: Grid | None = None,
     if V * R == 0:
         return out
     if grid is None:
-        ray_args = (cam.data_ptr(), rd3.data_ptr(), None, None, 0, 0, 0,
+        ray_args = (cam.data_ptr(), rd3.data_ptr(), None, None, 0, 0, 0, 0,
                     0.0, 0.0, 0.0)
     else:
         ray_args = (None, None, rays[0].data_ptr() if rays else None, one,
+                    int(grid.trig is not None),
                     grid.rows, grid.cols, grid.row_lo,
                     *jit_grid_consts(grid.rows, grid.cols,
                                      grid.pixel_aspect))

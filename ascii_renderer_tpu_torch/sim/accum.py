@@ -25,7 +25,8 @@ the pre-batch active mask as ``render_pt(pixel_active=)``: the active
 pixels are compacted to the front of the ray stream, so the kernel's block
 gate skips the converged tail. The kernel's RNG is a pure function of
 (pixel uid, seed), so the accumulator's trajectory is bit-identical to a
-full render. Profiler range: ``accum.step`` (the statistics update).
+full render. Profiler range: ``accum.step`` (the statistics update: one
+launch of K1b, ``ops/accum``, on the card; its plain chain on the CPU).
 """
 
 from __future__ import annotations
@@ -39,11 +40,13 @@ from torch.profiler import record_function
 
 from ascii_renderer_tpu_torch.backends import pathtrace as PT
 from ascii_renderer_tpu_torch.core import threefry as TF
-from ascii_renderer_tpu_torch.core.camera import Camera
+from ascii_renderer_tpu_torch.core.camera import Camera, camera_floats
 from ascii_renderer_tpu_torch.core.config import Config
-from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32
+from ascii_renderer_tpu_torch.ops import accum as K
+from ascii_renderer_tpu_torch.ops.accum import (  # noqa: F401  (re-exported)
+    luminance, perceptual_luminance)
 
-_THIRD = float(np.float32(1.0) / np.float32(3.0))  # XLA's 1/3 for mean/3
+_F32_1EM7 = np.float32(1e-7)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,64 +64,56 @@ class AccumState:
 
     @staticmethod
     def create(rows: int, cols: int, device="cuda") -> "AccumState":
-        def z(*shape):
-            return torch.zeros(shape, dtype=torch.float32, device=device)
-
+        count, mean, m2, mean_y, m2_y, alpha = K.zero_state((rows, cols),
+                                                            device)
         return AccumState(
-            count=z(rows, cols), mean=z(rows, cols, 3), m2=z(rows, cols, 3),
+            count=count, mean=mean, m2=m2,
             cam_sig=torch.full((5,), float("inf"), dtype=torch.float32),
-            mean_y=z(rows, cols), m2_y=z(rows, cols),
-            alpha=torch.full((rows, cols), 255, dtype=torch.uint8,
-                             device=device))
+            mean_y=mean_y, m2_y=m2_y, alpha=alpha)
 
     def replace(self, **kw) -> "AccumState":
         return dataclasses.replace(self, **kw)
 
-
-def _signature(cam: Camera) -> torch.Tensor:
-    """(pos, yaw, pitch) f32 [5] on the host."""
-    return torch.cat([cam.pos.reshape(3), cam.yaw.reshape(1),
-                      cam.pitch.reshape(1)]).to("cpu", torch.float32)
+    def fields(self) -> tuple:
+        """The six tensors ``ops/accum`` takes (``ops.accum.FIELDS``)."""
+        return tuple(getattr(self, f) for f in K.FIELDS)
 
 
-def _moved(cam: Camera, state: AccumState) -> bool:
-    return bool(((_signature(cam) - state.cam_sig).abs() > 1e-7).any())
+def _signature(cam: Camera) -> np.ndarray:
+    """(pos, yaw, pitch) f32 [5] on the host, from one read of the camera
+    (``camera_floats``)."""
+    return np.array(camera_floats(cam)[:5], dtype=np.float32)
 
 
-def luminance(rgb: torch.Tensor) -> torch.Tensor:
-    """Mean of the channels: their sum times XLA's float32 1/3."""
-    return (rgb[..., 0] + rgb[..., 1] + rgb[..., 2]) * _THIRD
-
-
-def perceptual_luminance(rgb: torch.Tensor) -> torch.Tensor:
-    """The reference's adaptive-sampling channel (renderer.js:183):
-    0.3 r + 0.59 g + 0.11 b, the left product of the first add fused, then
-    the third: fma(0.11, b, fma(0.3, r, 0.59 g))."""
-    return fma32(rgb[..., 2], 0.11,
-                 fma32(rgb[..., 0], 0.3, rgb[..., 1] * 0.59))
-
-
-def _ci(var, k):
-    """1.96 * sqrt(max(var, 0) / k)."""
-    return 1.96 * sqrt32(torch.clamp(var, min=0.0) / k)
+def _moved(sig: np.ndarray, cam_sig: torch.Tensor) -> bool:
+    """Whether any of the 5 float32 components moved by more than 1e-7:
+    the float32 difference, as the reference tests it."""
+    with np.errstate(invalid="ignore"):
+        return bool((np.abs(sig - cam_sig.cpu().numpy())
+                     > _F32_1EM7).any())
 
 
 def active_mask(state: AccumState, *, max_tolerance: float,
                 max_samples: int, stats_mode: str = "rgb") -> torch.Tensor:
     """Pixels still needing samples: CI(95%) > tol * mean, k < cap
     (renderer.js:179-199). "rgb" tests the mean of the channel variances;
-    "perceptual" the scalar luminance with its 1e-8 mean floor."""
-    k = torch.clamp(state.count, min=1.0)
-    km1 = torch.clamp(k - 1.0, min=1.0)
-    if stats_mode == "perceptual":
-        ci = _ci(state.m2_y / km1, k)
-        ref = torch.clamp(state.mean_y, min=1e-8)
-    else:
-        ci = _ci(luminance(state.m2 / km1[..., None]), k)
-        ref = torch.clamp(luminance(state.mean.abs()), min=1e-3)
-    unconverged = ci > max_tolerance * ref
-    warmup = state.count < 2.0  # a variance needs >= 2 samples
-    return (warmup | unconverged) & (state.count < max_samples)
+    "perceptual" the scalar luminance with its 1e-8 mean floor. The plain
+    chain, ``ops/accum.active_mask_ref``, on the state's device (the
+    progressive step reads the mask K1b wrote instead)."""
+    return K.active_mask_ref(*state.fields()[:5], max_tolerance=max_tolerance,
+                             max_samples=max_samples, stats_mode=stats_mode)
+
+
+def _fold(state: AccumState, sig: np.ndarray, sample_rgb, reset: bool,
+          sample_alpha, flags=None, slot: int = 0, **adaptive):
+    """One batch through ``ops/accum.accumulate`` (K1b on the card): (the
+    new state with cam_sig ``sig``, display, act, skip)."""
+    with record_function("accum.step"):
+        new, display, act, skip = K.accumulate(
+            state.fields(), sample_rgb, sample_alpha, reset=reset,
+            flags=flags, slot=slot, **adaptive)
+        new = AccumState(*new[:3], torch.from_numpy(sig), *new[3:])
+    return new, display, act, skip
 
 
 def accumulate(state: AccumState, sample_rgb: torch.Tensor, cam: Camera,
@@ -127,36 +122,15 @@ def accumulate(state: AccumState, sample_rgb: torch.Tensor, cam: Camera,
                sample_alpha=None):
     """Fold one sample batch. Returns (state', display_rgb, active_mask).
     sample_alpha (optional u8 [H, W]) is folded into state.alpha for
-    ACTIVE pixels only; frozen pixels keep their cached byte."""
-    with record_function("accum.step"):
-        sig = _signature(cam)
-        if reset_on_camera_change and _moved(cam, state):
-            rows, cols = state.count.shape
-            state = AccumState.create(rows, cols, state.count.device)
-        state = state.replace(cam_sig=sig)
-
-        act = active_mask(state, max_tolerance=max_tolerance,
-                          max_samples=max_samples, stats_mode=stats_mode)
-        k1 = state.count + 1.0
-        delta = sample_rgb - state.mean
-        mean1 = state.mean + delta / k1[..., None]
-        m21 = fma32(delta, sample_rgb - mean1, state.m2)
-        y = perceptual_luminance(sample_rgb)
-        delta_y = y - state.mean_y
-        mean_y1 = state.mean_y + delta_y / k1
-        m2_y1 = fma32(delta_y, y - mean_y1, state.m2_y)
-
-        upd = act[..., None]
-        new = state.replace(
-            count=torch.where(act, k1, state.count),
-            mean=torch.where(upd, mean1, state.mean),
-            m2=torch.where(upd, m21, state.m2),
-            mean_y=torch.where(act, mean_y1, state.mean_y),
-            m2_y=torch.where(act, m2_y1, state.m2_y),
-            alpha=(state.alpha if sample_alpha is None
-                   else torch.where(act, sample_alpha.to(torch.uint8),
-                                    state.alpha)))
-        display = torch.where(new.count[..., None] > 0, new.mean, sample_rgb)
+    ACTIVE pixels only; frozen pixels keep their cached byte. A camera
+    move (with reset_on_camera_change) folds into a zero state. On the
+    card one launch of K1b (``ops/accum``)."""
+    sig = _signature(cam)
+    reset = reset_on_camera_change and _moved(sig, state.cam_sig)
+    new, display, act, _skip = _fold(
+        state, sig, sample_rgb, reset, sample_alpha,
+        max_tolerance=max_tolerance, max_samples=max_samples,
+        stats_mode=stats_mode)
     return new, display, act
 
 
@@ -167,11 +141,13 @@ class ProgressivePathTracer:
     The kernel path (``use_kernel``, the default where the scene's atlas
     fits the megakernel) traces through B5: the CUDA kernel on the card,
     its plain version on the CPU. With ``adaptive_skip`` (and the config's
-    adaptive sampling on) the pre-batch active mask, or every pixel after
-    a camera move, goes to ``render_pt(pixel_active=)``, which compacts the
-    active pixels to the front of the ray stream so the kernel's block gate
-    skips the converged tail; the trajectory stays bit-identical to a full
-    render, only the work drops. The frozen pixels' alpha bytes persist in
+    adaptive sampling on) the pre-batch active mask goes to
+    ``render_pt(pixel_active=)``, which compacts the active pixels to the
+    front of the ray stream so the kernel's block gate skips the converged
+    tail (after a camera move the batch is a full render, no mask); the
+    trajectory stays bit-identical to a full render, only the work drops.
+    That mask is the one the last batch's fold wrote (K1b's skip output),
+    so a step forms none. The frozen pixels' alpha bytes persist in
     AccumState.alpha.
 
     ``poll_done`` reads a bounded queue (64) of any-active flags, each
@@ -196,28 +172,44 @@ class ProgressivePathTracer:
                          and use_kernel)
         self.state = AccumState.create(self.rows, self.cols, self.device)
         self._batch = 0
+        self._folds = 0  # batches folded: the any-active flag slot in turn
         # bounded: a caller that never polls must not grow the queue; the
         # oldest probe can go, convergence being monotone between moves
         self._inflight = collections.deque(maxlen=64)
         self._pinned = self.device.type == "cuda"
+        # the any-active flags, two slots in turn: a batch's launch sets its
+        # slot and clears the other for the next batch
+        self._flags = torch.zeros(2, dtype=torch.int32, device=self.device) \
+            if self._pinned else None
+        # the next batch's skip mask, written by the last fold, and the
+        # state it belongs to: a caller that replaces ``state`` gets
+        # active_mask of its own state
+        self._skip_of = self._skip_mask = None
 
     def _adaptive(self):
         ad = self.cfg.adaptive
         return dict(max_tolerance=ad.max_tolerance,
                     max_samples=ad.max_samples, stats_mode=ad.stats_mode)
 
+    def _mask(self):
+        """active_mask of ``state``: the last fold's skip mask while the
+        state is that fold's, else the plain chain."""
+        if self._skip_of is self.state:
+            return self._skip_mask
+        return active_mask(self.state, **self._adaptive())
+
     def step(self, camera: Camera, time_sec: float = 0.0):
-        """One refinement batch. Returns (display_rgb, alpha, active_mask)."""
+        """One refinement batch. Returns (display_rgb, alpha, active_mask).
+        The camera is read once (``camera_floats``); after a move the
+        batch traces every pixel (``pixel_active=None``), else the skip
+        mask the last fold wrote; the fold is one launch of K1b on the
+        card."""
         pt, ad = self.cfg.path_tracer, self.cfg.adaptive
         key = TF.key_data(self._batch)
         self._batch += 1
-        pa = None
-        if self.skip:
-            if _moved(camera, self.state):
-                pa = torch.ones((self.rows, self.cols), dtype=torch.bool,
-                                device=self.device)
-            else:
-                pa = active_mask(self.state, **self._adaptive())
+        sig = _signature(camera)
+        moved = _moved(sig, self.state.cam_sig)
+        pa = self._mask() if self.skip and not moved else None
         rgb, a = PT.render_pt(
             self.scene, camera, time_sec, key=key, rows=self.rows,
             cols=self.cols, pixel_aspect=self.cfg.pixel_aspect,
@@ -225,21 +217,24 @@ class ProgressivePathTracer:
             light_color=pt.light_color, nee=pt.direct_light_sampling,
             use_kernel=self.use_kernel, pixel_active=pa, packed=self._packed,
             light_host=self._light, device=self.device)
-        self.state, display, act = accumulate(
-            self.state, rgb, camera,
-            reset_on_camera_change=ad.reset_on_camera_change,
-            sample_alpha=a, **self._adaptive())
+        # the slot the last completed fold cleared (a batch that raised
+        # before its fold leaves the turn where it was)
+        slot = self._folds % 2
+        self.state, display, act, self._skip_mask = _fold(
+            self.state, sig, rgb, ad.reset_on_camera_change and moved, a,
+            self._flags, slot, **self._adaptive())
+        self._folds += 1
+        self._skip_of = self.state
         # the convergence probe: start the one-flag readback now, read it
         # `lag` batches later (poll_done), by when it has landed
-        any_act = act.any()
         if self._pinned:
-            host = torch.empty((), dtype=torch.bool, pin_memory=True)
-            host.copy_(any_act, non_blocking=True)
+            host = torch.empty((), dtype=torch.int32, pin_memory=True)
+            host.copy_(self._flags[slot], non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
             self._inflight.append((self._batch, host, ev))
         else:
-            self._inflight.append((self._batch, any_act, None))
+            self._inflight.append((self._batch, act.any(), None))
         return display, self.state.alpha, act
 
     def poll_done(self, lag: int = 2) -> bool:
@@ -259,4 +254,4 @@ class ProgressivePathTracer:
     @property
     def done(self) -> bool:
         """Whether every pixel has converged (reads the mask: a sync)."""
-        return not bool(active_mask(self.state, **self._adaptive()).any())
+        return not bool(self._mask().any())

@@ -111,8 +111,10 @@ whose K3 has no grid form launches the jitted grid kernel and K3: their
 device ms summed; one with it, K3 alone), the whole call, and K3 alone on
 the jitted grid kernel's rays (the rd3 form, which both sides have); the
 host's ``camera_bases`` at the farm's 1,024 poses, then the ray tracer's
-frame and the farm (median, busy ms, launches, views/s), about a minute
-a side; every rgb digested, so both sides' frames are the same bits.
+frame and the farm (median, busy ms, launches, rt.grid's host ms,
+views/s), and, where the side's grid has a trig form, rt.grid in its parts
+at the farm (``rt_grid_parts``), about a minute a side; every rgb
+digested, so both sides' frames are the same bits.
 ``--only glyph`` times the host's camera chains and the glyph tail
 (``glyph_tail``): ``camera_mvp`` at the golden camera and
 ``camera_bases`` at one pose and the farm's 1,024 (host ms, median of
@@ -133,12 +135,14 @@ launches, and the host ms and launches a frame of the stages
 ``--only pt`` times the path tracer's kernel-path frames (``pt_frames``):
 the PT reference run (96x36, spp 64), the HD arm (960x540, spp 8), the
 "pathtrace" frame step (96x36) and the progressive tracer (960x540, spp
-8 a batch, the camera moved every batch, so every pixel is active and
-the stream is the compacted one): the median (wall ms over 20 calls),
-device busy ms, kernel launches a call, and the host ms and launches a
-call of the stages ``pt.setup``, ``pt.rays``, ``pt.trace`` and
-``pt.reduce`` (and, apart, the host-to-device copies among them); the
-reference run's, the HD arm's and a progressive batch's alpha planes
+8 a batch) twice: the camera moved every batch (every pixel active; a
+side whose tracer traces a moved batch in full skips the compaction)
+and the camera still (the stream compacted to the active pixels): the
+median (wall ms over 20 calls), device busy ms, kernel launches a call,
+and the host ms and launches a call of the stages ``pt.setup``,
+``pt.rays``, ``pt.trace``, ``pt.reduce`` and ``accum.step`` (and, apart,
+the host-to-device copies among them); the reference run's, the HD
+arm's and each progressive tracer's first batch's alpha planes
 digested (their rgb may differ in the last bits: a side whose fold sums
 in another order); then the frame's kernels at the launches its paths
 make (``pt_kernels``): X7 at the HD arm's batch and the reference
@@ -685,7 +689,7 @@ def rt_frames(cs, dev, out) -> None:
     (``raytrace.trace``, the rd3 form); the host ms of ``camera_bases``
     at the farm's 1,024 poses (median of 20); then the ray tracer's frame
     and the farm through chip_smoke's run_rt_path and run_farm_path
-    (median, busy ms and launches a call, views/s)."""
+    (median, busy ms and launches a call, rt.grid's host ms, views/s)."""
     import time
     import torch
     from ascii_renderer_tpu_torch.backends.raytrace import (ScenePrims,
@@ -697,7 +701,8 @@ def rt_frames(cs, dev, out) -> None:
     from ascii_renderer_tpu_torch.scene.demo import create_rt_demo_scene
     per_call = 1 if hasattr(RTK, "Grid") else 2
     for key in ("rt_ms", "rt_call_ms", "rt_launches", "k3_rd3_ms",
-                "bases_ms", "path_ms", "path_busy_ms", "path_launches"):
+                "bases_ms", "path_ms", "path_busy_ms", "path_launches",
+                "stage_ms"):
         out[key] = {}
     for rays, padded, views, rows, cols, kw in RT_CALLS:
         scene = create_rt_demo_scene().build(
@@ -736,13 +741,71 @@ def rt_frames(cs, dev, out) -> None:
     for label, (fn, n) in {"RT frame 96x36": (cs.run_rt_path(dev), 20),
                            "view farm 1024 x 96x36": (farm, 5)}.items():
         out["path_ms"][label] = statistics.median(cs._timed(fn, n))
-        busy, launches, _st, _host = cs.profile_frames(fn, 3, ("rt.", "frame.",
-                                                        "glyph"), label)
+        busy, launches, _st, host = cs.profile_frames(fn, 3, ("rt.", "frame.",
+                                                       "glyph"), label)
         out["path_busy_ms"][label] = busy
         out["path_launches"][label] = launches
+        out["stage_ms"][f"{label} rt.grid"] = host.get("rt.grid", 0.0)
         torch.cuda.synchronize()
     out["path_ms"]["view farm views/s"] = cs.FARM_VIEWS / (
         out["path_ms"]["view farm 1024 x 96x36"] / 1e3)
+    if "trig" in getattr(getattr(RTK, "Grid", None), "_fields", ()):
+        rt_grid_parts(cs, dev, out)
+
+
+def rt_grid_parts(cs, dev, out) -> None:
+    """The farm's rt.grid (1,024 views) in its parts on the host, median
+    ms of 20 calls after one (``grid_parts_ms``, where the side's grid has
+    a trig form): the bases form (``camera_bases`` above SCALAR_VIEWS: the
+    three .tolist() calls, 5 x V libm calls, the numpy chain
+    ``bases_from_trig``; then ``ops/rt_trace``'s [V, 12] cat and its copy
+    to the card) and the trig form render_rgb takes on the card
+    (``core/camera.view_trig``: libm once a distinct argument; the copy of
+    [V, 8])."""
+    import math
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.core import camera as C
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+    cams = cs._orbit()
+    rows, cols = cs.FARM_GRID
+    cam = cams.pos.reshape(-1, 3)
+    ys, ps, fs = (x.reshape(-1).tolist() for x in (cams.yaw, cams.pitch,
+                                                   cams.fov_y))
+    f32 = np.float32
+
+    def trig():
+        def t(fn, xs):
+            return np.fromiter(map(fn, xs), np.float64, len(xs)).astype(f32)
+        return (t(math.cos, ps), t(math.sin, ps), t(math.cos, ys),
+                t(math.sin, ys),
+                t(math.tan, (f32(0.5) * np.array(fs, f32)).tolist()))
+
+    tr = trig()
+    grid = RTK.Grid(C.camera_bases(cams.yaw, cams.pitch, cams.fov_y), rows,
+                    cols, cs.PIXEL_ASPECT, 0, rows)
+    views = RTK._grid_views(grid, cam)
+    table = C.view_trig(cam, cams.yaw, cams.pitch, cams.fov_y)
+
+    def copy(x):
+        x.to(dev)
+        torch.cuda.synchronize()
+
+    out["grid_parts_ms"] = {
+        "bases: three .tolist()": _host_ms(lambda: [
+            x.reshape(-1).tolist() for x in (cams.yaw, cams.pitch,
+                                             cams.fov_y)]),
+        "bases: 5 x V libm calls": _host_ms(trig),
+        "bases: numpy chain": _host_ms(lambda: C.bases_from_trig(*tr)),
+        "bases: camera_bases whole": _host_ms(
+            lambda: C.camera_bases(cams.yaw, cams.pitch, cams.fov_y)),
+        "bases: _grid_views cat": _host_ms(lambda: RTK._grid_views(grid,
+                                                                   cam)),
+        "bases: copy [V, 12]": _host_ms(lambda: copy(views)),
+        "trig: view_trig": _host_ms(lambda: C.view_trig(
+            cam, cams.yaw, cams.pitch, cams.fov_y)),
+        "trig: copy [V, 8]": _host_ms(lambda: copy(torch.from_numpy(table))),
+    }
 
 
 def _host_ms(fn, n=21):
@@ -975,6 +1038,63 @@ def glyph_tail(cs, dev, out) -> None:
         torch.cuda.synchronize()
     out["path_ms"]["view farm views/s"] = cs.FARM_VIEWS / (
         out["path_ms"]["view farm 1024 x 96x36"] / 1e3)
+    if "trig" in getattr(getattr(RTK, "Grid", None), "_fields", ()):
+        rt_grid_parts(cs, dev, out)
+
+
+def rt_grid_parts(cs, dev, out) -> None:
+    """The farm's rt.grid (1,024 views) in its parts on the host, median
+    ms of 20 calls after one (``grid_parts_ms``, where the side's grid has
+    a trig form): the bases form (``camera_bases`` above SCALAR_VIEWS: the
+    three .tolist() calls, 5 x V libm calls, the numpy chain
+    ``bases_from_trig``; then ``ops/rt_trace``'s [V, 12] cat and its copy
+    to the card) and the trig form render_rgb takes on the card
+    (``core/camera.view_trig``: libm once a distinct argument; the copy of
+    [V, 8])."""
+    import math
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.core import camera as C
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+    cams = cs._orbit()
+    rows, cols = cs.FARM_GRID
+    cam = cams.pos.reshape(-1, 3)
+    ys, ps, fs = (x.reshape(-1).tolist() for x in (cams.yaw, cams.pitch,
+                                                   cams.fov_y))
+    f32 = np.float32
+
+    def trig():
+        def t(fn, xs):
+            return np.fromiter(map(fn, xs), np.float64, len(xs)).astype(f32)
+        return (t(math.cos, ps), t(math.sin, ps), t(math.cos, ys),
+                t(math.sin, ys),
+                t(math.tan, (f32(0.5) * np.array(fs, f32)).tolist()))
+
+    tr = trig()
+    grid = RTK.Grid(C.camera_bases(cams.yaw, cams.pitch, cams.fov_y), rows,
+                    cols, cs.PIXEL_ASPECT, 0, rows)
+    views = RTK._grid_views(grid, cam)
+    table = C.view_trig(cam, cams.yaw, cams.pitch, cams.fov_y)
+
+    def copy(x):
+        x.to(dev)
+        torch.cuda.synchronize()
+
+    out["grid_parts_ms"] = {
+        "bases: three .tolist()": _host_ms(lambda: [
+            x.reshape(-1).tolist() for x in (cams.yaw, cams.pitch,
+                                             cams.fov_y)]),
+        "bases: 5 x V libm calls": _host_ms(trig),
+        "bases: numpy chain": _host_ms(lambda: C.bases_from_trig(*tr)),
+        "bases: camera_bases whole": _host_ms(
+            lambda: C.camera_bases(cams.yaw, cams.pitch, cams.fov_y)),
+        "bases: _grid_views cat": _host_ms(lambda: RTK._grid_views(grid,
+                                                                   cam)),
+        "bases: copy [V, 12]": _host_ms(lambda: copy(views)),
+        "trig: view_trig": _host_ms(lambda: C.view_trig(
+            cam, cams.yaw, cams.pitch, cams.fov_y)),
+        "trig: copy [V, 8]": _host_ms(lambda: copy(torch.from_numpy(table))),
+    }
 
 
 def keys_and_build(cs, dev, out, caps) -> None:
@@ -1141,7 +1261,7 @@ def shade_and_build(cs, dev, out) -> None:
     torch.cuda.synchronize()
 
 
-PT_STAGES = ("pt.setup", "pt.rays", "pt.trace", "pt.reduce")
+PT_STAGES = ("pt.setup", "pt.rays", "pt.trace", "pt.reduce", "accum.step")
 
 
 def pt_kernels(cs, dev, out) -> None:
@@ -1229,6 +1349,11 @@ def pt_frames(cs, dev, out) -> None:
     out["digest"]["progressive HD batch alpha"] = _digest(
         [prog()[1].to(torch.int32)])
     runs["progressive HD batch 960x540 spp8"] = (prog, 10)
+    still = cs._progressive_tracer(dev, hd_cfg, cs.ROWS, cs.COLS, True)
+    out["digest"]["progressive HD still batch alpha"] = _digest(
+        [still.step(poses[0])[1].to(torch.int32)])
+    runs["progressive HD still batch 960x540 spp8"] = (
+        lambda: still.step(poses[0]), 10)
     for label, (fn, n) in runs.items():
         out["path_ms"][label] = statistics.median(cs._timed(fn, n))
         busy, launches, stages, host = cs.profile_frames(
@@ -1302,6 +1427,63 @@ def paths(cs, dev, out) -> None:
         torch.cuda.synchronize()
     out["path_ms"]["view farm views/s"] = cs.FARM_VIEWS / (
         out["path_ms"]["view farm 1024 x 96x36"] / 1e3)
+    if "trig" in getattr(getattr(RTK, "Grid", None), "_fields", ()):
+        rt_grid_parts(cs, dev, out)
+
+
+def rt_grid_parts(cs, dev, out) -> None:
+    """The farm's rt.grid (1,024 views) in its parts on the host, median
+    ms of 20 calls after one (``grid_parts_ms``, where the side's grid has
+    a trig form): the bases form (``camera_bases`` above SCALAR_VIEWS: the
+    three .tolist() calls, 5 x V libm calls, the numpy chain
+    ``bases_from_trig``; then ``ops/rt_trace``'s [V, 12] cat and its copy
+    to the card) and the trig form render_rgb takes on the card
+    (``core/camera.view_trig``: libm once a distinct argument; the copy of
+    [V, 8])."""
+    import math
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.core import camera as C
+    from ascii_renderer_tpu_torch.ops import rt_trace as RTK
+    cams = cs._orbit()
+    rows, cols = cs.FARM_GRID
+    cam = cams.pos.reshape(-1, 3)
+    ys, ps, fs = (x.reshape(-1).tolist() for x in (cams.yaw, cams.pitch,
+                                                   cams.fov_y))
+    f32 = np.float32
+
+    def trig():
+        def t(fn, xs):
+            return np.fromiter(map(fn, xs), np.float64, len(xs)).astype(f32)
+        return (t(math.cos, ps), t(math.sin, ps), t(math.cos, ys),
+                t(math.sin, ys),
+                t(math.tan, (f32(0.5) * np.array(fs, f32)).tolist()))
+
+    tr = trig()
+    grid = RTK.Grid(C.camera_bases(cams.yaw, cams.pitch, cams.fov_y), rows,
+                    cols, cs.PIXEL_ASPECT, 0, rows)
+    views = RTK._grid_views(grid, cam)
+    table = C.view_trig(cam, cams.yaw, cams.pitch, cams.fov_y)
+
+    def copy(x):
+        x.to(dev)
+        torch.cuda.synchronize()
+
+    out["grid_parts_ms"] = {
+        "bases: three .tolist()": _host_ms(lambda: [
+            x.reshape(-1).tolist() for x in (cams.yaw, cams.pitch,
+                                             cams.fov_y)]),
+        "bases: 5 x V libm calls": _host_ms(trig),
+        "bases: numpy chain": _host_ms(lambda: C.bases_from_trig(*tr)),
+        "bases: camera_bases whole": _host_ms(
+            lambda: C.camera_bases(cams.yaw, cams.pitch, cams.fov_y)),
+        "bases: _grid_views cat": _host_ms(lambda: RTK._grid_views(grid,
+                                                                   cam)),
+        "bases: copy [V, 12]": _host_ms(lambda: copy(views)),
+        "trig: view_trig": _host_ms(lambda: C.view_trig(
+            cam, cams.yaw, cams.pitch, cams.fov_y)),
+        "trig: copy [V, 8]": _host_ms(lambda: copy(torch.from_numpy(table))),
+    }
 
 
 def main() -> int:
@@ -1381,11 +1563,12 @@ def main() -> int:
                  else "n/a")
         print(f"{shape}: other {ms['other']:.5f}{unit}, this "
               f"{ms['this']:.5f}{unit}, other / this {ratio}", flush=True)
-    for shape in runs[0][1].get("forms_ms", {}) or runs[1][1].get(
-            "forms_ms", {}):  # timed in this checkout only
-        ms = statistics.median(r["forms_ms"][shape] for s, r in runs
-                               if s == "this")
-        print(f"Forms {shape}: this {ms:.5f} ms", flush=True)
+    for key in ("forms_ms", "grid_parts_ms"):  # timed in this checkout
+        for shape in runs[0][1].get(key, {}) or runs[1][1].get(key, {}):
+            ms = statistics.median(r[key][shape] for s, r in runs
+                                   if s == "this")
+            name = key[:-3].replace("_", " ").capitalize()
+            print(f"{name} {shape}: this {ms:.5f} ms", flush=True)
     print("outputs bit-identical in both checkouts", flush=True)
     print(json.dumps({"runs": [dict(side=s, **r) for s, r in runs],
                       "median_ms": summary}), flush=True)

@@ -9,10 +9,10 @@ soups at the near plane for the clip and the plane table, screen
 channel dicts for the bin entries' tile keys and bbox dicts for their bin
 keys, float frames with alpha and UI planes for the glyph tail, single
 ripples with the reference march's cells for X12a's UI form, the path
-tracer's megakernel outputs for its batch fold (``ops/pt_reduce``) and
-stream orders for its sample rays (``ops/ray_grid.pt_rays``). The
-kernels' tests and
-``chip_smoke.py``'s checks build their inputs here."""
+tracer's megakernel outputs for its batch fold (``ops/pt_reduce``),
+stream orders for its sample rays (``ops/ray_grid.pt_rays``) and the
+progressive tracer's statistics planes (``ops/accum``). The kernels'
+tests and ``chip_smoke.py``'s checks build their inputs here."""
 
 import numpy as np
 import torch
@@ -461,3 +461,38 @@ def partition_channels(n: int, rule, seed=0) -> dict:
         ch[k] = v
     ch["valid"] = partition_mask(n, rule, seed)
     return ch
+
+
+def accum_case(shape, seed=0, max_samples=64, edges=True,
+               subnormals=True) -> dict:
+    """Inputs of the progressive statistics step (``ops/accum``): the old
+    state's planes (count, mean, m2, mean_y, m2_y, alpha), a batch's
+    sample rgb and alpha (numpy). Counts from 0 to max_samples, many at
+    max_samples - 1; variances from converged to far from it, so that
+    both masks hold both values; with ``edges`` 2% of each float plane
+    NaN, infinities, signed zeros, negative values and (``subnormals``;
+    XLA's CPU code flushes them to zero, CUDA and torch keep them)
+    subnormals."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    counts = np.asarray([0, 1, 2, 3, 10, max_samples - 1, max_samples - 1,
+                         max_samples], f32)
+    count = counts[rng.integers(0, len(counts), shape)]
+    mean = rng.uniform(0, 1, shape + (3,)).astype(f32)
+    var = 10.0 ** rng.uniform(-9, -1, shape + (3,))
+    m2 = (var * np.maximum(count - 1, 0)[..., None]).astype(f32)
+    mean_y = (mean @ np.asarray([0.3, 0.59, 0.11])).astype(f32)
+    m2_y = (var[..., 0] * np.maximum(count - 1, 0)).astype(f32)
+    sample = rng.uniform(0, 1.5, shape + (3,)).astype(f32)
+    planes = dict(count=count, mean=mean, m2=m2, mean_y=mean_y, m2_y=m2_y,
+                  sample=sample)
+    if edges:
+        special = np.asarray([np.nan, np.inf, -np.inf, -0.0, 0.0, -0.5]
+                             + [1e-45, -3e-39] * subnormals, f32)
+        for v in planes.values():
+            pick = rng.random(v.shape) < 0.02
+            v[pick] = special[rng.integers(0, len(special),
+                                           int(pick.sum()))]
+    planes["alpha"] = rng.integers(0, 256, shape).astype(np.uint8)
+    planes["sample_alpha"] = rng.integers(0, 256, shape).astype(np.uint8)
+    return planes

@@ -45,7 +45,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      last batch past spp, a compacted order, the HD arm's batch) and on
      a PT reference frame's own outputs: every state and the resolve bit
      for bit; timed at a reference batch and the HD arm's batch with the
-     resolve;
+     resolve; K1b, the progressive tracer's statistics step (ops/accum,
+     one launch a batch), at the progressive shapes 96x36 and 960x540 on
+     seeded edge planes (NaN, infinities, subnormals, counts at
+     max_samples - 1), both statistics modes, reset or not, a sample
+     alpha or not, the any-active flags: bit for bit with accumulate_ref;
+     timed at both shapes beside the plain chain;
    - B4 over the view farm's batch of glyph planes [1024, 36, 96] in one
      launch, radius 1..3, random override masks: equal to the plain
      version and to 1,024 one-plane launches; timed at the K the wrapper
@@ -72,10 +77,13 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      1,024 views and three more scenes over 16 views, in both ray forms,
      in the launch's own form and in every form it can be asked for (1 to
      32 lanes a ray, the valid slots staged in shared memory or read from
-     the global arrays): bit for bit with the plain grid (ndc_grid_jit +
-     ray_dirs_jit) and trace_rgb, and render_rgb on the card one launch a
-     call (one view, a band, the farm; no grid kernel, no torch op);
-     timed at the farm's batch in both forms;
+     the global arrays), the batches also in the grid form's trig form
+     (render_rgb's above SCALAR_VIEWS views: each view's origin and trig
+     from the host, its bases formed on the card): bit for bit
+     with the plain grid (ndc_grid_jit + ray_dirs_jit) and trace_rgb, and
+     render_rgb on the card one launch a call (one view, a band, the
+     farm; no grid kernel, no torch op); timed at the farm's batch in
+     every form;
    - the raster's deferred shade (K2, a kernel for XLA code) at each
      caller's inputs, captured on its path (the headline's grouped
      tiles, the mid-scale HD arm's plane table, the subtile path's
@@ -213,7 +221,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    - the view farm, bench config 4 at full size: 1,024 orbit views at
      96x36, render_rgb and the glyph pass (B4 one launch over the views)
      in one batched call; 8 spread views must equal the port's CPU render
-     of them; then 5 timed farms (views/s);
+     of them; then 5 timed farms (views/s), printed beside the farm's
+     rt.grid host ms;
    - the progressive path tracer (sim/accum) at 96x36, the config's path
      tracer and adaptive settings: adaptive_skip=True (B5 with its block
      gate over the compacted stream) bit-identical to adaptive_skip=False
@@ -221,13 +230,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      gated blocks, ms); a spp-2 frame 0's alpha equal to the CPU run; the
      960x540 spp-8 arm, 8 batches; its pt.setup (X13's order form and the
      counters' fill) at most PT_SETUP_COMPACTED_LAUNCHES launches a batch
-     and no copy either way in pt.setup or pt.rays.
+     and no copy either way in pt.setup or pt.rays; its accum.step at
+     most ACCUM_STEP_LAUNCHES (K1b) and no fma32 on the path.
    - the app shell: the port's CLI (app/cli.main) in this process at
      96x36: offline raster, raytrace and raster --batch 4 must print the
      text of the CPU run of the same argv; offline pathtrace (spp 2) must
      give the CPU run's alpha plane and its text at the override cells;
      20 timed offline frames of each backend (pathtrace at spp 64);
-     --progressive until poll_done; --mode pixels --backend raytrace, 60
+     --progressive until poll_done (profiled: accum.step at most
+     ACCUM_STEP_LAUNCHES a batch, no fma32); --mode pixels --backend
+     raytrace, 60
      frames, the first 2 frames' bytes equal to the CPU run's (FPS
      printed); --mode term --backend raster on a pty, "w" held 2 s, then
      "q": exit 0 within 20 s, its FrameStats (fps, p50, p95) printed; the
@@ -2103,6 +2115,119 @@ def check_pt_reduce(dev):
     return rec
 
 
+# float operations a pixel of K1b (csrc/accum.cu; a fused product-add
+# counted as two, a root or division as one): the active test twice (the
+# pre-update mask and the skip mask, ~22 each) and the Welford update
+# with the perceptual luminance (~30)
+ACCUM_OPS = 74
+# K1b's shapes on the driven paths: the progressive tracer's 96x36 and its
+# HD batch's 960x540
+ACCUM_SHAPES = ((36, 96), (ROWS, COLS))
+# kernel launches accum.step may make a batch (46 before K1b)
+ACCUM_STEP_LAUNCHES = 2
+
+
+def _accum_bytes(shape, reset, with_alpha):
+    """K1b's least traffic a call: the old state read (37 bytes a pixel:
+    count, mean, m2, mean_y, m2_y, alpha) unless reset, the sample's 12
+    and its alpha byte, the new state (37), the display (12) and the two
+    masks written."""
+    n = math.prod(shape)
+    return n * ((0 if reset else 37) + 12 + with_alpha + 37 + 12 + 2)
+
+
+def check_accum(dev):
+    """K1b, the progressive tracer's statistics step (ops/accum, one
+    launch of csrc/accum.cu a batch), against its plain version
+    (accumulate_ref, the torch chain, on CPU copies): seeded planes at the
+    progressive shapes ACCUM_SHAPES (counts 0 to max_samples, many at
+    max_samples - 1; 2% NaN, infinities, signed zeros, subnormals,
+    negative values), in both statistics modes, with and without a reset
+    and a sample alpha plane, with the any-active flags: the new state,
+    the display, both masks and the flags bit for bit (NaN in the same
+    places). Then at the progressive tracer's own second batch at each
+    shape (96x36 at the config's spp 64, 960x540 at spp 8; its state,
+    samples and flags captured from the step) bit for bit, timed there,
+    the plain chain on the same CUDA tensors beside it (its four fma32 are
+    K1 launches), and on the edge planes. Returns the record (the HD
+    batch's times)."""
+    import torch
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    from ascii_renderer_tpu_torch.ops import accum as OA
+    from ascii_renderer_tpu_torch.tools.xla_inputs import accum_case
+    kw = dict(max_tolerance=0.1, max_samples=64)
+    n_cases, times = 0, {}
+    for shape in ACCUM_SHAPES:
+        c = {k: torch.from_numpy(v).to(dev)
+             for k, v in accum_case(shape, len(shape) + shape[0],
+                                    kw["max_samples"]).items()}
+        state = tuple(c[f] for f in OA.FIELDS)
+        for mode in ("rgb", "perceptual"):
+            for reset in (False, True):
+                for sa in (None, c["sample_alpha"]):
+                    flags = torch.tensor([3, 5], dtype=torch.int32,
+                                         device=dev)
+                    got = OA.accumulate(state, c["sample"], sa, reset=reset,
+                                        stats_mode=mode, flags=flags,
+                                        slot=1, **kw)
+                    fl = flags.cpu()
+                    want_fl = torch.tensor([3, 5], dtype=torch.int32)
+                    want = OA.accumulate_ref(
+                        tuple(t.cpu() for t in state), c["sample"].cpu(),
+                        None if sa is None else sa.cpu(), reset=reset,
+                        stats_mode=mode, flags=want_fl, slot=1, **kw)
+                    what = f"K1b {shape} {mode} reset {reset} alpha " \
+                        f"{sa is not None}"
+                    for g, w, f in zip(got[0], want[0], OA.FIELDS):
+                        _same_nan_bits(g.cpu(), w, f"{what}: {f}")
+                    _same_nan_bits(got[1].cpu(), want[1], f"{what}: display")
+                    for g, w, f in zip(got[2:], want[2:], ("act", "skip")):
+                        assert torch.equal(g.cpu(), w), f"{what}: {f}"
+                    assert torch.equal(fl, want_fl) and fl[0] == 0, what
+                    n_cases += 1
+        edge_ms = _device_ms(lambda: OA.accumulate(
+            state, c["sample"], c["sample_alpha"], reset=False, **kw),
+            "accum_kernel", 1)
+        # the tracer's own second batch: its call captured from the step
+        cfg = Config(path_tracer=PathTracerConfig(
+            samples_per_batch=64 if shape[0] < ROWS else 8))
+        tr = _progressive_tracer(dev, cfg, *shape, True)
+        a, k = _capture_all(OA, "accumulate", lambda: [
+            tr.step(_pt_camera()) for _ in range(2)])[-1]
+        assert not k["reset"], k
+        k = {**k, "flags": torch.zeros(2, dtype=torch.int32, device=dev)}
+        got = OA.accumulate(*a, **k)
+        want = OA.accumulate_ref(*(
+            tuple(t.cpu() for t in x) if isinstance(x, tuple) else
+            (x.cpu() if x is not None else None) for x in a),
+            **{**k, "flags": torch.zeros(2, dtype=torch.int32)})
+        for g, w in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+            assert torch.equal(g.cpu().view(torch.uint8),
+                               w.view(torch.uint8)), f"K1b tracer {shape}"
+        ms = _device_ms(lambda: OA.accumulate(*a, **k), "accum_kernel", 1)
+        plain = _event_ms(lambda: OA.accumulate_ref(*a, **{
+            **k, "flags": None}), 10)
+        bound = _bound(_accum_bytes(shape, False, True),
+                       ACCUM_OPS * math.prod(shape))
+        times[shape] = (ms, plain, bound)
+        print(f"K1b accumulate at {list(shape)}, the tracer's second "
+              f"batch ({int(got[2].sum())} active pixels): bit-identical, "
+              f"kernel {ms:.5f} ms, plain chain on the card {plain:.3f} ms, "
+              f"bound {bound[0]:.5f} ms ({bound[1]}); on the edge planes "
+              f"{edge_ms:.5f} ms", flush=True)
+    print(f"K1b accumulate: bit-identical to its plain version in {n_cases} "
+          f"cases (shapes {list(ACCUM_SHAPES)}, both statistics modes, reset "
+          f"or not, a sample alpha or not; edge planes)", flush=True)
+    ms, plain, bound = times[ACCUM_SHAPES[-1]]
+    rec = _rec("accum", "accum.cu", "", 0.0, ms, plain, bound)
+    rec["replaces"] = _jax_def_line(os.path.join(
+        ROOT, "ascii_renderer_tpu_torch", "sim", "accum.py"), "accumulate")
+    small = times[ACCUM_SHAPES[0]]
+    rec.update(shape=list(ACCUM_SHAPES[-1]), ms_small=small[0],
+               plain_ms_small=small[1], bound_ms_small=small[2][0])
+    return rec
+
+
 def _fold_timing_calls(dev):
     """{label: ((args, keywords) of an X14 fold, its rays)} at the launches
     the driven paths make: the reference run's batch 0 (the first fold)
@@ -2957,6 +3082,16 @@ def _rt_grid(cams, rows, cols, row_lo=0, n_rows=None):
     return grid, cams.pos.reshape(-1, 3).to(torch.float32)
 
 
+def _rt_trig_grid(cams, rows, cols, row_lo=0, n_rows=None):
+    """render_rgb's grid on the card above SCALAR_VIEWS views: its trig
+    form (core/camera.view_trig), and the origins f32 [V, 3] on the
+    host."""
+    from ascii_renderer_tpu_torch.core.camera import view_trig
+    grid, cam = _rt_grid(cams, rows, cols, row_lo, n_rows)
+    return grid._replace(bases=None, trig=view_trig(
+        cam, cams.yaw, cams.pitch, cams.fov_y)), cam
+
+
 def _k3_args(a, k):
     """(scene, prims, cam [V, 3], rd3 [V, R, 3], grid or None) on the
     scene's device of a call of ops/rt_trace.trace: the grid form's rays
@@ -2979,8 +3114,9 @@ def _k3_bound(scene, pr, cam, rd3, grid):
     n = rd3.shape[0] * rd3.shape[1]
     if grid is None:
         return _bound(24 * n + _nbytes(cam), n_ops), n, n_hit, n_refl
-    return (_bound(12 * n + 48 * rd3.shape[0], n_ops + RT_OPS_GRID * n), n,
-            n_hit, n_refl)
+    per_view = 48 if getattr(grid, "trig", None) is None else 32
+    return (_bound(12 * n + per_view * rd3.shape[0],
+                   n_ops + RT_OPS_GRID * n), n, n_hit, n_refl)
 
 
 def _rt_inputs(scene, cams, rows, cols, dev, row_lo=0, n_rows=None):
@@ -3042,8 +3178,10 @@ def check_rt_trace(dev):
     its padded slots), its row bands of 12, the farm's 1,024 orbit views
     (exact slots), and the triangle / quad / mirror scene, rt_demo with
     two lights of each kind and a one-sphere scene over 16 views: bit for
-    bit, and render_rgb too. Timed at the farm's batch in both forms.
-    Returns the record (the grid form's times)."""
+    bit, and render_rgb too; the batches also in the grid form's trig form
+    (each view's origin and trig, the bases formed on the card). Timed at
+    the farm's batch in every form. Returns the record (the times of
+    render_rgb's form at the farm, the trig form's)."""
     import torch
     from ascii_renderer_tpu_torch.backends.raytrace import (render_rgb,
                                                             trace, trace_rgb)
@@ -3075,6 +3213,10 @@ def check_rt_trace(dev):
                                                   **f),
                 "grid form": lambda **f: RTK.trace(scene, pr, cam_h, None,
                                                    fuse, grid=grid, **f)}
+        if V > 1:
+            tgrid = _rt_trig_grid(cams, rows, cols, **kw)[0]
+            runs["trig form"] = lambda **f: RTK.trace(
+                scene, pr, cam_h, None, fuse, grid=tgrid, **f)
         _same_bits(trace(scene, pr, cam, rd3), want, f"rt trace, {label}")
         _same_bits(render_rgb(scene, cams, rows, cols, PIXEL_ASPECT,
                               prims=pr, **kw).reshape(want.shape), want,
@@ -3090,13 +3232,16 @@ def check_rt_trace(dev):
     grid, cam_h = _rt_grid(_orbit(), rows, cols)
     fuse = (_rt_fuse(pr, FARM_VIEWS, 1), _rt_fuse(pr, FARM_VIEWS,
                                                   rd3.shape[1]))
+    tgrid = _rt_trig_grid(_orbit(), rows, cols)[0]
+    ms_bases = _device_ms(lambda: RTK.trace(farm, pr, cam_h, None, fuse,
+                                            grid=grid), "rt_trace_kernel", 1)
     ms = _device_ms(lambda: RTK.trace(farm, pr, cam_h, None, fuse,
-                                      grid=grid), "rt_trace_kernel", 1)
+                                      grid=tgrid), "rt_trace_kernel", 1)
     ms_rd3 = _device_ms(lambda: trace(farm, pr, cam, rd3), "rt_trace_kernel",
                         1)
     plain = _event_ms(lambda: trace_rgb(farm, pr, cam,
                                         RTK.grid_rays(grid, dev)), 3)
-    bound, n, n_hit, n_refl = _k3_bound(farm, pr, cam, rd3, grid)
+    bound, n, n_hit, n_refl = _k3_bound(farm, pr, cam, rd3, tgrid)
     bound_rd3 = _k3_bound(farm, pr, cam, rd3, None)[0]
     lanes, staged, blocks = _k3_form(RTK, n, pr)
     print(f"rt trace (K3): bit-identical to the plain version (trace_rgb "
@@ -3106,7 +3251,10 @@ def check_rt_trace(dev):
           f"{', '.join(c[0] for c in cases)}; farm {n} rays ({n_hit} hit, "
           f"{n_refl} on a mirror; {lanes} lanes a ray, "
           f"{'staged' if staged else 'global'}, {blocks} blocks): grid form "
-          f"{ms:.5f} ms (bound {bound[0]:.5f} ms, {bound[1]}), rd3 form "
+          f"(render_rgb's, the trig form, bases once a block) {ms:.5f} ms "
+          f"(bound {bound[0]:.5f} ms, {bound[1]}), the bases' 12 floats "
+          f"from the host {ms_bases:.5f} ms, rd3 "
+          f"form "
           f"{ms_rd3:.5f} ms (bound {bound_rd3[0]:.5f} ms, {bound_rd3[1]}), "
           f"plain {plain:.3f} ms; decisions "
           f"{RTK.FUSE['primary']['spheres_t']} (primary) / "
@@ -3114,7 +3262,7 @@ def check_rt_trace(dev):
     rec = _rec("rt_trace", "rt_trace.cu", "", 0.0, ms, plain, bound)
     rec.update(replaces="ascii_renderer_tpu/backends/raytrace.py:166",
                rays=n, hit=n_hit, mirror=n_refl, ms_rd3=ms_rd3,
-               bound_ms_rd3=bound_rd3[0])
+               bound_ms_rd3=bound_rd3[0], ms_bases=ms_bases)
     return rec
 
 
@@ -3272,7 +3420,7 @@ def run_farm_path(dev):
     (mode filter on: the batched B4, one launch) in one batched call. The
     views in FARM_CHECKED must give the glyph grids of the port's CPU
     render of those views exactly. Then 5 timed farms (views/s). Returns
-    a function that runs one farm."""
+    a function that runs one farm (its ``views_per_s`` the median's)."""
     import torch
     from ascii_renderer_tpu_torch.core.config import Config
     from ascii_renderer_tpu_torch.parallel.mesh import batch_cameras
@@ -3299,8 +3447,9 @@ def run_farm_path(dev):
           f"{kinds} distinct glyphs", flush=True)
     t = _timed(farm, 5)
     _summary(f"view farm {FARM_VIEWS} x 96x36", t)
-    print(f"view farm: {FARM_VIEWS / (statistics.median(t) / 1e3):.1f} "
-          f"views/s (median of 5 farms)", flush=True)
+    farm.views_per_s = FARM_VIEWS / (statistics.median(t) / 1e3)
+    print(f"view farm: {farm.views_per_s:.1f} views/s (median of 5 farms)",
+          flush=True)
     return farm
 
 
@@ -3573,14 +3722,33 @@ def run_cli_path(dev):
         _summary(f"CLI offline {be} 96x36 (a frame: step + completion)",
                  ms)
 
-    rc, _o, err, _f, _m = _cli(["--progressive", *CLI_GRID, "--out",
-                                os.path.join(OUT, "cli_progressive.txt")])
+    # --progressive under the profiler: each batch's statistics step is
+    # one K1b launch (accum.step), no fma32 (K1)
+    from ascii_renderer_tpu_torch.ops import accum as OA
+    from ascii_renderer_tpu_torch.ops import fp as KFP
+    got = []
+
+    def progressive():
+        got.append(_cli(["--progressive", *CLI_GRID, "--out",
+                         os.path.join(OUT, "cli_progressive.txt")]))
+
+    n0 = (OA.launches, KFP.launches)
+    _busy, _n, stages, host = profile_frames(
+        progressive, 1, ("pt.", "accum."), "CLI --progressive run")
+    batches, k1 = OA.launches - n0[0], KFP.launches - n0[1]
+    rc, _o, err, _f, _m = got[0]
     assert rc == 0, err
     with open(os.path.join(OUT, "cli_progressive.txt")) as fh:
         _cli_rows(fh.read())
     line = [x for x in err.splitlines() if x.startswith("[progressive]")]
     assert line and "converged" in line[-1], err
-    print(f"CLI --progressive: {line[-1]}", flush=True)
+    print(f"CLI --progressive: {line[-1]}; {batches} batches, accum.step "
+          f"{stages.get('accum.step', 0.0) / batches:g} launches and "
+          f"{host.get('accum.step', 0.0) / batches:.3f} ms of host a batch, "
+          f"fma32 launches {k1}", flush=True)
+    assert batches > 0 and k1 == 0, (batches, k1)
+    assert stages.get("accum.step", 0.0) <= ACCUM_STEP_LAUNCHES * batches, \
+        stages
 
     px = {}
     for d, n in (("cuda", 60), ("cpu", 2)):
@@ -5761,8 +5929,11 @@ def _k3_size(a, k):
     grid = k.get("grid")
     if grid is None:
         return (a[3].shape[0] * a[3].shape[1], "rd3")
-    V = grid.bases[0].shape[0]
-    return (V * grid.band * grid.cols, f"grid {V} x {grid.band}x{grid.cols}")
+    trig = getattr(grid, "trig", None)
+    V = grid.bases[0].shape[0] if trig is None else trig.shape[0]
+    form = "grid" if trig is None else "trig grid"
+    return (V * grid.band * grid.cols,
+            f"{form} {V} x {grid.band}x{grid.cols}")
 
 
 def _x4_size(a, k):
@@ -5976,6 +6147,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
     from ascii_renderer_tpu_torch.backends import pathtrace as PTB
     from ascii_renderer_tpu_torch.ops import _build
+    from ascii_renderer_tpu_torch.ops import accum as OA
     from ascii_renderer_tpu_torch.ops import ascii_kernel as AK
     from ascii_renderer_tpu_torch.ops import bin_entries as BE
     from ascii_renderer_tpu_torch.ops import fp as KFP
@@ -6064,7 +6236,8 @@ def main() -> int:
                 "bin_entries_keys": (BE, "launches_keys"),
                 "group_build": (GB, "launches"),
                 "partition": (PTN, "launches"),
-                "partition_order": (PTN, "launches_order")}
+                "partition_order": (PTN, "launches_order"),
+                "accum": (OA, "launches")}
     # fma32 first: the other kernels' plain versions call it
     soup = _bunny()
     scene = _scene(dev)
@@ -6075,6 +6248,7 @@ def main() -> int:
     recs.append(check_ray_grid(dev))
     recs.append(check_pt_rays(dev))
     recs.append(check_pt_reduce(dev))
+    recs.append(check_accum(dev))
     recs.append(check_modal_batched(dev))
     recs += check_glyph_tail(dev, soup, scene)
     ui_form = check_ui_form(dev)
@@ -6329,6 +6503,10 @@ def main() -> int:
     prof = profile_frames(farm_fn, 2, ("rt.", "frame.", "glyph"),
                           "view farm")
     farm_stages = prof[2]
+    # rt.grid on the host: the views' trig, K3 forms their bases
+    print(f"view farm: rt.grid {prof[3].get('rt.grid', 0.0):.3f} ms of host "
+          f"a farm under the profiler, {farm_fn.views_per_s:.1f} views/s",
+          flush=True)
     tails["view farm"] = tail_stages("view farm", prof, counters, farm_fn)
     # rt.grid is host work; rt.trace is K3 alone
     for label, st in (("RT frame", rt_stages), ("view farm", farm_stages)):
@@ -6339,9 +6517,17 @@ def main() -> int:
     print(f"launches on the progressive tracer: {c_prog}", flush=True)
     for k in PT_KERNELS + ("pt_megakernel_gated", "partition_order"):
         assert c_prog[k] > 0, f"{k} never launched on the progressive path"
-    # a compacted frame's set-up: X13's order form and the counters' fill
-    prog_stages = profile_frames(prog_fn, 3, ("pt.", "accum."),
-                                 "progressive HD batch")[2]
+    # a compacted frame's set-up: X13's order form and the counters' fill;
+    # the statistics step one K1b launch, no fma32 (K1) on the path
+    assert c_prog["accum"] > 0 and c_prog["fma32"] == 0, c_prog
+    _busy, prog_launches, prog_stages, prog_host = profile_frames(
+        prog_fn, 3, ("pt.", "accum."), "progressive HD batch")
+    print(f"progressive HD batch: {prog_launches} launches a batch; "
+          f"accum.step {prog_stages.get('accum.step', 0.0):g} launches, "
+          f"{prog_host.get('accum.step', 0.0):.3f} ms of host; fma32 "
+          f"launches on the progressive path {c_prog['fma32']}", flush=True)
+    assert 0 < prog_stages.get("accum.step", 0.0) <= ACCUM_STEP_LAUNCHES, \
+        prog_stages
     partition_stages("progressive HD batch", prog_stages, "pt.setup",
                      PT_SETUP_COMPACTED_LAUNCHES)
     assert prog_stages.get("pt.rays HtoD", 0.0) == prog_stages.get(
@@ -6351,6 +6537,7 @@ def main() -> int:
     # then the exactness canary (B3 and B7' at the reference's shapes)
     c_cli, expand_fn = _path_counts(counters, lambda: run_cli_path(dev))
     print(f"launches in the CLI phase: {c_cli}", flush=True)
+    assert c_cli["accum"] > 0, c_cli
     for k in ("pt_megakernel", "modal_vote", "raster_bins_walk", "pack",
               "pack_channels_split", "pt_rays", "pt_reduce", "rt_trace",
               "frame_bytes", "modal_vote_chars", "frame_bytes_ui"):
@@ -6425,7 +6612,7 @@ def main() -> int:
               c_core)
     for k in ("fma32", "raster_shade", "rt_trace", "raster_clip",
               "plane_table", "bin_entries", "group_build", "pt_rays",
-              "pt_reduce"):
+              "pt_reduce", "accum"):
         by_name[k]["launches"] = sum(c[k] for c in driven)
         assert by_name[k]["launches"] > 0, k
     # the table form's launches are X4's, and X3's tables folded into them;

@@ -550,6 +550,73 @@ def test_trace_kernel_grid_form_farm_every_form_equals_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("call", ["16 views", "16 views, a band",
+                                  "9 views of 2x3", "farm 1,024",
+                                  "farm 1,024, a band"])
+def test_trace_kernel_trig_form_equals_plain(cuda_device, call):
+    """K3's trig form (each view's origin and trig from
+    core/camera.view_trig; the kernel forms its bases, once a block in
+    shared memory, or a ray where a block spans more views, and its
+    rays) gives the bases grid's K3 output
+    and trace_rgb's over the plain grid bit for bit, one launch, in the
+    launch's own form and at 1 and 32 lanes, staged and global: 16 orbit
+    views at 24x40 and a band of 12 rows, 9 views of 2x3 (a block spans
+    more views than it forms in shared memory: its rays form their own),
+    the farm's 1,024 at 36x96 and a band of 12 rows."""
+    from ascii_renderer_tpu_torch.core.camera import view_trig
+    scene = create_rt_demo_scene().build(min_pad=1, device=cuda_device)
+    pr = RT.ScenePrims(scene)
+    views, rows, cols = {"16": (16, 24, 40), "9": (9, 2, 3),
+                         "farm": (1024, 36, 96)}[call.split()[0]]
+    kw = dict(row_lo=12, n_rows=12) if "band" in call else {}
+    cams = orbit_cameras(views, center=(0, 1.0, 1.0))
+    (sc, pr_, cam, fuse, grid), (cam_d, rd3) = _rt_grid_args(
+        scene, pr, cams, rows, cols, **kw)
+    tgrid = grid._replace(bases=None, trig=view_trig(
+        cam, cams.yaw, cams.pitch, cams.fov_y))
+    want = RT.trace_rgb(scene, pr, cam_d, rd3)
+    _same_bits(RTK.trace(sc, pr_, cam, None, fuse, grid=grid), want)
+    for form in ({}, dict(lanes=1, stage="staged"),
+                 dict(lanes=32, stage="global")):
+        n0 = (RTK.launches, RYG.jit_launches, KFP.launches)
+        got = RTK.trace(sc, pr_, cam, None, fuse, grid=tgrid, **form)
+        assert (RTK.launches, RYG.jit_launches, KFP.launches) == (
+            n0[0] + 1, n0[1], n0[2])
+        _same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_trace_trig_form_raises_on_build_or_launch_failure(cuda_device,
+                                                           monkeypatch):
+    """A failed build and a failed launch each raise out of K3's trig
+    form and out of render_rgb at 9 views (its trig form); neither falls
+    back to the plain version."""
+    from ascii_renderer_tpu_torch.core.camera import view_trig
+    scene = create_rt_demo_scene().build(min_pad=1, device=cuda_device)
+    pr = RT.ScenePrims(scene)
+    cams = orbit_cameras(9, center=(0, 1.0, 1.0))
+    (sc, pr_, cam, fuse, grid), _plain = _rt_grid_args(scene, pr, cams, 6,
+                                                       8)
+    tgrid = grid._replace(bases=None, trig=view_trig(
+        cam, cams.yaw, cams.pitch, cams.fov_y))
+    plain = []
+    monkeypatch.setattr(RT, "trace_rgb", lambda *a: plain.append(a))
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    for lib, match in ((no_build, "nvcc failed"),
+                       (lambda: _FailingLib(), "launch failed")):
+        monkeypatch.setattr(_build, "lib", lib)
+        for run in (lambda: RTK.trace(sc, pr_, cam, None, fuse, grid=tgrid),
+                    lambda: RT.render_rgb(scene, cams, 6, 8, 0.5,
+                                          prims=pr)):
+            with pytest.raises(RuntimeError, match=match):
+                run()
+    assert plain == []
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("call", ["one view", "band", "two views", "farm"])
 def test_render_rgb_is_one_k3_launch_on_cuda(cuda_device, call):
     """render_rgb on the card launches K3 once a call and neither the

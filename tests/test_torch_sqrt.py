@@ -49,10 +49,10 @@ from ascii_renderer_tpu_torch.core import camera as TC
 from ascii_renderer_tpu_torch.core import color as TCO
 from ascii_renderer_tpu_torch.core.fp import fma32, sqrt32, sqrt32_scalar
 from ascii_renderer_tpu_torch.geom import intersect as TG
+from ascii_renderer_tpu_torch.ops import accum as TA
 from ascii_renderer_tpu_torch.ops import pt_kernel as TPK
 from ascii_renderer_tpu_torch.scene import demo as TD
 from ascii_renderer_tpu_torch.scene.builder import SceneBuilder as TSB
-from ascii_renderer_tpu_torch.sim import accum as TA
 
 torch.set_num_threads(2)
 

@@ -884,3 +884,97 @@ def test_trace_grid_form_refuses_what_it_cannot_take(zero_counts, case):
     with pytest.raises(ValueError):
         RTK.trace(scene, pr, cam, rd3, (True, True), grid=grid)
     assert RTK.launches == 0
+
+
+def _replay_view_basis(t):
+    """ray_dir.cuh's view_basis of one view's 8 floats, replayed on Python
+    floats in the kernel's order (core/fp's one-rounding scalar ops): the
+    view's 12 floats (origin, uu, vv, focal * ww)."""
+    import math
+
+    from ascii_renderer_tpu_torch.core.fp import (div32, fma32_scalar,
+                                                  round32, sqrt32_scalar)
+
+    def norm(a):
+        return sqrt32_scalar(fma32_scalar(a[2], a[2], fma32_scalar(
+            a[1], a[1], round32(a[0] * a[0]))))
+
+    def cross(a, b):
+        return [fma32_scalar(a[(k + 1) % 3], b[(k + 2) % 3],
+                             -round32(a[(k + 2) % 3] * b[(k + 1) % 3]))
+                for k in range(3)]
+
+    def keep_nan_max(v, lo):
+        return v if math.isnan(v) else (lo if v < lo else v)
+
+    t = [float(x) for x in t]
+    cp, sp, cy, sy, half = t[3:]
+    ww = [round32(cp * cy), sp, round32(cp * sy)]
+    nw = norm(ww)
+    ww = [div32(x, nw) for x in ww]
+    uu = cross(ww, [0.0, 1.0, 0.0])
+    nu = norm(uu)
+    if nu < round32(1e-3):
+        uu = [1.0, 0.0, 0.0]
+    else:
+        d = keep_nan_max(nu, round32(1e-20))
+        uu = [div32(x, d) for x in uu]
+    vv = cross(uu, ww)
+    nv = norm(vv)
+    focal = div32(1.0, keep_nan_max(half, round32(1e-6)))
+    return t[:3] + uu + [div32(x, nv) for x in vv] + [round32(focal * w)
+                                                      for w in ww]
+
+
+@pytest.mark.parametrize("views,rows,cols,row_lo,band", [
+    (9, 7, 5, 0, 7), (16, 24, 40, 12, 12), (1024, 3, 4, 1, 2)])
+def test_trig_grid_form_replays_the_plain_grid(views, rows, cols, row_lo,
+                                               band):
+    """K3's trig form's inputs (core/camera.view_trig, each view's origin
+    and trig) with its bases formed as the kernel forms them (view_basis,
+    replayed on Python floats) give the 12 floats the bases grid sends
+    (trig_views_ref too) bit for bit, and rays equal to rt_trace.grid_rays
+    of the bases grid (and of the trig grid) bit for bit."""
+    from ascii_renderer_tpu_torch.core.camera import camera_bases, view_trig
+    cams = orbit_cameras(views, center=(0, 1.0, 1.0))
+    yaw, pitch, fov = (getattr(cams, f) for f in ("yaw", "pitch", "fov_y"))
+    cam = cams.pos.reshape(-1, 3)
+    grid = RTK.Grid(camera_bases(yaw, pitch, fov), rows, cols, 0.5, row_lo,
+                    band)
+    trig = view_trig(cam, yaw, pitch, fov)
+    tgrid = RTK.Grid(None, rows, cols, 0.5, row_lo, band, trig)
+    want12 = RTK._grid_views(grid, cam).numpy()
+    replayed = np.asarray([_replay_view_basis(t) for t in trig], np.float32)
+    assert np.array_equal(_bits(replayed), _bits(want12))
+    assert np.array_equal(_bits(RTK.trig_views_ref(trig).numpy()),
+                          _bits(want12))
+    assert np.array_equal(RTK._grid_views(tgrid, cam).numpy(), trig)
+    ro, rd = _replay_grid_form(grid, cam)
+    want = RTK.grid_rays(grid, "cpu")
+    assert np.array_equal(_bits(rd), _bits(want))
+    assert torch.equal(RTK.grid_rays(tgrid, "cpu").view(torch.int32),
+                       want.view(torch.int32))
+
+
+def test_trig_grid_table_checks():
+    """A trig grid's table is f32 [V, 8] with one origin a view: another
+    width, rays given beside the grid or another count of origins raise
+    ValueError before anything launches."""
+    from ascii_renderer_tpu_torch.core.camera import camera_bases, view_trig
+    rs = create_rt_demo_scene().build(device="cpu")
+    pr = RT.ScenePrims(rs)
+    cams = orbit_cameras(9, center=(0, 1.0, 1.0))
+    cam = cams.pos.reshape(-1, 3)
+    yaw, pitch, fov = cams.yaw, cams.pitch, cams.fov_y
+    bgrid = RTK.Grid(camera_bases(yaw, pitch, fov), 6, 8, 0.5, 0, 6)
+    tgrid = bgrid._replace(bases=None, trig=view_trig(cam, yaw, pitch, fov))
+    n0 = RTK.launches
+    with pytest.raises(ValueError, match=r"\[V, 8\]"):  # another width
+        RTK.trace(rs, pr, cam, None, (True, True),
+                  grid=tgrid._replace(trig=tgrid.trig[:, :7]))
+    with pytest.raises(ValueError, match="one of the rays"):
+        RTK.trace(rs, pr, cam, torch.zeros((9, 48, 3)), (True, True),
+                  grid=tgrid)
+    with pytest.raises(ValueError, match="cam"):  # 8 origins for 9 views
+        RTK.trace(rs, pr, cam[:8], None, (True, True), grid=tgrid)
+    assert RTK.launches == n0
