@@ -674,11 +674,12 @@ class _FrameRays:
     ``slot`` (the pixel of each stream slot), the slots' pixel uids
     ``pix_uid`` (X7 and the megakernel form each ray's cell and RNG id
     from them) and the block gates by launch size, all from one call of
-    X13's order form (``ops/partition.stable_order``). A full frame or a
-    band needs nothing else: the kernels form a ray's uid from uid0 =
-    row_lo * cols (s * rows * cols + uid0 + p for sample s of slot p), so
-    its set-up is the counters' one launch. ``light`` and ``origin``:
-    light_floats' 8 and the camera position's 3 floats."""
+    X13's order form (``ops/partition.stable_order``), which zeroes the
+    counters in the same launch. A full frame or a band needs nothing
+    else: the kernels form a ray's uid from uid0 = row_lo * cols (s * rows
+    * cols + uid0 + p for sample s of slot p), so its set-up is the
+    counters' one fill. ``light`` and ``origin``: light_floats' 8 and the
+    camera position's 3 floats."""
 
     def __init__(self, light, origin, rows: int, cols: int, row_lo: int,
                  band: int, samples: int, n_batches: int, pixel_active,
@@ -688,18 +689,20 @@ class _FrameRays:
         self.pc, self.npix, self.uid0 = band * cols, rows * cols, row_lo * cols
         self.pix_uid = self.slot = None
         self._gates = {}  # a compacted launch's block gates, by samples
-        if pixel_active is not None:
+        if pixel_active is None:
+            self.counters = torch.zeros(n_batches + 1, dtype=torch.int32,
+                                        device=dev)
+        else:
             # adaptive compaction: a stable partition of the band's pixels,
             # active first; X7 and the megakernel take each slot's pixel
             # uid, the gates skip the blocks past the actives
             act = pixel_active.to(device=dev)
             if act.dtype != torch.bool:
                 act = act != 0
+            self.counters = torch.empty(n_batches + 1, dtype=torch.int32,
+                                        device=dev)
             self.slot, self.pix_uid, self._gates = PTN.stable_order(
-                act, self.uid0, samples)
-        # after the order: the set-up's launches follow each other closely
-        self.counters = torch.zeros(n_batches + 1, dtype=torch.int32,
-                                    device=dev)
+                act, self.uid0, samples, zero=self.counters)
 
     def trace(self, packed, rd, seed, i: int, samples: int, *, bounces: int,
               nee: bool):

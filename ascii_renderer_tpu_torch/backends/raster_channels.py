@@ -6,7 +6,7 @@ channel-major screen triangles with their screen setup (ops/raster_clip:
 one launch of the kernel X4 on CUDA; uncompacted, its table form also
 writes the plane table in that launch, and its slots form the attribute
 slots of the fused-shading walk), order-preserving valid compaction
-(ops/partition: one or two launches of X13 on CUDA), exact per-tile
+(ops/partition: one launch of X13 on CUDA), exact per-tile
 binning (the walk's entries and their counts through ops/bin_entries: the
 four launches of X9 on CUDA), the bin walks B6 / B6' (ops/raster_bins) and
 deferred plane-table shading (the attribute lerps and the table through
@@ -232,7 +232,7 @@ def compact_valid_ch(ch, v_cap: int):
     [2T] index (fill = 2T), n_valid the 0-d i32 count. **If n_valid > v_cap
     the overflow triangles are dropped**: callers check the count
     (render_soup_diag / suggest_caps) and re-render with a larger cap.
-    One or two launches of X13's channels form on CUDA
+    One launch of X13's channels form on CUDA
     (ops/partition.compact_channels), its plain version on the CPU."""
     assert v_cap <= MAX_V_CAP, f"v_cap {v_cap} exceeds {MAX_V_CAP}"
     return PTN.compact_channels(ch, v_cap)

@@ -136,13 +136,16 @@ SIGNATURES = {
     #  yl, gbins, counts, ginv, stream)
     "group_build_launch": (_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I,
                            _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # (flags, n, chans26_host, v_cap, out, cidx, valid, count, scratch,
-    #  stream)
-    "partition_channels_launch": (_P, _I, _LLP, _I, _P, _P, _P, _P, _P, _P),
+    # (flags, n, chans26_host, v_cap, out, cidx, valid, count, part,
+    #  nparts, stream)
+    "partition_channels_launch": (_P, _I, _LLP, _I, _P, _P, _P, _P, _P, _I,
+                                  _P),
     # (flags, n, uid0, samples, ray_block, slot, pix_uid, gate1, nb1, gates,
-    #  nbs, count, scratch, stream)
+    #  nbs, zero, nzero, count, part, nparts, stream)
     "partition_order_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I,
-                               _P, _P, _P),
+                               _P, _I, _P, _P, _I, _P),
+    # (channels): blocks of the co-resident form the device holds at once
+    "partition_coop_capacity": (_I,),
     # (count, mean, m2, mean_y, m2_y, alpha, sample, sample_alpha, o_count,
     #  o_mean, o_m2, o_mean_y, o_m2_y, display, o_alpha, act, skip, any_set,
     #  any_clear, n, reset, tol, max_samples, perceptual, stream)

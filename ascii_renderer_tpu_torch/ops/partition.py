@@ -25,8 +25,10 @@ at n_set plus the number of unset flags before it.
 The plain versions (``*_ref``) are the torch chains the backends ran
 before, moved here: on the CPU they are the route, on the card the
 tests' yardstick. A CUDA tensor always takes the kernel, one launch a
-call up to ``ONE_LAUNCH`` flags and two above (a tile count first); a
-failed build or launch raises.
+call at every size: up to ``COUNT_ALL`` flags an ordinary launch whose
+every block counts all the flags, above one cooperative launch on a grid
+the card holds at once; a failed build or launch raises, and so does a
+cooperative launch the card cannot hold.
 """
 
 from __future__ import annotations
@@ -40,8 +42,13 @@ from ascii_renderer_tpu_torch.ops import pt_kernel as PK
 
 launches = 0        # calls that launched X13 (both forms)
 launches_order = 0  # of them, the order form's
-ONE_LAUNCH = 32768  # flags up to which a call is one launch (csrc)
-TILE = 1024         # flags a block of the kernel (csrc kTile)
+COUNT_ALL = 32768   # flags up to which every block counts all (csrc)
+ROWS = 128          # out rows a count-all channels block (csrc kRows)
+ROWS_THREADS = 512  # its threads (csrc kRowsThreads)
+THREADS = 256       # threads a block of the other kernels (csrc kThreads)
+TILE = 4 * THREADS  # flags a tile (csrc kTile)
+ORDER_TILE = 2 * TILE  # the co-resident order form's (csrc kOrderRounds)
+FILL = 8 * THREADS  # out floats a co-resident channels block (csrc)
 RAY_BLOCK = PK.BLOCK  # rays a block gate covers (1,024)
 # the compacted screen channels, in the row's order
 COMPACT_KEYS = ("sxa", "sxb", "sxc", "sya", "syb", "syc",
@@ -49,16 +56,28 @@ COMPACT_KEYS = ("sxa", "sxb", "sxc", "sya", "syb", "syc",
 
 
 def launches_of(n: int) -> int:
-    """Kernels a call over n flags launches: the partition alone up to
-    ONE_LAUNCH flags, after a tile count above."""
-    return 1 if n <= ONE_LAUNCH else 2
+    """Kernels a call over n flags launches: one at every size."""
+    return 1
 
 
-def _scratch(n: int, dev):
-    """The tile counts of a two-launch call, or None."""
-    if launches_of(n) == 1:
+def coop_blocks(channels: bool) -> int:
+    """Blocks of the co-resident form (the channels form's, or the order
+    form's) the current CUDA device holds at once: the largest grid of a
+    call above COUNT_ALL flags."""
+    cap = _build.lib().partition_coop_capacity(int(channels))
+    _build.check(max(0, -cap), "partition_coop_capacity")
+    return cap
+
+
+def _scratch(n: int, blocks: int, dev):
+    """The blocks' counts of a co-resident call (n above COUNT_ALL): at
+    least max(tiles, blocks) ints (tiles of TILE flags, the smallest any
+    form takes), blocks the grid the call's other work asks for; None for
+    a count-all call."""
+    if n <= COUNT_ALL:
         return None
-    return torch.empty(-(-n // TILE), dtype=torch.int32, device=dev)
+    return torch.empty(max(-(-n // TILE), blocks), dtype=torch.int32,
+                       device=dev)
 
 
 def _flags(flags: torch.Tensor, what: str) -> torch.Tensor:
@@ -101,7 +120,7 @@ def compact_channels(ch, v_cap: int):
     n_valid the 0-d i32 count of valid slots, those past v_cap included
     (they are dropped). On the CPU the plain version; on a CUDA device X13's
     channels form, reading the channels in place by pointer and stride
-    (X4's row views), one or two launches, no host sync."""
+    (X4's row views), one launch, no host sync."""
     valid = ch["valid"]
     if valid.device.type == "cpu":
         return compact_channels_ref(ch, v_cap)
@@ -119,17 +138,17 @@ def compact_channels(ch, v_cap: int):
     dev = flags.device
     out = torch.empty((v_cap, len(COMPACT_KEYS)), dtype=torch.float32,
                       device=dev)
-    cidx = torch.empty(v_cap, dtype=torch.int32, device=dev)
+    ints = torch.empty(v_cap + 1, dtype=torch.int32, device=dev)
+    cidx, count = ints[:v_cap], ints[v_cap]
     cvalid = torch.empty(v_cap, dtype=torch.bool, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = _scratch(n, dev)
+    part = _scratch(n, -(-v_cap * len(COMPACT_KEYS) // FILL), dev)
     c26 = (ctypes.c_longlong * 26)(*(c.data_ptr() for c in chans),
                                    *(c.stride(0) for c in chans))
     err = _build.lib().partition_channels_launch(
         flags.data_ptr(), n, c26, v_cap, out.data_ptr(), cidx.data_ptr(),
         cvalid.data_ptr(), count.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        _build.stream_ptr(dev))
+        None if part is None else part.data_ptr(),
+        0 if part is None else part.numel(), _build.stream_ptr(dev))
     launches += 1
     _build.check(err, "partition_channels_launch")
     cch = dict(zip(COMPACT_KEYS, out.unbind(1)))
@@ -148,10 +167,13 @@ def block_gate(live: torch.Tensor) -> torch.Tensor:
     return act.reshape(-1, RAY_BLOCK).amax(dim=1)
 
 
-def stable_order_ref(active: torch.Tensor, uid0: int, samples: int):
+def stable_order_ref(active: torch.Tensor, uid0: int, samples: int, *,
+                     zero: torch.Tensor | None = None):
     """The plain version of ``stable_order``: one argsort of the unique key
     (1 - active) * n + i, the count, the mask of live slots repeated for
-    each stream and its block gates."""
+    each stream and its block gates; ``zero`` zeroed."""
+    if zero is not None:
+        zero.zero_()
     act = active.reshape(-1).to(torch.int64)
     pc = act.numel()
     local = torch.arange(pc, device=act.device)
@@ -163,35 +185,45 @@ def stable_order_ref(active: torch.Tensor, uid0: int, samples: int):
                                for s in {1, samples}}
 
 
-def stable_order(active: torch.Tensor, uid0: int, samples: int):
+def stable_order(active: torch.Tensor, uid0: int, samples: int, *,
+                 zero: torch.Tensor | None = None):
     """The compacted stream of the pixel mask ``active`` (bool, any shape,
     flattened: n pixels): (slot i32 [n], the pixel of each stream slot,
     the active ones first, each part in pixel order; pix_uid = slot + uid0;
     {1: gates, samples: gates}, the RAY_BLOCK-ray block gates i32 of a
     stream of 1 and of ``samples`` samples, ray s * n + p live where slot
-    p holds an active pixel). On the CPU the plain version; on a CUDA
-    device X13's order form, one or two launches, no host sync."""
+    p holds an active pixel). ``zero``: an int32 buffer on the same device
+    (a frame's ray counters) that the call also zeroes. On the CPU the
+    plain version; on a CUDA device X13's order form, one launch (the
+    zeroing in it), no host sync."""
     flags = active.reshape(-1)
     if flags.device.type == "cpu":
-        return stable_order_ref(active, uid0, samples)
+        return stable_order_ref(active, uid0, samples, zero=zero)
     global launches, launches_order
     flags = _flags(flags, "stable_order")
     n = flags.shape[0]
     if samples < 1 or n * samples >= 2 ** 31:
         raise ValueError(f"stable_order: {samples} samples of {n} pixels")
+    if zero is not None:
+        if zero.dtype != torch.int32:
+            raise ValueError(f"stable_order: zero must be int32, got "
+                             f"{zero.dtype}")
+        _build.require_cuda(flags, zero, what="stable_order")
     dev = flags.device
     nb1 = -(-n // RAY_BLOCK)
     nbs = 0 if samples == 1 else -(-(samples * n) // RAY_BLOCK)
     ints = torch.empty(2 * n + nb1 + nbs + 1, dtype=torch.int32, device=dev)
     slot, pix_uid = ints[:n], ints[n:2 * n]
     gate1, gates = ints[2 * n:2 * n + nb1], ints[2 * n + nb1:-1]
-    scratch = _scratch(n, dev)
+    part = _scratch(n, -(-(nb1 + nbs) // THREADS), dev)
     err = _build.lib().partition_order_launch(
         flags.data_ptr(), n, uid0, samples, RAY_BLOCK, slot.data_ptr(),
         pix_uid.data_ptr(), gate1.data_ptr(), nb1,
-        gates.data_ptr() if nbs else None, nbs, ints[-1].data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        _build.stream_ptr(dev))
+        gates.data_ptr() if nbs else None, nbs,
+        None if zero is None else zero.data_ptr(),
+        0 if zero is None else zero.numel(), ints[-1].data_ptr(),
+        None if part is None else part.data_ptr(),
+        0 if part is None else part.numel(), _build.stream_ptr(dev))
     launches += 1
     launches_order += 1
     _build.check(err, "partition_order_launch")

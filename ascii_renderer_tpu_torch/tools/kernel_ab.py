@@ -168,6 +168,18 @@ launches a call), then the fused and subtile2 golden-pose frames
 (median, busy ms, launches a frame, and the host ms and launches of
 their raster.setup, raster.clip, raster.pack and raster.build stages),
 the outputs digested, about 2 minutes a side.
+``--only partition`` times X13, the stable partition (``partition_frames``):
+its channels form at the teapot's, the mid-scale HD arm's and the
+subtile golden call's ``compact_valid_ch`` inputs and its order form at
+the progressive tracer's masks at 96x36 and 960x540 and all / none / one
+pixel active (``chip_smoke._partition_chan_calls``,
+``_partition_masks``): device ms of the side's own launches a call
+(``launches_of``; every kernel row named ``partition_``), the whole call
+by CUDA events, launches a call, every output digested; then the
+progressive HD batch with the camera still (its stream compacted) and the
+subtile golden-pose frame: median, busy ms, launches a call, and the host
+ms and launches of their ``pt.setup`` and ``raster.compact`` stages,
+about 2 minutes a side.
 """
 
 from __future__ import annotations
@@ -308,6 +320,9 @@ def worker(root: str, only: str = "all") -> dict:
         return out
     if only == "k1":
         k1_frames(cs, dev, out)
+        return out
+    if only == "partition":
+        partition_frames(cs, dev, out)
         return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
@@ -633,6 +648,67 @@ def k1_frames(cs, dev, out) -> None:
         for st in K1_STAGES:
             out["stage_ms"][f"{label} {st}"] = host.get(st, 0.0)
             out["stage_launches"][f"{label} {st}"] = stages.get(st, 0.0)
+        torch.cuda.synchronize()
+
+
+def partition_frames(cs, dev, out) -> None:
+    """X13 at its driven calls, then the progressive HD still batch and
+    the subtile golden-pose frame with their pt.setup and raster.compact
+    stages (module docstring, ``--only partition``)."""
+    import torch
+    from ascii_renderer_tpu_torch.core.config import Config, PathTracerConfig
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    for key in ("x13_ms", "x13_call_ms", "x13_launches", "path_ms",
+                "path_busy_ms", "path_launches", "stage_ms",
+                "stage_launches"):
+        out[key] = {}
+    soup, scene = cs._bunny(), cs._scene(dev)
+    caps = {"subtile": cs._oracle_caps(dev, soup, scene, "subtile")[0]}
+    calls = {}
+    for label, (ch, v_cap) in cs._partition_chan_calls(
+            dev, soup, scene, caps, _mid_preps(cs, dev)).items():
+        n = ch["valid"].shape[0]
+
+        def chan(ch=ch, v_cap=v_cap):
+            cch, cidx, count = PTN.compact_channels(dict(ch), v_cap)
+            return [*(cch[k] for k in PTN.COMPACT_KEYS),
+                    cch["valid"].to(torch.int32), cidx, count.reshape(1)]
+        calls[f"channels form, {label} ({n} flags, v_cap {v_cap})"] = (
+            chan, n)
+    for label, (act, uid0, samples) in cs._partition_masks(dev).items():
+        flags = act.reshape(-1)
+
+        def order(flags=flags, uid0=uid0, samples=samples):
+            slot, uid, gates = PTN.stable_order(flags, uid0, samples)
+            return [slot, uid, *(gates[s] for s in sorted(gates))]
+        calls[f"order form, {label} ({flags.numel()} flags)"] = (
+            order, flags.numel())
+    for label, (fn, n) in calls.items():
+        out["digest"][f"X13 {label}"] = _digest(fn())
+        per_call = PTN.launches_of(n)
+        out["x13_launches"][label] = per_call
+        out["x13_ms"][label] = cs._device_ms(fn, "partition_", per_call)
+        out["x13_call_ms"][label] = cs._event_ms(fn, 20)
+    hd_cfg = Config(path_tracer=PathTracerConfig(samples_per_batch=8))
+    still = cs._progressive_tracer(dev, hd_cfg, cs.ROWS, cs.COLS, True)
+    pose = cs._pt_camera()
+    out["digest"]["progressive HD still batch alpha"] = _digest(
+        [still.step(pose)[1].to(torch.int32)])
+    frame = cs._oracle_frame(dev, soup, scene, "subtile", caps["subtile"])
+    out["digest"]["subtile golden pose rgb"] = _digest([frame()])
+    for label, fn, n, prefixes in (
+            ("progressive HD still batch 960x540 spp8",
+             lambda: still.step(pose), 10, ("pt.", "accum.")),
+            ("subtile golden pose 960x540", frame, 10, ("raster.",))):
+        out["path_ms"][label] = statistics.median(cs._timed(fn, n))
+        busy, launches, stages, host = cs.profile_frames(fn, 3, prefixes,
+                                                         label)
+        out["path_busy_ms"][label] = busy
+        out["path_launches"][label] = launches
+        for st in ("pt.setup", "raster.compact"):
+            if st in stages or st in host:
+                out["stage_ms"][f"{label} {st}"] = host.get(st, 0.0)
+                out["stage_launches"][f"{label} {st}"] = stages.get(st, 0.0)
         torch.cuda.synchronize()
 
 
@@ -1491,7 +1567,8 @@ def main() -> int:
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=("all", "bins", "shade", "rt",
-                                       "glyph", "pt", "front", "k1"),
+                                       "glyph", "pt", "front", "k1",
+                                       "partition"),
                     default="all",
                     help="bins: the raster's bins and the paths alone; "
                     "shade: K2 at its callers, X10 and the headline; rt: "
@@ -1500,7 +1577,9 @@ def main() -> int:
                     "pt: the path tracer's frames and their stages; "
                     "front: the raster's clip and plane table and the "
                     "entry() step; k1: the fused clip with its attribute "
-                    "slots and the fused and subtile2 frames")
+                    "slots and the fused and subtile2 frames; partition: "
+                    "X13 at its calls and the progressive HD and subtile "
+                    "frames")
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.worker, a.only)), flush=True)
@@ -1533,6 +1612,7 @@ def main() -> int:
                 "b4_ms", "b7_ms", "b7s_ms", "b3_ms", "x4_ms", "x3_ms",
                 "front_ms", "front_call_ms", "x4_kernel_ms", "x3_kernel_ms",
                 "k1_clip_ms", "k1_clip_call_ms", "k1_clip_launches",
+                "x13_ms", "x13_call_ms", "x13_launches",
                 "k3_ms", "x9_ms", "x9_kernel_ms", "x7_ms", "x14_ms",
                 "keys_ms", "keys_busy_ms",
                 "keys_launches", "build_ms", "build_busy_ms",
@@ -1557,7 +1637,8 @@ def main() -> int:
             "Path_launches", "Walk_launches", "Keys_launches",
             "Build_launches", "K2_launches", "Image_launches",
             "Rt_launches", "Tail_launches",
-            "Stage_launches", "K1_clip_launches")) or shape.endswith(
+            "Stage_launches", "K1_clip_launches",
+            "X13_launches")) or shape.endswith(
                 "views/s") else " ms"
         ratio = (f"{ms['other'] / ms['this']:.2f}" if ms["this"]
                  else "n/a")

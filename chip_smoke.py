@@ -122,7 +122,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      table uncompacted and compacted): the dict and the table bit for bit
      (NaN in the same places); each timed at the mid-scale HD arm's call;
    - the stable partition (X13, a kernel for XLA code, ops/partition: one
-     launch to 32,768 flags, two above) in its channels form at the
+     launch a call at every size) in its channels form at the
      teapot's, the mid-scale HD arm's and the subtile golden call's
      compact_valid_ch inputs (every channel's bits, valid, cidx, n_valid)
      and in its order form at the progressive tracer's masks at 96x36 and
@@ -228,10 +228,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      gate over the compacted stream) bit-identical to adaptive_skip=False
      for 8 batches, then batches until poll_done() or 64 (active pixels,
      gated blocks, ms); a spp-2 frame 0's alpha equal to the CPU run; the
-     960x540 spp-8 arm, 8 batches; its pt.setup (X13's order form and the
-     counters' fill) at most PT_SETUP_COMPACTED_LAUNCHES launches a batch
-     and no copy either way in pt.setup or pt.rays; its accum.step at
-     most ACCUM_STEP_LAUNCHES (K1b) and no fma32 on the path.
+     960x540 spp-8 arm, 8 batches; its pt.setup (X13's order form, the
+     counters zeroed in its launch) at most PT_SETUP_COMPACTED_LAUNCHES
+     launches a batch and no copy either way in pt.setup or pt.rays; its
+     accum.step at most ACCUM_STEP_LAUNCHES (K1b) and no fma32 on the
+     path.
    - the app shell: the port's CLI (app/cli.main) in this process at
      96x36: offline raster, raytrace and raster --batch 4 must print the
      text of the CPU run of the same argv; offline pathtrace (spp 2) must
@@ -265,10 +266,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    K3's launches are recorded by size (rays and form) on the driven
    paths, and each size is timed at the end in the launch's own form (its
    lanes a ray, staging and blocks printed): its loss, launches x (kernel
-   - bound), goes into K3's record; so are K2's, X10's, X4's, X3's and
-   K1's, each kernel's summed launches checked against its count. Frames
-   of every path are profiled (stage host ms, device span and kernel
-   launches, device busy share; tables in smoke_out/, git-ignored). The
+   - bound), goes into K3's record; so are K2's, X10's, X4's, X3's, K1's
+   and X13's (both forms), each kernel's summed launches checked against
+   its count. Frames of every path are profiled (stage host ms, device
+   span and kernel launches, device busy share; tables in smoke_out/,
+   git-ignored). The
    headline, entry() step, PT reference run, PT frame step, RT frame and
    farm print raster.mvp, rt.grid, frame.from_float, frame.compose and
    glyph (host ms and launches a frame) and must take float rgb to chars
@@ -4865,12 +4867,13 @@ def check_bin_entries(dev, room, cube, mid_preps):
 # X13, the stable partition: the mid raster path's compaction (its
 # channels form) and the path tracer's compacted stream (its order form)
 # --------------------------------------------------------------------------
-# kernel launches raster.compact may make a frame (X13: one or two), the
-# mid HD arm's raster.shade (X3, K2 and the pixel centres' four), and
-# pt.setup under compaction (X13 and the ray counters' fill)
-RASTER_COMPACT_LAUNCHES = 2
+# kernel launches raster.compact may make a frame (X13: one at every
+# size), the mid HD arm's raster.shade (X3, K2 and the pixel centres'
+# four), and pt.setup under compaction (X13, which zeroes the ray
+# counters in its launch)
+RASTER_COMPACT_LAUNCHES = 1
 MID_SHADE_LAUNCHES = 6
-PT_SETUP_COMPACTED_LAUNCHES = 3
+PT_SETUP_COMPACTED_LAUNCHES = 1
 
 
 def _x13_chan_bound(n, kept, v_cap):
@@ -4880,10 +4883,43 @@ def _x13_chan_bound(n, kept, v_cap):
     return _bound(n + 52 * kept + 57 * v_cap + 4, 0)
 
 
-def _x13_order_bound(n, gates):
+def _x13_order_bound(n, n_gates, nzero=0):
     """The order form's least time: a flag read, a slot and a uid written
-    (8 bytes) a flag, the gates and the count."""
-    return _bound(9 * n + 4 * sum(g.numel() for g in gates) + 4, 0)
+    (8 bytes) a flag, the gates, the zeroed buffer and the count."""
+    return _bound(9 * n + 4 * (n_gates + nzero) + 4, 0)
+
+
+def _x13_chan_size(a, k):
+    """X13's channels form's launch size: flags, v_cap (None where nothing
+    launches)."""
+    valid = a[0]["valid"]
+    if valid.device.type != "cuda":
+        return None
+    return (valid.shape[0], a[1], "channels form")
+
+
+def _x13_order_size(a, k):
+    """X13's order form's launch size: flags, samples, a zeroed buffer's
+    ints (None where nothing launches)."""
+    if a[0].device.type != "cuda":
+        return None
+    zero = k.get("zero")
+    return (a[0].numel(), a[2], 0 if zero is None else zero.numel(),
+            "order form")
+
+
+def _x13_chan_size_bound(a, k):
+    n, v_cap = _x13_chan_size(a, k)[:2]
+    kept = min(int(a[0]["valid"].sum()), v_cap)
+    return _x13_chan_bound(n, kept, v_cap)[0]
+
+
+def _x13_order_size_bound(a, k):
+    n, samples, nzero = _x13_order_size(a, k)[:3]
+    ray_block = 1024  # rays a gate covers (ops/partition.RAY_BLOCK)
+    n_gates = -(-n // ray_block) + (0 if samples == 1
+                                    else -(-samples * n // ray_block))
+    return _x13_order_bound(n, n_gates, nzero)[0]
 
 
 def _partition_chan_calls(dev, soup, scene, caps, mid_preps):
@@ -4938,9 +4974,10 @@ def check_partition(dev, soup, scene, caps, mid_preps):
     channel's bits, valid, cidx, n_valid), the order form at the
     progressive tracer's masks at 96x36 and 960x540 and all / none / one
     active (slot, pix_uid, the gates of 1 and of the batch's samples).
-    Timed (kernel rows over 50 calls, launches_of(n) a call) with the
-    plain version's time (CUDA events) and, for the order form, one
-    torch.argsort of the inverted flags (stable: the same order, checked).
+    Timed (kernel rows over 50 calls, launches_of(n) = 1 a call: the
+    profile's row count checks it) with the plain version's time (CUDA
+    events) and, for the order form, one torch.argsort of the inverted
+    flags (stable: the same order, checked).
     Returns the records: the channels form at the mid HD arm, the order
     form at the progressive HD mask."""
     import torch
@@ -4962,6 +4999,7 @@ def check_partition(dev, soup, scene, caps, mid_preps):
         n_valid = int(got[2])
         assert n_valid == int(want[2]), (label, n_valid, int(want[2]))
         kept = min(n_valid, v_cap)
+        assert PTN.launches_of(n) == 1, (label, n)
         ms = _device_ms(fn, "partition_", PTN.launches_of(n))
         plain = _event_ms(lambda: PTN.compact_channels_ref(dict(ch), v_cap),
                           5)
@@ -4994,11 +5032,13 @@ def check_partition(dev, soup, scene, caps, mid_preps):
         inv = (~flags).view(torch.uint8)
         lib_order = torch.argsort(inv, stable=True)
         assert torch.equal(lib_order.to(torch.int32), slot), label
+        assert PTN.launches_of(n) == 1, (label, n)
         ms = _device_ms(fo, "partition_", PTN.launches_of(n))
         plain = _event_ms(lambda: PTN.stable_order_ref(flags, uid0, samples),
                           5)
         lib = _event_ms(lambda: torch.argsort(inv, stable=True), 20)
-        bound = _x13_order_bound(n, set(gates.values()))
+        bound = _x13_order_bound(n, sum(g.numel()
+                                        for g in set(gates.values())))
         otimes[label] = (ms, plain, bound, lib)
         print(f"X13 order form, {label}: bit-identical; {n} pixels "
               f"({int(flags.sum())} active), gates of 1 and {samples} "
@@ -6047,13 +6087,14 @@ def size_loss(label, sizes, real, kernel, per_call, bound_of, rec,
 
 
 def _size_losses(recorded, by_name):
-    """K2's, X10's, X4's, X3's and K1's losses by launch size; K1 timed at
-    its largest driven call (time_fma32)."""
+    """K2's, X10's, X4's, X3's, K1's and X13's losses by launch size; K1
+    timed at its largest driven call (time_fma32)."""
     import torch
     from ascii_renderer_tpu_torch.ops import group_build as GB
     ((shade, shade_real), (build, build_real), (clip, clip_real),
      (table, table_real), (fma, fma_real), (clipt, clipt_real),
-     (clips, clips_real), (image, image_real)) = recorded
+     (clips, clips_real), (image, image_real), (x13c, x13c_real),
+     (x13o, x13o_real)) = recorded
 
     def build_launches(a, k):
         build_real(*a, **k)
@@ -6083,6 +6124,12 @@ def _size_losses(recorded, by_name):
               by_name["plane_table"])
     size_loss("fma32 (K1)", fma, fma_real, "fma32_kernel", lambda a, k: 1,
               lambda a, k: _fma_bound(a, fma_real(*a))[0], by_name["fma32"])
+    size_loss("stable partition (X13's channels form)", x13c, x13c_real,
+              "partition_", lambda a, k: 1, _x13_chan_size_bound,
+              by_name["partition"])
+    size_loss("stable partition (X13's order form)", x13o, x13o_real,
+              "partition_", lambda a, k: 1, _x13_order_size_bound,
+              by_name["partition_order"])
     time_fma32(fma, fma_real, by_name["fma32"])
     torch.cuda.synchronize()
 
@@ -6198,7 +6245,9 @@ def main() -> int:
                 _record_sizes(KFP, "fma32_kernel", _fma_size),
                 _record_sizes(RCL, "clip_screen_table", _x4t_size),
                 _record_sizes(RCL, "clip_screen_slots", _x4s_size),
-                _record_sizes(RSH, "shade_image", _shade_image_size))
+                _record_sizes(RSH, "shade_image", _shade_image_size),
+                _record_sizes(PTN, "compact_channels", _x13_chan_size),
+                _record_sizes(PTN, "stable_order", _x13_order_size))
     # each kernel's wrapper module and launch counter
     counters = {"setup2dh": (S, "launches"), "pack": (PK, "launches"),
                 "raster_group_walk": (RG, "launches"),
@@ -6571,9 +6620,9 @@ def main() -> int:
     finally:
         close()
 
-    # K3, K2, X10, X4, X3 and K1 timed at each size they launched at on
-    # the driven paths (all of them are behind: the PT core launches none
-    # of them)
+    # K3, K2, X10, X4, X3, K1 and X13 timed at each size they launched at
+    # on the driven paths (all of them are behind: the PT core launches
+    # none of them)
     k3_loss(k3_sizes, k3_trace, by_name["rt_trace"])
     _size_losses(recorded, by_name)
     ((x7_sizes, x7_real), (x14_sizes, x14_real)) = pt_sizes
@@ -6592,7 +6641,7 @@ def main() -> int:
     assert c_core["modal_vote"] > 0 and c_core["ray_grid"] > 0
     assert c_core["pt_megakernel"] == 0
     for k in ("rt_trace", "raster_shade", "group_build", "raster_clip",
-              "plane_table", "fma32"):  # their losses by size are counted
+              "plane_table", "fma32", "partition"):  # losses by size counted
         assert c_core[k] == 0, (k, c_core[k])
     profile_frames(core_fn, 2, ("pt.", "frame.", "glyph"),
                    "PT core wide atlas")
@@ -6655,6 +6704,9 @@ def main() -> int:
         "launches"]
     for k in ("partition", "partition_order"):
         assert by_name[k]["launches"] > 0, k
+        assert sum(p["launches"] for p in by_name[k]["launch_sizes"]) == \
+            by_name[k]["launches"], (k, by_name[k]["launch_sizes"],
+                                     by_name[k]["launches"])
     # X9's launches in both layouts: the tile keys' and the bin keys'
     by_name["bin_entries"]["launches_tile"] = by_name["bin_entries"][
         "launches"]

@@ -12,10 +12,11 @@ rays (``ops/ray_grid.pt_rays``, X7, every split of a batch's samples
 among threads) and batch fold (``ops/pt_reduce``, X14, both forms), and
 the megakernel's frame form (``ops/pt_kernel.trace_frame``), and the
 stable partition (``ops/partition``, X13: the mid path's compaction and
-the path tracer's compacted stream), each held to its plain version bit
-for bit; a frame's set-up held to one launch and no copy to the card (a
-compacted one to X13 and that launch), the mid path's ``n_big`` to X9's
-counts. Tests marked ``cuda`` skip without
+the path tracer's compacted stream; two calls back to back and a CUDA
+graph's replays too), each held to its plain version bit for bit; a
+frame's set-up held to one launch and no copy to the card (a compacted
+one to X13's launch, which zeroes the ray counters), the mid path's
+``n_big`` to X9's counts. Tests marked ``cuda`` skip without
 a card; this file imports no JAX, so they run where there is none:
 
     python -m pytest tests/test_torch_build_xla.py -m cuda --noconftest
@@ -1389,18 +1390,36 @@ def test_shade_image_and_ui_form_raise_on_build_or_launch_failure(
 # tracer's compacted stream; the mid path's counts from X9
 # --------------------------------------------------------------------------
 # (flags, rule, v_cap): one flag, a warp segment's and a tile's edges, the
-# largest cap (MAX_V_CAP = 2^19 - 4,096 slots), a two-launch call
+# largest cap (MAX_V_CAP = 2^19 - 4,096 slots), the count-all form's last
+# size and the co-resident form's first, a co-resident call's overflow;
+# "grid + 1 tile": one tile more than the co-resident grid holds (sized on
+# the card, partition.coop_blocks)
 PARTITION_SIZES = {"n 1": (1, "all", 1), "n 1 none": (1, "none", 4),
                    "n 1023": (1023, 0.5, 1023), "n 1024": (1024, 0.5, 600),
                    "n 1025": (1025, 0.5, 2048),
                    "n 2^19 - 4096": ((1 << 19) - 4096, 0.3, (1 << 19) - 4096),
-                   "two launches, overflow": (40000, 0.7, 16384)}
+                   "n 32768": (32768, 0.5, 16384),
+                   "n 32769": (32769, 0.5, 32769),
+                   "co-resident, overflow": (40000, 0.7, 16384),
+                   "grid + 1 tile": (None, 0.4, 65536)}
+
+
+def _partition_n(case, channels):
+    """A partition case's flag count: its own, or one tile more than the
+    co-resident grid of the form holds."""
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    if case == "grid + 1 tile":
+        return (PTN.coop_blocks(channels) + 1) * (
+            PTN.TILE if channels else PTN.ORDER_TILE)
+    return (1 << 19) - 4096 if "2^19" in case else int(case[2:])
 
 
 def _partition_case(case, device):
     from ascii_renderer_tpu_torch.tools.xla_inputs import (
         PARTITION_CASES, partition_channels)
     n, rule, v_cap = (PARTITION_CASES.get(case) or PARTITION_SIZES[case])
+    if n is None:
+        n = _partition_n(case, True)
     ch = {k: torch.from_numpy(v).to(device)
           for k, v in partition_channels(n, rule, seed=n).items()}
     return ch, v_cap
@@ -1423,9 +1442,10 @@ def _mesh_channels(device, name, rows, cols):
 def test_partition_channels_kernel_equals_plain(cuda_device, case):
     """X13's channels form gives the plain compaction's channels (bits),
     valid, cidx and n_valid at the CPU tests' masks, sizes around a
-    block and a tile and MAX_V_CAP, and X4's own dicts (the teapot at
-    v_cap 8,192 above its 2,048 slots, the mid HD arm at 16,384), reading
-    X4's row views in place; one launch to 32,768 flags, two above."""
+    block and a tile, MAX_V_CAP, the count-all form's edge and one tile
+    past the co-resident grid, and X4's own dicts (the teapot at v_cap
+    8,192 above its 2,048 slots, the mid HD arm at 16,384), reading X4's
+    row views in place; one launch at every size."""
     from ascii_renderer_tpu_torch.ops import partition as PTN
     if case.startswith("teapot"):
         ch, v_cap = _mesh_channels(cuda_device, "teapot", 135, 240), 8192
@@ -1453,16 +1473,18 @@ def test_partition_channels_kernel_equals_plain(cuda_device, case):
 @pytest.mark.parametrize("case", ["36x96 random", "540x960 random",
                                   "36x96 all", "36x96 none", "36x96 one",
                                   "n 1", "n 1023", "n 1024", "n 1025",
-                                  "n 2^19 - 4096"])
+                                  "n 2^19 - 4096", "n 32768", "n 32769",
+                                  "grid + 1 tile"])
 def test_partition_order_kernel_equals_plain(cuda_device, case, samples):
     """X13's order form gives the plain argsort's slot, pix_uid and the
     gate chain's gates of 1 and ``samples`` samples at the progressive
-    tracer's masks (36x96, 960x540), all / none / one active, and sizes
-    around a block and a tile."""
+    tracer's masks (36x96, 960x540), all / none / one active, sizes
+    around a block and a tile, the count-all form's edge and one tile
+    past the co-resident grid."""
     from ascii_renderer_tpu_torch.ops import partition as PTN
     from ascii_renderer_tpu_torch.tools.xla_inputs import partition_mask
-    if case.startswith("n "):
-        n = (1 << 19) - 4096 if "2^19" in case else int(case[2:])
+    if case.startswith("n ") or case == "grid + 1 tile":
+        n = _partition_n(case, False)
         mask = torch.from_numpy(partition_mask(n, 0.4, seed=n))
     else:
         rows, cols = (int(x) for x in case.split()[0].split("x"))
@@ -1483,6 +1505,66 @@ def test_partition_order_kernel_equals_plain(cuda_device, case, samples):
     assert set(gates) == set(w_gates)
     for s in w_gates:
         assert torch.equal(gates[s].cpu(), w_gates[s]), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3456, 29768, 32769, 518400])
+def test_partition_repeated_calls_and_graph_replays_equal_plain(cuda_device,
+                                                                n):
+    """Nothing carries over between X13's calls: two calls of each form
+    back to back on one stream, on other masks, then a CUDA graph of each
+    form captured once and replayed twice on new masks (copied into the
+    captured inputs), each equal to the plain version; the order form
+    zeroes its given buffer each time."""
+    from ascii_renderer_tpu_torch.ops import partition as PTN
+    from ascii_renderer_tpu_torch.tools.xla_inputs import (
+        partition_channels, partition_mask)
+    v_cap = min(n, 16384)
+    chs = [{k: torch.from_numpy(v).to(cuda_device)
+            for k, v in partition_channels(n, rule, seed=n + j).items()}
+           for j, rule in enumerate((0.3, 0.8, 0.5, "all"))]
+    masks = [torch.from_numpy(partition_mask(n, rule, seed=n + j)).to(
+        cuda_device) for j, rule in enumerate((0.3, 0.8, 0.5, "none"))]
+    zero = torch.full((9,), 7, dtype=torch.int32, device=cuda_device)
+
+    def check(got_c, ch, got_o, mask):
+        torch.cuda.synchronize()
+        want = PTN.compact_channels_ref(dict(ch), v_cap)
+        for k in PTN.COMPACT_KEYS:
+            _same_bits(got_c[0][k], want[0][k])
+        assert torch.equal(got_c[0]["valid"], want[0]["valid"])
+        assert torch.equal(got_c[1], want[1])
+        assert int(got_c[2]) == int(want[2])
+        w_slot, w_uid, w_gates = PTN.stable_order_ref(mask, 5, 8)
+        assert torch.equal(got_o[0], w_slot) and torch.equal(got_o[1], w_uid)
+        for s in w_gates:
+            assert torch.equal(got_o[2][s], w_gates[s]), s
+        assert zero.tolist() == [0] * 9
+
+    got = [(PTN.compact_channels(dict(ch), v_cap),
+            PTN.stable_order(m, 5, 8, zero=zero))
+           for ch, m in zip(chs[:2], masks[:2])]
+    for (gc, go), ch, m in zip(got, chs, masks):
+        check(gc, ch, go, m)
+    ch_in = {k: v.clone() for k, v in chs[0].items()}
+    m_in = masks[0].clone()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):  # built and warm before the capture
+        PTN.compact_channels(dict(ch_in), v_cap)
+        PTN.stable_order(m_in, 5, 8, zero=zero)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_c = PTN.compact_channels(dict(ch_in), v_cap)
+        out_o = PTN.stable_order(m_in, 5, 8, zero=zero)
+    for ch, m in zip(chs[2:], masks[2:]):
+        for k, v in ch.items():
+            ch_in[k].copy_(v)
+        m_in.copy_(m)
+        zero.fill_(7)
+        graph.replay()
+        check(out_c, ch, out_o, m)
 
 
 @pytest.mark.cuda
@@ -1546,8 +1628,9 @@ def test_mid_path_counts_from_x9_and_compaction_in_x13(cuda_device,
 def test_render_pt_compacted_set_up_is_x13_and_no_copy(cuda_device,
                                                        monkeypatch, shape):
     """A compacted frame's pt.setup is one X13 call (its order, uids and
-    gates) and the counters' one fill, no copy either way; pt.rays copies
-    nothing; the frame equals the one through the plain order."""
+    gates, the counters zeroed in its launch) and no torch op that
+    launches, no copy either way; pt.rays copies nothing; the frame
+    equals the one through the plain order."""
     from ascii_renderer_tpu_torch.backends import pathtrace as PTB
     from ascii_renderer_tpu_torch.ops import partition as PTN
     from ascii_renderer_tpu_torch.parallel.worlds import pt_fixture
@@ -1568,7 +1651,7 @@ def test_render_pt_compacted_set_up_is_x13_and_no_copy(cuda_device,
     assert PTN.launches_order == o0 + 1
     setup = [o for o, _d in ops["pt.setup"] if o not in _NO_LAUNCH]
     copies = [o for st in ops.values() for o, d in st if "cpu" in d]
-    assert len(setup) <= 1 and not copies, ops
+    assert not setup and not copies, ops
     monkeypatch.setattr(PTN, "stable_order", PTN.stable_order_ref)
     rgb_ref, a_ref = PTB.render_pt(scene, cam, 0.5, 3, **kw)
     _same_bits(rgb, rgb_ref)

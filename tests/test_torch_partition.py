@@ -9,9 +9,16 @@ channels' bits, ``cidx``, ``n_valid``) on every mask of
 (``stable_order_ref``) against the reference's ``lax.sort`` of the key
 ``(1 - active) * pc + i`` with its pixel uids (``backends/pathtrace.py``
 :524-531), its gates against the gate chain. A Python replay of the
-kernel's algorithm (tiles of 1,024 flags, a warp's 4 ballots, the tile
-offsets from the counts, the fill and the gates' closed form) equals the
-plain versions at the sizes the card's tests take. X9's counts
+kernel's algorithm equals the plain versions at the sizes the card's
+tests take: the count-all launch (the channels form's blocks each owning
+a range of output rows, ranking the flags 16 to a lane and staging the
+ids ranked in their range, at range sizes that put the edges inside
+lanes, warps and tiles; the order form's tiles of 1,024 flags, a warp's 4
+ballots, the offsets from the counted flags) and the co-resident one
+(runs of tiles a block, the first ranked by ballots and the rest counted,
+the offsets from the blocks' counts; grids of one tile a block, of runs
+of several and of more blocks than tiles), the fill and the gates'
+closed form. X9's counts
 (``binned_entries_ref(counts=True)``) equal JAX's ``count_big_small``;
 ``render_channels_diag``'s ``n_big`` comes from them. The path tracer's
 set-up on host floats (``light_floats``, ``camera_floats``,
@@ -44,10 +51,10 @@ from ascii_renderer_tpu_torch.tools.xla_inputs import (
 
 torch.set_num_threads(2)
 
-# the card tests' sizes: one flag, a block's edges, one launch's last and
-# two launches' first, and 2^19 - 4,096 (MAX_V_CAP)
-REPLAY_SIZES = (1, 127, 128, 1023, 1024, 1025, 4097, PTN.ONE_LAUNCH,
-                PTN.ONE_LAUNCH + 1, (1 << 19) - 4096)
+# the card tests' sizes: one flag, a block's edges, the count-all form's
+# last and the co-resident form's first, and 2^19 - 4,096 (MAX_V_CAP)
+REPLAY_SIZES = (1, 127, 128, 1023, 1024, 1025, 4097, PTN.COUNT_ALL,
+                PTN.COUNT_ALL + 1, (1 << 19) - 4096)
 
 
 def _u32(a) -> np.ndarray:
@@ -164,11 +171,12 @@ def test_order_form_equals_jax_key_sort(kind, band):
 
 def test_frame_rays_takes_the_order_form(monkeypatch):
     """_FrameRays' compacted set-up is one stable_order call (its slot,
-    uids and gates), a full frame's none."""
+    uids and gates, and the ray counters zeroed in it), a full frame's
+    none."""
     calls = []
     real = PTN.stable_order
     monkeypatch.setattr(PTN, "stable_order",
-                        lambda *a: calls.append(a) or real(*a))
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
     cam = TC.Camera.create(pos=(0.0, 2.5, 6.0))
     act = torch.from_numpy(pixel_order(4, 96, 0.3, seed=5)[0])
     origin = TC.camera_floats(cam)[:3]
@@ -178,86 +186,171 @@ def test_frame_rays_takes_the_order_form(monkeypatch):
     assert torch.equal(fr.slot, slot) and torch.equal(fr.pix_uid, uid)
     assert set(fr._gates) == {1, 8}
     assert all(torch.equal(fr._gates[s], gates[s]) for s in (1, 8))
-    TPT._FrameRays([0.0] * 8, origin, 36, 96, 0, 36, 8, 3, None, "cpu")
-    assert len(calls) == 1
+    assert fr.counters.dtype == torch.int32 and fr.counters.tolist() == \
+        [0] * 4
+    full = TPT._FrameRays([0.0] * 8, origin, 36, 96, 0, 36, 8, 3, None,
+                          "cpu")
+    assert len(calls) == 1 and full.counters.tolist() == [0] * 4
 
 
 # --------------------------------------------------------------------------
 # a replay of the kernel's algorithm
 # --------------------------------------------------------------------------
-def _replay(flags, *, v_cap=None, uid0=0, samples=1, one_launch=None):
-    """partition.cu's algorithm in numpy: (channels form) the kept ids by
-    row, the count; (order form, v_cap None) slot, pix_uid and the gates.
-    Tiles of TILE flags, 8 warps of TILE / 256 rounds of 32 lanes; the
-    tile's offset from counted flags (one launch) or the tile counts."""
-    n = flags.size
-    f = flags != 0
-    ntiles = -(-n // PTN.TILE)
-    one = n <= PTN.ONE_LAUNCH if one_launch is None else one_launch
-    pad = np.zeros(ntiles * PTN.TILE, bool)
-    pad[:n] = f
-    tile_counts = pad.reshape(ntiles, PTN.TILE).sum(axis=1)
-    total = int(f.sum())
-    if not one:
-        assert int(tile_counts.sum()) == total
-    slot = np.full(n, -1, np.int64)
-    rows = {}
-    lanes = np.arange(32)
-    below = (1 << lanes) - 1
-    rounds = PTN.TILE // 256
-    for b in range(ntiles):
-        # one launch: the flags before the tile counted directly
-        before = int(f[:b * PTN.TILE].sum()) if one else int(
-            tile_counts[:b].sum())
-        ballots = pad[b * PTN.TILE:(b + 1) * PTN.TILE].reshape(8, rounds, 32)
-        masks = (ballots * (1 << lanes)).sum(axis=2)  # [warp, round]
-        wcnt = ballots.sum(axis=(1, 2))
-        for w in range(8):
-            s = before + int(wcnt[:w].sum())
-            for j in range(rounds):
-                i = b * PTN.TILE + w * 32 * rounds + j * 32 + lanes
-                m = int(masks[w, j])
-                r = s + np.array([bin(m & int(x)).count("1") for x in below])
-                setb = ((m >> lanes) & 1).astype(bool)
-                ok = i < n
-                if v_cap is None:
-                    pos = np.where(setb, r, total + (i - r))
-                    slot[pos[ok]] = i[ok]
-                else:
-                    keep = ok & setb & (r < v_cap)
-                    rows.update(zip(r[keep].tolist(), i[keep].tolist()))
-                s += bin(m).count("1")
-    if v_cap is not None:
-        kept = min(total, v_cap)
-        cidx = np.full(v_cap, n, np.int64)
-        for r, i in rows.items():
-            cidx[r] = i
-        assert sorted(rows) == list(range(kept))
-        return cidx, total
+def _gates_closed_form(n, total, samples):
+    """The kernel's gates of 1 and ``samples`` samples from n_set alone:
+    the slots of gate q's rays run from lo % n for len slots, wrapping."""
     gates = {}
     for smp in {1, samples}:
-        nb = -(-(smp * n) // 1024)
-        g = np.zeros(nb, np.int32)
-        for q in range(nb):  # the kernel's closed form
-            lo = q * 1024
-            ln = min(lo + 1024, smp * n) - lo
-            r0 = lo % n
-            g[q] = total > 0 and (ln >= n or r0 < total or r0 + ln > n)
-        gates[smp] = g
-    return slot, slot + uid0, gates, total
+        lo = np.arange(-(-(smp * n) // 1024), dtype=np.int64) * 1024
+        ln = np.minimum(lo + 1024, smp * n) - lo
+        r0 = lo % n
+        gates[smp] = ((total > 0) & ((ln >= n) | (r0 < total)
+                                     | (r0 + ln > n))).astype(np.int32)
+    return gates
+
+
+def _tile_ranks(pad, tile_before, tile):
+    """Each flag's rank from its tile's ballots: tiles of ``tile`` flags,
+    8 warps of tile / 256 rounds of 32 lanes; a flag's rank is the tile's
+    offset, the warps' counts before its warp, its warp's ballots before
+    its round and the popcount of its round's ballot below its lane."""
+    warps = PTN.THREADS // 32
+    fl = pad.reshape(-1, warps, tile // (32 * warps), 32).astype(np.int64)
+    wcnt = fl.sum(axis=(2, 3))
+    s_warp = tile_before[:, None] + np.cumsum(wcnt, axis=1) - wcnt
+    rnd = fl.sum(axis=3)
+    s_round = s_warp[..., None] + np.cumsum(rnd, axis=2) - rnd
+    below = np.cumsum(fl, axis=3) - fl
+    return (s_round[..., None] + below).reshape(-1)
+
+
+def _replay_coop(flags, grid, tile):
+    """The co-resident launch on ``grid`` blocks, tiles of ``tile`` flags:
+    block b's run of tiles [b * ntiles // grid, (b + 1) * ntiles // grid),
+    its first tile ranked by ballots and the rest counted (16-byte words,
+    then the tail), its count; after the grid's barrier its offset (the
+    counts before it) and the total. Returns (each flag's rank, n_set)."""
+    n = flags.size
+    ntiles = -(-n // tile)
+    pad = np.zeros(ntiles * tile, bool)
+    pad[:n] = flags != 0
+    tile_counts = pad.reshape(ntiles, tile).sum(axis=1)
+    part = np.zeros(grid, np.int64)
+    tile_before = np.zeros(ntiles, np.int64)
+    runs = [(b * ntiles // grid, (b + 1) * ntiles // grid)
+            for b in range(grid)]
+    for b, (t0, t1) in enumerate(runs):
+        if t0 < t1:
+            part[b] = tile_counts[t0]
+        if t0 + 1 < t1:
+            lo, hi = (t0 + 1) * tile, min(t1 * tile, n)
+            mid = lo + (hi - lo) // 16 * 16
+            part[b] += pad[lo:mid].sum() + pad[mid:hi].sum()
+    before = np.cumsum(part) - part
+    for b, (t0, t1) in enumerate(runs):
+        off = before[b]
+        for t in range(t0, t1):
+            tile_before[t] = off
+            off += tile_counts[t]
+    return _tile_ranks(pad, tile_before, tile)[:n], int(part.sum())
+
+
+def _replay_count_all_order(flags):
+    """The count-all order form: block b places tile b, its offset the set
+    flags before the tile counted by the block itself."""
+    n = flags.size
+    ntiles = -(-n // PTN.TILE)
+    pad = np.zeros(ntiles * PTN.TILE, bool)
+    pad[:n] = flags != 0
+    tile_before = np.array([pad[:t * PTN.TILE].sum() for t in range(ntiles)],
+                           np.int64)
+    return _tile_ranks(pad, tile_before, PTN.TILE)[:n], int(pad.sum())
+
+
+def _replay_rows(flags, v_cap, rows):
+    """The count-all channels form with ``rows`` out rows a block: warp w
+    holds flags [w * W, (w + 1) * W) (W = 512 a 16-byte word a lane) in
+    rounds of 32 lanes x 16 flags; a flag's rank is the warps' counts
+    before its warp, its rounds before, the lanes before it in its round
+    (a shuffle scan) and its set bytes before it in its word. Block b
+    (rows [b * rows, ...)) stages the ids ranked in its rows below the
+    total (a lane whose ranks meet the range walks its word); a block past
+    n stages none. Returns (cidx, n_set)."""
+    n = flags.size
+    warps = PTN.ROWS_THREADS // 32
+    words = max(1, -(-PTN.COUNT_ALL // (16 * PTN.ROWS_THREADS)))
+    assert n <= warps * words * 512
+    fl = np.zeros(warps * words * 512, bool)
+    fl[:n] = flags != 0
+    fl = fl.reshape(warps, words, 32, 16).astype(np.int64)
+    c = fl.sum(axis=3)
+    wtot = c.sum(axis=(1, 2))
+    total = int(wtot.sum())
+    s_warp = np.cumsum(wtot) - wtot
+    rnd = c.sum(axis=2)
+    s_round = s_warp[:, None] + np.cumsum(rnd, axis=1) - rnd
+    lane_first = s_round[..., None] + np.cumsum(c, axis=2) - c
+    rank = lane_first[..., None] + np.cumsum(fl, axis=3) - fl
+    ids = np.arange(fl.size).reshape(fl.shape)
+    cidx = np.full(v_cap, n, np.int64)
+    for b in range(-(-v_cap // rows)):
+        r0, r1 = b * rows, min((b + 1) * rows, v_cap)
+        if r0 >= n:
+            continue
+        hi = min(r1, total)
+        meets = (lane_first < hi) & (lane_first + c > r0)
+        pick = (fl == 1) & meets[..., None] & (rank >= r0) & (rank < hi)
+        staged = np.full(rows, -1, np.int64)
+        staged[rank[pick] - r0] = ids[pick]
+        assert int(pick.sum()) == max(0, hi - r0)
+        cidx[r0:max(r0, hi)] = staged[:max(0, hi - r0)]
+    return cidx, total
+
+
+def _cidx_from_ranks(flags, rank, v_cap):
+    """The co-resident channels form's kept ids (set flags ranked below
+    v_cap, each written at its rank) and the fill past them."""
+    n = flags.size
+    keep = (flags != 0) & (rank < v_cap)
+    cidx = np.full(v_cap, n, np.int64)
+    cidx[rank[keep]] = np.arange(n)[keep]
+    return cidx
+
+
+def _order_from_ranks(flags, rank, total, uid0, samples):
+    """slot, pix_uid and the gates from each flag's rank: a set flag at its
+    rank, an unset one at total + i - rank."""
+    n = flags.size
+    i = np.arange(n)
+    pos = np.where(flags != 0, rank, total + i - rank)
+    slot = np.full(n, -1, np.int64)
+    slot[pos] = i
+    return slot, slot + uid0, _gates_closed_form(n, total, samples)
+
+
+def _grids(n, tile):
+    """Co-resident grids over tiles of ``tile`` flags: a tile a block, runs
+    of several tiles, more blocks than tiles."""
+    ntiles = -(-n // tile)
+    return sorted({ntiles, max(1, ntiles // 3), ntiles + 5})
 
 
 @pytest.mark.parametrize("n", REPLAY_SIZES)
 def test_replay_of_the_order_form_equals_plain(n):
     """The kernel's tiles, ballots, offsets and gate formula give the plain
-    version's slot, pix_uid and gates of 1 and 8 samples, in the one- and
-    the two-launch forms."""
+    version's slot, pix_uid and gates of 1 and 8 samples, in the count-all
+    launch (up to COUNT_ALL flags; tiles of TILE) and the co-resident one
+    (tiles of ORDER_TILE, 8 ballots a warp) on grids of a tile a block,
+    runs of several tiles and more blocks than tiles."""
     flags = partition_mask(n, 0.4, seed=n)
     slot, uid, gates = PTN.stable_order_ref(torch.from_numpy(flags), 77, 8)
-    for one in {n <= PTN.ONE_LAUNCH, False}:
-        r_slot, r_uid, r_gates, total = _replay(flags, uid0=77, samples=8,
-                                                one_launch=one)
+    forms = [_replay_coop(flags, g, PTN.ORDER_TILE)
+             for g in _grids(n, PTN.ORDER_TILE)]
+    if n <= PTN.COUNT_ALL:
+        forms.append(_replay_count_all_order(flags))
+    for rank, total in forms:
         assert total == int(flags.sum())
+        r_slot, r_uid, r_gates = _order_from_ranks(flags, rank, total, 77, 8)
         np.testing.assert_array_equal(r_slot, slot.numpy())
         np.testing.assert_array_equal(r_uid, uid.numpy())
         for s in (1, 8):
@@ -268,15 +361,23 @@ def test_replay_of_the_order_form_equals_plain(n):
 def test_replay_of_the_channels_form_equals_plain(n):
     """The kernel's kept rows (set flags ranked below v_cap) and fill give
     the plain version's cidx and count at v_cap n, below the valid count
-    and above n."""
+    and above n: the count-all launch's output ranges (ROWS rows a block
+    and 37, whose edges fall inside lanes, warps and tiles) up to
+    COUNT_ALL flags, the co-resident launch on every grid of _grids."""
     flags = partition_mask(n, 0.6, seed=n + 1)
     ch = {k: torch.zeros(n) for k in PTN.COMPACT_KEYS}
     ch["valid"] = torch.from_numpy(flags)
+    ranks = [_replay_coop(flags, g, PTN.TILE) for g in _grids(n, PTN.TILE)]
     for v_cap in {n, max(1, int(flags.sum()) // 2), n + 4096}:
         _cch, cidx, n_valid = PTN.compact_channels_ref(ch, v_cap)
-        r_cidx, total = _replay(flags, v_cap=v_cap)
-        np.testing.assert_array_equal(r_cidx, cidx.numpy())
-        assert total == int(n_valid)
+        got = [(_cidx_from_ranks(flags, rank, v_cap), total)
+               for rank, total in ranks]
+        if n <= PTN.COUNT_ALL:
+            got += [_replay_rows(flags, v_cap, rows)
+                    for rows in (PTN.ROWS, 37)]
+        for r_cidx, total in got:
+            np.testing.assert_array_equal(r_cidx, cidx.numpy())
+            assert total == int(n_valid)
 
 
 def test_gate_formula_on_every_small_stream():
@@ -445,7 +546,7 @@ def test_cpu_launches_nothing_and_failures_raise(monkeypatch):
 
 
 def test_launches_of():
-    """One launch up to ONE_LAUNCH flags, two above."""
+    """One launch at every size, count-all or co-resident."""
     assert [PTN.launches_of(n) for n in (1, 2048, 29768, 32768, 32769,
-                                         137288, 518400)] == \
-        [1, 1, 1, 1, 2, 2, 2]
+                                         137288, 518400, 2 ** 31 - 1)] == \
+        [1, 1, 1, 1, 1, 1, 1, 1]
