@@ -17,10 +17,17 @@ Barycentrics are clamped to the simplex and renormalised (attributes stay
 in the hull of the vertex values), with no perspective correction and no
 near clipping: every vertex is assumed in front of the camera.
 
-Plain torch, differentiated by autograd; the JAX package computes it
-outside any Pallas kernel, so there is no kernel here. Each view's MVP is
-the host matrix of ``backends/raster.camera_mvp``; a batch of cameras
-renders every view in one pass over [views, triangles, rows, cols].
+The projection and the gathers are torch, differentiated by autograd.
+After them, CPU tensors take the plain chain (``ops/soft_raster
+.soft_raster_chain``) under autograd; CUDA tensors take X5, two
+hand-written kernels behind ``ops/soft_raster.SoftRaster`` (the forward
+writes rgb and each pixel's softmax statistics, the backward recomputes
+each (triangle, pixel) term from them). The loss takes X5b on CUDA
+tensors (``ops/soft_raster.SoftLoss``: the losses and their gradient in
+one launch); ``soft_glyph_probs`` stays torch. The JAX package computes
+all of it outside any Pallas kernel, as XLA code. Each view's MVP is the
+host matrix of ``backends/raster.camera_mvp``; a batch of cameras renders
+every view in one pass over [views, triangles, rows, cols].
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import torch
 
 from ascii_renderer_tpu_torch.backends.raster import camera_mvp
 from ascii_renderer_tpu_torch.core.camera import Camera
+from ascii_renderer_tpu_torch.ops.soft_raster import (SoftLoss, SoftRaster,
+                                                      soft_raster_chain)
 
 
 def camera_mvps(cam: Camera, rows: int, cols: int,
@@ -42,11 +51,11 @@ def camera_mvps(cam: Camera, rows: int, cols: int,
                         for i in range(cam.yaw.shape[0])])
 
 
-def soft_render_mvp(verts, colors, faces, mvp, rows: int, cols: int, *,
-                    sigma: float = 1e-2, gamma: float = 1e-2,
-                    bg_color=(0.0, 0.0, 0.0)) -> torch.Tensor:
-    """soft_render from the views' MVPs f32 [V, 4, 4]: rgb f32 [V, rows,
-    cols, 3] on verts' device."""
+def soft_triangles(verts, colors, faces, mvp):
+    """The projection and the gathers of ``soft_render_mvp``, torch on
+    every device (autograd carries the kernels' gradients back through
+    them): (tv f32 [V, T, 3, 3], each view's vertices' NDC x, y, z; tc f32
+    [T, 3, 3], their colours)."""
     dev = verts.device
     faces = torch.as_tensor(faces, device=dev).long()
     mvp = mvp.to(device=dev, dtype=torch.float32)
@@ -54,58 +63,20 @@ def soft_render_mvp(verts, colors, faces, mvp, rows: int, cols: int, *,
     clip = v4 @ mvp.transpose(-1, -2)                  # [V, N, 4]
     w = torch.clamp(clip[..., 3:4], min=1e-6)
     ndc = clip[..., :3] / w                            # [V, N, 3]
-    tv = ndc[:, faces]                                 # [V, T, 3, 3]
-    tc = colors[faces]                                 # [T, 3, 3]
+    return ndc[:, faces], colors[faces]
 
-    # pixel centres in NDC
-    xs = (torch.arange(cols, dtype=torch.float32, device=dev) + 0.5) \
-        / cols * 2.0 - 1.0
-    ys = 1.0 - (torch.arange(rows, dtype=torch.float32, device=dev) + 0.5) \
-        / rows * 2.0
-    px = xs[None, :]                                   # [1, W]
-    py = ys[:, None]                                   # [H, 1]
 
-    def at(k, c):  # vertex k's coordinate c, [V, T, 1, 1]
-        return tv[:, :, k, c, None, None]
-
-    def edge(a, b):
-        # cross(b - a, p - a) over the pixel grid -> [V, T, H, W]
-        ax, ay, bx, by = at(a, 0), at(a, 1), at(b, 0), at(b, 1)
-        return (bx - ax) * (py - ay) - (by - ay) * (px - ax)
-
-    w0, w1, w2 = edge(1, 2), edge(2, 0), edge(0, 1)
-    area = w0 + w1 + w2
-    area_safe = torch.where(area.abs() < 1e-9, 1e-9, area)
-    b0, b1, b2 = w0 / area_safe, w1 / area_safe, w2 / area_safe
-
-    inside_margin = torch.minimum(torch.minimum(b0, b1), b2)  # > 0 inside
-    cov = torch.sigmoid(torch.sign(inside_margin) * inside_margin ** 2
-                        / sigma)
-
-    # screen-space interpolation with the barycentrics clamped to the
-    # simplex, so attributes stay in the hull of the vertex values
-    c0 = torch.clamp(b0, 0.0, 1.0)
-    c1 = torch.clamp(b1, 0.0, 1.0)
-    c2 = torch.clamp(b2, 0.0, 1.0)
-    norm = torch.clamp(c0 + c1 + c2, min=1e-6)
-    c0, c1, c2 = c0 / norm, c1 / norm, c2 / norm
-    zpix = c0 * at(0, 2) + c1 * at(1, 2) + c2 * at(2, 2)   # ndc z
-    cpix = (c0[..., None] * tc[None, :, None, None, 0]
-            + c1[..., None] * tc[None, :, None, None, 1]
-            + c2[..., None] * tc[None, :, None, None, 2])  # [V, T, H, W, 3]
-
-    # softmax over the triangles and a background slot at the far plane
-    zinv = (1.0 - torch.clamp(zpix, -1.0, 1.0)) * 0.5      # 1 near, 0 far
-    logits = zinv / gamma + torch.log(torch.clamp(cov, 1e-12, 1.0))
-    V = logits.shape[0]
-    all_logits = torch.cat([logits, torch.zeros_like(logits[:, :1])], dim=1)
-    wgt = torch.softmax(all_logits, dim=1)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    all_colors = torch.cat([cpix, bg.expand(V, 1, rows, cols, 3)], dim=1)
-    # the reference's einsum("thw,thwc->hwc") as a product and a sum over
-    # the slots: one reduction, where einsum's batched product runs a
-    # 1 x (T + 1) matrix product a pixel
-    return (wgt[..., None] * all_colors).sum(dim=1)
+def soft_render_mvp(verts, colors, faces, mvp, rows: int, cols: int, *,
+                    sigma: float = 1e-2, gamma: float = 1e-2,
+                    bg_color=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """soft_render from the views' MVPs f32 [V, 4, 4]: rgb f32 [V, rows,
+    cols, 3] on verts' device (the chain on the CPU, X5 on the card)."""
+    tv, tc = soft_triangles(verts, colors, faces, mvp)
+    if tv.device.type == "cpu":
+        return soft_raster_chain(tv, tc, rows, cols, sigma=sigma,
+                                 gamma=gamma, bg_color=bg_color)[0]
+    return SoftRaster.apply(tv, tc, rows, cols, sigma, gamma,
+                            tuple(bg_color))
 
 
 def soft_render(verts, colors, faces, cam: Camera, rows: int, cols: int,
@@ -149,7 +120,12 @@ def soft_glyph_probs(rgb, ramp_len: int, tau: float = 0.05):
 def soft_luminance_loss(rgb, target_rgb, ramp_len: int = 10,
                         tau: float = 0.05, glyph_weight: float = 0.1):
     """Inverse-ASCII-rendering loss: pixel MSE + the cross-entropy of the
-    soft glyph distribution against the target's HARD glyph assignment."""
+    soft glyph distribution against the target's HARD glyph assignment.
+    On CUDA tensors X5b's launch, its pixels ``rgb``'s in order."""
+    if rgb.device.type != "cpu":
+        return SoftLoss.apply(rgb.reshape(1, -1, 1, 3),
+                              target_rgb.reshape(1, -1, 1, 3), 0, ramp_len,
+                              tau, glyph_weight)[0]
     mse = torch.mean((rgb - target_rgb) ** 2)
     probs = soft_glyph_probs(rgb, ramp_len, tau)
     tx = torch.clamp(_channel_mean(target_rgb), 0.0, 1.0 - 1e-6) \
@@ -158,3 +134,18 @@ def soft_luminance_loss(rgb, target_rgb, ramp_len: int = 10,
     logp = torch.log(torch.clamp(probs, 1e-12, 1.0))
     ce = -torch.mean(logp.gather(-1, tidx[..., None])[..., 0])
     return mse + glyph_weight * ce
+
+
+def soft_band_losses(img, targets, row_lo: int, ramp_len: int = 10,
+                     tau: float = 0.05, glyph_weight: float = 0.1):
+    """Each view's ``soft_luminance_loss`` over its row band: ``img`` f32
+    [V, rows, cols, 3], ``targets`` f32 [V, band, cols, 3] for rows row_lo
+    to row_lo + band; losses f32 [V]. The chain a view on the CPU; one
+    launch of X5b for every view on the card."""
+    if img.device.type != "cpu":
+        return SoftLoss.apply(img, targets, row_lo, ramp_len, tau,
+                              glyph_weight)
+    band_img = img[:, row_lo:row_lo + targets.shape[1]]
+    return torch.stack([soft_luminance_loss(band_img[k], targets[k], ramp_len,
+                                            tau, glyph_weight)
+                        for k in range(band_img.shape[0])])

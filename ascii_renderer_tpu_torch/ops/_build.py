@@ -151,6 +151,18 @@ SIGNATURES = {
     #  any_clear, n, reset, tol, max_samples, perceptual, stream)
     "accum_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P, _P, _LL, _I, _F, _F, _I, _P),
+    # (tv, tc, rgb, stats, V, T, rows, cols, sigma, gamma, bg0, bg1, bg2,
+    #  stream)
+    "soft_raster_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                               _F, _F, _P),
+    # (tv, tc, rgb, stats, grad, g_tv, g_tc, V, T, rows, cols, sigma,
+    #  gamma, stream)
+    "soft_raster_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _F, _P),
+    # (rgb, target, grad, losses, V, hw, p0, np, L, tau, glyph_weight,
+    #  third, hi, stream)
+    "soft_loss_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                         _P),
     # (px, py, out, n, basis9_host, stream)
     "ray_grid_launch": (_P, _P, _P, _I, _FP, _P),
     # (pix_uid, fet0, out, pc, samples, per, n_out, rows, cols, uid0,

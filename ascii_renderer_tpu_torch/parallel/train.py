@@ -19,7 +19,9 @@ takes the same Adam step, so the parameters stay replicated. The Adam is
 the ``TrainState``, so a step is a function of its state.
 
 Ranges for ``torch.profiler``: ``train.render`` (the soft render and the
-loss), ``train.backward``, ``train.allreduce`` and ``train.adam``.
+loss: on the card X5's forward and X5b, one launch each after the
+projection's few), ``train.backward`` (X5's backward and the
+projection's), ``train.allreduce`` and ``train.adam``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from torch.profiler import record_function
 
 from ascii_renderer_tpu_torch.core.camera import Camera
 from ascii_renderer_tpu_torch.diff.soft_raster import (camera_mvps,
-                                                       soft_luminance_loss,
+                                                       soft_band_losses,
                                                        soft_render_mvp)
 from ascii_renderer_tpu_torch.parallel.mesh import mesh_axis
 
@@ -118,10 +120,7 @@ def _step_fn(mesh, faces, rows: int, cols: int, optimizer, pixel_aspect,
         with record_function("train.render"):
             img = soft_render_mvp(verts, colors, faces, mvps, rows, cols,
                                   sigma=sigma, gamma=gamma)
-            band_img = img[:, i_sp * band:(i_sp + 1) * band]
-            losses = torch.stack([soft_luminance_loss(band_img[k],
-                                                      targets[k], ramp_len)
-                                  for k in range(band_img.shape[0])])
+            losses = soft_band_losses(img, targets, i_sp * band, ramp_len)
             # a band mean each; the sum over "sp" of nsp band means / nsp
             # is the full image's mean whatever the mesh's shape
             loss = losses.sum() / nsp

@@ -180,6 +180,17 @@ progressive HD batch with the camera still (its stream compacted) and the
 subtile golden-pose frame: median, busy ms, launches a call, and the host
 ms and launches of their ``pt.setup`` and ``raster.compact`` stages,
 about 2 minutes a side.
+``--only train`` times config 5's train call (``train_frames``:
+``make_train_steps(n_steps=32)`` on a ("dp", "sp") mesh of one NCCL rank,
+``chip_smoke._config5``'s sphere at 36x96, one view, Adam 5e-2): the
+median of 12 calls by CUDA events and its steps a second, then one call
+under the profiler (device busy ms and kernel launches a call, the host
+ms and launches of ``train.render``, ``train.backward``,
+``train.allreduce`` and ``train.adam``). The two sides' losses round
+apart (a side with X5 runs hand-written kernels, one without the torch
+chain), so they are not digested: their first ``CONFIG5_SAME_STEPS``
+losses are held to each other within ``CONFIG5_RTOL``. About a minute a
+side.
 """
 
 from __future__ import annotations
@@ -323,6 +334,9 @@ def worker(root: str, only: str = "all") -> dict:
         return out
     if only == "partition":
         partition_frames(cs, dev, out)
+        return out
+    if only == "train":
+        train_frames(cs, dev, out)
         return out
     orbit = cs._orbit()
     bases = camera_bases(orbit.yaw, orbit.pitch, orbit.fov_y)
@@ -710,6 +724,54 @@ def partition_frames(cs, dev, out) -> None:
                 out["stage_ms"][f"{label} {st}"] = host.get(st, 0.0)
                 out["stage_launches"][f"{label} {st}"] = stages.get(st, 0.0)
         torch.cuda.synchronize()
+
+
+def _train_rank(cs, v, f, cams, targets) -> dict:
+    """Config 5's 32-step call on a mesh of this one rank: median ms of 12
+    calls, steps/s, busy ms, launches and stage host ms of one profiled
+    call, the first call's losses."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.parallel import train as T
+    from ascii_renderer_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device(DEVICE)
+    rows, cols = cs.CONFIG5_GRID
+    mesh = make_mesh((1, 1), ("dp", "sp"))
+    steps = T.make_train_steps(mesh, torch.as_tensor(f, device=dev), rows,
+                               cols, n_steps=cs.CONFIG5_STEPS,
+                               optimizer=T.adam(cs.CONFIG5_LR))
+    state0 = T.init_train_state(v, np.full_like(v, 0.5), device=dev)
+    tgt = targets.to(dev)
+
+    def call():
+        return steps(state0, cams, tgt)
+
+    losses = call()[1].cpu().tolist()
+    ms = [cs._event_once(call)[1] for _ in range(12)]
+    busy, launches, stages, host = cs.profile_frames(
+        call, 1, ("train.",), f"config 5 train call ({cs.CONFIG5_STEPS} "
+        f"steps)")
+    med = statistics.median(ms)
+    return {"ms": med, "steps_s": 1e3 * cs.CONFIG5_STEPS / med,
+            "busy": busy, "launches": launches, "losses": losses,
+            "stage_ms": host, "stage_launches": stages}
+
+
+def train_frames(cs, dev, out) -> None:
+    """Config 5's train call (module docstring, ``--only train``)."""
+    from ascii_renderer_tpu_torch.parallel.mesh import run_world
+    v, f, cams, targets = cs._config5("cpu")
+    r = run_world(_train_rank, 1, "cuda", cs, v, f, cams, targets)[0]
+    label = f"config 5 {cs.CONFIG5_STEPS}-step call"
+    out["path_ms"] = {label: r["ms"]}
+    out["path_busy_ms"] = {label: r["busy"]}
+    out["path_launches"] = {label: r["launches"]}
+    out["steps_s"] = {label: r["steps_s"]}
+    out["stage_ms"] = {f"{label} {k}": x for k, x in r["stage_ms"].items()}
+    out["stage_launches"] = {f"{label} {k}": x
+                             for k, x in r["stage_launches"].items()
+                             if not k.endswith(("HtoD", "DtoH"))}
+    out["losses"] = r["losses"]
 
 
 def rt_and_walk_front(cs, dev, out, mid_preps, k3=True) -> None:
@@ -1568,7 +1630,7 @@ def main() -> int:
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=("all", "bins", "shade", "rt",
                                        "glyph", "pt", "front", "k1",
-                                       "partition"),
+                                       "partition", "train"),
                     default="all",
                     help="bins: the raster's bins and the paths alone; "
                     "shade: K2 at its callers, X10 and the headline; rt: "
@@ -1579,7 +1641,7 @@ def main() -> int:
                     "entry() step; k1: the fused clip with its attribute "
                     "slots and the fused and subtile2 frames; partition: "
                     "X13 at its calls and the progressive HD and subtile "
-                    "frames")
+                    "frames; train: config 5's 32-step call")
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.worker, a.only)), flush=True)
@@ -1606,6 +1668,17 @@ def main() -> int:
     digests = {json.dumps(r["digest"], sort_keys=True) for _s, r in runs}
     if len(digests) != 1:
         raise AssertionError("the two checkouts' outputs differ")
+    if a.only == "train":
+        # the sides' losses round apart: held together for the steps that
+        # chip_smoke.py holds the card's run to the CPU's
+        cs = _chip_smoke()
+        first = runs[0][1]["losses"][:cs.CONFIG5_SAME_STEPS]
+        for side, r in runs:
+            got = r["losses"][:cs.CONFIG5_SAME_STEPS]
+            rel = max(abs(x - y) / y for x, y in zip(got, first))
+            print(f"{side}: first losses {got}, within {rel:.2e} of the "
+                  f"first run's", flush=True)
+            assert rel <= cs.CONFIG5_RTOL, (side, got, first)
     summary = {}
     for key in ("jit_grid_ms", "b5_ms", "b6_ms", "b8_ms", "b1_ms",
                 "b9d_ms", "b9e_ms", "b9f_ms", "b9a_ms", "b9b_ms", "b9c_ms",
@@ -1620,7 +1693,8 @@ def main() -> int:
                 "k2_launches", "image_ms", "image_call_ms",
                 "image_launches", "rt_ms", "rt_call_ms", "rt_launches",
                 "k3_rd3_ms", "bases_ms", "frame_ms", "busy_ms", "path_ms",
-                "path_busy_ms", "path_launches", "walk_launches", "host_ms",
+                "path_busy_ms", "path_launches", "steps_s", "walk_launches",
+                "host_ms",
                 "tail_ms", "tail_busy_ms", "tail_launches", "chars_ms",
                 "stage_ms",
                 "stage_launches"):
@@ -1634,7 +1708,7 @@ def main() -> int:
                 for side in ("other", "this")}
     for shape, ms in summary.items():
         unit = "" if shape.startswith((
-            "Path_launches", "Walk_launches", "Keys_launches",
+            "Path_launches", "Steps_s", "Walk_launches", "Keys_launches",
             "Build_launches", "K2_launches", "Image_launches",
             "Rt_launches", "Tail_launches",
             "Stage_launches", "K1_clip_launches",

@@ -10,8 +10,9 @@ channel dicts for the bin entries' tile keys and bbox dicts for their bin
 keys, float frames with alpha and UI planes for the glyph tail, single
 ripples with the reference march's cells for X12a's UI form, the path
 tracer's megakernel outputs for its batch fold (``ops/pt_reduce``),
-stream orders for its sample rays (``ops/ray_grid.pt_rays``) and the
-progressive tracer's statistics planes (``ops/accum``). The kernels'
+stream orders for its sample rays (``ops/ray_grid.pt_rays``), the
+progressive tracer's statistics planes (``ops/accum``) and the soft
+rasterizer's scenes and cotangents (``ops/soft_raster``). The kernels'
 tests and ``chip_smoke.py``'s checks build their inputs here."""
 
 import numpy as np
@@ -496,3 +497,71 @@ def accum_case(shape, seed=0, max_samples=64, edges=True,
     planes["alpha"] = rng.integers(0, 256, shape).astype(np.uint8)
     planes["sample_alpha"] = rng.integers(0, 256, shape).astype(np.uint8)
     return planes
+
+
+# the soft rasterizer's scenes (soft_case)
+SOFT_CASES = ("two triangles", "config 5", "config 5, 4 views", "degenerate",
+              "uncovered", "near w")
+
+
+def soft_case(name: str) -> dict:
+    """A scene of the soft rasterizer: verts f32 [N, 3], colors f32 [N, 3],
+    faces int32 [T, 3], ``camera`` (("pose", Camera.create's keywords) or
+    ("orbit", orbit_cameras' keywords)), ``grid`` (rows, cols,
+    pixel_aspect) and ``kw`` (sigma, gamma). "two triangles" is the
+    reference's finite-difference scene (sigma 3e-3, gamma 3e-2);
+    "degenerate" adds a triangle 1e-5 wide (|area| < 1e-9 at every pixel);
+    "near w" one with a vertex in the camera's plane (w clamped to 1e-6);
+    "config 5" is bench config 5's uv_sphere(8, 12) at 36x96 from 1 or 4
+    orbit views at the equator, seeded colours; "uncovered" a small sphere
+    far off, most pixels outside every triangle."""
+    from ascii_renderer_tpu_torch.geom import meshes
+    rng = np.random.default_rng(3)
+    if name in ("two triangles", "degenerate", "near w"):
+        verts = [[-0.8, -0.5, 0.0], [0.9, -0.4, 0.2], [0.0, 0.8, -0.1],
+                 [-0.5, -0.7, 0.6], [0.6, -0.6, 0.5], [0.1, 0.6, 0.7]]
+        colors = rng.uniform(0.2, 0.9, (6, 3))
+        faces = [[0, 1, 2], [3, 4, 5]]
+        extra = {"degenerate": [[0.2, 0.1, 0.3], [0.2 + 1e-5, 0.1, 0.3],
+                                [0.2, 0.1 + 1e-5, 0.3]],
+                 "near w": [[-0.3, 0.1, 0.4], [0.4, 0.5, 0.4],
+                            [0.3, 0.2, 3.0]]}.get(name)
+        if extra is not None:
+            verts += extra
+            colors = np.concatenate([colors, rng.uniform(0.2, 0.9, (3, 3))])
+            faces.append([6, 7, 8])
+        camera = ("pose", dict(pos=(0.0, 0.0, 3.0), yaw=-np.pi / 2,
+                               pitch=0.0))
+        grid, kw = (16, 24, 0.5), dict(sigma=3e-3, gamma=3e-2)
+    else:
+        far = name == "uncovered"
+        verts, faces = meshes.uv_sphere(6, 8) if far else meshes.uv_sphere(
+            8, 12)
+        colors = rng.uniform(0.2, 0.9, verts.shape)
+        camera = ("orbit", dict(n=4 if name.endswith("4 views") else 1,
+                                center=(0, 0, 0), radius=9.0 if far else 2.5,
+                                height=0.0))
+        grid, kw = (36, 96, 1.0), {}
+    return dict(verts=np.asarray(verts, np.float32),
+                colors=np.asarray(colors, np.float32),
+                faces=np.asarray(faces, np.int32), camera=camera, grid=grid,
+                kw=kw)
+
+
+def soft_camera(spec):
+    """The port's Camera of a soft_case ``camera``."""
+    from ascii_renderer_tpu_torch.core.camera import Camera
+    from ascii_renderer_tpu_torch.parallel.mesh import orbit_cameras
+    kind, kw = spec
+    return Camera.create(**kw) if kind == "pose" else orbit_cameras(**kw)
+
+
+def soft_cotangent(shape, seed=0, band=None):
+    """A seeded cotangent f32 ``shape`` [V, H, W, 3]; with ``band`` (lo,
+    n) zero outside rows lo to lo + n, as a row band's loss gives."""
+    g = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    if band is not None:
+        lo, n = band
+        g[:, :lo] = 0.0
+        g[:, lo + n:] = 0.0
+    return g

@@ -248,6 +248,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
      [40, 69632], a float32 identity product) must say "ok". B5, B4, B6,
      B3, B7', X7, X14 and K3 must launch in the phase;
      expand_pixels (the pixels mode's glyph bitmap) is profiled.
+   - the parallel path: X5's forward and backward and X5b (the soft
+     raster and the band loss) against their plain versions at config 5's
+     1- and 4-view first-step inputs, timed (check_soft_raster); then
+     config 5's train steps held to the CPU's (CONFIG5_*, TRAJ_*), the
+     row bands and the sharded renders over an NCCL world of 1, and
+     dryrun_multichip(1) (run_parallel_path); a 32-step call launches X5's
+     forward, X5b and X5's backward 32 times each, and its launches, busy
+     share and steps/s a step are printed beside the parent's.
    Each path's kernels must have launched: the raster paths' shade
    through K2, every frame of the ray tracer and each farm through K3
    (a farm launches K3 once and nothing else of the ray tracer: its
@@ -288,6 +296,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3979,6 +3988,138 @@ def _bit_equal(a, b):
     return torch.equal(a, b)
 
 
+# FP32 operations (a division, an exp, a log or a compare counted as one)
+# of X5 (csrc/soft_raster.cu) a (triangle, pixel) term: the forward's
+# logit (the edges 21, the barycentrics and margin 11, the coverage 7,
+# the renormalisation 12, depth and logit 13), colour 15 and softmax 10;
+# the backward needs those 79 again and ~169 of its own (the softmax's
+# weight and dot products 21, the coverage and depth 12, the barycentric
+# and colour sums 45, the renormalisation and the margin's split 28, the
+# edges 42, the vertex sums 12, ~9 more)
+SOFT_FWD_OPS, SOFT_BWD_OPS = 89, 248
+# X5b's a band pixel: 47 and 17 a ramp entry (the softmax forward and its
+# gradient)
+SOFT_LOSS_OPS = (47, 17)
+# config 5's train step before X5 on the card (PERF.md §5, ROADMAP.md's
+# table under "Recent")
+CONFIG5_PARENT = "~472 launches a step (15,103 a 32-step call under the " \
+    "profiler), busy 4.6-8.1%, 90.8-114.7 steps/s"
+# kernel launches config 5's step may make (~472 before X5 and X5b)
+CONFIG5_STEP_LAUNCHES = 150
+
+
+def _soft_inputs(dev, views):
+    """Config 5's first train step's X5 and X5b inputs at ``views`` views
+    (_config5, colours 0.5): (tv, tc, targets) on ``dev``."""
+    import numpy as np
+    import torch
+    from ascii_renderer_tpu_torch.diff.soft_raster import (camera_mvps,
+                                                           soft_triangles)
+    v, f, cams, targets = _config5("cpu", views)
+    tv, tc = soft_triangles(torch.from_numpy(v),
+                            torch.from_numpy(np.full_like(v, 0.5)), f,
+                            camera_mvps(cams, *CONFIG5_GRID))
+    return tv.to(dev), tc.to(dev), targets.to(dev)
+
+
+def check_soft_raster(dev):
+    """X5's forward and backward and X5b (ops/soft_raster, one launch of
+    csrc/soft_raster.cu each) against their plain versions at config 5's
+    1- and 4-view shapes (its first step's triangles and targets): rgb
+    atol 1e-5 and the statistics (max atol 1e-5, sum rtol 1e-5) against
+    soft_raster_fwd_ref on CPU copies; the gradients to the triangles
+    within 1e-4 x max |g| of torch.autograd through the chain on the card
+    and of soft_raster_bwd_ref, for the loss's own cotangent; the losses
+    rtol 1e-5 and their gradient 1e-4 x max |g| against soft_loss_ref.
+    Each kernel timed (profiler rows), its plain version on the card's
+    tensors beside it. Returns the three records (1 view; the 4-view
+    figures as ``*_4``; max_abs_err: rgb's, the gradients' against
+    autograd, d loss / d rgb's)."""
+    import torch
+    from ascii_renderer_tpu_torch.ops import soft_raster as SR
+    rows, cols = CONFIG5_GRID
+    kw = dict(sigma=1e-2, gamma=1e-2)
+
+    def rel(a, b):
+        b = b.cpu().double()
+        return float((a.cpu().double() - b).abs().max() / b.abs().max())
+
+    times = {}
+    for views in (1, 4):
+        tv, tc, tgt = _soft_inputs(dev, views)
+        rgb, stats = SR.soft_raster_fwd(tv, tc, rows, cols, **kw)
+        want, wstats = SR.soft_raster_fwd_ref(tv.cpu(), tc.cpu(), rows, cols,
+                                              **kw)
+        e_rgb = float((rgb.cpu() - want).abs().max())
+        e_max = float((stats[..., 0].cpu() - wstats[..., 0]).abs().max())
+        e_sum = float(((stats[..., 1].cpu() - wstats[..., 1])
+                       / wstats[..., 1]).abs().max())
+        losses, grad = SR.soft_loss(rgb, tgt, 0)
+        wl, wg = SR.soft_loss_ref(rgb.cpu(), tgt.cpu(), 0)
+        e_loss, e_lg = float(((losses.cpu() - wl) / wl).abs().max()), rel(
+            grad, wg)
+        gtv, gtc = SR.soft_raster_bwd(tv, tc, rgb, stats, grad, rows, cols,
+                                      **kw)
+        tva, tca = tv.clone().requires_grad_(), tc.clone().requires_grad_()
+        chain, _l = SR.soft_raster_chain(tva, tca, rows, cols, **kw)
+        atv, atc = torch.autograd.grad(chain, (tva, tca), grad)
+        rtv, rtc = SR.soft_raster_bwd_ref(tv.cpu(), tc.cpu(), want, wstats,
+                                          grad.cpu(), rows, cols, **kw)
+        e_bwd = max(rel(gtv, atv), rel(gtc, atc), rel(gtv, rtv),
+                    rel(gtc, rtc))
+        a_bwd = max(float((g.cpu() - w.cpu()).abs().max())
+                    for g, w in ((gtv, atv), (gtc, atc)))
+        a_lg = float((grad.cpu() - wg).abs().max())
+        print(f"X5 / X5b at config 5, {views} view(s) ({list(tv.shape)} "
+              f"triangles, {rows}x{cols}): rgb within {e_rgb:.2e} (atol "
+              f"1e-5), max {e_max:.2e}, sum {e_sum:.2e} (relative); "
+              f"gradients within {e_bwd:.2e} x max |g| of autograd through "
+              f"the chain and of the plain backward; losses {e_loss:.2e} "
+              f"(relative), their gradient {e_lg:.2e} x max |g|", flush=True)
+        assert bool(torch.isfinite(rgb).all()) and e_rgb <= 1e-5 and \
+            e_max <= 1e-5 and e_sum <= 1e-5, (e_rgb, e_max, e_sum)
+        assert e_bwd <= 1e-4 and e_loss <= 1e-5 and e_lg <= 1e-4, \
+            (e_bwd, e_loss, e_lg)
+        P, T = rows * cols, tv.shape[1]
+        calls = {
+            "soft_raster_fwd": (
+                lambda: SR.soft_raster_fwd(tv, tc, rows, cols, **kw),
+                lambda: SR.soft_raster_fwd_ref(tv, tc, rows, cols, **kw),
+                _bound(_nbytes(tv, tc, rgb, stats),
+                       SOFT_FWD_OPS * views * T * P), e_rgb),
+            "soft_raster_bwd": (
+                lambda: SR.soft_raster_bwd(tv, tc, rgb, stats, grad, rows,
+                                           cols, **kw),
+                lambda: SR.soft_raster_bwd_ref(tv, tc, rgb, stats, grad, rows,
+                                               cols, **kw),
+                _bound(_nbytes(tv, tc, rgb, stats, grad, gtv, gtc),
+                       SOFT_BWD_OPS * views * T * P), a_bwd),
+            "soft_loss": (
+                lambda: SR.soft_loss(rgb, tgt, 0),
+                lambda: SR.soft_loss_ref(rgb, tgt, 0),
+                _bound(_nbytes(rgb, tgt, grad, losses), views * P * (
+                    SOFT_LOSS_OPS[0] + 10 * SOFT_LOSS_OPS[1])), a_lg)}
+        for name, (fn, plain, bound, err) in calls.items():
+            ms = _device_ms(fn, f"{name}_kernel", SR.LAUNCHES_PER_CALL[name])
+            times[name, views] = (ms, _event_ms(plain, 10), bound, err)
+            print(f"  {name} at {views} view(s): kernel {ms:.5f} ms, plain "
+                  f"{times[name, views][1]:.3f} ms on the card, bound "
+                  f"{bound[0]:.6f} ms ({bound[1]})", flush=True)
+    recs = []
+    replaces = {"soft_raster_fwd": "ascii_renderer_tpu/diff/soft_raster.py:30",
+                "soft_raster_bwd": "ascii_renderer_tpu/parallel/train.py:80",
+                "soft_loss": "ascii_renderer_tpu/diff/soft_raster.py:118"}
+    for name in ("soft_raster_fwd", "soft_raster_bwd", "soft_loss"):
+        ms, plain, bound, err = times[name, 1]
+        rec = _rec(name, "soft_raster.cu", "", err, ms, plain, bound)
+        rec["replaces"] = replaces[name]
+        ms4, plain4, bound4, err4 = times[name, 4]
+        rec.update(shape=[1, *CONFIG5_GRID], ms_4=ms4, plain_ms_4=plain4,
+                   bound_ms_4=bound4[0], max_abs_err_4=err4)
+        recs.append(rec)
+    return recs
+
+
 def run_parallel_path(dev, soup, scene):
     """The parallel path on the card, in a world of one rank (an NCCL
     group in this process, its FileStore under smoke_out/, torn down at
@@ -4091,11 +4232,11 @@ def run_parallel_path(dev, soup, scene):
         for _ in range(8):
             (_out, t) = _event_once(lambda: steps(state0, cams, tgt))
             ms.append(t)
+        steps_per_s = 1e3 * CONFIG5_STEPS * len(ms) / sum(ms)
         print(f"config 5: 8 timed calls of {CONFIG5_STEPS} steps (CUDA "
               f"events around each call): median {statistics.median(ms):.3f}"
-              f" ms a call, {1e3 * CONFIG5_STEPS * len(ms) / sum(ms):.1f} "
-              f"steps/s; each: {', '.join(f'{x:.3f}' for x in ms)}",
-              flush=True)
+              f" ms a call, {steps_per_s:.1f} steps/s; each: "
+              f"{', '.join(f'{x:.3f}' for x in ms)}", flush=True)
         step4 = T.make_train_step(tmesh, faces, rows, cols,
                                   optimizer=T.adam(CONFIG5_LR))
         _s4, loss4 = step4(T.init_train_state(v4, c0, device=dev), cams4,
@@ -4203,8 +4344,12 @@ def run_parallel_path(dev, soup, scene):
                            kernel="subtile8", row_lo=BAND_ROWS,
                            band_rows=BAND_ROWS, **caps)
 
-    return (lambda: steps(state0, cams, tgt), band_frames,
-            dist.destroy_process_group)
+    def train_call():
+        return steps(state0, cams, tgt)
+
+    train_call.median_ms = statistics.median(ms)
+    train_call.steps_per_s = steps_per_s
+    return train_call, band_frames, dist.destroy_process_group
 
 
 # --------------------------------------------------------------------------
@@ -4487,28 +4632,50 @@ def run_pt_path(cfg, rows, cols, n_checked, n_timed, label):
     return lambda: one()
 
 
+# the CUDA runtime calls that put a kernel, a copy or a fill on a stream
+_LAUNCH_CALL = re.compile(r"^cuda(Launch\w*Kernel\w*|Memcpy\w*|Memset\w*)$")
+
+
 def _stage_launches(prof, prefixes, n):
-    """Kernel launches a frame inside each stage: the kernels (and copies)
-    whose device interval lies within one of the stage's spans on the
-    device (its annotation, from its first kernel to its last); and, as
-    "<stage> HtoD" and "<stage> DtoH", the copies each way among them."""
+    """Kernel launches a frame inside each stage, counted twice: the
+    kernels (and copies) whose device interval lies within one of the
+    stage's spans on the device (its annotation, from its first kernel to
+    its last), and the runtime calls that launch a kernel, a copy or a
+    fill within one of the stage's host ranges. The profiler can drop a
+    frame's device annotation (then the first count misses that frame's
+    launches) or a runtime call's record (then the second does); neither
+    counts a launch of another stage, so the larger is the stage's count.
+    Where they differ, both are printed. Also, as "<stage> HtoD" and
+    "<stage> DtoH", the copies each way among the first count's."""
     from torch.autograd import DeviceType
-    spans, kernels = {}, []
+    spans, ranges, kernels, calls = {}, {}, [], []
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
         r = (e.time_range.start, e.time_range.end)
-        if e.name.startswith(prefixes):
+        if e.device_type == DeviceType.CPU:
+            if e.name.startswith(prefixes):
+                ranges.setdefault(e.name, []).append(r)
+            elif _LAUNCH_CALL.match(e.name):
+                calls.append(r)
+        elif e.device_type != DeviceType.CUDA:
+            continue
+        elif e.name.startswith(prefixes):
             spans.setdefault(e.name, []).append(r)
         elif "spin_kernel" not in e.name:
             kernels.append((*r, "Memcpy HtoD" in e.name,
                             "Memcpy DtoH" in e.name))
-    kernels.sort()
     out = {}
-    for name, rs in spans.items():
-        inside = [(h, d) for a, b, h, d in kernels for lo, hi in rs
+    for name in sorted(set(spans) | set(ranges)):
+        inside = [(h, d) for a, b, h, d in kernels
+                  for lo, hi in spans.get(name, ())
                   if lo <= a and b <= hi]
-        out[name] = len(inside) / n
+        issued = sum(1 for a, b in calls for lo, hi in ranges.get(name, ())
+                     if lo <= a and b <= hi)
+        if issued != len(inside):
+            print(f"  stage {name}: {len(inside)} launches in its device "
+                  f"spans ({len(spans.get(name, ()))}), {issued} launch "
+                  f"calls in its host ranges ({len(ranges.get(name, ()))}) "
+                  f"over {n} frames", flush=True)
+        out[name] = max(len(inside), issued) / n
         out[f"{name} HtoD"] = sum(h for h, _d in inside) / n
         out[f"{name} DtoH"] = sum(d for _h, d in inside) / n
     return out
@@ -6175,13 +6342,14 @@ ENTRY_CLIP_LAUNCHES = 1
 PT_KERNELS = ("pt_rays", "pt_megakernel", "pt_reduce")
 
 # kernels the parallel phase must launch: the PT sample rays and fold, B5,
-# B4 (the dryrun's farm), K3 (RT bands and farms) and every walk and setup
-# of the raster bands
+# B4 (the dryrun's farm), K3 (RT bands and farms), every walk and setup
+# of the raster bands, and X5's two kernels and X5b (the train steps)
 PARALLEL_KERNELS = ("pt_megakernel", "pt_rays", "pt_reduce",
                     "modal_vote", "setup2dh", "pack", "raster_group_walk",
                     "raster_group_walk_k2", "raster_group_walk_grouped",
                     "pack_channels", "setup2dh_packed", "rt_trace",
-                    "raster_shade")
+                    "raster_shade", "soft_raster_fwd", "soft_raster_bwd",
+                    "soft_loss")
 
 
 def main() -> int:
@@ -6213,6 +6381,7 @@ def main() -> int:
     from ascii_renderer_tpu_torch.ops import raster_subtile as RS
     from ascii_renderer_tpu_torch.ops import rt_trace as RTK
     from ascii_renderer_tpu_torch.ops import setup2dh as S
+    from ascii_renderer_tpu_torch.ops import soft_raster as SRK
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -6286,7 +6455,10 @@ def main() -> int:
                 "group_build": (GB, "launches"),
                 "partition": (PTN, "launches"),
                 "partition_order": (PTN, "launches_order"),
-                "accum": (OA, "launches")}
+                "accum": (OA, "launches"),
+                "soft_raster_fwd": (SRK, "launches"),
+                "soft_raster_bwd": (SRK, "launches_bwd"),
+                "soft_loss": (SRK, "launches_loss")}
     # fma32 first: the other kernels' plain versions call it
     soup = _bunny()
     scene = _scene(dev)
@@ -6598,8 +6770,12 @@ def main() -> int:
         "glyph_map"], c_cli
     profile_frames(expand_fn, 20, ("glyph.",), "expand_pixels 96x36")
 
-    # the parallel path: config 5's train steps, row bands, the mesh over
-    # a world of one card, dryrun_multichip(1)
+    # the parallel path: X5 and X5b against their plain versions at config
+    # 5's shapes, then config 5's train steps, row bands, the mesh over a
+    # world of one card, dryrun_multichip(1)
+    soft_recs = check_soft_raster(dev)
+    recs += soft_recs
+    by_name.update({r["name"]: r for r in soft_recs})
     c_par, (train_fn, band_fn, close) = _path_counts(
         counters, lambda: run_parallel_path(dev, soup, scene))
     print(f"launches in the parallel phase: {c_par}", flush=True)
@@ -6612,8 +6788,24 @@ def main() -> int:
         assert c_par[k] > 0, f"{k} never launched in the parallel phase"
     check_band_keys_builds(dev, soup, scene)
     try:
-        profile_frames(train_fn, 1, ("train.",),
-                       f"config 5 train call ({CONFIG5_STEPS} steps)")
+        # config 5's steps: one X5 forward, X5b and X5 backward a step
+        c_train, _ = _path_counts(counters, train_fn, record=False)
+        print(f"config 5, a {CONFIG5_STEPS}-step call: X5 forward "
+              f"{c_train['soft_raster_fwd']}, X5b {c_train['soft_loss']}, X5 "
+              f"backward {c_train['soft_raster_bwd']} launches", flush=True)
+        for k in ("soft_raster_fwd", "soft_loss", "soft_raster_bwd"):
+            assert c_train[k] == CONFIG5_STEPS, (k, c_train)
+        busy, launches, _st, host = profile_frames(
+            train_fn, 1, ("train.",),
+            f"config 5 train call ({CONFIG5_STEPS} steps)")
+        print(f"config 5 a step: {launches / CONFIG5_STEPS:.2f} kernel "
+              f"launches, device busy {busy / CONFIG5_STEPS:.4f} ms, "
+              f"{100 * busy / train_fn.median_ms:.2f}% of the median call "
+              f"({train_fn.median_ms:.3f} ms, {train_fn.steps_per_s:.1f} "
+              f"steps/s), host ms a step by stage " + ", ".join(
+                  f"{k} {v / CONFIG5_STEPS:.3f}" for k, v in host.items())
+              + f"; the parent: {CONFIG5_PARENT}", flush=True)
+        assert launches <= CONFIG5_STEP_LAUNCHES * CONFIG5_STEPS, launches
         shade_stages("band frames", profile_frames(
             band_fn, 3, ("rt.", "pt.", "raster."),
             "band frames (RT 12 rows, PT 12 rows, subtile8 176 rows)")[2])

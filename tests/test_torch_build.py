@@ -386,7 +386,7 @@ def test_c_entry_points_match_the_ctypes_signatures():
         "ray_grid.cu", "fp.cu", "raster_shade.cu", "rt_trace.cu",
         "raster_clip.cu", "plane_table.cu", "bin_entries.cu",
         "group_build.cu", "frame_bytes.cu", "pt_reduce.cu", "partition.cu",
-        "accum.cu", "rt_trace_trig.cu"}
+        "accum.cu", "rt_trace_trig.cu", "soft_raster.cu"}
     for flag in ("-fmad=false", "arch=compute_90a,code=sm_90a"):
         assert flag in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
